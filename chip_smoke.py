@@ -16,6 +16,8 @@ Phases, in order; any failure exits non-zero and nothing catches it:
      bit, kernel / plain / library times and the bound;
   4. engine phase: Mistral-NeMo-12B at full width, random bf16 weights from
      a seeded generator, served through ``DecodeEngine`` (paged, lean, K2);
+     then the same prompts again on that engine with a few decode ticks
+     under ``torch.profiler``: device busy, launches and idle share per tick;
   5. the same model with ``fused=False`` for a few ticks (K1 + merge);
   6. the first decode tick of a ``'ref'``-backend engine against the lean
      one on the same weights and prompts;
@@ -43,13 +45,18 @@ F32_TOL = 2e-5
 # to float32 and compute in float32, so they differ only in summation order
 # and the float32 contract applies unchanged.
 BF16_TOL = 2e-5
-# Lean vs 'ref' engine logits (phase 6). The model is bf16 and the two
-# backends round attention differently: the lean kernels keep the softmax
-# probabilities in float32, the plain oracle rounds them to bf16 before the
-# PV product (as the reference's does). Over 40 random layers that moves
-# logits by a few bf16 steps of the residual stream; 0.25 bounds that with
-# room, on logits of unit scale.
-LOGIT_TOL = 0.25
+# Lean vs 'ref' engine logits (phase 6), elementwise |lean - ref| <= atol +
+# rtol * |ref|. The model is bf16 and the two backends round attention
+# differently: the lean kernels keep the softmax probabilities in float32,
+# the plain oracle rounds them to bf16 before the PV product (as the
+# reference's does). The logits leave the unembed GEMM rounded to bf16, so
+# a large logit moves by whole bf16 steps of its own size: rtol is 4 steps
+# (2^-6). The rest is drift of a few bf16 steps of the residual stream over
+# the layers: atol is a tenth of the run's typical |logit| (the median of
+# the ref logits, printed). A wrong attention output moves logits by about
+# that typical size, ten times the allowance.
+LOGIT_RTOL = 2.0 ** -6
+LOGIT_ATOL_FRAC = 0.1
 RATE_BYTES = {"PCIe": 2.0e12, "NVL": 3.9e12, "H200": 4.8e12}   # else H100 SXM 3.35e12
 RATE_OPS = {"float32": 67e12, "bfloat16": 989e12}             # dense, no sparsity
 
@@ -193,22 +200,19 @@ def kernel_phase(torch, sm_count: int, dev_name: str):
         print(f"  {dname}: K2 max|err| {err_k2:.3e}  K1 max|err| {err_k1:.3e}  "
               f"K1+merge vs plain K2 {err_k1m:.3e}  dense==paged bitwise: yes", flush=True)
 
-        # times: kernel, plain version, and one library call on dense KV
+        # times: kernel, plain version, and the library on the dense KV
         k2_ms = gpu_ms(lambda: ld.lean_decode_fused(*args))
         k2_plain_ms = gpu_ms(lambda: ld.lean_decode_fused_plain(*args), reps=5)
         k1_ms = gpu_ms(lambda: ld.lean_decode_partials(*args))
         k1_plain_ms = gpu_ms(lambda: ld.lean_decode_partials_plain(*args), reps=5)
-        kr = k_dense.repeat_interleave(gq, dim=1)
-        vr = v_dense.repeat_interleave(gq, dim=1)
-        mask = (torch.arange(kr.shape[2], device=dev)[None, :]
-                < torch.tensor(lens, device=dev)[:, None])[:, None, None, :]
-        q4 = q[:, :, None, :]
-        lib_ms = gpu_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            q4, kr, vr, attn_mask=mask))
-
         elem = torch.finfo(dtype).bits // 8
         tokens = sum(lens) * Hkv                        # K/V rows attended
         kv_bytes = 2 * tokens * d * elem
+        lib = library_yardstick(torch, q, k_dense, v_dense, lens, gq, elem)
+        lib_ms = lib[LIBRARY_CALL][0]
+        print("  " + dname + " SDPA (gather excluded): " + "; ".join(
+            f"{how} {ms:.4f} ms reading {nb / 1e6:.1f} MB" for how, (ms, nb) in lib.items()),
+            flush=True)
         small = q_seg.numel() * elem + 4 * (seg_ctx.numel() + route.numel()
                                             + ld.schedule_tensors(sched, dev)["desc"].numel())
         ops_count = 4 * gq * d * tokens                  # QK^T and PV, 2 flops a MAC
@@ -229,8 +233,34 @@ def kernel_phase(torch, sm_count: int, dev_name: str):
             r = results[(name, dname)]
             print(f"  {dname} {name}: {ms:.4f} ms (bound {r['bound_ms']:.4f} ms by "
                   f"{r['bound_by']}, {kv_bytes / 1e6:.1f} MB K/V; plain {plain_ms:.3f} ms; "
-                  f"SDPA on dense KV {lib_ms:.4f} ms)", flush=True)
+                  f"library {lib_ms:.4f} ms)", flush=True)
     return results
+
+
+# library_ms is the single call; the per-sequence calls are printed beside it
+LIBRARY_CALL = "one call, padded + mask"
+
+
+def library_yardstick(torch, q, k_dense, v_dense, lens, gq, elem):
+    """``scaled_dot_product_attention`` on the K/V already gathered to dense
+    ``(B, Hkv, S_pad, d)``, timed two ways; returns ``{how: (ms, K/V bytes
+    read)}``. The ``gq`` query heads of a KV head are folded into query rows,
+    which is the same function with no K/V copied per query head. One call
+    reads the padded batch with a length mask; one call per sequence reads
+    exactly its length. Timed only; the port never calls it."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    B, Hkv, S_pad, d = k_dense.shape
+    qf = q.reshape(B, Hkv, gq, d)
+    mask = (torch.arange(S_pad, device=q.device)[None, :]
+            < torch.tensor(lens, device=q.device)[:, None])[:, None, None, :]
+    padded_ms = gpu_ms(lambda: sdpa(qf, k_dense, v_dense, attn_mask=mask))
+    views = [(qf[b:b + 1], k_dense[b:b + 1, :, :L], v_dense[b:b + 1, :, :L])
+             for b, L in enumerate(lens)]
+    per_seq_ms = gpu_ms(lambda: [sdpa(*v) for v in views])
+    return {
+        LIBRARY_CALL: (padded_ms, 2 * B * Hkv * S_pad * d * elem),
+        f"{B} calls, one per sequence": (per_seq_ms, 2 * sum(lens) * Hkv * d * elem),
+    }
 
 
 # --------------------------------------------------------------- engine phases
@@ -273,6 +303,64 @@ def drive(torch, eng, reqs):
         else:
             ticks.append((dt, len(out)))
     return first, ticks, first_logits
+
+
+TRACED_TICKS = 5
+
+
+def _union_us(intervals):
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def traced_ticks(torch, eng, reqs, untraced_p50_s: float):
+    """Where a decode tick's time goes: serve ``reqs`` again on the drained
+    engine, past admission and a warm-up, and trace ``TRACED_TICKS`` decode
+    ticks with ``torch.profiler``. Prints device busy per tick (union of the
+    kernel intervals), kernel launches per tick, the device's idle share --
+    of the traced ticks, and of the untraced tick p50, since the profiler
+    slows the host -- and the kernels with the most device time."""
+    for r in reqs:
+        eng.submit(r)
+    for _ in range(3):                       # admission tick + warm-up
+        eng.tick()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    walls = []
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(TRACED_TICKS):
+            t0 = time.perf_counter()
+            eng.tick()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    while eng.queue or any(eng.slot_req):
+        eng.tick()
+    eng.pool.check()
+    check(eng.pool.num_allocated == 0, "pages leaked after the traced ticks")
+    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    check(kernels, "the profiler recorded no device kernels")
+    busy_ms = _union_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3
+    busy_ms /= TRACED_TICKS
+    wall_ms = statistics.median(walls) * 1e3
+    by_name = {}
+    for e in kernels:
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
+    print(f"traced ticks: {TRACED_TICKS} decode ticks under torch.profiler, wall p50 "
+          f"{wall_ms:.2f} ms; device busy {busy_ms:.2f} ms/tick; "
+          f"{len(kernels) / TRACED_TICKS:.0f} kernel launches/tick; device idle share "
+          f"{1 - busy_ms * TRACED_TICKS / (sum(walls) * 1e3):.3f} traced, "
+          f"{1 - busy_ms / (untraced_p50_s * 1e3):.3f} of the untraced tick p50", flush=True)
+    for kname, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]:
+        print(f"  {t / TRACED_TICKS / 1e3:8.3f} ms/tick  {n / TRACED_TICKS:7.1f}x  "
+              f"{kname[:90]}", flush=True)
 
 
 def main() -> int:
@@ -345,6 +433,7 @@ def main() -> int:
           f"p50 {p50 * 1e3:.2f} ms over {len(ticks)} ticks, {tok_s:.1f} tokens/s; "
           f"K2 launches {k2_launches} = {cfg.n_layers} layers x {decode_steps} steps; "
           "pool clean", flush=True)
+    traced_ticks(torch, eng, make_requests(Request, cfg.vocab_size, TRACED_TICKS + 6), p50)
     del eng
 
     # 5. two-phase (K1 + merge)
@@ -368,12 +457,18 @@ def main() -> int:
         eng.submit(r)
     eng.tick()
     ref_logits = eng.last_logits
-    diff = (ref_logits - lean_logits).abs().max().item()
+    typical = ref_logits.abs().median().item()
+    atol = LOGIT_ATOL_FRAC * typical
+    delta = (ref_logits - lean_logits).abs()
+    at = int(delta.argmax())
+    diff, ref_at = delta.flatten()[at].item(), ref_logits.flatten()[at].item()
     agree = int((ref_logits.argmax(-1) == lean_logits.argmax(-1)).sum())
-    print(f"ref cross-check: first decode tick max |logit lean - ref| {diff:.4f} "
-          f"(tolerance {LOGIT_TOL}), greedy tokens agreeing {agree}/{len(PROMPT_LENS)}",
-          flush=True)
-    check(diff <= LOGIT_TOL, f"lean and ref logits differ by {diff}")
+    print(f"ref cross-check: first decode tick, median |ref logit| {typical:.4f}; "
+          f"max |logit lean - ref| {diff:.4f} where ref = {ref_at:.4f} (allowed "
+          f"{atol:.4f} + {LOGIT_RTOL} |ref|); greedy tokens agreeing "
+          f"{agree}/{len(PROMPT_LENS)}", flush=True)
+    check(typical > 0 and torch.allclose(lean_logits, ref_logits, rtol=LOGIT_RTOL, atol=atol),
+          f"lean and ref logits differ by up to {diff} (ref {ref_at}, typical |logit| {typical})")
     del eng
 
     # 7. summary

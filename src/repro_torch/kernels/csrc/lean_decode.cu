@@ -292,11 +292,8 @@ cudaError_t launch_typed(const Args& a, int num_workers, cudaStream_t stream) {
 template <typename T, bool FUSED>
 cudaError_t launch_gq(const Args& a, int gq, int num_workers, cudaStream_t stream) {
   switch (gq) {
-    case 1: return launch_typed<T, 1, FUSED>(a, num_workers, stream);
     case 2: return launch_typed<T, 2, FUSED>(a, num_workers, stream);
     case 4: return launch_typed<T, 4, FUSED>(a, num_workers, stream);
-    case 8: return launch_typed<T, 8, FUSED>(a, num_workers, stream);
-    case 16: return launch_typed<T, 16, FUSED>(a, num_workers, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -49,7 +49,7 @@ DESC_SEG, DESC_TILE, DESC_PIECE, DESC_FIRST, DESC_LAST, DESC_LEN, DESC_VALID = r
 OP_PARTIAL = 1
 
 SOURCE = "lean_decode.cu"
-KERNEL_GQ = (1, 2, 4, 8, 16)          # query rows per segment the kernels take
+KERNEL_GQ = (2, 4)    # query rows per segment: the smoke config's and Mistral-NeMo-12B's
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # launch counters: +1 per kernel launch, nowhere else
