@@ -52,6 +52,40 @@ def paged_gather_kv(pool: torch.Tensor, page_tbl: torch.Tensor) -> torch.Tensor:
     return g.movedim(2, 1).reshape(B, H, T * ps, d)
 
 
+def paged_scatter_tokens(
+    pool: torch.Tensor,         # (num_pages, H, page_size, d)
+    page_tbls: torch.Tensor,    # (N, W) int32 page table rows
+    offs: torch.Tensor,         # (N,) first logical position of each chunk
+    lens: torch.Tensor,         # (N,) valid tokens per chunk
+    vals: torch.Tensor,         # (N, C, H, d) new K or V rows
+) -> torch.Tensor:
+    """Scatter chunk tokens straight into a paged pool through the page
+    table, **in place** (the reference returns an updated pool instead).
+
+    Chunk row ``n`` writes token ``i < lens[n]`` at logical position
+    ``offs[n] + i``: page ``page_tbls[n, pos // page_size]``, offset
+    ``pos % page_size``. Invalid positions (``i >= lens[n]``: chunk padding,
+    pad rows of a pack) write the null page 0, whose contents runtime
+    lengths and the causal mask always mask; several of them may land on
+    the same null-page slot, harmlessly. Live rows never collide: requests
+    hold disjoint pages and a chunk's positions are distinct. Returns
+    ``pool``.
+    """
+    N, C, H, d = vals.shape
+    ps = pool.shape[2]
+    W = page_tbls.shape[1]
+    dev = pool.device
+    i = torch.arange(C, device=dev)
+    pos = offs.to(dev).long()[:, None] + i[None, :]                  # (N, C)
+    valid = i[None, :] < lens.to(dev).long()[:, None]
+    tile_idx = torch.clamp(pos // ps, 0, W - 1)
+    pages = torch.gather(page_tbls.to(dev).long(), 1, tile_idx)
+    pages = torch.where(valid, pages, torch.zeros_like(pages))
+    offsets = torch.where(valid, pos % ps, torch.zeros_like(pos))
+    pool[pages.reshape(-1), :, offsets.reshape(-1)] = vals.reshape(N * C, H, d).to(pool.dtype)
+    return pool
+
+
 def _softmax_pv(s: torch.Tensor, v: torch.Tensor, eq: str) -> torch.Tensor:
     p = torch.softmax(s, dim=-1)
     return torch.einsum(eq, p.to(v.dtype).float(), v.float())
@@ -112,6 +146,38 @@ def mha_prefill_ref(
     s = torch.where(ok, s, torch.full_like(s, NEG_INF))
     o = _softmax_pv(s, v, "bhgqk,bhkd->bhgqd")
     return o.reshape(B, Hq, Lq, d).to(q.dtype)
+
+
+def mha_chunk_prefill_paged_ref(
+    q: torch.Tensor,            # (N, Hq, C, d) one prompt chunk per row
+    k_pool: torch.Tensor,       # (num_pages, Hkv, page_size, d)
+    v_pool: torch.Tensor,
+    page_tbls: torch.Tensor,    # (N, W) int32
+    offs: torch.Tensor,         # (N,) absolute position of each chunk's q[0]
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Oracle attention for one pack of prefill chunks against paged KV.
+
+    Each chunk row gathers its dense KV view through its page table and
+    attends causally from its own absolute offset. Causality doubles as the
+    length mask: stale pool data past ``offs[n] + C`` always sits at key
+    positions beyond every valid query. Chunk-padding queries give garbage
+    rows that callers discard.
+    """
+    N, Hq, C, d = q.shape
+    Hkv = k_pool.shape[1]
+    g = Hq // Hkv
+    scale = _default_scale(d, scale)
+    k = paged_gather_kv(k_pool, page_tbls)                      # (N, Hkv, K, d)
+    v = paged_gather_kv(v_pool, page_tbls)
+    K = k.shape[2]
+    qg = q.reshape(N, Hkv, g, C, d)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg.float(), k.float()) * scale
+    qpos = offs.to(q.device).long()[:, None] + torch.arange(C, device=q.device)[None, :]
+    ok = torch.arange(K, device=q.device)[None, None, :] <= qpos[..., None]   # (N, C, K)
+    s = torch.where(ok[:, None, None], s, torch.full_like(s, NEG_INF))
+    o = _softmax_pv(s, v, "bhgqk,bhkd->bhgqd")
+    return o.reshape(N, Hq, C, d).to(q.dtype)
 
 
 def mha_prefill_chunked(

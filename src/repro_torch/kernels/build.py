@@ -8,6 +8,8 @@ library. All sources build in parallel, one ``nvcc`` each. ``--use_fast_math``
 is deliberately off: the kernels' ``expf``/``logf`` must stay accurate for
 the 2e-5 float32 contract with the reference.
 
+The binding helpers at the end are shared by the kernels' wrappers.
+
 Nothing here runs at import time; the CPU tests import this module freely.
 """
 from __future__ import annotations
@@ -21,9 +23,11 @@ import time
 from pathlib import Path
 from typing import Dict, List
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("lean_decode.cu",)
+SOURCES = ("lean_decode.cu", "lean_prefill.cu", "flash_decode.cu", "flash_prefill.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -43,7 +47,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(source: str) -> Path:
-    digest = hashlib.sha256((CSRC / source).read_bytes()).hexdigest()[:12]
+    h = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{Path(source).stem}_{digest}.so"
 
 
@@ -91,3 +98,36 @@ def ptxas_report(source: str) -> str:
     """The ``-Xptxas -v`` lines of the last build of ``source``."""
     log = _lib_path(source).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+# ------------------------------------------------------------ binding helpers
+# dtype codes of the C entry points: q and K/V share one dtype
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream(device: torch.device) -> ctypes.c_void_p:
+    """PyTorch's current stream on ``device``: kernels launch on it."""
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def check_launch(err: int, what: str):
+    """Raise on the ``cudaError_t`` a C entry point returned."""
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed with cudaError_t {err}")
+
+
+def check_contiguous(**tensors):
+    for name, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def check_dtypes(*tensors):
+    """The kernels take float32 or bfloat16 operands of one dtype."""
+    dts = [t.dtype for t in tensors]
+    if dts[0] not in DTYPE_CODE or any(dt != dts[0] for dt in dts):
+        raise TypeError(f"kernels take float32 or bfloat16 operands of one dtype, got {dts}")

@@ -19,9 +19,9 @@
 //
 // Structure. One CTA per stream-K worker (grid = num_workers). A worker
 // walks its T descriptor columns in order; each valid column is one
-// LeanTile online-softmax update (tile_update below, shared by K1 and K2)
-// of the segment's gq query rows against one tile x d K/V tile read from
-// pool row route[i], masked to the runtime length
+// LeanTile online-softmax update (attn::tile_update in attn_tile.cuh, shared
+// by K1, K2 and K6) of the segment's gq query rows against one tile x d K/V
+// tile read from pool row route[i], masked to the runtime length
 // vlen = clamp(ctx[seg] - tile_idx * tile, 0, tile). On the column that
 // ends a piece the CTA flushes the un-scaled (o, m, l).
 //
@@ -44,127 +44,16 @@
 // Plain C interface (loaded with ctypes); every entry point returns the
 // cudaError_t of its launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "attn_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr float kNegInf = -1e30f;  // finite mask value, as the reference
+using attn::kNegInf;
+using attn::kThreads;
+using attn::Smem;
 
 enum { DESC_SEG = 0, DESC_TILE, DESC_PIECE, DESC_FIRST, DESC_LAST, DESC_LEN, DESC_VALID };
 enum { OP_PARTIAL = 1 };
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-struct Smem {
-  float* q;      // (GQ, d)      query rows of the current segment
-  float* acc;    // (GQ, d)      running un-scaled output
-  float* p;      // (GQ, tile)   scores, then probabilities
-  float* m;      // (GQ)         running row max
-  float* l;      // (GQ)         running exp-sum
-  float* alpha;  // (GQ)         rescale of this update
-};
-
-template <int GQ>
-__device__ Smem carve_smem(float* base, int d, int tile) {
-  Smem s;
-  s.q = base;
-  s.acc = s.q + GQ * d;
-  s.p = s.acc + GQ * d;
-  s.m = s.p + GQ * tile;
-  s.l = s.m + GQ;
-  s.alpha = s.l + GQ;
-  return s;
-}
-
-// One LeanTile online-softmax update (Algorithm 1 lines 20-25), the same
-// arithmetic as repro/kernels/lean_decode.py:74-114:
-//   s = (q . k) * scale, masked to vlen with NEG_INF
-//   m_new = max(m, rowmax s); p = exp(s - m_new) (0 where masked)
-//   l = exp(m - m_new) * l + sum p; acc = exp(m - m_new) * acc + p @ v
-// Keys past vlen are neither loaded nor accumulated (their p is 0).
-// Caller syncs before (q/acc ready) and after (acc/m/l final).
-template <typename T, int GQ>
-__device__ void tile_update(const T* __restrict__ k_tile, const T* __restrict__ v_tile,
-                            int vlen, const Smem& s, int d, int tile, float scale) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-
-  // phase A: one warp per key, lanes stride over d (coalesced row reads)
-  for (int j = warp; j < vlen; j += kWarps) {
-    const T* krow = k_tile + (size_t)j * d;
-    float part[GQ];
-#pragma unroll
-    for (int r = 0; r < GQ; ++r) part[r] = 0.f;
-    for (int c = lane; c < d; c += 32) {
-      const float kv = to_float(krow[c]);
-#pragma unroll
-      for (int r = 0; r < GQ; ++r) part[r] = fmaf(s.q[r * d + c], kv, part[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < GQ; ++r) {
-      const float dot = warp_sum(part[r]);
-      if (lane == 0) s.p[r * tile + j] = dot * scale;
-    }
-  }
-  __syncthreads();
-
-  // phase B: one warp per query row -- running max, probabilities, exp-sum
-  for (int r = warp; r < GQ; r += kWarps) {
-    float* prow = s.p + r * tile;
-    float mx = kNegInf;
-    for (int j = lane; j < vlen; j += 32) mx = fmaxf(mx, prow[j]);
-    mx = warp_max(mx);
-    const float m_prev = s.m[r];
-    const float m_new = fmaxf(m_prev, mx);
-    float sum = 0.f;
-    for (int j = lane; j < vlen; j += 32) {
-      const float e = expf(prow[j] - m_new);
-      prow[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) {
-      const float a = expf(m_prev - m_new);
-      s.alpha[r] = a;
-      s.l[r] = a * s.l[r] + sum;
-      s.m[r] = m_new;
-    }
-  }
-  __syncthreads();
-
-  // phase C: one thread per output column, V rows read coalesced
-  for (int c = tid; c < d; c += kThreads) {
-    float pv[GQ];
-#pragma unroll
-    for (int r = 0; r < GQ; ++r) pv[r] = 0.f;
-#pragma unroll 4
-    for (int j = 0; j < vlen; ++j) {
-      const float vv = to_float(v_tile[(size_t)j * d + c]);
-#pragma unroll
-      for (int r = 0; r < GQ; ++r) pv[r] = fmaf(s.p[r * tile + j], vv, pv[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < GQ; ++r) s.acc[r * d + c] = s.alpha[r] * s.acc[r * d + c] + pv[r];
-  }
-  __syncthreads();
-}
 
 struct Args {
   const void* q;        // (S, GQ, d)
@@ -215,7 +104,7 @@ __device__ void merge_segment(const Args& a, int seg) {
 template <typename T, int GQ, bool FUSED>
 __global__ void __launch_bounds__(kThreads) lean_decode_kernel(Args a) {
   extern __shared__ float smem_raw[];
-  const Smem s = carve_smem<GQ>(smem_raw, a.d, a.tile);
+  const Smem s = attn::carve_smem<GQ>(smem_raw, a.d, a.tile);
   __shared__ int merge_here;
   const int d = a.d, tile = a.tile, N = a.n_cols;
   const T* q = static_cast<const T*>(a.q);
@@ -241,12 +130,12 @@ __global__ void __launch_bounds__(kThreads) lean_decode_kernel(Args a) {
       }
     }
     const T* qs = q + (size_t)seg * GQ * d;
-    for (int e = threadIdx.x; e < GQ * d; e += kThreads) s.q[e] = to_float(qs[e]);
+    for (int e = threadIdx.x; e < GQ * d; e += kThreads) s.q[e] = attn::to_float(qs[e]);
     const int vlen = min(max(a.seg_ctx[seg] - tile_idx * tile, 0), tile);
     const size_t row = (size_t)a.route[i];
     __syncthreads();
 
-    tile_update<T, GQ>(k_rows + row * row_elems, v_rows + row * row_elems, vlen, s, d,
+    attn::tile_update<T, GQ>(k_rows + row * row_elems, v_rows + row * row_elems, vlen, s, d,
                        tile, a.scale);
 
     if (last) {  // StorePartials (Algorithm 2 lines 20-22)
@@ -272,14 +161,10 @@ __global__ void __launch_bounds__(kThreads) lean_decode_kernel(Args a) {
   }
 }
 
-size_t smem_bytes(int gq, int d, int tile) {
-  return sizeof(float) * ((size_t)2 * gq * d + (size_t)gq * tile + 3 * (size_t)gq);
-}
-
 template <typename T, int GQ, bool FUSED>
 cudaError_t launch_typed(const Args& a, int num_workers, cudaStream_t stream) {
   auto kernel = lean_decode_kernel<T, GQ, FUSED>;
-  const size_t smem = smem_bytes(GQ, a.d, a.tile);
+  const size_t smem = attn::smem_bytes(GQ, a.d, a.tile);
   if (smem > 48 * 1024) {
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -50,7 +50,6 @@ OP_PARTIAL = 1
 
 SOURCE = "lean_decode.cu"
 KERNEL_GQ = (2, 4)    # query rows per segment: the smoke config's and Mistral-NeMo-12B's
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # launch counters: +1 per kernel launch, nowhere else
 partials_launches = 0
@@ -114,19 +113,13 @@ def _check_operands(q_seg, k_rows, v_rows, seg_ctx, route, sched: LeanSchedule):
 def _check_cuda(q_seg, k_rows, v_rows, seg_ctx, route):
     """What the CUDA kernels accept; anything else raises."""
     gq = q_seg.shape[1]
-    if q_seg.dtype not in _DTYPE_CODE or not (q_seg.dtype == k_rows.dtype == v_rows.dtype):
-        raise TypeError(
-            f"kernels take float32 or bfloat16 q/K/V of one dtype, got "
-            f"{q_seg.dtype}, {k_rows.dtype}, {v_rows.dtype}"
-        )
+    build.check_dtypes(q_seg, k_rows, v_rows)
     if seg_ctx.dtype != torch.int32 or route.dtype != torch.int32:
         raise TypeError("seg_ctx and route must be int32")
     if gq not in KERNEL_GQ:
         raise ValueError(f"kernels take gq in {KERNEL_GQ}, got {gq}")
-    for name, t in (("q_seg", q_seg), ("k_rows", k_rows), ("v_rows", v_rows),
-                    ("seg_ctx", seg_ctx), ("route", route)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    build.check_contiguous(q_seg=q_seg, k_rows=k_rows, v_rows=v_rows, seg_ctx=seg_ctx,
+                           route=route)
 
 
 def _check_no_scales(k_scales, v_scales):
@@ -134,10 +127,6 @@ def _check_no_scales(k_scales, v_scales):
         raise NotImplementedError(
             "int8 KV scales are not ported yet (ROADMAP queue 1, item 9)"
         )
-
-
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
 
 
 def _library() -> ctypes.CDLL:
@@ -156,17 +145,18 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _raise_on(err: int, what: str):
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed with cudaError_t {err}")
-
-
 # ------------------------------------------------------------ plain versions
 def lean_decode_partials_plain(q_seg, k_rows, v_rows, seg_ctx, route,
-                               sched: LeanSchedule, scale: float):
+                               sched: LeanSchedule, scale: float,
+                               seg_qstart=None, chunk_cap: int = 1):
     """Plain PyTorch K1: walks the descriptor columns of every worker in
     step ``t`` order, as the kernel does, vectorised over the workers.
-    Returns ``(o_p (P, gq, d), m_p (P, gq), l_p (P, gq))`` in float32."""
+    Returns ``(o_p (P, gq, d), m_p (P, gq), l_p (P, gq))`` in float32.
+
+    With ``seg_qstart`` it is K4's walk (:mod:`.lean_prefill`): the ``gq``
+    rows are ``(g, chunk_cap)`` flattened chunk-minor and row ``r`` of
+    segment ``s`` sees only keys at positions ``<= seg_qstart[s] + r %
+    chunk_cap`` (the chunk-causal mask)."""
     S, gq, d = q_seg.shape
     dev = q_seg.device
     tile, G, T, P = sched.tile_size, sched.num_workers, sched.tiles_per_worker, sched.num_pieces
@@ -180,6 +170,7 @@ def lean_decode_partials_plain(q_seg, k_rows, v_rows, seg_ctx, route,
     m_p = torch.zeros(P + 1, gq, dtype=torch.float32, device=dev)
     l_p = torch.zeros(P + 1, gq, dtype=torch.float32, device=dev)
     pos = torch.arange(tile, device=dev)
+    row_pos = torch.arange(gq, device=dev) % chunk_cap
     for t in range(T):
         col = desc[:, :, t]
         seg, tl, piece = col[DESC_SEG], col[DESC_TILE], col[DESC_PIECE]
@@ -192,15 +183,19 @@ def lean_decode_partials_plain(q_seg, k_rows, v_rows, seg_ctx, route,
         l = torch.where(reset[:, None], torch.zeros_like(l), l)
 
         vlen = (ctx[segc] - tl * tile).clamp(0, tile)
-        mask = pos[None, :] < vlen[:, None]                       # (G, tile)
+        in_len = pos[None, :] < vlen[:, None]                     # (G, tile)
+        mask = in_len[:, None, :]                                 # (G, 1 | gq, tile)
+        if seg_qstart is not None:
+            qpos = seg_qstart.long()[segc][:, None] + row_pos[None, :]            # (G, gq)
+            mask = mask & ((tl * tile)[:, None, None] + pos[None, None, :] <= qpos[..., None])
         q = q_seg[segc].float()                                   # (G, gq, d)
         k = k_rows[rt[:, t]].float()                              # (G, tile, d)
-        v = torch.where(mask[..., None], v_rows[rt[:, t]].float(), 0.0)
+        v = torch.where(in_len[..., None], v_rows[rt[:, t]].float(), 0.0)
         s = torch.einsum("gqd,gtd->gqt", q, k) * scale
-        s = torch.where(mask[:, None, :], s, torch.full_like(s, NEG_INF))
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
-        p = torch.where(mask[:, None, :], p, torch.zeros_like(p))
+        p = torch.where(mask, p, torch.zeros_like(p))
         alpha = torch.exp(m - m_new)
         upd = ok[:, None]
         l = torch.where(upd, alpha * l + p.sum(dim=-1), l)
@@ -271,13 +266,13 @@ def lean_decode_partials(q_seg, k_rows, v_rows, seg_ctx, route,
     m_p = torch.empty(P + 1, gq, dtype=torch.float32, device=q_seg.device)
     l_p = torch.empty(P + 1, gq, dtype=torch.float32, device=q_seg.device)
     err = _library().lean_decode_partials_launch(
-        _DTYPE_CODE[q_seg.dtype], _ptr(q_seg), _ptr(k_rows), _ptr(v_rows),
-        _ptr(st["desc"]), sched.grid_iters, sched.tiles_per_worker,
-        sched.num_workers, _ptr(seg_ctx), _ptr(route),
-        _ptr(o_p), _ptr(m_p), _ptr(l_p), gq, d, sched.tile_size, float(scale),
-        ctypes.c_void_p(torch.cuda.current_stream(q_seg.device).cuda_stream),
+        build.DTYPE_CODE[q_seg.dtype], build.ptr(q_seg), build.ptr(k_rows), build.ptr(v_rows),
+        build.ptr(st["desc"]), sched.grid_iters, sched.tiles_per_worker,
+        sched.num_workers, build.ptr(seg_ctx), build.ptr(route),
+        build.ptr(o_p), build.ptr(m_p), build.ptr(l_p), gq, d, sched.tile_size, float(scale),
+        build.stream(q_seg.device),
     )
-    _raise_on(err, "lean_decode_partials (K1)")
+    build.check_launch(err, "lean_decode_partials (K1)")
     partials_launches += 1
     return o_p[:P], m_p[:P], l_p[:P]
 
@@ -304,14 +299,14 @@ def lean_decode_fused(q_seg, k_rows, v_rows, seg_ctx, route,
     o = torch.empty(S, gq, d, dtype=torch.float32, device=dev)
     lse = torch.empty(S, gq, dtype=torch.float32, device=dev)
     err = _library().lean_decode_fused_launch(
-        _DTYPE_CODE[q_seg.dtype], _ptr(q_seg), _ptr(k_rows), _ptr(v_rows),
-        _ptr(st["desc"]), sched.grid_iters, sched.tiles_per_worker,
-        sched.num_workers, _ptr(seg_ctx), _ptr(route),
-        _ptr(st["piece_start"]), _ptr(st["piece_count"]), _ptr(arrivals),
-        _ptr(o_p), _ptr(m_p), _ptr(l_p), _ptr(o), _ptr(lse),
+        build.DTYPE_CODE[q_seg.dtype], build.ptr(q_seg), build.ptr(k_rows), build.ptr(v_rows),
+        build.ptr(st["desc"]), sched.grid_iters, sched.tiles_per_worker,
+        sched.num_workers, build.ptr(seg_ctx), build.ptr(route),
+        build.ptr(st["piece_start"]), build.ptr(st["piece_count"]), build.ptr(arrivals),
+        build.ptr(o_p), build.ptr(m_p), build.ptr(l_p), build.ptr(o), build.ptr(lse),
         gq, d, sched.tile_size, float(scale),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+        build.stream(dev),
     )
-    _raise_on(err, "lean_decode_fused (K2)")
+    build.check_launch(err, "lean_decode_fused (K2)")
     fused_launches += 1
     return o, lse

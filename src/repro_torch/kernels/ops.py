@@ -1,10 +1,20 @@
-"""Public entry points for stream-K decode attention (port of the
-``'dense'``/``'paged'`` subset of ``repro.kernels.ops``).
+"""Public entry points for decode and chunked-prefill attention (port of
+``repro.kernels.ops`` without the cascade kind).
 
-``decode(q, kv, plan=DecodePlan(...), ctx=..., page_tbl=...)`` is the one
-dispatcher; the convenience functions build a plan and delegate, as in the
-reference. ``fused=True`` runs K2 (partials and merge in one launch);
-``fused=False`` runs K1 followed by :func:`segment_merge`. The reference
+``decode(q, kv, plan=DecodePlan(...), ctx=..., page_tbl=..., qstart=...)``
+is the one dispatcher; the convenience functions build a plan and delegate,
+as in the reference. Plan kinds:
+
+  * ``'dense'`` / ``'paged'``: stream-K decode. ``fused=True`` runs K2
+    (partials and merge in one launch); ``fused=False`` runs K1 followed by
+    :func:`segment_merge`.
+  * ``'verify'``: multi-query-row paged attention with a runtime causal
+    offset -- a chunked-prefill pack (:func:`lean_prefill_chunks`): K4
+    partials, then :func:`segment_merge`.
+  * ``'flash'``: the fixed-split FlashDecoding baseline over dense KV
+    (:func:`flash_decode_from_lens`): K6 partials, then :func:`merge_n`.
+
+The reference
 falls back from its fused kernel to the two-phase path when a schedule
 exceeds a TPU VMEM budget (``FUSED_VMEM_BUDGET``); K2 keeps its partials in
 global scratch and has no such budget, so here ``fused`` alone decides.
@@ -33,9 +43,12 @@ from repro_torch.core.leantile import (
     LeanSchedule,
     ScheduleCache,
     default_tile_size,
+    fixed_split_factor,
     make_schedule,
 )
-from repro_torch.core.merge import AttnPartial, finalize, segment_merge
+from repro_torch.core.merge import AttnPartial, finalize, merge_n, segment_merge
+from .flash_decode import flash_decode_partials
+from .lean_prefill import lean_prefill_chunk_partials
 from .lean_decode import (
     DESC_SEG,
     DESC_TILE,
@@ -53,14 +66,16 @@ __all__ = [
     "lean_decode_from_schedule",
     "lean_decode_paged",
     "lean_decode_paged_from_schedule",
+    "lean_prefill_chunks",
+    "flash_decode",
+    "flash_decode_from_lens",
     "default_num_workers",
 ]
 
+_PLAN_KINDS = ("dense", "paged", "flash", "verify")
 # plan kinds of the reference not ported yet, with their ROADMAP item
 _LATER_KINDS = {
     "cascade": "ROADMAP queue 1, item 8 (cascade, kernel K5)",
-    "flash": "ROADMAP queue 1, item 11 (fixed-split baseline, kernel K6)",
-    "verify": "ROADMAP queue 1, items 7 and 10 (chunked prefill / verify, kernel K4)",
 }
 
 
@@ -97,28 +112,66 @@ def default_num_workers(n_cores: int = 8, pipeline_factor: int = 2) -> int:
     return n_cores * pipeline_factor
 
 
+def _to_segments(q, k, v):
+    """``(B, Hq, d)``, ``(B, Hkv, S, d)`` -> segment-major views ``(B*Hkv,
+    g, d)`` and ``(B*Hkv, S, d)`` (the paper's constant-stride layout)."""
+    B, Hq, d = q.shape
+    _, Hkv, S, _ = k.shape
+    return (q.reshape(B * Hkv, Hq // Hkv, d), k.reshape(B * Hkv, S, d),
+            v.reshape(B * Hkv, S, d))
+
+
+def _pad_kv(k_seg, v_seg, tile: int):
+    """Pad the KV axis to a multiple of ``tile`` with zeros."""
+    pad = (-k_seg.shape[1]) % tile
+    if pad:
+        k_seg = torch.nn.functional.pad(k_seg, (0, 0, 0, pad))
+        v_seg = torch.nn.functional.pad(v_seg, (0, 0, 0, pad))
+    return k_seg, v_seg
+
+
 @dataclass(frozen=True)
 class DecodePlan:
     """Which kernel family, which schedule, which flags: one hashable key.
 
-    kind: ``'dense'`` (stream-K over dense per-slot KV) or ``'paged'``
-    (stream-K through a page table). The reference's ``'cascade'``,
-    ``'flash'`` and ``'verify'`` kinds raise ``NotImplementedError`` naming
-    their ROADMAP item.
+    kind:
+      * ``'dense'``  -- stream-K decode over dense per-slot KV
+      * ``'paged'``  -- stream-K decode through a page table
+      * ``'flash'``  -- fixed-split FlashDecoding baseline (``num_splits``
+        and ``tile``, no schedule)
+      * ``'verify'`` -- ``spec_rows`` stacked query rows per sequence
+        through a page table, against a chunk schedule with a runtime causal
+        offset: a chunked-prefill pack (speculative verify, the same
+        workload, is ROADMAP queue 1, item 10).
+
+    The reference's ``'cascade'`` kind raises ``NotImplementedError`` naming
+    its ROADMAP item. The reference's ``merge_impl`` is not a field: its
+    alternative picks the merge kernel K3, which is not ported, so the only
+    merge is :func:`segment_merge`.
     """
 
     kind: str
-    sched: LeanSchedule
+    sched: Optional[LeanSchedule] = None
     fused: bool = True
     return_lse: bool = False
+    num_splits: Optional[int] = None      # flash only
+    tile: Optional[int] = None            # flash only
+    spec_rows: int = 0                    # verify only: q rows per sequence
 
     def __post_init__(self):
         if self.kind in _LATER_KINDS:
             raise NotImplementedError(
                 f"plan kind {self.kind!r} is not ported yet: {_LATER_KINDS[self.kind]}"
             )
-        if self.kind not in ("dense", "paged"):
-            raise ValueError(f"unknown plan kind {self.kind!r}")
+        if self.kind not in _PLAN_KINDS:
+            raise ValueError(f"unknown plan kind {self.kind!r} (one of {_PLAN_KINDS})")
+        if self.kind == "flash":
+            if self.num_splits is None or self.tile is None:
+                raise ValueError("flash plans need num_splits and tile")
+        elif self.sched is None:
+            raise ValueError(f"{self.kind!r} plans need a schedule")
+        if self.kind == "verify" and self.spec_rows < 1:
+            raise ValueError("verify plans need spec_rows >= 1")
 
 
 def decode(
@@ -128,17 +181,27 @@ def decode(
     plan: DecodePlan,
     ctx: torch.Tensor,
     page_tbl: Optional[torch.Tensor] = None,
+    qstart: Optional[torch.Tensor] = None,
 ):
     """The one decode dispatcher: ``plan`` picks the kernel family, the
     tensors ride alongside. ``kv`` is dense per-slot ``(k, v)`` for
-    ``'dense'`` plans and the page pools for ``'paged'``; ``ctx`` is the
-    per-segment runtime context length ``(B*Hkv,)``."""
+    ``'dense'``/``'flash'`` plans and the page pools for
+    ``'paged'``/``'verify'``. ``ctx`` carries the runtime lengths: the
+    per-segment context ``(B*Hkv,)`` for decode kinds, the visible KV
+    (offset + chunk length) for ``'verify'``. ``qstart`` (verify only) is
+    the per-segment absolute position of query row 0."""
     k, v = kv
     if plan.kind == "dense":
         return _dense_decode_impl(q, k, v, ctx, plan)
+    if plan.kind == "flash":
+        return _flash_decode_impl(q, k, v, ctx, plan)
     if page_tbl is None:
-        raise ValueError("paged plans need page_tbl")
-    return _paged_decode_impl(q, k, v, ctx, page_tbl, plan)
+        raise ValueError(f"{plan.kind!r} plans need page_tbl")
+    if plan.kind == "paged":
+        return _paged_decode_impl(q, k, v, ctx, page_tbl, plan)
+    if qstart is None:
+        raise ValueError("verify plans need qstart")
+    return _verify_impl(q, k, v, ctx, qstart, page_tbl, plan)
 
 
 def _run(q_seg, k_rows, v_rows, seg_ctx, route, plan: DecodePlan):
@@ -176,30 +239,22 @@ def _dense_route(sched: LeanSchedule, s_pad: int, device) -> torch.Tensor:
 
 
 def _dense_decode_impl(q, k, v, seg_ctx, plan: DecodePlan):
-    B, Hq, d = q.shape
-    _, Hkv, S, _ = k.shape
     sched = plan.sched
     tile = sched.tile_size
-    gq = Hq // Hkv
-    pad = (-S) % tile
-    k_seg = k.reshape(B * Hkv, S, d)
-    v_seg = v.reshape(B * Hkv, S, d)
-    if pad:
-        k_seg = torch.nn.functional.pad(k_seg, (0, 0, 0, pad))
-        v_seg = torch.nn.functional.pad(v_seg, (0, 0, 0, pad))
-    s_pad = S + pad
+    q_seg, k_seg, v_seg = _to_segments(q, k, v)
+    k_seg, v_seg = _pad_kv(k_seg, v_seg, tile)
+    S_seg, s_pad, d = k_seg.shape
     if int(sched.seg_len.max(initial=0)) > s_pad:
         # the kernels read every scheduled tile: one past the cache would
         # read another segment's rows, or past the buffer
         raise ValueError(
             f"schedule walks {int(sched.seg_len.max())} tokens, the cache holds {s_pad}"
         )
-    k_rows = k_seg.contiguous().view(B * Hkv * s_pad // tile, tile, d)
-    v_rows = v_seg.contiguous().view(B * Hkv * s_pad // tile, tile, d)
+    k_rows = k_seg.contiguous().view(S_seg * s_pad // tile, tile, d)
+    v_rows = v_seg.contiguous().view(S_seg * s_pad // tile, tile, d)
     route = _dense_route(sched, s_pad, q.device)
     o_seg, lse = _run(
-        q.reshape(B * Hkv, gq, d).contiguous(), k_rows, v_rows,
-        seg_ctx.to(torch.int32).contiguous(), route, plan,
+        q_seg.contiguous(), k_rows, v_rows, seg_ctx.to(torch.int32).contiguous(), route, plan,
     )
     return _finish(o_seg, lse, q, plan)
 
@@ -366,3 +421,114 @@ def lean_decode_paged(
     return lean_decode_paged_from_schedule(
         q, k_pool, v_pool, seg_ctx, tbl, sched, fused=fused, return_lse=return_lse,
     )
+
+
+def lean_prefill_chunks(
+    q: torch.Tensor,                  # (N, Hq, C, d) one prompt chunk per row
+    k_pool: torch.Tensor,             # (num_pages, Hkv, page_size, d)
+    v_pool: torch.Tensor,
+    seg_ctx: torch.Tensor,            # (N*Hkv,) int32 visible KV (off + len)
+    seg_qstart: torch.Tensor,         # (N*Hkv,) int32 chunk start offsets
+    page_tbls: torch.Tensor,          # (N, W) int32 page table rows
+    sched: LeanSchedule,
+):
+    """Stream-K chunked prefill against a prebuilt chunk schedule
+    (:func:`repro_torch.core.leantile.make_chunk_schedule` over the pack's
+    visible KV lengths). ``seg_ctx``, ``seg_qstart`` and ``page_tbls`` are
+    runtime tensors, so one bucketed schedule serves a request at every
+    depth of its prompt. Two-phase: K4 partials, then the decode merge
+    (partials carry ``g * C`` rows per segment instead of ``g``). Returns
+    ``(N, Hq, C, d)`` in q's dtype.
+
+    Thin wrapper over :func:`decode` with a ``'verify'`` plan (``spec_rows
+    = C``).
+    """
+    plan = DecodePlan(kind="verify", sched=sched, spec_rows=q.shape[2])
+    return decode(q, (k_pool, v_pool), plan=plan, ctx=seg_ctx, page_tbl=page_tbls,
+                  qstart=seg_qstart)
+
+
+def _verify_impl(q, k_pool, v_pool, seg_ctx, seg_qstart, page_tbls, plan: DecodePlan):
+    N, Hq, C, d = q.shape
+    num_pages, Hkv, page_size, _ = k_pool.shape
+    sched = plan.sched
+    if page_size != sched.tile_size:
+        raise ValueError(
+            f"page_size {page_size} != schedule tile_size {sched.tile_size}"
+            " — lean tiles must map 1:1 onto pages"
+        )
+    if C != plan.spec_rows:
+        raise ValueError(f"q carries {C} rows per sequence, plan says {plan.spec_rows}")
+    g = Hq // Hkv
+    scale = 1.0 / math.sqrt(d)
+    q_seg = q.reshape(N, Hkv, g, C, d).reshape(N * Hkv, g * C, d).contiguous()
+    k_rows, v_rows = _pool_rows(k_pool, v_pool)
+    route = _paged_route(sched, page_tbls, Hkv)
+    o_p, m_p, l_p = lean_prefill_chunk_partials(
+        q_seg, k_rows, v_rows, seg_ctx.to(torch.int32).contiguous(),
+        seg_qstart.to(torch.int32).contiguous(), route, sched, scale, chunk_cap=C,
+    )
+    seg = segment_merge(
+        AttnPartial(o=o_p, m=m_p, l=l_p),
+        schedule_tensors(sched, o_p.device)["piece_seg"],
+        sched.num_segments,
+    )
+    return finalize(seg).reshape(N, Hq, C, d).to(q.dtype)
+
+
+def flash_decode_from_lens(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    seg_ctx: torch.Tensor,            # (B*Hkv,) int32 true context lengths
+    *,
+    num_splits: int,
+    tile: int,
+):
+    """The FlashDecoding baseline with runtime lengths and a fixed split:
+    ``q (B, Hq, d)``, dense ``k, v (B, Hkv, S, d)``. Thin wrapper over
+    :func:`decode` with a ``'flash'`` plan."""
+    plan = DecodePlan(kind="flash", num_splits=num_splits, tile=tile)
+    return decode(q, (k, v), plan=plan, ctx=seg_ctx)
+
+
+def _flash_decode_impl(q, k, v, seg_ctx, plan: DecodePlan):
+    B, Hq, d = q.shape
+    q_seg, k_seg, v_seg = _to_segments(q, k, v)
+    k_seg, v_seg = _pad_kv(k_seg, v_seg, plan.tile)
+    o_p, m_p, l_p = flash_decode_partials(
+        q_seg.contiguous(), k_seg.contiguous(), v_seg.contiguous(),
+        seg_ctx.to(torch.int32).contiguous(), plan.num_splits, plan.tile, 1.0 / math.sqrt(d),
+    )
+    part = AttnPartial(o=o_p.movedim(1, 0), m=m_p.movedim(1, 0), l=l_p.movedim(1, 0))
+    out = finalize(merge_n(part))
+    return out.reshape(B, Hq, d).to(q.dtype)
+
+
+def flash_decode(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    ctx_lens: Optional[Sequence[int]] = None,
+    *,
+    num_splits: Optional[int] = None,
+    num_workers: Optional[int] = None,
+    tile: Optional[int] = None,
+):
+    """FlashDecoding baseline: fixed-split partitioning + merge.
+    ``num_splits=None`` applies FlashDecoding's heuristic, the smallest
+    split factor that covers the workers (paper section III-C, Fig. 1)."""
+    B, Hq, d = q.shape
+    _, Hkv, S, _ = k.shape
+    if ctx_lens is None:
+        ctx_lens = [S] * B
+    ctx_lens = _clamp_ctx_lens(ctx_lens, S, "flash_decode")
+    tile = tile or default_tile_size(d)
+    tile = min(tile, max(8, S))
+    if num_splits is None:
+        num_workers = num_workers or default_num_workers()
+        num_splits = fixed_split_factor(max(ctx_lens), B * Hkv, tile, num_workers)
+    seg_lens = torch.as_tensor(
+        np.repeat(np.asarray(ctx_lens), Hkv), dtype=torch.int32
+    ).to(q.device)
+    return flash_decode_from_lens(q, k, v, seg_lens, num_splits=num_splits, tile=tile)

@@ -6,4 +6,6 @@ from .transformer import (
     init_params,
     params_from_numpy,
     prefill,
+    prefill_chunks,
+    supports_chunked_prefill,
 )

@@ -5,8 +5,7 @@ Plain functions on tensors and parameter dicts, in the reference's layout:
 weights are ``(in, out)`` and activations multiply from the left
 (``x @ w``). Matmuls run in bf16 (``COMPUTE_DTYPE``), as the reference's
 ``x.astype(bf16) @ w.astype(bf16)``; norms and rotary angles are float32.
-Layers take rotary positions and prefill from position 0, the only forms
-the ported architectures use.
+Layers take rotary positions, the only form the ported architectures use.
 """
 from __future__ import annotations
 
@@ -14,7 +13,13 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.core.attention import mha_decode_ref, mha_prefill_ref, paged_gather_kv
+from repro_torch.core.attention import (
+    mha_chunk_prefill_paged_ref,
+    mha_decode_ref,
+    mha_prefill_ref,
+    paged_gather_kv,
+    paged_scatter_tokens,
+)
 
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -129,6 +134,51 @@ def attn_decode_paged(
         )
     o = o.reshape(B, 1, n_heads * head_dim).to(COMPUTE_DTYPE)
     out = o @ p["wo"].to(COMPUTE_DTYPE)
+    return out.to(x.dtype), k_pool, v_pool
+
+
+def attn_prefill_chunk_paged(
+    p,
+    x: torch.Tensor,              # (N, C, D) one prompt chunk per row
+    k_pool: torch.Tensor,         # (num_pages, Hkv, page_size, hd)
+    v_pool: torch.Tensor,
+    page_tbls: torch.Tensor,      # (N, W) int32 page table rows
+    offs: torch.Tensor,           # (N,) absolute position of chunk[0]
+    lens: torch.Tensor,           # (N,) valid tokens per chunk
+    *,
+    n_heads: int,
+    n_kv: int,
+    head_dim: int,
+    rope_theta: float,
+    attn_fn: Optional[Callable] = None,   # f(q, k_pool, v_pool, page_tbls, offs) -> o
+):
+    """Chunked-prefill attention of a global-attention layer against the
+    paged pool: each row is ``C`` positions of one prompt from absolute
+    offset ``offs[n]``, of which ``lens[n]`` are valid.
+
+    The chunk's K/V are written into the pools *in place* through the row's
+    page table **before** attention reads them, since queries attend to
+    their own chunk (causally); pad positions write the null page. Rotary
+    positions are absolute, so chunked and whole-prompt prefill fill the
+    cache alike. ``attn_fn`` receives ``q (N, Hq, C, hd)``, the pools, the
+    tables and the offsets; without one the plain oracle
+    :func:`mha_chunk_prefill_paged_ref` runs. Pad rows give garbage confined
+    to their own rows. Returns ``(out, k_pool, v_pool)``.
+    """
+    N, C, _ = x.shape
+    q, k, v = _project_qkv(p, x.to(COMPUTE_DTYPE), n_heads, n_kv, head_dim)
+    pos = offs.to(x.device).long()[:, None] + torch.arange(C, device=x.device)[None, :]
+    q = rope(q, pos, rope_theta)
+    k = rope(k, pos, rope_theta)
+    paged_scatter_tokens(k_pool, page_tbls, offs, lens, k)
+    paged_scatter_tokens(v_pool, page_tbls, offs, lens, v)
+    qh = q.transpose(1, 2)                                  # (N, Hq, C, hd)
+    if attn_fn is not None:
+        o = attn_fn(qh, k_pool, v_pool, page_tbls, offs)
+    else:
+        o = mha_chunk_prefill_paged_ref(qh, k_pool, v_pool, page_tbls, offs)
+    o = o.transpose(1, 2).reshape(N, C, n_heads * head_dim)
+    out = o.to(COMPUTE_DTYPE) @ p["wo"].to(COMPUTE_DTYPE)
     return out.to(x.dtype), k_pool, v_pool
 
 

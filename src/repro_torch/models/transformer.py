@@ -9,8 +9,8 @@ bf16: the reference keeps them in float32 but casts them to bf16 at every
 use, so the values multiplied are the same. Norm weights stay float32.
 
 The paged decode cache is a list with one ``{"k", "v"}`` dict of page pools
-``(num_pages, Hkv, page_size, hd)`` per layer; :func:`decode_step` writes
-the new token's K/V into it in place.
+``(num_pages, Hkv, page_size, hd)`` per layer; :func:`decode_step` and
+:func:`prefill_chunks` write new K/V into it in place.
 """
 from __future__ import annotations
 
@@ -24,7 +24,13 @@ import torch
 
 from repro_torch.core.attention import mha_prefill_chunked, mha_prefill_ref
 from repro_torch.device import DeviceLike, resolve_device
-from .layers import attn_decode_paged, attn_forward, ffn_forward, rms_norm
+from .layers import (
+    attn_decode_paged,
+    attn_forward,
+    attn_prefill_chunk_paged,
+    ffn_forward,
+    rms_norm,
+)
 
 
 @dataclass(frozen=True)
@@ -274,3 +280,69 @@ def decode_step(
         x = _ffn_part(lp, x + h, cfg)
     x = rms_norm(x[:, -1], params["final_norm"], cfg.norm_eps)
     return _unembed(params, cfg, x), cache
+
+
+def supports_chunked_prefill(cfg: ModelConfig) -> bool:
+    """Chunked prefill streams prompt pieces through the paged pool: every
+    stage must be a global-attention layer and positions must be rotary.
+    Other architectures fall back to blocking admission."""
+    return cfg.rope_theta is not None and all(
+        kind == "attn" for pattern, _ in cfg.stages for kind in pattern
+    )
+
+
+def _chunk_forward(
+    params,
+    cfg: ModelConfig,
+    cache,
+    tokens: torch.Tensor,           # (N, C) one token block per row
+    offs: torch.Tensor,             # (N,) tokens already in the cache per row
+    lens: torch.Tensor,             # (N,) valid tokens in each block
+    page_tbls: torch.Tensor,        # (N, W) page table rows of the blocks
+    attn_fn: Optional[Callable] = None,
+):
+    """Run N token blocks through every layer against the paged cache,
+    appending K/V at each row's depth ``offs[n]`` (in place). Returns the
+    hidden states ``(N, C, D)``."""
+    if not supports_chunked_prefill(cfg):
+        raise ValueError(
+            f"{cfg.name}: chunked prefill requires all-'attn' stages and rotary "
+            "positions (see supports_chunked_prefill)"
+        )
+    check_supported(cfg)
+    x = _embed(params, cfg, tokens)
+    for lp, lc in zip(params["layers"], cache):
+        h, lc["k"], lc["v"] = attn_prefill_chunk_paged(
+            lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps),
+            lc["k"], lc["v"], page_tbls, offs, lens,
+            n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
+            rope_theta=cfg.rope_theta, attn_fn=attn_fn,
+        )
+        x = _ffn_part(lp, x + h, cfg)
+    return x
+
+
+def prefill_chunks(
+    params,
+    cfg: ModelConfig,
+    cache,
+    tokens: torch.Tensor,           # (N, C) one prompt chunk per row
+    offs: torch.Tensor,             # (N,) tokens already prefilled per row
+    lens: torch.Tensor,             # (N,) valid tokens in each chunk
+    page_tbls: torch.Tensor,        # (N, W) page table rows of the chunks
+    attn_fn: Optional[Callable] = None,
+):
+    """Forward N prompt chunks against the shared paged cache, the
+    chunked-prefill sibling of :func:`decode_step`: each row is one chunk of
+    one request's prompt at its own depth ``offs[n]``; K/V go straight into
+    the page pools (in place) and queries attend causally over the row's
+    visible prefix. Returns ``(logits (N, V) float32, cache)``, the logits
+    at each row's last valid position: a row that finishes its prompt
+    samples its first token from them."""
+    N, C = tokens.shape
+    lens = lens.to(tokens.device)
+    x = _chunk_forward(params, cfg, cache, tokens, offs, lens, page_tbls, attn_fn)
+    idx = torch.clamp(lens.long() - 1, 0, C - 1)
+    x_last = x[torch.arange(N, device=x.device), idx]
+    x_last = rms_norm(x_last, params["final_norm"], cfg.norm_eps)
+    return _unembed(params, cfg, x_last), cache

@@ -21,7 +21,7 @@ from repro.serving.config import EngineConfig as JConfig, PagedConfig as JPaged 
 from repro.serving.engine import DecodeEngine as JEngine, Request as JRequest  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.models import params_from_numpy  # noqa: E402
-from repro_torch.serving.config import EngineConfig, PagedConfig  # noqa: E402
+from repro_torch.serving.config import CascadeConfig, EngineConfig, PagedConfig  # noqa: E402
 from repro_torch.serving.engine import DecodeEngine, PoisonError, Request  # noqa: E402
 
 NEAR_TIE = 2**-7
@@ -163,7 +163,7 @@ def test_unservable_request_is_refused(model):
 
 @pytest.mark.parametrize("change", [
     dict(paged=PagedConfig(enabled=False)),
-    dict(attn_backend="fixed"),
+    dict(cascade=CascadeConfig(enabled=True)),
     dict(use_fast_path=False),
     dict(paged=PagedConfig(enabled=True, kv_dtype="int8")),
     dict(paged=PagedConfig(enabled=True, prefix_cache=True)),

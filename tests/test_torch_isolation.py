@@ -28,7 +28,9 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 import repro_torch.configs, repro_torch.kernels.build, repro_torch.kernels.lean_decode
-import repro_torch.models, repro_torch.serving.engine
+import repro_torch.kernels.lean_prefill, repro_torch.kernels.flash_decode
+import repro_torch.kernels.flash_prefill, repro_torch.kernels.ops
+import repro_torch.models, repro_torch.serving.engine, repro_torch.serving.scheduler
 leaked = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 print(json.dumps({{"modules": len(names), "leaked": leaked}}))
 """
@@ -46,7 +48,7 @@ def test_port_imports_without_jax_or_repro():
                          timeout=300, env=_env(), cwd=str(ROOT))
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert res["modules"] >= 15, res
+    assert res["modules"] >= 19, res
     assert res["leaked"] == [], f"repro modules loaded by the port: {res['leaked']}"
 
 

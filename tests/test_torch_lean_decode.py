@@ -174,8 +174,10 @@ def test_dense_convenience_matches_jax():
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
 
 
-@pytest.mark.parametrize("kind", ["cascade", "flash", "verify"])
+@pytest.mark.parametrize("kind", ["cascade"])
 def test_unported_plan_kinds_raise(kind):
+    """Only the cascade kind is still unported ('flash' and 'verify' are
+    held against JAX in tests/test_torch_chunked_prefill.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tops.DecodePlan(kind=kind, sched=make_schedule([8], 1, 8, 1))
 
