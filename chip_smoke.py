@@ -29,8 +29,30 @@ Phases, in order; any failure exits non-zero and nothing catches it:
      steps, launches, TTFT, decode tokens flowing during the long prefill,
      first tokens against the blocking engine's; then one phase of each
      under ``torch.profiler``: device busy, kernels, host syncs;
-  8. the kernel summary (one JSON line), the ``nvidia-smi`` line, and last
+  8. prefix-sharing serving phase: a 2048-token system prompt served once,
+     then four requests that start with it, through the ``Scheduler`` with
+     the radix prefix cache and cascade decode (K4 tails, K5 cascade ticks,
+     K2 before the grouping holds), against the same waves with the prefix
+     cache off: tokens matched and prefill skipped, peak pages, cascade
+     ticks, launches, TTFT, first-token and cascade-tick logits;
+  9. the kernel summary (one JSON line), the ``nvidia-smi`` line, and last
      ``{"ok": true, "device": {...}}``.
+
+The kernel phase (3) also holds K3 (the merge kernel) against its plain
+version and ``segment_merge``, drives the ``merge_impl="pallas"`` plans of
+``ops.decode`` (dense, paged, verify), and holds K5 (fused cascade) against
+its plain version, against the same cascade over duplicated pages (bit for
+bit), against K2 on the unshared batch and against the two-call cascade, on
+a 2048-token shared prefix and on a two-level grouping.
+
+A change to K1/K2 is compared with its parent on one card by timing
+only them at the kernel phase's decode shape, one process per checkout, in
+turns (parent, change, change, parent):
+
+    python3 chip_smoke.py --decode-kernel-times [OTHER_CHECKOUT/src]
+
+prints one JSON line of K1's and K2's median times (bf16, f32) for the
+kernels of this checkout, or of the given ``src`` directory.
 
 Imports ``repro_torch`` only, never JAX or the JAX package ``repro``.
 """
@@ -65,6 +87,10 @@ BF16_TOL = 2e-5
 # that typical size, ten times the allowance.
 LOGIT_RTOL = 2.0 ** -6
 LOGIT_ATOL_FRAC = 0.1
+# K5 against K2 on the unshared batch, and against the two-call cascade:
+# the regrouping re-associates the float32 softmax sums, which the
+# reference bounds by its float32 contract (tests/test_cascade.py:127-128)
+CASCADE_TOL = 2e-5
 RATE_BYTES = {"PCIe": 2.0e12, "NVL": 3.9e12, "H200": 4.8e12}   # else H100 SXM 3.35e12
 RATE_OPS = {"float32": 67e12, "bfloat16": 989e12}             # dense, no sparsity
 
@@ -207,6 +233,29 @@ def kernel_phase(torch, sm_count: int, dev_name: str):
                   f"dense and paged differ ({dname}, fused={fused})")
         print(f"  {dname}: K2 max|err| {err_k2:.3e}  K1 max|err| {err_k1:.3e}  "
               f"K1+merge vs plain K2 {err_k1m:.3e}  dense==paged bitwise: yes", flush=True)
+        # K3 on K1's partials against its plain version and segment_merge
+        o3, lse3 = ld.lean_merge(*parts, sched)
+        o3_ref, lse3_ref = ld.merge_pieces_plain(*parts, sched)
+        torch.cuda.synchronize()
+        err_k3 = max((o3 - o3_ref).abs().max().item(), (lse3 - lse3_ref).abs().max().item())
+        err_k3s = (o3 - o_two).abs().max().item()
+        check(torch.allclose(o3, o3_ref, atol=tol, rtol=tol)
+              and torch.allclose(lse3, lse3_ref, atol=tol, rtol=tol),
+              f"K3 {dname} disagrees with its plain version: max |err| {err_k3}")
+        check(torch.allclose(o3, o_two, atol=tol, rtol=tol),
+              f"K3 {dname} disagrees with segment_merge: max |err| {err_k3s}")
+        k3_ms = gpu_ms(lambda: ld.lean_merge(*parts, sched))
+        k3_plain_ms = gpu_ms(lambda: ld.merge_pieces_plain(*parts, sched), reps=5)
+        k3_bytes = 4 * (sum(t.numel() for t in parts) + o3.numel() + lse3.numel()
+                        + 2 * sched.num_segments)
+        b_ms, b_by = bound(dev_name, dname, k3_bytes, 6 * parts[0].numel())
+        results[("lean_merge", dname)] = {
+            "ms": k3_ms, "plain_ms": k3_plain_ms, "library_ms": None, "bound_ms": b_ms,
+            "bound_by": b_by, "max_abs_err": err_k3}
+        print(f"  {dname} lean_merge (K3) on K1's {sched.num_pieces} pieces: max|err| "
+              f"{err_k3:.3e} (vs segment_merge {err_k3s:.3e}); {k3_ms:.4f} ms (bound "
+              f"{b_ms:.4f} ms by {b_by}; plain {k3_plain_ms:.3f} ms; no single library call)",
+              flush=True)
 
         # times: kernel, plain version, and the library on the dense KV
         k2_ms = gpu_ms(lambda: ld.lean_decode_fused(*args))
@@ -245,6 +294,35 @@ def kernel_phase(torch, sm_count: int, dev_name: str):
     return results
 
 
+def decode_kernel_times(torch, sm_count: int, src: str) -> dict:
+    """K1's and K2's times at the kernel phase's decode shape, for the
+    kernels of the ``repro_torch`` under ``src`` (built there at first
+    use); 50 runs each, L2 evicted before each run."""
+    from repro_torch.core.leantile import make_schedule
+    from repro_torch.kernels import lean_decode as ld
+    from repro_torch.kernels import ops
+
+    check(os.path.abspath(ld.__file__).startswith(os.path.abspath(src) + os.sep),
+          f"kernels imported from {ld.__file__}, not from {src}")
+    lens, Hq, Hkv, d, tile, width = [4000, 1500, 700, 1], 32, 8, 128, 128, 32
+    sched = make_schedule(lens, Hkv, tile, sm_count)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    seg_ctx = torch.tensor([L for L in lens for _ in range(Hkv)], dtype=torch.int32, device=dev)
+    out = {"src": src}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k_pool, v_pool, tbl, _, _ = make_kv_problem(torch, lens, Hq, Hkv, d, tile, width,
+                                                       dtype, gen, dev)
+        k_rows, v_rows = ops._pool_rows(k_pool, v_pool)
+        args = (q.reshape(len(lens) * Hkv, Hq // Hkv, d).contiguous(), k_rows, v_rows, seg_ctx,
+                ops._paged_route(sched, tbl, Hkv), sched, 1.0 / math.sqrt(d))
+        dname = str(dtype).split(".")[-1]
+        out[f"K2 {dname}"] = gpu_ms(lambda: ld.lean_decode_fused(*args), reps=50)
+        out[f"K1 {dname}"] = gpu_ms(lambda: ld.lean_decode_partials(*args), reps=50)
+    return out
+
+
 # library_ms is the single call; the per-sequence calls are printed beside it
 LIBRARY_CALL = "one call, padded + mask"
 
@@ -270,8 +348,9 @@ def launch_counts():
     from repro_torch.kernels import lean_decode as ld
     from repro_torch.kernels import lean_prefill as lp
 
-    return {"K1": ld.partials_launches, "K2": ld.fused_launches, "K4": lp.launches,
-            "K6": fd.launches, "K8": fp.launches}
+    return {"K1": ld.partials_launches, "K2": ld.fused_launches, "K3": ld.merge_launches,
+            "K4": lp.launches, "K5": ld.cascade_launches, "K6": fd.launches,
+            "K8": fp.launches}
 
 
 # ------------------------------------------------------- chunked-prefill kernels
@@ -720,6 +799,410 @@ def scheduler_phase(torch, cfg, params, backend, sm_count, new_tokens, blocking)
     return {"counts": counts, "chunk_steps": chunk_steps, "ticks": ticks, "wall": wall}
 
 
+# ------------------------------------------------------------ merge kernel K3
+def merge_plan_drive(torch, sm_count: int):
+    """The ``merge_impl="pallas"`` plans of ``ops.decode`` -- the entry
+    points K3 serves (the engine keeps ``segment_merge``) -- at the kernel
+    phase's decode shape (dense and paged) and on a 256-token chunk pack
+    (verify), each against its ``"xla"`` plan. Returns the launch counts of
+    the three ``"pallas"`` calls."""
+    from repro_torch.core.leantile import make_chunk_schedule, make_schedule
+    from repro_torch.kernels import ops
+
+    lens, Hq, Hkv, d, tile, width = [4000, 1500, 700, 1], 32, 8, 128, 128, 32
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    q, k_pool, v_pool, tbl, k_dense, v_dense = make_kv_problem(
+        torch, lens, Hq, Hkv, d, tile, width, torch.bfloat16, gen, dev)
+    sched = make_schedule(lens, Hkv, tile, sm_count)
+    seg_ctx = torch.tensor([L for L in lens for _ in range(Hkv)], dtype=torch.int32, device=dev)
+    visible = [o + CHUNK for o in CHUNK_OFFS]
+    csched = make_chunk_schedule(visible, Hkv, tile, sm_count, max_len=max(visible) + tile)
+    qc, kc, vc, tblc = chunk_pack(torch, CHUNK_OFFS, CHUNK, Hq, Hkv, d, tile, torch.bfloat16,
+                                  gen, dev)
+    c_ctx = torch.tensor([v for v in visible for _ in range(Hkv)], dtype=torch.int32, device=dev)
+    c_qs = torch.tensor([o for o in CHUNK_OFFS for _ in range(Hkv)], dtype=torch.int32,
+                        device=dev)
+    calls = {
+        "dense": lambda impl: ops.lean_decode_from_schedule(
+            q, k_dense, v_dense, seg_ctx, sched, fused=False, merge_impl=impl),
+        "paged": lambda impl: ops.lean_decode_paged_from_schedule(
+            q, k_pool, v_pool, seg_ctx, tbl, sched, fused=False, merge_impl=impl),
+        "verify": lambda impl: ops.lean_prefill_chunks(
+            qc, kc, vc, c_ctx, c_qs, tblc, csched, merge_impl=impl),
+    }
+    errs = {}
+    reset_launch_counts()
+    outs = {kind: fn("pallas") for kind, fn in calls.items()}
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    for kind, fn in calls.items():
+        ref = fn("xla")
+        errs[kind] = (outs[kind].float() - ref.float()).abs().max().item()
+        # both round the same float32 merge of the same partials to bf16:
+        # one bf16 step of the output apart at most
+        step = torch.finfo(torch.bfloat16).eps * ref.float().abs()
+        check(bool(((outs[kind].float() - ref.float()).abs() <= step + F32_TOL).all()),
+              f"merge_impl='pallas' ({kind}) disagrees with 'xla': max |err| {errs[kind]}")
+    check(counts["K3"] == 3 and counts["K1"] == 2 and counts["K4"] == 1,
+          f"the 'pallas' merge plans launched {counts}, expected K3 3, K1 2, K4 1")
+    print("merge plans (merge_impl='pallas', bf16): K3 launches "
+          f"{counts['K3']} (dense, paged, verify); max |pallas - xla| "
+          + ", ".join(f"{k} {e:.2e}" for k, e in errs.items()), flush=True)
+    return counts
+
+
+# ------------------------------------------------------ cascade kernel (K5)
+PREFIX_TOKENS, SUFFIXES = 2048, (700, 300, 129, 1)
+CASCADE_CASES = {
+    # name: (passes (members, first page, pages), suffix tokens per sequence)
+    "2048-token shared prefix": ([((0, 1, 2, 3), 0, PREFIX_TOKENS // 128)], SUFFIXES),
+    "two-level (8 pages x 4, 8 more x 2)": ([((0, 1, 2, 3), 0, 8), ((0, 1), 8, 8)], SUFFIXES),
+}
+
+
+def cascade_problem(torch, passes, suffixes, Hq, Hkv, d, tile, dtype, gen, dev):
+    """A cascade batch on shuffled pages: the passes' members alias shared
+    pages (``tbl``), and ``dup`` is the same batch with every member past a
+    pass's first on its own copy of them -- the same tokens in private
+    pages."""
+    import numpy as np
+
+    B = len(suffixes)
+    cover = [0] * B
+    for mem, st, cnt in passes:
+        for b in mem:
+            cover[b] = max(cover[b], st + cnt)
+    lens = [cover[b] * tile + suffixes[b] for b in range(B)]
+    n_pages = [-(-L // tile) for L in lens]
+    width = max(n_pages) + 1
+    num_pages = 1 + sum(n_pages) + sum(c * len(m) for m, _, c in passes) + 2
+    free = (torch.randperm(num_pages - 1, generator=gen, device=dev).cpu() + 1).tolist()
+    tbl = np.zeros((B, width), np.int32)
+    for mem, st, cnt in passes:
+        pages = [free.pop() for _ in range(cnt)]
+        for b in mem:
+            tbl[b, st:st + cnt] = pages
+    for b in range(B):
+        for t in range(cover[b], n_pages[b]):
+            tbl[b, t] = free.pop()
+    shape = (num_pages, Hkv, tile, d)
+    k_pool = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    v_pool = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    k_pool[0] = 0
+    v_pool[0] = 0
+    dup = tbl.copy()
+    for mem, st, cnt in passes:
+        for b in mem[1:]:
+            copy = [free.pop() for _ in range(cnt)]
+            src = torch.as_tensor(tbl[b, st:st + cnt]).long().to(dev)
+            k_pool[copy], v_pool[copy] = k_pool[src], v_pool[src]
+            dup[b, st:st + cnt] = copy
+    q = torch.randn(B, Hq, d, generator=gen, device=dev).to(dtype)
+    return q, k_pool, v_pool, tbl, dup, lens
+
+
+def cascade_operands(torch, q, k_pool, v_pool, tbl, lens, passes, sm_count):
+    """K5's operands as ``ops.lean_decode_cascade`` builds them."""
+    import numpy as np
+
+    from repro_torch.core.leantile import cascade_fused_descriptors, make_cascade_schedule
+    from repro_torch.kernels import lean_decode as ld
+    from repro_torch.kernels import ops
+
+    dev = q.device
+    B, Hq, d = q.shape
+    _, Hkv, tile, _ = k_pool.shape
+    g = Hq // Hkv
+    csched, binding = make_cascade_schedule(
+        lens, [list(m) for m, _, _ in passes], [c for _, _, c in passes], Hkv, tile, sm_count,
+        page_starts=[st for _, st, _ in passes], max_len=tbl.shape[1] * tile)
+    ptbl, stbl = ops.cascade_tables(tbl, binding)
+    mem = torch.as_tensor(binding.members).long().clamp(min=0).to(dev)
+    nmax, NP = csched.group_size, csched.num_groups
+    q_pref = q.reshape(B, Hkv, g, d)[mem].movedim(2, 1).reshape(NP * Hkv, nmax * g, d)
+    suffix = np.asarray(lens) - binding.seq_prefix_len
+    ctx_all = np.concatenate([np.repeat(binding.prefix_lens, Hkv), np.repeat(suffix, Hkv)])
+    route = torch.cat([ops._paged_route(csched.prefix_sched, torch.as_tensor(ptbl).to(dev), Hkv),
+                       ops._paged_route(csched.suffix_sched, torch.as_tensor(stbl).to(dev), Hkv)])
+    k_rows, v_rows = ops._pool_rows(k_pool, v_pool)
+    fdesc = ld.cascade_fused_desc(cascade_fused_descriptors(csched, binding), csched, dev)
+    return (q_pref.contiguous(), q.reshape(B * Hkv, g, d).contiguous(), k_rows, v_rows,
+            torch.as_tensor(ctx_all.astype(np.int32)).to(dev), route.contiguous(), fdesc,
+            csched, 1.0 / math.sqrt(d)), binding
+
+
+def cascade_kernel_phase(torch, sm_count: int, dev_name: str):
+    """K5 at Mistral-NeMo-12B attention shapes (bf16 and f32, shuffled
+    pages, one worker per SM) on the two ``CASCADE_CASES``: against its
+    plain version, against the same cascade over duplicated pages (bit for
+    bit), against K2 on the unshared batch (the same tokens in private
+    pages; ``CASCADE_TOL``) and against the two-call cascade (K1 on each
+    pass + segment_merge); K5's, the plain version's, K2's and SDPA's
+    times, and K5's byte bound (without and with its partials)."""
+    from repro_torch.core.attention import paged_gather_kv
+    from repro_torch.core.leantile import make_schedule
+    from repro_torch.kernels import lean_decode as ld
+    from repro_torch.kernels import ops
+
+    Hq, Hkv, d, tile = 32, 8, 128, 128
+    g = Hq // Hkv
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    results = {}
+    for case, (passes, suffixes) in CASCADE_CASES.items():
+        for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+            dname = str(dtype).split(".")[-1]
+            elem = torch.finfo(dtype).bits // 8
+            q, k_pool, v_pool, tbl, dup, lens = cascade_problem(
+                torch, passes, suffixes, Hq, Hkv, d, tile, dtype, gen, dev)
+            args, binding = cascade_operands(torch, q, k_pool, v_pool, tbl, lens, passes,
+                                             sm_count)
+            csched = args[7]
+            B = len(lens)
+            o, lse = ld.lean_cascade_fused(*args)
+            o_ref, lse_ref = ld.lean_cascade_fused_plain(*args)
+            torch.cuda.synchronize()
+            err = max((o - o_ref).abs().max().item(), (lse - lse_ref).abs().max().item())
+            check(torch.allclose(o, o_ref, atol=tol, rtol=tol)
+                  and torch.allclose(lse, lse_ref, atol=tol, rtol=tol),
+                  f"K5 {dname} ({case}) disagrees with its plain version: max |err| {err}")
+            dup_args, _ = cascade_operands(torch, q, k_pool, v_pool, dup, lens, passes,
+                                           sm_count)
+            o_dup, lse_dup = ld.lean_cascade_fused(*dup_args)
+            check(torch.equal(o, o_dup) and torch.equal(lse, lse_dup),
+                  f"K5 {dname} ({case}): shared and duplicated pages differ")
+            # K2 on the unshared batch: the same tokens, every page private
+            sched = make_schedule(lens, Hkv, tile, sm_count)
+            seg_ctx = torch.tensor([L for L in lens for _ in range(Hkv)], dtype=torch.int32,
+                                   device=dev)
+            dup_t = torch.as_tensor(dup).to(dev)
+            k_rows, v_rows = ops._pool_rows(k_pool, v_pool)
+            k2_args = (q.reshape(B * Hkv, g, d).contiguous(), k_rows, v_rows, seg_ctx,
+                       ops._paged_route(sched, dup_t, Hkv), sched, 1.0 / math.sqrt(d))
+            o2, lse2 = ld.lean_decode_fused(*k2_args)
+            err_k2 = max((o - o2).abs().max().item(), (lse - lse2).abs().max().item())
+            check(torch.allclose(o, o2, atol=CASCADE_TOL, rtol=CASCADE_TOL)
+                  and torch.allclose(lse, lse2, atol=CASCADE_TOL, rtol=CASCADE_TOL),
+                  f"K5 {dname} ({case}) and K2 on the unshared batch differ by {err_k2}")
+            two = ops.lean_decode_cascade(
+                q, k_pool, v_pool, tbl, lens, [list(m) for m, _, _ in passes],
+                [c for _, _, c in passes], page_starts=[st for _, st, _ in passes],
+                num_workers=sm_count, fused=False, return_lse=True)
+            # the outputs leave in the inputs' type: in bf16 both round a
+            # float32 result, one bf16 step of the output apart at most
+            o_k5 = o.reshape(B, Hq, d).to(dtype).float()
+            step = torch.finfo(dtype).eps * o_k5.abs() if dtype == torch.bfloat16 else 0.0
+            err_two = max((two[0].float() - o_k5).abs().max().item(),
+                          (two[1] - lse.reshape(B, Hq)).abs().max().item())
+            check(bool(((two[0].float() - o_k5).abs() <= step + CASCADE_TOL).all())
+                  and torch.allclose(two[1], lse.reshape(B, Hq), atol=CASCADE_TOL,
+                                     rtol=CASCADE_TOL),
+                  f"K5 {dname} ({case}) and the two-call cascade differ by {err_two}")
+            k5_ms = gpu_ms(lambda: ld.lean_cascade_fused(*args))
+            k5_plain_ms = gpu_ms(lambda: ld.lean_cascade_fused_plain(*args), reps=3)
+            k2_ms = gpu_ms(lambda: ld.lean_decode_fused(*k2_args))
+            k_dense, v_dense = paged_gather_kv(k_pool, dup_t), paged_gather_kv(v_pool, dup_t)
+            lib = library_yardstick(torch, q, k_dense, v_dense, lens, g, elem)
+            lib_ms = lib[LIBRARY_CALL][0]
+            # bound: the bytes the function needs -- each pass's shared K/V
+            # once, the suffixes' K/V, the queries, o and lse. The round trip
+            # of K5's partials (all qmax stacked rows of a prefix piece,
+            # written once and read once) comes from splitting the work over
+            # CTAs; it is printed beside the bound, not counted in it.
+            pref_tok = int(binding.prefix_lens[binding.members[:, 0] >= 0].sum())
+            suf_tok = sum(lens) - int(binding.seq_prefix_len.sum())
+            kv_bytes = 2 * (pref_tok + suf_tok) * Hkv * d * elem
+            Pp, Ps = csched.prefix_sched.num_pieces, csched.suffix_sched.num_pieces
+            qmax = args[0].shape[1]
+            part_bytes = 2 * 4 * (d + 2) * (Pp * qmax + Ps * g)
+            nbytes = kv_bytes + q.numel() * elem + 4 * (o.numel() + lse.numel())
+            members = (binding.members >= 0).sum(axis=1)
+            flops = 4 * d * (int((binding.prefix_lens * members).sum()) + suf_tok) * g * Hkv
+            b_ms, b_by = bound(dev_name, dname, nbytes, flops)
+            bp_ms, _ = bound(dev_name, dname, nbytes + part_bytes, flops)
+            unshared = 2 * sum(lens) * Hkv * d * elem
+            results[(case, dname)] = {
+                "ms": k5_ms, "plain_ms": k5_plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "max_abs_err": err, "k2_ms": k2_ms}
+            print(f"K5 {case} {dname}: lens {lens}, {csched.num_groups} pass(es) x "
+                  f"{csched.group_size} members ({qmax} stacked rows), pieces {Pp} + {Ps}; "
+                  f"max|err| {err:.3e}, shared == duplicated bitwise, vs K2 unshared "
+                  f"{err_k2:.2e}, vs two-call {err_two:.2e}; K5 {k5_ms:.4f} ms (bound "
+                  f"{b_ms:.4f} ms by {b_by}, {kv_bytes / 1e6:.1f} MB K/V; with the "
+                  f"{part_bytes / 1e6:.1f} MB round trip of K5's partials {bp_ms:.4f} ms; "
+                  f"plain {k5_plain_ms:.3f} ms); "
+                  f"K2 on the unshared batch {k2_ms:.4f} ms reading {unshared / 1e6:.1f} MB "
+                  f"K/V: K5/K2 = {k5_ms / k2_ms:.3f}; SDPA on the gathered K/V "
+                  f"{lib_ms:.4f} ms", flush=True)
+    return results
+
+
+# ------------------------------------------------------ prefix-sharing serving
+SYSTEM_TOKENS, WAVE1_TAIL, WAVE2_TAILS = 2048, 64, (700, 300, 129, 17)
+
+
+def prefix_waves(vocab, seed=5):
+    """Wave 1: the system prompt and a 64-token tail; wave 2: four requests
+    that start with the system prompt, with tails of ``WAVE2_TAILS``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    system = rng.integers(0, vocab, SYSTEM_TOKENS).astype(np.int32)
+    tail = lambda n: rng.integers(0, vocab, n).astype(np.int32)
+    return [[np.concatenate([system, tail(WAVE1_TAIL)])],
+            [np.concatenate([system, tail(n)]) for n in WAVE2_TAILS]]
+
+
+def prefix_serving_run(torch, cfg, params, sm_count, new_tokens, waves, prefix):
+    """The waves, one after the other, through ``Scheduler`` on ``lean``,
+    with the radix prefix cache and cascade decode (``prefix``) or without.
+    Records each request's first-token logits (from the chunk step that
+    completed its prompt) and its decode logits rows with their tokens, the
+    decode ticks' wall times, and whether each was a cascade tick."""
+    from repro_torch.serving.config import CascadeConfig, EngineConfig, PagedConfig
+    from repro_torch.serving.engine import DecodeEngine
+    from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
+
+    class Recorder(DecodeEngine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.first_rows, self.rows, self.tick_s = {}, {}, []
+
+        def prefill_chunks_tick(self, work, pack_width, chunk_cap):
+            toks = super().prefill_chunks_tick(work, pack_width, chunk_cap)
+            for i, (slot, chunk, off) in enumerate(work):
+                req = self.slot_req[slot]
+                if off + len(chunk) == len(req.prompt):
+                    self.first_rows[req.uid] = self.last_prefill_logits[i].float()
+            return toks
+
+        def decode_tick(self, exclude=None):
+            casc = self.stats.cascade_ticks
+            slots = {s: self.slot_req[s].uid for s in range(self.max_batch)
+                     if self.slot_req[s] is not None and s not in (exclude or ())}
+            t0 = time.perf_counter()
+            out = super().decode_tick(exclude)
+            torch.cuda.synchronize()
+            if out:
+                cascade = self.stats.cascade_ticks > casc
+                self.tick_s.append((time.perf_counter() - t0, cascade))
+                for s, uid in slots.items():
+                    if uid in out:
+                        self.rows.setdefault(uid, []).append(
+                            (self.last_logits[s].float(), out[uid], cascade))
+            return out
+
+    eng = Recorder(cfg, params, EngineConfig(
+        max_batch=4, cache_len=4096, attn_backend="lean", num_workers=sm_count,
+        paged=PagedConfig(enabled=True, page_size=128, prefix_cache=prefix),
+        cascade=CascadeConfig(enabled=prefix, stable_ticks=2)), device="cuda")
+    sch = Scheduler(eng, SchedulerConfig(chunk_size=SCHED_CHUNK, prefill_pack=SCHED_PACK,
+                                         token_budget=SCHED_BUDGET, chunked=True))
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    handles, uid = [], 0
+    for wave in waves:
+        hs = [sch.submit(p, new_tokens, uid=uid + i) for i, p in enumerate(wave)]
+        uid += len(wave)
+        sch.run_to_completion(max_steps=400)
+        check(all(h.done and len(h.generated) == new_tokens for h in hs),
+              f"prefix serving (prefix cache {prefix}): a request did not finish")
+        handles += hs
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    eng.pool.check()
+    if eng.prefix_cache is not None:
+        eng.prefix_cache.check()
+        check(eng.pool.num_allocated == eng.prefix_cache.cached_pages,
+              "prefix serving: pages held beyond the radix cache's after the drain")
+    else:
+        check(eng.pool.num_allocated == 0, "prefix serving: pages leaked")
+    return {"eng": eng, "sch": sch, "handles": handles, "counts": counts, "wall": wall}
+
+
+def prefix_serving_phase(torch, cfg, params, sm_count, new_tokens):
+    """Prefix-sharing serving at full width, against the same waves with the
+    prefix cache off: tokens matched, prefill skipped, peak pages, cascade
+    ticks, launches (K4 per chunk step, K5 per cascade tick, K2 per other
+    tick, 40 layers each), TTFT, tick p50; first-token logits and decode
+    logits up to the first differing token (cascade ticks among them)
+    within the engine phase's logit tolerance."""
+    waves = prefix_waves(cfg.vocab_size)
+    off = prefix_serving_run(torch, cfg, params, sm_count, new_tokens, waves, prefix=False)
+    on = prefix_serving_run(torch, cfg, params, sm_count, new_tokens, waves, prefix=True)
+    eng, st, c = on["eng"], on["eng"].stats, on["counts"]
+    L = cfg.n_layers
+    chunk_steps = len(st.tick_prefill_tokens)
+    check(st.cascade_fused_ticks > 0, "prefix serving: no cascade tick ran K5")
+    check(c["K5"] == L * st.cascade_fused_ticks,
+          f"prefix serving: K5 launched {c['K5']} times, expected {L} x "
+          f"{st.cascade_fused_ticks} cascade ticks")
+    check(c["K2"] == L * (st.ticks - st.cascade_ticks),
+          f"prefix serving: K2 launched {c['K2']} times, expected {L} x "
+          f"{st.ticks - st.cascade_ticks} non-cascade ticks")
+    check(c["K4"] == L * chunk_steps, f"prefix serving: K4 launched {c['K4']} times, "
+          f"expected {L} x {chunk_steps} chunk steps")
+    others = {k: n for k, n in c.items() if k not in ("K2", "K4", "K5") and n}
+    check(not others, f"prefix serving: other kernels ran: {others}")
+    skipped = off["eng"].stats.prefill_tokens - st.prefill_tokens
+    check(skipped > 0 and st.prefix_matched_tokens > 0, "prefix serving: nothing was shared")
+    # logits against the unshared run on the same waves
+    worst, compared, casc_rows, agree = (0.0, 0.0, -1), 0, 0, 0
+    for h in on["handles"]:
+        pairs = [(eng.first_rows[h.uid], off["eng"].first_rows[h.uid])]
+        for (a, ta, cascade), (b, tb, _) in zip(eng.rows.get(h.uid, []),
+                                                off["eng"].rows.get(h.uid, [])):
+            pairs.append((a, b))
+            casc_rows += int(cascade)
+            if ta != tb:
+                break               # later rows follow different tokens
+        for a, b in pairs:
+            check(bool(torch.isfinite(a).all()), "prefix serving: logits not finite")
+            atol = LOGIT_ATOL_FRAC * b.abs().median().item()
+            delta = (a - b).abs().max().item()
+            check(torch.allclose(a, b, rtol=LOGIT_RTOL, atol=atol),
+                  f"prefix serving: request {h.uid}'s logits differ from the unshared run by "
+                  f"up to {delta} (allowed {atol} + {LOGIT_RTOL} |ref|)")
+            worst = max(worst, (delta, atol, h.uid))
+            compared += 1
+        agree += int(h.generated == off["handles"][h.uid].generated)
+    check(casc_rows > 0, "prefix serving: no cascade-tick logits were compared")
+    peak = [r["eng"].pool.stats.high_water for r in (off, on)]
+    ttft = [(h.first_token_time - h.arrival_time) * 1e3 for h in on["handles"]]
+    ttft_off = [(h.first_token_time - h.arrival_time) * 1e3 for h in off["handles"]]
+    p50 = {k: statistics.median(dt for dt, _ in r["eng"].tick_s[1:]) * 1e3
+           for k, r in (("on", on), ("off", off))}
+    casc_p50 = statistics.median([dt for dt, cs in eng.tick_s if cs] or [0.0]) * 1e3
+    print(f"prefix serving phase: {cfg.name} full width, {SYSTEM_TOKENS}-token system prompt "
+          f"+ {WAVE1_TAIL} served first, then 4 requests with tails {list(WAVE2_TAILS)}, "
+          f"{new_tokens} new tokens each; chunk {SCHED_CHUNK}, pack {SCHED_PACK}, budget "
+          f"{SCHED_BUDGET}, lean, prefix cache + cascade (stable_ticks 2)", flush=True)
+    print(f"  prefix_matched_tokens {st.prefix_matched_tokens} over {st.prefix_attach_count} "
+          f"attaches; prefill tokens {st.prefill_tokens} against {off['eng'].stats.prefill_tokens} "
+          f"unshared ({skipped} skipped); peak pages in use {peak[1]} against {peak[0]} "
+          f"unshared; cascade_ticks {st.cascade_ticks}, cascade_fused_ticks "
+          f"{st.cascade_fused_ticks} of {st.ticks} decode ticks (stability skips "
+          f"{st.cascade_stability_skips}); cow_copies {st.cow_copies}", flush=True)
+    print(f"  launches K4 {c['K4']} = {L} x {chunk_steps}, K5 {c['K5']} = {L} x "
+          f"{st.cascade_fused_ticks}, K2 {c['K2']} = {L} x {st.ticks - st.cascade_ticks}; "
+          f"steps {on['sch'].stats.steps} against {off['sch'].stats.steps}; wall "
+          f"{on['wall']:.2f} s against {off['wall']:.2f} s", flush=True)
+    print("  TTFT ms per request (wave 1, then tails " + str(list(WAVE2_TAILS)) + "): "
+          + ", ".join(f"{t:.1f}" for t in ttft) + "; unshared: "
+          + ", ".join(f"{t:.1f}" for t in ttft_off)
+          + f"; decode tick p50 {p50['on']:.2f} ms (cascade ticks {casc_p50:.2f} ms) against "
+          f"{p50['off']:.2f} ms unshared", flush=True)
+    print(f"  logits against the unshared run: {compared} rows ({casc_rows} cascade-tick rows), "
+          f"worst gap {worst[0]:.4f} (request {worst[2]}, allowed {worst[1]:.4f} + "
+          f"{LOGIT_RTOL} |ref|); streams equal for {agree}/{len(on['handles'])} requests; pool "
+          f"and radix cache clean", flush=True)
+    return on["counts"]
+
+
 def main() -> int:
     import torch
 
@@ -727,6 +1210,13 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script runs on the card",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--decode-kernel-times"]:
+        src = os.path.abspath(sys.argv[2]) if len(sys.argv) > 2 else os.path.join(ROOT, "src")
+        sys.path.insert(0, src)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+        print(json.dumps(decode_kernel_times(torch, sm_count, src)))
+        return 0
     try:
         from repro_torch.configs import get_config
         from repro_torch.kernels import build
@@ -759,6 +1249,8 @@ def main() -> int:
     kres = kernel_phase(torch, sm_count, dev_name)
     kres.update(prefill_kernel_phase(torch, sm_count, dev_name))
     k6res = fixed_decode_phase(torch, sm_count, dev_name)
+    k5res = cascade_kernel_phase(torch, sm_count, dev_name)
+    merge_counts = merge_plan_drive(torch, sm_count)
 
     # 4. engine, full width, K2
     cfg = get_config("mistral-nemo-12b")
@@ -779,8 +1271,8 @@ def main() -> int:
     first_s, ticks, lean_logits = drive(torch, eng, reqs)
     counts = launch_counts()
     k2_launches, k1_in_main = counts["K2"], counts["K1"]
-    check(counts["K4"] == counts["K6"] == counts["K8"] == 0,
-          f"blocking engine ran chunk or fixed-split kernels: {counts}")
+    check(counts["K3"] == counts["K4"] == counts["K5"] == counts["K6"] == counts["K8"] == 0,
+          f"blocking engine ran other kernels: {counts}")
     decode_steps = eng.stats.ticks
     check(all(len(r.generated) == new_tokens for r in reqs), "a request did not finish")
     check(tuple(lean_logits.shape) == (len(reqs), cfg.vocab_size)
@@ -856,14 +1348,19 @@ def main() -> int:
     for b in ("lean", "fixed"):
         traced_scheduler_phase(torch, cfg, params, b, sm_count, new_tokens, blocking)
 
-    # 8. summary: kernel times in bf16 at the main path's shapes; launches
+    # 8. prefix-sharing serving: radix cache, copy-on-write, cascade (K5)
+    prefix_counts = prefix_serving_phase(torch, cfg, params, sm_count, new_tokens)
+
+    # 9. summary: kernel times in bf16 at the main path's shapes; launches
     # from the run of the path each kernel serves
     k6 = k6res[(DECODE_SHAPES[0], "bfloat16")]
     kres[("flash_decode_partials", "bfloat16")] = k6
+    kres[("lean_cascade_fused", "bfloat16")] = k5res[(next(iter(CASCADE_CASES)), "bfloat16")]
     launches = {"lean_decode_fused": k2_launches, "lean_decode_partials": k1_launches,
                 "lean_prefill_chunk_partials": sched_runs["lean"]["counts"]["K4"],
                 "flash_decode_partials": sched_runs["fixed"]["counts"]["K6"],
-                "flash_prefill_paged": sched_runs["fixed"]["counts"]["K8"]}
+                "flash_prefill_paged": sched_runs["fixed"]["counts"]["K8"],
+                "lean_merge": merge_counts["K3"], "lean_cascade_fused": prefix_counts["K5"]}
     where = {
         "lean_decode_fused": ("lean_decode.cu", "src/repro/kernels/lean_decode.py:302"),
         "lean_decode_partials": ("lean_decode.cu", "src/repro/kernels/lean_decode.py:117"),
@@ -871,6 +1368,8 @@ def main() -> int:
                                         "src/repro/kernels/lean_prefill.py:51"),
         "flash_decode_partials": ("flash_decode.cu", "src/repro/kernels/flash_decode.py:25"),
         "flash_prefill_paged": ("flash_prefill.cu", "src/repro/kernels/flash_prefill.py:162"),
+        "lean_merge": ("lean_merge.cu", "src/repro/kernels/lean_decode.py:813"),
+        "lean_cascade_fused": ("lean_cascade.cu", "src/repro/kernels/lean_decode.py:604"),
     }
     kernels = []
     for name, (source, replaces) in where.items():
@@ -881,9 +1380,11 @@ def main() -> int:
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            # no one PyTorch call computes K1's per-piece partials; SDPA
-            # computes the attention K2, K4 (+ merge), K6 (+ merge_n) and K8 do
-            "library_ms": None if name == "lean_decode_partials" else r["library_ms"],
+            # no one PyTorch call computes K1's per-piece partials or K3's
+            # merge of them; SDPA computes the attention K2, K4 (+ merge),
+            # K5, K6 (+ merge_n) and K8 do
+            "library_ms": r["library_ms"] if r["library_ms"] is not None
+            and name != "lean_decode_partials" else None,
         })
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -2,7 +2,11 @@
 //
 //   tile_update       gq query rows of one decode segment against one K/V
 //                     tile masked to a runtime length: K1, K2
-//                     (lean_decode.cu) and K6 (flash_decode.cu).
+//                     (lean_decode.cu), K5 (lean_cascade.cu) and K6
+//                     (flash_decode.cu).
+//   merge_piece       one step of the softmax re-scaling merge (paper
+//                     section IV-A): K2's and K5's fix-ups and K3
+//                     (lean_merge.cu).
 //   rows_tile_update  a block of kBlockRows query rows against one K/V tile,
 //                     each row with its own count of visible keys (the
 //                     chunk-causal mask): K4 (lean_prefill.cu) and K8
@@ -45,6 +49,25 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// One piece (op, mp, lp) folded into a running (acc, m, l), with the -inf
+// guards of core/merge.py: a side whose max is -inf weighs 0 (the kernels'
+// own partials use the finite -1e30, for which the guards change nothing).
+__device__ __forceinline__ void merge_piece(float op, float mp, float lp, float& acc, float& m,
+                                            float& l) {
+  const float m_new = fmaxf(m, mp);
+  const float a_old = (isinf(m) && m < 0.f) ? 0.f : expf(m - m_new);
+  const float a_new = (isinf(mp) && mp < 0.f) ? 0.f : expf(mp - m_new);
+  l = a_old * l + a_new * lp;
+  acc = a_old * acc + a_new * op;
+  m = m_new;
+}
+
+// Row buckets of the decode tile update: a segment of n query rows runs
+// the instantiation for the smallest bucket >= n (0: more than 64 rows).
+__host__ __device__ inline int row_bucket(int n) {
+  return n <= 2 ? 2 : n <= 4 ? 4 : n <= 8 ? 8 : n <= 16 ? 16 : n <= 32 ? 32 : n <= 64 ? 64 : 0;
+}
+
 // ------------------------------------------------------------------ decode
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
@@ -74,29 +97,79 @@ inline size_t smem_bytes(int gq, int d, int tile) {
   return sizeof(float) * ((size_t)2 * gq * d + (size_t)gq * tile + 3 * (size_t)gq);
 }
 
+// Zero the accumulator and reset the running max and sum of the QB rows.
+template <int QB>
+__device__ void reset_decode_rows(const Smem& s, int d) {
+  for (int e = threadIdx.x; e < QB * d; e += kThreads) s.acc[e] = 0.f;
+  for (int r = threadIdx.x; r < QB; r += kThreads) {
+    s.m[r] = kNegInf;
+    s.l[r] = 0.f;
+  }
+}
+
+// The segment's `rows` query rows (row stride d) into s.q; rows up to QB
+// are zero, and their results are never written.
+template <typename T, int QB>
+__device__ __forceinline__ void load_decode_q(const T* __restrict__ q_rows, int rows,
+                                              const Smem& s, int d) {
+  for (int e = threadIdx.x; e < rows * d; e += kThreads) s.q[e] = to_float(q_rows[e]);
+  for (int e = rows * d + threadIdx.x; e < QB * d; e += kThreads) s.q[e] = 0.f;
+}
+
+// StorePartials: the un-scaled (acc, m, l) of the first `rows` rows.
+__device__ __forceinline__ void flush_rows(const Smem& s, int rows, int d, float* o_dst,
+                                           float* m_dst, float* l_dst) {
+  for (int e = threadIdx.x; e < rows * d; e += kThreads) o_dst[e] = s.acc[e];
+  for (int r = threadIdx.x; r < rows; r += kThreads) {
+    m_dst[r] = s.m[r];
+    l_dst[r] = s.l[r];
+  }
+}
+
 // One decode update of the GQ rows against the tile's first vlen keys.
 // Keys past vlen are neither loaded nor accumulated (their p is 0).
 // kThreads threads; caller syncs before (q/acc ready), this syncs after.
+// A decode CTA runs alone on its SM, so only the loads each thread keeps in
+// flight hide the memory latency: phase A keeps KB keys per warp, phase C
+// CB V rows per thread. The batching leaves the order of every sum as it
+// was with one key and one row at a time.
 template <typename T, int GQ>
 __device__ void tile_update(const T* __restrict__ k_tile, const T* __restrict__ v_tile,
                             int vlen, const Smem& s, int d, int tile, float scale) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-  // phase A: one warp per key, lanes stride over d (coalesced row reads)
-  for (int j = warp; j < vlen; j += kWarps) {
-    const T* krow = k_tile + (size_t)j * d;
-    float part[GQ];
+  // phase A: one warp per key, lanes stride over d (coalesced row reads);
+  // KB keys in flight per warp
+  constexpr int KB = GQ <= 4 ? 4 : GQ <= 16 ? 2 : 1;
+  for (int j0 = warp; j0 < vlen; j0 += KB * kWarps) {
+    const T* krow[KB];
 #pragma unroll
-    for (int r = 0; r < GQ; ++r) part[r] = 0.f;
+    for (int u = 0; u < KB; ++u) {
+      const int j = j0 + u * kWarps;
+      krow[u] = k_tile + (size_t)(j < vlen ? j : j0) * d;
+    }
+    float part[KB][GQ];
+#pragma unroll
+    for (int u = 0; u < KB; ++u)
+#pragma unroll
+      for (int r = 0; r < GQ; ++r) part[u][r] = 0.f;
     for (int c = lane; c < d; c += 32) {
-      const float kv = to_float(krow[c]);
+      float kv[KB];
 #pragma unroll
-      for (int r = 0; r < GQ; ++r) part[r] = fmaf(s.q[r * d + c], kv, part[r]);
+      for (int u = 0; u < KB; ++u) kv[u] = to_float(krow[u][c]);
+#pragma unroll
+      for (int u = 0; u < KB; ++u)
+#pragma unroll
+        for (int r = 0; r < GQ; ++r) part[u][r] = fmaf(s.q[r * d + c], kv[u], part[u][r]);
     }
 #pragma unroll
-    for (int r = 0; r < GQ; ++r) {
-      const float dot = warp_sum(part[r]);
-      if (lane == 0) s.p[r * tile + j] = dot * scale;
+    for (int u = 0; u < KB; ++u) {
+      const int j = j0 + u * kWarps;
+#pragma unroll
+      for (int r = 0; r < GQ; ++r) {
+        const float dot = warp_sum(part[u][r]);
+        if (lane == 0 && j < vlen) s.p[r * tile + j] = dot * scale;
+      }
     }
   }
   __syncthreads();
@@ -125,13 +198,24 @@ __device__ void tile_update(const T* __restrict__ k_tile, const T* __restrict__ 
   }
   __syncthreads();
 
-  // phase C: one thread per output column, V rows read coalesced
+  // phase C: one thread per output column, V rows read coalesced, CB rows
+  // in flight per thread
+  constexpr int CB = 16;
   for (int c = tid; c < d; c += kThreads) {
     float pv[GQ];
 #pragma unroll
     for (int r = 0; r < GQ; ++r) pv[r] = 0.f;
-#pragma unroll 4
-    for (int j = 0; j < vlen; ++j) {
+    int j = 0;
+    for (; j + CB <= vlen; j += CB) {
+      float vv[CB];
+#pragma unroll
+      for (int u = 0; u < CB; ++u) vv[u] = to_float(v_tile[(size_t)(j + u) * d + c]);
+#pragma unroll
+      for (int u = 0; u < CB; ++u)
+#pragma unroll
+        for (int r = 0; r < GQ; ++r) pv[r] = fmaf(s.p[r * tile + j + u], vv[u], pv[r]);
+    }
+    for (; j < vlen; ++j) {
       const float vv = to_float(v_tile[(size_t)j * d + c]);
 #pragma unroll
       for (int r = 0; r < GQ; ++r) pv[r] = fmaf(s.p[r * tile + j], vv, pv[r]);

@@ -20,7 +20,7 @@
 // Structure. One CTA per stream-K worker (grid = num_workers). A worker
 // walks its T descriptor columns in order; each valid column is one
 // LeanTile online-softmax update (attn::tile_update in attn_tile.cuh, shared
-// by K1, K2 and K6) of the segment's gq query rows against one tile x d K/V
+// by K1, K2, K5 and K6) of the segment's gq query rows against one tile x d K/V
 // tile read from pool row route[i], masked to the runtime length
 // vlen = clamp(ctx[seg] - tile_idx * tile, 0, tile). On the column that
 // ends a piece the CTA flushes the un-scaled (o, m, l).
@@ -35,6 +35,14 @@
 //      so the kernel is correct whether or not all CTAs are co-resident.
 //      (The TPU kernel ran its grid sequentially with partials in VMEM,
 //      lean_decode.py:19-33; that trick has no place on a GPU.)
+//
+// Row counts. The kernels are instantiated for row buckets QB in
+// {2, 4, 8, 16, 32, 64} and take any gq <= 64 at run time: rows past gq
+// are zero query rows whose results are never written. gq 2 and 4 (the
+// configs' g) run exact instantiations (EXACT: gq == QB), whose q load,
+// flush and merge are bounded at compile time; the cascade's two-call path
+// runs K1 on the prefix pass with the stacked member rows (nmax * g, up to
+// 64) through the bucketed ones.
 //
 // Descriptors are the packed (7, G*T) int32 rows of
 // LeanSchedule.packed_descriptors(): SEG, TILE, PIECE, FIRST, LAST, LEN,
@@ -56,57 +64,48 @@ enum { DESC_SEG = 0, DESC_TILE, DESC_PIECE, DESC_FIRST, DESC_LAST, DESC_LEN, DES
 enum { OP_PARTIAL = 1 };
 
 struct Args {
-  const void* q;        // (S, GQ, d)
+  const void* q;        // (S, gq, d)
   const void* k_rows;   // (R, tile, d)
   const void* v_rows;
   const int* desc;      // (7, n_cols)
   const int* seg_ctx;   // (S,)
   const int* route;     // (n_cols,) pool row per column
-  float* o_p;           // (P+1, GQ, d) piece partials (K1 output, K2 scratch)
-  float* m_p;           // (P+1, GQ)
+  float* o_p;           // (P+1, gq, d) piece partials (K1 output, K2 scratch)
+  float* m_p;           // (P+1, gq)
   float* l_p;
   // K2 only
   const int* piece_start;  // (S,)
   const int* piece_count;  // (S,)
   int* arrivals;           // (S,) zeroed by the caller
-  float* o;                // (S, GQ, d)
-  float* lse;              // (S, GQ)
-  int n_cols, tiles_per_worker, d, tile;
+  float* o;                // (S, gq, d)
+  float* lse;              // (S, gq)
+  int n_cols, tiles_per_worker, gq, d, tile;
   float scale;
 };
 
 // K2's fix-up: merge pieces [start, start + count) of `seg` in piece order
 // (repro/kernels/lean_decode.py:358-381), then write o and lse. Scratch is
 // read with ld.global.cg: other CTAs wrote it, so L1 must be bypassed.
-template <int GQ>
-__device__ void merge_segment(const Args& a, int seg) {
+__device__ __forceinline__ void merge_segment(const Args& a, int seg, int gq) {
   const int start = a.piece_start[seg], count = a.piece_count[seg];
   const int d = a.d;
-  for (int e = threadIdx.x; e < GQ * d; e += kThreads) {
-    const int r = e / d, c = e - r * d;
+  for (int e = threadIdx.x; e < gq * d; e += kThreads) {
+    const int r = e / d;
     float acc = 0.f, m = kNegInf, l = 0.f;
-    for (int p = start; p < start + count; ++p) {
-      const float mp = __ldcg(a.m_p + (size_t)p * GQ + r);
-      const float lp = __ldcg(a.l_p + (size_t)p * GQ + r);
-      const float op = __ldcg(a.o_p + ((size_t)p * GQ + r) * d + c);
-      const float m_new = fmaxf(m, mp);
-      const float a_old = expf(m - m_new);
-      const float a_new = expf(mp - m_new);
-      l = a_old * l + a_new * lp;
-      acc = a_old * acc + a_new * op;
-      m = m_new;
-    }
-    a.o[((size_t)seg * GQ + r) * d + c] = acc / l;
-    if (c == 0) a.lse[(size_t)seg * GQ + r] = m + logf(l);
+    for (int p = start; p < start + count; ++p)
+      attn::merge_piece(__ldcg(a.o_p + (size_t)p * gq * d + e), __ldcg(a.m_p + (size_t)p * gq + r),
+                        __ldcg(a.l_p + (size_t)p * gq + r), acc, m, l);
+    a.o[(size_t)seg * gq * d + e] = acc / l;
+    if (e - r * d == 0) a.lse[(size_t)seg * gq + r] = m + logf(l);
   }
 }
 
-template <typename T, int GQ, bool FUSED>
+template <typename T, int QB, bool EXACT, bool FUSED>
 __global__ void __launch_bounds__(kThreads) lean_decode_kernel(Args a) {
   extern __shared__ float smem_raw[];
-  const Smem s = attn::carve_smem<GQ>(smem_raw, a.d, a.tile);
+  const Smem s = attn::carve_smem<QB>(smem_raw, a.d, a.tile);
   __shared__ int merge_here;
-  const int d = a.d, tile = a.tile, N = a.n_cols;
+  const int d = a.d, tile = a.tile, N = a.n_cols, gq = EXACT ? QB : a.gq;
   const T* q = static_cast<const T*>(a.q);
   const T* k_rows = static_cast<const T*>(a.k_rows);
   const T* v_rows = static_cast<const T*>(a.v_rows);
@@ -122,29 +121,18 @@ __global__ void __launch_bounds__(kThreads) lean_decode_kernel(Args a) {
     const bool first = a.desc[DESC_FIRST * N + i] != 0;
     const bool last = a.desc[DESC_LAST * N + i] != 0;
 
-    if (first) {  // Algorithm 1 lines 8-9
-      for (int e = threadIdx.x; e < GQ * d; e += kThreads) s.acc[e] = 0.f;
-      if (threadIdx.x < GQ) {
-        s.m[threadIdx.x] = kNegInf;
-        s.l[threadIdx.x] = 0.f;
-      }
-    }
-    const T* qs = q + (size_t)seg * GQ * d;
-    for (int e = threadIdx.x; e < GQ * d; e += kThreads) s.q[e] = attn::to_float(qs[e]);
+    if (first) attn::reset_decode_rows<QB>(s, d);  // Algorithm 1 lines 8-9
+    attn::load_decode_q<T, QB>(q + (size_t)seg * gq * d, gq, s, d);
     const int vlen = min(max(a.seg_ctx[seg] - tile_idx * tile, 0), tile);
     const size_t row = (size_t)a.route[i];
     __syncthreads();
 
-    attn::tile_update<T, GQ>(k_rows + row * row_elems, v_rows + row * row_elems, vlen, s, d,
-                       tile, a.scale);
+    attn::tile_update<T, QB>(k_rows + row * row_elems, v_rows + row * row_elems, vlen, s, d,
+                             tile, a.scale);
 
     if (last) {  // StorePartials (Algorithm 2 lines 20-22)
-      for (int e = threadIdx.x; e < GQ * d; e += kThreads)
-        a.o_p[(size_t)piece * GQ * d + e] = s.acc[e];
-      if (threadIdx.x < GQ) {
-        a.m_p[(size_t)piece * GQ + threadIdx.x] = s.m[threadIdx.x];
-        a.l_p[(size_t)piece * GQ + threadIdx.x] = s.l[threadIdx.x];
-      }
+      attn::flush_rows(s, gq, d, a.o_p + (size_t)piece * gq * d, a.m_p + (size_t)piece * gq,
+                       a.l_p + (size_t)piece * gq);
       if (FUSED) {
         __threadfence();  // this thread's piece writes, device-wide
         __syncthreads();
@@ -153,7 +141,7 @@ __global__ void __launch_bounds__(kThreads) lean_decode_kernel(Args a) {
         __syncthreads();
         if (merge_here) {
           __threadfence();
-          merge_segment<GQ>(a, seg);
+          merge_segment(a, seg, gq);
         }
       }
     }
@@ -161,10 +149,10 @@ __global__ void __launch_bounds__(kThreads) lean_decode_kernel(Args a) {
   }
 }
 
-template <typename T, int GQ, bool FUSED>
+template <typename T, int QB, bool EXACT, bool FUSED>
 cudaError_t launch_typed(const Args& a, int num_workers, cudaStream_t stream) {
-  auto kernel = lean_decode_kernel<T, GQ, FUSED>;
-  const size_t smem = attn::smem_bytes(GQ, a.d, a.tile);
+  auto kernel = lean_decode_kernel<T, QB, EXACT, FUSED>;
+  const size_t smem = attn::smem_bytes(QB, a.d, a.tile);
   if (smem > 48 * 1024) {
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -175,21 +163,27 @@ cudaError_t launch_typed(const Args& a, int num_workers, cudaStream_t stream) {
 }
 
 template <typename T, bool FUSED>
-cudaError_t launch_gq(const Args& a, int gq, int num_workers, cudaStream_t stream) {
-  switch (gq) {
-    case 2: return launch_typed<T, 2, FUSED>(a, num_workers, stream);
-    case 4: return launch_typed<T, 4, FUSED>(a, num_workers, stream);
+cudaError_t launch_rows(const Args& a, int num_workers, cudaStream_t stream) {
+  if (a.gq == 2) return launch_typed<T, 2, true, FUSED>(a, num_workers, stream);
+  if (a.gq == 4) return launch_typed<T, 4, true, FUSED>(a, num_workers, stream);
+  switch (attn::row_bucket(a.gq)) {
+    case 2: return launch_typed<T, 2, false, FUSED>(a, num_workers, stream);
+    case 4: return launch_typed<T, 4, false, FUSED>(a, num_workers, stream);
+    case 8: return launch_typed<T, 8, false, FUSED>(a, num_workers, stream);
+    case 16: return launch_typed<T, 16, false, FUSED>(a, num_workers, stream);
+    case 32: return launch_typed<T, 32, false, FUSED>(a, num_workers, stream);
+    case 64: return launch_typed<T, 64, false, FUSED>(a, num_workers, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <bool FUSED>
-int launch(int dtype, const Args& a, int gq, int num_workers, void* stream) {
+int launch(int dtype, const Args& a, int num_workers, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (num_workers <= 0 || a.d <= 0 || a.tile <= 0) return (int)cudaErrorInvalidValue;
+  if (num_workers <= 0 || a.d <= 0 || a.tile <= 0 || a.gq <= 0) return (int)cudaErrorInvalidValue;
   switch (dtype) {
-    case 0: return (int)launch_gq<float, FUSED>(a, gq, num_workers, st);
-    case 1: return (int)launch_gq<__nv_bfloat16, FUSED>(a, gq, num_workers, st);
+    case 0: return (int)launch_rows<float, FUSED>(a, num_workers, st);
+    case 1: return (int)launch_rows<__nv_bfloat16, FUSED>(a, num_workers, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -206,8 +200,8 @@ int lean_decode_partials_launch(int dtype, const void* q, const void* k_rows,
                                 int d, int tile, float scale, void* stream) {
   Args a = {q,       k_rows,  v_rows,  desc,    seg_ctx, route,   o_p,
             m_p,     l_p,     nullptr, nullptr, nullptr, nullptr, nullptr,
-            n_cols,  tiles_per_worker, d, tile, scale};
-  return launch<false>(dtype, a, gq, num_workers, stream);
+            n_cols,  tiles_per_worker, gq, d, tile, scale};
+  return launch<false>(dtype, a, num_workers, stream);
 }
 
 int lean_decode_fused_launch(int dtype, const void* q, const void* k_rows, const void* v_rows,
@@ -218,8 +212,8 @@ int lean_decode_fused_launch(int dtype, const void* q, const void* k_rows, const
                              int gq, int d, int tile, float scale, void* stream) {
   Args a = {q,           k_rows,      v_rows,   desc, seg_ctx, route,
             o_p,         m_p,         l_p,      piece_start, piece_count, arrivals,
-            o,           lse,         n_cols,   tiles_per_worker, d, tile, scale};
-  return launch<true>(dtype, a, gq, num_workers, stream);
+            o,           lse,         n_cols,   tiles_per_worker, gq, d, tile, scale};
+  return launch<true>(dtype, a, num_workers, stream);
 }
 
 }  // extern "C"

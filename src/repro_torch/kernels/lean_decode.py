@@ -1,5 +1,5 @@
-"""Stream-K decode attention: Hopper kernels K1 and K2 and their plain
-PyTorch versions.
+"""Stream-K decode attention: Hopper kernels K1, K2, K3 and K5 and their
+plain PyTorch versions.
 
   * K1, :func:`lean_decode_partials` -- stream-K phase 1. Replaces the
     Pallas kernel ``repro/kernels/lean_decode.py:117``
@@ -15,10 +15,22 @@ PyTorch versions.
     run in parallel, so K2 is the paper's stream-K fix-up instead: pieces
     go to global scratch, each flush bumps a per-segment arrival counter,
     and the CTA that completes a segment merges it in piece order.
+  * K3, :func:`lean_merge` -- phase 2 as a kernel: each segment's pieces
+    folded in piece order into ``o = acc / l`` and ``lse = m + log l``.
+    Replaces ``repro/kernels/lean_decode.py:813`` ``_lean_merge_kernel``
+    (driven by ``lean_merge_pallas`` ``:852``). ``csrc/lean_merge.cu``.
+  * K5, :func:`lean_cascade_fused` -- cascade (prefix-grouped) decode in
+    one launch: the grouped prefix pass over shared pages, the per-sequence
+    suffix pass and the merge per target sequence. Replaces
+    ``repro/kernels/lean_decode.py:604`` ``_lean_cascade_fused_kernel``
+    (driven by ``lean_cascade_fused`` ``:715``). ``csrc/lean_cascade.cu``:
+    K2's last-arriver fix-up applied to targets instead of segments.
 
-Both are CUDA C++ for ``sm_90a`` in ``csrc/lean_decode.cu`` (see the note
-there on what bounds them: the K/V bytes read, since decode at ``gq = 4``
-sits far below the bf16 ridge point). The wrappers take the paged layout:
+K1 and K2 are CUDA C++ for ``sm_90a`` in ``csrc/lean_decode.cu`` (see the
+note there on what bounds them: the K/V bytes read, since decode at ``gq =
+4`` sits far below the bf16 ridge point). They take up to ``MAX_ROWS``
+query rows per segment, so K1 also runs the cascade's prefix pass with the
+stacked member rows. The wrappers take the paged layout:
 K/V as pool rows ``(R, tile, d)`` and a per-column ``route`` into them.
 Dense KV reaches the same kernels through a route over its own rows
 (:func:`repro_torch.kernels.ops`), so dense and paged decode are
@@ -29,18 +41,19 @@ for CPU tensors -- only because the tensors lie on the CPU; there is no
 fallback from a failed launch. The plain versions walk the same descriptors
 in the same order (vectorised over the G workers at each step ``t``) and
 serve the CPU tests and the on-card comparison in ``chip_smoke.py``.
-``partials_launches`` / ``fused_launches`` count kernel launches (plain
-runs do not count).
+``partials_launches`` / ``fused_launches`` / ``merge_launches`` /
+``cascade_launches`` count kernel launches (plain runs do not count).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.attention import NEG_INF
-from repro_torch.core.leantile import LeanSchedule
+from repro_torch.core.leantile import CascadeSchedule, LeanSchedule
 from . import build
 
 # descriptor rows of LeanSchedule.packed_descriptors(); VALID is 1 on a
@@ -49,17 +62,29 @@ DESC_SEG, DESC_TILE, DESC_PIECE, DESC_FIRST, DESC_LAST, DESC_LEN, DESC_VALID = r
 OP_PARTIAL = 1
 
 SOURCE = "lean_decode.cu"
-KERNEL_GQ = (2, 4)    # query rows per segment: the smoke config's and Mistral-NeMo-12B's
+CASCADE_SOURCE = "lean_cascade.cu"
+MERGE_SOURCE = "lean_merge.cu"
+# query heads per KV head that K5 takes (its suffix rows): the smoke
+# config's and Mistral-NeMo-12B's
+KERNEL_GQ = (2, 4)
+# query rows per segment that K1, K2 and K5's prefix pass take (instantiated
+# for row buckets 2, 4, ..., 64; rows past the count are zero)
+MAX_ROWS = 64
+MAX_TARGETS = 64      # targets one K5 piece can feed (its pass's members)
 
 # launch counters: +1 per kernel launch, nowhere else
 partials_launches = 0
 fused_launches = 0
+merge_launches = 0
+cascade_launches = 0
 
 
 def reset_launch_counts() -> None:
-    global partials_launches, fused_launches
+    global partials_launches, fused_launches, merge_launches, cascade_launches
     partials_launches = 0
     fused_launches = 0
+    merge_launches = 0
+    cascade_launches = 0
 
 
 # ------------------------------------------------------------ schedule data
@@ -116,8 +141,8 @@ def _check_cuda(q_seg, k_rows, v_rows, seg_ctx, route):
     build.check_dtypes(q_seg, k_rows, v_rows)
     if seg_ctx.dtype != torch.int32 or route.dtype != torch.int32:
         raise TypeError("seg_ctx and route must be int32")
-    if gq not in KERNEL_GQ:
-        raise ValueError(f"kernels take gq in {KERNEL_GQ}, got {gq}")
+    if not 1 <= gq <= MAX_ROWS:
+        raise ValueError(f"kernels take 1 to {MAX_ROWS} query rows per segment, got {gq}")
     build.check_contiguous(q_seg=q_seg, k_rows=k_rows, v_rows=v_rows, seg_ctx=seg_ctx,
                            route=route)
 
@@ -129,18 +154,36 @@ def _check_no_scales(k_scales, v_scales):
         )
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.load(SOURCE)
+P_, I_, F_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ENTRY_POINTS = {
+    SOURCE: {
+        "lean_decode_partials_launch": [
+            I_, P_, P_, P_, P_, I_, I_, I_, P_, P_, P_, P_, P_, I_, I_, I_, F_, P_,
+        ],
+        "lean_decode_fused_launch": [
+            I_, P_, P_, P_, P_, I_, I_, I_, P_, P_, P_, P_, P_, P_, P_, P_, P_, P_,
+            I_, I_, I_, F_, P_,
+        ],
+    },
+    MERGE_SOURCE: {
+        "lean_merge_launch": [P_, P_, P_, P_, P_, P_, P_, I_, I_, I_, P_],
+    },
+    CASCADE_SOURCE: {
+        "lean_cascade_fused_launch": [
+            I_, P_, P_, P_, P_, P_, I_, I_, I_, I_, I_, P_, P_, P_, P_, P_, P_, P_,
+            P_, P_, P_, P_, P_, I_, I_, I_, I_, I_, F_, P_,
+        ],
+    },
+}
+
+
+def _library(source: str = SOURCE) -> ctypes.CDLL:
+    lib = build.load(source)
     if not getattr(lib, "_argtypes_set", False):
-        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.lean_decode_partials_launch.argtypes = [
-            I, P, P, P, P, I, I, I, P, P, P, P, P, I, I, I, F, P,
-        ]
-        lib.lean_decode_partials_launch.restype = I
-        lib.lean_decode_fused_launch.argtypes = [
-            I, P, P, P, P, I, I, I, P, P, P, P, P, P, P, P, P, P, I, I, I, F, P,
-        ]
-        lib.lean_decode_fused_launch.restype = I
+        for name, argtypes in _ENTRY_POINTS[source].items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = I_
         lib._argtypes_set = True
     return lib
 
@@ -211,10 +254,25 @@ def lean_decode_partials_plain(q_seg, k_rows, v_rows, seg_ctx, route,
     return o_p[:P], m_p[:P], l_p[:P]
 
 
+def _neg_inf(x: torch.Tensor) -> torch.Tensor:
+    return torch.isinf(x) & (x < 0)
+
+
+def _fold(acc, m, l, op, mp, lp, has):
+    """One merge step of the kernels' fix-ups (``attn::merge_piece``):
+    where ``has``, fold the piece ``(op, mp, lp)`` into ``(acc, m, l)``,
+    a side whose max is -inf weighing 0 (the guards of core/merge.py)."""
+    m_new = torch.maximum(m, mp)
+    a_old = torch.where(_neg_inf(m), 0.0, torch.exp(m - m_new))
+    a_new = torch.where(_neg_inf(mp), 0.0, torch.exp(mp - m_new))
+    l = torch.where(has, a_old * l + a_new * lp, l)
+    acc = torch.where(has[..., None], a_old[..., None] * acc + a_new[..., None] * op, acc)
+    return acc, torch.where(has, m_new, m), l
+
+
 def merge_pieces_plain(o_p, m_p, l_p, sched: LeanSchedule):
-    """K2's fix-up in plain PyTorch: each segment folds its pieces in piece
-    order with the fused kernel's merge update. Returns ``(o (S, gq, d),
-    lse (S, gq))``."""
+    """K2's fix-up and K3 in plain PyTorch: each segment folds its pieces in
+    piece order. Returns ``(o (S, gq, d), lse (S, gq))``."""
     dev = o_p.device
     S, gq, d = sched.num_segments, o_p.shape[1], o_p.shape[2]
     st = schedule_tensors(sched, dev)
@@ -223,15 +281,9 @@ def merge_pieces_plain(o_p, m_p, l_p, sched: LeanSchedule):
     m = torch.full((S, gq), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros(S, gq, dtype=torch.float32, device=dev)
     for k in range(int(sched.piece_ranges()[1].max(initial=0))):
-        has = (counts > k)[:, None]
+        has = (counts > k)[:, None].expand(S, gq)
         p = torch.where(counts > k, starts + k, torch.zeros_like(starts))
-        mp, lp, op = m_p[p], l_p[p], o_p[p]
-        m_new = torch.maximum(m, mp)
-        a_old = torch.exp(m - m_new)
-        a_new = torch.exp(mp - m_new)
-        l = torch.where(has, a_old * l + a_new * lp, l)
-        acc = torch.where(has[..., None], a_old[..., None] * acc + a_new[..., None] * op, acc)
-        m = torch.where(has, m_new, m)
+        acc, m, l = _fold(acc, m, l, o_p[p], m_p[p], l_p[p], has)
     return acc / l[..., None], m + torch.log(l)
 
 
@@ -309,4 +361,190 @@ def lean_decode_fused(q_seg, k_rows, v_rows, seg_ctx, route,
     )
     build.check_launch(err, "lean_decode_fused (K2)")
     fused_launches += 1
+    return o, lse
+
+
+# -------------------------------------------------------------------- K3
+def lean_merge(o_p, m_p, l_p, sched: LeanSchedule) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3: the per-segment reduction of stream-K partials, the port of
+    ``lean_merge_pallas``. ``o_p (P, rows, d)``, ``m_p``/``l_p (P, rows)``
+    float32 (K1's or K4's output); segment ``s`` owns piece rows
+    ``[start, start + count)`` of ``sched.piece_ranges()``. Returns float32
+    ``(o (S, rows, d), lse (S, rows))``. Launches no host sync: the piece
+    ranges are the schedule's, uploaded once per schedule."""
+    global merge_launches
+    if o_p.dim() != 3 or m_p.shape != o_p.shape[:2] or l_p.shape != m_p.shape:
+        raise ValueError(
+            f"expected o_p (P, rows, d) and m_p, l_p (P, rows), got {tuple(o_p.shape)}, "
+            f"{tuple(m_p.shape)}, {tuple(l_p.shape)}"
+        )
+    if o_p.shape[0] != sched.num_pieces:
+        raise ValueError(f"partials hold {o_p.shape[0]} pieces, schedule {sched.num_pieces}")
+    if o_p.device.type == "cpu":
+        return merge_pieces_plain(o_p, m_p, l_p, sched)
+    if any(t.dtype != torch.float32 for t in (o_p, m_p, l_p)):
+        raise TypeError("K3 takes float32 partials")
+    build.check_contiguous(o_p=o_p, m_p=m_p, l_p=l_p)
+    S, (P, rows, d), dev = sched.num_segments, o_p.shape, o_p.device
+    st = schedule_tensors(sched, dev)
+    o = torch.empty(S, rows, d, dtype=torch.float32, device=dev)
+    lse = torch.empty(S, rows, dtype=torch.float32, device=dev)
+    err = _library(MERGE_SOURCE).lean_merge_launch(
+        build.ptr(o_p), build.ptr(m_p), build.ptr(l_p), build.ptr(st["piece_start"]),
+        build.ptr(st["piece_count"]), build.ptr(o), build.ptr(lse), S, rows, d,
+        build.stream(dev),
+    )
+    build.check_launch(err, "lean_merge (K3)")
+    merge_launches += 1
+    return o, lse
+
+
+# -------------------------------------------------------------------- K5
+class CascadeFusedDesc(NamedTuple):
+    """K5's descriptor operands on the device: the fused cascade
+    descriptors (:func:`repro_torch.core.leantile.cascade_fused_descriptors`)
+    and the target tables derived from their merge section -- each target's
+    first merge column and column count, and, per piece, the targets it
+    feeds (CSR)."""
+
+    desc: torch.Tensor        # (7, N) int32
+    tgt_start: torch.Tensor   # (B*Hkv,) int32 descriptor column
+    tgt_count: torch.Tensor   # (B*Hkv,) int32
+    pt_start: torch.Tensor    # (P_tot + 2,) int32
+    pt_tgt: torch.Tensor      # (live merge columns,) int32
+
+
+def cascade_fused_desc(desc: np.ndarray, csched: CascadeSchedule,
+                       device: torch.device) -> CascadeFusedDesc:
+    """Upload the fused cascade descriptors and derive K5's target tables
+    from their merge section, where each target's columns are contiguous,
+    targets in order, padding (target ``B*Hkv``) last."""
+    desc = np.ascontiguousarray(desc, dtype=np.int32)
+    S = csched.batch * csched.num_kv_heads
+    Ptot = csched.num_pieces_total
+    n_part = csched.prefix_sched.grid_iters + csched.suffix_sched.grid_iters
+    if desc.shape != (7, csched.fused_grid_iters):
+        raise ValueError(f"descriptors {desc.shape} do not fit the schedule "
+                         f"(7, {csched.fused_grid_iters})")
+    seg, piece = desc[DESC_SEG, n_part:], desc[DESC_PIECE, n_part:]
+    live = np.flatnonzero(seg < S)
+    tgt, src = seg[live], piece[live]
+    if np.any(np.diff(tgt) < 0) or np.any(np.diff(live) != 1) or (len(live) and live[0] != 0):
+        raise ValueError("merge columns are not grouped by target")
+    tgt_count = np.bincount(tgt, minlength=S)
+    tgt_start = n_part + np.concatenate([[0], np.cumsum(tgt_count)[:-1]])
+    order = np.argsort(src, kind="stable")
+    per_piece = np.bincount(src, minlength=Ptot + 1)
+    if per_piece.max(initial=0) > MAX_TARGETS:
+        raise ValueError(f"a piece feeds {per_piece.max()} targets, K5 takes {MAX_TARGETS}")
+    pt_start = np.concatenate([[0], np.cumsum(per_piece)])
+    i32 = lambda a: torch.as_tensor(np.asarray(a, dtype=np.int32)).to(device).contiguous()
+    return CascadeFusedDesc(desc=i32(desc), tgt_start=i32(tgt_start), tgt_count=i32(tgt_count),
+                            pt_start=i32(pt_start), pt_tgt=i32(tgt[order]))
+
+
+def _check_cascade(q_pref, q_suf, k_rows, v_rows, ctx_all, route, csched: CascadeSchedule):
+    nph = csched.num_groups * csched.num_kv_heads
+    S = csched.batch * csched.num_kv_heads
+    if q_pref.dim() != 3 or q_suf.dim() != 3 or q_pref.shape[0] != nph or q_suf.shape[0] != S:
+        raise ValueError(
+            f"expected q_pref ({nph}, qmax, d) and q_suf ({S}, g, d), got "
+            f"{tuple(q_pref.shape)}, {tuple(q_suf.shape)}"
+        )
+    d = q_suf.shape[2]
+    if q_pref.shape[2] != d or q_pref.shape[1] != csched.group_size * q_suf.shape[1]:
+        raise ValueError("q_pref must stack group_size x g query rows of q_suf's width")
+    if k_rows.dim() != 3 or v_rows.shape != k_rows.shape or k_rows.shape[1:] != (
+            csched.tile_size, d):
+        raise ValueError(f"K/V rows {tuple(k_rows.shape)} do not hold tiles of "
+                         f"({csched.tile_size}, {d})")
+    n_part = csched.prefix_sched.grid_iters + csched.suffix_sched.grid_iters
+    if ctx_all.shape != (nph + S,) or route.dim() != 1 or route.shape[0] < n_part:
+        raise ValueError(f"ctx_all must be ({nph + S},) and route (>= {n_part},)")
+    devices = {t.device for t in (q_pref, q_suf, k_rows, v_rows, ctx_all, route)}
+    if len(devices) != 1:
+        raise ValueError(f"operands lie on several devices: {sorted(map(str, devices))}")
+
+
+def lean_cascade_fused_plain(q_pref, q_suf, k_rows, v_rows, ctx_all, route,
+                             fdesc: CascadeFusedDesc, csched: CascadeSchedule, scale: float):
+    """Plain PyTorch K5: the K1 walk of the prefix phase and of the suffix
+    phase (the fused descriptors' partial section), the pieces laid out as
+    the kernel's scratch ``(P_tot + 1, qmax, d)``, then each target's merge
+    columns in descriptor order (vectorised over the targets)."""
+    pre, suf = csched.prefix_sched, csched.suffix_sched
+    nph = csched.num_groups * csched.num_kv_heads
+    S, g, d = q_suf.shape
+    qmax, dev = q_pref.shape[1], q_pref.device
+    parts_p = lean_decode_partials_plain(q_pref, k_rows, v_rows, ctx_all[:nph],
+                                         route[: pre.grid_iters], pre, scale)
+    parts_s = lean_decode_partials_plain(q_suf, k_rows, v_rows, ctx_all[nph:],
+                                         route[pre.grid_iters:], suf, scale)
+    Pp, Ptot = pre.num_pieces, csched.num_pieces_total
+    o_all = torch.zeros(Ptot + 1, qmax, d, dtype=torch.float32, device=dev)
+    m_all = torch.zeros(Ptot + 1, qmax, dtype=torch.float32, device=dev)
+    l_all = torch.zeros(Ptot + 1, qmax, dtype=torch.float32, device=dev)
+    for full, pp, ps in zip((o_all, m_all, l_all), parts_p, parts_s):
+        full[:Pp] = pp
+        full[Pp:Ptot, :g] = ps
+    desc = fdesc.desc.long()
+    start, count = fdesc.tgt_start.long(), fdesc.tgt_count.long()
+    acc = torch.zeros(S, g, d, dtype=torch.float32, device=dev)
+    m = torch.full((S, g), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros(S, g, dtype=torch.float32, device=dev)
+    rows = torch.arange(g, device=dev)
+    for k in range(int(count.max())):
+        has = count > k
+        col = torch.where(has, start + k, torch.zeros_like(start))
+        piece = desc[DESC_PIECE, col]
+        row = desc[DESC_TILE, col][:, None] * g + rows[None, :]          # (S, g)
+        acc, m, l = _fold(acc, m, l, o_all[piece[:, None], row], m_all[piece[:, None], row],
+                          l_all[piece[:, None], row], has[:, None].expand(S, g))
+    return acc / l[..., None], m + torch.log(l)
+
+
+def lean_cascade_fused(q_pref, q_suf, k_rows, v_rows, ctx_all, route,
+                       fdesc: CascadeFusedDesc, csched: CascadeSchedule, scale: float
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5. ``q_pref (NP*Hkv, qmax, d)``: each prefix segment's stacked
+    member queries (``qmax = group_size * g``); ``q_suf (B*Hkv, g, d)``;
+    ``k_rows``/``v_rows (R, tile, d)`` pool rows; ``ctx_all (NP*Hkv +
+    B*Hkv,)`` int32 runtime lengths, prefix segments first; ``route`` int32
+    pool row per partial column, prefix columns first; ``fdesc`` from
+    :func:`cascade_fused_desc`. Returns float32 ``(o (B*Hkv, g, d), lse
+    (B*Hkv, g))``."""
+    global cascade_launches
+    _check_cascade(q_pref, q_suf, k_rows, v_rows, ctx_all, route, csched)
+    if q_pref.device.type == "cpu":
+        return lean_cascade_fused_plain(q_pref, q_suf, k_rows, v_rows, ctx_all, route, fdesc,
+                                        csched, scale)
+    build.check_dtypes(q_pref, q_suf, k_rows, v_rows)
+    if ctx_all.dtype != torch.int32 or route.dtype != torch.int32:
+        raise TypeError("ctx_all and route must be int32")
+    S, g, d = q_suf.shape
+    qmax, dev = q_pref.shape[1], q_pref.device
+    if g not in KERNEL_GQ or qmax > MAX_ROWS:
+        raise ValueError(f"K5 takes g in {KERNEL_GQ} and up to {MAX_ROWS} stacked rows, got "
+                         f"g {g} and {qmax} rows")
+    build.check_contiguous(q_pref=q_pref, q_suf=q_suf, k_rows=k_rows, v_rows=v_rows,
+                           ctx_all=ctx_all, route=route)
+    pre, suf = csched.prefix_sched, csched.suffix_sched
+    Ptot = csched.num_pieces_total
+    o_p = torch.empty(Ptot + 1, qmax, d, dtype=torch.float32, device=dev)
+    m_p = torch.empty(Ptot + 1, qmax, dtype=torch.float32, device=dev)
+    l_p = torch.empty(Ptot + 1, qmax, dtype=torch.float32, device=dev)
+    arrivals = torch.zeros(S, dtype=torch.int32, device=dev)
+    o = torch.empty(S, g, d, dtype=torch.float32, device=dev)
+    lse = torch.empty(S, g, dtype=torch.float32, device=dev)
+    err = _library(CASCADE_SOURCE).lean_cascade_fused_launch(
+        build.DTYPE_CODE[q_suf.dtype], build.ptr(q_pref), build.ptr(q_suf), build.ptr(k_rows),
+        build.ptr(v_rows), build.ptr(fdesc.desc), fdesc.desc.shape[1], pre.grid_iters,
+        pre.tiles_per_worker, suf.tiles_per_worker, pre.num_workers, build.ptr(ctx_all),
+        build.ptr(route), build.ptr(fdesc.tgt_start), build.ptr(fdesc.tgt_count),
+        build.ptr(fdesc.pt_start), build.ptr(fdesc.pt_tgt), build.ptr(arrivals),
+        build.ptr(o_p), build.ptr(m_p), build.ptr(l_p), build.ptr(o), build.ptr(lse),
+        q_pref.shape[0], qmax, g, d, csched.tile_size, float(scale), build.stream(dev),
+    )
+    build.check_launch(err, "lean_cascade_fused (K5)")
+    cascade_launches += 1
     return o, lse

@@ -1,23 +1,32 @@
 """Public entry points for decode and chunked-prefill attention (port of
-``repro.kernels.ops`` without the cascade kind).
+``repro.kernels.ops``).
 
-``decode(q, kv, plan=DecodePlan(...), ctx=..., page_tbl=..., qstart=...)``
-is the one dispatcher; the convenience functions build a plan and delegate,
-as in the reference. Plan kinds:
+``decode(q, kv, plan=DecodePlan(...), ctx=..., page_tbl=..., qstart=...,
+cascade=...)`` is the one dispatcher; the convenience functions build a plan
+and delegate, as in the reference. Plan kinds:
 
   * ``'dense'`` / ``'paged'``: stream-K decode. ``fused=True`` runs K2
     (partials and merge in one launch); ``fused=False`` runs K1 followed by
-    :func:`segment_merge`.
+    the two-phase merge.
+  * ``'cascade'``: prefix-grouped decode over shared pages
+    (:func:`lean_decode_cascade`). ``fused=True`` runs K5 (grouped prefix
+    pass, suffix pass and merge in one launch); ``fused=False`` runs K1 on
+    each pass, then :func:`segment_merge`.
   * ``'verify'``: multi-query-row paged attention with a runtime causal
     offset -- a chunked-prefill pack (:func:`lean_prefill_chunks`): K4
-    partials, then :func:`segment_merge`.
+    partials, then the two-phase merge.
   * ``'flash'``: the fixed-split FlashDecoding baseline over dense KV
     (:func:`flash_decode_from_lens`): K6 partials, then :func:`merge_n`.
 
-The reference
-falls back from its fused kernel to the two-phase path when a schedule
-exceeds a TPU VMEM budget (``FUSED_VMEM_BUDGET``); K2 keeps its partials in
-global scratch and has no such budget, so here ``fused`` alone decides.
+The two-phase merge is the plan's ``merge_impl``: ``"xla"`` (the default)
+runs :func:`segment_merge`, ``"pallas"`` the merge kernel K3
+(:func:`repro_torch.kernels.lean_decode.lean_merge`). The values keep the
+reference's names, so that a plan reads the same in both packages.
+
+The reference falls back from its fused kernels (K2, K5) to the two-phase
+paths when a schedule exceeds a TPU VMEM budget (``FUSED_VMEM_BUDGET``,
+``cascade_fused_vmem_bytes``); K2 and K5 keep their partials in global
+scratch and have no such budget, so here ``fused`` alone decides.
 
 Dense KV runs the same kernels as paged KV: a dense ``(B*Hkv, S_pad, d)``
 cache is already a pool of ``(B*Hkv*S_pad/tile)`` rows of ``(tile, d)``,
@@ -34,16 +43,20 @@ from __future__ import annotations
 import math
 import warnings
 from dataclasses import dataclass
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch.core.leantile import (
+    CascadeBinding,
+    CascadeSchedule,
     LeanSchedule,
     ScheduleCache,
+    cascade_fused_descriptors,
     default_tile_size,
     fixed_split_factor,
+    make_cascade_schedule,
     make_schedule,
 )
 from repro_torch.core.merge import AttnPartial, finalize, merge_n, segment_merge
@@ -54,15 +67,23 @@ from .lean_decode import (
     DESC_TILE,
     DESC_VALID,
     OP_PARTIAL,
+    CascadeFusedDesc,
+    cascade_fused_desc,
+    lean_cascade_fused,
     lean_decode_fused,
     lean_decode_partials,
+    lean_merge,
     schedule_tensors,
 )
 
 __all__ = [
+    "CascadeOperands",
     "DecodePlan",
     "decode",
+    "cascade_tables",
     "lean_decode",
+    "lean_decode_cascade",
+    "lean_decode_cascade_from_schedule",
     "lean_decode_from_schedule",
     "lean_decode_paged",
     "lean_decode_paged_from_schedule",
@@ -72,11 +93,8 @@ __all__ = [
     "default_num_workers",
 ]
 
-_PLAN_KINDS = ("dense", "paged", "flash", "verify")
-# plan kinds of the reference not ported yet, with their ROADMAP item
-_LATER_KINDS = {
-    "cascade": "ROADMAP queue 1, item 8 (cascade, kernel K5)",
-}
+_PLAN_KINDS = ("dense", "paged", "cascade", "flash", "verify")
+_MERGE_IMPLS = ("xla", "pallas")
 
 
 def _clamp_ctx_lens(ctx_lens: Sequence[int], caps, what: str):
@@ -130,48 +148,83 @@ def _pad_kv(k_seg, v_seg, tile: int):
     return k_seg, v_seg
 
 
+def _merge_two_phase(o_p, m_p, l_p, sched: LeanSchedule, merge_impl: str, need_lse: bool):
+    """Phase 2 shared by the dense, paged and verify two-phase paths: reduce
+    the per-piece partials per segment -- with :func:`segment_merge`
+    (``"xla"``) or the merge kernel K3 (``"pallas"``). Returns (o_seg,
+    lse); ``segment_merge``'s lse is None unless ``need_lse``."""
+    if merge_impl == "pallas":
+        return lean_merge(o_p, m_p, l_p, sched)
+    seg = segment_merge(
+        AttnPartial(o=o_p, m=m_p, l=l_p),
+        schedule_tensors(sched, o_p.device)["piece_seg"],
+        sched.num_segments,
+    )
+    return finalize(seg), (seg.m + torch.log(seg.l) if need_lse else None)
+
+
 @dataclass(frozen=True)
 class DecodePlan:
     """Which kernel family, which schedule, which flags: one hashable key.
 
     kind:
-      * ``'dense'``  -- stream-K decode over dense per-slot KV
-      * ``'paged'``  -- stream-K decode through a page table
-      * ``'flash'``  -- fixed-split FlashDecoding baseline (``num_splits``
+      * ``'dense'``   -- stream-K decode over dense per-slot KV
+      * ``'paged'``   -- stream-K decode through a page table
+      * ``'cascade'`` -- prefix-grouped decode (``sched`` is the
+        :class:`~repro_torch.core.leantile.CascadeSchedule`; the grouping's
+        tensors arrive as :class:`CascadeOperands`)
+      * ``'flash'``   -- fixed-split FlashDecoding baseline (``num_splits``
         and ``tile``, no schedule)
-      * ``'verify'`` -- ``spec_rows`` stacked query rows per sequence
+      * ``'verify'``  -- ``spec_rows`` stacked query rows per sequence
         through a page table, against a chunk schedule with a runtime causal
         offset: a chunked-prefill pack (speculative verify, the same
         workload, is ROADMAP queue 1, item 10).
 
-    The reference's ``'cascade'`` kind raises ``NotImplementedError`` naming
-    its ROADMAP item. The reference's ``merge_impl`` is not a field: its
-    alternative picks the merge kernel K3, which is not ported, so the only
-    merge is :func:`segment_merge`.
+    ``merge_impl`` picks the two-phase merge: ``"xla"`` is
+    :func:`segment_merge`, ``"pallas"`` selects the CUDA merge kernel K3
+    here (the reference's Pallas ``lean_merge_pallas``). The reference's
+    ``scale`` and ``interpret`` are not fields: the scale is always
+    ``1/sqrt(d)``, and a kernel runs for CUDA tensors, its plain version
+    for CPU tensors.
     """
 
     kind: str
-    sched: Optional[LeanSchedule] = None
+    sched: Optional[Union[LeanSchedule, CascadeSchedule]] = None
     fused: bool = True
+    merge_impl: str = "xla"
     return_lse: bool = False
     num_splits: Optional[int] = None      # flash only
     tile: Optional[int] = None            # flash only
     spec_rows: int = 0                    # verify only: q rows per sequence
 
     def __post_init__(self):
-        if self.kind in _LATER_KINDS:
-            raise NotImplementedError(
-                f"plan kind {self.kind!r} is not ported yet: {_LATER_KINDS[self.kind]}"
-            )
         if self.kind not in _PLAN_KINDS:
             raise ValueError(f"unknown plan kind {self.kind!r} (one of {_PLAN_KINDS})")
+        if self.merge_impl not in _MERGE_IMPLS:
+            raise ValueError(f"unknown merge_impl {self.merge_impl!r} (one of {_MERGE_IMPLS})")
         if self.kind == "flash":
             if self.num_splits is None or self.tile is None:
                 raise ValueError("flash plans need num_splits and tile")
         elif self.sched is None:
             raise ValueError(f"{self.kind!r} plans need a schedule")
+        elif (self.kind == "cascade") != isinstance(self.sched, CascadeSchedule):
+            raise ValueError("cascade plans, and only they, take a CascadeSchedule")
         if self.kind == "verify" and self.spec_rows < 1:
             raise ValueError("verify plans need spec_rows >= 1")
+
+
+class CascadeOperands(NamedTuple):
+    """Tensors of a cascade dispatch: everything that depends on which
+    slots group where (the schedule is membership-free, as in the
+    reference). ``fused_desc`` is K5's :class:`CascadeFusedDesc` (the
+    reference passes the bare ``(7, N)`` descriptors; K5 also needs the
+    target tables derived from them); the two-call path ignores it."""
+
+    prefix_lens: torch.Tensor      # (NP,) int32 true pass lengths (tokens)
+    members: torch.Tensor          # (NP, nmax) int32 slot ids, -1 padding
+    prefix_tbl: torch.Tensor       # (NP, W) int32 shared pass pages
+    suffix_tbl: torch.Tensor       # (B, W) int32 private tails (shifted)
+    fused_desc: Optional[CascadeFusedDesc] = None
 
 
 def decode(
@@ -182,19 +235,26 @@ def decode(
     ctx: torch.Tensor,
     page_tbl: Optional[torch.Tensor] = None,
     qstart: Optional[torch.Tensor] = None,
+    cascade: Optional[CascadeOperands] = None,
 ):
     """The one decode dispatcher: ``plan`` picks the kernel family, the
     tensors ride alongside. ``kv`` is dense per-slot ``(k, v)`` for
     ``'dense'``/``'flash'`` plans and the page pools for
-    ``'paged'``/``'verify'``. ``ctx`` carries the runtime lengths: the
-    per-segment context ``(B*Hkv,)`` for decode kinds, the visible KV
-    (offset + chunk length) for ``'verify'``. ``qstart`` (verify only) is
-    the per-segment absolute position of query row 0."""
+    ``'paged'``/``'cascade'``/``'verify'``. ``ctx`` carries the runtime
+    lengths: the per-segment context ``(B*Hkv,)`` for decode kinds, the
+    suffix lengths for ``'cascade'``, the visible KV (offset + chunk length)
+    for ``'verify'``. ``qstart`` (verify only) is the per-segment absolute
+    position of query row 0; ``cascade`` (cascade only) the grouping's
+    tensors."""
     k, v = kv
     if plan.kind == "dense":
         return _dense_decode_impl(q, k, v, ctx, plan)
     if plan.kind == "flash":
         return _flash_decode_impl(q, k, v, ctx, plan)
+    if plan.kind == "cascade":
+        if cascade is None:
+            raise ValueError("cascade plans need CascadeOperands")
+        return _cascade_decode_impl(q, k, v, ctx, cascade, plan)
     if page_tbl is None:
         raise ValueError(f"{plan.kind!r} plans need page_tbl")
     if plan.kind == "paged":
@@ -205,19 +265,14 @@ def decode(
 
 
 def _run(q_seg, k_rows, v_rows, seg_ctx, route, plan: DecodePlan):
-    """K2, or K1 + segment_merge, at scale 1/sqrt(d). Returns
+    """K2, or K1 + the two-phase merge, at scale 1/sqrt(d). Returns
     (o_seg (S, gq, d), lse (S, gq))."""
     sched = plan.sched
     scale = 1.0 / math.sqrt(q_seg.shape[-1])
     if plan.fused:
         return lean_decode_fused(q_seg, k_rows, v_rows, seg_ctx, route, sched, scale)
     o_p, m_p, l_p = lean_decode_partials(q_seg, k_rows, v_rows, seg_ctx, route, sched, scale)
-    seg = segment_merge(
-        AttnPartial(o=o_p, m=m_p, l=l_p),
-        schedule_tensors(sched, o_p.device)["piece_seg"],
-        sched.num_segments,
-    )
-    return finalize(seg), seg.m + torch.log(seg.l)
+    return _merge_two_phase(o_p, m_p, l_p, sched, plan.merge_impl, plan.return_lse)
 
 
 def _finish(o_seg, lse, q, plan: DecodePlan):
@@ -308,12 +363,14 @@ def lean_decode_from_schedule(
     sched: LeanSchedule,
     *,
     fused: bool = True,
+    merge_impl: str = "xla",
     return_lse: bool = False,
 ):
     """Stream-K decode over dense KV ``(B, Hkv, S, d)`` against a prebuilt
     schedule (whose walk must cover ``seg_ctx``). Thin wrapper over
     :func:`decode` with a ``'dense'`` plan."""
-    plan = DecodePlan(kind="dense", sched=sched, fused=fused, return_lse=return_lse)
+    plan = DecodePlan(kind="dense", sched=sched, fused=fused, merge_impl=merge_impl,
+                      return_lse=return_lse)
     return decode(q, (k, v), plan=plan, ctx=seg_ctx)
 
 
@@ -326,6 +383,7 @@ def lean_decode(
     num_workers: Optional[int] = None,
     tile: Optional[int] = None,
     fused: bool = False,
+    merge_impl: str = "xla",
     schedule_cache: Optional[ScheduleCache] = None,
     return_lse: bool = False,
 ):
@@ -351,7 +409,8 @@ def lean_decode(
     seg_ctx = torch.as_tensor(
         np.repeat(np.asarray(ctx_lens), Hkv), dtype=torch.int32
     ).to(q.device)
-    return lean_decode_from_schedule(q, k, v, seg_ctx, sched, fused=fused, return_lse=return_lse)
+    return lean_decode_from_schedule(q, k, v, seg_ctx, sched, fused=fused, merge_impl=merge_impl,
+                                     return_lse=return_lse)
 
 
 def lean_decode_paged_from_schedule(
@@ -363,6 +422,7 @@ def lean_decode_paged_from_schedule(
     sched: LeanSchedule,
     *,
     fused: bool = True,
+    merge_impl: str = "xla",
     return_lse: bool = False,
 ):
     """Paged stream-K decode against a prebuilt schedule
@@ -372,7 +432,8 @@ def lean_decode_paged_from_schedule(
     the dense path: on equal logical inputs the outputs are bit-identical.
     Thin wrapper over :func:`decode` with a ``'paged'`` plan.
     """
-    plan = DecodePlan(kind="paged", sched=sched, fused=fused, return_lse=return_lse)
+    plan = DecodePlan(kind="paged", sched=sched, fused=fused, merge_impl=merge_impl,
+                      return_lse=return_lse)
     return decode(q, (k_pool, v_pool), plan=plan, ctx=seg_ctx, page_tbl=page_tbl)
 
 
@@ -385,6 +446,7 @@ def lean_decode_paged(
     *,
     num_workers: Optional[int] = None,
     fused: bool = True,
+    merge_impl: str = "xla",
     schedule_cache: Optional[ScheduleCache] = None,
     return_lse: bool = False,
 ):
@@ -419,7 +481,191 @@ def lean_decode_paged(
     ).to(q.device)
     tbl = torch.as_tensor(ptbl_np, dtype=torch.int32).to(q.device)
     return lean_decode_paged_from_schedule(
-        q, k_pool, v_pool, seg_ctx, tbl, sched, fused=fused, return_lse=return_lse,
+        q, k_pool, v_pool, seg_ctx, tbl, sched, fused=fused, merge_impl=merge_impl,
+        return_lse=return_lse,
+    )
+
+
+# ------------------------------------------------------------------ cascade
+def cascade_tables(page_tbl: np.ndarray, binding: CascadeBinding) -> Tuple[np.ndarray, np.ndarray]:
+    """Host-side ``(prefix_tbl, suffix_tbl)`` for a cascade call.
+
+    ``prefix_tbl[j]`` is grouped pass ``j``'s shared page run -- pages
+    ``[page_start, page_start + prefix_pages)`` of its first member's table
+    row (all members alias the same physical pages there); ``suffix_tbl[b]``
+    is sequence ``b``'s row shifted left past its deepest shared coverage.
+    Widths stay at the slot table width so bucketed walks never index out of
+    range."""
+    ptbl = np.asarray(page_tbl)
+    B, W = ptbl.shape
+    NP = binding.members.shape[0]
+    prefix_tbl = np.zeros((NP, W), dtype=np.int32)
+    suffix_tbl = np.zeros((B, W), dtype=np.int32)
+    for j in range(NP):
+        lead = int(binding.members[j, 0])
+        if lead < 0:
+            continue
+        s = int(binding.page_start[j])
+        n = int(binding.prefix_pages[j])
+        prefix_tbl[j, :n] = ptbl[lead, s: s + n]
+    for b in range(B):
+        n = int(binding.seq_prefix_pages[b])
+        suffix_tbl[b, : W - n] = ptbl[b, n:]
+    return prefix_tbl, suffix_tbl
+
+
+def lean_decode_cascade_from_schedule(
+    q: torch.Tensor,                  # (B, Hq, d)
+    k_pool: torch.Tensor,             # (num_pages, Hkv, page_size, d)
+    v_pool: torch.Tensor,
+    seg_ctx_suffix: torch.Tensor,     # (B*Hkv,) int32 true suffix lengths
+    prefix_lens: torch.Tensor,        # (NP,) int32 true pass lengths (tokens)
+    members: torch.Tensor,            # (NP, nmax) int32 slot ids, -1 padding
+    prefix_tbl: torch.Tensor,         # (NP, W) int32 shared pass pages
+    suffix_tbl: torch.Tensor,         # (B, W) int32 private tails (shifted)
+    fused_desc: Optional[CascadeFusedDesc],   # K5's descriptors (cascade_fused_desc)
+    csched: CascadeSchedule,
+    *,
+    fused: bool = True,
+    return_lse: bool = False,
+):
+    """Cascade (prefix-grouped) paged LeanAttention decode against a
+    prebuilt membership-free schedule: the grouped prefix pass(es), the
+    per-sequence suffix pass and the merge -- one K5 launch with ``fused``,
+    else K1 on each pass and :func:`segment_merge`. Everything that depends
+    on the grouping arrives as tensors.
+
+    Numerics: sharing physical pages is bit-neutral (the same cascade over
+    duplicated pages gives the same bits); the regrouping re-associates the
+    softmax reduction, so against the unshared decode the result agrees
+    within float32 tolerance, like any other stream-K repartition.
+
+    Thin wrapper over :func:`decode` with a ``'cascade'`` plan."""
+    plan = DecodePlan(kind="cascade", sched=csched, fused=fused, return_lse=return_lse)
+    ops_c = CascadeOperands(prefix_lens=prefix_lens, members=members, prefix_tbl=prefix_tbl,
+                            suffix_tbl=suffix_tbl, fused_desc=fused_desc)
+    return decode(q, (k_pool, v_pool), plan=plan, ctx=seg_ctx_suffix, cascade=ops_c)
+
+
+def _cascade_decode_impl(q, k_pool, v_pool, seg_ctx_suffix, ops_c: CascadeOperands,
+                         plan: DecodePlan):
+    csched = plan.sched
+    B, Hq, d = q.shape
+    num_pages, Hkv, page_size, _ = k_pool.shape
+    if page_size != csched.tile_size:
+        raise ValueError(
+            f"page_size {page_size} != schedule tile_size {csched.tile_size}"
+            " — lean tiles must map 1:1 onto pages"
+        )
+    if B != csched.batch or Hkv != csched.num_kv_heads:
+        raise ValueError("cascade schedule does not match the batch geometry")
+    scale = 1.0 / math.sqrt(d)
+    g, nmax, NP = Hq // Hkv, csched.group_size, csched.num_groups
+    pre, suf = csched.prefix_sched, csched.suffix_sched
+    k_rows, v_rows = _pool_rows(k_pool, v_pool)
+    members = ops_c.members.to(q.device)
+
+    # stacked member queries of each (pass, head): padding ranks carry
+    # member-0 copies whose rows no target reads
+    q_r = q.reshape(B, Hkv, g, d)
+    q_pref = q_r[members.long().clamp(min=0)]                    # (NP, nmax, Hkv, g, d)
+    q_pref = q_pref.movedim(2, 1).reshape(NP * Hkv, nmax * g, d).contiguous()
+    q_suf = q.reshape(B * Hkv, g, d).contiguous()
+    ctx_p = ops_c.prefix_lens.to(device=q.device, dtype=torch.int32).repeat_interleave(Hkv)
+    ctx_s = seg_ctx_suffix.to(torch.int32)
+    route_p = _paged_route(pre, ops_c.prefix_tbl, Hkv)
+    route_s = _paged_route(suf, ops_c.suffix_tbl, Hkv)
+
+    if plan.fused:
+        if ops_c.fused_desc is None:
+            raise ValueError("fused cascade plans need fused_desc")
+        o_seg, lse = lean_cascade_fused(
+            q_pref, q_suf, k_rows, v_rows, torch.cat([ctx_p, ctx_s]).contiguous(),
+            torch.cat([route_p, route_s]).contiguous(), ops_c.fused_desc, csched, scale,
+        )
+        return _finish(o_seg, lse, q, plan)
+
+    # two calls: K1 on the prefix pass, K1 on the suffix pass, then the
+    # merge. A prefix piece of (pass j, head h) expands to one row block
+    # per member rank, aimed at sequence segment members[j, i] * Hkv + h;
+    # padding ranks aim at B * Hkv, which segment_merge drops.
+    o_p, m_p, l_p = lean_decode_partials(q_pref, k_rows, v_rows, ctx_p, route_p, pre, scale)
+    o_s, m_s, l_s = lean_decode_partials(q_suf, k_rows, v_rows, ctx_s, route_s, suf, scale)
+    Pp = pre.num_pieces
+    part = AttnPartial(
+        o=torch.cat([o_p.reshape(Pp, nmax, g, d).transpose(0, 1).reshape(nmax * Pp, g, d), o_s]),
+        m=torch.cat([m_p.reshape(Pp, nmax, g).transpose(0, 1).reshape(nmax * Pp, g), m_s]),
+        l=torch.cat([l_p.reshape(Pp, nmax, g).transpose(0, 1).reshape(nmax * Pp, g), l_s]),
+    )
+    pseg = torch.as_tensor(pre.piece_seg.astype(np.int64)).to(q.device)
+    mem_p = members.long()[pseg // Hkv]                          # (Pp, nmax)
+    tgt = torch.where(mem_p >= 0, mem_p * Hkv + (pseg % Hkv)[:, None],
+                      torch.full_like(mem_p, B * Hkv))
+    ids = torch.cat([tgt.T.reshape(-1), schedule_tensors(suf, q.device)["piece_seg"].long()])
+    seg = segment_merge(part, ids, B * Hkv)
+    return _finish(finalize(seg), seg.m + torch.log(seg.l) if plan.return_lse else None, q, plan)
+
+
+def lean_decode_cascade(
+    q: torch.Tensor,                  # (B, Hq, d)
+    k_pool: torch.Tensor,             # (num_pages, Hkv, page_size, d)
+    v_pool: torch.Tensor,
+    page_tbl,                         # (B, pages_per_seq) int32 (host)
+    ctx_lens: Sequence[int],
+    groups: Sequence[Sequence[int]],
+    prefix_pages: Sequence[int],
+    *,
+    page_starts: Optional[Sequence[int]] = None,
+    num_workers: Optional[int] = None,
+    fused: bool = True,
+    schedule_cache: Optional[ScheduleCache] = None,
+    return_lse: bool = False,
+):
+    """Convenience cascade decode: builds (or cache-fetches) the cascade
+    schedule and binding from host lengths and grouping, derives the phase
+    tables and the fused descriptors, and runs
+    :func:`lean_decode_cascade_from_schedule`.
+
+    ``groups``/``prefix_pages``/``page_starts`` are grouped passes over the
+    batch -- nested (multi-level) passes allowed, singletons dropped --
+    exactly what :func:`repro_torch.serving.prefix_cache.lcp_group_passes`
+    gives over a radix-cache admission. Lengths clamp to allocated capacity
+    like :func:`lean_decode_paged`."""
+    B, Hq, d = q.shape
+    num_pages, Hkv, page_size, _ = k_pool.shape
+    ptbl_np = (
+        page_tbl.cpu().numpy() if isinstance(page_tbl, torch.Tensor)
+        else np.asarray(page_tbl)
+    )
+    if ptbl_np.shape[0] != B:
+        raise ValueError("page table rows must match the batch")
+    if ptbl_np.size and (ptbl_np.min() < 0 or ptbl_np.max() >= num_pages):
+        raise ValueError(f"page table holds page ids outside [0, {num_pages})")
+    page_counts = (ptbl_np != 0).sum(axis=1)
+    ctx_lens = _clamp_ctx_lens(ctx_lens, page_counts * page_size, "lean_decode_cascade")
+    ctx_lens = [max(1, c) for c in ctx_lens]
+    num_workers = num_workers or default_num_workers()
+    max_len = ptbl_np.shape[1] * page_size
+    if schedule_cache is not None:
+        csched, binding = schedule_cache.get_cascade(
+            ctx_lens, groups, prefix_pages, Hkv, page_size, num_workers,
+            max_len=max_len, page_starts=page_starts,
+        )
+    else:
+        csched, binding = make_cascade_schedule(
+            ctx_lens, groups, prefix_pages, Hkv, page_size, num_workers,
+            page_starts=page_starts, max_len=max_len,
+        )
+    prefix_tbl, suffix_tbl = cascade_tables(ptbl_np, binding)
+    fdesc = None
+    if fused:
+        fdesc = cascade_fused_desc(cascade_fused_descriptors(csched, binding), csched, q.device)
+    dev = q.device
+    i32 = lambda a: torch.as_tensor(np.asarray(a, dtype=np.int32)).to(dev)
+    seg_ctx_suffix = i32(np.repeat(np.asarray(ctx_lens) - binding.seq_prefix_len, Hkv))
+    return lean_decode_cascade_from_schedule(
+        q, k_pool, v_pool, seg_ctx_suffix, i32(binding.prefix_lens), i32(binding.members),
+        i32(prefix_tbl), i32(suffix_tbl), fdesc, csched, fused=fused, return_lse=return_lse,
     )
 
 
@@ -431,19 +677,21 @@ def lean_prefill_chunks(
     seg_qstart: torch.Tensor,         # (N*Hkv,) int32 chunk start offsets
     page_tbls: torch.Tensor,          # (N, W) int32 page table rows
     sched: LeanSchedule,
+    *,
+    merge_impl: str = "xla",
 ):
     """Stream-K chunked prefill against a prebuilt chunk schedule
     (:func:`repro_torch.core.leantile.make_chunk_schedule` over the pack's
     visible KV lengths). ``seg_ctx``, ``seg_qstart`` and ``page_tbls`` are
     runtime tensors, so one bucketed schedule serves a request at every
     depth of its prompt. Two-phase: K4 partials, then the decode merge
-    (partials carry ``g * C`` rows per segment instead of ``g``). Returns
-    ``(N, Hq, C, d)`` in q's dtype.
+    (``merge_impl``; partials carry ``g * C`` rows per segment instead of
+    ``g``). Returns ``(N, Hq, C, d)`` in q's dtype.
 
     Thin wrapper over :func:`decode` with a ``'verify'`` plan (``spec_rows
     = C``).
     """
-    plan = DecodePlan(kind="verify", sched=sched, spec_rows=q.shape[2])
+    plan = DecodePlan(kind="verify", sched=sched, merge_impl=merge_impl, spec_rows=q.shape[2])
     return decode(q, (k_pool, v_pool), plan=plan, ctx=seg_ctx, page_tbl=page_tbls,
                   qstart=seg_qstart)
 
@@ -468,12 +716,8 @@ def _verify_impl(q, k_pool, v_pool, seg_ctx, seg_qstart, page_tbls, plan: Decode
         q_seg, k_rows, v_rows, seg_ctx.to(torch.int32).contiguous(),
         seg_qstart.to(torch.int32).contiguous(), route, sched, scale, chunk_cap=C,
     )
-    seg = segment_merge(
-        AttnPartial(o=o_p, m=m_p, l=l_p),
-        schedule_tensors(sched, o_p.device)["piece_seg"],
-        sched.num_segments,
-    )
-    return finalize(seg).reshape(N, Hq, C, d).to(q.dtype)
+    o_seg, _ = _merge_two_phase(o_p, m_p, l_p, sched, plan.merge_impl, need_lse=False)
+    return o_seg.reshape(N, Hq, C, d).to(q.dtype)
 
 
 def flash_decode_from_lens(

@@ -25,6 +25,16 @@ paper §IV-C/Fig. 6.
     gathers the pages and runs fixed-split FlashDecoding (K6 + ``merge_n``),
     chunked prefill runs paged FA-2 (K8). Backend ``'ref'`` runs the plain
     oracles.
+  * With ``PagedConfig(prefix_cache=True)`` a radix cache
+    (:class:`~repro_torch.serving.prefix_cache.RadixPrefixCache`) keeps the
+    KV pages of finished requests: a later prompt that starts with the same
+    tokens shares them (refcounted) and prefills only its tail; a KV write
+    into a shared page copies it first (copy-on-write); under pool pressure
+    unreferenced cached pages are evicted, least recently used first. With
+    ``CascadeConfig(enabled=True)`` (lean only) slots sharing page runs are
+    grouped at their longest common prefixes, and once a grouping has held
+    for ``stable_ticks`` ticks, decode runs the cascade: shared pages walked
+    once per group (K5, or K1 on each pass + merge with ``fused=False``).
 
 Where the reference jits each step with the KV cache donated, the port
 updates the page pools in place (index assignment) and runs eagerly.
@@ -47,16 +57,22 @@ import torch
 
 from repro_torch.core.attention import paged_gather_kv
 from repro_torch.core.leantile import (
+    CascadeBinding,
+    CascadeSchedule,
     LeanSchedule,
     ScheduleCache,
+    cascade_fused_descriptors,
     default_tile_size,
     fixed_split_factor,
     make_chunk_schedule,
 )
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.flash_prefill import flash_prefill_paged
+from repro_torch.kernels.lean_decode import CascadeFusedDesc, cascade_fused_desc
 from repro_torch.kernels.ops import (
+    cascade_tables,
     flash_decode_from_lens,
+    lean_decode_cascade_from_schedule,
     lean_decode_paged_from_schedule,
     lean_prefill_chunks,
 )
@@ -71,6 +87,7 @@ from repro_torch.models.transformer import (
 )
 from repro_torch.serving.config import EngineConfig
 from repro_torch.serving.kvpool import KVLayout, KVPagePool
+from repro_torch.serving.prefix_cache import RadixPrefixCache, lcp_group_passes
 
 
 class PoisonError(RuntimeError):
@@ -130,9 +147,10 @@ _STAT_COUNTERS = (
 
 class EngineStats:
     """Engine telemetry: the reference's counters as plain ints, the
-    per-tick schedule and token logs, the last pool/cache snapshots, and
-    the latency observations in seconds (time to first token, time per
-    output token, queue wait), which the scheduler appends."""
+    per-tick schedule and token logs, the last pool/cache snapshots, the
+    last cascade tick's grouping, and the latency observations in seconds
+    (time to first token, time per output token, queue wait), which the
+    scheduler appends."""
 
     def __init__(self):
         for name in _STAT_COUNTERS:
@@ -140,6 +158,8 @@ class EngineStats:
         self.schedules: List[dict] = []
         self.schedule_cache: dict = {}
         self.kv_pool: dict = {}
+        self.prefix_cache: dict = {}
+        self.cascade_last: dict = {}
         self.tick_decode_tokens: List[int] = []
         self.tick_prefill_tokens: List[int] = []
         self.ttft: List[float] = []
@@ -151,10 +171,6 @@ class EngineStats:
 def _unported(cfg: ModelConfig, config: EngineConfig) -> Optional[str]:
     if not config.paged.enabled:
         return "the dense-cache engine (ROADMAP queue 1, next slice)"
-    if config.paged.prefix_cache:
-        return "the prefix cache (ROADMAP queue 1, item 8)"
-    if config.cascade.enabled:
-        return "cascade decode (ROADMAP queue 1, item 8)"
     if config.spec.enabled:
         return "speculative decode (ROADMAP queue 1, item 10)"
     if (config.paged.kv_dtype or cfg.kv_cache_dtype) != "bf16":
@@ -200,6 +216,13 @@ class DecodeEngine:
                 "interpret is a Pallas setting; the port runs kernels on CUDA "
                 "tensors and their plain versions on CPU tensors"
             )
+        if config.cascade.enabled:
+            if not config.paged.prefix_cache:
+                raise ValueError("cascade=True requires prefix_cache=True")
+            if config.attn_backend != "lean":
+                raise ValueError("cascade decode is a lean-kernel path (attn_backend='lean')")
+        if config.cascade.grouping not in ("lcp", "identical"):
+            raise ValueError("cascade_grouping must be 'lcp' or 'identical'")
         check_supported(cfg)
         self.cfg = cfg
         self.params = params
@@ -227,6 +250,29 @@ class DecodeEngine:
         self.pool = KVPagePool(num_pages, self.tile, layout=layout)
         self.page_tbl = np.zeros((self.max_batch, self.pages_per_slot), dtype=np.int32)
         self.cache = init_paged_cache(cfg, num_pages, self.tile, device=self.device)
+
+        # prefix sharing: the radix cache over the pool, and per slot which
+        # logical tiles are shared (immutable: copy-on-write before any KV
+        # write lands in one) and how many leading full shared pages form
+        # its cascade prefix
+        self.prefix_cache = RadixPrefixCache(self.pool) if config.paged.prefix_cache else None
+        self._slot_shared_tiles: List[set] = [set() for _ in range(self.max_batch)]
+        self._slot_prefix_full: List[int] = [0] * self.max_batch
+        # cascade decode: fused K5, trie-path grouping ('lcp' groups at
+        # longest common prefixes, stacking one pass per trie level with
+        # multi_level; 'identical' groups only equal page runs), and the
+        # stability guard -- the cascade engages once a grouping has held
+        # for stable_ticks consecutive ticks
+        casc = config.cascade
+        self.cascade = casc.enabled
+        self.cascade_fused = casc.fused
+        self.cascade_grouping = casc.grouping
+        self.cascade_multi_level = casc.multi_level
+        self.cascade_stable_ticks = max(1, int(casc.stable_ticks))
+        self._casc_key = None           # last tick's grouping structure
+        self._casc_stable = 0           # consecutive ticks it has held
+        self._casc_signatures: set = set()   # schedule geometries seen
+        self._casc_desc = None          # (key, CascadeFusedDesc) of the last grouping
 
         self.ctx_lens = np.zeros(self.max_batch, dtype=np.int64)
         self.slot_req: List[Optional[Request]] = [None] * self.max_batch
@@ -310,7 +356,7 @@ class DecodeEngine:
         plen = len(req.prompt)
         self._check_fits_pool(req)
         n = max(1, -(-plen // self.tile))
-        pages = self.pool.alloc(slot, n)
+        pages = self._pool_alloc(slot, n)
         if pages is None:
             return False            # pool exhausted; retry next tick
         self.page_tbl[slot, :n] = pages
@@ -348,30 +394,105 @@ class DecodeEngine:
             self.slot_req[slot] = req
             self.ctx_lens[slot] = 0
             self.page_tbl[slot, :] = 0
+            self._slot_shared_tiles[slot] = set()
+            self._slot_prefix_full[slot] = 0
             return slot
         return None
 
+    def _pool_alloc(self, seq, n: int):
+        """Pool allocation with radix-cache backpressure: on exhaustion,
+        evict least recently used unreferenced cache leaves and retry once.
+        Cached pages are elastic capacity; live requests always win."""
+        got = self.pool.alloc(seq, n)
+        if got is None and self.prefix_cache is not None:
+            need = n - self.pool.num_free
+            if self.prefix_cache.evict(need) > 0 or self.pool.num_free >= n:
+                got = self.pool.alloc(seq, n)
+        return got
+
+    # ------------------------------------------------------- prefix sharing
     def attach_prefix(self, slot: int, prompt) -> int:
-        """Prompt tokens of ``slot`` already in the KV pool from a cached
-        prefix: always 0, since the port has no prefix cache yet (ROADMAP
-        queue 1, item 8)."""
-        return 0
+        """Map the longest cached prefix of ``prompt`` into ``slot``'s page
+        table (refcount-shared, nothing recomputed) and return the number of
+        prompt tokens it covers; the caller starts chunked prefill there.
+        The match is capped at ``len(prompt) - 1`` so that at least one
+        token runs through the model (the first token's logits are
+        computed, not recalled). 0 without a prefix cache."""
+        if self.prefix_cache is None:
+            return 0
+        if self.pool.holds(slot) or self.ctx_lens[slot] != 0:
+            raise RuntimeError(f"attach_prefix on slot {slot} with existing pages/context")
+        prompt = np.asarray(prompt)
+        match = self.prefix_cache.match(prompt.tolist())
+        matched = min(match.matched_tokens, len(prompt) - 1)
+        if matched <= 0:
+            return 0
+        keep = -(-matched // self.tile)
+        pages = match.pages[:keep]
+        self.pool.share(slot, pages)
+        self.page_tbl[slot, :keep] = pages
+        self._slot_shared_tiles[slot] = set(range(keep))
+        self._slot_prefix_full[slot] = matched // self.tile
+        self.stats.prefix_matched_tokens += matched
+        self.stats.prefix_attach_count += 1
+        return matched
+
+    def _copy_page(self, src: int, dst: int):
+        """Copy-on-write's device side: page ``src`` onto page ``dst`` in
+        every layer's K and V pools, in place (the reference clones it into
+        a donated cache)."""
+        for lc in self.cache:
+            for name in ("k", "v"):
+                lc[name][dst].copy_(lc[name][src])
+
+    def _cow_tile(self, slot: int, t: int) -> bool:
+        """Copy-on-write logical tile ``t`` of ``slot`` before a KV write
+        lands in a shared page: copy the page onto a fresh one, swap the
+        table entry, release the share. Returns False (state unchanged)
+        when no page can be had now. (The reference's ``cow`` trace span
+        comes with ROADMAP queue 1, item 13.)"""
+        old = int(self.page_tbl[slot, t])
+        got = self._pool_alloc(slot, 1)
+        if got is None:
+            return False
+        new = got[0]
+        self._copy_page(old, new)
+        self.page_tbl[slot, t] = new
+        self.pool.release_pages(slot, [old])
+        self._slot_shared_tiles[slot].discard(t)
+        if t < self._slot_prefix_full[slot]:
+            self._slot_prefix_full[slot] = t
+        self.stats.cow_copies += 1
+        return True
+
+    def _cow_for_writes(self, slot: int, start: int, upto: int) -> bool:
+        """Copy-on-write every shared tile that KV writes for positions
+        ``[start, upto)`` would touch."""
+        shared = self._slot_shared_tiles[slot]
+        if not shared or upto <= start:
+            return True
+        for t in range(start // self.tile, (upto - 1) // self.tile + 1):
+            if t in shared and not self._cow_tile(slot, t):
+                return False
+        return True
 
     def ensure_chunk_pages(self, slot: int, upto_tokens: int,
                            write_from: Optional[int] = None) -> bool:
         """Grow ``slot``'s pages to cover prompt positions ``[0,
-        upto_tokens)``. Returns False, with the pool unchanged, when it
-        cannot serve them now. ``write_from`` is the chunk's first position:
-        in the reference, shared prefix pages the chunk would write are
-        copied first; without a prefix cache no page is ever shared, so no
-        copy is needed (copy-on-write comes with ROADMAP queue 1, item 8)."""
+        upto_tokens)``. With ``write_from`` (the chunk's first position),
+        shared pages the chunk's KV writes would land in are copied first:
+        a partial-page radix match hands the slot an immutable page its own
+        appends must not touch. Returns False when the pool cannot serve
+        the chunk now."""
         need = min(-(-int(upto_tokens) // self.tile), self.pages_per_slot)
         have = self.pool.count(slot)
         if have < need:
-            got = self.pool.alloc(slot, need - have)
+            got = self._pool_alloc(slot, need - have)
             if got is None:
                 return False
             self.page_tbl[slot, have:need] = got
+        if write_from is not None:
+            return self._cow_for_writes(slot, int(write_from), int(upto_tokens))
         return True
 
     def prefill_chunks_tick(self, work: List[tuple], pack_width: int,
@@ -458,19 +579,24 @@ class DecodeEngine:
 
     # ------------------------------------------------------------ paged mgmt
     def _ensure_decode_pages(self, active: List[int]) -> List[int]:
-        """Grow each active slot's pages to cover this tick's KV write; a
-        slot the pool cannot serve is preempted."""
+        """Grow each active slot's pages to cover this tick's KV write, and
+        copy the page it lands in first if it is shared; a slot the pool
+        cannot serve is preempted."""
         alive = []
         for s in active:
             ctx = int(self.ctx_lens[s])
             need = min(ctx // self.tile + 1, self.pages_per_slot)
             have = self.pool.count(s)
             if have < need:
-                got = self.pool.alloc(s, need - have)
+                got = self._pool_alloc(s, need - have)
                 if got is None:
                     self._preempt(s)
                     continue
                 self.page_tbl[s, have:need] = got
+            wt = min(ctx, self.pages_per_slot * self.tile - 1) // self.tile
+            if wt in self._slot_shared_tiles[s] and not self._cow_tile(s, wt):
+                self._preempt(s)
+                continue
             alive.append(s)
         return alive
 
@@ -479,10 +605,13 @@ class DecodeEngine:
         by recompute (prompt extended with everything generated so far)."""
         req = self.slot_req[slot]
         if self.pool.holds(slot):
+            # shares release (refcount - 1); only private pages are freed
             self.pool.free_seq(slot, eviction=True)
         self.page_tbl[slot, :] = 0
         self.slot_req[slot] = None
         self.ctx_lens[slot] = 0
+        self._slot_shared_tiles[slot] = set()
+        self._slot_prefix_full[slot] = 0
         fresh = req.generated[req.folded:]
         req.prompt = np.concatenate(
             [np.asarray(req.prompt), np.asarray(fresh, dtype=np.asarray(req.prompt).dtype)]
@@ -502,13 +631,108 @@ class DecodeEngine:
             raise ValueError(f"slot {slot} is idle")
         self._preempt(slot)
 
+    def _donate_to_prefix_cache(self, slot: int, req: Optional[Request]):
+        """Offer a finishing slot's KV pages to the radix cache before its
+        references are released: cached blocks outlive the release and
+        serve later prompts that start with the same tokens. (The
+        reference also survives an insert that fails under fault injection,
+        counting ``donation_aborts``; faults are ROADMAP queue 1, item 12.)"""
+        if self.prefix_cache is None or req is None:
+            return
+        n_tok = int(self.ctx_lens[slot])
+        if n_tok <= 0 or not self.pool.holds(slot):
+            return
+        fresh = req.generated[req.folded:]
+        toks = np.concatenate(
+            [np.asarray(req.prompt, dtype=np.int64), np.asarray(fresh, dtype=np.int64)]
+        )[:n_tok]
+        toks = toks[: min(n_tok, self.pool.count(slot) * self.tile)]
+        if len(toks) == 0:
+            return
+        pages = self.page_tbl[slot, : -(-len(toks) // self.tile)].tolist()
+        self.prefix_cache.insert(toks.tolist(), pages)
+
     def release_slot(self, slot: int):
-        """Finish a slot: release its pages and clear its state."""
+        """Finish a slot: donate its KV to the radix cache (when there is
+        one), release its page references (shared pages live on under
+        their other holders) and clear its state."""
+        self._donate_to_prefix_cache(slot, self.slot_req[slot])
         self.slot_req[slot] = None
         self.ctx_lens[slot] = 0
+        self._free_slot_pages(slot)
+
+    def _free_slot_pages(self, slot: int):
         if self.pool.holds(slot):
             self.pool.free_seq(slot)
         self.page_tbl[slot, :] = 0
+        self._slot_shared_tiles[slot] = set()
+        self._slot_prefix_full[slot] = 0
+
+    # ------------------------------------------------------------- cascade
+    def _cascade_grouping(self, active: List[int]):
+        """This tick's grouped cascade passes: the radix page paths of the
+        active slots (their leading runs of full shared pages) grouped at
+        their longest common prefixes (:func:`lcp_group_passes`; nested
+        subsets stack one pass per trie level with ``multi_level``).
+        ``grouping='identical'`` groups only equal page runs. Slots sharing
+        with nobody are absent: they decode through their suffix walk."""
+        paths = {}
+        for s in active:
+            npref = self._slot_prefix_full[s]
+            if npref > 0:
+                paths[s] = tuple(int(p) for p in self.page_tbl[s, :npref])
+        if self.cascade_grouping == "identical":
+            by_prefix: Dict[tuple, List[int]] = {}
+            for s, p in paths.items():
+                by_prefix.setdefault(p, []).append(s)
+            return sorted(
+                (tuple(sorted(m)), 0, len(p)) for p, m in by_prefix.items() if len(m) >= 2
+            )
+        return lcp_group_passes(paths, multi_level=self.cascade_multi_level)
+
+    def _cascade_fused_desc(self, csched: CascadeSchedule, binding: CascadeBinding,
+                            fused: bool) -> Optional[CascadeFusedDesc]:
+        """K5's descriptors for this tick, on the device, memoized on the
+        (schedule geometry, binding) pair: the stability guard keeps both
+        steady across ticks, so the host build and the upload run once per
+        regrouping. None on the two-call path, which does not read them."""
+        if not fused:
+            return None
+        key = (csched.signature, binding.members.tobytes(), binding.page_start.tobytes(),
+               binding.prefix_pages.tobytes())
+        if self._casc_desc is None or self._casc_desc[0] != key:
+            desc = cascade_fused_descriptors(csched, binding)
+            self._casc_desc = (key, cascade_fused_desc(desc, csched, self.device))
+        return self._casc_desc[1]
+
+    def _cascade_schedule_for_tick(self, active: List[int], ctx_np):
+        """The (schedule, binding) of this tick's cascade decode, or
+        ``(None, None)`` when no grouped pass exists or the stability guard
+        still holds the path back. The guard keys on the grouping's
+        structure (membership and page ranges), not on lengths. (The
+        reference's ``cascade_group`` trace span comes with ROADMAP queue 1,
+        item 13.)"""
+        passes = self._cascade_grouping(active)
+        if not passes:
+            self._casc_key = None
+            self._casc_stable = 0
+            return None, None
+        key = tuple(passes)
+        if key == self._casc_key:
+            self._casc_stable += 1
+        else:
+            self._casc_key = key
+            self._casc_stable = 1
+        if self._casc_stable < self.cascade_stable_ticks:
+            self.stats.cascade_stability_skips += 1
+            return None, None
+        s_pad = self.cache_len + ((-self.cache_len) % self.tile)
+        lens = np.minimum(ctx_np + 1, self.cache_len)
+        return self.sched_cache.get_cascade(
+            lens.tolist(), [m for m, _, _ in passes], [c for _, _, c in passes],
+            self.cfg.n_kv_heads, self.tile, self.num_workers, max_len=s_pad,
+            page_starts=[st for _, st, _ in passes],
+        )
 
     # ------------------------------------------------------------ decode
     def tick(self) -> Dict[int, int]:
@@ -538,18 +762,24 @@ class DecodeEngine:
             for s in exclude:
                 ctx_np[s] = 0
                 ptbl_np[s, :] = 0
-        logits = self._decode_pass_main(ctx_np, ptbl_np)
+        logits = self._decode_pass_main(active, ctx_np, ptbl_np)
         self.last_logits = logits
         next_all = logits.argmax(dim=-1).cpu().numpy()
         return self._emit_tokens(active, next_all)
 
-    def _decode_pass_main(self, ctx_np, ptbl_np) -> torch.Tensor:
-        """The fast-path decode step over the whole batch: one cached
-        schedule, the model's decode step with paged attention on the
+    def _decode_pass_main(self, active: List[int], ctx_np, ptbl_np) -> torch.Tensor:
+        """The fast-path decode step over the whole batch: the cascade when
+        ``active`` slots group and the guard lets it engage, else one cached
+        schedule and the model's decode step with paged attention on the
         configured backend -- lean: K2 (or K1 + merge); fixed: the pages
         gathered to dense, then K6 + merge_n with FlashDecoding's split
         factor; ref: the plain oracle. Updates the pools in place and
         returns the logits (B, V)."""
+        csched = binding = None
+        if self.cascade:
+            csched, binding = self._cascade_schedule_for_tick(active, ctx_np)
+        if csched is not None:
+            return self._cascade_pass(csched, binding, ctx_np, ptbl_np)
         sched = self._tick_schedule(ctx_np)
         self._record_schedule(sched)
         tokens = torch.as_tensor(self.next_tokens).to(self.device)
@@ -586,6 +816,50 @@ class DecodeEngine:
         )
         return logits
 
+    def _cascade_pass(self, csched: CascadeSchedule, binding: CascadeBinding, ctx_np,
+                      ptbl_np) -> torch.Tensor:
+        """Cascade decode: the KV write goes through the full page table;
+        attention walks each grouped pass's shared pages once and each
+        slot's private tail, and merges (K5 in one launch, or K1 twice +
+        merge with ``CascadeConfig(fused=False)``). The suffix length of a
+        slot is its visible context less its shared coverage, at least 0."""
+        self._record_schedule(csched.suffix_sched)
+        prefix_tbl, suffix_tbl = cascade_tables(ptbl_np, binding)
+        fused = self.cascade_fused
+        fdesc = self._cascade_fused_desc(csched, binding, fused)
+        if csched.signature not in self._casc_signatures:
+            self._casc_signatures.add(csched.signature)
+            self.stats.cascade_retraces += 1
+        dev, n_kv = self.device, self.cfg.n_kv_heads
+        i32 = lambda a: torch.as_tensor(np.asarray(a, dtype=np.int32)).to(dev)
+        prefix_lens, members = i32(binding.prefix_lens), i32(binding.members)
+        seq_prefix_len = i32(binding.seq_prefix_len)
+        prefix_tbl, suffix_tbl = i32(prefix_tbl), i32(suffix_tbl)
+
+        def attn_fn(q, k_pool, v_pool, ctx_visible):
+            suffix = torch.clamp(ctx_visible.to(torch.int32) - seq_prefix_len, min=0)
+            return lean_decode_cascade_from_schedule(
+                q, k_pool, v_pool, suffix.repeat_interleave(n_kv), prefix_lens, members,
+                prefix_tbl, suffix_tbl, fdesc, csched, fused=fused,
+            )
+
+        logits, self.cache = decode_step(
+            self.params, self.cfg, self.cache, torch.as_tensor(self.next_tokens).to(dev),
+            attn_fn=attn_fn, ctx_lens=torch.as_tensor(ctx_np, dtype=torch.int32).to(dev),
+            page_tbl=torch.as_tensor(ptbl_np).to(dev),
+        )
+        grouped = np.unique(binding.members[binding.members >= 0])
+        passes = int((binding.members[:, 0] >= 0).sum())
+        st = self.stats
+        st.cascade_ticks += 1
+        st.cascade_fused_ticks += int(fused)
+        st.cascade_grouped_slots += len(grouped)
+        st.cascade_grouped_passes += passes
+        st.cascade_levels_max = max(st.cascade_levels_max, binding.num_levels)
+        st.cascade_last = {"passes": passes, "grouped_slots": int(len(grouped)),
+                           "levels": int(binding.num_levels), "fused": bool(fused)}
+        return logits
+
     def _emit_tokens(self, active: List[int], next_all) -> Dict[int, int]:
         # context cap: the cache row and the whole pool -- a context past
         # usable_pages * tile could never be re-admitted after preemption
@@ -605,6 +879,8 @@ class DecodeEngine:
         self._log(self.stats.tick_decode_tokens, len(out))
         self.stats.schedule_cache = self.sched_cache.stats.as_dict()
         self.stats.kv_pool = self.pool.as_dict()
+        if self.prefix_cache is not None:
+            self.stats.prefix_cache = self.prefix_cache.as_dict()
         return out
 
     def _log(self, log: List, item):

@@ -1,12 +1,12 @@
-"""The CUDA kernels K1, K2, K4, K6 and K8 against their plain PyTorch
-versions, on the card. Marked ``cuda``: they skip where there is no CUDA
+"""The CUDA kernels K1-K6 and K8 against their plain PyTorch versions, on
+the card. Marked ``cuda``: they skip where there is no CUDA
 card and run on the card with
 
     python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
-They cover what ``chip_smoke.py`` does not: every query-group width the
+They cover what ``chip_smoke.py`` does not: every row bucket the decode
 kernels are instantiated for, float32 and bf16, other tile, head and chunk
-sizes, and grids of more workers than SMs. Tolerance 2e-5: kernel and plain
+sizes, grids of more workers than SMs, and K5's determinism. Tolerance 2e-5: kernel and plain
 version both compute in float32 from the same inputs (K8's bf16 output:
 one bf16 step plus 2e-5, since both round a float32 result).
 """
@@ -87,9 +87,24 @@ def test_fused_kernel_any_grid(cuda, workers, tile, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("gq", [1, 3, 12, 16, 40, 64])
+def test_decode_kernels_take_stacked_rows(cuda, gq):
+    """Row counts between the buckets (zero rows padded in the CTA) and the
+    cascade's stacked member rows: K1 and K2 against their plain versions."""
+    args = _operands(cuda, [300, 1, 77], gq, 2, 64, 16, 24, torch.bfloat16, seed=gq)
+    o, lse = ld.lean_decode_fused(*args)
+    parts = ld.lean_decode_partials(*args)
+    o_ref, lse_ref = ld.lean_decode_fused_plain(*args)
+    torch.testing.assert_close(o, o_ref, **TOL)
+    torch.testing.assert_close(lse, lse_ref, **TOL)
+    for a, b in zip(parts, ld.lean_decode_partials_plain(*args)):
+        torch.testing.assert_close(a, b, **TOL)
+
+
+@pytest.mark.cuda
 def test_wrapper_refuses_what_the_kernel_cannot_take(cuda):
-    args = _operands(cuda, [40], 3, 1, 32, 16, 4, torch.float32)
-    with pytest.raises(ValueError, match="gq"):
+    args = _operands(cuda, [40], ld.MAX_ROWS + 1, 1, 32, 16, 4, torch.float32)
+    with pytest.raises(ValueError, match="query rows"):
         ld.lean_decode_fused(*args)
     args = _operands(cuda, [40], 4, 1, 32, 16, 4, torch.float16)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
@@ -263,3 +278,182 @@ def test_scheduler_on_card_runs_the_kernels(cuda, backend):
         fp.launches, fd.launches)
     assert chunk_k == cfg.n_layers * chunk_steps > 0
     assert decode_k == cfg.n_layers * ticks > 0
+
+
+# ------------------------------------------------------------------ K3, K5
+CASCADES = {
+    # (Hq, Hkv, d, page, workers, passes (members, start, pages), suffixes)
+    "gqa-one-level": (8, 2, 64, 16, 24, [((0, 1, 2), 0, 3)], [5, 40, 33, 11]),
+    "gqa-two-level": (8, 2, 64, 16, 7, [((0, 1, 2, 3), 0, 2), ((1, 2), 2, 2)], [3, 9, 17, 30]),
+    "nemo-two-level": (32, 8, 128, 128, 132, [((0, 1, 2, 3), 0, 8), ((0, 1), 8, 8)],
+                       [700, 300, 129, 1]),
+    "g2-eight-members": (4, 2, 64, 16, 1000, [(tuple(range(8)), 0, 4)], list(range(1, 80, 10))),
+}
+
+
+def _cascade_problem(dev, case, dtype, seed=0):
+    """A case's pools, queries and two page tables: in ``tbl`` the passes'
+    members alias shared pages; in ``dup`` every member past a pass's first
+    reads its own copy of them. Private pages elsewhere, all shuffled."""
+    import numpy as np
+
+    Hq, Hkv, d, ps, workers, passes, suffixes = CASCADES[case]
+    rng = np.random.default_rng(seed)
+    B = len(suffixes)
+    cover = [0] * B
+    for mem, st, cnt in passes:
+        for b in mem:
+            cover[b] = max(cover[b], st + cnt)
+    lens = [cover[b] * ps + suffixes[b] for b in range(B)]
+    n_pages = [-(-L // ps) for L in lens]
+    W = max(n_pages) + 1
+    num_pages = 1 + sum(n_pages) + sum(c * len(m) for m, _, c in passes) + 2
+    free = [int(p) for p in rng.permutation(np.arange(1, num_pages))]
+    tbl = np.zeros((B, W), np.int32)
+    for mem, st, cnt in passes:
+        pages = [free.pop() for _ in range(cnt)]
+        for b in mem:
+            tbl[b, st:st + cnt] = pages
+    for b in range(B):
+        for t in range(cover[b], n_pages[b]):
+            tbl[b, t] = free.pop()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    kp = torch.randn(num_pages, Hkv, ps, d, generator=gen, device=dev).to(dtype)
+    vp = torch.randn(num_pages, Hkv, ps, d, generator=gen, device=dev).to(dtype)
+    q = torch.randn(B, Hq, d, generator=gen, device=dev).to(dtype)
+    dup = tbl.copy()
+    for mem, st, cnt in passes:
+        for b in mem[1:]:
+            copy = [free.pop() for _ in range(cnt)]
+            src = torch.as_tensor(tbl[b, st:st + cnt]).long()
+            kp[copy], vp[copy] = kp[src], vp[src]
+            dup[b, st:st + cnt] = copy
+    return dict(q=q, kp=kp, vp=vp, tbl=tbl, dup=dup, lens=lens, workers=workers,
+                groups=[list(m) for m, _, _ in passes], counts=[c for _, _, c in passes],
+                starts=[st for _, st, _ in passes])
+
+
+def _cascade_args(c, tbl):
+    """K5's operands over page table ``tbl``, as ``ops`` builds them."""
+    import numpy as np
+
+    from repro_torch.core.leantile import cascade_fused_descriptors, make_cascade_schedule
+
+    q, dev = c["q"], c["q"].device
+    B, Hq, d = q.shape
+    Hkv, ps = c["kp"].shape[1], c["kp"].shape[2]
+    g = Hq // Hkv
+    csched, binding = make_cascade_schedule(c["lens"], c["groups"], c["counts"], Hkv, ps,
+                                            c["workers"], page_starts=c["starts"],
+                                            max_len=tbl.shape[1] * ps)
+    ptbl, stbl = ops.cascade_tables(tbl, binding)
+    mem = torch.as_tensor(binding.members).long().clamp(min=0).to(dev)
+    nmax, NP = csched.group_size, csched.num_groups
+    q_pref = q.reshape(B, Hkv, g, d)[mem].movedim(2, 1).reshape(NP * Hkv, nmax * g, d)
+    suffix = np.asarray(c["lens"]) - binding.seq_prefix_len
+    ctx_all = np.concatenate([np.repeat(binding.prefix_lens, Hkv), np.repeat(suffix, Hkv)])
+    route = torch.cat([ops._paged_route(csched.prefix_sched, torch.as_tensor(ptbl).to(dev), Hkv),
+                       ops._paged_route(csched.suffix_sched, torch.as_tensor(stbl).to(dev), Hkv)])
+    k_rows, v_rows = ops._pool_rows(c["kp"], c["vp"])
+    return (q_pref.contiguous(), q.reshape(B * Hkv, g, d).contiguous(), k_rows, v_rows,
+            torch.as_tensor(ctx_all.astype(np.int32)).to(dev), route.contiguous(),
+            ld.cascade_fused_desc(cascade_fused_descriptors(csched, binding), csched, dev),
+            csched, 1.0 / math.sqrt(d))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(CASCADES))
+def test_k5_matches_plain_and_is_deterministic(cuda, case, dtype):
+    """K5 against its plain version; two launches give the same bits, and
+    so does the same cascade over duplicated pages (the reference's
+    contract); the two-call path (K1 x 2 + merge) agrees within 2e-5."""
+    c = _cascade_problem(cuda, case, getattr(torch, dtype))
+    args = _cascade_args(c, c["tbl"])
+    before = ld.cascade_launches
+    o, lse = ld.lean_cascade_fused(*args)
+    o2, lse2 = ld.lean_cascade_fused(*args)
+    torch.cuda.synchronize()
+    assert ld.cascade_launches == before + 2
+    o_ref, lse_ref = ld.lean_cascade_fused_plain(*args)
+    torch.testing.assert_close(o, o_ref, **TOL)
+    torch.testing.assert_close(lse, lse_ref, **TOL)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    o3, lse3 = ld.lean_cascade_fused(*_cascade_args(c, c["dup"]))
+    assert torch.equal(o, o3) and torch.equal(lse, lse3)
+    B, Hq, d = c["q"].shape
+    two = ops.lean_decode_cascade(c["q"], c["kp"], c["vp"], c["tbl"], c["lens"], c["groups"],
+                                  c["counts"], page_starts=c["starts"],
+                                  num_workers=c["workers"], fused=False, return_lse=True)
+    torch.testing.assert_close(two[0].float(), o.reshape(B, Hq, d).to(c["q"].dtype).float(),
+                               **TOL)
+    torch.testing.assert_close(two[1], lse.reshape(B, Hq), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [4, 12, 1024])
+def test_k3_matches_plain_and_segment_merge(cuda, rows):
+    """K3 on K1's partials (rows 4 and 12) and on random partials of a
+    chunk segment (g * C = 1024 rows) against its plain version and
+    segment_merge."""
+    from repro_torch.core.merge import AttnPartial, finalize, segment_merge
+
+    if rows <= 64:
+        args = _operands(cuda, [300, 1, 77, 129], rows, 2, 64, 16, 24, torch.float32)
+        parts = ld.lean_decode_partials(*args)
+        sched = args[5]
+    else:
+        sched = make_schedule([300, 1, 77], 2, 16, 24)
+        gen = torch.Generator(device=cuda)
+        gen.manual_seed(5)
+        P = sched.num_pieces
+        parts = (torch.randn(P, rows, 64, generator=gen, device=cuda),
+                 torch.randn(P, rows, generator=gen, device=cuda) * 3,
+                 torch.rand(P, rows, generator=gen, device=cuda) + 0.5)
+    before = ld.merge_launches
+    o, lse = ld.lean_merge(*parts, sched)
+    torch.cuda.synchronize()
+    assert ld.merge_launches == before + 1
+    o_ref, lse_ref = ld.merge_pieces_plain(*parts, sched)
+    torch.testing.assert_close(o, o_ref, **TOL)
+    torch.testing.assert_close(lse, lse_ref, **TOL)
+    seg = segment_merge(AttnPartial(*parts), ld.schedule_tensors(sched, cuda)["piece_seg"],
+                        sched.num_segments)
+    torch.testing.assert_close(o, finalize(seg), **TOL)
+
+
+@pytest.mark.cuda
+def test_cascade_scheduler_on_card_runs_k5(cuda):
+    """The smoke-config Scheduler with the prefix cache and the cascade on
+    the card: every request served, pool and radix cache clean, K5 launched
+    once per layer and cascade tick, K2 once per layer and other tick."""
+    import numpy as np
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.serving.config import CascadeConfig, EngineConfig, PagedConfig
+    from repro_torch.serving.engine import DecodeEngine
+    from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
+
+    cfg = get_smoke_config("mistral-nemo-12b")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    eng = DecodeEngine(cfg, params, EngineConfig(
+        max_batch=4, cache_len=64, num_workers=8, attn_backend="lean",
+        paged=PagedConfig(enabled=True, page_size=8, prefix_cache=True),
+        cascade=CascadeConfig(enabled=True, stable_ticks=1)), device="cuda")
+    sch = Scheduler(eng, SchedulerConfig(chunk_size=8, prefill_pack=2, token_budget=32))
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, cfg.vocab_size, 24)
+    ld.reset_launch_counts()
+    for n in (2, 4):
+        hs = [sch.submit(np.concatenate([shared, rng.integers(0, cfg.vocab_size, 4 + 2 * i)]),
+                         4) for i in range(n)]
+        sch.run_to_completion(max_steps=400)
+        assert all(h.done for h in hs)
+    eng.pool.check()
+    eng.prefix_cache.check()
+    st = eng.stats
+    assert st.prefix_attach_count >= 4 and st.cascade_fused_ticks > 0
+    assert ld.cascade_launches == cfg.n_layers * st.cascade_fused_ticks
+    assert ld.fused_launches == cfg.n_layers * (st.ticks - st.cascade_ticks)

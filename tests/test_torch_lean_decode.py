@@ -19,7 +19,7 @@ jld = importlib.import_module("repro.kernels.lean_decode")
 from repro.kernels import ops as jops  # noqa: E402
 from repro.core.leantile import ScheduleCache as JCache  # noqa: E402
 from repro.core.leantile import make_schedule as jmake  # noqa: E402
-from repro_torch.core.leantile import ScheduleCache, make_schedule  # noqa: E402
+from repro_torch.core.leantile import ScheduleCache, make_cascade_schedule, make_schedule  # noqa: E402
 from repro_torch.kernels import build, lean_decode as tld  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.serving.config import EngineConfig, PagedConfig  # noqa: E402
@@ -176,10 +176,13 @@ def test_dense_convenience_matches_jax():
 
 @pytest.mark.parametrize("kind", ["cascade"])
 def test_unported_plan_kinds_raise(kind):
-    """Only the cascade kind is still unported ('flash' and 'verify' are
-    held against JAX in tests/test_torch_chunked_prefill.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tops.DecodePlan(kind=kind, sched=make_schedule([8], 1, 8, 1))
+    """Every plan kind of the reference is ported now, the cascade kind
+    last (held against JAX in tests/test_torch_cascade.py): it builds with
+    its own schedule, and only a kind the reference lacks is refused."""
+    csched, _ = make_cascade_schedule([20, 20], [[0, 1]], [2], 1, 8, 2)
+    assert tops.DecodePlan(kind=kind, sched=csched).kind == kind
+    with pytest.raises(ValueError, match="unknown plan kind"):
+        tops.DecodePlan(kind="dense-" + kind, sched=make_schedule([8], 1, 8, 1))
 
 
 def test_cuda_entry_points_raise_without_cuda():
