@@ -14,12 +14,15 @@ Phases, in order; any failure exits non-zero and nothing catches it:
      ragged batch on shuffled pages): K1 (+ merge) and K2 against their
      plain PyTorch versions in float32 and bf16, dense == paged bit for
      bit, kernel / plain / library times and the bound; then K4 and K8 on a
-     pack of two 256-token prompt chunks, and K6 (fixed split) against K2
-     on two decode shapes -- the paper's comparison;
+     pack of two 256-token prompt chunks, K6 (fixed split) against K2 on
+     two decode shapes -- the paper's comparison -- and K7 (whole-prompt
+     FA-2 prefill) on a 3000-token causal prompt, with a 1024-token sliding
+     window, and non-causal 37 x 150;
   4. engine phase: Mistral-NeMo-12B at full width, random bf16 weights from
-     a seeded generator, served through ``DecodeEngine`` (paged, lean, K2);
-     then the same prompts again on that engine with a few decode ticks
-     under ``torch.profiler``: device busy, launches and idle share per tick;
+     a seeded generator, served through ``DecodeEngine`` (paged, blocking
+     admission through K7, lean decode through K2); then the same prompts
+     again on that engine with a few decode ticks under ``torch.profiler``:
+     device busy, launches and idle share per tick;
   5. the same model with ``fused=False`` for a few ticks (K1 + merge);
   6. the first decode tick of a ``'ref'``-backend engine against the lean
      one on the same weights and prompts;
@@ -35,7 +38,14 @@ Phases, in order; any failure exits non-zero and nothing catches it:
      K2 before the grouping holds), against the same waves with the prefix
      cache off: tokens matched and prefill skipped, peak pages, cascade
      ticks, launches, TTFT, first-token and cascade-tick logits;
-  9. the kernel summary (one JSON line), the ``nvidia-smi`` line, and last
+  9. dense-cache engine phase: the same requests on the engine with
+     ``PagedConfig(enabled=False)`` (the reference's default), on ``lean``
+     (K7 admissions, K2 decode) and ``fixed`` (K7, K6): admission ms per
+     prompt, tick p50, tokens/s, launches; streams and logits against the
+     paged lean engine's; traced lean ticks; tick p50 against the paged
+     engine in turns; one tick of the legacy step (``use_fast_path=
+     False``: K1 + merge) against the fast path's;
+ 10. the kernel summary (one JSON line), the ``nvidia-smi`` line, and last
      ``{"ok": true, "device": {...}}``.
 
 The kernel phase (3) also holds K3 (the merge kernel) against its plain
@@ -350,7 +360,7 @@ def launch_counts():
 
     return {"K1": ld.partials_launches, "K2": ld.fused_launches, "K3": ld.merge_launches,
             "K4": lp.launches, "K5": ld.cascade_launches, "K6": fd.launches,
-            "K8": fp.launches}
+            "K7": fp.dense_launches, "K8": fp.launches}
 
 
 # ------------------------------------------------------- chunked-prefill kernels
@@ -490,6 +500,86 @@ def prefill_kernel_phase(torch, sm_count: int, dev_name: str):
     return results
 
 
+# ------------------------------------------------- whole-prompt prefill (K7)
+K7_CASES = {
+    # name: (Lq, Lk, causal, window); B 1, Hq 32, Hkv 8, d 128 throughout.
+    # 1024: Gemma-3's local window (src/repro/configs/gemma3_4b.py:22)
+    "causal 3000": (3000, 3000, True, None),
+    "window 1024": (3000, 3000, True, 1024),
+    "non-causal 37x150": (37, 150, False, None),
+}
+
+
+def visible_keys(Lq, Lk, causal, window, q_offset=0):
+    """Keys each query row sees, summed over the rows (one head)."""
+    total = 0
+    for i in range(Lq):
+        qpos = q_offset + i
+        hi = min(Lk, qpos + 1) if causal else Lk
+        lo = max(qpos - window + 1, 0) if window else 0
+        total += max(hi - lo, 0)
+    return total
+
+
+def prefill_k7_phase(torch, dev_name: str):
+    """K7 (``flash_prefill``) at the dense engine's prefill shape -- one
+    3000-token prompt, Mistral-NeMo-12B attention, causal, ``q_offset`` 0 --
+    and with a 1024-token sliding window, and non-causal 37 x 150, in bf16
+    and float32: against its plain version, its time, the plain version's,
+    the bound and the library's (SDPA on the same inputs, the g query heads
+    of a KV head sharing its K/V: ``enable_gqa``)."""
+    from repro_torch.kernels import flash_prefill as fp
+
+    B, Hq, Hkv, d = 1, 32, 8, 128
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    results = {}
+    for case, (Lq, Lk, causal, window) in K7_CASES.items():
+        seen = visible_keys(Lq, Lk, causal, window)
+        flops = 4 * Hq * d * seen                     # QK^T and PV, 2 flops a MAC
+        for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+            dname = str(dtype).split(".")[-1]
+            elem = torch.finfo(dtype).bits // 8
+            q = torch.randn(B, Hq, Lq, d, generator=gen, device=dev).to(dtype)
+            k = torch.randn(B, Hkv, Lk, d, generator=gen, device=dev).to(dtype)
+            v = torch.randn(B, Hkv, Lk, d, generator=gen, device=dev).to(dtype)
+            kw = dict(causal=causal, window=window)
+            out = fp.flash_prefill(q, k, v, **kw)
+            ref = fp.flash_prefill_plain(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            if dtype == torch.float32:
+                ok = torch.allclose(out, ref, atol=tol, rtol=tol)
+            else:
+                # both round a float32 result to bf16: one bf16 step apart
+                # at most, plus the float32 tolerance where the sum cancels
+                step = torch.finfo(torch.bfloat16).eps * ref.float().abs()
+                ok = bool(((out.float() - ref.float()).abs() <= step + tol).all())
+            check(ok, f"K7 {dname} ({case}) disagrees with its plain version: max |err| {err}")
+            ms = gpu_ms(lambda: fp.flash_prefill(q, k, v, **kw))
+            plain_ms = gpu_ms(lambda: fp.flash_prefill_plain(q, k, v, **kw), reps=3)
+            if window is None:
+                lib = lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True)
+            else:
+                pos = torch.arange(Lq, device=dev)[:, None]
+                kpos = torch.arange(Lk, device=dev)[None, :]
+                mask = (kpos <= pos) & (kpos > pos - window)
+                lib = lambda: sdpa(q, k, v, attn_mask=mask, enable_gqa=True)
+            lib_err = (lib().float() - ref.float()).abs().max().item()
+            lib_ms = gpu_ms(lib)
+            nbytes = (2 * q.numel() + k.numel() + v.numel()) * elem     # q, k, v in; o out
+            b_ms, b_by = bound(dev_name, dname, nbytes, flops)
+            results[(case, dname)] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                                      "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
+            print(f"K7 {case} {dname}: Lq {Lq} Lk {Lk}, {flops / 1e9:.2f} GFLOP, "
+                  f"{nbytes / 1e6:.1f} MB; max|err| {err:.3e} (SDPA vs plain {lib_err:.3e}); "
+                  f"{ms:.4f} ms, {flops / ms / 1e9:.2f} TFLOP/s (bound {b_ms:.4f} ms by {b_by}; "
+                  f"plain {plain_ms:.3f} ms; library {lib_ms:.4f} ms)", flush=True)
+    return results
+
+
 # ------------------------------------------------------ fixed-split decode (K6)
 DECODE_SHAPES = ((4000, 1500, 700, 1), (16384, 512, 256, 17))
 
@@ -616,20 +706,21 @@ def engine_config(backend, sm_count, fused=True):
 
 def drive(torch, eng, reqs):
     """Submit, then tick until drained. Returns (first tick's seconds, the
-    later ticks' (seconds, tokens emitted), first tick's logits)."""
+    later ticks' (seconds, tokens emitted), every tick's logits)."""
     for r in reqs:
         eng.submit(r)
-    first, ticks, first_logits = None, [], None
+    first, ticks, logits = None, [], []
     while eng.queue or any(eng.slot_req):
         t0 = time.perf_counter()
         out = eng.tick()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        logits.append(eng.last_logits.clone())
         if first is None:
-            first, first_logits = dt, eng.last_logits.clone()
+            first = dt
         else:
             ticks.append((dt, len(out)))
-    return first, ticks, first_logits
+    return first, ticks, logits
 
 
 TRACED_TICKS = 5
@@ -647,7 +738,7 @@ def _union_us(intervals):
     return total
 
 
-def traced_ticks(torch, eng, reqs, untraced_p50_s: float):
+def traced_ticks(torch, eng, reqs, untraced_p50_s: float, label: str = "traced ticks"):
     """Where a decode tick's time goes: serve ``reqs`` again on the drained
     engine, past admission and a warm-up, and trace ``TRACED_TICKS`` decode
     ticks with ``torch.profiler``. Prints device busy per tick (union of the
@@ -669,12 +760,13 @@ def traced_ticks(torch, eng, reqs, untraced_p50_s: float):
             walls.append(time.perf_counter() - t0)
     while eng.queue or any(eng.slot_req):
         eng.tick()
-    eng.pool.check()
-    check(eng.pool.num_allocated == 0, "pages leaked after the traced ticks")
+    if eng.pool is not None:
+        eng.pool.check()
+        check(eng.pool.num_allocated == 0, "pages leaked after the traced ticks")
     kernels, busy_ms, by_name = device_time(prof)
     busy_ms /= TRACED_TICKS
     wall_ms = statistics.median(walls) * 1e3
-    print(f"traced ticks: {TRACED_TICKS} decode ticks under torch.profiler, wall p50 "
+    print(f"{label}: {TRACED_TICKS} decode ticks under torch.profiler, wall p50 "
           f"{wall_ms:.2f} ms; device busy {busy_ms:.2f} ms/tick; "
           f"{len(kernels) / TRACED_TICKS:.0f} kernel launches/tick; device idle share "
           f"{1 - busy_ms * TRACED_TICKS / (sum(walls) * 1e3):.3f} traced, "
@@ -1203,6 +1295,129 @@ def prefix_serving_phase(torch, cfg, params, sm_count, new_tokens):
     return on["counts"]
 
 
+# ------------------------------------------------------- dense-cache engine
+def dense_engine_phase(torch, cfg, params, sm_count, new_tokens, paged):
+    """The ``PROMPT_LENS`` requests on the dense-cache engine
+    (``PagedConfig(enabled=False)``, the reference's default), on ``lean``
+    (K7 admissions, K2 decode) and on ``fixed`` (K7, K6): admission ms per
+    prompt, decode tick p50, tokens/s, launches (K7 = layers x prompts
+    admitted). The lean run's streams and every decode tick's logits are
+    held to the paged lean engine's (``paged``: its streams and logits rows
+    on the same requests), with the engine phase's logit tolerance, and a few
+    of its decode ticks are traced as the engine phase's are; then one
+    tick of the legacy step (``use_fast_path=False``: K1 + merge over a
+    schedule built from the host lengths) against the fast path's first
+    tick. Between them, the paged and the dense lean engine serve the same
+    requests in turns for their tick p50. Returns the lean run's launch
+    counts."""
+    from repro_torch.serving.config import EngineConfig, PagedConfig
+    from repro_torch.serving.engine import DecodeEngine, Request
+
+    L = cfg.n_layers
+
+    def dense_engine(backend, fast=True):
+        return DecodeEngine(cfg, params, EngineConfig(
+            max_batch=4, cache_len=4096, attn_backend=backend, num_workers=sm_count,
+            use_fast_path=fast, paged=PagedConfig(enabled=False)), device="cuda")
+
+    def close(got, ref, what):
+        check(bool(torch.isfinite(got).all()), f"dense engine: {what} logits not finite")
+        atol = LOGIT_ATOL_FRAC * ref.abs().median().item()
+        delta = (got - ref).abs().max().item()
+        check(torch.allclose(got, ref, rtol=LOGIT_RTOL, atol=atol),
+              f"dense engine: {what} logits differ by up to {delta} (allowed {atol} + "
+              f"{LOGIT_RTOL} |ref|)")
+        return delta
+
+    lean_counts, lean_first = None, None
+    for backend in ("lean", "fixed"):
+        eng = dense_engine(backend)
+        gb = eng.cache[0]["k"].numel() * 2 * 2 * L / 1e9
+        reqs = make_requests(Request, cfg.vocab_size, new_tokens)
+        reset_launch_counts()
+        admit_ms = []
+        for slot, r in enumerate(reqs):
+            t0 = time.perf_counter()
+            check(eng.admit_blocking(r, slot), "dense engine: admission refused")
+            torch.cuda.synchronize()
+            admit_ms.append((time.perf_counter() - t0) * 1e3)
+        ticks, rows = [], []
+        while any(eng.slot_req):
+            t0 = time.perf_counter()
+            out = eng.decode_tick()
+            torch.cuda.synchronize()
+            ticks.append((time.perf_counter() - t0, len(out)))
+            rows.append(eng.last_logits.clone())
+        counts = launch_counts()
+        check(all(len(r.generated) == new_tokens for r in reqs),
+              f"dense engine ({backend}): a request did not finish")
+        decode_k = {"lean": "K2", "fixed": "K6"}[backend]
+        check(counts["K7"] == L * eng.stats.prefills == L * len(reqs),
+              f"dense engine ({backend}): K7 launched {counts['K7']} times, expected {L} x "
+              f"{len(reqs)} admissions")
+        check(counts[decode_k] == L * eng.stats.ticks and eng.stats.ticks > 0,
+              f"dense engine ({backend}): {decode_k} launched {counts[decode_k]} times, "
+              f"expected {L} x {eng.stats.ticks} ticks")
+        others = {k: n for k, n in counts.items() if k not in ("K7", decode_k) and n}
+        check(not others, f"dense engine ({backend}): other kernels ran: {others}")
+        p50 = statistics.median(dt for dt, _ in ticks[1:])
+        tok_s = sum(n for _, n in ticks[1:]) / sum(dt for dt, _ in ticks[1:])
+        streams = [list(r.generated) for r in reqs]
+        line = (f"dense engine phase ({backend}): {cfg.name} full width, dense cache "
+                f"{gb:.2f} GB, {len(reqs)} requests (prompts {list(PROMPT_LENS)}, {new_tokens} "
+                f"new tokens each): admission ms per prompt (K7) "
+                + ", ".join(f"{t:.1f}" for t in admit_ms)
+                + f"; decode tick p50 {p50 * 1e3:.2f} ms over {len(ticks) - 1} ticks after the "
+                f"first, {tok_s:.1f} tokens/s; launches K7 {counts['K7']} = {L} x "
+                f"{len(reqs)}, {decode_k} {counts[decode_k]} = {L} x {eng.stats.ticks}")
+        if backend == "lean":
+            lean_counts, lean_first = counts, rows[0]
+            check(streams == paged["streams"],
+                  f"dense and paged lean engines' streams differ: {streams} vs "
+                  f"{paged['streams']}")
+            check(len(rows) == len(paged["rows"]), "dense and paged lean engines' ticks differ")
+            worst = max(close(a, b, "lean tick") for a, b in zip(rows, paged["rows"]))
+            same = all(torch.equal(a, b) for a, b in zip(rows, paged["rows"]))
+            line += (f"; streams equal to the paged lean engine's, {len(rows)} ticks' logits "
+                     f"within {worst:.4f} ({'bit for bit' if same else 'not bit for bit'})")
+        print(line, flush=True)
+        if backend == "lean":
+            traced_ticks(torch, eng, make_requests(Request, cfg.vocab_size, TRACED_TICKS + 6), p50,
+                         label="dense traced ticks (lean)")
+        del eng
+        torch.cuda.empty_cache()
+
+    # tick p50 of the paged and the dense lean engine in turns (paged, dense,
+    # dense, paged), so that the two compare on one card and one host state
+    turns = []
+    for paged_turn in (True, False, False, True):
+        eng = (DecodeEngine(cfg, params, engine_config("lean", sm_count), device="cuda")
+               if paged_turn else dense_engine("lean"))
+        _, ticks, _ = drive(torch, eng, make_requests(Request, cfg.vocab_size, new_tokens))
+        turns.append(statistics.median(dt for dt, _ in ticks) * 1e3)
+        del eng
+        torch.cuda.empty_cache()
+    print("decode tick p50 ms in turns (paged, dense, dense, paged), lean: "
+          + ", ".join(f"{t:.2f}" for t in turns), flush=True)
+
+    eng = dense_engine("lean", fast=False)
+    reqs = make_requests(Request, cfg.vocab_size, new_tokens)
+    for slot, r in enumerate(reqs):
+        eng.admit_blocking(r, slot)
+    reset_launch_counts()
+    eng.decode_tick()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check(counts["K1"] == L and counts["K2"] == 0,
+          f"legacy step: launches {counts}, expected K1 {L} and no K2")
+    delta = close(eng.last_logits, lean_first, "legacy tick")
+    print(f"dense legacy step (use_fast_path=False, lean): one tick, K1 launches {counts['K1']}, "
+          f"logits within {delta:.4f} of the fast path's first tick", flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    return lean_counts
+
+
 def main() -> int:
     import torch
 
@@ -1249,6 +1464,7 @@ def main() -> int:
     kres = kernel_phase(torch, sm_count, dev_name)
     kres.update(prefill_kernel_phase(torch, sm_count, dev_name))
     k6res = fixed_decode_phase(torch, sm_count, dev_name)
+    k7res = prefill_k7_phase(torch, dev_name)
     k5res = cascade_kernel_phase(torch, sm_count, dev_name)
     merge_counts = merge_plan_drive(torch, sm_count)
 
@@ -1268,11 +1484,14 @@ def main() -> int:
     reqs = make_requests(Request, cfg.vocab_size, new_tokens)
     blocking = {"prompts": [r.prompt.copy() for r in reqs]}
     reset_launch_counts()
-    first_s, ticks, lean_logits = drive(torch, eng, reqs)
+    first_s, ticks, paged_rows = drive(torch, eng, reqs)
+    lean_logits = paged_rows[0]
     counts = launch_counts()
     k2_launches, k1_in_main = counts["K2"], counts["K1"]
     check(counts["K3"] == counts["K4"] == counts["K5"] == counts["K6"] == counts["K8"] == 0,
           f"blocking engine ran other kernels: {counts}")
+    check(counts["K7"] == cfg.n_layers * eng.stats.prefills == cfg.n_layers * len(reqs),
+          f"K7 launched {counts['K7']} times, expected {cfg.n_layers} x {len(reqs)} admissions")
     decode_steps = eng.stats.ticks
     check(all(len(r.generated) == new_tokens for r in reqs), "a request did not finish")
     check(tuple(lean_logits.shape) == (len(reqs), cfg.vocab_size)
@@ -1288,7 +1507,9 @@ def main() -> int:
           f"each): admission + first decode tick {first_s * 1e3:.1f} ms; decode tick "
           f"p50 {p50 * 1e3:.2f} ms over {len(ticks)} ticks, {tok_s:.1f} tokens/s; "
           f"K2 launches {k2_launches} = {cfg.n_layers} layers x {decode_steps} steps; "
+          f"K7 launches {counts['K7']} = {cfg.n_layers} layers x {len(reqs)} admissions; "
           "pool clean", flush=True)
+    paged = {"streams": [list(r.generated) for r in reqs], "rows": paged_rows}
     traced_ticks(torch, eng, make_requests(Request, cfg.vocab_size, TRACED_TICKS + 6), p50)
     del eng
 
@@ -1351,16 +1572,21 @@ def main() -> int:
     # 8. prefix-sharing serving: radix cache, copy-on-write, cascade (K5)
     prefix_counts = prefix_serving_phase(torch, cfg, params, sm_count, new_tokens)
 
-    # 9. summary: kernel times in bf16 at the main path's shapes; launches
+    # 9. the dense-cache engine: K7 admissions, K2 / K6 decode, the legacy step
+    dense_counts = dense_engine_phase(torch, cfg, params, sm_count, new_tokens, paged)
+
+    # 10. summary: kernel times in bf16 at the main path's shapes; launches
     # from the run of the path each kernel serves
     k6 = k6res[(DECODE_SHAPES[0], "bfloat16")]
     kres[("flash_decode_partials", "bfloat16")] = k6
     kres[("lean_cascade_fused", "bfloat16")] = k5res[(next(iter(CASCADE_CASES)), "bfloat16")]
+    kres[("flash_prefill", "bfloat16")] = k7res[(next(iter(K7_CASES)), "bfloat16")]
     launches = {"lean_decode_fused": k2_launches, "lean_decode_partials": k1_launches,
                 "lean_prefill_chunk_partials": sched_runs["lean"]["counts"]["K4"],
                 "flash_decode_partials": sched_runs["fixed"]["counts"]["K6"],
                 "flash_prefill_paged": sched_runs["fixed"]["counts"]["K8"],
-                "lean_merge": merge_counts["K3"], "lean_cascade_fused": prefix_counts["K5"]}
+                "lean_merge": merge_counts["K3"], "lean_cascade_fused": prefix_counts["K5"],
+                "flash_prefill": dense_counts["K7"]}
     where = {
         "lean_decode_fused": ("lean_decode.cu", "src/repro/kernels/lean_decode.py:302"),
         "lean_decode_partials": ("lean_decode.cu", "src/repro/kernels/lean_decode.py:117"),
@@ -1370,6 +1596,7 @@ def main() -> int:
         "flash_prefill_paged": ("flash_prefill.cu", "src/repro/kernels/flash_prefill.py:162"),
         "lean_merge": ("lean_merge.cu", "src/repro/kernels/lean_decode.py:813"),
         "lean_cascade_fused": ("lean_cascade.cu", "src/repro/kernels/lean_decode.py:604"),
+        "flash_prefill": ("flash_prefill.cu", "src/repro/kernels/flash_prefill.py:24"),
     }
     kernels = []
     for name, (source, replaces) in where.items():
@@ -1382,7 +1609,7 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             # no one PyTorch call computes K1's per-piece partials or K3's
             # merge of them; SDPA computes the attention K2, K4 (+ merge),
-            # K5, K6 (+ merge_n) and K8 do
+            # K5, K6 (+ merge_n), K7 and K8 do
             "library_ms": r["library_ms"] if r["library_ms"] is not None
             and name != "lean_decode_partials" else None,
         })

@@ -8,8 +8,9 @@
 //                     section IV-A): K2's and K5's fix-ups and K3
 //                     (lean_merge.cu).
 //   rows_tile_update  a block of kBlockRows query rows against one K/V tile,
-//                     each row with its own count of visible keys (the
-//                     chunk-causal mask): K4 (lean_prefill.cu) and K8
+//                     each row with its own range of visible keys (the
+//                     chunk-causal mask, and with kWindow a sliding
+//                     window's left edge): K4 (lean_prefill.cu), K7 and K8
 //                     (flash_prefill.cu).
 //
 // Both are the update of LeanAttention's Algorithm 1, lines 20-25, with the
@@ -249,7 +250,8 @@ struct RowSmem {
   float* m;      // (kBlockRows)
   float* l;      // (kBlockRows)
   float* alpha;  // (kBlockRows)
-  int* lim;      // (kBlockRows)          keys of this tile each row sees
+  int* lim;      // (kBlockRows)          keys of this tile each row sees: [lo, lim)
+  int* lo;       // (kBlockRows)          read only by rows_tile_update<T, true>
 };
 
 __device__ inline RowSmem carve_row_smem(float* base, int d, int tile) {
@@ -263,12 +265,13 @@ __device__ inline RowSmem carve_row_smem(float* base, int d, int tile) {
   s.l = s.m + kBlockRows;
   s.alpha = s.l + kBlockRows;
   s.lim = reinterpret_cast<int*>(s.alpha + kBlockRows);
+  s.lo = s.lim + kBlockRows;
   return s;
 }
 
 inline size_t row_smem_bytes(int d, int tile) {
   return sizeof(float) * ((size_t)2 * kBlockRows * (d + 1) + (size_t)tile * (d + 1) +
-                          (size_t)kBlockRows * (tile + 1) + 4 * (size_t)kBlockRows);
+                          (size_t)kBlockRows * (tile + 1) + 5 * (size_t)kBlockRows);
 }
 
 // Zero the accumulator and reset the running max and sum of every row.
@@ -293,10 +296,11 @@ __device__ void load_rows(const T* __restrict__ q_rows, int nrows, const RowSmem
 }
 
 // One update of the block's rows against keys [0, jmax) of a tile, where
-// jmax = max s.lim[r] > 0 and row r sees keys [0, s.lim[r]). Only the
-// first jmax K and V rows are read. Caller syncs before (q, acc, m, l and
-// lim ready); this syncs after.
-template <typename T>
+// jmax = max s.lim[r] > 0 and row r sees keys [0, s.lim[r]) -- with
+// kWindow, keys [s.lo[r], s.lim[r]). Only the first jmax K and V rows are
+// read. Caller syncs before (q, acc, m, l, lim and lo ready); this syncs
+// after.
+template <typename T, bool kWindow = false>
 __device__ void rows_tile_update(const T* __restrict__ k_tile, const T* __restrict__ v_tile,
                                  int jmax, const RowSmem& s, int d, int tile, float scale) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -351,14 +355,15 @@ __device__ void rows_tile_update(const T* __restrict__ k_tile, const T* __restri
   for (int r = warp; r < kBlockRows; r += kRowWarps) {
     float* prow = s.p + r * ldp;
     const int lim = s.lim[r];
+    const int lo = kWindow ? s.lo[r] : 0;
     float mx = kNegInf;
-    for (int j = lane; j < lim; j += 32) mx = fmaxf(mx, prow[j]);
+    for (int j = lo + lane; j < lim; j += 32) mx = fmaxf(mx, prow[j]);
     mx = warp_max(mx);
     const float m_prev = s.m[r];
     const float m_new = fmaxf(m_prev, mx);
     float sum = 0.f;
     for (int j = lane; j < jmax; j += 32) {
-      const float e = j < lim ? expf(prow[j] - m_new) : 0.f;
+      const float e = j >= lo && j < lim ? expf(prow[j] - m_new) : 0.f;
       prow[j] = e;
       sum += e;
     }

@@ -1,22 +1,31 @@
-"""FA-2 chunked prefill through the page table: Hopper kernel K8 and its
-plain PyTorch version -- the fixed-grid baseline of chunked prefill.
+"""FA-2 prefill: Hopper kernels K7 (dense, the whole-prompt prefill) and K8
+(through the page table, the fixed-grid baseline of chunked prefill), each
+with its plain PyTorch version.
 
-K8, :func:`flash_prefill_paged`, replaces the Pallas kernel
-``repro/kernels/flash_prefill.py:162`` ``_prefill_paged_kernel``. Each pack
-row is one prompt chunk of ``C`` positions from the runtime offset
-``q_offsets[n]``; its keys are read page by page through its table row up to
-the causal limit, which doubles as the length guard (stale pool data always
-sits past every valid query). The output is normalised with ``l = max(l,
-1e-30)`` and has q's dtype. The CUDA source is ``csrc/flash_prefill.cu``:
-it folds the ``g`` query heads of a KV head into one CTA's rows, so a page
-is read once per row block and not once per query head.
+K7, :func:`flash_prefill`, replaces the Pallas kernel
+``repro/kernels/flash_prefill.py:24`` ``_prefill_kernel``: causal and
+sliding-window attention with GQA and a query offset, ``q (B, Hq, Lq, d)``
+against ``k/v (B, Hkv, Lk, d)``. The reference walks (query block, key block)
+pairs and skips the blocks its relevance test rules out
+(``flash_prefill.py:53-58``); the CUDA kernel turns that skip into each
+CTA's loop bounds. It is the attention of the model's whole-prompt prefill
+on CUDA tensors (:func:`repro_torch.models.transformer.prefill`).
 
-The dense FA-2 prefill of the reference (K7, ``flash_prefill.py:24``) is on
-no engine path and is not ported yet (ROADMAP queue 2).
+K8, :func:`flash_prefill_paged`, replaces ``flash_prefill.py:162``
+``_prefill_paged_kernel``. Each pack row is one prompt chunk of ``C``
+positions from the runtime offset ``q_offsets[n]``; its keys are read page
+by page through its table row up to the causal limit, which doubles as the
+length guard (stale pool data always sits past every valid query).
 
-The wrapper launches the kernel for CUDA tensors and runs the plain version
-for CPU tensors -- only because the tensors lie on the CPU; a failed launch
-raises. ``launches`` counts kernel launches (plain runs do not count).
+Both normalise with ``l = max(l, 1e-30)`` and return q's dtype. The CUDA
+source is ``csrc/flash_prefill.cu``: both kernels fold the ``g`` query heads
+of a KV head into one CTA's rows, so a K/V tile is read once per row block
+and not once per query head.
+
+The wrappers launch the kernels for CUDA tensors and run the plain versions
+for CPU tensors -- only because the tensors lie on the CPU; a failed build
+or launch raises. ``dense_launches`` (K7) and ``launches`` (K8) count kernel
+launches (plain runs do not count).
 """
 from __future__ import annotations
 
@@ -32,13 +41,14 @@ from .lean_prefill import check_row_kernel
 
 SOURCE = "flash_prefill.cu"
 
-# launch counter: +1 per kernel launch, nowhere else
-launches = 0
+# launch counters: +1 per kernel launch, nowhere else
+launches = 0            # K8
+dense_launches = 0      # K7
 
 
 def reset_launch_counts() -> None:
-    global launches
-    launches = 0
+    global launches, dense_launches
+    launches = dense_launches = 0
 
 
 def _library() -> ctypes.CDLL:
@@ -49,6 +59,8 @@ def _library() -> ctypes.CDLL:
             I, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P,
         ]
         lib.flash_prefill_paged_launch.restype = I
+        lib.flash_prefill_launch.argtypes = [I, P, P, P, P, I, I, I, I, I, I, I, I, I, F, P]
+        lib.flash_prefill_launch.restype = I
         lib._argtypes_set = True
     return lib
 
@@ -130,4 +142,118 @@ def flash_prefill_paged(
     )
     build.check_launch(err, "flash_prefill_paged (K8)")
     launches += 1
+    return out
+
+
+# ------------------------------------------------------------------- K7
+def _blocks(Lq: int, Lk: int, block_q: int, block_kv: int):
+    """The reference's block sizes: at most the (8-rounded) lengths."""
+    return min(block_q, max(8, Lq)), min(block_kv, max(8, Lk))
+
+
+def flash_prefill_plain(q, k, v, causal: bool = True, window: Optional[int] = None,
+                        scale: Optional[float] = None, q_offset: int = 0,
+                        block_q: int = 128, block_kv: int = 128) -> torch.Tensor:
+    """Plain PyTorch K7, walking the reference kernel's blocks: query blocks
+    of ``block_q`` rows (Lq and Lk padded to block multiples with zeros),
+    key tiles of ``block_kv`` in order, each skipped for a query block that
+    the relevance test of ``repro/kernels/flash_prefill.py:53-58`` rules out
+    (past ``Lk``, past the causal diagonal, before the window's left edge);
+    the online-softmax update masks with ``NEG_INF`` and the flush divides by
+    ``max(l, 1e-30)``. Vectorised over batch, heads and query blocks.
+    Returns ``(B, Hq, Lq, d)`` in q's dtype."""
+    B, Hq, Lq, d = q.shape
+    _, Hkv, Lk, _ = k.shape
+    g = Hq // Hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    block_q, block_kv = _blocks(Lq, Lk, block_q, block_kv)
+    pq, pk = (-Lq) % block_q, (-Lk) % block_kv
+    nq, nk = (Lq + pq) // block_q, (Lk + pk) // block_kv
+    dev = q.device
+    pad = torch.nn.functional.pad
+    qf = pad(q, (0, 0, 0, pq)).float().reshape(B, Hkv, g, nq, block_q, d)
+    kf = pad(k, (0, 0, 0, pk)).float()
+    vf = pad(v, (0, 0, 0, pk)).float()
+    q_start = torch.arange(nq, device=dev) * block_q + q_offset               # (nq,)
+    qpos = q_start[:, None] + torch.arange(block_q, device=dev)[None, :]     # (nq, bq)
+    acc = torch.zeros(B, Hkv, g, nq, block_q, d, dtype=torch.float32, device=dev)
+    m = torch.full((B, Hkv, g, nq, block_q), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros_like(m)
+    for jb in range(nk):
+        k_start = jb * block_kv
+        relevant = torch.full((nq,), k_start < Lk, device=dev)
+        if causal:
+            relevant &= k_start <= q_start + block_q - 1
+        if window is not None:
+            relevant &= (k_start + block_kv - 1) > (q_start - window)
+        if not bool(relevant.any()):
+            continue
+        kpos = k_start + torch.arange(block_kv, device=dev)
+        ok = (kpos < Lk)[None, None, :].expand(nq, block_q, block_kv)
+        if causal:
+            ok = ok & (kpos[None, None, :] <= qpos[..., None])
+        if window is not None:
+            ok = ok & (kpos[None, None, :] > qpos[..., None] - window)
+        kt, vt = kf[:, :, k_start:k_start + block_kv], vf[:, :, k_start:k_start + block_kv]
+        s = torch.einsum("bhgnqd,bhkd->bhgnqk", qf, kt) * scale
+        s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.where(ok, torch.exp(s - m_new[..., None]), 0.0)
+        alpha = torch.exp(m - m_new)
+        rel = relevant[:, None]                                              # (nq, 1)
+        l = torch.where(rel, alpha * l + p.sum(dim=-1), l)
+        acc = torch.where(rel[..., None],
+                          alpha[..., None] * acc + torch.einsum("bhgnqk,bhkd->bhgnqd", p, vt),
+                          acc)
+        m = torch.where(rel, m_new, m)
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(B, Hq, nq * block_q, d)[:, :, :Lq].to(q.dtype)
+
+
+def flash_prefill(
+    q: torch.Tensor,            # (B, Hq, Lq, d)
+    k: torch.Tensor,            # (B, Hkv, Lk, d)
+    v: torch.Tensor,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    q_offset: int = 0,
+    block_q: int = 128,
+    block_kv: int = 128,
+) -> torch.Tensor:
+    """K7: FA-2 prefill (causal, sliding window, GQA; query ``i`` at
+    absolute position ``q_offset + i``). Returns ``(B, Hq, Lq, d)`` in q's
+    dtype. ``block_kv`` is the key tile the kernel walks (and the plain
+    version's); ``block_q`` is the plain version's query block -- the kernel
+    takes row blocks of 64 of the ``g * Lq`` rows a KV head serves. Block
+    sizes change which fully masked blocks are skipped, never the result.
+    Operands must be contiguous on CUDA."""
+    global dense_launches
+    B, Hq, Lq, d = q.shape
+    Bk, Hkv, Lk, dk = k.shape
+    if v.shape != k.shape or Bk != B or dk != d or Hq % Hkv:
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not fit q {tuple(q.shape)}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be a positive number of keys, got {window}")
+    devices = {t.device for t in (q, k, v)}
+    if len(devices) != 1:
+        raise ValueError(f"operands lie on several devices: {sorted(map(str, devices))}")
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    if q.device.type == "cpu":
+        return flash_prefill_plain(q, k, v, causal, window, scale, q_offset, block_q, block_kv)
+    build.check_dtypes(q, k, v)
+    build.check_contiguous(q=q, k=k, v=v)
+    _, tile = _blocks(Lq, Lk, block_q, block_kv)
+    check_row_kernel(d, tile, "flash_prefill (K7)")
+    out = torch.empty_like(q)
+    if q.numel() == 0:
+        return out
+    g = Hq // Hkv
+    err = _library().flash_prefill_launch(
+        build.DTYPE_CODE[q.dtype], build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out),
+        B * Hkv, g * Lq, Lq, Lk, d, tile, int(bool(causal)), int(window or 0), int(q_offset),
+        float(scale), build.stream(q.device),
+    )
+    build.check_launch(err, "flash_prefill (K7)")
+    dense_launches += 1
     return out

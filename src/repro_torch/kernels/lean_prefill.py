@@ -48,9 +48,9 @@ def reset_launch_counts() -> None:
 def row_smem_bytes(d: int, tile: int) -> int:
     """Shared memory of one row-block CTA (``attn::row_smem_bytes``): q and
     acc ``(64, d+1)``, the K/V tile ``(tile, d+1)``, scores ``(64,
-    tile+1)`` and four per-row values, all 4 bytes."""
+    tile+1)`` and five per-row values, all 4 bytes."""
     return 4 * (2 * BLOCK_ROWS * (d + 1) + tile * (d + 1) + BLOCK_ROWS * (tile + 1)
-                + 4 * BLOCK_ROWS)
+                + 5 * BLOCK_ROWS)
 
 
 def check_row_kernel(d: int, tile: int, what: str):

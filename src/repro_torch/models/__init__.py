@@ -1,7 +1,8 @@
-"""Transformer model for the port's serving path (port of ``repro.models``)."""
+"""Transformer model for the port's serving paths (port of ``repro.models``)."""
 from .transformer import (
     ModelConfig,
     decode_step,
+    init_cache,
     init_paged_cache,
     init_params,
     params_from_numpy,

@@ -1,5 +1,5 @@
 """Transformer building blocks (port of the subset of
-``repro.models.layers`` that the paged serving path runs).
+``repro.models.layers`` that the serving paths run: dense and paged KV).
 
 Plain functions on tensors and parameter dicts, in the reference's layout:
 weights are ``(in, out)`` and activations multiply from the left
@@ -71,19 +71,83 @@ def attn_forward(
 ):
     """Causal self-attention over a whole prompt (prefill). Returns
     ``(out, (k, v))`` with ``k, v: (B, Hkv, L, hd)``. ``attn`` is the
-    prefill attention: :func:`mha_prefill_ref`, or the q-chunked
+    prefill attention, called on contiguous ``(B, H, L, hd)`` tensors:
+    :func:`mha_prefill_ref`, the q-chunked
     :func:`repro_torch.core.attention.mha_prefill_chunked` (same result,
-    less memory), which the model picks for long prompts."""
+    less memory), or the kernel K7
+    (:func:`repro_torch.kernels.flash_prefill.flash_prefill`); the model
+    picks (:func:`repro_torch.models.transformer.prefill`)."""
     B, L, _ = x.shape
     q, k, v = _project_qkv(p, x.to(COMPUTE_DTYPE), n_heads, n_kv, head_dim)
     pos = torch.arange(L, device=x.device)
     q = rope(q, pos, rope_theta)
     k = rope(k, pos, rope_theta)
-    qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     o = attn(qh, kh, vh, causal=True)
     o = o.transpose(1, 2).reshape(B, L, n_heads * head_dim)
     out = o.to(COMPUTE_DTYPE) @ p["wo"].to(COMPUTE_DTYPE)
     return out.to(x.dtype), (kh, vh)
+
+
+def attn_decode(
+    p,
+    x: torch.Tensor,              # (B, 1, D) current token
+    k_cache: torch.Tensor,        # (B, Hkv, S, hd)
+    v_cache: torch.Tensor,
+    cur_len: Optional[int] = None,
+    *,
+    n_heads: int,
+    n_kv: int,
+    head_dim: int,
+    rope_theta: float,
+    window: Optional[int] = None,
+    attn_fn: Optional[Callable] = None,   # f(q, k_cache, v_cache, ctx) -> out
+    ctx_lens: Optional[torch.Tensor] = None,   # (B,) per-slot lengths
+):
+    """One decode step of a global-attention layer against the dense cache
+    (port of ``repro/models/layers.py:129-202``).
+
+    With ``ctx_lens`` every slot goes at its own length: rotary position
+    ``ctx_lens[b]``, the new token's K/V written at ``min(ctx_lens[b],
+    S - 1)``, ``min(ctx_lens[b] + 1, S)`` keys visible. Without it, every
+    slot is at ``cur_len`` (``ctx_lens`` wins where both are given, as in
+    the reference). The caches are updated *in place* (index
+    assignment), as the paged pools are; the reference returns updated
+    caches instead and relies on buffer donation. ``attn_fn`` receives
+    ``q (B, Hq, hd)``, the caches and the visible lengths ``(B,)``; without
+    one the plain reference runs. Returns ``(out, k_cache, v_cache)``.
+    """
+    if window is not None:
+        raise NotImplementedError(
+            "the ring-buffer cache of 'win' layers is not ported yet (ROADMAP queue 1, item 14)"
+        )
+    if ctx_lens is None and cur_len is None:
+        raise ValueError("attn_decode needs ctx_lens (per slot) or cur_len")
+    B = x.shape[0]
+    S = k_cache.shape[2]
+    q, k, v = _project_qkv(p, x.to(COMPUTE_DTYPE), n_heads, n_kv, head_dim)
+    if ctx_lens is not None:
+        ctx_lens = ctx_lens.to(x.device)
+        pos = ctx_lens[:, None]
+        write = torch.clamp(ctx_lens, max=S - 1).long()
+        ctx = torch.clamp(ctx_lens + 1, max=S).to(torch.int32)
+    else:
+        pos = torch.full((1,), int(cur_len), device=x.device)
+        write = torch.full((B,), min(int(cur_len), S - 1), dtype=torch.long, device=x.device)
+        ctx = torch.full((B,), min(int(cur_len) + 1, S), dtype=torch.int32, device=x.device)
+    q = rope(q, pos, rope_theta)
+    k = rope(k, pos, rope_theta)
+    rows = torch.arange(B, device=x.device)
+    k_cache[rows, :, write] = k[:, 0].to(k_cache.dtype)
+    v_cache[rows, :, write] = v[:, 0].to(v_cache.dtype)
+    qd = q.reshape(B, n_heads, head_dim)
+    if attn_fn is not None:
+        o = attn_fn(qd, k_cache, v_cache, ctx)
+    else:
+        o = mha_decode_ref(qd, k_cache, v_cache, ctx_lens=ctx)
+    o = o.reshape(B, 1, n_heads * head_dim).to(COMPUTE_DTYPE)
+    out = o @ p["wo"].to(COMPUTE_DTYPE)
+    return out.to(x.dtype), k_cache, v_cache
 
 
 def attn_decode_paged(

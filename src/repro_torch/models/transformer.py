@@ -1,5 +1,5 @@
-"""Decoder-only transformer for the paged serving path (port of the subset
-of ``repro.models.transformer`` that attention-only architectures run).
+"""Decoder-only transformer for the serving paths (port of the subset of
+``repro.models.transformer`` that attention-only architectures run).
 
 Parameters are a plain dict: ``embed``, ``final_norm``, optional
 ``unembed``, and ``layers``, one dict per layer in execution order (the
@@ -8,9 +8,11 @@ plain loop and sharding hints disappear). Matmul weights may be stored in
 bf16: the reference keeps them in float32 but casts them to bf16 at every
 use, so the values multiplied are the same. Norm weights stay float32.
 
-The paged decode cache is a list with one ``{"k", "v"}`` dict of page pools
-``(num_pages, Hkv, page_size, hd)`` per layer; :func:`decode_step` and
-:func:`prefill_chunks` write new K/V into it in place.
+A decode cache is a list with one ``{"k", "v"}`` dict per layer: dense
+per-slot rows ``(batch, Hkv, cache_len, hd)`` (:func:`init_cache`) or page
+pools ``(num_pages, Hkv, page_size, hd)`` (:func:`init_paged_cache`);
+:func:`decode_step` and :func:`prefill_chunks` write new K/V into it in
+place.
 """
 from __future__ import annotations
 
@@ -24,7 +26,9 @@ import torch
 
 from repro_torch.core.attention import mha_prefill_chunked, mha_prefill_ref
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.flash_prefill import flash_prefill
 from .layers import (
+    attn_decode,
     attn_decode_paged,
     attn_forward,
     attn_prefill_chunk_paged,
@@ -184,6 +188,22 @@ def _index(node, r):
 
 
 # ------------------------------------------------------------------ caches
+def init_cache(
+    cfg: ModelConfig, batch: int, cache_len: int, device: DeviceLike = "cuda"
+) -> List[Dict[str, torch.Tensor]]:
+    """Dense decode state (port of ``repro/models/transformer.py:162-217``
+    for ``"attn"`` layers): per layer, bf16 K and V rows ``(batch, H_kv,
+    cache_len, head_dim)``, one row per slot, zero-filled."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    shape = (batch, cfg.n_kv_heads, cache_len, cfg.head_dim)
+    return [
+        {"k": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
+         "v": torch.zeros(shape, dtype=torch.bfloat16, device=dev)}
+        for _ in range(cfg.n_layers)
+    ]
+
+
 def init_paged_cache(
     cfg: ModelConfig, num_pages: int, page_size: int, device: DeviceLike = "cuda"
 ) -> List[Dict[str, torch.Tensor]]:
@@ -218,21 +238,40 @@ def _ffn_part(p, x, cfg: ModelConfig):
     return x + ffn_forward(p["ffn"], rms_norm(x, p["ln2"], cfg.norm_eps))
 
 
+def _prefill_attn(cfg: ModelConfig, L: int, device: torch.device) -> Callable:
+    """The whole-prompt attention: K7 (:func:`flash_prefill`) on CUDA at
+    every length; on the CPU what the reference computes --
+    :func:`mha_prefill_ref`, or the q-chunked :func:`mha_prefill_chunked`
+    above ``attn_q_chunk`` (``repro/models/transformer.py:287-322``)."""
+    if device.type == "cuda":
+        return flash_prefill
+    if cfg.attn_q_chunk and L > cfg.attn_q_chunk:
+        return functools.partial(mha_prefill_chunked, q_chunk=cfg.attn_q_chunk)
+    return mha_prefill_ref
+
+
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, cache_len: int):
     """Forward over the prompt ``tokens (B, L)`` at its exact length.
 
     Returns ``(last_logits (B, V) float32, cache, cur_len)`` where
     ``cache[i] = {"k", "v"}`` holds layer ``i``'s K/V ``(B, Hkv, cache_len,
-    hd)`` in bf16, zero past ``L``. Prompts longer than ``attn_q_chunk``
-    use the q-chunked exact attention, as the reference does.
+    hd)`` in bf16, zero past ``L``.
+
+    The attention is causal with ``q_offset`` 0: on CUDA tensors it runs the
+    Hopper kernel K7 (:func:`flash_prefill`) at every prompt length -- the
+    same function, computed by the kernel the reference has for it
+    (``repro/kernels/flash_prefill.py:24``; its q-chunked path,
+    ``transformer.py:287-322``, is what the reference's config calls the
+    FlashAttention-2 baseline, ``transformer.py:72-74``). On CPU tensors it
+    computes what the reference computes: :func:`mha_prefill_ref`, or the
+    q-chunked :func:`mha_prefill_chunked` for prompts longer than
+    ``attn_q_chunk`` (:func:`_prefill_attn` picks).
     """
     check_supported(cfg)
     B, L = tokens.shape
     if L > cache_len:
         raise ValueError(f"prompt of {L} tokens exceeds cache_len {cache_len}")
-    attn = mha_prefill_ref
-    if cfg.attn_q_chunk and L > cfg.attn_q_chunk:
-        attn = functools.partial(mha_prefill_chunked, q_chunk=cfg.attn_q_chunk)
+    attn = _prefill_attn(cfg, L, tokens.device)
     x = _embed(params, cfg, tokens)
     cache = []
     for lp in params["layers"]:
@@ -260,23 +299,25 @@ def decode_step(
     ctx_lens: Optional[torch.Tensor] = None,   # (B,) per-slot lengths
     page_tbl: Optional[torch.Tensor] = None,   # (B, pages_per_slot)
 ):
-    """One decode step against the paged cache, which is updated in place.
-    Returns ``(logits (B, V) float32, cache)``. ``attn_fn`` (optional)
-    receives the page pools and the visible lengths."""
-    if page_tbl is None:
-        raise NotImplementedError(
-            "dense-cache decode is not ported yet (ROADMAP queue 1, next slice: "
-            "the dense-cache engine); pass page_tbl"
-        )
+    """One decode step, updating the cache in place. Returns ``(logits (B,
+    V) float32, cache)``. With ``page_tbl`` the cache holds page pools
+    (:func:`init_paged_cache`) and ``attn_fn`` receives the pools; without
+    it the cache is dense (:func:`init_cache`, the branch of
+    ``repro/models/transformer.py:843-857``) and ``attn_fn`` receives the
+    per-slot K/V. Either way ``attn_fn`` also gets the visible lengths."""
     check_supported(cfg)
+    if ctx_lens is None:
+        raise ValueError("decode_step needs the per-slot lengths ctx_lens")
     x = _embed(params, cfg, tokens)
+    kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
+              rope_theta=cfg.rope_theta, ctx_lens=ctx_lens, attn_fn=attn_fn)
     for lp, lc in zip(params["layers"], cache):
-        h, lc["k"], lc["v"] = attn_decode_paged(
-            lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps),
-            lc["k"], lc["v"], page_tbl,
-            n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
-            rope_theta=cfg.rope_theta, ctx_lens=ctx_lens, attn_fn=attn_fn,
-        )
+        xn = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        if page_tbl is not None:
+            h, lc["k"], lc["v"] = attn_decode_paged(lp["attn"], xn, lc["k"], lc["v"], page_tbl,
+                                                    **kw)
+        else:
+            h, lc["k"], lc["v"] = attn_decode(lp["attn"], xn, lc["k"], lc["v"], **kw)
         x = _ffn_part(lp, x + h, cfg)
     x = rms_norm(x[:, -1], params["final_norm"], cfg.norm_eps)
     return _unembed(params, cfg, x), cache

@@ -1,5 +1,5 @@
-"""Continuous-batching paged decode engine with LeanAttention scheduling
-(port of the paged fast path of ``repro.serving.engine``).
+"""Continuous-batching decode engine with LeanAttention scheduling (port of
+``repro.serving.engine``: the paged and the dense-cache engine).
 
 The engine owns a fixed pool of sequence slots and provides the mechanisms
 a server is built from (:mod:`repro_torch.serving.scheduler` is the policy
@@ -10,11 +10,21 @@ step over all active slots per tick, with slots still prefilling masked out
 (``decode_tick(exclude=...)``). Context lengths are ragged -- the regime of
 paper §IV-C/Fig. 6.
 
-  * KV lives in a page pool ``(num_pages, H_kv, page_size, d)`` per layer,
-    managed by :class:`~repro_torch.serving.kvpool.KVPagePool`; admission
-    takes only the pages a prompt needs, decode grows sequences page by
-    page, a finished request returns its pages at once, and an undersized
-    pool preempts (evict + recompute-resume) only when it actually fills.
+  * With ``PagedConfig(enabled=True)`` KV lives in a page pool
+    ``(num_pages, H_kv, page_size, d)`` per layer, managed by
+    :class:`~repro_torch.serving.kvpool.KVPagePool`; admission takes only
+    the pages a prompt needs, decode grows sequences page by page, a
+    finished request returns its pages at once, and an undersized pool
+    preempts (evict + recompute-resume) only when it actually fills.
+  * With ``PagedConfig(enabled=False)`` -- the reference's default -- KV
+    lives in dense per-slot rows ``(max_batch, H_kv, cache_len, d)`` per
+    layer: admission is blocking only (whole-prompt prefill through K7 on
+    the card, its row copied into the slot), there is no pool, no chunked
+    prefill, no preemption. Decode runs the same kernels over the dense
+    rows (lean: K2, or K1 + merge; fixed: K6 + ``merge_n``), and
+    ``use_fast_path=False`` runs the reference's legacy per-tick step (the
+    schedule built from the host lengths each tick, K1 + merge on
+    ``lean``), its fast-versus-legacy baseline.
   * Each tick's stream-K schedule comes from a :class:`ScheduleCache` over
     bucketed lengths (``max_len`` = the padded cache length, as the
     reference), so schedules -- and therefore the kernels' reduction order
@@ -37,7 +47,8 @@ paper §IV-C/Fig. 6.
     once per group (K5, or K1 on each pass + merge with ``fused=False``).
 
 Where the reference jits each step with the KV cache donated, the port
-updates the page pools in place (index assignment) and runs eagerly.
+updates the page pools and the dense rows in place (index assignment) and
+runs eagerly.
 Blocking prefill runs at the exact prompt length (the reference's bucketing
 only bounds XLA compiles, and the positions it pads are masked anyway).
 Latency observations (TTFT, TPOT, queue wait) are plain lists of seconds on
@@ -65,14 +76,18 @@ from repro_torch.core.leantile import (
     default_tile_size,
     fixed_split_factor,
     make_chunk_schedule,
+    make_schedule,
 )
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.flash_prefill import flash_prefill_paged
 from repro_torch.kernels.lean_decode import CascadeFusedDesc, cascade_fused_desc
 from repro_torch.kernels.ops import (
     cascade_tables,
+    flash_decode,
     flash_decode_from_lens,
+    lean_decode,
     lean_decode_cascade_from_schedule,
+    lean_decode_from_schedule,
     lean_decode_paged_from_schedule,
     lean_prefill_chunks,
 )
@@ -80,6 +95,7 @@ from repro_torch.models.transformer import (
     ModelConfig,
     check_supported,
     decode_step,
+    init_cache,
     init_paged_cache,
     prefill,
     prefill_chunks,
@@ -169,8 +185,6 @@ class EngineStats:
 
 # EngineConfig parts this slice does not run, with their ROADMAP item
 def _unported(cfg: ModelConfig, config: EngineConfig) -> Optional[str]:
-    if not config.paged.enabled:
-        return "the dense-cache engine (ROADMAP queue 1, next slice)"
     if config.spec.enabled:
         return "speculative decode (ROADMAP queue 1, item 10)"
     if (config.paged.kv_dtype or cfg.kv_cache_dtype) != "bf16":
@@ -181,13 +195,12 @@ def _unported(cfg: ModelConfig, config: EngineConfig) -> Optional[str]:
     if any(x is not None for x in (obs.tracer, obs.metrics, obs.flight,
                                    obs.flight_dir, obs.watchdog)):
         return "observability sinks (ROADMAP queue 1, item 13)"
-    if not config.use_fast_path:
-        return "the legacy per-tick baseline, use_fast_path=False (ROADMAP queue 1, item 17)"
     return None
 
 
 class DecodeEngine:
-    """The paged continuous-batching engine.
+    """The continuous-batching engine, paged or dense
+    (``config.paged.enabled``).
 
     ``config`` is the reference's :class:`EngineConfig`; ``device`` is
     where the pools live and the model runs (``params`` must be there
@@ -216,6 +229,12 @@ class DecodeEngine:
                 "interpret is a Pallas setting; the port runs kernels on CUDA "
                 "tensors and their plain versions on CPU tensors"
             )
+        self.paged = config.paged.enabled
+        self.use_fast_path = config.use_fast_path
+        if self.paged and not self.use_fast_path:
+            raise ValueError("paged KV requires the fast path (use_fast_path=True)")
+        if config.paged.prefix_cache and not self.paged:
+            raise ValueError("prefix_cache=True requires paged=True")
         if config.cascade.enabled:
             if not config.paged.prefix_cache:
                 raise ValueError("cascade=True requires prefix_cache=True")
@@ -234,22 +253,27 @@ class DecodeEngine:
 
         # lean tiles map 1:1 onto KV pages
         page_size = config.paged.page_size
-        if page_size is not None:
+        if self.paged and page_size is not None:
             self.tile = int(page_size)
         else:
             self.tile = min(default_tile_size(cfg.head_dim), max(8, self.cache_len))
         self.pages_per_slot = -(-self.cache_len // self.tile)
-        num_pages = config.paged.num_pages
-        if num_pages is None:           # dense-equivalent capacity + null page
-            num_pages = 1 + self.max_batch * self.pages_per_slot
-        layout = KVLayout(
-            kv_dtype=cfg.kv_cache_dtype, n_kv_heads=cfg.n_kv_heads,
-            head_dim=cfg.head_dim, page_size=self.tile,
-            n_attn_layers=cfg.n_layers, scale_granularity=cfg.kv_scale_granularity,
-        )
-        self.pool = KVPagePool(num_pages, self.tile, layout=layout)
-        self.page_tbl = np.zeros((self.max_batch, self.pages_per_slot), dtype=np.int32)
-        self.cache = init_paged_cache(cfg, num_pages, self.tile, device=self.device)
+        if self.paged:
+            num_pages = config.paged.num_pages
+            if num_pages is None:       # dense-equivalent capacity + null page
+                num_pages = 1 + self.max_batch * self.pages_per_slot
+            layout = KVLayout(
+                kv_dtype=cfg.kv_cache_dtype, n_kv_heads=cfg.n_kv_heads,
+                head_dim=cfg.head_dim, page_size=self.tile,
+                n_attn_layers=cfg.n_layers, scale_granularity=cfg.kv_scale_granularity,
+            )
+            self.pool = KVPagePool(num_pages, self.tile, layout=layout)
+            self.page_tbl = np.zeros((self.max_batch, self.pages_per_slot), dtype=np.int32)
+            self.cache = init_paged_cache(cfg, num_pages, self.tile, device=self.device)
+        else:
+            self.pool = None
+            self.page_tbl = None
+            self.cache = init_cache(cfg, self.max_batch, self.cache_len, device=self.device)
 
         # prefix sharing: the radix cache over the pool, and per slot which
         # logical tiles are shared (immutable: copy-on-write before any KV
@@ -333,6 +357,14 @@ class DecodeEngine:
         logits, cache1, _ = prefill(self.params, self.cfg, toks, cache_len=self.cache_len)
         return logits, cache1
 
+    def _write_slot(self, cache1, slot: int):
+        """Dense admission: copy row 0 of the prefill cache (padded to
+        ``cache_len``) into row ``slot``, in place -- the reference's
+        ``_write_slot`` (``repro/serving/engine.py:246-260``)."""
+        for lc, lc1 in zip(self.cache, cache1):
+            for name in ("k", "v"):
+                lc[name][slot].copy_(lc1[name][0])
+
     def _write_slot_paged(self, cache1, pages: List[int]):
         """Copy-on-admit: scatter the fresh prefill K/V into the slot's
         pages, in place. Whole pages are written (tail padded), so stale
@@ -350,19 +382,25 @@ class DecodeEngine:
                 lc[name][idx] = chunks.to(lc[name].dtype)
 
     def admit_blocking(self, req: Request, slot: int) -> bool:
-        """Whole-prompt prefill into ``slot``, pages written, first token
-        sampled. Returns False (engine unchanged) when the pool cannot hold
-        the prompt right now. Does not touch the engine queue."""
+        """Whole-prompt prefill into ``slot``, its cache row or pages
+        written, first token sampled. Returns False (engine unchanged) when
+        the paged pool cannot hold the prompt right now. Does not touch the
+        engine queue."""
         plen = len(req.prompt)
-        self._check_fits_pool(req)
-        n = max(1, -(-plen // self.tile))
-        pages = self._pool_alloc(slot, n)
-        if pages is None:
-            return False            # pool exhausted; retry next tick
-        self.page_tbl[slot, :n] = pages
+        pages = None
+        if self.paged:
+            self._check_fits_pool(req)
+            n = max(1, -(-plen // self.tile))
+            pages = self._pool_alloc(slot, n)
+            if pages is None:
+                return False            # pool exhausted; retry next tick
+            self.page_tbl[slot, :n] = pages
         self.slot_req[slot] = req
         logits, cache1 = self._run_prompt_prefill(req.prompt)
-        self._write_slot_paged(cache1, pages)
+        if self.paged:
+            self._write_slot_paged(cache1, pages)
+        else:
+            self._write_slot(cache1, slot)
         self.ctx_lens[slot] = plen
         nxt = int(logits[0].argmax())
         req.generated.append(nxt)
@@ -380,20 +418,23 @@ class DecodeEngine:
     # ------------------------------------------------------- chunked prefill
     def supports_chunked_prefill(self) -> bool:
         """Chunked prefill streams prompt pieces straight into the paged
-        pool; the architecture's whole prompt state must live in pooled
-        global-attention KV (:func:`supports_chunked_prefill`)."""
-        return supports_chunked_prefill(self.cfg)
+        pool: it needs a paged engine, and the architecture's whole prompt
+        state must live in pooled global-attention KV
+        (:func:`supports_chunked_prefill`)."""
+        return self.paged and supports_chunked_prefill(self.cfg)
 
     def claim_slot(self, req: Request) -> Optional[int]:
         """Reserve a free slot for ``req`` without prefilling anything: the
         entry to the PREFILLING state. The slot starts at context 0 with an
         all-null table row; pages come per chunk (:meth:`ensure_chunk_pages`).
         Raises :class:`PoisonError` for a request that can never fit."""
-        self._check_fits_pool(req)
+        if self.paged:
+            self._check_fits_pool(req)
         for slot in self.free_slots():
             self.slot_req[slot] = req
             self.ctx_lens[slot] = 0
-            self.page_tbl[slot, :] = 0
+            if self.paged:
+                self.page_tbl[slot, :] = 0
             self._slot_shared_tiles[slot] = set()
             self._slot_prefix_full[slot] = 0
             return slot
@@ -509,8 +550,8 @@ class DecodeEngine:
         host sync moves ``pack_width`` ints."""
         if not self.supports_chunked_prefill():
             raise RuntimeError(
-                "chunked prefill requires an all-'attn' architecture with rotary "
-                "positions (see supports_chunked_prefill)"
+                "chunked prefill requires paged=True and an all-'attn' architecture "
+                "with rotary positions (see supports_chunked_prefill)"
             )
         if len(work) > pack_width:
             raise ValueError(f"{len(work)} chunks > pack width {pack_width}")
@@ -626,7 +667,10 @@ class DecodeEngine:
     def preempt_slot(self, slot: int):
         """Public eviction hook for schedulers (breaking a page deadlock, a
         missed deadline): works for DECODING and PREFILLING occupants alike;
-        a request evicted mid-prefill restarts its prompt on re-admission."""
+        a request evicted mid-prefill restarts its prompt on re-admission.
+        Paged engines only."""
+        if not self.paged:
+            raise RuntimeError("preemption only applies to paged engines")
         if self.slot_req[slot] is None:
             raise ValueError(f"slot {slot} is idle")
         self._preempt(slot)
@@ -662,6 +706,8 @@ class DecodeEngine:
         self._free_slot_pages(slot)
 
     def _free_slot_pages(self, slot: int):
+        if not self.paged:
+            return
         if self.pool.holds(slot):
             self.pool.free_seq(slot)
         self.page_tbl[slot, :] = 0
@@ -752,29 +798,35 @@ class DecodeEngine:
         and progress stay as they are."""
         exclude = set(exclude) if exclude else set()
         active = [s for s in range(self.max_batch) if self.slot_req[s] and s not in exclude]
-        active = self._ensure_decode_pages(active)
+        if self.paged:
+            active = self._ensure_decode_pages(active)
         if not active:
             return {}
         ctx_np = self.ctx_lens.copy()
         ptbl_np = self.page_tbl
         if exclude:
-            ptbl_np = self.page_tbl.copy()
+            if not self.use_fast_path:
+                raise RuntimeError("slot masking requires the fast path")
             for s in exclude:
                 ctx_np[s] = 0
-                ptbl_np[s, :] = 0
+            if self.paged:
+                ptbl_np = self.page_tbl.copy()
+                for s in exclude:
+                    ptbl_np[s, :] = 0
         logits = self._decode_pass_main(active, ctx_np, ptbl_np)
         self.last_logits = logits
         next_all = logits.argmax(dim=-1).cpu().numpy()
         return self._emit_tokens(active, next_all)
 
     def _decode_pass_main(self, active: List[int], ctx_np, ptbl_np) -> torch.Tensor:
-        """The fast-path decode step over the whole batch: the cascade when
-        ``active`` slots group and the guard lets it engage, else one cached
-        schedule and the model's decode step with paged attention on the
-        configured backend -- lean: K2 (or K1 + merge); fixed: the pages
-        gathered to dense, then K6 + merge_n with FlashDecoding's split
-        factor; ref: the plain oracle. Updates the pools in place and
-        returns the logits (B, V)."""
+        """The decode step over the whole batch: the cascade when ``active``
+        slots group and the guard lets it engage; else one cached schedule
+        and the model's decode step on the configured backend, over the
+        page pools or the dense rows (:meth:`_attn_fn`); else, with
+        ``use_fast_path=False``, the legacy step. Updates the cache in place
+        and returns the logits (B, V)."""
+        if not self.use_fast_path:
+            return self._tick_legacy_step(active)
         csched = binding = None
         if self.cascade:
             csched, binding = self._cascade_schedule_for_tick(active, ctx_np)
@@ -782,37 +834,79 @@ class DecodeEngine:
             return self._cascade_pass(csched, binding, ctx_np, ptbl_np)
         sched = self._tick_schedule(ctx_np)
         self._record_schedule(sched)
-        tokens = torch.as_tensor(self.next_tokens).to(self.device)
-        ctx = torch.as_tensor(ctx_np, dtype=torch.int32).to(self.device)
-        ptbl = torch.as_tensor(ptbl_np).to(self.device)
+        dev = self.device
+        ptbl = torch.as_tensor(ptbl_np).to(dev) if self.paged else None
+        logits, self.cache = decode_step(
+            self.params, self.cfg, self.cache, torch.as_tensor(self.next_tokens).to(dev),
+            attn_fn=self._attn_fn(sched, ptbl),
+            ctx_lens=torch.as_tensor(ctx_np, dtype=torch.int32).to(dev), page_tbl=ptbl,
+        )
+        return logits
+
+    def _attn_fn(self, sched: LeanSchedule, ptbl: Optional[torch.Tensor]) -> Optional[Callable]:
+        """The fast path's decode attention over this tick's schedule, an
+        ``attn_fn(q, k, v, ctx_visible)`` of the page pools (``ptbl``) or
+        of the dense rows (``ptbl`` None), as the reference's
+        ``_kernel_decode_step`` (``repro/serving/engine.py:515-548``) and its
+        paged twin: lean -> K2 (or K1 + merge with ``fused=False``); fixed ->
+        K6 + ``merge_n`` with FlashDecoding's split factor, the pages
+        gathered to dense first; ref -> None (the plain oracle)."""
         n_kv = self.cfg.n_kv_heads
-        attn_fn = None
         if self.attn_backend == "lean":
             fused = self.fused
-
-            def attn_fn(q, k_pool, v_pool, ctx_visible):
-                seg_ctx = ctx_visible.repeat_interleave(n_kv)
-                return lean_decode_paged_from_schedule(
-                    q, k_pool, v_pool, seg_ctx, ptbl, sched, fused=fused,
-                )
-
-        elif self.attn_backend == "fixed":
+            if ptbl is None:
+                return lambda q, k, v, c: lean_decode_from_schedule(
+                    q, k, v, c.repeat_interleave(n_kv), sched, fused=fused)
+            return lambda q, k, v, c: lean_decode_paged_from_schedule(
+                q, k, v, c.repeat_interleave(n_kv), ptbl, sched, fused=fused)
+        if self.attn_backend == "fixed":
             num_splits = fixed_split_factor(
                 int(sched.seg_len.max(initial=1)), sched.num_segments, self.tile,
                 self.num_workers,
             )
             tile = self.tile
+            dense = (lambda x: x) if ptbl is None else (lambda pool: paged_gather_kv(pool, ptbl))
+            return lambda q, k, v, c: flash_decode_from_lens(
+                q, dense(k), dense(v), c.repeat_interleave(n_kv), num_splits=num_splits,
+                tile=tile)
+        return None
 
-            def attn_fn(q, k_pool, v_pool, ctx_visible):
-                seg_ctx = ctx_visible.repeat_interleave(n_kv)
-                return flash_decode_from_lens(
-                    q, paged_gather_kv(k_pool, ptbl), paged_gather_kv(v_pool, ptbl), seg_ctx,
-                    num_splits=num_splits, tile=tile,
-                )
+    def _make_attn_fn(self) -> Optional[Callable]:
+        """The legacy step's attention (``repro/serving/engine.py:1005-1024``):
+        the host lengths of every slot (plus the token being written) drive
+        a schedule built inside the call, each tick -- ``ops.lean_decode``
+        (K1 + merge) on ``lean``, ``ops.flash_decode`` (K6 + ``merge_n``)
+        on ``fixed``; None on ``ref``."""
+        backend = self.attn_backend
+        if backend == "ref":
+            return None
+        ctx = [int(c) + 1 for c in self.ctx_lens]
+        num_workers = self.num_workers
 
+        def attn_fn(q, k, v, ctx_visible):
+            lens = [min(c, k.shape[2]) for c in ctx]
+            if backend == "lean":
+                return lean_decode(q, k, v, lens, num_workers=num_workers)
+            return flash_decode(q, k, v, lens)
+
+        return attn_fn
+
+    def _tick_legacy_step(self, active: List[int]) -> torch.Tensor:
+        """The reference's pre-fast-path step, kept as its benchmark baseline
+        (``repro/serving/engine.py:2377-2406``), dense engines only: the
+        schedule is built from the active lengths for the stats record and
+        again inside the attention call (:meth:`_make_attn_fn`)."""
+        lens = [int(self.ctx_lens[s]) + 1 for s in active]
+        sched = make_schedule(
+            lens, self.cfg.n_kv_heads,
+            min(default_tile_size(self.cfg.head_dim), max(8, max(lens))), self.num_workers,
+        )
+        self._record_schedule(sched)
+        dev = self.device
         logits, self.cache = decode_step(
-            self.params, self.cfg, self.cache, tokens,
-            attn_fn=attn_fn, ctx_lens=ctx, page_tbl=ptbl,
+            self.params, self.cfg, self.cache, torch.as_tensor(self.next_tokens).to(dev),
+            attn_fn=self._make_attn_fn(),
+            ctx_lens=torch.as_tensor(self.ctx_lens, dtype=torch.int32).to(dev),
         )
         return logits
 
@@ -861,9 +955,11 @@ class DecodeEngine:
         return logits
 
     def _emit_tokens(self, active: List[int], next_all) -> Dict[int, int]:
-        # context cap: the cache row and the whole pool -- a context past
-        # usable_pages * tile could never be re-admitted after preemption
-        cap = min(self.cache_len, self.pool.usable_pages * self.tile)
+        # context cap: the cache row and, paged, the whole pool -- a context
+        # past usable_pages * tile could never be re-admitted after preemption
+        cap = self.cache_len
+        if self.paged:
+            cap = min(cap, self.pool.usable_pages * self.tile)
         out = {}
         for s in active:
             req = self.slot_req[s]
@@ -878,7 +974,8 @@ class DecodeEngine:
         self.stats.ticks += 1
         self._log(self.stats.tick_decode_tokens, len(out))
         self.stats.schedule_cache = self.sched_cache.stats.as_dict()
-        self.stats.kv_pool = self.pool.as_dict()
+        if self.paged:
+            self.stats.kv_pool = self.pool.as_dict()
         if self.prefix_cache is not None:
             self.stats.prefix_cache = self.prefix_cache.as_dict()
         return out

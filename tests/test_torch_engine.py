@@ -162,12 +162,15 @@ def test_unservable_request_is_refused(model):
 
 
 # the prefix cache and cascade decode, once cases 1 and 4, are ported
-# (tests/test_torch_cascade.py); those cases now hold speculative decode
-# and the observability sinks, which are still to port
+# (tests/test_torch_cascade.py), and so are the dense-cache engine and
+# use_fast_path=False, once cases 1 and 3 (tests/test_torch_dense_engine.py;
+# with a paged engine use_fast_path=False is now the reference's
+# ValueError); those cases now hold guards (ROADMAP queue 1, item 12) and a
+# metrics registry (item 13), still to port
 @pytest.mark.parametrize("change", [
-    dict(paged=PagedConfig(enabled=False)),
+    dict(guards=object()),
     dict(spec=SpecConfig(enabled=True)),
-    dict(use_fast_path=False),
+    dict(obs=ObsConfig(metrics=object())),
     dict(paged=PagedConfig(enabled=True, kv_dtype="int8")),
     dict(obs=ObsConfig(tracer=object())),
 ])

@@ -1,14 +1,16 @@
-"""The CUDA kernels K1-K6 and K8 against their plain PyTorch versions, on
-the card. Marked ``cuda``: they skip where there is no CUDA
+"""The CUDA kernels K1-K8 against their plain PyTorch versions, on the
+card. Marked ``cuda``: they skip where there is no CUDA
 card and run on the card with
 
     python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
 They cover what ``chip_smoke.py`` does not: every row bucket the decode
 kernels are instantiated for, float32 and bf16, other tile, head and chunk
-sizes, grids of more workers than SMs, and K5's determinism. Tolerance 2e-5: kernel and plain
-version both compute in float32 from the same inputs (K8's bf16 output:
-one bf16 step plus 2e-5, since both round a float32 result).
+sizes, grids of more workers than SMs, K5's determinism, K7 on the
+reference's prefill cases and the dense-cache engine against the paged one.
+Tolerance 2e-5: kernel and plain version both compute in float32 from the
+same inputs (K7's and K8's bf16 output: one bf16 step plus 2e-5, since both
+round a float32 result).
 """
 import math
 
@@ -457,3 +459,112 @@ def test_cascade_scheduler_on_card_runs_k5(cuda):
     assert st.prefix_attach_count >= 4 and st.cascade_fused_ticks > 0
     assert ld.cascade_launches == cfg.n_layers * st.cascade_fused_ticks
     assert ld.fused_launches == cfg.n_layers * (st.ticks - st.cascade_ticks)
+
+
+# ------------------------------------------------------------------------ K7
+# the reference's PREFILL_CASES (tests/test_kernels.py:130-136) and two at
+# Mistral-NeMo-12B's attention widths: (B, Hq, Hkv, Lq, Lk, d, causal,
+# window, block_kv)
+K7_CASES = [
+    (2, 4, 2, 64, 64, 64, True, None, 32),
+    (1, 4, 4, 100, 100, 64, True, 32, 32),
+    (2, 2, 1, 37, 150, 128, False, None, 32),
+    (1, 8, 2, 128, 256, 32, True, None, 32),
+    (1, 2, 2, 65, 65, 16, True, 16, 32),
+    (1, 32, 8, 333, 333, 128, True, None, 128),
+    (1, 32, 8, 300, 700, 128, True, 128, 128),
+]
+
+
+def _bf16_close(out, ref):
+    diff = (out.float() - ref.float()).abs()
+    return bool((diff <= 2.0 ** -7 * ref.float().abs() + TOL["atol"]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", K7_CASES)
+def test_k7_matches_plain(cuda, case, dtype):
+    """K7 against its plain version (the reference's block walk) on the
+    prefill cases: causal with a query offset, sliding windows, non-causal
+    with Lq != Lk, row blocks that span two query heads."""
+    B, Hq, Hkv, Lq, Lk, d, causal, window, block_kv = case
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(Lq + Lk)
+    q = torch.randn(B, Hq, Lq, d, generator=gen, device=cuda).to(dt)
+    k = torch.randn(B, Hkv, Lk, d, generator=gen, device=cuda).to(dt)
+    v = torch.randn(B, Hkv, Lk, d, generator=gen, device=cuda).to(dt)
+    kw = dict(causal=causal, window=window, q_offset=Lk - Lq if causal else 0,
+              block_q=block_kv, block_kv=block_kv)
+    before = (fp.dense_launches, fp.launches)
+    out = fp.flash_prefill(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert (fp.dense_launches, fp.launches) == (before[0] + 1, before[1])
+    ref = fp.flash_prefill_plain(q, k, v, **kw)
+    assert out.dtype == dt and out.shape == q.shape
+    if dtype == "float32":
+        torch.testing.assert_close(out, ref, **TOL)
+    else:
+        assert _bf16_close(out, ref)
+
+
+@pytest.mark.cuda
+def test_k7_rows_that_see_no_key_and_refusals(cuda):
+    """Queries before position 0 give 0, as the plain version; what the
+    kernel cannot take raises."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    q = torch.randn(1, 4, 70, 16, generator=gen, device=cuda)
+    k = torch.randn(1, 1, 50, 16, generator=gen, device=cuda)
+    out = fp.flash_prefill(q, k, k, q_offset=-20)
+    torch.testing.assert_close(out, fp.flash_prefill_plain(q, k, k, q_offset=-20), **TOL)
+    with pytest.raises(ValueError, match="contiguous"):
+        fp.flash_prefill(q.transpose(2, 3).transpose(2, 3)[:, :, ::2], k, k)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fp.flash_prefill(q.half(), k.half(), k.half())
+    with pytest.raises(ValueError, match="shared memory"):
+        fp.flash_prefill(torch.zeros(1, 1, 8, 512, device=cuda),
+                         torch.zeros(1, 1, 8, 512, device=cuda),
+                         torch.zeros(1, 1, 8, 512, device=cuda))
+
+
+@pytest.mark.cuda
+def test_dense_engine_on_card_matches_paged(cuda):
+    """The smoke-config dense-cache engine on the card against the paged
+    one (pages as large as the dense engine's tile, so both walk one
+    schedule): the same greedy streams, decode logits within bf16 noise,
+    K7 launched once per layer and admission in both, K2 once per layer and
+    decode tick."""
+    import numpy as np
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.serving.config import EngineConfig, PagedConfig
+    from repro_torch.serving.engine import DecodeEngine, Request
+
+    cfg = get_smoke_config("mistral-nemo-12b")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    runs = {}
+    for paged in (False, True):
+        eng = DecodeEngine(cfg, params, EngineConfig(
+            max_batch=2, cache_len=64, num_workers=8, attn_backend="lean",
+            paged=PagedConfig(enabled=paged, page_size=64 if paged else None)), device="cuda")
+        rng = np.random.default_rng(25)
+        reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, 8 + 7 * i),
+                        max_new_tokens=6) for i in range(4)]
+        for r in reqs:
+            eng.submit(r)
+        for m in (ld, lp, fd, fp):
+            m.reset_launch_counts()
+        rows = []
+        while eng.queue or any(eng.slot_req):
+            eng.tick()
+            rows.append(eng.last_logits.float().cpu())
+        assert all(r.done for r in reqs)
+        assert fp.dense_launches == cfg.n_layers * eng.stats.prefills == cfg.n_layers * 4
+        assert ld.fused_launches == cfg.n_layers * eng.stats.ticks
+        runs[paged] = ([r.generated for r in reqs], rows)
+    assert runs[False][0] == runs[True][0]
+    for a, b in zip(runs[False][1], runs[True][1]):
+        torch.testing.assert_close(a, b, rtol=2**-5, atol=2**-5)
