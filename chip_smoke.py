@@ -62,7 +62,20 @@ turns (parent, change, change, parent):
     python3 chip_smoke.py --decode-kernel-times [OTHER_CHECKOUT/src]
 
 prints one JSON line of K1's and K2's median times (bf16, f32) for the
-kernels of this checkout, or of the given ``src`` directory.
+kernels of this checkout, or of the given ``src`` directory. A change to K7
+or K8 is compared the same way with
+
+    python3 chip_smoke.py --prefill-kernel-times [OTHER_CHECKOUT/src]
+
+which prints one JSON line of K7's (the 3000-token causal prompt) and K8's
+(the two-chunk pack) median times, bf16 and f32.
+
+bf16 K7 and K8 at d 64 or 128 run on the tensor-core kernel (wgmma + TMA,
+``csrc/attn_tc.cuh``); the build step prints its ``-Xptxas -v`` lines, the
+K7 and K8 phases print each case's TFLOP/s beside SDPA's, and the engine,
+Scheduler and dense-engine phases check that every K7 and K8 launch went
+through it (``dense_tc_launches == dense_launches``, ``tc_launches ==
+launches``).
 
 Imports ``repro_torch`` only, never JAX or the JAX package ``repro``.
 """
@@ -333,6 +346,36 @@ def decode_kernel_times(torch, sm_count: int, src: str) -> dict:
     return out
 
 
+def prefill_kernel_times(torch, src: str) -> dict:
+    """K7's time on the 3000-token causal prompt and K8's on the two-chunk
+    pack (the K7 and K8 phases' shapes), bf16 and float32, for the kernels
+    of the ``repro_torch`` under ``src`` (built there at first use); median
+    of 20 runs each, L2 evicted before each run."""
+    from repro_torch.kernels import flash_prefill as fp
+
+    check(os.path.abspath(fp.__file__).startswith(os.path.abspath(src) + os.sep),
+          f"kernels imported from {fp.__file__}, not from {src}")
+    B, Hq, Hkv, d, tile = 1, 32, 8, 128, 128
+    Lq, Lk, causal, window = K7_CASES["causal 3000"]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    q_off = torch.tensor(CHUNK_OFFS, dtype=torch.int32, device=dev)
+    out = {"src": src}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        q = torch.randn(B, Hq, Lq, d, generator=gen, device=dev).to(dtype)
+        k = torch.randn(B, Hkv, Lk, d, generator=gen, device=dev).to(dtype)
+        v = torch.randn(B, Hkv, Lk, d, generator=gen, device=dev).to(dtype)
+        out[f"K7 {dname}"] = gpu_ms(lambda: fp.flash_prefill(q, k, v, causal=causal,
+                                                             window=window))
+        q8, k_pool, v_pool, tbl = chunk_pack(torch, CHUNK_OFFS, CHUNK, Hq, Hkv, d, tile, dtype,
+                                             gen, dev)
+        out[f"K8 {dname}"] = gpu_ms(lambda: fp.flash_prefill_paged(q8, k_pool, v_pool, tbl,
+                                                                   q_off))
+    return out
+
+
 # library_ms is the single call; the per-sequence calls are printed beside it
 LIBRARY_CALL = "one call, padded + mask"
 
@@ -350,6 +393,40 @@ def reset_launch_counts():
 
     for m in (lean_decode, lean_prefill, flash_decode, flash_prefill):
         m.reset_launch_counts()
+
+
+def tensor_core_counts(what: str) -> dict:
+    """K7's and K8's tensor-core launches since the last reset; fails
+    unless every K7 and K8 launch went through the tensor-core kernel (the
+    main path is bf16 at d 128, where the path rule picks it)."""
+    from repro_torch.kernels import flash_prefill as fp
+
+    tc = {"K7": fp.dense_tc_launches, "K8": fp.tc_launches}
+    check(tc["K7"] == fp.dense_launches and tc["K8"] == fp.launches,
+          f"{what}: K7 launched {fp.dense_launches} times, {tc['K7']} on the tensor cores; "
+          f"K8 {fp.launches} times, {tc['K8']} on the tensor cores")
+    return tc
+
+
+def tc_ptxas_lines(report: str):
+    """(kernel, registers line, spill line) of each tensor-core kernel in a
+    ``-Xptxas -v`` report."""
+    import re
+
+    out, lines = [], report.splitlines()
+    for i, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '.*row_block_kernelILi(\d+)E.*?((?:Dense|Paged)Walk)", line)
+        if not m:
+            continue
+        regs = spill = ""
+        for nxt in lines[i + 1:i + 6]:
+            if "spill" in nxt:
+                spill = nxt.strip()
+            if "registers" in nxt:
+                regs = nxt.split(":", 1)[1].strip()
+                break
+        out.append((f"row_block_kernel<{m.group(1)}, {m.group(2)}>", regs, spill))
+    return out
 
 
 def launch_counts():
@@ -494,9 +571,11 @@ def prefill_kernel_phase(torch, sm_count: int, dev_name: str):
                                flops)
             results[(name, dname)] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                                       "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
-            print(f"  {dname} {name}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}; "
+            path = ("" if name != "flash_prefill_paged" else
+                    ", tensor cores" if fp.tensor_core_path(dtype, d, tile) else ", CUDA cores")
+            print(f"  {dname} {name}{path}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}; "
                   f"{flops / ms / 1e9:.1f} TFLOP/s; plain {plain_ms:.3f} ms; library "
-                  f"{lib_ms:.4f} ms)", flush=True)
+                  f"{lib_ms:.4f} ms, {flops / lib_ms / 1e9:.1f} TFLOP/s)", flush=True)
     return results
 
 
@@ -573,10 +652,12 @@ def prefill_k7_phase(torch, dev_name: str):
             b_ms, b_by = bound(dev_name, dname, nbytes, flops)
             results[(case, dname)] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                                       "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
-            print(f"K7 {case} {dname}: Lq {Lq} Lk {Lk}, {flops / 1e9:.2f} GFLOP, "
+            path = "tensor cores" if fp.tensor_core_path(dtype, d) else "CUDA cores"
+            print(f"K7 {case} {dname} ({path}): Lq {Lq} Lk {Lk}, {flops / 1e9:.2f} GFLOP, "
                   f"{nbytes / 1e6:.1f} MB; max|err| {err:.3e} (SDPA vs plain {lib_err:.3e}); "
                   f"{ms:.4f} ms, {flops / ms / 1e9:.2f} TFLOP/s (bound {b_ms:.4f} ms by {b_by}; "
-                  f"plain {plain_ms:.3f} ms; library {lib_ms:.4f} ms)", flush=True)
+                  f"plain {plain_ms:.3f} ms; library {lib_ms:.4f} ms, "
+                  f"{flops / lib_ms / 1e9:.2f} TFLOP/s)", flush=True)
     return results
 
 
@@ -864,6 +945,7 @@ def scheduler_phase(torch, cfg, params, backend, sm_count, new_tokens, blocking)
           f"{cfg.n_layers} x {ticks} decode ticks")
     others = {k: n for k, n in counts.items() if k not in kernels and n}
     check(not others, f"{backend} scheduler: other kernels ran: {others}")
+    tc = tensor_core_counts(f"{backend} scheduler")
     ttft = [(h.first_token_time - h.arrival_time) * 1e3 for h in handles]
     agree = sum(h.generated[0] == blocking["first"][h.uid] for h in handles)
     worst = None
@@ -882,7 +964,7 @@ def scheduler_phase(torch, cfg, params, backend, sm_count, new_tokens, blocking)
           f"{SCHED_BUDGET}: {sch.stats.steps} scheduler steps, {chunk_steps} chunk steps, "
           f"{ticks} decode ticks in {wall:.2f} s; launches {kernels[0]} {counts[kernels[0]]} = "
           f"{cfg.n_layers} x {chunk_steps}, {kernels[1]} {counts[kernels[1]]} = {cfg.n_layers} x "
-          f"{ticks}; TTFT ms per request (prompts {list(PROMPT_LENS)}): "
+          f"{ticks} (K8 on the tensor cores {tc['K8']}); TTFT ms per request (prompts {list(PROMPT_LENS)}): "
           + ", ".join(f"{t:.1f}" for t in ttft)
           + f"; {overlap} decode tokens while the {PROMPT_LENS[0]}-token prompt was prefilling; "
           f"pool clean; first tokens agreeing with blocking prefill {agree}/{len(handles)}; "
@@ -1360,12 +1442,14 @@ def dense_engine_phase(torch, cfg, params, sm_count, new_tokens, paged):
               f"expected {L} x {eng.stats.ticks} ticks")
         others = {k: n for k, n in counts.items() if k not in ("K7", decode_k) and n}
         check(not others, f"dense engine ({backend}): other kernels ran: {others}")
+        tc = tensor_core_counts(f"dense engine ({backend})")
         p50 = statistics.median(dt for dt, _ in ticks[1:])
         tok_s = sum(n for _, n in ticks[1:]) / sum(dt for dt, _ in ticks[1:])
         streams = [list(r.generated) for r in reqs]
         line = (f"dense engine phase ({backend}): {cfg.name} full width, dense cache "
                 f"{gb:.2f} GB, {len(reqs)} requests (prompts {list(PROMPT_LENS)}, {new_tokens} "
-                f"new tokens each): admission ms per prompt (K7) "
+                f"new tokens each): admission ms per prompt (K7, {tc['K7']} launches on the "
+                f"tensor cores) "
                 + ", ".join(f"{t:.1f}" for t in admit_ms)
                 + f"; decode tick p50 {p50 * 1e3:.2f} ms over {len(ticks) - 1} ticks after the "
                 f"first, {tok_s:.1f} tokens/s; launches K7 {counts['K7']} = {L} x "
@@ -1425,12 +1509,15 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script runs on the card",
               file=sys.stderr)
         return 2
-    if sys.argv[1:2] == ["--decode-kernel-times"]:
+    if sys.argv[1:2] in (["--decode-kernel-times"], ["--prefill-kernel-times"]):
         src = os.path.abspath(sys.argv[2]) if len(sys.argv) > 2 else os.path.join(ROOT, "src")
         sys.path.insert(0, src)
         torch.backends.cuda.matmul.allow_tf32 = False
         sm_count = torch.cuda.get_device_properties(0).multi_processor_count
-        print(json.dumps(decode_kernel_times(torch, sm_count, src)))
+        if sys.argv[1] == "--decode-kernel-times":
+            print(json.dumps(decode_kernel_times(torch, sm_count, src)))
+        else:
+            print(json.dumps(prefill_kernel_times(torch, src)))
         return 0
     try:
         from repro_torch.configs import get_config
@@ -1459,6 +1546,10 @@ def main() -> int:
         for line in build.ptxas_report(source).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {source}: {line.strip()}")
+    tc_lines = tc_ptxas_lines(build.ptxas_report("flash_prefill.cu"))
+    check(len(tc_lines) == 4, f"ptxas reported {len(tc_lines)} tensor-core kernels, expected 4")
+    for kernel, regs, spill in tc_lines:
+        print(f"  ptxas tensor-core {kernel}: {regs}; {spill}", flush=True)
 
     # 3. kernels
     kres = kernel_phase(torch, sm_count, dev_name)
@@ -1492,6 +1583,7 @@ def main() -> int:
           f"blocking engine ran other kernels: {counts}")
     check(counts["K7"] == cfg.n_layers * eng.stats.prefills == cfg.n_layers * len(reqs),
           f"K7 launched {counts['K7']} times, expected {cfg.n_layers} x {len(reqs)} admissions")
+    tc = tensor_core_counts("engine phase")
     decode_steps = eng.stats.ticks
     check(all(len(r.generated) == new_tokens for r in reqs), "a request did not finish")
     check(tuple(lean_logits.shape) == (len(reqs), cfg.vocab_size)
@@ -1507,8 +1599,8 @@ def main() -> int:
           f"each): admission + first decode tick {first_s * 1e3:.1f} ms; decode tick "
           f"p50 {p50 * 1e3:.2f} ms over {len(ticks)} ticks, {tok_s:.1f} tokens/s; "
           f"K2 launches {k2_launches} = {cfg.n_layers} layers x {decode_steps} steps; "
-          f"K7 launches {counts['K7']} = {cfg.n_layers} layers x {len(reqs)} admissions; "
-          "pool clean", flush=True)
+          f"K7 launches {counts['K7']} = {cfg.n_layers} layers x {len(reqs)} admissions "
+          f"({tc['K7']} on the tensor cores); pool clean", flush=True)
     paged = {"streams": [list(r.generated) for r in reqs], "rows": paged_rows}
     traced_ticks(torch, eng, make_requests(Request, cfg.vocab_size, TRACED_TICKS + 6), p50)
     del eng

@@ -1,0 +1,415 @@
+// Tensor-core row-block update for Hopper (sm_90a): the FA-2 inner loop of
+// K7 and K8 (flash_prefill.cu) on wgmma and TMA.
+//
+// A CTA of kThreads = 384 threads serves kRows = 128 query rows of one
+// (batch row, KV head): the folded (g, L) rows of q's own memory. Warpgroup 0
+// is the producer: one thread issues every copy (Q once, then each key tile's
+// K and V) with cp.async.bulk.tensor into 128-byte swizzled shared memory,
+// completing on mbarriers, through a ring of kStages = 2 tiles of kKeys = 128
+// keys; setmaxnreg gives its registers to the consumers. Warpgroups 1 and 2
+// each own 64 of the rows and, per tile:
+//   S = Q . K^T      wgmma m64n128k16, Q and K from shared memory (K-major),
+//                    float32 accumulators in registers;
+//   mask, softmax    in registers, and the mask only on tiles that cross a
+//                    row's [lo, hi) limits: the online-softmax update of
+//                    attn_tile.cuh in base 2 (NEG_INF = -1e30 start, masked
+//                    keys weigh exactly 0);
+//   O += P . V       wgmma m64nDk16 with P from registers (the accumulator
+//                    layout is the A-fragment layout) and V from shared
+//                    memory (MN-major). P is split into two bf16 halves,
+//                    p_hi = bf16(p) and p_lo = bf16(p - p_hi), and both go
+//                    through the tensor cores into the same float32
+//                    accumulator, so p keeps about 16 significant bits where
+//                    one bf16 copy keeps 8 (the reference keeps p in float32).
+// Keys no row of the CTA sees (past the causal limit, before the window,
+// slots of a tile that hold no key) have their V rows zeroed in shared
+// memory before P . V, so they add nothing, not even 0 * NaN. The flush
+// writes acc / max(l, 1e-30): a row that sees no key writes 0.
+//
+// A walk (DenseWalk, PagedWalk in flash_prefill.cu) says where the CTA's
+// rows and key tiles are:
+//   Args                      its kernel arguments;
+//   Walk(const Args&)         from blockIdx;
+//   ntiles                    key tiles the CTA walks;
+//   nrows, out                rows of the CTA that exist, and its first row
+//                             of the output (row stride D);
+//   cta_lo, cta_hi            every key some row of the CTA sees is in
+//                             [cta_lo, cta_hi);
+//   kbase(t), nvalid(t)       slot j < nvalid(t) of tile t holds key
+//                             kbase(t) + j; the other slots hold no key;
+//   row_limits(r, lo, hi)     row r of the CTA sees the keys [lo, hi);
+//   wg_limits(c, lo, hi)      every row of consumer c sees every key in
+//                             [lo, hi) (a tile inside it needs no mask);
+//   load_q(dst, bar, map)     the producer's copies of Q;
+//   load_tile(t, kdst, vdst, kbar, vbar, kmap, vmap)
+//                             the producer's copies of tile t's K and V.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace attn_tc {
+
+constexpr int kRows = 128;          // query rows of a CTA
+constexpr int kWgRows = 64;         // rows of one consumer warpgroup
+constexpr int kKeys = 128;          // keys of a tile
+constexpr int kThreads = 384;       // producer warpgroup + two consumer warpgroups
+constexpr int kStages = 2;          // K/V tiles in flight
+constexpr int kPanelBytes = 128 * 128;   // 128 rows of a 64-column bf16 panel
+constexpr float kNegInf = -1e30f;   // finite start of the running max, as the reference
+
+// Dynamic shared memory of the kernel for head dim d (64 or 128): Q, then
+// the K ring, then the V ring, each d / 64 panels wide, plus alignment.
+inline size_t smem_bytes(int d) {
+  return (size_t)(d / 64) * kPanelBytes * (1 + 2 * kStages) + 1024;
+}
+
+// ------------------------------------------------------------------- PTX
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait until the phase of the given parity has completed. A pipeline fault
+// traps (a launch error) instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t spins = 0;; ++spins) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spins == (1u << 24)) __trap();
+  }
+}
+
+// Box of a 3-D tensor map at (c0, c1, c2), innermost first, into shared
+// memory; completes on bar.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keep the compiler from moving accumulator reads across an async wgmma
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// Shared-memory matrix descriptor, 128-byte swizzle. K-major tiles (Q, K):
+// 8-row groups 1024 bytes apart (SBO), LBO unused. MN-major (V): 8 keys a
+// group 1024 bytes apart (SBO), the next 64 columns one panel on (LBO).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// ------------------------------------------------------------------ wgmma
+// S (+)= A . B, both from shared memory (K-major): m64n128k16, bf16 -> float32
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D += A . B, A (bf16 fragments) from registers, B from shared memory (MN-major):
+// m64n128k16, bf16 -> float32
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], uint32_t a0, uint32_t a1, uint32_t a2,
+                                             uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// D += A . B, A (bf16 fragments) from registers, B from shared memory (MN-major):
+// m64n64k16, bf16 -> float32
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], uint32_t a0, uint32_t a1, uint32_t a2,
+                                             uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t db) {
+  if constexpr (D == 128) {
+    wgmma_rs_n128(o, a0, a1, a2, a3, db);
+  } else {
+    wgmma_rs_n64(o, a0, a1, a2, a3, db);
+  }
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// -------------------------------------------------------------- producer
+template <int D, class Walk>
+__device__ __forceinline__ void produce(const Walk& w, uint32_t q_s, uint32_t k_s, uint32_t v_s,
+                                        uint32_t bar0, const CUtensorMap* qmap,
+                                        const CUtensorMap* kmap, const CUtensorMap* vmap) {
+  constexpr uint32_t kTile = (D / 64) * kPanelBytes;
+  w.load_q(q_s, bar0, qmap);
+  for (int t = 0; t < w.ntiles; ++t) {
+    const int s = t % kStages;
+    if (t >= kStages) mbar_wait(bar0 + 8 * (5 + s), ((t / kStages) - 1) & 1);
+    w.load_tile(t, k_s + s * kTile, v_s + s * kTile, bar0 + 8 * (1 + s), bar0 + 8 * (3 + s),
+                kmap, vmap);
+  }
+}
+
+// -------------------------------------------------------------- consumer
+template <int D, class Walk>
+__device__ __forceinline__ void consume(const Walk& w, uint32_t q_s, uint32_t k_s, uint32_t v_s,
+                                        uint32_t bar0, float scale_log2) {
+  constexpr int P = D / 64;
+  constexpr uint32_t kTile = P * kPanelBytes;
+  constexpr int kO = D / 2;                 // output accumulators per thread
+  const int c = threadIdx.x / 128 - 1;      // consumer 0 or 1
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  // this thread's rows of the CTA: rA and rA + 8 (the wgmma fragment layout)
+  const int rA = c * kWgRows + warp * 16 + lane / 4;
+  int lo[2], hi[2];
+  w.row_limits(rA, lo[0], hi[0]);
+  w.row_limits(rA + 8, lo[1], hi[1]);
+  int wg_lo, wg_hi;
+  w.wg_limits(c, wg_lo, wg_hi);
+  float o[kO];
+#pragma unroll
+  for (int i = 0; i < kO; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};   // m in units of log2
+  const uint32_t q_wg = q_s + c * kWgRows * 128;
+  mbar_wait(bar0, 0);
+
+  for (int t = 0; t < w.ntiles; ++t) {
+    const int s = t % kStages;
+    const uint32_t par = (t / kStages) & 1;
+    const uint32_t kt = k_s + s * kTile, vt = v_s + s * kTile;
+
+    // S = Q . K^T
+    float sc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+    mbar_wait(bar0 + 8 * (1 + s), par);
+    wg_fence();
+    fence_regs(sc);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kPanelBytes + (kk % 4) * 32;
+      wgmma_ss_n128(sc, sw128_desc(q_wg + off, 16, 1024), sw128_desc(kt + off, 16, 1024),
+                    kk > 0);
+    }
+    wg_commit();
+    wg_wait_all();
+    fence_regs(sc);
+
+    // mask, only on tiles that cross a limit of some row of this warpgroup
+    const int kb = w.kbase(t), nv = w.nvalid(t);
+    if (!(nv == kKeys && kb >= wg_lo && kb + kKeys <= wg_hi)) {
+#pragma unroll
+      for (int nb = 0; nb < 16; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = nb * 8 + (lane % 4) * 2 + (e & 1), i = e >> 1;
+          if (!(j < nv && kb + j >= lo[i] && kb + j < hi[i]))
+            sc[nb * 4 + e] = __int_as_float(0xff800000);   // -inf: weighs exactly 0
+        }
+    }
+
+    // online softmax in base 2: m, l, alpha per row; p in registers
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = __int_as_float(0xff800000);
+#pragma unroll
+      for (int nb = 0; nb < 16; ++nb) mx = fmaxf(mx, fmaxf(sc[nb * 4 + 2 * i], sc[nb * 4 + 2 * i + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[i], mx * scale_log2);
+      alpha[i] = exp2f(m[i] - m_new);
+      m[i] = m_new;
+    }
+    // P split into bf16 halves, laid out as wgmma A fragments: k-step ks
+    // (keys 16 ks .. 16 ks + 15) is registers 4 ks .. 4 ks + 3
+    uint32_t ph[32], pl[32];
+    float rsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nb = 0; nb < 16; ++nb) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float p0 = exp2f(fmaf(sc[nb * 4 + 2 * i], scale_log2, -m[i]));
+        const float p1 = exp2f(fmaf(sc[nb * 4 + 2 * i + 1], scale_log2, -m[i]));
+        rsum[i] += p0 + p1;
+        const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
+        const float2 hf = __bfloat1622float2(h);
+        const int reg = 4 * (nb / 2) + 2 * (nb % 2) + i;
+        ph[reg] = bf16x2_bits(h);
+        pl[reg] = bf16x2_bits(__floats2bfloat162_rn(p0 - hf.x, p1 - hf.y));
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = alpha[i] * l[i] + rsum[i];
+#pragma unroll
+    for (int i = 0; i < kO; ++i) o[i] *= alpha[(i >> 1) & 1];
+
+    // V: zero the rows of keys no row of the CTA sees, then O += P . V
+    mbar_wait(bar0 + 8 * (3 + s), par);
+    const int jlo = min(max(w.cta_lo - kb, 0), nv), jhi = min(max(w.cta_hi - kb, 0), nv);
+    if (jlo > 0 || jhi < kKeys) {
+      const int nz = jlo + (kKeys - jhi);
+      for (int e = tid; e < nz * P * 8; e += 128) {
+        const int chunk = e % 8, rp = e / 8, p = rp % P, zr = rp / P;
+        const int row = zr < jlo ? zr : jhi + (zr - jlo);
+        asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                         vt + p * kPanelBytes + row * 128 + chunk * 16),
+                     "r"(0), "r"(0), "r"(0), "r"(0)
+                     : "memory");
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
+    }
+    wg_fence();
+    fence_regs(o);
+#pragma unroll
+    for (int ks = 0; ks < kKeys / 16; ++ks)
+      wgmma_pv<D>(o, ph[4 * ks], ph[4 * ks + 1], ph[4 * ks + 2], ph[4 * ks + 3],
+                  sw128_desc(vt + ks * 16 * 128, kPanelBytes, 1024));
+#pragma unroll
+    for (int ks = 0; ks < kKeys / 16; ++ks)
+      wgmma_pv<D>(o, pl[4 * ks], pl[4 * ks + 1], pl[4 * ks + 2], pl[4 * ks + 3],
+                  sw128_desc(vt + ks * 16 * 128, kPanelBytes, 1024));
+    wg_commit();
+    wg_wait_all();
+    fence_regs(o);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar0 + 8 * (5 + s));   // this warp is done with the stage
+  }
+
+  // flush: acc / max(l, 1e-30), rows the CTA has
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    l[i] = fmaxf(l[i], 1e-30f);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = rA + 8 * i;
+    if (r < w.nrows) {
+      __nv_bfloat16* dst = w.out + (size_t)r * D + (lane % 4) * 2;
+#pragma unroll
+      for (int nb = 0; nb < D / 8; ++nb)
+        *reinterpret_cast<__nv_bfloat162*>(dst + nb * 8) =
+            __floats2bfloat162_rn(o[nb * 4 + 2 * i] / l[i], o[nb * 4 + 2 * i + 1] / l[i]);
+    }
+  }
+}
+
+// ------------------------------------------------------------------ kernel
+template <int D, class Walk>
+__global__ void __launch_bounds__(kThreads, 1)
+    row_block_kernel(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap, const typename Walk::Args a) {
+  static_assert(D == 64 || D == 128, "head dim 64 or 128");
+  extern __shared__ uint8_t smem_raw[];
+  // barriers: Q, K full [2], V full [2], stage empty [2]
+  __shared__ __align__(8) uint64_t bars[1 + 3 * kStages];
+  constexpr uint32_t kTile = (D / 64) * kPanelBytes;
+  const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t k_s = q_s + kTile;
+  const uint32_t v_s = k_s + kStages * kTile;
+  const uint32_t bar0 = smem_u32(bars);
+  const Walk w(a);
+  if (threadIdx.x == 0) {
+    mbar_init(bar0, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar0 + 8 * (1 + s), 1);
+      mbar_init(bar0 + 8 * (3 + s), 1);
+      mbar_init(bar0 + 8 * (5 + s), 8);   // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) produce<D>(w, q_s, k_s, v_s, bar0, &qmap, &kmap, &vmap);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    consume<D>(w, q_s, k_s, v_s, bar0, a.scale_log2);
+  }
+}
+
+}  // namespace attn_tc

@@ -26,25 +26,43 @@
 //
 // Both normalise with l = max(l, 1e-30) and write in q's dtype.
 //
-// Design. The g query heads of a KV head are folded into one CTA's rows:
-// rows = g * L, flattened (g, L) position-minor -- q's own memory layout, and
-// K4's row layout -- so both share K4's row-block update
-// (attn::rows_tile_update) and a K/V tile is read once per row block of 64
-// rows instead of once per query head. The grid is (batch row x KV head,
-// row block of 64 rows); each CTA walks its key tiles in order.
-//
 // What bounds them on this card: operations. At the main path's shapes (K7:
 // Hq 32, Hkv 8, d 128, a 3000-token causal prompt, 73.7 GFLOP against 61 MB
 // of bf16 q, k, v and o; K8: a 256-token chunk over a 2048-token prefix) the
-// flops outweigh the bytes by far more than the card's ridge point. This
-// version computes on the CUDA cores in float32 (register-tiled 4 x 8 per
-// thread, tiles in shared memory); the tensor cores (wgmma) and TMA are the
-// later step.
+// flops outweigh the bytes by far more than the card's ridge point, so the
+// tensor cores are the resource.
+//
+// Design. The g query heads of a KV head are folded into one CTA's rows:
+// rows = g * L, flattened (g, L) position-minor -- q's own memory layout --
+// so a K/V tile is read once per row block instead of once per query head.
+// Two kernels per entry point:
+//   * bf16 at d 64 or 128: the tensor-core row-block kernel of attn_tc.cuh.
+//     A CTA of 128 rows, two consumer warpgroups of 64 rows and a producer;
+//     K/V tiles of 128 keys come in through TMA (3-D tensor maps encoded on
+//     the host for each launch: K7 over k/v (B*Hkv, Lk, d), so rows past Lk
+//     are zero-filled and never the next head's; K8 over the pool rows
+//     (num_pages*Hkv, page, d), one copy per page at row tbl[n, jb]*Hkv + h)
+//     into a 2-stage ring; QK^T and PV run on wgmma with the softmax in
+//     registers; P goes through PV as two bf16 halves (p_hi + p_lo) into
+//     one float32 accumulator, so the float32 contract of the plain version
+//     holds to one bf16 step of the output. CTAs start in reverse row-block
+//     order: the causal blocks at the end of the prompt, which walk the
+//     most tiles, go first.
+//   * float32, and bf16 at other d: the CUDA-core kernel, K4's row-block
+//     update (attn::rows_tile_update, 64 rows a CTA, float32 tiles in shared
+//     memory). Tensor cores on float32 would mean TF32, which breaks the
+//     2e-5 float32 contract.
 //
 // Plain C interface (loaded with ctypes); each entry returns the launch's
-// cudaError_t.
+// cudaError_t, or kEncodeError + the CUresult of a failed tensor-map
+// encoding.
 
+#include "attn_tc.cuh"
 #include "attn_tile.cuh"
+
+#include <limits.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -210,6 +228,243 @@ cudaError_t launch_typed(const Args& a, int num_rows, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ------------------------------------------------- tensor-core kernels (bf16)
+using attn_tc::kKeys;
+using attn_tc::kPanelBytes;
+using attn_tc::kRows;
+using attn_tc::kWgRows;
+
+constexpr int kEncodeError = 100000;
+
+// Positions (r % L) of the rows [r0, r0 + n), n > 0: their least and
+// greatest (a block that wraps past L holds 0 and L - 1).
+__device__ __forceinline__ void pos_range(int r0, int n, int L, int& lo, int& hi) {
+  const int a = r0 % L;
+  if (a + n <= L) {
+    lo = a;
+    hi = a + n - 1;
+  } else {
+    lo = 0;
+    hi = L - 1;
+  }
+}
+
+// K7: row block (num_rb - 1 - blockIdx.y) of (batch row x KV head) blockIdx.x.
+struct DenseWalk {
+  struct Args {
+    __nv_bfloat16* out;    // (B * n_kv, rows, d)
+    int d, rows, Lq, Lk, causal, window, q_offset, num_rb;
+    float scale_log2;      // scale * log2(e)
+  };
+  const Args a;
+  int bh, row0, nrows, t0, ntiles, cta_lo, cta_hi;
+  __nv_bfloat16* out;
+
+  __device__ DenseWalk(const Args& args) : a(args) {
+    bh = blockIdx.x;
+    row0 = (a.num_rb - 1 - (int)blockIdx.y) * kRows;
+    nrows = min(kRows, a.rows - row0);
+    int pmin, pmax;
+    pos_range(row0, nrows, a.Lq, pmin, pmax);
+    cta_lo = a.window > 0 ? max(a.q_offset + pmin - a.window + 1, 0) : 0;
+    cta_hi = a.causal ? min(max(a.q_offset + pmax + 1, 0), a.Lk) : a.Lk;
+    t0 = cta_lo / kKeys;
+    ntiles = cta_hi > cta_lo ? (cta_hi + kKeys - 1) / kKeys - t0 : 0;
+    out = a.out + ((size_t)bh * a.rows + row0) * a.d;
+  }
+  __device__ int kbase(int t) const { return (t0 + t) * kKeys; }
+  __device__ int nvalid(int) const { return kKeys; }
+  __device__ void limits(int qpos, int& lo, int& hi) const {
+    hi = a.causal ? min(max(qpos + 1, 0), a.Lk) : a.Lk;
+    lo = a.window > 0 ? max(qpos - a.window + 1, 0) : 0;
+  }
+  __device__ void row_limits(int r, int& lo, int& hi) const {
+    limits(a.q_offset + (row0 + r) % a.Lq, lo, hi);
+  }
+  __device__ void wg_limits(int c, int& lo, int& hi) const {
+    const int n = min(kWgRows, a.rows - row0 - c * kWgRows);
+    if (n <= 0) {  // no row of this warpgroup exists: nothing to mask
+      lo = 0;
+      hi = INT_MAX;
+      return;
+    }
+    int pmin, pmax, unused;
+    pos_range(row0 + c * kWgRows, n, a.Lq, pmin, pmax);
+    limits(a.q_offset + pmin, unused, hi);   // least hi: the first position
+    limits(a.q_offset + pmax, lo, unused);   // greatest lo: the last position
+  }
+  __device__ void load_q(uint32_t dst, uint32_t bar, const CUtensorMap* qmap) const {
+    const int panels = a.d / 64;
+    attn_tc::mbar_expect_tx(bar, panels * kPanelBytes);
+    for (int p = 0; p < panels; ++p)
+      attn_tc::tma_load_3d(dst + p * kPanelBytes, qmap, bar, p * 64, row0, bh);
+  }
+  __device__ void load_tile(int t, uint32_t kdst, uint32_t vdst, uint32_t kbar, uint32_t vbar,
+                            const CUtensorMap* kmap, const CUtensorMap* vmap) const {
+    const int panels = a.d / 64;
+    attn_tc::mbar_expect_tx(kbar, panels * kPanelBytes);   // rows past Lk arrive as zeros
+    attn_tc::mbar_expect_tx(vbar, panels * kPanelBytes);
+    for (int p = 0; p < panels; ++p)
+      attn_tc::tma_load_3d(kdst + p * kPanelBytes, kmap, kbar, p * 64, kbase(t), bh);
+    for (int p = 0; p < panels; ++p)
+      attn_tc::tma_load_3d(vdst + p * kPanelBytes, vmap, vbar, p * 64, kbase(t), bh);
+  }
+};
+
+// K8: row block (num_rb - 1 - blockIdx.y) of (pack row x KV head) blockIdx.x.
+// A tile holds ppt whole pages (page <= 128) or 128 rows of one page
+// (page > 128, tpp tiles a page).
+struct PagedWalk {
+  struct Args {
+    const int* tbl;        // (N, W)
+    const int* q_off;      // (N,)
+    __nv_bfloat16* out;    // (N * n_kv, rows, d)
+    int d, n_kv, W, rows, chunk_cap, page, ppt, tpp, num_rb;
+    float scale_log2;
+  };
+  const Args a;
+  int n, h, row0, nrows, qoff, ntiles, cta_lo, cta_hi;
+  __nv_bfloat16* out;
+
+  __device__ PagedWalk(const Args& args) : a(args) {
+    const int nh = blockIdx.x;
+    n = nh / a.n_kv;
+    h = nh % a.n_kv;
+    row0 = (a.num_rb - 1 - (int)blockIdx.y) * kRows;
+    nrows = min(kRows, a.rows - row0);
+    qoff = a.q_off[n];
+    out = a.out + ((size_t)nh * a.rows + row0) * a.d;
+    int pmin, pmax;
+    pos_range(row0, nrows, a.chunk_cap, pmin, pmax);
+    const int max_qpos = qoff + pmax;
+    cta_lo = 0;
+    cta_hi = max_qpos + 1;
+    const int np = max_qpos < 0 ? 0 : min(a.W, max_qpos / a.page + 1);   // pages walked
+    if (np == 0)
+      ntiles = 0;
+    else if (a.page <= kKeys)
+      ntiles = (np + a.ppt - 1) / a.ppt;
+    else
+      ntiles = (np - 1) * a.tpp + min(a.tpp, (max_qpos - (np - 1) * a.page) / kKeys + 1);
+  }
+  __device__ int kbase(int t) const {
+    return a.page <= kKeys ? t * a.ppt * a.page : (t / a.tpp) * a.page + (t % a.tpp) * kKeys;
+  }
+  __device__ int nvalid(int t) const {
+    return a.page <= kKeys ? min(a.ppt, a.W - t * a.ppt) * a.page
+                           : min(kKeys, a.page - (t % a.tpp) * kKeys);
+  }
+  __device__ void row_limits(int r, int& lo, int& hi) const {
+    lo = 0;
+    hi = qoff + (row0 + r) % a.chunk_cap + 1;
+  }
+  __device__ void wg_limits(int c, int& lo, int& hi) const {
+    const int nr = min(kWgRows, a.rows - row0 - c * kWgRows);
+    lo = 0;
+    if (nr <= 0) {
+      hi = INT_MAX;
+      return;
+    }
+    int pmin, pmax;
+    pos_range(row0 + c * kWgRows, nr, a.chunk_cap, pmin, pmax);
+    hi = qoff + pmin + 1;
+  }
+  __device__ void load_q(uint32_t dst, uint32_t bar, const CUtensorMap* qmap) const {
+    const int panels = a.d / 64;
+    attn_tc::mbar_expect_tx(bar, panels * kPanelBytes);
+    for (int p = 0; p < panels; ++p)
+      attn_tc::tma_load_3d(dst + p * kPanelBytes, qmap, bar, p * 64, row0, n * a.n_kv + h);
+  }
+  __device__ void load_tile(int t, uint32_t kdst, uint32_t vdst, uint32_t kbar, uint32_t vbar,
+                            const CUtensorMap* kmap, const CUtensorMap* vmap) const {
+    const int panels = a.d / 64;
+    const int* tbl = a.tbl + (size_t)n * a.W;
+    if (a.page <= kKeys) {   // whole pages, one box of `page` rows each
+      const int first = t * a.ppt, count = min(a.ppt, a.W - first);
+      const uint32_t bytes = count * a.page * 128 * panels;
+      attn_tc::mbar_expect_tx(kbar, bytes);
+      attn_tc::mbar_expect_tx(vbar, bytes);
+      for (int sub = 0; sub < count; ++sub) {
+        const int row = tbl[first + sub] * a.n_kv + h;
+        const uint32_t off = sub * a.page * 128;
+        for (int p = 0; p < panels; ++p) {
+          attn_tc::tma_load_3d(kdst + p * kPanelBytes + off, kmap, kbar, p * 64, 0, row);
+          attn_tc::tma_load_3d(vdst + p * kPanelBytes + off, vmap, vbar, p * 64, 0, row);
+        }
+      }
+    } else {   // 128 rows of one page; rows past the page arrive as zeros
+      const int row = tbl[t / a.tpp] * a.n_kv + h, r0 = (t % a.tpp) * kKeys;
+      attn_tc::mbar_expect_tx(kbar, panels * kPanelBytes);
+      attn_tc::mbar_expect_tx(vbar, panels * kPanelBytes);
+      for (int p = 0; p < panels; ++p) {
+        attn_tc::tma_load_3d(kdst + p * kPanelBytes, kmap, kbar, p * 64, r0, row);
+        attn_tc::tma_load_3d(vdst + p * kPanelBytes, vmap, vbar, p * 64, r0, row);
+      }
+    }
+  }
+};
+
+// A 3-D map over bf16 rows of d values, (d, n_rows, n_mats) innermost
+// first, boxes of 64 columns x box_rows rows x 1, 128-byte swizzle; reads
+// outside the tensor fill zeros.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                     &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+int encode_rows(CUtensorMap* map, const void* base, int d, long long n_rows, long long n_mats,
+                int box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)n_rows, (cuuint64_t)n_mats};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)n_rows * d * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeError + (int)r;
+}
+
+template <int D, class Walk>
+cudaError_t launch_tc(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
+                      const typename Walk::Args& a, dim3 grid, cudaStream_t stream) {
+  auto kernel = attn_tc::row_block_kernel<D, Walk>;
+  const size_t smem = attn_tc::smem_bytes(D);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, attn_tc::kThreads, smem, stream>>>(qm, km, vm, a);
+  return cudaGetLastError();
+}
+
+template <class Walk>
+int launch_tc_d(int d, const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
+                const typename Walk::Args& a, dim3 grid, cudaStream_t stream) {
+  switch (d) {
+    case 64: return (int)launch_tc<64, Walk>(qm, km, vm, a, grid, stream);
+    case 128: return (int)launch_tc<128, Walk>(qm, km, vm, a, grid, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -244,6 +499,45 @@ int flash_prefill_paged_launch(int dtype, const void* q, const void* k_rows, con
     case 1: return (int)launch_typed<__nv_bfloat16>(a, N * n_kv, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// K7 on the tensor cores: bf16, d 64 or 128; q, k, v 16-byte aligned.
+int flash_prefill_tc_launch(const void* q, const void* k, const void* v, void* out, int num_bh,
+                            int rows, int Lq, int Lk, int d, int causal, int window, int q_offset,
+                            float scale, void* stream) {
+  if (num_bh <= 0 || rows <= 0 || Lq <= 0 || Lk <= 0 || rows % Lq) return (int)cudaErrorInvalidValue;
+  CUtensorMap qm, km, vm;
+  int err = encode_rows(&qm, q, d, rows, num_bh, kRows);
+  if (!err) err = encode_rows(&km, k, d, Lk, num_bh, kKeys);
+  if (!err) err = encode_rows(&vm, v, d, Lk, num_bh, kKeys);
+  if (err) return err;
+  const int num_rb = (rows + kRows - 1) / kRows;
+  DenseWalk::Args a = {static_cast<__nv_bfloat16*>(out), d, rows, Lq, Lk, causal, window,
+                       q_offset, num_rb, scale * 1.4426950408889634f};
+  return launch_tc_d<DenseWalk>(d, qm, km, vm, a, dim3(num_bh, num_rb),
+                                static_cast<cudaStream_t>(stream));
+}
+
+// K8 on the tensor cores: bf16, d 64 or 128, page a multiple of 8.
+int flash_prefill_paged_tc_launch(const void* q, const void* k_rows, const void* v_rows,
+                                  const int* tbl, const int* q_off, void* out, int N, int n_kv,
+                                  int W, int rows, int chunk_cap, int d, int page, int num_pages,
+                                  float scale, void* stream) {
+  if (N <= 0 || n_kv <= 0 || W <= 0 || rows <= 0 || chunk_cap <= 0 || page <= 0 || page % 8 ||
+      num_pages <= 0)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap qm, km, vm;
+  const int box = std::min(page, kKeys);
+  int err = encode_rows(&qm, q, d, rows, (long long)N * n_kv, kRows);
+  if (!err) err = encode_rows(&km, k_rows, d, page, (long long)num_pages * n_kv, box);
+  if (!err) err = encode_rows(&vm, v_rows, d, page, (long long)num_pages * n_kv, box);
+  if (err) return err;
+  const int num_rb = (rows + kRows - 1) / kRows;
+  PagedWalk::Args a = {tbl, q_off, static_cast<__nv_bfloat16*>(out), d, n_kv, W, rows,
+                       chunk_cap, page, std::max(1, kKeys / page), (page + kKeys - 1) / kKeys, num_rb,
+                       scale * 1.4426950408889634f};
+  return launch_tc_d<PagedWalk>(d, qm, km, vm, a, dim3(N * n_kv, num_rb),
+                                static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -22,10 +22,26 @@ source is ``csrc/flash_prefill.cu``: both kernels fold the ``g`` query heads
 of a KV head into one CTA's rows, so a K/V tile is read once per row block
 and not once per query head.
 
+Path rule (:func:`tensor_core_path`, a plain function of ``(dtype, d,
+page)``). On CUDA tensors each wrapper launches one of two kernels:
+
+* bf16 with ``d`` in {64, 128} (the main path: Mistral-NeMo-12B, d 128):
+  the tensor-core row-block kernel (``csrc/attn_tc.cuh``: wgmma for QK^T
+  and PV, K/V tiles through TMA, 128 rows a CTA, P through PV as two bf16
+  halves). K8 there needs ``page`` a multiple of 8 (a page is a whole
+  number of 8-row swizzle atoms) and raises otherwise; both need their
+  operands 16-byte aligned (TMA) and raise otherwise.
+* float32, and bf16 at any other ``d``: the CUDA-core kernel (float32 tiles
+  in shared memory). Tensor cores on float32 would mean TF32 and break the
+  2e-5 float32 contract.
+
+Nothing catches a failed build or launch and gives way to the other kernel.
+
 The wrappers launch the kernels for CUDA tensors and run the plain versions
 for CPU tensors -- only because the tensors lie on the CPU; a failed build
-or launch raises. ``dense_launches`` (K7) and ``launches`` (K8) count kernel
-launches (plain runs do not count).
+or launch raises. ``dense_launches`` (K7) and ``launches`` (K8) count every
+kernel launch, ``dense_tc_launches`` and ``tc_launches`` the tensor-core
+ones among them (plain runs do not count).
 """
 from __future__ import annotations
 
@@ -40,15 +56,38 @@ from . import build
 from .lean_prefill import check_row_kernel
 
 SOURCE = "flash_prefill.cu"
+TC_HEAD_DIMS = (64, 128)     # head dims of the tensor-core kernel
+TC_ALIGN = 16                # bytes: TMA's global address alignment
 
 # launch counters: +1 per kernel launch, nowhere else
-launches = 0            # K8
-dense_launches = 0      # K7
+launches = 0            # K8, every launch
+dense_launches = 0      # K7, every launch
+tc_launches = 0         # K8 on the tensor cores
+dense_tc_launches = 0   # K7 on the tensor cores
 
 
 def reset_launch_counts() -> None:
-    global launches, dense_launches
-    launches = dense_launches = 0
+    global launches, dense_launches, tc_launches, dense_tc_launches
+    launches = dense_launches = tc_launches = dense_tc_launches = 0
+
+
+def tensor_core_path(dtype: torch.dtype, d: int, page: Optional[int] = None) -> bool:
+    """Whether the CUDA wrappers launch the tensor-core kernel: bf16 with
+    ``d`` in :data:`TC_HEAD_DIMS`. ``page`` is K8's page size (None for K7);
+    on that path a page that is not a multiple of 8 is a ValueError."""
+    if dtype != torch.bfloat16 or d not in TC_HEAD_DIMS:
+        return False
+    if page is not None and page % 8:
+        raise ValueError(f"the tensor-core K8 takes pages of a multiple of 8 rows, got {page}")
+    return True
+
+
+def _check_tc(what: str, **tensors):
+    """TMA reads global memory from 16-byte aligned addresses. (The kernel's
+    shared memory, 160 KB at d 128, fits every head dim the path takes.)"""
+    for name, t in tensors.items():
+        if t.data_ptr() % TC_ALIGN:
+            raise ValueError(f"{what}: {name} must be {TC_ALIGN}-byte aligned for TMA")
 
 
 def _library() -> ctypes.CDLL:
@@ -61,6 +100,12 @@ def _library() -> ctypes.CDLL:
         lib.flash_prefill_paged_launch.restype = I
         lib.flash_prefill_launch.argtypes = [I, P, P, P, P, I, I, I, I, I, I, I, I, I, F, P]
         lib.flash_prefill_launch.restype = I
+        lib.flash_prefill_tc_launch.argtypes = [P, P, P, P, I, I, I, I, I, I, I, I, F, P]
+        lib.flash_prefill_tc_launch.restype = I
+        lib.flash_prefill_paged_tc_launch.argtypes = [
+            P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, P,
+        ]
+        lib.flash_prefill_paged_tc_launch.restype = I
         lib._argtypes_set = True
     return lib
 
@@ -112,8 +157,9 @@ def flash_prefill_paged(
     """K8: FA-2 chunked prefill through the page table. Returns ``(N, Hq,
     C, d)`` in q's dtype; rows of chunk padding hold garbage that callers
     discard. Every id in ``page_tbls`` must index the pools (the kernel
-    trusts it; checking would cost a device sync)."""
-    global launches
+    trusts it; checking would cost a device sync). The kernel follows
+    :func:`tensor_core_path`."""
+    global launches, tc_launches
     N, Hq, C, d = q.shape
     num_pages, Hkv, ps, _ = k_pool.shape
     if v_pool.shape != k_pool.shape or k_pool.shape[3] != d or Hq % Hkv:
@@ -132,16 +178,29 @@ def flash_prefill_paged(
         raise TypeError("page_tbls and q_offsets must be int32")
     build.check_contiguous(q=q, k_pool=k_pool, v_pool=v_pool, page_tbls=page_tbls,
                            q_offsets=q_offsets)
-    check_row_kernel(d, ps, "flash_prefill_paged (K8)")
     W = page_tbls.shape[1]
+    rows = (Hq // Hkv) * C
+    tc = tensor_core_path(q.dtype, d, ps)
+    if tc:
+        _check_tc("flash_prefill_paged (K8)", q=q, k_pool=k_pool, v_pool=v_pool)
+    else:
+        check_row_kernel(d, ps, "flash_prefill_paged (K8)")
     out = torch.empty_like(q)
-    err = _library().flash_prefill_paged_launch(
-        build.DTYPE_CODE[q.dtype], build.ptr(q), build.ptr(k_pool), build.ptr(v_pool),
-        build.ptr(page_tbls), build.ptr(q_offsets), build.ptr(out),
-        N, Hkv, W, (Hq // Hkv) * C, C, d, ps, float(scale), build.stream(q.device),
-    )
+    if tc:
+        err = _library().flash_prefill_paged_tc_launch(
+            build.ptr(q), build.ptr(k_pool), build.ptr(v_pool), build.ptr(page_tbls),
+            build.ptr(q_offsets), build.ptr(out), N, Hkv, W, rows, C, d, ps, num_pages,
+            float(scale), build.stream(q.device),
+        )
+    else:
+        err = _library().flash_prefill_paged_launch(
+            build.DTYPE_CODE[q.dtype], build.ptr(q), build.ptr(k_pool), build.ptr(v_pool),
+            build.ptr(page_tbls), build.ptr(q_offsets), build.ptr(out),
+            N, Hkv, W, rows, C, d, ps, float(scale), build.stream(q.device),
+        )
     build.check_launch(err, "flash_prefill_paged (K8)")
     launches += 1
+    tc_launches += int(tc)
     return out
 
 
@@ -223,12 +282,14 @@ def flash_prefill(
 ) -> torch.Tensor:
     """K7: FA-2 prefill (causal, sliding window, GQA; query ``i`` at
     absolute position ``q_offset + i``). Returns ``(B, Hq, Lq, d)`` in q's
-    dtype. ``block_kv`` is the key tile the kernel walks (and the plain
-    version's); ``block_q`` is the plain version's query block -- the kernel
-    takes row blocks of 64 of the ``g * Lq`` rows a KV head serves. Block
-    sizes change which fully masked blocks are skipped, never the result.
-    Operands must be contiguous on CUDA."""
-    global dense_launches
+    dtype. ``block_kv`` is the key tile the CUDA-core kernel walks (and the
+    plain version's); ``block_q`` is the plain version's query block -- the
+    CUDA-core kernel takes row blocks of 64 of the ``g * Lq`` rows a KV head
+    serves, the tensor-core kernel (:func:`tensor_core_path`) row blocks of
+    128 and key tiles of 128 of its own. Block sizes change which fully
+    masked blocks are skipped, never the result. Operands must be
+    contiguous on CUDA."""
+    global dense_launches, dense_tc_launches
     B, Hq, Lq, d = q.shape
     Bk, Hkv, Lk, dk = k.shape
     if v.shape != k.shape or Bk != B or dk != d or Hq % Hkv:
@@ -244,16 +305,28 @@ def flash_prefill(
     build.check_dtypes(q, k, v)
     build.check_contiguous(q=q, k=k, v=v)
     _, tile = _blocks(Lq, Lk, block_q, block_kv)
-    check_row_kernel(d, tile, "flash_prefill (K7)")
+    tc = tensor_core_path(q.dtype, d)
+    if tc:
+        _check_tc("flash_prefill (K7)", q=q, k=k, v=v)
+    else:
+        check_row_kernel(d, tile, "flash_prefill (K7)")
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
     g = Hq // Hkv
-    err = _library().flash_prefill_launch(
-        build.DTYPE_CODE[q.dtype], build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out),
-        B * Hkv, g * Lq, Lq, Lk, d, tile, int(bool(causal)), int(window or 0), int(q_offset),
-        float(scale), build.stream(q.device),
-    )
+    args = (B * Hkv, g * Lq, Lq, Lk, d)
+    mask = (int(bool(causal)), int(window or 0), int(q_offset), float(scale))
+    if tc:
+        err = _library().flash_prefill_tc_launch(
+            build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out), *args, *mask,
+            build.stream(q.device),
+        )
+    else:
+        err = _library().flash_prefill_launch(
+            build.DTYPE_CODE[q.dtype], build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out),
+            *args, tile, *mask, build.stream(q.device),
+        )
     build.check_launch(err, "flash_prefill (K7)")
     dense_launches += 1
+    dense_tc_launches += int(tc)
     return out

@@ -7,10 +7,14 @@ card and run on the card with
 They cover what ``chip_smoke.py`` does not: every row bucket the decode
 kernels are instantiated for, float32 and bf16, other tile, head and chunk
 sizes, grids of more workers than SMs, K5's determinism, K7 on the
-reference's prefill cases and the dense-cache engine against the paged one.
+reference's prefill cases and the dense-cache engine against the paged one,
+and the tensor-core K7/K8 (bf16 at d 64 and 128): their edges, keys past a
+chunk holding NaN, their launch counters and refusals.
 Tolerance 2e-5: kernel and plain version both compute in float32 from the
 same inputs (K7's and K8's bf16 output: one bf16 step plus 2e-5, since both
-round a float32 result).
+round a float32 result; the tensor-core kernel keeps P to about 16 bits by
+putting it through PV as two bf16 halves, which holds it to that bound --
+tests/test_torch_prefill_numerics.py).
 """
 import math
 
@@ -527,6 +531,136 @@ def test_k7_rows_that_see_no_key_and_refusals(cuda):
         fp.flash_prefill(torch.zeros(1, 1, 8, 512, device=cuda),
                          torch.zeros(1, 1, 8, 512, device=cuda),
                          torch.zeros(1, 1, 8, 512, device=cuda))
+
+
+# ------------------------------------------------ tensor-core K7 and K8
+# bf16 at d 64 and 128 runs on the tensor-core kernel (fp.tensor_core_path):
+# K7_CASES at both head dims, and (B, Hq, Hkv, Lq, Lk, d, causal, window,
+# q_offset) cases for its edges: rows that see no key (q_offset < 0), row
+# blocks that straddle two query heads (Lq not a multiple of 64), ragged
+# tails (Lk % 128 != 0), a window over several tiles
+K7_TC_EDGES = [
+    (1, 4, 1, 70, 50, 128, True, None, -20),
+    (1, 4, 1, 100, 100, 128, True, None, 0),
+    (1, 8, 2, 200, 300, 128, True, None, 100),
+    (1, 8, 2, 200, 300, 64, False, None, 0),
+    (1, 8, 2, 333, 333, 128, True, 100, 0),
+]
+
+
+def _k7_tc(cuda, B, Hq, Hkv, Lq, Lk, d, causal, window, q_offset, **blocks):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(Lq + Lk + d)
+    q = torch.randn(B, Hq, Lq, d, generator=gen, device=cuda).bfloat16()
+    k = torch.randn(B, Hkv, Lk, d, generator=gen, device=cuda).bfloat16()
+    v = torch.randn(B, Hkv, Lk, d, generator=gen, device=cuda).bfloat16()
+    kw = dict(causal=causal, window=window, q_offset=q_offset, **blocks)
+    before = (fp.dense_launches, fp.dense_tc_launches)
+    out = fp.flash_prefill(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert (fp.dense_launches, fp.dense_tc_launches) == (before[0] + 1, before[1] + 1)
+    ref = fp.flash_prefill_plain(q, k, v, **kw)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert _bf16_close(out, ref)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", K7_CASES)
+def test_k7_tensor_core_matches_plain(cuda, case, d):
+    """The tensor-core K7 against the plain version on the reference's
+    prefill cases at both of its head dims; block sizes change nothing."""
+    B, Hq, Hkv, Lq, Lk, _, causal, window, block_kv = case
+    _k7_tc(cuda, B, Hq, Hkv, Lq, Lk, d, causal, window, Lk - Lq if causal else 0,
+           block_q=block_kv, block_kv=block_kv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K7_TC_EDGES)
+def test_k7_tensor_core_edges(cuda, case):
+    out = _k7_tc(cuda, *case)
+    q_offset = case[8]
+    if q_offset < 0:   # rows before position 0 see no key and write 0
+        assert not out[:, :, :-q_offset].float().any()
+
+
+# (Hq, Hkv, d, page, offs, C): pages of 16, 128, 24 (not a divisor of the
+# key tile) and 256 (two tiles a page)
+K8_TC_CASES = [
+    (4, 2, 64, 16, (0, 9, 33), 5),
+    (32, 8, 128, 128, (300, 37), 100),
+    (8, 2, 128, 24, (50, 3), 40),
+    (8, 2, 64, 256, (300, 0), 100),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K8_TC_CASES)
+def test_k8_tensor_core_ignores_rows_past_each_chunk(cuda, case):
+    """Every pool row past each chunk's last position NaN gives the same
+    output, bit for bit, as zeros there: keys no row sees add nothing, not
+    even 0 * NaN. Both agree with the plain version on the zero pools."""
+    Hq, Hkv, d, page, offs, C = case
+    q, kp, vp, tbl = _chunk_operands(cuda, list(offs), [C] * len(offs), Hq, Hkv, d, page,
+                                     torch.bfloat16, seed=page)
+    q_off = torch.tensor(offs, dtype=torch.int32, device=cuda)
+    past = torch.zeros(kp.shape[:1] + kp.shape[2:3], dtype=torch.bool, device=cuda)
+    for n, o in enumerate(offs):
+        for jb, pg in enumerate(tbl[n].tolist()):
+            if pg:
+                past[pg] = torch.arange(page, device=cuda) + jb * page > o + C - 1
+    kp[past[:, None, :].expand(kp.shape[:3])] = 0
+    vp[past[:, None, :].expand(vp.shape[:3])] = 0
+    before = (fp.launches, fp.tc_launches)
+    zero = fp.flash_prefill_paged(q, kp, vp, tbl, q_off)
+    kp[past[:, None, :].expand(kp.shape[:3])] = float("nan")
+    vp[past[:, None, :].expand(vp.shape[:3])] = float("nan")
+    nan = fp.flash_prefill_paged(q, kp, vp, tbl, q_off)
+    torch.cuda.synchronize()
+    assert (fp.launches, fp.tc_launches) == (before[0] + 2, before[1] + 2)
+    assert torch.equal(zero, nan)
+    kp[past[:, None, :].expand(kp.shape[:3])] = 0
+    vp[past[:, None, :].expand(vp.shape[:3])] = 0
+    assert _bf16_close(zero, fp.flash_prefill_paged_plain(q, kp, vp, tbl, q_off,
+                                                          1.0 / math.sqrt(d)))
+
+
+@pytest.mark.cuda
+def test_tensor_core_counters_follow_the_path_rule(cuda):
+    """dense_launches / launches count every launch, dense_tc_launches /
+    tc_launches only bf16 at d 64 or 128."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    for dtype, d in ((torch.float32, 128), (torch.bfloat16, 32), (torch.bfloat16, 128)):
+        tc = fp.tensor_core_path(dtype, d, 16)
+        q = torch.randn(1, 4, 40, d, generator=gen, device=cuda).to(dtype)
+        k = torch.randn(1, 2, 40, d, generator=gen, device=cuda).to(dtype)
+        fp.reset_launch_counts()
+        fp.flash_prefill(q, k, k)
+        qc, kp, vp, tbl = _chunk_operands(cuda, [20], [8], 4, 2, d, 16, dtype)
+        fp.flash_prefill_paged(qc, kp, vp, tbl, torch.tensor([20], dtype=torch.int32,
+                                                             device=cuda))
+        torch.cuda.synchronize()
+        assert (fp.dense_launches, fp.launches) == (1, 1)
+        assert (fp.dense_tc_launches, fp.tc_launches) == (int(tc), int(tc))
+
+
+@pytest.mark.cuda
+def test_tensor_core_refusals(cuda):
+    """What the tensor-core kernel cannot take raises before any launch: a
+    page that is not a multiple of 8, an operand TMA cannot address."""
+    qc, kp, vp, tbl = _chunk_operands(cuda, [0], [8], 4, 2, 128, 12, torch.bfloat16)
+    off = torch.zeros(1, dtype=torch.int32, device=cuda)
+    fp.reset_launch_counts()
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fp.flash_prefill_paged(qc, kp, vp, tbl, off)
+    k = torch.zeros(1, 2, 16, 128, dtype=torch.bfloat16, device=cuda)
+    flat = torch.zeros(1 + 4 * 16 * 128, dtype=torch.bfloat16, device=cuda)
+    q = flat[1:].view(1, 4, 16, 128)             # contiguous, 2 bytes off alignment
+    with pytest.raises(ValueError, match="aligned"):
+        fp.flash_prefill(q, k, k)
+    assert (fp.dense_launches, fp.launches) == (0, 0)
 
 
 @pytest.mark.cuda
