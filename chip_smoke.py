@@ -17,7 +17,13 @@ Phases, in order; any failure exits non-zero and nothing catches it:
      pack of two 256-token prompt chunks, K6 (fixed split) against K2 on
      two decode shapes -- the paper's comparison -- and K7 (whole-prompt
      FA-2 prefill) on a 3000-token causal prompt, with a 1024-token sliding
-     window, and non-causal 37 x 150;
+     window, and non-causal 37 x 150; then the int8 forms of K1, K2, K4 and
+     K5 (bf16 queries, int8 pool rows with a float32 scale per row) against
+     their plain versions on the same decode batch (one sequence on a
+     zero-scale page, which must read exact zeros), chunk pack and shared
+     prefix, timed beside SDPA on the K/V dequantized to bf16; and the page
+     sizes the port once refused: K8, K4 and K6 on pages of 12 and 100 (bf16)
+     and 256 (float32 and bf16) at d 128;
   4. engine phase: Mistral-NeMo-12B at full width, random bf16 weights from
      a seeded generator, served through ``DecodeEngine`` (paged, blocking
      admission through K7, lean decode through K2); then the same prompts
@@ -45,8 +51,17 @@ Phases, in order; any failure exits non-zero and nothing catches it:
      paged lean engine's; traced lean ticks; tick p50 against the paged
      engine in turns; one tick of the legacy step (``use_fast_path=
      False``: K1 + merge) against the fast path's;
- 10. the kernel summary (one JSON line), the ``nvidia-smi`` line, and last
-     ``{"ok": true, "device": {...}}``.
+ 10. int8 pages (``PagedConfig(kv_dtype="int8")``): the engine phase's
+     requests on int8 pools (K7 admissions quantizing whole pages, K2-int8
+     decode; launches, pool with its scales, tick p50, traced ticks, page
+     bytes against bf16's, the logit gap and greedy agreement with the bf16
+     engine), ``fused=False`` (K1-int8), the int8 ``ref`` engine's first tick
+     against lean's; the Scheduler on ``ref`` (no kernel: what the
+     quantization alone moves), then on ``lean`` (K4-int8, K2-int8) and
+     ``fixed`` (K8 on pools widened to bf16, K6 on pages dequantized to
+     float32) in turns; prefix serving with cascade (K5-int8);
+ 11. the kernel summary (one JSON line: K1-K8 and the four int8 forms), the
+     ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
 The kernel phase (3) also holds K3 (the merge kernel) against its plain
 version and ``segment_merge``, drives the ``merge_impl="pallas"`` plans of
@@ -68,7 +83,15 @@ or K8 is compared the same way with
     python3 chip_smoke.py --prefill-kernel-times [OTHER_CHECKOUT/src]
 
 which prints one JSON line of K7's (the 3000-token causal prompt) and K8's
-(the two-chunk pack) median times, bf16 and f32.
+(the two-chunk pack) median times, bf16 and f32. A change to the row-block
+kernels (K4, and K7 and K8 on the CUDA cores) is held to another checkout
+bit for bit with
+
+    python3 chip_smoke.py --row-kernel-bits OTHER_CHECKOUT/src
+
+which runs both checkouts' kernels (one process each) on the same seeded
+inputs, at pages that fit one tile, and prints one JSON line: outputs
+compared, bit-identical, differing.
 
 bf16 K7 and K8 at d 64 or 128 run on the tensor-core kernel (wgmma + TMA,
 ``csrc/attn_tc.cuh``); the build step prints its ``-Xptxas -v`` lines, the
@@ -110,6 +133,18 @@ BF16_TOL = 2e-5
 # that typical size, ten times the allowance.
 LOGIT_RTOL = 2.0 ** -6
 LOGIT_ATOL_FRAC = 0.1
+# Phase 10, where two runs read int8 K/V that were not quantized from the
+# same values -- the int8 Scheduler's first tokens against blocking prefill
+# (which reads bf16 K/V), prefix serving against the unshared run (pools
+# written through other stream-K partitions): an element is off by up to
+# half a scale step, amax/254 of its page and head, about 8x the bf16
+# rounding of a unit-scale element, and upstream bf16 noise that crosses a
+# rounding boundary moves it a whole step. The allowance doubles the bf16
+# one; a wrong attention output still moves logits by 5x it. (Phase 10
+# also serves the int8 'ref' Scheduler -- the plain oracles over int8
+# pages, no kernel -- and prints its gap to blocking prefill: the size of
+# the quantization's own effect.)
+INT8_LOGIT_ATOL_FRAC = 0.2
 # K5 against K2 on the unshared batch, and against the two-call cascade:
 # the regrouping re-associates the float32 softmax sums, which the
 # reference bounds by its float32 contract (tests/test_cascade.py:127-128)
@@ -776,12 +811,12 @@ def make_requests(Request, vocab, new_tokens, seed=1):
     ]
 
 
-def engine_config(backend, sm_count, fused=True):
+def engine_config(backend, sm_count, fused=True, kv_dtype=None):
     from repro_torch.serving.config import EngineConfig, PagedConfig
 
     return EngineConfig(
         max_batch=4, cache_len=4096, attn_backend=backend, num_workers=sm_count,
-        fused=fused, paged=PagedConfig(enabled=True, page_size=128),
+        fused=fused, paged=PagedConfig(enabled=True, page_size=128, kv_dtype=kv_dtype),
     )
 
 
@@ -873,17 +908,19 @@ def print_top(by_name, per: int, unit: str, top: int):
         print(f"  {t / per / 1e3:8.3f} ms/{unit}  {n / per:7.1f}x  {kname[:90]}", flush=True)
 
 
-def traced_scheduler_phase(torch, cfg, params, backend, sm_count, new_tokens, blocking):
+def traced_scheduler_phase(torch, cfg, params, backend, sm_count, new_tokens, blocking,
+                           kv_dtype=None):
     """A scheduler phase under ``torch.profiler``: device busy against the
     traced wall, kernels, host syncs (``aten::item``: the host waits for the
     device and the launch queue drains), and the kernels with the most
     device time."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        run = scheduler_phase(torch, cfg, params, backend, sm_count, new_tokens, blocking)
+        run = scheduler_phase(torch, cfg, params, backend, sm_count, new_tokens, blocking,
+                              kv_dtype)
     kernels, busy_ms, by_name = device_time(prof)
     syncs = sum(1 for e in prof.events() if e.device_type.name == "CPU" and e.name == "aten::item")
-    print(f"traced scheduler phase ({backend}): wall {run['wall'] * 1e3:.1f} ms under the "
+    print(f"traced scheduler phase ({backend}{', int8' if kv_dtype else ''}): wall {run['wall'] * 1e3:.1f} ms under the "
           f"profiler, device busy {busy_ms:.1f} ms (idle share {1 - busy_ms / (run['wall'] * 1e3):.3f}), "
           f"{len(kernels)} kernels, {syncs} host syncs (aten::item)", flush=True)
     print_top(by_name, 1, "phase", 6)
@@ -892,11 +929,16 @@ def traced_scheduler_phase(torch, cfg, params, backend, sm_count, new_tokens, bl
 SCHED_CHUNK, SCHED_PACK, SCHED_BUDGET = 256, 2, 512
 
 
-def scheduler_phase(torch, cfg, params, backend, sm_count, new_tokens, blocking):
+def scheduler_phase(torch, cfg, params, backend, sm_count, new_tokens, blocking,
+                    kv_dtype=None):
     """The ``PROMPT_LENS`` requests served by ``Scheduler`` with chunked
-    prefill on ``backend``. ``blocking`` holds the blocking engine phase's
-    first tokens and first-token logits per request. Returns the launch
-    counts and step counts of the run."""
+    prefill on ``backend`` (int8 pools with ``kv_dtype="int8"``: K4-int8 on
+    ``lean``, K8 on the pools widened to bf16 on ``fixed``, the plain
+    oracles and no kernel on ``ref``). ``blocking``
+    holds the blocking engine phase's first tokens and first-token logits
+    per request, which the first-token logits are held to (``LOGIT_RTOL``,
+    and ``LOGIT_ATOL_FRAC`` -- ``INT8_LOGIT_ATOL_FRAC`` on int8 pools).
+    Returns the launch counts and step counts of the run."""
     from repro_torch.serving.engine import DecodeEngine
     from repro_torch.serving.scheduler import RequestState, Scheduler, SchedulerConfig
 
@@ -914,7 +956,9 @@ def scheduler_phase(torch, cfg, params, backend, sm_count, new_tokens, blocking)
                     self.first_rows[req.uid] = self.last_prefill_logits[i].float()
             return toks
 
-    eng = FirstTokenEngine(cfg, params, engine_config(backend, sm_count), device="cuda")
+    eng = FirstTokenEngine(cfg, params, engine_config(backend, sm_count, kv_dtype=kv_dtype),
+                           device="cuda")
+    what = f"{backend}{' int8' if kv_dtype else ''} scheduler"
     sch = Scheduler(eng, SchedulerConfig(chunk_size=SCHED_CHUNK, prefill_pack=SCHED_PACK,
                                          token_budget=SCHED_BUDGET, chunked=True))
     reset_launch_counts()
@@ -926,45 +970,48 @@ def scheduler_phase(torch, cfg, params, backend, sm_count, new_tokens, blocking)
         out = sch.step()
         if long.state is RequestState.PREFILLING:
             overlap += len(out)
-    check(not sch.pending, f"{backend} scheduler: requests still pending after 400 steps")
+    check(not sch.pending, f"{what}: requests still pending after 400 steps")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
     chunk_steps, ticks = len(eng.stats.tick_prefill_tokens), eng.stats.ticks
     check(all(h.done and len(h.generated) == new_tokens for h in handles),
-          f"{backend} scheduler: a request did not finish")
-    eng.pool.check()
-    check(eng.pool.num_allocated == 0, f"{backend} scheduler: {eng.pool.num_allocated} pages leaked")
-    check(overlap > 0, f"{backend} scheduler: decode stalled during the long prefill")
-    kernels = {"lean": ("K4", "K2"), "fixed": ("K8", "K6")}[backend]
-    check(counts[kernels[0]] == cfg.n_layers * chunk_steps and chunk_steps > 0,
-          f"{backend} scheduler: {kernels[0]} launched {counts[kernels[0]]} times, expected "
-          f"{cfg.n_layers} x {chunk_steps} chunk steps")
-    check(counts[kernels[1]] == cfg.n_layers * ticks and ticks > 0,
-          f"{backend} scheduler: {kernels[1]} launched {counts[kernels[1]]} times, expected "
-          f"{cfg.n_layers} x {ticks} decode ticks")
+          f"{what}: a request did not finish")
+    eng.pool.check(scales=eng._kv_scale_arrays())
+    check(eng.pool.num_allocated == 0, f"{what}: {eng.pool.num_allocated} pages leaked")
+    check(overlap > 0, f"{what}: decode stalled during the long prefill")
+    kernels = {"lean": ("K4", "K2"), "fixed": ("K8", "K6"), "ref": ()}[backend]
+    if kernels:
+        check(counts[kernels[0]] == cfg.n_layers * chunk_steps and chunk_steps > 0,
+              f"{what}: {kernels[0]} launched {counts[kernels[0]]} times, expected "
+              f"{cfg.n_layers} x {chunk_steps} chunk steps")
+        check(counts[kernels[1]] == cfg.n_layers * ticks and ticks > 0,
+              f"{what}: {kernels[1]} launched {counts[kernels[1]]} times, expected "
+              f"{cfg.n_layers} x {ticks} decode ticks")
     others = {k: n for k, n in counts.items() if k not in kernels and n}
-    check(not others, f"{backend} scheduler: other kernels ran: {others}")
-    tc = tensor_core_counts(f"{backend} scheduler")
+    check(not others, f"{what}: other kernels ran: {others}")
+    tc = tensor_core_counts(what)
     ttft = [(h.first_token_time - h.arrival_time) * 1e3 for h in handles]
     agree = sum(h.generated[0] == blocking["first"][h.uid] for h in handles)
+    atol_frac = INT8_LOGIT_ATOL_FRAC if kv_dtype == "int8" else LOGIT_ATOL_FRAC
     worst = None
     for h in handles:
         ref = blocking["rows"][h.uid]
         got = eng.first_rows[h.uid]
-        check(bool(torch.isfinite(got).all()), f"{backend} scheduler: first-token logits not finite")
-        atol = LOGIT_ATOL_FRAC * ref.abs().median().item()
+        check(bool(torch.isfinite(got).all()), f"{what}: first-token logits not finite")
+        atol = atol_frac * ref.abs().median().item()
         delta = (got - ref).abs()
         check(torch.allclose(got, ref, rtol=LOGIT_RTOL, atol=atol),
-              f"{backend} scheduler: request {h.uid}'s first-token logits differ from blocking "
+              f"{what}: request {h.uid}'s first-token logits differ from blocking "
               f"prefill by up to {delta.max().item()} (allowed {atol} + {LOGIT_RTOL} |ref|)")
         if worst is None or delta.max().item() > worst[0]:
             worst = (delta.max().item(), atol, h.uid)
-    print(f"scheduler phase ({backend}): chunk {SCHED_CHUNK}, pack {SCHED_PACK}, budget "
+    launched = (f"launches {kernels[0]} {counts[kernels[0]]} = {cfg.n_layers} x {chunk_steps}, "
+                f"{kernels[1]} {counts[kernels[1]]} = {cfg.n_layers} x {ticks} (K8 on the "
+                f"tensor cores {tc['K8']})" if kernels else "no kernel launched")
+    print(f"scheduler phase ({backend}{', int8 pools' if kv_dtype else ''}): chunk {SCHED_CHUNK}, pack {SCHED_PACK}, budget "
           f"{SCHED_BUDGET}: {sch.stats.steps} scheduler steps, {chunk_steps} chunk steps, "
-          f"{ticks} decode ticks in {wall:.2f} s; launches {kernels[0]} {counts[kernels[0]]} = "
-          f"{cfg.n_layers} x {chunk_steps}, {kernels[1]} {counts[kernels[1]]} = {cfg.n_layers} x "
-          f"{ticks} (K8 on the tensor cores {tc['K8']}); TTFT ms per request (prompts {list(PROMPT_LENS)}): "
+          f"{ticks} decode ticks in {wall:.2f} s; {launched}; TTFT ms per request (prompts {list(PROMPT_LENS)}): "
           + ", ".join(f"{t:.1f}" for t in ttft)
           + f"; {overlap} decode tokens while the {PROMPT_LENS[0]}-token prompt was prefilling; "
           f"pool clean; first tokens agreeing with blocking prefill {agree}/{len(handles)}; "
@@ -1214,6 +1261,271 @@ def cascade_kernel_phase(torch, sm_count: int, dev_name: str):
     return results
 
 
+# ------------------------------------------------------------- int8 kernels
+INT8_REPLACES = {
+    # the quantized=True branch of each TPU kernel
+    "lean_decode_fused_int8": ("lean_decode.cu", "src/repro/kernels/lean_decode.py:321"),
+    "lean_decode_partials_int8": ("lean_decode.cu", "src/repro/kernels/lean_decode.py:135"),
+    "lean_prefill_chunk_partials_int8": ("lean_prefill.cu",
+                                         "src/repro/kernels/lean_prefill.py:102"),
+    "lean_cascade_fused_int8": ("lean_cascade.cu", "src/repro/kernels/lean_decode.py:628"),
+}
+INT8_LIBRARY = "SDPA on the dequantized bf16 K/V"   # no one call reads int8 pages + scales
+
+
+def quantized(torch, k_pool, v_pool, zero_pages=()):
+    """An int8 engine's pools from float ones: int8 content and one float32
+    scale per (page, head), as admission writes them; ``zero_pages`` get
+    scale 0 (fresh pages), which must read as exact zeros."""
+    from repro_torch.core.attention import quantize_kv_blocks
+
+    (kq, ks), (vq, vs) = quantize_kv_blocks(k_pool), quantize_kv_blocks(v_pool)
+    for p in zero_pages:
+        ks[p] = 0.0
+        vs[p] = 0.0
+    return kq, ks, vq, vs
+
+
+def int8_kernel_phase(torch, sm_count: int, dev_name: str):
+    """K1-, K2-, K4- and K5-int8 (bf16 queries, int8 pool rows, a float32
+    scale per row) against their plain versions at the bf16 kernel phases'
+    shapes: the decode batch (one sequence on a zero-scale page, whose
+    output must be exactly 0), the two-chunk pack, the 2048-token shared
+    prefix. Times with L2 evicted, the plain versions' times, the byte
+    bound (int8 K/V + scales + queries + outputs or partials), and the
+    library yardstick: SDPA on the K/V dequantized to bf16 (no one call
+    reads int8 pages with scales)."""
+    from repro_torch.core.attention import paged_gather_kv_dequant
+    from repro_torch.core.leantile import make_chunk_schedule, make_schedule
+    from repro_torch.kernels import lean_decode as ld
+    from repro_torch.kernels import lean_prefill as lp
+    from repro_torch.kernels import ops
+
+    bf = torch.bfloat16
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    results = {}
+    Hq, Hkv, d, tile = 32, 8, 128, 128
+    g = Hq // Hkv
+    scale = 1.0 / math.sqrt(d)
+
+    def record(name, ms, plain_ms, lib_ms, nbytes, flops, err):
+        b_ms, b_by = bound(dev_name, "bfloat16", nbytes, flops)
+        results[(name, "bfloat16")] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                                       "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
+        print(f"  {name}: max|err| {err:.3e}; {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
+              f"{nbytes / 1e6:.1f} MB; plain {plain_ms:.3f} ms; {INT8_LIBRARY} "
+              f"{lib_ms:.4f} ms)", flush=True)
+
+    # K2-int8 and K1-int8 on the decode batch
+    lens, width = [4000, 1500, 700, 1], 32
+    B = len(lens)
+    sched = make_schedule(lens, Hkv, tile, sm_count)
+    q, k_pool, v_pool, tbl, _, _ = make_kv_problem(torch, lens, Hq, Hkv, d, tile, width, bf,
+                                                   gen, dev)
+    kq, ks, vq, vs = quantized(torch, k_pool, v_pool, zero_pages=[int(tbl[3, 0])])
+    seg_ctx = torch.tensor([L for L in lens for _ in range(Hkv)], dtype=torch.int32, device=dev)
+    k_rows, v_rows = ops._pool_rows(kq, vq)
+    sc = dict(k_scales=ks, v_scales=vs)
+    q_seg = q.reshape(B * Hkv, g, d).contiguous()
+    route = ops._paged_route(sched, tbl, Hkv)
+    args = (q_seg, k_rows, v_rows, seg_ctx, route, sched, scale)
+    print(f"int8 kernel phase: decode lens {lens}, Hq {Hq} Hkv {Hkv} d {d} page {tile}, "
+          f"workers {sm_count}; sequence 3 on a zero-scale page", flush=True)
+    o, lse = ld.lean_decode_fused(*args, **sc)
+    o_ref, lse_ref = ld.lean_decode_fused_plain(*args, **sc)
+    parts = ld.lean_decode_partials(*args, **sc)
+    parts_ref = ld.lean_decode_partials_plain(*args, **sc)
+    torch.cuda.synchronize()
+    err_k2 = max((o - o_ref).abs().max().item(), (lse - lse_ref).abs().max().item())
+    err_k1 = max((a - b).abs().max().item() for a, b in zip(parts, parts_ref))
+    check(torch.allclose(o, o_ref, atol=BF16_TOL, rtol=BF16_TOL)
+          and torch.allclose(lse, lse_ref, atol=BF16_TOL, rtol=BF16_TOL),
+          f"K2-int8 disagrees with its plain version: max |err| {err_k2}")
+    check(all(torch.allclose(a, b, atol=BF16_TOL, rtol=BF16_TOL)
+              for a, b in zip(parts, parts_ref)),
+          f"K1-int8 partials disagree with the plain version: max |err| {err_k1}")
+    check(not o[3 * Hkv:].any() and not o_ref[3 * Hkv:].any(),
+          "K2-int8: the zero-scale page did not read as exact zeros")
+    tokens = sum(lens) * Hkv
+    rows_read = sum(-(-L // tile) for L in lens) * Hkv
+    kv_bytes = 2 * tokens * d + 2 * 4 * rows_read               # int8 K/V + their scales
+    small = q_seg.numel() * 2 + 4 * (seg_ctx.numel() + route.numel()
+                                     + ld.schedule_tensors(sched, dev)["desc"].numel())
+    kd = paged_gather_kv_dequant(kq, ks, tbl, dtype=bf)
+    vd = paged_gather_kv_dequant(vq, vs, tbl, dtype=bf)
+    lib_ms = library_yardstick(torch, q, kd, vd, lens, g, 2)[LIBRARY_CALL][0]
+    del kd, vd
+    flops = 4 * g * d * tokens
+    record("lean_decode_fused_int8", gpu_ms(lambda: ld.lean_decode_fused(*args, **sc)),
+           gpu_ms(lambda: ld.lean_decode_fused_plain(*args, **sc), reps=5), lib_ms,
+           kv_bytes + small + 4 * (o.numel() + lse.numel()), flops, err_k2)
+    record("lean_decode_partials_int8", gpu_ms(lambda: ld.lean_decode_partials(*args, **sc)),
+           gpu_ms(lambda: ld.lean_decode_partials_plain(*args, **sc), reps=5), lib_ms,
+           kv_bytes + small + 4 * sum(t.numel() for t in parts), flops, err_k1)
+
+    # K4-int8 on the two-chunk pack
+    C, N = CHUNK, len(CHUNK_OFFS)
+    visible = [o_ + C for o_ in CHUNK_OFFS]
+    sched = make_chunk_schedule(visible, Hkv, tile, sm_count, max_len=max(visible) + tile)
+    q, k_pool, v_pool, tbl = chunk_pack(torch, CHUNK_OFFS, C, Hq, Hkv, d, tile, bf, gen, dev)
+    kq, ks, vq, vs = quantized(torch, k_pool, v_pool)
+    k_rows, v_rows = ops._pool_rows(kq, vq)
+    sc = dict(k_scales=ks, v_scales=vs)
+    seg_ctx = torch.tensor([v for v in visible for _ in range(Hkv)], dtype=torch.int32, device=dev)
+    seg_qs = torch.tensor([o_ for o_ in CHUNK_OFFS for _ in range(Hkv)], dtype=torch.int32,
+                          device=dev)
+    route = ops._paged_route(sched, tbl, Hkv)
+    args = (q.reshape(N * Hkv, g * C, d).contiguous(), k_rows, v_rows, seg_ctx, seg_qs, route,
+            sched, scale, C)
+    parts = lp.lean_prefill_chunk_partials(*args, **sc)
+    parts_ref = lp.lean_prefill_partials_plain(*args, **sc)
+    torch.cuda.synchronize()
+    err_k4 = max((a - b).abs().max().item() for a, b in zip(parts, parts_ref))
+    check(all(torch.allclose(a, b, atol=BF16_TOL, rtol=BF16_TOL)
+              for a, b in zip(parts, parts_ref)),
+          f"K4-int8 partials disagree with the plain version: max |err| {err_k4}")
+    kd = paged_gather_kv_dequant(kq, ks, tbl, dtype=bf)
+    vd = paged_gather_kv_dequant(vq, vs, tbl, dtype=bf)
+    K = kd.shape[2]
+    q_off = torch.tensor(CHUNK_OFFS, dtype=torch.int32, device=dev)
+    qpos = q_off[:, None].long() + torch.arange(g * C, device=dev)[None, :] % C
+    mask = (torch.arange(K, device=dev)[None, None, :] <= qpos[..., None])[:, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qf = q.reshape(N, Hkv, g * C, d)
+    lib_ms = gpu_ms(lambda: sdpa(qf, kd, vd, attn_mask=mask), reps=10)
+    del kd, vd
+    keys_seen = sum(Hq * (C * o_ + C * (C + 1) // 2) for o_ in CHUNK_OFFS)
+    kv_bytes = 2 * sum(visible) * Hkv * d + 2 * 4 * sum(-(-v // tile) for v in visible) * Hkv
+    small = 4 * (seg_ctx.numel() * 2 + route.numel()
+                 + ld.schedule_tensors(sched, dev)["desc"].numel())
+    record("lean_prefill_chunk_partials_int8",
+           gpu_ms(lambda: lp.lean_prefill_chunk_partials(*args, **sc), reps=10),
+           gpu_ms(lambda: lp.lean_prefill_partials_plain(*args, **sc), reps=3), lib_ms,
+           q.numel() * 2 + kv_bytes + small + 4 * sum(t.numel() for t in parts),
+           4 * d * keys_seen, err_k4)
+
+    # K5-int8 on the 2048-token shared prefix
+    passes, suffixes = CASCADE_CASES[next(iter(CASCADE_CASES))]
+    q, k_pool, v_pool, tbl, dup, lens = cascade_problem(torch, passes, suffixes, Hq, Hkv, d,
+                                                        tile, bf, gen, dev)
+    kq, ks, vq, vs = quantized(torch, k_pool, v_pool)
+    args, binding = cascade_operands(torch, q, kq, vq, tbl, lens, passes, sm_count)
+    sc = dict(k_scales=ks, v_scales=vs)
+    o, lse = ld.lean_cascade_fused(*args, **sc)
+    o_ref, lse_ref = ld.lean_cascade_fused_plain(*args, **sc)
+    torch.cuda.synchronize()
+    err_k5 = max((o - o_ref).abs().max().item(), (lse - lse_ref).abs().max().item())
+    check(torch.allclose(o, o_ref, atol=BF16_TOL, rtol=BF16_TOL)
+          and torch.allclose(lse, lse_ref, atol=BF16_TOL, rtol=BF16_TOL),
+          f"K5-int8 disagrees with its plain version: max |err| {err_k5}")
+    dup_t = torch.as_tensor(dup).to(dev)
+    kd = paged_gather_kv_dequant(kq, ks, dup_t, dtype=bf)
+    vd = paged_gather_kv_dequant(vq, vs, dup_t, dtype=bf)
+    lib_ms = library_yardstick(torch, q, kd, vd, lens, g, 2)[LIBRARY_CALL][0]
+    del kd, vd
+    pref_tok = int(binding.prefix_lens[binding.members[:, 0] >= 0].sum())
+    suf_tok = sum(lens) - int(binding.seq_prefix_len.sum())
+    kv_tok = (pref_tok + suf_tok) * Hkv
+    kv_bytes = 2 * kv_tok * d + 2 * 4 * -(-kv_tok // tile)
+    members = (binding.members >= 0).sum(axis=1)
+    flops = 4 * d * (int((binding.prefix_lens * members).sum()) + suf_tok) * g * Hkv
+    record("lean_cascade_fused_int8", gpu_ms(lambda: ld.lean_cascade_fused(*args, **sc)),
+           gpu_ms(lambda: ld.lean_cascade_fused_plain(*args, **sc), reps=3), lib_ms,
+           kv_bytes + q.numel() * 2 + 4 * (o.numel() + lse.numel()), flops, err_k5)
+    return results
+
+
+# --------------------------------------------------- page sizes the engine picks
+PAGE_CASES = (
+    # page, d, dtypes: pages that are not a multiple of 8 (the engine picks
+    # 100 for a 100-token cache), and a page of 256 keys at d 128 (the
+    # row-block kernel walks it in sub-tiles)
+    (12, 128, ("bfloat16",)),
+    (100, 128, ("bfloat16",)),
+    (256, 128, ("float32", "bfloat16")),
+)
+
+
+def page_size_phase(torch, sm_count: int):
+    """K8 (``fixed`` chunks), K4 (``lean`` chunks) and K6 (``fixed``
+    decode) on ``PAGE_CASES`` against their plain versions, at Mistral-NeMo-
+    12B attention shapes: a pack of two 100-token chunks at offsets 300 and
+    5, and decode lengths 700, 1, 257. K8 runs on the CUDA cores where the
+    page is not a multiple of 8 (the path rule)."""
+    from repro_torch.core.leantile import fixed_split_factor, make_chunk_schedule
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import lean_prefill as lp
+    from repro_torch.kernels import ops
+
+    Hq, Hkv, offs, C = 32, 8, (300, 5), 100
+    g, N = Hq // Hkv, len(offs)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    lines = []
+    for page, d, dtypes in PAGE_CASES:
+        scale = 1.0 / math.sqrt(d)
+        for dname in dtypes:
+            dtype = getattr(torch, dname)
+            tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+            q, kp, vp, tbl = chunk_pack(torch, offs, C, Hq, Hkv, d, page, dtype, gen, dev)
+            q_off = torch.tensor(offs, dtype=torch.int32, device=dev)
+            fp.reset_launch_counts()
+            o8 = fp.flash_prefill_paged(q, kp, vp, tbl, q_off)
+            o8_ref = fp.flash_prefill_paged_plain(q, kp, vp, tbl, q_off, scale)
+            torch.cuda.synchronize()
+            tc = fp.tensor_core_path(dtype, d, page)
+            check((fp.launches, fp.tc_launches) == (1, int(tc)),
+                  f"page {page} {dname}: K8 launched {fp.launches} times, {fp.tc_launches} "
+                  f"on the tensor cores")
+            # bf16: both round a float32 result, one bf16 step of the output apart
+            step = (torch.finfo(torch.bfloat16).eps * o8_ref.float().abs()
+                    if dtype == torch.bfloat16 else 0.0)
+            err8 = (o8.float() - o8_ref.float()).abs().max().item()
+            check(bool(((o8.float() - o8_ref.float()).abs() <= step + tol).all()),
+                  f"page {page} {dname}: K8 disagrees with its plain version by {err8}")
+            visible = [o_ + C for o_ in offs]
+            sched = make_chunk_schedule(visible, Hkv, page, sm_count,
+                                        max_len=tbl.shape[1] * page)
+            k_rows, v_rows = ops._pool_rows(kp, vp)
+            args = (q.reshape(N * Hkv, g * C, d).contiguous(), k_rows, v_rows,
+                    torch.tensor([v for v in visible for _ in range(Hkv)], dtype=torch.int32,
+                                 device=dev),
+                    torch.tensor([o_ for o_ in offs for _ in range(Hkv)], dtype=torch.int32,
+                                 device=dev),
+                    ops._paged_route(sched, tbl, Hkv), sched, scale, C)
+            parts = lp.lean_prefill_chunk_partials(*args)
+            parts_ref = lp.lean_prefill_partials_plain(*args)
+            torch.cuda.synchronize()
+            err4 = max((a - b).abs().max().item() for a, b in zip(parts, parts_ref))
+            check(all(torch.allclose(a, b, atol=tol, rtol=tol) for a, b in zip(parts, parts_ref)),
+                  f"page {page} {dname}: K4 disagrees with its plain version by {err4}")
+            lens = [700, 1, 257]
+            s_pad = -(-max(lens) // page) * page
+            S = len(lens) * Hkv
+            kd = torch.randn(S, s_pad, d, generator=gen, device=dev).to(dtype)
+            vd = torch.randn(S, s_pad, d, generator=gen, device=dev).to(dtype)
+            qd = torch.randn(S, g, d, generator=gen, device=dev).to(dtype)
+            seg = torch.tensor([L for L in lens for _ in range(Hkv)], dtype=torch.int32,
+                               device=dev)
+            fargs = (qd, kd, vd, seg, fixed_split_factor(max(lens), S, page, sm_count), page,
+                     scale)
+            out6 = fd.flash_decode_partials(*fargs)
+            ref6 = fd.flash_decode_partials_plain(*fargs)
+            torch.cuda.synchronize()
+            err6 = max((a - b).abs().max().item() for a, b in zip(out6, ref6))
+            check(all(torch.allclose(a, b, atol=tol, rtol=tol) for a, b in zip(out6, ref6)),
+                  f"page {page} {dname}: K6 disagrees with its plain version by {err6}")
+            lines.append(f"page {page} d {d} {dname}: K8 ({'tensor' if tc else 'CUDA'} cores) "
+                         f"{err8:.2e}, K4 (sub-tiles of {lp.row_sub_tile(d, page)}) {err4:.2e}, "
+                         f"K6 {err6:.2e}")
+    print("page-size phase (max |err| against the plain versions): " + "; ".join(lines),
+          flush=True)
+
+
 # ------------------------------------------------------ prefix-sharing serving
 SYSTEM_TOKENS, WAVE1_TAIL, WAVE2_TAILS = 2048, 64, (700, 300, 129, 17)
 
@@ -1230,7 +1542,7 @@ def prefix_waves(vocab, seed=5):
             [np.concatenate([system, tail(n)]) for n in WAVE2_TAILS]]
 
 
-def prefix_serving_run(torch, cfg, params, sm_count, new_tokens, waves, prefix):
+def prefix_serving_run(torch, cfg, params, sm_count, new_tokens, waves, prefix, kv_dtype=None):
     """The waves, one after the other, through ``Scheduler`` on ``lean``,
     with the radix prefix cache and cascade decode (``prefix``) or without.
     Records each request's first-token logits (from the chunk step that
@@ -1271,7 +1583,7 @@ def prefix_serving_run(torch, cfg, params, sm_count, new_tokens, waves, prefix):
 
     eng = Recorder(cfg, params, EngineConfig(
         max_batch=4, cache_len=4096, attn_backend="lean", num_workers=sm_count,
-        paged=PagedConfig(enabled=True, page_size=128, prefix_cache=prefix),
+        paged=PagedConfig(enabled=True, page_size=128, prefix_cache=prefix, kv_dtype=kv_dtype),
         cascade=CascadeConfig(enabled=prefix, stable_ticks=2)), device="cuda")
     sch = Scheduler(eng, SchedulerConfig(chunk_size=SCHED_CHUNK, prefill_pack=SCHED_PACK,
                                          token_budget=SCHED_BUDGET, chunked=True))
@@ -1288,7 +1600,7 @@ def prefix_serving_run(torch, cfg, params, sm_count, new_tokens, waves, prefix):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
-    eng.pool.check()
+    eng.pool.check(scales=eng._kv_scale_arrays())
     if eng.prefix_cache is not None:
         eng.prefix_cache.check()
         check(eng.pool.num_allocated == eng.prefix_cache.cached_pages,
@@ -1298,16 +1610,20 @@ def prefix_serving_run(torch, cfg, params, sm_count, new_tokens, waves, prefix):
     return {"eng": eng, "sch": sch, "handles": handles, "counts": counts, "wall": wall}
 
 
-def prefix_serving_phase(torch, cfg, params, sm_count, new_tokens):
+def prefix_serving_phase(torch, cfg, params, sm_count, new_tokens, kv_dtype=None):
     """Prefix-sharing serving at full width, against the same waves with the
     prefix cache off: tokens matched, prefill skipped, peak pages, cascade
     ticks, launches (K4 per chunk step, K5 per cascade tick, K2 per other
     tick, 40 layers each), TTFT, tick p50; first-token logits and decode
     logits up to the first differing token (cascade ticks among them)
-    within the engine phase's logit tolerance."""
+    within the engine phase's logit tolerance (``INT8_LOGIT_ATOL_FRAC`` on
+    int8 pools). Returns the launch counts."""
     waves = prefix_waves(cfg.vocab_size)
-    off = prefix_serving_run(torch, cfg, params, sm_count, new_tokens, waves, prefix=False)
-    on = prefix_serving_run(torch, cfg, params, sm_count, new_tokens, waves, prefix=True)
+    atol_frac = INT8_LOGIT_ATOL_FRAC if kv_dtype == "int8" else LOGIT_ATOL_FRAC
+    off = prefix_serving_run(torch, cfg, params, sm_count, new_tokens, waves, prefix=False,
+                             kv_dtype=kv_dtype)
+    on = prefix_serving_run(torch, cfg, params, sm_count, new_tokens, waves, prefix=True,
+                            kv_dtype=kv_dtype)
     eng, st, c = on["eng"], on["eng"].stats, on["counts"]
     L = cfg.n_layers
     chunk_steps = len(st.tick_prefill_tokens)
@@ -1336,7 +1652,7 @@ def prefix_serving_phase(torch, cfg, params, sm_count, new_tokens):
                 break               # later rows follow different tokens
         for a, b in pairs:
             check(bool(torch.isfinite(a).all()), "prefix serving: logits not finite")
-            atol = LOGIT_ATOL_FRAC * b.abs().median().item()
+            atol = atol_frac * b.abs().median().item()
             delta = (a - b).abs().max().item()
             check(torch.allclose(a, b, rtol=LOGIT_RTOL, atol=atol),
                   f"prefix serving: request {h.uid}'s logits differ from the unshared run by "
@@ -1351,7 +1667,8 @@ def prefix_serving_phase(torch, cfg, params, sm_count, new_tokens):
     p50 = {k: statistics.median(dt for dt, _ in r["eng"].tick_s[1:]) * 1e3
            for k, r in (("on", on), ("off", off))}
     casc_p50 = statistics.median([dt for dt, cs in eng.tick_s if cs] or [0.0]) * 1e3
-    print(f"prefix serving phase: {cfg.name} full width, {SYSTEM_TOKENS}-token system prompt "
+    print(f"prefix serving phase{' (int8 pools)' if kv_dtype else ''}: {cfg.name} full width, "
+          f"{SYSTEM_TOKENS}-token system prompt "
           f"+ {WAVE1_TAIL} served first, then 4 requests with tails {list(WAVE2_TAILS)}, "
           f"{new_tokens} new tokens each; chunk {SCHED_CHUNK}, pack {SCHED_PACK}, budget "
           f"{SCHED_BUDGET}, lean, prefix cache + cascade (stable_ticks 2)", flush=True)
@@ -1375,6 +1692,93 @@ def prefix_serving_phase(torch, cfg, params, sm_count, new_tokens):
           f"{LOGIT_RTOL} |ref|); streams equal for {agree}/{len(on['handles'])} requests; pool "
           f"and radix cache clean", flush=True)
     return on["counts"]
+
+
+# ------------------------------------------------------------ int8 engine
+def int8_engine_phase(torch, cfg, params, sm_count, new_tokens, bf16):
+    """The engine phase's requests on int8 page pools (``kv_dtype="int8"``):
+    K7 admissions, whole pages quantized, K2-int8 decode. Checks the
+    launches (K7 = layers x admissions, K2 = layers x steps, K1 none), the
+    pool with its scales and drained; reports tick p50, tokens/s, traced
+    ticks, page bytes against bf16's, and the logit gap and greedy agreement
+    with the bf16 engine (``bf16``: its streams and logits rows), which are
+    not bounded. Then one ``fused=False`` engine (K1-int8 + merge) for a few
+    ticks, and the first tick of an int8 ``ref`` engine against the int8
+    lean one within ``LOGIT_RTOL`` / ``LOGIT_ATOL_FRAC``. Returns the launch
+    counts, K1-int8's launches and the blocking first tokens."""
+    from repro_torch.serving.engine import DecodeEngine, Request
+    from repro_torch.serving.kvpool import KVLayout
+
+    L = cfg.n_layers
+    eng = DecodeEngine(cfg, params, engine_config("lean", sm_count, kv_dtype="int8"),
+                       device="cuda")
+    lay = eng.pool.layout
+    bf_bytes = KVLayout(kv_dtype="bf16", n_kv_heads=lay.n_kv_heads, head_dim=lay.head_dim,
+                        page_size=lay.page_size, n_attn_layers=lay.n_attn_layers).page_bytes
+    check(eng.quant and lay.quantized, "int8 engine: pools are not quantized")
+    reqs = make_requests(Request, cfg.vocab_size, new_tokens)
+    reset_launch_counts()
+    first_s, ticks, rows = drive(torch, eng, reqs)
+    counts = launch_counts()
+    check(counts["K7"] == L * eng.stats.prefills == L * len(reqs),
+          f"int8 engine: K7 launched {counts['K7']} times, expected {L} x {len(reqs)} admissions")
+    check(counts["K2"] == L * eng.stats.ticks and eng.stats.ticks > 0,
+          f"int8 engine: K2 launched {counts['K2']} times, expected {L} x {eng.stats.ticks}")
+    others = {k: n for k, n in counts.items() if k not in ("K2", "K7") and n}
+    check(not others, f"int8 engine: other kernels ran (K1 among them?): {others}")
+    check(all(len(r.generated) == new_tokens for r in reqs), "int8 engine: a request did not finish")
+    check(bool(torch.isfinite(rows[0]).all()), "int8 engine: logits not finite")
+    eng.pool.check(scales=eng._kv_scale_arrays())
+    check(eng.pool.num_allocated == 0, f"int8 engine: {eng.pool.num_allocated} pages leaked")
+    p50 = statistics.median(dt for dt, _ in ticks)
+    tok_s = sum(n for _, n in ticks) / sum(dt for dt, _ in ticks)
+    streams = [list(r.generated) for r in reqs]
+    gap = (rows[0] - bf16["rows"][0]).abs().max().item()
+    agree = sum(a == b for s1, s2 in zip(streams, bf16["streams"]) for a, b in zip(s1, s2))
+    print(f"int8 engine phase: {cfg.name} full width, int8 pages ({lay.page_bytes} B a page "
+          f"across the layers against bf16's {bf_bytes} B: {bf_bytes / lay.page_bytes:.4f}x the "
+          f"pages per GB), {len(reqs)} requests (prompts {list(PROMPT_LENS)}, {new_tokens} new "
+          f"tokens): admission + first decode tick {first_s * 1e3:.1f} ms; decode tick p50 "
+          f"{p50 * 1e3:.2f} ms over {len(ticks)} ticks, {tok_s:.1f} tokens/s; launches K2 "
+          f"{counts['K2']} = {L} x {eng.stats.ticks}, K7 {counts['K7']} = {L} x {len(reqs)}, K1 0; "
+          f"pool clean with its scales; against the bf16 engine (not bounded): first decode "
+          f"tick's max |logit gap| {gap:.4f}, greedy tokens agreeing {agree}/{len(reqs) * new_tokens}",
+          flush=True)
+    traced_ticks(torch, eng, make_requests(Request, cfg.vocab_size, TRACED_TICKS + 6), p50,
+                 label="int8 traced ticks")
+    lean_first = rows[0]
+    blocking = {"prompts": [r.prompt.copy() for r in reqs], "first": [s[0] for s in streams],
+                "rows": bf16["prefill_rows"]}
+    del eng
+
+    eng = DecodeEngine(cfg, params, engine_config("lean", sm_count, fused=False, kv_dtype="int8"),
+                       device="cuda")
+    reset_launch_counts()
+    drive(torch, eng, make_requests(Request, cfg.vocab_size, 4))
+    two = launch_counts()
+    check(two["K1"] == L * eng.stats.ticks and two["K1"] > 0 and two["K2"] == 0,
+          f"int8 two-phase: launches {two}, expected K1 {L} x {eng.stats.ticks} and no K2")
+    check(bool(torch.isfinite(eng.last_logits).all()), "int8 two-phase logits are not finite")
+    eng.pool.check(scales=eng._kv_scale_arrays())
+    k1_launches = two["K1"]
+    del eng
+
+    eng = DecodeEngine(cfg, params, engine_config("ref", sm_count, kv_dtype="int8"),
+                       device="cuda")
+    for r in make_requests(Request, cfg.vocab_size, new_tokens):
+        eng.submit(r)
+    eng.tick()
+    ref = eng.last_logits
+    atol = LOGIT_ATOL_FRAC * ref.abs().median().item()
+    diff = (ref - lean_first).abs().max().item()
+    check(torch.allclose(lean_first, ref, rtol=LOGIT_RTOL, atol=atol),
+          f"int8 lean and ref logits differ by up to {diff} (allowed {atol} + {LOGIT_RTOL} |ref|)")
+    print(f"int8 two-phase: {two['K1']} K1-int8 launches = {L} x {two['K1'] // L} ticks, logits "
+          f"finite, pool clean; int8 ref cross-check: first tick max |logit lean - ref| "
+          f"{diff:.4f} (allowed {atol:.4f} + {LOGIT_RTOL} |ref|)", flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    return counts, k1_launches, blocking
 
 
 # ------------------------------------------------------- dense-cache engine
@@ -1502,6 +1906,82 @@ def dense_engine_phase(torch, cfg, params, sm_count, new_tokens, paged):
     return lean_counts
 
 
+# ------------------------------------------------ row-block kernels, bit for bit
+ROW_BITS_CASES = ((128, 128), (200, 128), (16, 64), (12, 96))   # (page, d): one tile each
+
+
+def row_kernel_outputs(torch, src: str, out: str):
+    """The row-block kernels of the ``repro_torch`` under ``src`` -- K4, and
+    K8 and K7 where they run on the CUDA cores -- on seeded inputs at pages
+    that fit one tile (float32 and bf16; K7 with and without a window),
+    saved to ``out``."""
+    from repro_torch.core.leantile import make_chunk_schedule
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import lean_prefill as lp
+    from repro_torch.kernels import ops
+
+    check(os.path.abspath(lp.__file__).startswith(os.path.abspath(src) + os.sep),
+          f"kernels imported from {lp.__file__}, not from {src}")
+    dev, res = torch.device("cuda"), {}
+    Hq, Hkv, offs, C = 32, 8, (300, 5), 100
+    for dtype in (torch.float32, torch.bfloat16):
+        for page, d in ROW_BITS_CASES:
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(page * 1000 + d)
+            n_pages = [-(-(o + C) // page) for o in offs]
+            W = max(n_pages)
+            tbl = torch.zeros(len(offs), W, dtype=torch.int32)
+            first = 1
+            for n, npg in enumerate(n_pages):
+                tbl[n, :npg] = torch.arange(first, first + npg)
+                first += npg
+            tbl = tbl.to(dev)
+            kp = torch.randn(first, Hkv, page, d, generator=gen, device=dev).to(dtype)
+            vp = torch.randn(first, Hkv, page, d, generator=gen, device=dev).to(dtype)
+            q = torch.randn(len(offs), Hq, C, d, generator=gen, device=dev).to(dtype)
+            visible = [o + C for o in offs]
+            sched = make_chunk_schedule(visible, Hkv, page, 132, max_len=W * page)
+            k_rows, v_rows = ops._pool_rows(kp, vp)
+            i32 = lambda xs: torch.tensor([x for x in xs for _ in range(Hkv)], dtype=torch.int32,
+                                          device=dev)
+            key = f"{dtype} page {page} d {d}"
+            res["K4 " + key] = [t.cpu() for t in lp.lean_prefill_chunk_partials(
+                q.reshape(len(offs) * Hkv, (Hq // Hkv) * C, d).contiguous(), k_rows, v_rows,
+                i32(visible), i32(offs), ops._paged_route(sched, tbl, Hkv), sched,
+                1 / math.sqrt(d), C)]
+            if not fp.tensor_core_path(dtype, d) or page % 8:
+                res["K8 " + key] = fp.flash_prefill_paged(
+                    q, kp, vp, tbl, torch.tensor(offs, dtype=torch.int32, device=dev)).cpu()
+            if not fp.tensor_core_path(dtype, d):
+                qd = torch.randn(1, Hq, 700, d, generator=gen, device=dev).to(dtype)
+                kd = torch.randn(1, Hkv, 700, d, generator=gen, device=dev).to(dtype)
+                for window in (None, 97):
+                    res[f"K7 window {window} " + key] = fp.flash_prefill(
+                        qd, kd, kd, window=window, block_kv=min(page, 128)).cpu()
+    torch.cuda.synchronize()
+    torch.save(res, out)
+
+
+def row_kernel_bits(torch, other_src: str) -> dict:
+    """The row-block kernels of this checkout and of ``other_src`` (one
+    process each) on the same seeded inputs: how many outputs are equal bit
+    for bit."""
+    outs = []
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    for i, src in enumerate((os.path.join(ROOT, "src"), other_src)):
+        out = os.path.join(ROOT, "build", f"row_kernel_outputs_{i}.pt")
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--row-kernel-outputs", src,
+                        out], check=True, stdout=subprocess.DEVNULL)
+        outs.append(torch.load(out))
+    a, b = outs
+    check(sorted(a) == sorted(b), "the two checkouts ran different cases")
+    same = lambda x, y: (all(map(torch.equal, x, y)) if isinstance(x, list)
+                         else torch.equal(x, y))
+    differing = [k for k in sorted(a) if not same(a[k], b[k])]
+    return {"compared": len(a), "bit_identical": len(a) - len(differing),
+            "differing": differing}
+
+
 def main() -> int:
     import torch
 
@@ -1518,6 +1998,14 @@ def main() -> int:
             print(json.dumps(decode_kernel_times(torch, sm_count, src)))
         else:
             print(json.dumps(prefill_kernel_times(torch, src)))
+        return 0
+    if sys.argv[1:2] == ["--row-kernel-outputs"]:
+        src = os.path.abspath(sys.argv[2])
+        sys.path.insert(0, src)
+        row_kernel_outputs(torch, src, sys.argv[3])
+        return 0
+    if sys.argv[1:2] == ["--row-kernel-bits"]:
+        print(json.dumps(row_kernel_bits(torch, os.path.abspath(sys.argv[2]))))
         return 0
     try:
         from repro_torch.configs import get_config
@@ -1558,6 +2046,8 @@ def main() -> int:
     k7res = prefill_k7_phase(torch, dev_name)
     k5res = cascade_kernel_phase(torch, sm_count, dev_name)
     merge_counts = merge_plan_drive(torch, sm_count)
+    i8res = int8_kernel_phase(torch, sm_count, dev_name)
+    page_size_phase(torch, sm_count)
 
     # 4. engine, full width, K2
     cfg = get_config("mistral-nemo-12b")
@@ -1667,7 +2157,25 @@ def main() -> int:
     # 9. the dense-cache engine: K7 admissions, K2 / K6 decode, the legacy step
     dense_counts = dense_engine_phase(torch, cfg, params, sm_count, new_tokens, paged)
 
-    # 10. summary: kernel times in bf16 at the main path's shapes; launches
+    # 10. int8 pages: the blocking engine (K2-int8, K1-int8, ref), the
+    # Scheduler on lean (K4-int8) and fixed (K8 + K6 on dequantized K/V) in
+    # turns, prefix serving with cascade (K5-int8)
+    i8_counts, i8_k1, i8_blocking = int8_engine_phase(
+        torch, cfg, params, sm_count, new_tokens,
+        {"streams": paged["streams"], "rows": paged["rows"], "prefill_rows": blocking["rows"]})
+    scheduler_phase(torch, cfg, params, "ref", sm_count, new_tokens, i8_blocking,
+                    kv_dtype="int8")
+    i8_runs, walls = {}, []
+    for b in ("lean", "fixed", "fixed", "lean"):
+        run = scheduler_phase(torch, cfg, params, b, sm_count, new_tokens, i8_blocking,
+                              kv_dtype="int8")
+        i8_runs.setdefault(b, run)
+        walls.append(run["wall"])
+    print("int8 scheduler phases, wall s in turns (lean, fixed, fixed, lean): "
+          + ", ".join(f"{w:.2f}" for w in walls), flush=True)
+    i8_prefix = prefix_serving_phase(torch, cfg, params, sm_count, new_tokens, kv_dtype="int8")
+
+    # 11. summary: kernel times in bf16 at the main path's shapes; launches
     # from the run of the path each kernel serves
     k6 = k6res[(DECODE_SHAPES[0], "bfloat16")]
     kres[("flash_decode_partials", "bfloat16")] = k6
@@ -1678,7 +2186,11 @@ def main() -> int:
                 "flash_decode_partials": sched_runs["fixed"]["counts"]["K6"],
                 "flash_prefill_paged": sched_runs["fixed"]["counts"]["K8"],
                 "lean_merge": merge_counts["K3"], "lean_cascade_fused": prefix_counts["K5"],
-                "flash_prefill": dense_counts["K7"]}
+                "flash_prefill": dense_counts["K7"],
+                "lean_decode_fused_int8": i8_counts["K2"], "lean_decode_partials_int8": i8_k1,
+                "lean_prefill_chunk_partials_int8": i8_runs["lean"]["counts"]["K4"],
+                "lean_cascade_fused_int8": i8_prefix["K5"]}
+    kres.update(i8res)
     where = {
         "lean_decode_fused": ("lean_decode.cu", "src/repro/kernels/lean_decode.py:302"),
         "lean_decode_partials": ("lean_decode.cu", "src/repro/kernels/lean_decode.py:117"),
@@ -1689,6 +2201,7 @@ def main() -> int:
         "lean_merge": ("lean_merge.cu", "src/repro/kernels/lean_decode.py:813"),
         "lean_cascade_fused": ("lean_cascade.cu", "src/repro/kernels/lean_decode.py:604"),
         "flash_prefill": ("flash_prefill.cu", "src/repro/kernels/flash_prefill.py:24"),
+        **INT8_REPLACES,
     }
     kernels = []
     for name, (source, replaces) in where.items():
@@ -1701,9 +2214,10 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             # no one PyTorch call computes K1's per-piece partials or K3's
             # merge of them; SDPA computes the attention K2, K4 (+ merge),
-            # K5, K6 (+ merge_n), K7 and K8 do
+            # K5, K6 (+ merge_n), K7 and K8 do (for the int8 forms: on the
+            # K/V dequantized to bf16)
             "library_ms": r["library_ms"] if r["library_ms"] is not None
-            and name != "lean_decode_partials" else None,
+            and not name.startswith("lean_decode_partials") else None,
         })
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,8 +1,10 @@
 """Reference decode/prefill attention (plain PyTorch).
 
 Port of the subset of ``repro.core.attention`` that the paged serving path
-runs: the decode oracle, the page-table gather, and the two prefill
-attentions the model's ``prefill`` uses. They are plain tensor code, as in
+runs: the decode oracle, the page-table gather, the two prefill attentions
+the model's ``prefill`` uses, and the int8 page helpers (quantize, the
+dequantizing gather, and the quantizing scatter that is an int8 pool's
+single write point). They are plain tensor code, as in
 the reference; no fused library attention stands in for them.
 
 Numerics follow the reference. ``einsum(..., preferred_element_type=f32)``
@@ -84,6 +86,117 @@ def paged_scatter_tokens(
     offsets = torch.where(valid, pos % ps, torch.zeros_like(pos))
     pool[pages.reshape(-1), :, offsets.reshape(-1)] = vals.reshape(N * C, H, d).to(pool.dtype)
     return pool
+
+
+# ------------------------------------------------------------ quantized KV
+# Symmetric int8 page storage, as in the reference: pool values are
+# round(x / scale) with one float32 scale per (page, kv head), or per page
+# stored broadcast across the head axis. Scales only grow while a page is
+# live; a scale of 0 (a fresh page) dequantizes to exact zeros.
+
+INT8_QMAX = 127.0
+
+
+def _inv_scale(s: torch.Tensor) -> torch.Tensor:
+    """``where(s > 0, 1 / max(s, 1e-30), 0)``, the reference's op order."""
+    return torch.where(s > 0, 1.0 / torch.clamp(s, min=1e-30), 0.0)
+
+
+def _to_int8(x: torch.Tensor) -> torch.Tensor:
+    """``clip(round(x), -127, 127)`` as int8; ``torch.round`` rounds half to
+    even, as ``jnp.round`` does."""
+    return torch.clamp(torch.round(x), -INT8_QMAX, INT8_QMAX).to(torch.int8)
+
+
+def quantize_kv_blocks(vals: torch.Tensor, per_head: bool = True):
+    """Quantize whole KV blocks ``(..., H, P, d)`` to int8 and float32
+    scales ``(..., H)``: per (block, head) at ``per_head=True``, else one
+    scale per block broadcast across the head axis. Returns ``(q,
+    scales)``."""
+    vf = vals.float()
+    amax = vf.abs().amax(dim=(-2, -1))                       # (..., H)
+    if not per_head:
+        amax = amax.amax(dim=-1, keepdim=True).expand_as(amax).contiguous()
+    scales = amax / INT8_QMAX
+    return _to_int8(vf * _inv_scale(scales)[..., None, None]), scales
+
+
+def paged_gather_kv_dequant(pool: torch.Tensor, scales: torch.Tensor, page_tbl: torch.Tensor,
+                            dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """:func:`paged_gather_kv` of an int8 pool ``(num_pages, H, page_size,
+    d)`` with its scales ``(num_pages, H)``: gather, widen to float32, apply
+    each page's per-head scale, cast to ``dtype``. Returns ``(B, H, T *
+    page_size, d)``."""
+    tbl = page_tbl.long()
+    g = pool[tbl].float() * scales[tbl][..., None, None]     # (B, T, H, ps, d)
+    B, T, H, ps, d = g.shape
+    return g.movedim(2, 1).reshape(B, H, T * ps, d).to(dtype)
+
+
+def paged_scatter_tokens_quant(
+    pool: torch.Tensor,         # (num_pages, H, page_size, d) int8
+    scales: torch.Tensor,       # (num_pages, H) float32
+    page_tbls: torch.Tensor,    # (N, W) int32 page table rows
+    offs: torch.Tensor,         # (N,) first logical position of each chunk
+    lens: torch.Tensor,         # (N,) valid tokens per chunk
+    vals: torch.Tensor,         # (N, C, H, d) new K or V rows
+    per_head: bool = True,
+):
+    """The quantizing :func:`paged_scatter_tokens`, the single write point
+    of an int8 pool, **in place** (the reference returns new arrays):
+
+    1. scatter-max each token's candidate scale (``amax / 127`` per (token,
+       head)) into its page's scale row -- max is exact, so the result does
+       not depend on the order of the writes;
+    2. requantize what the touched pages already hold by ``round(q * old /
+       new)``;
+    3. quantize the new tokens at the grown scales and scatter them.
+
+    Invalid positions route to the null page 0 with a candidate of 0, as in
+    the fp path. Step 2 visits each row's pages once -- the
+    ``(page_size + C - 2) // page_size + 1`` tiles from its first position
+    on -- where the reference visits one page per token; a page visited but
+    not written keeps ``old == new`` and requantizes to itself, so the pool
+    is the same. Returns ``(pool, scales)``."""
+    N, C, H, d = vals.shape
+    ps = pool.shape[2]
+    W = page_tbls.shape[1]
+    dev = pool.device
+    i = torch.arange(C, device=dev)
+    offs, lens = offs.to(dev).long(), lens.to(dev).long()
+    tbls = page_tbls.to(dev).long()
+    pos = offs[:, None] + i[None, :]                                   # (N, C)
+    valid = i[None, :] < lens[:, None]
+    pages = torch.where(valid, torch.gather(tbls, 1, torch.clamp(pos // ps, 0, W - 1)), 0)
+    offsets = torch.where(valid, pos % ps, 0)
+
+    vf = vals.float()
+    cand = vf.abs().amax(dim=-1) / INT8_QMAX                          # (N, C, H)
+    if not per_head:
+        cand = cand.amax(dim=-1, keepdim=True).expand_as(cand)
+    cand = torch.where(valid[..., None], cand, 0.0)
+
+    # the pages each row's tokens land in: tiles t0 .. t0 + J - 1
+    J = (ps + C - 2) // ps + 1
+    t0 = offs // ps
+    tiles = t0[:, None] + torch.arange(J, device=dev)[None, :]        # (N, J)
+    last = (offs + lens - 1) // ps
+    touched = (tiles <= last[:, None]) & (lens[:, None] > 0)
+    rq_pages = torch.where(touched, torch.gather(tbls, 1, torch.clamp(tiles, 0, W - 1)), 0)
+    rq_pages = rq_pages.reshape(-1)
+
+    old_s = scales[rq_pages]                                           # (N*J, H)
+    scales.scatter_reduce_(0, pages.reshape(-1, 1).expand(-1, H), cand.reshape(N * C, H),
+                           reduce="amax")
+    new_s = scales[rq_pages]
+    factor = torch.where(new_s > 0, old_s / torch.clamp(new_s, min=1e-30), 0.0)
+    # a page listed twice gets the same requantized rows from each entry
+    pool[rq_pages] = _to_int8(pool[rq_pages].float() * factor[..., None, None])
+
+    inv = _inv_scale(scales[pages])                                    # (N, C, H)
+    q = _to_int8(vf * inv[..., None])
+    pool[pages.reshape(-1), :, offsets.reshape(-1)] = q.reshape(N * C, H, d)
+    return pool, scales
 
 
 def _softmax_pv(s: torch.Tensor, v: torch.Tensor, eq: str) -> torch.Tensor:

@@ -102,12 +102,20 @@ def ptxas_report(source: str) -> str:
 
 
 # ------------------------------------------------------------ binding helpers
-# dtype codes of the C entry points: q and K/V share one dtype
+# dtype codes of the C entry points: q and K/V share one dtype (0, 1), or
+# bf16 queries read int8 K/V rows with a float32 scale per row (2)
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+INT8_KV_CODE = 2
+INT8_VEC = 16       # bytes: int8 rows are read as 16-byte vectors
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def dtype_code(q: torch.Tensor, kv: torch.Tensor) -> int:
+    return INT8_KV_CODE if kv.dtype == torch.int8 else DTYPE_CODE[q.dtype]
+
+
+def ptr(t) -> ctypes.c_void_p:
+    """The device address of ``t`` (NULL for None)."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def stream(device: torch.device) -> ctypes.c_void_p:
@@ -127,8 +135,20 @@ def check_contiguous(**tensors):
             raise ValueError(f"{name} must be contiguous")
 
 
-def check_dtypes(*tensors):
-    """The kernels take float32 or bfloat16 operands of one dtype."""
-    dts = [t.dtype for t in tensors]
+def check_dtypes(q, *kv):
+    """The kernels take float32 or bfloat16 operands of one dtype, or -- the
+    int8 pools -- bf16 queries with int8 K/V whose rows hold a multiple of
+    16 values from a 16-byte aligned base (the kernels read them as
+    16-byte vectors)."""
+    dts = [q.dtype] + [t.dtype for t in kv]
+    if all(t.dtype == torch.int8 for t in kv):
+        if q.dtype != torch.bfloat16:
+            raise TypeError(f"int8 K/V kernels take bf16 queries, got {q.dtype}")
+        for t in kv:
+            if t.shape[-1] % INT8_VEC or t.data_ptr() % INT8_VEC:
+                raise ValueError(f"int8 K/V rows need a head dim that is a multiple of "
+                                 f"{INT8_VEC} and a {INT8_VEC}-byte aligned base, got "
+                                 f"d {t.shape[-1]}")
+        return
     if dts[0] not in DTYPE_CODE or any(dt != dts[0] for dt in dts):
         raise TypeError(f"kernels take float32 or bfloat16 operands of one dtype, got {dts}")

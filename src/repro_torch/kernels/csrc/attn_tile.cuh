@@ -7,11 +7,13 @@
 //   merge_piece       one step of the softmax re-scaling merge (paper
 //                     section IV-A): K2's and K5's fix-ups and K3
 //                     (lean_merge.cu).
-//   rows_tile_update  a block of kBlockRows query rows against one K/V tile,
-//                     each row with its own range of visible keys (the
-//                     chunk-causal mask, and with kWindow a sliding
-//                     window's left edge): K4 (lean_prefill.cu), K7 and K8
-//                     (flash_prefill.cu).
+//   rows_page_update  a block of kBlockRows query rows against one K/V tile
+//                     or page, each row with its own range of visible keys
+//                     (the chunk-causal mask, and with kWindow a sliding
+//                     window's left edge), walked in sub-tiles when the
+//                     page's float32 tile does not fit beside the block's
+//                     state (rows_tile_update is one sub-tile): K4
+//                     (lean_prefill.cu), K7 and K8 (flash_prefill.cu).
 //
 // Both are the update of LeanAttention's Algorithm 1, lines 20-25, with the
 // arithmetic of the reference kernels (repro/kernels/lean_decode.py:74-114,
@@ -22,6 +24,16 @@
 // Keys a row cannot see contribute nothing; a tile no row of the block can
 // see leaves (acc, m, l) exactly as they were, so callers skip it.
 // Everything is float32 in shared memory; K/V are read once per tile.
+//
+// int8 K/V (the reference's quantized bodies, the int8 page pools): the
+// storage type is int8_t and each tile comes with the float32 scales of its
+// pool row (ks for K, vs for V). An element is dequantized as float(x) * ks
+// before it enters a product -- the reference widens the tile and multiplies
+// it by its scale before QK^T and PV -- and everything after the load is the
+// float path's arithmetic. int8 rows are read as 16-byte vectors: the
+// decode update copies the tile's K and V rows into shared memory with
+// cp.async (every copy of the tile in flight at once), the row-block update
+// widens 16 values per load. Rows must hold a multiple of 16 values.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -29,12 +41,37 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace attn {
 
 constexpr float kNegInf = -1e30f;  // finite mask value, as the reference
+constexpr int kVec = 16;           // bytes of one int8 vector load
+
+template <typename T>
+constexpr bool is_int8 = std::is_same<T, int8_t>::value;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(int8_t x) { return (float)x; }
+
+// An element of a K/V tile as float32: int8 values times their row's scale.
+template <typename T>
+__device__ __forceinline__ float dequant(T x, float sc) {
+  if constexpr (is_int8<T>)
+    return to_float(x) * sc;
+  else
+    return to_float(x);
+}
+
+// 16 bytes global -> shared, asynchronously (cp.async.cg: L2 only).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::); }
+
 __device__ __forceinline__ void store(float* dst, float x) { *dst = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* dst, float x) { *dst = __float2bfloat16(x); }
 
@@ -98,6 +135,14 @@ inline size_t smem_bytes(int gq, int d, int tile) {
   return sizeof(float) * ((size_t)2 * gq * d + (size_t)gq * tile + 3 * (size_t)gq);
 }
 
+// Bytes of the int8 staging area ahead of the float state: one tile's K and
+// V rows (none for float storage). A multiple of 16, so the floats after it
+// stay aligned.
+template <typename T>
+__host__ __device__ inline size_t stage_bytes(int d, int tile) {
+  return is_int8<T> ? (size_t)2 * tile * d : 0;
+}
+
 // Zero the accumulator and reset the running max and sum of the QB rows.
 template <int QB>
 __device__ void reset_decode_rows(const Smem& s, int d) {
@@ -133,11 +178,26 @@ __device__ __forceinline__ void flush_rows(const Smem& s, int rows, int d, float
 // A decode CTA runs alone on its SM, so only the loads each thread keeps in
 // flight hide the memory latency: phase A keeps KB keys per warp, phase C
 // CB V rows per thread. The batching leaves the order of every sum as it
-// was with one key and one row at a time.
+// was with one key and one row at a time. int8 tiles (ks, vs their scales)
+// first land in `stage` (stage_bytes<T>), then both phases read them there.
 template <typename T, int GQ>
 __device__ void tile_update(const T* __restrict__ k_tile, const T* __restrict__ v_tile,
-                            int vlen, const Smem& s, int d, int tile, float scale) {
+                            int vlen, const Smem& s, int d, int tile, float scale,
+                            float ks = 1.f, float vs = 1.f, int8_t* stage = nullptr) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const T* kp = k_tile;
+  const T* vp = v_tile;
+  if constexpr (is_int8<T>) {
+    const int nvec = vlen * d / kVec;
+    for (int i = tid; i < nvec; i += kThreads) {
+      cp_async16(stage + i * kVec, k_tile + i * kVec);
+      cp_async16(stage + (size_t)tile * d + i * kVec, v_tile + i * kVec);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    kp = stage;
+    vp = stage + (size_t)tile * d;
+  }
 
   // phase A: one warp per key, lanes stride over d (coalesced row reads);
   // KB keys in flight per warp
@@ -147,7 +207,7 @@ __device__ void tile_update(const T* __restrict__ k_tile, const T* __restrict__ 
 #pragma unroll
     for (int u = 0; u < KB; ++u) {
       const int j = j0 + u * kWarps;
-      krow[u] = k_tile + (size_t)(j < vlen ? j : j0) * d;
+      krow[u] = kp + (size_t)(j < vlen ? j : j0) * d;
     }
     float part[KB][GQ];
 #pragma unroll
@@ -157,7 +217,7 @@ __device__ void tile_update(const T* __restrict__ k_tile, const T* __restrict__ 
     for (int c = lane; c < d; c += 32) {
       float kv[KB];
 #pragma unroll
-      for (int u = 0; u < KB; ++u) kv[u] = to_float(krow[u][c]);
+      for (int u = 0; u < KB; ++u) kv[u] = dequant(krow[u][c], ks);
 #pragma unroll
       for (int u = 0; u < KB; ++u)
 #pragma unroll
@@ -210,14 +270,14 @@ __device__ void tile_update(const T* __restrict__ k_tile, const T* __restrict__ 
     for (; j + CB <= vlen; j += CB) {
       float vv[CB];
 #pragma unroll
-      for (int u = 0; u < CB; ++u) vv[u] = to_float(v_tile[(size_t)(j + u) * d + c]);
+      for (int u = 0; u < CB; ++u) vv[u] = dequant(vp[(size_t)(j + u) * d + c], vs);
 #pragma unroll
       for (int u = 0; u < CB; ++u)
 #pragma unroll
         for (int r = 0; r < GQ; ++r) pv[r] = fmaf(s.p[r * tile + j + u], vv[u], pv[r]);
     }
     for (; j < vlen; ++j) {
-      const float vv = to_float(v_tile[(size_t)j * d + c]);
+      const float vv = dequant(vp[(size_t)j * d + c], vs);
 #pragma unroll
       for (int r = 0; r < GQ; ++r) pv[r] = fmaf(s.p[r * tile + j], vv, pv[r]);
     }
@@ -274,6 +334,19 @@ inline size_t row_smem_bytes(int d, int tile) {
                           (size_t)kBlockRows * (tile + 1) + 5 * (size_t)kBlockRows);
 }
 
+constexpr size_t kSmemLimit = 232448;  // bytes of shared memory a CTA may use on Hopper
+
+// Keys per sub-tile of rows_page_update: the whole tile where its shared
+// memory fits -- a page that fits runs one update, as it always did -- else
+// the largest of 128, 64, 32, 16 or 8 keys (at most the tile) that fits;
+// 0 if none does. (lean_prefill.py's row_sub_tile is the same rule.)
+inline int row_sub_tile(int d, int tile) {
+  if (row_smem_bytes(d, tile) <= kSmemLimit) return tile;
+  for (int sub = tile < 128 ? tile : 128; sub >= 8; sub /= 2)
+    if (row_smem_bytes(d, sub) <= kSmemLimit) return sub;
+  return 0;
+}
+
 // Zero the accumulator and reset the running max and sum of every row.
 __device__ inline void reset_rows(const RowSmem& s, int d) {
   for (int e = threadIdx.x; e < kBlockRows * d; e += kRowThreads) {
@@ -295,33 +368,53 @@ __device__ void load_rows(const T* __restrict__ q_rows, int nrows, const RowSmem
   }
 }
 
-// One update of the block's rows against keys [0, jmax) of a tile, where
-// jmax = max s.lim[r] > 0 and row r sees keys [0, s.lim[r]) -- with
-// kWindow, keys [s.lo[r], s.lim[r]). Only the first jmax K and V rows are
-// read. Caller syncs before (q, acc, m, l, lim and lo ready); this syncs
-// after.
+// n K or V rows (row stride d) into s.kv as float32, times `sc` if int8
+// (16 values a load).
+template <typename T>
+__device__ void load_kv_rows(const T* __restrict__ src, int n, float* dst, int d, float sc) {
+  const int ld = d + 1;
+  if constexpr (is_int8<T>) {
+    for (int e = threadIdx.x; e < n * d / kVec; e += kRowThreads) {
+      const int j = e * kVec / d, c = e * kVec - j * d;
+      const int4 raw = *reinterpret_cast<const int4*>(src + (size_t)e * kVec);
+      const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+      for (int u = 0; u < kVec; ++u) dst[j * ld + c + u] = dequant(b[u], sc);
+    }
+  } else {
+    for (int e = threadIdx.x; e < n * d; e += kRowThreads) {
+      const int j = e / d, c = e - j * d;
+      dst[j * ld + c] = to_float(src[(size_t)j * d + c]);
+    }
+  }
+}
+
+// One update of the block's rows against the n keys [k0, k0 + n) of a
+// page (k_tile and v_tile point at key k0), n <= sub, the sub-tile width the
+// shared memory was carved for. Row r sees the page's keys [0, s.lim[r]) --
+// with kWindow, [s.lo[r], s.lim[r]); a row that sees none of the n keys is
+// left as it was. Only the n K and V rows are read. Caller syncs before (q,
+// acc, m, l, lim and lo ready); this syncs after.
 template <typename T, bool kWindow = false>
 __device__ void rows_tile_update(const T* __restrict__ k_tile, const T* __restrict__ v_tile,
-                                 int jmax, const RowSmem& s, int d, int tile, float scale) {
+                                 int n, int k0, const RowSmem& s, int d, int sub, float scale,
+                                 float ks, float vs) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int tr = tid / kGridDim, tc = tid % kGridDim;
-  const int ld = d + 1, ldp = tile + 1;
+  const int ld = d + 1, ldp = sub + 1;
 
-  for (int e = tid; e < jmax * d; e += kRowThreads) {
-    const int j = e / d, c = e - j * d;
-    s.kv[j * ld + c] = to_float(k_tile[(size_t)j * d + c]);
-  }
+  load_kv_rows<T>(k_tile, n, s.kv, d, ks);
   __syncthreads();
 
   // phase A: scores of the 4 x 8 (row, key) tile of each thread
-  for (int j0 = 0; j0 < jmax; j0 += kPass) {
+  for (int j0 = 0; j0 < n; j0 += kPass) {
     float acc[kRowsPerThread][kColsPerThread];
     bool ok[kColsPerThread];
     int koff[kColsPerThread];
 #pragma unroll
     for (int i = 0; i < kColsPerThread; ++i) {
       const int j = j0 + tc + kGridDim * i;
-      ok[i] = j < jmax;
+      ok[i] = j < n;
       koff[i] = ok[i] ? j * ld : 0;
 #pragma unroll
       for (int rr = 0; rr < kRowsPerThread; ++rr) acc[rr][i] = 0.f;
@@ -346,23 +439,20 @@ __device__ void rows_tile_update(const T* __restrict__ k_tile, const T* __restri
   __syncthreads();
 
   // V replaces K in shared memory while the warps run phase B
-  for (int e = tid; e < jmax * d; e += kRowThreads) {
-    const int j = e / d, c = e - j * d;
-    s.kv[j * ld + c] = to_float(v_tile[(size_t)j * d + c]);
-  }
+  load_kv_rows<T>(v_tile, n, s.kv, d, vs);
 
   // phase B: one warp per row -- running max, probabilities, exp-sum
   for (int r = warp; r < kBlockRows; r += kRowWarps) {
     float* prow = s.p + r * ldp;
-    const int lim = s.lim[r];
-    const int lo = kWindow ? s.lo[r] : 0;
+    const int lim = min(s.lim[r] - k0, n);
+    const int lo = kWindow ? max(s.lo[r] - k0, 0) : 0;
     float mx = kNegInf;
     for (int j = lo + lane; j < lim; j += 32) mx = fmaxf(mx, prow[j]);
     mx = warp_max(mx);
     const float m_prev = s.m[r];
     const float m_new = fmaxf(m_prev, mx);
     float sum = 0.f;
-    for (int j = lane; j < jmax; j += 32) {
+    for (int j = lane; j < n; j += 32) {
       const float e = j >= lo && j < lim ? expf(prow[j] - m_new) : 0.f;
       prow[j] = e;
       sum += e;
@@ -387,7 +477,7 @@ __device__ void rows_tile_update(const T* __restrict__ k_tile, const T* __restri
 #pragma unroll
       for (int rr = 0; rr < kRowsPerThread; ++rr) o[rr][i] = 0.f;
     }
-    for (int j = 0; j < jmax; ++j) {
+    for (int j = 0; j < n; ++j) {
       float pv[kRowsPerThread], vv[kColsPerThread];
 #pragma unroll
       for (int rr = 0; rr < kRowsPerThread; ++rr) pv[rr] = s.p[(tr * kRowsPerThread + rr) * ldp + j];
@@ -412,6 +502,21 @@ __device__ void rows_tile_update(const T* __restrict__ k_tile, const T* __restri
     }
   }
   __syncthreads();
+}
+
+// The block's rows against keys [0, jmax) of one page or tile, where jmax =
+// max s.lim[r] > 0 and row r sees the keys [0, s.lim[r]) (with kWindow,
+// [s.lo[r], s.lim[r])), in sub-tiles of `sub` keys (row_sub_tile): one
+// rows_tile_update per sub-tile, in key order, as the online softmax
+// walks tiles. With sub >= jmax it is a single update over the whole
+// page. int8 pages take their row's scales ks, vs.
+template <typename T, bool kWindow = false>
+__device__ void rows_page_update(const T* __restrict__ k_page, const T* __restrict__ v_page,
+                                 int jmax, const RowSmem& s, int d, int sub, float scale,
+                                 float ks = 1.f, float vs = 1.f) {
+  for (int k0 = 0; k0 < jmax; k0 += sub)
+    rows_tile_update<T, kWindow>(k_page + (size_t)k0 * d, v_page + (size_t)k0 * d,
+                                 min(sub, jmax - k0), k0, s, d, sub, scale, ks, vs);
 }
 
 }  // namespace attn

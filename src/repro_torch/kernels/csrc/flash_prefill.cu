@@ -48,9 +48,11 @@
 //     holds to one bf16 step of the output. CTAs start in reverse row-block
 //     order: the causal blocks at the end of the prompt, which walk the
 //     most tiles, go first.
-//   * float32, and bf16 at other d: the CUDA-core kernel, K4's row-block
-//     update (attn::rows_tile_update, 64 rows a CTA, float32 tiles in shared
-//     memory). Tensor cores on float32 would mean TF32, which breaks the
+//   * float32, bf16 at other d, and K8 on a page that is not a multiple of
+//     8 rows: the CUDA-core kernel, K4's row-block update
+//     (attn::rows_page_update, 64 rows a CTA, float32 tiles in shared
+//     memory; a tile or page too large for them walked in sub-tiles, any
+//     page size). Tensor cores on float32 would mean TF32, which breaks the
 //     2e-5 float32 contract.
 //
 // Plain C interface (loaded with ctypes); each entry returns the launch's
@@ -76,14 +78,14 @@ struct DenseArgs {
   const void* k;        // (B * n_kv, Lk, d)
   const void* v;
   void* out;            // (B * n_kv, rows, d), q's dtype
-  int rows, Lq, Lk, d, tile, causal, window, q_offset;
+  int rows, Lq, Lk, d, tile, sub, causal, window, q_offset;
   float scale;
 };
 
 template <typename T, bool kWindow>
 __global__ void __launch_bounds__(kRowThreads) flash_prefill_kernel(DenseArgs a) {
   extern __shared__ float smem_raw[];
-  const RowSmem s = attn::carve_row_smem(smem_raw, a.d, a.tile);
+  const RowSmem s = attn::carve_row_smem(smem_raw, a.d, a.sub);
   __shared__ int klo_s, khi_s, jmax_s;
   const int d = a.d, tile = a.tile, ld = d + 1;
   const int bh = blockIdx.x;
@@ -128,8 +130,8 @@ __global__ void __launch_bounds__(kRowThreads) flash_prefill_kernel(DenseArgs a)
     __syncthreads();
     const int jmax = jmax_s;
     if (jmax > 0)
-      attn::rows_tile_update<T, kWindow>(k + (size_t)k_start * d, v + (size_t)k_start * d, jmax,
-                                         s, d, tile, a.scale);
+      attn::rows_page_update<T, kWindow>(k + (size_t)k_start * d, v + (size_t)k_start * d, jmax,
+                                         s, d, a.sub, a.scale);
   }
   __syncthreads();
   T* out = static_cast<T*>(a.out) + ((size_t)bh * a.rows + row0) * d;
@@ -142,7 +144,7 @@ __global__ void __launch_bounds__(kRowThreads) flash_prefill_kernel(DenseArgs a)
 template <typename T, bool kWindow>
 cudaError_t launch_dense(const DenseArgs& a, int num_bh, cudaStream_t stream) {
   auto kernel = flash_prefill_kernel<T, kWindow>;
-  const size_t smem = attn::row_smem_bytes(a.d, a.tile);
+  const size_t smem = attn::row_smem_bytes(a.d, a.sub);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -165,14 +167,14 @@ struct Args {
   const int* tbl;       // (N, W) page table rows
   const int* q_off;     // (N,) absolute position of each chunk's q[0]
   void* out;            // (N * n_kv, rows, d), q's dtype
-  int n_kv, W, rows, chunk_cap, d, page;
+  int n_kv, W, rows, chunk_cap, d, page, sub;
   float scale;
 };
 
 template <typename T>
 __global__ void __launch_bounds__(kRowThreads) flash_prefill_paged_kernel(Args a) {
   extern __shared__ float smem_raw[];
-  const RowSmem s = attn::carve_row_smem(smem_raw, a.d, a.page);
+  const RowSmem s = attn::carve_row_smem(smem_raw, a.d, a.sub);
   __shared__ int jmax_s;
   const int d = a.d, page = a.page, C = a.chunk_cap, ld = d + 1;
   const int nh = blockIdx.x, n = nh / a.n_kv, h = nh % a.n_kv;
@@ -204,8 +206,8 @@ __global__ void __launch_bounds__(kRowThreads) flash_prefill_paged_kernel(Args a
     const int jmax = jmax_s;
     if (jmax > 0) {
       const size_t row = (size_t)a.tbl[(size_t)n * a.W + jb] * a.n_kv + h;
-      attn::rows_tile_update<T>(k_rows + row * row_elems, v_rows + row * row_elems, jmax, s, d,
-                                page, a.scale);
+      attn::rows_page_update<T>(k_rows + row * row_elems, v_rows + row * row_elems, jmax, s, d,
+                                a.sub, a.scale);
     }
   }
   __syncthreads();
@@ -219,7 +221,7 @@ __global__ void __launch_bounds__(kRowThreads) flash_prefill_paged_kernel(Args a
 template <typename T>
 cudaError_t launch_typed(const Args& a, int num_rows, cudaStream_t stream) {
   auto kernel = flash_prefill_paged_kernel<T>;
-  const size_t smem = attn::row_smem_bytes(a.d, a.page);
+  const size_t smem = attn::row_smem_bytes(a.d, a.sub);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -476,7 +478,9 @@ int flash_prefill_launch(int dtype, const void* q, const void* k, const void* v,
                          int window, int q_offset, float scale, void* stream) {
   if (num_bh <= 0 || rows <= 0 || Lq <= 0 || Lk <= 0 || d <= 0 || tile <= 0 || rows % Lq)
     return (int)cudaErrorInvalidValue;
-  DenseArgs a = {q, k, v, out, rows, Lq, Lk, d, tile, causal, window, q_offset, scale};
+  const int sub = attn::row_sub_tile(d, tile);
+  if (sub == 0) return (int)cudaErrorInvalidValue;
+  DenseArgs a = {q, k, v, out, rows, Lq, Lk, d, tile, sub, causal, window, q_offset, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return (int)launch_dense_typed<float>(a, num_bh, st);
@@ -492,7 +496,9 @@ int flash_prefill_paged_launch(int dtype, const void* q, const void* k_rows, con
                                void* stream) {
   if (N <= 0 || n_kv <= 0 || W <= 0 || rows <= 0 || chunk_cap <= 0 || d <= 0 || page <= 0)
     return (int)cudaErrorInvalidValue;
-  Args a = {q, k_rows, v_rows, tbl, q_off, out, n_kv, W, rows, chunk_cap, d, page, scale};
+  const int sub = attn::row_sub_tile(d, page);
+  if (sub == 0) return (int)cudaErrorInvalidValue;
+  Args a = {q, k_rows, v_rows, tbl, q_off, out, n_kv, W, rows, chunk_cap, d, page, sub, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return (int)launch_typed<float>(a, N * n_kv, st);

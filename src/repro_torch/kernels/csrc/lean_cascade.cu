@@ -51,6 +51,11 @@
 // cascade over shared pages equals the same cascade over duplicated pages
 // bit for bit (the reference's contract, tests/test_cascade.py:133).
 //
+// int8 pools (dtype code 2): bf16 queries, int8 K/V rows and a float32
+// scale per pool row for K and for V; each partial column reads its routed
+// row's scales once and attn::tile_update dequantizes as K1 and K2 do. The
+// merge reads only f32 partials.
+//
 // Plain C interface (loaded with ctypes); the entry point returns the
 // cudaError_t of its launch.
 
@@ -71,6 +76,8 @@ struct Args {
   const void* q_suf;       // (S, g, d) queries of each suffix segment
   const void* k_rows;      // (R, tile, d) pool rows
   const void* v_rows;
+  const float* k_scales;   // (R,) int8 rows only
+  const float* v_scales;
   const int* desc;         // (7, n_desc) fused descriptors: partial then merge section
   const int* ctx_all;      // (nph + S,) runtime lengths, prefix segments first
   const int* route;        // (n_part,) pool row per partial column
@@ -110,15 +117,18 @@ __device__ void merge_target(const Args& a, int t) {
   }
 }
 
-template <typename T, int GB, int QB>
+// Q: the queries' type; KV: the K/V rows' (Q, or int8_t with scales).
+template <typename Q, typename KV, int GB, int QB>
 __global__ void __launch_bounds__(kThreads) lean_cascade_kernel(Args a) {
-  extern __shared__ float smem_raw[];
-  const Smem s = attn::carve_smem<QB>(smem_raw, a.d, a.tile);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int8_t* stage = reinterpret_cast<int8_t*>(smem_raw);
+  const Smem s = attn::carve_smem<QB>(
+      reinterpret_cast<float*>(smem_raw + attn::stage_bytes<KV>(a.d, a.tile)), a.d, a.tile);
   __shared__ int merge_list[kMaxTargets];
   __shared__ int n_merge;
   const int d = a.d, tile = a.tile, N = a.n_desc;
-  const T* k_rows = static_cast<const T*>(a.k_rows);
-  const T* v_rows = static_cast<const T*>(a.v_rows);
+  const KV* k_rows = static_cast<const KV*>(a.k_rows);
+  const KV* v_rows = static_cast<const KV*>(a.v_rows);
   const size_t row_elems = (size_t)tile * d;
   const int w = blockIdx.x;
 
@@ -136,23 +146,28 @@ __global__ void __launch_bounds__(kThreads) lean_cascade_kernel(Args a) {
 
     if (prefix) {
       if (first) attn::reset_decode_rows<QB>(s, d);
-      attn::load_decode_q<T, QB>(static_cast<const T*>(a.q_pref) + (size_t)seg * a.qmax * d,
+      attn::load_decode_q<Q, QB>(static_cast<const Q*>(a.q_pref) + (size_t)seg * a.qmax * d,
                                  rows, s, d);
     } else {
       if (first) attn::reset_decode_rows<GB>(s, d);
-      attn::load_decode_q<T, GB>(
-          static_cast<const T*>(a.q_suf) + (size_t)(seg - a.nph) * a.g * d, rows, s, d);
+      attn::load_decode_q<Q, GB>(
+          static_cast<const Q*>(a.q_suf) + (size_t)(seg - a.nph) * a.g * d, rows, s, d);
     }
     const int vlen = min(max(a.ctx_all[seg] - tile_idx * tile, 0), tile);
     const size_t row = (size_t)a.route[i];
+    float ks = 1.f, vs = 1.f;
+    if constexpr (attn::is_int8<KV>) {
+      ks = a.k_scales[row];
+      vs = a.v_scales[row];
+    }
     __syncthreads();
 
     if (prefix)
-      attn::tile_update<T, QB>(k_rows + row * row_elems, v_rows + row * row_elems, vlen, s, d,
-                               tile, a.scale);
+      attn::tile_update<KV, QB>(k_rows + row * row_elems, v_rows + row * row_elems, vlen, s, d,
+                                tile, a.scale, ks, vs, stage);
     else
-      attn::tile_update<T, GB>(k_rows + row * row_elems, v_rows + row * row_elems, vlen, s, d,
-                               tile, a.scale);
+      attn::tile_update<KV, GB>(k_rows + row * row_elems, v_rows + row * row_elems, vlen, s, d,
+                                tile, a.scale, ks, vs, stage);
 
     if (last) {
       attn::flush_rows(s, rows, d, a.o_p + (size_t)piece * a.qmax * d,
@@ -177,13 +192,13 @@ __global__ void __launch_bounds__(kThreads) lean_cascade_kernel(Args a) {
   }
 }
 
-template <typename T, int GB, int QB>
+template <typename Q, typename KV, int GB, int QB>
 cudaError_t launch_typed(const Args& a, int num_workers, cudaStream_t stream) {
   if constexpr (QB < GB) {  // the stacked rows are at least one member's g
     return cudaErrorInvalidValue;
   } else {
-    auto kernel = lean_cascade_kernel<T, GB, QB>;
-    const size_t smem = attn::smem_bytes(QB, a.d, a.tile);
+    auto kernel = lean_cascade_kernel<Q, KV, GB, QB>;
+    const size_t smem = attn::smem_bytes(QB, a.d, a.tile) + attn::stage_bytes<KV>(a.d, a.tile);
     if (smem > 48 * 1024) {
       cudaError_t err =
           cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -194,24 +209,24 @@ cudaError_t launch_typed(const Args& a, int num_workers, cudaStream_t stream) {
   }
 }
 
-template <typename T, int GB>
+template <typename Q, typename KV, int GB>
 cudaError_t launch_q(const Args& a, int num_workers, cudaStream_t stream) {
   switch (attn::row_bucket(a.qmax)) {
-    case 2: return launch_typed<T, GB, 2>(a, num_workers, stream);
-    case 4: return launch_typed<T, GB, 4>(a, num_workers, stream);
-    case 8: return launch_typed<T, GB, 8>(a, num_workers, stream);
-    case 16: return launch_typed<T, GB, 16>(a, num_workers, stream);
-    case 32: return launch_typed<T, GB, 32>(a, num_workers, stream);
-    case 64: return launch_typed<T, GB, 64>(a, num_workers, stream);
+    case 2: return launch_typed<Q, KV, GB, 2>(a, num_workers, stream);
+    case 4: return launch_typed<Q, KV, GB, 4>(a, num_workers, stream);
+    case 8: return launch_typed<Q, KV, GB, 8>(a, num_workers, stream);
+    case 16: return launch_typed<Q, KV, GB, 16>(a, num_workers, stream);
+    case 32: return launch_typed<Q, KV, GB, 32>(a, num_workers, stream);
+    case 64: return launch_typed<Q, KV, GB, 64>(a, num_workers, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
+template <typename Q, typename KV>
 cudaError_t launch_g(const Args& a, int num_workers, cudaStream_t stream) {
   switch (a.g) {
-    case 2: return launch_q<T, 2>(a, num_workers, stream);
-    case 4: return launch_q<T, 4>(a, num_workers, stream);
+    case 2: return launch_q<Q, KV, 2>(a, num_workers, stream);
+    case 4: return launch_q<Q, KV, 4>(a, num_workers, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -220,24 +235,32 @@ cudaError_t launch_g(const Args& a, int num_workers, cudaStream_t stream) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (queries and K/V rows share it).
+// dtype: 0 = float32, 1 = bfloat16 (queries and K/V rows share it), 2 =
+// bf16 queries with int8 K/V rows and their float32 row scales (NULL
+// otherwise).
 int lean_cascade_fused_launch(int dtype, const void* q_pref, const void* q_suf,
-                              const void* k_rows, const void* v_rows, const int* desc,
+                              const void* k_rows, const void* v_rows, const float* k_scales,
+                              const float* v_scales, const int* desc,
                               int n_desc, int n_pref, int tp, int ts, int num_workers,
                               const int* ctx_all, const int* route, const int* tgt_start,
                               const int* tgt_count, const int* pt_start, const int* pt_tgt,
                               int* arrivals, float* o_p, float* m_p, float* l_p, float* o,
                               float* lse, int nph, int qmax, int g, int d, int tile,
                               float scale, void* stream) {
-  Args a = {q_pref, q_suf,  k_rows, v_rows, desc,  ctx_all, route, tgt_start, tgt_count,
+  Args a = {q_pref, q_suf,  k_rows, v_rows, k_scales, v_scales, desc,  ctx_all, route,
+            tgt_start, tgt_count,
             pt_start, pt_tgt, arrivals, o_p,  m_p,   l_p,   o,     lse,
             n_desc,  n_pref, tp,     ts,     nph,   qmax,  g,     d,     tile,  scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (num_workers <= 0 || d <= 0 || tile <= 0 || qmax < g || qmax > 64)
     return (int)cudaErrorInvalidValue;
   switch (dtype) {
-    case 0: return (int)launch_g<float>(a, num_workers, st);
-    case 1: return (int)launch_g<__nv_bfloat16>(a, num_workers, st);
+    case 0: return (int)launch_g<float, float>(a, num_workers, st);
+    case 1: return (int)launch_g<__nv_bfloat16, __nv_bfloat16>(a, num_workers, st);
+    case 2:
+      if (k_scales == nullptr || v_scales == nullptr || d % attn::kVec)
+        return (int)cudaErrorInvalidValue;
+      return (int)launch_g<__nv_bfloat16, int8_t>(a, num_workers, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -44,6 +44,15 @@
 // runs K1 on the prefix pass with the stacked member rows (nmax * g, up to
 // 64) through the bucketed ones.
 //
+// int8 pools (the reference's quantized=True bodies): with dtype code 2 the
+// K/V rows are int8 and each pool row has a float32 scale per K and V
+// (k_scales, v_scales). A column reads its routed row's two scales once,
+// and attn::tile_update copies the tile's int8 K and V rows into shared
+// memory as 16-byte cp.async vectors (all in flight at once; an int8 row of
+// d 128 is 128 bytes) and dequantizes each element as float(x) * scale
+// before it enters a product. The queries stay bf16. K2's fix-up reads only
+// the f32 partials, so no scale is read there.
+//
 // Descriptors are the packed (7, G*T) int32 rows of
 // LeanSchedule.packed_descriptors(): SEG, TILE, PIECE, FIRST, LAST, LEN,
 // VALID. Dense KV runs through the same kernels: a dense (S, S_pad, d)
@@ -67,6 +76,8 @@ struct Args {
   const void* q;        // (S, gq, d)
   const void* k_rows;   // (R, tile, d)
   const void* v_rows;
+  const float* k_scales;  // (R,) int8 rows only
+  const float* v_scales;
   const int* desc;      // (7, n_cols)
   const int* seg_ctx;   // (S,)
   const int* route;     // (n_cols,) pool row per column
@@ -100,15 +111,18 @@ __device__ __forceinline__ void merge_segment(const Args& a, int seg, int gq) {
   }
 }
 
-template <typename T, int QB, bool EXACT, bool FUSED>
+// Q: the queries' type; KV: the K/V rows' (Q, or int8_t with scales).
+template <typename Q, typename KV, int QB, bool EXACT, bool FUSED>
 __global__ void __launch_bounds__(kThreads) lean_decode_kernel(Args a) {
-  extern __shared__ float smem_raw[];
-  const Smem s = attn::carve_smem<QB>(smem_raw, a.d, a.tile);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int8_t* stage = reinterpret_cast<int8_t*>(smem_raw);
+  const Smem s = attn::carve_smem<QB>(
+      reinterpret_cast<float*>(smem_raw + attn::stage_bytes<KV>(a.d, a.tile)), a.d, a.tile);
   __shared__ int merge_here;
   const int d = a.d, tile = a.tile, N = a.n_cols, gq = EXACT ? QB : a.gq;
-  const T* q = static_cast<const T*>(a.q);
-  const T* k_rows = static_cast<const T*>(a.k_rows);
-  const T* v_rows = static_cast<const T*>(a.v_rows);
+  const Q* q = static_cast<const Q*>(a.q);
+  const KV* k_rows = static_cast<const KV*>(a.k_rows);
+  const KV* v_rows = static_cast<const KV*>(a.v_rows);
   const size_t row_elems = (size_t)tile * d;
 
   const int g = blockIdx.x;
@@ -122,13 +136,18 @@ __global__ void __launch_bounds__(kThreads) lean_decode_kernel(Args a) {
     const bool last = a.desc[DESC_LAST * N + i] != 0;
 
     if (first) attn::reset_decode_rows<QB>(s, d);  // Algorithm 1 lines 8-9
-    attn::load_decode_q<T, QB>(q + (size_t)seg * gq * d, gq, s, d);
+    attn::load_decode_q<Q, QB>(q + (size_t)seg * gq * d, gq, s, d);
     const int vlen = min(max(a.seg_ctx[seg] - tile_idx * tile, 0), tile);
     const size_t row = (size_t)a.route[i];
+    float ks = 1.f, vs = 1.f;
+    if constexpr (attn::is_int8<KV>) {
+      ks = a.k_scales[row];
+      vs = a.v_scales[row];
+    }
     __syncthreads();
 
-    attn::tile_update<T, QB>(k_rows + row * row_elems, v_rows + row * row_elems, vlen, s, d,
-                             tile, a.scale);
+    attn::tile_update<KV, QB>(k_rows + row * row_elems, v_rows + row * row_elems, vlen, s, d,
+                              tile, a.scale, ks, vs, stage);
 
     if (last) {  // StorePartials (Algorithm 2 lines 20-22)
       attn::flush_rows(s, gq, d, a.o_p + (size_t)piece * gq * d, a.m_p + (size_t)piece * gq,
@@ -149,10 +168,10 @@ __global__ void __launch_bounds__(kThreads) lean_decode_kernel(Args a) {
   }
 }
 
-template <typename T, int QB, bool EXACT, bool FUSED>
+template <typename Q, typename KV, int QB, bool EXACT, bool FUSED>
 cudaError_t launch_typed(const Args& a, int num_workers, cudaStream_t stream) {
-  auto kernel = lean_decode_kernel<T, QB, EXACT, FUSED>;
-  const size_t smem = attn::smem_bytes(QB, a.d, a.tile);
+  auto kernel = lean_decode_kernel<Q, KV, QB, EXACT, FUSED>;
+  const size_t smem = attn::smem_bytes(QB, a.d, a.tile) + attn::stage_bytes<KV>(a.d, a.tile);
   if (smem > 48 * 1024) {
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -162,17 +181,17 @@ cudaError_t launch_typed(const Args& a, int num_workers, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T, bool FUSED>
+template <typename Q, typename KV, bool FUSED>
 cudaError_t launch_rows(const Args& a, int num_workers, cudaStream_t stream) {
-  if (a.gq == 2) return launch_typed<T, 2, true, FUSED>(a, num_workers, stream);
-  if (a.gq == 4) return launch_typed<T, 4, true, FUSED>(a, num_workers, stream);
+  if (a.gq == 2) return launch_typed<Q, KV, 2, true, FUSED>(a, num_workers, stream);
+  if (a.gq == 4) return launch_typed<Q, KV, 4, true, FUSED>(a, num_workers, stream);
   switch (attn::row_bucket(a.gq)) {
-    case 2: return launch_typed<T, 2, false, FUSED>(a, num_workers, stream);
-    case 4: return launch_typed<T, 4, false, FUSED>(a, num_workers, stream);
-    case 8: return launch_typed<T, 8, false, FUSED>(a, num_workers, stream);
-    case 16: return launch_typed<T, 16, false, FUSED>(a, num_workers, stream);
-    case 32: return launch_typed<T, 32, false, FUSED>(a, num_workers, stream);
-    case 64: return launch_typed<T, 64, false, FUSED>(a, num_workers, stream);
+    case 2: return launch_typed<Q, KV, 2, false, FUSED>(a, num_workers, stream);
+    case 4: return launch_typed<Q, KV, 4, false, FUSED>(a, num_workers, stream);
+    case 8: return launch_typed<Q, KV, 8, false, FUSED>(a, num_workers, stream);
+    case 16: return launch_typed<Q, KV, 16, false, FUSED>(a, num_workers, stream);
+    case 32: return launch_typed<Q, KV, 32, false, FUSED>(a, num_workers, stream);
+    case 64: return launch_typed<Q, KV, 64, false, FUSED>(a, num_workers, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -182,8 +201,12 @@ int launch(int dtype, const Args& a, int num_workers, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (num_workers <= 0 || a.d <= 0 || a.tile <= 0 || a.gq <= 0) return (int)cudaErrorInvalidValue;
   switch (dtype) {
-    case 0: return (int)launch_rows<float, FUSED>(a, num_workers, st);
-    case 1: return (int)launch_rows<__nv_bfloat16, FUSED>(a, num_workers, st);
+    case 0: return (int)launch_rows<float, float, FUSED>(a, num_workers, st);
+    case 1: return (int)launch_rows<__nv_bfloat16, __nv_bfloat16, FUSED>(a, num_workers, st);
+    case 2:
+      if (a.k_scales == nullptr || a.v_scales == nullptr || a.d % attn::kVec)
+        return (int)cudaErrorInvalidValue;
+      return (int)launch_rows<__nv_bfloat16, int8_t, FUSED>(a, num_workers, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -192,25 +215,29 @@ int launch(int dtype, const Args& a, int num_workers, void* stream) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k_rows and v_rows share it).
+// dtype: 0 = float32, 1 = bfloat16 (q, k_rows and v_rows share it), 2 =
+// bf16 q with int8 k_rows and v_rows and their float32 row scales (NULL
+// otherwise).
 int lean_decode_partials_launch(int dtype, const void* q, const void* k_rows,
-                                const void* v_rows, const int* desc, int n_cols,
+                                const void* v_rows, const float* k_scales,
+                                const float* v_scales, const int* desc, int n_cols,
                                 int tiles_per_worker, int num_workers, const int* seg_ctx,
                                 const int* route, float* o_p, float* m_p, float* l_p, int gq,
                                 int d, int tile, float scale, void* stream) {
-  Args a = {q,       k_rows,  v_rows,  desc,    seg_ctx, route,   o_p,
-            m_p,     l_p,     nullptr, nullptr, nullptr, nullptr, nullptr,
+  Args a = {q,       k_rows,  v_rows,  k_scales, v_scales, desc,    seg_ctx, route,   o_p,
+            m_p,     l_p,     nullptr, nullptr,  nullptr,  nullptr, nullptr,
             n_cols,  tiles_per_worker, gq, d, tile, scale};
   return launch<false>(dtype, a, num_workers, stream);
 }
 
 int lean_decode_fused_launch(int dtype, const void* q, const void* k_rows, const void* v_rows,
-                             const int* desc, int n_cols, int tiles_per_worker,
-                             int num_workers, const int* seg_ctx, const int* route,
-                             const int* piece_start, const int* piece_count, int* arrivals,
-                             float* o_p, float* m_p, float* l_p, float* o, float* lse,
-                             int gq, int d, int tile, float scale, void* stream) {
-  Args a = {q,           k_rows,      v_rows,   desc, seg_ctx, route,
+                             const float* k_scales, const float* v_scales, const int* desc,
+                             int n_cols, int tiles_per_worker, int num_workers,
+                             const int* seg_ctx, const int* route, const int* piece_start,
+                             const int* piece_count, int* arrivals, float* o_p, float* m_p,
+                             float* l_p, float* o, float* lse, int gq, int d, int tile,
+                             float scale, void* stream) {
+  Args a = {q,           k_rows,      v_rows,   k_scales, v_scales, desc, seg_ctx, route,
             o_p,         m_p,         l_p,      piece_start, piece_count, arrivals,
             o,           lse,         n_cols,   tiles_per_worker, gq, d, tile, scale};
   return launch<true>(dtype, a, num_workers, stream);

@@ -30,7 +30,15 @@
 // no row sees (the update would leave acc, m and l unchanged) while still
 // honouring the column's first (reset) and last (flush). A row that sees no
 // key of a piece flushes m = -1e30, l = 0: the merge gives it zero weight.
-// A block may span two heads when C is not a multiple of 64.
+// A block may span two heads when C is not a multiple of 64. A page whose
+// float32 tile would not fit beside the block's state in shared memory (d
+// 128 above 208 keys) is walked in sub-tiles (attn::rows_page_update,
+// attn::row_sub_tile), in key order; a page that fits is one update.
+//
+// int8 pools (dtype code 2, the reference's quantized body): bf16 queries,
+// int8 K/V rows and a float32 scale per pool row for K and for V. The tile
+// loader widens 16 int8 values a load and multiplies them by the routed
+// row's scale as it writes the float32 tile; the update is the float one.
 //
 // Plain C interface (loaded with ctypes); returns the launch's cudaError_t.
 
@@ -49,6 +57,8 @@ struct Args {
   const void* q;          // (S, rows, d)
   const void* k_rows;     // (R, tile, d) pool rows
   const void* v_rows;
+  const float* k_scales;  // (R,) int8 rows only
+  const float* v_scales;
   const int* desc;        // (7, n_cols)
   const int* seg_ctx;     // (S,) visible KV length of each segment
   const int* seg_qstart;  // (S,) absolute position of each segment's q[0]
@@ -56,19 +66,20 @@ struct Args {
   float* o_p;             // (P+1, rows, d) piece partials
   float* m_p;             // (P+1, rows)
   float* l_p;
-  int n_cols, tiles_per_worker, rows, chunk_cap, d, tile;
+  int n_cols, tiles_per_worker, rows, chunk_cap, d, tile, sub;
   float scale;
 };
 
-template <typename T>
+// Q: the queries' type; KV: the K/V rows' (Q, or int8_t with scales).
+template <typename Q, typename KV>
 __global__ void __launch_bounds__(kRowThreads) lean_prefill_kernel(Args a) {
   extern __shared__ float smem_raw[];
-  const RowSmem s = attn::carve_row_smem(smem_raw, a.d, a.tile);
+  const RowSmem s = attn::carve_row_smem(smem_raw, a.d, a.sub);
   __shared__ int jmax_s;
   const int d = a.d, tile = a.tile, N = a.n_cols, ld = d + 1;
-  const T* q = static_cast<const T*>(a.q);
-  const T* k_rows = static_cast<const T*>(a.k_rows);
-  const T* v_rows = static_cast<const T*>(a.v_rows);
+  const Q* q = static_cast<const Q*>(a.q);
+  const KV* k_rows = static_cast<const KV*>(a.k_rows);
+  const KV* v_rows = static_cast<const KV*>(a.v_rows);
   const size_t row_elems = (size_t)tile * d;
 
   const int g = blockIdx.x;
@@ -86,7 +97,7 @@ __global__ void __launch_bounds__(kRowThreads) lean_prefill_kernel(Args a) {
 
     if (first) attn::reset_rows(s, d);
     if (seg != cur_seg) {
-      attn::load_rows<T>(q + ((size_t)seg * a.rows + row0) * d, nrows, s, d);
+      attn::load_rows<Q>(q + ((size_t)seg * a.rows + row0) * d, nrows, s, d);
       cur_seg = seg;
     }
     if (threadIdx.x == 0) jmax_s = 0;
@@ -106,8 +117,13 @@ __global__ void __launch_bounds__(kRowThreads) lean_prefill_kernel(Args a) {
     const int jmax = jmax_s;
     if (jmax > 0) {
       const size_t row = (size_t)a.route[i];
-      attn::rows_tile_update<T>(k_rows + row * row_elems, v_rows + row * row_elems, jmax, s,
-                                d, tile, a.scale);
+      float ks = 1.f, vs = 1.f;
+      if constexpr (attn::is_int8<KV>) {
+        ks = a.k_scales[row];
+        vs = a.v_scales[row];
+      }
+      attn::rows_page_update<KV>(k_rows + row * row_elems, v_rows + row * row_elems, jmax, s,
+                                 d, a.sub, a.scale, ks, vs);
     }
     if (last) {  // StorePartials for this block's rows of the piece
       const size_t base = (size_t)piece * a.rows + row0;
@@ -124,10 +140,10 @@ __global__ void __launch_bounds__(kRowThreads) lean_prefill_kernel(Args a) {
   }
 }
 
-template <typename T>
+template <typename Q, typename KV>
 cudaError_t launch_typed(const Args& a, int num_workers, cudaStream_t stream) {
-  auto kernel = lean_prefill_kernel<T>;
-  const size_t smem = attn::row_smem_bytes(a.d, a.tile);
+  auto kernel = lean_prefill_kernel<Q, KV>;
+  const size_t smem = attn::row_smem_bytes(a.d, a.sub);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -140,20 +156,29 @@ cudaError_t launch_typed(const Args& a, int num_workers, cudaStream_t stream) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k_rows and v_rows share it).
+// dtype: 0 = float32, 1 = bfloat16 (q, k_rows and v_rows share it), 2 =
+// bf16 q with int8 k_rows and v_rows and their float32 row scales (NULL
+// otherwise).
 int lean_prefill_partials_launch(int dtype, const void* q, const void* k_rows, const void* v_rows,
+                                 const float* k_scales, const float* v_scales,
                                  const int* desc, int n_cols, int tiles_per_worker,
                                  int num_workers, const int* seg_ctx, const int* seg_qstart,
                                  const int* route, float* o_p, float* m_p, float* l_p, int rows,
                                  int chunk_cap, int d, int tile, float scale, void* stream) {
   if (num_workers <= 0 || rows <= 0 || chunk_cap <= 0 || d <= 0 || tile <= 0)
     return (int)cudaErrorInvalidValue;
-  Args a = {q,   k_rows, v_rows, desc, seg_ctx, seg_qstart, route, o_p, m_p,  l_p,
-            n_cols, tiles_per_worker, rows, chunk_cap, d, tile, scale};
+  const int sub = attn::row_sub_tile(d, tile);
+  if (sub == 0) return (int)cudaErrorInvalidValue;
+  Args a = {q,   k_rows, v_rows, k_scales, v_scales, desc, seg_ctx, seg_qstart, route, o_p, m_p,
+            l_p, n_cols, tiles_per_worker, rows, chunk_cap, d, tile, sub, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return (int)launch_typed<float>(a, num_workers, st);
-    case 1: return (int)launch_typed<__nv_bfloat16>(a, num_workers, st);
+    case 0: return (int)launch_typed<float, float>(a, num_workers, st);
+    case 1: return (int)launch_typed<__nv_bfloat16, __nv_bfloat16>(a, num_workers, st);
+    case 2:
+      if (k_scales == nullptr || v_scales == nullptr || d % attn::kVec)
+        return (int)cudaErrorInvalidValue;
+      return (int)launch_typed<__nv_bfloat16, int8_t>(a, num_workers, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -25,15 +25,18 @@ and not once per query head.
 Path rule (:func:`tensor_core_path`, a plain function of ``(dtype, d,
 page)``). On CUDA tensors each wrapper launches one of two kernels:
 
-* bf16 with ``d`` in {64, 128} (the main path: Mistral-NeMo-12B, d 128):
-  the tensor-core row-block kernel (``csrc/attn_tc.cuh``: wgmma for QK^T
-  and PV, K/V tiles through TMA, 128 rows a CTA, P through PV as two bf16
-  halves). K8 there needs ``page`` a multiple of 8 (a page is a whole
-  number of 8-row swizzle atoms) and raises otherwise; both need their
-  operands 16-byte aligned (TMA) and raise otherwise.
-* float32, and bf16 at any other ``d``: the CUDA-core kernel (float32 tiles
-  in shared memory). Tensor cores on float32 would mean TF32 and break the
-  2e-5 float32 contract.
+* bf16 with ``d`` in {64, 128} (the main path: Mistral-NeMo-12B, d 128),
+  and for K8 a ``page`` that is a multiple of 8 (a page is a whole number
+  of 8-row swizzle atoms): the tensor-core row-block kernel
+  (``csrc/attn_tc.cuh``: wgmma for QK^T and PV, K/V tiles through TMA, 128
+  rows a CTA, P through PV as two bf16 halves). Both need their operands
+  16-byte aligned (TMA) and raise otherwise.
+* float32, bf16 at any other ``d``, and K8 on a page that is not a multiple
+  of 8 (the engine picks such a page itself for a short cache, ``min(
+  default_tile_size, max(8, cache_len))``): the CUDA-core kernel (float32
+  tiles in shared memory, any page; a page too large for its shared memory
+  is walked in sub-tiles). Tensor cores on float32 would mean TF32 and
+  break the 2e-5 float32 contract.
 
 Nothing catches a failed build or launch and gives way to the other kernel.
 
@@ -73,13 +76,11 @@ def reset_launch_counts() -> None:
 
 def tensor_core_path(dtype: torch.dtype, d: int, page: Optional[int] = None) -> bool:
     """Whether the CUDA wrappers launch the tensor-core kernel: bf16 with
-    ``d`` in :data:`TC_HEAD_DIMS`. ``page`` is K8's page size (None for K7);
-    on that path a page that is not a multiple of 8 is a ValueError."""
-    if dtype != torch.bfloat16 or d not in TC_HEAD_DIMS:
-        return False
-    if page is not None and page % 8:
-        raise ValueError(f"the tensor-core K8 takes pages of a multiple of 8 rows, got {page}")
-    return True
+    ``d`` in :data:`TC_HEAD_DIMS` and, for K8 (``page`` given; None for K7),
+    a page that is a multiple of 8 rows. Everything else runs on the CUDA
+    cores."""
+    return (dtype == torch.bfloat16 and d in TC_HEAD_DIMS
+            and (page is None or page % 8 == 0))
 
 
 def _check_tc(what: str, **tensors):

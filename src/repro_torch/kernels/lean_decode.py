@@ -36,6 +36,15 @@ Dense KV reaches the same kernels through a route over its own rows
 (:func:`repro_torch.kernels.ops`), so dense and paged decode are
 bit-identical.
 
+int8 pools (the reference's ``quantized=True`` bodies): with ``k_scales`` /
+``v_scales`` -- one float32 scale per pool row ``(R,)`` -- K1, K2, K4 and
+K5 take int8 K/V rows. Each tile is widened to float32 and multiplied by its
+routed row's scale before QK^T and PV, as the reference's
+``_online_softmax_tile`` does (``repro/kernels/lean_decode.py:74-114``);
+everything after the load is the float path's softmax and merge. On the
+card the queries are bf16 (the model's dtype) and the scales contiguous
+float32.
+
 A wrapper launches its kernel for CUDA tensors and runs the plain version
 for CPU tensors -- only because the tensors lie on the CPU; there is no
 fallback from a failed launch. The plain versions walk the same descriptors
@@ -147,21 +156,40 @@ def _check_cuda(q_seg, k_rows, v_rows, seg_ctx, route):
                            route=route)
 
 
-def _check_no_scales(k_scales, v_scales):
-    if k_scales is not None or v_scales is not None:
-        raise NotImplementedError(
-            "int8 KV scales are not ported yet (ROADMAP queue 1, item 9)"
-        )
+def scale_rows(k_rows, k_scales, v_scales):
+    """An int8 pool's scales -- ``(R,)``, or ``(num_pages, Hkv)`` for the
+    ``(num_pages * Hkv, ...)`` pool rows -- as one contiguous float32 scale
+    per pool row ``(R,)`` (a view where they are already so); ``None, None``
+    for a float pool. Scales come with int8 K/V rows and only with them."""
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("k_scales and v_scales come together")
+    if (k_scales is not None) != (k_rows.dtype == torch.int8):
+        raise ValueError("int8 K/V rows take k_scales/v_scales, float rows none")
+    if k_scales is None:
+        return None, None
+    R = k_rows.shape[0]
+    out = []
+    for t in (k_scales, v_scales):
+        if t.numel() != R or t.device != k_rows.device:
+            raise ValueError(f"scales must hold one value per pool row ({R}) on the pool's device")
+        out.append(t.reshape(R).float().contiguous())
+    return out[0], out[1]
+
+
+def _deq(rows, scales, idx):
+    """Pool rows ``idx`` widened to float32, times their scales if int8."""
+    x = rows[idx].float()
+    return x if scales is None else x * scales[idx][..., None, None]
 
 
 P_, I_, F_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ENTRY_POINTS = {
     SOURCE: {
         "lean_decode_partials_launch": [
-            I_, P_, P_, P_, P_, I_, I_, I_, P_, P_, P_, P_, P_, I_, I_, I_, F_, P_,
+            I_, P_, P_, P_, P_, P_, P_, I_, I_, I_, P_, P_, P_, P_, P_, I_, I_, I_, F_, P_,
         ],
         "lean_decode_fused_launch": [
-            I_, P_, P_, P_, P_, I_, I_, I_, P_, P_, P_, P_, P_, P_, P_, P_, P_, P_,
+            I_, P_, P_, P_, P_, P_, P_, I_, I_, I_, P_, P_, P_, P_, P_, P_, P_, P_, P_, P_,
             I_, I_, I_, F_, P_,
         ],
     },
@@ -170,7 +198,7 @@ _ENTRY_POINTS = {
     },
     CASCADE_SOURCE: {
         "lean_cascade_fused_launch": [
-            I_, P_, P_, P_, P_, P_, I_, I_, I_, I_, I_, P_, P_, P_, P_, P_, P_, P_,
+            I_, P_, P_, P_, P_, P_, P_, P_, I_, I_, I_, I_, I_, P_, P_, P_, P_, P_, P_, P_,
             P_, P_, P_, P_, P_, I_, I_, I_, I_, I_, F_, P_,
         ],
     },
@@ -191,10 +219,13 @@ def _library(source: str = SOURCE) -> ctypes.CDLL:
 # ------------------------------------------------------------ plain versions
 def lean_decode_partials_plain(q_seg, k_rows, v_rows, seg_ctx, route,
                                sched: LeanSchedule, scale: float,
-                               seg_qstart=None, chunk_cap: int = 1):
+                               seg_qstart=None, chunk_cap: int = 1,
+                               k_scales=None, v_scales=None):
     """Plain PyTorch K1: walks the descriptor columns of every worker in
     step ``t`` order, as the kernel does, vectorised over the workers.
     Returns ``(o_p (P, gq, d), m_p (P, gq), l_p (P, gq))`` in float32.
+    ``k_scales``/``v_scales`` (``(R,)`` float32) dequantize int8 rows: each
+    tile is widened and multiplied by its row's scale before the products.
 
     With ``seg_qstart`` it is K4's walk (:mod:`.lean_prefill`): the ``gq``
     rows are ``(g, chunk_cap)`` flattened chunk-minor and row ``r`` of
@@ -203,6 +234,7 @@ def lean_decode_partials_plain(q_seg, k_rows, v_rows, seg_ctx, route,
     S, gq, d = q_seg.shape
     dev = q_seg.device
     tile, G, T, P = sched.tile_size, sched.num_workers, sched.tiles_per_worker, sched.num_pieces
+    ks, vs = scale_rows(k_rows, k_scales, v_scales)
     desc = schedule_tensors(sched, dev)["desc"].long().view(7, G, T)
     rt = route[: G * T].long().view(G, T)
     ctx = seg_ctx.long()
@@ -232,8 +264,8 @@ def lean_decode_partials_plain(q_seg, k_rows, v_rows, seg_ctx, route,
             qpos = seg_qstart.long()[segc][:, None] + row_pos[None, :]            # (G, gq)
             mask = mask & ((tl * tile)[:, None, None] + pos[None, None, :] <= qpos[..., None])
         q = q_seg[segc].float()                                   # (G, gq, d)
-        k = k_rows[rt[:, t]].float()                              # (G, tile, d)
-        v = torch.where(in_len[..., None], v_rows[rt[:, t]].float(), 0.0)
+        k = _deq(k_rows, ks, rt[:, t])                            # (G, tile, d)
+        v = torch.where(in_len[..., None], _deq(v_rows, vs, rt[:, t]), 0.0)
         s = torch.einsum("gqd,gtd->gqt", q, k) * scale
         s = torch.where(mask, s, torch.full_like(s, NEG_INF))
         m_new = torch.maximum(m, s.amax(dim=-1))
@@ -288,10 +320,11 @@ def merge_pieces_plain(o_p, m_p, l_p, sched: LeanSchedule):
 
 
 def lean_decode_fused_plain(q_seg, k_rows, v_rows, seg_ctx, route,
-                            sched: LeanSchedule, scale: float):
+                            sched: LeanSchedule, scale: float, k_scales=None, v_scales=None):
     """Plain PyTorch K2: the K1 walk, then the per-segment piece-order merge."""
     o_p, m_p, l_p = lean_decode_partials_plain(
-        q_seg, k_rows, v_rows, seg_ctx, route, sched, scale
+        q_seg, k_rows, v_rows, seg_ctx, route, sched, scale,
+        k_scales=k_scales, v_scales=v_scales,
     )
     return merge_pieces_plain(o_p, m_p, l_p, sched)
 
@@ -304,12 +337,14 @@ def lean_decode_partials(q_seg, k_rows, v_rows, seg_ctx, route,
     """K1. ``q_seg (S, gq, d)``; ``k_rows``/``v_rows (R, tile, d)``;
     ``seg_ctx (S,)`` int32 runtime lengths; ``route (>= G*T,)`` int32 pool
     row per descriptor column. Returns float32 ``(o_p (P, gq, d), m_p (P,
-    gq), l_p (P, gq))``: per-piece un-scaled partials."""
+    gq), l_p (P, gq))``: per-piece un-scaled partials. int8 rows take
+    ``k_scales``/``v_scales``, one float32 scale per pool row."""
     global partials_launches
-    _check_no_scales(k_scales, v_scales)
     _check_operands(q_seg, k_rows, v_rows, seg_ctx, route, sched)
+    ks, vs = scale_rows(k_rows, k_scales, v_scales)
     if q_seg.device.type == "cpu":
-        return lean_decode_partials_plain(q_seg, k_rows, v_rows, seg_ctx, route, sched, scale)
+        return lean_decode_partials_plain(q_seg, k_rows, v_rows, seg_ctx, route, sched, scale,
+                                          k_scales=ks, v_scales=vs)
     _check_cuda(q_seg, k_rows, v_rows, seg_ctx, route)
     S, gq, d = q_seg.shape
     P = sched.num_pieces
@@ -318,8 +353,8 @@ def lean_decode_partials(q_seg, k_rows, v_rows, seg_ctx, route,
     m_p = torch.empty(P + 1, gq, dtype=torch.float32, device=q_seg.device)
     l_p = torch.empty(P + 1, gq, dtype=torch.float32, device=q_seg.device)
     err = _library().lean_decode_partials_launch(
-        build.DTYPE_CODE[q_seg.dtype], build.ptr(q_seg), build.ptr(k_rows), build.ptr(v_rows),
-        build.ptr(st["desc"]), sched.grid_iters, sched.tiles_per_worker,
+        build.dtype_code(q_seg, k_rows), build.ptr(q_seg), build.ptr(k_rows), build.ptr(v_rows),
+        build.ptr(ks), build.ptr(vs), build.ptr(st["desc"]), sched.grid_iters, sched.tiles_per_worker,
         sched.num_workers, build.ptr(seg_ctx), build.ptr(route),
         build.ptr(o_p), build.ptr(m_p), build.ptr(l_p), gq, d, sched.tile_size, float(scale),
         build.stream(q_seg.device),
@@ -336,10 +371,11 @@ def lean_decode_fused(q_seg, k_rows, v_rows, seg_ctx, route,
     """K2: operands as :func:`lean_decode_partials`. Returns float32
     ``(o (S, gq, d), lse (S, gq))``."""
     global fused_launches
-    _check_no_scales(k_scales, v_scales)
     _check_operands(q_seg, k_rows, v_rows, seg_ctx, route, sched)
+    ks, vs = scale_rows(k_rows, k_scales, v_scales)
     if q_seg.device.type == "cpu":
-        return lean_decode_fused_plain(q_seg, k_rows, v_rows, seg_ctx, route, sched, scale)
+        return lean_decode_fused_plain(q_seg, k_rows, v_rows, seg_ctx, route, sched, scale,
+                                       k_scales=ks, v_scales=vs)
     _check_cuda(q_seg, k_rows, v_rows, seg_ctx, route)
     S, gq, d = q_seg.shape
     P, dev = sched.num_pieces, q_seg.device
@@ -351,8 +387,8 @@ def lean_decode_fused(q_seg, k_rows, v_rows, seg_ctx, route,
     o = torch.empty(S, gq, d, dtype=torch.float32, device=dev)
     lse = torch.empty(S, gq, dtype=torch.float32, device=dev)
     err = _library().lean_decode_fused_launch(
-        build.DTYPE_CODE[q_seg.dtype], build.ptr(q_seg), build.ptr(k_rows), build.ptr(v_rows),
-        build.ptr(st["desc"]), sched.grid_iters, sched.tiles_per_worker,
+        build.dtype_code(q_seg, k_rows), build.ptr(q_seg), build.ptr(k_rows), build.ptr(v_rows),
+        build.ptr(ks), build.ptr(vs), build.ptr(st["desc"]), sched.grid_iters, sched.tiles_per_worker,
         sched.num_workers, build.ptr(seg_ctx), build.ptr(route),
         build.ptr(st["piece_start"]), build.ptr(st["piece_count"]), build.ptr(arrivals),
         build.ptr(o_p), build.ptr(m_p), build.ptr(l_p), build.ptr(o), build.ptr(lse),
@@ -467,7 +503,8 @@ def _check_cascade(q_pref, q_suf, k_rows, v_rows, ctx_all, route, csched: Cascad
 
 
 def lean_cascade_fused_plain(q_pref, q_suf, k_rows, v_rows, ctx_all, route,
-                             fdesc: CascadeFusedDesc, csched: CascadeSchedule, scale: float):
+                             fdesc: CascadeFusedDesc, csched: CascadeSchedule, scale: float,
+                             k_scales=None, v_scales=None):
     """Plain PyTorch K5: the K1 walk of the prefix phase and of the suffix
     phase (the fused descriptors' partial section), the pieces laid out as
     the kernel's scratch ``(P_tot + 1, qmax, d)``, then each target's merge
@@ -476,10 +513,11 @@ def lean_cascade_fused_plain(q_pref, q_suf, k_rows, v_rows, ctx_all, route,
     nph = csched.num_groups * csched.num_kv_heads
     S, g, d = q_suf.shape
     qmax, dev = q_pref.shape[1], q_pref.device
+    sc = dict(k_scales=k_scales, v_scales=v_scales)
     parts_p = lean_decode_partials_plain(q_pref, k_rows, v_rows, ctx_all[:nph],
-                                         route[: pre.grid_iters], pre, scale)
+                                         route[: pre.grid_iters], pre, scale, **sc)
     parts_s = lean_decode_partials_plain(q_suf, k_rows, v_rows, ctx_all[nph:],
-                                         route[pre.grid_iters:], suf, scale)
+                                         route[pre.grid_iters:], suf, scale, **sc)
     Pp, Ptot = pre.num_pieces, csched.num_pieces_total
     o_all = torch.zeros(Ptot + 1, qmax, d, dtype=torch.float32, device=dev)
     m_all = torch.zeros(Ptot + 1, qmax, dtype=torch.float32, device=dev)
@@ -504,21 +542,25 @@ def lean_cascade_fused_plain(q_pref, q_suf, k_rows, v_rows, ctx_all, route,
 
 
 def lean_cascade_fused(q_pref, q_suf, k_rows, v_rows, ctx_all, route,
-                       fdesc: CascadeFusedDesc, csched: CascadeSchedule, scale: float
+                       fdesc: CascadeFusedDesc, csched: CascadeSchedule, scale: float,
+                       k_scales=None, v_scales=None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K5. ``q_pref (NP*Hkv, qmax, d)``: each prefix segment's stacked
     member queries (``qmax = group_size * g``); ``q_suf (B*Hkv, g, d)``;
     ``k_rows``/``v_rows (R, tile, d)`` pool rows; ``ctx_all (NP*Hkv +
     B*Hkv,)`` int32 runtime lengths, prefix segments first; ``route`` int32
     pool row per partial column, prefix columns first; ``fdesc`` from
-    :func:`cascade_fused_desc`. Returns float32 ``(o (B*Hkv, g, d), lse
-    (B*Hkv, g))``."""
+    :func:`cascade_fused_desc`; int8 rows take ``k_scales``/``v_scales``.
+    Returns float32 ``(o (B*Hkv, g, d), lse (B*Hkv, g))``."""
     global cascade_launches
     _check_cascade(q_pref, q_suf, k_rows, v_rows, ctx_all, route, csched)
+    ks, vs = scale_rows(k_rows, k_scales, v_scales)
     if q_pref.device.type == "cpu":
         return lean_cascade_fused_plain(q_pref, q_suf, k_rows, v_rows, ctx_all, route, fdesc,
-                                        csched, scale)
-    build.check_dtypes(q_pref, q_suf, k_rows, v_rows)
+                                        csched, scale, k_scales=ks, v_scales=vs)
+    build.check_dtypes(q_suf, k_rows, v_rows)
+    if q_pref.dtype != q_suf.dtype:
+        raise TypeError(f"q_pref {q_pref.dtype} and q_suf {q_suf.dtype} differ")
     if ctx_all.dtype != torch.int32 or route.dtype != torch.int32:
         raise TypeError("ctx_all and route must be int32")
     S, g, d = q_suf.shape
@@ -537,8 +579,8 @@ def lean_cascade_fused(q_pref, q_suf, k_rows, v_rows, ctx_all, route,
     o = torch.empty(S, g, d, dtype=torch.float32, device=dev)
     lse = torch.empty(S, g, dtype=torch.float32, device=dev)
     err = _library(CASCADE_SOURCE).lean_cascade_fused_launch(
-        build.DTYPE_CODE[q_suf.dtype], build.ptr(q_pref), build.ptr(q_suf), build.ptr(k_rows),
-        build.ptr(v_rows), build.ptr(fdesc.desc), fdesc.desc.shape[1], pre.grid_iters,
+        build.dtype_code(q_suf, k_rows), build.ptr(q_pref), build.ptr(q_suf), build.ptr(k_rows),
+        build.ptr(v_rows), build.ptr(ks), build.ptr(vs), build.ptr(fdesc.desc), fdesc.desc.shape[1], pre.grid_iters,
         pre.tiles_per_worker, suf.tiles_per_worker, pre.num_workers, build.ptr(ctx_all),
         build.ptr(route), build.ptr(fdesc.tgt_start), build.ptr(fdesc.tgt_count),
         build.ptr(fdesc.pt_start), build.ptr(fdesc.pt_tgt), build.ptr(arrivals),

@@ -13,7 +13,11 @@ writes per-piece partials ``(o, m, l)`` and the decode merge
 The CUDA source is ``csrc/lean_prefill.cu`` (its note says what bounds it:
 K4 is the port's first kernel above the ridge point). On Hopper the rows of
 a segment are split into blocks of 64 per CTA: one segment's f32
-accumulators no longer fit a CTA.
+accumulators no longer fit a CTA. A page whose float32 tile does not fit a
+CTA's shared memory beside the row block's state is walked in sub-tiles
+(:func:`row_sub_tile`); a page that fits is one tile, as before. With
+``k_scales``/``v_scales`` the pool rows are int8 (the reference's quantized
+body): each tile is widened and scaled as it is loaded.
 
 The wrapper launches the kernel for CUDA tensors and runs the plain version
 for CPU tensors -- only because the tensors lie on the CPU; a failed launch
@@ -30,7 +34,7 @@ import torch
 
 from repro_torch.core.leantile import LeanSchedule
 from . import build
-from .lean_decode import _check_no_scales, _check_operands, lean_decode_partials_plain, schedule_tensors
+from .lean_decode import _check_operands, lean_decode_partials_plain, scale_rows, schedule_tensors
 
 SOURCE = "lean_prefill.cu"
 BLOCK_ROWS = 64                 # query rows per CTA (attn_tile.cuh kBlockRows)
@@ -53,11 +57,27 @@ def row_smem_bytes(d: int, tile: int) -> int:
                 + 5 * BLOCK_ROWS)
 
 
+def row_sub_tile(d: int, tile: int) -> int:
+    """Keys per sub-tile of the row-block update (``attn::row_sub_tile``):
+    the whole tile where its shared memory fits :data:`SMEM_LIMIT` -- so a
+    page that fitted before runs the same single update -- else the largest
+    of 128, 64, 32, 16 or 8 keys (at most the tile) that fits; 0 if none
+    does."""
+    if row_smem_bytes(d, tile) <= SMEM_LIMIT:
+        return tile
+    sub = min(tile, 128)
+    while sub >= 8:
+        if row_smem_bytes(d, sub) <= SMEM_LIMIT:
+            return sub
+        sub //= 2
+    return 0
+
+
 def check_row_kernel(d: int, tile: int, what: str):
-    if row_smem_bytes(d, tile) > SMEM_LIMIT:
+    if row_sub_tile(d, tile) == 0:
         raise ValueError(
-            f"{what}: head_dim {d} with tiles of {tile} keys needs "
-            f"{row_smem_bytes(d, tile)} bytes of shared memory, more than {SMEM_LIMIT}"
+            f"{what}: head_dim {d} needs {row_smem_bytes(d, 8)} bytes of shared memory "
+            f"even with sub-tiles of 8 keys, more than {SMEM_LIMIT}"
         )
 
 
@@ -66,7 +86,7 @@ def _library() -> ctypes.CDLL:
     if not getattr(lib, "_argtypes_set", False):
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.lean_prefill_partials_launch.argtypes = [
-            I, P, P, P, P, I, I, I, P, P, P, P, P, P, I, I, I, I, F, P,
+            I, P, P, P, P, P, P, I, I, I, P, P, P, P, P, P, I, I, I, I, F, P,
         ]
         lib.lean_prefill_partials_launch.restype = I
         lib._argtypes_set = True
@@ -74,13 +94,14 @@ def _library() -> ctypes.CDLL:
 
 
 def lean_prefill_partials_plain(q_seg, k_rows, v_rows, seg_ctx, seg_qstart, route,
-                                sched: LeanSchedule, scale: float, chunk_cap: int):
+                                sched: LeanSchedule, scale: float, chunk_cap: int,
+                                k_scales=None, v_scales=None):
     """Plain PyTorch K4: the descriptor walk of K1 in the same order, rows
     masked chunk-causally. Returns float32 ``(o_p (P, g*C, d), m_p (P,
     g*C), l_p (P, g*C))``."""
     return lean_decode_partials_plain(
         q_seg, k_rows, v_rows, seg_ctx, route, sched, scale,
-        seg_qstart=seg_qstart, chunk_cap=chunk_cap,
+        seg_qstart=seg_qstart, chunk_cap=chunk_cap, k_scales=k_scales, v_scales=v_scales,
     )
 
 
@@ -91,12 +112,13 @@ def lean_prefill_chunk_partials(q_seg, k_rows, v_rows, seg_ctx, seg_qstart, rout
     """K4. ``q_seg (S, g*C, d)``; ``k_rows``/``v_rows (R, tile, d)`` pool
     rows; ``seg_ctx (S,)`` int32 visible KV lengths (offset + chunk length);
     ``seg_qstart (S,)`` int32 absolute position of each segment's first
-    query; ``route (>= G*T,)`` int32 pool row per descriptor column. Returns
-    float32 per-piece partials ``(o_p (P, g*C, d), m_p (P, g*C), l_p (P,
+    query; ``route (>= G*T,)`` int32 pool row per descriptor column; int8
+    rows take ``k_scales``/``v_scales``, one float32 scale per pool row.
+    Returns float32 per-piece partials ``(o_p (P, g*C, d), m_p (P, g*C), l_p (P,
     g*C))``: a row that sees no key of a piece has ``m = -1e30, l = 0``."""
     global launches
-    _check_no_scales(k_scales, v_scales)
     _check_operands(q_seg, k_rows, v_rows, seg_ctx, route, sched)
+    ks, vs = scale_rows(k_rows, k_scales, v_scales)
     rows = q_seg.shape[1]
     if rows % chunk_cap:
         raise ValueError(f"{rows} query rows per segment are not g x chunk_cap {chunk_cap}")
@@ -104,7 +126,7 @@ def lean_prefill_chunk_partials(q_seg, k_rows, v_rows, seg_ctx, seg_qstart, rout
         raise ValueError("seg_qstart must be (S,) on the device of q_seg")
     if q_seg.device.type == "cpu":
         return lean_prefill_partials_plain(q_seg, k_rows, v_rows, seg_ctx, seg_qstart, route,
-                                           sched, scale, chunk_cap)
+                                           sched, scale, chunk_cap, k_scales=ks, v_scales=vs)
     build.check_dtypes(q_seg, k_rows, v_rows)
     if any(t.dtype != torch.int32 for t in (seg_ctx, seg_qstart, route)):
         raise TypeError("seg_ctx, seg_qstart and route must be int32")
@@ -118,8 +140,8 @@ def lean_prefill_chunk_partials(q_seg, k_rows, v_rows, seg_ctx, seg_qstart, rout
     m_p = torch.empty(P + 1, rows, dtype=torch.float32, device=dev)
     l_p = torch.empty(P + 1, rows, dtype=torch.float32, device=dev)
     err = _library().lean_prefill_partials_launch(
-        build.DTYPE_CODE[q_seg.dtype], build.ptr(q_seg), build.ptr(k_rows), build.ptr(v_rows),
-        build.ptr(st["desc"]), sched.grid_iters, sched.tiles_per_worker, sched.num_workers,
+        build.dtype_code(q_seg, k_rows), build.ptr(q_seg), build.ptr(k_rows), build.ptr(v_rows),
+        build.ptr(ks), build.ptr(vs), build.ptr(st["desc"]), sched.grid_iters, sched.tiles_per_worker, sched.num_workers,
         build.ptr(seg_ctx), build.ptr(seg_qstart), build.ptr(route),
         build.ptr(o_p), build.ptr(m_p), build.ptr(l_p), rows, int(chunk_cap), d, tile,
         float(scale), build.stream(dev),

@@ -34,6 +34,13 @@ routed by ``seg * (S_pad/tile) + tile``. Dense and paged decode of equal
 logical inputs therefore run the identical op sequence and agree bit for bit
 (the reference's promise, ``repro/kernels/lean_decode.py:523-532``).
 
+int8 pools: the ``'paged'``, ``'cascade'`` and ``'verify'`` plans take
+``k_scales``/``v_scales`` ``(num_pages, Hkv)`` float32 beside int8 pools,
+and the kernels dequantize each routed tile with its pool row's scale (the
+reference's ``repro/kernels/ops.py:467-514``). The reference's fused budget
+differs for int8 (``kv_elem_bytes=1``); here, again, ``fused`` alone
+decides.
+
 The schedule is built on the host from host context lengths, as in the
 paper; ``seg_ctx`` carries the true lengths at run time and the kernels mask
 with it, which is what keeps bucketed (cached) schedules exact.
@@ -236,6 +243,8 @@ def decode(
     page_tbl: Optional[torch.Tensor] = None,
     qstart: Optional[torch.Tensor] = None,
     cascade: Optional[CascadeOperands] = None,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
 ):
     """The one decode dispatcher: ``plan`` picks the kernel family, the
     tensors ride alongside. ``kv`` is dense per-slot ``(k, v)`` for
@@ -245,33 +254,41 @@ def decode(
     suffix lengths for ``'cascade'``, the visible KV (offset + chunk length)
     for ``'verify'``. ``qstart`` (verify only) is the per-segment absolute
     position of query row 0; ``cascade`` (cascade only) the grouping's
-    tensors."""
+    tensors. ``k_scales``/``v_scales`` ``(num_pages, Hkv)`` come with int8
+    pools (paged kinds only)."""
     k, v = kv
-    if plan.kind == "dense":
-        return _dense_decode_impl(q, k, v, ctx, plan)
-    if plan.kind == "flash":
+    sc = (k_scales, v_scales)
+    if plan.kind in ("dense", "flash"):
+        if k_scales is not None:
+            raise ValueError("quantized KV requires the paged layout")
+        if plan.kind == "dense":
+            return _dense_decode_impl(q, k, v, ctx, plan)
         return _flash_decode_impl(q, k, v, ctx, plan)
     if plan.kind == "cascade":
         if cascade is None:
             raise ValueError("cascade plans need CascadeOperands")
-        return _cascade_decode_impl(q, k, v, ctx, cascade, plan)
+        return _cascade_decode_impl(q, k, v, ctx, cascade, plan, *sc)
     if page_tbl is None:
         raise ValueError(f"{plan.kind!r} plans need page_tbl")
     if plan.kind == "paged":
-        return _paged_decode_impl(q, k, v, ctx, page_tbl, plan)
+        return _paged_decode_impl(q, k, v, ctx, page_tbl, plan, *sc)
     if qstart is None:
         raise ValueError("verify plans need qstart")
-    return _verify_impl(q, k, v, ctx, qstart, page_tbl, plan)
+    return _verify_impl(q, k, v, ctx, qstart, page_tbl, plan, *sc)
 
 
-def _run(q_seg, k_rows, v_rows, seg_ctx, route, plan: DecodePlan):
-    """K2, or K1 + the two-phase merge, at scale 1/sqrt(d). Returns
-    (o_seg (S, gq, d), lse (S, gq))."""
+def _run(q_seg, k_rows, v_rows, seg_ctx, route, plan: DecodePlan, k_scales=None,
+         v_scales=None):
+    """K2, or K1 + the two-phase merge, at scale 1/sqrt(d), with an int8
+    pool's scales (one per pool row) where given. Returns (o_seg (S, gq,
+    d), lse (S, gq))."""
     sched = plan.sched
     scale = 1.0 / math.sqrt(q_seg.shape[-1])
+    sc = dict(k_scales=k_scales, v_scales=v_scales)
     if plan.fused:
-        return lean_decode_fused(q_seg, k_rows, v_rows, seg_ctx, route, sched, scale)
-    o_p, m_p, l_p = lean_decode_partials(q_seg, k_rows, v_rows, seg_ctx, route, sched, scale)
+        return lean_decode_fused(q_seg, k_rows, v_rows, seg_ctx, route, sched, scale, **sc)
+    o_p, m_p, l_p = lean_decode_partials(q_seg, k_rows, v_rows, seg_ctx, route, sched, scale,
+                                         **sc)
     return _merge_two_phase(o_p, m_p, l_p, sched, plan.merge_impl, plan.return_lse)
 
 
@@ -336,7 +353,8 @@ def _pool_rows(k_pool, v_pool):
     )
 
 
-def _paged_decode_impl(q, k_pool, v_pool, seg_ctx, page_tbl, plan: DecodePlan):
+def _paged_decode_impl(q, k_pool, v_pool, seg_ctx, page_tbl, plan: DecodePlan,
+                       k_scales=None, v_scales=None):
     B, Hq, d = q.shape
     num_pages, Hkv, page_size, _ = k_pool.shape
     sched = plan.sched
@@ -350,7 +368,7 @@ def _paged_decode_impl(q, k_pool, v_pool, seg_ctx, page_tbl, plan: DecodePlan):
     route = _paged_route(sched, page_tbl, Hkv)
     o_seg, lse = _run(
         q.reshape(B * Hkv, gq, d).contiguous(), k_rows, v_rows,
-        seg_ctx.to(torch.int32).contiguous(), route, plan,
+        seg_ctx.to(torch.int32).contiguous(), route, plan, k_scales, v_scales,
     )
     return _finish(o_seg, lse, q, plan)
 
@@ -424,6 +442,8 @@ def lean_decode_paged_from_schedule(
     fused: bool = True,
     merge_impl: str = "xla",
     return_lse: bool = False,
+    k_scales: Optional[torch.Tensor] = None,   # int8 pools: (num_pages, Hkv) float32
+    v_scales: Optional[torch.Tensor] = None,
 ):
     """Paged stream-K decode against a prebuilt schedule
     (``sched.tile_size`` must equal the pool's page size; every id in
@@ -434,7 +454,8 @@ def lean_decode_paged_from_schedule(
     """
     plan = DecodePlan(kind="paged", sched=sched, fused=fused, merge_impl=merge_impl,
                       return_lse=return_lse)
-    return decode(q, (k_pool, v_pool), plan=plan, ctx=seg_ctx, page_tbl=page_tbl)
+    return decode(q, (k_pool, v_pool), plan=plan, ctx=seg_ctx, page_tbl=page_tbl,
+                  k_scales=k_scales, v_scales=v_scales)
 
 
 def lean_decode_paged(
@@ -449,9 +470,12 @@ def lean_decode_paged(
     merge_impl: str = "xla",
     schedule_cache: Optional[ScheduleCache] = None,
     return_lse: bool = False,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
 ):
     """Convenience paged decode: builds (or cache-fetches) the schedule from
-    host context lengths, then runs :func:`lean_decode_paged_from_schedule`.
+    host context lengths, then runs :func:`lean_decode_paged_from_schedule`
+    (int8 pools with ``k_scales``/``v_scales``).
 
     Lengths clamp, with a warning, to each sequence's allocated capacity:
     its non-null table entries (page 0 is the null page) times the page
@@ -482,7 +506,7 @@ def lean_decode_paged(
     tbl = torch.as_tensor(ptbl_np, dtype=torch.int32).to(q.device)
     return lean_decode_paged_from_schedule(
         q, k_pool, v_pool, seg_ctx, tbl, sched, fused=fused, merge_impl=merge_impl,
-        return_lse=return_lse,
+        return_lse=return_lse, k_scales=k_scales, v_scales=v_scales,
     )
 
 
@@ -528,6 +552,8 @@ def lean_decode_cascade_from_schedule(
     *,
     fused: bool = True,
     return_lse: bool = False,
+    k_scales: Optional[torch.Tensor] = None,   # int8 pools: (num_pages, Hkv) float32
+    v_scales: Optional[torch.Tensor] = None,
 ):
     """Cascade (prefix-grouped) paged LeanAttention decode against a
     prebuilt membership-free schedule: the grouped prefix pass(es), the
@@ -544,11 +570,12 @@ def lean_decode_cascade_from_schedule(
     plan = DecodePlan(kind="cascade", sched=csched, fused=fused, return_lse=return_lse)
     ops_c = CascadeOperands(prefix_lens=prefix_lens, members=members, prefix_tbl=prefix_tbl,
                             suffix_tbl=suffix_tbl, fused_desc=fused_desc)
-    return decode(q, (k_pool, v_pool), plan=plan, ctx=seg_ctx_suffix, cascade=ops_c)
+    return decode(q, (k_pool, v_pool), plan=plan, ctx=seg_ctx_suffix, cascade=ops_c,
+                  k_scales=k_scales, v_scales=v_scales)
 
 
 def _cascade_decode_impl(q, k_pool, v_pool, seg_ctx_suffix, ops_c: CascadeOperands,
-                         plan: DecodePlan):
+                         plan: DecodePlan, k_scales=None, v_scales=None):
     csched = plan.sched
     B, Hq, d = q.shape
     num_pages, Hkv, page_size, _ = k_pool.shape
@@ -563,6 +590,7 @@ def _cascade_decode_impl(q, k_pool, v_pool, seg_ctx_suffix, ops_c: CascadeOperan
     g, nmax, NP = Hq // Hkv, csched.group_size, csched.num_groups
     pre, suf = csched.prefix_sched, csched.suffix_sched
     k_rows, v_rows = _pool_rows(k_pool, v_pool)
+    sc = dict(k_scales=k_scales, v_scales=v_scales)
     members = ops_c.members.to(q.device)
 
     # stacked member queries of each (pass, head): padding ranks carry
@@ -581,7 +609,7 @@ def _cascade_decode_impl(q, k_pool, v_pool, seg_ctx_suffix, ops_c: CascadeOperan
             raise ValueError("fused cascade plans need fused_desc")
         o_seg, lse = lean_cascade_fused(
             q_pref, q_suf, k_rows, v_rows, torch.cat([ctx_p, ctx_s]).contiguous(),
-            torch.cat([route_p, route_s]).contiguous(), ops_c.fused_desc, csched, scale,
+            torch.cat([route_p, route_s]).contiguous(), ops_c.fused_desc, csched, scale, **sc,
         )
         return _finish(o_seg, lse, q, plan)
 
@@ -589,8 +617,10 @@ def _cascade_decode_impl(q, k_pool, v_pool, seg_ctx_suffix, ops_c: CascadeOperan
     # merge. A prefix piece of (pass j, head h) expands to one row block
     # per member rank, aimed at sequence segment members[j, i] * Hkv + h;
     # padding ranks aim at B * Hkv, which segment_merge drops.
-    o_p, m_p, l_p = lean_decode_partials(q_pref, k_rows, v_rows, ctx_p, route_p, pre, scale)
-    o_s, m_s, l_s = lean_decode_partials(q_suf, k_rows, v_rows, ctx_s, route_s, suf, scale)
+    o_p, m_p, l_p = lean_decode_partials(q_pref, k_rows, v_rows, ctx_p, route_p, pre, scale,
+                                         **sc)
+    o_s, m_s, l_s = lean_decode_partials(q_suf, k_rows, v_rows, ctx_s, route_s, suf, scale,
+                                         **sc)
     Pp = pre.num_pieces
     part = AttnPartial(
         o=torch.cat([o_p.reshape(Pp, nmax, g, d).transpose(0, 1).reshape(nmax * Pp, g, d), o_s]),
@@ -620,6 +650,8 @@ def lean_decode_cascade(
     fused: bool = True,
     schedule_cache: Optional[ScheduleCache] = None,
     return_lse: bool = False,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
 ):
     """Convenience cascade decode: builds (or cache-fetches) the cascade
     schedule and binding from host lengths and grouping, derives the phase
@@ -666,6 +698,7 @@ def lean_decode_cascade(
     return lean_decode_cascade_from_schedule(
         q, k_pool, v_pool, seg_ctx_suffix, i32(binding.prefix_lens), i32(binding.members),
         i32(prefix_tbl), i32(suffix_tbl), fdesc, csched, fused=fused, return_lse=return_lse,
+        k_scales=k_scales, v_scales=v_scales,
     )
 
 
@@ -679,6 +712,8 @@ def lean_prefill_chunks(
     sched: LeanSchedule,
     *,
     merge_impl: str = "xla",
+    k_scales: Optional[torch.Tensor] = None,   # int8 pools: (num_pages, Hkv) float32
+    v_scales: Optional[torch.Tensor] = None,
 ):
     """Stream-K chunked prefill against a prebuilt chunk schedule
     (:func:`repro_torch.core.leantile.make_chunk_schedule` over the pack's
@@ -693,10 +728,11 @@ def lean_prefill_chunks(
     """
     plan = DecodePlan(kind="verify", sched=sched, merge_impl=merge_impl, spec_rows=q.shape[2])
     return decode(q, (k_pool, v_pool), plan=plan, ctx=seg_ctx, page_tbl=page_tbls,
-                  qstart=seg_qstart)
+                  qstart=seg_qstart, k_scales=k_scales, v_scales=v_scales)
 
 
-def _verify_impl(q, k_pool, v_pool, seg_ctx, seg_qstart, page_tbls, plan: DecodePlan):
+def _verify_impl(q, k_pool, v_pool, seg_ctx, seg_qstart, page_tbls, plan: DecodePlan,
+                 k_scales=None, v_scales=None):
     N, Hq, C, d = q.shape
     num_pages, Hkv, page_size, _ = k_pool.shape
     sched = plan.sched
@@ -715,6 +751,7 @@ def _verify_impl(q, k_pool, v_pool, seg_ctx, seg_qstart, page_tbls, plan: Decode
     o_p, m_p, l_p = lean_prefill_chunk_partials(
         q_seg, k_rows, v_rows, seg_ctx.to(torch.int32).contiguous(),
         seg_qstart.to(torch.int32).contiguous(), route, sched, scale, chunk_cap=C,
+        k_scales=k_scales, v_scales=v_scales,
     )
     o_seg, _ = _merge_two_phase(o_p, m_p, l_p, sched, plan.merge_impl, need_lse=False)
     return o_seg.reshape(N, Hq, C, d).to(q.dtype)

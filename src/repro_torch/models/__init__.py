@@ -1,6 +1,7 @@
 """Transformer model for the port's serving paths (port of ``repro.models``)."""
 from .transformer import (
     ModelConfig,
+    cache_from_numpy,
     decode_step,
     init_cache,
     init_paged_cache,

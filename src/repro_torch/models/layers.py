@@ -18,7 +18,9 @@ from repro_torch.core.attention import (
     mha_decode_ref,
     mha_prefill_ref,
     paged_gather_kv,
+    paged_gather_kv_dequant,
     paged_scatter_tokens,
+    paged_scatter_tokens_quant,
 )
 
 COMPUTE_DTYPE = torch.bfloat16
@@ -163,6 +165,9 @@ def attn_decode_paged(
     rope_theta: float,
     ctx_lens: torch.Tensor,       # (B,) per-slot lengths
     attn_fn: Optional[Callable] = None,   # f(q, k_pool, v_pool, ctx) -> out
+    k_scale: Optional[torch.Tensor] = None,   # int8 pools: (num_pages, Hkv) float32
+    v_scale: Optional[torch.Tensor] = None,
+    scale_per_head: bool = True,
 ):
     """One decode step of a global-attention layer against the paged pool.
 
@@ -174,6 +179,13 @@ def attn_decode_paged(
     receives the pools and the visible lengths; without one the pools are
     gathered to dense per-slot KV for the plain reference. Returns
     ``(out, k_pool, v_pool)``.
+
+    ``k_scale``/``v_scale`` mark int8 pools (reference
+    ``repro/models/layers.py:206-316``): the token write goes through
+    :func:`paged_scatter_tokens_quant` (scales grow, touched pages
+    requantize, in place), ``attn_fn`` receives the int8 pools with
+    ``k_scales=``/``v_scales=``, and the plain path gathers through
+    :func:`paged_gather_kv_dequant` to bf16.
     """
     B = x.shape[0]
     ps = k_pool.shape[2]
@@ -183,14 +195,27 @@ def attn_decode_paged(
     q = rope(q, pos, rope_theta)
     k = rope(k, pos, rope_theta)
     write_pos = torch.clamp(ctx_lens, max=capacity - 1).long()
-    pages_w = page_tbl[torch.arange(B, device=page_tbl.device), write_pos // ps].long()
-    offs = write_pos % ps
-    k_pool[pages_w, :, offs] = k[:, 0].to(k_pool.dtype)
-    v_pool[pages_w, :, offs] = v[:, 0].to(v_pool.dtype)
+    quant = k_scale is not None
+    if quant:
+        ones = torch.ones(B, dtype=torch.int32, device=x.device)
+        paged_scatter_tokens_quant(k_pool, k_scale, page_tbl, write_pos, ones, k, scale_per_head)
+        paged_scatter_tokens_quant(v_pool, v_scale, page_tbl, write_pos, ones, v, scale_per_head)
+    else:
+        pages_w = page_tbl[torch.arange(B, device=page_tbl.device), write_pos // ps].long()
+        offs = write_pos % ps
+        k_pool[pages_w, :, offs] = k[:, 0].to(k_pool.dtype)
+        v_pool[pages_w, :, offs] = v[:, 0].to(v_pool.dtype)
     ctx = torch.clamp(ctx_lens + 1, max=capacity).to(torch.int32)
     qd = q.reshape(B, n_heads, head_dim)
     if attn_fn is not None:
-        o = attn_fn(qd, k_pool, v_pool, ctx)
+        sc = dict(k_scales=k_scale, v_scales=v_scale) if quant else {}
+        o = attn_fn(qd, k_pool, v_pool, ctx, **sc)
+    elif quant:
+        o = mha_decode_ref(
+            qd, paged_gather_kv_dequant(k_pool, k_scale, page_tbl, dtype=COMPUTE_DTYPE),
+            paged_gather_kv_dequant(v_pool, v_scale, page_tbl, dtype=COMPUTE_DTYPE),
+            ctx_lens=ctx,
+        )
     else:
         o = mha_decode_ref(
             qd, paged_gather_kv(k_pool, page_tbl), paged_gather_kv(v_pool, page_tbl),
@@ -215,6 +240,9 @@ def attn_prefill_chunk_paged(
     head_dim: int,
     rope_theta: float,
     attn_fn: Optional[Callable] = None,   # f(q, k_pool, v_pool, page_tbls, offs) -> o
+    k_scale: Optional[torch.Tensor] = None,   # int8 pools: (num_pages, Hkv) float32
+    v_scale: Optional[torch.Tensor] = None,
+    scale_per_head: bool = True,
 ):
     """Chunked-prefill attention of a global-attention layer against the
     paged pool: each row is ``C`` positions of one prompt from absolute
@@ -228,22 +256,45 @@ def attn_prefill_chunk_paged(
     tables and the offsets; without one the plain oracle
     :func:`mha_chunk_prefill_paged_ref` runs. Pad rows give garbage confined
     to their own rows. Returns ``(out, k_pool, v_pool)``.
+
+    With ``k_scale``/``v_scale`` (int8 pools, reference
+    ``repro/models/layers.py:318-380``) the writes go through
+    :func:`paged_scatter_tokens_quant`, ``attn_fn`` receives the int8 pools
+    with ``k_scales=``/``v_scales=``, and the plain path dequantizes the
+    whole pools to bf16 for the oracle.
     """
     N, C, _ = x.shape
     q, k, v = _project_qkv(p, x.to(COMPUTE_DTYPE), n_heads, n_kv, head_dim)
     pos = offs.to(x.device).long()[:, None] + torch.arange(C, device=x.device)[None, :]
     q = rope(q, pos, rope_theta)
     k = rope(k, pos, rope_theta)
-    paged_scatter_tokens(k_pool, page_tbls, offs, lens, k)
-    paged_scatter_tokens(v_pool, page_tbls, offs, lens, v)
+    quant = k_scale is not None
+    if quant:
+        paged_scatter_tokens_quant(k_pool, k_scale, page_tbls, offs, lens, k, scale_per_head)
+        paged_scatter_tokens_quant(v_pool, v_scale, page_tbls, offs, lens, v, scale_per_head)
+    else:
+        paged_scatter_tokens(k_pool, page_tbls, offs, lens, k)
+        paged_scatter_tokens(v_pool, page_tbls, offs, lens, v)
     qh = q.transpose(1, 2)                                  # (N, Hq, C, hd)
     if attn_fn is not None:
-        o = attn_fn(qh, k_pool, v_pool, page_tbls, offs)
+        sc = dict(k_scales=k_scale, v_scales=v_scale) if quant else {}
+        o = attn_fn(qh, k_pool, v_pool, page_tbls, offs, **sc)
+    elif quant:
+        o = mha_chunk_prefill_paged_ref(qh, dequant_pool(k_pool, k_scale),
+                                        dequant_pool(v_pool, v_scale), page_tbls, offs)
     else:
         o = mha_chunk_prefill_paged_ref(qh, k_pool, v_pool, page_tbls, offs)
     o = o.transpose(1, 2).reshape(N, C, n_heads * head_dim)
     out = o.to(COMPUTE_DTYPE) @ p["wo"].to(COMPUTE_DTYPE)
     return out.to(x.dtype), k_pool, v_pool
+
+
+def dequant_pool(pool: torch.Tensor, scales: torch.Tensor,
+                 dtype: torch.dtype = COMPUTE_DTYPE) -> torch.Tensor:
+    """A whole int8 pool ``(num_pages, H, page_size, d)`` widened to float32,
+    times its ``(num_pages, H)`` scales, cast to ``dtype`` (the reference's
+    plain chunk path and its ``fixed`` chunk attention)."""
+    return (pool.float() * scales[:, :, None, None]).to(dtype)
 
 
 def ffn_forward(p, x: torch.Tensor):

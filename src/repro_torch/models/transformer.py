@@ -10,9 +10,10 @@ use, so the values multiplied are the same. Norm weights stay float32.
 
 A decode cache is a list with one ``{"k", "v"}`` dict per layer: dense
 per-slot rows ``(batch, Hkv, cache_len, hd)`` (:func:`init_cache`) or page
-pools ``(num_pages, Hkv, page_size, hd)`` (:func:`init_paged_cache`);
-:func:`decode_step` and :func:`prefill_chunks` write new K/V into it in
-place.
+pools ``(num_pages, Hkv, page_size, hd)`` (:func:`init_paged_cache`; with
+``kv_cache_dtype="int8"`` int8 pools and ``"k_scale"``/``"v_scale"``
+``(num_pages, Hkv)`` float32 beside them); :func:`decode_step` and
+:func:`prefill_chunks` write new K/V into it in place.
 """
 from __future__ import annotations
 
@@ -92,10 +93,10 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: sinusoidal positions are not ported yet (ROADMAP queue 1, item 14)"
         )
-    if cfg.kv_cache_dtype != "bf16":
+    if cfg.kv_cache_dtype not in ("bf16", "int8"):
         raise NotImplementedError(
             f"{cfg.name}: kv_cache_dtype {cfg.kv_cache_dtype!r} is not ported yet "
-            "(ROADMAP queue 1, item 9)"
+            "(ROADMAP queue 1, item 18)"
         )
 
 
@@ -181,6 +182,29 @@ def params_from_numpy(tree, cfg: ModelConfig, device: DeviceLike = "cuda") -> Di
     return params
 
 
+def cache_from_numpy(tree, cfg: ModelConfig, device: DeviceLike = "cuda"
+                     ) -> List[Dict[str, torch.Tensor]]:
+    """The port's decode cache from the JAX package's cache tree as numpy
+    (``jax.tree.map(np.asarray, cache)``): the stacked ``stages`` become one
+    dict per layer; int8 pools stay int8, scales float32, K/V bf16 -- so a
+    JAX engine's pools can be compared with, or handed to, the port's."""
+    dev = resolve_device(device)
+
+    def conv(name, a):
+        a = np.asarray(a)
+        if a.dtype == np.int8:
+            return torch.from_numpy(a.copy()).to(dev)
+        t = torch.from_numpy(np.array(a, dtype=np.float32))
+        return t.to(device=dev, dtype=torch.float32 if name.endswith("_scale") else torch.bfloat16)
+
+    layers = []
+    for (pattern, reps), stage in zip(cfg.stages, tree):
+        for r in range(reps):
+            for unit in stage:
+                layers.append({k: conv(k, v[r]) for k, v in unit.items()})
+    return layers
+
+
 def _index(node, r):
     if isinstance(node, dict):
         return {k: _index(v, r) for k, v in node.items()}
@@ -207,17 +231,37 @@ def init_cache(
 def init_paged_cache(
     cfg: ModelConfig, num_pages: int, page_size: int, device: DeviceLike = "cuda"
 ) -> List[Dict[str, torch.Tensor]]:
-    """Paged decode state: per layer, bf16 K and V page pools
-    ``(num_pages, H_kv, page_size, head_dim)``. One allocator's page ids
-    index every layer's pools. Page 0 is the null page."""
+    """Paged decode state: per layer, K and V page pools ``(num_pages,
+    H_kv, page_size, head_dim)``, bf16 -- or with ``kv_cache_dtype ==
+    "int8"`` int8, with ``"k_scale"``/``"v_scale"`` leaves ``(num_pages,
+    H_kv)`` float32, one symmetric scale per (page, kv head), 0 for an
+    untouched page (reference ``repro/models/transformer.py:237-280``; all
+    writes then go through
+    :func:`repro_torch.core.attention.paged_scatter_tokens_quant`). One
+    allocator's page ids index every layer's pools. Page 0 is the null
+    page."""
     check_supported(cfg)
     dev = resolve_device(device)
     shape = (num_pages, cfg.n_kv_heads, page_size, cfg.head_dim)
-    return [
-        {"k": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
-         "v": torch.zeros(shape, dtype=torch.bfloat16, device=dev)}
-        for _ in range(cfg.n_layers)
-    ]
+    quant = cfg.kv_cache_dtype == "int8"
+    dtype = torch.int8 if quant else torch.bfloat16
+    cache = []
+    for _ in range(cfg.n_layers):
+        lc = {"k": torch.zeros(shape, dtype=dtype, device=dev),
+              "v": torch.zeros(shape, dtype=dtype, device=dev)}
+        if quant:
+            for name in ("k_scale", "v_scale"):
+                lc[name] = torch.zeros(num_pages, cfg.n_kv_heads, dtype=torch.float32, device=dev)
+        cache.append(lc)
+    return cache
+
+
+def _scale_kw(cfg: ModelConfig, lc: Dict[str, torch.Tensor]) -> Dict:
+    """The int8 scale operands of one layer's paged cache (none for bf16)."""
+    if "k_scale" not in lc:
+        return {}
+    return dict(k_scale=lc["k_scale"], v_scale=lc["v_scale"],
+                scale_per_head=cfg.kv_scale_granularity == "page_head")
 
 
 # ------------------------------------------------------------------ forward
@@ -250,12 +294,16 @@ def _prefill_attn(cfg: ModelConfig, L: int, device: torch.device) -> Callable:
     return mha_prefill_ref
 
 
-def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, cache_len: int):
-    """Forward over the prompt ``tokens (B, L)`` at its exact length.
+def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, cache_len: int,
+            true_len: Optional[int] = None):
+    """Forward over the prompt ``tokens (B, L)``.
 
     Returns ``(last_logits (B, V) float32, cache, cur_len)`` where
     ``cache[i] = {"k", "v"}`` holds layer ``i``'s K/V ``(B, Hkv, cache_len,
-    hd)`` in bf16, zero past ``L``.
+    hd)`` in bf16, zero past ``L``. With ``true_len`` (the reference's
+    bucketed prefill) ``tokens`` is a prompt padded to a bucket: the logits
+    are those of position ``true_len - 1`` and ``cur_len`` is ``true_len``;
+    the cache rows past it hold the pad tokens' K/V, as the reference's do.
 
     The attention is causal with ``q_offset`` 0: on CUDA tensors it runs the
     Hopper kernel K7 (:func:`flash_prefill`) at every prompt length -- the
@@ -286,8 +334,9 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, cache_len: int):
             "k": torch.nn.functional.pad(kh.to(torch.bfloat16), pad),
             "v": torch.nn.functional.pad(vh.to(torch.bfloat16), pad),
         })
-    x_last = rms_norm(x[:, -1], params["final_norm"], cfg.norm_eps)
-    return _unembed(params, cfg, x_last), cache, L
+    n = L if true_len is None else int(true_len)
+    x_last = rms_norm(x[:, n - 1], params["final_norm"], cfg.norm_eps)
+    return _unembed(params, cfg, x_last), cache, n
 
 
 def decode_step(
@@ -315,7 +364,7 @@ def decode_step(
         xn = rms_norm(x, lp["ln1"], cfg.norm_eps)
         if page_tbl is not None:
             h, lc["k"], lc["v"] = attn_decode_paged(lp["attn"], xn, lc["k"], lc["v"], page_tbl,
-                                                    **kw)
+                                                    **kw, **_scale_kw(cfg, lc))
         else:
             h, lc["k"], lc["v"] = attn_decode(lp["attn"], xn, lc["k"], lc["v"], **kw)
         x = _ffn_part(lp, x + h, cfg)
@@ -357,7 +406,7 @@ def _chunk_forward(
             lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps),
             lc["k"], lc["v"], page_tbls, offs, lens,
             n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
-            rope_theta=cfg.rope_theta, attn_fn=attn_fn,
+            rope_theta=cfg.rope_theta, attn_fn=attn_fn, **_scale_kw(cfg, lc),
         )
         x = _ffn_part(lp, x + h, cfg)
     return x

@@ -46,11 +46,27 @@ paper §IV-C/Fig. 6.
     for ``stable_ticks`` ticks, decode runs the cascade: shared pages walked
     once per group (K5, or K1 on each pass + merge with ``fused=False``).
 
+With ``PagedConfig(kv_dtype="int8")`` (or a model config whose
+``kv_cache_dtype`` is ``"int8"``) the page pools hold int8 with one float32
+scale per (page, kv head) -- twice the pages of a bf16 pool in the same
+memory. Admission quantizes whole pages and sets their scales; chunk and
+decode writes go through the quantizing scatter, whose scales only grow;
+copy-on-write copies the int8 content and its scales verbatim. ``lean``
+runs the int8 kernels (K2, K1, K4, K5 dequantize each tile with its row's
+scale); ``fixed`` dequantizes first -- decode gathers the pages to float32
+and runs K6 on them (with the queries widened to float32, as the
+reference's K6 widens everything inside), chunks widen the pools to bf16
+for K8; ``ref`` gathers through the dequantizing gather. int8 needs the
+paged pools: on a dense cache it is a ValueError, as in the reference.
+
 Where the reference jits each step with the KV cache donated, the port
 updates the page pools and the dense rows in place (index assignment) and
 runs eagerly.
-Blocking prefill runs at the exact prompt length (the reference's bucketing
-only bounds XLA compiles, and the positions it pads are masked anyway).
+Blocking prefill runs at the exact prompt length on bf16 pools (the
+reference's bucketing only bounds XLA compiles, and the positions it pads
+are masked). int8 engines prefill at the reference's bucket length
+(:func:`bucket_length`): the pad tokens' K/V land in the tail of the last
+page, and an admitted page's scale is the ``amax`` of the whole page.
 Latency observations (TTFT, TPOT, queue wait) are plain lists of seconds on
 :class:`EngineStats`, filled by the scheduler; the reference's histograms
 come with its metrics registry (ROADMAP queue 1, item 13).
@@ -60,18 +76,20 @@ their ROADMAP item.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.core.attention import paged_gather_kv
+from repro_torch.core.attention import paged_gather_kv, paged_gather_kv_dequant, quantize_kv_blocks
 from repro_torch.core.leantile import (
     CascadeBinding,
     CascadeSchedule,
     LeanSchedule,
     ScheduleCache,
+    bucket_length,
     cascade_fused_descriptors,
     default_tile_size,
     fixed_split_factor,
@@ -91,6 +109,7 @@ from repro_torch.kernels.ops import (
     lean_decode_paged_from_schedule,
     lean_prefill_chunks,
 )
+from repro_torch.models.layers import dequant_pool
 from repro_torch.models.transformer import (
     ModelConfig,
     check_supported,
@@ -187,8 +206,8 @@ class EngineStats:
 def _unported(cfg: ModelConfig, config: EngineConfig) -> Optional[str]:
     if config.spec.enabled:
         return "speculative decode (ROADMAP queue 1, item 10)"
-    if (config.paged.kv_dtype or cfg.kv_cache_dtype) != "bf16":
-        return "non-bf16 KV pools, int8 included (ROADMAP queue 1, item 9)"
+    if (config.paged.kv_dtype or cfg.kv_cache_dtype) not in ("bf16", "int8"):
+        return "f8, f16 and f32 KV pools (ROADMAP queue 1, item 18)"
     if config.guards is not None or config.faults is not None:
         return "guards and fault injection (ROADMAP queue 1, item 12)"
     obs = config.obs
@@ -230,6 +249,17 @@ class DecodeEngine:
                 "tensors and their plain versions on CPU tensors"
             )
         self.paged = config.paged.enabled
+        # kv_dtype overrides the model config's KV storage dtype for this
+        # engine; 'int8' turns on the quantized page pools
+        kv_dtype = config.paged.kv_dtype
+        if kv_dtype is not None and kv_dtype != cfg.kv_cache_dtype:
+            cfg = dataclasses.replace(cfg, kv_cache_dtype=kv_dtype)
+        self.quant = self.paged and cfg.kv_cache_dtype == "int8"
+        if cfg.kv_cache_dtype == "int8" and not self.paged:
+            raise ValueError(
+                "kv_dtype='int8' quantizes the paged pools and requires paged=True "
+                "(dense caches stay bf16)"
+            )
         self.use_fast_path = config.use_fast_path
         if self.paged and not self.use_fast_path:
             raise ValueError("paged KV requires the fast path (use_fast_path=True)")
@@ -351,10 +381,16 @@ class DecodeEngine:
             )
 
     def _run_prompt_prefill(self, prompt: np.ndarray):
-        """Whole-prompt prefill at the exact prompt length -> (last-position
-        logits (1, V), per-layer K/V of the one slot)."""
-        toks = torch.as_tensor(np.asarray(prompt, dtype=np.int64)[None, :]).to(self.device)
-        logits, cache1, _ = prefill(self.params, self.cfg, toks, cache_len=self.cache_len)
+        """Whole-prompt prefill -> (last-position logits (1, V), per-layer
+        K/V of the one slot): at the exact prompt length, or on int8 pools
+        padded with token 0 to the reference's bucket (the pad positions'
+        K/V count in the last page's scale)."""
+        plen = len(prompt)
+        toks = np.zeros((1, bucket_length(plen, self.tile, max_len=self.cache_len)
+                         if self.quant else plen), dtype=np.int64)
+        toks[0, :plen] = np.asarray(prompt)
+        logits, cache1, _ = prefill(self.params, self.cfg, torch.as_tensor(toks).to(self.device),
+                                    cache_len=self.cache_len, true_len=plen)
         return logits, cache1
 
     def _write_slot(self, cache1, slot: int):
@@ -368,10 +404,14 @@ class DecodeEngine:
     def _write_slot_paged(self, cache1, pages: List[int]):
         """Copy-on-admit: scatter the fresh prefill K/V into the slot's
         pages, in place. Whole pages are written (tail padded), so stale
-        data in recycled pages is overwritten."""
+        data in recycled pages is overwritten. int8 pools quantize each
+        page and *set* its scale to the fresh content's ``amax / 127``
+        (reference ``_pages_admit_write_quant``): no old content survives,
+        so nothing is requantized."""
         n = len(pages)
         need = n * self.tile
         idx = torch.as_tensor(pages, dtype=torch.long, device=self.device)
+        per_head = self.cfg.kv_scale_granularity == "page_head"
         for lc, lc1 in zip(self.cache, cache1):
             for name in ("k", "v"):
                 src = lc1[name][0]                         # (H, cache_len, hd)
@@ -379,7 +419,12 @@ class DecodeEngine:
                 if need > L:
                     src = torch.nn.functional.pad(src, (0, 0, 0, need - L))
                 chunks = src[:, :need].reshape(H, n, self.tile, hd).movedim(1, 0)
-                lc[name][idx] = chunks.to(lc[name].dtype)
+                if self.quant:
+                    q, sc = quantize_kv_blocks(chunks, per_head=per_head)
+                    lc[name][idx] = q
+                    lc[f"{name}_scale"][idx] = sc
+                else:
+                    lc[name][idx] = chunks.to(lc[name].dtype)
 
     def admit_blocking(self, req: Request, slot: int) -> bool:
         """Whole-prompt prefill into ``slot``, its cache row or pages
@@ -481,9 +526,10 @@ class DecodeEngine:
     def _copy_page(self, src: int, dst: int):
         """Copy-on-write's device side: page ``src`` onto page ``dst`` in
         every layer's K and V pools, in place (the reference clones it into
-        a donated cache)."""
+        a donated cache). An int8 page's content and its scales are copied
+        verbatim: exact, nothing requantized."""
         for lc in self.cache:
-            for name in ("k", "v"):
+            for name in lc:
                 lc[name][dst].copy_(lc[name][src])
 
     def _cow_tile(self, slot: int, t: int) -> bool:
@@ -603,13 +649,21 @@ class DecodeEngine:
             seg_ctx = torch.clamp(offs + lens, min=1).to(torch.int32).repeat_interleave(n_kv)
             seg_qstart = offs.to(torch.int32).repeat_interleave(n_kv)
 
-            def attn_fn(q, k_pool, v_pool, tbls, o):
-                return lean_prefill_chunks(q, k_pool, v_pool, seg_ctx, seg_qstart, tbls, sched)
+            def attn_fn(q, k_pool, v_pool, tbls, o, k_scales=None, v_scales=None):
+                return lean_prefill_chunks(q, k_pool, v_pool, seg_ctx, seg_qstart, tbls, sched,
+                                           k_scales=k_scales, v_scales=v_scales)
 
             return attn_fn
         if self.attn_backend == "fixed":
-            return lambda q, k_pool, v_pool, tbls, o: flash_prefill_paged(
-                q.contiguous(), k_pool, v_pool, tbls, o.to(torch.int32))
+
+            def attn_fn(q, k_pool, v_pool, tbls, o, k_scales=None, v_scales=None):
+                if k_scales is not None:
+                    # K8 has no int8 body: widen the pool view to bf16 first
+                    # (reference engine.py:571-584)
+                    k_pool, v_pool = dequant_pool(k_pool, k_scales), dequant_pool(v_pool, v_scales)
+                return flash_prefill_paged(q.contiguous(), k_pool, v_pool, tbls, o.to(torch.int32))
+
+            return attn_fn
         return None
 
     def decode_token_width(self) -> int:
@@ -857,8 +911,10 @@ class DecodeEngine:
             if ptbl is None:
                 return lambda q, k, v, c: lean_decode_from_schedule(
                     q, k, v, c.repeat_interleave(n_kv), sched, fused=fused)
-            return lambda q, k, v, c: lean_decode_paged_from_schedule(
-                q, k, v, c.repeat_interleave(n_kv), ptbl, sched, fused=fused)
+            return lambda q, k, v, c, k_scales=None, v_scales=None: (
+                lean_decode_paged_from_schedule(
+                    q, k, v, c.repeat_interleave(n_kv), ptbl, sched, fused=fused,
+                    k_scales=k_scales, v_scales=v_scales))
         if self.attn_backend == "fixed":
             num_splits = fixed_split_factor(
                 int(sched.seg_len.max(initial=1)), sched.num_segments, self.tile,
@@ -866,9 +922,22 @@ class DecodeEngine:
             )
             tile = self.tile
             dense = (lambda x: x) if ptbl is None else (lambda pool: paged_gather_kv(pool, ptbl))
-            return lambda q, k, v, c: flash_decode_from_lens(
-                q, dense(k), dense(v), c.repeat_interleave(n_kv), num_splits=num_splits,
-                tile=tile)
+
+            def attn_fn(q, k, v, c, k_scales=None, v_scales=None):
+                seg = c.repeat_interleave(n_kv)
+                if k_scales is None:
+                    return flash_decode_from_lens(q, dense(k), dense(v), seg,
+                                                  num_splits=num_splits, tile=tile)
+                # int8 (reference engine.py:366-372): the pages gathered and
+                # dequantized to float32, which the reference's K6 reads with
+                # bf16 queries and widens to float32 inside; here the queries
+                # are widened first, for K6's one-dtype operands
+                kd = paged_gather_kv_dequant(k, k_scales, ptbl)
+                vd = paged_gather_kv_dequant(v, v_scales, ptbl)
+                return flash_decode_from_lens(q.float(), kd, vd, seg, num_splits=num_splits,
+                                              tile=tile).to(q.dtype)
+
+            return attn_fn
         return None
 
     def _make_attn_fn(self) -> Optional[Callable]:
@@ -930,11 +999,12 @@ class DecodeEngine:
         seq_prefix_len = i32(binding.seq_prefix_len)
         prefix_tbl, suffix_tbl = i32(prefix_tbl), i32(suffix_tbl)
 
-        def attn_fn(q, k_pool, v_pool, ctx_visible):
+        def attn_fn(q, k_pool, v_pool, ctx_visible, k_scales=None, v_scales=None):
             suffix = torch.clamp(ctx_visible.to(torch.int32) - seq_prefix_len, min=0)
             return lean_decode_cascade_from_schedule(
                 q, k_pool, v_pool, suffix.repeat_interleave(n_kv), prefix_lens, members,
                 prefix_tbl, suffix_tbl, fdesc, csched, fused=fused,
+                k_scales=k_scales, v_scales=v_scales,
             )
 
         logits, self.cache = decode_step(
@@ -979,6 +1049,13 @@ class DecodeEngine:
         if self.prefix_cache is not None:
             self.stats.prefix_cache = self.prefix_cache.as_dict()
         return out
+
+    def _kv_scale_arrays(self) -> List[np.ndarray]:
+        """Host copies of every int8 pool's ``(num_pages, Hkv)`` scales, K
+        then V per layer, for ``pool.check(scales=...)`` (live pages finite
+        and >= 0); empty for bf16 pools."""
+        return [lc[name].cpu().numpy() for lc in self.cache
+                for name in ("k_scale", "v_scale") if name in lc]
 
     def _log(self, log: List, item):
         log.append(item)

@@ -171,7 +171,7 @@ def test_unservable_request_is_refused(model):
     dict(guards=object()),
     dict(spec=SpecConfig(enabled=True)),
     dict(obs=ObsConfig(metrics=object())),
-    dict(paged=PagedConfig(enabled=True, kv_dtype="int8")),
+    dict(paged=PagedConfig(enabled=True, kv_dtype="f8")),
     dict(obs=ObsConfig(tracer=object())),
 ])
 def test_unported_configurations_raise(model, change):

@@ -8,8 +8,12 @@ They cover what ``chip_smoke.py`` does not: every row bucket the decode
 kernels are instantiated for, float32 and bf16, other tile, head and chunk
 sizes, grids of more workers than SMs, K5's determinism, K7 on the
 reference's prefill cases and the dense-cache engine against the paged one,
-and the tensor-core K7/K8 (bf16 at d 64 and 128): their edges, keys past a
-chunk holding NaN, their launch counters and refusals.
+the tensor-core K7/K8 (bf16 at d 64 and 128): their edges, keys past a
+chunk holding NaN, their launch counters and refusals; the pages the
+engine can pick that the kernels once refused (12 and 100 rows, and 256
+at d 128, on K8, K4 and K6); and the int8 forms of K1, K2, K4 and K5 (bf16
+queries, int8 rows, a float32 scale per row, a zero-scale page reading
+exact zeros) and the int8 engine on the card against the CPU.
 Tolerance 2e-5: kernel and plain version both compute in float32 from the
 same inputs (K7's and K8's bf16 output: one bf16 step plus 2e-5, since both
 round a float32 result; the tensor-core kernel keeps P to about 16 bits by
@@ -648,13 +652,16 @@ def test_tensor_core_counters_follow_the_path_rule(cuda):
 
 @pytest.mark.cuda
 def test_tensor_core_refusals(cuda):
-    """What the tensor-core kernel cannot take raises before any launch: a
-    page that is not a multiple of 8, an operand TMA cannot address."""
+    """A page that is not a multiple of 8 is no refusal: the path rule sends
+    it to the CUDA-core kernel. An operand TMA cannot address raises before
+    any launch."""
     qc, kp, vp, tbl = _chunk_operands(cuda, [0], [8], 4, 2, 128, 12, torch.bfloat16)
     off = torch.zeros(1, dtype=torch.int32, device=cuda)
     fp.reset_launch_counts()
-    with pytest.raises(ValueError, match="multiple of 8"):
-        fp.flash_prefill_paged(qc, kp, vp, tbl, off)
+    fp.flash_prefill_paged(qc, kp, vp, tbl, off)
+    torch.cuda.synchronize()
+    assert (fp.launches, fp.tc_launches) == (1, 0)
+    fp.reset_launch_counts()
     k = torch.zeros(1, 2, 16, 128, dtype=torch.bfloat16, device=cuda)
     flat = torch.zeros(1 + 4 * 16 * 128, dtype=torch.bfloat16, device=cuda)
     q = flat[1:].view(1, 4, 16, 128)             # contiguous, 2 bytes off alignment
@@ -702,3 +709,209 @@ def test_dense_engine_on_card_matches_paged(cuda):
     assert runs[False][0] == runs[True][0]
     for a, b in zip(runs[False][1], runs[True][1]):
         torch.testing.assert_close(a, b, rtol=2**-5, atol=2**-5)
+
+
+# ------------------------------------------------------- page sizes (fault 1)
+# (page, d, dtypes): pages the engine can pick that are not a multiple of 8
+# (12, and 100 for a 100-token cache: min(default_tile_size, cache_len)),
+# and a page of 256 keys at d 128, whose float32 tile does not fit the
+# row-block kernel's shared memory in one piece (walked in sub-tiles of 128)
+PAGE_CASES = [(12, 128, ["bfloat16"]), (100, 128, ["bfloat16"]),
+              (256, 128, ["float32", "bfloat16"])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page,d,dtypes", PAGE_CASES, ids=lambda c: str(c))
+def test_fixed_and_lean_take_any_page(cuda, page, d, dtypes):
+    """K8 (``fixed`` chunks) on every case, and K4 (``lean`` chunks) and K6
+    (``fixed`` decode) on the same pages, against their plain versions."""
+    Hq, Hkv, offs, lens = 8, 2, [300, 5], [100, 37]
+    for dtype in dtypes:
+        dt = getattr(torch, dtype)
+        q, kp, vp, tbl = _chunk_operands(cuda, offs, lens, Hq, Hkv, d, page, dt, seed=page)
+        N, _, C, _ = q.shape
+        q_off = torch.tensor(offs, dtype=torch.int32, device=cuda)
+        before = fp.launches
+        o8 = fp.flash_prefill_paged(q, kp, vp, tbl, q_off)
+        torch.cuda.synchronize()
+        assert fp.launches == before + 1
+        ref = fp.flash_prefill_paged_plain(q, kp, vp, tbl, q_off, 1.0 / math.sqrt(d))
+        for n, L in enumerate(lens):
+            assert _bf16_close(o8[n, :, :L], ref[n, :, :L]) if dt == torch.bfloat16 else \
+                torch.allclose(o8[n, :, :L], ref[n, :, :L], **TOL)
+        visible = [o + n for o, n in zip(offs, lens)]
+        sched = make_chunk_schedule(visible, Hkv, page, 24, max_len=tbl.shape[1] * page)
+        k_rows, v_rows = ops._pool_rows(kp, vp)
+        args = (q.reshape(N * Hkv, (Hq // Hkv) * C, d).contiguous(), k_rows, v_rows,
+                torch.tensor([v for v in visible for _ in range(Hkv)], dtype=torch.int32,
+                             device=cuda),
+                torch.tensor([o for o in offs for _ in range(Hkv)], dtype=torch.int32,
+                             device=cuda),
+                ops._paged_route(sched, tbl, Hkv), sched, 1.0 / math.sqrt(d), C)
+        for a, b in zip(lp.lean_prefill_chunk_partials(*args),
+                        lp.lean_prefill_partials_plain(*args)):
+            torch.testing.assert_close(a, b, **TOL)
+        dq, _, _, seg = _operands(cuda, [700, 1, 257], Hq // Hkv, Hkv, d, page, 24, dt,
+                                  seed=page)[:4]
+        s_pad = -(-700 // page) * page
+        kd = torch.randn(dq.shape[0], s_pad, d, device=cuda).to(dt)
+        vd = torch.randn(dq.shape[0], s_pad, d, device=cuda).to(dt)
+        fargs = (dq, kd, vd, seg, 3, page, 1.0 / math.sqrt(d))
+        for a, b in zip(fd.flash_decode_partials(*fargs), fd.flash_decode_partials_plain(*fargs)):
+            torch.testing.assert_close(a, b, **TOL)
+
+
+# ------------------------------------------------------------------ int8 K/V
+def _quantized(k_rows, v_rows, zero_rows=()):
+    """int8 rows and per-row float32 scales of float rows (the engine's
+    quantizer over each row, a (page, head)); ``zero_rows`` get scale 0."""
+    from repro_torch.core.attention import quantize_kv_blocks
+
+    out = []
+    for rows in (k_rows, v_rows):
+        q, s = quantize_kv_blocks(rows[:, None].float())
+        s = s.reshape(-1).clone()
+        s[list(zero_rows)] = 0.0
+        out += [q[:, 0].contiguous(), s]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gq,d,tile", [(2, 64, 16), (4, 128, 128), (12, 64, 16), (64, 128, 16),
+                                       (4, 128, 100)])
+def test_int8_decode_kernels_match_plain(cuda, gq, d, tile):
+    """K1-int8 and K2-int8 (bf16 queries, int8 rows, a float32 scale per
+    row) against their plain versions; a sequence whose pages all have
+    scale 0 reads exact zeros."""
+    Hkv = 2
+    args = list(_operands(cuda, [300, 1, 77, 40], gq, Hkv, d, tile, 24, torch.bfloat16,
+                          seed=gq))
+    sched, route = args[5], args[4]
+    # every pool row the last sequence (40 tokens) reads has scale 0
+    st = ld.schedule_tensors(sched, cuda)
+    last = route[: sched.grid_iters][(st["kv_batch"] == 3) & st["kv_ok"]].unique().tolist()
+    kq, ks, vq, vs = _quantized(args[1], args[2], last)
+    args[1], args[2] = kq, vq
+    sc = dict(k_scales=ks, v_scales=vs)
+    before = (ld.partials_launches, ld.fused_launches)
+    o, lse = ld.lean_decode_fused(*args, **sc)
+    parts = ld.lean_decode_partials(*args, **sc)
+    torch.cuda.synchronize()
+    assert (ld.partials_launches, ld.fused_launches) == (before[0] + 1, before[1] + 1)
+    o_ref, lse_ref = ld.lean_decode_fused_plain(*args, **sc)
+    torch.testing.assert_close(o, o_ref, **TOL)
+    torch.testing.assert_close(lse, lse_ref, **TOL)
+    for a, b in zip(parts, ld.lean_decode_partials_plain(*args, **sc)):
+        torch.testing.assert_close(a, b, **TOL)
+    assert not o[3 * Hkv:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CHUNK_CASES))
+def test_int8_chunk_kernel_matches_plain(cuda, case):
+    """K4-int8 against its plain version on the chunk cases."""
+    Hq, Hkv, d, tile, offs, lens, workers = CHUNK_CASES[case]
+    q, kp, vp, tbl = _chunk_operands(cuda, offs, lens, Hq, Hkv, d, tile, torch.bfloat16)
+    N, _, C, _ = q.shape
+    visible = [max(1, o + n) for o, n in zip(offs, lens)]
+    sched = make_chunk_schedule(visible, Hkv, tile, workers, max_len=tbl.shape[1] * tile)
+    kq, ks, vq, vs = _quantized(*ops._pool_rows(kp, vp))
+    args = (q.reshape(N * Hkv, (Hq // Hkv) * C, d).contiguous(), kq, vq,
+            torch.tensor([v for v in visible for _ in range(Hkv)], dtype=torch.int32,
+                         device=cuda),
+            torch.tensor([o for o in offs for _ in range(Hkv)], dtype=torch.int32, device=cuda),
+            ops._paged_route(sched, tbl, Hkv), sched, 1.0 / math.sqrt(d), C)
+    before = lp.launches
+    parts = lp.lean_prefill_chunk_partials(*args, k_scales=ks, v_scales=vs)
+    torch.cuda.synchronize()
+    assert lp.launches == before + 1
+    for a, b in zip(parts, lp.lean_prefill_partials_plain(*args, k_scales=ks, v_scales=vs)):
+        torch.testing.assert_close(a, b, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CASCADES))
+def test_int8_cascade_matches_plain(cuda, case):
+    """K5-int8 against its plain version; shared and duplicated pages give
+    the same bits."""
+    c = _cascade_problem(cuda, case, torch.bfloat16)
+    args = list(_cascade_args(c, c["tbl"]))
+    kq, ks, vq, vs = _quantized(args[2], args[3])
+    args[2], args[3] = kq, vq
+    before = ld.cascade_launches
+    o, lse = ld.lean_cascade_fused(*args, k_scales=ks, v_scales=vs)
+    torch.cuda.synchronize()
+    assert ld.cascade_launches == before + 1
+    o_ref, lse_ref = ld.lean_cascade_fused_plain(*args, k_scales=ks, v_scales=vs)
+    torch.testing.assert_close(o, o_ref, **TOL)
+    torch.testing.assert_close(lse, lse_ref, **TOL)
+    dup = list(_cascade_args(c, c["dup"]))
+    kd, ksd, vd, vsd = _quantized(dup[2], dup[3])
+    dup[2], dup[3] = kd, vd
+    o3, lse3 = ld.lean_cascade_fused(*dup, k_scales=ksd, v_scales=vsd)
+    assert torch.equal(o, o3) and torch.equal(lse, lse3)
+
+
+@pytest.mark.cuda
+def test_int8_refusals(cuda):
+    """int8 rows take bf16 queries and a head dim that is a multiple of 16."""
+    args = list(_operands(cuda, [40], 4, 1, 64, 16, 4, torch.float32))
+    kq, ks, vq, vs = _quantized(args[1], args[2])
+    args[1], args[2] = kq, vq
+    with pytest.raises(TypeError, match="bf16 queries"):
+        ld.lean_decode_fused(*args, k_scales=ks, v_scales=vs)
+    args = list(_operands(cuda, [40], 4, 1, 24, 16, 4, torch.bfloat16))
+    kq, ks, vq, vs = _quantized(args[1], args[2])
+    args[1], args[2] = kq, vq
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ld.lean_decode_fused(*args, k_scales=ks, v_scales=vs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["lean", "fixed"])
+def test_int8_engine_on_card_matches_cpu(cuda, backend):
+    """The smoke-config int8 engine under the Scheduler with chunked prefill
+    on the card (K4-int8 / K2-int8 on ``lean``; K8 / K6 on dequantized K/V
+    on ``fixed``) against the same on the CPU: every request served, the
+    int8 pools and scales within one int8 step of the CPU's (bf16 GEMMs
+    round in another order on the card), pool clean with its scales, each
+    kernel launched once per layer and step."""
+    import numpy as np
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.serving.config import EngineConfig, PagedConfig
+    from repro_torch.serving.engine import DecodeEngine
+    from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
+
+    cfg = get_smoke_config("mistral-nemo-12b")
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    first = {}
+    for dev in ("cpu", "cuda"):
+        p = {k: v.to(dev) if torch.is_tensor(v) else v for k, v in params.items()}
+        p["layers"] = [{k: ({kk: vv.to(dev) for kk, vv in v.items()} if isinstance(v, dict)
+                            else v.to(dev)) for k, v in layer.items()}
+                       for layer in params["layers"]]
+        eng = DecodeEngine(cfg, p, EngineConfig(
+            max_batch=2, cache_len=64, num_workers=8, attn_backend=backend,
+            paged=PagedConfig(enabled=True, page_size=16, kv_dtype="int8")), device=dev)
+        sch = Scheduler(eng, SchedulerConfig(chunk_size=8, prefill_pack=2, token_budget=16))
+        rng = np.random.default_rng(0)
+        hs = [sch.submit(rng.integers(0, cfg.vocab_size, 8 + 7 * i), 6, uid=i)
+              for i in range(4)]
+        for m in (ld, lp, fd, fp):
+            m.reset_launch_counts()
+        sch.step()
+        first[dev] = [lc["k_scale"].cpu().clone() for lc in eng.cache]
+        sch.run_to_completion(max_steps=400)
+        assert all(h.done and len(h.generated) == 6 for h in hs)
+        eng.pool.check(scales=eng._kv_scale_arrays())
+        assert eng.pool.num_allocated == 0
+        if dev == "cuda":
+            chunk_steps, ticks = len(eng.stats.tick_prefill_tokens), eng.stats.ticks
+            chunk_k, decode_k = (lp.launches, ld.fused_launches) if backend == "lean" else (
+                fp.launches, fd.launches)
+            assert chunk_k == cfg.n_layers * chunk_steps > 0
+            assert decode_k == cfg.n_layers * ticks > 0
+    for a, b in zip(first["cuda"], first["cpu"]):
+        torch.testing.assert_close(a, b, rtol=2**-6, atol=1e-6)

@@ -210,7 +210,7 @@ def test_wrapper_rejects_mixed_devices_and_scales():
     args = (_t(q.reshape(-1, 4, d)), _t(kp.reshape(-1, 8, d)), _t(vp.reshape(-1, 8, d)),
             _t(np.repeat(np.asarray(lens, np.int32), 2)),
             tops._paged_route(sched, _t(tbl), 2), sched, 0.25)
-    with pytest.raises(NotImplementedError, match="int8"):
+    with pytest.raises(ValueError, match="int8"):
         tld.lean_decode_fused(*args, k_scales=torch.ones(1), v_scales=torch.ones(1))
     with pytest.raises(ValueError, match="segments"):
         tld.lean_decode_partials(args[0][:1], *args[1:])
