@@ -13,12 +13,16 @@ Phases, in order; any failure exits non-zero and nothing catches it:
      Hq 32, Hkv 8, d 128, page = tile 128, one stream-K worker per SM, a
      ragged batch on shuffled pages): K1 (+ merge) and K2 against their
      plain PyTorch versions in float32 and bf16, dense == paged bit for
-     bit, kernel / plain / library times and the bound; then K4 and K8 on a
-     pack of two 256-token prompt chunks, K6 (fixed split) against K2 on
+     bit, kernel / plain / library times and the bound; then the fused K4
+     (stream-K chunk prefill with its merge in the launch: the chunk path's
+     kernel, on the tensor cores in bf16), K4's partials (the ``fused=False``
+     path) and K8 on a pack of two 256-token prompt chunks, K6 (fixed
+     split) against K2 on
      two decode shapes -- the paper's comparison -- and K7 (whole-prompt
      FA-2 prefill) on a 3000-token causal prompt, with a 1024-token sliding
-     window, and non-causal 37 x 150; then the int8 forms of K1, K2, K4 and
-     K5 (bf16 queries, int8 pool rows with a float32 scale per row) against
+     window, and non-causal 37 x 150; then the int8 forms of K1, K2, K4
+     (fused, and partials) and K5 (bf16 queries, int8 pool rows with a
+     float32 scale per row) against
      their plain versions on the same decode batch (one sequence on a
      zero-scale page, which must read exact zeros), chunk pack and shared
      prefix, timed beside SDPA on the K/V dequantized to bf16; and the page
@@ -33,14 +37,17 @@ Phases, in order; any failure exits non-zero and nothing catches it:
   6. the first decode tick of a ``'ref'``-backend engine against the lean
      one on the same weights and prompts;
   7. scheduler phases: the same prompts served by ``Scheduler`` with
-     chunked prefill on the ``lean`` backend (K4 chunks, K2 decode) and on
+     chunked prefill on the ``lean`` backend (fused K4 chunks, K2 decode) and
+     on
      ``fixed`` (K8 chunks, K6 decode), in turns lean, fixed, fixed, lean:
      steps, launches, TTFT, decode tokens flowing during the long prefill,
      first tokens against the blocking engine's; then one phase of each
-     under ``torch.profiler``: device busy, kernels, host syncs;
+     under ``torch.profiler``: device busy, kernels, host syncs
+     (``aten::item``);
   8. prefix-sharing serving phase: a 2048-token system prompt served once,
      then four requests that start with it, through the ``Scheduler`` with
-     the radix prefix cache and cascade decode (K4 tails, K5 cascade ticks,
+     the radix prefix cache and cascade decode (fused K4 tails, K5 cascade
+     ticks,
      K2 before the grouping holds), against the same waves with the prefix
      cache off: tokens matched and prefill skipped, peak pages, cascade
      ticks, launches, TTFT, first-token and cascade-tick logits;
@@ -57,15 +64,19 @@ Phases, in order; any failure exits non-zero and nothing catches it:
      bytes against bf16's, the logit gap and greedy agreement with the bf16
      engine), ``fused=False`` (K1-int8), the int8 ``ref`` engine's first tick
      against lean's; the Scheduler on ``ref`` (no kernel: what the
-     quantization alone moves), then on ``lean`` (K4-int8, K2-int8) and
+     quantization alone moves), then on ``lean`` (fused K4-int8, K2-int8) and
      ``fixed`` (K8 on pools widened to bf16, K6 on pages dequantized to
-     float32) in turns; prefix serving with cascade (K5-int8);
- 11. the kernel summary (one JSON line: K1-K8 and the four int8 forms), the
+     float32) in turns, and one phase of each traced (host syncs); prefix
+     serving with cascade (K5-int8);
+ 11. the kernel summary (one JSON line: K1-K8, the fused K4 and the int8
+     forms of K1, K2, K4 (fused and partials) and K5: 14 entries), the
      ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
 The kernel phase (3) also holds K3 (the merge kernel) against its plain
-version and ``segment_merge``, drives the ``merge_impl="pallas"`` plans of
-``ops.decode`` (dense, paged, verify), and holds K5 (fused cascade) against
+version and ``segment_merge``, drives the two-phase ``merge_impl="pallas"``
+plans of ``ops.decode`` (dense, paged, verify with ``fused=False`` on bf16
+and on int8 pages: K4's partials, then K3), and holds K5 (fused cascade)
+against
 its plain version, against the same cascade over duplicated pages (bit for
 bit), against K2 on the unshared batch and against the two-call cascade, on
 a 2048-token shared prefix and on a two-level grouping.
@@ -83,9 +94,11 @@ or K8 is compared the same way with
     python3 chip_smoke.py --prefill-kernel-times [OTHER_CHECKOUT/src]
 
 which prints one JSON line of K7's (the 3000-token causal prompt) and K8's
-(the two-chunk pack) median times, bf16 and f32. A change to the row-block
-kernels (K4, and K7 and K8 on the CUDA cores) is held to another checkout
-bit for bit with
+(the two-chunk pack) median times, bf16 and f32, and the fused K4's on the
+pack (bf16 and int8 pages, at 132, 66 and 16 stream-K workers). Both
+lines carry the card's ``nvidia-smi`` name and power limit. A change to
+the row-block kernels (K4's partials, and K7 and K8 on the CUDA cores and
+on the tensor cores) is held to another checkout bit for bit with
 
     python3 chip_smoke.py --row-kernel-bits OTHER_CHECKOUT/src
 
@@ -94,11 +107,13 @@ inputs, at pages that fit one tile, and prints one JSON line: outputs
 compared, bit-identical, differing.
 
 bf16 K7 and K8 at d 64 or 128 run on the tensor-core kernel (wgmma + TMA,
-``csrc/attn_tc.cuh``); the build step prints its ``-Xptxas -v`` lines, the
+``csrc/attn_tc.cuh``), and so does the fused K4 (``csrc/lean_prefill_tc.cu``,
+bf16 and int8 pages); the build step prints their ``-Xptxas -v`` lines, the
 K7 and K8 phases print each case's TFLOP/s beside SDPA's, and the engine,
-Scheduler and dense-engine phases check that every K7 and K8 launch went
-through it (``dense_tc_launches == dense_launches``, ``tc_launches ==
-launches``).
+Scheduler, prefix-serving and dense-engine phases check that every K7, K8
+and fused K4 launch went through them (``dense_tc_launches ==
+dense_launches``, ``tc_launches == launches``, ``fused_tc_launches ==
+fused_launches``).
 
 Imports ``repro_torch`` only, never JAX or the JAX package ``repro``.
 """
@@ -383,10 +398,16 @@ def decode_kernel_times(torch, sm_count: int, src: str) -> dict:
 
 def prefill_kernel_times(torch, src: str) -> dict:
     """K7's time on the 3000-token causal prompt and K8's on the two-chunk
-    pack (the K7 and K8 phases' shapes), bf16 and float32, for the kernels
-    of the ``repro_torch`` under ``src`` (built there at first use); median
-    of 20 runs each, L2 evicted before each run."""
+    pack (the K7 and K8 phases' shapes), bf16 and float32, and -- where the
+    checkout has it -- the fused K4's on the same pack, bf16 and int8, at
+    132, 66 and 16 stream-K workers (fewer workers, fewer and longer
+    pieces), for the kernels of the ``repro_torch`` under ``src`` (built
+    there at first use); median of 20 runs each, L2 evicted before each
+    run."""
+    from repro_torch.core.leantile import make_chunk_schedule
     from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import lean_prefill as lp
+    from repro_torch.kernels import ops
 
     check(os.path.abspath(fp.__file__).startswith(os.path.abspath(src) + os.sep),
           f"kernels imported from {fp.__file__}, not from {src}")
@@ -408,6 +429,22 @@ def prefill_kernel_times(torch, src: str) -> dict:
                                              gen, dev)
         out[f"K8 {dname}"] = gpu_ms(lambda: fp.flash_prefill_paged(q8, k_pool, v_pool, tbl,
                                                                    q_off))
+        if dtype != torch.bfloat16 or not hasattr(lp, "lean_prefill_fused"):
+            continue
+        visible = [o + CHUNK for o in CHUNK_OFFS]
+        i32 = lambda xs: torch.tensor([x for x in xs for _ in range(Hkv)], dtype=torch.int32,
+                                      device=dev)
+        kq, ks, vq, vs = quantized(torch, k_pool, v_pool)
+        pools = {"bfloat16": (k_pool, v_pool, {}),
+                 "int8": (kq, vq, dict(k_scales=ks, v_scales=vs))}
+        for workers in (132, 66, 16):
+            sched = make_chunk_schedule(visible, Hkv, tile, workers, max_len=max(visible) + tile)
+            for kind, (kp, vp, sc) in pools.items():
+                args = (q8.reshape(len(CHUNK_OFFS) * Hkv, -1, d).contiguous(),
+                        *ops._pool_rows(kp, vp), i32(visible), i32(CHUNK_OFFS),
+                        ops._paged_route(sched, tbl, Hkv), sched, 1.0 / math.sqrt(d), CHUNK)
+                out[f"K4 fused {kind}, {workers} workers ({sched.num_pieces} pieces)"] = gpu_ms(
+                    lambda: lp.lean_prefill_fused(*args, **sc))
     return out
 
 
@@ -431,15 +468,19 @@ def reset_launch_counts():
 
 
 def tensor_core_counts(what: str) -> dict:
-    """K7's and K8's tensor-core launches since the last reset; fails
-    unless every K7 and K8 launch went through the tensor-core kernel (the
-    main path is bf16 at d 128, where the path rule picks it)."""
+    """K7's, K8's and the fused K4's tensor-core launches since the last
+    reset; fails unless every launch of them went through a tensor-core
+    kernel (the main path is bf16 at d 128 on pages of 128, where the path
+    rule picks it)."""
     from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import lean_prefill as lp
 
-    tc = {"K7": fp.dense_tc_launches, "K8": fp.tc_launches}
-    check(tc["K7"] == fp.dense_launches and tc["K8"] == fp.launches,
+    tc = {"K7": fp.dense_tc_launches, "K8": fp.tc_launches, "K4f": lp.fused_tc_launches}
+    check(tc["K7"] == fp.dense_launches and tc["K8"] == fp.launches
+          and tc["K4f"] == lp.fused_launches,
           f"{what}: K7 launched {fp.dense_launches} times, {tc['K7']} on the tensor cores; "
-          f"K8 {fp.launches} times, {tc['K8']} on the tensor cores")
+          f"K8 {fp.launches} times, {tc['K8']} on the tensor cores; fused K4 "
+          f"{lp.fused_launches} times, {tc['K4f']} on the tensor cores")
     return tc
 
 
@@ -451,7 +492,9 @@ def tc_ptxas_lines(report: str):
     out, lines = [], report.splitlines()
     for i, line in enumerate(lines):
         m = re.search(r"Compiling entry function '.*row_block_kernelILi(\d+)E.*?((?:Dense|Paged)Walk)", line)
-        if not m:
+        k4 = re.search(r"Compiling entry function '.*lean_prefill_tc_kernelILi(\d+)ELb([01])E",
+                       line)
+        if not (m or k4):
             continue
         regs = spill = ""
         for nxt in lines[i + 1:i + 6]:
@@ -460,7 +503,9 @@ def tc_ptxas_lines(report: str):
             if "registers" in nxt:
                 regs = nxt.split(":", 1)[1].strip()
                 break
-        out.append((f"row_block_kernel<{m.group(1)}, {m.group(2)}>", regs, spill))
+        name = (f"row_block_kernel<{m.group(1)}, {m.group(2)}>" if m else
+                f"lean_prefill_tc_kernel<{k4.group(1)}, {('bf16', 'int8')[int(k4.group(2))]}>")
+        out.append((name, regs, spill))
     return out
 
 
@@ -471,8 +516,8 @@ def launch_counts():
     from repro_torch.kernels import lean_prefill as lp
 
     return {"K1": ld.partials_launches, "K2": ld.fused_launches, "K3": ld.merge_launches,
-            "K4": lp.launches, "K5": ld.cascade_launches, "K6": fd.launches,
-            "K7": fp.dense_launches, "K8": fp.launches}
+            "K4": lp.launches, "K4f": lp.fused_launches, "K5": ld.cascade_launches,
+            "K6": fd.launches, "K7": fp.dense_launches, "K8": fp.launches}
 
 
 # ------------------------------------------------------- chunked-prefill kernels
@@ -502,11 +547,15 @@ def chunk_pack(torch, offs, C, Hq, Hkv, d, tile, dtype, gen, dev):
 
 
 def prefill_kernel_phase(torch, sm_count: int, dev_name: str):
-    """K4 (stream-K chunk partials) and K8 (paged FA-2 chunk prefill) on a
-    pack of two 256-token chunks at offsets 2048 and 37, Mistral-NeMo-12B
-    attention shapes, against their plain versions; times, bounds and the
-    library yardstick (SDPA with the chunk-causal mask on the gathered K/V,
-    the g query heads of a KV head folded into rows)."""
+    """The fused K4 (stream-K chunk prefill with the merge in the launch: the
+    chunk path's kernel), K4's partials (the ``fused=False`` path) and K8
+    (paged FA-2 chunk prefill) on a pack of two 256-token chunks at offsets
+    2048 and 37, Mistral-NeMo-12B attention shapes, against their plain
+    versions; times, bounds and the library yardstick (SDPA with the
+    chunk-causal mask on the gathered K/V, the g query heads of a KV head
+    folded into rows). The fused K4's bound is the function's -- q, the
+    K/V seen and o once, and its flops, K8's work -- printed beside the
+    bound with its partials' round trip."""
     from repro_torch.core.attention import paged_gather_kv
     from repro_torch.core.leantile import make_chunk_schedule
     from repro_torch.core.merge import AttnPartial, finalize, segment_merge
@@ -571,14 +620,37 @@ def prefill_kernel_phase(torch, sm_count: int, dev_name: str):
             step = torch.finfo(torch.bfloat16).eps * o8_ref.float().abs()
             ok8 = bool(((o8.float() - o8_ref.float()).abs() <= step + tol).all())
         check(ok8, f"K8 {dname} disagrees with the plain version: max |err| {err_k8}")
-        # K4 + merge against K8: two kernels, one function
+        # the fused K4 against its plain version; the path rule picks its kernel
+        lp.reset_launch_counts()
+        o4f = lp.lean_prefill_fused(*args)
+        o4f_ref = lp.lean_prefill_fused_plain(*args)
+        torch.cuda.synchronize()
+        tc4 = fp.tensor_core_path(dtype, d, tile)
+        check((lp.fused_launches, lp.fused_tc_launches) == (1, int(tc4)),
+              f"fused K4 {dname}: {lp.fused_launches} launches, {lp.fused_tc_launches} on "
+              f"the tensor cores, expected 1, {int(tc4)}")
+        err_k4f = (o4f.float() - o4f_ref.float()).abs().max().item()
+        if dtype == torch.float32:
+            ok4f = torch.allclose(o4f, o4f_ref, atol=tol, rtol=tol)
+        else:
+            # as K8: both round a float32 result to bf16 (the tensor-core
+            # kernel's P goes through PV as two bf16 halves)
+            step = torch.finfo(torch.bfloat16).eps * o4f_ref.float().abs()
+            ok4f = bool(((o4f.float() - o4f_ref.float()).abs() <= step + tol).all())
+        check(ok4f, f"fused K4 {dname} disagrees with its plain version: max |err| {err_k4f}")
+        # K4 + merge against K8 and the fused K4: three kernels, one function
         o4 = merged[0].reshape(N, Hq, C, d)
         err_48 = (o4 - o8.float()).abs().max().item()
+        err_4f8 = (o4f.float().reshape(N, Hq, C, d) - o8.float()).abs().max().item()
         print(f"  {dname}: K4 partials max|err| {err_k4:.3e}, merged {err_k4o:.3e}; "
-              f"K8 max|err| {err_k8:.3e}; K4+merge vs K8 {err_48:.3e}", flush=True)
+              f"K8 max|err| {err_k8:.3e}; fused K4 ({'tensor' if tc4 else 'CUDA'} cores) "
+              f"max|err| {err_k4f:.3e}; K4+merge vs K8 {err_48:.3e}; fused K4 vs K8 "
+              f"{err_4f8:.3e}", flush=True)
 
         k4_ms = gpu_ms(lambda: lp.lean_prefill_chunk_partials(*args), reps=10)
         k4_plain_ms = gpu_ms(lambda: lp.lean_prefill_partials_plain(*args), reps=3)
+        k4f_ms = gpu_ms(lambda: lp.lean_prefill_fused(*args), reps=10)
+        k4f_plain_ms = gpu_ms(lambda: lp.lean_prefill_fused_plain(*args), reps=3)
         k8_ms = gpu_ms(lambda: fp.flash_prefill_paged(q, k_pool, v_pool, tbl, q_off), reps=10)
         k8_plain_ms = gpu_ms(lambda: fp.flash_prefill_paged_plain(q, k_pool, v_pool, tbl, q_off,
                                                                   scale), reps=3)
@@ -598,7 +670,13 @@ def prefill_kernel_phase(torch, sm_count: int, dev_name: str):
         print(f"  {dname} SDPA (gather excluded, chunk-causal mask): {lib_ms:.4f} ms reading "
               f"{lib_bytes / 1e6:.1f} MB; K4 partials {part_bytes / 1e6:.1f} MB "
               f"({sched.num_pieces} pieces x {g * C} rows)", flush=True)
+        # the fused K4 under the old figure: its pieces written and read back
+        bp_ms, _ = bound(dev_name, dname, q.numel() * elem + kv_bytes + small + 2 * part_bytes
+                         + o8.numel() * elem, flops)
+        print(f"  {dname} lean_prefill_fused: bound with the {part_bytes / 1e6:.1f} MB round "
+              f"trip of K4's partials {bp_ms:.4f} ms", flush=True)
         for name, out_bytes, ms, plain_ms, err in (
+            ("lean_prefill_fused", o4f.numel() * elem, k4f_ms, k4f_plain_ms, err_k4f),
             ("lean_prefill_chunk_partials", part_bytes, k4_ms, k4_plain_ms, err_k4),
             ("flash_prefill_paged", o8.numel() * elem, k8_ms, k8_plain_ms, err_k8),
         ):
@@ -606,7 +684,7 @@ def prefill_kernel_phase(torch, sm_count: int, dev_name: str):
                                flops)
             results[(name, dname)] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                                       "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
-            path = ("" if name != "flash_prefill_paged" else
+            path = ("" if name == "lean_prefill_chunk_partials" else
                     ", tensor cores" if fp.tensor_core_path(dtype, d, tile) else ", CUDA cores")
             print(f"  {dname} {name}{path}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}; "
                   f"{flops / ms / 1e9:.1f} TFLOP/s; plain {plain_ms:.3f} ms; library "
@@ -924,6 +1002,7 @@ def traced_scheduler_phase(torch, cfg, params, backend, sm_count, new_tokens, bl
           f"profiler, device busy {busy_ms:.1f} ms (idle share {1 - busy_ms / (run['wall'] * 1e3):.3f}), "
           f"{len(kernels)} kernels, {syncs} host syncs (aten::item)", flush=True)
     print_top(by_name, 1, "phase", 6)
+    return syncs
 
 
 SCHED_CHUNK, SCHED_PACK, SCHED_BUDGET = 256, 2, 512
@@ -932,9 +1011,10 @@ SCHED_CHUNK, SCHED_PACK, SCHED_BUDGET = 256, 2, 512
 def scheduler_phase(torch, cfg, params, backend, sm_count, new_tokens, blocking,
                     kv_dtype=None):
     """The ``PROMPT_LENS`` requests served by ``Scheduler`` with chunked
-    prefill on ``backend`` (int8 pools with ``kv_dtype="int8"``: K4-int8 on
-    ``lean``, K8 on the pools widened to bf16 on ``fixed``, the plain
-    oracles and no kernel on ``ref``). ``blocking``
+    prefill on ``backend`` (the fused K4 on ``lean``, K8 on ``fixed``; int8
+    pools with ``kv_dtype="int8"``: the fused K4-int8 on ``lean``, K8 on the
+    pools widened to bf16 on ``fixed``, the plain oracles and no kernel on
+    ``ref``). ``blocking``
     holds the blocking engine phase's first tokens and first-token logits
     per request, which the first-token logits are held to (``LOGIT_RTOL``,
     and ``LOGIT_ATOL_FRAC`` -- ``INT8_LOGIT_ATOL_FRAC`` on int8 pools).
@@ -980,7 +1060,7 @@ def scheduler_phase(torch, cfg, params, backend, sm_count, new_tokens, blocking,
     eng.pool.check(scales=eng._kv_scale_arrays())
     check(eng.pool.num_allocated == 0, f"{what}: {eng.pool.num_allocated} pages leaked")
     check(overlap > 0, f"{what}: decode stalled during the long prefill")
-    kernels = {"lean": ("K4", "K2"), "fixed": ("K8", "K6"), "ref": ()}[backend]
+    kernels = {"lean": ("K4f", "K2"), "fixed": ("K8", "K6"), "ref": ()}[backend]
     if kernels:
         check(counts[kernels[0]] == cfg.n_layers * chunk_steps and chunk_steps > 0,
               f"{what}: {kernels[0]} launched {counts[kernels[0]]} times, expected "
@@ -1007,8 +1087,8 @@ def scheduler_phase(torch, cfg, params, backend, sm_count, new_tokens, blocking,
         if worst is None or delta.max().item() > worst[0]:
             worst = (delta.max().item(), atol, h.uid)
     launched = (f"launches {kernels[0]} {counts[kernels[0]]} = {cfg.n_layers} x {chunk_steps}, "
-                f"{kernels[1]} {counts[kernels[1]]} = {cfg.n_layers} x {ticks} (K8 on the "
-                f"tensor cores {tc['K8']})" if kernels else "no kernel launched")
+                f"{kernels[1]} {counts[kernels[1]]} = {cfg.n_layers} x {ticks} (on the tensor "
+                f"cores: K8 {tc['K8']}, fused K4 {tc['K4f']})" if kernels else "no kernel launched")
     print(f"scheduler phase ({backend}{', int8 pools' if kv_dtype else ''}): chunk {SCHED_CHUNK}, pack {SCHED_PACK}, budget "
           f"{SCHED_BUDGET}: {sch.stats.steps} scheduler steps, {chunk_steps} chunk steps, "
           f"{ticks} decode ticks in {wall:.2f} s; {launched}; TTFT ms per request (prompts {list(PROMPT_LENS)}): "
@@ -1022,11 +1102,12 @@ def scheduler_phase(torch, cfg, params, backend, sm_count, new_tokens, blocking,
 
 # ------------------------------------------------------------ merge kernel K3
 def merge_plan_drive(torch, sm_count: int):
-    """The ``merge_impl="pallas"`` plans of ``ops.decode`` -- the entry
-    points K3 serves (the engine keeps ``segment_merge``) -- at the kernel
-    phase's decode shape (dense and paged) and on a 256-token chunk pack
-    (verify), each against its ``"xla"`` plan. Returns the launch counts of
-    the three ``"pallas"`` calls."""
+    """The two-phase plans of ``ops.decode`` with ``merge_impl="pallas"`` --
+    the entry points K3 serves (the engine keeps ``segment_merge``) -- at
+    the kernel phase's decode shape (dense and paged) and on a 256-token
+    chunk pack (verify, ``fused=False``: K4 partials, then K3; on bf16 and
+    on int8 pages), each against its ``"xla"`` plan. Returns the launch
+    counts of each ``"pallas"`` call."""
     from repro_torch.core.leantile import make_chunk_schedule, make_schedule
     from repro_torch.kernels import ops
 
@@ -1042,35 +1123,45 @@ def merge_plan_drive(torch, sm_count: int):
     csched = make_chunk_schedule(visible, Hkv, tile, sm_count, max_len=max(visible) + tile)
     qc, kc, vc, tblc = chunk_pack(torch, CHUNK_OFFS, CHUNK, Hq, Hkv, d, tile, torch.bfloat16,
                                   gen, dev)
+    kq, ks, vq, vs = quantized(torch, kc, vc)
     c_ctx = torch.tensor([v for v in visible for _ in range(Hkv)], dtype=torch.int32, device=dev)
     c_qs = torch.tensor([o for o in CHUNK_OFFS for _ in range(Hkv)], dtype=torch.int32,
                         device=dev)
+
+    def verify(impl, kv, **sc):
+        plan = ops.DecodePlan(kind="verify", sched=csched, fused=False, merge_impl=impl,
+                              spec_rows=CHUNK)
+        return ops.decode(qc, kv, plan=plan, ctx=c_ctx, page_tbl=tblc, qstart=c_qs, **sc)
+
     calls = {
         "dense": lambda impl: ops.lean_decode_from_schedule(
             q, k_dense, v_dense, seg_ctx, sched, fused=False, merge_impl=impl),
         "paged": lambda impl: ops.lean_decode_paged_from_schedule(
             q, k_pool, v_pool, seg_ctx, tbl, sched, fused=False, merge_impl=impl),
-        "verify": lambda impl: ops.lean_prefill_chunks(
-            qc, kc, vc, c_ctx, c_qs, tblc, csched, merge_impl=impl),
+        "verify": lambda impl: verify(impl, (kc, vc)),
+        "verify int8": lambda impl: verify(impl, (kq, vq), k_scales=ks, v_scales=vs),
     }
-    errs = {}
-    reset_launch_counts()
-    outs = {kind: fn("pallas") for kind, fn in calls.items()}
-    torch.cuda.synchronize()
-    counts = launch_counts()
+    errs, counts = {}, {}
     for kind, fn in calls.items():
+        reset_launch_counts()
+        out = fn("pallas")
+        torch.cuda.synchronize()
+        counts[kind] = launch_counts()
         ref = fn("xla")
-        errs[kind] = (outs[kind].float() - ref.float()).abs().max().item()
+        errs[kind] = (out.float() - ref.float()).abs().max().item()
         # both round the same float32 merge of the same partials to bf16:
         # one bf16 step of the output apart at most
         step = torch.finfo(torch.bfloat16).eps * ref.float().abs()
-        check(bool(((outs[kind].float() - ref.float()).abs() <= step + F32_TOL).all()),
+        check(bool(((out.float() - ref.float()).abs() <= step + F32_TOL).all()),
               f"merge_impl='pallas' ({kind}) disagrees with 'xla': max |err| {errs[kind]}")
-    check(counts["K3"] == 3 and counts["K1"] == 2 and counts["K4"] == 1,
-          f"the 'pallas' merge plans launched {counts}, expected K3 3, K1 2, K4 1")
-    print("merge plans (merge_impl='pallas', bf16): K3 launches "
-          f"{counts['K3']} (dense, paged, verify); max |pallas - xla| "
-          + ", ".join(f"{k} {e:.2e}" for k, e in errs.items()), flush=True)
+    want = {"dense": {"K1": 1, "K3": 1}, "paged": {"K1": 1, "K3": 1},
+            "verify": {"K4": 1, "K3": 1}, "verify int8": {"K4": 1, "K3": 1}}
+    for kind, w in want.items():
+        got = {k: n for k, n in counts[kind].items() if n}
+        check(got == w, f"the 'pallas' {kind} plan launched {got}, expected {w}")
+    print("merge plans (merge_impl='pallas', bf16 queries; verify also on int8 pages): K3 "
+          f"launches {sum(c['K3'] for c in counts.values())} (dense, paged, verify x 2); max "
+          "|pallas - xla| " + ", ".join(f"{k} {e:.2e}" for k, e in errs.items()), flush=True)
     return counts
 
 
@@ -1266,6 +1357,7 @@ INT8_REPLACES = {
     # the quantized=True branch of each TPU kernel
     "lean_decode_fused_int8": ("lean_decode.cu", "src/repro/kernels/lean_decode.py:321"),
     "lean_decode_partials_int8": ("lean_decode.cu", "src/repro/kernels/lean_decode.py:135"),
+    "lean_prefill_fused_int8": ("lean_prefill_tc.cu", "src/repro/kernels/lean_prefill.py:102"),
     "lean_prefill_chunk_partials_int8": ("lean_prefill.cu",
                                          "src/repro/kernels/lean_prefill.py:102"),
     "lean_cascade_fused_int8": ("lean_cascade.cu", "src/repro/kernels/lean_decode.py:628"),
@@ -1287,11 +1379,12 @@ def quantized(torch, k_pool, v_pool, zero_pages=()):
 
 
 def int8_kernel_phase(torch, sm_count: int, dev_name: str):
-    """K1-, K2-, K4- and K5-int8 (bf16 queries, int8 pool rows, a float32
-    scale per row) against their plain versions at the bf16 kernel phases'
-    shapes: the decode batch (one sequence on a zero-scale page, whose
-    output must be exactly 0), the two-chunk pack, the 2048-token shared
-    prefix. Times with L2 evicted, the plain versions' times, the byte
+    """K1-, K2-, K4- (fused, on the tensor cores, and partials) and K5-int8
+    (bf16 queries, int8 pool rows, a float32 scale per row) against their
+    plain versions at the bf16 kernel phases' shapes: the decode batch (one
+    sequence on a zero-scale page, whose output must be exactly 0), the
+    two-chunk pack, the 2048-token shared prefix. Times with L2 evicted, the
+    plain versions' times, the byte
     bound (int8 K/V + scales + queries + outputs or partials), and the
     library yardstick: SDPA on the K/V dequantized to bf16 (no one call
     reads int8 pages with scales)."""
@@ -1381,11 +1474,24 @@ def int8_kernel_phase(torch, sm_count: int, dev_name: str):
             sched, scale, C)
     parts = lp.lean_prefill_chunk_partials(*args, **sc)
     parts_ref = lp.lean_prefill_partials_plain(*args, **sc)
+    lp.reset_launch_counts()
+    o4f = lp.lean_prefill_fused(*args, **sc)
+    o4f_ref = lp.lean_prefill_fused_plain(*args, **sc)
     torch.cuda.synchronize()
     err_k4 = max((a - b).abs().max().item() for a, b in zip(parts, parts_ref))
     check(all(torch.allclose(a, b, atol=BF16_TOL, rtol=BF16_TOL)
               for a, b in zip(parts, parts_ref)),
           f"K4-int8 partials disagree with the plain version: max |err| {err_k4}")
+    check((lp.fused_launches, lp.fused_tc_launches) == (1, 1),
+          f"fused K4-int8: {lp.fused_launches} launches, {lp.fused_tc_launches} on the tensor "
+          "cores, expected 1, 1")
+    # one bf16 step of the output plus 2e-5, as bf16 K4 and K8: both round a
+    # float32 result; the kernel applies the scales to the scores and to P
+    # (int8 values are exact in bf16) and splits P into two bf16 halves
+    err_k4f = (o4f.float() - o4f_ref.float()).abs().max().item()
+    step = torch.finfo(torch.bfloat16).eps * o4f_ref.float().abs()
+    check(bool(((o4f.float() - o4f_ref.float()).abs() <= step + BF16_TOL).all()),
+          f"fused K4-int8 disagrees with its plain version: max |err| {err_k4f}")
     kd = paged_gather_kv_dequant(kq, ks, tbl, dtype=bf)
     vd = paged_gather_kv_dequant(vq, vs, tbl, dtype=bf)
     K = kd.shape[2]
@@ -1400,6 +1506,9 @@ def int8_kernel_phase(torch, sm_count: int, dev_name: str):
     kv_bytes = 2 * sum(visible) * Hkv * d + 2 * 4 * sum(-(-v // tile) for v in visible) * Hkv
     small = 4 * (seg_ctx.numel() * 2 + route.numel()
                  + ld.schedule_tensors(sched, dev)["desc"].numel())
+    record("lean_prefill_fused_int8", gpu_ms(lambda: lp.lean_prefill_fused(*args, **sc), reps=10),
+           gpu_ms(lambda: lp.lean_prefill_fused_plain(*args, **sc), reps=3), lib_ms,
+           q.numel() * 2 * 2 + kv_bytes + small, 4 * d * keys_seen, err_k4f)
     record("lean_prefill_chunk_partials_int8",
            gpu_ms(lambda: lp.lean_prefill_chunk_partials(*args, **sc), reps=10),
            gpu_ms(lambda: lp.lean_prefill_partials_plain(*args, **sc), reps=3), lib_ms,
@@ -1613,7 +1722,7 @@ def prefix_serving_run(torch, cfg, params, sm_count, new_tokens, waves, prefix, 
 def prefix_serving_phase(torch, cfg, params, sm_count, new_tokens, kv_dtype=None):
     """Prefix-sharing serving at full width, against the same waves with the
     prefix cache off: tokens matched, prefill skipped, peak pages, cascade
-    ticks, launches (K4 per chunk step, K5 per cascade tick, K2 per other
+    ticks, launches (fused K4 per chunk step, K5 per cascade tick, K2 per other
     tick, 40 layers each), TTFT, tick p50; first-token logits and decode
     logits up to the first differing token (cascade ticks among them)
     within the engine phase's logit tolerance (``INT8_LOGIT_ATOL_FRAC`` on
@@ -1634,9 +1743,10 @@ def prefix_serving_phase(torch, cfg, params, sm_count, new_tokens, kv_dtype=None
     check(c["K2"] == L * (st.ticks - st.cascade_ticks),
           f"prefix serving: K2 launched {c['K2']} times, expected {L} x "
           f"{st.ticks - st.cascade_ticks} non-cascade ticks")
-    check(c["K4"] == L * chunk_steps, f"prefix serving: K4 launched {c['K4']} times, "
+    check(c["K4f"] == L * chunk_steps, f"prefix serving: fused K4 launched {c['K4f']} times, "
           f"expected {L} x {chunk_steps} chunk steps")
-    others = {k: n for k, n in c.items() if k not in ("K2", "K4", "K5") and n}
+    tensor_core_counts("prefix serving")
+    others = {k: n for k, n in c.items() if k not in ("K2", "K4f", "K5") and n}
     check(not others, f"prefix serving: other kernels ran: {others}")
     skipped = off["eng"].stats.prefill_tokens - st.prefill_tokens
     check(skipped > 0 and st.prefix_matched_tokens > 0, "prefix serving: nothing was shared")
@@ -1678,7 +1788,7 @@ def prefix_serving_phase(torch, cfg, params, sm_count, new_tokens, kv_dtype=None
           f"unshared; cascade_ticks {st.cascade_ticks}, cascade_fused_ticks "
           f"{st.cascade_fused_ticks} of {st.ticks} decode ticks (stability skips "
           f"{st.cascade_stability_skips}); cow_copies {st.cow_copies}", flush=True)
-    print(f"  launches K4 {c['K4']} = {L} x {chunk_steps}, K5 {c['K5']} = {L} x "
+    print(f"  launches fused K4 {c['K4f']} = {L} x {chunk_steps}, K5 {c['K5']} = {L} x "
           f"{st.cascade_fused_ticks}, K2 {c['K2']} = {L} x {st.ticks - st.cascade_ticks}; "
           f"steps {on['sch'].stats.steps} against {off['sch'].stats.steps}; wall "
           f"{on['wall']:.2f} s against {off['wall']:.2f} s", flush=True)
@@ -1911,10 +2021,10 @@ ROW_BITS_CASES = ((128, 128), (200, 128), (16, 64), (12, 96))   # (page, d): one
 
 
 def row_kernel_outputs(torch, src: str, out: str):
-    """The row-block kernels of the ``repro_torch`` under ``src`` -- K4, and
-    K8 and K7 where they run on the CUDA cores -- on seeded inputs at pages
-    that fit one tile (float32 and bf16; K7 with and without a window),
-    saved to ``out``."""
+    """The row-block kernels of the ``repro_torch`` under ``src`` -- K4's
+    partials, and K8 and K7 on the CUDA cores and on the tensor cores, as
+    the path rule picks -- on seeded inputs at pages that fit one tile
+    (float32 and bf16; K7 with and without a window), saved to ``out``."""
     from repro_torch.core.leantile import make_chunk_schedule
     from repro_torch.kernels import flash_prefill as fp
     from repro_torch.kernels import lean_prefill as lp
@@ -1949,15 +2059,13 @@ def row_kernel_outputs(torch, src: str, out: str):
                 q.reshape(len(offs) * Hkv, (Hq // Hkv) * C, d).contiguous(), k_rows, v_rows,
                 i32(visible), i32(offs), ops._paged_route(sched, tbl, Hkv), sched,
                 1 / math.sqrt(d), C)]
-            if not fp.tensor_core_path(dtype, d) or page % 8:
-                res["K8 " + key] = fp.flash_prefill_paged(
-                    q, kp, vp, tbl, torch.tensor(offs, dtype=torch.int32, device=dev)).cpu()
-            if not fp.tensor_core_path(dtype, d):
-                qd = torch.randn(1, Hq, 700, d, generator=gen, device=dev).to(dtype)
-                kd = torch.randn(1, Hkv, 700, d, generator=gen, device=dev).to(dtype)
-                for window in (None, 97):
-                    res[f"K7 window {window} " + key] = fp.flash_prefill(
-                        qd, kd, kd, window=window, block_kv=min(page, 128)).cpu()
+            res["K8 " + key] = fp.flash_prefill_paged(
+                q, kp, vp, tbl, torch.tensor(offs, dtype=torch.int32, device=dev)).cpu()
+            qd = torch.randn(1, Hq, 700, d, generator=gen, device=dev).to(dtype)
+            kd = torch.randn(1, Hkv, 700, d, generator=gen, device=dev).to(dtype)
+            for window in (None, 97):
+                res[f"K7 window {window} " + key] = fp.flash_prefill(
+                    qd, kd, kd, window=window, block_kv=min(page, 128)).cpu()
     torch.cuda.synchronize()
     torch.save(res, out)
 
@@ -1995,9 +2103,10 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         sm_count = torch.cuda.get_device_properties(0).multi_processor_count
         if sys.argv[1] == "--decode-kernel-times":
-            print(json.dumps(decode_kernel_times(torch, sm_count, src)))
+            times = decode_kernel_times(torch, sm_count, src)
         else:
-            print(json.dumps(prefill_kernel_times(torch, src)))
+            times = prefill_kernel_times(torch, src)
+        print(json.dumps({"card": nvidia_smi_line(), **times}))
         return 0
     if sys.argv[1:2] == ["--row-kernel-outputs"]:
         src = os.path.abspath(sys.argv[2])
@@ -2034,8 +2143,9 @@ def main() -> int:
         for line in build.ptxas_report(source).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {source}: {line.strip()}")
-    tc_lines = tc_ptxas_lines(build.ptxas_report("flash_prefill.cu"))
-    check(len(tc_lines) == 4, f"ptxas reported {len(tc_lines)} tensor-core kernels, expected 4")
+    tc_lines = (tc_ptxas_lines(build.ptxas_report("flash_prefill.cu"))
+                + tc_ptxas_lines(build.ptxas_report("lean_prefill_tc.cu")))
+    check(len(tc_lines) == 8, f"ptxas reported {len(tc_lines)} tensor-core kernels, expected 8")
     for kernel, regs, spill in tc_lines:
         print(f"  ptxas tensor-core {kernel}: {regs}; {spill}", flush=True)
 
@@ -2069,8 +2179,8 @@ def main() -> int:
     lean_logits = paged_rows[0]
     counts = launch_counts()
     k2_launches, k1_in_main = counts["K2"], counts["K1"]
-    check(counts["K3"] == counts["K4"] == counts["K5"] == counts["K6"] == counts["K8"] == 0,
-          f"blocking engine ran other kernels: {counts}")
+    check(counts["K3"] == counts["K4"] == counts["K4f"] == counts["K5"] == counts["K6"]
+          == counts["K8"] == 0, f"blocking engine ran other kernels: {counts}")
     check(counts["K7"] == cfg.n_layers * eng.stats.prefills == cfg.n_layers * len(reqs),
           f"K7 launched {counts['K7']} times, expected {cfg.n_layers} x {len(reqs)} admissions")
     tc = tensor_core_counts("engine phase")
@@ -2148,8 +2258,10 @@ def main() -> int:
         walls.append(run["wall"])
     print("scheduler phases, wall s in turns (lean, fixed, fixed, lean): "
           + ", ".join(f"{w:.2f}" for w in walls), flush=True)
-    for b in ("lean", "fixed"):
-        traced_scheduler_phase(torch, cfg, params, b, sm_count, new_tokens, blocking)
+    syncs = {b: traced_scheduler_phase(torch, cfg, params, b, sm_count, new_tokens, blocking)
+             for b in ("lean", "fixed")}
+    print(f"scheduler phases: host syncs (aten::item) lean {syncs['lean']}, fixed "
+          f"{syncs['fixed']}", flush=True)
 
     # 8. prefix-sharing serving: radix cache, copy-on-write, cascade (K5)
     prefix_counts = prefix_serving_phase(torch, cfg, params, sm_count, new_tokens)
@@ -2173,6 +2285,11 @@ def main() -> int:
         walls.append(run["wall"])
     print("int8 scheduler phases, wall s in turns (lean, fixed, fixed, lean): "
           + ", ".join(f"{w:.2f}" for w in walls), flush=True)
+    syncs = {b: traced_scheduler_phase(torch, cfg, params, b, sm_count, new_tokens,
+                                       i8_blocking, kv_dtype="int8")
+             for b in ("lean", "fixed")}
+    print(f"int8 scheduler phases: host syncs (aten::item) lean {syncs['lean']}, fixed "
+          f"{syncs['fixed']}", flush=True)
     i8_prefix = prefix_serving_phase(torch, cfg, params, sm_count, new_tokens, kv_dtype="int8")
 
     # 11. summary: kernel times in bf16 at the main path's shapes; launches
@@ -2182,18 +2299,22 @@ def main() -> int:
     kres[("lean_cascade_fused", "bfloat16")] = k5res[(next(iter(CASCADE_CASES)), "bfloat16")]
     kres[("flash_prefill", "bfloat16")] = k7res[(next(iter(K7_CASES)), "bfloat16")]
     launches = {"lean_decode_fused": k2_launches, "lean_decode_partials": k1_launches,
-                "lean_prefill_chunk_partials": sched_runs["lean"]["counts"]["K4"],
+                "lean_prefill_fused": sched_runs["lean"]["counts"]["K4f"],
+                "lean_prefill_chunk_partials": merge_counts["verify"]["K4"],
                 "flash_decode_partials": sched_runs["fixed"]["counts"]["K6"],
                 "flash_prefill_paged": sched_runs["fixed"]["counts"]["K8"],
-                "lean_merge": merge_counts["K3"], "lean_cascade_fused": prefix_counts["K5"],
+                "lean_merge": sum(c["K3"] for c in merge_counts.values()),
+                "lean_cascade_fused": prefix_counts["K5"],
                 "flash_prefill": dense_counts["K7"],
                 "lean_decode_fused_int8": i8_counts["K2"], "lean_decode_partials_int8": i8_k1,
-                "lean_prefill_chunk_partials_int8": i8_runs["lean"]["counts"]["K4"],
+                "lean_prefill_fused_int8": i8_runs["lean"]["counts"]["K4f"],
+                "lean_prefill_chunk_partials_int8": merge_counts["verify int8"]["K4"],
                 "lean_cascade_fused_int8": i8_prefix["K5"]}
     kres.update(i8res)
     where = {
         "lean_decode_fused": ("lean_decode.cu", "src/repro/kernels/lean_decode.py:302"),
         "lean_decode_partials": ("lean_decode.cu", "src/repro/kernels/lean_decode.py:117"),
+        "lean_prefill_fused": ("lean_prefill_tc.cu", "src/repro/kernels/lean_prefill.py:51"),
         "lean_prefill_chunk_partials": ("lean_prefill.cu",
                                         "src/repro/kernels/lean_prefill.py:51"),
         "flash_decode_partials": ("flash_decode.cu", "src/repro/kernels/flash_decode.py:25"),
@@ -2213,9 +2334,9 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             # no one PyTorch call computes K1's per-piece partials or K3's
-            # merge of them; SDPA computes the attention K2, K4 (+ merge),
-            # K5, K6 (+ merge_n), K7 and K8 do (for the int8 forms: on the
-            # K/V dequantized to bf16)
+            # merge of them; SDPA computes the attention K2, the fused K4,
+            # K4 (+ merge), K5, K6 (+ merge_n), K7 and K8 do (for the int8
+            # forms: on the K/V dequantized to bf16)
             "library_ms": r["library_ms"] if r["library_ms"] is not None
             and not name.startswith("lean_decode_partials") else None,
         })

@@ -13,8 +13,9 @@ merging two identities gives zeros, not NaN.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 
@@ -65,8 +66,40 @@ def merge_n(partials: AttnPartial) -> AttnPartial:
     return AttnPartial(o=o_star, m=m_star, l=l_star)
 
 
+class MergeGrid(NamedTuple):
+    """Where :func:`segment_merge` lays each piece in its ``(segments + 1,
+    width)`` grid: piece ``order[i]`` goes to row ``sid[i]``, column
+    ``rank[i]``. ``ids`` are the clamped segment ids (padding ->
+    ``num_segments``)."""
+
+    ids: torch.Tensor     # (P,) long
+    order: torch.Tensor   # (P,) long
+    sid: torch.Tensor     # (P,) long
+    rank: torch.Tensor    # (P,) long
+    width: int
+
+
+def merge_grid(segment_ids: np.ndarray, num_segments: int,
+               device: torch.device) -> MergeGrid:
+    """:func:`segment_merge`'s grid computed on the host from host segment
+    ids (a schedule's ``piece_seg``), the same arrays its device path
+    derives, uploaded to ``device``: a caller that holds it merges with no
+    host sync."""
+    ids = np.asarray(segment_ids, dtype=np.int64)
+    ids = np.where((ids < 0) | (ids >= num_segments), num_segments, ids)
+    order = np.argsort(ids, kind="stable")
+    sid = ids[order]
+    counts = np.bincount(ids, minlength=num_segments + 1)
+    starts = np.cumsum(counts) - counts
+    rank = np.arange(ids.size) - starts[sid]
+    width = max(int(counts.max()) if ids.size else 0, 1)
+    up = lambda a: torch.as_tensor(a, dtype=torch.long).to(device)
+    return MergeGrid(ids=up(ids), order=up(order), sid=up(sid), rank=up(rank), width=width)
+
+
 def segment_merge(
-    partials: AttnPartial, segment_ids: torch.Tensor, num_segments: int
+    partials: AttnPartial, segment_ids: torch.Tensor, num_segments: int,
+    grid: Optional[MergeGrid] = None,
 ) -> AttnPartial:
     """Merge P partial triples into S segments (the decode fix-up phase).
 
@@ -77,32 +110,37 @@ def segment_merge(
     Deterministic: a scatter-add sums in atomic (run-dependent) order on
     CUDA, so each segment's pieces are first laid out in a
     ``(segments, max pieces)`` grid, in their original order, and reduced
-    along the grid axis. Reading the grid width costs one host sync.
+    along the grid axis. Computing the grid on the device costs one host
+    sync (its width); a caller with host ids passes ``grid``
+    (:func:`merge_grid` of the same ids) and the merge syncs nothing, with
+    the same grid and so the same bits.
     """
     o, m, l = partials
     dev = m.device
-    ids = segment_ids.to(device=dev, dtype=torch.long)
-    ids = torch.where(
-        (ids < 0) | (ids >= num_segments), torch.full_like(ids, num_segments), ids
-    )
-    order = torch.argsort(ids, stable=True)
-    sid = ids[order]
-    counts = torch.bincount(ids, minlength=num_segments + 1)
-    starts = torch.cumsum(counts, 0) - counts
-    rank = torch.arange(ids.numel(), device=dev) - starts[sid]
-    width = max(int(counts.max()) if ids.numel() else 0, 1)
+    if grid is None:
+        ids = segment_ids.to(device=dev, dtype=torch.long)
+        ids = torch.where(
+            (ids < 0) | (ids >= num_segments), torch.full_like(ids, num_segments), ids
+        )
+        order = torch.argsort(ids, stable=True)
+        sid = ids[order]
+        counts = torch.bincount(ids, minlength=num_segments + 1)
+        starts = torch.cumsum(counts, 0) - counts
+        rank = torch.arange(ids.numel(), device=dev) - starts[sid]
+        width = max(int(counts.max()) if ids.numel() else 0, 1)
+    else:
+        ids, order, sid, rank, width = grid
 
-    def grid(x, fill):
+    def lay_out(x, fill):
         g = torch.full((num_segments + 1, width) + tuple(x.shape[1:]), fill,
                        dtype=x.dtype, device=dev)
         g[sid, rank] = x[order]
         return g
 
-    m_seg = grid(m, float("-inf")).amax(dim=1)
+    m_seg = lay_out(m, float("-inf")).amax(dim=1)
     scale = _guarded_scale(m, m_seg[ids])
-    l_seg = grid(scale * l, 0.0).sum(dim=1)
-    o_seg = grid(scale[..., None] * o, 0.0).sum(dim=1)
+    l_seg = lay_out(scale * l, 0.0).sum(dim=1)
+    o_seg = lay_out(scale[..., None] * o, 0.0).sum(dim=1)
     return AttnPartial(
         o=o_seg[:num_segments], m=m_seg[:num_segments], l=l_seg[:num_segments]
     )
-

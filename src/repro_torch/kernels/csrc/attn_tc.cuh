@@ -1,5 +1,7 @@
 // Tensor-core row-block update for Hopper (sm_90a): the FA-2 inner loop of
-// K7 and K8 (flash_prefill.cu) on wgmma and TMA.
+// K7 and K8 (flash_prefill.cu) on wgmma and TMA; the fused K4
+// (lean_prefill_tc.cu) runs the same per-tile step (tile_update) on its own
+// stream-K walk, with int8 pages' scales applied to S and P.
 //
 // A CTA of kThreads = 384 threads serves kRows = 128 query rows of one
 // (batch row, KV head): the folded (g, L) rows of q's own memory. Warpgroup 0
@@ -64,6 +66,19 @@ constexpr float kNegInf = -1e30f;   // finite start of the running max, as the r
 // the K ring, then the V ring, each d / 64 panels wide, plus alignment.
 inline size_t smem_bytes(int d) {
   return (size_t)(d / 64) * kPanelBytes * (1 + 2 * kStages) + 1024;
+}
+
+// Positions (r % L) of the rows [r0, r0 + n), n > 0: their least and
+// greatest (a block that wraps past L holds 0 and L - 1).
+__device__ __forceinline__ void pos_range(int r0, int n, int L, int& lo, int& hi) {
+  const int a = r0 % L;
+  if (a + n <= L) {
+    lo = a;
+    hi = a + n - 1;
+  } else {
+    lo = 0;
+    hi = L - 1;
+  }
 }
 
 // ------------------------------------------------------------------- PTX
@@ -231,11 +246,134 @@ __device__ __forceinline__ void produce(const Walk& w, uint32_t q_s, uint32_t k_
 }
 
 // -------------------------------------------------------------- consumer
+// One key tile of a consumer warpgroup's 64 rows: S = Q . K^T, the mask,
+// the online-softmax update of (o, m, l) and O += P . V, for the tile in
+// ring stage (kt, vt) whose K and V complete on kbar / vbar at parity par.
+// Slot j < nv of the tile holds key kb + j; this thread's rows rA, rA + 8
+// see the keys [lo[i], hi[i]); every row of the warpgroup sees [wg_lo,
+// wg_hi); no row of the CTA sees a key outside [cta_lo, cta_hi), so those
+// V rows are zeroed. kScaled (int8 K/V converted to bf16 as they are): the
+// scores are multiplied by k_scale before the mask and the base-2 scale,
+// and P by v_scale before its bf16 split; l sums the unscaled p.
+template <int D, bool kScaled>
+__device__ __forceinline__ void tile_update(float (&o)[D / 2], float (&m)[2], float (&l)[2],
+                                            uint32_t q_wg, uint32_t kt, uint32_t vt,
+                                            uint32_t kbar, uint32_t vbar, uint32_t par, int kb,
+                                            int nv, const int (&lo)[2], const int (&hi)[2],
+                                            int wg_lo, int wg_hi, int cta_lo, int cta_hi,
+                                            float scale_log2, float k_scale, float v_scale) {
+  constexpr int P = D / 64;
+  constexpr int kO = D / 2;
+  const int c = threadIdx.x / 128 - 1;
+  const int tid = threadIdx.x % 128, lane = tid % 32;
+
+  // S = Q . K^T
+  float sc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+  mbar_wait(kbar, par);
+  wg_fence();
+  fence_regs(sc);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / 4) * kPanelBytes + (kk % 4) * 32;
+    wgmma_ss_n128(sc, sw128_desc(q_wg + off, 16, 1024), sw128_desc(kt + off, 16, 1024), kk > 0);
+  }
+  wg_commit();
+  wg_wait_all();
+  fence_regs(sc);
+  if constexpr (kScaled) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sc[i] *= k_scale;
+  }
+
+  // mask, only on tiles that cross a limit of some row of this warpgroup
+  if (!(nv == kKeys && kb >= wg_lo && kb + kKeys <= wg_hi)) {
+#pragma unroll
+    for (int nb = 0; nb < 16; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = nb * 8 + (lane % 4) * 2 + (e & 1), i = e >> 1;
+        if (!(j < nv && kb + j >= lo[i] && kb + j < hi[i]))
+          sc[nb * 4 + e] = __int_as_float(0xff800000);   // -inf: weighs exactly 0
+      }
+  }
+
+  // online softmax in base 2: m, l, alpha per row; p in registers
+  float alpha[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mx = __int_as_float(0xff800000);
+#pragma unroll
+    for (int nb = 0; nb < 16; ++nb) mx = fmaxf(mx, fmaxf(sc[nb * 4 + 2 * i], sc[nb * 4 + 2 * i + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[i], mx * scale_log2);
+    alpha[i] = exp2f(m[i] - m_new);
+    m[i] = m_new;
+  }
+  // P split into bf16 halves, laid out as wgmma A fragments: k-step ks
+  // (keys 16 ks .. 16 ks + 15) is registers 4 ks .. 4 ks + 3
+  uint32_t ph[32], pl[32];
+  float rsum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nb = 0; nb < 16; ++nb) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float p0 = exp2f(fmaf(sc[nb * 4 + 2 * i], scale_log2, -m[i]));
+      float p1 = exp2f(fmaf(sc[nb * 4 + 2 * i + 1], scale_log2, -m[i]));
+      rsum[i] += p0 + p1;
+      if constexpr (kScaled) {
+        p0 *= v_scale;
+        p1 *= v_scale;
+      }
+      const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
+      const float2 hf = __bfloat1622float2(h);
+      const int reg = 4 * (nb / 2) + 2 * (nb % 2) + i;
+      ph[reg] = bf16x2_bits(h);
+      pl[reg] = bf16x2_bits(__floats2bfloat162_rn(p0 - hf.x, p1 - hf.y));
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l[i] = alpha[i] * l[i] + rsum[i];
+#pragma unroll
+  for (int i = 0; i < kO; ++i) o[i] *= alpha[(i >> 1) & 1];
+
+  // V: zero the rows of keys no row of the CTA sees, then O += P . V
+  mbar_wait(vbar, par);
+  const int jlo = min(max(cta_lo - kb, 0), nv), jhi = min(max(cta_hi - kb, 0), nv);
+  if (jlo > 0 || jhi < kKeys) {
+    const int nz = jlo + (kKeys - jhi);
+    for (int e = tid; e < nz * P * 8; e += 128) {
+      const int chunk = e % 8, rp = e / 8, p = rp % P, zr = rp / P;
+      const int row = zr < jlo ? zr : jhi + (zr - jlo);
+      asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                       vt + p * kPanelBytes + row * 128 + chunk * 16),
+                   "r"(0), "r"(0), "r"(0), "r"(0)
+                   : "memory");
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
+  }
+  wg_fence();
+  fence_regs(o);
+#pragma unroll
+  for (int ks = 0; ks < kKeys / 16; ++ks)
+    wgmma_pv<D>(o, ph[4 * ks], ph[4 * ks + 1], ph[4 * ks + 2], ph[4 * ks + 3],
+                sw128_desc(vt + ks * 16 * 128, kPanelBytes, 1024));
+#pragma unroll
+  for (int ks = 0; ks < kKeys / 16; ++ks)
+    wgmma_pv<D>(o, pl[4 * ks], pl[4 * ks + 1], pl[4 * ks + 2], pl[4 * ks + 3],
+                sw128_desc(vt + ks * 16 * 128, kPanelBytes, 1024));
+  wg_commit();
+  wg_wait_all();
+  fence_regs(o);
+}
+
 template <int D, class Walk>
 __device__ __forceinline__ void consume(const Walk& w, uint32_t q_s, uint32_t k_s, uint32_t v_s,
                                         uint32_t bar0, float scale_log2) {
-  constexpr int P = D / 64;
-  constexpr uint32_t kTile = P * kPanelBytes;
+  constexpr uint32_t kTile = (D / 64) * kPanelBytes;
   constexpr int kO = D / 2;                 // output accumulators per thread
   const int c = threadIdx.x / 128 - 1;      // consumer 0 or 1
   const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
@@ -255,104 +393,9 @@ __device__ __forceinline__ void consume(const Walk& w, uint32_t q_s, uint32_t k_
 
   for (int t = 0; t < w.ntiles; ++t) {
     const int s = t % kStages;
-    const uint32_t par = (t / kStages) & 1;
-    const uint32_t kt = k_s + s * kTile, vt = v_s + s * kTile;
-
-    // S = Q . K^T
-    float sc[64];
-#pragma unroll
-    for (int i = 0; i < 64; ++i) sc[i] = 0.f;
-    mbar_wait(bar0 + 8 * (1 + s), par);
-    wg_fence();
-    fence_regs(sc);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk / 4) * kPanelBytes + (kk % 4) * 32;
-      wgmma_ss_n128(sc, sw128_desc(q_wg + off, 16, 1024), sw128_desc(kt + off, 16, 1024),
-                    kk > 0);
-    }
-    wg_commit();
-    wg_wait_all();
-    fence_regs(sc);
-
-    // mask, only on tiles that cross a limit of some row of this warpgroup
-    const int kb = w.kbase(t), nv = w.nvalid(t);
-    if (!(nv == kKeys && kb >= wg_lo && kb + kKeys <= wg_hi)) {
-#pragma unroll
-      for (int nb = 0; nb < 16; ++nb)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int j = nb * 8 + (lane % 4) * 2 + (e & 1), i = e >> 1;
-          if (!(j < nv && kb + j >= lo[i] && kb + j < hi[i]))
-            sc[nb * 4 + e] = __int_as_float(0xff800000);   // -inf: weighs exactly 0
-        }
-    }
-
-    // online softmax in base 2: m, l, alpha per row; p in registers
-    float alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      float mx = __int_as_float(0xff800000);
-#pragma unroll
-      for (int nb = 0; nb < 16; ++nb) mx = fmaxf(mx, fmaxf(sc[nb * 4 + 2 * i], sc[nb * 4 + 2 * i + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[i], mx * scale_log2);
-      alpha[i] = exp2f(m[i] - m_new);
-      m[i] = m_new;
-    }
-    // P split into bf16 halves, laid out as wgmma A fragments: k-step ks
-    // (keys 16 ks .. 16 ks + 15) is registers 4 ks .. 4 ks + 3
-    uint32_t ph[32], pl[32];
-    float rsum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int nb = 0; nb < 16; ++nb) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const float p0 = exp2f(fmaf(sc[nb * 4 + 2 * i], scale_log2, -m[i]));
-        const float p1 = exp2f(fmaf(sc[nb * 4 + 2 * i + 1], scale_log2, -m[i]));
-        rsum[i] += p0 + p1;
-        const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
-        const float2 hf = __bfloat1622float2(h);
-        const int reg = 4 * (nb / 2) + 2 * (nb % 2) + i;
-        ph[reg] = bf16x2_bits(h);
-        pl[reg] = bf16x2_bits(__floats2bfloat162_rn(p0 - hf.x, p1 - hf.y));
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = alpha[i] * l[i] + rsum[i];
-#pragma unroll
-    for (int i = 0; i < kO; ++i) o[i] *= alpha[(i >> 1) & 1];
-
-    // V: zero the rows of keys no row of the CTA sees, then O += P . V
-    mbar_wait(bar0 + 8 * (3 + s), par);
-    const int jlo = min(max(w.cta_lo - kb, 0), nv), jhi = min(max(w.cta_hi - kb, 0), nv);
-    if (jlo > 0 || jhi < kKeys) {
-      const int nz = jlo + (kKeys - jhi);
-      for (int e = tid; e < nz * P * 8; e += 128) {
-        const int chunk = e % 8, rp = e / 8, p = rp % P, zr = rp / P;
-        const int row = zr < jlo ? zr : jhi + (zr - jlo);
-        asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(
-                         vt + p * kPanelBytes + row * 128 + chunk * 16),
-                     "r"(0), "r"(0), "r"(0), "r"(0)
-                     : "memory");
-      }
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
-    }
-    wg_fence();
-    fence_regs(o);
-#pragma unroll
-    for (int ks = 0; ks < kKeys / 16; ++ks)
-      wgmma_pv<D>(o, ph[4 * ks], ph[4 * ks + 1], ph[4 * ks + 2], ph[4 * ks + 3],
-                  sw128_desc(vt + ks * 16 * 128, kPanelBytes, 1024));
-#pragma unroll
-    for (int ks = 0; ks < kKeys / 16; ++ks)
-      wgmma_pv<D>(o, pl[4 * ks], pl[4 * ks + 1], pl[4 * ks + 2], pl[4 * ks + 3],
-                  sw128_desc(vt + ks * 16 * 128, kPanelBytes, 1024));
-    wg_commit();
-    wg_wait_all();
-    fence_regs(o);
+    tile_update<D, false>(o, m, l, q_wg, k_s + s * kTile, v_s + s * kTile, bar0 + 8 * (1 + s),
+                          bar0 + 8 * (3 + s), (t / kStages) & 1, w.kbase(t), w.nvalid(t), lo,
+                          hi, wg_lo, wg_hi, w.cta_lo, w.cta_hi, scale_log2, 1.f, 1.f);
     __syncwarp();
     if (lane == 0) mbar_arrive(bar0 + 8 * (5 + s));   // this warp is done with the stage
   }
@@ -375,6 +418,56 @@ __device__ __forceinline__ void consume(const Walk& w, uint32_t q_s, uint32_t k_
             __floats2bfloat162_rn(o[nb * 4 + 2 * i] / l[i], o[nb * 4 + 2 * i + 1] / l[i]);
     }
   }
+}
+
+// ------------------------------------------------------------ tensor maps
+constexpr int kEncodeError = 100000;   // + the CUresult of a failed encoding
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                     &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 3-D map over rows of d elements, (d, n_rows, n_mats) innermost first,
+// boxes of box_cols x box_rows x 1; reads outside the tensor fill zeros.
+// Returns 0, cudaErrorNotSupported or kEncodeError + the CUresult.
+inline int encode_3d(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
+                     CUtensorMapSwizzle swizzle, const void* base, int d, long long n_rows,
+                     long long n_mats, int box_cols, int box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)n_rows, (cuuint64_t)n_mats};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * elem_bytes,
+                                 (cuuint64_t)n_rows * d * elem_bytes};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = fn(map, type, 3, const_cast<void*>(base), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeError + (int)r;
+}
+
+// bf16 rows in 64-column boxes, 128-byte swizzle: what wgmma reads
+inline int encode_rows(CUtensorMap* map, const void* base, int d, long long n_rows,
+                       long long n_mats, int box_rows) {
+  return encode_3d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, CU_TENSOR_MAP_SWIZZLE_128B, base, d,
+                   n_rows, n_mats, 64, box_rows);
 }
 
 // ------------------------------------------------------------------ kernel

@@ -236,20 +236,8 @@ using attn_tc::kPanelBytes;
 using attn_tc::kRows;
 using attn_tc::kWgRows;
 
-constexpr int kEncodeError = 100000;
-
-// Positions (r % L) of the rows [r0, r0 + n), n > 0: their least and
-// greatest (a block that wraps past L holds 0 and L - 1).
-__device__ __forceinline__ void pos_range(int r0, int n, int L, int& lo, int& hi) {
-  const int a = r0 % L;
-  if (a + n <= L) {
-    lo = a;
-    hi = a + n - 1;
-  } else {
-    lo = 0;
-    hi = L - 1;
-  }
-}
+using attn_tc::encode_rows;
+using attn_tc::pos_range;
 
 // K7: row block (num_rb - 1 - blockIdx.y) of (batch row x KV head) blockIdx.x.
 struct DenseWalk {
@@ -405,45 +393,6 @@ struct PagedWalk {
     }
   }
 };
-
-// A 3-D map over bf16 rows of d values, (d, n_rows, n_mats) innermost
-// first, boxes of 64 columns x box_rows rows x 1, 128-byte swizzle; reads
-// outside the tensor fill zeros.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                     &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-int encode_rows(CUtensorMap* map, const void* base, int d, long long n_rows, long long n_mats,
-                int box_rows) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)n_rows, (cuuint64_t)n_mats};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)n_rows * d * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
-                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kEncodeError + (int)r;
-}
 
 template <int D, class Walk>
 cudaError_t launch_tc(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,

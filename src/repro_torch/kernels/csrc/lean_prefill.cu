@@ -1,4 +1,8 @@
-// Stream-K chunked-prefill partials for Hopper: K4.
+// Stream-K chunked prefill for Hopper on the CUDA cores: K4's partials
+// (the fused=False paths), and the fused form -- partials and their merge
+// in one launch -- where the path rule does not take the tensor-core kernel
+// (lean_prefill_tc.cu): float32, head dims other than 64 and 128, pages
+// that are not a multiple of 8 rows.
 //
 // Replaces the Pallas TPU kernel of the reference:
 //   K4  repro/kernels/lean_prefill.py:51  _lean_prefill_kernel
@@ -17,7 +21,7 @@
 // port whose floor is operations, not bytes. Its f32 partials ((P+1) x rows
 // x d, about 0.5 MB a piece) are written once and read once by the merge.
 // This version computes on the CUDA cores in float32 (floor about 67
-// TFLOP/s); tensor-core wgmma on staged bf16 tiles is later work.
+// TFLOP/s); bf16 at the main path's shapes runs lean_prefill_tc.cu.
 //
 // Design. K1's layout (all gq rows of a segment in one CTA) does not fit:
 // 1024 rows of f32 accumulators are 512 KB, more than a CTA's 227 KB. So
@@ -34,6 +38,12 @@
 // float32 tile would not fit beside the block's state in shared memory (d
 // 128 above 208 keys) is walked in sub-tiles (attn::rows_page_update,
 // attn::row_sub_tile), in key order; a page that fits is one update.
+//
+// Fused (FUSED = true): the pieces go to float32 scratch and each CTA that
+// flushes one bumps the arrival counter of (segment, row block); the CTA
+// whose arrival completes it folds the row block's pieces in piece order
+// (attn::merge_piece, K2's fix-up) and writes o / max(l, 1e-30) in q's
+// dtype. No CTA waits for another.
 //
 // int8 pools (dtype code 2, the reference's quantized body): bf16 queries,
 // int8 K/V rows and a float32 scale per pool row for K and for V. The tile
@@ -63,19 +73,46 @@ struct Args {
   const int* seg_ctx;     // (S,) visible KV length of each segment
   const int* seg_qstart;  // (S,) absolute position of each segment's q[0]
   const int* route;       // (n_cols,) pool row per column
-  float* o_p;             // (P+1, rows, d) piece partials
+  float* o_p;             // (P+1, rows, d) piece partials (the fused kernel's scratch)
   float* m_p;             // (P+1, rows)
   float* l_p;
+  // fused only
+  const int* piece_start; // (S,)
+  const int* piece_count; // (S,)
+  int* arrivals;          // (S, row blocks) zeroed by the caller
+  void* out;              // (S, rows, d), q's dtype
   int n_cols, tiles_per_worker, rows, chunk_cap, d, tile, sub;
   float scale;
 };
 
+// The fused kernel's fix-up: fold the pieces [start, start + count) of
+// `seg` for this block's rows in piece order (K2's, lean_decode.cu), and
+// write o / max(l, 1e-30) in q's dtype. Scratch is read with ld.global.cg:
+// other CTAs wrote it.
+template <typename Q>
+__device__ __forceinline__ void merge_rows(const Args& a, int seg, int row0, int nrows) {
+  const int start = a.piece_start[seg], count = a.piece_count[seg], d = a.d;
+  Q* out = static_cast<Q*>(a.out) + ((size_t)seg * a.rows + row0) * d;
+  for (int e = threadIdx.x; e < nrows * d; e += kRowThreads) {
+    const int r = e / d;
+    float acc = 0.f, m = attn::kNegInf, l = 0.f;
+    for (int p = start; p < start + count; ++p) {
+      const size_t pr = (size_t)p * a.rows + row0 + r;
+      attn::merge_piece(__ldcg(a.o_p + pr * d + (e - r * d)), __ldcg(a.m_p + pr),
+                        __ldcg(a.l_p + pr), acc, m, l);
+    }
+    attn::store(out + e, acc / fmaxf(l, 1e-30f));
+  }
+}
+
 // Q: the queries' type; KV: the K/V rows' (Q, or int8_t with scales).
-template <typename Q, typename KV>
+// FUSED: the partials go to scratch and the last CTA to arrive at (segment,
+// row block) merges them into the output.
+template <typename Q, typename KV, bool FUSED>
 __global__ void __launch_bounds__(kRowThreads) lean_prefill_kernel(Args a) {
   extern __shared__ float smem_raw[];
   const RowSmem s = attn::carve_row_smem(smem_raw, a.d, a.sub);
-  __shared__ int jmax_s;
+  __shared__ int jmax_s, merge_here;
   const int d = a.d, tile = a.tile, N = a.n_cols, ld = d + 1;
   const Q* q = static_cast<const Q*>(a.q);
   const KV* k_rows = static_cast<const KV*>(a.k_rows);
@@ -135,14 +172,26 @@ __global__ void __launch_bounds__(kRowThreads) lean_prefill_kernel(Args a) {
         a.m_p[base + r] = s.m[r];
         a.l_p[base + r] = s.l[r];
       }
+      if (FUSED) {
+        __threadfence();  // this thread's piece writes, device-wide
+        __syncthreads();
+        if (threadIdx.x == 0)
+          merge_here = atomicAdd(a.arrivals + (size_t)seg * gridDim.y + blockIdx.y, 1) + 1 ==
+                       a.piece_count[seg];
+        __syncthreads();
+        if (merge_here) {
+          __threadfence();
+          merge_rows<Q>(a, seg, row0, nrows);
+        }
+      }
     }
     __syncthreads();  // shared state is reused by the next column
   }
 }
 
-template <typename Q, typename KV>
+template <typename Q, typename KV, bool FUSED>
 cudaError_t launch_typed(const Args& a, int num_workers, cudaStream_t stream) {
-  auto kernel = lean_prefill_kernel<Q, KV>;
+  auto kernel = lean_prefill_kernel<Q, KV, FUSED>;
   const size_t smem = attn::row_smem_bytes(a.d, a.sub);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -150,6 +199,19 @@ cudaError_t launch_typed(const Args& a, int num_workers, cudaStream_t stream) {
   const dim3 grid(num_workers, (a.rows + kBlockRows - 1) / kBlockRows);
   kernel<<<grid, kRowThreads, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <bool FUSED>
+int launch(int dtype, const Args& a, int num_workers, cudaStream_t st) {
+  switch (dtype) {
+    case 0: return (int)launch_typed<float, float, FUSED>(a, num_workers, st);
+    case 1: return (int)launch_typed<__nv_bfloat16, __nv_bfloat16, FUSED>(a, num_workers, st);
+    case 2:
+      if (a.k_scales == nullptr || a.v_scales == nullptr || a.d % attn::kVec)
+        return (int)cudaErrorInvalidValue;
+      return (int)launch_typed<__nv_bfloat16, int8_t, FUSED>(a, num_workers, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -169,18 +231,31 @@ int lean_prefill_partials_launch(int dtype, const void* q, const void* k_rows, c
     return (int)cudaErrorInvalidValue;
   const int sub = attn::row_sub_tile(d, tile);
   if (sub == 0) return (int)cudaErrorInvalidValue;
-  Args a = {q,   k_rows, v_rows, k_scales, v_scales, desc, seg_ctx, seg_qstart, route, o_p, m_p,
-            l_p, n_cols, tiles_per_worker, rows, chunk_cap, d, tile, sub, scale};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return (int)launch_typed<float, float>(a, num_workers, st);
-    case 1: return (int)launch_typed<__nv_bfloat16, __nv_bfloat16>(a, num_workers, st);
-    case 2:
-      if (k_scales == nullptr || v_scales == nullptr || d % attn::kVec)
-        return (int)cudaErrorInvalidValue;
-      return (int)launch_typed<__nv_bfloat16, int8_t>(a, num_workers, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  Args a = {q,       k_rows,  v_rows,  k_scales, v_scales, desc, seg_ctx, seg_qstart, route,
+            o_p,     m_p,     l_p,     nullptr,  nullptr,  nullptr, nullptr, n_cols,
+            tiles_per_worker, rows, chunk_cap, d, tile, sub, scale};
+  return launch<false>(dtype, a, num_workers, static_cast<cudaStream_t>(stream));
+}
+
+// The partials and their merge in one launch (the CUDA-core path of the
+// fused chunk prefill): operands as above, o_p/m_p/l_p scratch, piece
+// ranges per segment, arrivals (S, ceil(rows / 64)) zeroed, out (S, rows,
+// d) in q's dtype.
+int lean_prefill_fused_launch(int dtype, const void* q, const void* k_rows, const void* v_rows,
+                              const float* k_scales, const float* v_scales, const int* desc,
+                              int n_cols, int tiles_per_worker, int num_workers,
+                              const int* seg_ctx, const int* seg_qstart, const int* route,
+                              const int* piece_start, const int* piece_count, int* arrivals,
+                              float* o_p, float* m_p, float* l_p, void* out, int rows,
+                              int chunk_cap, int d, int tile, float scale, void* stream) {
+  if (num_workers <= 0 || rows <= 0 || chunk_cap <= 0 || d <= 0 || tile <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int sub = attn::row_sub_tile(d, tile);
+  if (sub == 0) return (int)cudaErrorInvalidValue;
+  Args a = {q,       k_rows,      v_rows,      k_scales, v_scales, desc, seg_ctx, seg_qstart,
+            route,   o_p,         m_p,         l_p,      piece_start, piece_count, arrivals,
+            out,     n_cols,      tiles_per_worker, rows, chunk_cap, d, tile, sub, scale};
+  return launch<true>(dtype, a, num_workers, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -75,15 +75,16 @@ def reset_launch_counts() -> None:
 
 
 def tensor_core_path(dtype: torch.dtype, d: int, page: Optional[int] = None) -> bool:
-    """Whether the CUDA wrappers launch the tensor-core kernel: bf16 with
-    ``d`` in :data:`TC_HEAD_DIMS` and, for K8 (``page`` given; None for K7),
-    a page that is a multiple of 8 rows. Everything else runs on the CUDA
-    cores."""
+    """Whether the CUDA wrappers launch a tensor-core kernel: bf16 queries
+    with ``d`` in :data:`TC_HEAD_DIMS` and, for K8 and the fused K4
+    (``page`` given; None for K7), a page that is a multiple of 8 rows.
+    Everything else runs on the CUDA cores. The rule reads shapes and
+    dtypes only."""
     return (dtype == torch.bfloat16 and d in TC_HEAD_DIMS
             and (page is None or page % 8 == 0))
 
 
-def _check_tc(what: str, **tensors):
+def check_tc(what: str, **tensors):
     """TMA reads global memory from 16-byte aligned addresses. (The kernel's
     shared memory, 160 KB at d 128, fits every head dim the path takes.)"""
     for name, t in tensors.items():
@@ -183,7 +184,7 @@ def flash_prefill_paged(
     rows = (Hq // Hkv) * C
     tc = tensor_core_path(q.dtype, d, ps)
     if tc:
-        _check_tc("flash_prefill_paged (K8)", q=q, k_pool=k_pool, v_pool=v_pool)
+        check_tc("flash_prefill_paged (K8)", q=q, k_pool=k_pool, v_pool=v_pool)
     else:
         check_row_kernel(d, ps, "flash_prefill_paged (K8)")
     out = torch.empty_like(q)
@@ -308,7 +309,7 @@ def flash_prefill(
     _, tile = _blocks(Lq, Lk, block_q, block_kv)
     tc = tensor_core_path(q.dtype, d)
     if tc:
-        _check_tc("flash_prefill (K7)", q=q, k=k, v=v)
+        check_tc("flash_prefill (K7)", q=q, k=k, v=v)
     else:
         check_row_kernel(d, tile, "flash_prefill (K7)")
     out = torch.empty_like(q)

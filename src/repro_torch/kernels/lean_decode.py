@@ -56,13 +56,14 @@ serve the CPU tests and the on-card comparison in ``chip_smoke.py``.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.attention import NEG_INF
 from repro_torch.core.leantile import CascadeSchedule, LeanSchedule
+from repro_torch.core.merge import merge_grid
 from . import build
 
 # descriptor rows of LeanSchedule.packed_descriptors(); VALID is 1 on a
@@ -97,11 +98,14 @@ def reset_launch_counts() -> None:
 
 
 # ------------------------------------------------------------ schedule data
-def schedule_tensors(sched: LeanSchedule, device: torch.device) -> Dict[str, torch.Tensor]:
+def schedule_tensors(sched: LeanSchedule, device: torch.device) -> Dict[str, Any]:
     """The schedule's kernel operands as int32 tensors on ``device``:
-    packed descriptors ``(7, G*T)``, piece ranges, and the paged routing
-    metadata. Memoized on the schedule per device (like the reference's
-    packed descriptors), so a schedule-cache hit uploads nothing."""
+    packed descriptors ``(7, G*T)``, piece ranges, the paged routing
+    metadata, and ``segment_merge``'s grid of the pieces (``merge_grid``, a
+    :class:`repro_torch.core.merge.MergeGrid` from the host ``piece_seg``,
+    so the two-phase merge syncs nothing). Memoized on the schedule per
+    device (like the reference's packed descriptors), so a schedule-cache
+    hit uploads nothing."""
     key = f"_torch_{device}"
     cached = sched.__dict__.get(key)
     if cached is None:
@@ -117,6 +121,7 @@ def schedule_tensors(sched: LeanSchedule, device: torch.device) -> Dict[str, tor
             "kv_head": i32(head),
             "kv_tile": i32(tile).long(),
             "kv_ok": i32(ok).bool(),
+            "merge_grid": merge_grid(sched.piece_seg, sched.num_segments, device),
         }
         object.__setattr__(sched, key, cached)
     return cached
@@ -305,6 +310,14 @@ def _fold(acc, m, l, op, mp, lp, has):
 def merge_pieces_plain(o_p, m_p, l_p, sched: LeanSchedule):
     """K2's fix-up and K3 in plain PyTorch: each segment folds its pieces in
     piece order. Returns ``(o (S, gq, d), lse (S, gq))``."""
+    acc, m, l = fold_pieces_plain(o_p, m_p, l_p, sched)
+    return acc / l[..., None], m + torch.log(l)
+
+
+def fold_pieces_plain(o_p, m_p, l_p, sched: LeanSchedule):
+    """Each segment's pieces folded in piece order (``attn::merge_piece``,
+    the order of the kernels' fix-ups). Returns the un-normalised ``(acc
+    (S, gq, d), m (S, gq), l (S, gq))``."""
     dev = o_p.device
     S, gq, d = sched.num_segments, o_p.shape[1], o_p.shape[2]
     st = schedule_tensors(sched, dev)
@@ -316,7 +329,7 @@ def merge_pieces_plain(o_p, m_p, l_p, sched: LeanSchedule):
         has = (counts > k)[:, None].expand(S, gq)
         p = torch.where(counts > k, starts + k, torch.zeros_like(starts))
         acc, m, l = _fold(acc, m, l, o_p[p], m_p[p], l_p[p], has)
-    return acc / l[..., None], m + torch.log(l)
+    return acc, m, l
 
 
 def lean_decode_fused_plain(q_seg, k_rows, v_rows, seg_ctx, route,

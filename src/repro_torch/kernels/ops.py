@@ -13,8 +13,13 @@ and delegate, as in the reference. Plan kinds:
     pass, suffix pass and merge in one launch); ``fused=False`` runs K1 on
     each pass, then :func:`segment_merge`.
   * ``'verify'``: multi-query-row paged attention with a runtime causal
-    offset -- a chunked-prefill pack (:func:`lean_prefill_chunks`): K4
-    partials, then the two-phase merge.
+    offset -- a chunked-prefill pack (:func:`lean_prefill_chunks`).
+    ``fused=True`` runs the fused K4 (stream-K pieces and their merge in one
+    launch, on the tensor cores for bf16 queries at the kernel's head dims
+    and pages); ``fused=False`` runs K4 partials, then the two-phase merge.
+    As for ``'paged'`` plans, ``fused`` takes precedence over
+    ``merge_impl``. (The reference ignores ``fused`` for verify plans and
+    always runs its partials kernel and merge.)
   * ``'flash'``: the fixed-split FlashDecoding baseline over dense KV
     (:func:`flash_decode_from_lens`): K6 partials, then :func:`merge_n`.
 
@@ -68,7 +73,7 @@ from repro_torch.core.leantile import (
 )
 from repro_torch.core.merge import AttnPartial, finalize, merge_n, segment_merge
 from .flash_decode import flash_decode_partials
-from .lean_prefill import lean_prefill_chunk_partials
+from .lean_prefill import lean_prefill_chunk_partials, lean_prefill_fused
 from .lean_decode import (
     DESC_SEG,
     DESC_TILE,
@@ -159,14 +164,14 @@ def _merge_two_phase(o_p, m_p, l_p, sched: LeanSchedule, merge_impl: str, need_l
     """Phase 2 shared by the dense, paged and verify two-phase paths: reduce
     the per-piece partials per segment -- with :func:`segment_merge`
     (``"xla"``) or the merge kernel K3 (``"pallas"``). Returns (o_seg,
-    lse); ``segment_merge``'s lse is None unless ``need_lse``."""
+    lse); ``segment_merge``'s lse is None unless ``need_lse``. Neither
+    syncs with the host: ``segment_merge`` takes its grid from the
+    schedule (``schedule_tensors``' ``merge_grid``)."""
     if merge_impl == "pallas":
         return lean_merge(o_p, m_p, l_p, sched)
-    seg = segment_merge(
-        AttnPartial(o=o_p, m=m_p, l=l_p),
-        schedule_tensors(sched, o_p.device)["piece_seg"],
-        sched.num_segments,
-    )
+    st = schedule_tensors(sched, o_p.device)
+    seg = segment_merge(AttnPartial(o=o_p, m=m_p, l=l_p), st["piece_seg"], sched.num_segments,
+                        grid=st["merge_grid"])
     return finalize(seg), (seg.m + torch.log(seg.l) if need_lse else None)
 
 
@@ -187,9 +192,12 @@ class DecodePlan:
         offset: a chunked-prefill pack (speculative verify, the same
         workload, is ROADMAP queue 1, item 10).
 
-    ``merge_impl`` picks the two-phase merge: ``"xla"`` is
-    :func:`segment_merge`, ``"pallas"`` selects the CUDA merge kernel K3
-    here (the reference's Pallas ``lean_merge_pallas``). The reference's
+    ``fused`` (``'dense'``, ``'paged'``, ``'cascade'``, ``'verify'``) runs
+    the kernel that merges its pieces in its own launch (K2, K5, the fused
+    K4); ``fused=False`` the partials kernel and the two-phase merge, which
+    ``merge_impl`` picks: ``"xla"`` is :func:`segment_merge`, ``"pallas"``
+    selects the CUDA merge kernel K3 here (the reference's Pallas
+    ``lean_merge_pallas``). The reference's
     ``scale`` and ``interpret`` are not fields: the scale is always
     ``1/sqrt(d)``, and a kernel runs for CUDA tensors, its plain version
     for CPU tensors.
@@ -719,9 +727,11 @@ def lean_prefill_chunks(
     (:func:`repro_torch.core.leantile.make_chunk_schedule` over the pack's
     visible KV lengths). ``seg_ctx``, ``seg_qstart`` and ``page_tbls`` are
     runtime tensors, so one bucketed schedule serves a request at every
-    depth of its prompt. Two-phase: K4 partials, then the decode merge
-    (``merge_impl``; partials carry ``g * C`` rows per segment instead of
-    ``g``). Returns ``(N, Hq, C, d)`` in q's dtype.
+    depth of its prompt. Runs the fused K4 (the plan's default ``fused``):
+    the pieces of each segment merged in the same launch, so ``merge_impl``
+    is not read; the two-phase form is a ``'verify'`` plan with
+    ``fused=False`` through :func:`decode`. Returns ``(N, Hq, C, d)`` in q's
+    dtype.
 
     Thin wrapper over :func:`decode` with a ``'verify'`` plan (``spec_rows
     = C``).
@@ -748,11 +758,12 @@ def _verify_impl(q, k_pool, v_pool, seg_ctx, seg_qstart, page_tbls, plan: Decode
     q_seg = q.reshape(N, Hkv, g, C, d).reshape(N * Hkv, g * C, d).contiguous()
     k_rows, v_rows = _pool_rows(k_pool, v_pool)
     route = _paged_route(sched, page_tbls, Hkv)
-    o_p, m_p, l_p = lean_prefill_chunk_partials(
-        q_seg, k_rows, v_rows, seg_ctx.to(torch.int32).contiguous(),
-        seg_qstart.to(torch.int32).contiguous(), route, sched, scale, chunk_cap=C,
-        k_scales=k_scales, v_scales=v_scales,
-    )
+    args = (q_seg, k_rows, v_rows, seg_ctx.to(torch.int32).contiguous(),
+            seg_qstart.to(torch.int32).contiguous(), route, sched, scale)
+    sc = dict(k_scales=k_scales, v_scales=v_scales)
+    if plan.fused:
+        return lean_prefill_fused(*args, chunk_cap=C, **sc).reshape(N, Hq, C, d)
+    o_p, m_p, l_p = lean_prefill_chunk_partials(*args, chunk_cap=C, **sc)
     o_seg, _ = _merge_two_phase(o_p, m_p, l_p, sched, plan.merge_impl, need_lse=False)
     return o_seg.reshape(N, Hq, C, d).to(q.dtype)
 

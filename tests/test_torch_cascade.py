@@ -277,8 +277,12 @@ def test_merge_impl_pallas_matches_xla_and_jax():
     qc = _t(rng.standard_normal((2, Hq, C, d)).astype(np.float32))
     seg_ctx = _t(np.repeat(np.asarray(visible, np.int32), Hkv))
     seg_qs = _t(np.repeat(offs.astype(np.int32), Hkv))
-    res = [tops.lean_prefill_chunks(qc, _t(kp), _t(vp), seg_ctx, seg_qs, _t(tbl[:2]), sched,
-                                    merge_impl=impl) for impl in ("xla", "pallas")]
+    # the two-phase verify plan (fused=False; a fused plan merges in its launch)
+    res = [tops.decode(qc, (_t(kp), _t(vp)),
+                       plan=tops.DecodePlan(kind="verify", sched=sched, fused=False,
+                                            merge_impl=impl, spec_rows=C),
+                       ctx=seg_ctx, page_tbl=_t(tbl[:2]), qstart=seg_qs)
+           for impl in ("xla", "pallas")]
     for n, L in enumerate(clens):
         torch.testing.assert_close(res[1][n, :, :L], res[0][n, :, :L], **TOL)
 

@@ -13,7 +13,10 @@ chunk holding NaN, their launch counters and refusals; the pages the
 engine can pick that the kernels once refused (12 and 100 rows, and 256
 at d 128, on K8, K4 and K6); and the int8 forms of K1, K2, K4 and K5 (bf16
 queries, int8 rows, a float32 scale per row, a zero-scale page reading
-exact zeros) and the int8 engine on the card against the CPU.
+exact zeros) and the int8 engine on the card against the CPU; the fused
+K4 (stream-K pieces merged in the launch, bf16 and int8 pages on the
+tensor cores, float32 and other pages on the CUDA cores) against its plain
+version, launch against launch, and against the two-phase path.
 Tolerance 2e-5: kernel and plain version both compute in float32 from the
 same inputs (K7's and K8's bf16 output: one bf16 step plus 2e-5, since both
 round a float32 result; the tensor-core kernel keeps P to about 16 bits by
@@ -259,8 +262,9 @@ def test_fixed_split_kernel_matches_plain(cuda, gq, dtype, lens, splits):
 @pytest.mark.parametrize("backend", ["lean", "fixed"])
 def test_scheduler_on_card_runs_the_kernels(cuda, backend):
     """The smoke-config scheduler on the card: every request served, pool
-    clean, the chunk kernel (K4 or K8) launched once per layer and chunk
-    step and the decode kernel (K2 or K6) once per layer and decode tick."""
+    clean, the chunk kernel (fused K4 or K8) launched once per layer and
+    chunk step and the decode kernel (K2 or K6) once per layer and decode
+    tick."""
     import numpy as np
 
     from repro_torch.configs import get_smoke_config
@@ -284,10 +288,11 @@ def test_scheduler_on_card_runs_the_kernels(cuda, backend):
     eng.pool.check()
     assert eng.pool.num_allocated == 0
     chunk_steps, ticks = len(eng.stats.tick_prefill_tokens), eng.stats.ticks
-    chunk_k, decode_k = (lp.launches, ld.fused_launches) if backend == "lean" else (
+    chunk_k, decode_k = (lp.fused_launches, ld.fused_launches) if backend == "lean" else (
         fp.launches, fd.launches)
     assert chunk_k == cfg.n_layers * chunk_steps > 0
     assert decode_k == cfg.n_layers * ticks > 0
+    assert lp.launches == 0                 # the chunk path runs the fused K4, not partials
 
 
 # ------------------------------------------------------------------ K3, K5
@@ -871,7 +876,7 @@ def test_int8_refusals(cuda):
 @pytest.mark.parametrize("backend", ["lean", "fixed"])
 def test_int8_engine_on_card_matches_cpu(cuda, backend):
     """The smoke-config int8 engine under the Scheduler with chunked prefill
-    on the card (K4-int8 / K2-int8 on ``lean``; K8 / K6 on dequantized K/V
+    on the card (fused K4-int8 / K2-int8 on ``lean``; K8 / K6 on dequantized K/V
     on ``fixed``) against the same on the CPU: every request served, the
     int8 pools and scales within one int8 step of the CPU's (bf16 GEMMs
     round in another order on the card), pool clean with its scales, each
@@ -909,9 +914,97 @@ def test_int8_engine_on_card_matches_cpu(cuda, backend):
         assert eng.pool.num_allocated == 0
         if dev == "cuda":
             chunk_steps, ticks = len(eng.stats.tick_prefill_tokens), eng.stats.ticks
-            chunk_k, decode_k = (lp.launches, ld.fused_launches) if backend == "lean" else (
-                fp.launches, fd.launches)
+            chunk_k, decode_k = (lp.fused_launches, ld.fused_launches) if backend == "lean" \
+                else (fp.launches, fd.launches)
             assert chunk_k == cfg.n_layers * chunk_steps > 0
             assert decode_k == cfg.n_layers * ticks > 0
     for a, b in zip(first["cuda"], first["cpu"]):
         torch.testing.assert_close(a, b, rtol=2**-6, atol=1e-6)
+
+
+# ------------------------------------------------------------- fused K4
+# (page, C): pages of one tile, of two sub-tiles (256), smaller than a tile
+# (16), and pages the path rule sends to the CUDA cores (12, 100); chunks of
+# 256 and 96 (a row block of 128 spans two query heads at C 96)
+FUSED_CASES = [(128, 256), (256, 256), (16, 96), (12, 96), (100, 256), (128, 96)]
+
+
+def _fused_operands(dev, page, C, dtype, Hq=32, Hkv=8, d=128, workers=132, seed=0):
+    """A ragged pack at Mistral-NeMo-12B attention shapes (the second
+    chunk shorter than C) and the fused K4's operands; ``dtype`` "int8":
+    bf16 queries, int8 rows and their scales."""
+    offs, lens = [300, 37], [C, C - 5]
+    dt = torch.bfloat16 if dtype == "int8" else getattr(torch, dtype)
+    q, kp, vp, tbl = _chunk_operands(dev, offs, lens, Hq, Hkv, d, page, dt, seed=seed)
+    N = len(offs)
+    visible = [o + n for o, n in zip(offs, lens)]
+    sched = make_chunk_schedule(visible, Hkv, page, workers, max_len=tbl.shape[1] * page)
+    k_rows, v_rows = ops._pool_rows(kp, vp)
+    sc = {}
+    if dtype == "int8":
+        k_rows, ks, v_rows, vs = _quantized(k_rows, v_rows)
+        sc = dict(k_scales=ks, v_scales=vs)
+    args = (q.reshape(N * Hkv, (Hq // Hkv) * C, d).contiguous(), k_rows, v_rows,
+            torch.tensor([v for v in visible for _ in range(Hkv)], dtype=torch.int32, device=dev),
+            torch.tensor([o for o in offs for _ in range(Hkv)], dtype=torch.int32, device=dev),
+            ops._paged_route(sched, tbl, Hkv), sched, 1.0 / math.sqrt(d), C)
+    return args, sc, (q, kp, vp, tbl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page,C,dtype",
+                         [(p, c, dt) for dt in ("bfloat16", "int8") for p, c in FUSED_CASES]
+                         + [(128, 256, "float32"), (12, 96, "float32")])
+def test_fused_k4_matches_plain(cuda, page, C, dtype):
+    """The fused K4 against its plain version (the partials folded in piece
+    order): bf16 and int8 within one bf16 step of the output plus 2e-5
+    (both round a float32 result; the tensor-core kernel puts P through PV
+    as two bf16 halves), float32 within 2e-5. The path rule picks the
+    kernel, and the counters say which ran."""
+    args, sc, _ = _fused_operands(cuda, page, C, dtype)
+    tc = fp.tensor_core_path(args[0].dtype, args[0].shape[2], page)
+    lp.reset_launch_counts()
+    out = lp.lean_prefill_fused(*args, **sc)
+    torch.cuda.synchronize()
+    assert (lp.fused_launches, lp.fused_tc_launches, lp.launches) == (1, int(tc), 0)
+    ref = lp.lean_prefill_fused_plain(*args, **sc)
+    assert out.dtype == ref.dtype == args[0].dtype and out.shape == ref.shape
+    if dtype == "float32":
+        torch.testing.assert_close(out, ref, **TOL)
+    else:
+        assert _bf16_close(out, ref), (out.float() - ref.float()).abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("page,C", [(128, 256), (100, 96)])
+def test_fused_k4_same_bits_twice(cuda, page, C, dtype):
+    """The fix-up folds a segment's pieces in piece order whichever CTA
+    arrives last: two launches on the same inputs give the same bits."""
+    args, sc, _ = _fused_operands(cuda, page, C, dtype, seed=1)
+    a = lp.lean_prefill_fused(*args, **sc)
+    b = lp.lean_prefill_fused(*args, **sc)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("page,C", [(128, 256), (256, 96), (12, 96)])
+def test_fused_k4_matches_two_phase(cuda, page, C, dtype):
+    """The verify plan fused (one launch) against fused=False (K4 partials
+    and segment_merge): one bf16 step of the output plus 2e-5 apart."""
+    args, sc, (q, kp, vp, tbl) = _fused_operands(cuda, page, C, dtype, seed=2)
+    kv = (kp, vp)
+    if dtype == "int8":   # the pools and (page, head) scales of the int8 rows
+        kv = (args[1].view(kp.shape), args[2].view(kp.shape))
+        sc = {k: v.view(kp.shape[:2]) for k, v in sc.items()}
+    outs = {}
+    for fused in (True, False):
+        plan = ops.DecodePlan(kind="verify", sched=args[6], fused=fused, spec_rows=C)
+        lp.reset_launch_counts()
+        outs[fused] = ops.decode(q, kv, plan=plan, ctx=args[3], page_tbl=tbl, qstart=args[4],
+                                 **sc)
+        torch.cuda.synchronize()
+        assert (lp.fused_launches, lp.launches) == ((1, 0) if fused else (0, 1))
+    assert _bf16_close(outs[True], outs[False])
