@@ -81,14 +81,29 @@ its plain version, against the same cascade over duplicated pages (bit for
 bit), against K2 on the unshared batch and against the two-call cascade, on
 a 2048-token shared prefix and on a two-level grouping.
 
-A change to K1/K2 is compared with its parent on one card by timing
-only them at the kernel phase's decode shape, one process per checkout, in
-turns (parent, change, change, parent):
+K6 and K5 stream their K/V tiles through the decode ring
+(``csrc/attn_decode_ring.cuh``: bulk copies into shared-memory slots kept
+ahead of the compute by a producer warp); the kernel phase prints each
+one's slots and bytes in flight, and every phase checks that their launches
+went through it.
+
+A change to the decode kernels is compared with its parent on one card by
+timing only them, one process per checkout, in turns (parent, change,
+change, parent):
 
     python3 chip_smoke.py --decode-kernel-times [OTHER_CHECKOUT/src]
 
-prints one JSON line of K1's and K2's median times (bf16, f32) for the
-kernels of this checkout, or of the given ``src`` directory. A change to K7
+prints one JSON line of median times for the kernels of this checkout, or
+of the given ``src`` directory: K1 and K2 at the kernel phase's decode
+shape (float32, bf16, int8 rows), K6 on both ``DECODE_SHAPES`` (float32,
+bf16) and K5 on both ``CASCADE_CASES`` (float32, bf16, int8 rows). They
+are held to another checkout bit for bit with
+
+    python3 chip_smoke.py --decode-kernel-bits OTHER_CHECKOUT/src
+
+which runs both checkouts' K1, K2, K5 and K6 (one process each) on the same
+seeded inputs (K6 also on pages of 12 and 256) and prints one JSON line:
+outputs compared, bit-identical, differing. A change to K7
 or K8 is compared the same way with
 
     python3 chip_smoke.py --prefill-kernel-times [OTHER_CHECKOUT/src]
@@ -367,33 +382,96 @@ def kernel_phase(torch, sm_count: int, dev_name: str):
     return results
 
 
-def decode_kernel_times(torch, sm_count: int, src: str) -> dict:
-    """K1's and K2's times at the kernel phase's decode shape, for the
-    kernels of the ``repro_torch`` under ``src`` (built there at first
-    use); 50 runs each, L2 evicted before each run."""
-    from repro_torch.core.leantile import make_schedule
+def check_src(module, src: str):
+    check(os.path.abspath(module.__file__).startswith(os.path.abspath(src) + os.sep),
+          f"kernels imported from {module.__file__}, not from {src}")
+
+
+def decode_kernel_cases(torch, sm_count: int):
+    """The decode kernels' inputs at the main path's widths, each made from
+    its own seed on the card (so two checkouts get the same ones): ``(name,
+    kernel, args, kwargs)``. K1 and K2 on the kernel phase's decode batch
+    (float32, bf16, int8 rows); K6 on both ``DECODE_SHAPES`` (float32, bf16)
+    and on pages of 12 and 256; K5 on both ``CASCADE_CASES`` (float32,
+    bf16, int8 rows)."""
+    from repro_torch.core.leantile import fixed_split_factor, make_schedule
+    from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import lean_decode as ld
     from repro_torch.kernels import ops
 
-    check(os.path.abspath(ld.__file__).startswith(os.path.abspath(src) + os.sep),
-          f"kernels imported from {ld.__file__}, not from {src}")
-    lens, Hq, Hkv, d, tile, width = [4000, 1500, 700, 1], 32, 8, 128, 128, 32
+    Hq, Hkv, d = 32, 8, 128
+    g, scale, dev = Hq // Hkv, 1.0 / math.sqrt(d), torch.device("cuda")
+    kinds = (("float32", torch.float32, False), ("bfloat16", torch.bfloat16, False),
+             ("int8", torch.bfloat16, True))
+
+    def seeded(seed):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        return gen
+
+    lens, tile = [4000, 1500, 700, 1], 128
     sched = make_schedule(lens, Hkv, tile, sm_count)
-    dev = torch.device("cuda")
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
     seg_ctx = torch.tensor([L for L in lens for _ in range(Hkv)], dtype=torch.int32, device=dev)
+    for kind, dtype, int8 in kinds:
+        q, k_pool, v_pool, tbl, _, _ = make_kv_problem(torch, lens, Hq, Hkv, d, tile, 32, dtype,
+                                                       seeded(0), dev)
+        kw = {}
+        if int8:
+            k_pool, kw["k_scales"], v_pool, kw["v_scales"] = quantized(torch, k_pool, v_pool)
+        args = (q.reshape(len(lens) * Hkv, g, d).contiguous(), *ops._pool_rows(k_pool, v_pool),
+                seg_ctx, ops._paged_route(sched, tbl, Hkv), sched, scale)
+        yield f"K2 {kind}", ld.lean_decode_fused, args, kw
+        yield f"K1 {kind}", ld.lean_decode_partials, args, kw
+    shapes = [(lens_, 128) for lens_ in DECODE_SHAPES] + [((700, 1, 257), 12),
+                                                            ((700, 1, 257), 256)]
+    for lens_, tile in shapes:
+        B = len(lens_)
+        width = -(-max(lens_) // tile)
+        splits = fixed_split_factor(max(lens_), B * Hkv, tile, sm_count)
+        ctx = torch.tensor([L for L in lens_ for _ in range(Hkv)], dtype=torch.int32, device=dev)
+        for kind, dtype, _ in kinds[:2]:
+            q, _, _, _, k_dense, v_dense = make_kv_problem(torch, list(lens_), Hq, Hkv, d, tile,
+                                                           width, dtype, seeded(2), dev)
+            args = (q.reshape(B * Hkv, g, d).contiguous(),
+                    k_dense.reshape(B * Hkv, width * tile, d),
+                    v_dense.reshape(B * Hkv, width * tile, d), ctx, splits, tile, scale)
+            yield f"K6 lens {list(lens_)} page {tile} {kind}", fd.flash_decode_partials, args, {}
+    for case, (passes, suffixes) in CASCADE_CASES.items():
+        for kind, dtype, int8 in kinds:
+            q, k_pool, v_pool, tbl, _, lens_ = cascade_problem(torch, passes, suffixes, Hq, Hkv, d,
+                                                               128, dtype, seeded(3), dev)
+            kw = {}
+            if int8:
+                k_pool, kw["k_scales"], v_pool, kw["v_scales"] = quantized(torch, k_pool, v_pool)
+            args, _ = cascade_operands(torch, q, k_pool, v_pool, tbl, lens_, passes, sm_count)
+            yield f"K5 {case} {kind}", ld.lean_cascade_fused, args, kw
+
+
+def decode_kernel_times(torch, sm_count: int, src: str) -> dict:
+    """K1's, K2's, K6's and K5's median times on ``decode_kernel_cases``
+    (the paged K6 cases aside), for the kernels of the ``repro_torch``
+    under ``src`` (built there at first use); 50 runs each, L2 evicted
+    before each run."""
+    from repro_torch.kernels import lean_decode as ld
+
+    check_src(ld, src)
     out = {"src": src}
-    for dtype in (torch.bfloat16, torch.float32):
-        q, k_pool, v_pool, tbl, _, _ = make_kv_problem(torch, lens, Hq, Hkv, d, tile, width,
-                                                       dtype, gen, dev)
-        k_rows, v_rows = ops._pool_rows(k_pool, v_pool)
-        args = (q.reshape(len(lens) * Hkv, Hq // Hkv, d).contiguous(), k_rows, v_rows, seg_ctx,
-                ops._paged_route(sched, tbl, Hkv), sched, 1.0 / math.sqrt(d))
-        dname = str(dtype).split(".")[-1]
-        out[f"K2 {dname}"] = gpu_ms(lambda: ld.lean_decode_fused(*args), reps=50)
-        out[f"K1 {dname}"] = gpu_ms(lambda: ld.lean_decode_partials(*args), reps=50)
+    for name, fn, args, kw in decode_kernel_cases(torch, sm_count):
+        if "page 128" in name or not name.startswith("K6"):
+            out[name] = gpu_ms(lambda: fn(*args, **kw), reps=50)
     return out
+
+
+def decode_kernel_outputs(torch, sm_count: int, src: str, out: str):
+    """The outputs of the decode kernels of the ``repro_torch`` under
+    ``src`` on ``decode_kernel_cases``, saved to ``out``."""
+    from repro_torch.kernels import lean_decode as ld
+
+    check_src(ld, src)
+    res = {name: [t.cpu() for t in fn(*args, **kw)]
+           for name, fn, args, kw in decode_kernel_cases(torch, sm_count)}
+    torch.cuda.synchronize()
+    torch.save(res, out)
 
 
 def prefill_kernel_times(torch, src: str) -> dict:
@@ -409,8 +487,7 @@ def prefill_kernel_times(torch, src: str) -> dict:
     from repro_torch.kernels import lean_prefill as lp
     from repro_torch.kernels import ops
 
-    check(os.path.abspath(fp.__file__).startswith(os.path.abspath(src) + os.sep),
-          f"kernels imported from {fp.__file__}, not from {src}")
+    check_src(fp, src)
     B, Hq, Hkv, d, tile = 1, 32, 8, 128, 128
     Lq, Lk, causal, window = K7_CASES["causal 3000"]
     dev = torch.device("cuda")
@@ -467,12 +544,15 @@ def reset_launch_counts():
         m.reset_launch_counts()
 
 
-def tensor_core_counts(what: str) -> dict:
-    """K7's, K8's and the fused K4's tensor-core launches since the last
-    reset; fails unless every launch of them went through a tensor-core
-    kernel (the main path is bf16 at d 128 on pages of 128, where the path
-    rule picks it)."""
+def path_counts(what: str) -> dict:
+    """K7's, K8's and the fused K4's tensor-core launches, and K6's and K5's
+    launches on the decode ring, since the last reset; fails unless every
+    launch of them went through that path (the main path is bf16 -- float32
+    for K6 on int8 pages -- at d 128 on pages of 128, where the path rules
+    pick them)."""
+    from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import lean_decode as ld
     from repro_torch.kernels import lean_prefill as lp
 
     tc = {"K7": fp.dense_tc_launches, "K8": fp.tc_launches, "K4f": lp.fused_tc_launches}
@@ -481,7 +561,23 @@ def tensor_core_counts(what: str) -> dict:
           f"{what}: K7 launched {fp.dense_launches} times, {tc['K7']} on the tensor cores; "
           f"K8 {fp.launches} times, {tc['K8']} on the tensor cores; fused K4 "
           f"{lp.fused_launches} times, {tc['K4f']} on the tensor cores")
+    check(fd.ring_launches == fd.launches and ld.cascade_ring_launches == ld.cascade_launches,
+          f"{what}: K6 launched {fd.launches} times, {fd.ring_launches} on the decode ring; "
+          f"K5 {ld.cascade_launches} times, {ld.cascade_ring_launches} on the ring")
     return tc
+
+
+def ring_line(kernel: str, elem: int, d: int, tile: int, rows: int) -> str:
+    """What the decode ring holds for ``kernel`` at a shape: slots, tiles
+    and bytes in flight (the host's rule, kernels/decode_ring.py)."""
+    from repro_torch.kernels import decode_ring as dr
+
+    ns = dr.ring_slots(elem, d, tile, rows)
+    if ns == 0:
+        return f"{kernel}: no ring (the walk over device memory)"
+    return (f"{kernel} ring: {ns} slots of {dr.slot_bytes(elem, d, tile)} bytes ({ns // 2} "
+            f"tiles' K and V), {dr.bytes_in_flight(elem, d, tile, rows)} bytes in flight "
+            f"beside {dr.state_bytes(rows, d, tile)} bytes of float state")
 
 
 def tc_ptxas_lines(report: str):
@@ -811,9 +907,13 @@ def fixed_decode_phase(torch, sm_count: int, dev_name: str):
             k_seg = k_dense.reshape(B * Hkv, width * tile, d)
             v_seg = v_dense.reshape(B * Hkv, width * tile, d)
             args = (q_seg, k_seg, v_seg, seg_ctx, splits, tile, scale)
+            ring_before = fd.ring_launches
             parts = fd.flash_decode_partials(*args)
             parts_ref = fd.flash_decode_partials_plain(*args)
             torch.cuda.synchronize()
+            check(fd.ring_launches == ring_before + 1,
+                  f"K6 {dname} did not run on the decode ring")
+            print("  " + ring_line(f"K6 {dname}", elem, d, tile, gq), flush=True)
             err = max((a - b).abs().max().item() for a, b in zip(parts, parts_ref))
             check(all(torch.allclose(a, b, atol=tol, rtol=tol) for a, b in zip(parts, parts_ref)),
                   f"K6 {dname} lens {lens} disagrees with the plain version: max |err| {err}")
@@ -1070,7 +1170,7 @@ def scheduler_phase(torch, cfg, params, backend, sm_count, new_tokens, blocking,
               f"{cfg.n_layers} x {ticks} decode ticks")
     others = {k: n for k, n in counts.items() if k not in kernels and n}
     check(not others, f"{what}: other kernels ran: {others}")
-    tc = tensor_core_counts(what)
+    tc = path_counts(what)
     ttft = [(h.first_token_time - h.arrival_time) * 1e3 for h in handles]
     agree = sum(h.generated[0] == blocking["first"][h.uid] for h in handles)
     atol_frac = INT8_LOGIT_ATOL_FRAC if kv_dtype == "int8" else LOGIT_ATOL_FRAC
@@ -1255,6 +1355,7 @@ def cascade_kernel_phase(torch, sm_count: int, dev_name: str):
     times, and K5's byte bound (without and with its partials)."""
     from repro_torch.core.attention import paged_gather_kv
     from repro_torch.core.leantile import make_schedule
+    from repro_torch.kernels import decode_ring as dr
     from repro_torch.kernels import lean_decode as ld
     from repro_torch.kernels import ops
 
@@ -1274,9 +1375,14 @@ def cascade_kernel_phase(torch, sm_count: int, dev_name: str):
                                              sm_count)
             csched = args[7]
             B = len(lens)
+            ring_before = ld.cascade_ring_launches
             o, lse = ld.lean_cascade_fused(*args)
             o_ref, lse_ref = ld.lean_cascade_fused_plain(*args)
             torch.cuda.synchronize()
+            check(ld.cascade_ring_launches == ring_before + 1,
+                  f"K5 {dname} ({case}) did not run on the decode ring")
+            print("  " + ring_line(f"K5 {dname} ({case})", elem, d, tile,
+                                   dr.row_bucket(args[0].shape[1])), flush=True)
             err = max((o - o_ref).abs().max().item(), (lse - lse_ref).abs().max().item())
             check(torch.allclose(o, o_ref, atol=tol, rtol=tol)
                   and torch.allclose(lse, lse_ref, atol=tol, rtol=tol),
@@ -1390,6 +1496,7 @@ def int8_kernel_phase(torch, sm_count: int, dev_name: str):
     reads int8 pages with scales)."""
     from repro_torch.core.attention import paged_gather_kv_dequant
     from repro_torch.core.leantile import make_chunk_schedule, make_schedule
+    from repro_torch.kernels import decode_ring as dr
     from repro_torch.kernels import lean_decode as ld
     from repro_torch.kernels import lean_prefill as lp
     from repro_torch.kernels import ops
@@ -1522,9 +1629,12 @@ def int8_kernel_phase(torch, sm_count: int, dev_name: str):
     kq, ks, vq, vs = quantized(torch, k_pool, v_pool)
     args, binding = cascade_operands(torch, q, kq, vq, tbl, lens, passes, sm_count)
     sc = dict(k_scales=ks, v_scales=vs)
+    ring_before = ld.cascade_ring_launches
     o, lse = ld.lean_cascade_fused(*args, **sc)
     o_ref, lse_ref = ld.lean_cascade_fused_plain(*args, **sc)
     torch.cuda.synchronize()
+    check(ld.cascade_ring_launches == ring_before + 1, "K5-int8 did not run on the decode ring")
+    print("  " + ring_line("K5-int8", 1, d, tile, dr.row_bucket(args[0].shape[1])), flush=True)
     err_k5 = max((o - o_ref).abs().max().item(), (lse - lse_ref).abs().max().item())
     check(torch.allclose(o, o_ref, atol=BF16_TOL, rtol=BF16_TOL)
           and torch.allclose(lse, lse_ref, atol=BF16_TOL, rtol=BF16_TOL),
@@ -1745,7 +1855,7 @@ def prefix_serving_phase(torch, cfg, params, sm_count, new_tokens, kv_dtype=None
           f"{st.ticks - st.cascade_ticks} non-cascade ticks")
     check(c["K4f"] == L * chunk_steps, f"prefix serving: fused K4 launched {c['K4f']} times, "
           f"expected {L} x {chunk_steps} chunk steps")
-    tensor_core_counts("prefix serving")
+    path_counts("prefix serving")
     others = {k: n for k, n in c.items() if k not in ("K2", "K4f", "K5") and n}
     check(not others, f"prefix serving: other kernels ran: {others}")
     skipped = off["eng"].stats.prefill_tokens - st.prefill_tokens
@@ -1956,7 +2066,7 @@ def dense_engine_phase(torch, cfg, params, sm_count, new_tokens, paged):
               f"expected {L} x {eng.stats.ticks} ticks")
         others = {k: n for k, n in counts.items() if k not in ("K7", decode_k) and n}
         check(not others, f"dense engine ({backend}): other kernels ran: {others}")
-        tc = tensor_core_counts(f"dense engine ({backend})")
+        tc = path_counts(f"dense engine ({backend})")
         p50 = statistics.median(dt for dt, _ in ticks[1:])
         tok_s = sum(n for _, n in ticks[1:]) / sum(dt for dt, _ in ticks[1:])
         streams = [list(r.generated) for r in reqs]
@@ -2030,8 +2140,7 @@ def row_kernel_outputs(torch, src: str, out: str):
     from repro_torch.kernels import lean_prefill as lp
     from repro_torch.kernels import ops
 
-    check(os.path.abspath(lp.__file__).startswith(os.path.abspath(src) + os.sep),
-          f"kernels imported from {lp.__file__}, not from {src}")
+    check_src(lp, src)
     dev, res = torch.device("cuda"), {}
     Hq, Hkv, offs, C = 32, 8, (300, 5), 100
     for dtype in (torch.float32, torch.bfloat16):
@@ -2070,16 +2179,16 @@ def row_kernel_outputs(torch, src: str, out: str):
     torch.save(res, out)
 
 
-def row_kernel_bits(torch, other_src: str) -> dict:
-    """The row-block kernels of this checkout and of ``other_src`` (one
-    process each) on the same seeded inputs: how many outputs are equal bit
-    for bit."""
+def kernel_bits(torch, other_src: str, which: str) -> dict:
+    """The row-block (``which`` "row") or decode ("decode") kernels of this
+    checkout and of ``other_src`` (one process each) on the same seeded
+    inputs: how many outputs are equal bit for bit."""
     outs = []
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     for i, src in enumerate((os.path.join(ROOT, "src"), other_src)):
-        out = os.path.join(ROOT, "build", f"row_kernel_outputs_{i}.pt")
-        subprocess.run([sys.executable, os.path.abspath(__file__), "--row-kernel-outputs", src,
-                        out], check=True, stdout=subprocess.DEVNULL)
+        out = os.path.join(ROOT, "build", f"{which}_kernel_outputs_{i}.pt")
+        subprocess.run([sys.executable, os.path.abspath(__file__), f"--{which}-kernel-outputs",
+                        src, out], check=True, stdout=subprocess.DEVNULL)
         outs.append(torch.load(out))
     a, b = outs
     check(sorted(a) == sorted(b), "the two checkouts ran different cases")
@@ -2108,13 +2217,20 @@ def main() -> int:
             times = prefill_kernel_times(torch, src)
         print(json.dumps({"card": nvidia_smi_line(), **times}))
         return 0
-    if sys.argv[1:2] == ["--row-kernel-outputs"]:
+    if sys.argv[1:2] in (["--row-kernel-outputs"], ["--decode-kernel-outputs"]):
         src = os.path.abspath(sys.argv[2])
         sys.path.insert(0, src)
-        row_kernel_outputs(torch, src, sys.argv[3])
+        torch.backends.cuda.matmul.allow_tf32 = False
+        if sys.argv[1] == "--row-kernel-outputs":
+            row_kernel_outputs(torch, src, sys.argv[3])
+        else:
+            decode_kernel_outputs(torch, torch.cuda.get_device_properties(0).multi_processor_count,
+                                  src, sys.argv[3])
         return 0
-    if sys.argv[1:2] == ["--row-kernel-bits"]:
-        print(json.dumps(row_kernel_bits(torch, os.path.abspath(sys.argv[2]))))
+    if sys.argv[1:2] in (["--row-kernel-bits"], ["--decode-kernel-bits"]):
+        which = sys.argv[1].split("-")[2]
+        print(json.dumps({"card": nvidia_smi_line(),
+                          **kernel_bits(torch, os.path.abspath(sys.argv[2]), which)}))
         return 0
     try:
         from repro_torch.configs import get_config
@@ -2183,7 +2299,7 @@ def main() -> int:
           == counts["K8"] == 0, f"blocking engine ran other kernels: {counts}")
     check(counts["K7"] == cfg.n_layers * eng.stats.prefills == cfg.n_layers * len(reqs),
           f"K7 launched {counts['K7']} times, expected {cfg.n_layers} x {len(reqs)} admissions")
-    tc = tensor_core_counts("engine phase")
+    tc = path_counts("engine phase")
     decode_steps = eng.stats.ticks
     check(all(len(r.generated) == new_tokens for r in reqs), "a request did not finish")
     check(tuple(lean_logits.shape) == (len(reqs), cfg.vocab_size)

@@ -28,7 +28,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("lean_decode.cu", "lean_prefill.cu", "lean_prefill_tc.cu", "flash_decode.cu",
-           "flash_prefill.cu", "lean_cascade.cu", "lean_merge.cu")
+           "flash_prefill.cu", "lean_cascade.cu", "lean_cascade_walk.cu", "lean_merge.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,9 +1,14 @@
 // Online-softmax tile updates shared by the port's attention kernels.
 //
-//   tile_update       gq query rows of one decode segment against one K/V
-//                     tile masked to a runtime length: K1, K2
-//                     (lean_decode.cu), K5 (lean_cascade.cu) and K6
-//                     (flash_decode.cu).
+//   decode_scores,    the three phases of one decode update: gq query rows
+//   decode_softmax,   of one segment against one K/V tile masked to a
+//   decode_pv         runtime length, for any CTA width;
+//   tile_update       the three phases on a tile read from device memory
+//                     (int8 tiles staged by cp.async first): K1 and K2
+//                     (lean_decode.cu), and K5 and K6 where their ring does
+//                     not fit; K6 (flash_decode.cu) and K5
+//                     (lean_cascade.cu) otherwise run the phases on tiles
+//                     that attn_decode_ring.cuh's bulk copies staged;
 //   merge_piece       one step of the softmax re-scaling merge (paper
 //                     section IV-A): K2's and K5's fix-ups and K3
 //                     (lean_merge.cu).
@@ -15,7 +20,7 @@
 //                     state (rows_tile_update is one sub-tile): K4
 //                     (lean_prefill.cu), K7 and K8 (flash_prefill.cu).
 //
-// Both are the update of LeanAttention's Algorithm 1, lines 20-25, with the
+// The updates are LeanAttention's Algorithm 1, lines 20-25, with the
 // arithmetic of the reference kernels (repro/kernels/lean_decode.py:74-114,
 // lean_prefill.py:110-137):
 //   s = (q . k) * scale, masked keys at NEG_INF
@@ -31,9 +36,10 @@
 // before it enters a product -- the reference widens the tile and multiplies
 // it by its scale before QK^T and PV -- and everything after the load is the
 // float path's arithmetic. int8 rows are read as 16-byte vectors: the
-// decode update copies the tile's K and V rows into shared memory with
-// cp.async (every copy of the tile in flight at once), the row-block update
-// widens 16 values per load. Rows must hold a multiple of 16 values.
+// decode tile_update copies the tile's K and V rows into shared memory with
+// cp.async (every copy of the tile in flight at once), the decode ring with
+// its bulk copies, and the row-block update widens 16 values per load. Rows
+// must hold a multiple of 16 values.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -143,11 +149,12 @@ __host__ __device__ inline size_t stage_bytes(int d, int tile) {
   return is_int8<T> ? (size_t)2 * tile * d : 0;
 }
 
-// Zero the accumulator and reset the running max and sum of the QB rows.
-template <int QB>
+// Zero the accumulator and reset the running max and sum of the QB rows
+// (NT threads).
+template <int QB, int NT = kThreads>
 __device__ void reset_decode_rows(const Smem& s, int d) {
-  for (int e = threadIdx.x; e < QB * d; e += kThreads) s.acc[e] = 0.f;
-  for (int r = threadIdx.x; r < QB; r += kThreads) {
+  for (int e = threadIdx.x; e < QB * d; e += NT) s.acc[e] = 0.f;
+  for (int r = threadIdx.x; r < QB; r += NT) {
     s.m[r] = kNegInf;
     s.l[r] = 0.f;
   }
@@ -155,58 +162,47 @@ __device__ void reset_decode_rows(const Smem& s, int d) {
 
 // The segment's `rows` query rows (row stride d) into s.q; rows up to QB
 // are zero, and their results are never written.
-template <typename T, int QB>
+template <typename T, int QB, int NT = kThreads>
 __device__ __forceinline__ void load_decode_q(const T* __restrict__ q_rows, int rows,
                                               const Smem& s, int d) {
-  for (int e = threadIdx.x; e < rows * d; e += kThreads) s.q[e] = to_float(q_rows[e]);
-  for (int e = rows * d + threadIdx.x; e < QB * d; e += kThreads) s.q[e] = 0.f;
+  for (int e = threadIdx.x; e < rows * d; e += NT) s.q[e] = to_float(q_rows[e]);
+  for (int e = rows * d + threadIdx.x; e < QB * d; e += NT) s.q[e] = 0.f;
 }
 
 // StorePartials: the un-scaled (acc, m, l) of the first `rows` rows.
+template <int NT = kThreads>
 __device__ __forceinline__ void flush_rows(const Smem& s, int rows, int d, float* o_dst,
                                            float* m_dst, float* l_dst) {
-  for (int e = threadIdx.x; e < rows * d; e += kThreads) o_dst[e] = s.acc[e];
-  for (int r = threadIdx.x; r < rows; r += kThreads) {
+  for (int e = threadIdx.x; e < rows * d; e += NT) o_dst[e] = s.acc[e];
+  for (int r = threadIdx.x; r < rows; r += NT) {
     m_dst[r] = s.m[r];
     l_dst[r] = s.l[r];
   }
 }
 
-// One decode update of the GQ rows against the tile's first vlen keys.
-// Keys past vlen are neither loaded nor accumulated (their p is 0).
-// kThreads threads; caller syncs before (q/acc ready), this syncs after.
-// A decode CTA runs alone on its SM, so only the loads each thread keeps in
-// flight hide the memory latency: phase A keeps KB keys per warp, phase C
-// CB V rows per thread. The batching leaves the order of every sum as it
-// was with one key and one row at a time. int8 tiles (ks, vs their scales)
-// first land in `stage` (stage_bytes<T>), then both phases read them there.
-template <typename T, int GQ>
-__device__ void tile_update(const T* __restrict__ k_tile, const T* __restrict__ v_tile,
-                            int vlen, const Smem& s, int d, int tile, float scale,
-                            float ks = 1.f, float vs = 1.f, int8_t* stage = nullptr) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const T* kp = k_tile;
-  const T* vp = v_tile;
-  if constexpr (is_int8<T>) {
-    const int nvec = vlen * d / kVec;
-    for (int i = tid; i < nvec; i += kThreads) {
-      cp_async16(stage + i * kVec, k_tile + i * kVec);
-      cp_async16(stage + (size_t)tile * d + i * kVec, v_tile + i * kVec);
-    }
-    cp_async_wait_all();
-    __syncthreads();
-    kp = stage;
-    vp = stage + (size_t)tile * d;
-  }
+// The three phases of one decode update of the GQ rows against a tile's
+// first vlen keys, for NT threads: A writes the scores, B the running max,
+// probabilities and exp-sum, C the accumulator. The caller syncs the
+// threads between phases. K and V rows may lie in device memory or in a
+// shared-memory copy of the tile (int8 staging, the decode ring of
+// attn_decode_ring.cuh): the arithmetic is the same, and no phase's sums
+// depend on NT -- each key's dot is one warp's, over d in lane-stride order
+// and then warp_sum; each row's max and exp-sum one warp's; each output
+// column's PV one thread's, over the keys in order.
 
-  // phase A: one warp per key, lanes stride over d (coalesced row reads);
-  // KB keys in flight per warp
+// Phase A: one warp per key, lanes stride over d (coalesced row reads); KB
+// keys in flight per warp.
+template <typename T, int GQ, int NT>
+__device__ __forceinline__ void decode_scores(const T* __restrict__ kp, int vlen, const Smem& s,
+                                              int d, int tile, float scale, float ks) {
+  constexpr int NW = NT / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   constexpr int KB = GQ <= 4 ? 4 : GQ <= 16 ? 2 : 1;
-  for (int j0 = warp; j0 < vlen; j0 += KB * kWarps) {
+  for (int j0 = warp; j0 < vlen; j0 += KB * NW) {
     const T* krow[KB];
 #pragma unroll
     for (int u = 0; u < KB; ++u) {
-      const int j = j0 + u * kWarps;
+      const int j = j0 + u * NW;
       krow[u] = kp + (size_t)(j < vlen ? j : j0) * d;
     }
     float part[KB][GQ];
@@ -225,7 +221,7 @@ __device__ void tile_update(const T* __restrict__ k_tile, const T* __restrict__ 
     }
 #pragma unroll
     for (int u = 0; u < KB; ++u) {
-      const int j = j0 + u * kWarps;
+      const int j = j0 + u * NW;
 #pragma unroll
       for (int r = 0; r < GQ; ++r) {
         const float dot = warp_sum(part[u][r]);
@@ -233,10 +229,13 @@ __device__ void tile_update(const T* __restrict__ k_tile, const T* __restrict__ 
       }
     }
   }
-  __syncthreads();
+}
 
-  // phase B: one warp per query row -- running max, probabilities, exp-sum
-  for (int r = warp; r < GQ; r += kWarps) {
+// Phase B: one warp per query row -- running max, probabilities, exp-sum.
+template <int GQ, int NT>
+__device__ __forceinline__ void decode_softmax(int vlen, const Smem& s, int tile) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int r = warp; r < GQ; r += NT / 32) {
     float* prow = s.p + r * tile;
     float mx = kNegInf;
     for (int j = lane; j < vlen; j += 32) mx = fmaxf(mx, prow[j]);
@@ -257,15 +256,24 @@ __device__ void tile_update(const T* __restrict__ k_tile, const T* __restrict__ 
       s.m[r] = m_new;
     }
   }
-  __syncthreads();
+}
 
-  // phase C: one thread per output column, V rows read coalesced, CB rows
-  // in flight per thread
+// Phase C: one thread per output column and group of GQ / RS rows (RS = 1
+// at kThreads; wider CTAs split the rows), V rows read coalesced, CB rows
+// in flight per thread.
+template <typename T, int GQ, int NT>
+__device__ __forceinline__ void decode_pv(const T* __restrict__ vp, int vlen, const Smem& s,
+                                          int d, int tile, float vs) {
+  constexpr int RS = NT > kThreads && GQ % (NT / kThreads) == 0 ? NT / kThreads : 1;
+  constexpr int RG = GQ / RS;
   constexpr int CB = 16;
-  for (int c = tid; c < d; c += kThreads) {
-    float pv[GQ];
+  for (int e = threadIdx.x; e < RS * d; e += NT) {
+    const int c = RS == 1 ? e : e % d;
+    const int r0 = RS == 1 ? 0 : e / d * RG;
+    const float* pr = s.p + r0 * tile;
+    float pv[RG];
 #pragma unroll
-    for (int r = 0; r < GQ; ++r) pv[r] = 0.f;
+    for (int r = 0; r < RG; ++r) pv[r] = 0.f;
     int j = 0;
     for (; j + CB <= vlen; j += CB) {
       float vv[CB];
@@ -274,16 +282,50 @@ __device__ void tile_update(const T* __restrict__ k_tile, const T* __restrict__ 
 #pragma unroll
       for (int u = 0; u < CB; ++u)
 #pragma unroll
-        for (int r = 0; r < GQ; ++r) pv[r] = fmaf(s.p[r * tile + j + u], vv[u], pv[r]);
+        for (int r = 0; r < RG; ++r) pv[r] = fmaf(pr[r * tile + j + u], vv[u], pv[r]);
     }
     for (; j < vlen; ++j) {
       const float vv = dequant(vp[(size_t)j * d + c], vs);
 #pragma unroll
-      for (int r = 0; r < GQ; ++r) pv[r] = fmaf(s.p[r * tile + j], vv, pv[r]);
+      for (int r = 0; r < RG; ++r) pv[r] = fmaf(pr[r * tile + j], vv, pv[r]);
     }
+    float* acc = s.acc + r0 * d + c;
+    const float* alpha = s.alpha + r0;
 #pragma unroll
-    for (int r = 0; r < GQ; ++r) s.acc[r * d + c] = s.alpha[r] * s.acc[r * d + c] + pv[r];
+    for (int r = 0; r < RG; ++r) acc[r * d] = alpha[r] * acc[r * d] + pv[r];
   }
+}
+
+// One decode update of the GQ rows against the tile's first vlen keys.
+// Keys past vlen are neither loaded nor accumulated (their p is 0).
+// kThreads threads; caller syncs before (q/acc ready), this syncs after.
+// The tile is read from device memory inside the phases: only the loads
+// each thread keeps in flight hide the memory latency (phase A keeps KB
+// keys per warp, phase C CB V rows per thread). int8 tiles (ks, vs their
+// scales) first land in `stage` (stage_bytes<T>), then both phases read
+// them there.
+template <typename T, int GQ>
+__device__ void tile_update(const T* __restrict__ k_tile, const T* __restrict__ v_tile,
+                            int vlen, const Smem& s, int d, int tile, float scale,
+                            float ks = 1.f, float vs = 1.f, int8_t* stage = nullptr) {
+  const T* kp = k_tile;
+  const T* vp = v_tile;
+  if constexpr (is_int8<T>) {
+    const int nvec = vlen * d / kVec;
+    for (int i = threadIdx.x; i < nvec; i += kThreads) {
+      cp_async16(stage + i * kVec, k_tile + i * kVec);
+      cp_async16(stage + (size_t)tile * d + i * kVec, v_tile + i * kVec);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    kp = stage;
+    vp = stage + (size_t)tile * d;
+  }
+  decode_scores<T, GQ, kThreads>(kp, vlen, s, d, tile, scale, ks);
+  __syncthreads();
+  decode_softmax<GQ, kThreads>(vlen, s, tile);
+  __syncthreads();
+  decode_pv<T, GQ, kThreads>(vp, vlen, s, d, tile, vs);
   __syncthreads();
 }
 

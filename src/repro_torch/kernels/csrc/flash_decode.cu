@@ -7,8 +7,7 @@
 //
 // The grid is (segment, split): every segment gets the same number of
 // splits, each a fixed run of tps tiles, whatever its length. A CTA walks
-// its split's tiles with the decode tile update K1 and K2 share
-// (attn::tile_update), skips tiles past the segment's runtime length (the
+// its split's tiles, skips tiles past the segment's runtime length (the
 // reference's pl.when(vlen > 0)) and flushes the un-scaled (o, m, l) of its
 // split; merge_n reduces the splits outside. A split with no visible key
 // flushes m = -1e30, l = 0, which the merge weighs 0. That uniform split is
@@ -16,14 +15,23 @@
 // CTAs of the short segments have nothing to do while the long segments'
 // splits run their full tps tiles.
 //
-// What bounds it on this card: the same as K1/K2 -- decode at gq = 4 rows
-// per KV head does far fewer flops than the ridge point asks per byte, so
-// the floor is the visible K/V bytes over the HBM rate. K/V are read once,
-// straight from the dense (segment, tile) rows.
+// What bounds it on this card: bytes -- decode at gq = 4 rows per KV head
+// does far fewer flops than the ridge point asks per byte, so the floor is
+// the visible K/V bytes over the HBM rate. But only the CTAs of the longest
+// splits set the time, each on its own SM, so what counts is how fast one
+// SM streams its split's tiles. A tile's visible K and V rows are
+// contiguous in the dense (segment, tile) rows, so the CTA streams them
+// through the bulk-copy ring of attn_decode_ring.cuh: a producer warp keeps
+// the next tiles' K and V in flight into shared-memory slots while 256
+// consumer threads run the decode update on the tile that has landed, with
+// attn::tile_update's arithmetic (the same bits). Where the ring does not
+// fit (the host passes ns = 0: a float32 tile of 256 keys at d 128, rows
+// whose bytes are not a multiple of 16) the CTA runs attn::tile_update
+// on the tiles in device memory.
 //
 // Plain C interface (loaded with ctypes); returns the launch's cudaError_t.
 
-#include "attn_tile.cuh"
+#include "attn_decode_ring.cuh"
 
 namespace {
 
@@ -81,24 +89,92 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(Args a) {
   }
 }
 
+// The same walk on the ring: the producer's lane copies each tile with work
+// (K, then V), the consumers update on the staged rows.
 template <typename T, int GQ>
-cudaError_t launch_typed(const Args& a, int num_segments, int splits, cudaStream_t stream) {
-  auto kernel = flash_decode_kernel<T, GQ>;
-  const size_t smem = attn::smem_bytes(GQ, a.d, a.tile);
-  if (smem > 48 * 1024) {
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
+__global__ void __launch_bounds__(ring::kThreads, 1) flash_decode_ring_kernel(Args a, int ns) {
+  extern __shared__ __align__(128) unsigned char ring_raw[];
+  __shared__ uint64_t full[ring::kMaxSlots], empty[ring::kMaxSlots];
+  const int d = a.d, tile = a.tile;
+  const uint32_t slot = (uint32_t)ring::slot_bytes(sizeof(T), d, tile);
+  const ring::Ring r{ring_raw, slot, ns, full, empty};
+  const Smem s = attn::carve_smem<GQ>(reinterpret_cast<float*>(ring_raw + (size_t)ns * slot), d,
+                                      tile);
+  const int seg = blockIdx.x, split = blockIdx.y, splits = gridDim.y;
+  const int ctx = a.seg_ctx[seg];
+  const size_t row_elems = (size_t)tile * d;
+  if (threadIdx.x == 0) ring::init(r);
+  __syncthreads();
+
+  if (threadIdx.x >= ring::kConsumers) {  // the producer warp
+    if (threadIdx.x != ring::kConsumers) return;
+    const T* k = static_cast<const T*>(a.k);
+    const T* v = static_cast<const T*>(a.v);
+    int n = 0;
+    for (int t = 0; t < a.tps; ++t) {
+      const int tile_idx = split * a.tps + t;
+      if (tile_idx >= a.n_tiles) break;
+      const int vlen = min(max(ctx - tile_idx * tile, 0), tile);
+      if (vlen == 0) continue;
+      const size_t row = (size_t)seg * a.n_tiles + tile_idx;
+      const uint32_t bytes = (uint32_t)(vlen * d * sizeof(T));
+      ring::acquire(r, n);
+      ring::fill(r, n++, k + row * row_elems, bytes);
+      ring::acquire(r, n);
+      ring::fill(r, n++, v + row * row_elems, bytes);
+    }
+    return;
   }
-  kernel<<<dim3(num_segments, splits), kThreads, smem, stream>>>(a);
+
+  attn::load_decode_q<T, GQ, ring::kConsumers>(static_cast<const T*>(a.q) + (size_t)seg * GQ * d,
+                                               GQ, s, d);
+  attn::reset_decode_rows<GQ, ring::kConsumers>(s, d);
+  ring::sync_consumers();
+  int n = 0;
+  for (int t = 0; t < a.tps; ++t) {
+    const int tile_idx = split * a.tps + t;
+    if (tile_idx >= a.n_tiles) break;
+    const int vlen = min(max(ctx - tile_idx * tile, 0), tile);
+    if (vlen == 0) continue;
+    ring::tile_update<T, GQ>(r, n, vlen, s, d, tile, a.scale, 1.f, 1.f);
+    n += 2;
+  }
+  const size_t out = (size_t)seg * splits + split;
+  attn::flush_rows<ring::kConsumers>(s, GQ, d, a.o_p + out * GQ * d, a.m_p + out * GQ,
+                                     a.l_p + out * GQ);
+}
+
+template <typename T, int GQ>
+cudaError_t launch_typed(const Args& a, int num_segments, int splits, int ns,
+                         cudaStream_t stream) {
+  const size_t state = attn::smem_bytes(GQ, a.d, a.tile);
+  if (!ring::fits(ns, sizeof(T), a.d, a.tile, state)) return cudaErrorInvalidValue;
+  const dim3 grid(num_segments, splits);
+  if (ns == 0) {
+    auto kernel = flash_decode_kernel<T, GQ>;
+    if (state > 48 * 1024) {
+      cudaError_t err =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)state);
+      if (err != cudaSuccess) return err;
+    }
+    kernel<<<grid, kThreads, state, stream>>>(a);
+    return cudaGetLastError();
+  }
+  auto kernel = flash_decode_ring_kernel<T, GQ>;
+  const size_t smem = ns * ring::slot_bytes(sizeof(T), a.d, a.tile) + state;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, ring::kThreads, smem, stream>>>(a, ns);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_gq(const Args& a, int gq, int num_segments, int splits, cudaStream_t st) {
+cudaError_t launch_gq(const Args& a, int gq, int num_segments, int splits, int ns,
+                      cudaStream_t st) {
   switch (gq) {
-    case 2: return launch_typed<T, 2>(a, num_segments, splits, st);
-    case 4: return launch_typed<T, 4>(a, num_segments, splits, st);
+    case 2: return launch_typed<T, 2>(a, num_segments, splits, ns, st);
+    case 4: return launch_typed<T, 4>(a, num_segments, splits, ns, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -107,18 +183,21 @@ cudaError_t launch_gq(const Args& a, int gq, int num_segments, int splits, cudaS
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k and v share it).
+// dtype: 0 = float32, 1 = bfloat16 (q, k and v share it). ns: slots of the
+// ring (kernels/decode_ring.py), 0 for the walk over device memory; with
+// ns > 0, k and v must be 16-byte aligned.
 int flash_decode_partials_launch(int dtype, const void* q, const void* k, const void* v,
                                  const int* seg_ctx, float* o_p, float* m_p, float* l_p,
                                  int num_segments, int splits, int tps, int n_tiles, int gq,
-                                 int d, int tile, float scale, void* stream) {
-  if (num_segments <= 0 || splits <= 0 || tps <= 0 || n_tiles <= 0 || d <= 0 || tile <= 0)
+                                 int d, int tile, float scale, int ns, void* stream) {
+  if (num_segments <= 0 || splits <= 0 || tps <= 0 || n_tiles <= 0 || d <= 0 || tile <= 0 ||
+      (ns > 0 && ((uintptr_t)k % 16 || (uintptr_t)v % 16)))
     return (int)cudaErrorInvalidValue;
   Args a = {q, k, v, seg_ctx, o_p, m_p, l_p, n_tiles, tps, d, tile, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return (int)launch_gq<float>(a, gq, num_segments, splits, st);
-    case 1: return (int)launch_gq<__nv_bfloat16>(a, gq, num_segments, splits, st);
+    case 0: return (int)launch_gq<float>(a, gq, num_segments, splits, ns, st);
+    case 1: return (int)launch_gq<__nv_bfloat16>(a, gq, num_segments, splits, ns, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

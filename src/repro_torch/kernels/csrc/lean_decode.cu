@@ -19,9 +19,10 @@
 //
 // Structure. One CTA per stream-K worker (grid = num_workers). A worker
 // walks its T descriptor columns in order; each valid column is one
-// LeanTile online-softmax update (attn::tile_update in attn_tile.cuh, shared
-// by K1, K2, K5 and K6) of the segment's gq query rows against one tile x d K/V
-// tile read from pool row route[i], masked to the runtime length
+// LeanTile online-softmax update (attn::tile_update in attn_tile.cuh, whose
+// phases K5 and K6 run on tiles their decode ring staged) of the segment's
+// gq query rows against one tile x d K/V tile read from pool row route[i],
+// masked to the runtime length
 // vlen = clamp(ctx[seg] - tile_idx * tile, 0, tile). On the column that
 // ends a piece the CTA flushes the un-scaled (o, m, l).
 //

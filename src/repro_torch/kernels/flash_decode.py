@@ -9,9 +9,17 @@ K1 and K2 share and flushes one partial ``(o, m, l)``. ``merge_n`` reduces
 the splits outside (:func:`repro_torch.kernels.ops.flash_decode_from_lens`).
 The CUDA source is ``csrc/flash_decode.cu``.
 
+A CTA streams its split's tiles through the decode ring
+(``csrc/attn_decode_ring.cuh``: bulk copies into shared-memory slots,
+kept ahead of the compute by a producer warp) where
+:func:`repro_torch.kernels.decode_ring.ring_slots` says it fits, with the
+same arithmetic and bits as the walk over device memory it replaces; a
+float32 tile of 256 keys at d 128 keeps that walk.
+
 The wrapper launches the kernel for CUDA tensors and runs the plain version
 for CPU tensors -- only because the tensors lie on the CPU; a failed launch
-raises. ``launches`` counts kernel launches (plain runs do not count).
+raises. ``launches`` counts kernel launches (plain runs do not count), and
+``ring_launches`` those of them on the ring.
 """
 from __future__ import annotations
 
@@ -21,18 +29,20 @@ from typing import Tuple
 import torch
 
 from repro_torch.core.attention import NEG_INF
-from . import build
+from . import build, decode_ring
 from .lean_decode import KERNEL_GQ
 
 SOURCE = "flash_decode.cu"
 
-# launch counter: +1 per kernel launch, nowhere else
+# launch counters: +1 per kernel launch, nowhere else
 launches = 0
+ring_launches = 0         # those on the decode ring
 
 
 def reset_launch_counts() -> None:
-    global launches
+    global launches, ring_launches
     launches = 0
+    ring_launches = 0
 
 
 def _library() -> ctypes.CDLL:
@@ -40,7 +50,7 @@ def _library() -> ctypes.CDLL:
     if not getattr(lib, "_argtypes_set", False):
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.flash_decode_partials_launch.argtypes = [
-            I, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P,
+            I, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, P,
         ]
         lib.flash_decode_partials_launch.restype = I
         lib._argtypes_set = True
@@ -51,6 +61,12 @@ def split_geometry(s_pad: int, num_splits: int, tile: int) -> int:
     """Tiles per split: the reference pads the KV so that every split covers
     ``tps`` whole tiles (``flash_decode.py:104-106``)."""
     return -(-(s_pad // tile) // num_splits)
+
+
+def ring_slots(dtype: torch.dtype, gq: int, d: int, tile: int) -> int:
+    """Slots of K6's decode ring for K/V of ``dtype`` (0: the walk over
+    device memory)."""
+    return decode_ring.ring_slots(torch.finfo(dtype).bits // 8, d, tile, gq)
 
 
 def flash_decode_partials_plain(q_seg, k_seg, v_seg, seg_lens, num_splits: int,
@@ -101,7 +117,7 @@ def flash_decode_partials(q_seg, k_seg, v_seg, seg_lens, num_splits: int, tile: 
     int32 runtime lengths. Returns float32 per-(segment, split) partials
     ``(o (S, splits, gq, d), m (S, splits, gq), l (S, splits, gq))``; a split
     with no visible key has ``m = -1e30, l = 0``."""
-    global launches
+    global launches, ring_launches
     S, gq, d = q_seg.shape
     if k_seg.dim() != 3 or k_seg.shape[0] != S or k_seg.shape[2] != d or v_seg.shape != k_seg.shape:
         raise ValueError(
@@ -127,6 +143,9 @@ def flash_decode_partials(q_seg, k_seg, v_seg, seg_lens, num_splits: int, tile: 
     build.check_contiguous(q_seg=q_seg, k_seg=k_seg, v_seg=v_seg, seg_lens=seg_lens)
     n_tiles = k_seg.shape[1] // tile
     tps = split_geometry(k_seg.shape[1], num_splits, tile)
+    ns = ring_slots(q_seg.dtype, gq, d, tile)
+    if ns:
+        decode_ring.check_aligned("flash_decode_partials (K6)", k_seg=k_seg, v_seg=v_seg)
     dev = q_seg.device
     o = torch.empty(S, num_splits, gq, d, dtype=torch.float32, device=dev)
     m = torch.empty(S, num_splits, gq, dtype=torch.float32, device=dev)
@@ -134,8 +153,9 @@ def flash_decode_partials(q_seg, k_seg, v_seg, seg_lens, num_splits: int, tile: 
     err = _library().flash_decode_partials_launch(
         build.DTYPE_CODE[q_seg.dtype], build.ptr(q_seg), build.ptr(k_seg), build.ptr(v_seg),
         build.ptr(seg_lens), build.ptr(o), build.ptr(m), build.ptr(l),
-        S, int(num_splits), tps, n_tiles, gq, d, int(tile), float(scale), build.stream(dev),
+        S, int(num_splits), tps, n_tiles, gq, d, int(tile), float(scale), ns, build.stream(dev),
     )
     build.check_launch(err, "flash_decode_partials (K6)")
     launches += 1
+    ring_launches += int(ns > 0)
     return o, m, l

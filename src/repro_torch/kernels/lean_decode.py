@@ -24,7 +24,13 @@ plain PyTorch versions.
     suffix pass and the merge per target sequence. Replaces
     ``repro/kernels/lean_decode.py:604`` ``_lean_cascade_fused_kernel``
     (driven by ``lean_cascade_fused`` ``:715``). ``csrc/lean_cascade.cu``:
-    K2's last-arriver fix-up applied to targets instead of segments.
+    K2's last-arriver fix-up applied to targets instead of segments. A
+    worker streams its columns' tiles through the decode ring
+    (``csrc/attn_decode_ring.cuh``) where :func:`cascade_ring_slots` says it
+    fits, and walks them in device memory elsewhere
+    (``csrc/lean_cascade_walk.cu``); its last arriver folds each target's
+    pieces several loads at a time. Both walks and the fold keep the order
+    of every sum, so the bits are the same either way.
 
 K1 and K2 are CUDA C++ for ``sm_90a`` in ``csrc/lean_decode.cu`` (see the
 note there on what bounds them: the K/V bytes read, since decode at ``gq =
@@ -51,7 +57,8 @@ fallback from a failed launch. The plain versions walk the same descriptors
 in the same order (vectorised over the G workers at each step ``t``) and
 serve the CPU tests and the on-card comparison in ``chip_smoke.py``.
 ``partials_launches`` / ``fused_launches`` / ``merge_launches`` /
-``cascade_launches`` count kernel launches (plain runs do not count).
+``cascade_launches`` count kernel launches (plain runs do not count),
+``cascade_ring_launches`` the K5 launches on the ring.
 """
 from __future__ import annotations
 
@@ -64,7 +71,7 @@ import torch
 from repro_torch.core.attention import NEG_INF
 from repro_torch.core.leantile import CascadeSchedule, LeanSchedule
 from repro_torch.core.merge import merge_grid
-from . import build
+from . import build, decode_ring
 
 # descriptor rows of LeanSchedule.packed_descriptors(); VALID is 1 on a
 # LeanTile column (OP_PARTIAL) and 0 on padding
@@ -72,7 +79,8 @@ DESC_SEG, DESC_TILE, DESC_PIECE, DESC_FIRST, DESC_LAST, DESC_LEN, DESC_VALID = r
 OP_PARTIAL = 1
 
 SOURCE = "lean_decode.cu"
-CASCADE_SOURCE = "lean_cascade.cu"
+CASCADE_SOURCE = "lean_cascade.cu"            # K5 on the decode ring
+CASCADE_WALK_SOURCE = "lean_cascade_walk.cu"  # K5 where the ring does not fit
 MERGE_SOURCE = "lean_merge.cu"
 # query heads per KV head that K5 takes (its suffix rows): the smoke
 # config's and Mistral-NeMo-12B's
@@ -87,14 +95,17 @@ partials_launches = 0
 fused_launches = 0
 merge_launches = 0
 cascade_launches = 0
+cascade_ring_launches = 0     # K5 launches on the decode ring
 
 
 def reset_launch_counts() -> None:
     global partials_launches, fused_launches, merge_launches, cascade_launches
+    global cascade_ring_launches
     partials_launches = 0
     fused_launches = 0
     merge_launches = 0
     cascade_launches = 0
+    cascade_ring_launches = 0
 
 
 # ------------------------------------------------------------ schedule data
@@ -204,10 +215,11 @@ _ENTRY_POINTS = {
     CASCADE_SOURCE: {
         "lean_cascade_fused_launch": [
             I_, P_, P_, P_, P_, P_, P_, P_, I_, I_, I_, I_, I_, P_, P_, P_, P_, P_, P_, P_,
-            P_, P_, P_, P_, P_, I_, I_, I_, I_, I_, F_, P_,
+            P_, P_, P_, P_, P_, I_, I_, I_, I_, I_, F_, I_, P_,
         ],
     },
 }
+_ENTRY_POINTS[CASCADE_WALK_SOURCE] = _ENTRY_POINTS[CASCADE_SOURCE]
 
 
 def _library(source: str = SOURCE) -> ctypes.CDLL:
@@ -554,6 +566,14 @@ def lean_cascade_fused_plain(q_pref, q_suf, k_rows, v_rows, ctx_all, route,
     return acc / l[..., None], m + torch.log(l)
 
 
+def cascade_ring_slots(kv_dtype: torch.dtype, qmax: int, d: int, tile: int) -> int:
+    """Slots of K5's decode ring for K/V rows of ``kv_dtype`` (int8 pools:
+    ``torch.int8``) at ``qmax`` stacked prefix rows (0: the walk over
+    device memory)."""
+    elem = 1 if kv_dtype == torch.int8 else torch.finfo(kv_dtype).bits // 8
+    return decode_ring.ring_slots(elem, d, tile, decode_ring.row_bucket(qmax))
+
+
 def lean_cascade_fused(q_pref, q_suf, k_rows, v_rows, ctx_all, route,
                        fdesc: CascadeFusedDesc, csched: CascadeSchedule, scale: float,
                        k_scales=None, v_scales=None
@@ -565,7 +585,7 @@ def lean_cascade_fused(q_pref, q_suf, k_rows, v_rows, ctx_all, route,
     pool row per partial column, prefix columns first; ``fdesc`` from
     :func:`cascade_fused_desc`; int8 rows take ``k_scales``/``v_scales``.
     Returns float32 ``(o (B*Hkv, g, d), lse (B*Hkv, g))``."""
-    global cascade_launches
+    global cascade_launches, cascade_ring_launches
     _check_cascade(q_pref, q_suf, k_rows, v_rows, ctx_all, route, csched)
     ks, vs = scale_rows(k_rows, k_scales, v_scales)
     if q_pref.device.type == "cpu":
@@ -583,6 +603,9 @@ def lean_cascade_fused(q_pref, q_suf, k_rows, v_rows, ctx_all, route,
                          f"g {g} and {qmax} rows")
     build.check_contiguous(q_pref=q_pref, q_suf=q_suf, k_rows=k_rows, v_rows=v_rows,
                            ctx_all=ctx_all, route=route)
+    ns = cascade_ring_slots(k_rows.dtype, qmax, d, csched.tile_size)
+    if ns:
+        decode_ring.check_aligned("lean_cascade_fused (K5)", k_rows=k_rows, v_rows=v_rows)
     pre, suf = csched.prefix_sched, csched.suffix_sched
     Ptot = csched.num_pieces_total
     o_p = torch.empty(Ptot + 1, qmax, d, dtype=torch.float32, device=dev)
@@ -591,15 +614,16 @@ def lean_cascade_fused(q_pref, q_suf, k_rows, v_rows, ctx_all, route,
     arrivals = torch.zeros(S, dtype=torch.int32, device=dev)
     o = torch.empty(S, g, d, dtype=torch.float32, device=dev)
     lse = torch.empty(S, g, dtype=torch.float32, device=dev)
-    err = _library(CASCADE_SOURCE).lean_cascade_fused_launch(
+    err = _library(CASCADE_SOURCE if ns else CASCADE_WALK_SOURCE).lean_cascade_fused_launch(
         build.dtype_code(q_suf, k_rows), build.ptr(q_pref), build.ptr(q_suf), build.ptr(k_rows),
         build.ptr(v_rows), build.ptr(ks), build.ptr(vs), build.ptr(fdesc.desc), fdesc.desc.shape[1], pre.grid_iters,
         pre.tiles_per_worker, suf.tiles_per_worker, pre.num_workers, build.ptr(ctx_all),
         build.ptr(route), build.ptr(fdesc.tgt_start), build.ptr(fdesc.tgt_count),
         build.ptr(fdesc.pt_start), build.ptr(fdesc.pt_tgt), build.ptr(arrivals),
         build.ptr(o_p), build.ptr(m_p), build.ptr(l_p), build.ptr(o), build.ptr(lse),
-        q_pref.shape[0], qmax, g, d, csched.tile_size, float(scale), build.stream(dev),
+        q_pref.shape[0], qmax, g, d, csched.tile_size, float(scale), ns, build.stream(dev),
     )
     build.check_launch(err, "lean_cascade_fused (K5)")
     cascade_launches += 1
+    cascade_ring_launches += int(ns > 0)
     return o, lse

@@ -232,30 +232,75 @@ def test_chunk_kernels_match_plain(cuda, case, dtype):
             assert bool((diff <= 2.0 ** -7 * ref[n, :, :L].float().abs() + TOL["atol"]).all())
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("gq", ld.KERNEL_GQ)
-@pytest.mark.parametrize("lens,splits", [([300, 1, 77, 0], None), ([2000, 513, 1], 1),
-                                         ([40, 9], 9)])
-def test_fixed_split_kernel_matches_plain(cuda, gq, dtype, lens, splits):
+# K6's walks: (lens, splits) from the tile. A segment of length 0 gives
+# splits with no visible key (m = -1e30, l = 0) and one of length 1 a
+# single visible key; 9 splits of a 40-token batch give tps 1; 7 tiles in 3
+# splits give a last split of 1 tile against tps 3.
+K6_WALKS = {
+    "fixed-factor": lambda tile: ([300, 1, 77, 0], None),
+    "one-split": lambda tile: ([2000, 513, 1], 1),
+    "tps-1": lambda tile: ([40, 9], 9),
+    "short-last-split": lambda tile: ([7 * tile - 5, tile + 1, 1, 0], 3),
+}
+# (tile, d): the kernel phase's 128 x 128, the pages the engine can pick
+# that are not a multiple of 8 (12, 100), a page of 256 (bf16 on the ring,
+# float32 on the walk over device memory), and small tiles at d 64
+K6_TILES = [(16, 64), (128, 128), (12, 128), (100, 64), (256, 128)]
+
+
+def _k6_args(dev, walk, gq, dtype, tile, d, seed=3):
     dt = getattr(torch, dtype)
-    gen = torch.Generator(device=cuda)
-    gen.manual_seed(3)
-    Hkv, d, tile = 2, 64, 16
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    lens, splits = K6_WALKS[walk](tile)
+    Hkv = 2
     S = Hkv * len(lens)
     s_pad = -(-max(lens) // tile) * tile
     splits = splits or fixed_split_factor(max(lens), S, tile, 132)
-    q = torch.randn(S, gq, d, generator=gen, device=cuda).to(dt)
-    k = torch.randn(S, s_pad, d, generator=gen, device=cuda).to(dt)
-    v = torch.randn(S, s_pad, d, generator=gen, device=cuda).to(dt)
-    seg = torch.tensor([L for L in lens for _ in range(Hkv)], dtype=torch.int32, device=cuda)
-    args = (q, k, v, seg, splits, tile, 1.0 / math.sqrt(d))
-    before = fd.launches
+    q = torch.randn(S, gq, d, generator=gen, device=dev).to(dt)
+    k = torch.randn(S, s_pad, d, generator=gen, device=dev).to(dt)
+    v = torch.randn(S, s_pad, d, generator=gen, device=dev).to(dt)
+    seg = torch.tensor([L for L in lens for _ in range(Hkv)], dtype=torch.int32, device=dev)
+    return (q, k, v, seg, splits, tile, 1.0 / math.sqrt(d))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("gq", ld.KERNEL_GQ)
+@pytest.mark.parametrize("tile,d", K6_TILES)
+@pytest.mark.parametrize("walk", sorted(K6_WALKS))
+def test_fixed_split_kernel_matches_plain(cuda, gq, dtype, tile, d, walk):
+    """K6 against its plain version on every walk and tile, on the ring
+    where the path rule puts it (counted) and on the walk over device
+    memory elsewhere."""
+    args = _k6_args(cuda, walk, gq, dtype, tile, d)
+    if walk == "short-last-split":
+        n_tiles = args[1].shape[1] // tile
+        tps = fd.split_geometry(args[1].shape[1], 3, tile)
+        assert n_tiles - 2 * tps < tps
+    ring = fd.ring_slots(getattr(torch, dtype), gq, d, tile) > 0
+    assert ring == (dtype == "bfloat16" or tile <= 128)
+    before, before_ring = fd.launches, fd.ring_launches
     out = fd.flash_decode_partials(*args)
     torch.cuda.synchronize()
     assert fd.launches == before + 1
+    assert fd.ring_launches == before_ring + ring
     for a, b in zip(out, fd.flash_decode_partials_plain(*args)):
         torch.testing.assert_close(a, b, **TOL)
+    seg_lens = args[3]
+    if int(seg_lens.min()) == 0:   # a segment with no key: every split m = -1e30, l = 0
+        empty = seg_lens == 0
+        assert bool((out[1][empty] == -1e30).all()) and bool((out[2][empty] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tile,d", [(128, 128), (12, 128), (256, 128)])
+def test_fixed_split_kernel_same_bits_twice(cuda, dtype, tile, d):
+    args = _k6_args(cuda, "fixed-factor", 4, dtype, tile, d)
+    a, b = fd.flash_decode_partials(*args), fd.flash_decode_partials(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 @pytest.mark.cuda
@@ -303,7 +348,20 @@ CASCADES = {
     "nemo-two-level": (32, 8, 128, 128, 132, [((0, 1, 2, 3), 0, 8), ((0, 1), 8, 8)],
                        [700, 300, 129, 1]),
     "g2-eight-members": (4, 2, 64, 16, 1000, [(tuple(range(8)), 0, 4)], list(range(1, 80, 10))),
+    # the ring's row buckets and pages: 4 stacked rows on pages of 12, 8
+    # rows on pages of 100 at d 64, 64 rows (float32: two slots), and pages
+    # of 256 (float32 keeps the walk over device memory)
+    "g2-two-members-page12": (4, 2, 128, 12, 24, [((0, 1), 0, 3)], [5, 30, 1]),
+    "g2-three-members-page100": (4, 2, 64, 100, 40, [((0, 1, 2), 0, 3)], [50, 130, 1]),
+    "g4-sixteen-members": (8, 2, 128, 128, 132, [(tuple(range(16)), 0, 2)],
+                           [7 * i + 1 for i in range(16)]),
+    "nemo-page256": (32, 8, 128, 256, 132, [((0, 1, 2, 3), 0, 4)], [700, 300, 129, 1]),
 }
+
+
+def _k5_ring(args, kv_dtype) -> bool:
+    q_pref, d, tile = args[0], args[0].shape[2], args[7].tile_size
+    return ld.cascade_ring_slots(kv_dtype, q_pref.shape[1], d, tile) > 0
 
 
 def _cascade_problem(dev, case, dtype, seed=0):
@@ -386,11 +444,14 @@ def test_k5_matches_plain_and_is_deterministic(cuda, case, dtype):
     contract); the two-call path (K1 x 2 + merge) agrees within 2e-5."""
     c = _cascade_problem(cuda, case, getattr(torch, dtype))
     args = _cascade_args(c, c["tbl"])
-    before = ld.cascade_launches
+    before, before_ring = ld.cascade_launches, ld.cascade_ring_launches
     o, lse = ld.lean_cascade_fused(*args)
     o2, lse2 = ld.lean_cascade_fused(*args)
     torch.cuda.synchronize()
     assert ld.cascade_launches == before + 2
+    ring = _k5_ring(args, getattr(torch, dtype))
+    assert ring == (case != "nemo-page256" or dtype == "bfloat16")
+    assert ld.cascade_ring_launches == before_ring + 2 * ring
     o_ref, lse_ref = ld.lean_cascade_fused_plain(*args)
     torch.testing.assert_close(o, o_ref, **TOL)
     torch.testing.assert_close(lse, lse_ref, **TOL)
@@ -837,16 +898,19 @@ def test_int8_chunk_kernel_matches_plain(cuda, case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(CASCADES))
 def test_int8_cascade_matches_plain(cuda, case):
-    """K5-int8 against its plain version; shared and duplicated pages give
-    the same bits."""
+    """K5-int8 against its plain version (on the ring at every case); two
+    launches, and shared and duplicated pages, give the same bits."""
     c = _cascade_problem(cuda, case, torch.bfloat16)
     args = list(_cascade_args(c, c["tbl"]))
     kq, ks, vq, vs = _quantized(args[2], args[3])
     args[2], args[3] = kq, vq
-    before = ld.cascade_launches
+    before, before_ring = ld.cascade_launches, ld.cascade_ring_launches
     o, lse = ld.lean_cascade_fused(*args, k_scales=ks, v_scales=vs)
+    o2, lse2 = ld.lean_cascade_fused(*args, k_scales=ks, v_scales=vs)
     torch.cuda.synchronize()
-    assert ld.cascade_launches == before + 1
+    assert ld.cascade_launches == before + 2
+    assert _k5_ring(args, torch.int8) and ld.cascade_ring_launches == before_ring + 2
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
     o_ref, lse_ref = ld.lean_cascade_fused_plain(*args, k_scales=ks, v_scales=vs)
     torch.testing.assert_close(o, o_ref, **TOL)
     torch.testing.assert_close(lse, lse_ref, **TOL)
