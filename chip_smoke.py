@@ -81,11 +81,12 @@ its plain version, against the same cascade over duplicated pages (bit for
 bit), against K2 on the unshared batch and against the two-call cascade, on
 a 2048-token shared prefix and on a two-level grouping.
 
-K6 and K5 stream their K/V tiles through the decode ring
+K1, K2, K6 and K5 stream their K/V tiles through the decode ring
 (``csrc/attn_decode_ring.cuh``: bulk copies into shared-memory slots kept
-ahead of the compute by a producer warp); the kernel phase prints each
-one's slots and bytes in flight, and every phase checks that their launches
-went through it.
+ahead of the compute by a producer warp); the kernel phases print each
+one's slots and bytes in flight, and every serving phase checks that their
+launches went through it (K2 in the engine, Scheduler, prefix and dense
+phases on bf16 and int8 pages, K1 in the ``fused=False`` drives).
 
 A change to the decode kernels is compared with its parent on one card by
 timing only them, one process per checkout, in turns (parent, change,
@@ -103,7 +104,15 @@ are held to another checkout bit for bit with
 
 which runs both checkouts' K1, K2, K5 and K6 (one process each) on the same
 seeded inputs (K6 also on pages of 12 and 256) and prints one JSON line:
-outputs compared, bit-identical, differing. A change to K7
+outputs compared, bit-identical, differing. Where their time goes is read
+with
+
+    python3 chip_smoke.py --decode-ring-clocks
+
+which builds the ring kernels apart with the clock probe of
+``csrc/attn_decode_ring.cuh`` and prints one JSON line: per case, the
+first CTA's cycles in each phase of the decode update, and over all CTAs
+the time to the first K tile and to the end of the walk. A change to K7
 or K8 is compared the same way with
 
     python3 chip_smoke.py --prefill-kernel-times [OTHER_CHECKOUT/src]
@@ -290,7 +299,8 @@ def kernel_phase(torch, sm_count: int, dev_name: str):
         route = ops._paged_route(sched, tbl, Hkv)
         args = (q_seg, k_rows, v_rows, seg_ctx, route, sched, scale)
 
-        # K2 against its plain version
+        # K2 against its plain version, on the decode ring
+        ring_before = (ld.fused_ring_launches, ld.partials_ring_launches)
         o, lse = ld.lean_decode_fused(*args)
         o_ref, lse_ref = ld.lean_decode_fused_plain(*args)
         torch.cuda.synchronize()
@@ -305,6 +315,11 @@ def kernel_phase(torch, sm_count: int, dev_name: str):
         err_k1 = max((a - b).abs().max().item() for a, b in zip(parts, parts_ref))
         check(all(torch.allclose(a, b, atol=tol, rtol=tol) for a, b in zip(parts, parts_ref)),
               f"K1 {dname} partials disagree with the plain version: max |err| {err_k1}")
+        elem = torch.finfo(dtype).bits // 8
+        check((ld.fused_ring_launches, ld.partials_ring_launches)
+              == (ring_before[0] + 1, ring_before[1] + 1),
+              f"K2 or K1 {dname} did not run on the decode ring")
+        print("  " + ring_line(f"K1/K2 {dname}", elem, d, tile, gq), flush=True)
         seg = segment_merge(AttnPartial(*parts), ld.schedule_tensors(sched, dev)["piece_seg"],
                             sched.num_segments)
         o_two = finalize(seg)
@@ -350,7 +365,6 @@ def kernel_phase(torch, sm_count: int, dev_name: str):
         k2_plain_ms = gpu_ms(lambda: ld.lean_decode_fused_plain(*args), reps=5)
         k1_ms = gpu_ms(lambda: ld.lean_decode_partials(*args))
         k1_plain_ms = gpu_ms(lambda: ld.lean_decode_partials_plain(*args), reps=5)
-        elem = torch.finfo(dtype).bits // 8
         tokens = sum(lens) * Hkv                        # K/V rows attended
         kv_bytes = 2 * tokens * d * elem
         lib = library_yardstick(torch, q, k_dense, v_dense, lens, gq, elem)
@@ -474,6 +488,62 @@ def decode_kernel_outputs(torch, sm_count: int, src: str, out: str):
     torch.save(res, out)
 
 
+RING_PHASES = ("wait K", "phase A", "sync A", "phase B + sync", "wait V", "phase C", "sync C")
+
+
+def decode_ring_clocks(torch, sm_count: int) -> dict:
+    """The decode ring's probe: the ring kernels built apart with
+    ``DECODE_RING_CLOCKS`` (``build.DEFINES``), which stamp clocks, run on
+    ``decode_kernel_cases`` (K6 at pages of 128), one warm launch and one
+    stamped launch each. Per case: the first CTA's median cycles in each
+    phase of its tiles and between tiles (Q loads, flushes, K2's fix-up),
+    and over all CTAs the microseconds from the consumers' start to the
+    first K copy landed (CTAs with a tile) and to the end of the walk
+    (median, max), and the span from the first start to the last end."""
+    import ctypes
+
+    import numpy as np
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import lean_decode as ld
+
+    build.DEFINES = ("DECODE_RING_CLOCKS",)
+    libs = {"K1": lambda: ld._library(ld.SOURCE), "K2": lambda: ld._library(ld.SOURCE),
+            "K5": lambda: ld._library(ld.CASCADE_SOURCE), "K6": fd._library}
+    tiles_buf = (ctypes.c_longlong * (64 * 8))()
+    ctas_buf = (ctypes.c_ulonglong * (4096 * 3))()
+    out = {}
+    for name, fn, args, kw in decode_kernel_cases(torch, sm_count):
+        if name.startswith("K6") and "page 128" not in name:
+            continue
+        lib = libs[name[:2]]
+        fn(*args, **kw)
+        torch.cuda.synchronize()
+        read = lib().decode_ring_clocks
+        check(read(tiles_buf, ctas_buf) == 0, "decode_ring_clocks failed")
+        fn(*args, **kw)
+        torch.cuda.synchronize()
+        check(read(tiles_buf, ctas_buf) == 0, "decode_ring_clocks failed")
+        t = np.array(tiles_buf[:], dtype=np.int64).reshape(64, 8)
+        t = t[t[:, 7] != 0]
+        c = np.array(ctas_buf[:], dtype=np.uint64).reshape(4096, 3).astype(np.int64)
+        c = c[c[:, 0] != 0]
+        check(len(t) > 0 and len(c) > 0, f"{name}: the probe stamped nothing (not on the ring?)")
+        landed = c[c[:, 1] != 0]                      # CTAs with a tile to walk
+        first, walk = (landed[:, 1] - landed[:, 0]) / 1e3, (c[:, 2] - c[:, 0]) / 1e3
+        out[name] = {
+            "tiles": len(t),
+            "cycles": {ph: int(np.median(np.diff(t, axis=1)[:, i]))
+                       for i, ph in enumerate(RING_PHASES)},
+            "cycles between tiles": int(np.median(t[1:, 0] - t[:-1, 7])) if len(t) > 1 else 0,
+            "first K us (median, max)": [float(np.median(first)), float(first.max())],
+            "walk us (median, max)": [float(np.median(walk)), float(walk.max())],
+            "span us": float((c[:, 2].max() - c[:, 0].min()) / 1e3),
+        }
+    return out
+
+
 def prefill_kernel_times(torch, src: str) -> dict:
     """K7's time on the 3000-token causal prompt and K8's on the two-chunk
     pack (the K7 and K8 phases' shapes), bf16 and float32, and -- where the
@@ -545,11 +615,11 @@ def reset_launch_counts():
 
 
 def path_counts(what: str) -> dict:
-    """K7's, K8's and the fused K4's tensor-core launches, and K6's and K5's
-    launches on the decode ring, since the last reset; fails unless every
-    launch of them went through that path (the main path is bf16 -- float32
-    for K6 on int8 pages -- at d 128 on pages of 128, where the path rules
-    pick them)."""
+    """K7's, K8's and the fused K4's tensor-core launches, and K1's, K2's,
+    K6's and K5's launches on the decode ring, since the last reset; fails
+    unless every launch of them went through that path (the main path is
+    bf16 or int8 pages -- float32 for K6 on int8 pages -- at d 128 on pages
+    of 128, where the path rules pick them)."""
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import flash_prefill as fp
     from repro_torch.kernels import lean_decode as ld
@@ -564,6 +634,10 @@ def path_counts(what: str) -> dict:
     check(fd.ring_launches == fd.launches and ld.cascade_ring_launches == ld.cascade_launches,
           f"{what}: K6 launched {fd.launches} times, {fd.ring_launches} on the decode ring; "
           f"K5 {ld.cascade_launches} times, {ld.cascade_ring_launches} on the ring")
+    check(ld.partials_ring_launches == ld.partials_launches
+          and ld.fused_ring_launches == ld.fused_launches,
+          f"{what}: K1 launched {ld.partials_launches} times, {ld.partials_ring_launches} on the "
+          f"decode ring; K2 {ld.fused_launches} times, {ld.fused_ring_launches} on the ring")
     return tc
 
 
@@ -1533,11 +1607,16 @@ def int8_kernel_phase(torch, sm_count: int, dev_name: str):
     args = (q_seg, k_rows, v_rows, seg_ctx, route, sched, scale)
     print(f"int8 kernel phase: decode lens {lens}, Hq {Hq} Hkv {Hkv} d {d} page {tile}, "
           f"workers {sm_count}; sequence 3 on a zero-scale page", flush=True)
+    ring_before = (ld.fused_ring_launches, ld.partials_ring_launches)
     o, lse = ld.lean_decode_fused(*args, **sc)
     o_ref, lse_ref = ld.lean_decode_fused_plain(*args, **sc)
     parts = ld.lean_decode_partials(*args, **sc)
     parts_ref = ld.lean_decode_partials_plain(*args, **sc)
     torch.cuda.synchronize()
+    check((ld.fused_ring_launches, ld.partials_ring_launches)
+          == (ring_before[0] + 1, ring_before[1] + 1),
+          "K2-int8 or K1-int8 did not run on the decode ring")
+    print("  " + ring_line("K1/K2-int8", 1, d, tile, g), flush=True)
     err_k2 = max((o - o_ref).abs().max().item(), (lse - lse_ref).abs().max().item())
     err_k1 = max((a - b).abs().max().item() for a, b in zip(parts, parts_ref))
     check(torch.allclose(o, o_ref, atol=BF16_TOL, rtol=BF16_TOL)
@@ -1946,6 +2025,7 @@ def int8_engine_phase(torch, cfg, params, sm_count, new_tokens, bf16):
           f"int8 engine: K2 launched {counts['K2']} times, expected {L} x {eng.stats.ticks}")
     others = {k: n for k, n in counts.items() if k not in ("K2", "K7") and n}
     check(not others, f"int8 engine: other kernels ran (K1 among them?): {others}")
+    path_counts("int8 engine")
     check(all(len(r.generated) == new_tokens for r in reqs), "int8 engine: a request did not finish")
     check(bool(torch.isfinite(rows[0]).all()), "int8 engine: logits not finite")
     eng.pool.check(scales=eng._kv_scale_arrays())
@@ -1960,7 +2040,8 @@ def int8_engine_phase(torch, cfg, params, sm_count, new_tokens, bf16):
           f"pages per GB), {len(reqs)} requests (prompts {list(PROMPT_LENS)}, {new_tokens} new "
           f"tokens): admission + first decode tick {first_s * 1e3:.1f} ms; decode tick p50 "
           f"{p50 * 1e3:.2f} ms over {len(ticks)} ticks, {tok_s:.1f} tokens/s; launches K2 "
-          f"{counts['K2']} = {L} x {eng.stats.ticks}, K7 {counts['K7']} = {L} x {len(reqs)}, K1 0; "
+          f"{counts['K2']} = {L} x {eng.stats.ticks} (all on the decode ring), K7 "
+          f"{counts['K7']} = {L} x {len(reqs)}, K1 0; "
           f"pool clean with its scales; against the bf16 engine (not bounded): first decode "
           f"tick's max |logit gap| {gap:.4f}, greedy tokens agreeing {agree}/{len(reqs) * new_tokens}",
           flush=True)
@@ -1978,6 +2059,7 @@ def int8_engine_phase(torch, cfg, params, sm_count, new_tokens, bf16):
     two = launch_counts()
     check(two["K1"] == L * eng.stats.ticks and two["K1"] > 0 and two["K2"] == 0,
           f"int8 two-phase: launches {two}, expected K1 {L} x {eng.stats.ticks} and no K2")
+    path_counts("int8 two-phase")
     check(bool(torch.isfinite(eng.last_logits).all()), "int8 two-phase logits are not finite")
     eng.pool.check(scales=eng._kv_scale_arrays())
     k1_launches = two["K1"]
@@ -2217,6 +2299,14 @@ def main() -> int:
             times = prefill_kernel_times(torch, src)
         print(json.dumps({"card": nvidia_smi_line(), **times}))
         return 0
+    if sys.argv[1:2] == ["--decode-ring-clocks"]:
+        sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+        clocks = decode_ring_clocks(torch, sm_count)
+        sm_clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                                   "--format=csv,noheader"], capture_output=True, text=True,
+                                  timeout=60).stdout.strip()
+        print(json.dumps({"card": nvidia_smi_line(), "sm clock (now, max)": sm_clock, **clocks}))
+        return 0
     if sys.argv[1:2] in (["--row-kernel-outputs"], ["--decode-kernel-outputs"]):
         src = os.path.abspath(sys.argv[2])
         sys.path.insert(0, src)
@@ -2330,10 +2420,12 @@ def main() -> int:
     check(k1_launches == cfg.n_layers * eng.stats.ticks and k1_launches > 0,
           f"K1 launched {k1_launches} times, expected {cfg.n_layers} x {eng.stats.ticks}")
     check(k2_in_two == 0, "K2 ran on the fused=False path")
+    path_counts("two-phase phase")
     check(bool(torch.isfinite(eng.last_logits).all()), "two-phase logits are not finite")
     eng.pool.check()
-    print(f"two-phase phase: {eng.stats.ticks} decode steps, K1 launches {k1_launches}, "
-          "logits finite, pool clean", flush=True)
+    print(f"two-phase phase: {eng.stats.ticks} decode steps, K1 launches {k1_launches} "
+          f"({ld.partials_ring_launches} on the decode ring), logits finite, pool clean",
+          flush=True)
     del eng
 
     # 6. 'ref' backend against lean on the first decode tick

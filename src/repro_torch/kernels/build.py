@@ -27,12 +27,18 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("lean_decode.cu", "lean_prefill.cu", "lean_prefill_tc.cu", "flash_decode.cu",
-           "flash_prefill.cu", "lean_cascade.cu", "lean_cascade_walk.cu", "lean_merge.cu")
+SOURCES = ("lean_decode.cu", "lean_decode_walk.cu", "lean_prefill.cu", "lean_prefill_tc.cu",
+           "flash_decode.cu", "flash_prefill.cu", "lean_cascade.cu", "lean_cascade_walk.cu",
+           "lean_merge.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+# Preprocessor macros every library of this process is built with: empty
+# for the kernels as they ship; chip_smoke.py's --decode-ring-clocks sets
+# ("DECODE_RING_CLOCKS",) for a probe build, named apart by its hash.
+DEFINES: tuple = ()
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -51,6 +57,7 @@ def _lib_path(source: str) -> Path:
     h = hashlib.sha256((CSRC / source).read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
+    h.update(" ".join(DEFINES).encode())
     digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{Path(source).stem}_{digest}.so"
 
@@ -68,7 +75,7 @@ def build(sources=SOURCES) -> float:
     for src in todo:
         out = _lib_path(src)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+        cmd = [nvcc, *NVCC_FLAGS, *(f"-D{m}" for m in DEFINES), "-o", str(tmp), str(CSRC / src)]
         procs.append((src, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )))

@@ -2,16 +2,16 @@
 //
 //   decode_scores,    the three phases of one decode update: gq query rows
 //   decode_softmax,   of one segment against one K/V tile masked to a
-//   decode_pv         runtime length, for any CTA width;
+//   decode_pv         runtime length;
 //   tile_update       the three phases on a tile read from device memory
-//                     (int8 tiles staged by cp.async first): K1 and K2
-//                     (lean_decode.cu), and K5 and K6 where their ring does
-//                     not fit; K6 (flash_decode.cu) and K5
-//                     (lean_cascade.cu) otherwise run the phases on tiles
-//                     that attn_decode_ring.cuh's bulk copies staged;
+//                     (int8 tiles staged by cp.async first): K1, K2, K5 and
+//                     K6 where their decode ring does not fit; on the ring
+//                     (attn_decode_ring.cuh) they run ring::tile_update,
+//                     the same arithmetic on the staged tile, which shares
+//                     decode_softmax;
 //   merge_piece       one step of the softmax re-scaling merge (paper
-//                     section IV-A): K2's and K5's fix-ups and K3
-//                     (lean_merge.cu).
+//                     section IV-A): K3 (lean_merge.cu); fold_pieces, the
+//                     same step batched, K2's and K5's fix-ups.
 //   rows_page_update  a block of kBlockRows query rows against one K/V tile
 //                     or page, each row with its own range of visible keys
 //                     (the chunk-causal mask, and with kWindow a sliding
@@ -106,6 +106,64 @@ __device__ __forceinline__ void merge_piece(float op, float mp, float lp, float&
   m = m_new;
 }
 
+// The fix-ups of K2 (lean_decode.cu) and K5 (lean_cascade.cuh) fold a
+// target's pieces kFold at a time: a thread owns W columns of one row (W =
+// 4 where d allows, one float4 load a piece) and has the loads of kFold
+// pieces in flight before it folds them, in piece order.
+constexpr int kFold = 8;
+
+// One piece folded into W columns of a row whose running max and sum are
+// (m, l): merge_piece's arithmetic with its contraction written out -- l =
+// fma(a_old, l, a_new * lp), acc = fma(a_old, acc, a_new * op), what
+// merge_piece compiles to in a fold that loads one piece at a time -- so
+// that the batched fold keeps that fold's bits (left to the compiler, the
+// W columns' shared terms were contracted the other way round).
+template <int W>
+__device__ __forceinline__ void fold_piece(const float (&op)[W], float mp, float lp,
+                                           float (&acc)[W], float& m, float& l) {
+  const float m_new = fmaxf(m, mp);
+  const float a_old = (isinf(m) && m < 0.f) ? 0.f : expf(m - m_new);
+  const float a_new = (isinf(mp) && mp < 0.f) ? 0.f : expf(mp - m_new);
+  l = fmaf(a_old, l, __fmul_rn(a_new, lp));
+#pragma unroll
+  for (int w = 0; w < W; ++w) acc[w] = fmaf(a_old, acc[w], __fmul_rn(a_new, op[w]));
+  m = m_new;
+}
+
+// Pieces 0 .. count-1 folded in order into columns [c, c + W) of a row and
+// its (m, l) (acc 0, m kNegInf, l 0 to start): piece k's partial row is
+// row_of(k) of the float32 scratch o_p (row stride d), m_p and l_p. Other
+// CTAs wrote the scratch, so it is read with ld.global.cg (L2, not L1).
+template <int W, typename RowOf>
+__device__ __forceinline__ void fold_pieces(const float* o_p, const float* m_p,
+                                            const float* l_p, int d, int c, int count,
+                                            RowOf row_of, float (&acc)[W], float& m, float& l) {
+  for (int k0 = 0; k0 < count; k0 += kFold) {
+    float op[kFold][W], mp[kFold], lp[kFold];
+#pragma unroll
+    for (int u = 0; u < kFold; ++u) {
+      if (k0 + u >= count) break;
+      const size_t pr = row_of(k0 + u);
+      if constexpr (W == 4) {
+        const float4 v = __ldcg(reinterpret_cast<const float4*>(o_p + pr * d + c));
+        op[u][0] = v.x;
+        op[u][1] = v.y;
+        op[u][2] = v.z;
+        op[u][3] = v.w;
+      } else {
+        op[u][0] = __ldcg(o_p + pr * d + c);
+      }
+      mp[u] = __ldcg(m_p + pr);
+      lp[u] = __ldcg(l_p + pr);
+    }
+#pragma unroll
+    for (int u = 0; u < kFold; ++u) {
+      if (k0 + u >= count) break;
+      fold_piece<W>(op[u], mp[u], lp[u], acc, m, l);
+    }
+  }
+}
+
 // Row buckets of the decode tile update: a segment of n query rows runs
 // the instantiation for the smallest bucket >= n (0: more than 64 rows).
 __host__ __device__ inline int row_bucket(int n) {
@@ -181,21 +239,22 @@ __device__ __forceinline__ void flush_rows(const Smem& s, int rows, int d, float
 }
 
 // The three phases of one decode update of the GQ rows against a tile's
-// first vlen keys, for NT threads: A writes the scores, B the running max,
-// probabilities and exp-sum, C the accumulator. The caller syncs the
-// threads between phases. K and V rows may lie in device memory or in a
-// shared-memory copy of the tile (int8 staging, the decode ring of
-// attn_decode_ring.cuh): the arithmetic is the same, and no phase's sums
-// depend on NT -- each key's dot is one warp's, over d in lane-stride order
-// and then warp_sum; each row's max and exp-sum one warp's; each output
-// column's PV one thread's, over the keys in order.
+// first vlen keys: A writes the scores, B the running max, probabilities
+// and exp-sum, C the accumulator. The caller syncs the threads between
+// phases. K and V rows may lie in device memory or in a shared-memory copy
+// of the tile (int8 staging): the arithmetic is the same. No phase's sums
+// depend on the CTA's width -- each key's dot is one warp's, over d in
+// lane-stride order and then warp_sum; each row's max and exp-sum one
+// warp's; each output column's PV one thread's, over the keys in order --
+// which is what lets the decode ring's consumers (ring::tile_update) give
+// the same bits.
 
 // Phase A: one warp per key, lanes stride over d (coalesced row reads); KB
 // keys in flight per warp.
-template <typename T, int GQ, int NT>
+template <typename T, int GQ>
 __device__ __forceinline__ void decode_scores(const T* __restrict__ kp, int vlen, const Smem& s,
                                               int d, int tile, float scale, float ks) {
-  constexpr int NW = NT / 32;
+  constexpr int NW = kWarps;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   constexpr int KB = GQ <= 4 ? 4 : GQ <= 16 ? 2 : 1;
   for (int j0 = warp; j0 < vlen; j0 += KB * NW) {
@@ -258,22 +317,17 @@ __device__ __forceinline__ void decode_softmax(int vlen, const Smem& s, int tile
   }
 }
 
-// Phase C: one thread per output column and group of GQ / RS rows (RS = 1
-// at kThreads; wider CTAs split the rows), V rows read coalesced, CB rows
-// in flight per thread.
-template <typename T, int GQ, int NT>
+// Phase C: one thread per output column, V rows read coalesced, CB rows in
+// flight per thread.
+template <typename T, int GQ>
 __device__ __forceinline__ void decode_pv(const T* __restrict__ vp, int vlen, const Smem& s,
                                           int d, int tile, float vs) {
-  constexpr int RS = NT > kThreads && GQ % (NT / kThreads) == 0 ? NT / kThreads : 1;
-  constexpr int RG = GQ / RS;
   constexpr int CB = 16;
-  for (int e = threadIdx.x; e < RS * d; e += NT) {
-    const int c = RS == 1 ? e : e % d;
-    const int r0 = RS == 1 ? 0 : e / d * RG;
-    const float* pr = s.p + r0 * tile;
-    float pv[RG];
+  for (int c = threadIdx.x; c < d; c += kThreads) {
+    const float* pr = s.p;
+    float pv[GQ];
 #pragma unroll
-    for (int r = 0; r < RG; ++r) pv[r] = 0.f;
+    for (int r = 0; r < GQ; ++r) pv[r] = 0.f;
     int j = 0;
     for (; j + CB <= vlen; j += CB) {
       float vv[CB];
@@ -282,17 +336,16 @@ __device__ __forceinline__ void decode_pv(const T* __restrict__ vp, int vlen, co
 #pragma unroll
       for (int u = 0; u < CB; ++u)
 #pragma unroll
-        for (int r = 0; r < RG; ++r) pv[r] = fmaf(pr[r * tile + j + u], vv[u], pv[r]);
+        for (int r = 0; r < GQ; ++r) pv[r] = fmaf(pr[r * tile + j + u], vv[u], pv[r]);
     }
     for (; j < vlen; ++j) {
       const float vv = dequant(vp[(size_t)j * d + c], vs);
 #pragma unroll
-      for (int r = 0; r < RG; ++r) pv[r] = fmaf(pr[r * tile + j], vv, pv[r]);
+      for (int r = 0; r < GQ; ++r) pv[r] = fmaf(pr[r * tile + j], vv, pv[r]);
     }
-    float* acc = s.acc + r0 * d + c;
-    const float* alpha = s.alpha + r0;
+    float* acc = s.acc + c;
 #pragma unroll
-    for (int r = 0; r < RG; ++r) acc[r * d] = alpha[r] * acc[r * d] + pv[r];
+    for (int r = 0; r < GQ; ++r) acc[r * d] = s.alpha[r] * acc[r * d] + pv[r];
   }
 }
 
@@ -321,11 +374,11 @@ __device__ void tile_update(const T* __restrict__ k_tile, const T* __restrict__ 
     kp = stage;
     vp = stage + (size_t)tile * d;
   }
-  decode_scores<T, GQ, kThreads>(kp, vlen, s, d, tile, scale, ks);
+  decode_scores<T, GQ>(kp, vlen, s, d, tile, scale, ks);
   __syncthreads();
   decode_softmax<GQ, kThreads>(vlen, s, tile);
   __syncthreads();
-  decode_pv<T, GQ, kThreads>(vp, vlen, s, d, tile, vs);
+  decode_pv<T, GQ>(vp, vlen, s, d, tile, vs);
   __syncthreads();
 }
 

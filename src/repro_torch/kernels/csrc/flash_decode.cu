@@ -23,8 +23,9 @@
 // contiguous in the dense (segment, tile) rows, so the CTA streams them
 // through the bulk-copy ring of attn_decode_ring.cuh: a producer warp keeps
 // the next tiles' K and V in flight into shared-memory slots while 256
-// consumer threads run the decode update on the tile that has landed, with
-// attn::tile_update's arithmetic (the same bits). Where the ring does not
+// consumer threads run the decode update on the tile that has landed
+// (ring::tile_update, the update K1, K2 and K5 run on their rings too),
+// with attn::tile_update's arithmetic (the same bits). Where the ring does not
 // fit (the host passes ns = 0: a float32 tile of 256 keys at d 128, rows
 // whose bytes are not a multiple of 16) the CTA runs attn::tile_update
 // on the tiles in device memory.
@@ -126,22 +127,26 @@ __global__ void __launch_bounds__(ring::kThreads, 1) flash_decode_ring_kernel(Ar
     return;
   }
 
+  ring::cta_stamp(0);
   attn::load_decode_q<T, GQ, ring::kConsumers>(static_cast<const T*>(a.q) + (size_t)seg * GQ * d,
                                                GQ, s, d);
   attn::reset_decode_rows<GQ, ring::kConsumers>(s, d);
   ring::sync_consumers();
+  ring::QSlice<GQ> qs;
+  qs.load(s, d);
   int n = 0;
   for (int t = 0; t < a.tps; ++t) {
     const int tile_idx = split * a.tps + t;
     if (tile_idx >= a.n_tiles) break;
     const int vlen = min(max(ctx - tile_idx * tile, 0), tile);
     if (vlen == 0) continue;
-    ring::tile_update<T, GQ>(r, n, vlen, s, d, tile, a.scale, 1.f, 1.f);
+    ring::tile_update<T, GQ>(r, n, vlen, s, qs, d, tile, a.scale, 1.f, 1.f);
     n += 2;
   }
   const size_t out = (size_t)seg * splits + split;
   attn::flush_rows<ring::kConsumers>(s, GQ, d, a.o_p + out * GQ * d, a.m_p + out * GQ,
                                      a.l_p + out * GQ);
+  ring::cta_stamp(2);
 }
 
 template <typename T, int GQ>

@@ -43,8 +43,9 @@
 //     attn_decode_ring.cuh: the producer warp reads the descriptors, the
 //     routes and (int8) the scales ahead of the consumers and keeps the
 //     next columns' K and V in flight into shared-memory slots, while 256
-//     consumer threads run attn::tile_update's phases on the staged tile
-//     and load Q only when the segment changes. Where the ring does not fit
+//     consumer threads run ring::tile_update (the update K1, K2 and K6 run
+//     on their rings too) on the staged tile and load Q, and their register
+//     slice of it, only when the segment changes. Where the ring does not fit
 //     (the host passes ns = 0: a float32 page of 256 keys, a bf16 page of
 //     256 beside the 64-row bucket, rows whose bytes are not a multiple of
 //     16) the CTA walks the tiles in device memory with attn::tile_update
@@ -56,8 +57,9 @@
 //     piece its own segment. The host derives piece -> targets from the
 //     merge section of the descriptors. For each target the CTA fences and
 //     bumps the target's arrival counter; the CTA whose arrival completes a
-//     target merges that target's merge columns in descriptor order, with
-//     the loads of kFold pieces in flight before it folds them.
+//     target merges that target's merge columns in descriptor order with
+//     attn::fold_pieces, the loads of 8 pieces in flight before it folds
+//     them (K2's fix-up runs the same fold).
 // Padding ranks (members -1), the garbage target B * H and the garbage
 // piece P_tot never reach the lists. No CTA waits for another, so any grid
 // is right whether or not its CTAs are co-resident, and since every target
@@ -81,52 +83,22 @@ namespace {
 
 using namespace cascade;
 
-// A partial column as the producer hands it to the consumers; seg < 0 ends
-// the walk.
-struct Col {
-  int seg, piece, vlen;
-  int flags;  // kFirst | kLast
-  float ks, vs;
-};
-constexpr int kFirst = 1, kLast = 2;
-
 // The producer's lane: the worker's prefix columns, then its suffix
-// columns, each valid one's K and V rows copied into the ring (0 bytes
-// where no key is visible) with its Col beside the K copy; then the end.
+// columns, through ring::produce.
 template <typename KV>
-__device__ void produce_columns(const Args& a, const ring::Ring& r, Col* cols) {
-  const int N = a.n_desc, w = blockIdx.x, d = a.d, tile = a.tile;
-  const KV* k_rows = static_cast<const KV*>(a.k_rows);
-  const KV* v_rows = static_cast<const KV*>(a.v_rows);
-  const size_t row_elems = (size_t)tile * d;
-  int n = 0;
-  for (int t = 0; t < a.tp + a.ts; ++t) {
+__device__ void produce_columns(const Args& a, const ring::Ring& r, ring::Col* cols) {
+  const int N = a.n_desc, w = blockIdx.x, tile = a.tile;
+  ring::produce<KV>(a.tp + a.ts, [&](int t, ring::Col& c, size_t& row) {
     const int i = t < a.tp ? w * a.tp + t : a.n_pref + w * a.ts + (t - a.tp);
-    if (a.desc[DESC_VALID * N + i] != OP_PARTIAL) continue;  // padding column
-    Col c;
+    if (a.desc[DESC_VALID * N + i] != OP_PARTIAL) return false;  // padding column
     c.seg = a.desc[DESC_SEG * N + i];
     c.piece = a.desc[DESC_PIECE * N + i];
-    c.flags = (a.desc[DESC_FIRST * N + i] != 0 ? kFirst : 0) |
-              (a.desc[DESC_LAST * N + i] != 0 ? kLast : 0);
+    c.flags = (a.desc[DESC_FIRST * N + i] != 0 ? ring::kFirst : 0) |
+              (a.desc[DESC_LAST * N + i] != 0 ? ring::kLast : 0);
     c.vlen = min(max(a.ctx_all[c.seg] - a.desc[DESC_TILE * N + i] * tile, 0), tile);
-    const size_t row = (size_t)a.route[i];
-    c.ks = 1.f;
-    c.vs = 1.f;
-    if constexpr (attn::is_int8<KV>) {
-      c.ks = a.k_scales[row];
-      c.vs = a.v_scales[row];
-    }
-    const uint32_t bytes = (uint32_t)(c.vlen * d * sizeof(KV));
-    ring::acquire(r, n);
-    cols[n % r.ns] = c;
-    ring::fill(r, n, k_rows + row * row_elems, bytes);
-    ring::acquire(r, n + 1);
-    ring::fill(r, n + 1, v_rows + row * row_elems, bytes);
-    n += 2;
-  }
-  ring::acquire(r, n);
-  cols[n % r.ns].seg = -1;
-  ring::fill(r, n, nullptr, 0);
+    row = (size_t)a.route[i];
+    return true;
+  }, a.k_rows, a.v_rows, a.k_scales, a.v_scales, a.d, tile, r, cols);
 }
 
 // The walk on the ring: the producer warp reads the descriptors and copies
@@ -137,7 +109,7 @@ __global__ void __launch_bounds__(ring::kThreads, 1) lean_cascade_ring_kernel(Ar
   constexpr int NC = ring::kConsumers;
   extern __shared__ __align__(128) unsigned char ring_raw[];
   __shared__ uint64_t full[ring::kMaxSlots], empty[ring::kMaxSlots];
-  __shared__ Col cols[ring::kMaxSlots];
+  __shared__ ring::Col cols[ring::kMaxSlots];
   __shared__ int merge_list[kMaxTargets];
   __shared__ int n_merge;
   const int d = a.d, tile = a.tile;
@@ -152,35 +124,39 @@ __global__ void __launch_bounds__(ring::kThreads, 1) lean_cascade_ring_kernel(Ar
     if (threadIdx.x == NC) produce_columns<KV>(a, r, cols);
     return;
   }
-  int cur = -1;  // the segment whose queries s.q holds
+  ring::cta_stamp(0);
+  ring::QSlice<QB> qs;  // the queries of segment `cur`, also in s.q
+  int cur = -1;
   for (int n = 0;; n += 2) {
     ring::wait(r, n);
-    const Col c = cols[n % ns];
+    const ring::Col c = cols[n % ns];
     if (c.seg < 0) break;
-    const bool prefix = c.seg < a.nph;
+    const bool prefix = c.seg < a.nph, new_q = c.seg != cur;
     const int rows = prefix ? a.qmax : a.g;
     if (prefix) {
-      if (c.flags & kFirst) attn::reset_decode_rows<QB, NC>(s, d);
-      if (c.seg != cur)
+      if (c.flags & ring::kFirst) attn::reset_decode_rows<QB, NC>(s, d);
+      if (new_q)
         attn::load_decode_q<Q, QB, NC>(
             static_cast<const Q*>(a.q_pref) + (size_t)c.seg * a.qmax * d, rows, s, d);
     } else {
-      if (c.flags & kFirst) attn::reset_decode_rows<GB, NC>(s, d);
-      if (c.seg != cur)
+      if (c.flags & ring::kFirst) attn::reset_decode_rows<GB, NC>(s, d);
+      if (new_q)
         attn::load_decode_q<Q, GB, NC>(
             static_cast<const Q*>(a.q_suf) + (size_t)(c.seg - a.nph) * a.g * d, rows, s, d);
     }
     cur = c.seg;
     ring::sync_consumers();
+    if (new_q) qs.load(s, d);
 
     if (prefix)
-      ring::tile_update<KV, QB>(r, n, c.vlen, s, d, tile, a.scale, c.ks, c.vs);
+      ring::tile_update<KV, QB>(r, n, c.vlen, s, qs, d, tile, a.scale, c.ks, c.vs);
     else
-      ring::tile_update<KV, GB>(r, n, c.vlen, s, d, tile, a.scale, c.ks, c.vs);
+      ring::tile_update<KV, GB>(r, n, c.vlen, s, qs, d, tile, a.scale, c.ks, c.vs);
 
-    if (c.flags & kLast)
-      finish_piece<NC>(a, s, c.piece, rows, merge_list, &n_merge, ConsumerSync());
+    if (c.flags & ring::kLast)
+      finish_piece<NC>(a, s, c.piece, rows, merge_list, &n_merge, ring::ConsumerSync());
   }
+  ring::cta_stamp(2);
 }
 
 template <typename Q, typename KV, int GB, int QB>

@@ -44,66 +44,22 @@ struct Args {
 
 // Merge the n targets of `list`: each target's merge columns in descriptor
 // order; column c reads rows [rank * g, (rank + 1) * g) of piece c. A
-// thread owns W columns of one row of one target (W = 4 where d allows,
-// one float4 load a piece) and keeps the loads of kFold pieces in flight
-// before it folds them, in descriptor order. Scratch is read with
-// ld.global.cg: other CTAs wrote it.
-constexpr int kFold = 8;
-
-// One piece folded into W columns of a row whose running max and sum are
-// (m, l): attn::merge_piece's arithmetic with its contraction written out
-// -- l = fma(a_old, l, a_new * lp), acc = fma(a_old, acc, a_new * op), what
-// merge_piece compiles to in a fold that loads one piece at a time -- so
-// that the batched fold keeps that fold's bits (left to the compiler, the
-// W columns' shared terms were contracted the other way round).
-template <int W>
-__device__ __forceinline__ void fold_piece(const float (&op)[W], float mp, float lp,
-                                           float (&acc)[W], float& m, float& l) {
-  const float m_new = fmaxf(m, mp);
-  const float a_old = (isinf(m) && m < 0.f) ? 0.f : expf(m - m_new);
-  const float a_new = (isinf(mp) && mp < 0.f) ? 0.f : expf(mp - m_new);
-  l = fmaf(a_old, l, __fmul_rn(a_new, lp));
-#pragma unroll
-  for (int w = 0; w < W; ++w) acc[w] = fmaf(a_old, acc[w], __fmul_rn(a_new, op[w]));
-  m = m_new;
-}
-
+// thread owns W columns of one row of one target and folds them with
+// attn::fold_pieces, the batched fold K2's fix-up runs too.
 template <int W, int NT>
 __device__ void merge_targets_w(const Args& a, const int* list, int n) {
   const int N = a.n_desc, d = a.d, g = a.g, per_row = d / W, items = g * per_row;
   for (int e = threadIdx.x; e < n * items; e += NT) {
     const int t = list[e / items], item = e % items;
     const int r = item / per_row, c = item % per_row * W;
-    const int base = a.tgt_start[t], count = a.tgt_count[t];
+    const int base = a.tgt_start[t];
     float acc[W], m = kNegInf, l = 0.f;
 #pragma unroll
     for (int w = 0; w < W; ++w) acc[w] = 0.f;
-    for (int k0 = 0; k0 < count; k0 += kFold) {
-      float op[kFold][W], mp[kFold], lp[kFold];
-#pragma unroll
-      for (int u = 0; u < kFold; ++u) {
-        if (k0 + u >= count) break;
-        const int i = base + k0 + u;
-        const size_t pr = (size_t)a.desc[DESC_PIECE * N + i] * a.qmax +
-                          a.desc[DESC_TILE * N + i] * g + r;
-        if constexpr (W == 4) {
-          const float4 v = __ldcg(reinterpret_cast<const float4*>(a.o_p + pr * d + c));
-          op[u][0] = v.x;
-          op[u][1] = v.y;
-          op[u][2] = v.z;
-          op[u][3] = v.w;
-        } else {
-          op[u][0] = __ldcg(a.o_p + pr * d + c);
-        }
-        mp[u] = __ldcg(a.m_p + pr);
-        lp[u] = __ldcg(a.l_p + pr);
-      }
-#pragma unroll
-      for (int u = 0; u < kFold; ++u) {
-        if (k0 + u >= count) break;
-        fold_piece<W>(op[u], mp[u], lp[u], acc, m, l);
-      }
-    }
+    attn::fold_pieces<W>(a.o_p, a.m_p, a.l_p, d, c, a.tgt_count[t], [&](int k) {
+      const int i = base + k;
+      return (size_t)a.desc[DESC_PIECE * N + i] * a.qmax + a.desc[DESC_TILE * N + i] * g + r;
+    }, acc, m, l);
     float* o = a.o + ((size_t)t * g + r) * d + c;
 #pragma unroll
     for (int w = 0; w < W; ++w) o[w] = acc[w] / l;
@@ -118,13 +74,6 @@ __device__ __forceinline__ void merge_targets(const Args& a, const int* list, in
   else
     merge_targets_w<1, NT>(a, list, n);
 }
-
-struct CtaSync {
-  __device__ void operator()() const { __syncthreads(); }
-};
-struct ConsumerSync {
-  __device__ void operator()() const { ring::sync_consumers(); }
-};
 
 // A piece's last column, on NT threads that `sync` syncs: flush the
 // piece's rows to scratch, count its arrival at every target it feeds, and

@@ -73,7 +73,7 @@ __global__ void __launch_bounds__(kThreads) lean_cascade_kernel(Args a) {
       attn::tile_update<KV, GB>(k_rows + row * row_elems, v_rows + row * row_elems, vlen, s, d,
                                 tile, a.scale, ks, vs, stage);
 
-    if (last) finish_piece<kThreads>(a, s, piece, rows, merge_list, &n_merge, CtaSync());
+    if (last) finish_piece<kThreads>(a, s, piece, rows, merge_list, &n_merge, ring::CtaSync());
     __syncthreads();  // shared state is reused by the next column
   }
 }

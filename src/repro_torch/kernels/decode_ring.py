@@ -1,6 +1,6 @@
 """The path rule and sizes of the decode ring (``csrc/attn_decode_ring.cuh``),
-which K6 (:mod:`.flash_decode`) and K5 (:mod:`.lean_decode`) stream their
-K/V tiles through.
+which K6 (:mod:`.flash_decode`), and K1, K2 and K5 (:mod:`.lean_decode`)
+stream their K/V tiles through.
 
 A slot holds one tile's K or V rows; a CTA's walk copies K then V of each
 tile, so ``slots // 2`` tiles are in flight while the consumers compute.

@@ -26,17 +26,22 @@ plain PyTorch versions.
     (driven by ``lean_cascade_fused`` ``:715``). ``csrc/lean_cascade.cu``:
     K2's last-arriver fix-up applied to targets instead of segments. A
     worker streams its columns' tiles through the decode ring
-    (``csrc/attn_decode_ring.cuh``) where :func:`cascade_ring_slots` says it
+    (``csrc/attn_decode_ring.cuh``) where :func:`ring_slots` says it
     fits, and walks them in device memory elsewhere
     (``csrc/lean_cascade_walk.cu``); its last arriver folds each target's
-    pieces several loads at a time. Both walks and the fold keep the order
+    pieces with K2's batched fold. Both walks and the fold keep the order
     of every sum, so the bits are the same either way.
 
 K1 and K2 are CUDA C++ for ``sm_90a`` in ``csrc/lean_decode.cu`` (see the
 note there on what bounds them: the K/V bytes read, since decode at ``gq =
-4`` sits far below the bf16 ridge point). They take up to ``MAX_ROWS``
-query rows per segment, so K1 also runs the cascade's prefix pass with the
-stacked member rows. The wrappers take the paged layout:
+4`` sits far below the bf16 ridge point, and the latency of a worker's
+short chain of tiles). A worker streams its columns' tiles through the
+decode ring (``csrc/attn_decode_ring.cuh``) where :func:`ring_slots` says it
+fits, and walks them in device memory elsewhere
+(``csrc/lean_decode_walk.cu``); K2's last arriver folds a segment's pieces
+several loads at a time. Both walks give the same bits. They take up to
+``MAX_ROWS`` query rows per segment, so K1 also runs the cascade's prefix
+pass with the stacked member rows. The wrappers take the paged layout:
 K/V as pool rows ``(R, tile, d)`` and a per-column ``route`` into them.
 Dense KV reaches the same kernels through a route over its own rows
 (:func:`repro_torch.kernels.ops`), so dense and paged decode are
@@ -57,8 +62,9 @@ fallback from a failed launch. The plain versions walk the same descriptors
 in the same order (vectorised over the G workers at each step ``t``) and
 serve the CPU tests and the on-card comparison in ``chip_smoke.py``.
 ``partials_launches`` / ``fused_launches`` / ``merge_launches`` /
-``cascade_launches`` count kernel launches (plain runs do not count),
-``cascade_ring_launches`` the K5 launches on the ring.
+``cascade_launches`` count kernel launches (plain runs do not count);
+``partials_ring_launches`` / ``fused_ring_launches`` /
+``cascade_ring_launches`` those of K1, K2 and K5 on the ring.
 """
 from __future__ import annotations
 
@@ -78,7 +84,8 @@ from . import build, decode_ring
 DESC_SEG, DESC_TILE, DESC_PIECE, DESC_FIRST, DESC_LAST, DESC_LEN, DESC_VALID = range(7)
 OP_PARTIAL = 1
 
-SOURCE = "lean_decode.cu"
+SOURCE = "lean_decode.cu"                     # K1 and K2 on the decode ring
+WALK_SOURCE = "lean_decode_walk.cu"           # K1 and K2 where the ring does not fit
 CASCADE_SOURCE = "lean_cascade.cu"            # K5 on the decode ring
 CASCADE_WALK_SOURCE = "lean_cascade_walk.cu"  # K5 where the ring does not fit
 MERGE_SOURCE = "lean_merge.cu"
@@ -95,16 +102,21 @@ partials_launches = 0
 fused_launches = 0
 merge_launches = 0
 cascade_launches = 0
-cascade_ring_launches = 0     # K5 launches on the decode ring
+# those of K1, K2 and K5 on the decode ring
+partials_ring_launches = 0
+fused_ring_launches = 0
+cascade_ring_launches = 0
 
 
 def reset_launch_counts() -> None:
     global partials_launches, fused_launches, merge_launches, cascade_launches
-    global cascade_ring_launches
+    global partials_ring_launches, fused_ring_launches, cascade_ring_launches
     partials_launches = 0
     fused_launches = 0
     merge_launches = 0
     cascade_launches = 0
+    partials_ring_launches = 0
+    fused_ring_launches = 0
     cascade_ring_launches = 0
 
 
@@ -160,9 +172,10 @@ def _check_operands(q_seg, k_rows, v_rows, seg_ctx, route, sched: LeanSchedule):
         raise ValueError(f"operands lie on several devices: {sorted(map(str, devices))}")
 
 
-def _check_cuda(q_seg, k_rows, v_rows, seg_ctx, route):
-    """What the CUDA kernels accept; anything else raises."""
-    gq = q_seg.shape[1]
+def _check_cuda(q_seg, k_rows, v_rows, seg_ctx, route, sched: LeanSchedule, what: str) -> int:
+    """What the CUDA kernels accept; anything else raises. Returns the
+    decode ring's slots for the operands (0: the walk over device memory)."""
+    S, gq, d = q_seg.shape
     build.check_dtypes(q_seg, k_rows, v_rows)
     if seg_ctx.dtype != torch.int32 or route.dtype != torch.int32:
         raise TypeError("seg_ctx and route must be int32")
@@ -170,6 +183,19 @@ def _check_cuda(q_seg, k_rows, v_rows, seg_ctx, route):
         raise ValueError(f"kernels take 1 to {MAX_ROWS} query rows per segment, got {gq}")
     build.check_contiguous(q_seg=q_seg, k_rows=k_rows, v_rows=v_rows, seg_ctx=seg_ctx,
                            route=route)
+    ns = ring_slots(k_rows.dtype, gq, d, sched.tile_size)
+    if ns:
+        decode_ring.check_aligned(what, k_rows=k_rows, v_rows=v_rows)
+    return ns
+
+
+def ring_slots(kv_dtype: torch.dtype, rows: int, d: int, tile: int) -> int:
+    """Slots of K1's, K2's and K5's decode ring for K/V rows of ``kv_dtype``
+    (int8 pools: ``torch.int8``) and ``rows`` query rows per segment (K5:
+    its stacked prefix rows), whose row bucket sizes the CTA's float state
+    (0: the walk over device memory)."""
+    elem = 1 if kv_dtype == torch.int8 else torch.finfo(kv_dtype).bits // 8
+    return decode_ring.ring_slots(elem, d, tile, decode_ring.row_bucket(rows))
 
 
 def scale_rows(k_rows, k_scales, v_scales):
@@ -202,11 +228,11 @@ P_, I_, F_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ENTRY_POINTS = {
     SOURCE: {
         "lean_decode_partials_launch": [
-            I_, P_, P_, P_, P_, P_, P_, I_, I_, I_, P_, P_, P_, P_, P_, I_, I_, I_, F_, P_,
+            I_, P_, P_, P_, P_, P_, P_, I_, I_, I_, P_, P_, P_, P_, P_, I_, I_, I_, F_, I_, P_,
         ],
         "lean_decode_fused_launch": [
             I_, P_, P_, P_, P_, P_, P_, I_, I_, I_, P_, P_, P_, P_, P_, P_, P_, P_, P_, P_,
-            I_, I_, I_, F_, P_,
+            I_, I_, I_, F_, I_, P_,
         ],
     },
     MERGE_SOURCE: {
@@ -219,6 +245,7 @@ _ENTRY_POINTS = {
         ],
     },
 }
+_ENTRY_POINTS[WALK_SOURCE] = _ENTRY_POINTS[SOURCE]
 _ENTRY_POINTS[CASCADE_WALK_SOURCE] = _ENTRY_POINTS[CASCADE_SOURCE]
 
 
@@ -364,28 +391,29 @@ def lean_decode_partials(q_seg, k_rows, v_rows, seg_ctx, route,
     row per descriptor column. Returns float32 ``(o_p (P, gq, d), m_p (P,
     gq), l_p (P, gq))``: per-piece un-scaled partials. int8 rows take
     ``k_scales``/``v_scales``, one float32 scale per pool row."""
-    global partials_launches
+    global partials_launches, partials_ring_launches
     _check_operands(q_seg, k_rows, v_rows, seg_ctx, route, sched)
     ks, vs = scale_rows(k_rows, k_scales, v_scales)
     if q_seg.device.type == "cpu":
         return lean_decode_partials_plain(q_seg, k_rows, v_rows, seg_ctx, route, sched, scale,
                                           k_scales=ks, v_scales=vs)
-    _check_cuda(q_seg, k_rows, v_rows, seg_ctx, route)
+    ns = _check_cuda(q_seg, k_rows, v_rows, seg_ctx, route, sched, "lean_decode_partials (K1)")
     S, gq, d = q_seg.shape
     P = sched.num_pieces
     st = schedule_tensors(sched, q_seg.device)
     o_p = torch.empty(P + 1, gq, d, dtype=torch.float32, device=q_seg.device)
     m_p = torch.empty(P + 1, gq, dtype=torch.float32, device=q_seg.device)
     l_p = torch.empty(P + 1, gq, dtype=torch.float32, device=q_seg.device)
-    err = _library().lean_decode_partials_launch(
+    err = _library(SOURCE if ns else WALK_SOURCE).lean_decode_partials_launch(
         build.dtype_code(q_seg, k_rows), build.ptr(q_seg), build.ptr(k_rows), build.ptr(v_rows),
         build.ptr(ks), build.ptr(vs), build.ptr(st["desc"]), sched.grid_iters, sched.tiles_per_worker,
         sched.num_workers, build.ptr(seg_ctx), build.ptr(route),
-        build.ptr(o_p), build.ptr(m_p), build.ptr(l_p), gq, d, sched.tile_size, float(scale),
+        build.ptr(o_p), build.ptr(m_p), build.ptr(l_p), gq, d, sched.tile_size, float(scale), ns,
         build.stream(q_seg.device),
     )
     build.check_launch(err, "lean_decode_partials (K1)")
     partials_launches += 1
+    partials_ring_launches += int(ns > 0)
     return o_p[:P], m_p[:P], l_p[:P]
 
 
@@ -395,13 +423,13 @@ def lean_decode_fused(q_seg, k_rows, v_rows, seg_ctx, route,
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2: operands as :func:`lean_decode_partials`. Returns float32
     ``(o (S, gq, d), lse (S, gq))``."""
-    global fused_launches
+    global fused_launches, fused_ring_launches
     _check_operands(q_seg, k_rows, v_rows, seg_ctx, route, sched)
     ks, vs = scale_rows(k_rows, k_scales, v_scales)
     if q_seg.device.type == "cpu":
         return lean_decode_fused_plain(q_seg, k_rows, v_rows, seg_ctx, route, sched, scale,
                                        k_scales=ks, v_scales=vs)
-    _check_cuda(q_seg, k_rows, v_rows, seg_ctx, route)
+    ns = _check_cuda(q_seg, k_rows, v_rows, seg_ctx, route, sched, "lean_decode_fused (K2)")
     S, gq, d = q_seg.shape
     P, dev = sched.num_pieces, q_seg.device
     st = schedule_tensors(sched, dev)
@@ -411,17 +439,18 @@ def lean_decode_fused(q_seg, k_rows, v_rows, seg_ctx, route,
     arrivals = torch.zeros(S, dtype=torch.int32, device=dev)
     o = torch.empty(S, gq, d, dtype=torch.float32, device=dev)
     lse = torch.empty(S, gq, dtype=torch.float32, device=dev)
-    err = _library().lean_decode_fused_launch(
+    err = _library(SOURCE if ns else WALK_SOURCE).lean_decode_fused_launch(
         build.dtype_code(q_seg, k_rows), build.ptr(q_seg), build.ptr(k_rows), build.ptr(v_rows),
         build.ptr(ks), build.ptr(vs), build.ptr(st["desc"]), sched.grid_iters, sched.tiles_per_worker,
         sched.num_workers, build.ptr(seg_ctx), build.ptr(route),
         build.ptr(st["piece_start"]), build.ptr(st["piece_count"]), build.ptr(arrivals),
         build.ptr(o_p), build.ptr(m_p), build.ptr(l_p), build.ptr(o), build.ptr(lse),
-        gq, d, sched.tile_size, float(scale),
+        gq, d, sched.tile_size, float(scale), ns,
         build.stream(dev),
     )
     build.check_launch(err, "lean_decode_fused (K2)")
     fused_launches += 1
+    fused_ring_launches += int(ns > 0)
     return o, lse
 
 
@@ -566,14 +595,6 @@ def lean_cascade_fused_plain(q_pref, q_suf, k_rows, v_rows, ctx_all, route,
     return acc / l[..., None], m + torch.log(l)
 
 
-def cascade_ring_slots(kv_dtype: torch.dtype, qmax: int, d: int, tile: int) -> int:
-    """Slots of K5's decode ring for K/V rows of ``kv_dtype`` (int8 pools:
-    ``torch.int8``) at ``qmax`` stacked prefix rows (0: the walk over
-    device memory)."""
-    elem = 1 if kv_dtype == torch.int8 else torch.finfo(kv_dtype).bits // 8
-    return decode_ring.ring_slots(elem, d, tile, decode_ring.row_bucket(qmax))
-
-
 def lean_cascade_fused(q_pref, q_suf, k_rows, v_rows, ctx_all, route,
                        fdesc: CascadeFusedDesc, csched: CascadeSchedule, scale: float,
                        k_scales=None, v_scales=None
@@ -603,7 +624,7 @@ def lean_cascade_fused(q_pref, q_suf, k_rows, v_rows, ctx_all, route,
                          f"g {g} and {qmax} rows")
     build.check_contiguous(q_pref=q_pref, q_suf=q_suf, k_rows=k_rows, v_rows=v_rows,
                            ctx_all=ctx_all, route=route)
-    ns = cascade_ring_slots(k_rows.dtype, qmax, d, csched.tile_size)
+    ns = ring_slots(k_rows.dtype, qmax, d, csched.tile_size)
     if ns:
         decode_ring.check_aligned("lean_cascade_fused (K5)", k_rows=k_rows, v_rows=v_rows)
     pre, suf = csched.prefix_sched, csched.suffix_sched

@@ -1,5 +1,5 @@
 """The decode ring's path rule and sizes (``repro_torch.kernels.decode_ring``),
-which K6 and K5 pass to their kernels: how many shared-memory slots a CTA
+which K1, K2, K5 and K6 pass to their kernels: how many shared-memory slots a CTA
 streams its K/V tiles through, and where the walk over device memory
 stays. Host arithmetic only; the kernels themselves are held to their plain
 versions on the card (tests/test_torch_kernels_cuda.py)."""
@@ -82,10 +82,58 @@ def test_wrappers_read_the_rule():
     assert fd.ring_slots(torch.bfloat16, 4, 128, 128) == 6
     assert fd.ring_slots(torch.float32, 2, 128, 256) == 0
     # K5 sizes its state by the row bucket of the stacked prefix rows
-    assert ld.cascade_ring_slots(torch.bfloat16, 12, 128, 128) == dr.ring_slots(
+    assert ld.ring_slots(torch.bfloat16, 12, 128, 128) == dr.ring_slots(
         BF16, 128, 128, 16)
-    assert ld.cascade_ring_slots(torch.int8, 64, 128, 128) == 8
-    assert ld.cascade_ring_slots(torch.float32, 16, 128, 256) == 0
+    assert ld.ring_slots(torch.int8, 64, 128, 128) == 8
+    assert ld.ring_slots(torch.float32, 16, 128, 256) == 0
+
+
+@pytest.mark.parametrize("kv_dtype,rows,d,tile,slots", [
+    (torch.bfloat16, 4, 128, 128, 6),   # K2 and K1 at the main path's shapes: 3 tiles in flight
+    (torch.int8, 4, 128, 128, 8),       # K2-int8: 16 KB slots
+    (torch.float32, 4, 128, 128, 3),
+    (torch.bfloat16, 2, 64, 16, 8),     # the smoke config's g 2
+    (torch.bfloat16, 3, 128, 128, 6),   # rows between the buckets take the next one
+    (torch.bfloat16, 64, 128, 128, 4),  # the two-call cascade's stacked prefix rows
+    (torch.float32, 64, 128, 128, 2),
+    (torch.int8, 64, 128, 256, 3),
+    (torch.bfloat16, 40, 128, 256, 0),  # a bf16 page of 256 beside the 64-row bucket
+    (torch.float32, 4, 128, 256, 0),    # a float32 page of 256
+])
+def test_k1_k2_wrappers_read_the_rule(kv_dtype, rows, d, tile, slots):
+    """K1's and K2's wrappers pass the rule's slots for their operands (the
+    row bucket of gq); 0 picks the walk over device memory."""
+    from repro_torch.core.leantile import make_schedule
+
+    elem = 1 if kv_dtype == torch.int8 else torch.finfo(kv_dtype).bits // 8
+    assert ld.ring_slots(kv_dtype, rows, d, tile) == slots == dr.ring_slots(
+        elem, d, tile, dr.row_bucket(rows))
+    sched = make_schedule([3 * tile, 5], 1, tile, 4)
+    q = torch.zeros(2, rows, d, dtype=torch.float32 if kv_dtype == torch.float32
+                    else torch.bfloat16)
+    kv = torch.zeros(8, tile, d, dtype=kv_dtype)
+    seg_ctx = torch.tensor([3 * tile, 5], dtype=torch.int32)
+    route = torch.zeros(sched.grid_iters, dtype=torch.int32)
+    assert ld._check_cuda(q, kv, kv, seg_ctx, route, sched, "K2") == slots
+
+
+def test_k1_k2_on_cpu_tensors_count_no_launch():
+    """On CPU tensors K1 and K2 run their plain versions: no launch, on the
+    ring or off it."""
+    from repro_torch.core.leantile import make_schedule
+
+    rng = np.random.default_rng(1)
+    sched = make_schedule([300, 7], 2, 128, 4)
+    q = torch.as_tensor(rng.standard_normal((4, 4, 128)), dtype=torch.bfloat16)
+    kv = torch.as_tensor(rng.standard_normal((8, 128, 128)), dtype=torch.bfloat16)
+    route = torch.as_tensor(rng.integers(0, 8, sched.grid_iters), dtype=torch.int32)
+    seg_ctx = torch.tensor([300, 300, 7, 7], dtype=torch.int32)
+    ld.reset_launch_counts()
+    o, lse = ld.lean_decode_fused(q, kv, kv, seg_ctx, route, sched, 128 ** -0.5)
+    parts = ld.lean_decode_partials(q, kv, kv, seg_ctx, route, sched, 128 ** -0.5)
+    assert o.shape == (4, 4, 128) and parts[0].shape[1:] == (4, 128)
+    assert (ld.fused_launches, ld.fused_ring_launches, ld.partials_launches,
+            ld.partials_ring_launches) == (0, 0, 0, 0)
 
 
 def test_cpu_tensors_count_no_launch():

@@ -16,7 +16,8 @@ queries, int8 rows, a float32 scale per row, a zero-scale page reading
 exact zeros) and the int8 engine on the card against the CPU; the fused
 K4 (stream-K pieces merged in the launch, bf16 and int8 pages on the
 tensor cores, float32 and other pages on the CUDA cores) against its plain
-version, launch against launch, and against the two-phase path.
+version, launch against launch, and against the two-phase path; K1 and K2
+on the decode ring at every row bucket, page and dtype, with its counters.
 Tolerance 2e-5: kernel and plain version both compute in float32 from the
 same inputs (K7's and K8's bf16 output: one bf16 step plus 2e-5, since both
 round a float32 result; the tensor-core kernel keeps P to about 16 bits by
@@ -112,6 +113,78 @@ def test_decode_kernels_take_stacked_rows(cuda, gq):
     torch.testing.assert_close(lse, lse_ref, **TOL)
     for a, b in zip(parts, ld.lean_decode_partials_plain(*args)):
         torch.testing.assert_close(a, b, **TOL)
+
+
+# K1 and K2 on the decode ring, and on the walk over device memory where the
+# rule gives no slots: every row bucket, pages that are not a multiple of 8
+# (12, 100), the main path's 128 and 256, d 64 and 128, float32, bf16 and
+# int8 rows (bf16 queries)
+RING_PAGES = [12, 100, 128, 256]
+
+
+def _k12_operands(dev, rows, d, page, kind, seed=0):
+    dt = torch.float32 if kind == "float32" else torch.bfloat16
+    args = list(_operands(dev, [300, 1, 2 * page + 5, 129], rows, 2, d, page, 24, dt, seed=seed))
+    sc = {}
+    if kind == "int8":
+        kq, ks, vq, vs = _quantized(args[1], args[2])
+        args[1], args[2] = kq, vq
+        sc = dict(k_scales=ks, v_scales=vs)
+    return args, sc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("page", RING_PAGES)
+@pytest.mark.parametrize("rows", [2, 4, 8, 16, 32, 64])
+def test_k1_k2_on_the_ring_match_plain(cuda, rows, page, d, kind):
+    """K1 and K2 against their plain versions; the ring counters follow
+    ``ld.ring_slots`` (the walk over device memory only for float32 pages
+    of 256 at d 128, and bf16 ones beside the 64-row bucket)."""
+    args, sc = _k12_operands(cuda, rows, d, page, kind, seed=rows + page)
+    ring = ld.ring_slots(args[1].dtype, rows, d, page) > 0
+    assert ring == (not (d == 128 and page == 256 and
+                         (kind == "float32" or (kind == "bfloat16" and rows == 64))))
+    before = (ld.partials_launches, ld.fused_launches, ld.partials_ring_launches,
+              ld.fused_ring_launches)
+    o, lse = ld.lean_decode_fused(*args, **sc)
+    parts = ld.lean_decode_partials(*args, **sc)
+    torch.cuda.synchronize()
+    assert (ld.partials_launches, ld.fused_launches, ld.partials_ring_launches,
+            ld.fused_ring_launches) == (before[0] + 1, before[1] + 1, before[2] + ring,
+                                        before[3] + ring)
+    o_ref, lse_ref = ld.lean_decode_fused_plain(*args, **sc)
+    torch.testing.assert_close(o, o_ref, **TOL)
+    torch.testing.assert_close(lse, lse_ref, **TOL)
+    for a, b in zip(parts, ld.lean_decode_partials_plain(*args, **sc)):
+        torch.testing.assert_close(a, b, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("page", [128, 12, 256])
+def test_k1_k2_same_bits_twice(cuda, page, kind):
+    """K2's last arriver folds each segment's pieces in piece order, so two
+    launches (and two of K1) give the same bits."""
+    args, sc = _k12_operands(cuda, 4, 128, page, kind, seed=11)
+    a, b = ld.lean_decode_fused(*args, **sc), ld.lean_decode_fused(*args, **sc)
+    p, q = ld.lean_decode_partials(*args, **sc), ld.lean_decode_partials(*args, **sc)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a + p, b + q))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots", [1, 9])
+def test_k1_k2_refuse_a_ring_that_does_not_fit(cuda, monkeypatch, slots):
+    """A slot count the ring kernel does not take (one slot, more than
+    eight) is refused and the wrapper raises; nothing falls back."""
+    args, _ = _k12_operands(cuda, 4, 128, 128, "bfloat16")
+    monkeypatch.setattr(ld, "ring_slots", lambda *a: slots)
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        ld.lean_decode_fused(*args)
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        ld.lean_decode_partials(*args)
 
 
 @pytest.mark.cuda
@@ -361,7 +434,7 @@ CASCADES = {
 
 def _k5_ring(args, kv_dtype) -> bool:
     q_pref, d, tile = args[0], args[0].shape[2], args[7].tile_size
-    return ld.cascade_ring_slots(kv_dtype, q_pref.shape[1], d, tile) > 0
+    return ld.ring_slots(kv_dtype, q_pref.shape[1], d, tile) > 0
 
 
 def _cascade_problem(dev, case, dtype, seed=0):
