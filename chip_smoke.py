@@ -30,9 +30,11 @@ Phases, in order; any failure exits non-zero and nothing catches it:
      and 256 (float32 and bf16) at d 128;
   4. engine phase: Mistral-NeMo-12B at full width, random bf16 weights from
      a seeded generator, served through ``DecodeEngine`` (paged, blocking
-     admission through K7, lean decode through K2); then the same prompts
-     again on that engine with a few decode ticks under ``torch.profiler``:
-     device busy, launches and idle share per tick;
+     admission through K7, lean decode through K2, the decode step replayed
+     as a captured CUDA graph -- the engine's fast path on the card, as in
+     every serving phase below); then the same prompts again on that engine
+     with a few decode ticks under ``torch.profiler``: device busy, device
+     kernels, host launch calls and idle share per tick;
   5. the same model with ``fused=False`` for a few ticks (K1 + merge);
   6. the first decode tick of a ``'ref'``-backend engine against the lean
      one on the same weights and prompts;
@@ -68,9 +70,25 @@ Phases, in order; any failure exits non-zero and nothing catches it:
      ``fixed`` (K8 on pools widened to bf16, K6 on pages dequantized to
      float32) in turns, and one phase of each traced (host syncs); prefix
      serving with cascade (K5-int8);
- 11. the kernel summary (one JSON line: K1-K8, the fused K4 and the int8
+ 11. captured-step phase: the engine phase's requests on an engine whose
+     decode step runs eagerly (``capture_decode = False``) and on one that
+     replays it as a CUDA graph, in turns (eager, captured, captured,
+     eager) on bf16 and on int8 pages: tick p50, captures and replays per
+     run; a few ticks of each traced (host launch calls -- kernel and graph
+     launches -- and device kernels per tick, device busy, idle share); and
+     the bit check: the eager and the captured engine serving the same
+     requests in lockstep on every configuration the engine captures (paged
+     bf16 and int8 and dense, on lean, lean two-call, fixed and ref; the
+     cascade, K5 and two-call, on the prefix waves), logits and pools bit
+     for bit, greedy tokens and each step's launch counts equal;
+ 12. the kernel summary (one JSON line: K1-K8, the fused K4 and the int8
      forms of K1, K2, K4 (fused and partials) and K5: 14 entries), the
      ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
+
+Each phase starts with a ``[seconds] phase`` line: the time since the
+script started. Phase 11 alone, at full width, after the build:
+
+    python3 chip_smoke.py --captured-step
 
 The kernel phase (3) also holds K3 (the merge kernel) against its plain
 version and ``segment_merge``, drives the two-phase ``merge_impl="pallas"``
@@ -192,6 +210,14 @@ RATE_BYTES = {"PCIe": 2.0e12, "NVL": 3.9e12, "H200": 4.8e12}   # else H100 SXM 3
 RATE_OPS = {"float32": 67e12, "bfloat16": 989e12}             # dense, no sparsity
 
 
+T0 = time.perf_counter()
+
+
+def clock(what: str):
+    """One line: seconds since the script started, at the start of ``what``."""
+    print(f"[{time.perf_counter() - T0:.1f} s] {what}", flush=True)
+
+
 def fail(msg: str):
     print(f"chip_smoke: FAILED: {msg}", flush=True)
     sys.exit(1)
@@ -296,7 +322,7 @@ def kernel_phase(torch, sm_count: int, dev_name: str):
             torch, lens, Hq, Hkv, d, tile, width, dtype, gen, dev)
         q_seg = q.reshape(B * Hkv, gq, d).contiguous()
         k_rows, v_rows = ops._pool_rows(k_pool, v_pool)
-        route = ops._paged_route(sched, tbl, Hkv)
+        route = ops.paged_route(sched, tbl, Hkv)
         args = (q_seg, k_rows, v_rows, seg_ctx, route, sched, scale)
 
         # K2 against its plain version, on the decode ring
@@ -433,7 +459,7 @@ def decode_kernel_cases(torch, sm_count: int):
         if int8:
             k_pool, kw["k_scales"], v_pool, kw["v_scales"] = quantized(torch, k_pool, v_pool)
         args = (q.reshape(len(lens) * Hkv, g, d).contiguous(), *ops._pool_rows(k_pool, v_pool),
-                seg_ctx, ops._paged_route(sched, tbl, Hkv), sched, scale)
+                seg_ctx, ops.paged_route(sched, tbl, Hkv), sched, scale)
         yield f"K2 {kind}", ld.lean_decode_fused, args, kw
         yield f"K1 {kind}", ld.lean_decode_partials, args, kw
     shapes = [(lens_, 128) for lens_ in DECODE_SHAPES] + [((700, 1, 257), 12),
@@ -589,7 +615,7 @@ def prefill_kernel_times(torch, src: str) -> dict:
             for kind, (kp, vp, sc) in pools.items():
                 args = (q8.reshape(len(CHUNK_OFFS) * Hkv, -1, d).contiguous(),
                         *ops._pool_rows(kp, vp), i32(visible), i32(CHUNK_OFFS),
-                        ops._paged_route(sched, tbl, Hkv), sched, 1.0 / math.sqrt(d), CHUNK)
+                        ops.paged_route(sched, tbl, Hkv), sched, 1.0 / math.sqrt(d), CHUNK)
                 out[f"K4 fused {kind}, {workers} workers ({sched.num_pieces} pieces)"] = gpu_ms(
                     lambda: lp.lean_prefill_fused(*args, **sc))
     return out
@@ -761,7 +787,7 @@ def prefill_kernel_phase(torch, sm_count: int, dev_name: str):
                                             gen, dev)
         q_seg = q.reshape(N * Hkv, g * C, d).contiguous()
         k_rows, v_rows = ops._pool_rows(k_pool, v_pool)
-        route = ops._paged_route(sched, tbl, Hkv)
+        route = ops.paged_route(sched, tbl, Hkv)
         args = (q_seg, k_rows, v_rows, seg_ctx, seg_qs, route, sched, scale, C)
 
         parts = lp.lean_prefill_chunk_partials(*args)
@@ -994,7 +1020,7 @@ def fixed_decode_phase(torch, sm_count: int, dev_name: str):
             o6 = ops.flash_decode_from_lens(q, k_dense, v_dense, seg_ctx, num_splits=splits,
                                             tile=tile)
             k_rows, v_rows = ops._pool_rows(k_pool, v_pool)
-            route = ops._paged_route(sched, tbl, Hkv)
+            route = ops.paged_route(sched, tbl, Hkv)
             k2_args = (q_seg, k_rows, v_rows, seg_ctx, route, sched, scale)
             o2, _ = ld.lean_decode_fused(*k2_args)
             err_26 = (o2.reshape(B, Hq, d) - o6.float()).abs().max().item()
@@ -1106,13 +1132,32 @@ def _union_us(intervals):
     return total
 
 
+# the CUDA API calls (cuda* and their cu* twins) that launch work on the
+# device from the host: a kernel, or a captured graph
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                     "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch")
+
+
+def host_launch_calls(prof) -> dict:
+    """{call name: count} of the host's launch calls in a ``torch.profiler``
+    run (``HOST_LAUNCH_CALLS``, as the profiler names its runtime events)."""
+    calls = {}
+    for e in prof.events():
+        if e.device_type.name == "CPU" and e.name in HOST_LAUNCH_CALLS:
+            calls[e.name] = calls.get(e.name, 0) + 1
+    return calls
+
+
 def traced_ticks(torch, eng, reqs, untraced_p50_s: float, label: str = "traced ticks"):
     """Where a decode tick's time goes: serve ``reqs`` again on the drained
-    engine, past admission and a warm-up, and trace ``TRACED_TICKS`` decode
-    ticks with ``torch.profiler``. Prints device busy per tick (union of the
-    kernel intervals), kernel launches per tick, the device's idle share --
-    of the traced ticks, and of the untraced tick p50, since the profiler
-    slows the host -- and the kernels with the most device time."""
+    engine, past admission and a warm-up (on a captured engine: the key's
+    eager warm-up tick, its capture, a replay), and trace ``TRACED_TICKS``
+    decode ticks with ``torch.profiler``. Prints device busy per tick (union
+    of the kernel intervals), device kernels per tick, host launch calls
+    per tick (``HOST_LAUNCH_CALLS``: kernel launches and graph launches),
+    the device's idle share -- of the traced ticks, and of the untraced
+    tick p50, since the profiler slows the host -- and the kernels with the
+    most device time. Returns those numbers."""
     for r in reqs:
         eng.submit(r)
     for _ in range(3):                       # admission tick + warm-up
@@ -1132,14 +1177,23 @@ def traced_ticks(torch, eng, reqs, untraced_p50_s: float, label: str = "traced t
         eng.pool.check()
         check(eng.pool.num_allocated == 0, "pages leaked after the traced ticks")
     kernels, busy_ms, by_name = device_time(prof)
+    calls = host_launch_calls(prof)
     busy_ms /= TRACED_TICKS
     wall_ms = statistics.median(walls) * 1e3
+    out = {"wall_ms": wall_ms, "busy_ms": busy_ms, "kernels": len(kernels) / TRACED_TICKS,
+           "host_launch_calls": sum(calls.values()) / TRACED_TICKS,
+           "idle_traced": 1 - busy_ms * TRACED_TICKS / (sum(walls) * 1e3),
+           "idle_p50": 1 - busy_ms / (untraced_p50_s * 1e3)}
     print(f"{label}: {TRACED_TICKS} decode ticks under torch.profiler, wall p50 "
           f"{wall_ms:.2f} ms; device busy {busy_ms:.2f} ms/tick; "
-          f"{len(kernels) / TRACED_TICKS:.0f} kernel launches/tick; device idle share "
-          f"{1 - busy_ms * TRACED_TICKS / (sum(walls) * 1e3):.3f} traced, "
-          f"{1 - busy_ms / (untraced_p50_s * 1e3):.3f} of the untraced tick p50", flush=True)
+          f"{out['kernels']:.0f} device kernels/tick; {out['host_launch_calls']:.1f} host launch "
+          f"calls/tick ("
+          + ", ".join(f"{n} {c / TRACED_TICKS:.1f}" for n, c in sorted(calls.items()))
+          + f"); device idle share {out['idle_traced']:.3f} traced, {out['idle_p50']:.3f} of "
+          f"the untraced tick p50; captures {eng.stats.decode_captures}, replays "
+          f"{eng.stats.decode_replays} in this engine's life", flush=True)
     print_top(by_name, TRACED_TICKS, "tick", 10)
+    return out
 
 
 def device_time(prof):
@@ -1265,7 +1319,8 @@ def scheduler_phase(torch, cfg, params, backend, sm_count, new_tokens, blocking,
                 f"cores: K8 {tc['K8']}, fused K4 {tc['K4f']})" if kernels else "no kernel launched")
     print(f"scheduler phase ({backend}{', int8 pools' if kv_dtype else ''}): chunk {SCHED_CHUNK}, pack {SCHED_PACK}, budget "
           f"{SCHED_BUDGET}: {sch.stats.steps} scheduler steps, {chunk_steps} chunk steps, "
-          f"{ticks} decode ticks in {wall:.2f} s; {launched}; TTFT ms per request (prompts {list(PROMPT_LENS)}): "
+          f"{ticks} decode ticks in {wall:.2f} s ({eng.stats.decode_replays} replayed, "
+          f"{eng.stats.decode_captures} captures); {launched}; TTFT ms per request (prompts {list(PROMPT_LENS)}): "
           + ", ".join(f"{t:.1f}" for t in ttft)
           + f"; {overlap} decode tokens while the {PROMPT_LENS[0]}-token prompt was prefilling; "
           f"pool clean; first tokens agreeing with blocking prefill {agree}/{len(handles)}; "
@@ -1410,8 +1465,8 @@ def cascade_operands(torch, q, k_pool, v_pool, tbl, lens, passes, sm_count):
     q_pref = q.reshape(B, Hkv, g, d)[mem].movedim(2, 1).reshape(NP * Hkv, nmax * g, d)
     suffix = np.asarray(lens) - binding.seq_prefix_len
     ctx_all = np.concatenate([np.repeat(binding.prefix_lens, Hkv), np.repeat(suffix, Hkv)])
-    route = torch.cat([ops._paged_route(csched.prefix_sched, torch.as_tensor(ptbl).to(dev), Hkv),
-                       ops._paged_route(csched.suffix_sched, torch.as_tensor(stbl).to(dev), Hkv)])
+    route = torch.cat([ops.paged_route(csched.prefix_sched, torch.as_tensor(ptbl).to(dev), Hkv),
+                       ops.paged_route(csched.suffix_sched, torch.as_tensor(stbl).to(dev), Hkv)])
     k_rows, v_rows = ops._pool_rows(k_pool, v_pool)
     fdesc = ld.cascade_fused_desc(cascade_fused_descriptors(csched, binding), csched, dev)
     return (q_pref.contiguous(), q.reshape(B * Hkv, g, d).contiguous(), k_rows, v_rows,
@@ -1473,7 +1528,7 @@ def cascade_kernel_phase(torch, sm_count: int, dev_name: str):
             dup_t = torch.as_tensor(dup).to(dev)
             k_rows, v_rows = ops._pool_rows(k_pool, v_pool)
             k2_args = (q.reshape(B * Hkv, g, d).contiguous(), k_rows, v_rows, seg_ctx,
-                       ops._paged_route(sched, dup_t, Hkv), sched, 1.0 / math.sqrt(d))
+                       ops.paged_route(sched, dup_t, Hkv), sched, 1.0 / math.sqrt(d))
             o2, lse2 = ld.lean_decode_fused(*k2_args)
             err_k2 = max((o - o2).abs().max().item(), (lse - lse2).abs().max().item())
             check(torch.allclose(o, o2, atol=CASCADE_TOL, rtol=CASCADE_TOL)
@@ -1603,7 +1658,7 @@ def int8_kernel_phase(torch, sm_count: int, dev_name: str):
     k_rows, v_rows = ops._pool_rows(kq, vq)
     sc = dict(k_scales=ks, v_scales=vs)
     q_seg = q.reshape(B * Hkv, g, d).contiguous()
-    route = ops._paged_route(sched, tbl, Hkv)
+    route = ops.paged_route(sched, tbl, Hkv)
     args = (q_seg, k_rows, v_rows, seg_ctx, route, sched, scale)
     print(f"int8 kernel phase: decode lens {lens}, Hq {Hq} Hkv {Hkv} d {d} page {tile}, "
           f"workers {sm_count}; sequence 3 on a zero-scale page", flush=True)
@@ -1655,7 +1710,7 @@ def int8_kernel_phase(torch, sm_count: int, dev_name: str):
     seg_ctx = torch.tensor([v for v in visible for _ in range(Hkv)], dtype=torch.int32, device=dev)
     seg_qs = torch.tensor([o_ for o_ in CHUNK_OFFS for _ in range(Hkv)], dtype=torch.int32,
                           device=dev)
-    route = ops._paged_route(sched, tbl, Hkv)
+    route = ops.paged_route(sched, tbl, Hkv)
     args = (q.reshape(N * Hkv, g * C, d).contiguous(), k_rows, v_rows, seg_ctx, seg_qs, route,
             sched, scale, C)
     parts = lp.lean_prefill_chunk_partials(*args, **sc)
@@ -1794,7 +1849,7 @@ def page_size_phase(torch, sm_count: int):
                                  device=dev),
                     torch.tensor([o_ for o_ in offs for _ in range(Hkv)], dtype=torch.int32,
                                  device=dev),
-                    ops._paged_route(sched, tbl, Hkv), sched, scale, C)
+                    ops.paged_route(sched, tbl, Hkv), sched, scale, C)
             parts = lp.lean_prefill_chunk_partials(*args)
             parts_ref = lp.lean_prefill_partials_plain(*args)
             torch.cuda.synchronize()
@@ -2027,6 +2082,7 @@ def int8_engine_phase(torch, cfg, params, sm_count, new_tokens, bf16):
     check(not others, f"int8 engine: other kernels ran (K1 among them?): {others}")
     path_counts("int8 engine")
     check(all(len(r.generated) == new_tokens for r in reqs), "int8 engine: a request did not finish")
+    check(eng.stats.decode_replays > 0, "int8 engine: no decode tick replayed a captured step")
     check(bool(torch.isfinite(rows[0]).all()), "int8 engine: logits not finite")
     eng.pool.check(scales=eng._kv_scale_arrays())
     check(eng.pool.num_allocated == 0, f"int8 engine: {eng.pool.num_allocated} pages leaked")
@@ -2081,6 +2137,179 @@ def int8_engine_phase(torch, cfg, params, sm_count, new_tokens, bf16):
     del eng
     torch.cuda.empty_cache()
     return counts, k1_launches, blocking
+
+# ------------------------------------------------------------ captured step
+CAPTURE_NEW_TOKENS = 6     # new tokens per request in the bit check (waves: 8)
+
+
+def capture_configs(sm_count):
+    """(label, EngineConfig, drive) of every configuration whose decode
+    step the engine captures: paged bf16 and int8 pools and the dense
+    cache, on ``lean`` (K2, and the two-call K1 + merge), ``fixed`` and
+    ``ref``, served as the engine phase serves (``"engine"``); and the
+    cascade, fused K5 and the two-call path, on the prefix waves through
+    the ``Scheduler`` (``"waves"``)."""
+    from repro_torch.serving.config import CascadeConfig, EngineConfig, PagedConfig
+
+    kinds = (("lean", True), ("lean", False), ("fixed", True), ("ref", True))
+    name = lambda b, f: b + ("" if f else " two-call")
+    out = [(f"paged {kv or 'bf16'} {name(b, f)}", engine_config(b, sm_count, f, kv), "engine")
+           for kv in (None, "int8") for b, f in kinds]
+    out += [(f"dense {name(b, f)}", EngineConfig(
+        max_batch=4, cache_len=4096, attn_backend=b, num_workers=sm_count, fused=f,
+        paged=PagedConfig(enabled=False)), "engine") for b, f in kinds]
+    out += [(f"cascade {'K5' if f else 'two-call'}", EngineConfig(
+        max_batch=4, cache_len=4096, attn_backend="lean", num_workers=sm_count,
+        paged=PagedConfig(enabled=True, page_size=128, prefix_cache=True),
+        cascade=CascadeConfig(enabled=True, stable_ticks=2, fused=f)), "waves")
+        for f in (True, False)]
+    return out
+
+
+def twin_bits(torch, cfg, params, config, drive):
+    """The eager step (``capture_decode = False``) and the captured one on
+    two engines of ``config``, serving the same requests in lockstep: after
+    every step that ran a decode tick, the logits rows of the slots it
+    served and every pool (the null page aside) compared bit for bit, the
+    greedy tokens compared, and each step's change of the launch counters
+    compared. Idle and masked slots all write their token to the null page,
+    in whichever order the device runs the writes, and read it back as
+    their one visible key: their rows and the null page are garbage by
+    design, which nothing reads. Returns (decode ticks, bit-identical ticks,
+    max |logit difference|, the captured engine's captures and replays, and
+    its cascade ticks and the replays among them)."""
+    from repro_torch.kernels import launches
+    from repro_torch.serving.engine import DecodeEngine, Request
+    from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
+
+    def run(eng):
+        """Yields after every engine step: whether it ran a decode tick."""
+        if drive == "engine":
+            for r in make_requests(Request, cfg.vocab_size, CAPTURE_NEW_TOKENS):
+                eng.submit(r)
+            while eng.queue or any(eng.slot_req):
+                ticks = eng.stats.ticks
+                eng.tick()
+                yield eng.stats.ticks > ticks
+            return
+        sch = Scheduler(eng, SchedulerConfig(chunk_size=SCHED_CHUNK, prefill_pack=SCHED_PACK,
+                                             token_budget=SCHED_BUDGET, chunked=True))
+        uid = 0
+        for wave in prefix_waves(cfg.vocab_size):
+            for p in wave:
+                sch.submit(p, CAPTURE_NEW_TOKENS + 2, uid=uid)
+                uid += 1
+            while sch.pending:
+                ticks = eng.stats.ticks
+                sch.step()
+                yield eng.stats.ticks > ticks
+
+    class Served(DecodeEngine):
+        def _emit_tokens(self, active, next_all):
+            self.served = list(active)
+            return super()._emit_tokens(active, next_all)
+
+    engines = [Served(cfg, params, config, device="cuda") for _ in range(2)]
+    engines[0].capture_decode = False
+    first = 1 if engines[0].paged else 0
+    runs = [run(e) for e in engines]
+    ticks = same = cascade_replays = 0
+    worst = 0.0
+    while True:
+        replays = engines[1].stats.decode_replays
+        ran, moved = [], []
+        for r in runs:
+            before = launches.snapshot()
+            ran.append(next(r, None))
+            moved.append(launches.delta(launches.snapshot(), before))
+        check(ran[0] == ran[1], "the eager and the captured engine fell out of step")
+        if ran[0] is None:
+            break
+        check(moved[0] == moved[1], f"a step's launches differ: eager {moved[0]}, captured "
+              f"{moved[1]}")
+        if not ran[0]:
+            continue
+        ticks += 1
+        cascade_replays += int(engines[1].last_step_key[0][1] == "cascade"
+                               and engines[1].stats.decode_replays > replays)
+        check(engines[0].served == engines[1].served, f"tick {ticks}: served other slots")
+        a, b = (e.last_logits[e.served] for e in engines)
+        check(torch.equal(a.argmax(-1), b.argmax(-1)),
+              f"tick {ticks}: the captured step's greedy tokens differ from the eager step's")
+        pools = all(torch.equal(x[first:], y[first:]) for l0, l1 in zip(*(e.cache for e in engines))
+                    for x, y in zip(l0.values(), l1.values()))
+        same += int(torch.equal(a, b) and pools)
+        worst = max(worst, (a - b).abs().max().item())
+    st = engines[1].stats
+    out = (ticks, same, worst, st.decode_captures, st.decode_replays, st.cascade_ticks,
+           cascade_replays)
+    del engines, runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def captured_step_phase(torch, cfg, params, sm_count, new_tokens, smi: str):
+    """The decode step captured as a CUDA graph against the eager step, at
+    full width (the engine phase's requests, batch 4, page 128): tick p50
+    of the eager and the captured engine in turns (eager, captured,
+    captured, eager) on bf16 and on int8 pages, with captures and replays
+    per run; a few ticks of each traced (host launch calls and device
+    kernels per tick, device busy, idle share); and the bit check of every
+    configuration the engine captures (``capture_configs``, ``twin_bits``).
+    Fails where a captured engine replays nothing, its greedy tokens or a
+    step's launch counts differ from the eager engine's, or its logits or
+    pools differ in any bit."""
+    from repro_torch.serving.engine import DecodeEngine, Request
+
+    for kv in (None, "int8"):
+        what = f"{kv or 'bf16'} pages"
+        p50s, runs = [], []
+        for captured in (False, True, True, False):
+            eng = DecodeEngine(cfg, params, engine_config("lean", sm_count, kv_dtype=kv),
+                               device="cuda")
+            eng.capture_decode = captured
+            _, ticks, _ = drive(torch, eng, make_requests(Request, cfg.vocab_size, new_tokens))
+            p50s.append(statistics.median(dt for dt, _ in ticks) * 1e3)
+            runs.append((eng.stats.ticks, eng.stats.decode_captures, eng.stats.decode_replays))
+            check(not captured or eng.stats.decode_replays > 0,
+                  f"captured step ({what}): no tick replayed a graph")
+            del eng
+            torch.cuda.empty_cache()
+        print(f"captured step phase ({what}; {smi}): decode tick p50 ms in turns (eager, "
+              f"captured, captured, eager) " + ", ".join(f"{t:.2f}" for t in p50s)
+              + "; per run (decode ticks, captures, replays) "
+              + ", ".join(str(r) for r in runs), flush=True)
+        traced = {}
+        for captured, p50 in ((False, (p50s[0] + p50s[3]) / 2), (True, (p50s[1] + p50s[2]) / 2)):
+            eng = DecodeEngine(cfg, params, engine_config("lean", sm_count, kv_dtype=kv),
+                               device="cuda")
+            eng.capture_decode = captured
+            traced[captured] = traced_ticks(
+                torch, eng, make_requests(Request, cfg.vocab_size, TRACED_TICKS + 6), p50 / 1e3,
+                label=f"captured step phase, traced {'captured' if captured else 'eager'} "
+                      f"ticks ({what})")
+            del eng
+            torch.cuda.empty_cache()
+        e, c = traced[False], traced[True]
+        print(f"captured step phase ({what}): per tick, eager -> captured: host launch calls "
+              f"{e['host_launch_calls']:.1f} -> {c['host_launch_calls']:.1f}; device kernels "
+              f"{e['kernels']:.0f} -> {c['kernels']:.0f}; device busy {e['busy_ms']:.2f} -> "
+              f"{c['busy_ms']:.2f} ms; idle share of the untraced p50 {e['idle_p50']:.3f} -> "
+              f"{c['idle_p50']:.3f}", flush=True)
+
+    for label, config, how in capture_configs(sm_count):
+        ticks, same, worst, captures, replays, casc, casc_replays = twin_bits(
+            torch, cfg, params, config, how)
+        print(f"captured step bit check ({label}): {same}/{ticks} decode ticks bit for bit "
+              f"(logits and pools), max |logit difference| {worst:.3g}; greedy tokens and "
+              f"launch counts equal; captures {captures}, replays {replays}"
+              + (f"; cascade ticks {casc}, {casc_replays} of them replayed" if how == "waves"
+                 else ""), flush=True)
+        check(replays > 0 and (how != "waves" or casc_replays > 0),
+              f"captured step ({label}): no {'cascade ' if how == 'waves' else ''}tick "
+              "replayed a graph")
+        check(same == ticks > 0, f"captured step ({label}): {ticks - same} of {ticks} ticks "
+              f"differ from the eager step (max |logit difference| {worst})")
 
 
 # ------------------------------------------------------- dense-cache engine
@@ -2248,7 +2477,7 @@ def row_kernel_outputs(torch, src: str, out: str):
             key = f"{dtype} page {page} d {d}"
             res["K4 " + key] = [t.cpu() for t in lp.lean_prefill_chunk_partials(
                 q.reshape(len(offs) * Hkv, (Hq // Hkv) * C, d).contiguous(), k_rows, v_rows,
-                i32(visible), i32(offs), ops._paged_route(sched, tbl, Hkv), sched,
+                i32(visible), i32(offs), ops.paged_route(sched, tbl, Hkv), sched,
                 1 / math.sqrt(d), C)]
             res["K8 " + key] = fp.flash_prefill_paged(
                 q, kp, vp, tbl, torch.tensor(offs, dtype=torch.int32, device=dev)).cpu()
@@ -2333,6 +2562,19 @@ def main() -> int:
               "checkout of the repository", file=sys.stderr)
         return 2
 
+    if sys.argv[1:2] == ["--captured-step"]:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+        smi = nvidia_smi_line()
+        print(f"device: {smi}; build {build.build():.1f} s", flush=True)
+        cfg = get_config("mistral-nemo-12b")
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        params = init_params(cfg, gen, device="cuda", dtype=torch.bfloat16)
+        captured_step_phase(torch, cfg, params, sm_count, 16, smi)
+        clock("done")
+        return 0
+
     # 1. device
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2342,6 +2584,7 @@ def main() -> int:
     print(f"device: {dev_name} ({smi}), {sm_count} SMs, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
 
+    clock("build")
     # 2. build
     build_s = build.build()
     print(f"build: {build_s:.1f} s", flush=True)
@@ -2355,6 +2598,7 @@ def main() -> int:
     for kernel, regs, spill in tc_lines:
         print(f"  ptxas tensor-core {kernel}: {regs}; {spill}", flush=True)
 
+    clock("kernel phases")
     # 3. kernels
     kres = kernel_phase(torch, sm_count, dev_name)
     kres.update(prefill_kernel_phase(torch, sm_count, dev_name))
@@ -2365,6 +2609,7 @@ def main() -> int:
     i8res = int8_kernel_phase(torch, sm_count, dev_name)
     page_size_phase(torch, sm_count)
 
+    clock("engine phase")
     # 4. engine, full width, K2
     cfg = get_config("mistral-nemo-12b")
     gen = torch.Generator(device="cuda")
@@ -2397,6 +2642,7 @@ def main() -> int:
     check(k2_launches == cfg.n_layers * decode_steps and k2_launches > 0,
           f"K2 launched {k2_launches} times, expected {cfg.n_layers} x {decode_steps}")
     check(k1_in_main == 0, f"K1 ran {k1_in_main} times on the fused path")
+    check(eng.stats.decode_replays > 0, "engine phase: no decode tick replayed a captured step")
     eng.pool.check()
     check(eng.pool.num_allocated == 0, f"{eng.pool.num_allocated} pages leaked")
     p50 = statistics.median(dt for dt, _ in ticks)
@@ -2406,11 +2652,14 @@ def main() -> int:
           f"p50 {p50 * 1e3:.2f} ms over {len(ticks)} ticks, {tok_s:.1f} tokens/s; "
           f"K2 launches {k2_launches} = {cfg.n_layers} layers x {decode_steps} steps; "
           f"K7 launches {counts['K7']} = {cfg.n_layers} layers x {len(reqs)} admissions "
-          f"({tc['K7']} on the tensor cores); pool clean", flush=True)
+          f"({tc['K7']} on the tensor cores); captured step: {eng.stats.decode_captures} "
+          f"captures, {eng.stats.decode_replays} of {decode_steps} ticks replayed; pool clean",
+          flush=True)
     paged = {"streams": [list(r.generated) for r in reqs], "rows": paged_rows}
     traced_ticks(torch, eng, make_requests(Request, cfg.vocab_size, TRACED_TICKS + 6), p50)
     del eng
 
+    clock("two-phase phase")
     # 5. two-phase (K1 + merge)
     eng = DecodeEngine(cfg, params, engine_config("lean", sm_count, fused=False), device="cuda")
     reqs2 = make_requests(Request, cfg.vocab_size, 4)
@@ -2428,6 +2677,7 @@ def main() -> int:
           flush=True)
     del eng
 
+    clock("ref cross-check")
     # 6. 'ref' backend against lean on the first decode tick
     eng = DecodeEngine(cfg, params, engine_config("ref", sm_count), device="cuda")
     for r in make_requests(Request, cfg.vocab_size, new_tokens):
@@ -2448,6 +2698,7 @@ def main() -> int:
           f"lean and ref logits differ by up to {diff} (ref {ref_at}, typical |logit| {typical})")
     del eng
 
+    clock("scheduler phases")
     # 7. scheduler phases: chunked prefill on the lean and fixed backends,
     # against the blocking engine's first tokens (prefill at the exact length)
     from repro_torch.models import prefill
@@ -2471,12 +2722,15 @@ def main() -> int:
     print(f"scheduler phases: host syncs (aten::item) lean {syncs['lean']}, fixed "
           f"{syncs['fixed']}", flush=True)
 
+    clock("prefix serving")
     # 8. prefix-sharing serving: radix cache, copy-on-write, cascade (K5)
     prefix_counts = prefix_serving_phase(torch, cfg, params, sm_count, new_tokens)
 
+    clock("dense engine")
     # 9. the dense-cache engine: K7 admissions, K2 / K6 decode, the legacy step
     dense_counts = dense_engine_phase(torch, cfg, params, sm_count, new_tokens, paged)
 
+    clock("int8 phases")
     # 10. int8 pages: the blocking engine (K2-int8, K1-int8, ref), the
     # Scheduler on lean (K4-int8) and fixed (K8 + K6 on dequantized K/V) in
     # turns, prefix serving with cascade (K5-int8)
@@ -2500,7 +2754,13 @@ def main() -> int:
           f"{syncs['fixed']}", flush=True)
     i8_prefix = prefix_serving_phase(torch, cfg, params, sm_count, new_tokens, kv_dtype="int8")
 
-    # 11. summary: kernel times in bf16 at the main path's shapes; launches
+    clock("captured step phase")
+    # 11. the captured decode step against the eager one: tick p50 in
+    # turns, traced ticks, bits on every configuration it captures
+    captured_step_phase(torch, cfg, params, sm_count, new_tokens, smi)
+
+    clock("summary")
+    # 12. summary: kernel times in bf16 at the main path's shapes; launches
     # from the run of the path each kernel serves
     k6 = k6res[(DECODE_SHAPES[0], "bfloat16")]
     kres[("flash_decode_partials", "bfloat16")] = k6

@@ -33,7 +33,7 @@ from __future__ import annotations
 
 from collections import OrderedDict
 from dataclasses import dataclass
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -901,13 +901,23 @@ class ScheduleCache:
 
     LRU-bounded: at most ``max_entries`` signatures are kept (the bucket
     lattice keeps the live set small, but admission churn could otherwise
-    grow it without bound).
+    grow it without bound). ``on_evict``, where set, is called with each
+    schedule the cache lets go of (evicted or cleared): a holder of
+    per-schedule state (the engine's captured decode steps) drops it
+    there.
     """
 
     def __init__(self, max_entries: int = 128):
         self.max_entries = max_entries
         self.stats = ScheduleCacheStats()
         self._entries: "OrderedDict[tuple, LeanSchedule]" = OrderedDict()
+        self.on_evict: Optional[Callable[[object], None]] = None
+
+    def _evict_oldest(self) -> None:
+        _, sched = self._entries.popitem(last=False)
+        self.stats.evictions += 1
+        if self.on_evict is not None:
+            self.on_evict(sched)
 
     def __len__(self) -> int:
         return len(self._entries)
@@ -937,8 +947,7 @@ class ScheduleCache:
         sched.iter_kv_meta(fused=True)
         self._entries[key] = sched
         if len(self._entries) > self.max_entries:
-            self._entries.popitem(last=False)
-            self.stats.evictions += 1
+            self._evict_oldest()
         return sched
 
     def get_cascade(
@@ -995,13 +1004,16 @@ class ScheduleCache:
         sched.fused_partial_descriptors()
         self._entries[key] = sched
         if len(self._entries) > self.max_entries:
-            self._entries.popitem(last=False)
-            self.stats.evictions += 1
+            self._evict_oldest()
         return sched, binding
 
     def clear(self) -> None:
+        gone = list(self._entries.values())
         self._entries.clear()
         self.stats = ScheduleCacheStats()
+        if self.on_evict is not None:
+            for sched in gone:
+                self.on_evict(sched)
 
 
 def fixed_split_factor(

@@ -79,12 +79,10 @@ class MergeGrid(NamedTuple):
     width: int
 
 
-def merge_grid(segment_ids: np.ndarray, num_segments: int,
-               device: torch.device) -> MergeGrid:
+def merge_grid_arrays(segment_ids: np.ndarray, num_segments: int):
     """:func:`segment_merge`'s grid computed on the host from host segment
-    ids (a schedule's ``piece_seg``), the same arrays its device path
-    derives, uploaded to ``device``: a caller that holds it merges with no
-    host sync."""
+    ids: ``(ids, order, sid, rank)`` as int64 arrays and the width, the
+    values its device path derives."""
     ids = np.asarray(segment_ids, dtype=np.int64)
     ids = np.where((ids < 0) | (ids >= num_segments), num_segments, ids)
     order = np.argsort(ids, kind="stable")
@@ -93,8 +91,17 @@ def merge_grid(segment_ids: np.ndarray, num_segments: int,
     starts = np.cumsum(counts) - counts
     rank = np.arange(ids.size) - starts[sid]
     width = max(int(counts.max()) if ids.size else 0, 1)
+    return ids, order, sid, rank, width
+
+
+def merge_grid(segment_ids: np.ndarray, num_segments: int,
+               device: torch.device) -> MergeGrid:
+    """:func:`merge_grid_arrays` of host segment ids (a schedule's
+    ``piece_seg``) uploaded to ``device``: a caller that holds it merges
+    with no host sync."""
+    *arrays, width = merge_grid_arrays(segment_ids, num_segments)
     up = lambda a: torch.as_tensor(a, dtype=torch.long).to(device)
-    return MergeGrid(ids=up(ids), order=up(order), sid=up(sid), rank=up(rank), width=width)
+    return MergeGrid(*map(up, arrays), width=width)
 
 
 def segment_merge(

@@ -32,7 +32,7 @@ struct Args {
   const int* tgt_count;    // (S,) its merge columns = pieces it waits for
   const int* pt_start;     // (P_tot + 1,) piece -> targets, CSR offsets
   const int* pt_tgt;       // targets, piece-major
-  int* arrivals;           // (S,) zeroed by the caller
+  int* arrivals;           // (S,) zero at launch; each target's last arriver re-zeroes it
   float* o_p;              // (P_tot + 1, qmax, d) piece partials
   float* m_p;              // (P_tot + 1, qmax)
   float* l_p;
@@ -89,7 +89,10 @@ __device__ __forceinline__ void finish_piece(const Args& a, const Smem& s, int p
     int n = 0;
     for (int k = a.pt_start[piece]; k < a.pt_start[piece + 1]; ++k) {
       const int tgt = a.pt_tgt[k];
-      if (atomicAdd(a.arrivals + tgt, 1) + 1 == a.tgt_count[tgt]) merge_list[n++] = tgt;
+      if (atomicAdd(a.arrivals + tgt, 1) + 1 == a.tgt_count[tgt]) {
+        a.arrivals[tgt] = 0;   // left zeroed for the next launch
+        merge_list[n++] = tgt;
+      }
     }
     *n_merge = n;
   }

@@ -31,7 +31,7 @@ struct Args {
   // K2 only
   const int* piece_start;  // (S,)
   const int* piece_count;  // (S,)
-  int* arrivals;           // (S,) zeroed by the caller
+  int* arrivals;           // (S,) zero at launch; each segment's last arriver re-zeroes it
   float* o;                // (S, gq, d)
   float* lse;              // (S, gq)
   int n_cols, tiles_per_worker, gq, d, tile;
@@ -79,8 +79,11 @@ __device__ __forceinline__ void finish_piece(const Args& a, const Smem& s, int s
   if constexpr (FUSED) {
     __threadfence();  // this thread's piece writes, device-wide
     sync();
-    if (threadIdx.x == 0)
-      *merge_here = atomicAdd(a.arrivals + seg, 1) + 1 == a.piece_count[seg];
+    if (threadIdx.x == 0) {
+      const bool last = atomicAdd(a.arrivals + seg, 1) + 1 == a.piece_count[seg];
+      if (last) a.arrivals[seg] = 0;   // left zeroed for the next launch
+      *merge_here = last;
+    }
     sync();
     if (*merge_here) {
       __threadfence();

@@ -79,7 +79,7 @@ struct Args {
   // fused only
   const int* piece_start; // (S,)
   const int* piece_count; // (S,)
-  int* arrivals;          // (S, row blocks) zeroed by the caller
+  int* arrivals;          // (S, row blocks) zero at launch; re-zeroed by the last arriver
   void* out;              // (S, rows, d), q's dtype
   int n_cols, tiles_per_worker, rows, chunk_cap, d, tile, sub;
   float scale;
@@ -175,9 +175,11 @@ __global__ void __launch_bounds__(kRowThreads) lean_prefill_kernel(Args a) {
       if (FUSED) {
         __threadfence();  // this thread's piece writes, device-wide
         __syncthreads();
-        if (threadIdx.x == 0)
-          merge_here = atomicAdd(a.arrivals + (size_t)seg * gridDim.y + blockIdx.y, 1) + 1 ==
-                       a.piece_count[seg];
+        if (threadIdx.x == 0) {
+          int* arrival = a.arrivals + (size_t)seg * gridDim.y + blockIdx.y;
+          merge_here = atomicAdd(arrival, 1) + 1 == a.piece_count[seg];
+          if (merge_here) *arrival = 0;   // left zeroed for the next launch
+        }
         __syncthreads();
         if (merge_here) {
           __threadfence();
@@ -239,8 +241,8 @@ int lean_prefill_partials_launch(int dtype, const void* q, const void* k_rows, c
 
 // The partials and their merge in one launch (the CUDA-core path of the
 // fused chunk prefill): operands as above, o_p/m_p/l_p scratch, piece
-// ranges per segment, arrivals (S, ceil(rows / 64)) zeroed, out (S, rows,
-// d) in q's dtype.
+// ranges per segment, arrivals (S, ceil(rows / 64)) zero (and left zero),
+// out (S, rows, d) in q's dtype.
 int lean_prefill_fused_launch(int dtype, const void* q, const void* k_rows, const void* v_rows,
                               const float* k_scales, const float* v_scales, const int* desc,
                               int n_cols, int tiles_per_worker, int num_workers,

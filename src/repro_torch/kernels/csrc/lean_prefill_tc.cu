@@ -93,7 +93,7 @@ struct Args {
   const float* v_scales;
   const int* piece_start;   // (S,)
   const int* piece_count;   // (S,)
-  int* arrivals;            // (S, num_rb), zeroed by the caller
+  int* arrivals;            // (S, num_rb), zero at launch; re-zeroed by the last arriver
   float* o_p;               // (P+1, rows, d) scratch of multi-piece segments
   float* m_p;               // (P+1, rows)
   float* l_p;
@@ -383,8 +383,12 @@ __device__ __forceinline__ void flush_piece(const Args& a, const Column& c, int 
   }
   __threadfence();   // this thread's piece writes, device-wide
   asm volatile("bar.sync %0, 256;\n" ::"r"(kFlushBar) : "memory");
-  if (threadIdx.x == 128)
-    *merge_here = atomicAdd(a.arrivals + (size_t)c.seg * a.num_rb + rb, 1) + 1 == count;
+  if (threadIdx.x == 128) {
+    int* arrival = a.arrivals + (size_t)c.seg * a.num_rb + rb;
+    const bool last = atomicAdd(arrival, 1) + 1 == count;
+    if (last) *arrival = 0;   // left zeroed for the next launch
+    *merge_here = last;
+  }
   asm volatile("bar.sync %0, 256;\n" ::"r"(kFlushBar) : "memory");
   if (!*merge_here) return;
   __threadfence();
@@ -524,7 +528,7 @@ extern "C" {
 // dtype: 1 = bf16 q and K/V rows, 2 = bf16 q with int8 K/V rows and their
 // float32 row scales. d 64 or 128, page a multiple of 8; q and the rows
 // 16-byte aligned. S segments of `rows` query rows, R pool rows of `page`
-// keys; arrivals (S, ceil(rows / 128)) zeroed.
+// keys; arrivals (S, ceil(rows / 128)) zero (and left zero).
 int lean_prefill_fused_tc_launch(int dtype, const void* q, const void* k_rows, const void* v_rows,
                                  const float* k_scales, const float* v_scales, const int* desc,
                                  int n_cols, int tiles_per_worker, int num_workers,

@@ -14,7 +14,8 @@ plain PyTorch versions.
     its grid sequentially with the partials in VMEM; on Hopper the CTAs
     run in parallel, so K2 is the paper's stream-K fix-up instead: pieces
     go to global scratch, each flush bumps a per-segment arrival counter,
-    and the CTA that completes a segment merges it in piece order.
+    and the CTA that completes a segment merges it in piece order and sets
+    the counter back to 0 (:func:`arrival_counters`).
   * K3, :func:`lean_merge` -- phase 2 as a kernel: each segment's pieces
     folded in piece order into ``o = acc / l`` and ``lse = m + log l``.
     Replaces ``repro/kernels/lean_decode.py:813`` ``_lean_merge_kernel``
@@ -69,7 +70,7 @@ serve the CPU tests and the on-card comparison in ``chip_smoke.py``.
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -121,21 +122,51 @@ def reset_launch_counts() -> None:
 
 
 # ------------------------------------------------------------ schedule data
+def schedule_memo(sched, name: str, device: torch.device, make: Callable[[], Any]) -> Any:
+    """``make()`` memoized on the schedule (a :class:`LeanSchedule` or a
+    :class:`CascadeSchedule`) under ``name`` per device: device operands
+    that depend on the schedule alone are built once, on its first call.
+    A first call inside a CUDA graph capture raises: what it built would
+    be filled in only when the graph replays, and the capture cannot take
+    a host-to-device copy, so a captured step is run eagerly once first."""
+    key = f"_torch_{name}_{device}"
+    cached = sched.__dict__.get(key)
+    if cached is None:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"schedule operand {name!r} first built inside a CUDA graph capture: "
+                "run the step eagerly once before capturing it"
+            )
+        cached = make()
+        object.__setattr__(sched, key, cached)
+    return cached
+
+
+def arrival_counters(sched, shape: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """The zeroed int32 arrival counters of a fix-up kernel (K2, K5, the
+    fused K4) on ``sched``, one buffer per schedule, device and shape: the
+    last arriver at a segment (target, row block) sets its counter back to
+    0, so every launch finds the buffer zeroed and none launches a memset
+    of its own. Launches that share a buffer run one after another on one
+    stream."""
+    return schedule_memo(sched, f"arrivals_{'x'.join(map(str, shape))}", device,
+                         lambda: torch.zeros(shape, dtype=torch.int32, device=device))
+
+
 def schedule_tensors(sched: LeanSchedule, device: torch.device) -> Dict[str, Any]:
     """The schedule's kernel operands as int32 tensors on ``device``:
     packed descriptors ``(7, G*T)``, piece ranges, the paged routing
     metadata, and ``segment_merge``'s grid of the pieces (``merge_grid``, a
     :class:`repro_torch.core.merge.MergeGrid` from the host ``piece_seg``,
     so the two-phase merge syncs nothing). Memoized on the schedule per
-    device (like the reference's packed descriptors), so a schedule-cache
-    hit uploads nothing."""
-    key = f"_torch_{device}"
-    cached = sched.__dict__.get(key)
-    if cached is None:
+    device (like the reference's packed descriptors, :func:`schedule_memo`),
+    so a schedule-cache hit uploads nothing."""
+
+    def make():
         starts, counts = sched.piece_ranges()
         batch, head, tile, ok = sched.iter_kv_meta(fused=False)
         i32 = lambda a: torch.as_tensor(a, dtype=torch.int32).to(device).contiguous()
-        cached = {
+        return {
             "desc": i32(sched.packed_descriptors()),
             "piece_start": i32(starts),
             "piece_count": i32(counts),
@@ -146,8 +177,8 @@ def schedule_tensors(sched: LeanSchedule, device: torch.device) -> Dict[str, Any
             "kv_ok": i32(ok).bool(),
             "merge_grid": merge_grid(sched.piece_seg, sched.num_segments, device),
         }
-        object.__setattr__(sched, key, cached)
-    return cached
+
+    return schedule_memo(sched, "operands", device, make)
 
 
 # ---------------------------------------------------------------- checks
@@ -436,7 +467,7 @@ def lean_decode_fused(q_seg, k_rows, v_rows, seg_ctx, route,
     o_p = torch.empty(P + 1, gq, d, dtype=torch.float32, device=dev)
     m_p = torch.empty(P + 1, gq, dtype=torch.float32, device=dev)
     l_p = torch.empty(P + 1, gq, dtype=torch.float32, device=dev)
-    arrivals = torch.zeros(S, dtype=torch.int32, device=dev)
+    arrivals = arrival_counters(sched, (S,), dev)
     o = torch.empty(S, gq, d, dtype=torch.float32, device=dev)
     lse = torch.empty(S, gq, dtype=torch.float32, device=dev)
     err = _library(SOURCE if ns else WALK_SOURCE).lean_decode_fused_launch(
@@ -506,9 +537,17 @@ class CascadeFusedDesc(NamedTuple):
 
 def cascade_fused_desc(desc: np.ndarray, csched: CascadeSchedule,
                        device: torch.device) -> CascadeFusedDesc:
-    """Upload the fused cascade descriptors and derive K5's target tables
-    from their merge section, where each target's columns are contiguous,
-    targets in order, padding (target ``B*Hkv``) last."""
+    """Upload the fused cascade descriptors with K5's target tables
+    (:func:`cascade_fused_desc_arrays`)."""
+    i32 = lambda a: torch.as_tensor(a).to(device).contiguous()
+    return CascadeFusedDesc(*map(i32, cascade_fused_desc_arrays(desc, csched)))
+
+
+def cascade_fused_desc_arrays(desc: np.ndarray, csched: CascadeSchedule) -> CascadeFusedDesc:
+    """The fused cascade descriptors and K5's target tables derived from
+    their merge section, where each target's columns are contiguous,
+    targets in order, padding (target ``B*Hkv``) last: a
+    :class:`CascadeFusedDesc` of int32 host arrays."""
     desc = np.ascontiguousarray(desc, dtype=np.int32)
     S = csched.batch * csched.num_kv_heads
     Ptot = csched.num_pieces_total
@@ -528,8 +567,8 @@ def cascade_fused_desc(desc: np.ndarray, csched: CascadeSchedule,
     if per_piece.max(initial=0) > MAX_TARGETS:
         raise ValueError(f"a piece feeds {per_piece.max()} targets, K5 takes {MAX_TARGETS}")
     pt_start = np.concatenate([[0], np.cumsum(per_piece)])
-    i32 = lambda a: torch.as_tensor(np.asarray(a, dtype=np.int32)).to(device).contiguous()
-    return CascadeFusedDesc(desc=i32(desc), tgt_start=i32(tgt_start), tgt_count=i32(tgt_count),
+    i32 = lambda a: np.ascontiguousarray(a, dtype=np.int32)
+    return CascadeFusedDesc(desc=desc, tgt_start=i32(tgt_start), tgt_count=i32(tgt_count),
                             pt_start=i32(pt_start), pt_tgt=i32(tgt[order]))
 
 
@@ -632,7 +671,7 @@ def lean_cascade_fused(q_pref, q_suf, k_rows, v_rows, ctx_all, route,
     o_p = torch.empty(Ptot + 1, qmax, d, dtype=torch.float32, device=dev)
     m_p = torch.empty(Ptot + 1, qmax, dtype=torch.float32, device=dev)
     l_p = torch.empty(Ptot + 1, qmax, dtype=torch.float32, device=dev)
-    arrivals = torch.zeros(S, dtype=torch.int32, device=dev)
+    arrivals = arrival_counters(csched, (S,), dev)
     o = torch.empty(S, g, d, dtype=torch.float32, device=dev)
     lse = torch.empty(S, g, dtype=torch.float32, device=dev)
     err = _library(CASCADE_SOURCE if ns else CASCADE_WALK_SOURCE).lean_cascade_fused_launch(

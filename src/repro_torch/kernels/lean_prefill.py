@@ -50,6 +50,7 @@ from repro_torch.core.leantile import LeanSchedule
 from . import build
 from .lean_decode import (
     _check_operands,
+    arrival_counters,
     fold_pieces_plain,
     lean_decode_partials_plain,
     scale_rows,
@@ -249,7 +250,7 @@ def lean_prefill_fused(q_seg, k_rows, v_rows, seg_ctx, seg_qstart, route,
     m_p = torch.empty(P + 1, rows, dtype=torch.float32, device=dev)
     l_p = torch.empty(P + 1, rows, dtype=torch.float32, device=dev)
     block = TC_ROWS if tc else BLOCK_ROWS
-    arrivals = torch.zeros(S, -(-rows // block), dtype=torch.int32, device=dev)
+    arrivals = arrival_counters(sched, (S, -(-rows // block)), dev)
     out = torch.empty_like(q_seg)
     common = (
         build.dtype_code(q_seg, k_rows), build.ptr(q_seg), build.ptr(k_rows), build.ptr(v_rows),

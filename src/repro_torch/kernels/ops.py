@@ -71,7 +71,7 @@ from repro_torch.core.leantile import (
     make_cascade_schedule,
     make_schedule,
 )
-from repro_torch.core.merge import AttnPartial, finalize, merge_n, segment_merge
+from repro_torch.core.merge import AttnPartial, MergeGrid, finalize, merge_n, segment_merge
 from .flash_decode import flash_decode_partials
 from .lean_prefill import lean_prefill_chunk_partials, lean_prefill_fused
 from .lean_decode import (
@@ -85,14 +85,19 @@ from .lean_decode import (
     lean_decode_fused,
     lean_decode_partials,
     lean_merge,
+    schedule_memo,
     schedule_tensors,
 )
 
 __all__ = [
     "CascadeOperands",
+    "CascadeRouting",
     "DecodePlan",
     "decode",
+    "cascade_merge_ids",
+    "cascade_routing",
     "cascade_tables",
+    "paged_route",
     "lean_decode",
     "lean_decode_cascade",
     "lean_decode_cascade_from_schedule",
@@ -228,18 +233,41 @@ class DecodePlan:
             raise ValueError("verify plans need spec_rows >= 1")
 
 
+class CascadeRouting(NamedTuple):
+    """What every layer of a cascade step reads alike, built once a step by
+    :func:`cascade_routing`: the member gather of the stacked prefix
+    queries, the runtime lengths and pool routes of both passes, and for
+    the two-call path the grid of the merge's piece targets. A grid from
+    the host (:func:`repro_torch.core.merge.merge_grid` of
+    :func:`cascade_merge_ids`) merges with no host sync; without one the
+    targets come from the device members and :func:`segment_merge` builds
+    their grid on the device (one sync)."""
+
+    q_members: torch.Tensor       # (NP, nmax) long member slots, padding -> 0
+    ctx_p: torch.Tensor           # (NP*Hkv,) int32 prefix pass lengths
+    ctx_s: torch.Tensor           # (B*Hkv,) int32 suffix lengths
+    route_p: torch.Tensor         # (prefix columns,) int32 pool rows
+    route_s: torch.Tensor         # (suffix columns,) int32 pool rows
+    ctx_all: Optional[torch.Tensor] = None     # fused: ctx_p then ctx_s
+    route_all: Optional[torch.Tensor] = None   # fused: route_p then route_s
+    merge_grid: Optional[MergeGrid] = None     # two-call: the targets' grid, from the host
+
+
 class CascadeOperands(NamedTuple):
     """Tensors of a cascade dispatch: everything that depends on which
     slots group where (the schedule is membership-free, as in the
     reference). ``fused_desc`` is K5's :class:`CascadeFusedDesc` (the
     reference passes the bare ``(7, N)`` descriptors; K5 also needs the
-    target tables derived from them); the two-call path ignores it."""
+    target tables derived from them); the two-call path ignores it.
+    ``routing`` is the step's :class:`CascadeRouting`, built once for all
+    layers; without it each call builds its own."""
 
     prefix_lens: torch.Tensor      # (NP,) int32 true pass lengths (tokens)
     members: torch.Tensor          # (NP, nmax) int32 slot ids, -1 padding
     prefix_tbl: torch.Tensor       # (NP, W) int32 shared pass pages
     suffix_tbl: torch.Tensor       # (B, W) int32 private tails (shifted)
     fused_desc: Optional[CascadeFusedDesc] = None
+    routing: Optional[CascadeRouting] = None
 
 
 def decode(
@@ -253,6 +281,7 @@ def decode(
     cascade: Optional[CascadeOperands] = None,
     k_scales: Optional[torch.Tensor] = None,
     v_scales: Optional[torch.Tensor] = None,
+    route: Optional[torch.Tensor] = None,
 ):
     """The one decode dispatcher: ``plan`` picks the kernel family, the
     tensors ride alongside. ``kv`` is dense per-slot ``(k, v)`` for
@@ -263,7 +292,10 @@ def decode(
     for ``'verify'``. ``qstart`` (verify only) is the per-segment absolute
     position of query row 0; ``cascade`` (cascade only) the grouping's
     tensors. ``k_scales``/``v_scales`` ``(num_pages, Hkv)`` come with int8
-    pools (paged kinds only)."""
+    pools (paged kinds only). ``route`` (``'paged'`` and ``'verify'``) is
+    :func:`paged_route` of the plan's schedule and ``page_tbl``, built once
+    by a caller that runs many layers on them; without it each call builds
+    its own (a cascade's counterpart is ``cascade.routing``)."""
     k, v = kv
     sc = (k_scales, v_scales)
     if plan.kind in ("dense", "flash"):
@@ -279,10 +311,10 @@ def decode(
     if page_tbl is None:
         raise ValueError(f"{plan.kind!r} plans need page_tbl")
     if plan.kind == "paged":
-        return _paged_decode_impl(q, k, v, ctx, page_tbl, plan, *sc)
+        return _paged_decode_impl(q, k, v, ctx, page_tbl, plan, *sc, route=route)
     if qstart is None:
         raise ValueError("verify plans need qstart")
-    return _verify_impl(q, k, v, ctx, qstart, page_tbl, plan, *sc)
+    return _verify_impl(q, k, v, ctx, qstart, page_tbl, plan, *sc, route=route)
 
 
 def _run(q_seg, k_rows, v_rows, seg_ctx, route, plan: DecodePlan, k_scales=None,
@@ -310,12 +342,16 @@ def _finish(o_seg, lse, q, plan: DecodePlan):
 
 def _dense_route(sched: LeanSchedule, s_pad: int, device) -> torch.Tensor:
     """Pool row of each descriptor column when the dense cache is read as
-    rows of tiles: ``seg * (s_pad / tile) + tile`` (padding columns -> 0)."""
-    st = schedule_tensors(sched, device)
-    desc = st["desc"]
-    seg, tile, valid = desc[DESC_SEG], desc[DESC_TILE], desc[DESC_VALID]
-    route = seg * (s_pad // sched.tile_size) + tile
-    return torch.where(valid == OP_PARTIAL, route, torch.zeros_like(route)).contiguous()
+    rows of tiles: ``seg * (s_pad / tile) + tile`` (padding columns -> 0).
+    It depends on the schedule alone, so it is memoized on it."""
+
+    def make():
+        desc = schedule_tensors(sched, device)["desc"]
+        seg, tile, valid = desc[DESC_SEG], desc[DESC_TILE], desc[DESC_VALID]
+        route = seg * (s_pad // sched.tile_size) + tile
+        return torch.where(valid == OP_PARTIAL, route, torch.zeros_like(route)).contiguous()
+
+    return schedule_memo(sched, f"dense_route_{s_pad}", device, make)
 
 
 def _dense_decode_impl(q, k, v, seg_ctx, plan: DecodePlan):
@@ -339,17 +375,19 @@ def _dense_decode_impl(q, k, v, seg_ctx, plan: DecodePlan):
     return _finish(o_seg, lse, q, plan)
 
 
-def _paged_route(sched: LeanSchedule, page_tbl: torch.Tensor, num_kv_heads: int) -> torch.Tensor:
+def paged_route(sched: LeanSchedule, page_tbl: torch.Tensor, num_kv_heads: int) -> torch.Tensor:
     """Per-column flattened pool row ``page * H_kv + head``. The schedule
     gives the logical routing (batch, head, tile per column); the runtime
     page table gives the physical page. Padding columns, and tiles past the
     table width (which the runtime length always masks), route to the null
-    page's rows."""
+    page's rows. Every layer of a step reads the same route: a caller that
+    runs them all builds it once and passes it as ``route``."""
     st = schedule_tensors(sched, page_tbl.device)
     width = page_tbl.shape[1]
     pages = page_tbl[st["kv_batch"], st["kv_tile"].clamp(max=width - 1)].to(torch.int32)
     pages = torch.where(st["kv_ok"], pages, torch.zeros_like(pages))
     return (pages * num_kv_heads + st["kv_head"]).contiguous()
+
 
 
 def _pool_rows(k_pool, v_pool):
@@ -362,7 +400,7 @@ def _pool_rows(k_pool, v_pool):
 
 
 def _paged_decode_impl(q, k_pool, v_pool, seg_ctx, page_tbl, plan: DecodePlan,
-                       k_scales=None, v_scales=None):
+                       k_scales=None, v_scales=None, route=None):
     B, Hq, d = q.shape
     num_pages, Hkv, page_size, _ = k_pool.shape
     sched = plan.sched
@@ -373,7 +411,8 @@ def _paged_decode_impl(q, k_pool, v_pool, seg_ctx, page_tbl, plan: DecodePlan,
         )
     gq = Hq // Hkv
     k_rows, v_rows = _pool_rows(k_pool, v_pool)
-    route = _paged_route(sched, page_tbl, Hkv)
+    if route is None:
+        route = paged_route(sched, page_tbl, Hkv)
     o_seg, lse = _run(
         q.reshape(B * Hkv, gq, d).contiguous(), k_rows, v_rows,
         seg_ctx.to(torch.int32).contiguous(), route, plan, k_scales, v_scales,
@@ -452,6 +491,7 @@ def lean_decode_paged_from_schedule(
     return_lse: bool = False,
     k_scales: Optional[torch.Tensor] = None,   # int8 pools: (num_pages, Hkv) float32
     v_scales: Optional[torch.Tensor] = None,
+    route: Optional[torch.Tensor] = None,      # paged_route(sched, page_tbl, Hkv), prebuilt
 ):
     """Paged stream-K decode against a prebuilt schedule
     (``sched.tile_size`` must equal the pool's page size; every id in
@@ -463,7 +503,7 @@ def lean_decode_paged_from_schedule(
     plan = DecodePlan(kind="paged", sched=sched, fused=fused, merge_impl=merge_impl,
                       return_lse=return_lse)
     return decode(q, (k_pool, v_pool), plan=plan, ctx=seg_ctx, page_tbl=page_tbl,
-                  k_scales=k_scales, v_scales=v_scales)
+                  k_scales=k_scales, v_scales=v_scales, route=route)
 
 
 def lean_decode_paged(
@@ -562,6 +602,7 @@ def lean_decode_cascade_from_schedule(
     return_lse: bool = False,
     k_scales: Optional[torch.Tensor] = None,   # int8 pools: (num_pages, Hkv) float32
     v_scales: Optional[torch.Tensor] = None,
+    routing: Optional[CascadeRouting] = None,  # cascade_routing(...), prebuilt
 ):
     """Cascade (prefix-grouped) paged LeanAttention decode against a
     prebuilt membership-free schedule: the grouped prefix pass(es), the
@@ -577,9 +618,47 @@ def lean_decode_cascade_from_schedule(
     Thin wrapper over :func:`decode` with a ``'cascade'`` plan."""
     plan = DecodePlan(kind="cascade", sched=csched, fused=fused, return_lse=return_lse)
     ops_c = CascadeOperands(prefix_lens=prefix_lens, members=members, prefix_tbl=prefix_tbl,
-                            suffix_tbl=suffix_tbl, fused_desc=fused_desc)
+                            suffix_tbl=suffix_tbl, fused_desc=fused_desc, routing=routing)
     return decode(q, (k_pool, v_pool), plan=plan, ctx=seg_ctx_suffix, cascade=ops_c,
                   k_scales=k_scales, v_scales=v_scales)
+
+
+def cascade_merge_ids(csched: CascadeSchedule, members: np.ndarray) -> np.ndarray:
+    """The two-call cascade's merge targets on the host, from the binding's
+    host ``members``: the prefix pieces of (pass j, head h) expand to one
+    row block per member rank, aimed at sequence segment ``members[j, i] *
+    Hkv + h`` (padding ranks at ``B * Hkv``, which the merge drops), rank
+    major; then the suffix pieces at their own segments. The ids
+    :func:`_cascade_decode_impl` otherwise derives on the device."""
+    pre, suf = csched.prefix_sched, csched.suffix_sched
+    Hkv, S = csched.num_kv_heads, csched.batch * csched.num_kv_heads
+    pseg = np.asarray(pre.piece_seg, dtype=np.int64)
+    mem_p = np.asarray(members, dtype=np.int64)[pseg // Hkv]              # (Pp, nmax)
+    tgt = np.where(mem_p >= 0, mem_p * Hkv + (pseg % Hkv)[:, None], S)
+    return np.concatenate([tgt.T.reshape(-1), np.asarray(suf.piece_seg, dtype=np.int64)])
+
+
+def cascade_routing(csched: CascadeSchedule, members: torch.Tensor, prefix_lens: torch.Tensor,
+                    prefix_tbl: torch.Tensor, suffix_tbl: torch.Tensor,
+                    seg_ctx_suffix: torch.Tensor, *, fused: bool,
+                    merge_grid: Optional[MergeGrid] = None) -> CascadeRouting:
+    """The :class:`CascadeRouting` of one cascade step: what each layer's
+    :func:`_cascade_decode_impl` would otherwise rebuild -- the stacked
+    queries' member gather, both passes' lengths and routes (concatenated
+    for K5 with ``fused``), and, given a host ``merge_grid`` (of
+    :func:`cascade_merge_ids`), the two-call merge's targets."""
+    Hkv = csched.num_kv_heads
+    dev = seg_ctx_suffix.device
+    ctx_p = prefix_lens.to(device=dev, dtype=torch.int32).repeat_interleave(Hkv)
+    ctx_s = seg_ctx_suffix.to(torch.int32)
+    route_p = paged_route(csched.prefix_sched, prefix_tbl, Hkv)
+    route_s = paged_route(csched.suffix_sched, suffix_tbl, Hkv)
+    r = CascadeRouting(q_members=members.to(dev).long().clamp(min=0), ctx_p=ctx_p, ctx_s=ctx_s,
+                       route_p=route_p, route_s=route_s)
+    if fused:
+        return r._replace(ctx_all=torch.cat([ctx_p, ctx_s]).contiguous(),
+                          route_all=torch.cat([route_p, route_s]).contiguous())
+    return r._replace(merge_grid=merge_grid)
 
 
 def _cascade_decode_impl(q, k_pool, v_pool, seg_ctx_suffix, ops_c: CascadeOperands,
@@ -599,48 +678,50 @@ def _cascade_decode_impl(q, k_pool, v_pool, seg_ctx_suffix, ops_c: CascadeOperan
     pre, suf = csched.prefix_sched, csched.suffix_sched
     k_rows, v_rows = _pool_rows(k_pool, v_pool)
     sc = dict(k_scales=k_scales, v_scales=v_scales)
-    members = ops_c.members.to(q.device)
+    rt = ops_c.routing
+    if rt is None:
+        rt = cascade_routing(csched, ops_c.members, ops_c.prefix_lens, ops_c.prefix_tbl,
+                             ops_c.suffix_tbl, seg_ctx_suffix, fused=plan.fused)
 
     # stacked member queries of each (pass, head): padding ranks carry
     # member-0 copies whose rows no target reads
     q_r = q.reshape(B, Hkv, g, d)
-    q_pref = q_r[members.long().clamp(min=0)]                    # (NP, nmax, Hkv, g, d)
+    q_pref = q_r[rt.q_members]                                    # (NP, nmax, Hkv, g, d)
     q_pref = q_pref.movedim(2, 1).reshape(NP * Hkv, nmax * g, d).contiguous()
     q_suf = q.reshape(B * Hkv, g, d).contiguous()
-    ctx_p = ops_c.prefix_lens.to(device=q.device, dtype=torch.int32).repeat_interleave(Hkv)
-    ctx_s = seg_ctx_suffix.to(torch.int32)
-    route_p = _paged_route(pre, ops_c.prefix_tbl, Hkv)
-    route_s = _paged_route(suf, ops_c.suffix_tbl, Hkv)
 
     if plan.fused:
         if ops_c.fused_desc is None:
             raise ValueError("fused cascade plans need fused_desc")
         o_seg, lse = lean_cascade_fused(
-            q_pref, q_suf, k_rows, v_rows, torch.cat([ctx_p, ctx_s]).contiguous(),
-            torch.cat([route_p, route_s]).contiguous(), ops_c.fused_desc, csched, scale, **sc,
+            q_pref, q_suf, k_rows, v_rows, rt.ctx_all, rt.route_all, ops_c.fused_desc, csched,
+            scale, **sc,
         )
         return _finish(o_seg, lse, q, plan)
 
     # two calls: K1 on the prefix pass, K1 on the suffix pass, then the
-    # merge. A prefix piece of (pass j, head h) expands to one row block
-    # per member rank, aimed at sequence segment members[j, i] * Hkv + h;
-    # padding ranks aim at B * Hkv, which segment_merge drops.
-    o_p, m_p, l_p = lean_decode_partials(q_pref, k_rows, v_rows, ctx_p, route_p, pre, scale,
-                                         **sc)
-    o_s, m_s, l_s = lean_decode_partials(q_suf, k_rows, v_rows, ctx_s, route_s, suf, scale,
-                                         **sc)
+    # merge of the pieces at their targets (cascade_merge_ids)
+    o_p, m_p, l_p = lean_decode_partials(q_pref, k_rows, v_rows, rt.ctx_p, rt.route_p, pre,
+                                         scale, **sc)
+    o_s, m_s, l_s = lean_decode_partials(q_suf, k_rows, v_rows, rt.ctx_s, rt.route_s, suf,
+                                         scale, **sc)
     Pp = pre.num_pieces
     part = AttnPartial(
         o=torch.cat([o_p.reshape(Pp, nmax, g, d).transpose(0, 1).reshape(nmax * Pp, g, d), o_s]),
         m=torch.cat([m_p.reshape(Pp, nmax, g).transpose(0, 1).reshape(nmax * Pp, g), m_s]),
         l=torch.cat([l_p.reshape(Pp, nmax, g).transpose(0, 1).reshape(nmax * Pp, g), l_s]),
     )
-    pseg = torch.as_tensor(pre.piece_seg.astype(np.int64)).to(q.device)
-    mem_p = members.long()[pseg // Hkv]                          # (Pp, nmax)
-    tgt = torch.where(mem_p >= 0, mem_p * Hkv + (pseg % Hkv)[:, None],
-                      torch.full_like(mem_p, B * Hkv))
-    ids = torch.cat([tgt.T.reshape(-1), schedule_tensors(suf, q.device)["piece_seg"].long()])
-    seg = segment_merge(part, ids, B * Hkv)
+    if rt.merge_grid is not None:
+        ids = rt.merge_grid.ids
+    else:
+        # the targets from the device members: segment_merge then builds its
+        # grid on the device, with one host sync
+        pseg = torch.as_tensor(pre.piece_seg.astype(np.int64)).to(q.device)
+        mem_p = ops_c.members.to(q.device).long()[pseg // Hkv]              # (Pp, nmax)
+        tgt = torch.where(mem_p >= 0, mem_p * Hkv + (pseg % Hkv)[:, None],
+                          torch.full_like(mem_p, B * Hkv))
+        ids = torch.cat([tgt.T.reshape(-1), schedule_tensors(suf, q.device)["piece_seg"].long()])
+    seg = segment_merge(part, ids, B * Hkv, grid=rt.merge_grid)
     return _finish(finalize(seg), seg.m + torch.log(seg.l) if plan.return_lse else None, q, plan)
 
 
@@ -722,6 +803,7 @@ def lean_prefill_chunks(
     merge_impl: str = "xla",
     k_scales: Optional[torch.Tensor] = None,   # int8 pools: (num_pages, Hkv) float32
     v_scales: Optional[torch.Tensor] = None,
+    route: Optional[torch.Tensor] = None,      # paged_route(sched, page_tbls, Hkv), prebuilt
 ):
     """Stream-K chunked prefill against a prebuilt chunk schedule
     (:func:`repro_torch.core.leantile.make_chunk_schedule` over the pack's
@@ -738,11 +820,11 @@ def lean_prefill_chunks(
     """
     plan = DecodePlan(kind="verify", sched=sched, merge_impl=merge_impl, spec_rows=q.shape[2])
     return decode(q, (k_pool, v_pool), plan=plan, ctx=seg_ctx, page_tbl=page_tbls,
-                  qstart=seg_qstart, k_scales=k_scales, v_scales=v_scales)
+                  qstart=seg_qstart, k_scales=k_scales, v_scales=v_scales, route=route)
 
 
 def _verify_impl(q, k_pool, v_pool, seg_ctx, seg_qstart, page_tbls, plan: DecodePlan,
-                 k_scales=None, v_scales=None):
+                 k_scales=None, v_scales=None, route=None):
     N, Hq, C, d = q.shape
     num_pages, Hkv, page_size, _ = k_pool.shape
     sched = plan.sched
@@ -757,7 +839,8 @@ def _verify_impl(q, k_pool, v_pool, seg_ctx, seg_qstart, page_tbls, plan: Decode
     scale = 1.0 / math.sqrt(d)
     q_seg = q.reshape(N, Hkv, g, C, d).reshape(N * Hkv, g * C, d).contiguous()
     k_rows, v_rows = _pool_rows(k_pool, v_pool)
-    route = _paged_route(sched, page_tbls, Hkv)
+    if route is None:
+        route = paged_route(sched, page_tbls, Hkv)
     args = (q_seg, k_rows, v_rows, seg_ctx.to(torch.int32).contiguous(),
             seg_qstart.to(torch.int32).contiguous(), route, sched, scale)
     sc = dict(k_scales=k_scales, v_scales=v_scales)

@@ -60,8 +60,20 @@ for K8; ``ref`` gathers through the dequantizing gather. int8 needs the
 paged pools: on a dense cache it is a ValueError, as in the reference.
 
 Where the reference jits each step with the KV cache donated, the port
-updates the page pools and the dense rows in place (index assignment) and
-runs eagerly.
+updates the page pools and the dense rows in place (index assignment). On
+the card the fast-path decode step -- the counterpart of the reference's
+jitted kernel step -- runs as a captured CUDA graph, keyed as the reference
+keys its jit (backend, schedule, ``fused``, the fixed split, the cascade
+schedule, the pool's layout and dtype): a key's first tick runs eagerly
+(its warm-up: every schedule operand is uploaded then), its second captures
+the step and replays it, every later tick replays it. A tick copies what
+changes between ticks (tokens, lengths, page tables, a cascade's binding)
+into the graph's one input buffer, replays it and copies the logits out;
+the argmax and its copy to the host stay outside. A graph lives as long as
+its schedule stays in the :class:`ScheduleCache`. ``capture_decode = False``
+runs the eager step on the card (the captured step's oracle); CPU engines
+run it always. A capture or replay that fails raises. The chunk step,
+admission and the legacy step (``use_fast_path=False``) run eagerly.
 Blocking prefill runs at the exact prompt length on bf16 pools (the
 reference's bucketing only bounds XLA compiles, and the positions it pads
 are masked). int8 engines prefill at the reference's bucket length
@@ -77,8 +89,9 @@ their ROADMAP item.
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -96,10 +109,14 @@ from repro_torch.core.leantile import (
     make_chunk_schedule,
     make_schedule,
 )
+from repro_torch.core.merge import MergeGrid, merge_grid_arrays
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import launches
 from repro_torch.kernels.flash_prefill import flash_prefill_paged
-from repro_torch.kernels.lean_decode import CascadeFusedDesc, cascade_fused_desc
+from repro_torch.kernels.lean_decode import CascadeFusedDesc, cascade_fused_desc_arrays
 from repro_torch.kernels.ops import (
+    cascade_merge_ids,
+    cascade_routing,
     cascade_tables,
     flash_decode,
     flash_decode_from_lens,
@@ -108,6 +125,7 @@ from repro_torch.kernels.ops import (
     lean_decode_from_schedule,
     lean_decode_paged_from_schedule,
     lean_prefill_chunks,
+    paged_route,
 )
 from repro_torch.models.layers import dequant_pool
 from repro_torch.models.transformer import (
@@ -185,11 +203,15 @@ class EngineStats:
     per-tick schedule and token logs, the last pool/cache snapshots, the
     last cascade tick's grouping, and the latency observations in seconds
     (time to first token, time per output token, queue wait), which the
-    scheduler appends."""
+    scheduler appends. ``decode_captures`` counts the decode steps captured
+    as CUDA graphs (the reference counts retraces of its jitted step),
+    ``decode_replays`` the ticks that replayed one."""
 
     def __init__(self):
         for name in _STAT_COUNTERS:
             setattr(self, name, 0)
+        self.decode_captures = 0
+        self.decode_replays = 0
         self.schedules: List[dict] = []
         self.schedule_cache: dict = {}
         self.kv_pool: dict = {}
@@ -200,6 +222,62 @@ class EngineStats:
         self.ttft: List[float] = []
         self.tpot: List[float] = []
         self.queue_wait: List[float] = []
+
+
+class _Step(NamedTuple):
+    """One fast-path decode step, split as a captured graph needs it:
+    ``host`` holds the int32 inputs that change between ticks, ``body``
+    computes the logits ``(B, V)`` from them on the device (a dict of the
+    same names), ``key`` is what a graph of the step is keyed on, and
+    ``sched`` the schedule it runs (kept alive by the graph)."""
+
+    key: tuple
+    host: Dict[str, np.ndarray]
+    body: Callable[[Dict[str, torch.Tensor]], torch.Tensor]
+    sched: object
+
+
+_ALIGN = 16     # int32 elements: each packed input starts 64-byte aligned
+
+
+def _pack(host: Dict[str, np.ndarray]) -> Tuple[np.ndarray, tuple]:
+    """The step's host inputs in one int32 array, and their layout
+    ``((name, offset, shape), ...)``: one copy moves them all."""
+    layout, off = [], 0
+    for name, a in host.items():
+        layout.append((name, off, tuple(a.shape)))
+        off += -(-a.size // _ALIGN) * _ALIGN
+    flat = np.zeros(max(off, 1), dtype=np.int32)
+    for (_, o, _), a in zip(layout, host.values()):
+        flat[o:o + a.size] = a.reshape(-1)
+    return flat, tuple(layout)
+
+
+def _unpack(flat: torch.Tensor, layout: tuple) -> Dict[str, torch.Tensor]:
+    return {name: flat[o:o + math.prod(shape)].view(shape) for name, o, shape in layout}
+
+
+@dataclass
+class _StepGraph:
+    """A captured decode step: its graph, its input buffer on the device
+    with a pinned host buffer to fill it from, its output, the launch
+    counts one replay adds, and what it captured (schedule, cache tensors,
+    parameters), which it keeps alive."""
+
+    graph: "torch.cuda.CUDAGraph"
+    inputs: torch.Tensor
+    staging: torch.Tensor
+    copied: "torch.cuda.Event"
+    logits: torch.Tensor
+    launches: dict
+    sched: object
+    params: object
+    cache: list
+    cache_ptrs: tuple
+
+
+def _cache_ptrs(cache) -> tuple:
+    return tuple(t.data_ptr() for lc in cache for t in lc.values())
 
 
 # EngineConfig parts this slice does not run, with their ROADMAP item
@@ -326,13 +404,22 @@ class DecodeEngine:
         self._casc_key = None           # last tick's grouping structure
         self._casc_stable = 0           # consecutive ticks it has held
         self._casc_signatures: set = set()   # schedule geometries seen
-        self._casc_desc = None          # (key, CascadeFusedDesc) of the last grouping
+        self._casc_host = None          # (key, host operands) of the last grouping
 
         self.ctx_lens = np.zeros(self.max_batch, dtype=np.int64)
         self.slot_req: List[Optional[Request]] = [None] * self.max_batch
         self.queue: List[Request] = []
         self.next_tokens = np.zeros((self.max_batch, 1), dtype=np.int32)
         self.sched_cache = ScheduleCache(max_entries=config.schedule_cache_entries)
+        # the captured fast-path decode steps: key -> (schedule, graph, or
+        # None while the key has only had its eager warm-up tick), dropped
+        # with their schedule; capture_decode = False runs the eager step
+        self.capture_decode = self.device.type == "cuda"
+        self._graphs: Dict[tuple, Tuple[object, Optional[_StepGraph]]] = {}
+        self._graph_pool = None
+        self._capture_stream = None
+        self.sched_cache.on_evict = self._drop_graphs
+        self.last_step_key: Optional[tuple] = None
         self.stats = EngineStats()
         self.last_logits: Optional[torch.Tensor] = None   # last decode pass (B, V)
         self.last_prefill_logits: Optional[torch.Tensor] = None   # last chunk step (N, V)
@@ -627,9 +714,10 @@ class DecodeEngine:
         dev = self.device
         offs_t = torch.as_tensor(offs).to(dev)
         lens_t = torch.as_tensor(lens).to(dev)
+        tbls_t = torch.as_tensor(tbls).to(dev)
         logits, self.cache = prefill_chunks(
             self.params, self.cfg, self.cache, torch.as_tensor(toks).to(dev), offs_t, lens_t,
-            torch.as_tensor(tbls).to(dev), attn_fn=self._chunk_attn_fn(offs_t, lens_t, sched),
+            tbls_t, attn_fn=self._chunk_attn_fn(offs_t, lens_t, tbls_t, sched),
         )
         self.last_prefill_logits = logits
         next_tok = logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
@@ -639,19 +727,21 @@ class DecodeEngine:
         self._log(self.stats.tick_prefill_tokens, n_tokens)
         return next_tok
 
-    def _chunk_attn_fn(self, offs: torch.Tensor, lens: torch.Tensor,
+    def _chunk_attn_fn(self, offs: torch.Tensor, lens: torch.Tensor, tbls: torch.Tensor,
                        sched: Optional[LeanSchedule]) -> Optional[Callable]:
-        """The chunk attention of the configured backend: lean -> K4 +
-        merge, rows attending causally from ``offs`` through the schedule's
-        runtime ``qstart``; fixed -> K8; ref -> None (the plain oracle)."""
+        """The chunk attention of the configured backend: lean -> the fused
+        K4, rows attending causally from ``offs`` through the schedule's
+        runtime ``qstart``, its lengths and route built once for all layers;
+        fixed -> K8; ref -> None (the plain oracle)."""
         if self.attn_backend == "lean":
             n_kv = self.cfg.n_kv_heads
             seg_ctx = torch.clamp(offs + lens, min=1).to(torch.int32).repeat_interleave(n_kv)
             seg_qstart = offs.to(torch.int32).repeat_interleave(n_kv)
+            route = paged_route(sched, tbls, n_kv)
 
             def attn_fn(q, k_pool, v_pool, tbls, o, k_scales=None, v_scales=None):
                 return lean_prefill_chunks(q, k_pool, v_pool, seg_ctx, seg_qstart, tbls, sched,
-                                           k_scales=k_scales, v_scales=v_scales)
+                                           k_scales=k_scales, v_scales=v_scales, route=route)
 
             return attn_fn
         if self.attn_backend == "fixed":
@@ -790,20 +880,27 @@ class DecodeEngine:
             )
         return lcp_group_passes(paths, multi_level=self.cascade_multi_level)
 
-    def _cascade_fused_desc(self, csched: CascadeSchedule, binding: CascadeBinding,
-                            fused: bool) -> Optional[CascadeFusedDesc]:
-        """K5's descriptors for this tick, on the device, memoized on the
-        (schedule geometry, binding) pair: the stability guard keeps both
-        steady across ticks, so the host build and the upload run once per
-        regrouping. None on the two-call path, which does not read them."""
-        if not fused:
-            return None
-        key = (csched.signature, binding.members.tobytes(), binding.page_start.tobytes(),
+    def _cascade_host_operands(self, csched: CascadeSchedule, binding: CascadeBinding,
+                               fused: bool) -> Tuple[Dict[str, np.ndarray], int]:
+        """What a cascade step reads of its grouping besides the binding,
+        as int32 host arrays: K5's descriptors and target tables
+        (``fd_*``), or the two-call merge's targets and their grid
+        (``mg_*``, :func:`cascade_merge_ids`), with the grid's width (0
+        with ``fused``). Memoized on the (schedule geometry, binding) pair:
+        the stability guard keeps both steady across ticks, so the host
+        build runs once per regrouping."""
+        key = (csched.signature, fused, binding.members.tobytes(), binding.page_start.tobytes(),
                binding.prefix_pages.tobytes())
-        if self._casc_desc is None or self._casc_desc[0] != key:
-            desc = cascade_fused_descriptors(csched, binding)
-            self._casc_desc = (key, cascade_fused_desc(desc, csched, self.device))
-        return self._casc_desc[1]
+        if self._casc_host is None or self._casc_host[0] != key:
+            if fused:
+                fd = cascade_fused_desc_arrays(cascade_fused_descriptors(csched, binding), csched)
+                arrays, width = {f"fd_{n}": a for n, a in zip(fd._fields, fd)}, 0
+            else:
+                *grid, width = merge_grid_arrays(cascade_merge_ids(csched, binding.members),
+                                                 csched.batch * csched.num_kv_heads)
+                arrays = dict(zip(("mg_ids", "mg_order", "mg_sid", "mg_rank"), grid))
+            self._casc_host = (key, ({k: a.astype(np.int32) for k, a in arrays.items()}, width))
+        return self._casc_host[1]
 
     def _cascade_schedule_for_tick(self, active: List[int], ctx_np):
         """The (schedule, binding) of this tick's cascade decode, or
@@ -876,9 +973,10 @@ class DecodeEngine:
         """The decode step over the whole batch: the cascade when ``active``
         slots group and the guard lets it engage; else one cached schedule
         and the model's decode step on the configured backend, over the
-        page pools or the dense rows (:meth:`_attn_fn`); else, with
-        ``use_fast_path=False``, the legacy step. Updates the cache in place
-        and returns the logits (B, V)."""
+        page pools or the dense rows; else, with ``use_fast_path=False``,
+        the legacy step. The fast path runs through :meth:`_run_step`
+        (captured on the card). Updates the cache in place and returns the
+        logits (B, V)."""
         if not self.use_fast_path:
             return self._tick_legacy_step(active)
         csched = binding = None
@@ -888,57 +986,91 @@ class DecodeEngine:
             return self._cascade_pass(csched, binding, ctx_np, ptbl_np)
         sched = self._tick_schedule(ctx_np)
         self._record_schedule(sched)
-        dev = self.device
-        ptbl = torch.as_tensor(ptbl_np).to(dev) if self.paged else None
-        logits, self.cache = decode_step(
-            self.params, self.cfg, self.cache, torch.as_tensor(self.next_tokens).to(dev),
-            attn_fn=self._attn_fn(sched, ptbl),
-            ctx_lens=torch.as_tensor(ctx_np, dtype=torch.int32).to(dev), page_tbl=ptbl,
-        )
-        return logits
+        return self._run_step(self._plain_step(sched, ctx_np, ptbl_np))
 
-    def _attn_fn(self, sched: LeanSchedule, ptbl: Optional[torch.Tensor]) -> Optional[Callable]:
-        """The fast path's decode attention over this tick's schedule, an
-        ``attn_fn(q, k, v, ctx_visible)`` of the page pools (``ptbl``) or
-        of the dense rows (``ptbl`` None), as the reference's
+    def _step_inputs(self, ctx_np, ptbl_np) -> Dict[str, np.ndarray]:
+        host = {"tokens": self.next_tokens, "ctx": ctx_np.astype(np.int32)}
+        if self.paged:
+            host["ptbl"] = ptbl_np
+        return host
+
+    def _visible(self, ctx: torch.Tensor) -> torch.Tensor:
+        """Each slot's visible keys this tick, as every layer computes them:
+        its context plus the token being written, clamped to the slot's
+        capacity."""
+        cap = self.pages_per_slot * self.tile if self.paged else self.cache_len
+        return torch.clamp(ctx + 1, max=cap).to(torch.int32)
+
+    def _plain_step(self, sched: LeanSchedule, ctx_np, ptbl_np) -> _Step:
+        """The fast path's step over this tick's schedule, as the reference's
         ``_kernel_decode_step`` (``repro/serving/engine.py:515-548``) and its
-        paged twin: lean -> K2 (or K1 + merge with ``fused=False``); fixed ->
-        K6 + ``merge_n`` with FlashDecoding's split factor, the pages
-        gathered to dense first; ref -> None (the plain oracle)."""
-        n_kv = self.cfg.n_kv_heads
-        if self.attn_backend == "lean":
-            fused = self.fused
-            if ptbl is None:
-                return lambda q, k, v, c: lean_decode_from_schedule(
-                    q, k, v, c.repeat_interleave(n_kv), sched, fused=fused)
-            return lambda q, k, v, c, k_scales=None, v_scales=None: (
-                lean_decode_paged_from_schedule(
-                    q, k, v, c.repeat_interleave(n_kv), ptbl, sched, fused=fused,
-                    k_scales=k_scales, v_scales=v_scales))
-        if self.attn_backend == "fixed":
+        paged twin: ``attn_fn`` of the page pools or the dense rows, with
+        what every layer reads alike (the visible lengths per segment, the
+        paged route) built once per step."""
+        backend = self.attn_backend
+        num_splits = None
+        if backend == "fixed":
             num_splits = fixed_split_factor(
                 int(sched.seg_len.max(initial=1)), sched.num_segments, self.tile,
                 self.num_workers,
             )
-            tile = self.tile
-            dense = (lambda x: x) if ptbl is None else (lambda pool: paged_gather_kv(pool, ptbl))
+        n_kv = self.cfg.n_kv_heads
 
-            def attn_fn(q, k, v, c, k_scales=None, v_scales=None):
-                seg = c.repeat_interleave(n_kv)
-                if k_scales is None:
-                    return flash_decode_from_lens(q, dense(k), dense(v), seg,
-                                                  num_splits=num_splits, tile=tile)
-                # int8 (reference engine.py:366-372): the pages gathered and
-                # dequantized to float32, which the reference's K6 reads with
-                # bf16 queries and widens to float32 inside; here the queries
-                # are widened first, for K6's one-dtype operands
-                kd = paged_gather_kv_dequant(k, k_scales, ptbl)
-                vd = paged_gather_kv_dequant(v, v_scales, ptbl)
-                return flash_decode_from_lens(q.float(), kd, vd, seg, num_splits=num_splits,
-                                              tile=tile).to(q.dtype)
+        def body(b):
+            ptbl = b.get("ptbl")
+            attn_fn = None
+            if backend != "ref":
+                seg = self._visible(b["ctx"]).repeat_interleave(n_kv)
+                attn_fn = self._attn_fn(sched, ptbl, seg, num_splits)
+            logits, _ = decode_step(self.params, self.cfg, self.cache, b["tokens"],
+                                    attn_fn=attn_fn, ctx_lens=b["ctx"], page_tbl=ptbl)
+            return logits
 
-            return attn_fn
-        return None
+        # 'ref' reads no schedule: its graph, as the reference's jit, is
+        # keyed on the layout alone
+        keyed = None if backend == "ref" else sched
+        key = (self._layout_key(), backend, keyed, self.fused, num_splits)
+        return _Step(key, self._step_inputs(ctx_np, ptbl_np), body, keyed)
+
+    def _layout_key(self) -> tuple:
+        return ("paged" if self.paged else "dense", self.cfg.kv_cache_dtype)
+
+    def _attn_fn(self, sched: LeanSchedule, ptbl: Optional[torch.Tensor], seg: torch.Tensor,
+                 num_splits: Optional[int]) -> Callable:
+        """The fast path's decode attention, an ``attn_fn(q, k, v,
+        ctx_visible)`` of the page pools (``ptbl``) or of the dense rows
+        (``ptbl`` None) whose ``seg`` (the visible keys per segment) and
+        paged route are the step's: lean -> K2 (or K1 + merge with
+        ``fused=False``); fixed -> K6 + ``merge_n`` with ``num_splits``,
+        the pages gathered to dense first."""
+        n_kv = self.cfg.n_kv_heads
+        if self.attn_backend == "lean":
+            fused = self.fused
+            if ptbl is None:
+                return lambda q, k, v, c: lean_decode_from_schedule(q, k, v, seg, sched,
+                                                                    fused=fused)
+            route = paged_route(sched, ptbl, n_kv)
+            return lambda q, k, v, c, k_scales=None, v_scales=None: (
+                lean_decode_paged_from_schedule(
+                    q, k, v, seg, ptbl, sched, fused=fused, k_scales=k_scales,
+                    v_scales=v_scales, route=route))
+        tile = self.tile
+        dense = (lambda x: x) if ptbl is None else (lambda pool: paged_gather_kv(pool, ptbl))
+
+        def attn_fn(q, k, v, c, k_scales=None, v_scales=None):
+            if k_scales is None:
+                return flash_decode_from_lens(q, dense(k), dense(v), seg,
+                                              num_splits=num_splits, tile=tile)
+            # int8 (reference engine.py:366-372): the pages gathered and
+            # dequantized to float32, which the reference's K6 reads with
+            # bf16 queries and widens to float32 inside; here the queries
+            # are widened first, for K6's one-dtype operands
+            kd = paged_gather_kv_dequant(k, k_scales, ptbl)
+            vd = paged_gather_kv_dequant(v, v_scales, ptbl)
+            return flash_decode_from_lens(q.float(), kd, vd, seg, num_splits=num_splits,
+                                          tile=tile).to(q.dtype)
+
+        return attn_fn
 
     def _make_attn_fn(self) -> Optional[Callable]:
         """The legacy step's attention (``repro/serving/engine.py:1005-1024``):
@@ -981,48 +1113,161 @@ class DecodeEngine:
 
     def _cascade_pass(self, csched: CascadeSchedule, binding: CascadeBinding, ctx_np,
                       ptbl_np) -> torch.Tensor:
-        """Cascade decode: the KV write goes through the full page table;
-        attention walks each grouped pass's shared pages once and each
-        slot's private tail, and merges (K5 in one launch, or K1 twice +
-        merge with ``CascadeConfig(fused=False)``). The suffix length of a
-        slot is its visible context less its shared coverage, at least 0."""
+        """Cascade decode (:meth:`_cascade_step`) and its counters."""
         self._record_schedule(csched.suffix_sched)
-        prefix_tbl, suffix_tbl = cascade_tables(ptbl_np, binding)
-        fused = self.cascade_fused
-        fdesc = self._cascade_fused_desc(csched, binding, fused)
         if csched.signature not in self._casc_signatures:
             self._casc_signatures.add(csched.signature)
             self.stats.cascade_retraces += 1
-        dev, n_kv = self.device, self.cfg.n_kv_heads
-        i32 = lambda a: torch.as_tensor(np.asarray(a, dtype=np.int32)).to(dev)
-        prefix_lens, members = i32(binding.prefix_lens), i32(binding.members)
-        seq_prefix_len = i32(binding.seq_prefix_len)
-        prefix_tbl, suffix_tbl = i32(prefix_tbl), i32(suffix_tbl)
-
-        def attn_fn(q, k_pool, v_pool, ctx_visible, k_scales=None, v_scales=None):
-            suffix = torch.clamp(ctx_visible.to(torch.int32) - seq_prefix_len, min=0)
-            return lean_decode_cascade_from_schedule(
-                q, k_pool, v_pool, suffix.repeat_interleave(n_kv), prefix_lens, members,
-                prefix_tbl, suffix_tbl, fdesc, csched, fused=fused,
-                k_scales=k_scales, v_scales=v_scales,
-            )
-
-        logits, self.cache = decode_step(
-            self.params, self.cfg, self.cache, torch.as_tensor(self.next_tokens).to(dev),
-            attn_fn=attn_fn, ctx_lens=torch.as_tensor(ctx_np, dtype=torch.int32).to(dev),
-            page_tbl=torch.as_tensor(ptbl_np).to(dev),
-        )
+        logits = self._run_step(self._cascade_step(csched, binding, ctx_np, ptbl_np))
         grouped = np.unique(binding.members[binding.members >= 0])
         passes = int((binding.members[:, 0] >= 0).sum())
         st = self.stats
         st.cascade_ticks += 1
-        st.cascade_fused_ticks += int(fused)
+        st.cascade_fused_ticks += int(self.cascade_fused)
         st.cascade_grouped_slots += len(grouped)
         st.cascade_grouped_passes += passes
         st.cascade_levels_max = max(st.cascade_levels_max, binding.num_levels)
         st.cascade_last = {"passes": passes, "grouped_slots": int(len(grouped)),
-                           "levels": int(binding.num_levels), "fused": bool(fused)}
+                           "levels": int(binding.num_levels), "fused": bool(self.cascade_fused)}
         return logits
+
+    def _cascade_step(self, csched: CascadeSchedule, binding: CascadeBinding, ctx_np,
+                      ptbl_np) -> _Step:
+        """The cascade's step: the KV write goes through the full page
+        table; attention walks each grouped pass's shared pages once and
+        each slot's private tail, and merges (K5 in one launch, or K1 twice
+        + merge with ``CascadeConfig(fused=False)``, its grid from the
+        host). The suffix length of a slot is its visible context less its
+        shared coverage, at least 0. The grouping rides in the step's
+        inputs, so one captured step serves every binding of its
+        schedule."""
+        prefix_tbl, suffix_tbl = cascade_tables(ptbl_np, binding)
+        fused = self.cascade_fused
+        extra, width = self._cascade_host_operands(csched, binding, fused)
+        host = self._step_inputs(ctx_np, ptbl_np)
+        host.update(prefix_lens=binding.prefix_lens, members=binding.members,
+                    seq_prefix_len=binding.seq_prefix_len, prefix_tbl=prefix_tbl,
+                    suffix_tbl=suffix_tbl, **extra)
+        n_kv = self.cfg.n_kv_heads
+
+        def body(b):
+            suffix = torch.clamp(self._visible(b["ctx"]) - b["seq_prefix_len"], min=0)
+            suffix = suffix.repeat_interleave(n_kv)
+            fdesc = grid = None
+            if fused:
+                fdesc = CascadeFusedDesc(*(b[f"fd_{n}"] for n in CascadeFusedDesc._fields))
+            else:
+                grid = MergeGrid(*(b[f"mg_{n}"].long() for n in ("ids", "order", "sid", "rank")),
+                                 width=width)
+            routing = cascade_routing(csched, b["members"], b["prefix_lens"], b["prefix_tbl"],
+                                      b["suffix_tbl"], suffix, fused=fused, merge_grid=grid)
+
+            def attn_fn(q, k_pool, v_pool, ctx_visible, k_scales=None, v_scales=None):
+                return lean_decode_cascade_from_schedule(
+                    q, k_pool, v_pool, suffix, b["prefix_lens"], b["members"],
+                    b["prefix_tbl"], b["suffix_tbl"], fdesc, csched, fused=fused,
+                    k_scales=k_scales, v_scales=v_scales, routing=routing,
+                )
+
+            logits, _ = decode_step(self.params, self.cfg, self.cache, b["tokens"],
+                                    attn_fn=attn_fn, ctx_lens=b["ctx"], page_tbl=b["ptbl"])
+            return logits
+
+        key = (self._layout_key(), "cascade", csched, fused, width)
+        return _Step(key, host, body, csched)
+
+    # ------------------------------------------------------ captured steps
+    def _run_step(self, step: _Step) -> torch.Tensor:
+        """Run one fast-path step: eagerly on a CPU engine, with
+        ``capture_decode`` off, and on a key's first tick (its warm-up);
+        from its second tick on as a CUDA graph replay, captured on that
+        tick. Returns the logits (B, V)."""
+        flat, layout = _pack({k: np.asarray(a, dtype=np.int32) for k, a in step.host.items()})
+        key = (step.key, layout)
+        self.last_step_key = key
+        if not self.capture_decode:
+            return step.body(_unpack(torch.from_numpy(flat).to(self.device), layout))
+        if self.device.type != "cuda":
+            raise ValueError("capture_decode captures the step on a CUDA device; "
+                             f"this engine runs on {self.device}")
+        entry = self._graphs.get(key)
+        if entry is None:                  # the key's warm-up tick
+            self._graphs[key] = (step.sched, None)
+            return step.body(_unpack(torch.from_numpy(flat).to(self.device), layout))
+        rec = entry[1]
+        if rec is not None and (rec.params is not self.params
+                                or rec.cache_ptrs != _cache_ptrs(self.cache)):
+            rec = None                     # the step's tensors were replaced: capture anew
+        if rec is None:
+            rec = self._capture(step, flat, layout)
+            self._graphs[key] = (step.sched, rec)
+        return self._replay(rec, flat)
+
+    def _capture(self, step: _Step, flat: np.ndarray, layout: tuple) -> _StepGraph:
+        """Capture ``step.body`` on the engine's capture stream into the
+        graphs' shared memory pool (each replay's logits are copied out
+        before the next replay), under the default (global) capture error
+        mode. ``torch.cuda.graph`` would also empty the allocator's cache
+        at every capture, which the eager steps around it then pay for;
+        this is its capture without that. Nothing runs while it is
+        captured; the launch counters' change is taken back out and kept to
+        add on each replay. A failure raises."""
+        dev = self.device
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(dev)
+        inputs = torch.from_numpy(flat).to(dev)
+        graph = torch.cuda.CUDAGraph()
+        before = launches.snapshot()
+        torch.cuda.synchronize(dev)
+        try:
+            with torch.cuda.stream(self._capture_stream):
+                graph.capture_begin(pool=self._graph_pool)
+                try:
+                    logits = step.body(_unpack(inputs, layout))
+                except BaseException:
+                    try:
+                        graph.capture_end()
+                    except RuntimeError:
+                        pass            # the capture the error above invalidated
+                    raise
+                graph.capture_end()
+        finally:
+            after = launches.snapshot()
+            launches.restore(before)
+        self.stats.decode_captures += 1
+        return _StepGraph(
+            graph=graph, inputs=inputs,
+            staging=torch.empty(flat.shape, dtype=torch.int32, pin_memory=True),
+            copied=torch.cuda.Event(), logits=logits,
+            launches=launches.delta(after, before), sched=step.sched, params=self.params,
+            cache=[dict(lc) for lc in self.cache], cache_ptrs=_cache_ptrs(self.cache),
+        )
+
+    def _replay(self, rec: _StepGraph, flat: np.ndarray) -> torch.Tensor:
+        """One tick of a captured step: the inputs go through the pinned
+        buffer into the graph's in one asynchronous copy, the graph
+        replays, the logits are copied out. No host sync."""
+        if not rec.copied.query():
+            rec.copied.synchronize()       # the last replay's copy still reads the buffer
+        rec.staging.numpy()[:] = flat
+        rec.inputs.copy_(rec.staging, non_blocking=True)
+        rec.copied.record()
+        rec.graph.replay()
+        launches.add(rec.launches)
+        self.stats.decode_replays += 1
+        return rec.logits.clone()
+
+    def _drop_graphs(self, sched) -> None:
+        """The schedule cache let ``sched`` go: drop the steps captured on
+        it (and keys only warmed up), freeing what they hold. Once no graph
+        is left their memory pool goes too (a pool whose graphs are all
+        gone takes no new capture): the next capture opens a new one."""
+        for key in [k for k, (s, _) in self._graphs.items() if s is sched]:
+            del self._graphs[key]
+        if all(g is None for _, g in self._graphs.values()):
+            self._graph_pool = None
 
     def _emit_tokens(self, active: List[int], next_all) -> Dict[int, int]:
         # context cap: the cache row and, paged, the whole pool -- a context

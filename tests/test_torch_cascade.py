@@ -141,8 +141,8 @@ def test_k5_plain_matches_pallas(geom, level):
     suffix = np.asarray(c["lens"]) - bt.seq_prefix_len
     ctx_all = np.concatenate([np.repeat(bt.prefix_lens, Hkv), np.repeat(suffix, Hkv)])
     ctx_all = ctx_all.astype(np.int32)
-    route = torch.cat([tops._paged_route(st.prefix_sched, _t(ptbl), Hkv),
-                       tops._paged_route(st.suffix_sched, _t(stbl), Hkv)]).numpy()
+    route = torch.cat([tops.paged_route(st.prefix_sched, _t(ptbl), Hkv),
+                       tops.paged_route(st.suffix_sched, _t(stbl), Hkv)]).numpy()
     rows_k, rows_v = c["kp"].reshape(-1, PS, d), c["vp"].reshape(-1, PS, d)
     scale = 1.0 / math.sqrt(d)
     q_stack = np.concatenate([q_pref, np.pad(q_suf, ((0, 0), (0, nmax * g - g), (0, 0)))])

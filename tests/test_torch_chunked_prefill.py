@@ -140,7 +140,7 @@ def test_k4_plain_matches_pallas(geom, pack):
     seg_qs = np.repeat(c["offs"].astype(np.int32), Hkv)
     q_seg = c["q"].reshape(N, Hkv, g, C, d).reshape(N * Hkv, g * C, d)
     rows_k, rows_v = c["kp"].reshape(-1, ps, d), c["vp"].reshape(-1, ps, d)
-    route_t = tops._paged_route(st, _t(c["tbls"]), Hkv)
+    route_t = tops.paged_route(st, _t(c["tbls"]), Hkv)
     route_j = jops._paged_route(sj, jnp.asarray(c["tbls"]), Hkv, fused=False)
     np.testing.assert_array_equal(route_t.numpy(), np.asarray(route_j))
     scale = 1.0 / np.sqrt(d)
@@ -176,7 +176,7 @@ def test_k4_masked_piece_gets_zero_weight():
     N, Hq, C, d = c["q"].shape
     q_seg = _t(c["q"].reshape(N * Hkv, (Hq // Hkv) * C, d))
     k_rows, v_rows = tops._pool_rows(_t(c["kp"]), _t(c["vp"]))
-    route = tops._paged_route(st, _t(c["tbls"]), Hkv)
+    route = tops.paged_route(st, _t(c["tbls"]), Hkv)
     o_p, m_p, l_p = tlp.lean_prefill_chunk_partials(q_seg, k_rows, v_rows, seg_ctx, seg_qs,
                                                     route, st, 0.25, chunk_cap=C)
     empty = l_p == 0

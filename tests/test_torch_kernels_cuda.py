@@ -66,7 +66,7 @@ def _operands(dev, lens, gq, Hkv, d, tile, workers, dtype, seed=0):
     sched = make_schedule(lens, Hkv, tile, workers)
     seg_ctx = torch.tensor([L for L in lens for _ in range(Hkv)], dtype=torch.int32, device=dev)
     k_rows, v_rows = ops._pool_rows(kp, vp)
-    route = ops._paged_route(sched, tbl.to(dev), Hkv)
+    route = ops.paged_route(sched, tbl.to(dev), Hkv)
     return (q, k_rows, v_rows, seg_ctx, route, sched, 1.0 / math.sqrt(d))
 
 
@@ -285,7 +285,7 @@ def test_chunk_kernels_match_plain(cuda, case, dtype):
     seg_qs = torch.tensor([o for o in offs for _ in range(Hkv)], dtype=torch.int32, device=cuda)
     k_rows, v_rows = ops._pool_rows(kp, vp)
     args = (q.reshape(N * Hkv, (Hq // Hkv) * C, d).contiguous(), k_rows, v_rows, seg_ctx,
-            seg_qs, ops._paged_route(sched, tbl, Hkv), sched, 1.0 / math.sqrt(d), C)
+            seg_qs, ops.paged_route(sched, tbl, Hkv), sched, 1.0 / math.sqrt(d), C)
     before = (lp.launches, fp.launches)
     parts = lp.lean_prefill_chunk_partials(*args)
     q_off = torch.tensor(offs, dtype=torch.int32, device=cuda)
@@ -499,8 +499,8 @@ def _cascade_args(c, tbl):
     q_pref = q.reshape(B, Hkv, g, d)[mem].movedim(2, 1).reshape(NP * Hkv, nmax * g, d)
     suffix = np.asarray(c["lens"]) - binding.seq_prefix_len
     ctx_all = np.concatenate([np.repeat(binding.prefix_lens, Hkv), np.repeat(suffix, Hkv)])
-    route = torch.cat([ops._paged_route(csched.prefix_sched, torch.as_tensor(ptbl).to(dev), Hkv),
-                       ops._paged_route(csched.suffix_sched, torch.as_tensor(stbl).to(dev), Hkv)])
+    route = torch.cat([ops.paged_route(csched.prefix_sched, torch.as_tensor(ptbl).to(dev), Hkv),
+                       ops.paged_route(csched.suffix_sched, torch.as_tensor(stbl).to(dev), Hkv)])
     k_rows, v_rows = ops._pool_rows(c["kp"], c["vp"])
     return (q_pref.contiguous(), q.reshape(B * Hkv, g, d).contiguous(), k_rows, v_rows,
             torch.as_tensor(ctx_all.astype(np.int32)).to(dev), route.contiguous(),
@@ -886,7 +886,7 @@ def test_fixed_and_lean_take_any_page(cuda, page, d, dtypes):
                              device=cuda),
                 torch.tensor([o for o in offs for _ in range(Hkv)], dtype=torch.int32,
                              device=cuda),
-                ops._paged_route(sched, tbl, Hkv), sched, 1.0 / math.sqrt(d), C)
+                ops.paged_route(sched, tbl, Hkv), sched, 1.0 / math.sqrt(d), C)
         for a, b in zip(lp.lean_prefill_chunk_partials(*args),
                         lp.lean_prefill_partials_plain(*args)):
             torch.testing.assert_close(a, b, **TOL)
@@ -959,7 +959,7 @@ def test_int8_chunk_kernel_matches_plain(cuda, case):
             torch.tensor([v for v in visible for _ in range(Hkv)], dtype=torch.int32,
                          device=cuda),
             torch.tensor([o for o in offs for _ in range(Hkv)], dtype=torch.int32, device=cuda),
-            ops._paged_route(sched, tbl, Hkv), sched, 1.0 / math.sqrt(d), C)
+            ops.paged_route(sched, tbl, Hkv), sched, 1.0 / math.sqrt(d), C)
     before = lp.launches
     parts = lp.lean_prefill_chunk_partials(*args, k_scales=ks, v_scales=vs)
     torch.cuda.synchronize()
@@ -1084,7 +1084,7 @@ def _fused_operands(dev, page, C, dtype, Hq=32, Hkv=8, d=128, workers=132, seed=
     args = (q.reshape(N * Hkv, (Hq // Hkv) * C, d).contiguous(), k_rows, v_rows,
             torch.tensor([v for v in visible for _ in range(Hkv)], dtype=torch.int32, device=dev),
             torch.tensor([o for o in offs for _ in range(Hkv)], dtype=torch.int32, device=dev),
-            ops._paged_route(sched, tbl, Hkv), sched, 1.0 / math.sqrt(d), C)
+            ops.paged_route(sched, tbl, Hkv), sched, 1.0 / math.sqrt(d), C)
     return args, sc, (q, kp, vp, tbl)
 
 

@@ -110,7 +110,7 @@ def test_plain_kernels_match_pallas_kernels(case):
     seg_ctx = np.repeat(np.asarray(lens, np.int32), Hkv)
     q_seg = q.reshape(-1, gq, d)
     rows_k, rows_v = kp.reshape(-1, tile, d), vp.reshape(-1, tile, d)
-    route_t = tops._paged_route(sched_t, _t(tbl), Hkv)
+    route_t = tops.paged_route(sched_t, _t(tbl), Hkv)
     route_j = jops._paged_route(sched_j, jnp.asarray(tbl), Hkv, fused=False)
     np.testing.assert_array_equal(route_t.numpy(), np.asarray(route_j))
     scale = 1.0 / np.sqrt(d)
@@ -209,7 +209,7 @@ def test_wrapper_rejects_mixed_devices_and_scales():
     d = q.shape[-1]
     args = (_t(q.reshape(-1, 4, d)), _t(kp.reshape(-1, 8, d)), _t(vp.reshape(-1, 8, d)),
             _t(np.repeat(np.asarray(lens, np.int32), 2)),
-            tops._paged_route(sched, _t(tbl), 2), sched, 0.25)
+            tops.paged_route(sched, _t(tbl), 2), sched, 0.25)
     with pytest.raises(ValueError, match="int8"):
         tld.lean_decode_fused(*args, k_scales=torch.ones(1), v_scales=torch.ones(1))
     with pytest.raises(ValueError, match="segments"):

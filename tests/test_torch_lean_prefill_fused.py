@@ -182,7 +182,7 @@ def test_fused_plain_matches_pallas_and_merge(pack, pool):
     sj = jchunk(c["visible"], Hkv, ps, workers, max_len=c["W"] * ps)
     st = make_chunk_schedule(c["visible"], Hkv, ps, workers, max_len=c["W"] * ps)
     route_j = jops._paged_route(sj, jnp.asarray(c["tbls"]), Hkv, fused=False)
-    route_t = tops._paged_route(st, _t(c["tbls"]), Hkv)
+    route_t = tops.paged_route(st, _t(c["tbls"]), Hkv)
     scale = 1.0 / math.sqrt(d)
     sc_j, sc_t = {}, {}
     if pool == "int8":
