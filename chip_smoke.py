@@ -30,9 +30,11 @@ Phases, in order; any failure exits non-zero and nothing catches it:
      and 256 (float32 and bf16) at d 128;
   4. engine phase: Mistral-NeMo-12B at full width, random bf16 weights from
      a seeded generator, served through ``DecodeEngine`` (paged, blocking
-     admission through K7, lean decode through K2, the decode step replayed
-     as a captured CUDA graph -- the engine's fast path on the card, as in
-     every serving phase below); then the same prompts again on that engine
+     admission through K7 at the bucket length, lean decode through K2,
+     every step -- decode, chunk, verify, admission -- replayed as a
+     captured CUDA graph from its key's second sighting on: the engine's
+     path on the card, as in every serving phase below); then the same
+     prompts again on that engine
      with a few decode ticks under ``torch.profiler``: device busy, device
      kernels, host launch calls and idle share per tick;
   5. the same model with ``fused=False`` for a few ticks (K1 + merge);
@@ -43,9 +45,9 @@ Phases, in order; any failure exits non-zero and nothing catches it:
      on
      ``fixed`` (K8 chunks, K6 decode), in turns lean, fixed, fixed, lean:
      steps, launches, TTFT, decode tokens flowing during the long prefill,
-     first tokens against the blocking engine's; then one phase of each
+     first tokens against the blocking engine's; then the fixed phase
      under ``torch.profiler``: device busy, kernels, host syncs
-     (``aten::item``);
+     (``aten::item``) -- the lean one is traced in phase 11;
   8. prefix-sharing serving phase: a 2048-token system prompt served once,
      then four requests that start with it, through the ``Scheduler`` with
      the radix prefix cache and cascade decode (fused K4 tails, K5 cascade
@@ -68,27 +70,53 @@ Phases, in order; any failure exits non-zero and nothing catches it:
      against lean's; the Scheduler on ``ref`` (no kernel: what the
      quantization alone moves), then on ``lean`` (fused K4-int8, K2-int8) and
      ``fixed`` (K8 on pools widened to bf16, K6 on pages dequantized to
-     float32) in turns, and one phase of each traced (host syncs); prefix
+     float32) in turns, and the fixed phase traced (host syncs); prefix
      serving with cascade (K5-int8);
- 11. captured-step phase: the engine phase's requests on an engine whose
+ 11. chunk step phase: the lean Scheduler with every step eager
+     (``capture_decode = False``) and captured, in turns (eager, captured,
+     captured, eager), on bf16 and int8 pages, a captured run serving the
+     prompts three times on one engine (a key first seen in round 1 is
+     captured in round 2 and replays from round 3): walls per round, TTFT,
+     chunk captures and replays, capture + instantiation ms, the reserved
+     memory the captures grew; then traced (eager; captured, its last
+     round): idle share and host launch calls per chunk step;
+ 12. spec phase: speculative decode (k 4, 41 new tokens) on bf16 and int8
+     pages with an oracle proposer replaying the plain run's streams and
+     with the n-gram proposer: spec ticks, accept rate, verify captures and
+     replays, the fused K4's launches from verify steps, every stream held
+     to the plain run's (a divergence must sit at a top-2 logit gap below
+     the largest verify-vs-decode logit difference); tokens/s and tick p50
+     against plain decode in turns; five verify ticks traced;
+ 13. admission phase: prompts of 17, 60, 100, 1100 and 1500 tokens (buckets
+     128 and 1536) admitted twice each on paged bf16, int8 and dense
+     engines, eager and captured in turns: ms per admission,
+     ``prefill_compiles``, captures and replays, capture + instantiation
+     ms, reserved memory grown, logits equal across the runs; and bucketed
+     against exact-length first-token logits;
+ 14. captured-step phase: the engine phase's requests on an engine whose
      decode step runs eagerly (``capture_decode = False``) and on one that
      replays it as a CUDA graph, in turns (eager, captured, captured,
      eager) on bf16 and on int8 pages: tick p50, captures and replays per
      run; a few ticks of each traced (host launch calls -- kernel and graph
      launches -- and device kernels per tick, device busy, idle share); and
      the bit check: the eager and the captured engine serving the same
-     requests in lockstep on every configuration the engine captures (paged
-     bf16 and int8 and dense, on lean, lean two-call, fixed and ref; the
-     cascade, K5 and two-call, on the prefix waves), logits and pools bit
-     for bit, greedy tokens and each step's launch counts equal;
- 12. the kernel summary (one JSON line: K1-K8, the fused K4 and the int8
+     requests in lockstep on every configuration and step kind the engine
+     captures (paged bf16 and int8 and dense, on lean, lean two-call, fixed
+     and ref: decode steps and admissions; the Scheduler on lean, fixed and
+     ref, bf16 and int8: chunk steps; speculative decode on lean bf16 and
+     int8 and fixed bf16: verify steps; the admission prompts twice on paged bf16, int8 and
+     dense: admission replays; the cascade, K5 and two-call, on the prefix
+     waves), logits and pools bit for bit after every step, greedy tokens
+     and each step's launch counts equal;
+ 15. the kernel summary (one JSON line: K1-K8, the fused K4 and the int8
      forms of K1, K2, K4 (fused and partials) and K5: 14 entries), the
-     ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
+     fused K4's launches from verify steps, the ``nvidia-smi`` line, and
+     last ``{"ok": true, "device": {...}}``.
 
 Each phase starts with a ``[seconds] phase`` line: the time since the
-script started. Phase 11 alone, at full width, after the build:
+script started. Phases 11-14 alone, at full width, after the build:
 
-    python3 chip_smoke.py --captured-step
+    python3 chip_smoke.py --chunk-step | --spec-step | --admission-step | --captured-step
 
 The kernel phase (3) also holds K3 (the merge kernel) against its plain
 version and ``segment_merge``, drives the two-phase ``merge_impl="pallas"``
@@ -161,6 +189,7 @@ Imports ``repro_torch`` only, never JAX or the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -1120,6 +1149,10 @@ def drive(torch, eng, reqs):
 TRACED_TICKS = 5
 
 
+# the record_function ranges the phases mark their steps with
+MARKS = ("chunk step",)
+
+
 def _union_us(intervals):
     total, end = 0.0, float("-inf")
     for s, e in sorted(intervals):
@@ -1198,8 +1231,9 @@ def traced_ticks(torch, eng, reqs, untraced_p50_s: float, label: str = "traced t
 
 def device_time(prof):
     """(device kernels, device busy ms -- the union of their intervals --,
-    {kernel name: (calls, us)}) of a ``torch.profiler`` run."""
-    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    {kernel name: (calls, us)}) of a ``torch.profiler`` run. The device-side
+    ranges of ``record_function`` marks (``MARKS``) are not kernels."""
+    kernels = [e for e in prof.events() if e.device_type.name == "CUDA" and e.name not in MARKS]
     check(kernels, "the profiler recorded no device kernels")
     busy_ms = _union_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3
     by_name = {}
@@ -1215,29 +1249,86 @@ def print_top(by_name, per: int, unit: str, top: int):
 
 
 def traced_scheduler_phase(torch, cfg, params, backend, sm_count, new_tokens, blocking,
-                           kv_dtype=None):
+                           kv_dtype=None, captured=True, rounds=1):
     """A scheduler phase under ``torch.profiler``: device busy against the
     traced wall, kernels, host syncs (``aten::item``: the host waits for the
-    device and the launch queue drains), and the kernels with the most
-    device time."""
+    device and the launch queue drains), host launch calls
+    (``HOST_LAUNCH_CALLS``) per chunk step -- those inside the ``"chunk
+    step"`` ranges the phase's engine marks --, and the kernels with the
+    most device time. ``captured`` and ``rounds`` as
+    :func:`scheduler_phase`'s: the last round is traced. Returns {"syncs",
+    "idle", "chunk_calls", "busy_ms"}."""
+    import bisect
+
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        run = scheduler_phase(torch, cfg, params, backend, sm_count, new_tokens, blocking,
-                              kv_dtype)
+    prof = torch.profiler.profile(activities=acts)
+    run = scheduler_phase(torch, cfg, params, backend, sm_count, new_tokens, blocking,
+                          kv_dtype, captured=captured, rounds=rounds, profiler=prof)
     kernels, busy_ms, by_name = device_time(prof)
-    syncs = sum(1 for e in prof.events() if e.device_type.name == "CPU" and e.name == "aten::item")
-    print(f"traced scheduler phase ({backend}{', int8' if kv_dtype else ''}): wall {run['wall'] * 1e3:.1f} ms under the "
-          f"profiler, device busy {busy_ms:.1f} ms (idle share {1 - busy_ms / (run['wall'] * 1e3):.3f}), "
-          f"{len(kernels)} kernels, {syncs} host syncs (aten::item)", flush=True)
+    cpu = [e for e in prof.events() if e.device_type.name == "CPU"]
+    syncs = sum(1 for e in cpu if e.name == "aten::item")
+    spans = sorted((e.time_range.start, e.time_range.end) for e in cpu if e.name == MARKS[0])
+    starts = [a for a, _ in spans]
+    in_chunk = 0
+    for e in cpu:
+        if e.name in HOST_LAUNCH_CALLS:
+            i = bisect.bisect_right(starts, e.time_range.start) - 1
+            in_chunk += int(i >= 0 and e.time_range.start <= spans[i][1])
+    check(spans, f"traced scheduler phase ({backend}): no chunk step was marked")
+    idle = 1 - busy_ms / (run["wall"] * 1e3)
+    out = {"syncs": syncs, "idle": idle, "chunk_calls": in_chunk / len(spans), "busy_ms": busy_ms}
+    print(f"traced scheduler phase ({backend}{', int8' if kv_dtype else ''}, "
+          f"{'captured' if captured else 'eager'} steps"
+          + (f", round {rounds} of {rounds}" if rounds > 1 else "")
+          + f"): wall {run['wall'] * 1e3:.1f} ms under the profiler, device busy {busy_ms:.1f} ms (idle share {idle:.3f}), "
+          f"{len(kernels)} kernels, {syncs} host syncs (aten::item), "
+          f"{out['chunk_calls']:.1f} host launch calls per chunk step ({len(spans)} chunk steps)",
+          flush=True)
     print_top(by_name, 1, "phase", 6)
-    return syncs
+    return out
 
 
 SCHED_CHUNK, SCHED_PACK, SCHED_BUDGET = 256, 2, 512
 
 
+def exact_prefill_reference(torch, cfg, params):
+    """What the Scheduler phases hold first tokens to, on their own: the
+    ``PROMPT_LENS`` prompts, each one's first-token logits from prefill at
+    its exact length, and their greedy tokens."""
+    from repro_torch.models import prefill
+    from repro_torch.serving.engine import Request
+
+    prompts = [r.prompt.copy() for r in make_requests(Request, cfg.vocab_size, 1)]
+    rows = [prefill(params, cfg, torch.as_tensor(p.astype("int64")[None]).cuda(),
+                    cache_len=4096)[0][0].float() for p in prompts]
+    return {"prompts": prompts, "rows": rows, "first": [int(r.argmax()) for r in rows]}
+
+
+def timed(Engine):
+    """``Engine`` with each capture timed: ``capture_log`` gets (kind,
+    capture + instantiation ms, growth of the allocator's reserved memory
+    in bytes) per captured step, both taken across device syncs."""
+    import torch
+
+    class Timed(Engine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.capture_log = []
+
+        def _capture(self, step, flat, layout):
+            torch.cuda.synchronize()
+            reserved, t0 = torch.cuda.memory_reserved(), time.perf_counter()
+            rec = super()._capture(step, flat, layout)
+            torch.cuda.synchronize()
+            self.capture_log.append((step.kind, (time.perf_counter() - t0) * 1e3,
+                                     torch.cuda.memory_reserved() - reserved))
+            return rec
+
+    return Timed
+
+
 def scheduler_phase(torch, cfg, params, backend, sm_count, new_tokens, blocking,
-                    kv_dtype=None):
+                    kv_dtype=None, captured=True, quiet=False, rounds=1, profiler=None):
     """The ``PROMPT_LENS`` requests served by ``Scheduler`` with chunked
     prefill on ``backend`` (the fused K4 on ``lean``, K8 on ``fixed``; int8
     pools with ``kv_dtype="int8"``: the fused K4-int8 on ``lean``, K8 on the
@@ -1246,18 +1337,27 @@ def scheduler_phase(torch, cfg, params, backend, sm_count, new_tokens, blocking,
     holds the blocking engine phase's first tokens and first-token logits
     per request, which the first-token logits are held to (``LOGIT_RTOL``,
     and ``LOGIT_ATOL_FRAC`` -- ``INT8_LOGIT_ATOL_FRAC`` on int8 pools).
-    Returns the launch counts and step counts of the run."""
+    With ``captured`` False every step runs eagerly (``capture_decode =
+    False``). ``rounds`` serves the prompts that many times on one engine
+    (its graphs kept: a key first seen in round 1 is captured in round 2),
+    each round checked as the first; ``profiler`` (a ``torch.profiler``
+    context) runs around the last round. Returns the last round's launch
+    counts, step counts, wall and TTFT per request, every round's walls and
+    TTFTs, the engine's stats and its capture times (``capture_log``);
+    ``quiet`` prints nothing."""
     from repro_torch.serving.engine import DecodeEngine
     from repro_torch.serving.scheduler import RequestState, Scheduler, SchedulerConfig
 
-    class FirstTokenEngine(DecodeEngine):
+    class FirstTokenEngine(timed(DecodeEngine)):
         """Keeps the logits row each request's first token was sampled
-        from, off the chunk step that completed its prompt."""
+        from, off the chunk step that completed its prompt; marks each
+        chunk step for the profiler."""
 
         first_rows = {}
 
         def prefill_chunks_tick(self, work, pack_width, chunk_cap):
-            toks = super().prefill_chunks_tick(work, pack_width, chunk_cap)
+            with torch.profiler.record_function(MARKS[0]):
+                toks = super().prefill_chunks_tick(work, pack_width, chunk_cap)
             for i, (slot, chunk, off) in enumerate(work):
                 req = self.slot_req[slot]
                 if off + len(chunk) == len(req.prompt):
@@ -1266,67 +1366,91 @@ def scheduler_phase(torch, cfg, params, backend, sm_count, new_tokens, blocking,
 
     eng = FirstTokenEngine(cfg, params, engine_config(backend, sm_count, kv_dtype=kv_dtype),
                            device="cuda")
+    eng.capture_decode = captured
     what = f"{backend}{' int8' if kv_dtype else ''} scheduler"
     sch = Scheduler(eng, SchedulerConfig(chunk_size=SCHED_CHUNK, prefill_pack=SCHED_PACK,
                                          token_budget=SCHED_BUDGET, chunked=True))
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    handles = [sch.submit(p, new_tokens, uid=i) for i, p in enumerate(blocking["prompts"])]
-    long = handles[0]
-    overlap = 0
-    while sch.pending and sch.stats.steps < 400:
-        out = sch.step()
-        if long.state is RequestState.PREFILLING:
-            overlap += len(out)
-    check(not sch.pending, f"{what}: requests still pending after 400 steps")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = launch_counts()
-    chunk_steps, ticks = len(eng.stats.tick_prefill_tokens), eng.stats.ticks
-    check(all(h.done and len(h.generated) == new_tokens for h in handles),
-          f"{what}: a request did not finish")
-    eng.pool.check(scales=eng._kv_scale_arrays())
-    check(eng.pool.num_allocated == 0, f"{what}: {eng.pool.num_allocated} pages leaked")
-    check(overlap > 0, f"{what}: decode stalled during the long prefill")
-    kernels = {"lean": ("K4f", "K2"), "fixed": ("K8", "K6"), "ref": ()}[backend]
-    if kernels:
-        check(counts[kernels[0]] == cfg.n_layers * chunk_steps and chunk_steps > 0,
-              f"{what}: {kernels[0]} launched {counts[kernels[0]]} times, expected "
-              f"{cfg.n_layers} x {chunk_steps} chunk steps")
-        check(counts[kernels[1]] == cfg.n_layers * ticks and ticks > 0,
-              f"{what}: {kernels[1]} launched {counts[kernels[1]]} times, expected "
-              f"{cfg.n_layers} x {ticks} decode ticks")
-    others = {k: n for k, n in counts.items() if k not in kernels and n}
-    check(not others, f"{what}: other kernels ran: {others}")
-    tc = path_counts(what)
-    ttft = [(h.first_token_time - h.arrival_time) * 1e3 for h in handles]
-    agree = sum(h.generated[0] == blocking["first"][h.uid] for h in handles)
-    atol_frac = INT8_LOGIT_ATOL_FRAC if kv_dtype == "int8" else LOGIT_ATOL_FRAC
-    worst = None
-    for h in handles:
-        ref = blocking["rows"][h.uid]
-        got = eng.first_rows[h.uid]
-        check(bool(torch.isfinite(got).all()), f"{what}: first-token logits not finite")
-        atol = atol_frac * ref.abs().median().item()
-        delta = (got - ref).abs()
-        check(torch.allclose(got, ref, rtol=LOGIT_RTOL, atol=atol),
-              f"{what}: request {h.uid}'s first-token logits differ from blocking "
-              f"prefill by up to {delta.max().item()} (allowed {atol} + {LOGIT_RTOL} |ref|)")
-        if worst is None or delta.max().item() > worst[0]:
-            worst = (delta.max().item(), atol, h.uid)
-    launched = (f"launches {kernels[0]} {counts[kernels[0]]} = {cfg.n_layers} x {chunk_steps}, "
-                f"{kernels[1]} {counts[kernels[1]]} = {cfg.n_layers} x {ticks} (on the tensor "
-                f"cores: K8 {tc['K8']}, fused K4 {tc['K4f']})" if kernels else "no kernel launched")
-    print(f"scheduler phase ({backend}{', int8 pools' if kv_dtype else ''}): chunk {SCHED_CHUNK}, pack {SCHED_PACK}, budget "
-          f"{SCHED_BUDGET}: {sch.stats.steps} scheduler steps, {chunk_steps} chunk steps, "
-          f"{ticks} decode ticks in {wall:.2f} s ({eng.stats.decode_replays} replayed, "
-          f"{eng.stats.decode_captures} captures); {launched}; TTFT ms per request (prompts {list(PROMPT_LENS)}): "
-          + ", ".join(f"{t:.1f}" for t in ttft)
-          + f"; {overlap} decode tokens while the {PROMPT_LENS[0]}-token prompt was prefilling; "
-          f"pool clean; first tokens agreeing with blocking prefill {agree}/{len(handles)}; "
-          f"worst first-token logit gap {worst[0]:.4f} (request {worst[2]}, allowed "
-          f"{worst[1]:.4f} + {LOGIT_RTOL} |ref|)", flush=True)
-    return {"counts": counts, "chunk_steps": chunk_steps, "ticks": ticks, "wall": wall}
+    walls, ttfts = [], []
+    for rnd in range(rounds):
+        # the last round under the profiler when one is given
+        ctx = profiler if profiler is not None and rnd == rounds - 1 else contextlib.nullcontext()
+        st0 = {k: getattr(eng.stats, k) for k in ("ticks", "chunk_captures", "chunk_replays",
+                                                   "decode_captures", "decode_replays")}
+        steps0, chunks0 = sch.stats.steps, len(eng.stats.tick_prefill_tokens)
+        reset_launch_counts()
+        with ctx:
+            t0 = time.perf_counter()
+            handles = [sch.submit(p, new_tokens, uid=i) for i, p in enumerate(blocking["prompts"])]
+            long = handles[0]
+            overlap = 0
+            while sch.pending and sch.stats.steps - steps0 < 400:
+                out = sch.step()
+                if long.state is RequestState.PREFILLING:
+                    overlap += len(out)
+            check(not sch.pending, f"{what}: requests still pending after 400 steps")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = launch_counts()
+        st = {k: getattr(eng.stats, k) - v for k, v in st0.items()}
+        chunk_steps, ticks = len(eng.stats.tick_prefill_tokens) - chunks0, st["ticks"]
+        check(all(h.done and len(h.generated) == new_tokens for h in handles),
+              f"{what}: a request did not finish")
+        eng.pool.check(scales=eng._kv_scale_arrays())
+        check(eng.pool.num_allocated == 0, f"{what}: {eng.pool.num_allocated} pages leaked")
+        check(overlap > 0, f"{what}: decode stalled during the long prefill")
+        kernels = {"lean": ("K4f", "K2"), "fixed": ("K8", "K6"), "ref": ()}[backend]
+        if kernels:
+            check(counts[kernels[0]] == cfg.n_layers * chunk_steps and chunk_steps > 0,
+                  f"{what}: {kernels[0]} launched {counts[kernels[0]]} times, expected "
+                  f"{cfg.n_layers} x {chunk_steps} chunk steps")
+            check(counts[kernels[1]] == cfg.n_layers * ticks and ticks > 0,
+                  f"{what}: {kernels[1]} launched {counts[kernels[1]]} times, expected "
+                  f"{cfg.n_layers} x {ticks} decode ticks")
+        others = {k: n for k, n in counts.items() if k not in kernels and n}
+        check(not others, f"{what}: other kernels ran: {others}")
+        tc = path_counts(what)
+        ttft = [(h.first_token_time - h.arrival_time) * 1e3 for h in handles]
+        agree = sum(h.generated[0] == blocking["first"][h.uid] for h in handles)
+        atol_frac = INT8_LOGIT_ATOL_FRAC if kv_dtype == "int8" else LOGIT_ATOL_FRAC
+        worst = None
+        for h in handles:
+            ref = blocking["rows"][h.uid]
+            got = eng.first_rows[h.uid]
+            check(bool(torch.isfinite(got).all()), f"{what}: first-token logits not finite")
+            atol = atol_frac * ref.abs().median().item()
+            delta = (got - ref).abs()
+            check(torch.allclose(got, ref, rtol=LOGIT_RTOL, atol=atol),
+                  f"{what}: request {h.uid}'s first-token logits differ from blocking "
+                  f"prefill by up to {delta.max().item()} (allowed {atol} + {LOGIT_RTOL} |ref|)")
+            if worst is None or delta.max().item() > worst[0]:
+                worst = (delta.max().item(), atol, h.uid)
+        launched = (f"launches {kernels[0]} {counts[kernels[0]]} = {cfg.n_layers} x "
+                    f"{chunk_steps}, {kernels[1]} {counts[kernels[1]]} = {cfg.n_layers} x "
+                    f"{ticks} (on the tensor cores: K8 {tc['K8']}, fused K4 {tc['K4f']})"
+                    if kernels else "no kernel launched")
+        check(captured or st["chunk_captures"] == st["decode_captures"] == 0,
+              f"{what}: the eager run captured a step")
+        walls.append(wall)
+        ttfts.append(ttft)
+        if not quiet:
+            print(f"scheduler phase ({backend}{', int8 pools' if kv_dtype else ''}, "
+                  f"{'captured' if captured else 'eager'} steps"
+                  + (f", round {rnd + 1} of {rounds}" if rounds > 1 else "")
+                  + f"): chunk {SCHED_CHUNK}, pack {SCHED_PACK}, budget {SCHED_BUDGET}: "
+                  f"{sch.stats.steps - steps0} scheduler steps, {chunk_steps} chunk steps "
+                  f"({st['chunk_replays']} replayed, {st['chunk_captures']} captures), {ticks} "
+                  f"decode ticks ({st['decode_replays']} replayed, {st['decode_captures']} "
+                  f"captures) in {wall:.2f} s; {launched}; TTFT ms per request (prompts "
+                  f"{list(PROMPT_LENS)}): " + ", ".join(f"{t:.1f}" for t in ttft)
+                  + f"; {overlap} decode tokens while the {PROMPT_LENS[0]}-token prompt was "
+                  f"prefilling; pool clean; first tokens agreeing with blocking prefill "
+                  f"{agree}/{len(handles)}; worst first-token logit gap {worst[0]:.4f} "
+                  f"(request {worst[2]}, allowed {worst[1]:.4f} + {LOGIT_RTOL} |ref|)",
+                  flush=True)
+    check(not captured or eng.stats.chunk_replays > 0, f"{what}: no chunk step replayed a graph")
+    return {"counts": counts, "chunk_steps": chunk_steps, "ticks": ticks, "wall": wall,
+            "walls": walls, "ttfts": ttfts, "ttft": ttft, "stats": eng.stats,
+            "capture_log": eng.capture_log}
 
 
 # ------------------------------------------------------------ merge kernel K3
@@ -2143,21 +2267,45 @@ CAPTURE_NEW_TOKENS = 6     # new tokens per request in the bit check (waves: 8)
 
 
 def capture_configs(sm_count):
-    """(label, EngineConfig, drive) of every configuration whose decode
-    step the engine captures: paged bf16 and int8 pools and the dense
-    cache, on ``lean`` (K2, and the two-call K1 + merge), ``fixed`` and
-    ``ref``, served as the engine phase serves (``"engine"``); and the
-    cascade, fused K5 and the two-call path, on the prefix waves through
-    the ``Scheduler`` (``"waves"``)."""
-    from repro_torch.serving.config import CascadeConfig, EngineConfig, PagedConfig
+    """(label, EngineConfig, drive) of every configuration whose steps the
+    engine captures: paged bf16 and int8 pools and the dense cache, on
+    ``lean`` (K2, and the two-call K1 + merge), ``fixed`` and ``ref``,
+    served as the engine phase serves (``"engine"``: blocking admission,
+    decode steps); the same requests through the ``Scheduler`` on ``lean``,
+    ``fixed`` and ``ref``, bf16 and int8 pages (``"sched"``: chunk steps);
+    speculative decode on ``lean`` bf16 and int8 pages and ``fixed`` bf16
+    (``"engine"`` with ``SpecConfig(k=4)``, the n-gram proposer: verify
+    steps, the fused K4 or K8 on 5-row chunks); ``ADMIT_LENS``
+    admitted twice on paged bf16, int8 and dense engines (``"admit"``:
+    every admission bucket comes back); and the cascade, fused K5 and the
+    two-call path, on the prefix waves through the ``Scheduler``
+    (``"waves"``)."""
+    import dataclasses
+
+    from repro_torch.serving.config import (
+        CascadeConfig,
+        EngineConfig,
+        PagedConfig,
+        SpecConfig,
+    )
 
     kinds = (("lean", True), ("lean", False), ("fixed", True), ("ref", True))
     name = lambda b, f: b + ("" if f else " two-call")
+    dense = lambda b, f: EngineConfig(max_batch=4, cache_len=4096, attn_backend=b,
+                                      num_workers=sm_count, fused=f,
+                                      paged=PagedConfig(enabled=False))
     out = [(f"paged {kv or 'bf16'} {name(b, f)}", engine_config(b, sm_count, f, kv), "engine")
            for kv in (None, "int8") for b, f in kinds]
-    out += [(f"dense {name(b, f)}", EngineConfig(
-        max_batch=4, cache_len=4096, attn_backend=b, num_workers=sm_count, fused=f,
-        paged=PagedConfig(enabled=False)), "engine") for b, f in kinds]
+    out += [(f"dense {name(b, f)}", dense(b, f), "engine") for b, f in kinds]
+    out += [(f"chunk steps {kv or 'bf16'} {b}", engine_config(b, sm_count, True, kv), "sched")
+            for kv in (None, "int8") for b in ("lean", "fixed", "ref")]
+    out += [(f"spec {kv or 'bf16'} {b}", dataclasses.replace(
+        engine_config(b, sm_count, True, kv), spec=SpecConfig(enabled=True, k=SPEC_K)),
+        "engine") for b, kv in (("lean", None), ("lean", "int8"), ("fixed", None))]
+    out += [(f"admission {label}", config, "admit") for label, config in (
+        ("paged bf16", engine_config("lean", sm_count)),
+        ("paged int8", engine_config("lean", sm_count, kv_dtype="int8")),
+        ("dense", dense("lean", True)))]
     out += [(f"cascade {'K5' if f else 'two-call'}", EngineConfig(
         max_batch=4, cache_len=4096, attn_backend="lean", num_workers=sm_count,
         paged=PagedConfig(enabled=True, page_size=128, prefix_cache=True),
@@ -2167,37 +2315,52 @@ def capture_configs(sm_count):
 
 
 def twin_bits(torch, cfg, params, config, drive):
-    """The eager step (``capture_decode = False``) and the captured one on
-    two engines of ``config``, serving the same requests in lockstep: after
-    every step that ran a decode tick, the logits rows of the slots it
-    served and every pool (the null page aside) compared bit for bit, the
-    greedy tokens compared, and each step's change of the launch counters
-    compared. Idle and masked slots all write their token to the null page,
-    in whichever order the device runs the writes, and read it back as
-    their one visible key: their rows and the null page are garbage by
-    design, which nothing reads. Returns (decode ticks, bit-identical ticks,
-    max |logit difference|, the captured engine's captures and replays, and
-    its cascade ticks and the replays among them)."""
+    """The eager steps (``capture_decode = False``) and the captured ones
+    on two engines of ``config``, serving the same requests in lockstep:
+    after every engine or scheduler step, every pool (the null page aside)
+    compared bit for bit, and the step's change of the launch counters
+    compared; the logits of every chunk, verify and admission step compared
+    bit for bit (the rows it served: chunk and verify rows with tokens);
+    after every decode tick, the logits rows of the slots it served bit for
+    bit and the greedy tokens. Idle and masked slots all write their token
+    to the null page, in whichever order the device runs the writes, and
+    read it back as their one visible key: their rows and the null page are
+    garbage by design, which nothing reads. Returns {kind: [steps,
+    bit-identical steps]} (decode: ticks), the max |logit difference|, the
+    captured engine's stats, and its cascade ticks' replays."""
+    import numpy as np
+
     from repro_torch.kernels import launches
     from repro_torch.serving.engine import DecodeEngine, Request
     from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
 
     def run(eng):
         """Yields after every engine step: whether it ran a decode tick."""
-        if drive == "engine":
-            for r in make_requests(Request, cfg.vocab_size, CAPTURE_NEW_TOKENS):
-                eng.submit(r)
-            while eng.queue or any(eng.slot_req):
-                ticks = eng.stats.ticks
-                eng.tick()
-                yield eng.stats.ticks > ticks
+        if drive in ("engine", "admit"):
+            if drive == "engine":
+                rounds = [make_requests(Request, cfg.vocab_size, CAPTURE_NEW_TOKENS)]
+            else:
+                rng = np.random.default_rng(3)
+                prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                           for n in ADMIT_LENS]
+                rounds = [[Request(uid=5 * k + i, prompt=p, max_new_tokens=2)
+                           for i, p in enumerate(prompts)] for k in range(2)]
+            for reqs in rounds:
+                for r in reqs:
+                    eng.submit(r)
+                while eng.queue or any(eng.slot_req):
+                    ticks = eng.stats.ticks
+                    eng.tick()
+                    yield eng.stats.ticks > ticks
             return
         sch = Scheduler(eng, SchedulerConfig(chunk_size=SCHED_CHUNK, prefill_pack=SCHED_PACK,
                                              token_budget=SCHED_BUDGET, chunked=True))
+        waves = ([list(make_requests(Request, cfg.vocab_size, 0))] if drive == "sched"
+                 else prefix_waves(cfg.vocab_size))
         uid = 0
-        for wave in prefix_waves(cfg.vocab_size):
+        for wave in waves:
             for p in wave:
-                sch.submit(p, CAPTURE_NEW_TOKENS + 2, uid=uid)
+                sch.submit(p.prompt if drive == "sched" else p, CAPTURE_NEW_TOKENS + 2, uid=uid)
                 uid += 1
             while sch.pending:
                 ticks = eng.stats.ticks
@@ -2205,15 +2368,28 @@ def twin_bits(torch, cfg, params, config, drive):
                 yield eng.stats.ticks > ticks
 
     class Served(DecodeEngine):
-        def _emit_tokens(self, active, next_all):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.outs = []
+
+        def _emit_tokens(self, active, next_all, spec=None):
             self.served = list(active)
-            return super()._emit_tokens(active, next_all)
+            return super()._emit_tokens(active, next_all, spec)
+
+        def _run_step(self, step):
+            out = super()._run_step(step)
+            if step.kind != "decode":
+                rows = out if step.kind == "admit" else out[
+                    torch.as_tensor(step.host["lens"] > 0, device=out.device)]
+                self.outs.append((step.kind, rows.clone()))
+            return out
 
     engines = [Served(cfg, params, config, device="cuda") for _ in range(2)]
     engines[0].capture_decode = False
     first = 1 if engines[0].paged else 0
     runs = [run(e) for e in engines]
-    ticks = same = cascade_replays = 0
+    steps = {}
+    cascade_replays = 0
     worst = 0.0
     while True:
         replays = engines[1].stats.decode_replays
@@ -2227,25 +2403,37 @@ def twin_bits(torch, cfg, params, config, drive):
             break
         check(moved[0] == moved[1], f"a step's launches differ: eager {moved[0]}, captured "
               f"{moved[1]}")
-        if not ran[0]:
-            continue
-        ticks += 1
-        cascade_replays += int(engines[1].last_step_key[0][1] == "cascade"
-                               and engines[1].stats.decode_replays > replays)
-        check(engines[0].served == engines[1].served, f"tick {ticks}: served other slots")
-        a, b = (e.last_logits[e.served] for e in engines)
-        check(torch.equal(a.argmax(-1), b.argmax(-1)),
-              f"tick {ticks}: the captured step's greedy tokens differ from the eager step's")
         pools = all(torch.equal(x[first:], y[first:]) for l0, l1 in zip(*(e.cache for e in engines))
                     for x, y in zip(l0.values(), l1.values()))
-        same += int(torch.equal(a, b) and pools)
-        worst = max(worst, (a - b).abs().max().item())
+        o0, o1 = (e.outs for e in engines)
+        check([k for k, _ in o0] == [k for k, _ in o1], "the engines ran other steps")
+        for (kind, a), (_, b) in zip(o0, o1):
+            n = steps.setdefault(kind, [0, 0])
+            n[0] += 1
+            n[1] += int(torch.equal(a, b) and pools)
+            worst = max(worst, (a - b).abs().max().item())
+        o0.clear()
+        o1.clear()
+        if not ran[0]:
+            check(pools, "a step's pools differ between the eager and the captured engine")
+            continue
+        n = steps.setdefault("decode", [0, 0])
+        n[0] += 1
+        cascade_replays += int(engines[1].last_step_key[0][1] == "cascade"
+                               and engines[1].stats.decode_replays > replays)
+        check(engines[0].served == engines[1].served, f"tick {n[0]}: served other slots")
+        same = pools
+        if engines[0].served:            # none when every slot ran a verify step
+            a, b = (e.last_logits[e.served] for e in engines)
+            check(torch.equal(a.argmax(-1), b.argmax(-1)),
+                  f"tick {n[0]}: the captured step's greedy tokens differ from the eager step's")
+            same = same and torch.equal(a, b)
+            worst = max(worst, (a - b).abs().max().item())
+        n[1] += int(same)
     st = engines[1].stats
-    out = (ticks, same, worst, st.decode_captures, st.decode_replays, st.cascade_ticks,
-           cascade_replays)
     del engines, runs
     torch.cuda.empty_cache()
-    return out
+    return steps, worst, st, cascade_replays
 
 
 def captured_step_phase(torch, cfg, params, sm_count, new_tokens, smi: str):
@@ -2298,18 +2486,368 @@ def captured_step_phase(torch, cfg, params, sm_count, new_tokens, smi: str):
               f"{c['idle_p50']:.3f}", flush=True)
 
     for label, config, how in capture_configs(sm_count):
-        ticks, same, worst, captures, replays, casc, casc_replays = twin_bits(
-            torch, cfg, params, config, how)
-        print(f"captured step bit check ({label}): {same}/{ticks} decode ticks bit for bit "
-              f"(logits and pools), max |logit difference| {worst:.3g}; greedy tokens and "
-              f"launch counts equal; captures {captures}, replays {replays}"
-              + (f"; cascade ticks {casc}, {casc_replays} of them replayed" if how == "waves"
-                 else ""), flush=True)
-        check(replays > 0 and (how != "waves" or casc_replays > 0),
-              f"captured step ({label}): no {'cascade ' if how == 'waves' else ''}tick "
-              "replayed a graph")
-        check(same == ticks > 0, f"captured step ({label}): {ticks - same} of {ticks} ticks "
-              f"differ from the eager step (max |logit difference| {worst})")
+        steps, worst, st, casc_replays = twin_bits(torch, cfg, params, config, how)
+        expect = {"engine": ["decode", "admit"], "admit": ["admit"], "sched": ["chunk", "decode"],
+                  "waves": ["chunk", "decode"]}[how] + (["verify"] if st.spec_ticks else [])
+        print(f"captured step bit check ({label}): "
+              + "; ".join(f"{kind} {same}/{n} bit for bit (captures "
+                          f"{getattr(st, kind + '_captures')}, replays "
+                          f"{getattr(st, kind + '_replays')})"
+                          for kind, (n, same) in sorted(steps.items()))
+              + f" (logits and pools); max |logit difference| {worst:.3g}; greedy tokens and "
+              f"launch counts equal"
+              + (f"; cascade ticks {st.cascade_ticks}, {casc_replays} of them replayed"
+                 if how == "waves" else ""), flush=True)
+        for kind in expect:
+            n, same = steps.get(kind, (0, 0))
+            check(same == n > 0, f"captured step ({label}): {n - same} of {n} {kind} steps "
+                  f"differ from the eager step (max |logit difference| {worst})")
+        # the kinds that must replay: a speculative engine's slots all verify
+        # (the prompts leave room for every block), so it runs no
+        # single-token step; the engine drive's admission buckets differ
+        replayed = (["verify"] if st.spec_ticks else
+                    [k for k in expect if k != "admit" or how == "admit"])
+        check(all(getattr(st, f"{k}_replays") > 0 for k in replayed)
+              and (how != "waves" or casc_replays > 0),
+              f"captured step ({label}): a step kind of {replayed} replayed no graph")
+        check(not label.startswith("spec") or st.spec_ticks > 0,
+              f"captured step ({label}): no verify step ran")
+
+
+# ------------------------------------------- chunk step, verify step, admission
+# rounds a chunk step phase serves the prompts on one engine: a chunk key
+# first seen in round 1 is captured in round 2 and replays from round 3
+CHUNK_ROUNDS = 3
+
+
+def chunk_step_phase(torch, cfg, params, sm_count, new_tokens, blockings, smi: str,
+                     full=True):
+    """The chunk step captured (with every other step) against the eager
+    steps, on the lean Scheduler (chunk 256, pack 2, budget 512), on bf16 and
+    on int8 pages: the phase wall and TTFT per request in turns (eager,
+    captured, captured, eager), chunk captures and replays, and the capture
+    plus instantiation time of a full-width chunk graph; then one phase of
+    each traced (the captured one's last round): the device's idle share and
+    host launch calls per chunk step -- on int8 pages the eager phase only
+    with ``full`` (its trace alone takes about two minutes to read).
+    ``blockings`` maps the kv dtype to the blocking engine's first tokens
+    and rows, which every run's first tokens are held to. A captured run
+    serves the prompts ``CHUNK_ROUNDS`` times on one engine: a chunk key
+    first seen in round 1 is captured in round 2 and replays from then
+    on."""
+    out = {}
+    for kv in (None, "int8"):
+        what = f"{kv or 'bf16'} pages"
+        clock(f"chunk step phase, {what}")
+        runs = [scheduler_phase(torch, cfg, params, "lean", sm_count, new_tokens, blockings[kv],
+                                kv_dtype=kv, captured=c, quiet=True,
+                                rounds=CHUNK_ROUNDS if c else 1)
+                for c in (False, True, True, False)]
+        caps = [ms for r in runs for kind, ms, _ in r["capture_log"] if kind == "chunk"]
+        grew = sum(b for r in runs[1:3] for _, _, b in r["capture_log"]) / 2
+        st = [r["stats"] for r in runs[1:3]]
+        print(f"chunk step phase ({what}; {smi}): lean Scheduler, runs in turns (eager, "
+              f"captured, captured, eager), the captured ones {CHUNK_ROUNDS} rounds of the "
+              f"prompts on one engine; wall s per round: "
+              + " | ".join(", ".join(f"{w:.2f}" for w in r["walls"]) for r in runs)
+              + "; TTFT ms per request (prompts " + str(list(PROMPT_LENS)) + "), last round: "
+              + " | ".join(", ".join(f"{t:.1f}" for t in r["ttft"]) for r in runs)
+              + f"; chunk steps a round {runs[1]['chunk_steps']}; captured runs' chunk captures "
+              f"/ replays {st[0].chunk_captures} / {st[0].chunk_replays}, {st[1].chunk_captures} "
+              f"/ {st[1].chunk_replays}; chunk capture + instantiation ms: median "
+              f"{statistics.median(caps):.1f}, max {max(caps):.1f} over {len(caps)}; reserved "
+              f"memory grown by a run's captures (every step kind) {grew / 2**20:.0f} MiB",
+              flush=True)
+        clock(f"chunk step phase, {what}, traced")
+        traced = {c: traced_scheduler_phase(torch, cfg, params, "lean", sm_count, new_tokens,
+                                            blockings[kv], kv_dtype=kv, captured=c,
+                                            rounds=CHUNK_ROUNDS if c else 1)
+                  for c in (False, True) if c or full or kv is None}
+        # the untraced walls of the same rounds: eager runs, and the captured
+        # runs' last round
+        untraced = {False: (runs[0]["walls"][0] + runs[3]["walls"][0]) / 2,
+                    True: (runs[1]["walls"][-1] + runs[2]["walls"][-1]) / 2}
+        line = lambda key, fmt: " -> ".join(format(traced[c][key], fmt) for c in traced)
+        print(f"chunk step phase ({what}): traced lean Scheduler phase (captured: its last "
+              f"round), {' -> '.join('captured' if c else 'eager' for c in traced)}: idle "
+              f"share of the traced wall {line('idle', '.3f')}, of the untraced wall "
+              + " -> ".join(f"{1 - traced[c]['busy_ms'] / (untraced[c] * 1e3):.3f}"
+                            for c in traced)
+              + f"; device busy {line('busy_ms', '.1f')} ms; host launch calls per chunk step "
+              f"{line('chunk_calls', '.1f')}; host syncs {line('syncs', 'd')}", flush=True)
+        out[kv] = {"runs": runs, "traced": traced}
+        torch.cuda.empty_cache()
+    return out
+
+
+SPEC_K, SPEC_NEW = 4, 41
+
+
+def spec_engine_class():
+    """A :class:`DecodeEngine` recording the logits row behind every
+    decode token, by (request, token index): the single-token step's rows
+    and the verify step's rows it emitted."""
+    from repro_torch.serving.engine import DecodeEngine
+
+    class Rows(timed(DecodeEngine)):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.rows = {}
+
+        def _emit_tokens(self, active, next_all, spec=None):
+            for s in active:
+                req = self.slot_req[s]
+                self.rows[(req.uid, len(req.generated))] = self.last_logits[s].clone()
+            return super()._emit_tokens(active, next_all, spec)
+
+        def _emit_spec_tokens(self, spec, out, cap):
+            before = {s: (self.slot_req[s], len(self.slot_req[s].generated)) for s in spec[0]}
+            n = super()._emit_spec_tokens(spec, out, cap)
+            for s, (req, m) in before.items():
+                for i in range(len(req.generated) - m):
+                    self.rows[(req.uid, m + i)] = self.last_verify_logits[s, i].clone()
+            return n
+
+    return Rows
+
+
+def spec_drive(torch, eng, reqs, trace=None):
+    """Serve ``reqs`` on ``eng``; returns (decode tokens per second over the
+    ticks after the first, those ticks' seconds, the streams). With
+    ``trace`` (a ``torch.profiler`` context) ticks 3 to 7 -- past the
+    first tick's admissions and warm-ups and the second's captures -- run
+    under it."""
+    for r in reqs:
+        eng.submit(r)
+    eng.tick()                                   # admissions + the first tick
+    torch.cuda.synchronize()
+    n_tok, t0, ticks = 0, time.perf_counter(), []
+    while eng.queue or any(eng.slot_req):
+        if trace is not None and len(ticks) == 1:
+            trace.start()
+        t1 = time.perf_counter()
+        out = eng.tick()
+        torch.cuda.synchronize()
+        ticks.append(time.perf_counter() - t1)
+        if trace is not None and len(ticks) == 1 + TRACED_TICKS:
+            trace.stop()
+            trace = None
+        n_tok += sum(len(v) if isinstance(v, list) else 1 for v in out.values())
+    check(trace is None, f"the requests ended before {TRACED_TICKS} ticks were traced")
+    return n_tok / (time.perf_counter() - t0), ticks, [list(r.generated) for r in reqs]
+
+
+def spec_divergences(torch, base, eng, streams, got, what: str) -> float:
+    """Hold a speculative run's streams (``got``, engine ``eng``) to the
+    non-speculative run's (``streams``, engine ``base``): the largest logit
+    difference between the rows both computed for the same token before
+    any divergence; at each divergence the non-speculative run's top-2
+    logit gap there must be below it (a near-tie that the two steps'
+    roundings break apart), else the run fails. Prints the divergences;
+    returns the largest difference."""
+    firsts = [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+              for a, b in zip(streams, got)]
+    before = [(u, i) for u, j in enumerate(firsts)
+              for i in range(1, len(streams[u]) if j is None else j)]
+    worst = max(((base.rows[k] - eng.rows[k]).abs().max().item()
+                 for k in before if k in eng.rows), default=0.0)
+    for u, j in enumerate(firsts):
+        if j is None:
+            continue
+        top = torch.topk(base.rows[(u, j)].float(), 2).values
+        gap = (top[0] - top[1]).item()
+        print(f"spec phase ({what}): request {u} diverges from the non-speculative stream at "
+              f"token {j}; the non-speculative run's top-2 gap there {gap:.4f}, the largest "
+              f"verify-vs-decode logit difference {worst:.4f}", flush=True)
+        check(gap < worst, f"spec phase ({what}): request {u} diverges at token {j} with a "
+              f"top-2 gap of {gap} (>= {worst})")
+    return worst
+
+
+def spec_phase(torch, cfg, params, sm_count, smi: str):
+    """Speculative decode at full width (k 4, batch 4, paged lean, the
+    ``PROMPT_LENS`` prompts, ``SPEC_NEW`` new tokens) on bf16 and int8
+    pages, every step captured. The non-speculative run's greedy streams
+    drive an ``OracleProposer`` (run A); every speculative stream is held
+    to the non-speculative one (:func:`spec_divergences`). A random-weight
+    model's logits tie often in bf16, so a verify row, rounded apart from
+    the decode row, can break a tie the other way, after which the oracle's
+    drafts stop matching: the timed runs therefore replay run A's own
+    streams. Tokens/s against the non-speculative engine in turns (plain,
+    spec, spec, plain) with tick p50s, spec ticks, accept rate, verify
+    captures and replays, the fused K4's launches from verify steps, five
+    replayed verify ticks traced; and the ``NGramProposer`` once. Returns
+    the fused K4's launches from verify steps (bf16, run A)."""
+    import dataclasses
+
+    from repro_torch.serving.config import SpecConfig
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.speculative import NGramProposer, OracleProposer
+
+    Rows = spec_engine_class()
+    k4_verify = None
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for kv in (None, "int8"):
+        what = f"{kv or 'bf16'} pages"
+        clock(f"spec phase, {what}")
+        config = engine_config("lean", sm_count, kv_dtype=kv)
+        reqs = lambda: make_requests(Request, cfg.vocab_size, SPEC_NEW)
+        spec = lambda prop: dataclasses.replace(config, spec=SpecConfig(
+            enabled=True, k=SPEC_K, proposer=prop))
+        base = Rows(cfg, params, config, device="cuda")
+        _, _, streams = spec_drive(torch, base, reqs())
+        runs = {}
+        for label, conf in (("oracle (run A)", spec(OracleProposer(dict(enumerate(streams))))),
+                            ("n-gram", spec(NGramProposer()))):
+            eng = Rows(cfg, params, conf, device="cuda")
+            reset_launch_counts()
+            _, _, got = spec_drive(torch, eng, reqs())
+            counts = launch_counts()
+            st = eng.stats
+            worst = spec_divergences(torch, base, eng, streams, got, f"{what}, {label}")
+            check(st.spec_ticks > 0 and st.verify_replays > 0,
+                  f"spec phase ({what}, {label}): no verify step replayed a graph")
+            check(counts["K4f"] == cfg.n_layers * st.spec_ticks
+                  and counts["K7"] == cfg.n_layers * st.prefills,
+                  f"spec phase ({what}, {label}): launches {counts}, expected fused K4 "
+                  f"{cfg.n_layers} x {st.spec_ticks} verify steps")
+            eng.pool.check(scales=eng._kv_scale_arrays())
+            check(eng.pool.num_allocated == 0, f"spec phase ({what}): pages leaked")
+            runs[label] = got
+            print(f"spec phase ({what}, {label} proposer, k {SPEC_K}; {smi}): {st.spec_ticks} "
+                  f"spec ticks of {st.ticks}, accept rate "
+                  f"{st.spec_accepted_tokens / max(1, st.spec_draft_tokens):.3f} "
+                  f"({st.spec_accepted_tokens}/{st.spec_draft_tokens}), verify captures "
+                  f"{st.verify_captures}, replays {st.verify_replays}; fused K4 launches "
+                  f"{counts['K4f']} = {cfg.n_layers} x {st.spec_ticks} verify steps; streams "
+                  f"equal to the non-speculative run's "
+                  f"{sum(a == b for a, b in zip(streams, got))}/{len(got)}; max |verify row - "
+                  f"decode row| before a divergence {worst:.4f}", flush=True)
+            if kv is None and label.startswith("oracle"):
+                k4_verify = counts["K4f"]
+        oracle = OracleProposer(dict(enumerate(runs["oracle (run A)"])))
+        turns = []
+        for spec_on in (False, True, True, False):
+            eng = Rows(cfg, params, spec(oracle) if spec_on else config, device="cuda")
+            tok_s, ticks, got = spec_drive(torch, eng, reqs())
+            if spec_on:
+                spec_divergences(torch, base, eng, streams, got, f"{what}, oracle (timed)")
+            turns.append((tok_s, ticks, eng.stats, eng.capture_log))
+        st = turns[1][2]
+        caps = [ms for kind, ms, _ in turns[1][3] if kind == "verify"]
+        print(f"spec phase ({what}, oracle proposer on run A's streams, k {SPEC_K}; {smi}): "
+              f"decode tokens/s in turns (plain, spec, spec, plain) "
+              + ", ".join(f"{t[0]:.1f}" for t in turns)
+              + "; tick p50 ms " + ", ".join(f"{statistics.median(t[1]) * 1e3:.2f}" for t in turns)
+              + " over " + ", ".join(str(len(t[1])) for t in turns) + " ticks after the first; "
+              f"accept rate {st.spec_accepted_tokens / max(1, st.spec_draft_tokens):.3f} "
+              f"({st.spec_accepted_tokens}/{st.spec_draft_tokens}), {st.spec_ticks} spec ticks; "
+              f"verify captures {st.verify_captures}, replays {st.verify_replays}, capture + "
+              f"instantiation ms " + ", ".join(f"{c:.1f}" for c in caps), flush=True)
+        eng = Rows(cfg, params, spec(oracle), device="cuda")
+        prof = torch.profiler.profile(activities=acts)
+        spec_drive(torch, eng, reqs(), trace=prof)
+        kernels, busy_ms, by_name = device_time(prof)
+        calls = host_launch_calls(prof)
+        p50 = statistics.median(turns[1][1] + turns[2][1])
+        print(f"spec phase ({what}): {TRACED_TICKS} replayed spec ticks under torch.profiler: "
+              f"device busy {busy_ms / TRACED_TICKS:.2f} ms/tick against the untraced tick p50 "
+              f"{p50 * 1e3:.2f} ms; {len(kernels) / TRACED_TICKS:.0f} device kernels/tick; "
+              f"{sum(calls.values()) / TRACED_TICKS:.1f} host launch calls/tick", flush=True)
+        print_top(by_name, TRACED_TICKS, "tick", 8)
+        del base, turns, eng
+        torch.cuda.empty_cache()
+    return k4_verify
+
+
+ADMIT_LENS = (17, 60, 100, 1100, 1500)    # buckets 128, 128, 128, 1536, 1536
+
+
+def admission_phase(torch, cfg, params, sm_count, smi: str):
+    """Blocking admission at the reference's bucket length, captured,
+    against the eager admission, on paged bf16, int8 and dense engines:
+    ``ADMIT_LENS`` admitted twice each into slot 0 (released after each), in
+    turns (eager, captured, captured, eager); admission ms per prompt,
+    ``prefill_compiles``, admission captures and replays, capture plus
+    instantiation ms, the reserved memory the captures grew; the logits of
+    every admission equal across the runs, bit for bit. Before it, on bf16
+    pages: each prompt's first-token logits at the bucket against prefill at
+    its exact length (cuBLAS may take other kernels at another M), printed."""
+    import numpy as np
+
+    from repro_torch.models import prefill
+    from repro_torch.serving.config import EngineConfig, PagedConfig
+    from repro_torch.serving.engine import DecodeEngine, Request
+
+    class Logged(timed(DecodeEngine)):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.admit_logits = []
+
+        def _run_prompt_prefill(self, prompt, slot, pages):
+            logits = super()._run_prompt_prefill(prompt, slot, pages)
+            self.admit_logits.append(logits.clone())
+            return logits
+
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in ADMIT_LENS]
+    layouts = (("paged bf16", engine_config("lean", sm_count)),
+               ("paged int8", engine_config("lean", sm_count, kv_dtype="int8")),
+               ("dense", EngineConfig(max_batch=4, cache_len=4096, attn_backend="lean",
+                                      num_workers=sm_count, paged=PagedConfig(enabled=False))))
+    out = {}
+    for label, config in layouts:
+        runs = []
+        for captured in (False, True, True, False):
+            eng = Logged(cfg, params, config, device="cuda")
+            eng.capture_decode = captured
+            ms = []
+            for rnd in range(2):
+                for i, p in enumerate(prompts):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    check(eng.admit_blocking(Request(uid=i, prompt=p, max_new_tokens=1), 0),
+                          f"admission ({label}): refused")
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    eng.release_slot(0)
+            if eng.paged:
+                eng.pool.check(scales=eng._kv_scale_arrays())
+            runs.append((eng, ms))
+        ref = runs[0][0].admit_logits
+        for eng, _ in runs[1:]:
+            check(all(torch.equal(a, b) for a, b in zip(ref, eng.admit_logits)),
+                  f"admission ({label}): logits differ between eager and captured runs")
+        st = runs[1][0].stats
+        buckets = sorted(runs[1][0]._prefill_shapes)
+        check(st.admit_replays > 0 and st.prefill_compiles == len(buckets) == 2,
+              f"admission ({label}): {st.admit_replays} replays, prefill_compiles "
+              f"{st.prefill_compiles}, buckets {buckets}")
+        log = runs[1][0].capture_log
+        print(f"admission phase ({label}; {smi}): prompts {list(ADMIT_LENS)} (buckets "
+              f"{buckets}) admitted twice each; ms per admission in turns (eager, captured, "
+              f"captured, eager): " + " | ".join(", ".join(f"{t:.1f}" for t in ms)
+                                                 for _, ms in runs)
+              + f"; prefill_compiles {st.prefill_compiles}; captures {st.admit_captures}, "
+              f"replays {st.admit_replays}; capture + instantiation ms "
+              + ", ".join(f"{c:.1f}" for _, c, _ in log)
+              + f"; reserved memory grown by the captures {sum(b for *_, b in log) / 2**20:.0f} "
+              f"MiB; logits of every admission equal across the four runs", flush=True)
+        out[label] = runs[1][1]
+        if label == "paged bf16":
+            gaps = []
+            for p, bucketed in zip(prompts, ref):
+                exact = prefill(params, cfg, torch.as_tensor(p.astype(np.int64)[None]).cuda(),
+                                cache_len=len(p))[0]
+                gaps.append(((bucketed - exact).abs().max().item(),
+                             int(bucketed.argmax()) == int(exact.argmax())))
+            print("admission phase: first-token logits at the bucket against the exact "
+                  "length, max |difference| (argmax equal) per prompt: "
+                  + ", ".join(f"{d:.4f} ({'yes' if same else 'no'})" for d, same in gaps),
+                  flush=True)
+        del runs, eng
+        torch.cuda.empty_cache()
+    return out
 
 
 # ------------------------------------------------------- dense-cache engine
@@ -2562,7 +3100,8 @@ def main() -> int:
               "checkout of the repository", file=sys.stderr)
         return 2
 
-    if sys.argv[1:2] == ["--captured-step"]:
+    alone = {"--captured-step", "--chunk-step", "--spec-step", "--admission-step"}
+    if sys.argv[1:2] and sys.argv[1] in alone:
         torch.backends.cuda.matmul.allow_tf32 = False
         sm_count = torch.cuda.get_device_properties(0).multi_processor_count
         smi = nvidia_smi_line()
@@ -2571,7 +3110,15 @@ def main() -> int:
         gen = torch.Generator(device="cuda")
         gen.manual_seed(0)
         params = init_params(cfg, gen, device="cuda", dtype=torch.bfloat16)
-        captured_step_phase(torch, cfg, params, sm_count, 16, smi)
+        if sys.argv[1] == "--captured-step":
+            captured_step_phase(torch, cfg, params, sm_count, 16, smi)
+        elif sys.argv[1] == "--chunk-step":
+            ref = exact_prefill_reference(torch, cfg, params)
+            chunk_step_phase(torch, cfg, params, sm_count, 16, {None: ref, "int8": ref}, smi)
+        elif sys.argv[1] == "--spec-step":
+            spec_phase(torch, cfg, params, sm_count, smi)
+        else:
+            admission_phase(torch, cfg, params, sm_count, smi)
         clock("done")
         return 0
 
@@ -2700,14 +3247,9 @@ def main() -> int:
 
     clock("scheduler phases")
     # 7. scheduler phases: chunked prefill on the lean and fixed backends,
-    # against the blocking engine's first tokens (prefill at the exact length)
-    from repro_torch.models import prefill
-
+    # against the blocking engine's first tokens and prefill at the exact length
     blocking["first"] = [r.generated[0] for r in reqs]
-    blocking["rows"] = []
-    for p in blocking["prompts"]:
-        toks = torch.as_tensor(p.astype("int64")[None]).cuda()
-        blocking["rows"].append(prefill(params, cfg, toks, cache_len=4096)[0][0].float())
+    blocking["rows"] = exact_prefill_reference(torch, cfg, params)["rows"]
     # in turns (lean, fixed, fixed, lean), so that the backends' wall times
     # compare on one card without the first phase's warm-up in either
     sched_runs, walls = {}, []
@@ -2717,10 +3259,10 @@ def main() -> int:
         walls.append(run["wall"])
     print("scheduler phases, wall s in turns (lean, fixed, fixed, lean): "
           + ", ".join(f"{w:.2f}" for w in walls), flush=True)
-    syncs = {b: traced_scheduler_phase(torch, cfg, params, b, sm_count, new_tokens, blocking)
-             for b in ("lean", "fixed")}
-    print(f"scheduler phases: host syncs (aten::item) lean {syncs['lean']}, fixed "
-          f"{syncs['fixed']}", flush=True)
+    # the lean phase is traced in the chunk step phase (11), eager and captured
+    syncs = traced_scheduler_phase(torch, cfg, params, "fixed", sm_count, new_tokens,
+                                   blocking)["syncs"]
+    print(f"scheduler phases: host syncs (aten::item) fixed {syncs}", flush=True)
 
     clock("prefix serving")
     # 8. prefix-sharing serving: radix cache, copy-on-write, cascade (K5)
@@ -2747,20 +3289,33 @@ def main() -> int:
         walls.append(run["wall"])
     print("int8 scheduler phases, wall s in turns (lean, fixed, fixed, lean): "
           + ", ".join(f"{w:.2f}" for w in walls), flush=True)
-    syncs = {b: traced_scheduler_phase(torch, cfg, params, b, sm_count, new_tokens,
-                                       i8_blocking, kv_dtype="int8")
-             for b in ("lean", "fixed")}
-    print(f"int8 scheduler phases: host syncs (aten::item) lean {syncs['lean']}, fixed "
-          f"{syncs['fixed']}", flush=True)
+    syncs = traced_scheduler_phase(torch, cfg, params, "fixed", sm_count, new_tokens,
+                                   i8_blocking, kv_dtype="int8")["syncs"]
+    print(f"int8 scheduler phases: host syncs (aten::item) fixed {syncs}", flush=True)
     i8_prefix = prefix_serving_phase(torch, cfg, params, sm_count, new_tokens, kv_dtype="int8")
 
+    clock("chunk step phase")
+    # 11. the captured chunk step against the eager one: the lean Scheduler's
+    # wall and TTFT in turns, idle share and host launch calls traced
+    chunk_step_phase(torch, cfg, params, sm_count, new_tokens,
+                     {None: blocking, "int8": i8_blocking}, smi, full=False)
+
+    clock("spec phase")
+    # 12. speculative decode, its verify step captured (the fused K4)
+    k4_verify = spec_phase(torch, cfg, params, sm_count, smi)
+
+    clock("admission phase")
+    # 13. blocking admission at the bucket length, captured, against eager
+    admission_phase(torch, cfg, params, sm_count, smi)
+
     clock("captured step phase")
-    # 11. the captured decode step against the eager one: tick p50 in
-    # turns, traced ticks, bits on every configuration it captures
+    # 14. the captured decode step against the eager one: tick p50 in
+    # turns, traced ticks, bits on every configuration and step kind it
+    # captures
     captured_step_phase(torch, cfg, params, sm_count, new_tokens, smi)
 
     clock("summary")
-    # 12. summary: kernel times in bf16 at the main path's shapes; launches
+    # 15. summary: kernel times in bf16 at the main path's shapes; launches
     # from the run of the path each kernel serves
     k6 = k6res[(DECODE_SHAPES[0], "bfloat16")]
     kres[("flash_decode_partials", "bfloat16")] = k6
@@ -2808,6 +3363,8 @@ def main() -> int:
             "library_ms": r["library_ms"] if r["library_ms"] is not None
             and not name.startswith("lean_decode_partials") else None,
         })
+    print(f"fused K4 launches from the spec phase's verify steps (bf16 pages, oracle): "
+          f"{k4_verify}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

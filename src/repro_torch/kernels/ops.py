@@ -194,8 +194,8 @@ class DecodePlan:
         and ``tile``, no schedule)
       * ``'verify'``  -- ``spec_rows`` stacked query rows per sequence
         through a page table, against a chunk schedule with a runtime causal
-        offset: a chunked-prefill pack (speculative verify, the same
-        workload, is ROADMAP queue 1, item 10).
+        offset: a chunked-prefill pack, or a speculative verify block
+        (the engine's ``_spec_verify``, the same workload).
 
     ``fused`` (``'dense'``, ``'paged'``, ``'cascade'``, ``'verify'``) runs
     the kernel that merges its pieces in its own launch (K2, K5, the fused

@@ -10,4 +10,5 @@ from .transformer import (
     prefill,
     prefill_chunks,
     supports_chunked_prefill,
+    verify_step,
 )

@@ -12,8 +12,9 @@ A decode cache is a list with one ``{"k", "v"}`` dict per layer: dense
 per-slot rows ``(batch, Hkv, cache_len, hd)`` (:func:`init_cache`) or page
 pools ``(num_pages, Hkv, page_size, hd)`` (:func:`init_paged_cache`; with
 ``kv_cache_dtype="int8"`` int8 pools and ``"k_scale"``/``"v_scale"``
-``(num_pages, Hkv)`` float32 beside them); :func:`decode_step` and
-:func:`prefill_chunks` write new K/V into it in place.
+``(num_pages, Hkv)`` float32 beside them); :func:`decode_step`,
+:func:`prefill_chunks` and :func:`verify_step` write new K/V into it in
+place.
 """
 from __future__ import annotations
 
@@ -295,7 +296,7 @@ def _prefill_attn(cfg: ModelConfig, L: int, device: torch.device) -> Callable:
 
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, cache_len: int,
-            true_len: Optional[int] = None):
+            true_len=None, write_kv: Optional[Callable] = None):
     """Forward over the prompt ``tokens (B, L)``.
 
     Returns ``(last_logits (B, V) float32, cache, cur_len)`` where
@@ -304,6 +305,11 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, cache_len: int,
     bucketed prefill) ``tokens`` is a prompt padded to a bucket: the logits
     are those of position ``true_len - 1`` and ``cur_len`` is ``true_len``;
     the cache rows past it hold the pad tokens' K/V, as the reference's do.
+    ``true_len`` may be an int or a one-element tensor on the tokens'
+    device (a captured admission reads it at run time). With ``write_kv``
+    each layer's K/V ``(B, Hkv, L, hd)`` in bf16 go to ``write_kv(layer,
+    k, v)`` as soon as the layer has run, and ``cache`` is None: only one
+    layer's K/V live at a time, never ``cache_len`` rows of every layer.
 
     The attention is causal with ``q_offset`` 0: on CUDA tensors it runs the
     Hopper kernel K7 (:func:`flash_prefill`) at every prompt length -- the
@@ -321,21 +327,28 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, cache_len: int,
         raise ValueError(f"prompt of {L} tokens exceeds cache_len {cache_len}")
     attn = _prefill_attn(cfg, L, tokens.device)
     x = _embed(params, cfg, tokens)
-    cache = []
-    for lp in params["layers"]:
+    cache = None if write_kv is not None else []
+    for i, lp in enumerate(params["layers"]):
         h, (kh, vh) = attn_forward(
             lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps),
             n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
             rope_theta=cfg.rope_theta, attn=attn,
         )
         x = _ffn_part(lp, x + h, cfg)
+        kh, vh = kh.to(torch.bfloat16), vh.to(torch.bfloat16)
+        if write_kv is not None:
+            write_kv(i, kh, vh)
+            continue
         pad = (0, 0, 0, cache_len - L)
-        cache.append({
-            "k": torch.nn.functional.pad(kh.to(torch.bfloat16), pad),
-            "v": torch.nn.functional.pad(vh.to(torch.bfloat16), pad),
-        })
-    n = L if true_len is None else int(true_len)
-    x_last = rms_norm(x[:, n - 1], params["final_norm"], cfg.norm_eps)
+        cache.append({"k": torch.nn.functional.pad(kh, pad),
+                      "v": torch.nn.functional.pad(vh, pad)})
+    if torch.is_tensor(true_len):
+        n = true_len.reshape(1)
+        x_last = x.index_select(1, (n - 1).long())[:, 0]
+    else:
+        n = L if true_len is None else int(true_len)
+        x_last = x[:, n - 1]
+    x_last = rms_norm(x_last, params["final_norm"], cfg.norm_eps)
     return _unembed(params, cfg, x_last), cache, n
 
 
@@ -436,3 +449,27 @@ def prefill_chunks(
     x_last = x[torch.arange(N, device=x.device), idx]
     x_last = rms_norm(x_last, params["final_norm"], cfg.norm_eps)
     return _unembed(params, cfg, x_last), cache
+
+
+def verify_step(
+    params,
+    cfg: ModelConfig,
+    cache,
+    tokens: torch.Tensor,           # (N, R) [last committed token, k drafts]
+    offs: torch.Tensor,             # (N,) committed context per row
+    lens: torch.Tensor,             # (N,) valid tokens per row (0 when masked)
+    page_tbls: torch.Tensor,        # (N, W) page table rows
+    attn_fn: Optional[Callable] = None,
+):
+    """Speculative verify (``repro/models/transformer.py:760-792``): score
+    a block of ``R = k + 1`` stacked tokens per sequence in one forward and
+    return the logits of every position. Row ``i``'s K/V land at depth
+    ``offs[n] + i`` as a prefill chunk's do, and its logits predict the
+    token at depth ``offs[n] + i + 1``: :func:`prefill_chunks` without the
+    last-position gather. A rejected tail needs no undo -- the committed
+    length never advances over it. Returns ``(logits (N, R, V) float32,
+    cache)``."""
+    x = _chunk_forward(params, cfg, cache, tokens, offs, lens.to(tokens.device), page_tbls,
+                       attn_fn)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _unembed(params, cfg, x), cache

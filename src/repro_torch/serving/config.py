@@ -71,8 +71,9 @@ class SpecConfig:
     draft tokens per sequence (k+1 stacked query rows through the chunked
     prefill kernels). Requires a paged engine whose architecture supports
     chunked prefill. ``proposer`` is any
-    :class:`repro.serving.speculative.DraftProposer`; ``None`` selects the
-    in-tree prompt-lookup :class:`~repro.serving.speculative.NGramProposer`.
+    :class:`repro_torch.serving.speculative.DraftProposer`; ``None`` selects
+    the in-tree prompt-lookup
+    :class:`~repro_torch.serving.speculative.NGramProposer`.
     """
 
     enabled: bool = False

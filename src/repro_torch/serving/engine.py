@@ -59,26 +59,40 @@ reference's K6 widens everything inside), chunks widen the pools to bf16
 for K8; ``ref`` gathers through the dequantizing gather. int8 needs the
 paged pools: on a dense cache it is a ValueError, as in the reference.
 
+With ``SpecConfig(enabled=True, k=...)`` (paged engines that chunk-prefill)
+decode is speculative: a proposer
+(:mod:`repro_torch.serving.speculative`) drafts up to ``k`` tokens per
+slot, and one verify step scores ``[last token, drafts]`` as a prefill
+chunk of ``k + 1`` rows (the fused K4 on ``lean``, K8 on ``fixed``); the
+longest prefix of drafts the model agrees with is emitted, plus one token
+of its own, so the streams equal plain greedy decode. Slots without room
+for the block decode one token that tick. Rollback is the reference's:
+``ctx_lens`` advances by the tokens emitted, and the page-table tail past
+it is dead.
+
 Where the reference jits each step with the KV cache donated, the port
 updates the page pools and the dense rows in place (index assignment). On
-the card the fast-path decode step -- the counterpart of the reference's
-jitted kernel step -- runs as a captured CUDA graph, keyed as the reference
-keys its jit (backend, schedule, ``fused``, the fixed split, the cascade
-schedule, the pool's layout and dtype): a key's first tick runs eagerly
-(its warm-up: every schedule operand is uploaded then), its second captures
-the step and replays it, every later tick replays it. A tick copies what
-changes between ticks (tokens, lengths, page tables, a cascade's binding)
-into the graph's one input buffer, replays it and copies the logits out;
-the argmax and its copy to the host stay outside. A graph lives as long as
-its schedule stays in the :class:`ScheduleCache`. ``capture_decode = False``
-runs the eager step on the card (the captured step's oracle); CPU engines
-run it always. A capture or replay that fails raises. The chunk step,
-admission and the legacy step (``use_fast_path=False``) run eagerly.
-Blocking prefill runs at the exact prompt length on bf16 pools (the
-reference's bucketing only bounds XLA compiles, and the positions it pads
-are masked). int8 engines prefill at the reference's bucket length
-(:func:`bucket_length`): the pad tokens' K/V land in the tail of the last
-page, and an admitted page's scale is the ``amax`` of the whole page.
+the card every step the reference jits on the fast path runs as a captured
+CUDA graph, keyed as the reference keys its jit: the decode step (backend,
+schedule, ``fused``, the fixed split, the cascade schedule), the chunk step
+(backend, chunk schedule, pack width, chunk cap), the verify step (backend,
+verify schedule, rows) and blocking admission (bucket length), each also on
+the pool's layout and dtype. A key's first sighting runs eagerly (its
+warm-up: every schedule operand is uploaded then), its second captures the
+step and replays it, every later one replays it. A step copies what changes
+between calls (tokens, lengths, page tables, a cascade's binding, an
+admission's pages or slot) into the graph's one input buffer, replays it
+and copies the logits out; the argmax and its copy to the host stay
+outside. A graph lives as long as its schedule stays in the
+:class:`ScheduleCache`. ``capture_decode = False`` runs every step eagerly
+on the card (the captured steps' oracle); CPU engines run them eagerly
+always. A capture or replay that fails raises. The legacy step
+(``use_fast_path=False``) runs eagerly, as the reference does not jit it.
+Blocking prefill runs at the reference's bucket length
+(:func:`bucket_length`, ``stats.prefill_compiles`` counts the buckets):
+the pad tokens' K/V land in the tail of the last page (on an int8 pool
+they count in its scale) or of the dense row, masked by every read; each
+layer's K/V go into the pages or the row as soon as the layer has run.
 Latency observations (TTFT, TPOT, queue wait) are plain lists of seconds on
 :class:`EngineStats`, filled by the scheduler; the reference's histograms
 come with its metrics registry (ROADMAP queue 1, item 13).
@@ -89,6 +103,8 @@ their ROADMAP item.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import gc
 import math
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
@@ -108,6 +124,7 @@ from repro_torch.core.leantile import (
     fixed_split_factor,
     make_chunk_schedule,
     make_schedule,
+    make_spec_schedule,
 )
 from repro_torch.core.merge import MergeGrid, merge_grid_arrays
 from repro_torch.device import DeviceLike, resolve_device
@@ -137,10 +154,12 @@ from repro_torch.models.transformer import (
     prefill,
     prefill_chunks,
     supports_chunked_prefill,
+    verify_step,
 )
 from repro_torch.serving.config import EngineConfig
 from repro_torch.serving.kvpool import KVLayout, KVPagePool
 from repro_torch.serving.prefix_cache import RadixPrefixCache, lcp_group_passes
+from repro_torch.serving.speculative import NGramProposer
 
 
 class PoisonError(RuntimeError):
@@ -198,20 +217,27 @@ _STAT_COUNTERS = (
 )
 
 
+# the steps run through _run_step: the fast-path decode step (the cascade's
+# too), the chunk step, the speculative verify step, blocking admission
+STEP_KINDS = ("decode", "chunk", "verify", "admit")
+
+
 class EngineStats:
     """Engine telemetry: the reference's counters as plain ints, the
     per-tick schedule and token logs, the last pool/cache snapshots, the
     last cascade tick's grouping, and the latency observations in seconds
     (time to first token, time per output token, queue wait), which the
-    scheduler appends. ``decode_captures`` counts the decode steps captured
-    as CUDA graphs (the reference counts retraces of its jitted step),
-    ``decode_replays`` the ticks that replayed one."""
+    scheduler appends. ``<kind>_captures`` counts the steps of a kind
+    (``decode``, ``chunk``, ``verify``, ``admit``) captured as CUDA graphs
+    (the reference counts retraces of its jitted steps), ``<kind>_replays``
+    the steps that replayed one."""
 
     def __init__(self):
         for name in _STAT_COUNTERS:
             setattr(self, name, 0)
-        self.decode_captures = 0
-        self.decode_replays = 0
+        for kind in STEP_KINDS:
+            setattr(self, f"{kind}_captures", 0)
+            setattr(self, f"{kind}_replays", 0)
         self.schedules: List[dict] = []
         self.schedule_cache: dict = {}
         self.kv_pool: dict = {}
@@ -225,16 +251,19 @@ class EngineStats:
 
 
 class _Step(NamedTuple):
-    """One fast-path decode step, split as a captured graph needs it:
-    ``host`` holds the int32 inputs that change between ticks, ``body``
-    computes the logits ``(B, V)`` from them on the device (a dict of the
-    same names), ``key`` is what a graph of the step is keyed on, and
-    ``sched`` the schedule it runs (kept alive by the graph)."""
+    """One step, split as a captured graph needs it: ``host`` holds the
+    int32 inputs that change between calls, ``body`` computes the logits
+    from them on the device (a dict of the same names) and updates the
+    cache in place, ``key`` is what a graph of the step is keyed on (its
+    second entry names the kind, or the backend of a decode step), ``sched``
+    the schedule it runs (kept alive by the graph, None for none), ``kind``
+    one of :data:`STEP_KINDS`."""
 
     key: tuple
     host: Dict[str, np.ndarray]
     body: Callable[[Dict[str, torch.Tensor]], torch.Tensor]
     sched: object
+    kind: str = "decode"
 
 
 _ALIGN = 16     # int32 elements: each packed input starts 64-byte aligned
@@ -259,12 +288,13 @@ def _unpack(flat: torch.Tensor, layout: tuple) -> Dict[str, torch.Tensor]:
 
 @dataclass
 class _StepGraph:
-    """A captured decode step: its graph, its input buffer on the device
-    with a pinned host buffer to fill it from, its output, the launch
-    counts one replay adds, and what it captured (schedule, cache tensors,
+    """A captured step: its graph, its input buffer on the device with a
+    pinned host buffer to fill it from, its output, the launch counts one
+    replay adds, and what it captured (schedule, cache tensors,
     parameters), which it keeps alive."""
 
     graph: "torch.cuda.CUDAGraph"
+    kind: str
     inputs: torch.Tensor
     staging: torch.Tensor
     copied: "torch.cuda.Event"
@@ -276,14 +306,16 @@ class _StepGraph:
     cache_ptrs: tuple
 
 
+def _bump(stats: EngineStats, name: str) -> None:
+    setattr(stats, name, getattr(stats, name) + 1)
+
+
 def _cache_ptrs(cache) -> tuple:
     return tuple(t.data_ptr() for lc in cache for t in lc.values())
 
 
 # EngineConfig parts this slice does not run, with their ROADMAP item
 def _unported(cfg: ModelConfig, config: EngineConfig) -> Optional[str]:
-    if config.spec.enabled:
-        return "speculative decode (ROADMAP queue 1, item 10)"
     if (config.paged.kv_dtype or cfg.kv_cache_dtype) not in ("bf16", "int8"):
         return "f8, f16 and f32 KV pools (ROADMAP queue 1, item 18)"
     if config.guards is not None or config.faults is not None:
@@ -411,11 +443,13 @@ class DecodeEngine:
         self.queue: List[Request] = []
         self.next_tokens = np.zeros((self.max_batch, 1), dtype=np.int32)
         self.sched_cache = ScheduleCache(max_entries=config.schedule_cache_entries)
-        # the captured fast-path decode steps: key -> (schedule, graph, or
-        # None while the key has only had its eager warm-up tick), dropped
-        # with their schedule; capture_decode = False runs the eager step
+        # the captured steps (decode, chunk, verify, admission): key ->
+        # (schedule, graph, or None while the key has only had its eager
+        # warm-up), dropped with their schedule; capture_decode = False runs
+        # every step eagerly
         self.capture_decode = self.device.type == "cuda"
         self._graphs: Dict[tuple, Tuple[object, Optional[_StepGraph]]] = {}
+        self._prefill_shapes: set = set()   # distinct admission bucket lengths
         self._graph_pool = None
         self._capture_stream = None
         self.sched_cache.on_evict = self._drop_graphs
@@ -423,9 +457,28 @@ class DecodeEngine:
         self.stats = EngineStats()
         self.last_logits: Optional[torch.Tensor] = None   # last decode pass (B, V)
         self.last_prefill_logits: Optional[torch.Tensor] = None   # last chunk step (N, V)
+        self.last_verify_logits: Optional[torch.Tensor] = None    # last verify step (B, k+1, V)
         # a scheduler registers here to take preempted requests into its own
         # queue; without one they go back to the engine's queue
         self.preempt_sink: Optional[Callable[[Request], None]] = None
+
+        # speculative (draft-verify) decode: the verify step is a chunk step
+        # whose chunk is [last token, k drafts], so it needs the chunked
+        # prefill machinery (a paged pool, an all-'attn' architecture)
+        spec = config.spec
+        self.spec_k = int(spec.k) if spec.enabled else 0
+        self.proposer = spec.proposer
+        if spec.enabled:
+            if spec.k < 1:
+                raise ValueError(f"SpecConfig.k must be >= 1, got {spec.k}")
+            if not self.supports_chunked_prefill():
+                raise ValueError(
+                    "speculative decode runs the multi-row verify step through the "
+                    "chunked-prefill kernels: it requires paged=True and an all-'attn' "
+                    "architecture (see supports_chunked_prefill)"
+                )
+            if self.proposer is None:
+                self.proposer = NGramProposer()
 
     # ------------------------------------------------------------- schedule
     def _tick_schedule(self, ctx_np) -> LeanSchedule:
@@ -467,51 +520,87 @@ class DecodeEngine:
                 "num_pages or shorten the prompt"
             )
 
-    def _run_prompt_prefill(self, prompt: np.ndarray):
-        """Whole-prompt prefill -> (last-position logits (1, V), per-layer
-        K/V of the one slot): at the exact prompt length, or on int8 pools
-        padded with token 0 to the reference's bucket (the pad positions'
-        K/V count in the last page's scale)."""
+    def _run_prompt_prefill(self, prompt: np.ndarray, slot: int,
+                            pages: Optional[List[int]]) -> torch.Tensor:
+        """Whole-prompt prefill into ``slot``'s dense row or its ``pages``,
+        through :meth:`_run_step` (captured on the card): the prompt padded
+        with token 0 to the reference's bucket (:func:`bucket_length`, as
+        ``repro/serving/engine.py:1057-1072``), its true length read on the
+        device. Returns the last prompt position's logits ``(1, V)``."""
+        return self._run_step(self._admit_step(prompt, slot, pages))
+
+    def _admit_step(self, prompt: np.ndarray, slot: int, pages: Optional[List[int]]) -> _Step:
+        """Blocking admission as one step: prefill at the bucket length,
+        each layer's K/V written as soon as the layer has run -- into the
+        slot's pages (:meth:`_write_pages`, the reference's
+        ``_write_slot_paged``) or its dense row (:meth:`_write_row`, its
+        ``_write_slot``). Inputs: the padded tokens, the true length, and
+        the pages (as many as the bucket covers, the tail 0) or the slot.
+        Keyed on the layout and the bucket length."""
         plen = len(prompt)
-        toks = np.zeros((1, bucket_length(plen, self.tile, max_len=self.cache_len)
-                         if self.quant else plen), dtype=np.int64)
+        L = bucket_length(plen, self.tile, max_len=self.cache_len)
+        self._prefill_shapes.add(L)
+        self.stats.prefill_compiles = len(self._prefill_shapes)
+        toks = np.zeros((1, L), dtype=np.int32)
         toks[0, :plen] = np.asarray(prompt)
-        logits, cache1, _ = prefill(self.params, self.cfg, torch.as_tensor(toks).to(self.device),
-                                    cache_len=self.cache_len, true_len=plen)
-        return logits, cache1
+        host = {"tokens": toks, "true_len": np.asarray([plen], dtype=np.int32)}
+        if self.paged:
+            tbl = np.zeros(-(-L // self.tile), dtype=np.int32)
+            tbl[:len(pages)] = pages
+            host["pages"] = tbl
+        else:
+            host["slot"] = np.asarray([slot], dtype=np.int32)
 
-    def _write_slot(self, cache1, slot: int):
-        """Dense admission: copy row 0 of the prefill cache (padded to
-        ``cache_len``) into row ``slot``, in place -- the reference's
+        def body(b):
+            if self.paged:
+                write = functools.partial(self._write_pages, b["pages"].long())
+            else:
+                write = functools.partial(self._write_row, b["slot"].long())
+            logits, _, _ = prefill(self.params, self.cfg, b["tokens"], cache_len=L,
+                                   true_len=b["true_len"], write_kv=write)
+            return logits
+
+        return _Step((self._layout_key(), "admit", L), host, body, None, kind="admit")
+
+    def _write_row(self, slot: torch.Tensor, layer: int, k: torch.Tensor, v: torch.Tensor):
+        """Dense admission of one layer: its K/V ``(1, H, L, hd)`` padded
+        with zeros to ``cache_len`` and copied into row ``slot`` (a
+        one-element device tensor), in place -- the reference's
         ``_write_slot`` (``repro/serving/engine.py:246-260``)."""
-        for lc, lc1 in zip(self.cache, cache1):
-            for name in ("k", "v"):
-                lc[name][slot].copy_(lc1[name][0])
+        lc = self.cache[layer]
+        for name, src in (("k", k), ("v", v)):
+            row = torch.nn.functional.pad(src, (0, 0, 0, self.cache_len - src.shape[2]))
+            lc[name].index_copy_(0, slot, row.to(lc[name].dtype))
 
-    def _write_slot_paged(self, cache1, pages: List[int]):
-        """Copy-on-admit: scatter the fresh prefill K/V into the slot's
-        pages, in place. Whole pages are written (tail padded), so stale
-        data in recycled pages is overwritten. int8 pools quantize each
-        page and *set* its scale to the fresh content's ``amax / 127``
-        (reference ``_pages_admit_write_quant``): no old content survives,
-        so nothing is requantized."""
-        n = len(pages)
+    def _write_pages(self, pages: torch.Tensor, layer: int, k: torch.Tensor, v: torch.Tensor):
+        """Copy-on-admit of one layer: its K/V ``(1, H, L, hd)`` scattered
+        into ``pages`` in place, whole pages (tail padded), so stale data in
+        recycled pages is overwritten. Entries 0 of ``pages`` (the bucket's
+        pages past the prompt's) write nothing: each rewrites the null
+        page's own content. int8 pools quantize each page and *set* its
+        scale to the fresh content's ``amax / 127`` (reference
+        ``_pages_admit_write_quant``): no old content survives, so nothing
+        is requantized."""
+        n = pages.shape[0]
         need = n * self.tile
-        idx = torch.as_tensor(pages, dtype=torch.long, device=self.device)
+        live = pages > 0
         per_head = self.cfg.kv_scale_granularity == "page_head"
-        for lc, lc1 in zip(self.cache, cache1):
-            for name in ("k", "v"):
-                src = lc1[name][0]                         # (H, cache_len, hd)
-                H, L, hd = src.shape
-                if need > L:
-                    src = torch.nn.functional.pad(src, (0, 0, 0, need - L))
-                chunks = src[:, :need].reshape(H, n, self.tile, hd).movedim(1, 0)
-                if self.quant:
-                    q, sc = quantize_kv_blocks(chunks, per_head=per_head)
-                    lc[name][idx] = q
-                    lc[f"{name}_scale"][idx] = sc
-                else:
-                    lc[name][idx] = chunks.to(lc[name].dtype)
+        lc = self.cache[layer]
+        for name, src in (("k", k), ("v", v)):
+            src = src[0]                                   # (H, L, hd)
+            H, L, hd = src.shape
+            if need > L:
+                src = torch.nn.functional.pad(src, (0, 0, 0, need - L))
+            chunks = src[:, :need].reshape(H, n, self.tile, hd).movedim(1, 0)
+            pool = lc[name]
+            if self.quant:
+                q, sc = quantize_kv_blocks(chunks, per_head=per_head)
+                scales = lc[f"{name}_scale"]
+                pool[pages] = torch.where(live[:, None, None, None], q, pool[pages])
+                scales[pages] = torch.where(live[:, None], sc, scales[pages])
+            else:
+                pool[pages] = torch.where(live[:, None, None, None], chunks.to(pool.dtype),
+                                          pool[pages])
 
     def admit_blocking(self, req: Request, slot: int) -> bool:
         """Whole-prompt prefill into ``slot``, its cache row or pages
@@ -528,11 +617,7 @@ class DecodeEngine:
                 return False            # pool exhausted; retry next tick
             self.page_tbl[slot, :n] = pages
         self.slot_req[slot] = req
-        logits, cache1 = self._run_prompt_prefill(req.prompt)
-        if self.paged:
-            self._write_slot_paged(cache1, pages)
-        else:
-            self._write_slot(cache1, slot)
+        logits = self._run_prompt_prefill(req.prompt, slot, pages)
         self.ctx_lens[slot] = plen
         nxt = int(logits[0].argmax())
         req.generated.append(nxt)
@@ -689,7 +774,7 @@ class DecodeEngine:
         if len(work) > pack_width:
             raise ValueError(f"{len(work)} chunks > pack width {pack_width}")
         N, C = pack_width, chunk_cap
-        toks = np.zeros((N, C), dtype=np.int64)
+        toks = np.zeros((N, C), dtype=np.int32)
         offs = np.zeros(N, dtype=np.int32)
         lens = np.zeros(N, dtype=np.int32)
         tbls = np.zeros((N, self.pages_per_slot), dtype=np.int32)
@@ -711,14 +796,8 @@ class DecodeEngine:
                 visible, self.cfg.n_kv_heads, self.tile, self.num_workers,
                 max_len=self.pages_per_slot * self.tile, cache=self.sched_cache,
             )
-        dev = self.device
-        offs_t = torch.as_tensor(offs).to(dev)
-        lens_t = torch.as_tensor(lens).to(dev)
-        tbls_t = torch.as_tensor(tbls).to(dev)
-        logits, self.cache = prefill_chunks(
-            self.params, self.cfg, self.cache, torch.as_tensor(toks).to(dev), offs_t, lens_t,
-            tbls_t, attn_fn=self._chunk_attn_fn(offs_t, lens_t, tbls_t, sched),
-        )
+        logits = self._run_step(self._chunk_step("chunk", prefill_chunks, sched,
+                                                 toks, offs, lens, tbls))
         self.last_prefill_logits = logits
         next_tok = logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
         n_tokens = int(lens.sum())
@@ -726,6 +805,28 @@ class DecodeEngine:
         self.stats.prefill_tokens += n_tokens
         self._log(self.stats.tick_prefill_tokens, n_tokens)
         return next_tok
+
+    def _chunk_step(self, kind: str, forward: Callable, sched: Optional[LeanSchedule],
+                    toks: np.ndarray, offs: np.ndarray, lens: np.ndarray,
+                    tbls: np.ndarray) -> _Step:
+        """The chunk step (``forward`` = :func:`prefill_chunks`, the
+        reference's ``_chunk_prefill_step``) or the verify step
+        (:func:`verify_step`, its ``_spec_verify_step``) over rows of
+        ``toks (N, C)`` at depths ``offs`` with ``lens`` valid tokens
+        through the table rows ``tbls``. The body builds the backend's
+        chunk attention once for all layers (:meth:`_chunk_attn_fn`).
+        Keyed on the layout, the kind, the backend, the schedule (None off
+        ``lean``) and the pack shape ``(N, C)``."""
+
+        def body(b):
+            attn_fn = self._chunk_attn_fn(b["offs"], b["lens"], b["tbls"], sched)
+            logits, _ = forward(self.params, self.cfg, self.cache, b["toks"], b["offs"],
+                                b["lens"], b["tbls"], attn_fn=attn_fn)
+            return logits
+
+        key = (self._layout_key(), kind, self.attn_backend, sched) + toks.shape
+        host = {"toks": toks, "offs": offs, "lens": lens, "tbls": tbls}
+        return _Step(key, host, body, sched, kind=kind)
 
     def _chunk_attn_fn(self, offs: torch.Tensor, lens: torch.Tensor, tbls: torch.Tensor,
                        sched: Optional[LeanSchedule]) -> Optional[Callable]:
@@ -757,10 +858,100 @@ class DecodeEngine:
         return None
 
     def decode_token_width(self) -> int:
-        """Most tokens one decode tick emits per slot: 1 (the reference's
-        k+1 with speculative decode is ROADMAP queue 1, item 10). Tick
-        composers charge it against their token budget."""
-        return 1
+        """Most tokens one decode tick emits per slot: ``k + 1`` with
+        speculative decode, else 1. Tick composers charge it against their
+        token budget."""
+        return self.spec_k + 1 if self.spec_k else 1
+
+    # ---------------------------------------------------------- speculative
+    def _spec_select(self, active: List[int]) -> List[int]:
+        """The slots running a verify step this tick: those whose context
+        leaves room for the whole ``k + 1`` block and whose pages (grown,
+        and copied where shared, as a prefill chunk's) cover its writes.
+        The others decode one token this tick."""
+        R = self.spec_k + 1
+        cap = min(self.cache_len, self.pages_per_slot * self.tile)
+        out = []
+        for s in active:
+            ctx = int(self.ctx_lens[s])
+            if ctx + R > cap:
+                continue
+            if not self.ensure_chunk_pages(s, ctx + R, write_from=ctx):
+                continue            # pool pressure: plain decode this tick
+            out.append(s)
+        return out
+
+    def _spec_verify(self, slots: List[int]):
+        """The verify step for ``slots`` (``repro/serving/engine.py:
+        1905-1965``): one chunk-shaped forward whose chunk per slot is
+        ``[last emitted token, drafts...]``, written at positions ``ctx ..
+        ctx + len - 1``. Other slots are masked chunk-style (offs and lens
+        0, table rows null), so their K/V are neither read nor written.
+        Runs through :meth:`_run_step` (captured on the card). Returns
+        ``(slots, rows (B, k+1) greedy tokens, drafts)``: rejected drafts
+        need no undo, their K/V lie past the committed ``ctx_lens``."""
+        R = self.spec_k + 1
+        N = self.max_batch
+        toks = np.zeros((N, R), dtype=np.int32)
+        offs = np.zeros(N, dtype=np.int32)
+        lens = np.zeros(N, dtype=np.int32)
+        drafts: Dict[int, List[int]] = {}
+        for s in slots:
+            d = [int(t) for t in self.proposer.propose(self.slot_req[s], self.spec_k)]
+            d = d[: self.spec_k]
+            drafts[s] = d
+            toks[s, 0] = self.next_tokens[s, 0]
+            toks[s, 1:1 + len(d)] = d
+            offs[s] = self.ctx_lens[s]
+            lens[s] = 1 + len(d)
+        tbls = self.page_tbl.copy()
+        for s in range(N):
+            if s not in drafts:
+                tbls[s, :] = 0
+        sched = None
+        if self.attn_backend == "lean":
+            spec_ctx = [int(self.ctx_lens[s]) if s in drafts else 0 for s in range(N)]
+            sched = make_spec_schedule(
+                spec_ctx, R, self.cfg.n_kv_heads, self.tile, self.num_workers,
+                max_len=self.pages_per_slot * self.tile, cache=self.sched_cache,
+            )
+        logits = self._run_step(self._chunk_step("verify", verify_step, sched,
+                                                 toks, offs, lens, tbls))
+        self.last_verify_logits = logits
+        rows = logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
+        return slots, rows, drafts
+
+    def _emit_spec_tokens(self, spec, out: Dict[int, List[int]], cap: int) -> int:
+        """Greedy acceptance of this tick's verify step: draft ``i + 1``
+        stands iff row ``i``'s argmax equals it and every earlier draft
+        stood, so the stream is plain greedy decode's. A slot emits its
+        accepted drafts plus the first disagreeing row's token; ``ctx_lens``
+        advances by that count, and the page-table tail past it is dead.
+        Returns the tokens emitted."""
+        slots, rows, drafts = spec
+        n_emitted = 0
+        for s in slots:
+            req = self.slot_req[s]
+            d = drafts[s]
+            a = 0
+            while a < len(d) and int(rows[s, a]) == d[a]:
+                a += 1
+            ctx = int(self.ctx_lens[s])
+            rem = req.max_new_tokens - len(req.generated)
+            e = max(min(a + 1, rem, cap - 1 - ctx), 1)
+            emitted = [int(rows[s, i]) for i in range(e)]
+            req.generated.extend(emitted)
+            self.next_tokens[s, 0] = emitted[-1]
+            self.ctx_lens[s] += e
+            out[req.uid] = emitted
+            n_emitted += e
+            self.stats.tokens_generated += e
+            self.stats.spec_draft_tokens += len(d)
+            self.stats.spec_accepted_tokens += a
+            if req.done or self.ctx_lens[s] >= cap - 1:
+                self.release_slot(s)
+        self.stats.spec_ticks += 1
+        return n_emitted
 
     # ------------------------------------------------------------ paged mgmt
     def _ensure_decode_pages(self, active: List[int]) -> List[int]:
@@ -939,35 +1130,44 @@ class DecodeEngine:
         return self.decode_tick()
 
     def decode_tick(self, exclude=None) -> Dict[int, int]:
-        """One decode step over the active slots. Returns {uid: new_token}.
+        """One decode step over the active slots. Returns {uid: new_token}
+        -- with speculative decode, {uid: [tokens...]} (1 to k+1 tokens per
+        slot).
 
         ``exclude`` masks slots out of this tick: the scheduler passes its
         PREFILLING slots, whose pages hold a partial prompt that the step
         must neither read (their context is 0 for this call, so their
         segment is masked) nor write (their table rows are null for this
         call, so the token write lands in the null page). Their real tables
-        and progress stay as they are."""
+        and progress stay as they are. Slots running a verify step are
+        masked out of the single-token step the same way."""
         exclude = set(exclude) if exclude else set()
         active = [s for s in range(self.max_batch) if self.slot_req[s] and s not in exclude]
         if self.paged:
             active = self._ensure_decode_pages(active)
         if not active:
             return {}
-        ctx_np = self.ctx_lens.copy()
-        ptbl_np = self.page_tbl
-        if exclude:
-            if not self.use_fast_path:
-                raise RuntimeError("slot masking requires the fast path")
-            for s in exclude:
-                ctx_np[s] = 0
-            if self.paged:
-                ptbl_np = self.page_tbl.copy()
-                for s in exclude:
-                    ptbl_np[s, :] = 0
-        logits = self._decode_pass_main(active, ctx_np, ptbl_np)
-        self.last_logits = logits
-        next_all = logits.argmax(dim=-1).cpu().numpy()
-        return self._emit_tokens(active, next_all)
+        spec_slots = self._spec_select(active) if self.spec_k else []
+        norm = [s for s in active if s not in spec_slots]
+        next_all = None
+        if norm:
+            masked = exclude | set(spec_slots)
+            ctx_np = self.ctx_lens.copy()
+            ptbl_np = self.page_tbl
+            if masked:
+                if not self.use_fast_path:
+                    raise RuntimeError("slot masking requires the fast path")
+                for s in masked:
+                    ctx_np[s] = 0
+                if self.paged:
+                    ptbl_np = self.page_tbl.copy()
+                    for s in masked:
+                        ptbl_np[s, :] = 0
+            logits = self._decode_pass_main(norm, ctx_np, ptbl_np)
+            self.last_logits = logits
+            next_all = logits.argmax(dim=-1).cpu().numpy()
+        spec = self._spec_verify(spec_slots) if spec_slots else None
+        return self._emit_tokens(norm, next_all, spec)
 
     def _decode_pass_main(self, active: List[int], ctx_np, ptbl_np) -> torch.Tensor:
         """The decode step over the whole batch: the cascade when ``active``
@@ -1178,10 +1378,10 @@ class DecodeEngine:
 
     # ------------------------------------------------------ captured steps
     def _run_step(self, step: _Step) -> torch.Tensor:
-        """Run one fast-path step: eagerly on a CPU engine, with
-        ``capture_decode`` off, and on a key's first tick (its warm-up);
-        from its second tick on as a CUDA graph replay, captured on that
-        tick. Returns the logits (B, V)."""
+        """Run one step (decode, chunk, verify or admission): eagerly on a
+        CPU engine, with ``capture_decode`` off, and on a key's first
+        sighting (its warm-up); from its second on as a CUDA graph replay,
+        captured on that sighting. Returns the step's logits."""
         flat, layout = _pack({k: np.asarray(a, dtype=np.int32) for k, a in step.host.items()})
         key = (step.key, layout)
         self.last_step_key = key
@@ -1206,12 +1406,18 @@ class DecodeEngine:
     def _capture(self, step: _Step, flat: np.ndarray, layout: tuple) -> _StepGraph:
         """Capture ``step.body`` on the engine's capture stream into the
         graphs' shared memory pool (each replay's logits are copied out
-        before the next replay), under the default (global) capture error
+        before the next replay; the steps run one after another on one
+        stream, so one graph's scratch may reuse another's), under the
+        default (global) capture error
         mode. ``torch.cuda.graph`` would also empty the allocator's cache
         at every capture, which the eager steps around it then pay for;
-        this is its capture without that. Nothing runs while it is
-        captured; the launch counters' change is taken back out and kept to
-        add on each replay. A failure raises."""
+        this is its capture without that. Python's cyclic collector is
+        held off while the step is captured: a graph it frees then (an
+        engine dropped earlier, which its schedule cache's eviction hook
+        keeps in a reference cycle) destroys a CUDA graph, which the
+        global capture mode forbids, and the capture is invalidated.
+        Nothing runs while it is captured; the launch counters' change is
+        taken back out and kept to add on each replay. A failure raises."""
         dev = self.device
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
@@ -1221,6 +1427,8 @@ class DecodeEngine:
         graph = torch.cuda.CUDAGraph()
         before = launches.snapshot()
         torch.cuda.synchronize(dev)
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.stream(self._capture_stream):
                 graph.capture_begin(pool=self._graph_pool)
@@ -1234,11 +1442,13 @@ class DecodeEngine:
                     raise
                 graph.capture_end()
         finally:
+            if collecting:
+                gc.enable()
             after = launches.snapshot()
             launches.restore(before)
-        self.stats.decode_captures += 1
+        _bump(self.stats, f"{step.kind}_captures")
         return _StepGraph(
-            graph=graph, inputs=inputs,
+            graph=graph, kind=step.kind, inputs=inputs,
             staging=torch.empty(flat.shape, dtype=torch.int32, pin_memory=True),
             copied=torch.cuda.Event(), logits=logits,
             launches=launches.delta(after, before), sched=step.sched, params=self.params,
@@ -1246,7 +1456,7 @@ class DecodeEngine:
         )
 
     def _replay(self, rec: _StepGraph, flat: np.ndarray) -> torch.Tensor:
-        """One tick of a captured step: the inputs go through the pinned
+        """One call of a captured step: the inputs go through the pinned
         buffer into the graph's in one asynchronous copy, the graph
         replays, the logits are copied out. No host sync."""
         if not rec.copied.query():
@@ -1256,7 +1466,7 @@ class DecodeEngine:
         rec.copied.record()
         rec.graph.replay()
         launches.add(rec.launches)
-        self.stats.decode_replays += 1
+        _bump(self.stats, f"{rec.kind}_replays")
         return rec.logits.clone()
 
     def _drop_graphs(self, sched) -> None:
@@ -1269,7 +1479,10 @@ class DecodeEngine:
         if all(g is None for _, g in self._graphs.values()):
             self._graph_pool = None
 
-    def _emit_tokens(self, active: List[int], next_all) -> Dict[int, int]:
+    def _emit_tokens(self, active: List[int], next_all, spec=None) -> Dict[int, int]:
+        """Emit the single-token step's tokens for ``active`` and, when a
+        verify step ran, its accepted ones (:meth:`_emit_spec_tokens`; then
+        every value is a list)."""
         # context cap: the cache row and, paged, the whole pool -- a context
         # past usable_pages * tile could never be re-admitted after preemption
         cap = self.cache_len
@@ -1282,12 +1495,15 @@ class DecodeEngine:
             req.generated.append(nxt)
             self.next_tokens[s, 0] = nxt
             self.ctx_lens[s] += 1
-            out[req.uid] = nxt
+            out[req.uid] = [nxt] if self.spec_k else nxt
             self.stats.tokens_generated += 1
             if req.done or self.ctx_lens[s] >= cap - 1:
                 self.release_slot(s)
+        n_emitted = len(active)
+        if spec is not None:
+            n_emitted += self._emit_spec_tokens(spec, out, cap)
         self.stats.ticks += 1
-        self._log(self.stats.tick_decode_tokens, len(out))
+        self._log(self.stats.tick_decode_tokens, n_emitted)
         self.stats.schedule_cache = self.sched_cache.stats.as_dict()
         if self.paged:
             self.stats.kv_pool = self.pool.as_dict()

@@ -531,8 +531,9 @@ class Scheduler:
     # ------------------------------------------------------------------ step
     def step(self) -> Dict[int, int]:
         """One scheduler tick: admit, pack prefill chunks, decode. Returns
-        {uid: token} for decode-produced tokens (first tokens stream through
-        the callbacks and ``handle.generated``)."""
+        {uid: token} for decode-produced tokens -- token lists with
+        speculative decode on (first tokens stream through the callbacks
+        and ``handle.generated``)."""
         self.stats.steps += 1
         self.stats.log_depth(len(self.queue))
         self._check_deadlines()
@@ -546,7 +547,11 @@ class Scheduler:
             # the engine frees the slot when the budget is spent or the
             # context cap is hit: either way the stream owes a done=True
             finished = self.engine.slot_req[sr.slot] is not sr.req
-            self._emit_decode_token(sr, tok, done=finished)
+            # a speculative tick emits a list of tokens per slot: streamed
+            # one at a time, done only on the last
+            toks = tok if isinstance(tok, list) else [tok]
+            for j, t in enumerate(toks):
+                self._emit_decode_token(sr, t, done=finished and j == len(toks) - 1)
             if finished:
                 self._finish(sr)
         return out

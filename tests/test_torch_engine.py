@@ -21,7 +21,7 @@ from repro.serving.config import EngineConfig as JConfig, PagedConfig as JPaged 
 from repro.serving.engine import DecodeEngine as JEngine, Request as JRequest  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.models import params_from_numpy  # noqa: E402
-from repro_torch.serving.config import EngineConfig, ObsConfig, PagedConfig, SpecConfig  # noqa: E402
+from repro_torch.serving.config import EngineConfig, ObsConfig, PagedConfig  # noqa: E402
 from repro_torch.serving.engine import DecodeEngine, PoisonError, Request  # noqa: E402
 
 NEAR_TIE = 2**-7
@@ -166,10 +166,12 @@ def test_unservable_request_is_refused(model):
 # use_fast_path=False, once cases 1 and 3 (tests/test_torch_dense_engine.py;
 # with a paged engine use_fast_path=False is now the reference's
 # ValueError); those cases now hold guards (ROADMAP queue 1, item 12) and a
-# metrics registry (item 13), still to port
+# metrics registry (item 13), still to port. Speculative decode, once case
+# 2, is ported too (tests/test_torch_speculative.py); the case now holds
+# fault injection (item 12)
 @pytest.mark.parametrize("change", [
     dict(guards=object()),
-    dict(spec=SpecConfig(enabled=True)),
+    dict(faults=object()),
     dict(obs=ObsConfig(metrics=object())),
     dict(paged=PagedConfig(enabled=True, kv_dtype="f8")),
     dict(obs=ObsConfig(tracer=object())),

@@ -85,10 +85,10 @@ class _PortRecorder(DecodeEngine):
         self.rows, self.own, self.first, self.forced = {}, {}, {}, forced
         self._row = None
 
-    def _run_prompt_prefill(self, prompt):
-        logits, cache1 = super()._run_prompt_prefill(prompt)
+    def _run_prompt_prefill(self, prompt, slot, pages):
+        logits = super()._run_prompt_prefill(prompt, slot, pages)
         self._row = logits[0].float().numpy()
-        return logits, cache1
+        return logits
 
     def admit_blocking(self, req, slot):
         ok = super().admit_blocking(req, slot)
@@ -96,7 +96,7 @@ class _PortRecorder(DecodeEngine):
             self.first.setdefault(req.uid, self._row)
         return ok
 
-    def _emit_tokens(self, active, next_all):
+    def _emit_tokens(self, active, next_all, spec=None):
         next_all = next_all.copy()
         for s in active:
             req = self.slot_req[s]
@@ -104,7 +104,7 @@ class _PortRecorder(DecodeEngine):
             self.own.setdefault(req.uid, []).append(int(next_all[s]))
             if self.forced is not None:
                 next_all[s] = self.forced[req.uid][len(req.generated)]
-        return super()._emit_tokens(active, next_all)
+        return super()._emit_tokens(active, next_all, spec)
 
     def prefill_chunks_tick(self, work, pack_width, chunk_cap):
         toks = super().prefill_chunks_tick(work, pack_width, chunk_cap)

@@ -1,35 +1,45 @@
-"""The engine's fast-path decode step as it now runs -- the tick's inputs
-packed into one int32 buffer, and a body that builds what every layer reads
-alike (the visible lengths per segment, the paged route, the cascade's
-member gather, routes and merge targets) once per step -- against the
-per-layer computation it replaces; and, on the card, the step captured as
-a CUDA graph against the eager step.
+"""The engine's steps as they now run -- the inputs packed into one int32
+buffer, and a body that builds what every layer reads alike (the visible
+lengths per segment, the paged route, the cascade's member gather, routes
+and merge targets) once per step -- against the computation they replace;
+and, on the card, each step captured as a CUDA graph against the eager
+step. The steps: the fast-path decode step, the chunk step, the
+speculative verify step and blocking admission.
 
 On the CPU (the kernels' plain versions), on the smoke configuration:
 
-  * every fast-path step of a served run, on paged and dense caches, bf16
-    and int8 pools, ``lean`` (fused and two-call), ``fixed``, ``ref`` and
-    the cascade (fused K5, and the two-call path, whose merge grid now
-    comes from the host): logits and cache equal bit for bit to the same
-    step with every layer building its own operands, the two-call merge
-    grid built on the device;
+  * every fast-path decode step of a served run, on paged and dense
+    caches, bf16 and int8 pools, ``lean`` (fused and two-call), ``fixed``,
+    ``ref`` and the cascade (fused K5, and the two-call path, whose merge
+    grid now comes from the host): logits and cache equal bit for bit to
+    the same step with every layer building its own operands, the
+    two-call merge grid built on the device;
+  * every chunk, verify and admission step of those runs and of four
+    speculative ones: logits and cache equal bit for bit to the functions
+    they wrap called eagerly (admission: prefill returning every layer's
+    cache, then the whole-cache writes); speculative streams equal their
+    plain counterparts';
   * the two-call cascade's host merge targets and grid give the device
     grid's bits;
   * greedy streams equal to the JAX engine's (paged lean, int8 lean, the
-    cascade), run as tests/test_torch_engine.py runs it;
+    cascade), run as tests/test_torch_engine.py runs it; bucketed bf16
+    admission on dense and paged engines gives the JAX engine's streams and
+    ``prefill_compiles`` (tests/test_scheduler.py:158-185);
   * graph keys: equal across ticks that hit the ``ScheduleCache``, one key
     for every binding of a cascade schedule, and different across backend,
     ``fused``, the fixed split, the cascade schedule and the pool's dtype;
-    a schedule the cache evicts drops its graph entry.
+    chunk keys per schedule, backend, pack shape and pool dtype, verify
+    keys per block rows, admission keys per bucket; a schedule the cache
+    evicts drops its decode, chunk and verify graph entries.
 
 On the card (marked ``cuda``; ``python -m pytest -q -m cuda
-tests/test_torch_step_capture.py``): the captured step against the eager
-step (``capture_decode = False``) on every configuration above, with slots
-joining and leaving: logits and pools equal bit for bit tick by tick,
-streams and launch counters equal, one capture per key that ticked twice,
-every replay under ``torch.cuda.set_sync_debug_mode("error")``; a capture
-that fails raises; an evicted schedule's graph is dropped; a replaced
-cache is captured anew.
+tests/test_torch_step_capture.py``): the captured steps against the eager
+ones (``capture_decode = False``) on the configurations above, with slots
+joining and leaving: logits and pools equal bit for bit step by step,
+streams and launch counters equal, one capture per key seen twice, every
+replay under ``torch.cuda.set_sync_debug_mode("error")``; a decode or chunk
+capture that fails raises; an evicted schedule's graph is dropped; a
+replaced cache is captured anew.
 """
 import dataclasses
 
@@ -44,6 +54,7 @@ from repro.models import init_params as jinit  # noqa: E402
 from repro.serving import scheduler as jsched  # noqa: E402
 from repro.serving.config import CascadeConfig as JCascade  # noqa: E402
 from repro.serving.config import EngineConfig as JConfig, PagedConfig as JPaged  # noqa: E402
+from repro.serving.config import SpecConfig as JSpec  # noqa: E402
 from repro.serving.engine import DecodeEngine as JEngine, Request as JRequest  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.core.merge import AttnPartial, merge_grid, segment_merge  # noqa: E402
@@ -51,10 +62,25 @@ from repro_torch.kernels import launches, ops  # noqa: E402
 from repro_torch.kernels import lean_decode as ld  # noqa: E402
 from repro_torch.kernels.lean_decode import CascadeFusedDesc  # noqa: E402
 from repro_torch.models import params_from_numpy  # noqa: E402
-from repro_torch.models.transformer import decode_step  # noqa: E402
-from repro_torch.core.attention import paged_gather_kv, paged_gather_kv_dequant  # noqa: E402
+from repro_torch.models.transformer import (  # noqa: E402
+    decode_step,
+    prefill,
+    prefill_chunks,
+    verify_step,
+)
+from repro_torch.core.attention import (  # noqa: E402
+    paged_gather_kv,
+    paged_gather_kv_dequant,
+    quantize_kv_blocks,
+)
+from repro_torch.core.leantile import bucket_length  # noqa: E402
 from repro_torch.serving import scheduler as tsched  # noqa: E402
-from repro_torch.serving.config import CascadeConfig, EngineConfig, PagedConfig  # noqa: E402
+from repro_torch.serving.config import (  # noqa: E402
+    CascadeConfig,
+    EngineConfig,
+    PagedConfig,
+    SpecConfig,
+)
 from repro_torch.serving.engine import DecodeEngine, Request, _pack, _unpack  # noqa: E402
 
 PROMPT_SEED = 25          # margin prompts, as tests/test_torch_scheduler.py
@@ -89,6 +115,20 @@ CONFIGS = {
                           paged=dict(kv_dtype="int8")), "waves"),
 }
 
+# speculative engines (the default n-gram proposer): their verify steps,
+# beside the decode, chunk and admission steps above; each serves the same
+# requests as its plain counterpart (PLAIN_OF), with the same streams
+SPEC_CONFIGS = {
+    "spec-lean": (dict(attn_backend="lean", spec=dict(k=2)), "blocking"),
+    "spec-int8-fixed": (dict(attn_backend="fixed", paged=dict(kv_dtype="int8"), spec=dict(k=2)),
+                        "blocking"),
+    "spec-ref-chunked": (dict(attn_backend="ref", spec=dict(k=3)), "chunked"),
+    "spec-cascade": (dict(attn_backend="lean", cascade=dict(fused=True), spec=dict(k=2)),
+                     "waves"),
+}
+PLAIN_OF = {"spec-lean": "paged-lean", "spec-int8-fixed": "int8-fixed",
+            "spec-ref-chunked": "paged-ref", "spec-cascade": "cascade"}
+
 
 @pytest.fixture(scope="module")
 def model():
@@ -99,15 +139,18 @@ def model():
 
 
 def _engine_config(name, side="port"):
-    kw, drive = CONFIGS[name]
+    kw, drive = {**CONFIGS, **SPEC_CONFIGS}[name]
     kw = dict(kw)
     paged = {"enabled": True, "page_size": PS, **kw.pop("paged", {})}
     casc = kw.pop("cascade", None)
+    spec = kw.pop("spec", None)
     common = dict(COMMON, max_batch=4) if casc is not None else COMMON
     if side == "jax":
-        Paged, Casc, Config = JPaged, JCascade, JConfig
+        Paged, Casc, Config, Spec = JPaged, JCascade, JConfig, JSpec
     else:
-        Paged, Casc, Config = PagedConfig, CascadeConfig, EngineConfig
+        Paged, Casc, Config, Spec = PagedConfig, CascadeConfig, EngineConfig, SpecConfig
+    if spec is not None:
+        kw["spec"] = Spec(enabled=True, **spec)
     if casc is not None:
         paged["prefix_cache"] = True
         kw["cascade"] = Casc(enabled=True, stable_ticks=1, **casc)
@@ -201,16 +244,69 @@ def _per_layer_logits(eng, step, cache):
     return logits
 
 
+def _eager_function(eng, step, cache):
+    """What a chunk, verify or admission step computed before it became a
+    step, on ``cache`` (updated in place): the chunk step's and the verify
+    step's model function (:func:`prefill_chunks`, :func:`verify_step`) on
+    int64 tokens and tensors made from the host arrays, the engine's chunk
+    attention built from them; admission's prefill at the bucket length
+    returning every layer's cache padded to ``cache_len``, then copied into
+    the dense row or scattered into the prompt's pages (int8: quantized,
+    scales set). Returns the logits."""
+    h = step.host
+    if step.kind in ("chunk", "verify"):
+        toks = torch.as_tensor(h["toks"].astype(np.int64))
+        offs, lens, tbls = (torch.as_tensor(h[k]) for k in ("offs", "lens", "tbls"))
+        forward = prefill_chunks if step.kind == "chunk" else verify_step
+        logits, _ = forward(eng.params, eng.cfg, cache, toks, offs, lens, tbls,
+                            attn_fn=eng._chunk_attn_fn(offs, lens, tbls, step.sched))
+        return logits
+    toks = torch.as_tensor(h["tokens"].astype(np.int64))
+    logits, cache1, _ = prefill(eng.params, eng.cfg, toks, cache_len=eng.cache_len,
+                                true_len=int(h["true_len"][0]))
+    if "slot" in h:
+        for lc, lc1 in zip(cache, cache1):
+            for name in ("k", "v"):
+                lc[name][int(h["slot"][0])].copy_(lc1[name][0])
+        return logits
+    pages = [int(p) for p in h["pages"] if p > 0]
+    n, idx = len(pages), torch.as_tensor(pages)
+    for lc, lc1 in zip(cache, cache1):
+        for name in ("k", "v"):
+            src = lc1[name][0]
+            H, _, hd = src.shape
+            chunks = src[:, :n * eng.tile].reshape(H, n, eng.tile, hd).movedim(1, 0)
+            if eng.quant:
+                q, sc = quantize_kv_blocks(
+                    chunks, per_head=eng.cfg.kv_scale_granularity == "page_head")
+                lc[name][idx] = q
+                lc[f"{name}_scale"][idx] = sc
+            else:
+                lc[name][idx] = chunks.to(lc[name].dtype)
+    return logits
+
+
 class _CheckedEngine(DecodeEngine):
-    """Holds every fast-path step to :func:`_per_layer_logits` on a copy
-    of the cache it started from: logits and cache bit for bit; records
-    each step's key."""
+    """Holds every fast-path decode step to :func:`_per_layer_logits`, and
+    every chunk, verify and admission step to :func:`_eager_function`, on a
+    copy of the cache it started from: logits and cache bit for bit;
+    records each decode step's key and counts the other kinds."""
 
     def __init__(self, *a, **kw):
         super().__init__(*a, **kw)
         self.keys = []
+        self.kinds = {}
 
     def _run_step(self, step):
+        if step.kind != "decode":
+            before = _clone(self.cache)
+            out = super()._run_step(step)
+            assert torch.equal(out, _eager_function(self, step, before)), step.kind
+            for lc, rc in zip(self.cache, before):
+                for name in lc:
+                    assert torch.equal(lc[name], rc[name]), (step.kind, name)
+            self.kinds[step.kind] = self.kinds.get(step.kind, 0) + 1
+            return out
         before = _clone(self.cache)
         logits = super()._run_step(step)
         ref = _per_layer_logits(self, step, before)
@@ -254,6 +350,32 @@ def test_step_equals_per_layer_computation(model, port_runs, name):
         assert eng.stats.cascade_ticks > 0
         assert eng.stats.cascade_fused_ticks == (
             eng.stats.cascade_ticks if eng.cascade_fused else 0)
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS) + sorted(SPEC_CONFIGS))
+def test_chunk_verify_admit_steps_equal_eager_functions(model, port_runs, name):
+    """Every chunk, verify and admission step of the run: logits and
+    cache equal, bit for bit, to the functions the steps wrap called
+    eagerly (_CheckedEngine, :func:`_eager_function`); each kind the drive
+    runs was checked, once per step."""
+    eng, _ = _cached_port_run(model, port_runs, name)
+    st = eng.stats
+    assert eng.kinds.get("admit", 0) == st.prefills
+    assert eng.kinds.get("chunk", 0) == len(st.tick_prefill_tokens)
+    assert eng.kinds.get("verify", 0) == st.spec_ticks
+    drive = _engine_config(name)[1]
+    assert eng.kinds.get("admit" if drive == "blocking" else "chunk", 0) > 0
+    assert (st.spec_ticks > 0) == (name in SPEC_CONFIGS)
+
+
+@pytest.mark.parametrize("name", sorted(SPEC_CONFIGS))
+def test_spec_streams_equal_plain(model, port_runs, name):
+    """A speculative engine serves its plain counterpart's requests with
+    the same streams; its single-token decode steps (slots without room
+    for the block) still match the per-layer computation."""
+    _, streams = _cached_port_run(model, port_runs, name)
+    _, plain = _cached_port_run(model, port_runs, PLAIN_OF[name])
+    assert streams == plain
 
 
 @pytest.mark.parametrize("name", ["paged-lean", "int8-lean", "cascade"])
@@ -381,6 +503,121 @@ def test_evicted_schedule_drops_its_graph(model):
     assert list(eng._graphs) == [("ref",)]
 
 
+def _chunk_key(eng, work, pack=2, cap=8):
+    """The key of the chunk step ``eng`` runs for ``work`` ((slot, chunk
+    length, offset), ...)."""
+    eng.prefill_chunks_tick([(s, np.arange(n) % 7, off) for s, n, off in work], pack, cap)
+    return eng.last_step_key
+
+
+def _claimed(model, name, n=2, **change):
+    _, cfg, _, pt = model
+    config, _ = _engine_config(name)
+    eng = DecodeEngine(cfg, pt, dataclasses.replace(config, **change), device="cpu")
+    for i in range(n):
+        slot = eng.claim_slot(Request(uid=i, prompt=np.arange(40), max_new_tokens=2))
+        assert eng.ensure_chunk_pages(slot, 40)
+    return eng
+
+
+def test_chunk_verify_admit_keys(model):
+    """Chunk steps share a key while their schedule bucket holds and differ
+    across backend, pack shape and pool dtype; verify keys carry the block's
+    rows; admission keys are the bucket length, and ``prefill_compiles``
+    counts the distinct buckets."""
+    eng = _claimed(model, "paged-lean")
+    a = _chunk_key(eng, [(0, 8, 0), (1, 8, 0)])
+    assert _chunk_key(eng, [(0, 8, 0), (1, 7, 1)]) == a            # one bucket
+    assert _chunk_key(eng, [(0, 8, 24), (1, 8, 0)]) != a          # another schedule
+    assert _chunk_key(eng, [(0, 8, 0)], pack=3) != a
+    assert _chunk_key(eng, [(0, 8, 0)], cap=16) != a
+    (key, layout) = a
+    assert key[1] == "chunk" and key[3] is not None and layout[0][2] == (2, 8)
+    others = [_chunk_key(_claimed(model, n), [(0, 8, 0), (1, 8, 0)])
+              for n in ("paged-fixed", "paged-ref", "int8-lean")]
+    assert len({_key_shape(k) for k in others + [a]}) == 4
+    assert all(k[0][3] is None for k in others[:2])               # no schedule off lean
+
+    verify = {}
+    for k in (2, 4):
+        eng = _claimed(model, "paged-lean", spec=SpecConfig(enabled=True, k=k))
+        eng.ctx_lens[:2] = [9, 12]
+        eng._spec_verify([0, 1])
+        verify[k] = eng.last_step_key
+        assert verify[k][0][1] == "verify" and verify[k][0][-1] == k + 1
+    assert _key_shape(verify[2]) != _key_shape(verify[4])
+
+    _, cfg, _, pt = model
+    for name in ("paged-lean", "dense-lean"):
+        config, _ = _engine_config(name)
+        eng = DecodeEngine(cfg, pt, config, device="cpu")
+        keys = {}
+        for plen in (3, 7, 8, 9, 20, 30):
+            eng.admit_blocking(Request(uid=plen, prompt=np.arange(plen), max_new_tokens=1), 0)
+            keys[plen] = eng.last_step_key
+            eng.release_slot(0)
+        bucket = {n: bucket_length(n, eng.tile, max_len=eng.cache_len) for n in keys}
+        for a in keys:
+            for b in keys:
+                assert (keys[a] == keys[b]) == (bucket[a] == bucket[b])
+        assert {k[0][2] for k in keys.values()} == set(bucket.values())
+        assert eng.stats.prefill_compiles == len(set(bucket.values()))
+        assert eng.stats.prefill_compiles == (4 if eng.paged else 1)   # dense: tile 64
+
+
+def test_evicted_schedule_drops_chunk_and_verify_graphs(model):
+    """Chunk and verify graph entries go with their schedule, as decode
+    ones do; admission entries run no schedule and stay."""
+    eng = _claimed(model, "paged-lean", schedule_cache_entries=1,
+                   spec=SpecConfig(enabled=True, k=2))
+    entries = []
+    for step in (eng._chunk_step("chunk", prefill_chunks, eng._tick_schedule(
+                     np.asarray([7, 0])), *_chunk_host(eng)),
+                 eng._admit_step(np.arange(5), 0, [1])):
+        key = (step.key, _pack(step.host)[1])
+        eng._graphs[key] = (step.sched, f"graph of {step.kind}")
+        entries.append(key)
+    eng.ctx_lens[:2] = [30, 3]
+    eng._spec_verify([0, 1])                # another schedule: evicts the chunk's
+    assert entries[0] not in eng._graphs and entries[1] in eng._graphs
+
+
+def _chunk_host(eng):
+    N, C, W = 2, 8, eng.pages_per_slot
+    return (np.zeros((N, C), np.int32), np.zeros(N, np.int32), np.full(N, 8, np.int32),
+            np.zeros((N, W), np.int32))
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_bucketed_admission_equals_jax(model, paged):
+    """Blocking admission at the reference's bucket length on bf16 pools
+    (tests/test_scheduler.py:158-185): 13 prompt lengths through the dense
+    or the paged ``ref`` engine give the JAX engine's streams, and
+    ``prefill_compiles`` counts the distinct buckets as the JAX engine's
+    does."""
+    cfg_j, cfg, pj, pt = model
+    rng = np.random.default_rng(PROMPT_SEED)
+    lengths = list(range(3, 41, 3))
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lengths]
+    kw = dict(max_batch=2, cache_len=64, attn_backend="ref")
+    runs = []
+    for side, Eng, Config, Paged, R in (
+            ("port", DecodeEngine, EngineConfig, PagedConfig, Request),
+            ("jax", JEngine, JConfig, JPaged, JRequest)):
+        config = Config(paged=Paged(enabled=paged, page_size=PS if paged else None), **kw)
+        eng = (Eng(cfg, pt, config, device="cpu") if side == "port"
+               else Eng(cfg_j, pj, config))
+        reqs = [R(uid=i, prompt=p, max_new_tokens=3) for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_to_completion(max_ticks=200)
+        runs.append((eng, [tuple(r.generated) for r in reqs]))
+    (eng, streams), (jeng, jstreams) = runs
+    assert streams == jstreams
+    expected = {bucket_length(n, eng.tile, max_len=64) for n in lengths}
+    assert eng.stats.prefill_compiles == jeng.stats.prefill_compiles == len(expected) <= 5
+
+
 def test_packed_inputs_round_trip():
     """The step's host inputs in one int32 buffer: each 64-byte aligned,
     the views read back the arrays."""
@@ -455,14 +692,16 @@ class _TickLog(DecodeEngine):
 
     def _run_step(self, step):
         out = super()._run_step(step)
+        if step.kind != "decode":
+            return out
         self.keys.append(self.last_step_key)
         first = 1 if self.paged else 0
         self.pools.append([{k: t[first:].clone() for k, t in lc.items()} for lc in self.cache])
         return out
 
-    def _emit_tokens(self, active, next_all):
+    def _emit_tokens(self, active, next_all, spec=None):
         self.logits.append(self.last_logits[active].clone())
-        return super()._emit_tokens(active, next_all)
+        return super()._emit_tokens(active, next_all, spec)
 
     def _replay(self, rec, flat):
         torch.cuda.set_sync_debug_mode("error")
@@ -525,9 +764,11 @@ def test_graphs_drop_with_their_schedule_and_cache_on_card(cuda, model):
         for _ in range(4):
             e.tick()
     assert eng.stats.decode_captures >= 1 and eng.stats.decode_replays >= 1
-    sched = next(s for s, g in eng._graphs.values() if g is not None)
+    sched = next(s for s, g in eng._graphs.values() if g is not None and s is not None)
     eng.sched_cache.clear()
-    assert not eng._graphs and sched not in [s for s, _ in eng._graphs.values()]
+    # admission graphs run no schedule and stay
+    assert all(k[0][1] == "admit" for k in eng._graphs)
+    assert sched not in [s for s, _ in eng._graphs.values()]
     captures = eng.stats.decode_captures
     for e in (eng, ref):
         e.tick()                     # warm-up of the schedule built anew
@@ -565,3 +806,142 @@ def test_capture_failure_raises_on_card(cuda, model, monkeypatch):
     with pytest.raises(RuntimeError):
         eng.tick()                   # its capture
     assert eng.stats.decode_captures == 0
+
+
+class _KindLog(DecodeEngine):
+    """Records, after every chunk, verify and admission step, its output
+    rows of the rows it served (chunk and verify rows with tokens, the
+    admission's one row) and the cache (the null page aside), and runs
+    every replay under ``set_sync_debug_mode("error")``."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.steps = []
+
+    def _run_step(self, step):
+        out = super()._run_step(step)
+        if step.kind == "decode":
+            return out
+        rows = out if step.kind == "admit" else out[torch.as_tensor(step.host["lens"] > 0)]
+        first = 1 if self.paged else 0
+        self.steps.append((step.kind, self.last_step_key, rows.clone(),
+                           [{k: t[first:].clone() for k, t in lc.items()} for lc in self.cache]))
+        return out
+
+    def _replay(self, rec, flat):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return super()._replay(rec, flat)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["paged-lean-chunked", "paged-fixed", "int8-lean-two-call",
+                                  "dense-lean", "int8-lean", "spec-lean", "spec-int8-fixed",
+                                  "spec-ref-chunked"])
+def test_captured_step_kinds_equal_eager_on_card(cuda, model, name):
+    """Chunk, verify and admission steps on the card, eager and captured,
+    the requests served twice (so that every admission bucket comes back):
+    each step's served rows and the cache after it (the null page aside)
+    bit for bit, equal streams and launch counters; each kind the drive
+    runs captures a key seen twice and replays it after."""
+    _, cfg, _, _ = model
+    params = _card_params(model, cuda)
+    config, drive = _engine_config(name)
+    runs = {}
+    for captured in (False, True):
+        eng = _KindLog(cfg, params, config, device=cuda)
+        eng.capture_decode = captured
+        launches.restore({k: 0 for k in launches.snapshot()})
+        streams = [_serve(eng, drive, cfg.vocab_size) for _ in range(2)]
+        runs[captured] = (eng, streams, launches.snapshot())
+    (e0, s0, c0), (e1, s1, c1) = runs[False], runs[True]
+    assert s1 == s0 and c1 == c0
+    assert [(k, _key_shape(key)) for k, key, _, _ in e1.steps] == [
+        (k, _key_shape(key)) for k, key, _, _ in e0.steps]
+    for t, ((kind, _, a, p0), (_, _, b, p1)) in enumerate(zip(e0.steps, e1.steps)):
+        assert torch.equal(a, b), f"step {t} ({kind}): logits differ by {(a - b).abs().max()}"
+        for i, (l0, l1) in enumerate(zip(p0, p1)):
+            for k in l0:
+                assert torch.equal(l0[k], l1[k]), f"step {t} ({kind}): layer {i} {k} differs"
+    kinds = {"admit"} if drive == "blocking" else {"chunk"}
+    kinds |= {"verify"} if name.startswith("spec") else set()
+    for kind in kinds:
+        keys = [key for k, key, _, _ in e1.steps if k == kind]
+        twice = {key for key in keys if keys.count(key) >= 2}
+        assert getattr(e1.stats, f"{kind}_captures") == len(twice) > 0, kind
+        assert getattr(e1.stats, f"{kind}_replays") == len(keys) - len(set(keys)), kind
+        assert getattr(e0.stats, f"{kind}_captures") == getattr(e0.stats, f"{kind}_replays") == 0
+
+
+@pytest.mark.cuda
+def test_chunk_capture_failure_raises_on_card(cuda, model, monkeypatch):
+    """A chunk step whose body cannot be captured raises at its capture;
+    the engine does not fall back to the eager step."""
+    import repro_torch.serving.engine as engine_mod
+
+    _, cfg, _, _ = model
+    params = _card_params(model, cuda)
+    eng = DecodeEngine(cfg, params, _engine_config("paged-lean")[0], device=cuda)
+    real = engine_mod.prefill_chunks
+
+    def syncing(*a, **kw):
+        logits, cache = real(*a, **kw)
+        logits.sum().item()
+        return logits, cache
+
+    monkeypatch.setattr(engine_mod, "prefill_chunks", syncing)
+    for i in range(2):
+        slot = eng.claim_slot(Request(uid=i, prompt=np.arange(40), max_new_tokens=2))
+        assert eng.ensure_chunk_pages(slot, 40)
+    work = [(0, np.arange(8), 0), (1, np.arange(8), 0)]
+    eng.prefill_chunks_tick(work, 2, 8)          # the key's eager warm-up
+    with pytest.raises(RuntimeError):
+        eng.prefill_chunks_tick(work, 2, 8)      # its capture
+    assert eng.stats.chunk_captures == 0
+
+
+@pytest.mark.cuda
+def test_capture_survives_the_cyclic_collector_on_card(cuda, model, monkeypatch):
+    """Graphs of an engine dropped earlier wait in a reference cycle for
+    the cyclic collector; if it runs while another step is being captured,
+    destroying them invalidates that capture. Here the dropped graphs sit
+    in a fresh cycle and the collector is set to run at the next
+    allocation from inside the captured step: the capture still succeeds
+    (the engine holds the collector off while it captures) and replays."""
+    import gc
+
+    import repro_torch.serving.engine as engine_mod
+
+    _, cfg, _, _ = model
+    params = _card_params(model, cuda)
+    config, drive = _engine_config("paged-lean")
+    old = DecodeEngine(cfg, params, config, device=cuda)
+    _serve(old, drive, cfg.vocab_size)
+    recs = [g for _, g in old._graphs.values() if g is not None]
+    assert recs
+    old._graphs.clear()
+    del old
+    real = engine_mod.decode_step
+
+    def collect_soon(*a, **kw):
+        if torch.cuda.is_current_stream_capturing():
+            gc.set_threshold(1)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(engine_mod, "decode_step", collect_soon)
+    thresholds = gc.get_threshold()
+    gc.set_threshold(10**9)
+    try:
+        junk = {"graphs": recs}
+        junk["cycle"] = junk
+        del recs, junk                    # cyclic garbage holding CUDA graphs
+        eng = DecodeEngine(cfg, params, config, device=cuda)
+        streams = _serve(eng, drive, cfg.vocab_size)
+    finally:
+        gc.set_threshold(*thresholds)
+    assert eng.stats.decode_captures > 0 and eng.stats.decode_replays > 0
+    ref = DecodeEngine(cfg, params, config, device=cuda)
+    ref.capture_decode = False
+    assert _serve(ref, drive, cfg.vocab_size) == streams
