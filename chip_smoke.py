@@ -78,8 +78,9 @@ Phases, in order; any failure exits non-zero and nothing catches it:
      prompts three times on one engine (a key first seen in round 1 is
      captured in round 2 and replays from round 3): walls per round, TTFT,
      chunk captures and replays, capture + instantiation ms, the reserved
-     memory the captures grew; then traced (eager; captured, its last
-     round): idle share and host launch calls per chunk step;
+     memory the captures grew; then traced (the captured run's last round;
+     with ``--chunk-step`` the eager run too): idle share and host launch
+     calls per chunk step;
  12. spec phase: speculative decode (k 4, 41 new tokens) on bf16 and int8
      pages with an oracle proposer replaying the plain run's streams and
      with the n-gram proposer: spec ticks, accept rate, verify captures and
@@ -108,15 +109,28 @@ Phases, in order; any failure exits non-zero and nothing catches it:
      dense: admission replays; the cascade, K5 and two-call, on the prefix
      waves), logits and pools bit for bit after every step, greedy tokens
      and each step's launch counts equal;
- 15. the kernel summary (one JSON line: K1-K8, the fused K4 and the int8
+ 15. obs phase: the lean Scheduler (bf16 pages, every step captured) on an
+     engine with every ``ObsConfig`` sink (tracer, metrics registry,
+     flight recorder with a dump directory, perf watchdog with one SLO
+     class) and on an untraced one, three rounds each, warm rounds in
+     turns, five warm decode ticks of each profiled: token streams equal,
+     2 host launch calls a replayed warm tick traced or not, every
+     ``decode_kernel`` span synced and costed, ``engine_decode_replays``
+     in the Prometheus text, no ``retrace_storm`` after round 2, and
+     ``python -m repro_torch.obs`` report / calibrate / flight on the
+     card's trace and dump; prints traced against untraced warm walls,
+     the watchdog's fires, and measured ``decode_kernel`` ms against the
+     roofline's prediction on the H100's peaks;
+ 16. the kernel summary (one JSON line: K1-K8, the fused K4 and the int8
      forms of K1, K2, K4 (fused and partials) and K5: 14 entries), the
      fused K4's launches from verify steps, the ``nvidia-smi`` line, and
      last ``{"ok": true, "device": {...}}``.
 
 Each phase starts with a ``[seconds] phase`` line: the time since the
-script started. Phases 11-14 alone, at full width, after the build:
+script started. Phases 11-15 alone, at full width, after the build:
 
     python3 chip_smoke.py --chunk-step | --spec-step | --admission-step | --captured-step
+    python3 chip_smoke.py --obs-step
 
 The kernel phase (3) also holds K3 (the merge kernel) against its plain
 version and ``segment_merge``, drives the two-phase ``merge_impl="pallas"``
@@ -243,7 +257,17 @@ T0 = time.perf_counter()
 
 
 def clock(what: str):
-    """One line: seconds since the script started, at the start of ``what``."""
+    """One line: seconds since the script started, at the start of ``what``.
+    First the engines the phases before dropped are collected and their
+    device memory handed back: an engine with a Scheduler sits in a
+    reference cycle (the scheduler's preemption sink), which only the
+    cyclic collector frees."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
     print(f"[{time.perf_counter() - T0:.1f} s] {what}", flush=True)
 
 
@@ -1150,7 +1174,7 @@ TRACED_TICKS = 5
 
 
 # the record_function ranges the phases mark their steps with
-MARKS = ("chunk step",)
+MARKS = ("chunk step", "decode tick")
 
 
 def _union_us(intervals):
@@ -1179,6 +1203,23 @@ def host_launch_calls(prof) -> dict:
         if e.device_type.name == "CPU" and e.name in HOST_LAUNCH_CALLS:
             calls[e.name] = calls.get(e.name, 0) + 1
     return calls
+
+
+def launches_in_marks(prof, mark: str) -> list:
+    """Host launch calls (``HOST_LAUNCH_CALLS``) inside each ``mark`` range
+    of a ``torch.profiler`` run, in order."""
+    import bisect
+
+    cpu = [e for e in prof.events() if e.device_type.name == "CPU"]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in cpu if e.name == mark)
+    starts = [a for a, _ in spans]
+    counts = [0] * len(spans)
+    for e in cpu:
+        if e.name in HOST_LAUNCH_CALLS:
+            i = bisect.bisect_right(starts, e.time_range.start) - 1
+            if i >= 0 and e.time_range.start <= spans[i][1]:
+                counts[i] += 1
+    return counts
 
 
 def traced_ticks(torch, eng, reqs, untraced_p50_s: float, label: str = "traced ticks"):
@@ -1258,31 +1299,24 @@ def traced_scheduler_phase(torch, cfg, params, backend, sm_count, new_tokens, bl
     most device time. ``captured`` and ``rounds`` as
     :func:`scheduler_phase`'s: the last round is traced. Returns {"syncs",
     "idle", "chunk_calls", "busy_ms"}."""
-    import bisect
-
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     prof = torch.profiler.profile(activities=acts)
     run = scheduler_phase(torch, cfg, params, backend, sm_count, new_tokens, blocking,
                           kv_dtype, captured=captured, rounds=rounds, profiler=prof)
     kernels, busy_ms, by_name = device_time(prof)
-    cpu = [e for e in prof.events() if e.device_type.name == "CPU"]
-    syncs = sum(1 for e in cpu if e.name == "aten::item")
-    spans = sorted((e.time_range.start, e.time_range.end) for e in cpu if e.name == MARKS[0])
-    starts = [a for a, _ in spans]
-    in_chunk = 0
-    for e in cpu:
-        if e.name in HOST_LAUNCH_CALLS:
-            i = bisect.bisect_right(starts, e.time_range.start) - 1
-            in_chunk += int(i >= 0 and e.time_range.start <= spans[i][1])
-    check(spans, f"traced scheduler phase ({backend}): no chunk step was marked")
+    syncs = sum(1 for e in prof.events()
+                if e.device_type.name == "CPU" and e.name == "aten::item")
+    per_step = launches_in_marks(prof, MARKS[0])
+    check(per_step, f"traced scheduler phase ({backend}): no chunk step was marked")
     idle = 1 - busy_ms / (run["wall"] * 1e3)
-    out = {"syncs": syncs, "idle": idle, "chunk_calls": in_chunk / len(spans), "busy_ms": busy_ms}
+    out = {"syncs": syncs, "idle": idle, "chunk_calls": sum(per_step) / len(per_step),
+           "busy_ms": busy_ms}
     print(f"traced scheduler phase ({backend}{', int8' if kv_dtype else ''}, "
           f"{'captured' if captured else 'eager'} steps"
           + (f", round {rounds} of {rounds}" if rounds > 1 else "")
           + f"): wall {run['wall'] * 1e3:.1f} ms under the profiler, device busy {busy_ms:.1f} ms (idle share {idle:.3f}), "
           f"{len(kernels)} kernels, {syncs} host syncs (aten::item), "
-          f"{out['chunk_calls']:.1f} host launch calls per chunk step ({len(spans)} chunk steps)",
+          f"{out['chunk_calls']:.1f} host launch calls per chunk step ({len(per_step)} chunk steps)",
           flush=True)
     print_top(by_name, 1, "phase", 6)
     return out
@@ -2528,8 +2562,9 @@ def chunk_step_phase(torch, cfg, params, sm_count, new_tokens, blockings, smi: s
     captured, captured, eager), chunk captures and replays, and the capture
     plus instantiation time of a full-width chunk graph; then one phase of
     each traced (the captured one's last round): the device's idle share and
-    host launch calls per chunk step -- on int8 pages the eager phase only
-    with ``full`` (its trace alone takes about two minutes to read).
+    host launch calls per chunk step -- the eager phase only with ``full``
+    (``--chunk-step``: an eager phase's trace takes a minute or two to
+    read, and the full run traces the eager steps of other phases).
     ``blockings`` maps the kv dtype to the blocking engine's first tokens
     and rows, which every run's first tokens are held to. A captured run
     serves the prompts ``CHUNK_ROUNDS`` times on one engine: a chunk key
@@ -2562,7 +2597,7 @@ def chunk_step_phase(torch, cfg, params, sm_count, new_tokens, blockings, smi: s
         traced = {c: traced_scheduler_phase(torch, cfg, params, "lean", sm_count, new_tokens,
                                             blockings[kv], kv_dtype=kv, captured=c,
                                             rounds=CHUNK_ROUNDS if c else 1)
-                  for c in (False, True) if c or full or kv is None}
+                  for c in (False, True) if c or full}
         # the untraced walls of the same rounds: eager runs, and the captured
         # runs' last round
         untraced = {False: (runs[0]["walls"][0] + runs[3]["walls"][0]) / 2,
@@ -3048,6 +3083,203 @@ def kernel_bits(torch, other_src: str, which: str) -> dict:
             "differing": differing}
 
 
+OBS_ROUNDS = 3
+OBS_SLO = "interactive"
+
+
+def obs_phase(torch, cfg, params, sm_count, new_tokens, smi: str):
+    """Observability on the card: the lean Scheduler (chunk 256, pack 2,
+    budget 512, bf16 pages, every step captured) serving the
+    ``PROMPT_LENS`` prompts ``OBS_ROUNDS`` rounds on an engine with every
+    ``ObsConfig`` sink -- a ``Tracer``, a ``MetricsRegistry``, a
+    ``FlightRecorder`` dumping into a temporary directory, the perf
+    watchdog with one SLO class the requests are submitted in -- and on an
+    untraced engine of the same configuration; then warm rounds in turns
+    (traced, untraced, untraced, traced) and one more warm round of each
+    with ``TRACED_TICKS`` of its decode ticks (once no prompt is left to
+    prefill) under ``torch.profiler``. Checks: every round's token streams
+    equal between the two engines; every warm decode tick that replayed its graph makes 2 host
+    launch calls, traced or not; every ``decode_kernel`` span carries
+    ``sync_ms`` and the roofline cost meta; ``engine_decode_replays > 0``
+    in the Prometheus export read back; no ``retrace_storm`` fires after
+    round 2 (a count, not a clock); ``python -m repro_torch.obs report``,
+    ``calibrate`` and ``flight`` exit 0 on the saved trace and dump.
+    Prints, without gating: the watchdog's fire counts, the traced and
+    untraced warm-round walls, and the warm round's measured
+    ``decode_kernel`` ms against the roofline's predicted ms on the H100's
+    peaks (one layer's attention: the span times the whole decode step)."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.obs import (FlightRecorder, MetricsRegistry, SLOConfig, Tracer,
+                                 parse_prometheus)
+    from repro_torch.roofline.analysis import HBM_BW, PEAK_FLOPS
+    from repro_torch.serving.config import ObsConfig
+    from repro_torch.serving.engine import DecodeEngine, Request
+    from repro_torch.serving.scheduler import RequestState, Scheduler, SchedulerConfig
+
+    class MarkedEngine(DecodeEngine):
+        """Marks each decode tick for the profiler; ``replayed`` records
+        whether the tick's decode step replayed a graph."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.replayed = []
+
+        def decode_tick(self, exclude=None):
+            before = (self.stats.decode_replays, self.stats.step_captures)
+            with torch.profiler.record_function(MARKS[1]):
+                out = super().decode_tick(exclude)
+            self.replayed.append(self.stats.decode_replays == before[0] + 1
+                                 and self.stats.step_captures == before[1])
+            return out
+
+    prompts = [r.prompt.copy() for r in make_requests(Request, cfg.vocab_size, new_tokens)]
+    sched_cfg = SchedulerConfig(chunk_size=SCHED_CHUNK, prefill_pack=SCHED_PACK,
+                                token_budget=SCHED_BUDGET, chunked=True)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_obs_")
+    flight_dir = os.path.join(tmp.name, "flight")
+    base = engine_config("lean", sm_count)
+    obs = ObsConfig(tracer=Tracer(), metrics=MetricsRegistry(), flight=FlightRecorder(),
+                    flight_dir=flight_dir, watchdog=True)
+    runs = {}
+    for name, conf in (("traced", dataclasses.replace(base, obs=obs)), ("untraced", base)):
+        eng = MarkedEngine(cfg, params, conf, device="cuda")
+        if name == "traced":
+            eng.watchdog.add_slo(SLOConfig(name=OBS_SLO))
+        runs[name] = {"eng": eng, "sch": Scheduler(eng, sched_cfg), "walls": [], "streams": []}
+
+    def serve(name, profiler=None):
+        """One round of the prompts, its wall and streams kept; with
+        ``profiler``, ``TRACED_TICKS`` steps under it once every request
+        left is decoding."""
+        run = runs[name]
+        eng, sch = run["eng"], run["sch"]
+        rnd = len(run["walls"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hs = [sch.submit(p, new_tokens, uid=10 * rnd + i, slo_class=OBS_SLO)
+              for i, p in enumerate(prompts)]
+        steps0 = sch.stats.steps
+        while sch.pending and sch.stats.steps - steps0 < 400:
+            if profiler is not None and all(h.done or h.state is RequestState.DECODING
+                                            for h in hs):
+                with profiler:
+                    for _ in range(TRACED_TICKS):
+                        sch.step()
+                    torch.cuda.synchronize()
+                run["profiled"] = eng.replayed[-TRACED_TICKS:]
+                profiler = None
+                continue
+            sch.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(not sch.pending and all(h.done and len(h.generated) == new_tokens for h in hs),
+              f"obs phase ({name}): a request did not finish in round {rnd + 1}")
+        eng.pool.check()
+        check(eng.pool.num_allocated == 0, f"obs phase ({name}): pages leaked")
+        run["walls"].append(wall)
+        run["streams"].append([list(h.generated) for h in hs])
+
+    tr_eng = runs["traced"]["eng"]
+    tracer, wd = tr_eng.tracer, tr_eng.watchdog
+    for name in ("traced", "untraced"):
+        for _ in range(OBS_ROUNDS):
+            serve(name)
+    storms = wd.fire_counts()["retrace_storm"]
+    tick0 = tracer.tick_index             # the warm rounds' spans come after
+    for name in ("traced", "untraced", "untraced", "traced"):
+        serve(name)
+    warm_ticks = tracer.tick_index - tick0
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    calls = {}
+    for name in ("traced", "untraced"):
+        prof = torch.profiler.profile(activities=acts)
+        serve(name, prof)
+        per_tick = launches_in_marks(prof, MARKS[1])
+        check(len(per_tick) == TRACED_TICKS,
+              f"obs phase ({name}): {len(per_tick)} marked decode ticks profiled, expected "
+              f"{TRACED_TICKS}")
+        replayed = [c for c, r in zip(per_tick, runs[name]["profiled"]) if r]
+        check(replayed and all(c == 2 for c in replayed),
+              f"obs phase ({name}): warm replayed decode ticks made host launch calls "
+              f"{sorted(set(replayed))}, expected 2 each")
+        calls[name] = (len(replayed), sorted(set(replayed)))
+    t, u = runs["traced"], runs["untraced"]
+    check(t["streams"] == u["streams"], "obs phase: traced and untraced token streams differ")
+    check(wd.fire_counts()["retrace_storm"] == storms,
+          f"obs phase: retrace_storm fired in a warm round ({wd.fire_counts()})")
+
+    # the spans: every decode_kernel span synced and costed
+    dks = [sp for sp in tracer.spans if sp["name"] == "decode_kernel"]
+    need = ("path", "kv_bytes", "flops", "pred_mem_ms", "pred_compute_ms", "total_tiles")
+    bad = [sp for sp in dks if "sync_ms" not in sp or any(k not in sp.get("meta", {})
+                                                          for k in need)]
+    check(dks and not bad, f"obs phase: {len(bad)} of {len(dks)} decode_kernel spans lack "
+          f"sync_ms or the cost meta")
+    prom = parse_prometheus(tr_eng.metrics.to_prometheus())
+    replays = prom.get(("engine_decode_replays", ()), 0)
+    check(replays > 0 and replays == tr_eng.stats.decode_replays,
+          f"obs phase: engine_decode_replays exported as {replays}")
+    # the warm rounds (in turns) of the traced engine: measured decode_kernel
+    # ms against the roofline's prediction on the H100's peaks
+    warm = [sp for sp in dks if tick0 < sp["tick"] <= tick0 + warm_ticks]
+    meas = sum(sp["ms"] for sp in warm)
+    sync = sum(sp["sync_ms"] for sp in warm)
+    pred = sum(sp["meta"]["pred_mem_ms"] + sp["meta"]["pred_compute_ms"] for sp in warm)
+    kv_mb = sum(sp["meta"]["kv_bytes"] for sp in warm) / len(warm) / 1e6
+
+    # the CLI on the saved trace and a flight dump
+    trace_path = os.path.join(tmp.name, "trace.json")
+    tracer.save(trace_path, extra={"metrics": tr_eng.metrics.as_dict(), "watchdog": wd.as_dict()})
+    tr_eng._flight_dump("chip-smoke")
+    dump = tr_eng.flight.last_dump_path
+    check(dump is not None and os.path.exists(dump), "obs phase: the flight dump was not written")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cli = {}
+    for cmd in (["report", trace_path], ["calibrate", trace_path, "--out",
+                                         os.path.join(tmp.name, "calib.json")],
+                ["flight", dump]):
+        out = subprocess.run([sys.executable, "-m", "repro_torch.obs", *cmd], capture_output=True,
+                             text=True, timeout=300, env=env, cwd=ROOT)
+        check(out.returncode == 0, f"obs phase: python -m repro_torch.obs {cmd[0]} exited "
+              f"{out.returncode}: {out.stderr[-2000:]}")
+        cli[cmd[0]] = out.stdout
+    roofline = [ln.strip() for ln in cli["report"].splitlines() if "roofline bound" in ln]
+    factors = [ln.strip() for ln in cli["calibrate"].splitlines() if "factor" in ln]
+    budget = tr_eng.watchdog.budgets[OBS_SLO].as_dict()
+    print(f"obs phase ({smi}): lean Scheduler, {OBS_ROUNDS} rounds then warm rounds in turns "
+          f"(traced, untraced, untraced, traced) and one partly profiled round each; wall s per "
+          f"round "
+          f"traced {', '.join(f'{w:.3f}' for w in t['walls'])}, untraced "
+          f"{', '.join(f'{w:.3f}' for w in u['walls'])}; warm rounds traced / untraced "
+          f"{statistics.mean(t['walls'][OBS_ROUNDS:OBS_ROUNDS + 2]):.3f} / "
+          f"{statistics.mean(u['walls'][OBS_ROUNDS:OBS_ROUNDS + 2]):.3f} s; streams equal; "
+          f"host launch calls per replayed warm decode tick: traced {calls['traced'][1]} over "
+          f"{calls['traced'][0]} ticks, untraced {calls['untraced'][1]} over "
+          f"{calls['untraced'][0]}; {len(tracer.spans)} spans, {len(dks)} decode_kernel spans "
+          f"all synced and costed; engine_decode_replays {replays:.0f} "
+          f"(captures {tr_eng.stats.decode_captures})", flush=True)
+    print(f"obs phase: warm rounds' decode_kernel spans ({len(warm)} over {warm_ticks} ticks): "
+          f"measured {meas:.2f} ms (of it {sync:.2f} ms waiting in the stream sync), "
+          f"{meas / len(warm):.3f} ms a tick; roofline prediction on the H100's peaks "
+          f"({PEAK_FLOPS / 1e12:.0f} TFLOP/s, {HBM_BW / 1e12:.2f} TB/s) {pred:.5f} ms "
+          f"({kv_mb:.2f} MB of K/V a tick, one layer's attention): measured / predicted "
+          f"{meas / pred:.1f}; against {cfg.n_layers} layers' attention "
+          f"{meas / (pred * cfg.n_layers):.2f}", flush=True)
+    print(f"obs phase: watchdog fire counts {wd.fire_counts()} over {wd.ticks} ticks "
+          f"(tick_spike reads the host clock; retrace_storm {storms} in rounds 1-{OBS_ROUNDS}, "
+          f"none after); SLO {OBS_SLO!r} (TTFT {budget['ttft_target_s']} s, TPOT "
+          f"{budget['tpot_target_s']} s): {budget['events']} observations, "
+          f"{budget['breaches']} breaches {budget['breach_kinds']}; flight dumps "
+          f"{tr_eng.flight.dumps}; report: {'; '.join(roofline)}; calibrate: "
+          f"{'; '.join(factors)}", flush=True)
+    tmp.cleanup()
+    for run in runs.values():
+        del run["eng"], run["sch"]
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -3100,7 +3332,7 @@ def main() -> int:
               "checkout of the repository", file=sys.stderr)
         return 2
 
-    alone = {"--captured-step", "--chunk-step", "--spec-step", "--admission-step"}
+    alone = {"--captured-step", "--chunk-step", "--spec-step", "--admission-step", "--obs-step"}
     if sys.argv[1:2] and sys.argv[1] in alone:
         torch.backends.cuda.matmul.allow_tf32 = False
         sm_count = torch.cuda.get_device_properties(0).multi_processor_count
@@ -3117,6 +3349,8 @@ def main() -> int:
             chunk_step_phase(torch, cfg, params, sm_count, 16, {None: ref, "int8": ref}, smi)
         elif sys.argv[1] == "--spec-step":
             spec_phase(torch, cfg, params, sm_count, smi)
+        elif sys.argv[1] == "--obs-step":
+            obs_phase(torch, cfg, params, sm_count, 16, smi)
         else:
             admission_phase(torch, cfg, params, sm_count, smi)
         clock("done")
@@ -3314,8 +3548,13 @@ def main() -> int:
     # captures
     captured_step_phase(torch, cfg, params, sm_count, new_tokens, smi)
 
+    clock("obs phase")
+    # 15. observability: every ObsConfig sink on the lean Scheduler, traced
+    # against untraced, the CLI on the card's trace and flight dump
+    obs_phase(torch, cfg, params, sm_count, new_tokens, smi)
+
     clock("summary")
-    # 15. summary: kernel times in bf16 at the main path's shapes; launches
+    # 16. summary: kernel times in bf16 at the main path's shapes; launches
     # from the run of the path each kernel serves
     k6 = k6res[(DECODE_SHAPES[0], "bfloat16")]
     kres[("flash_decode_partials", "bfloat16")] = k6

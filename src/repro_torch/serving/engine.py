@@ -93,9 +93,25 @@ Blocking prefill runs at the reference's bucket length
 the pad tokens' K/V land in the tail of the last page (on an int8 pool
 they count in its scale) or of the dense row, masked by every read; each
 layer's K/V go into the pages or the row as soon as the layer has run.
-Latency observations (TTFT, TPOT, queue wait) are plain lists of seconds on
-:class:`EngineStats`, filled by the scheduler; the reference's histograms
-come with its metrics registry (ROADMAP queue 1, item 13).
+Observability (:mod:`repro_torch.obs`, ``EngineConfig.obs``) is wired as
+the reference wires it. A :class:`~repro_torch.obs.metrics.MetricsRegistry`
+(always on) holds every :class:`EngineStats` counter as ``engine_<name>``
+-- the captured steps' ``engine_<kind>_captures`` / ``_replays`` among
+them -- and the TTFT, TPOT and queue-wait histograms the scheduler
+observes; the KV pool, the radix cache and the schedule cache publish
+gauges into it. A :class:`~repro_torch.obs.flight.FlightRecorder` (always
+on) records each tick and preemption. A tracer (``NULL_TRACER`` by
+default) records the spans ``tick``, ``schedule_build``, ``decode_kernel``
+(with the execution path and the roofline cost of its schedule,
+:func:`~repro_torch.roofline.analysis.schedule_decode_cost` on the H100's
+peaks), ``prefill_chunk``, ``admit``, ``cow``, ``cascade_group`` and
+``spec_verify``, and the scheduler's request events; a perf watchdog
+(``ObsConfig.watchdog``) runs after each tick. Spans wrap a step and the
+host code around it, never a captured step's body (which runs only at its
+warm-up and capture); a live ``decode_kernel``, ``prefill_chunk`` or
+``spec_verify`` span synchronises the stream after the step and charges
+the wait to its ``sync_ms``, as the reference blocks on its jitted step.
+Tracing changes no step key.
 
 Configurations outside this slice raise ``NotImplementedError`` naming
 their ROADMAP item.
@@ -106,6 +122,8 @@ import dataclasses
 import functools
 import gc
 import math
+import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
@@ -156,6 +174,10 @@ from repro_torch.models.transformer import (
     supports_chunked_prefill,
     verify_step,
 )
+from repro_torch.obs.flight import FlightRecorder
+from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.trace import NULL_TRACER
+from repro_torch.roofline.analysis import schedule_decode_cost
 from repro_torch.serving.config import EngineConfig
 from repro_torch.serving.kvpool import KVLayout, KVPagePool
 from repro_torch.serving.prefix_cache import RadixPrefixCache, lcp_group_passes
@@ -183,8 +205,9 @@ class Request:
         return len(self.generated) >= self.max_new_tokens
 
 
-# the reference's counter names; here plain int attributes (the metrics
-# registry arrives with obs/*, ROADMAP queue 1, item 13)
+# Counter-valued EngineStats fields, published to the metrics registry as
+# ``engine_<name>`` counters (the reference's names; the guard and fault
+# counters stay 0 until ROADMAP queue 1, item 12)
 _STAT_COUNTERS = (
     "ticks",
     "tokens_generated",
@@ -223,31 +246,63 @@ STEP_KINDS = ("decode", "chunk", "verify", "admit")
 
 
 class EngineStats:
-    """Engine telemetry: the reference's counters as plain ints, the
-    per-tick schedule and token logs, the last pool/cache snapshots, the
-    last cascade tick's grouping, and the latency observations in seconds
-    (time to first token, time per output token, queue wait), which the
-    scheduler appends. ``<kind>_captures`` counts the steps of a kind
-    (``decode``, ``chunk``, ``verify``, ``admit``) captured as CUDA graphs
-    (the reference counts retraces of its jitted steps), ``<kind>_replays``
-    the steps that replayed one."""
+    """Engine telemetry, backed by a :class:`~repro_torch.obs.metrics.
+    MetricsRegistry`: counters read and assign as plain ints but live in
+    the registry as ``engine_<name>`` counters, and ``ttft``, ``tpot`` and
+    ``queue_wait`` are its histograms ``engine_ttft_seconds``,
+    ``engine_tpot_seconds`` and ``engine_queue_wait_seconds`` (seconds,
+    observed by the scheduler). ``<kind>_captures`` counts the steps of a
+    kind (``decode``, ``chunk``, ``verify``, ``admit``) captured as CUDA
+    graphs -- the port's counterpart of the reference's retraces of its
+    jitted steps -- and ``<kind>_replays`` the steps that replayed one.
+    Beside them: the per-tick schedule and token logs, the last pool and
+    cache snapshots, the last cascade tick's grouping."""
 
-    def __init__(self):
-        for name in _STAT_COUNTERS:
-            setattr(self, name, 0)
-        for kind in STEP_KINDS:
-            setattr(self, f"{kind}_captures", 0)
-            setattr(self, f"{kind}_replays", 0)
+    def __init__(self, registry: Optional[MetricsRegistry] = None):
+        self.registry = registry if registry is not None else MetricsRegistry()
+        names = _STAT_COUNTERS + tuple(f"{kind}_{what}" for kind in STEP_KINDS
+                                       for what in ("captures", "replays"))
+        self._counters = {name: self.registry.counter(f"engine_{name}") for name in names}
         self.schedules: List[dict] = []
         self.schedule_cache: dict = {}
         self.kv_pool: dict = {}
         self.prefix_cache: dict = {}
         self.cascade_last: dict = {}
+        self.degraded: dict = {}          # the guards' gauge snapshot (item 12)
+        self.faults: dict = {}            # the injector's fire counts (item 12)
         self.tick_decode_tokens: List[int] = []
         self.tick_prefill_tokens: List[int] = []
-        self.ttft: List[float] = []
-        self.tpot: List[float] = []
-        self.queue_wait: List[float] = []
+        self.ttft = self.registry.histogram("engine_ttft_seconds", help="time to first token")
+        self.tpot = self.registry.histogram("engine_tpot_seconds", help="inter-token latency")
+        self.queue_wait = self.registry.histogram("engine_queue_wait_seconds",
+                                                  help="submit-to-admit wait")
+
+    # counters masquerade as plain int attributes: __getattr__ only fires
+    # for names not in __dict__, i.e. exactly the routed counter fields
+    def __getattr__(self, name):
+        counters = self.__dict__.get("_counters")
+        if counters is not None and name in counters:
+            return counters[name].value
+        raise AttributeError(name)
+
+    def __setattr__(self, name, value):
+        counters = self.__dict__.get("_counters")
+        if counters is not None and name in counters:
+            counters[name].value = int(value)
+        else:
+            object.__setattr__(self, name, value)
+
+    @property
+    def step_captures(self) -> int:
+        """CUDA graph captures of every step kind."""
+        return sum(self._counters[f"{kind}_captures"].value for kind in STEP_KINDS)
+
+    def latency_dict(self) -> dict:
+        return {
+            "ttft": self.ttft.as_dict(),
+            "tpot": self.tpot.as_dict(),
+            "queue_wait": self.queue_wait.as_dict(),
+        }
 
 
 class _Step(NamedTuple):
@@ -310,6 +365,21 @@ def _bump(stats: EngineStats, name: str) -> None:
     setattr(stats, name, getattr(stats, name) + 1)
 
 
+def _weak_hook(method: Callable) -> Callable:
+    """``method`` called through a weak reference to its object, doing
+    nothing once the object is gone: a hook that does not keep the object
+    alive (the schedule cache, which the metrics registry reads, must not
+    keep its engine's pools and graphs)."""
+    ref = weakref.WeakMethod(method)
+
+    def hook(*args):
+        bound = ref()
+        if bound is not None:
+            bound(*args)
+
+    return hook
+
+
 def _cache_ptrs(cache) -> tuple:
     return tuple(t.data_ptr() for lc in cache for t in lc.values())
 
@@ -320,10 +390,6 @@ def _unported(cfg: ModelConfig, config: EngineConfig) -> Optional[str]:
         return "f8, f16 and f32 KV pools (ROADMAP queue 1, item 18)"
     if config.guards is not None or config.faults is not None:
         return "guards and fault injection (ROADMAP queue 1, item 12)"
-    obs = config.obs
-    if any(x is not None for x in (obs.tracer, obs.metrics, obs.flight,
-                                   obs.flight_dir, obs.watchdog)):
-        return "observability sinks (ROADMAP queue 1, item 13)"
     return None
 
 
@@ -386,6 +452,29 @@ class DecodeEngine:
         self.cfg = cfg
         self.params = params
         self.max_batch = config.max_batch
+
+        # observability: the tracer (NULL_TRACER, the disabled one, costs a
+        # hook one attribute check), the metrics registry the stats live in,
+        # and the always-on flight recorder
+        obs = config.obs
+        self.tracer = obs.tracer if obs.tracer is not None else NULL_TRACER
+        self.metrics = obs.metrics if obs.metrics is not None else MetricsRegistry()
+        self.stats = EngineStats(registry=self.metrics)
+        self.flight = (obs.flight if obs.flight is not None
+                       else FlightRecorder(dump_dir=obs.flight_dir))
+        if obs.flight is not None and obs.flight_dir is not None:
+            self.flight.dump_dir = obs.flight_dir
+        self._sched_costs: dict = {}    # schedule -> roofline cost meta
+        # the guards' degrade state, registered as in the reference; it
+        # stays 0 until the guards are ported (ROADMAP queue 1, item 12)
+        self.guard_cfg = None
+        self.degraded_gauge = self.metrics.gauge(
+            "engine_degraded_slots", help="live slots off the fast path")
+        self._degrade_cause = self.metrics.counter(
+            "engine_degrade_cause_total",
+            help="degrade escalations by cause (see guards.DEGRADE_CAUSES)",
+            labelnames=("cause",))
+
         self.cache_len = config.cache_len
         self.attn_backend = config.attn_backend
         self.num_workers = config.num_workers
@@ -408,6 +497,7 @@ class DecodeEngine:
                 n_attn_layers=cfg.n_layers, scale_granularity=cfg.kv_scale_granularity,
             )
             self.pool = KVPagePool(num_pages, self.tile, layout=layout)
+            self.pool.register_metrics(self.metrics)
             self.page_tbl = np.zeros((self.max_batch, self.pages_per_slot), dtype=np.int32)
             self.cache = init_paged_cache(cfg, num_pages, self.tile, device=self.device)
         else:
@@ -420,6 +510,8 @@ class DecodeEngine:
         # write lands in one) and how many leading full shared pages form
         # its cascade prefix
         self.prefix_cache = RadixPrefixCache(self.pool) if config.paged.prefix_cache else None
+        if self.prefix_cache is not None:
+            self.prefix_cache.register_metrics(self.metrics)
         self._slot_shared_tiles: List[set] = [set() for _ in range(self.max_batch)]
         self._slot_prefix_full: List[int] = [0] * self.max_batch
         # cascade decode: fused K5, trie-path grouping ('lcp' groups at
@@ -443,6 +535,12 @@ class DecodeEngine:
         self.queue: List[Request] = []
         self.next_tokens = np.zeros((self.max_batch, 1), dtype=np.int32)
         self.sched_cache = ScheduleCache(max_entries=config.schedule_cache_entries)
+        # the registry's callbacks hold what they read, never the engine: a
+        # caller keeping ``stats`` (or the registry) must not keep the
+        # engine's pools and graphs alive
+        sched_cache, stats = self.sched_cache, self.stats
+        self.metrics.gauge_fn("schedule_cache_hit_rate", lambda: sched_cache.stats.hit_rate,
+                              help="stream-K schedule cache hit rate")
         # the captured steps (decode, chunk, verify, admission): key ->
         # (schedule, graph, or None while the key has only had its eager
         # warm-up), dropped with their schedule; capture_decode = False runs
@@ -452,9 +550,8 @@ class DecodeEngine:
         self._prefill_shapes: set = set()   # distinct admission bucket lengths
         self._graph_pool = None
         self._capture_stream = None
-        self.sched_cache.on_evict = self._drop_graphs
+        self.sched_cache.on_evict = _weak_hook(self._drop_graphs)
         self.last_step_key: Optional[tuple] = None
-        self.stats = EngineStats()
         self.last_logits: Optional[torch.Tensor] = None   # last decode pass (B, V)
         self.last_prefill_logits: Optional[torch.Tensor] = None   # last chunk step (N, V)
         self.last_verify_logits: Optional[torch.Tensor] = None    # last verify step (B, k+1, V)
@@ -479,6 +576,19 @@ class DecodeEngine:
                 )
             if self.proposer is None:
                 self.proposer = NGramProposer()
+            self.metrics.gauge_fn(
+                "engine_spec_accept_rate",
+                lambda: stats.spec_accepted_tokens / max(1, stats.spec_draft_tokens),
+                help="accepted / proposed draft tokens (cumulative)")
+
+        # the perf watchdog (repro_torch.obs.watch): ``watchdog`` True gives
+        # the default WatchConfig; a PerfWatchdog built on the engine (for
+        # SLO classes or a calibration) attaches itself here instead
+        self.watchdog = None
+        if obs.watchdog is not None and obs.watchdog is not False:
+            from repro_torch.obs.watch import PerfWatchdog, WatchConfig
+
+            PerfWatchdog(self, WatchConfig() if obs.watchdog is True else obs.watchdog)
 
     # ------------------------------------------------------------- schedule
     def _tick_schedule(self, ctx_np) -> LeanSchedule:
@@ -488,10 +598,14 @@ class DecodeEngine:
         tile)."""
         s_pad = self.cache_len + ((-self.cache_len) % self.tile)
         lens = np.minimum(ctx_np + 1, self.cache_len)
-        return self.sched_cache.get(
-            lens.tolist(), self.cfg.n_kv_heads, self.tile, self.num_workers,
-            max_len=s_pad,
-        )
+        with self.tracer.span("schedule_build") as sp:
+            sched = self.sched_cache.get(
+                lens.tolist(), self.cfg.n_kv_heads, self.tile, self.num_workers,
+                max_len=s_pad,
+            )
+            if sp:
+                sp.annotate(**sched.work_summary())
+        return sched
 
     # ------------------------------------------------------------- public
     def submit(self, req: Request):
@@ -606,7 +720,11 @@ class DecodeEngine:
         """Whole-prompt prefill into ``slot``, its cache row or pages
         written, first token sampled. Returns False (engine unchanged) when
         the paged pool cannot hold the prompt right now. Does not touch the
-        engine queue."""
+        engine queue. Traced as the ``admit`` span."""
+        with self.tracer.span("admit", uid=req.uid, prompt_tokens=len(req.prompt)):
+            return self._admit_blocking_inner(req, slot)
+
+    def _admit_blocking_inner(self, req: Request, slot: int) -> bool:
         plen = len(req.prompt)
         pages = None
         if self.paged:
@@ -708,14 +826,15 @@ class DecodeEngine:
         """Copy-on-write logical tile ``t`` of ``slot`` before a KV write
         lands in a shared page: copy the page onto a fresh one, swap the
         table entry, release the share. Returns False (state unchanged)
-        when no page can be had now. (The reference's ``cow`` trace span
-        comes with ROADMAP queue 1, item 13.)"""
+        when no page can be had now. The copy is traced as the ``cow``
+        span."""
         old = int(self.page_tbl[slot, t])
         got = self._pool_alloc(slot, 1)
         if got is None:
             return False
         new = got[0]
-        self._copy_page(old, new)
+        with self.tracer.span("cow", slot=slot, tile=t):
+            self._copy_page(old, new)
         self.page_tbl[slot, t] = new
         self.pool.release_pages(slot, [old])
         self._slot_shared_tiles[slot].discard(t)
@@ -790,17 +909,23 @@ class DecodeEngine:
             visible[i] = max(1, int(off) + len(chunk))
         # only the lean backend runs a chunk schedule; it rides the decode
         # schedule cache's bucket lattice
-        sched = None
-        if self.attn_backend == "lean":
-            sched = make_chunk_schedule(
-                visible, self.cfg.n_kv_heads, self.tile, self.num_workers,
-                max_len=self.pages_per_slot * self.tile, cache=self.sched_cache,
-            )
-        logits = self._run_step(self._chunk_step("chunk", prefill_chunks, sched,
-                                                 toks, offs, lens, tbls))
+        n_tokens = int(lens.sum())
+        sp = self.tracer.span("prefill_chunk", chunks=len(work), tokens=n_tokens)
+        with sp:
+            sched = None
+            if self.attn_backend == "lean":
+                sched = make_chunk_schedule(
+                    visible, self.cfg.n_kv_heads, self.tile, self.num_workers,
+                    max_len=self.pages_per_slot * self.tile, cache=self.sched_cache,
+                )
+                if sp:
+                    sp.annotate(**sched.work_summary())
+            logits = self._run_step(self._chunk_step("chunk", prefill_chunks, sched,
+                                                     toks, offs, lens, tbls))
+            if sp:
+                self._sync(sp)
         self.last_prefill_logits = logits
         next_tok = logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
-        n_tokens = int(lens.sum())
         self.stats.chunk_prefills += len(work)
         self.stats.prefill_tokens += n_tokens
         self._log(self.stats.tick_prefill_tokens, n_tokens)
@@ -915,8 +1040,12 @@ class DecodeEngine:
                 spec_ctx, R, self.cfg.n_kv_heads, self.tile, self.num_workers,
                 max_len=self.pages_per_slot * self.tile, cache=self.sched_cache,
             )
-        logits = self._run_step(self._chunk_step("verify", verify_step, sched,
-                                                 toks, offs, lens, tbls))
+        sp = self.tracer.span("spec_verify", slots=len(slots), rows=R)
+        with sp:
+            logits = self._run_step(self._chunk_step("verify", verify_step, sched,
+                                                     toks, offs, lens, tbls))
+            if sp:
+                self._sync(sp)
         self.last_verify_logits = logits
         rows = logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
         return slots, rows, drafts
@@ -998,6 +1127,8 @@ class DecodeEngine:
         else:
             self.queue.insert(0, req)
         self.stats.preemptions += 1
+        self.flight.record("preempt", slot=slot, uid=req.uid, tick=int(self.stats.ticks))
+        self.tracer.request_event(req.uid, "PREEMPTED", slot=slot)
 
     def preempt_slot(self, slot: int):
         """Public eviction hook for schedulers (breaking a page deadlock, a
@@ -1097,9 +1228,15 @@ class DecodeEngine:
         """The (schedule, binding) of this tick's cascade decode, or
         ``(None, None)`` when no grouped pass exists or the stability guard
         still holds the path back. The guard keys on the grouping's
-        structure (membership and page ranges), not on lengths. (The
-        reference's ``cascade_group`` trace span comes with ROADMAP queue 1,
-        item 13.)"""
+        structure (membership and page ranges), not on lengths. Traced as
+        the ``cascade_group`` span."""
+        with self.tracer.span("cascade_group") as sp:
+            csched, binding = self._cascade_schedule_inner(active, ctx_np)
+            if sp:
+                sp.annotate(engaged=csched is not None, stable_ticks=self._casc_stable)
+        return csched, binding
+
+    def _cascade_schedule_inner(self, active: List[int], ctx_np):
         passes = self._cascade_grouping(active)
         if not passes:
             self._casc_key = None
@@ -1140,7 +1277,22 @@ class DecodeEngine:
         segment is masked) nor write (their table rows are null for this
         call, so the token write lands in the null page). Their real tables
         and progress stay as they are. Slots running a verify step are
-        masked out of the single-token step the same way."""
+        masked out of the single-token step the same way.
+
+        This wrapper owns the per-tick observability: the ``tick`` span,
+        one flight-recorder event, and the watchdog's hook."""
+        t0 = time.perf_counter() if self.watchdog is not None else 0.0
+        with self.tracer.span("tick"):
+            out = self._decode_tick_inner(exclude)
+        self.flight.record(
+            "tick", tick=self.stats.ticks, emitted=len(out),
+            active=sum(1 for r in self.slot_req if r is not None), queued=len(self.queue),
+        )
+        if self.watchdog is not None:
+            self.watchdog.on_tick((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def _decode_tick_inner(self, exclude=None) -> Dict[int, int]:
         exclude = set(exclude) if exclude else set()
         active = [s for s in range(self.max_batch) if self.slot_req[s] and s not in exclude]
         if self.paged:
@@ -1163,11 +1315,33 @@ class DecodeEngine:
                     ptbl_np = self.page_tbl.copy()
                     for s in masked:
                         ptbl_np[s, :] = 0
-            logits = self._decode_pass_main(norm, ctx_np, ptbl_np)
+            logits = self._decode_pass(norm, ctx_np, ptbl_np)
             self.last_logits = logits
             next_all = logits.argmax(dim=-1).cpu().numpy()
         spec = self._spec_verify(spec_slots) if spec_slots else None
         return self._emit_tokens(norm, next_all, spec)
+
+    def _decode_pass(self, active: List[int], ctx_np, ptbl_np) -> torch.Tensor:
+        """:meth:`_decode_pass_main` in the ``decode_kernel`` span (level 0:
+        the degraded levels are ROADMAP queue 1, item 12), which it
+        annotates with the path and the schedule's roofline cost; with a
+        live span the stream is synchronised after the step, inside it."""
+        sp = self.tracer.span("decode_kernel", level=0, slots=len(active))
+        with sp:
+            logits = self._decode_pass_main(active, ctx_np, ptbl_np)
+            if sp:
+                self._sync(sp)
+        return logits
+
+    def _sync(self, sp) -> None:
+        """Wait for the card and charge the wait to the live span ``sp``
+        (its ``sync_ms``), as the reference blocks on its jitted step's
+        result; a CPU engine's step has run already. Never called inside a
+        capture."""
+        t0 = time.perf_counter()
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        sp.add_sync(time.perf_counter() - t0)
 
     def _decode_pass_main(self, active: List[int], ctx_np, ptbl_np) -> torch.Tensor:
         """The decode step over the whole batch: the cascade when ``active``
@@ -1185,7 +1359,7 @@ class DecodeEngine:
         if csched is not None:
             return self._cascade_pass(csched, binding, ctx_np, ptbl_np)
         sched = self._tick_schedule(ctx_np)
-        self._record_schedule(sched)
+        self._note_schedule(sched, "fast")
         return self._run_step(self._plain_step(sched, ctx_np, ptbl_np))
 
     def _step_inputs(self, ctx_np, ptbl_np) -> Dict[str, np.ndarray]:
@@ -1302,7 +1476,7 @@ class DecodeEngine:
             lens, self.cfg.n_kv_heads,
             min(default_tile_size(self.cfg.head_dim), max(8, max(lens))), self.num_workers,
         )
-        self._record_schedule(sched)
+        self._note_schedule(sched, "legacy")
         dev = self.device
         logits, self.cache = decode_step(
             self.params, self.cfg, self.cache, torch.as_tensor(self.next_tokens).to(dev),
@@ -1314,7 +1488,7 @@ class DecodeEngine:
     def _cascade_pass(self, csched: CascadeSchedule, binding: CascadeBinding, ctx_np,
                       ptbl_np) -> torch.Tensor:
         """Cascade decode (:meth:`_cascade_step`) and its counters."""
-        self._record_schedule(csched.suffix_sched)
+        self._note_schedule(csched.suffix_sched, "cascade")
         if csched.signature not in self._casc_signatures:
             self._casc_signatures.add(csched.signature)
             self.stats.cascade_retraces += 1
@@ -1413,8 +1587,9 @@ class DecodeEngine:
         at every capture, which the eager steps around it then pay for;
         this is its capture without that. Python's cyclic collector is
         held off while the step is captured: a graph it frees then (an
-        engine dropped earlier, which its schedule cache's eviction hook
-        keeps in a reference cycle) destroys a CUDA graph, which the
+        engine dropped earlier that sits in a reference cycle, as one with
+        a Scheduler does through its preemption sink) destroys a CUDA
+        graph, which the
         global capture mode forbids, and the capture is invalidated.
         Nothing runs while it is captured; the launch counters' change is
         taken back out and kept to add on each replay. A failure raises."""
@@ -1473,7 +1648,10 @@ class DecodeEngine:
         """The schedule cache let ``sched`` go: drop the steps captured on
         it (and keys only warmed up), freeing what they hold. Once no graph
         is left their memory pool goes too (a pool whose graphs are all
-        gone takes no new capture): the next capture opens a new one."""
+        gone takes no new capture): the next capture opens a new one. The
+        schedule's roofline cost goes with it."""
+        self._sched_costs.pop(sched, None)
+        self._sched_costs.pop(getattr(sched, "suffix_sched", None), None)
         for key in [k for k, (s, _) in self._graphs.items() if s is sched]:
             del self._graphs[key]
         if all(g is None for _, g in self._graphs.values()):
@@ -1522,6 +1700,42 @@ class DecodeEngine:
         log.append(item)
         if len(log) > self.SCHEDULE_LOG_CAP:
             del log[: -self.SCHEDULE_LOG_CAP]
+
+    def _flight_dump(self, reason: str, **extra) -> dict:
+        """Snapshot the flight ring into a postmortem bundle, written to the
+        recorder's ``dump_dir`` when it has one (the watchdog dumps on
+        every fire)."""
+        ctx = {"tick": int(self.stats.ticks), "degraded_slots": self.degraded_gauge.value,
+               **extra}
+        return self.flight.dump(reason, extra=ctx)
+
+    def _schedule_cost(self, sched: LeanSchedule) -> dict:
+        """Roofline cost meta (KV bytes, flops, predicted ms on the H100's
+        peaks) of a decode schedule, memoized per schedule object: the
+        ScheduleCache hands out the same instance tick after tick, so a
+        steady tick does no cost arithmetic. An entry goes when the cache
+        lets its schedule go (:meth:`_drop_graphs`); the legacy step's
+        uncached schedules are bounded by a clear."""
+        cost = self._sched_costs.get(sched)
+        if cost is None:
+            if len(self._sched_costs) > 128:
+                self._sched_costs.clear()
+            elem = self.pool.layout.elem_bytes if self.paged else 2
+            cost = schedule_decode_cost(
+                sched, n_q_heads=self.cfg.n_heads, n_kv_heads=self.cfg.n_kv_heads,
+                head_dim=self.cfg.head_dim, kv_elem_bytes=elem,
+            )
+            self._sched_costs[sched] = cost
+        return cost
+
+    def _note_schedule(self, sched: LeanSchedule, path: str):
+        """The one per-pass schedule bookkeeping point of the cascade, fast
+        and legacy decode paths: the stats record, and with a tracer the
+        execution path and roofline cost onto the enclosing
+        ``decode_kernel`` span."""
+        self._record_schedule(sched)
+        if self.tracer.enabled:
+            self.tracer.annotate(path=path, **self._schedule_cost(sched))
 
     def _record_schedule(self, sched: LeanSchedule):
         self._log(self.stats.schedules, {

@@ -513,7 +513,7 @@ class KVPagePool:
         return d
 
     def register_metrics(self, registry, prefix: str = "kvpool") -> None:
-        """Publish live occupancy into a :class:`repro.obs.metrics.
+        """Publish live occupancy into a :class:`repro_torch.obs.metrics.
         MetricsRegistry` as callback gauges — sampled at export time, so
         the pool pays nothing per tick."""
         registry.gauge_fn(

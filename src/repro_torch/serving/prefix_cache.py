@@ -453,10 +453,24 @@ class RadixPrefixCache:
 
     def register_metrics(self, registry,
                          prefix: str = "prefix_cache") -> None:
-        """The reference publishes cache effectiveness as callback gauges of
-        its metrics registry; the registry comes with ``obs/*``."""
-        raise NotImplementedError(
-            "metrics registries are not ported yet (ROADMAP queue 1, item 13)"
+        """Publish cache effectiveness into a :class:`repro_torch.obs.metrics.
+        MetricsRegistry` as callback gauges (zero per-lookup cost)."""
+        registry.gauge_fn(
+            f"{prefix}_hit_rate", lambda: self.stats.hit_rate,
+            help="radix lookups served from cache",
+        )
+        registry.gauge_fn(
+            f"{prefix}_cached_pages", lambda: self.cached_pages,
+            help="pages held by the radix trie",
+        )
+        registry.gauge_fn(
+            f"{prefix}_nodes", lambda: self._num_nodes,
+            help="radix trie nodes",
+        )
+        registry.gauge_fn(
+            f"{prefix}_bytes_saved",
+            lambda: self.pool.pages_saved * self.page_bytes,
+            help="KV bytes deduped via shared prefixes",
         )
 
 

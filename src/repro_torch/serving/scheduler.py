@@ -21,17 +21,21 @@ layer that turns them into a server:
   * robustness: TTFT deadlines with requeue and backoff, ``cancel``,
     admission backoff under page pressure, ``max_preemptions``, and a
     page-deadlock breaker;
-  * latency observations: TTFT, TPOT and queue wait, appended in seconds
-    to the engine's :class:`~repro_torch.serving.engine.EngineStats`.
+  * telemetry: TTFT, TPOT and queue wait observed in seconds into the
+    histograms of the engine's
+    :class:`~repro_torch.serving.engine.EngineStats` (which live in its
+    metrics registry, beside this module's queue-depth, active-slot and
+    pending gauges), and :meth:`Scheduler.telemetry`, a JSON snapshot;
+    lifecycle transitions stream into the engine's tracer
+    (``request_event`` / ``request_token``), so a traced run yields
+    per-uid QUEUED -> PREFILLING -> DECODING -> FINISHED timelines;
+  * SLO classes: ``submit(..., slo_class=...)`` charges a request's TTFT
+    and TPOT to that class's error budget when the engine's perf watchdog
+    declares it (:class:`~repro_torch.obs.watch.SLOConfig`).
 
 Chunked prefill needs an architecture whose prompt state lives entirely in
 the paged pool (``engine.supports_chunked_prefill()``); otherwise the
 scheduler falls back to blocking admission with the same lifecycle.
-
-Not ported yet, and refused with ``NotImplementedError`` naming ROADMAP
-queue 1, item 13 (observability) when asked for: tracer request events
-(the engine refuses a tracer), SLO classes other than ``"default"`` and
-the watchdog that charges them, and :meth:`Scheduler.telemetry`.
 """
 from __future__ import annotations
 
@@ -45,8 +49,6 @@ import numpy as np
 from repro_torch.serving.engine import DecodeEngine, Request
 
 __all__ = ["RequestState", "SchedulerConfig", "ScheduledRequest", "SchedulerStats", "Scheduler"]
-
-_OBS_ITEM = "ROADMAP queue 1, item 13 (observability)"
 
 
 class RequestState(Enum):
@@ -112,6 +114,7 @@ class ScheduledRequest:
     req: Request
     priority: int = 0
     on_token: Optional[Callable[[int, int, bool], None]] = None
+    slo_class: str = "default"            # SLO budget class (watchdog)
     state: RequestState = RequestState.QUEUED
     slot: int = -1
     prefill_done: int = 0                 # prompt tokens already chunked in
@@ -195,6 +198,19 @@ class Scheduler:
         # engine preemptions (pool pressure mid-decode) fold back into this
         # queue, keeping their arrival so that aging continues
         engine.preempt_sink = self._on_preempt
+        # observability: lifecycle events into the engine's tracer (a
+        # NULL_TRACER ignores them), gauges into its metrics registry; the
+        # gauges read the queue and the slot map (both only ever mutated in
+        # place), not the scheduler, so that the registry keeps neither the
+        # scheduler nor its engine alive
+        self.tracer = engine.tracer
+        queue, slots = self.queue, self._slot_sr
+        engine.metrics.gauge_fn("scheduler_queue_depth", lambda: len(queue),
+                                help="requests waiting for admission")
+        engine.metrics.gauge_fn("scheduler_active_slots", lambda: len(slots),
+                                help="slots holding a PREFILLING or DECODING request")
+        engine.metrics.gauge_fn("scheduler_pending", lambda: len(queue) + len(slots),
+                                help="queued + in-flight requests")
 
     # ---------------------------------------------------------------- submit
     def submit(
@@ -211,9 +227,10 @@ class Scheduler:
         """Enqueue a request; returns its handle at once. Tokens stream
         through ``on_token(uid, token, done)`` as :meth:`step` produces them
         and accumulate in ``handle.generated``. ``deadline_steps`` overrides
-        the configured TTFT deadline for this request."""
-        if slo_class != "default":
-            raise NotImplementedError(f"SLO classes are not ported yet: {_OBS_ITEM}")
+        the configured TTFT deadline for this request. ``slo_class`` names
+        the request's SLO budget class: when the engine's perf watchdog
+        declares it, the request's TTFT and TPOT are charged to its error
+        budget."""
         prompt = np.asarray(prompt, dtype=np.int32)
         if prompt.size == 0:
             raise ValueError("empty prompt (nothing to prefill)")
@@ -227,6 +244,7 @@ class Scheduler:
             req=Request(uid=uid, prompt=prompt, max_new_tokens=max_new_tokens),
             priority=priority,
             on_token=on_token,
+            slo_class=slo_class,
             arrival_seq=self._arrival_seq,
             arrival_step=self.stats.steps,
             arrival_time=now,
@@ -239,6 +257,8 @@ class Scheduler:
             sr.deadline_at = sr.arrival_step + sr.deadline_window
         self.requests[uid] = sr
         self.queue.append(sr)
+        self.tracer.request_event(uid, "QUEUED", prompt_tokens=int(prompt.size),
+                                  priority=priority)
         return sr
 
     def _on_preempt(self, req: Request):
@@ -262,6 +282,8 @@ class Scheduler:
             return
         sr.enqueue_time = time.perf_counter()
         self.queue.insert(0, sr)
+        # (the engine records PREEMPTED for this uid once this returns)
+        self.tracer.request_event(sr.uid, "QUEUED", requeue=True, preemptions=sr.preemptions)
 
     # ---------------------------------------------------------------- policy
     def _starving(self, sr: ScheduledRequest) -> bool:
@@ -301,7 +323,9 @@ class Scheduler:
             del self.stats.admissions[: -SchedulerStats.LOG_CAP]
         # wait since the LAST enqueue: a preempted request's residency is
         # not queue wait
-        self.engine.stats.queue_wait.append(time.perf_counter() - sr.enqueue_time)
+        self.engine.stats.queue_wait.observe(time.perf_counter() - sr.enqueue_time)
+        self.tracer.request_event(sr.uid, "PREFILLING", slot=sr.slot,
+                                  prefix_matched=sr.prefill_done)
 
     def _admit_backoff(self, sr: ScheduledRequest):
         """A failed admission (pool pressure): with ``retry_backoff`` set,
@@ -348,6 +372,7 @@ class Scheduler:
             if not self.chunked:
                 # blocking admission already sampled the first token
                 sr.state = RequestState.DECODING
+                self.tracer.request_event(sr.uid, "DECODING", slot=slot)
                 self._emit_first_token(sr)
 
     # --------------------------------------------------------------- prefill
@@ -426,6 +451,7 @@ class Scheduler:
                 self.engine.next_tokens[slot, 0] = nxt
                 self.engine.ctx_lens[slot] = len(sr.req.prompt)
                 sr.state = RequestState.DECODING
+                self.tracer.request_event(sr.uid, "DECODING", slot=slot)
                 self._emit_first_token(sr)
 
     # ---------------------------------------------------------------- tokens
@@ -435,8 +461,13 @@ class Scheduler:
             # a preempted and resumed request comes here again; TTFT is the
             # time to its first first token only
             sr.first_token_time = now
-            self.engine.stats.ttft.append(now - sr.arrival_time)
+            ttft = now - sr.arrival_time
+            self.engine.stats.ttft.observe(ttft)
+            if self.engine.watchdog is not None:
+                self.engine.watchdog.observe_latency(sr.slo_class, "ttft", ttft)
+            self.tracer.request_event(sr.uid, "FIRST_TOKEN")
         sr.last_token_time = now
+        self.tracer.request_token(sr.uid)
         tok = sr.req.generated[-1]
         done = sr.req.done
         if sr.on_token:
@@ -447,8 +478,12 @@ class Scheduler:
     def _emit_decode_token(self, sr: ScheduledRequest, tok: int, done: bool):
         now = time.perf_counter()
         if sr.last_token_time >= 0:
-            self.engine.stats.tpot.append(now - sr.last_token_time)
+            tpot = now - sr.last_token_time
+            self.engine.stats.tpot.observe(tpot)
+            if self.engine.watchdog is not None:
+                self.engine.watchdog.observe_latency(sr.slo_class, "tpot", tpot)
         sr.last_token_time = now
+        self.tracer.request_token(sr.uid)
         if sr.on_token:
             sr.on_token(sr.uid, tok, done)
 
@@ -461,6 +496,7 @@ class Scheduler:
         sr.state = RequestState.FAILED
         sr.error = msg
         self.stats.poisoned += 1
+        self.tracer.request_event(sr.uid, "FAILED", error=msg)
         self.requests.pop(sr.uid, None)
 
     def cancel(self, uid: int) -> bool:
@@ -479,6 +515,7 @@ class Scheduler:
             self.engine.release_slot(slot)
         sr.state = RequestState.CANCELLED
         self.stats.cancellations += 1
+        self.tracer.request_event(uid, "CANCELLED")
         self.requests.pop(uid, None)
         return True
 
@@ -524,6 +561,7 @@ class Scheduler:
         sr.slot = -1
         sr.state = RequestState.FINISHED
         self.stats.finished += 1
+        self.tracer.request_event(sr.uid, "FINISHED", tokens=len(sr.req.generated))
         # the handle stays with the caller; the scheduler forgets it, so
         # server state stays bounded and the uid becomes reusable
         self.requests.pop(sr.uid, None)
@@ -567,6 +605,63 @@ class Scheduler:
         return self.stats
 
     def telemetry(self) -> dict:
-        """The reference's JSON snapshot of scheduler and engine counters
-        with latency histograms: not ported yet."""
-        raise NotImplementedError(f"Scheduler.telemetry() is not ported yet: {_OBS_ITEM}")
+        """JSON-friendly snapshot: scheduler counters, engine counters and
+        latency histograms, and with a perf watchdog its fire counts and
+        SLO budgets."""
+        es = self.engine.stats
+        return {
+            "steps": self.stats.steps,
+            "admitted": self.stats.admitted,
+            "finished": self.stats.finished,
+            "chunks": self.stats.chunks,
+            "chunked": self.chunked,
+            "policy": self.config.policy,
+            "stalled_chunk_ticks": self.stats.stalled_chunk_ticks,
+            "deadlock_preemptions": self.stats.deadlock_preemptions,
+            "deadline_expirations": self.stats.deadline_expirations,
+            "cancellations": self.stats.cancellations,
+            "poisoned": self.stats.poisoned,
+            "admit_backoffs": self.stats.admit_backoffs,
+            "queue_depth_max": max(self.stats.queue_depth, default=0),
+            "prefill_tokens": es.prefill_tokens,
+            "tokens_generated": es.tokens_generated,
+            "prefix_matched_tokens": es.prefix_matched_tokens,
+            "prefix_attach_count": es.prefix_attach_count,
+            "cow_copies": es.cow_copies,
+            "cascade_ticks": es.cascade_ticks,
+            "cascade_fused_ticks": es.cascade_fused_ticks,
+            "cascade_grouped_passes": es.cascade_grouped_passes,
+            "cascade_retraces": es.cascade_retraces,
+            "cascade_stability_skips": es.cascade_stability_skips,
+            "cascade_levels_max": es.cascade_levels_max,
+            "prefix_cache": dict(es.prefix_cache),
+            "spec_ticks": es.spec_ticks,
+            "spec_draft_tokens": es.spec_draft_tokens,
+            "spec_accepted_tokens": es.spec_accepted_tokens,
+            "spec_accept_rate": es.spec_accepted_tokens / max(1, es.spec_draft_tokens),
+            # the guards' and faults' counters: 0 until ROADMAP queue 1, item 12
+            "nan_ticks": es.nan_ticks,
+            "degrade_escalations": es.degrade_escalations,
+            "degrade_heals": es.degrade_heals,
+            "poisoned_slots": es.poisoned_slots,
+            "donation_aborts": es.donation_aborts,
+            "audits_run": es.audits_run,
+            "audit_failures": es.audit_failures,
+            "audit_repairs": es.audit_repairs,
+            "degraded": dict(es.degraded),
+            "faults": dict(es.faults),
+            **es.latency_dict(),
+            **self._watchdog_telemetry(),
+        }
+
+    def _watchdog_telemetry(self) -> dict:
+        """The watchdog's fire counts and per-class SLO budgets, when the
+        engine has one (empty otherwise)."""
+        wd = self.engine.watchdog
+        if wd is None:
+            return {}
+        return {
+            "watchdog": {"ticks": wd.ticks, "total_fires": wd.total_fires,
+                         "fire_counts": wd.fire_counts()},
+            "slo": {k: b.as_dict() for k, b in wd.budgets.items()},
+        }

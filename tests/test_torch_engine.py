@@ -21,6 +21,7 @@ from repro.serving.config import EngineConfig as JConfig, PagedConfig as JPaged 
 from repro.serving.engine import DecodeEngine as JEngine, Request as JRequest  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.models import params_from_numpy  # noqa: E402
+from repro_torch.obs import MetricsRegistry, Tracer  # noqa: E402
 from repro_torch.serving.config import EngineConfig, ObsConfig, PagedConfig  # noqa: E402
 from repro_torch.serving.engine import DecodeEngine, PoisonError, Request  # noqa: E402
 
@@ -165,16 +166,15 @@ def test_unservable_request_is_refused(model):
 # (tests/test_torch_cascade.py), and so are the dense-cache engine and
 # use_fast_path=False, once cases 1 and 3 (tests/test_torch_dense_engine.py;
 # with a paged engine use_fast_path=False is now the reference's
-# ValueError); those cases now hold guards (ROADMAP queue 1, item 12) and a
-# metrics registry (item 13), still to port. Speculative decode, once case
-# 2, is ported too (tests/test_torch_speculative.py); the case now holds
-# fault injection (item 12)
+# ValueError); those cases now hold guards (ROADMAP queue 1, item 12).
+# Speculative decode, once case 2, is ported too
+# (tests/test_torch_speculative.py); the case now holds fault injection
+# (item 12). The observability sinks, once two cases here, are ported:
+# test_observability_sinks_serve
 @pytest.mark.parametrize("change", [
     dict(guards=object()),
     dict(faults=object()),
-    dict(obs=ObsConfig(metrics=object())),
     dict(paged=PagedConfig(enabled=True, kv_dtype="f8")),
-    dict(obs=ObsConfig(tracer=object())),
 ])
 def test_unported_configurations_raise(model, change):
     _, cfg, _, pt = model
@@ -182,3 +182,33 @@ def test_unported_configurations_raise(model, change):
     kw.update(change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DecodeEngine(cfg, pt, EngineConfig(**kw), device="cpu")
+
+
+@pytest.mark.parametrize("sink", ["metrics", "tracer"])
+def test_observability_sinks_serve(model, sink):
+    """A metrics registry or a tracer given to the engine: it serves, the
+    registry holds the engine's counters, the tracer one ``tick`` span per
+    tick with a ``decode_kernel`` span carrying the schedule's cost."""
+    _, cfg, _, pt = model
+    obj = MetricsRegistry() if sink == "metrics" else Tracer()
+    eng = DecodeEngine(cfg, pt, EngineConfig(
+        paged=PagedConfig(enabled=True, page_size=8), obs=ObsConfig(**{sink: obj}), **SMALL),
+        device="cpu")
+    reqs = [Request(uid=i, prompt=np.arange(5 + 3 * i) % cfg.vocab_size, max_new_tokens=3)
+            for i in range(2)]
+    for r in reqs:
+        eng.submit(r)
+    eng.run_to_completion(max_ticks=20)
+    assert all(r.done for r in reqs)
+    if sink == "metrics":
+        assert eng.metrics is obj and eng.tracer.spans == []
+        d = obj.as_dict()
+        assert d["engine_ticks"] == eng.stats.ticks > 0 and d["engine_prefills"] == 2
+        assert d["kvpool_pages_in_use"] == eng.pool.num_allocated == 0
+    else:
+        assert eng.tracer is obj
+        names = [s["name"] for s in obj.spans]
+        assert names.count("tick") == names.count("decode_kernel") == eng.stats.ticks
+        assert names.count("admit") == 2
+        dk = [s for s in obj.spans if s["name"] == "decode_kernel"]
+        assert all(s["meta"]["path"] == "fast" and s["meta"]["kv_bytes"] > 0 for s in dk)

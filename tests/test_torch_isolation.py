@@ -31,8 +31,11 @@ import repro_torch.configs, repro_torch.kernels.build, repro_torch.kernels.lean_
 import repro_torch.kernels.lean_prefill, repro_torch.kernels.flash_decode
 import repro_torch.kernels.flash_prefill, repro_torch.kernels.ops
 import repro_torch.models, repro_torch.serving.engine, repro_torch.serving.scheduler
+import repro_torch.obs.__main__, repro_torch.obs.report, repro_torch.obs.watch
+import repro_torch.roofline.analysis
+obs = sorted(n for n in names if n.startswith(("repro_torch.obs", "repro_torch.roofline")))
 leaked = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
-print(json.dumps({{"modules": len(names), "leaked": leaked}}))
+print(json.dumps({{"modules": len(names), "obs": obs, "leaked": leaked}}))
 """
 
 
@@ -48,7 +51,11 @@ def test_port_imports_without_jax_or_repro():
                          timeout=300, env=_env(), cwd=str(ROOT))
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert res["modules"] >= 19, res
+    assert res["modules"] >= 37, res
+    # the observability layer and the roofline are the port's own copies
+    assert {"repro_torch.obs.trace", "repro_torch.obs.metrics", "repro_torch.obs.flight",
+            "repro_torch.obs.watch", "repro_torch.obs.calib", "repro_torch.obs.report",
+            "repro_torch.obs.__main__", "repro_torch.roofline.analysis"} <= set(res["obs"])
     assert res["leaked"] == [], f"repro modules loaded by the port: {res['leaked']}"
 
 

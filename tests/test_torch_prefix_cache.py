@@ -112,7 +112,23 @@ def test_lcp_group_passes_equal(multi_level):
                 jpc.lcp_group_passes(paths, multi_level=multi_level, min_group=min_group)
 
 
-def test_register_metrics_waits_for_obs():
-    (_, _), (_, cache) = _pair(usable=4, ps=4)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        cache.register_metrics(object())
+def test_register_metrics_matches_reference():
+    """The radix cache's gauges in each package's metrics registry, after
+    the same donation and lookups: equal exports."""
+    from repro.obs.metrics import MetricsRegistry as JRegistry
+    from repro_torch.obs.metrics import MetricsRegistry as TRegistry
+
+    sides = _pair(usable=8, ps=4)
+    regs = []
+    for (pool, cache), Registry in zip(sides, (JRegistry, TRegistry)):
+        reg = Registry()
+        cache.register_metrics(reg)
+        pages = pool.alloc("a", 3)
+        cache.insert(list(range(12)), pages)
+        pool.free_seq("a")
+        for toks in (list(range(10)), [9, 9, 9, 9], list(range(4)) + [7]):
+            cache.match(toks)
+        regs.append(reg)
+    assert regs[1].to_prometheus() == regs[0].to_prometheus()
+    d = regs[1].as_dict()
+    assert d["prefix_cache_cached_pages"] == 3 and 0 < d["prefix_cache_hit_rate"] < 1

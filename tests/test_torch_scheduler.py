@@ -343,8 +343,8 @@ def test_lifecycle_and_streaming(model):
             assert 1 in seen
         assert h.done and len(h.generated) == 6 and h.admit_step >= 0
     es = eng.stats
-    assert len(es.ttft) == len(hs) and len(es.queue_wait) == len(hs)
-    assert len(es.tpot) == es.tokens_generated
+    assert es.ttft.count == len(hs) and es.queue_wait.count == len(hs)
+    assert es.tpot.count == es.tokens_generated
     assert sum(es.tick_prefill_tokens) == es.prefill_tokens == sum(map(len, prompts))
     assert sum(es.tick_decode_tokens) >= es.tokens_generated
     assert not sch.requests and not any(eng.slot_req)
@@ -552,10 +552,27 @@ def test_deadline_backoff_and_cancel_match_jax(model):
     assert _robust_scenarios(model, "port") == _robust_scenarios(model, "jax")
 
 
-def test_observability_is_refused_until_ported(model):
+def test_slo_classes_and_telemetry(model):
+    """``submit(..., slo_class=...)`` charges each TTFT and TPOT to the
+    watchdog's budget of that class (requests of another class to none),
+    and ``telemetry()`` reports the reference's keys, with the watchdog's
+    fire counts and the SLO budgets."""
+    from repro.obs.watch import PerfWatchdog as JWatchdog, SLOConfig as JSLO
+    from repro_torch.obs.watch import PerfWatchdog, SLOConfig
+
+    slo = dict(name="interactive", ttft_target_s=600.0, tpot_target_s=600.0)
     eng = _engine(model, "port")
-    sch = tsched.Scheduler(eng)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        sch.submit([1, 2, 3], 2, slo_class="interactive")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        sch.telemetry()
+    PerfWatchdog(eng, slos=[SLOConfig(**slo)])
+    sch = tsched.Scheduler(eng, tsched.SchedulerConfig(**SCHED))
+    classes = ("interactive", "batch", "interactive")
+    hs = [sch.submit(p, 3, slo_class=c) for p, c in zip(_prompts(eng.cfg.vocab_size, n=3), classes)]
+    sch.run_to_completion(max_steps=100)
+    assert all(h.done for h in hs) and hs[1].slo_class == "batch"
+    tel = sch.telemetry()
+    budget = tel["slo"]["interactive"]
+    assert budget["events"] == 2 * 3 and budget["breaches"] == 0
+    assert tel["watchdog"]["ticks"] == sch.stats.steps     # one decode_tick a step
+    assert tel["ttft"]["count"] == 3 and tel["tokens_generated"] == eng.stats.tokens_generated
+    jeng = _engine(model, "jax")
+    JWatchdog(jeng, slos=[JSLO(**slo)])
+    assert set(tel) == set(jsched.Scheduler(jeng, jsched.SchedulerConfig(**SCHED)).telemetry())
