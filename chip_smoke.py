@@ -121,16 +121,35 @@ Phases, in order; any failure exits non-zero and nothing catches it:
      card's trace and dump; prints traced against untraced warm walls,
      the watchdog's fires, and measured ``decode_kernel`` ms against the
      roofline's prediction on the H100's peaks;
- 16. the kernel summary (one JSON line: K1-K8, the fused K4 and the int8
+ 16. guards phase (``GuardConfig`` and ``FaultInjector`` on the engine):
+     NaN isolation -- ``_fill_page(NaN)`` into one private page of one slot
+     at degraded-mode levels 0 (K2), 1 (K2, no cascade), 2 (K1 + merge),
+     3 (the ``ref`` step) and 0 under the cascade (K5), eager and
+     captured, bf16 and int8 pages: that slot's row non-finite, every other
+     row bit-identical to the untouched pass, and a zero-scrubbed page
+     handed to another slot reads finite; one audit's time; each level's
+     captured pass with one degraded slot; a poison's recovery (scrub,
+     requeue, recompute to the next token); the captured tick of a guarded
+     engine against an unguarded one in turns, with its host launch calls;
+     a fixed-seed chaos run (``nan_output``, ``nan_kv``, ``page_alloc``,
+     ``cow_clone``, ``trie_corrupt`` with repairing audits,
+     ``preempt_storm``) under the lean Scheduler with prefix sharing, bf16
+     and int8, against a fault-free run: every request finishes, the pool
+     and the radix cache check clean, the pool drains to the cache's
+     pages, the degraded gauge ends at 0, and a request no fault touched
+     keeps its fault-free stream or diverges at a top-2 gap within
+     ``GUARD_NEAR_TIE``; and the watchdog's ``occupancy_collapse`` calling
+     ``force_degrade(cause="watchdog")``;
+ 17. the kernel summary (one JSON line: K1-K8, the fused K4 and the int8
      forms of K1, K2, K4 (fused and partials) and K5: 14 entries), the
-     fused K4's launches from verify steps, the ``nvidia-smi`` line, and
-     last ``{"ok": true, "device": {...}}``.
+     fused K4's launches from verify steps, the guards phase's launches,
+     the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
 Each phase starts with a ``[seconds] phase`` line: the time since the
-script started. Phases 11-15 alone, at full width, after the build:
+script started. Phases 11-16 alone, at full width, after the build:
 
     python3 chip_smoke.py --chunk-step | --spec-step | --admission-step | --captured-step
-    python3 chip_smoke.py --obs-step
+    python3 chip_smoke.py --obs-step | --guards-step
 
 The kernel phase (3) also holds K3 (the merge kernel) against its plain
 version and ``segment_merge``, drives the two-phase ``merge_impl="pallas"``
@@ -2406,9 +2425,9 @@ def twin_bits(torch, cfg, params, config, drive):
             super().__init__(*a, **kw)
             self.outs = []
 
-        def _emit_tokens(self, active, next_all, spec=None):
-            self.served = list(active)
-            return super()._emit_tokens(active, next_all, spec)
+        def _emit_tokens(self, results, guard_on, spec=None):
+            self.served = [s for active, _, _ in results for s in active]
+            return super()._emit_tokens(results, guard_on, spec)
 
         def _run_step(self, step):
             out = super()._run_step(step)
@@ -2629,11 +2648,12 @@ def spec_engine_class():
             super().__init__(*a, **kw)
             self.rows = {}
 
-        def _emit_tokens(self, active, next_all, spec=None):
-            for s in active:
-                req = self.slot_req[s]
-                self.rows[(req.uid, len(req.generated))] = self.last_logits[s].clone()
-            return super()._emit_tokens(active, next_all, spec)
+        def _emit_tokens(self, results, guard_on, spec=None):
+            for active, _, _ in results:           # one pass: no guards here
+                for s in active:
+                    req = self.slot_req[s]
+                    self.rows[(req.uid, len(req.generated))] = self.last_logits[s].clone()
+            return super()._emit_tokens(results, guard_on, spec)
 
         def _emit_spec_tokens(self, spec, out, cap):
             before = {s: (self.slot_req[s], len(self.slot_req[s].generated)) for s in spec[0]}
@@ -3280,6 +3300,508 @@ def obs_phase(torch, cfg, params, sm_count, new_tokens, smi: str):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------------ guards
+GUARD_VICTIM, GUARD_VICTIM_TILE, GUARD_RECYCLE = 1, 2, 3   # slots of PROMPT_LENS; a full page
+GUARD_NEAR_TIE = 0.0625          # the bf16 step of a logit near 8 (PR 21's divergence rule)
+GUARD_FAULT_STOP = 14            # injector tick (of wave 2) the chaos run's faults stop at
+GUARD_TICKS = 10                 # timed replays per measured pass
+
+
+def guard_specs(FaultSpec) -> dict:
+    """The chaos run's fixed-seed fault schedule over injector ticks, which
+    count wave 2's decode ticks (``[start, GUARD_FAULT_STOP)``): in the
+    fault-free run the continuation's first chunk copies the shared page
+    before tick 1 (``cow_clone``), four slots decode from tick 4 to 15, one
+    or two to 30."""
+    stop = GUARD_FAULT_STOP
+    return {"nan_output": FaultSpec(rate=0.25, start=3, stop=stop),
+            "nan_kv": FaultSpec(rate=1.0, start=5, stop=stop, max_fires=1),
+            "page_alloc": FaultSpec(rate=0.15, start=1, stop=stop, burst=2),
+            "cow_clone": FaultSpec(rate=1.0, start=0, stop=stop, max_fires=2),
+            "trie_corrupt": FaultSpec(rate=0.3, start=1, stop=stop),
+            "preempt_storm": FaultSpec(rate=1.0, start=12, stop=stop, max_fires=1, magnitude=1)}
+
+
+def guarded_config(sm_count, kv_dtype=None, **change):
+    import dataclasses
+
+    from repro_torch.serving.guards import GuardConfig
+
+    change.setdefault("guards", GuardConfig())
+    return dataclasses.replace(engine_config("lean", sm_count, kv_dtype=kv_dtype), **change)
+
+
+def page_rows(torch, eng, page: int) -> list:
+    """Copies of page ``page`` of every pool (int8: and its scales)."""
+    return [{name: t[page].clone() for name, t in lc.items()} for lc in eng.cache]
+
+
+def restore_page(eng, page: int, rows: list):
+    for lc, saved in zip(eng.cache, rows):
+        for name, t in lc.items():
+            t[page].copy_(saved[name])
+
+
+def nan_isolation(torch, eng, level, slots, victim, tile, recycle, captured, what):
+    """One pass at ``level`` over ``slots`` three times: on the untouched
+    pools; with logical tile ``tile`` of ``victim`` (a private full page)
+    filled with NaN by ``_fill_page`` -- the victim's row must be
+    non-finite, every other row bit-identical to the untouched pass; then
+    with that page zero-scrubbed and handed to ``recycle`` as the page its
+    next token is written into (its rows there copied in, the rest the
+    scrub's zeros) -- every row finite, the recycler's bit-identical.
+    ``captured``: the untouched pass also serves as the key's warm-up and
+    capture, and the three compared passes replay one graph. The pages
+    touched (and the victim's last page, where its NaN pass wrote its
+    token, on int8 into the page's scale) are restored after."""
+    eng.capture_decode = captured
+    replays0 = eng.stats.decode_replays
+
+    def run():
+        return eng._decode_pass(level, slots, slots, set()).float()
+
+    clean = run()
+    if captured:
+        clean = run()
+    page = int(eng.page_tbl[victim, tile])
+    last = int(eng.page_tbl[victim, int(eng.ctx_lens[victim]) // eng.tile])
+    rt = int(eng.ctx_lens[recycle]) // eng.tile
+    own, n = int(eng.page_tbl[recycle, rt]), int(eng.ctx_lens[recycle]) - rt * eng.tile
+    check(len({page, last, own}) == 3 and rt not in eng._slot_shared_tiles[recycle],
+          f"{what}: pages {page}, {last}, {own}")
+    saved = {p: page_rows(torch, eng, p) for p in (page, last)}
+    eng._fill_page(page, float("nan"))
+    bad = run()
+    check(not bool(torch.isfinite(bad[victim]).all()),
+          f"{what}: the victim's row is finite over a NaN page")
+    for s in slots:
+        check(s == victim or torch.equal(bad[s], clean[s]),
+              f"{what}: slot {s}'s row moved when slot {victim}'s page held NaN")
+    restore_page(eng, last, saved[last])
+    eng._fill_page(page, 0.0)
+    for lc in eng.cache:
+        for name, t in lc.items():
+            if name.endswith("scale"):
+                t[page].copy_(t[own])
+            else:
+                t[page][:, :n].copy_(t[own][:, :n])
+    eng.page_tbl[recycle, rt] = page
+    rec = run()
+    eng.page_tbl[recycle, rt] = own
+    for p, rows in saved.items():
+        restore_page(eng, p, rows)
+    check(bool(torch.isfinite(rec[slots]).all()), f"{what}: a row is not finite over a "
+          "zero-scrubbed recycled page")
+    check(torch.equal(rec[recycle], clean[recycle]),
+          f"{what}: the recycling slot's row moved on the scrubbed page")
+    if captured:
+        check(eng.stats.decode_replays - replays0 >= 3, f"{what}: the passes did not replay")
+    eng.capture_decode = True
+
+
+def isolation_engine(torch, cfg, params, sm_count, kv_dtype):
+    """A guarded engine serving the ``PROMPT_LENS`` prompts (blocking
+    admission, one decode tick), long enough that none finishes."""
+    from repro_torch.serving.engine import DecodeEngine, Request
+
+    eng = DecodeEngine(cfg, params, guarded_config(sm_count, kv_dtype), device="cuda")
+    for r in make_requests(Request, cfg.vocab_size, 1000):
+        eng.submit(r)
+    eng.tick()
+    check(all(r is not None for r in eng.slot_req), "guards phase: a slot is idle")
+    return eng
+
+
+def cascade_isolation_engine(torch, cfg, params, sm_count, kv_dtype):
+    """The prefix waves on a guarded engine with the radix cache and the
+    cascade (``stable_ticks`` 1): wave 1 served, wave 2 prefilled until its
+    four requests all decode, every slot sharing the system prompt."""
+    from repro_torch.serving.config import CascadeConfig, PagedConfig
+    from repro_torch.serving.engine import DecodeEngine
+    from repro_torch.serving.scheduler import RequestState, Scheduler, SchedulerConfig
+
+    conf = guarded_config(sm_count, kv_dtype, cascade=CascadeConfig(enabled=True, stable_ticks=1),
+                          paged=PagedConfig(enabled=True, page_size=128, prefix_cache=True,
+                                            kv_dtype=kv_dtype))
+    eng = DecodeEngine(cfg, params, conf, device="cuda")
+    sch = Scheduler(eng, SchedulerConfig(chunk_size=SCHED_CHUNK, prefill_pack=SCHED_PACK,
+                                         token_budget=SCHED_BUDGET, chunked=True))
+    w1, w2 = prefix_waves(cfg.vocab_size)
+    sch.submit(w1[0], 4)
+    sch.run_to_completion(max_steps=200)
+    hs = [sch.submit(p, 1000) for p in w2]
+    for _ in range(200):
+        if all(h.state is RequestState.DECODING for h in hs):
+            break
+        sch.step()
+    check(all(h.state is RequestState.DECODING for h in hs), "guards phase: wave 2 not decoding")
+    return eng, sch
+
+
+def guard_isolation(torch, cfg, params, sm_count, kv_dtype, level_times: bool):
+    """NaN isolation at levels 0-3 and under the cascade (K5), eager and
+    captured, on one pool dtype; with ``level_times`` also each level's
+    captured pass with one degraded slot, the poison recovery and the
+    audit's time. Returns the measurements."""
+    tag = kv_dtype or "bf16"
+    out = {}
+    eng = isolation_engine(torch, cfg, params, sm_count, kv_dtype)
+    slots = list(range(eng.max_batch))
+    for level in range(4):
+        for captured in (False, True):
+            nan_isolation(torch, eng, level, slots, GUARD_VICTIM, GUARD_VICTIM_TILE, GUARD_RECYCLE,
+                          captured, f"guards isolation ({tag}, level {level}, "
+                          f"{'captured' if captured else 'eager'})")
+    # one audit (audit_interval 1): pool.check with the int8 scales copied out
+    eng.guard_cfg.audit_interval = 1
+    ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng._run_audits()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    eng.guard_cfg.audit_interval = 0
+    out["audit_ms"] = statistics.median(ms)
+    check(eng.stats.audit_failures == 0, f"guards phase ({tag}): an audit failed")
+    if level_times:
+        others = [s for s in slots if s != GUARD_VICTIM]
+
+        def pass_ms(level, members):
+            for _ in range(3):              # warm-up, capture, replay
+                eng._decode_pass(level, members, slots, set())
+            ts = []
+            for _ in range(GUARD_TICKS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eng._decode_pass(level, members, slots, set())
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(ts)
+
+        out["pass_ms"] = {"full": pass_ms(0, slots), "healthy 3": pass_ms(0, others),
+                          **{f"level {lv}": pass_ms(lv, [GUARD_VICTIM]) for lv in (1, 2, 3)}}
+        # a poison's recovery: scrub + requeue, then the recompute (blocking
+        # admission of prompt + generated) to the slot's next token
+        req = eng.slot_req[GUARD_VICTIM]
+        n0 = len(req.generated)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng._poison_slot(GUARD_VICTIM)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        eng._admit()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        check(eng.slot_req[GUARD_VICTIM] is req and len(req.generated) == n0 + 1,
+              "guards phase: the poisoned request did not recompute its next token")
+        check(eng.stats.poisoned_slots == 1 and eng.stats.preemptions == 1,
+              "guards phase: poison counters")
+        out["poison_ms"] = ((t1 - t0) * 1e3, (t2 - t1) * 1e3, len(req.prompt))
+    del eng
+    ceng, sch = cascade_isolation_engine(torch, cfg, params, sm_count, kv_dtype)
+    slots = list(range(ceng.max_batch))
+    victim = next(s for s in slots if any(
+        t not in ceng._slot_shared_tiles[s] and (t + 1) * ceng.tile <= ceng.ctx_lens[s]
+        for t in range(ceng.pages_per_slot)))
+    tile = next(t for t in range(ceng.pages_per_slot) if t not in ceng._slot_shared_tiles[victim]
+                and (t + 1) * ceng.tile <= ceng.ctx_lens[victim])
+    recycle = next(s for s in slots if s != victim
+                   and int(ceng.ctx_lens[s]) // ceng.tile not in ceng._slot_shared_tiles[s])
+    casc0 = ceng.stats.cascade_ticks
+    for captured in (False, True):
+        nan_isolation(torch, ceng, 0, slots, victim, tile, recycle, captured,
+                      f"guards isolation ({tag}, cascade, {'captured' if captured else 'eager'})")
+    n_casc = ceng.stats.cascade_ticks - casc0
+    check(n_casc == 7, f"guards phase ({tag}): {n_casc} of 7 cascade passes ran the cascade")
+    out["cascade"] = (victim, tile, recycle)
+    del ceng, sch
+    return out
+
+
+def guard_cost(torch, cfg, params, sm_count, new_tokens):
+    """The captured decode tick of a guarded, fault-free engine (audits off)
+    against an unguarded one, in turns (unguarded, guarded, guarded,
+    unguarded): tick p50 and tokens; then ``TRACED_TICKS`` warm ticks of
+    each under ``torch.profiler``: host launch calls per replayed tick."""
+    from repro_torch.serving.engine import DecodeEngine, Request
+
+    class Marked(DecodeEngine):
+        def decode_tick(self, exclude=None):
+            before = (self.stats.decode_replays, self.stats.step_captures)
+            with torch.profiler.record_function(MARKS[1]):
+                out = super().decode_tick(exclude)
+            self.replayed = (self.stats.decode_replays == before[0] + 1
+                             and self.stats.step_captures == before[1])
+            return out
+
+    confs = {"unguarded": engine_config("lean", sm_count),
+             "guarded": guarded_config(sm_count)}
+    p50, streams, calls = {}, {}, {}
+    for name in ("unguarded", "guarded", "guarded", "unguarded"):
+        eng = Marked(cfg, params, confs[name], device="cuda")
+        reqs = make_requests(Request, cfg.vocab_size, new_tokens)
+        _, ticks, _ = drive(torch, eng, reqs)
+        p50.setdefault(name, []).append(statistics.median(dt for dt, _ in ticks) * 1e3)
+        streams.setdefault(name, [list(r.generated) for r in reqs])
+        if name in calls:
+            continue
+        for r in make_requests(Request, cfg.vocab_size, new_tokens):
+            eng.submit(r)
+        for _ in range(3):              # admission, then warm replayed ticks
+            eng.tick()
+        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                  torch.profiler.ProfilerActivity.CUDA])
+        replayed = []
+        with prof:
+            for _ in range(TRACED_TICKS):
+                eng.tick()
+                replayed.append(eng.replayed)
+            torch.cuda.synchronize()
+        per_tick = launches_in_marks(prof, MARKS[1])
+        check(len(per_tick) == TRACED_TICKS and any(replayed),
+              f"guard cost ({name}): {len(per_tick)} marked ticks, replayed {replayed}")
+        calls[name] = sorted({c for c, r in zip(per_tick, replayed) if r})
+        check(eng.stats.nan_ticks == 0 and eng.degraded_gauge.value == 0,
+              f"guard cost ({name}): a healthy engine tripped its guard")
+        del eng
+    check(streams["guarded"] == streams["unguarded"],
+          "guard cost: the guarded engine's streams differ from the unguarded one's")
+    return {"p50": p50, "calls": calls}
+
+
+def guard_chaos_run(torch, cfg, params, sm_count, new_tokens, kv_dtype, faults):
+    """The prefix waves through the lean Scheduler on a guarded engine (radix
+    cache, cascade, ``audit_interval`` 4 with repair, the watchdog on):
+    wave 1 (the donor) fault-free, then an exact continuation of its chain
+    and wave 2 under ``faults`` (an injector, or None for the fault-free
+    run); then quiesced (faults stopped, 8 idle ticks). Records each request's
+    first-token and decode logits rows (one pass a tick when nothing is
+    degraded), the requests a fault touched (a non-finite row, a
+    preemption), launches, captures and the wall."""
+    import numpy as np
+
+    from repro_torch.serving.config import CascadeConfig, ObsConfig, PagedConfig
+    from repro_torch.serving.engine import DecodeEngine
+    from repro_torch.serving.guards import GuardConfig
+    from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
+
+    class Chaos(DecodeEngine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.first_rows, self.rows, self.touched = {}, {}, set()
+
+        def prefill_chunks_tick(self, work, pack_width, chunk_cap):
+            toks = super().prefill_chunks_tick(work, pack_width, chunk_cap)
+            for i, (slot, chunk, off) in enumerate(work):
+                req = self.slot_req[slot]
+                if off + len(chunk) == len(req.prompt):
+                    self.first_rows[(req.uid, len(req.generated))] = \
+                        self.last_prefill_logits[i].float()
+            return toks
+
+        def _emit_tokens(self, results, guard_on, spec=None):
+            if len(results) == 1:
+                for s in results[0][0]:
+                    req = self.slot_req[s]
+                    self.rows[(req.uid, len(req.generated))] = self.last_logits[s].float()
+            return super()._emit_tokens(results, guard_on, spec)
+
+        def _on_bad_slot(self, s):
+            self.touched.add(self.slot_req[s].uid)
+            super()._on_bad_slot(s)
+
+        def _preempt(self, slot):
+            self.touched.add(self.slot_req[slot].uid)
+            super()._preempt(slot)
+
+    conf = guarded_config(
+        sm_count, kv_dtype, faults=faults,
+        guards=GuardConfig(heal_after=2, audit_interval=4, audit_action="repair"),
+        cascade=CascadeConfig(enabled=True, stable_ticks=2), obs=ObsConfig(watchdog=True),
+        paged=PagedConfig(enabled=True, page_size=128, prefix_cache=True, kv_dtype=kv_dtype))
+    eng = Chaos(cfg, params, conf, device="cuda")
+    sch = Scheduler(eng, SchedulerConfig(chunk_size=SCHED_CHUNK, prefill_pack=SCHED_PACK,
+                                         token_budget=SCHED_BUDGET, chunked=True, retry_backoff=1,
+                                         deadline_steps=400, max_preemptions=30))
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w1, w2 = prefix_waves(cfg.vocab_size)
+    if faults is not None:
+        faults.enabled = False          # the donor wave runs fault-free
+    donor = sch.submit(w1[0], new_tokens, uid=0)
+    sch.run_to_completion(max_steps=800)
+    if faults is not None:
+        faults.enabled = True
+    # an exact continuation of the donated chain shares its partial last
+    # page, so its first chunk copies it first (the cow_clone point)
+    cont = np.concatenate([w1[0], np.asarray(donor.generated, np.int32),
+                           np.random.default_rng(7).integers(0, cfg.vocab_size, 5)])
+    prompts = {i: [int(t) for t in p] for i, p in enumerate(w1 + [cont] + w2)}
+    handles = [donor] + [sch.submit(p, new_tokens, uid=1 + i) for i, p in enumerate([cont] + w2)]
+    sch.run_to_completion(max_steps=800)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tag = f"guards chaos ({kv_dtype or 'bf16'}, {'faults' if faults else 'fault-free'})"
+    check(all(h.done and len(h.generated) == new_tokens for h in handles),
+          f"{tag}: a request did not finish: {[(h.uid, h.state.value) for h in handles]}")
+    counts = launch_counts()
+    path_counts(tag)
+    if faults is not None:
+        faults.stop_all()
+    for _ in range(8):
+        eng.tick()
+    eng.pool.check(scales=eng._kv_scale_arrays())
+    eng.prefix_cache.check()
+    check(eng.pool.num_allocated == eng.prefix_cache.cached_pages,
+          f"{tag}: {eng.pool.num_allocated} pages held, the radix cache holds "
+          f"{eng.prefix_cache.cached_pages}")
+    check(eng.degraded_gauge.value == 0, f"{tag}: the degraded gauge ended at "
+          f"{eng.degraded_gauge.value}")
+    st = eng.stats
+    return {"eng": eng, "streams": {h.uid: list(h.generated) for h in handles}, "wall": wall,
+            "prompts": prompts,
+            "counts": counts, "captures": st.step_captures,
+            "stats": {k: getattr(st, k) for k in (
+                "nan_ticks", "degrade_escalations", "degrade_heals", "poisoned_slots",
+                "preemptions", "audits_run", "audit_failures", "audit_repairs",
+                "donation_aborts", "cascade_ticks")},
+            "retrace_storms": eng.watchdog.fire_counts()["retrace_storm"],
+            "scheduler_poisoned": sch.stats.poisoned}
+
+
+def guard_chaos(torch, cfg, params, sm_count, new_tokens, kv_dtype):
+    """The fixed-seed chaos run against the fault-free one on one pool
+    dtype: contracts checked in each run; the requests no fault touched
+    keep the fault-free streams, or diverge only at a near tie of the
+    fault-free logits (top-2 gap <= ``GUARD_NEAR_TIE``)."""
+    from repro_torch.serving.faults import FaultInjector, FaultSpec
+
+    base = guard_chaos_run(torch, cfg, params, sm_count, new_tokens, kv_dtype, None)
+    inj = FaultInjector(guard_specs(FaultSpec), seed=23)
+    run = guard_chaos_run(torch, cfg, params, sm_count, new_tokens, kv_dtype, inj)
+    tag = kv_dtype or "bf16"
+    fires = {p: v["fires"] for p, v in inj.as_dict()["points"].items()}
+    check(all(fires.values()), f"guards chaos ({tag}): a point never fired: {fires}")
+    st = run["stats"]
+    check(st["poisoned_slots"] >= 1 and st["degrade_heals"] >= 1 and st["audit_repairs"] >= 1,
+          f"guards chaos ({tag}): no poison, heal or repair: {st}")
+    # the poisoned slot rode the chain: a level-1 pass (K2) and a level-2 one (K1)
+    check(run["counts"]["K1"] >= cfg.n_layers and run["counts"]["K2"] > 0,
+          f"guards chaos ({tag}): launches {run['counts']}")
+    # a continuation of a donor whose stream differs continues another chain
+    touched = run["eng"].touched | {uid for uid in base["prompts"]
+                                    if base["prompts"][uid] != run["prompts"][uid]}
+    equal, gaps = 0, []
+    for uid, want in base["streams"].items():
+        if uid in touched:
+            continue
+        got = run["streams"][uid]
+        if got == want:
+            equal += 1
+            continue
+        k = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+        row = base["eng"].rows.get((uid, k), base["eng"].first_rows.get((uid, k)))
+        check(row is not None, f"guards chaos ({tag}): no fault-free row at request {uid} "
+              f"token {k}")
+        top = torch.topk(row, 2).values
+        gap = float(top[0] - top[1])
+        gaps.append((uid, k, gap))
+        check(gap <= GUARD_NEAR_TIE, f"guards chaos ({tag}): untouched request {uid} diverges "
+              f"at token {k} with a top-2 gap of {gap} > {GUARD_NEAR_TIE}")
+    out = {"fires": fires, "stats": st, "touched": sorted(touched), "equal": equal,
+           "untouched": len(base["streams"]) - len(touched), "gaps": gaps,
+           "extra_captures": run["captures"] - base["captures"],
+           "walls": (base["wall"], run["wall"]), "counts": run["counts"],
+           "storms": (base["retrace_storms"], run["retrace_storms"]),
+           "scheduler_poisoned": run["scheduler_poisoned"]}
+    del base["eng"], run["eng"]
+    return out
+
+
+def watchdog_degrade(torch, cfg, params, sm_count):
+    """``WatchConfig(degrade_on_collapse=True)`` on a traced guarded engine
+    with a calibration that puts every tick out of band: the occupancy
+    detector fires once and calls ``force_degrade(cause="watchdog")``; the
+    cause counter, the flight event and the heal back to 0 are checked."""
+    from repro_torch.obs import Tracer
+    from repro_torch.obs.calib import Calibration
+    from repro_torch.obs.watch import PerfWatchdog, WatchConfig
+    from repro_torch.serving.config import ObsConfig
+    from repro_torch.serving.engine import DecodeEngine, Request
+
+    eng = DecodeEngine(cfg, params, guarded_config(sm_count, obs=ObsConfig(tracer=Tracer())),
+                       device="cuda")
+    wd = PerfWatchdog(eng, WatchConfig(degrade_on_collapse=True, warmup_ticks=0,
+                                       occupancy_consecutive=2, cooldown_ticks=10_000),
+                      calibration=Calibration(default=1e-9))
+    check(eng.watchdog is wd, "watchdog phase: the watchdog did not attach")
+    reqs = make_requests(Request, cfg.vocab_size, 12)
+    drive(torch, eng, reqs)
+    moved = eng._degrade_cause.labels(cause="watchdog").value
+    events = [e for e in eng.flight.events() if e["kind"] == "degrade"]
+    check(wd.fire_counts()["occupancy_collapse"] == 1 and moved == len(reqs),
+          f"watchdog phase: {wd.fire_counts()['occupancy_collapse']} collapse fires, "
+          f"{moved} slots degraded by the watchdog")
+    check(len(events) == moved and all(e["cause"] == "watchdog" for e in events),
+          f"watchdog phase: degrade events {events}")
+    check(eng.stats.degrade_heals >= moved and eng.degraded_gauge.value == 0
+          and eng.degraded_gauge.peak == len(reqs),
+          f"watchdog phase: heals {eng.stats.degrade_heals}, gauge {eng.degraded_gauge.value} "
+          f"(peak {eng.degraded_gauge.peak})")
+    return {"moved": moved, "heals": eng.stats.degrade_heals, "peak": eng.degraded_gauge.peak}
+
+
+def guards_phase(torch, cfg, params, sm_count, new_tokens, smi: str):
+    """Guards and fault injection at full width (lean, pages of 128, one
+    stream-K worker per SM): NaN isolation at levels 0-3 and the cascade,
+    eager and captured, bf16 and int8; the guard's cost on a captured tick;
+    each level's captured pass with one degraded slot, a poison's recovery
+    and an audit; the fixed-seed chaos run under the Scheduler with prefix
+    sharing, bf16 and int8, against a fault-free run; the watchdog's
+    degrade. Returns the chaos run's launches (bf16)."""
+    t0 = time.perf_counter()
+    iso = {dt: guard_isolation(torch, cfg, params, sm_count, dt, level_times=dt is None)
+           for dt in (None, "int8")}
+    print(f"guards phase ({smi}): NaN isolation holds at levels 0-3 and under the cascade "
+          f"(K5), eager and captured, bf16 and int8: the victim's row non-finite, every other "
+          f"row bit-identical, a zero-scrubbed recycled page finite (cascade victim, tile, "
+          f"recycler: bf16 {iso[None]['cascade']}, int8 {iso['int8']['cascade']}); one audit "
+          f"{iso[None]['audit_ms']:.3f} ms bf16, {iso['int8']['audit_ms']:.3f} ms int8 "
+          f"({2 * cfg.n_layers} scale arrays copied)", flush=True)
+    pm = iso[None]["pass_ms"]
+    scrub, recompute, plen = iso[None]["poison_ms"]
+    print(f"guards phase: captured pass ms (bf16, p50 of {GUARD_TICKS}): all 4 slots at level "
+          f"0 {pm['full']:.3f}; one degraded slot: the 3 healthy at level 0 "
+          f"{pm['healthy 3']:.3f}, the victim at level 1 {pm['level 1']:.3f}, level 2 "
+          f"{pm['level 2']:.3f}, level 3 {pm['level 3']:.3f}; a poison's recovery: scrub + "
+          f"requeue {scrub:.3f} ms, recompute ({plen}-token prompt) to the next token "
+          f"{recompute:.3f} ms", flush=True)
+    cost = guard_cost(torch, cfg, params, sm_count, new_tokens)
+    print(f"guards phase: decode tick p50 ms in turns (unguarded, guarded, guarded, "
+          f"unguarded): {cost['p50']['unguarded'][0]:.3f}, {cost['p50']['guarded'][0]:.3f}, "
+          f"{cost['p50']['guarded'][1]:.3f}, {cost['p50']['unguarded'][1]:.3f}; host launch "
+          f"calls per replayed tick: unguarded {cost['calls']['unguarded']}, guarded "
+          f"{cost['calls']['guarded']}; streams equal", flush=True)
+    chaos = {}
+    for dt in (None, "int8"):
+        c = chaos[dt] = guard_chaos(torch, cfg, params, sm_count, new_tokens, dt)
+        print(f"guards chaos ({dt or 'bf16'}): fires {c['fires']} (stopped at injector tick "
+              f"{GUARD_FAULT_STOP}); {c['stats']}; scheduler poisoned {c['scheduler_poisoned']}; "
+              f"touched requests {c['touched']}, untouched streams equal to the fault-free run "
+              f"{c['equal']}/{c['untouched']}, divergences (uid, token, top-2 gap) {c['gaps']}; "
+              f"extra captures {c['extra_captures']}; retrace_storm fires fault-free / chaos "
+              f"{c['storms']}; wall fault-free {c['walls'][0]:.2f} s, chaos "
+              f"{c['walls'][1]:.2f} s; launches {c['counts']}; every request finished, pool "
+              f"clean and drained to the radix cache's pages, trie clean, gauge 0", flush=True)
+    wd = watchdog_degrade(torch, cfg, params, sm_count)
+    print(f"guards phase: watchdog occupancy_collapse -> force_degrade(cause='watchdog'): "
+          f"{wd['moved']} slots, cause counter {wd['moved']}, flight events cause 'watchdog', "
+          f"heals {wd['heals']}, gauge peak {wd['peak']} back to 0; phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return chaos[None]["counts"]
+
+
 def main() -> int:
     import torch
 
@@ -3332,7 +3854,8 @@ def main() -> int:
               "checkout of the repository", file=sys.stderr)
         return 2
 
-    alone = {"--captured-step", "--chunk-step", "--spec-step", "--admission-step", "--obs-step"}
+    alone = {"--captured-step", "--chunk-step", "--spec-step", "--admission-step", "--obs-step",
+             "--guards-step"}
     if sys.argv[1:2] and sys.argv[1] in alone:
         torch.backends.cuda.matmul.allow_tf32 = False
         sm_count = torch.cuda.get_device_properties(0).multi_processor_count
@@ -3351,6 +3874,8 @@ def main() -> int:
             spec_phase(torch, cfg, params, sm_count, smi)
         elif sys.argv[1] == "--obs-step":
             obs_phase(torch, cfg, params, sm_count, 16, smi)
+        elif sys.argv[1] == "--guards-step":
+            guards_phase(torch, cfg, params, sm_count, 16, smi)
         else:
             admission_phase(torch, cfg, params, sm_count, smi)
         clock("done")
@@ -3553,6 +4078,11 @@ def main() -> int:
     # against untraced, the CLI on the card's trace and flight dump
     obs_phase(torch, cfg, params, sm_count, new_tokens, smi)
 
+    clock("guards phase")
+    # 16. guards and fault injection: NaN isolation on every decode path,
+    # the guard's cost, the degraded levels' passes, chaos under the Scheduler
+    guard_counts = guards_phase(torch, cfg, params, sm_count, new_tokens, smi)
+
     clock("summary")
     # 16. summary: kernel times in bf16 at the main path's shapes; launches
     # from the run of the path each kernel serves
@@ -3604,6 +4134,8 @@ def main() -> int:
         })
     print(f"fused K4 launches from the spec phase's verify steps (bf16 pages, oracle): "
           f"{k4_verify}", flush=True)
+    print(f"launches in the guards phase's chaos run (bf16 pages; K1 from level-2 passes, K2 "
+          f"also from level-1 ones): {guard_counts}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -30,8 +30,8 @@ convention). Consumers:
 
 Path labels come from the engine's span annotations: ``fast`` (batched
 fast path), ``cascade`` (shared-prefix suffix schedule), ``legacy``
-(per-tick schedule), ``fallback`` (the guards' degraded passes, ROADMAP
-queue 1, item 12).
+(per-tick schedule), ``fallback`` (the guards' degraded passes at levels
+1 and 2).
 """
 from __future__ import annotations
 

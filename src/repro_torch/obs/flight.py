@@ -7,9 +7,9 @@ production. When something goes wrong, :meth:`dump` snapshots the ring
 plus a reason and context into a JSON postmortem bundle: "what happened
 in the last N ticks before this", answerable after the fact with no
 tracing enabled. The perf watchdog dumps on every detector fire; the
-self-healing guards and the fault injector, which dump on degrade,
-poison and injected faults in the reference, are ROADMAP queue 1, item
-12.
+self-healing guards dump on a degrade, a poison and a failed audit, and
+the engine on a tick whose fault injector fired (each fire is a
+``fault_fire`` event).
 """
 from __future__ import annotations
 

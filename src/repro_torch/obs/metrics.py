@@ -45,8 +45,8 @@ class Gauge:
     Used for the engine's degraded-mode gauge: ``value`` is the number of
     slots currently off the fast path, ``peak`` the worst simultaneous
     degradation seen, and ``ticks_nonzero`` how many updates observed a
-    non-zero value (the guards that move it are ROADMAP queue 1, item
-    12)."""
+    non-zero value (moved by the guards,
+    :mod:`repro_torch.serving.guards`)."""
 
     def __init__(self):
         self.value = 0

@@ -113,6 +113,28 @@ warm-up and capture); a live ``decode_kernel``, ``prefill_chunk`` or
 the wait to its ``sync_ms``, as the reference blocks on its jitted step.
 Tracing changes no step key.
 
+Self-healing and fault injection (:mod:`repro_torch.serving.guards`,
+:mod:`repro_torch.serving.faults`; ``EngineConfig.guards`` / ``faults``,
+paged engines only) are the reference's. With a :class:`GuardConfig`
+every decode pass's logits are screened (the argmax and a per-row
+``all(isfinite)``, one device-to-host copy); a slot with a non-finite row
+emits nothing that tick and steps down the degraded-mode chain, one pass
+per level with every other slot masked as ``exclude`` masks them: level 0
+is the configured path (the cascade included), level 1 the paged lean
+step with K2 and no cascade, level 2 the same with K1 + ``segment_merge``,
+level 3 the ``ref`` step (a non-lean backend goes from 0 straight to 3).
+Each level's step is keyed by its backend and ``fused`` as any other
+step, and captured alike. ``heal_after`` finite ticks climb one level
+back; ``poison_after`` non-finite ticks at ``max_degrade`` poison the slot:
+its private pages are zero-filled in place, its shared pages withdrawn
+from the radix cache, and it is preempted to recompute. Periodic audits
+(``audit_interval``) check the pool (with the int8 scales) and the radix
+cache and raise, repair or log. A :class:`FaultInjector` is consulted at
+the reference's points: ``page_alloc`` and ``cow_clone`` where pages are
+taken, ``nan_output``, ``nan_kv``, ``trie_corrupt``, ``tick_latency`` and
+``preempt_storm`` once a tick, and a failed radix insert counts
+``donation_aborts``.
+
 Configurations outside this slice raise ``NotImplementedError`` naming
 their ROADMAP item.
 """
@@ -123,6 +145,7 @@ import functools
 import gc
 import math
 import time
+import warnings
 import weakref
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
@@ -179,15 +202,16 @@ from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.roofline.analysis import schedule_decode_cost
 from repro_torch.serving.config import EngineConfig
+from repro_torch.serving.faults import corrupt_trie_node
+from repro_torch.serving.guards import (  # noqa: F401  (PoisonError: re-exported)
+    DEGRADE_CAUSES,
+    DEGRADE_LEVELS,
+    FatalInvariantError,
+    PoisonError,
+)
 from repro_torch.serving.kvpool import KVLayout, KVPagePool
 from repro_torch.serving.prefix_cache import RadixPrefixCache, lcp_group_passes
 from repro_torch.serving.speculative import NGramProposer
-
-
-class PoisonError(RuntimeError):
-    """A request that can never be served (port of
-    ``repro.serving.guards.PoisonError``; the guards arrive with ROADMAP
-    queue 1, item 12)."""
 
 
 @dataclass
@@ -206,8 +230,7 @@ class Request:
 
 
 # Counter-valued EngineStats fields, published to the metrics registry as
-# ``engine_<name>`` counters (the reference's names; the guard and fault
-# counters stay 0 until ROADMAP queue 1, item 12)
+# ``engine_<name>`` counters (the reference's names)
 _STAT_COUNTERS = (
     "ticks",
     "tokens_generated",
@@ -268,8 +291,8 @@ class EngineStats:
         self.kv_pool: dict = {}
         self.prefix_cache: dict = {}
         self.cascade_last: dict = {}
-        self.degraded: dict = {}          # the guards' gauge snapshot (item 12)
-        self.faults: dict = {}            # the injector's fire counts (item 12)
+        self.degraded: dict = {}          # the guards' degraded-slots gauge snapshot
+        self.faults: dict = {}            # the injector's as_dict()
         self.tick_decode_tokens: List[int] = []
         self.tick_prefill_tokens: List[int] = []
         self.ttft = self.registry.histogram("engine_ttft_seconds", help="time to first token")
@@ -380,6 +403,17 @@ def _weak_hook(method: Callable) -> Callable:
     return hook
 
 
+def _screen_logits(logits: torch.Tensor) -> Tuple[np.ndarray, np.ndarray]:
+    """Guarded sampling (reference ``_screen_logits``, and the verdict of
+    its ``_spec_verify_step``): the greedy tokens of ``logits (B, ..., V)``
+    and, per slot, whether all its logits are finite, moved to the host in
+    one copy."""
+    tok = logits.argmax(dim=-1)
+    fin = torch.isfinite(logits).flatten(1).all(dim=1)
+    both = torch.cat((tok.flatten(), fin.long())).cpu().numpy()
+    return both[:tok.numel()].reshape(tuple(tok.shape)), both[tok.numel():].astype(bool)
+
+
 def _cache_ptrs(cache) -> tuple:
     return tuple(t.data_ptr() for lc in cache for t in lc.values())
 
@@ -388,8 +422,6 @@ def _cache_ptrs(cache) -> tuple:
 def _unported(cfg: ModelConfig, config: EngineConfig) -> Optional[str]:
     if (config.paged.kv_dtype or cfg.kv_cache_dtype) not in ("bf16", "int8"):
         return "f8, f16 and f32 KV pools (ROADMAP queue 1, item 18)"
-    if config.guards is not None or config.faults is not None:
-        return "guards and fault injection (ROADMAP queue 1, item 12)"
     return None
 
 
@@ -465,15 +497,34 @@ class DecodeEngine:
         if obs.flight is not None and obs.flight_dir is not None:
             self.flight.dump_dir = obs.flight_dir
         self._sched_costs: dict = {}    # schedule -> roofline cost meta
-        # the guards' degrade state, registered as in the reference; it
-        # stays 0 until the guards are ported (ROADMAP queue 1, item 12)
-        self.guard_cfg = None
+        self._tick_dumped = False       # one injected-fault dump per tick
+        self._fires_dumped = 0          # injector fires already dumped
+
+        # fault injection and the self-healing guards, both off by default:
+        # then every hook below is one ``is None`` test
+        self.faults = config.faults
+        if self.faults is not None and self.faults.recorder is None:
+            # every fire logs a fault_fire event, so a dump names its point
+            self.faults.recorder = self.flight
+        if config.guards is not None and not self.paged:
+            raise ValueError(
+                "guards (self-healing) require paged=True: quarantining a slot masks "
+                "it via null page-table rows, and poison recovery is recompute-resume "
+                "preemption -- both are paged mechanisms"
+            )
+        self.guard_cfg = config.guards
+        # each slot's place on the degraded-mode chain (guards.DEGRADE_LEVELS)
+        # and its runs of consecutive bad and good ticks
+        self._slot_degrade = [0] * config.max_batch
+        self._slot_bad = [0] * config.max_batch
+        self._slot_good = [0] * config.max_batch
         self.degraded_gauge = self.metrics.gauge(
             "engine_degraded_slots", help="live slots off the fast path")
         self._degrade_cause = self.metrics.counter(
             "engine_degrade_cause_total",
             help="degrade escalations by cause (see guards.DEGRADE_CAUSES)",
             labelnames=("cause",))
+        self._audit_clock = 0
 
         self.cache_len = config.cache_len
         self.attn_backend = config.attn_backend
@@ -778,7 +829,13 @@ class DecodeEngine:
     def _pool_alloc(self, seq, n: int):
         """Pool allocation with radix-cache backpressure: on exhaustion,
         evict least recently used unreferenced cache leaves and retry once.
-        Cached pages are elastic capacity; live requests always win."""
+        Cached pages are elastic capacity; live requests always win.
+
+        Fault point ``page_alloc``: an injected failure looks exactly like
+        exhaustion (None), so every caller runs its real retry, preempt or
+        backoff path."""
+        if self.faults is not None and self.faults.fire("page_alloc"):
+            return None
         got = self.pool.alloc(seq, n)
         if got is None and self.prefix_cache is not None:
             need = n - self.pool.num_free
@@ -813,6 +870,21 @@ class DecodeEngine:
         self.stats.prefix_attach_count += 1
         return matched
 
+    def _fill_page(self, page: int, value: float):
+        """Overwrite page ``page`` of every layer's pools with ``value``, in
+        place (reference ``_fill_page``, ``repro/serving/engine.py:457-502``):
+        NaN-poisoning a victim page under fault injection, and zero-scrubbing
+        a poisoned slot's private pages before they return to the free list
+        (a recycled page may be read through masked columns, where finite
+        garbage is harmless and NaN is not). int8 pools cannot hold NaN: the
+        content is filled with 0 and the page's scales with ``value``, so a
+        NaN page dequantizes to ``0 * NaN = NaN`` and a scrub to exact
+        zeros. The pool tensors stay the same objects, so no captured step
+        is captured anew."""
+        for lc in self.cache:
+            for name, t in lc.items():
+                t[page].fill_(0 if t.dtype == torch.int8 else value)
+
     def _copy_page(self, src: int, dst: int):
         """Copy-on-write's device side: page ``src`` onto page ``dst`` in
         every layer's K and V pools, in place (the reference clones it into
@@ -827,7 +899,10 @@ class DecodeEngine:
         lands in a shared page: copy the page onto a fresh one, swap the
         table entry, release the share. Returns False (state unchanged)
         when no page can be had now. The copy is traced as the ``cow``
-        span."""
+        span. Fault point ``cow_clone``: an injected failure returns False
+        with nothing changed, as a failed allocation does."""
+        if self.faults is not None and self.faults.fire("cow_clone"):
+            return False
         old = int(self.page_tbl[slot, t])
         got = self._pool_alloc(slot, 1)
         if got is None:
@@ -990,14 +1065,17 @@ class DecodeEngine:
 
     # ---------------------------------------------------------- speculative
     def _spec_select(self, active: List[int]) -> List[int]:
-        """The slots running a verify step this tick: those whose context
-        leaves room for the whole ``k + 1`` block and whose pages (grown,
-        and copied where shared, as a prefill chunk's) cover its writes.
-        The others decode one token this tick."""
+        """The slots running a verify step this tick: those that are healthy
+        (degraded-mode level 0), whose context leaves room for the whole
+        ``k + 1`` block and whose pages (grown, and copied where shared, as
+        a prefill chunk's) cover its writes. The others decode one token
+        this tick."""
         R = self.spec_k + 1
         cap = min(self.cache_len, self.pages_per_slot * self.tile)
         out = []
         for s in active:
+            if self.guard_cfg is not None and self._slot_degrade[s]:
+                continue
             ctx = int(self.ctx_lens[s])
             if ctx + R > cap:
                 continue
@@ -1006,15 +1084,17 @@ class DecodeEngine:
             out.append(s)
         return out
 
-    def _spec_verify(self, slots: List[int]):
+    def _spec_verify(self, slots: List[int], guard_on: bool = False):
         """The verify step for ``slots`` (``repro/serving/engine.py:
         1905-1965``): one chunk-shaped forward whose chunk per slot is
         ``[last emitted token, drafts...]``, written at positions ``ctx ..
         ctx + len - 1``. Other slots are masked chunk-style (offs and lens
         0, table rows null), so their K/V are neither read nor written.
         Runs through :meth:`_run_step` (captured on the card). Returns
-        ``(slots, rows (B, k+1) greedy tokens, drafts)``: rejected drafts
-        need no undo, their K/V lie past the committed ``ctx_lens``."""
+        ``(slots, rows (B, k+1) greedy tokens, finite (B,) or None,
+        drafts)``, the verdict with ``guard_on`` (every row of a slot
+        finite), screened as a decode pass's: rejected drafts need no undo,
+        their K/V lie past the committed ``ctx_lens``."""
         R = self.spec_k + 1
         N = self.max_batch
         toks = np.zeros((N, R), dtype=np.int32)
@@ -1047,8 +1127,11 @@ class DecodeEngine:
             if sp:
                 self._sync(sp)
         self.last_verify_logits = logits
+        if guard_on:
+            rows, fin = _screen_logits(logits)
+            return slots, rows, fin, drafts
         rows = logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
-        return slots, rows, drafts
+        return slots, rows, None, drafts
 
     def _emit_spec_tokens(self, spec, out: Dict[int, List[int]], cap: int) -> int:
         """Greedy acceptance of this tick's verify step: draft ``i + 1``
@@ -1056,11 +1139,16 @@ class DecodeEngine:
         stood, so the stream is plain greedy decode's. A slot emits its
         accepted drafts plus the first disagreeing row's token; ``ctx_lens``
         advances by that count, and the page-table tail past it is dead.
-        Returns the tokens emitted."""
-        slots, rows, drafts = spec
+        A slot whose verify rows are not all finite is quarantined as a
+        decode pass's: nothing emitted, its context unchanged (the K/V the
+        step wrote lie past it). Returns the tokens emitted."""
+        slots, rows, finite, drafts = spec
         n_emitted = 0
         for s in slots:
             req = self.slot_req[s]
+            if finite is not None and not bool(finite[s]):
+                self._on_bad_slot(s)
+                continue
             d = drafts[s]
             a = 0
             while a < len(d) and int(rows[s, a]) == d[a]:
@@ -1117,6 +1205,7 @@ class DecodeEngine:
         self.ctx_lens[slot] = 0
         self._slot_shared_tiles[slot] = set()
         self._slot_prefix_full[slot] = 0
+        self._reset_guard(slot)
         fresh = req.generated[req.folded:]
         req.prompt = np.concatenate(
             [np.asarray(req.prompt), np.asarray(fresh, dtype=np.asarray(req.prompt).dtype)]
@@ -1144,9 +1233,8 @@ class DecodeEngine:
     def _donate_to_prefix_cache(self, slot: int, req: Optional[Request]):
         """Offer a finishing slot's KV pages to the radix cache before its
         references are released: cached blocks outlive the release and
-        serve later prompts that start with the same tokens. (The
-        reference also survives an insert that fails under fault injection,
-        counting ``donation_aborts``; faults are ROADMAP queue 1, item 12.)"""
+        serve later prompts that start with the same tokens. An insert that
+        fails counts ``donation_aborts``."""
         if self.prefix_cache is None or req is None:
             return
         n_tok = int(self.ctx_lens[slot])
@@ -1160,7 +1248,13 @@ class DecodeEngine:
         if len(toks) == 0:
             return
         pages = self.page_tbl[slot, : -(-len(toks) // self.tile)].tolist()
-        self.prefix_cache.insert(toks.tolist(), pages)
+        # insert() is all-or-nothing (it unwinds its own partial growth), so
+        # a failed donation costs only the cache entry: the slot still
+        # releases cleanly and the pool and trie invariants hold
+        try:
+            self.prefix_cache.insert(toks.tolist(), pages)
+        except Exception:
+            self.stats.donation_aborts += 1
 
     def release_slot(self, slot: int):
         """Finish a slot: donate its KV to the radix cache (when there is
@@ -1170,6 +1264,7 @@ class DecodeEngine:
         self.slot_req[slot] = None
         self.ctx_lens[slot] = 0
         self._free_slot_pages(slot)
+        self._reset_guard(slot)
 
     def _free_slot_pages(self, slot: int):
         if not self.paged:
@@ -1280,7 +1375,11 @@ class DecodeEngine:
         masked out of the single-token step the same way.
 
         This wrapper owns the per-tick observability: the ``tick`` span,
-        one flight-recorder event, and the watchdog's hook."""
+        one flight-recorder event, a postmortem dump when the injector fired
+        since the last one (also between ticks: admission's ``page_alloc``,
+        a chunk's ``cow_clone``) and no guard path dumped this tick, and
+        the watchdog's hook."""
+        self._tick_dumped = False
         t0 = time.perf_counter() if self.watchdog is not None else 0.0
         with self.tracer.span("tick"):
             out = self._decode_tick_inner(exclude)
@@ -1288,50 +1387,115 @@ class DecodeEngine:
             "tick", tick=self.stats.ticks, emitted=len(out),
             active=sum(1 for r in self.slot_req if r is not None), queued=len(self.queue),
         )
+        if self.faults is not None and self.faults.total_fires > self._fires_dumped:
+            if not self._tick_dumped:
+                self._flight_dump("fault-injected")
+            self._fires_dumped = self.faults.total_fires
         if self.watchdog is not None:
             self.watchdog.on_tick((time.perf_counter() - t0) * 1e3)
         return out
 
     def _decode_tick_inner(self, exclude=None) -> Dict[int, int]:
         exclude = set(exclude) if exclude else set()
+        if self.faults is not None and self.faults.enabled:
+            self._fault_tick_hooks(exclude)
         active = [s for s in range(self.max_batch) if self.slot_req[s] and s not in exclude]
         if self.paged:
             active = self._ensure_decode_pages(active)
+        if self.guard_cfg is not None:
+            self._run_audits()
         if not active:
+            if self.guard_cfg is not None:
+                self._update_degraded_gauge()
             return {}
+        guard_on = self.guard_cfg is not None and self.guard_cfg.nan_guard
         spec_slots = self._spec_select(active) if self.spec_k else []
         norm = [s for s in active if s not in spec_slots]
-        next_all = None
-        if norm:
-            masked = exclude | set(spec_slots)
-            ctx_np = self.ctx_lens.copy()
-            ptbl_np = self.page_tbl
-            if masked:
-                if not self.use_fast_path:
-                    raise RuntimeError("slot masking requires the fast path")
-                for s in masked:
-                    ctx_np[s] = 0
-                if self.paged:
-                    ptbl_np = self.page_tbl.copy()
-                    for s in masked:
-                        ptbl_np[s, :] = 0
-            logits = self._decode_pass(norm, ctx_np, ptbl_np)
+        # one pass per degraded-mode level: healthy slots stay on the
+        # configured path (the common case: one pass, the whole batch), a
+        # quarantined slot decodes in its level's pass with the others masked
+        if self.guard_cfg is None or not any(self._slot_degrade[s] for s in norm):
+            passes = [(0, norm)] if norm else []
+        else:
+            by_lvl: Dict[int, List[int]] = {}
+            for s in norm:
+                by_lvl.setdefault(self._effective_level(s), []).append(s)
+            passes = sorted(by_lvl.items())
+        # each pass is screened before the next one runs
+        results = []
+        for lvl, slots in passes:
+            logits = self._decode_pass(lvl, slots, active, exclude)
             self.last_logits = logits
-            next_all = logits.argmax(dim=-1).cpu().numpy()
-        spec = self._spec_verify(spec_slots) if spec_slots else None
-        return self._emit_tokens(norm, next_all, spec)
+            if guard_on:
+                results.append((slots, *_screen_logits(logits)))
+            else:
+                results.append((slots, logits.argmax(dim=-1).cpu().numpy(), None))
+        spec = self._spec_verify(spec_slots, guard_on) if spec_slots else None
+        # fault point 'nan_output': flip one victim's finiteness verdict; the
+        # guard reacts as to a real non-finite row, and no device state is hurt
+        if guard_on and self.faults is not None and self.faults.fire("nan_output"):
+            for v in self.faults.choose(active):
+                for slots, _, fin in results:
+                    if v in slots:
+                        fin[v] = False
+                if spec is not None and v in spec[0]:
+                    spec[2][v] = False
+        return self._emit_tokens(results, guard_on, spec)
 
-    def _decode_pass(self, active: List[int], ctx_np, ptbl_np) -> torch.Tensor:
-        """:meth:`_decode_pass_main` in the ``decode_kernel`` span (level 0:
-        the degraded levels are ROADMAP queue 1, item 12), which it
-        annotates with the path and the schedule's roofline cost; with a
-        live span the stream is synchronised after the step, inside it."""
-        sp = self.tracer.span("decode_kernel", level=0, slots=len(active))
+    def _decode_pass(self, level: int, slots: List[int], active: List[int],
+                     exclude: set) -> torch.Tensor:
+        """One decode pass over ``slots`` at degraded-mode ``level``
+        (:data:`~repro_torch.serving.guards.DEGRADE_LEVELS`), in the
+        ``decode_kernel`` span, which the pass annotates with its path and
+        its schedule's roofline cost; with a live span the stream is
+        synchronised after the step, inside it."""
+        sp = self.tracer.span("decode_kernel", level=level, slots=len(slots))
         with sp:
-            logits = self._decode_pass_main(active, ctx_np, ptbl_np)
+            logits = self._decode_pass_inner(level, slots, active, exclude)
             if sp:
                 self._sync(sp)
         return logits
+
+    def _decode_pass_inner(self, level: int, slots: List[int], active: List[int],
+                           exclude: set) -> torch.Tensor:
+        """The pass's step (reference ``repro/serving/engine.py:1825-1865``).
+        Slots outside it are masked as ``exclude`` masks them (context 0,
+        table rows null), so the step neither reads their K/V nor writes
+        anywhere real. Level 0 is :meth:`_decode_pass_main` (the cascade
+        included); levels 1 and 2 the paged lean step with ``fused`` True
+        (K2) and False (K1 + merge), no cascade; level 3 the ``ref`` step.
+        Each runs through :meth:`_run_step`, keyed by its backend and
+        ``fused``."""
+        masked = exclude | (set(active) - set(slots))
+        ctx_np = self.ctx_lens.copy()
+        ptbl_np = self.page_tbl
+        if masked:
+            if not self.use_fast_path:
+                raise RuntimeError("slot masking requires the fast path")
+            for s in masked:
+                ctx_np[s] = 0
+            if self.paged:
+                ptbl_np = self.page_tbl.copy()
+                for s in masked:
+                    ptbl_np[s, :] = 0
+        if level == 0:
+            return self._decode_pass_main(slots, ctx_np, ptbl_np)
+        if level >= 3 or self.attn_backend != "lean":
+            return self._run_step(self._plain_step(None, ctx_np, ptbl_np, "ref", self.fused))
+        sched = self._tick_schedule(ctx_np)
+        if self.tracer.enabled:
+            # a fallback pass annotates its cost but stays out of the
+            # schedule log, which records the fast path
+            self.tracer.annotate(path="fallback", **self._schedule_cost(sched))
+        return self._run_step(self._plain_step(sched, ctx_np, ptbl_np, "lean", level == 1))
+
+    def _effective_level(self, s: int) -> int:
+        """Slot ``s``'s level this tick: a non-lean backend has no lean
+        levels, so any degradation goes straight to the ``ref`` step."""
+        lvl = self._slot_degrade[s]
+        if lvl == 0:
+            return 0
+        return 3 if self.attn_backend != "lean" else lvl
 
     def _sync(self, sp) -> None:
         """Wait for the card and charge the wait to the live span ``sp``
@@ -1360,7 +1524,8 @@ class DecodeEngine:
             return self._cascade_pass(csched, binding, ctx_np, ptbl_np)
         sched = self._tick_schedule(ctx_np)
         self._note_schedule(sched, "fast")
-        return self._run_step(self._plain_step(sched, ctx_np, ptbl_np))
+        return self._run_step(self._plain_step(sched, ctx_np, ptbl_np, self.attn_backend,
+                                               self.fused))
 
     def _step_inputs(self, ctx_np, ptbl_np) -> Dict[str, np.ndarray]:
         host = {"tokens": self.next_tokens, "ctx": ctx_np.astype(np.int32)}
@@ -1375,13 +1540,15 @@ class DecodeEngine:
         cap = self.pages_per_slot * self.tile if self.paged else self.cache_len
         return torch.clamp(ctx + 1, max=cap).to(torch.int32)
 
-    def _plain_step(self, sched: LeanSchedule, ctx_np, ptbl_np) -> _Step:
-        """The fast path's step over this tick's schedule, as the reference's
-        ``_kernel_decode_step`` (``repro/serving/engine.py:515-548``) and its
-        paged twin: ``attn_fn`` of the page pools or the dense rows, with
-        what every layer reads alike (the visible lengths per segment, the
-        paged route) built once per step."""
-        backend = self.attn_backend
+    def _plain_step(self, sched: Optional[LeanSchedule], ctx_np, ptbl_np, backend: str,
+                    fused: bool) -> _Step:
+        """The fast path's step over this tick's schedule on ``backend``
+        (``fused`` picks K2 or K1 + merge on ``lean``), as the reference's
+        ``_kernel_decode_step`` (``repro/serving/engine.py:515-548``) and
+        its paged twin: ``attn_fn`` of the page pools or the dense rows,
+        with what every layer reads alike (the visible lengths per segment,
+        the paged route) built once per step. ``ref`` reads no schedule
+        (``sched`` may be None)."""
         num_splits = None
         if backend == "fixed":
             num_splits = fixed_split_factor(
@@ -1395,7 +1562,7 @@ class DecodeEngine:
             attn_fn = None
             if backend != "ref":
                 seg = self._visible(b["ctx"]).repeat_interleave(n_kv)
-                attn_fn = self._attn_fn(sched, ptbl, seg, num_splits)
+                attn_fn = self._attn_fn(sched, ptbl, seg, num_splits, backend, fused)
             logits, _ = decode_step(self.params, self.cfg, self.cache, b["tokens"],
                                     attn_fn=attn_fn, ctx_lens=b["ctx"], page_tbl=ptbl)
             return logits
@@ -1403,14 +1570,14 @@ class DecodeEngine:
         # 'ref' reads no schedule: its graph, as the reference's jit, is
         # keyed on the layout alone
         keyed = None if backend == "ref" else sched
-        key = (self._layout_key(), backend, keyed, self.fused, num_splits)
+        key = (self._layout_key(), backend, keyed, fused, num_splits)
         return _Step(key, self._step_inputs(ctx_np, ptbl_np), body, keyed)
 
     def _layout_key(self) -> tuple:
         return ("paged" if self.paged else "dense", self.cfg.kv_cache_dtype)
 
     def _attn_fn(self, sched: LeanSchedule, ptbl: Optional[torch.Tensor], seg: torch.Tensor,
-                 num_splits: Optional[int]) -> Callable:
+                 num_splits: Optional[int], backend: str, fused: bool) -> Callable:
         """The fast path's decode attention, an ``attn_fn(q, k, v,
         ctx_visible)`` of the page pools (``ptbl``) or of the dense rows
         (``ptbl`` None) whose ``seg`` (the visible keys per segment) and
@@ -1418,8 +1585,7 @@ class DecodeEngine:
         ``fused=False``); fixed -> K6 + ``merge_n`` with ``num_splits``,
         the pages gathered to dense first."""
         n_kv = self.cfg.n_kv_heads
-        if self.attn_backend == "lean":
-            fused = self.fused
+        if backend == "lean":
             if ptbl is None:
                 return lambda q, k, v, c: lean_decode_from_schedule(q, k, v, seg, sched,
                                                                     fused=fused)
@@ -1657,27 +1823,39 @@ class DecodeEngine:
         if all(g is None for _, g in self._graphs.values()):
             self._graph_pool = None
 
-    def _emit_tokens(self, active: List[int], next_all, spec=None) -> Dict[int, int]:
-        """Emit the single-token step's tokens for ``active`` and, when a
-        verify step ran, its accepted ones (:meth:`_emit_spec_tokens`; then
-        every value is a list)."""
+    def _emit_tokens(self, results, guard_on: bool, spec=None) -> Dict[int, int]:
+        """Emit each pass's tokens (``results``: ``(slots, next tokens,
+        finite or None)`` per pass) and, when a verify step ran, its
+        accepted ones (:meth:`_emit_spec_tokens`; then every value is a
+        list), with the guards' bookkeeping: a slot whose row is not finite
+        emits nothing and steps down the chain (:meth:`_on_bad_slot`), a
+        degraded slot's finite row counts toward its heal."""
         # context cap: the cache row and, paged, the whole pool -- a context
         # past usable_pages * tile could never be re-admitted after preemption
         cap = self.cache_len
         if self.paged:
             cap = min(cap, self.pool.usable_pages * self.tile)
         out = {}
-        for s in active:
-            req = self.slot_req[s]
-            nxt = int(next_all[s])
-            req.generated.append(nxt)
-            self.next_tokens[s, 0] = nxt
-            self.ctx_lens[s] += 1
-            out[req.uid] = [nxt] if self.spec_k else nxt
-            self.stats.tokens_generated += 1
-            if req.done or self.ctx_lens[s] >= cap - 1:
-                self.release_slot(s)
-        n_emitted = len(active)
+        n_emitted = 0
+        for slots, next_all, finite in results:
+            for s in slots:
+                req = self.slot_req[s]
+                if finite is not None and not bool(finite[s]):
+                    # quarantine: no token, the context stays, and the slot
+                    # runs this step again next tick one level further down
+                    self._on_bad_slot(s)
+                    continue
+                if guard_on and self._slot_degrade[s]:
+                    self._on_good_slot(s)
+                nxt = int(next_all[s])
+                req.generated.append(nxt)
+                self.next_tokens[s, 0] = nxt
+                self.ctx_lens[s] += 1
+                out[req.uid] = [nxt] if self.spec_k else nxt
+                n_emitted += 1
+                self.stats.tokens_generated += 1
+                if req.done or self.ctx_lens[s] >= cap - 1:
+                    self.release_slot(s)
         if spec is not None:
             n_emitted += self._emit_spec_tokens(spec, out, cap)
         self.stats.ticks += 1
@@ -1687,7 +1865,181 @@ class DecodeEngine:
             self.stats.kv_pool = self.pool.as_dict()
         if self.prefix_cache is not None:
             self.stats.prefix_cache = self.prefix_cache.as_dict()
+        if self.guard_cfg is not None:
+            self._update_degraded_gauge()
+        if self.faults is not None:
+            self.stats.faults = self.faults.as_dict()
         return out
+
+    # --------------------------------------------------------- self-healing
+    def _on_bad_slot(self, s: int):
+        """A non-finite row for slot ``s``: one level down the chain, or,
+        once at ``max_degrade`` for ``poison_after`` consecutive ticks,
+        poison the slot."""
+        gc_ = self.guard_cfg
+        self.stats.nan_ticks += 1
+        self.flight.record("nan_tick", slot=s, tick=int(self.stats.ticks))
+        self._slot_good[s] = 0
+        if self._slot_degrade[s] < gc_.max_degrade:
+            self._slot_degrade[s] += 1
+            self._slot_bad[s] = 0
+            self.stats.degrade_escalations += 1
+            self._degrade_cause.labels(cause="nan_guard").inc()
+            self.flight.record("degrade", slot=s, level=self._slot_degrade[s], cause="nan_guard",
+                               backend=DEGRADE_LEVELS[self._slot_degrade[s]])
+            self._flight_dump("degrade", slot=s, level=self._slot_degrade[s])
+            return
+        self._slot_bad[s] += 1
+        if self._slot_bad[s] >= gc_.poison_after:
+            self._poison_slot(s)
+
+    def _on_good_slot(self, s: int):
+        """A degraded slot's finite row: after ``heal_after`` in a row, one
+        level back up."""
+        self._slot_bad[s] = 0
+        self._slot_good[s] += 1
+        if self._slot_good[s] >= self.guard_cfg.heal_after:
+            self._slot_degrade[s] -= 1
+            self._slot_good[s] = 0
+            self.stats.degrade_heals += 1
+
+    def _poison_slot(self, s: int):
+        """The bottom of the chain: the slot's K/V is presumed corrupt. Its
+        private pages are zero-filled in place (a recycled NaN page would
+        poison an innocent slot through masked columns), its shared pages
+        withdrawn from the radix cache, and the slot preempted: recompute
+        rebuilds clean K/V from the prompt."""
+        shared = self._slot_shared_tiles[s]
+        for t in range(self.pool.count(s)):
+            page = int(self.page_tbl[s, t])
+            if t not in shared and page:
+                self._fill_page(page, 0.0)
+        if self.prefix_cache is not None and shared:
+            self.prefix_cache.invalidate_pages({int(self.page_tbl[s, t]) for t in shared})
+        self.stats.poisoned_slots += 1
+        self.flight.record("poison", slot=s, tick=int(self.stats.ticks),
+                           scrubbed_pages=self.pool.count(s) - len(shared))
+        self._preempt(s)
+        self._flight_dump("poison", slot=s)
+
+    def force_degrade(self, levels: int = 1, cause: str = "watchdog",
+                      slots: Optional[List[int]] = None) -> int:
+        """Push active slots (``slots``, default all) ``levels`` steps down
+        the chain, the ``cause`` (one of ``guards.DEGRADE_CAUSES``) on the
+        flight event and the ``engine_degrade_cause_total`` counter. They
+        heal back by the usual ``heal_after`` rule. Needs guards. Returns
+        the slots moved."""
+        if self.guard_cfg is None:
+            raise ValueError("force_degrade requires guards=GuardConfig(...)")
+        if cause not in DEGRADE_CAUSES:
+            raise ValueError(f"unknown degrade cause {cause!r} (see DEGRADE_CAUSES)")
+        targets = slots if slots is not None else range(self.max_batch)
+        moved = 0
+        for s in targets:
+            if self.slot_req[s] is None:
+                continue
+            new = min(self._slot_degrade[s] + levels, self.guard_cfg.max_degrade)
+            if new == self._slot_degrade[s]:
+                continue
+            self._slot_degrade[s] = new
+            self._slot_good[s] = 0
+            self.stats.degrade_escalations += 1
+            self._degrade_cause.labels(cause=cause).inc()
+            self.flight.record("degrade", slot=s, level=new, cause=cause,
+                               backend=DEGRADE_LEVELS[new])
+            moved += 1
+        if moved:
+            self._update_degraded_gauge()
+        return moved
+
+    def _reset_guard(self, s: int):
+        self._slot_degrade[s] = 0
+        self._slot_bad[s] = 0
+        self._slot_good[s] = 0
+
+    def _update_degraded_gauge(self):
+        self.degraded_gauge.set(sum(1 for s in range(self.max_batch)
+                                    if self.slot_req[s] is not None and self._slot_degrade[s]))
+        self.stats.degraded = self.degraded_gauge.as_dict()
+
+    def _run_audits(self):
+        """Every ``audit_interval`` decode calls: ``pool.check()`` (with the
+        int8 scales) then ``prefix_cache.check()``; a violation raises
+        :class:`FatalInvariantError`, repairs in place or warns, per
+        ``audit_action``. The pool goes first: a trie repair frees pages
+        through it. Traced as the ``audit`` span."""
+        gc_ = self.guard_cfg
+        if gc_.audit_interval <= 0:
+            return
+        self._audit_clock += 1
+        if self._audit_clock % gc_.audit_interval:
+            return
+        self.stats.audits_run += 1
+        targets = [("kv_pool", self.pool)]
+        if self.prefix_cache is not None:
+            targets.append(("prefix_cache", self.prefix_cache))
+        with self.tracer.span("audit", targets=len(targets)):
+            for name, obj in targets:
+                try:
+                    if name == "kv_pool" and self.quant:
+                        obj.check(scales=self._kv_scale_arrays())
+                    else:
+                        obj.check()
+                except AssertionError as e:
+                    self.stats.audit_failures += 1
+                    self.flight.record("audit_failure", target=name, action=gc_.audit_action,
+                                       error=str(e)[:200])
+                    if gc_.audit_action == "raise":
+                        self._flight_dump("fatal-audit", target=name)
+                        raise FatalInvariantError(f"{name} invariant audit failed: {e}") from e
+                    if gc_.audit_action == "repair":
+                        obj.repair()
+                        self.stats.audit_repairs += 1
+                        obj.check()     # a repair must restore the invariants
+                        self._flight_dump("audit-repair", target=name)
+                    else:
+                        warnings.warn(f"{name} invariant audit failed (action=log): {e}",
+                                      RuntimeWarning)
+                        self._flight_dump("audit-failure", target=name)
+
+    # ---------------------------------------------------------- fault hooks
+    def _fault_tick_hooks(self, exclude: set):
+        """The per-tick fault points, before the tick's active set is
+        taken: a latency spike, a preemption storm, a corrupted radix-trie
+        node, a NaN page of live K/V."""
+        inj = self.faults
+        inj.advance()
+        if inj.fire("tick_latency"):
+            spec = inj.spec("tick_latency")
+            time.sleep(spec.magnitude if spec.magnitude > 0 else 0.002)
+        if self.paged and inj.fire("preempt_storm"):
+            spec = inj.spec("preempt_storm")
+            victims = [s for s in range(self.max_batch) if self.slot_req[s] is not None]
+            for s in inj.choose(victims, max(1, int(spec.magnitude))):
+                self._preempt(s)
+        if self.prefix_cache is not None and inj.fire("trie_corrupt"):
+            corrupt_trie_node(self.prefix_cache, inj.rng("trie_corrupt"))
+        if self.paged and inj.fire("nan_kv"):
+            self._inject_nan_kv(exclude)
+
+    def _inject_nan_kv(self, exclude: set):
+        """Device-side corruption: fill one victim slot's private page that
+        holds written K/V with NaN. Shared pages are skipped (the poison
+        path withdraws those), and so are slots with nothing written."""
+        cands = []
+        for s in range(self.max_batch):
+            if self.slot_req[s] is None or s in exclude:
+                continue
+            ctx = int(self.ctx_lens[s])
+            if ctx <= 0:
+                continue
+            for t in range(min(-(-ctx // self.tile), self.pages_per_slot)):
+                if t not in self._slot_shared_tiles[s] and int(self.page_tbl[s, t]) != 0:
+                    cands.append((s, t))
+        if not cands:
+            return
+        s, t = self.faults.choose(cands)[0]
+        self._fill_page(int(self.page_tbl[s, t]), float("nan"))
 
     def _kv_scale_arrays(self) -> List[np.ndarray]:
         """Host copies of every int8 pool's ``(num_pages, Hkv)`` scales, K
@@ -1704,9 +2056,14 @@ class DecodeEngine:
     def _flight_dump(self, reason: str, **extra) -> dict:
         """Snapshot the flight ring into a postmortem bundle, written to the
         recorder's ``dump_dir`` when it has one (the watchdog dumps on
-        every fire)."""
+        every fire, the guards on a degrade, a poison and a failed audit).
+        Marks the tick as dumped, so the injected-fault dump of
+        :meth:`decode_tick` does not double it."""
         ctx = {"tick": int(self.stats.ticks), "degraded_slots": self.degraded_gauge.value,
                **extra}
+        if self.faults is not None:
+            ctx["fault_fires"] = self.faults.total_fires
+        self._tick_dumped = True
         return self.flight.dump(reason, extra=ctx)
 
     def _schedule_cost(self, sched: LeanSchedule) -> dict:

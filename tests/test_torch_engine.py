@@ -24,6 +24,8 @@ from repro_torch.models import params_from_numpy  # noqa: E402
 from repro_torch.obs import MetricsRegistry, Tracer  # noqa: E402
 from repro_torch.serving.config import EngineConfig, ObsConfig, PagedConfig  # noqa: E402
 from repro_torch.serving.engine import DecodeEngine, PoisonError, Request  # noqa: E402
+from repro_torch.serving.faults import FaultInjector, FaultSpec  # noqa: E402
+from repro_torch.serving.guards import GuardConfig  # noqa: E402
 
 NEAR_TIE = 2**-7
 
@@ -166,14 +168,13 @@ def test_unservable_request_is_refused(model):
 # (tests/test_torch_cascade.py), and so are the dense-cache engine and
 # use_fast_path=False, once cases 1 and 3 (tests/test_torch_dense_engine.py;
 # with a paged engine use_fast_path=False is now the reference's
-# ValueError); those cases now hold guards (ROADMAP queue 1, item 12).
-# Speculative decode, once case 2, is ported too
-# (tests/test_torch_speculative.py); the case now holds fault injection
-# (item 12). The observability sinks, once two cases here, are ported:
-# test_observability_sinks_serve
+# ValueError). Speculative decode, once case 2, is ported too
+# (tests/test_torch_speculative.py). The observability sinks, once two cases
+# here, are ported: test_observability_sinks_serve. Guards and fault
+# injection, once two cases here, are ported: test_guards_require_paged and
+# test_guards_and_faults_serve (tests/test_torch_chaos.py holds them against
+# the JAX engine)
 @pytest.mark.parametrize("change", [
-    dict(guards=object()),
-    dict(faults=object()),
     dict(paged=PagedConfig(enabled=True, kv_dtype="f8")),
 ])
 def test_unported_configurations_raise(model, change):
@@ -182,6 +183,37 @@ def test_unported_configurations_raise(model, change):
     kw.update(change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DecodeEngine(cfg, pt, EngineConfig(**kw), device="cpu")
+
+
+def test_guards_require_paged(model):
+    """tests/test_guards.py:test_guards_require_paged on the port."""
+    _, cfg, _, pt = model
+    with pytest.raises(ValueError, match="require paged"):
+        DecodeEngine(cfg, pt, EngineConfig(max_batch=2, cache_len=32, guards=GuardConfig()),
+                     device="cpu")
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_guards_and_faults_serve(model, kv_dtype):
+    """A guarded engine with an injector that fires: every request
+    finishes, the guard counters move, the audits pass (int8: with the
+    scales) and the pool drains."""
+    _, cfg, _, pt = model
+    inj = FaultInjector({"nan_output": FaultSpec(rate=1.0, start=2, stop=4)}, seed=9)
+    eng = DecodeEngine(cfg, pt, EngineConfig(
+        paged=PagedConfig(enabled=True, page_size=8, kv_dtype=kv_dtype), faults=inj,
+        guards=GuardConfig(heal_after=2, audit_interval=2), **SMALL), device="cpu")
+    reqs = _requests(Request, cfg.vocab_size, new=6)
+    for r in reqs:
+        eng.submit(r)
+    eng.run_to_completion(max_ticks=80)
+    assert all(r.done for r in reqs)
+    assert inj.fires["nan_output"] == 2 and eng.stats.nan_ticks == 2
+    assert eng.stats.degrade_escalations >= 1 and eng.stats.audits_run > 0
+    assert eng.stats.audit_failures == 0 and eng.degraded_gauge.value == 0
+    assert eng.stats.faults["points"]["nan_output"]["fires"] == 2
+    eng.pool.check(scales=eng._kv_scale_arrays())
+    assert eng.pool.num_allocated == 0
 
 
 @pytest.mark.parametrize("sink", ["metrics", "tracer"])

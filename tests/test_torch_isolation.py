@@ -33,7 +33,9 @@ import repro_torch.kernels.flash_prefill, repro_torch.kernels.ops
 import repro_torch.models, repro_torch.serving.engine, repro_torch.serving.scheduler
 import repro_torch.obs.__main__, repro_torch.obs.report, repro_torch.obs.watch
 import repro_torch.roofline.analysis
-obs = sorted(n for n in names if n.startswith(("repro_torch.obs", "repro_torch.roofline")))
+obs = sorted(n for n in names if n.startswith(("repro_torch.obs", "repro_torch.roofline",
+                                               "repro_torch.serving.guards",
+                                               "repro_torch.serving.faults")))
 leaked = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 print(json.dumps({{"modules": len(names), "obs": obs, "leaked": leaked}}))
 """
@@ -51,11 +53,13 @@ def test_port_imports_without_jax_or_repro():
                          timeout=300, env=_env(), cwd=str(ROOT))
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert res["modules"] >= 37, res
-    # the observability layer and the roofline are the port's own copies
+    assert res["modules"] >= 39, res
+    # the observability layer, the roofline, the guards and the fault
+    # injector are the port's own copies
     assert {"repro_torch.obs.trace", "repro_torch.obs.metrics", "repro_torch.obs.flight",
             "repro_torch.obs.watch", "repro_torch.obs.calib", "repro_torch.obs.report",
-            "repro_torch.obs.__main__", "repro_torch.roofline.analysis"} <= set(res["obs"])
+            "repro_torch.obs.__main__", "repro_torch.roofline.analysis",
+            "repro_torch.serving.guards", "repro_torch.serving.faults"} <= set(res["obs"])
     assert res["leaked"] == [], f"repro modules loaded by the port: {res['leaked']}"
 
 

@@ -96,15 +96,18 @@ class _PortRecorder(DecodeEngine):
             self.first.setdefault(req.uid, self._row)
         return ok
 
-    def _emit_tokens(self, active, next_all, spec=None):
-        next_all = next_all.copy()
-        for s in active:
-            req = self.slot_req[s]
-            self.rows.setdefault(req.uid, []).append(self.last_logits[s].float().numpy())
-            self.own.setdefault(req.uid, []).append(int(next_all[s]))
-            if self.forced is not None:
-                next_all[s] = self.forced[req.uid][len(req.generated)]
-        return super()._emit_tokens(active, next_all, spec)
+    def _emit_tokens(self, results, guard_on, spec=None):
+        forced = []
+        for active, next_all, fin in results:      # one pass: no guards here
+            next_all = next_all.copy()
+            for s in active:
+                req = self.slot_req[s]
+                self.rows.setdefault(req.uid, []).append(self.last_logits[s].float().numpy())
+                self.own.setdefault(req.uid, []).append(int(next_all[s]))
+                if self.forced is not None:
+                    next_all[s] = self.forced[req.uid][len(req.generated)]
+            forced.append((active, next_all, fin))
+        return super()._emit_tokens(forced, guard_on, spec)
 
     def prefill_chunks_tick(self, work, pack_width, chunk_cap):
         toks = super().prefill_chunks_tick(work, pack_width, chunk_cap)

@@ -112,9 +112,10 @@ class _GapRecorder(DecodeEngine):
         self._note(logits)
         return logits
 
-    def _emit_tokens(self, active, next_all, spec=None):
-        self._note(self.last_logits[active])
-        return super()._emit_tokens(active, next_all, spec)
+    def _emit_tokens(self, results, guard_on, spec=None):
+        for active, _, _ in results:               # one pass: no guards here
+            self._note(self.last_logits[active])
+        return super()._emit_tokens(results, guard_on, spec)
 
 
 @pytest.fixture(scope="module")

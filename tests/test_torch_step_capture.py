@@ -441,7 +441,7 @@ def _plain_keys(model, name, lens_list, **change):
         ctx = np.asarray(lens, dtype=np.int64)
         ptbl = eng.page_tbl if eng.paged else None
         sched = eng._tick_schedule(ctx)
-        step = eng._plain_step(sched, ctx, ptbl)
+        step = eng._plain_step(sched, ctx, ptbl, eng.attn_backend, eng.fused)
         keys.append((step.key, _pack(step.host)[1]))
     return keys
 
@@ -699,9 +699,10 @@ class _TickLog(DecodeEngine):
         self.pools.append([{k: t[first:].clone() for k, t in lc.items()} for lc in self.cache])
         return out
 
-    def _emit_tokens(self, active, next_all, spec=None):
-        self.logits.append(self.last_logits[active].clone())
-        return super()._emit_tokens(active, next_all, spec)
+    def _emit_tokens(self, results, guard_on, spec=None):
+        for active, _, _ in results:               # one pass: no guards here
+            self.logits.append(self.last_logits[active].clone())
+        return super()._emit_tokens(results, guard_on, spec)
 
     def _replay(self, rec, flat):
         torch.cuda.set_sync_debug_mode("error")
