@@ -140,16 +140,47 @@ Phases, in order; any failure exits non-zero and nothing catches it:
      keeps its fault-free stream or diverges at a top-2 gap within
      ``GUARD_NEAR_TIE``; and the watchdog's ``occupancy_collapse`` calling
      ``force_degrade(cause="watchdog")``;
- 17. the kernel summary (one JSON line: K1-K8, the fused K4 and the int8
-     forms of K1, K2, K4 (fused and partials) and K5: 14 entries), the
-     fused K4's launches from verify steps, the guards phase's launches,
-     the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
+ 17. the attention-family architectures, once Mistral-NeMo-12B's weights
+     are released: (a) the arch kernel phase -- K2, the fused K4, K8 and K7
+     at each architecture's geometry (qwen3-moe gq 8, nemotron gq 6,
+     qwen2-moe gq 1, musicgen gq 1 at d 64, gemma3 d 256 with its 1024-key
+     window on the CUDA cores), K6 at qwen3's gq 8 and gemma3's d 256, K5 at
+     qwen3's g 8 (32 stacked rows), against their plain versions; timed
+     beside SDPA with their bounds where a run of that geometry launches
+     them; (b) qwen3-moe-30b-a3b at full width, all 48 layers or as many as
+     fit (printed): the lean Scheduler (chunked prefill, every step
+     captured), fixed and ref; lean's streams held to fixed's, the
+     first-token logits of lean and ref to ``QWEN3_FIRST_LOGIT_GAP``, and
+     where lean and ref part, the router witness (the first flipped rows'
+     margins, their inputs held to ``ROUTER_WITNESS_REL``); an eager and a
+     captured decode run with host launch calls per replayed tick; a
+     prefix-sharing run with cascade decode (K5 at g 8) held to the same
+     waves without cascade; speculative decode against plain decode;
+     captured steps bit for bit against eager (chunk and decode; admission,
+     verify and decode);
+     (c) gemma3-4b at full width and depth: prompts of 16000, 3000 and
+     1200 tokens admitted whole (K7 on the CUDA cores at d 256, the window
+     rings wrap), lean (K2 at d 256), fixed (K6) and ref, streams against
+     ref, lean's steps bit for bit against eager; (d) the geometry sweep:
+     qwen2-moe-a2.7b, nemotron-4-15b, yi-34b and musicgen-large at full
+     width and one stage unit of depth on lean and ref, streams against
+     ref, steps bit for bit. A dense model's stream may leave ref only at a
+     near tie; a MoE model's divergences from ref are printed with their
+     gaps (a router near tie sends a row to other experts);
+ 18. the kernel summary (one JSON line: K1-K8, the fused K4 and the int8
+     forms of K1, K2, K4 (fused and partials) and K5: 14 entries, then K2,
+     the fused K4, K8, K7, K6 and K5 at the attention-family geometries,
+     each with its launches from that architecture's run), the fused K4's launches
+     from verify steps, the guards phase's launches, the ``nvidia-smi``
+     line, and last ``{"ok": true, "device": {...}}``.
 
 Each phase starts with a ``[seconds] phase`` line: the time since the
-script started. Phases 11-16 alone, at full width, after the build:
+script started. Phases 11-17 alone, at full width, after the build:
 
     python3 chip_smoke.py --chunk-step | --spec-step | --admission-step | --captured-step
     python3 chip_smoke.py --obs-step | --guards-step
+    python3 chip_smoke.py --arch-kernels | --qwen3-step [DEPTH] | --gemma-step [DEPTH]
+    python3 chip_smoke.py --arch-sweep
 
 The kernel phase (3) also holds K3 (the merge kernel) against its plain
 version and ``segment_merge``, drives the two-phase ``merge_impl="pallas"``
@@ -166,6 +197,13 @@ ahead of the compute by a producer warp); the kernel phases print each
 one's slots and bytes in flight, and every serving phase checks that their
 launches went through it (K2 in the engine, Scheduler, prefix and dense
 phases on bf16 and int8 pages, K1 in the ``fused=False`` drives).
+
+A change to the engine's step is compared with its parent on one card by
+Mistral-NeMo-12B's decode tick p50 (the engine phase's paged lean engine,
+eager and captured), one process per checkout, in turns (parent, change,
+change, parent):
+
+    python3 chip_smoke.py --tick-p50 [OTHER_CHECKOUT/src]
 
 A change to the decode kernels is compared with its parent on one card by
 timing only them, one process per checkout, in turns (parent, change,
@@ -1651,6 +1689,27 @@ def cascade_operands(torch, q, k_pool, v_pool, tbl, lens, passes, sm_count):
             csched, 1.0 / math.sqrt(d)), binding
 
 
+def cascade_work(binding, csched, lens, args, q, o, lse, elem):
+    """K5's bound terms: the bytes the function needs -- each pass's shared
+    K/V once, the suffixes' K/V, the queries, o and lse -- its operations,
+    the round trip of its partials (all stacked rows of a prefix piece,
+    written once and read once: it comes from splitting the work over CTAs,
+    so it is printed beside the bound, not counted in it) and the K/V
+    bytes."""
+    B, Hq, d = q.shape
+    g = args[1].shape[1]                 # the suffix queries, (B * Hkv, g, d)
+    Hkv = Hq // g
+    pref_tok = int(binding.prefix_lens[binding.members[:, 0] >= 0].sum())
+    suf_tok = sum(lens) - int(binding.seq_prefix_len.sum())
+    kv_bytes = 2 * (pref_tok + suf_tok) * Hkv * d * elem
+    Pp, Ps = csched.prefix_sched.num_pieces, csched.suffix_sched.num_pieces
+    part_bytes = 2 * 4 * (d + 2) * (Pp * args[0].shape[1] + Ps * g)
+    nbytes = kv_bytes + q.numel() * elem + 4 * (o.numel() + lse.numel())
+    members = (binding.members >= 0).sum(axis=1)
+    flops = 4 * d * (int((binding.prefix_lens * members).sum()) + suf_tok) * g * Hkv
+    return nbytes, flops, part_bytes, kv_bytes
+
+
 def cascade_kernel_phase(torch, sm_count: int, dev_name: str):
     """K5 at Mistral-NeMo-12B attention shapes (bf16 and f32, shuffled
     pages, one worker per SM) on the two ``CASCADE_CASES``: against its
@@ -1731,20 +1790,10 @@ def cascade_kernel_phase(torch, sm_count: int, dev_name: str):
             k_dense, v_dense = paged_gather_kv(k_pool, dup_t), paged_gather_kv(v_pool, dup_t)
             lib = library_yardstick(torch, q, k_dense, v_dense, lens, g, elem)
             lib_ms = lib[LIBRARY_CALL][0]
-            # bound: the bytes the function needs -- each pass's shared K/V
-            # once, the suffixes' K/V, the queries, o and lse. The round trip
-            # of K5's partials (all qmax stacked rows of a prefix piece,
-            # written once and read once) comes from splitting the work over
-            # CTAs; it is printed beside the bound, not counted in it.
-            pref_tok = int(binding.prefix_lens[binding.members[:, 0] >= 0].sum())
-            suf_tok = sum(lens) - int(binding.seq_prefix_len.sum())
-            kv_bytes = 2 * (pref_tok + suf_tok) * Hkv * d * elem
             Pp, Ps = csched.prefix_sched.num_pieces, csched.suffix_sched.num_pieces
             qmax = args[0].shape[1]
-            part_bytes = 2 * 4 * (d + 2) * (Pp * qmax + Ps * g)
-            nbytes = kv_bytes + q.numel() * elem + 4 * (o.numel() + lse.numel())
-            members = (binding.members >= 0).sum(axis=1)
-            flops = 4 * d * (int((binding.prefix_lens * members).sum()) + suf_tok) * g * Hkv
+            nbytes, flops, part_bytes, kv_bytes = cascade_work(binding, csched, lens, args, q, o,
+                                                               lse, elem)
             b_ms, b_by = bound(dev_name, dname, nbytes, flops)
             bp_ms, _ = bound(dev_name, dname, nbytes + part_bytes, flops)
             unshared = 2 * sum(lens) * Hkv * d * elem
@@ -2072,9 +2121,11 @@ def prefix_waves(vocab, seed=5):
             [np.concatenate([system, tail(n)]) for n in WAVE2_TAILS]]
 
 
-def prefix_serving_run(torch, cfg, params, sm_count, new_tokens, waves, prefix, kv_dtype=None):
+def prefix_serving_run(torch, cfg, params, sm_count, new_tokens, waves, prefix, kv_dtype=None,
+                       cascade=None, captured=True):
     """The waves, one after the other, through ``Scheduler`` on ``lean``,
-    with the radix prefix cache and cascade decode (``prefix``) or without.
+    with the radix prefix cache and cascade decode (``prefix``) or without
+    (``cascade`` False: the prefix cache without cascade decode).
     Records each request's first-token logits (from the chunk step that
     completed its prompt) and its decode logits rows with their tokens, the
     decode ticks' wall times, and whether each was a cascade tick."""
@@ -2114,7 +2165,9 @@ def prefix_serving_run(torch, cfg, params, sm_count, new_tokens, waves, prefix, 
     eng = Recorder(cfg, params, EngineConfig(
         max_batch=4, cache_len=4096, attn_backend="lean", num_workers=sm_count,
         paged=PagedConfig(enabled=True, page_size=128, prefix_cache=prefix, kv_dtype=kv_dtype),
-        cascade=CascadeConfig(enabled=prefix, stable_ticks=2)), device="cuda")
+        cascade=CascadeConfig(enabled=prefix if cascade is None else cascade, stable_ticks=2)),
+        device="cuda")
+    eng.capture_decode = captured
     sch = Scheduler(eng, SchedulerConfig(chunk_size=SCHED_CHUNK, prefill_pack=SCHED_PACK,
                                          token_budget=SCHED_BUDGET, chunked=True))
     reset_launch_counts()
@@ -2144,7 +2197,7 @@ def prefix_serving_phase(torch, cfg, params, sm_count, new_tokens, kv_dtype=None
     """Prefix-sharing serving at full width, against the same waves with the
     prefix cache off: tokens matched, prefill skipped, peak pages, cascade
     ticks, launches (fused K4 per chunk step, K5 per cascade tick, K2 per other
-    tick, 40 layers each), TTFT, tick p50; first-token logits and decode
+    tick, one per layer), TTFT, tick p50; first-token logits and decode
     logits up to the first differing token (cascade ticks among them)
     within the engine phase's logit tolerance (``INT8_LOGIT_ATOL_FRAC`` on
     int8 pools). Returns the launch counts."""
@@ -2367,7 +2420,7 @@ def capture_configs(sm_count):
     return out
 
 
-def twin_bits(torch, cfg, params, config, drive):
+def twin_bits(torch, cfg, params, config, drive, prompts=None):
     """The eager steps (``capture_decode = False``) and the captured ones
     on two engines of ``config``, serving the same requests in lockstep:
     after every engine or scheduler step, every pool (the null page aside)
@@ -2376,11 +2429,14 @@ def twin_bits(torch, cfg, params, config, drive):
     bit for bit (the rows it served: chunk and verify rows with tokens);
     after every decode tick, the logits rows of the slots it served bit for
     bit and the greedy tokens. Idle and masked slots all write their token
-    to the null page, in whichever order the device runs the writes, and
-    read it back as their one visible key: their rows and the null page are
-    garbage by design, which nothing reads. Returns {kind: [steps,
+    to the null page (every one the last such slot's K/V) and read it back
+    as their one visible key: their rows and the null page are garbage by
+    design, which no served row reads -- but a MoE routes them with the
+    served rows, so they must match too. Returns {kind: [steps,
     bit-identical steps]} (decode: ticks), the max |logit difference|, the
-    captured engine's stats, and its cascade ticks' replays."""
+    captured engine's stats, and its cascade ticks' replays. ``prompts``
+    replaces the ``"engine"`` and ``"sched"`` drives' ``PROMPT_LENS``
+    prompts."""
     import numpy as np
 
     from repro_torch.kernels import launches
@@ -2390,14 +2446,16 @@ def twin_bits(torch, cfg, params, config, drive):
     def run(eng):
         """Yields after every engine step: whether it ran a decode tick."""
         if drive in ("engine", "admit"):
-            if drive == "engine":
+            if drive == "engine" and prompts is not None:
+                rounds = [[Request(uid=i, prompt=p, max_new_tokens=CAPTURE_NEW_TOKENS)
+                           for i, p in enumerate(prompts)]]
+            elif drive == "engine":
                 rounds = [make_requests(Request, cfg.vocab_size, CAPTURE_NEW_TOKENS)]
             else:
                 rng = np.random.default_rng(3)
-                prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
-                           for n in ADMIT_LENS]
+                admit = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in ADMIT_LENS]
                 rounds = [[Request(uid=5 * k + i, prompt=p, max_new_tokens=2)
-                           for i, p in enumerate(prompts)] for k in range(2)]
+                           for i, p in enumerate(admit)] for k in range(2)]
             for reqs in rounds:
                 for r in reqs:
                     eng.submit(r)
@@ -2408,8 +2466,12 @@ def twin_bits(torch, cfg, params, config, drive):
             return
         sch = Scheduler(eng, SchedulerConfig(chunk_size=SCHED_CHUNK, prefill_pack=SCHED_PACK,
                                              token_budget=SCHED_BUDGET, chunked=True))
-        waves = ([list(make_requests(Request, cfg.vocab_size, 0))] if drive == "sched"
-                 else prefix_waves(cfg.vocab_size))
+        if drive == "sched" and prompts is not None:
+            waves = [[Request(uid=i, prompt=p, max_new_tokens=0) for i, p in enumerate(prompts)]]
+        elif drive == "sched":
+            waves = [list(make_requests(Request, cfg.vocab_size, 0))]
+        else:
+            waves = prefix_waves(cfg.vocab_size)
         uid = 0
         for wave in waves:
             for p in wave:
@@ -2489,6 +2551,9 @@ def twin_bits(torch, cfg, params, config, drive):
     return steps, worst, st, cascade_replays
 
 
+CAPTURE_BITS_LAYERS = 20       # of Mistral-NeMo-12B's 40: the full run's time limit
+
+
 def captured_step_phase(torch, cfg, params, sm_count, new_tokens, smi: str):
     """The decode step captured as a CUDA graph against the eager step, at
     full width (the engine phase's requests, batch 4, page 128): tick p50
@@ -2496,7 +2561,8 @@ def captured_step_phase(torch, cfg, params, sm_count, new_tokens, smi: str):
     captured, eager) on bf16 and on int8 pages, with captures and replays
     per run; a few ticks of each traced (host launch calls and device
     kernels per tick, device busy, idle share); and the bit check of every
-    configuration the engine captures (``capture_configs``, ``twin_bits``).
+    configuration the engine captures (``capture_configs``, ``twin_bits``)
+    at ``CAPTURE_BITS_LAYERS`` of depth (printed).
     Fails where a captured engine replays nothing, its greedy tokens or a
     step's launch counts differ from the eager engine's, or its logits or
     pools differ in any bit."""
@@ -2538,11 +2604,15 @@ def captured_step_phase(torch, cfg, params, sm_count, new_tokens, smi: str):
               f"{c['busy_ms']:.2f} ms; idle share of the untraced p50 {e['idle_p50']:.3f} -> "
               f"{c['idle_p50']:.3f}", flush=True)
 
+    # the bit check at CAPTURE_BITS_LAYERS of depth: whether a replayed
+    # step equals its eager step does not depend on how many layers repeat
+    cfg_b = arch_config(cfg, CAPTURE_BITS_LAYERS)
+    params_b = dict(params, layers=params["layers"][:cfg_b.n_layers])
     for label, config, how in capture_configs(sm_count):
-        steps, worst, st, casc_replays = twin_bits(torch, cfg, params, config, how)
+        steps, worst, st, casc_replays = twin_bits(torch, cfg_b, params_b, config, how)
         expect = {"engine": ["decode", "admit"], "admit": ["admit"], "sched": ["chunk", "decode"],
                   "waves": ["chunk", "decode"]}[how] + (["verify"] if st.spec_ticks else [])
-        print(f"captured step bit check ({label}): "
+        print(f"captured step bit check ({label}, {cfg_b.n_layers} of {cfg.n_layers} layers): "
               + "; ".join(f"{kind} {same}/{n} bit for bit (captures "
                           f"{getattr(st, kind + '_captures')}, replays "
                           f"{getattr(st, kind + '_replays')})"
@@ -2692,14 +2762,17 @@ def spec_drive(torch, eng, reqs, trace=None):
     return n_tok / (time.perf_counter() - t0), ticks, [list(r.generated) for r in reqs]
 
 
-def spec_divergences(torch, base, eng, streams, got, what: str) -> float:
+def spec_divergences(torch, base, eng, streams, got, what: str, hold: bool = True) -> float:
     """Hold a speculative run's streams (``got``, engine ``eng``) to the
     non-speculative run's (``streams``, engine ``base``): the largest logit
     difference between the rows both computed for the same token before
     any divergence; at each divergence the non-speculative run's top-2
     logit gap there must be below it (a near-tie that the two steps'
-    roundings break apart), else the run fails. Prints the divergences;
-    returns the largest difference."""
+    roundings break apart), else the run fails -- unless ``hold`` is False
+    (a MoE model: a verify step routes its rows with the other rows of its
+    batch, so a row's experts, and the capacity drops among them, differ
+    from the decode step's). Prints the divergences; returns the largest
+    difference."""
     firsts = [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
               for a, b in zip(streams, got)]
     before = [(u, i) for u, j in enumerate(firsts)
@@ -2714,8 +2787,8 @@ def spec_divergences(torch, base, eng, streams, got, what: str) -> float:
         print(f"spec phase ({what}): request {u} diverges from the non-speculative stream at "
               f"token {j}; the non-speculative run's top-2 gap there {gap:.4f}, the largest "
               f"verify-vs-decode logit difference {worst:.4f}", flush=True)
-        check(gap < worst, f"spec phase ({what}): request {u} diverges at token {j} with a "
-              f"top-2 gap of {gap} (>= {worst})")
+        check(not hold or gap < worst, f"spec phase ({what}): request {u} diverges at token "
+              f"{j} with a top-2 gap of {gap} (>= {worst})")
     return worst
 
 
@@ -3802,6 +3875,863 @@ def guards_phase(torch, cfg, params, sm_count, new_tokens, smi: str):
     return chaos[None]["counts"]
 
 
+# ------------------------------------------- attention-family architectures
+# the geometries the attention-family configurations give the kernels:
+# arch -> (Hq, Hkv, d); K4 and K8 run only where chunked prefill does
+ARCH_GEOMETRY = {
+    "qwen3-moe-30b-a3b": (32, 4, 128),
+    "nemotron-4-15b": (48, 8, 128),
+    "qwen2-moe-a2.7b": (16, 16, 128),
+    "musicgen-large": (32, 32, 64),
+    "gemma3-4b": (16, 4, 256),
+}
+ARCH_CHUNKED = ("qwen3-moe-30b-a3b", "nemotron-4-15b", "qwen2-moe-a2.7b")
+# the geometries whose runs launch K7 (blocking admission: qwen3's spec run,
+# gemma3, musicgen), K6 and K8 (a fixed run: qwen3, gemma3) and K5 (a
+# cascade: qwen3's prefix-sharing run); a kernel is timed only at those
+ARCH_K7 = ("qwen3-moe-30b-a3b", "gemma3-4b", "musicgen-large")
+ARCH_FIXED = ("qwen3-moe-30b-a3b", "gemma3-4b")
+ARCH_CASCADE = ("qwen3-moe-30b-a3b",)
+# the stream rule of the architecture phases: a stream may leave the ref
+# backend's only where the ref run's top-2 logit gap is below this (the
+# guards phase's rule, GUARD_NEAR_TIE), or below the largest difference of
+# the two runs' rows for the same token before the divergence. A MoE
+# model's streams against ref are not held to it: where a row's k-th and
+# (k+1)-th router probabilities lie within the backends' rounding of each
+# other, the two runs route it to different experts, which moves its logits
+# by far more than a near tie. They are held instead by what that cause
+# predicts: lean equals fixed (other kernels, the same near-tie rule), the
+# first-token logits of lean and ref stay within QWEN3_FIRST_LOGIT_GAP, and
+# router_witness finds the first flipped rows and holds their MoE inputs to
+# ROUTER_WITNESS_REL of each other (a kernel fault would part them first)
+ARCH_NEAR_TIE = GUARD_NEAR_TIE
+# bounds set from the measured runs (NVIDIA H100 80GB HBM3, 700.00 W)
+QWEN3_FIRST_LOGIT_GAP = 8.0          # measured 5.2812 on lean and fixed
+ROUTER_WITNESS_REL = 2.0 ** -5       # 8 bf16 steps; measured 1.28e-3 (chunk), 8.32e-3 (decode)
+ARCH_NEW_TOKENS = 8
+QWEN3_PROMPTS = (1200, 300, 17)
+QWEN3_BITS_PROMPTS = (300, 17)
+GEMMA_PROMPTS = (16000, 3000, 1200)        # past the 1024 window; the global layers see 16k
+SWEEP_PROMPTS = (700, 130, 17)
+
+
+def arch_name(kernel: str, arch: str) -> str:
+    Hq, Hkv, d = ARCH_GEOMETRY[arch]
+    return f"{kernel}@{arch} (gq {Hq // Hkv}, d {d})"
+
+
+def arch_kernel_phase(torch, sm_count: int, dev_name: str) -> dict:
+    """K2 (bf16, the ragged decode batch of the kernel phase on pages of
+    128), the fused K4 and K8 (the two-chunk pack of the prefill kernel
+    phase) and K7 (a 3000-token prompt, causal, and for gemma3 also its
+    1024-key window) at each attention-family geometry (``ARCH_GEOMETRY``),
+    K6 on K2's batch where a fixed run decodes (``ARCH_FIXED``: gq 8 at d
+    128, gq 4 at d 256) and K5 on a 2048-token prefix shared by four
+    sequences where a cascade runs (``ARCH_CASCADE``: g 8, 32 stacked rows):
+    against their plain versions (K6 also against K2, K5 also against K2 on
+    the unshared batch), with times, bounds and SDPA where a path of the
+    geometry launches the kernel. Prints which kernel runs: K2/K6 on the
+    decode ring (its slots) or the walk, K4/K7/K8 on the tensor cores or the
+    CUDA cores. Returns {(kernel, arch): result}."""
+    from repro_torch.core.attention import paged_gather_kv
+    from repro_torch.core.leantile import fixed_split_factor, make_chunk_schedule, make_schedule
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import lean_decode as ld
+    from repro_torch.kernels import lean_prefill as lp
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(24)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dt, dname, elem = torch.bfloat16, "bfloat16", 2
+    results = {}
+
+    def close_bf16(out, ref):
+        step = torch.finfo(torch.bfloat16).eps * ref.float().abs()
+        return bool(((out.float() - ref.float()).abs() <= step + BF16_TOL).all())
+
+    def record(key, ms, plain_ms, lib_ms, nbytes, flops, err, what):
+        b_ms, b_by = bound(dev_name, dname, nbytes, flops)
+        results[key] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+                        "bound_by": b_by, "max_abs_err": err}
+        print(f"  {arch_name(key[0].replace('_window', ''), key[1])} {what}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}; plain "
+              f"{plain_ms:.3f} ms; SDPA {lib_ms:.4f} ms); max|err| {err:.3e}", flush=True)
+
+    for arch, (Hq, Hkv, d) in ARCH_GEOMETRY.items():
+        g = Hq // Hkv
+        # K2: decode
+        lens, tile = [4000, 1500, 700, 1], 128
+        sched = make_schedule(lens, Hkv, tile, sm_count)
+        q, k_pool, v_pool, tbl, k_dense, v_dense = make_kv_problem(
+            torch, lens, Hq, Hkv, d, tile, 32, dt, gen, dev)
+        q_seg = q.reshape(len(lens) * Hkv, g, d).contiguous()
+        k_rows, v_rows = ops._pool_rows(k_pool, v_pool)
+        seg_ctx = torch.tensor([L for L in lens for _ in range(Hkv)], dtype=torch.int32,
+                               device=dev)
+        route = ops.paged_route(sched, tbl, Hkv)
+        args = (q_seg, k_rows, v_rows, seg_ctx, route, sched, 1.0 / math.sqrt(d))
+        ring0 = ld.fused_ring_launches
+        o, lse = ld.lean_decode_fused(*args)
+        o_ref, lse_ref = ld.lean_decode_fused_plain(*args)
+        torch.cuda.synchronize()
+        err = max((o - o_ref).abs().max().item(), (lse - lse_ref).abs().max().item())
+        check(torch.allclose(o, o_ref, atol=BF16_TOL, rtol=BF16_TOL)
+              and torch.allclose(lse, lse_ref, atol=BF16_TOL, rtol=BF16_TOL),
+              f"K2 at {arch}'s geometry disagrees with its plain version: max |err| {err}")
+        ns = ld.ring_slots(dt, g, d, tile)
+        check(ld.fused_ring_launches == ring0 + int(ns > 0),
+              f"K2 at {arch}'s geometry: the ring counter does not follow the path rule")
+        print(f"arch kernels, {arch}: Hq {Hq} Hkv {Hkv} (gq {g}, row bucket "
+              f"{2 if g <= 2 else 4 if g <= 4 else 8}) d {d}; "
+              + ring_line("K2", elem, d, tile, g), flush=True)
+        ms = gpu_ms(lambda: ld.lean_decode_fused(*args))
+        plain_ms = gpu_ms(lambda: ld.lean_decode_fused_plain(*args), reps=3)
+        lib_ms = library_yardstick(torch, q, k_dense, v_dense, lens, g, elem)[LIBRARY_CALL][0]
+        tokens = sum(lens) * Hkv
+        nbytes = (2 * tokens * d * elem + q_seg.numel() * elem + 4 * (o.numel() + lse.numel())
+                  + 4 * (seg_ctx.numel() + route.numel()))
+        record(("lean_decode_fused", arch), ms, plain_ms, lib_ms, nbytes, 4 * g * d * tokens,
+               err, "decode, lens [4000, 1500, 700, 1], page 128")
+        if arch in ARCH_FIXED:
+            # K6: the fixed run's decode, on K2's batch as dense sequences
+            B = len(lens)
+            splits = fixed_split_factor(max(lens), B * Hkv, tile, sm_count)
+            fargs = (q_seg, k_dense.reshape(B * Hkv, -1, d), v_dense.reshape(B * Hkv, -1, d),
+                     seg_ctx, splits, tile, 1.0 / math.sqrt(d))
+            ring6 = fd.ring_launches
+            parts = fd.flash_decode_partials(*fargs)
+            parts_ref = fd.flash_decode_partials_plain(*fargs)
+            torch.cuda.synchronize()
+            on_ring = fd.ring_launches - ring6
+            e6 = max((a - b).abs().max().item() for a, b in zip(parts, parts_ref))
+            check(all(torch.allclose(a, b, atol=BF16_TOL, rtol=BF16_TOL)
+                      for a, b in zip(parts, parts_ref)),
+                  f"K6 at {arch}'s geometry disagrees with its plain version: max |err| {e6}")
+            o6 = ops.flash_decode_from_lens(q, k_dense, v_dense, seg_ctx, num_splits=splits,
+                                            tile=tile)
+            e26 = (o.reshape(B, Hq, d) - o6.float()).abs().max().item()
+            check(e26 <= 2.0 ** -7, f"K2 and K6 + merge_n disagree at {arch}'s geometry: {e26}")
+            print("  " + ring_line("K6", elem, d, tile, g) + f"; this launch "
+                  f"{'on the ring' if on_ring else 'on the walk'}, {splits} splits; K2 against "
+                  f"K6 + merge_n {e26:.2e}", flush=True)
+            out_bytes = 4 * sum(t.numel() for t in parts)
+            record(("flash_decode_partials", arch),
+                   gpu_ms(lambda: fd.flash_decode_partials(*fargs)),
+                   gpu_ms(lambda: fd.flash_decode_partials_plain(*fargs), reps=3), lib_ms,
+                   2 * tokens * d * elem + q_seg.numel() * elem + 4 * B * Hkv + out_bytes,
+                   4 * g * d * tokens, e6, f"K6 decode, lens {lens}")
+        if arch in ARCH_CASCADE:
+            # K5: the prefix-sharing run's cascade, its stacked rows (g x 4)
+            case = next(iter(CASCADE_CASES))
+            passes, suffixes = CASCADE_CASES[case]
+            q5, kp5, vp5, tbl5, dup5, lens5 = cascade_problem(torch, passes, suffixes, Hq, Hkv,
+                                                              d, tile, dt, gen, dev)
+            args5, binding = cascade_operands(torch, q5, kp5, vp5, tbl5, lens5, passes, sm_count)
+            ring5 = ld.cascade_ring_launches
+            o5, l5 = ld.lean_cascade_fused(*args5)
+            o5r, l5r = ld.lean_cascade_fused_plain(*args5)
+            torch.cuda.synchronize()
+            check(ld.cascade_ring_launches == ring5 + 1,
+                  f"K5 at {arch}'s geometry did not run on the decode ring")
+            e5 = max((o5 - o5r).abs().max().item(), (l5 - l5r).abs().max().item())
+            check(torch.allclose(o5, o5r, atol=BF16_TOL, rtol=BF16_TOL)
+                  and torch.allclose(l5, l5r, atol=BF16_TOL, rtol=BF16_TOL),
+                  f"K5 at {arch}'s geometry disagrees with its plain version: max |err| {e5}")
+            B5 = len(lens5)
+            sched5 = make_schedule(lens5, Hkv, tile, sm_count)
+            ctx5 = torch.tensor([L for L in lens5 for _ in range(Hkv)], dtype=torch.int32,
+                                device=dev)
+            dup_t = torch.as_tensor(dup5).to(dev)
+            kr5, vr5 = ops._pool_rows(kp5, vp5)
+            o2u, l2u = ld.lean_decode_fused(q5.reshape(B5 * Hkv, g, d).contiguous(), kr5, vr5,
+                                            ctx5, ops.paged_route(sched5, dup_t, Hkv), sched5,
+                                            1.0 / math.sqrt(d))
+            e52 = max((o5 - o2u).abs().max().item(), (l5 - l2u).abs().max().item())
+            check(torch.allclose(o5, o2u, atol=CASCADE_TOL, rtol=CASCADE_TOL)
+                  and torch.allclose(l5, l2u, atol=CASCADE_TOL, rtol=CASCADE_TOL),
+                  f"K5 at {arch}'s geometry and K2 on the unshared batch differ by {e52}")
+            lib5 = library_yardstick(torch, q5, paged_gather_kv(kp5, dup_t),
+                                     paged_gather_kv(vp5, dup_t), lens5, g,
+                                     elem)[LIBRARY_CALL][0]
+            nb5, fl5, _, _ = cascade_work(binding, args5[7], lens5, args5, q5, o5, l5, elem)
+            record(("lean_cascade_fused", arch), gpu_ms(lambda: ld.lean_cascade_fused(*args5)),
+                   gpu_ms(lambda: ld.lean_cascade_fused_plain(*args5), reps=3), lib5, nb5, fl5,
+                   e5, f"K5 {case}, lens {lens5}, {args5[0].shape[1]} stacked rows, against K2 "
+                   f"unshared {e52:.2e}")
+        # K7: whole-prompt prefill (the CUDA cores at d 256)
+        cases = [("causal 3000", 3000, None)] + ([("window 1024", 3000, 1024)]
+                                                 if arch == "gemma3-4b" else [])
+        for label, L, window in cases:
+            key = ("flash_prefill_window" if window else "flash_prefill", arch)
+            qp = torch.randn(1, Hq, L, d, generator=gen, device=dev).to(dt)
+            kp = torch.randn(1, Hkv, L, d, generator=gen, device=dev).to(dt)
+            vp = torch.randn(1, Hkv, L, d, generator=gen, device=dev).to(dt)
+            fp.reset_launch_counts()
+            out = fp.flash_prefill(qp, kp, vp, causal=True, window=window)
+            ref = fp.flash_prefill_plain(qp, kp, vp, causal=True, window=window)
+            torch.cuda.synchronize()
+            tc = fp.tensor_core_path(dt, d)
+            check(fp.dense_tc_launches == int(tc), f"K7 at {arch}: the path rule was not kept")
+            err = (out.float() - ref.float()).abs().max().item()
+            check(close_bf16(out, ref), f"K7 {label} at {arch}'s geometry disagrees with its "
+                  f"plain version: max |err| {err}")
+            if arch not in ARCH_K7:
+                print(f"  {arch_name('flash_prefill', arch)} K7 {label}: max|err| {err:.3e} "
+                      "(no run of this geometry admits by K7: not timed)", flush=True)
+                continue
+            ms = gpu_ms(lambda: fp.flash_prefill(qp, kp, vp, causal=True, window=window), reps=10)
+            plain_ms = gpu_ms(lambda: fp.flash_prefill_plain(qp, kp, vp, causal=True,
+                                                             window=window), reps=2)
+            if window is None:
+                lib = lambda: sdpa(qp, kp, vp, is_causal=True, enable_gqa=True)
+            else:
+                pos = torch.arange(L, device=dev)
+                mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+                lib = lambda: sdpa(qp, kp, vp, attn_mask=mask, enable_gqa=True)
+            lib_ms = gpu_ms(lib, reps=10)
+            keys = visible_keys(L, L, True, window) * Hq
+            record(key, ms, plain_ms, lib_ms,
+                   (qp.numel() + kp.numel() + vp.numel() + out.numel()) * elem, 4 * d * keys,
+                   err, f"K7 {label} ({'tensor' if tc else 'CUDA'} cores)")
+        if arch not in ARCH_CHUNKED:
+            continue
+        # the fused K4 and K8: the chunk pack
+        C, offs = CHUNK, CHUNK_OFFS
+        visible = [o + C for o in offs]
+        csched = make_chunk_schedule(visible, Hkv, tile, sm_count, max_len=max(visible) + tile)
+        qc, kc, vc, tblc = chunk_pack(torch, offs, C, Hq, Hkv, d, tile, dt, gen, dev)
+        N = len(offs)
+        kr, vr = ops._pool_rows(kc, vc)
+        cctx = torch.tensor([v for v in visible for _ in range(Hkv)], dtype=torch.int32,
+                            device=dev)
+        cqs = torch.tensor([o for o in offs for _ in range(Hkv)], dtype=torch.int32, device=dev)
+        cargs = (qc.reshape(N * Hkv, g * C, d).contiguous(), kr, vr, cctx, cqs,
+                 ops.paged_route(csched, tblc, Hkv), csched, 1.0 / math.sqrt(d), C)
+        q_off = torch.tensor(offs, dtype=torch.int32, device=dev)
+        lp.reset_launch_counts()
+        fp.reset_launch_counts()
+        o4 = lp.lean_prefill_fused(*cargs)
+        o4_ref = lp.lean_prefill_fused_plain(*cargs)
+        o8 = fp.flash_prefill_paged(qc, kc, vc, tblc, q_off)
+        o8_ref = fp.flash_prefill_paged_plain(qc, kc, vc, tblc, q_off, 1.0 / math.sqrt(d))
+        torch.cuda.synchronize()
+        check((lp.fused_tc_launches, fp.tc_launches) == (1, 1),
+              f"fused K4 or K8 at {arch}'s geometry did not run on the tensor cores")
+        e4 = (o4.float() - o4_ref.float()).abs().max().item()
+        e8 = (o8.float() - o8_ref.float()).abs().max().item()
+        check(close_bf16(o4, o4_ref) and close_bf16(o8, o8_ref),
+              f"fused K4 / K8 at {arch}'s geometry disagree with their plain versions: "
+              f"{e4}, {e8}")
+        k_dense, v_dense = paged_gather_kv(kc, tblc), paged_gather_kv(vc, tblc)
+        K = k_dense.shape[2]
+        qpos = q_off[:, None].long() + torch.arange(g * C, device=dev)[None, :] % C
+        mask = (torch.arange(K, device=dev)[None, None, :] <= qpos[..., None])[:, None]
+        qf = qc.reshape(N, Hkv, g * C, d)
+        lib_ms = gpu_ms(lambda: sdpa(qf, k_dense, v_dense, attn_mask=mask), reps=10)
+        keys = sum(Hq * (C * o + C * (C + 1) // 2) for o in offs)
+        nbytes = (2 * qc.numel() + 2 * sum(visible) * Hkv * d) * elem
+        for name, fn, plain, err in (
+            ("lean_prefill_fused", lambda: lp.lean_prefill_fused(*cargs),
+             lambda: lp.lean_prefill_fused_plain(*cargs), e4),
+            ("flash_prefill_paged", lambda: fp.flash_prefill_paged(qc, kc, vc, tblc, q_off),
+             lambda: fp.flash_prefill_paged_plain(qc, kc, vc, tblc, q_off, 1.0 / math.sqrt(d)),
+             e8),
+        ):
+            if name == "flash_prefill_paged" and arch not in ARCH_FIXED:
+                continue                     # no fixed run of this geometry: held, not timed
+            record((name, arch), gpu_ms(fn, reps=10), gpu_ms(plain, reps=2), lib_ms, nbytes,
+                   4 * d * keys, err, f"pack of {N} chunks of {C} at {list(offs)}")
+    return results
+
+
+def arch_config(cfg, n_layers: int):
+    """``cfg`` at ``n_layers`` of depth: its stage pattern kept, repeated
+    as often as fits (the last unit cut short)."""
+    import dataclasses
+
+    if n_layers >= cfg.n_layers:
+        return cfg
+    pattern = cfg.stages[0][0]
+    reps, rest = divmod(n_layers, len(pattern))
+    stages = (((pattern, reps),) if reps else ()) + (((pattern[:rest], 1),) if rest else ())
+    return dataclasses.replace(cfg, n_layers=n_layers, stages=stages)
+
+
+def arch_engine_class():
+    """A :class:`DecodeEngine` recording, per request, the logits row each
+    emitted token was picked from (admission, the chunk completing a
+    prompt, each decode pass), each decode tick's seconds and each blocking
+    admission's (prompt tokens, seconds)."""
+    import torch
+
+    from repro_torch.serving.engine import DecodeEngine
+
+    class Rows(DecodeEngine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.rows, self.tick_s, self.admit_s = {}, [], []
+
+        def _run_prompt_prefill(self, prompt, slot, pages):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = super()._run_prompt_prefill(prompt, slot, pages)
+            torch.cuda.synchronize()
+            self.admit_s.append((len(prompt), time.perf_counter() - t0))
+            self.rows.setdefault(self.slot_req[slot].uid, []).append(logits[0].float())
+            return logits
+
+        def prefill_chunks_tick(self, work, pack_width, chunk_cap):
+            toks = super().prefill_chunks_tick(work, pack_width, chunk_cap)
+            for i, (slot, chunk, off) in enumerate(work):
+                req = self.slot_req[slot]
+                if off + len(chunk) == len(req.prompt):
+                    self.rows.setdefault(req.uid, []).append(self.last_prefill_logits[i].float())
+            return toks
+
+        def _emit_tokens(self, results, guard_on, spec=None):
+            for active, _, _ in results:
+                for s in active:
+                    self.rows.setdefault(self.slot_req[s].uid, []).append(
+                        self.last_logits[s].float())
+            return super()._emit_tokens(results, guard_on, spec)
+
+        def decode_tick(self, exclude=None):
+            t0 = time.perf_counter()
+            out = super().decode_tick(exclude)
+            torch.cuda.synchronize()
+            if out:
+                self.tick_s.append(time.perf_counter() - t0)
+            return out
+
+    return Rows
+
+
+def arch_serve(torch, cfg, params, sm_count, backend, prompts, new_tokens, chunked, cache_len,
+               captured=True):
+    """Serve ``prompts`` on a paged engine of ``cfg`` (page 128, batch 4)
+    through the ``Scheduler`` with chunked prefill (``chunked``) or the
+    engine's blocking admission. Returns the streams, the engine (rows,
+    tick and admission times, stats) and the run's launch counts."""
+    from repro_torch.serving.config import EngineConfig, PagedConfig
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
+
+    eng = arch_engine_class()(cfg, params, EngineConfig(
+        max_batch=4, cache_len=cache_len, attn_backend=backend, num_workers=sm_count,
+        paged=PagedConfig(enabled=True, page_size=128)), device="cuda")
+    eng.capture_decode = captured
+    reset_launch_counts()
+    if chunked:
+        sch = Scheduler(eng, SchedulerConfig(chunk_size=SCHED_CHUNK, prefill_pack=SCHED_PACK,
+                                             token_budget=SCHED_BUDGET, chunked=True))
+        hs = [sch.submit(p, new_tokens, uid=i) for i, p in enumerate(prompts)]
+        sch.run_to_completion(max_steps=600)
+        streams = [list(h.generated) for h in hs]
+    else:
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=new_tokens)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_to_completion(max_ticks=600)
+        streams = [list(r.generated) for r in reqs]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check(all(len(s) == new_tokens for s in streams), f"{cfg.name} {backend}: a request did "
+          "not finish")
+    eng.pool.check()
+    check(eng.pool.num_allocated == 0, f"{cfg.name} {backend}: {eng.pool.num_allocated} pages "
+          "leaked")
+    for rows in eng.rows.values():
+        check(all(bool(torch.isfinite(r).all()) for r in rows),
+              f"{cfg.name} {backend}: non-finite logits")
+    return streams, eng, counts
+
+
+def arch_streams(what, streams, eng, ref_streams, ref_eng) -> list:
+    """Hold ``streams`` to the ref backend's: equal, or leaving them where
+    the ref run's top-2 logit gap is a near tie (``ARCH_NEAR_TIE``, or the
+    largest difference of the two runs' rows before the divergence); a MoE
+    model's are reported only (see ``ARCH_NEAR_TIE``: they are held by
+    :func:`router_witness` instead). Returns the divergences (request,
+    token, gap)."""
+    moe = eng.cfg.moe is not None
+    out = []
+    for u, (a, b) in enumerate(zip(streams, ref_streams)):
+        j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            continue
+        worst = max(((r0 - r1).abs().max().item() for r0, r1 in
+                     zip(eng.rows[u][:j], ref_eng.rows[u][:j])), default=0.0)
+        top = ref_eng.rows[u][j].topk(2).values
+        gap = (top[0] - top[1]).item()
+        check(moe or gap < max(ARCH_NEAR_TIE, worst), f"{what}: request {u} leaves the ref "
+              f"stream at token {j} with a top-2 gap of {gap} (near tie below "
+              f"{max(ARCH_NEAR_TIE, worst)})")
+        out.append((u, j, round(gap, 4)))
+    return out
+
+
+def router_calls(torch, cfg, serve) -> list:
+    """Run ``serve()`` (an eager run) with every MoE call's input and router
+    probabilities recorded: the forward's own grouping, softmax and top-k.
+    Returns [(input (T, D), probabilities (T, E), top-k expert ids sorted)]
+    per call, in call order."""
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models import transformer as tt
+
+    orig, K, rec = tt.moe_forward, cfg.moe.top_k, []
+
+    def forward(p, x, mcfg, *a, **kw):
+        B, L, D = x.shape
+        T = B * L
+        G = tmoe._auto_groups(T)
+        while T % G:
+            G //= 2
+        xt = x.reshape(G, T // G, D).to(tmoe.COMPUTE_DTYPE)
+        probs = torch.softmax((xt @ p["router"].to(tmoe.COMPUTE_DTYPE)).float(), dim=-1)
+        _, idx = tmoe.top_k(probs, K)
+        rec.append((x.reshape(T, D).detach().clone(), probs.reshape(T, -1),
+                    idx.reshape(T, K).sort(dim=-1).values))
+        return orig(p, x, mcfg, *a, **kw)
+
+    tt.moe_forward = forward
+    try:
+        serve()
+    finally:
+        tt.moe_forward = orig
+    return rec
+
+
+def router_witness(torch, cfg, a, b, what, new_tokens) -> dict:
+    """Where a MoE model's two runs part (``what``: "x against y"): their
+    MoE calls ``a`` and ``b`` (:func:`router_calls`, eager, ``new_tokens``
+    deep: to the earliest token where the streams part). At the first call
+    where a row's top-k expert set differs: the rows that flipped, their
+    k-th against (k+1)-th router probability margins in each run, how far
+    their router probabilities differ, and how far their MoE inputs differ
+    relative to the row's largest input. Held: a flip exists, the flipped
+    rows sit at near ties (each one's smaller margin below the call's
+    median margin), and their inputs agree to ``ROUTER_WITNESS_REL`` -- the
+    runs' rounding, not a fault (a kernel fault, or pad and idle rows
+    filled differently, would part the inputs before any flip). Returns the
+    numbers printed."""
+    K = cfg.moe.top_k
+    check(len(a) == len(b) and all(x[0].shape == y[0].shape for x, y in zip(a, b)),
+          f"router witness ({what}): the runs' MoE calls do not align ({len(a)} against "
+          f"{len(b)})")
+    first = next((i for i, (x, y) in enumerate(zip(a, b)) if not torch.equal(x[2], y[2])), None)
+    check(first is not None, f"router witness ({what}): the streams part but no row's "
+          "experts differ")
+    (xa, pa, ia), (xb, pb, ib) = a[first], b[first]
+    rows = (ia != ib).any(dim=-1).nonzero().flatten()
+    top_a, top_b = pa.topk(K + 1, dim=-1).values, pb.topk(K + 1, dim=-1).values
+    margin = lambda t: t[:, K - 1] - t[:, K]
+    rel = ((xa.float() - xb.float()).abs().amax(-1)
+           / xb.float().abs().amax(-1).clamp(min=1e-30))
+    out = {"call": first, "layer": first % cfg.n_layers, "step": first // cfg.n_layers,
+           "tokens": new_tokens,
+           "rows": rows.numel(), "of": xa.shape[0],
+           "margins_ref": [round(v, 6) for v in margin(top_b)[rows].tolist()],
+           "margins": [round(v, 6) for v in margin(top_a)[rows].tolist()],
+           "median_margin": margin(top_b).median().item(),
+           "dprob": (pa[rows] - pb[rows]).abs().max().item(),
+           "dx_flipped": rel[rows].max().item(), "dx_call": rel.max().item(),
+           "dx_first_call": max(((x[0].float() - y[0].float()).abs().amax(-1)
+                                 / y[0].float().abs().amax(-1).clamp(min=1e-30)).max().item()
+                                for x, y in zip(a[:1], b[:1]))}
+    print(f"  router witness ({what}, eager, {new_tokens} token(s) deep): the "
+          f"first top-{K} difference at MoE call {first} (step {out['step']} of the run, layer "
+          f"{out['layer']}): {out['rows']} of {out['of']} rows; their k-th - (k+1)-th router "
+          f"probability margins {out['margins']} and {out['margins_ref']} against a "
+          f"median of {out['median_margin']:.6f} over the call's rows; router probabilities "
+          f"apart by up to {out['dprob']:.2e}; MoE inputs apart by up to "
+          f"{out['dx_flipped']:.2e} of the row's largest (every row of the call "
+          f"{out['dx_call']:.2e}; the first call {out['dx_first_call']:.2e}); bound "
+          f"{ROUTER_WITNESS_REL}", flush=True)
+    tie = max(min(x, y) for x, y in zip(out["margins"], out["margins_ref"]))
+    check(tie < out["median_margin"], f"router witness ({what}): a flipped row's margin "
+          f"{tie} is not below the call's median {out['median_margin']}: not a near tie")
+    check(out["dx_flipped"] <= ROUTER_WITNESS_REL,
+          f"router witness ({what}): the flipped rows' MoE inputs differ by "
+          f"{out['dx_flipped']} of their largest (bound {ROUTER_WITNESS_REL}): not a near tie "
+          "of the router")
+    return out
+
+
+def arch_prompts(vocab, lens, seed):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, n).astype(np.int32) for n in lens]
+
+
+def arch_bits(torch, cfg, params, sm_count, configs, prompts) -> dict:
+    """``twin_bits`` on each (label, EngineConfig, drive): eager against
+    captured in lockstep, every step bit for bit. Returns {label: steps}."""
+    out = {}
+    for label, config, drive in configs:
+        steps, worst, st, _ = twin_bits(torch, cfg, params, config, drive, prompts=prompts)
+        for kind, (n, same) in steps.items():
+            check(n > 0 and same == n, f"{cfg.name} {label}: {kind} steps bit-identical "
+                  f"{same}/{n} (max |logit diff| {worst})")
+        check(st.step_captures > 0, f"{cfg.name} {label}: nothing was captured")
+        out[label] = {k: v[0] for k, v in steps.items()}
+    print(f"  {cfg.name}: captured against eager, bit for bit: "
+          + "; ".join(f"{label} {steps}" for label, steps in out.items()), flush=True)
+    return out
+
+
+def arch_depth(torch, cfg, reserve_gb: float) -> int:
+    """The most layers of ``cfg`` whose bf16 weights fit the card's free
+    memory, ``reserve_gb`` kept for caches, activations and graphs."""
+    D, V = cfg.d_model, cfg.vocab_size
+    attn = D * (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim + cfg.n_heads * cfg.head_dim * D
+    if cfg.moe is not None:
+        m = cfg.moe
+        ffn = D * m.num_experts + 3 * m.num_experts * D * m.d_ff_expert + 3 * D * m.d_ff_shared
+    else:
+        ffn = (3 if cfg.ffn_kind == "swiglu" else 2) * D * cfg.d_ff
+    layer = 2 * (attn + ffn)
+    fixed = 2 * V * D * (1 if cfg.tie_embeddings else 2)
+    free, _ = torch.cuda.mem_get_info()
+    return max(1, min(cfg.n_layers, int((free - fixed - reserve_gb * 1e9) // layer)))
+
+
+def arch_params(torch, cfg, seed):
+    from repro_torch.models import init_params
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    return params, time.perf_counter() - t0
+
+
+def qwen3_phase(torch, sm_count, smi: str, depth=None) -> dict:
+    """qwen3-moe-30b-a3b at full width (d_model 2048, 32/4 heads, d 128, 128
+    experts top-8 of width 768, vocab 151936), at all 48 layers or the most
+    that fit (printed): the lean Scheduler with chunked prefill and every
+    step captured, the fixed and ref Schedulers, streams against ref
+    (reported; lean held to fixed, the first-token logits of lean and ref
+    to a bound, and where they part, :func:`router_witness`); an eager and
+    a captured decode run with host launch calls per tick; one
+    prefix-sharing run with the radix cache and cascade decode (K5 at g 8)
+    against the same waves without cascade; speculative decode against
+    plain decode; and captured steps bit for bit against eager (chunk and
+    decode on the Scheduler; admission, verify and decode on the spec
+    engine). Returns launches per kernel from the lean and fixed runs, the
+    cascade and the spec run."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import lean_decode as ld
+    from repro_torch.serving.config import SpecConfig
+    from repro_torch.serving.engine import Request
+
+    full = get_config("qwen3-moe-30b-a3b")
+    n = depth or arch_depth(torch, full, reserve_gb=10.0)
+    cfg = arch_config(full, n)
+    params, init_s = arch_params(torch, cfg, 30)
+    print(f"qwen3 phase: {cfg.name} full width (d_model {cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads, d {cfg.head_dim}, {cfg.moe.num_experts} experts top-"
+          f"{cfg.moe.top_k} of width {cfg.moe.d_ff_expert}, vocab {cfg.vocab_size}), "
+          f"{cfg.n_layers} of {full.n_layers} layers"
+          + ("" if n == full.n_layers else " (depth cut: set on the command line)" if depth
+             else " (depth cut: the weights of more do not fit)")
+          + f"; bf16 weights in {init_s:.1f} s, {torch.cuda.memory_allocated() / 1e9:.1f} GB",
+          flush=True)
+    prompts = arch_prompts(cfg.vocab_size, QWEN3_PROMPTS, 31)
+    new = ARCH_NEW_TOKENS
+    runs = {}
+    for backend in ("ref", "lean", "fixed"):
+        runs[backend] = arch_serve(torch, cfg, params, sm_count, backend, prompts, new, True,
+                                   4096)
+    launches, parted = {}, {}
+    for backend in ("lean", "fixed"):
+        streams, eng, counts = runs[backend]
+        kernels = {"lean": ("K4f", "K2"), "fixed": ("K8", "K6")}[backend]
+        chunks, ticks = len(eng.stats.tick_prefill_tokens), len(eng.tick_s)
+        check(counts[kernels[0]] > 0 and counts[kernels[1]] > 0 and
+              counts[kernels[1]] % cfg.n_layers == 0,
+              f"qwen3 {backend}: launches {counts}")
+        div = arch_streams(f"qwen3 {backend}", streams, eng, runs["ref"][0], runs["ref"][1])
+        if div:
+            parted[backend] = 1 + min(j for _, j, _ in div)
+        st = eng.stats
+        print(f"  {backend} Scheduler: launches {kernels[0]} {counts[kernels[0]]}, "
+              f"{kernels[1]} {counts[kernels[1]]}; chunk steps {st.chunk_prefills}"
+              f" chunks, captures {st.chunk_captures} chunk / {st.decode_captures} decode, "
+              f"replays {st.chunk_replays} / {st.decode_replays}; tick p50 "
+              f"{statistics.median(eng.tick_s) * 1e3:.2f} ms; divergences from ref "
+              f"(request, token, gap) {div}", flush=True)
+        launches[backend] = counts
+    check(runs["lean"][1].stats.decode_replays > 0,
+          "qwen3 lean: no decode step replayed a captured graph")
+    # the first-token logits against ref, held to a bound from the measured
+    # runs; where a stream parts from ref, the router witness
+    ref_eng = runs["ref"][1]
+    gaps = {b: max((runs[b][1].rows[u][0] - ref_eng.rows[u][0]).abs().max().item()
+                   for u in range(len(prompts))) for b in ("lean", "fixed")}
+    print(f"  first-token logits against ref: max |gap| lean {gaps['lean']:.4f}, fixed "
+          f"{gaps['fixed']:.4f} (bound {QWEN3_FIRST_LOGIT_GAP})", flush=True)
+    check(max(gaps.values()) <= QWEN3_FIRST_LOGIT_GAP, f"qwen3: first-token logits against ref "
+          f"apart by {gaps} (bound {QWEN3_FIRST_LOGIT_GAP}, from the measured runs)")
+    del runs, ref_eng
+    if parted:
+        n = max(parted.values())
+        eager = lambda b: router_calls(torch, cfg, lambda: arch_serve(
+            torch, cfg, params, sm_count, b, prompts, n, True, 4096, captured=False))
+        ref_calls = eager("ref")
+        for backend in parted:
+            router_witness(torch, cfg, eager(backend), ref_calls, f"{backend} against ref", n)
+        del ref_calls
+    clock("qwen3 phase: eager against captured ticks")
+    ticks = {}
+    for captured in (False, True):
+        _, eng, _ = arch_serve(torch, cfg, params, sm_count, "lean", prompts, new, False, 4096,
+                               captured=captured)
+        ticks[captured] = statistics.median(eng.tick_s[2:]) * 1e3
+        if captured:
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            reqs = [Request(uid=10 + i, prompt=p, max_new_tokens=10)
+                    for i, p in enumerate(prompts)]
+            for r in reqs:
+                eng.submit(r)
+            for _ in range(4):                   # admissions, warm-up, capture
+                eng.tick()
+            with torch.profiler.profile(activities=acts) as prof:
+                for _ in range(2):
+                    eng.tick()
+                torch.cuda.synchronize()
+            eng.run_to_completion()
+            calls = sum(host_launch_calls(prof).values()) / 2
+            busy = device_time(prof)[1] / 2
+        del eng
+    print(f"  decode tick p50, eager then captured: {ticks[False]:.2f}, {ticks[True]:.2f} ms; "
+          f"a replayed tick: {calls:.1f} host launch calls, device busy {busy:.2f} ms; {smi}",
+          flush=True)
+    clock("qwen3 phase: prefix sharing, spec, bits")
+    waves = prefix_waves(cfg.vocab_size)
+    res = prefix_serving_run(torch, cfg, params, sm_count, 8, waves, True)
+    # against the same waves on the same radix cache without cascade decode
+    # (K2 over the shared pages): the chunk steps are the same rows, so the
+    # router sees the same batches. A run with the cache off is not the same
+    # function for a MoE: its chunk steps prefill the system prompt again,
+    # beside other rows, and an expert's capacity keeps other rows
+    plain = prefix_serving_run(torch, cfg, params, sm_count, 8, waves, True, cascade=False)
+    check(plain["eng"].stats.cascade_ticks == 0, "qwen3 prefix serving: cascade off ran cascade")
+    # the first tokens come from chunk steps, which cascade decode does not
+    # touch: held to the logit tolerance. The decode ticks route a 4-row
+    # batch through experts that keep C = 1 row each, so where K5's
+    # rounding and K2's flip a router near tie the runs part: held by the
+    # router witness on the same two runs, eager
+    first_gap = 0.0
+    for h in res["handles"]:
+        a, b = res["eng"].first_rows[h.uid], plain["eng"].first_rows[h.uid]
+        atol = LOGIT_ATOL_FRAC * b.abs().median().item()
+        first_gap = max(first_gap, (a - b).abs().max().item())
+        check(torch.allclose(a, b, rtol=LOGIT_RTOL, atol=atol), f"qwen3 prefix serving: "
+              f"request {h.uid}'s first-token logits differ from the non-cascade run's by "
+              f"{(a - b).abs().max().item()} (allowed {atol} + {LOGIT_RTOL} |ref|)")
+    agree = sum(h.generated == plain["handles"][h.uid].generated for h in res["handles"])
+    parts, decode_gap = agree < len(res["handles"]), 0.0
+    for h in res["handles"]:
+        for (x, tx, _), (y, ty, _) in zip(res["eng"].rows.get(h.uid, []),
+                                          plain["eng"].rows.get(h.uid, [])):
+            decode_gap = max(decode_gap, (x - y).abs().max().item())
+            atol = LOGIT_ATOL_FRAC * y.abs().median().item()
+            parts = parts or not torch.allclose(x, y, rtol=LOGIT_RTOL, atol=atol)
+            if tx != ty:
+                break               # later rows follow different tokens
+    del plain
+    if parts:
+        runs = [router_calls(torch, cfg, lambda c=c: prefix_serving_run(
+            torch, cfg, params, sm_count, 8, waves, True, cascade=c, captured=False))
+            for c in (False, True)]
+        router_witness(torch, cfg, runs[1], runs[0], "cascade against no cascade", 8)
+        del runs
+    st = res["eng"].stats
+    check(st.cascade_fused_ticks > 0 and st.prefix_matched_tokens > 0,
+          f"qwen3 prefix serving: no cascade tick ({st.cascade_ticks}) or no match")
+    check(res["counts"]["K5"] == cfg.n_layers * st.cascade_fused_ticks,
+          f"qwen3 prefix serving: K5 launched {res['counts']['K5']} times, expected "
+          f"{cfg.n_layers} x {st.cascade_fused_ticks}")
+    check(ld.cascade_ring_launches == ld.cascade_launches, "qwen3: K5 off the decode ring")
+    launches["cascade"] = res["counts"]
+    print(f"  prefix sharing (system prompt {SYSTEM_TOKENS}, tails {list(WAVE2_TAILS)}): "
+          f"{st.prefix_matched_tokens} tokens from the radix cache, {st.cascade_fused_ticks} "
+          f"cascade ticks (K5 {res['counts']['K5']} = {cfg.n_layers} x "
+          f"{st.cascade_fused_ticks}, g {cfg.n_heads // cfg.n_kv_heads}); pool and cache clean; "
+          f"against the same waves without cascade: first-token logits within {first_gap:.4f}, "
+          f"decode logits up to the first differing token within {decode_gap:.4f}, streams "
+          f"equal {agree}/{len(res['handles'])}",
+          flush=True)
+    del res
+    from repro_torch.serving.speculative import OracleProposer
+
+    Rows = spec_engine_class()
+    base_cfg = engine_config("lean", sm_count)
+    out = {}
+    for spec in (False, True):
+        # the oracle proposer replays the plain run's streams
+        config = (dataclasses.replace(base_cfg, spec=SpecConfig(
+            enabled=True, k=SPEC_K, proposer=OracleProposer(dict(enumerate(out[False][1])))))
+            if spec else base_cfg)
+        eng = Rows(cfg, params, config, device="cuda")
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=new) for i, p in enumerate(prompts)]
+        reset_launch_counts()
+        tps, _, streams = spec_drive(torch, eng, reqs)
+        out[spec] = (eng, streams, tps, launch_counts())
+    worst = spec_divergences(torch, out[False][0], out[True][0], out[False][1], out[True][1],
+                             "qwen3", hold=False)
+    st = out[True][0].stats
+    check(st.spec_ticks > 0 and st.verify_replays > 0, "qwen3 spec: no verify step replayed")
+    launches["spec"] = out[True][3]
+    print(f"  speculative decode (k {SPEC_K}, oracle of the plain run): {st.spec_ticks} verify "
+          f"ticks, accept "
+          f"{st.spec_accepted_tokens}/{st.spec_draft_tokens}, {out[True][2]:.1f} tokens/s "
+          f"against plain {out[False][2]:.1f}; streams held to plain decode (largest "
+          f"verify-vs-decode logit difference {worst:.4f})", flush=True)
+    del out
+    bits = arch_bits(torch, cfg, params, sm_count, [
+        ("chunk steps lean", engine_config("lean", sm_count), "sched"),
+        ("spec lean", dataclasses.replace(engine_config("lean", sm_count),
+                                          spec=SpecConfig(enabled=True, k=SPEC_K)), "engine"),
+    ], arch_prompts(cfg.vocab_size, QWEN3_BITS_PROMPTS, 32))
+    del params
+    return {"launches": launches, "bits": bits, "depth": cfg.n_layers}
+
+
+def gemma_phase(torch, sm_count, smi: str, depth=None) -> dict:
+    """gemma3-4b at full width and depth (34 layers: 28 sliding-window of
+    1024 keys, 6 global; d 256; vocab 262144): prompts of 16000, 3000 and
+    1200 tokens admitted by blocking whole-prompt prefill (K7 on the CUDA
+    cores at d 256; the rings wrap), decode on lean (K2 at d 256), fixed
+    (K6) and ref, streams against ref; the lean engine's captured steps bit
+    for bit against eager. Returns launches per kernel of the lean run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import lean_decode as ld
+
+    full = get_config("gemma3-4b")
+    cfg = arch_config(full, depth or full.n_layers)
+    params, init_s = arch_params(torch, cfg, 34)
+    kinds = [k for pat, reps in cfg.stages for _ in range(reps) for k in pat]
+    n_attn, n_win = kinds.count("attn"), kinds.count("win")
+    print(f"gemma phase: {cfg.name} full width (d_model {cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads, d {cfg.head_dim}, window {cfg.window}, vocab "
+          f"{cfg.vocab_size}), {cfg.n_layers} of {full.n_layers} layers ({n_win} win, {n_attn} "
+          f"attn); bf16 weights in {init_s:.1f} s, {torch.cuda.memory_allocated() / 1e9:.1f} GB",
+          flush=True)
+    prompts = arch_prompts(cfg.vocab_size, GEMMA_PROMPTS, 35)
+    cache_len = max(GEMMA_PROMPTS) + 128
+    runs, launches = {}, {}
+    for backend in ("ref", "lean", "fixed"):
+        runs[backend] = arch_serve(torch, cfg, params, sm_count, backend, prompts,
+                                   ARCH_NEW_TOKENS, False, cache_len)
+        streams, eng, counts = runs[backend]
+        ticks = len(eng.tick_s)
+        check(counts["K7"] == cfg.n_layers * len(prompts) and fp.dense_tc_launches == 0,
+              f"gemma {backend}: K7 launched {counts['K7']} times ({fp.dense_tc_launches} on "
+              f"the tensor cores), expected {cfg.n_layers} x {len(prompts)} on the CUDA cores")
+        decode = {"lean": "K2", "fixed": "K6", "ref": None}[backend]
+        if decode:
+            check(counts[decode] == n_attn * ticks and ticks > 0,
+                  f"gemma {backend}: {decode} launched {counts[decode]} times, expected "
+                  f"{n_attn} global layers x {ticks} ticks")
+        others = {k: v for k, v in counts.items() if v and k not in ("K7", decode)}
+        check(not others, f"gemma {backend}: other kernels ran: {others}")
+        div = ([] if backend == "ref" else
+               arch_streams(f"gemma {backend}", streams, eng, runs["ref"][0], runs["ref"][1]))
+        ring = (f", {ld.fused_ring_launches} on the decode ring" if backend == "lean" else "")
+        print(f"  {backend}: admissions {eng.stats.prefills} (K7 {counts['K7']} on the CUDA "
+              f"cores; ms by prompt tokens: "
+              + ", ".join(f"{n} {t * 1e3:.1f}" for n, t in eng.admit_s)
+              + f"), decode {decode or 'plain oracle'} {counts.get(decode, 0) if decode else ''}"
+              f"{ring}; tick p50 {statistics.median(eng.tick_s) * 1e3:.2f} ms; captures "
+              f"{eng.stats.decode_captures} decode / {eng.stats.admit_captures} admission; "
+              f"divergences from ref {div}", flush=True)
+        launches[backend] = counts
+    del runs
+    bits = arch_bits(torch, cfg, params, sm_count,
+                     [("paged lean", engine_config("lean", sm_count), "engine")],
+                     arch_prompts(cfg.vocab_size, (1500, 700, 17), 36))
+    del params
+    return {"launches": launches, "bits": bits}
+
+
+def sweep_phase(torch, sm_count, smi: str) -> dict:
+    """qwen2-moe-a2.7b (gq 1, 60 experts + shared), nemotron-4-15b (gq 6,
+    squared ReLU), yi-34b (gq 8) and musicgen-large (gq 1, d 64, GeLU,
+    sinusoidal positions) at full width and one stage unit of depth: a few
+    requests on lean and ref (the Scheduler with chunked prefill where the
+    architecture takes it, else blocking admission), streams against ref,
+    and lean's captured steps bit for bit against eager. Returns {arch: lean
+    launches}."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import supports_chunked_prefill
+
+    out = {}
+    for seed, arch in enumerate(("qwen2-moe-a2.7b", "nemotron-4-15b", "yi-34b", "musicgen-large")):
+        full = get_config(arch)
+        cfg = arch_config(full, len(full.stages[0][0]))
+        params, init_s = arch_params(torch, cfg, 40 + seed)
+        chunked = supports_chunked_prefill(cfg)
+        prompts = arch_prompts(cfg.vocab_size, SWEEP_PROMPTS, 41 + seed)
+        ref = arch_serve(torch, cfg, params, sm_count, "ref", prompts, 8, chunked, 1024)
+        streams, eng, counts = arch_serve(torch, cfg, params, sm_count, "lean", prompts, 8,
+                                          chunked, 1024)
+        div = arch_streams(f"{arch} lean", streams, eng, ref[0], ref[1])
+        want = ("K4f", "K2") if chunked else ("K7", "K2")
+        check(all(counts[k] > 0 for k in want), f"{arch} lean: launches {counts}")
+        print(f"sweep {arch}: full width (d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+              f"heads, d {cfg.head_dim}), {cfg.n_layers} of {full.n_layers} layers, weights in "
+              f"{init_s:.1f} s; {'chunked Scheduler' if chunked else 'blocking admission'}; "
+              f"lean launches " + ", ".join(f"{k} {v}" for k, v in counts.items() if v)
+              + f"; divergences from ref {div}", flush=True)
+        del ref, eng
+        arch_bits(torch, cfg, params, sm_count,
+                  [("paged lean", engine_config("lean", sm_count), "engine")], prompts)
+        out[arch] = counts
+        del params
+        clock(f"sweep: {arch} done")
+    return out
+
+
+TICK_SOURCES = ("lean_decode.cu", "flash_prefill.cu")
+
+
+def tick_p50(torch, sm_count) -> dict:
+    """Mistral-NeMo-12B at full width and depth on the engine phase's paged
+    lean engine: the decode tick p50 over its 4 requests (16 new tokens),
+    eager and captured, the sources that engine launches (K7, K2) built
+    first. ``--tick-p50 SRC`` imports the port from SRC: run parent,
+    change, change, parent, one process each, to compare two trees' ticks
+    on one card."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import DecodeEngine, Request
+
+    build_s = build.build(TICK_SOURCES)
+    cfg = get_config("mistral-nemo-12b")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = init_params(cfg, gen, device="cuda", dtype=torch.bfloat16)
+    out = {"build_s": round(build_s, 1)}
+    for captured in (False, True):
+        eng = DecodeEngine(cfg, params, engine_config("lean", sm_count), device="cuda")
+        eng.capture_decode = captured
+        _, ticks, _ = drive(torch, eng, make_requests(Request, cfg.vocab_size, 16))
+        out["captured_ms" if captured else "eager_ms"] = statistics.median(
+            dt for dt, _ in ticks) * 1e3
+        del eng
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3843,6 +4773,14 @@ def main() -> int:
         print(json.dumps({"card": nvidia_smi_line(),
                           **kernel_bits(torch, os.path.abspath(sys.argv[2]), which)}))
         return 0
+    if sys.argv[1:2] == ["--tick-p50"]:
+        if len(sys.argv) > 2:
+            sys.path.insert(0, os.path.abspath(sys.argv[2]))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+        print(json.dumps({"card": nvidia_smi_line(), "src": sys.argv[2] if len(sys.argv) > 2
+                          else "src", **tick_p50(torch, sm_count)}))
+        return 0
     try:
         from repro_torch.configs import get_config
         from repro_torch.kernels import build
@@ -3854,6 +4792,26 @@ def main() -> int:
               "checkout of the repository", file=sys.stderr)
         return 2
 
+    arch_alone = {"--arch-kernels", "--qwen3-step", "--gemma-step", "--arch-sweep"}
+    if sys.argv[1:2] and sys.argv[1] in arch_alone:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+        smi = nvidia_smi_line()
+        build_s = build.build()
+        print(f"device: {smi}; build {build_s:.1f} s (" + ", ".join(
+            f"{src} {t:.1f}" for src, t in sorted(build.source_seconds.items(),
+                                                  key=lambda kv: kv[1])) + ")", flush=True)
+        depth = int(sys.argv[2]) if len(sys.argv) > 2 else None
+        if sys.argv[1] == "--arch-kernels":
+            arch_kernel_phase(torch, sm_count, torch.cuda.get_device_name(0))
+        elif sys.argv[1] == "--qwen3-step":
+            qwen3_phase(torch, sm_count, smi, depth)
+        elif sys.argv[1] == "--gemma-step":
+            gemma_phase(torch, sm_count, smi, depth)
+        else:
+            sweep_phase(torch, sm_count, smi)
+        clock("done")
+        return 0
     alone = {"--captured-step", "--chunk-step", "--spec-step", "--admission-step", "--obs-step",
              "--guards-step"}
     if sys.argv[1:2] and sys.argv[1] in alone:
@@ -3893,7 +4851,9 @@ def main() -> int:
     clock("build")
     # 2. build
     build_s = build.build()
-    print(f"build: {build_s:.1f} s", flush=True)
+    print(f"build: {build_s:.1f} s (" + ", ".join(
+        f"{src} {t:.1f}" for src, t in sorted(build.source_seconds.items(), key=lambda kv: kv[1]))
+        + ")", flush=True)
     for source in build.SOURCES:
         for line in build.ptxas_report(source).splitlines():
             if "registers" in line or "spill" in line:
@@ -4083,8 +5043,22 @@ def main() -> int:
     # the guard's cost, the degraded levels' passes, chaos under the Scheduler
     guard_counts = guards_phase(torch, cfg, params, sm_count, new_tokens, smi)
 
+    # 17. the attention-family architectures, after Mistral-NeMo-12B's
+    # weights are released: the kernels at their geometries, qwen3-moe at
+    # full width (depth as fits), gemma3 at full width and depth, and the
+    # geometry sweep
+    del params
+    clock("arch kernel phase")
+    arch_k = arch_kernel_phase(torch, sm_count, dev_name)
+    clock("qwen3 phase")
+    qwen3 = qwen3_phase(torch, sm_count, smi)
+    clock("gemma phase")
+    gemma = gemma_phase(torch, sm_count, smi)
+    clock("sweep phase")
+    sweep = sweep_phase(torch, sm_count, smi)
+
     clock("summary")
-    # 16. summary: kernel times in bf16 at the main path's shapes; launches
+    # 18. summary: kernel times in bf16 at the main path's shapes; launches
     # from the run of the path each kernel serves
     k6 = k6res[(DECODE_SHAPES[0], "bfloat16")]
     kres[("flash_decode_partials", "bfloat16")] = k6
@@ -4132,6 +5106,40 @@ def main() -> int:
             "library_ms": r["library_ms"] if r["library_ms"] is not None
             and not name.startswith("lean_decode_partials") else None,
         })
+    # the kernels at the attention-family geometries, launches from the lean
+    # run of each architecture's phase (K8 and K6: its fixed run; K5: qwen3's
+    # prefix-sharing run; K7 on qwen3: its blocking admissions in the spec run)
+    arch_launches = {
+        ("lean_decode_fused", "qwen3-moe-30b-a3b"): qwen3["launches"]["lean"]["K2"],
+        ("lean_prefill_fused", "qwen3-moe-30b-a3b"): qwen3["launches"]["lean"]["K4f"],
+        ("flash_prefill_paged", "qwen3-moe-30b-a3b"): qwen3["launches"]["fixed"]["K8"],
+        ("flash_decode_partials", "qwen3-moe-30b-a3b"): qwen3["launches"]["fixed"]["K6"],
+        ("lean_cascade_fused", "qwen3-moe-30b-a3b"): qwen3["launches"]["cascade"]["K5"],
+        ("flash_prefill", "qwen3-moe-30b-a3b"): qwen3["launches"]["spec"]["K7"],
+        ("lean_decode_fused", "gemma3-4b"): gemma["launches"]["lean"]["K2"],
+        ("flash_decode_partials", "gemma3-4b"): gemma["launches"]["fixed"]["K6"],
+        ("flash_prefill", "gemma3-4b"): gemma["launches"]["lean"]["K7"],
+    }
+    for arch in ("nemotron-4-15b", "qwen2-moe-a2.7b", "musicgen-large"):
+        arch_launches[("lean_decode_fused", arch)] = sweep[arch]["K2"]
+        if arch in ARCH_CHUNKED:       # the sweep's lean runs: chunked or blocking
+            arch_launches[("lean_prefill_fused", arch)] = sweep[arch]["K4f"]
+        else:
+            arch_launches[("flash_prefill", arch)] = sweep[arch]["K7"]
+    for (name, arch), r in arch_k.items():
+        if (name, arch) not in arch_launches:
+            continue
+        source, replaces = where[name]
+        kernels.append({
+            "name": arch_name(name, arch), "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}", "replaces": replaces,
+            "launches": arch_launches[(name, arch)], "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    print(f"attention-family phases: qwen3-moe at {qwen3['depth']} layers; captured against "
+          f"eager bit for bit: qwen3 {qwen3['bits']}, gemma3 {gemma['bits']}; launches "
+          f"(lean runs) " + "; ".join(f"{arch_name(n, a)} {v}" for (n, a), v
+                                      in arch_launches.items()), flush=True)
     print(f"fused K4 launches from the spec phase's verify steps (bf16 pages, oracle): "
           f"{k4_verify}", flush=True)
     print(f"launches in the guards phase's chaos run (bf16 pages; K1 from level-2 passes, K2 "

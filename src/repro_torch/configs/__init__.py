@@ -1,6 +1,8 @@
 """Architecture registry: ``get_config(name)`` / ``get_smoke_config(name)``
 (port of ``repro.configs``). Only the architectures the port runs are
-registered; the reference's others come with ROADMAP queue 1, item 14."""
+registered: those whose layers are all attention kinds. The recurrent ones
+(``recurrentgemma-9b``, ``xlstm-350m``) come with ROADMAP queue 1, item 14
+(``models/recurrent.py``)."""
 from __future__ import annotations
 
 import importlib
@@ -8,7 +10,16 @@ from typing import List
 
 from repro_torch.models import ModelConfig
 
-ARCH_IDS: List[str] = ["mistral-nemo-12b"]
+ARCH_IDS: List[str] = [
+    "musicgen-large",
+    "llama-3.2-vision-11b",
+    "qwen2-moe-a2.7b",
+    "qwen3-moe-30b-a3b",
+    "yi-34b",
+    "gemma3-4b",
+    "mistral-nemo-12b",
+    "nemotron-4-15b",
+]
 
 
 def _module(name: str):

@@ -54,12 +54,62 @@ def paged_gather_kv(pool: torch.Tensor, page_tbl: torch.Tensor) -> torch.Tensor:
     return g.movedim(2, 1).reshape(B, H, T * ps, d)
 
 
+def null_page_writer_rows(pages: torch.Tensor) -> torch.Tensor:
+    """For each write ``pages (M,)`` of a step, the row whose values it
+    stores: its own, or, for every row bound for the null page 0 (idle and
+    masked slots, chunk padding), the last such row's. Those rows all land
+    on one null-page slot; the reference's scatter applies its updates in
+    order, so the last one stays. Storing that one value from every such
+    row gives the same content on every device and every run: a CUDA
+    scatter with duplicate indices lets whichever write lands last stay,
+    and the rows that read the slot back (an idle slot's one visible key)
+    feed the MoE router, whose capacity couples them to the live rows.
+    Every layer of a step writes the same pages, so a step computes this
+    index once (:func:`chunk_writer_rows`; ``decode_writer_rows`` in
+    ``models/layers.py``) and each layer's write selects with it. Fixed
+    shapes, no host sync."""
+    null = pages == 0
+    rows = torch.arange(pages.shape[0], device=pages.device)
+    last = torch.where(null, rows, torch.zeros_like(rows)).max()
+    return torch.where(null, last, rows)
+
+
+def null_page_last_writer(pages: torch.Tensor, vals: torch.Tensor,
+                          writer: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``vals (M, ...)`` with every row bound for the null page 0 replaced
+    by the last such row (:func:`null_page_writer_rows`; ``writer`` is that
+    index when the step has computed it already)."""
+    return vals.index_select(0, null_page_writer_rows(pages) if writer is None else writer)
+
+
+def _chunk_targets(page_tbls, offs, lens, C: int, page_size: int, dev):
+    """Where chunk row ``n``'s token ``i`` lands: ``(pages, offsets, valid)``,
+    each ``(N, C)``; invalid positions at slot 0 of the null page 0."""
+    i = torch.arange(C, device=dev)
+    offs, lens = offs.to(dev).long(), lens.to(dev).long()
+    tbls = page_tbls.to(dev).long()
+    W = tbls.shape[1]
+    pos = offs[:, None] + i[None, :]
+    valid = i[None, :] < lens[:, None]
+    pages = torch.where(valid, torch.gather(tbls, 1, torch.clamp(pos // page_size, 0, W - 1)), 0)
+    offsets = torch.where(valid, pos % page_size, 0)
+    return pages, offsets, valid
+
+
+def chunk_writer_rows(page_tbls, offs, lens, C: int, page_size: int, dev) -> torch.Tensor:
+    """:func:`null_page_writer_rows` of a chunk step's ``N * C`` writes, once
+    for every layer's :func:`paged_scatter_tokens` (``writer=``)."""
+    pages, _, _ = _chunk_targets(page_tbls, offs, lens, C, page_size, dev)
+    return null_page_writer_rows(pages.reshape(-1))
+
+
 def paged_scatter_tokens(
     pool: torch.Tensor,         # (num_pages, H, page_size, d)
     page_tbls: torch.Tensor,    # (N, W) int32 page table rows
     offs: torch.Tensor,         # (N,) first logical position of each chunk
     lens: torch.Tensor,         # (N,) valid tokens per chunk
     vals: torch.Tensor,         # (N, C, H, d) new K or V rows
+    writer: Optional[torch.Tensor] = None,   # chunk_writer_rows of the step
 ) -> torch.Tensor:
     """Scatter chunk tokens straight into a paged pool through the page
     table, **in place** (the reference returns an updated pool instead).
@@ -67,24 +117,16 @@ def paged_scatter_tokens(
     Chunk row ``n`` writes token ``i < lens[n]`` at logical position
     ``offs[n] + i``: page ``page_tbls[n, pos // page_size]``, offset
     ``pos % page_size``. Invalid positions (``i >= lens[n]``: chunk padding,
-    pad rows of a pack) write the null page 0, whose contents runtime
-    lengths and the causal mask always mask; several of them may land on
-    the same null-page slot, harmlessly. Live rows never collide: requests
-    hold disjoint pages and a chunk's positions are distinct. Returns
-    ``pool``.
+    pad rows of a pack) write slot 0 of the null page 0, whose contents
+    runtime lengths and the causal mask always mask, all with the last such
+    row's values (:func:`null_page_last_writer`). Live rows never collide:
+    requests hold disjoint pages and a chunk's positions are distinct.
+    Returns ``pool``.
     """
     N, C, H, d = vals.shape
-    ps = pool.shape[2]
-    W = page_tbls.shape[1]
-    dev = pool.device
-    i = torch.arange(C, device=dev)
-    pos = offs.to(dev).long()[:, None] + i[None, :]                  # (N, C)
-    valid = i[None, :] < lens.to(dev).long()[:, None]
-    tile_idx = torch.clamp(pos // ps, 0, W - 1)
-    pages = torch.gather(page_tbls.to(dev).long(), 1, tile_idx)
-    pages = torch.where(valid, pages, torch.zeros_like(pages))
-    offsets = torch.where(valid, pos % ps, torch.zeros_like(pos))
-    pool[pages.reshape(-1), :, offsets.reshape(-1)] = vals.reshape(N * C, H, d).to(pool.dtype)
+    pages, offsets, _ = _chunk_targets(page_tbls, offs, lens, C, pool.shape[2], pool.device)
+    rows = null_page_last_writer(pages.reshape(-1), vals.reshape(N * C, H, d), writer)
+    pool[pages.reshape(-1), :, offsets.reshape(-1)] = rows.to(pool.dtype)
     return pool
 
 
@@ -141,6 +183,7 @@ def paged_scatter_tokens_quant(
     lens: torch.Tensor,         # (N,) valid tokens per chunk
     vals: torch.Tensor,         # (N, C, H, d) new K or V rows
     per_head: bool = True,
+    writer: Optional[torch.Tensor] = None,   # chunk_writer_rows of the step
 ):
     """The quantizing :func:`paged_scatter_tokens`, the single write point
     of an int8 pool, **in place** (the reference returns new arrays):
@@ -153,7 +196,7 @@ def paged_scatter_tokens_quant(
     3. quantize the new tokens at the grown scales and scatter them.
 
     Invalid positions route to the null page 0 with a candidate of 0, as in
-    the fp path. Step 2 visits each row's pages once -- the
+    the fp path, and with the last such row's values. Step 2 visits each row's pages once -- the
     ``(page_size + C - 2) // page_size + 1`` tiles from its first position
     on -- where the reference visits one page per token; a page visited but
     not written keeps ``old == new`` and requantizes to itself, so the pool
@@ -162,14 +205,12 @@ def paged_scatter_tokens_quant(
     ps = pool.shape[2]
     W = page_tbls.shape[1]
     dev = pool.device
-    i = torch.arange(C, device=dev)
     offs, lens = offs.to(dev).long(), lens.to(dev).long()
     tbls = page_tbls.to(dev).long()
-    pos = offs[:, None] + i[None, :]                                   # (N, C)
-    valid = i[None, :] < lens[:, None]
-    pages = torch.where(valid, torch.gather(tbls, 1, torch.clamp(pos // ps, 0, W - 1)), 0)
-    offsets = torch.where(valid, pos % ps, 0)
+    pages, offsets, valid = _chunk_targets(tbls, offs, lens, C, ps, dev)
 
+    vals = null_page_last_writer(pages.reshape(-1), vals.reshape(N * C, H, d),
+                                 writer).reshape(N, C, H, d)
     vf = vals.float()
     cand = vf.abs().amax(dim=-1) / INT8_QMAX                          # (N, C, H)
     if not per_head:

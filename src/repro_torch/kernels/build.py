@@ -62,6 +62,11 @@ def _lib_path(source: str) -> Path:
     return BUILD_DIR / f"lib{Path(source).stem}_{digest}.so"
 
 
+# seconds from the start of the last build() to the end of each of its
+# sources' nvcc (they run at the same time, so each shares the machine)
+source_seconds: Dict[str, float] = {}
+
+
 def build(sources=SOURCES) -> float:
     """Compile every source whose library is missing, all at once; returns
     the wall seconds spent. ``nvcc``'s ``-Xptxas -v`` report (registers,
@@ -75,18 +80,27 @@ def build(sources=SOURCES) -> float:
     for src in todo:
         out = _lib_path(src)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        log = open(out.with_suffix(".log"), "w")
         cmd = [nvcc, *NVCC_FLAGS, *(f"-D{m}" for m in DEFINES), "-o", str(tmp), str(CSRC / src)]
-        procs.append((src, out, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        procs.append((src, out, tmp, log, subprocess.Popen(
+            cmd, stdout=log, stderr=subprocess.STDOUT, text=True
         )))
     failed: List[str] = []
-    for src, out, tmp, proc in procs:
-        log, _ = proc.communicate()
-        out.with_suffix(".log").write_text(log)
-        if proc.returncode != 0:
-            failed.append(f"{src} (exit {proc.returncode}):\n{log}")
-            continue
-        os.replace(tmp, out)
+    pending = list(procs)
+    while pending:
+        for item in list(pending):
+            src, out, tmp, log, proc = item
+            if proc.poll() is None:
+                continue
+            pending.remove(item)
+            source_seconds[src] = time.perf_counter() - t0
+            log.close()
+            if proc.returncode != 0:
+                failed.append(f"{src} (exit {proc.returncode}):\n"
+                              + out.with_suffix(".log").read_text())
+                continue
+            os.replace(tmp, out)
+        time.sleep(0.05)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return time.perf_counter() - t0

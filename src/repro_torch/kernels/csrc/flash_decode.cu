@@ -41,36 +41,33 @@ using attn::kThreads;
 using attn::Smem;
 
 struct Args {
-  const void* q;        // (S, GQ, d)
+  const void* q;        // (S, gq, d)
   const void* k;        // (S * n_tiles, tile, d) dense rows, segment-major
   const void* v;
   const int* seg_ctx;   // (S,)
-  float* o_p;           // (S, splits, GQ, d)
-  float* m_p;           // (S, splits, GQ)
+  float* o_p;           // (S, splits, gq, d)
+  float* m_p;           // (S, splits, gq)
   float* l_p;
-  int n_tiles, tps, d, tile;
+  int n_tiles, tps, gq, d, tile;
   float scale;
 };
 
+// GQ is the row bucket of gq (attn::row_bucket): rows gq..GQ-1 are zero
+// queries whose results are never written, so a bucket equal to gq (the
+// configs' g of 2 and 4) computes what the exact instantiation did.
 template <typename T, int GQ>
 __global__ void __launch_bounds__(kThreads) flash_decode_kernel(Args a) {
   extern __shared__ float smem_raw[];
   const Smem s = attn::carve_smem<GQ>(smem_raw, a.d, a.tile);
-  const int d = a.d, tile = a.tile;
+  const int d = a.d, tile = a.tile, gq = a.gq;
   const int seg = blockIdx.x, split = blockIdx.y, splits = gridDim.y;
-  const T* q = static_cast<const T*>(a.q) + (size_t)seg * GQ * d;
+  const T* q = static_cast<const T*>(a.q) + (size_t)seg * gq * d;
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
   const size_t row_elems = (size_t)tile * d;
 
-  for (int e = threadIdx.x; e < GQ * d; e += kThreads) {
-    s.q[e] = attn::to_float(q[e]);
-    s.acc[e] = 0.f;
-  }
-  if (threadIdx.x < GQ) {
-    s.m[threadIdx.x] = kNegInf;
-    s.l[threadIdx.x] = 0.f;
-  }
+  attn::load_decode_q<T, GQ>(q, gq, s, d);
+  attn::reset_decode_rows<GQ>(s, d);
   __syncthreads();
   const int ctx = a.seg_ctx[seg];
   for (int t = 0; t < a.tps; ++t) {
@@ -83,11 +80,7 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(Args a) {
                              a.scale);
   }
   const size_t out = (size_t)seg * splits + split;
-  for (int e = threadIdx.x; e < GQ * d; e += kThreads) a.o_p[out * GQ * d + e] = s.acc[e];
-  if (threadIdx.x < GQ) {
-    a.m_p[out * GQ + threadIdx.x] = s.m[threadIdx.x];
-    a.l_p[out * GQ + threadIdx.x] = s.l[threadIdx.x];
-  }
+  attn::flush_rows(s, gq, d, a.o_p + out * gq * d, a.m_p + out * gq, a.l_p + out * gq);
 }
 
 // The same walk on the ring: the producer's lane copies each tile with work
@@ -128,8 +121,9 @@ __global__ void __launch_bounds__(ring::kThreads, 1) flash_decode_ring_kernel(Ar
   }
 
   ring::cta_stamp(0);
-  attn::load_decode_q<T, GQ, ring::kConsumers>(static_cast<const T*>(a.q) + (size_t)seg * GQ * d,
-                                               GQ, s, d);
+  attn::load_decode_q<T, GQ, ring::kConsumers>(static_cast<const T*>(a.q) +
+                                                   (size_t)seg * a.gq * d,
+                                               a.gq, s, d);
   attn::reset_decode_rows<GQ, ring::kConsumers>(s, d);
   ring::sync_consumers();
   ring::QSlice<GQ> qs;
@@ -144,8 +138,8 @@ __global__ void __launch_bounds__(ring::kThreads, 1) flash_decode_ring_kernel(Ar
     n += 2;
   }
   const size_t out = (size_t)seg * splits + split;
-  attn::flush_rows<ring::kConsumers>(s, GQ, d, a.o_p + out * GQ * d, a.m_p + out * GQ,
-                                     a.l_p + out * GQ);
+  attn::flush_rows<ring::kConsumers>(s, a.gq, d, a.o_p + out * a.gq * d, a.m_p + out * a.gq,
+                                     a.l_p + out * a.gq);
   ring::cta_stamp(2);
 }
 
@@ -174,12 +168,13 @@ cudaError_t launch_typed(const Args& a, int num_segments, int splits, int ns,
   return cudaGetLastError();
 }
 
+// At the row bucket of gq: 2 (gq 1, 2), 4 (3, 4), 8 (5-8).
 template <typename T>
-cudaError_t launch_gq(const Args& a, int gq, int num_segments, int splits, int ns,
-                      cudaStream_t st) {
-  switch (gq) {
+cudaError_t launch_gq(const Args& a, int num_segments, int splits, int ns, cudaStream_t st) {
+  switch (attn::row_bucket(a.gq)) {
     case 2: return launch_typed<T, 2>(a, num_segments, splits, ns, st);
     case 4: return launch_typed<T, 4>(a, num_segments, splits, ns, st);
+    case 8: return launch_typed<T, 8>(a, num_segments, splits, ns, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -196,13 +191,13 @@ int flash_decode_partials_launch(int dtype, const void* q, const void* k, const 
                                  int num_segments, int splits, int tps, int n_tiles, int gq,
                                  int d, int tile, float scale, int ns, void* stream) {
   if (num_segments <= 0 || splits <= 0 || tps <= 0 || n_tiles <= 0 || d <= 0 || tile <= 0 ||
-      (ns > 0 && ((uintptr_t)k % 16 || (uintptr_t)v % 16)))
+      gq <= 0 || (ns > 0 && ((uintptr_t)k % 16 || (uintptr_t)v % 16)))
     return (int)cudaErrorInvalidValue;
-  Args a = {q, k, v, seg_ctx, o_p, m_p, l_p, n_tiles, tps, d, tile, scale};
+  Args a = {q, k, v, seg_ctx, o_p, m_p, l_p, n_tiles, tps, gq, d, tile, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return (int)launch_gq<float>(a, gq, num_segments, splits, ns, st);
-    case 1: return (int)launch_gq<__nv_bfloat16>(a, gq, num_segments, splits, ns, st);
+    case 0: return (int)launch_gq<float>(a, num_segments, splits, ns, st);
+    case 1: return (int)launch_gq<__nv_bfloat16>(a, num_segments, splits, ns, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

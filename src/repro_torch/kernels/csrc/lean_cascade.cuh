@@ -118,11 +118,22 @@ cudaError_t launch_q(const Args& a, int num_workers, int ns, cudaStream_t stream
   }
 }
 
+// At the row bucket of g (GB): 2 (g 1, 2), 4 (3, 4), 8 (5-8); rows g..GB-1
+// of a suffix segment are zero queries whose results are never written. A
+// source that defines CASCADE_MAX_GB 4 leaves out the g 5-8 bucket (the
+// walk over device memory: a bucket of 8 would add a third to the
+// longest build of the kernels; the host refuses g > 4 off the ring).
+#ifndef CASCADE_MAX_GB
+#define CASCADE_MAX_GB 8
+#endif
 template <template <typename, typename, int, int> class Kernel, typename Q, typename KV>
 cudaError_t launch_g(const Args& a, int num_workers, int ns, cudaStream_t stream) {
-  switch (a.g) {
+  switch (attn::row_bucket(a.g)) {
     case 2: return launch_q<Kernel, Q, KV, 2>(a, num_workers, ns, stream);
     case 4: return launch_q<Kernel, Q, KV, 4>(a, num_workers, ns, stream);
+#if CASCADE_MAX_GB >= 8
+    case 8: return launch_q<Kernel, Q, KV, 8>(a, num_workers, ns, stream);
+#endif
     default: return cudaErrorInvalidValue;
   }
 }

@@ -14,6 +14,8 @@
 // describes the design. Plain C interface (loaded with ctypes); the entry
 // point returns the cudaError_t of its launch.
 
+// g of 1 to 4 only: the ring (lean_cascade.cu) takes g up to 8
+#define CASCADE_MAX_GB 4
 #include "lean_cascade.cuh"
 
 namespace {

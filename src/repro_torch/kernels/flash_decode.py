@@ -30,9 +30,8 @@ import torch
 
 from repro_torch.core.attention import NEG_INF
 from . import build, decode_ring
-from .lean_decode import KERNEL_GQ
-
 SOURCE = "flash_decode.cu"
+MAX_GQ = 8        # query rows per segment K6 takes: its row buckets 2, 4 and 8
 
 # launch counters: +1 per kernel launch, nowhere else
 launches = 0
@@ -64,9 +63,11 @@ def split_geometry(s_pad: int, num_splits: int, tile: int) -> int:
 
 
 def ring_slots(dtype: torch.dtype, gq: int, d: int, tile: int) -> int:
-    """Slots of K6's decode ring for K/V of ``dtype`` (0: the walk over
-    device memory)."""
-    return decode_ring.ring_slots(torch.finfo(dtype).bits // 8, d, tile, gq)
+    """Slots of K6's decode ring for K/V of ``dtype`` and ``gq`` query rows,
+    whose row bucket sizes the CTA's float state (0: the walk over device
+    memory)."""
+    return decode_ring.ring_slots(torch.finfo(dtype).bits // 8, d, tile,
+                                  decode_ring.row_bucket(gq))
 
 
 def flash_decode_partials_plain(q_seg, k_seg, v_seg, seg_lens, num_splits: int,
@@ -138,8 +139,9 @@ def flash_decode_partials(q_seg, k_seg, v_seg, seg_lens, num_splits: int, tile: 
     build.check_dtypes(q_seg, k_seg, v_seg)
     if seg_lens.dtype != torch.int32:
         raise TypeError("seg_lens must be int32")
-    if gq not in KERNEL_GQ:
-        raise ValueError(f"kernels take gq in {KERNEL_GQ}, got {gq}")
+    if not 1 <= gq <= MAX_GQ:
+        raise ValueError(f"flash_decode_partials (K6) takes 1 to {MAX_GQ} query rows per "
+                         f"segment, got {gq}")
     build.check_contiguous(q_seg=q_seg, k_seg=k_seg, v_seg=v_seg, seg_lens=seg_lens)
     n_tiles = k_seg.shape[1] // tile
     tps = split_geometry(k_seg.shape[1], num_splits, tile)

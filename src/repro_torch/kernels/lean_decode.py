@@ -90,9 +90,10 @@ WALK_SOURCE = "lean_decode_walk.cu"           # K1 and K2 where the ring does no
 CASCADE_SOURCE = "lean_cascade.cu"            # K5 on the decode ring
 CASCADE_WALK_SOURCE = "lean_cascade_walk.cu"  # K5 where the ring does not fit
 MERGE_SOURCE = "lean_merge.cu"
-# query heads per KV head that K5 takes (its suffix rows): the smoke
-# config's and Mistral-NeMo-12B's
-KERNEL_GQ = (2, 4)
+# the row buckets of the query heads per KV head (g) that K5 takes for its
+# suffix rows: any g up to the last (rows past g are zero)
+KERNEL_GQ = (2, 4, 8)
+WALK_MAX_G = 4        # K5's walk over device memory takes g up to 4 (CASCADE_MAX_GB)
 # query rows per segment that K1, K2 and K5's prefix pass take (instantiated
 # for row buckets 2, 4, ..., 64; rows past the count are zero)
 MAX_ROWS = 64
@@ -658,14 +659,18 @@ def lean_cascade_fused(q_pref, q_suf, k_rows, v_rows, ctx_all, route,
         raise TypeError("ctx_all and route must be int32")
     S, g, d = q_suf.shape
     qmax, dev = q_pref.shape[1], q_pref.device
-    if g not in KERNEL_GQ or qmax > MAX_ROWS:
-        raise ValueError(f"K5 takes g in {KERNEL_GQ} and up to {MAX_ROWS} stacked rows, got "
-                         f"g {g} and {qmax} rows")
+    if not 1 <= g <= KERNEL_GQ[-1] or qmax > MAX_ROWS:
+        raise ValueError(f"lean_cascade_fused (K5) takes g of 1 to {KERNEL_GQ[-1]} and up to "
+                         f"{MAX_ROWS} stacked rows, got g {g} and {qmax} rows")
     build.check_contiguous(q_pref=q_pref, q_suf=q_suf, k_rows=k_rows, v_rows=v_rows,
                            ctx_all=ctx_all, route=route)
     ns = ring_slots(k_rows.dtype, qmax, d, csched.tile_size)
     if ns:
         decode_ring.check_aligned("lean_cascade_fused (K5)", k_rows=k_rows, v_rows=v_rows)
+    elif g > WALK_MAX_G:
+        raise ValueError(f"lean_cascade_fused (K5) at g {g} runs on the decode ring only, which "
+                         f"does not fit {qmax} stacked rows at d {d} on pages of "
+                         f"{csched.tile_size} ({k_rows.dtype} rows)")
     pre, suf = csched.prefix_sched, csched.suffix_sched
     Ptot = csched.num_pieces_total
     o_p = torch.empty(Ptot + 1, qmax, d, dtype=torch.float32, device=dev)

@@ -1,14 +1,18 @@
-"""Transformer building blocks (port of the subset of
-``repro.models.layers`` that the serving paths run: dense and paged KV).
+"""Transformer building blocks (port of ``repro.models.layers``: the
+attention kinds on dense, ring and paged KV, and the FFN kinds).
 
 Plain functions on tensors and parameter dicts, in the reference's layout:
 weights are ``(in, out)`` and activations multiply from the left
 (``x @ w``). Matmuls run in bf16 (``COMPUTE_DTYPE``), as the reference's
-``x.astype(bf16) @ w.astype(bf16)``; norms and rotary angles are float32.
-Layers take rotary positions, the only form the ported architectures use.
+``x.astype(bf16) @ w.astype(bf16)``; norms, rotary and sinusoidal angles
+are float32. ``rope_theta`` None means no rotary embedding (positions are
+absolute and sinusoidal, added at the embedding: :func:`sinusoidal_pos`).
+The activations write out the bf16 op sequence XLA runs for the
+reference's (:func:`silu`, :func:`gelu`), so both round alike.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional
 
 import torch
@@ -17,6 +21,8 @@ from repro_torch.core.attention import (
     mha_chunk_prefill_paged_ref,
     mha_decode_ref,
     mha_prefill_ref,
+    null_page_last_writer,
+    null_page_writer_rows,
     paged_gather_kv,
     paged_gather_kv_dequant,
     paged_scatter_tokens,
@@ -49,12 +55,28 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> to
     return out.to(x.dtype)
 
 
-def _project_qkv(p, xc, n_heads, n_kv, head_dim):
+def sinusoidal_pos(positions: torch.Tensor, d_model: int) -> torch.Tensor:
+    """Absolute sinusoidal positions ``(..., d_model)`` in float32: sines of
+    the angles then cosines (``repro/models/layers.py:56-60``)."""
+    half = d_model // 2
+    freqs = 10000.0 ** (-torch.arange(half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions[..., None].to(torch.float32) * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _maybe_rope(x: torch.Tensor, positions: torch.Tensor, theta: Optional[float]):
+    return x if theta is None else rope(x, positions, theta)
+
+
+def _project_qkv(p, xc, n_heads, n_kv, head_dim, src=None):
+    """q from ``xc (B, L, D)``; k and v from ``src (B, Lk, D)`` (cross
+    attention) or ``xc``; the q/k norms where the parameters have them."""
     B, L, _ = xc.shape
     dt = xc.dtype
+    src = xc if src is None else src
     q = (xc @ p["wq"].to(dt)).reshape(B, L, n_heads, head_dim)
-    k = (xc @ p["wk"].to(dt)).reshape(B, L, n_kv, head_dim)
-    v = (xc @ p["wv"].to(dt)).reshape(B, L, n_kv, head_dim)
+    k = (src @ p["wk"].to(dt)).reshape(B, src.shape[1], n_kv, head_dim)
+    v = (src @ p["wv"].to(dt)).reshape(B, src.shape[1], n_kv, head_dim)
     if "q_norm" in p:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
@@ -68,24 +90,32 @@ def attn_forward(
     n_heads: int,
     n_kv: int,
     head_dim: int,
-    rope_theta: float,
+    rope_theta: Optional[float],
+    causal: bool = True,
+    window: Optional[int] = None,
+    kv_states: Optional[torch.Tensor] = None,   # cross attention: (B, Lk, D)
     attn: Callable = mha_prefill_ref,
 ):
-    """Causal self-attention over a whole prompt (prefill). Returns
-    ``(out, (k, v))`` with ``k, v: (B, Hkv, L, hd)``. ``attn`` is the
-    prefill attention, called on contiguous ``(B, H, L, hd)`` tensors:
+    """Self-attention over a whole prompt (prefill), causal and optionally
+    sliding-window, or with ``kv_states`` cross attention to them
+    (non-causal, no rotary). Returns ``(out, (k, v))`` with ``k, v: (B,
+    Hkv, Lk, hd)``. ``attn`` is the prefill attention, called on contiguous
+    ``(B, H, L, hd)`` tensors with ``causal`` and ``window``:
     :func:`mha_prefill_ref`, the q-chunked
     :func:`repro_torch.core.attention.mha_prefill_chunked` (same result,
     less memory), or the kernel K7
     (:func:`repro_torch.kernels.flash_prefill.flash_prefill`); the model
     picks (:func:`repro_torch.models.transformer.prefill`)."""
     B, L, _ = x.shape
-    q, k, v = _project_qkv(p, x.to(COMPUTE_DTYPE), n_heads, n_kv, head_dim)
-    pos = torch.arange(L, device=x.device)
-    q = rope(q, pos, rope_theta)
-    k = rope(k, pos, rope_theta)
+    xc = x.to(COMPUTE_DTYPE)
+    src = None if kv_states is None else kv_states.to(COMPUTE_DTYPE)
+    q, k, v = _project_qkv(p, xc, n_heads, n_kv, head_dim, src)
+    if src is None and rope_theta is not None:
+        pos = torch.arange(L, device=x.device)
+        q = rope(q, pos, rope_theta)
+        k = rope(k, pos, rope_theta)
     qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    o = attn(qh, kh, vh, causal=True)
+    o = attn(qh, kh, vh, causal=causal and src is None, window=window)
     o = o.transpose(1, 2).reshape(B, L, n_heads * head_dim)
     out = o.to(COMPUTE_DTYPE) @ p["wo"].to(COMPUTE_DTYPE)
     return out.to(x.dtype), (kh, vh)
@@ -101,28 +131,28 @@ def attn_decode(
     n_heads: int,
     n_kv: int,
     head_dim: int,
-    rope_theta: float,
+    rope_theta: Optional[float],
     window: Optional[int] = None,
     attn_fn: Optional[Callable] = None,   # f(q, k_cache, v_cache, ctx) -> out
     ctx_lens: Optional[torch.Tensor] = None,   # (B,) per-slot lengths
 ):
-    """One decode step of a global-attention layer against the dense cache
+    """One decode step of an attention layer against its dense cache
     (port of ``repro/models/layers.py:129-202``).
 
     With ``ctx_lens`` every slot goes at its own length: rotary position
     ``ctx_lens[b]``, the new token's K/V written at ``min(ctx_lens[b],
     S - 1)``, ``min(ctx_lens[b] + 1, S)`` keys visible. Without it, every
     slot is at ``cur_len`` (``ctx_lens`` wins where both are given, as in
-    the reference). The caches are updated *in place* (index
-    assignment), as the paged pools are; the reference returns updated
-    caches instead and relies on buffer donation. ``attn_fn`` receives
-    ``q (B, Hq, hd)``, the caches and the visible lengths ``(B,)``; without
-    one the plain reference runs. Returns ``(out, k_cache, v_cache)``.
+    the reference). With ``window`` the cache is a ring of ``S`` rows (a
+    sliding-window layer's): the token is written at ``ctx % S`` with its
+    rotary position applied at the write, and ``min(ctx + 1, S)`` rows are
+    visible -- every row of a full ring, in ring order. The caches are
+    updated *in place* (index assignment), as the paged pools are; the
+    reference returns updated caches instead and relies on buffer
+    donation. ``attn_fn`` receives ``q (B, Hq, hd)``, the caches and the
+    visible lengths ``(B,)``; without one the plain reference runs.
+    Returns ``(out, k_cache, v_cache)``.
     """
-    if window is not None:
-        raise NotImplementedError(
-            "the ring-buffer cache of 'win' layers is not ported yet (ROADMAP queue 1, item 14)"
-        )
     if ctx_lens is None and cur_len is None:
         raise ValueError("attn_decode needs ctx_lens (per slot) or cur_len")
     B = x.shape[0]
@@ -131,14 +161,16 @@ def attn_decode(
     if ctx_lens is not None:
         ctx_lens = ctx_lens.to(x.device)
         pos = ctx_lens[:, None]
-        write = torch.clamp(ctx_lens, max=S - 1).long()
+        write = (ctx_lens % S if window is not None else torch.clamp(ctx_lens, max=S - 1)).long()
         ctx = torch.clamp(ctx_lens + 1, max=S).to(torch.int32)
     else:
-        pos = torch.full((1,), int(cur_len), device=x.device)
-        write = torch.full((B,), min(int(cur_len), S - 1), dtype=torch.long, device=x.device)
-        ctx = torch.full((B,), min(int(cur_len) + 1, S), dtype=torch.int32, device=x.device)
-    q = rope(q, pos, rope_theta)
-    k = rope(k, pos, rope_theta)
+        cur = int(cur_len)
+        pos = torch.full((1,), cur, device=x.device)
+        at = cur % S if window is not None else min(cur, S - 1)
+        write = torch.full((B,), at, dtype=torch.long, device=x.device)
+        ctx = torch.full((B,), min(cur + 1, S), dtype=torch.int32, device=x.device)
+    q = _maybe_rope(q, pos, rope_theta)
+    k = _maybe_rope(k, pos, rope_theta)
     rows = torch.arange(B, device=x.device)
     k_cache[rows, :, write] = k[:, 0].to(k_cache.dtype)
     v_cache[rows, :, write] = v[:, 0].to(v_cache.dtype)
@@ -152,6 +184,35 @@ def attn_decode(
     return out.to(x.dtype), k_cache, v_cache
 
 
+def cross_attn_decode(p, x: torch.Tensor, xk: torch.Tensor, xv: torch.Tensor, *,
+                      n_heads: int, head_dim: int) -> torch.Tensor:
+    """The gated cross attention's decode read (``repro/models/
+    transformer.py:862-875`` without the gate): the token's query ``x (B,
+    1, D)`` (no q norm, as the reference) against every row of the cached
+    image K/V ``xk``/``xv (B, Hkv, cross_kv_len, hd)``, through the plain
+    oracle as the reference's engine runs it. Returns ``(B, 1, D)``."""
+    B = x.shape[0]
+    xc = x.to(COMPUTE_DTYPE)
+    q = (xc @ p["wq"].to(COMPUTE_DTYPE)).reshape(B, n_heads, head_dim)
+    o = mha_decode_ref(q, xk, xv).reshape(B, 1, -1).to(COMPUTE_DTYPE)
+    return (o @ p["wo"].to(COMPUTE_DTYPE)).to(x.dtype)
+
+
+def _decode_pages(page_tbl: torch.Tensor, write_pos: torch.Tensor, page_size: int):
+    rows = torch.arange(page_tbl.shape[0], device=page_tbl.device)
+    return page_tbl[rows, write_pos // page_size].long()
+
+
+def decode_writer_rows(page_tbl: torch.Tensor, ctx_lens: torch.Tensor,
+                       page_size: int) -> torch.Tensor:
+    """:func:`null_page_writer_rows` of a decode step's writes (slot ``b``
+    at position ``ctx_lens[b]``), computed once for every paged layer of
+    the step (``writer=`` of :func:`attn_decode_paged`)."""
+    capacity = page_tbl.shape[1] * page_size
+    write_pos = torch.clamp(ctx_lens, max=capacity - 1).long()
+    return null_page_writer_rows(_decode_pages(page_tbl, write_pos, page_size))
+
+
 def attn_decode_paged(
     p,
     x: torch.Tensor,              # (B, 1, D) current token
@@ -162,12 +223,13 @@ def attn_decode_paged(
     n_heads: int,
     n_kv: int,
     head_dim: int,
-    rope_theta: float,
+    rope_theta: Optional[float],
     ctx_lens: torch.Tensor,       # (B,) per-slot lengths
     attn_fn: Optional[Callable] = None,   # f(q, k_pool, v_pool, ctx) -> out
     k_scale: Optional[torch.Tensor] = None,   # int8 pools: (num_pages, Hkv) float32
     v_scale: Optional[torch.Tensor] = None,
     scale_per_head: bool = True,
+    writer: Optional[torch.Tensor] = None,    # decode_writer_rows of the step
 ):
     """One decode step of a global-attention layer against the paged pool.
 
@@ -175,7 +237,10 @@ def attn_decode_paged(
     ``page_tbl[b, ctx_b // page_size]`` at offset ``ctx_b % page_size``
     (the reference returns updated pools instead and relies on buffer
     donation); idle slots, whose table rows are all null, write the
-    reserved null page, whose contents are always masked. ``attn_fn``
+    reserved null page, whose contents are always masked, all with the last
+    such slot's K/V (:func:`null_page_last_writer`; ``writer``, from
+    :func:`decode_writer_rows`, computes its index once for the step's
+    layers). ``attn_fn``
     receives the pools and the visible lengths; without one the pools are
     gathered to dense per-slot KV for the plain reference. Returns
     ``(out, k_pool, v_pool)``.
@@ -192,19 +257,21 @@ def attn_decode_paged(
     capacity = page_tbl.shape[1] * ps
     q, k, v = _project_qkv(p, x.to(COMPUTE_DTYPE), n_heads, n_kv, head_dim)
     pos = ctx_lens[:, None]
-    q = rope(q, pos, rope_theta)
-    k = rope(k, pos, rope_theta)
+    q = _maybe_rope(q, pos, rope_theta)
+    k = _maybe_rope(k, pos, rope_theta)
     write_pos = torch.clamp(ctx_lens, max=capacity - 1).long()
     quant = k_scale is not None
     if quant:
         ones = torch.ones(B, dtype=torch.int32, device=x.device)
-        paged_scatter_tokens_quant(k_pool, k_scale, page_tbl, write_pos, ones, k, scale_per_head)
-        paged_scatter_tokens_quant(v_pool, v_scale, page_tbl, write_pos, ones, v, scale_per_head)
+        paged_scatter_tokens_quant(k_pool, k_scale, page_tbl, write_pos, ones, k, scale_per_head,
+                                   writer)
+        paged_scatter_tokens_quant(v_pool, v_scale, page_tbl, write_pos, ones, v, scale_per_head,
+                                   writer)
     else:
-        pages_w = page_tbl[torch.arange(B, device=page_tbl.device), write_pos // ps].long()
+        pages_w = _decode_pages(page_tbl, write_pos, ps)
         offs = write_pos % ps
-        k_pool[pages_w, :, offs] = k[:, 0].to(k_pool.dtype)
-        v_pool[pages_w, :, offs] = v[:, 0].to(v_pool.dtype)
+        k_pool[pages_w, :, offs] = null_page_last_writer(pages_w, k[:, 0], writer).to(k_pool.dtype)
+        v_pool[pages_w, :, offs] = null_page_last_writer(pages_w, v[:, 0], writer).to(v_pool.dtype)
     ctx = torch.clamp(ctx_lens + 1, max=capacity).to(torch.int32)
     qd = q.reshape(B, n_heads, head_dim)
     if attn_fn is not None:
@@ -238,11 +305,12 @@ def attn_prefill_chunk_paged(
     n_heads: int,
     n_kv: int,
     head_dim: int,
-    rope_theta: float,
+    rope_theta: Optional[float],
     attn_fn: Optional[Callable] = None,   # f(q, k_pool, v_pool, page_tbls, offs) -> o
     k_scale: Optional[torch.Tensor] = None,   # int8 pools: (num_pages, Hkv) float32
     v_scale: Optional[torch.Tensor] = None,
     scale_per_head: bool = True,
+    writer: Optional[torch.Tensor] = None,    # chunk_writer_rows of the step
 ):
     """Chunked-prefill attention of a global-attention layer against the
     paged pool: each row is ``C`` positions of one prompt from absolute
@@ -266,15 +334,17 @@ def attn_prefill_chunk_paged(
     N, C, _ = x.shape
     q, k, v = _project_qkv(p, x.to(COMPUTE_DTYPE), n_heads, n_kv, head_dim)
     pos = offs.to(x.device).long()[:, None] + torch.arange(C, device=x.device)[None, :]
-    q = rope(q, pos, rope_theta)
-    k = rope(k, pos, rope_theta)
+    q = _maybe_rope(q, pos, rope_theta)
+    k = _maybe_rope(k, pos, rope_theta)
     quant = k_scale is not None
     if quant:
-        paged_scatter_tokens_quant(k_pool, k_scale, page_tbls, offs, lens, k, scale_per_head)
-        paged_scatter_tokens_quant(v_pool, v_scale, page_tbls, offs, lens, v, scale_per_head)
+        paged_scatter_tokens_quant(k_pool, k_scale, page_tbls, offs, lens, k, scale_per_head,
+                                   writer)
+        paged_scatter_tokens_quant(v_pool, v_scale, page_tbls, offs, lens, v, scale_per_head,
+                                   writer)
     else:
-        paged_scatter_tokens(k_pool, page_tbls, offs, lens, k)
-        paged_scatter_tokens(v_pool, page_tbls, offs, lens, v)
+        paged_scatter_tokens(k_pool, page_tbls, offs, lens, k, writer)
+        paged_scatter_tokens(v_pool, page_tbls, offs, lens, v, writer)
     qh = q.transpose(1, 2)                                  # (N, Hq, C, hd)
     if attn_fn is not None:
         sc = dict(k_scales=k_scale, v_scales=v_scale) if quant else {}
@@ -297,12 +367,45 @@ def dequant_pool(pool: torch.Tensor, scales: torch.Tensor,
     return (pool.float() * scales[:, :, None, None]).to(dtype)
 
 
-def ffn_forward(p, x: torch.Tensor):
-    """SwiGLU feed-forward. silu is ``x * (1 / (1 + exp(-x)))`` with every
-    op rounded to bf16: the op sequence XLA lowers ``jax.nn.silu`` to,
-    which ``torch.sigmoid`` (one rounding) differs from in a third of bf16
+def silu(g: torch.Tensor) -> torch.Tensor:
+    """``x * (1 / (1 + exp(-x)))`` with every op rounded to the input's
+    dtype: the op sequence XLA lowers ``jax.nn.silu`` to in bf16, which
+    ``torch.sigmoid`` (one rounding) differs from in a third of bf16
     outputs."""
-    xc = x.to(COMPUTE_DTYPE)
-    g = xc @ p["wg"].to(COMPUTE_DTYPE)
-    h = (g * (1 / (1 + torch.exp(-g)))) * (xc @ p["wu"].to(COMPUTE_DTYPE))
-    return (h @ p["wd"].to(COMPUTE_DTYPE)).to(x.dtype)
+    return g * (1 / (1 + torch.exp(-g)))
+
+
+# jax.nn.gelu's constants as the bf16 operands XLA multiplies by
+_GELU_C = float(torch.tensor(math.sqrt(2 / math.pi), dtype=torch.float32).bfloat16())
+_GELU_K = float(torch.tensor(0.044715, dtype=torch.float32).bfloat16())
+
+
+def gelu(h: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (the tanh approximation, its default) as XLA runs it
+    in bf16: ``x * (0.5 * (1 + tanh(c * (x + k * x*x*x))))`` with every op
+    rounded to bf16 and the constants ``c = sqrt(2 / pi)`` and ``k =
+    0.044715`` rounded to bf16 first (weakly typed scalars take the array's
+    dtype). ``torch.nn.functional.gelu(approximate="tanh")``, which rounds
+    once, differs in about 1.5% of bf16 inputs; this sequence in none with
+    a normal output (XLA flushes subnormals)."""
+    inner = _GELU_C * (h + _GELU_K * (h * h * h))
+    return h * (0.5 * (1.0 + torch.tanh(inner)))
+
+
+def ffn_forward(p, x: torch.Tensor, kind: str = "swiglu",
+                compute_dtype: torch.dtype = COMPUTE_DTYPE) -> torch.Tensor:
+    """The feed-forward kinds of ``repro/models/layers.py:427-439``: SwiGLU
+    (``silu(x wg) * (x wu)``), GeLU (``gelu(x wu)``) and squared ReLU
+    (``relu(x wu)**2``, Nemotron-4), then ``wd``; the activations in
+    ``compute_dtype``, op for op as XLA rounds them."""
+    xc = x.to(compute_dtype)
+    if kind == "swiglu":
+        h = silu(xc @ p["wg"].to(compute_dtype)) * (xc @ p["wu"].to(compute_dtype))
+    elif kind == "gelu":
+        h = gelu(xc @ p["wu"].to(compute_dtype))
+    elif kind == "squared_relu":
+        r = torch.relu(xc @ p["wu"].to(compute_dtype))
+        h = r * r
+    else:
+        raise ValueError(kind)
+    return (h @ p["wd"].to(compute_dtype)).to(x.dtype)

@@ -1,0 +1,153 @@
+"""Mixture-of-Experts FFN: top-k routing with sort-based capacity dispatch
+(port of ``repro/models/moe.py:25-169``).
+
+The reference's fixed-shape dispatch, operation for operation: token-expert
+pairs are sorted by expert id (a stable sort), given in-expert positions
+from the first pair of each expert (``searchsorted``, left side), pairs past
+an expert's capacity ``C`` are dropped, each expert's ``C`` rows are
+gathered into an ``(G, E, C, D)`` buffer, run through the batched expert
+einsums, rounded to the compute dtype and gathered back to their pairs,
+then weighted and summed over each token's ``K`` experts (rounded as the
+reference's jitted step rounds it: :func:`moe_forward`). Every shape is
+static and nothing reads a value back to the host, so the step that runs
+it can be captured as a CUDA graph. What decides which rows an expert
+keeps is the pair order, so the port routes exactly the rows the reference
+routes, idle decode slots included.
+
+The expert products are ``torch.einsum`` (batched GEMMs): the reference
+computes them outside any Pallas kernel. Sharding hints and the router's
+auxiliary load-balancing loss (training, ROADMAP queue 1, item 15) are left
+out: serving does not read the loss.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from .layers import COMPUTE_DTYPE, ffn_forward, silu
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Copy of ``repro.models.moe.MoEConfig``."""
+
+    num_experts: int
+    top_k: int
+    d_ff_expert: int
+    d_ff_shared: int = 0          # 0 = no shared expert
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.001
+    norm_topk_prob: bool = True
+
+
+def moe_param_shapes(d_model: int, cfg: MoEConfig) -> dict:
+    """The parameter layout of ``repro.models.moe.moe_init``: the router
+    ``(D, E)``, the experts' ``wg``/``wu`` ``(E, D, F)`` and ``wd`` ``(E,
+    F, D)``, and the shared SwiGLU expert where ``d_ff_shared`` is set."""
+    E, F, D = cfg.num_experts, cfg.d_ff_expert, d_model
+    shapes = {"router": (D, E), "wg": (E, D, F), "wu": (E, D, F), "wd": (E, F, D)}
+    if cfg.d_ff_shared:
+        Fs = cfg.d_ff_shared
+        shapes["shared"] = {"wg": (D, Fs), "wu": (D, Fs), "wd": (Fs, D)}
+    return shapes
+
+
+def _auto_groups(T: int) -> int:
+    """Dispatch group count (the reference's): a power of two, about 4096
+    tokens per group, one group for small inputs."""
+    g = 1
+    while g < 256 and T // (2 * g) >= 4096:
+        g *= 2
+    return g
+
+
+def top_k(probs: torch.Tensor, k: int):
+    """``jax.lax.top_k`` over the last axis: the ``k`` largest values in
+    descending order, a tie going to the lower index. A stable descending
+    sort keeps tied values in index order; ``torch.topk`` leaves the order
+    of ties unspecified."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def capacity(cfg: MoEConfig, tokens_per_group: int) -> int:
+    """Rows each expert takes per group: ``max(1, int(cf * Tg * K / E))``."""
+    return max(1, int(cfg.capacity_factor * tokens_per_group * cfg.top_k / cfg.num_experts))
+
+
+def moe_forward(p, x: torch.Tensor, cfg: MoEConfig,
+                compute_dtype: torch.dtype = COMPUTE_DTYPE) -> torch.Tensor:
+    """``x (B, L, D)`` -> the MoE output ``(B, L, D)`` in x's dtype (the
+    reference returns ``(out, aux_loss)``; serving reads only ``out``).
+    Tokens split into :func:`_auto_groups` dispatch groups, as the
+    reference's default. The router's softmax is float32, then top-k, then
+    the renormalisation of the kept weights (``norm_topk_prob``)."""
+    B, L, D = x.shape
+    E, K = cfg.num_experts, cfg.top_k
+    T = B * L
+    G = _auto_groups(T)
+    while T % G:
+        G //= 2
+    Tg = T // G
+    dev = x.device
+    xt = x.reshape(G, Tg, D).to(compute_dtype)
+
+    logits = (xt @ p["router"].to(compute_dtype)).float()
+    probs = torch.softmax(logits, dim=-1)                    # (G, Tg, E)
+    gate_w, gate_idx = top_k(probs, K)                       # (G, Tg, K)
+    if cfg.norm_topk_prob:
+        gate_w = gate_w / gate_w.sum(dim=-1, keepdim=True)
+
+    # ---- capacity-limited sort-based dispatch (fixed shapes) ----
+    C = capacity(cfg, Tg)
+    TK = Tg * K
+    flat_e = gate_idx.reshape(G, TK)
+    order = torch.argsort(flat_e, dim=-1, stable=True)       # pairs by expert
+    sorted_e = torch.gather(flat_e, 1, order)
+    experts = torch.arange(E, device=dev).expand(G, E).contiguous()
+    first_of_e = torch.searchsorted(sorted_e, experts, side="left")       # (G, E)
+    counts = torch.diff(torch.cat([first_of_e, torch.full((G, 1), TK, device=dev)], dim=1),
+                        dim=1)                                            # (G, E)
+    pos_in_e = torch.arange(TK, device=dev)[None, :] - torch.gather(first_of_e, 1, sorted_e)
+    keep = pos_in_e < C                                      # (G, TK)
+    tok_of_pair = order // K
+    cols = torch.arange(C, device=dev)[None, None, :]
+    # buf[g, e, c] = token of the pair at sorted position first_of_e + c
+    slot_src = (first_of_e[:, :, None] + cols).reshape(G, E * C)
+    slot_valid = (cols < counts[:, :, None]).reshape(G, E * C)
+    src_tok = torch.gather(tok_of_pair, 1, torch.clamp(slot_src, 0, TK - 1))
+    buf = torch.gather(xt, 1, src_tok[..., None].expand(G, E * C, D))
+    buf = torch.where(slot_valid[..., None], buf, torch.zeros((), dtype=buf.dtype, device=dev))
+    buf = buf.reshape(G, E, C, D)
+
+    # ---- expert computation ----
+    wg = p["wg"].to(compute_dtype)
+    wu = p["wu"].to(compute_dtype)
+    wd = p["wd"].to(compute_dtype)
+    h = silu(torch.einsum("gecd,edf->gecf", buf, wg)) * torch.einsum("gecd,edf->gecf", buf, wu)
+    y = torch.einsum("gecf,efd->gecd", h, wd).to(compute_dtype)          # (G, E, C, D)
+
+    # ---- combine (gather back) ----
+    y_flat = y.reshape(G, E * C, D)
+    slot_of_pair = torch.where(keep, sorted_e * C + pos_in_e, torch.zeros_like(pos_in_e))
+    y_sorted = torch.gather(y_flat, 1, slot_of_pair[..., None].expand(G, TK, D))
+    y_sorted = torch.where(keep[..., None], y_sorted,
+                           torch.zeros((), dtype=y_sorted.dtype, device=dev))
+    inv = torch.argsort(order, dim=-1, stable=True)
+    y_pairs = torch.gather(y_sorted, 1, inv[..., None].expand(G, TK, D)).reshape(G, Tg, K, D)
+    # the weights rounded to the compute dtype, then products and sum in
+    # float32, rounded once: what XLA's fusion of the reference's
+    # ``sum(gate_w.astype(cd) * y_pairs)`` computes under jit (the engine's
+    # steps and the model's scanned stages; op by op, eagerly, it rounds
+    # each product instead)
+    out = (gate_w.to(compute_dtype).float()[..., None] * y_pairs.float()).sum(dim=2)
+    out = out.to(compute_dtype)
+
+    out = out.to(x.dtype)
+    if cfg.d_ff_shared:
+        # added in x's dtype: under jit XLA drops the reference's rounding of
+        # the sum to the compute dtype where the result is widened after
+        shared = ffn_forward(p["shared"], xt, kind="swiglu", compute_dtype=compute_dtype)
+        out = (out.to(compute_dtype) + shared).to(x.dtype)
+    return out.reshape(B, L, D)

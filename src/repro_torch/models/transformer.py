@@ -1,20 +1,33 @@
-"""Decoder-only transformer for the serving paths (port of the subset of
-``repro.models.transformer`` that attention-only architectures run).
+"""Decoder-only transformer for the serving paths (port of
+``repro.models.transformer`` for the architectures whose layers are all
+attention kinds: ``attn`` (global), ``win`` (sliding window) and
+``xattn`` (self attention plus gated cross attention to image
+embeddings), each with a SwiGLU, GeLU or squared-ReLU FFN or a MoE
+(:mod:`.moe`), with rotary or absolute sinusoidal positions).
 
 Parameters are a plain dict: ``embed``, ``final_norm``, optional
 ``unembed``, and ``layers``, one dict per layer in execution order (the
-reference's stacked ``stages`` flattened; ``scan_layers``/``remat`` become a
-plain loop and sharding hints disappear). Matmul weights may be stored in
-bf16: the reference keeps them in float32 but casts them to bf16 at every
-use, so the values multiplied are the same. Norm weights stay float32.
+reference's stacked ``stages`` flattened in stage order, repeat by repeat,
+each repeat's pattern in order: :func:`layer_kinds` gives each layer's
+kind; ``scan_layers``/``remat`` become a plain loop and sharding hints
+disappear). Matmul weights may be stored in bf16: the reference keeps them
+in float32 but casts them to bf16 at every use, so the values multiplied
+are the same. Norm weights and the cross-attention gate stay float32.
 
-A decode cache is a list with one ``{"k", "v"}`` dict per layer: dense
-per-slot rows ``(batch, Hkv, cache_len, hd)`` (:func:`init_cache`) or page
-pools ``(num_pages, Hkv, page_size, hd)`` (:func:`init_paged_cache`; with
+A decode cache is a list with one dict per layer. Dense
+(:func:`init_cache`): ``"k"``/``"v"`` rows ``(batch, Hkv, S, hd)`` per
+slot, ``S`` the cache length or, for a ``win`` layer, its ring of
+``min(cache_len, window)`` rows; an ``xattn`` layer adds ``"xk"``/``"xv"``
+``(batch, Hkv, cross_kv_len, hd)``. Paged (:func:`init_paged_cache`): the
+``attn`` layers hold page pools ``(num_pages, Hkv, page_size, hd)`` (with
 ``kv_cache_dtype="int8"`` int8 pools and ``"k_scale"``/``"v_scale"``
-``(num_pages, Hkv)`` float32 beside them); :func:`decode_step`,
-:func:`prefill_chunks` and :func:`verify_step` write new K/V into it in
-place.
+``(num_pages, Hkv)`` float32 beside them); ``win`` and ``xattn`` layers
+keep their dense per-slot rows in bf16, as the reference's paged cache
+does. :func:`decode_step`, :func:`prefill_chunks` and :func:`verify_step`
+write new K/V into it in place.
+
+Recurrent layer kinds (``rglru``, ``mlstm``, ``slstm``) and f8 caches are
+refused (:func:`check_supported`).
 """
 from __future__ import annotations
 
@@ -26,7 +39,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.attention import mha_prefill_chunked, mha_prefill_ref
+from repro_torch.core.attention import chunk_writer_rows, mha_prefill_chunked, mha_prefill_ref
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.flash_prefill import flash_prefill
 from .layers import (
@@ -34,16 +47,22 @@ from .layers import (
     attn_decode_paged,
     attn_forward,
     attn_prefill_chunk_paged,
+    cross_attn_decode,
+    decode_writer_rows,
     ffn_forward,
     rms_norm,
+    sinusoidal_pos,
 )
+from .moe import MoEConfig, moe_forward, moe_param_shapes
+
+ATTN_KINDS = ("attn", "win", "xattn")
 
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """Copy of ``repro.models.transformer.ModelConfig``. The port runs the
-    attention-only (``"attn"``) stages with a SwiGLU FFN; other fields are
-    kept so configurations read the same, and are refused where used."""
+    """Copy of ``repro.models.transformer.ModelConfig``. Fields of what the
+    port does not run (the recurrent kinds' widths, training settings) are
+    kept so configurations read the same."""
 
     name: str
     d_model: int
@@ -55,18 +74,18 @@ class ModelConfig:
     vocab_size: int
     stages: Tuple[Tuple[Tuple[str, ...], int], ...]
     ffn_kind: str = "swiglu"
-    moe: Optional[object] = None
+    moe: Optional[MoEConfig] = None
     window: int = 4096
     rope_theta: Optional[float] = 10000.0   # None -> sinusoidal absolute
     qk_norm: bool = False
-    cross_kv_len: int = 0
+    cross_kv_len: int = 0                   # >0 for 'xattn' archs
     d_rnn: int = 0
     mlstm_proj_factor: float = 2.0
     tie_embeddings: bool = True
     norm_eps: float = 1e-6
     attn_q_chunk: int = 512
     loss_chunk: int = 512
-    true_n_heads: int = 0
+    true_n_heads: int = 0                   # pre-padding head count (6ND)
     remat: bool = True
     scan_layers: bool = True
     unroll_scans: bool = False
@@ -79,20 +98,20 @@ class ModelConfig:
             raise ValueError(f"{self.name}: stages give {n} layers")
 
 
+def layer_kinds(cfg: ModelConfig) -> List[str]:
+    """Each layer's kind in execution order: stage by stage, repeat by
+    repeat, the stage's pattern in order (the order of ``params["layers"]``
+    and of a cache's layers)."""
+    return [kind for pattern, reps in cfg.stages for _ in range(reps) for kind in pattern]
+
+
 def check_supported(cfg: ModelConfig) -> None:
     """Refuse what this port does not run yet, naming its ROADMAP item."""
-    later = sorted({kind for pattern, _ in cfg.stages for kind in pattern} - {"attn"})
+    later = sorted({kind for pattern, _ in cfg.stages for kind in pattern} - set(ATTN_KINDS))
     if later:
         raise NotImplementedError(
-            f"{cfg.name}: layer kinds {later} are not ported yet (ROADMAP queue 1, item 14)"
-        )
-    if cfg.moe is not None or cfg.ffn_kind != "swiglu":
-        raise NotImplementedError(
-            f"{cfg.name}: MoE / non-SwiGLU FFNs are not ported yet (ROADMAP queue 1, item 14)"
-        )
-    if cfg.rope_theta is None:
-        raise NotImplementedError(
-            f"{cfg.name}: sinusoidal positions are not ported yet (ROADMAP queue 1, item 14)"
+            f"{cfg.name}: recurrent layer kinds {later} are not ported yet "
+            "(ROADMAP queue 1, item 14: models/recurrent.py)"
         )
     if cfg.kv_cache_dtype not in ("bf16", "int8"):
         raise NotImplementedError(
@@ -109,7 +128,9 @@ def init_params(
     dtype: torch.dtype = torch.bfloat16,
 ) -> Dict:
     """Random weights with the reference's initialisation (normal /
-    sqrt(fan_in), embeddings 0.02, norm weights 0), drawn from
+    sqrt(fan_in) -- for a stacked expert weight ``(E, ...)`` the reference
+    takes ``E`` as the fan-in, and so does the port --, embeddings 0.02, norm
+    weights and the cross-attention gate 0), drawn from
     ``generator`` on its device and stored on ``device``: matmul weights in
     ``dtype``, norm weights in float32. (The numbers differ from the JAX
     package's for the same seed; the tests carry weights across with
@@ -121,7 +142,7 @@ def init_params(
     def dense(shape, scale=None):
         scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
         w = torch.randn(shape, generator=generator, device=generator.device)
-        return (w * scale).to(device=dev, dtype=dtype)
+        return w.mul_(scale).to(device=dev, dtype=dtype)
 
     def zeros(n):
         return torch.zeros(n, dtype=torch.float32, device=dev)
@@ -133,28 +154,45 @@ def init_params(
     }
     if not cfg.tie_embeddings:
         params["unembed"] = dense((D, cfg.vocab_size))
-    for _ in range(cfg.n_layers):
+    def attn_params():
         attn = {
             "wq": dense((D, Hq * hd)), "wk": dense((D, Hkv * hd)),
             "wv": dense((D, Hkv * hd)), "wo": dense((Hq * hd, D)),
         }
         if cfg.qk_norm:
             attn["q_norm"], attn["k_norm"] = zeros(hd), zeros(hd)
-        params["layers"].append({
-            "ln1": zeros(D), "attn": attn, "ln2": zeros(D),
-            "ffn": {"wg": dense((D, F)), "wu": dense((D, F)), "wd": dense((F, D))},
-        })
+        return attn
+
+    def tree(shapes):
+        return {k: tree(v) if isinstance(v, dict) else dense(v) for k, v in shapes.items()}
+
+    for kind in layer_kinds(cfg):
+        layer = {"ln1": zeros(D), "attn": attn_params()}
+        if kind == "xattn":
+            layer["ln_x"] = zeros(D)
+            layer["xattn"] = attn_params()
+            layer["xgate"] = zeros(())
+        if cfg.moe is not None:
+            layer["ln2"], layer["moe"] = zeros(D), tree(moe_param_shapes(D, cfg.moe))
+        elif F > 0:
+            # drawn in the order the reference's ffn_init lays them out
+            names = ("wg", "wu", "wd") if cfg.ffn_kind == "swiglu" else ("wu", "wd")
+            shapes = {"wg": (D, F), "wu": (D, F), "wd": (F, D)}
+            layer["ln2"] = zeros(D)
+            layer["ffn"] = {name: dense(shapes[name]) for name in names}
+        params["layers"].append(layer)
     return params
 
 
-_NORM_KEYS = ("ln1", "ln2", "q_norm", "k_norm", "final_norm")
+_NORM_KEYS = ("ln1", "ln2", "ln_x", "xgate", "q_norm", "k_norm", "final_norm")
 
 
 def params_from_numpy(tree, cfg: ModelConfig, device: DeviceLike = "cuda") -> Dict:
     """The port's parameters from the JAX parameter tree as numpy
     (``jax.tree.map(np.asarray, params)``): stacked ``stages`` become the
-    flat ``layers`` list, matmul weights go to bf16 and norms stay float32,
-    so both packages compute the same model."""
+    flat ``layers`` list (:func:`layer_kinds` order), matmul weights -- the
+    MoE router and experts too -- go to bf16 and norms and the gate stay
+    float32, so both packages compute the same model."""
     check_supported(cfg)
     dev = resolve_device(device)
 
@@ -213,41 +251,61 @@ def _index(node, r):
 
 
 # ------------------------------------------------------------------ caches
+def _dense_layer_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int, dev
+                       ) -> Dict[str, torch.Tensor]:
+    S = min(cache_len, cfg.window) if kind == "win" else cache_len
+    shape = (batch, cfg.n_kv_heads, S, cfg.head_dim)
+    lc = {"k": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
+          "v": torch.zeros(shape, dtype=torch.bfloat16, device=dev)}
+    if kind == "xattn":
+        xshape = (batch, cfg.n_kv_heads, cfg.cross_kv_len, cfg.head_dim)
+        lc["xk"] = torch.zeros(xshape, dtype=torch.bfloat16, device=dev)
+        lc["xv"] = torch.zeros(xshape, dtype=torch.bfloat16, device=dev)
+    return lc
+
+
 def init_cache(
     cfg: ModelConfig, batch: int, cache_len: int, device: DeviceLike = "cuda"
 ) -> List[Dict[str, torch.Tensor]]:
-    """Dense decode state (port of ``repro/models/transformer.py:162-217``
-    for ``"attn"`` layers): per layer, bf16 K and V rows ``(batch, H_kv,
-    cache_len, head_dim)``, one row per slot, zero-filled."""
+    """Dense decode state (port of ``repro/models/transformer.py:162-217``):
+    per layer bf16 K and V rows ``(batch, H_kv, S, head_dim)``, one row per
+    slot, zero-filled -- ``S`` is ``cache_len``, or ``min(cache_len,
+    window)`` for a ``win`` layer's ring; an ``xattn`` layer adds
+    ``"xk"``/``"xv"`` rows of ``cross_kv_len``."""
     check_supported(cfg)
     dev = resolve_device(device)
-    shape = (batch, cfg.n_kv_heads, cache_len, cfg.head_dim)
-    return [
-        {"k": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
-         "v": torch.zeros(shape, dtype=torch.bfloat16, device=dev)}
-        for _ in range(cfg.n_layers)
-    ]
+    return [_dense_layer_cache(cfg, kind, batch, cache_len, dev) for kind in layer_kinds(cfg)]
 
 
 def init_paged_cache(
-    cfg: ModelConfig, num_pages: int, page_size: int, device: DeviceLike = "cuda"
+    cfg: ModelConfig, num_pages: int, page_size: int, device: DeviceLike = "cuda",
+    batch: int = 0, cache_len: int = 0,
 ) -> List[Dict[str, torch.Tensor]]:
-    """Paged decode state: per layer, K and V page pools ``(num_pages,
-    H_kv, page_size, head_dim)``, bf16 -- or with ``kv_cache_dtype ==
-    "int8"`` int8, with ``"k_scale"``/``"v_scale"`` leaves ``(num_pages,
-    H_kv)`` float32, one symmetric scale per (page, kv head), 0 for an
-    untouched page (reference ``repro/models/transformer.py:237-280``; all
-    writes then go through
+    """Paged decode state (reference ``repro/models/transformer.py:219-
+    283``): each ``attn`` layer holds K and V page pools ``(num_pages, H_kv,
+    page_size, head_dim)``, bf16 -- or with ``kv_cache_dtype == "int8"``
+    int8, with ``"k_scale"``/``"v_scale"`` leaves ``(num_pages, H_kv)``
+    float32, one symmetric scale per (page, kv head), 0 for an untouched
+    page (all writes then go through
     :func:`repro_torch.core.attention.paged_scatter_tokens_quant`). One
     allocator's page ids index every layer's pools. Page 0 is the null
-    page."""
+    page. ``win`` and ``xattn`` layers keep the dense per-slot rows of
+    :func:`init_cache` for ``batch`` slots of ``cache_len`` (bf16 even
+    beside int8 pools: only the shared pools quantize)."""
     check_supported(cfg)
     dev = resolve_device(device)
+    kinds = layer_kinds(cfg)
+    if any(kind != "attn" for kind in kinds) and (batch < 1 or cache_len < 1):
+        raise ValueError(f"{cfg.name}: its 'win'/'xattn' layers keep dense per-slot caches; "
+                         "pass batch and cache_len")
     shape = (num_pages, cfg.n_kv_heads, page_size, cfg.head_dim)
     quant = cfg.kv_cache_dtype == "int8"
     dtype = torch.int8 if quant else torch.bfloat16
     cache = []
-    for _ in range(cfg.n_layers):
+    for kind in kinds:
+        if kind != "attn":
+            cache.append(_dense_layer_cache(cfg, kind, batch, cache_len, dev))
+            continue
         lc = {"k": torch.zeros(shape, dtype=dtype, device=dev),
               "v": torch.zeros(shape, dtype=dtype, device=dev)}
         if quant:
@@ -266,12 +324,21 @@ def _scale_kw(cfg: ModelConfig, lc: Dict[str, torch.Tensor]) -> Dict:
 
 
 # ------------------------------------------------------------------ forward
-def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+def _embed(params, cfg: ModelConfig, tokens: torch.Tensor, offset=0) -> torch.Tensor:
     """Token embedding: the bf16 row times sqrt(d_model) in float32 (the
     reference multiplies by a numpy float64 scalar, which promotes to
-    float32), so the residual stream is float32."""
+    float32), so the residual stream is float32. Without rotary positions
+    the float32 sinusoids of positions ``offset + [0, L)`` are added
+    (``repro/models/transformer.py:376-383``); ``offset`` is an int or a
+    one-element tensor on the tokens' device (a decode step's
+    ``max(ctx_lens)``, read on the device)."""
     x = params["embed"][tokens.long()].to(torch.bfloat16).float()
-    return x * float(np.float32(np.sqrt(cfg.d_model)))
+    x = x * float(np.float32(np.sqrt(cfg.d_model)))
+    if cfg.rope_theta is None:
+        pos = torch.arange(tokens.shape[-1], device=x.device)
+        pos = pos + (offset.reshape(1).to(x.device) if torch.is_tensor(offset) else int(offset))
+        x = x + sinusoidal_pos(pos, cfg.d_model)
+    return x
 
 
 def _unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -280,12 +347,18 @@ def _unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def _ffn_part(p, x, cfg: ModelConfig):
-    return x + ffn_forward(p["ffn"], rms_norm(x, p["ln2"], cfg.norm_eps))
+    """The layer's FFN on the normed residual, added to it: the MoE where
+    the layer has one, the ``ffn_kind`` FFN, or nothing (``d_ff`` 0)."""
+    if "moe" in p:
+        return x + moe_forward(p["moe"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg.moe)
+    if "ffn" in p:
+        return x + ffn_forward(p["ffn"], rms_norm(x, p["ln2"], cfg.norm_eps), kind=cfg.ffn_kind)
+    return x
 
 
 def _prefill_attn(cfg: ModelConfig, L: int, device: torch.device) -> Callable:
-    """The whole-prompt attention: K7 (:func:`flash_prefill`) on CUDA at
-    every length; on the CPU what the reference computes --
+    """The whole-prompt self-attention: K7 (:func:`flash_prefill`) on CUDA
+    at every length; on the CPU what the reference computes --
     :func:`mha_prefill_ref`, or the q-chunked :func:`mha_prefill_chunked`
     above ``attn_q_chunk`` (``repro/models/transformer.py:287-322``)."""
     if device.type == "cuda":
@@ -295,25 +368,77 @@ def _prefill_attn(cfg: ModelConfig, L: int, device: torch.device) -> Callable:
     return mha_prefill_ref
 
 
+def _attn_full(p, x, cfg: ModelConfig, kind: str, img_emb, attn: Callable):
+    """A layer's attention part over the whole prompt
+    (``repro/models/transformer.py:287-339``): self attention (``win``:
+    sliding-window), and for ``xattn`` the gated cross attention to
+    ``img_emb`` (K7 non-causal on CUDA, the plain oracle on the CPU, as the
+    reference runs ``attn_forward``). Returns ``(x, (k, v), (xk, xv) or
+    None)``."""
+    kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim)
+    h, kv = attn_forward(p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps), **kw,
+                         rope_theta=cfg.rope_theta,
+                         window=cfg.window if kind == "win" else None, attn=attn)
+    x = x + h
+    xkv = None
+    if kind == "xattn":
+        cross = flash_prefill if x.device.type == "cuda" else mha_prefill_ref
+        hx, xkv = attn_forward(p["xattn"], rms_norm(x, p["ln_x"], cfg.norm_eps), **kw,
+                               rope_theta=None, causal=False, kv_states=img_emb, attn=cross)
+        x = x + torch.tanh(p["xgate"]) * hx
+    return x, kv, xkv
+
+
+def ring_from_prefill(kh: torch.Tensor, vh: torch.Tensor, S: int, true_len=None):
+    """A sliding-window layer's ring ``(B, H, S, hd)`` from its prefill K/V
+    ``(B, H, L, hd)`` (``repro/models/transformer.py:590-618``): position
+    ``pos`` lands in row ``pos % S`` if it is one of the last ``S`` real
+    positions ``[n - S, n)``, ``n`` the prompt length -- ``L``, or
+    ``true_len`` for a bucketed prompt, whose pad positions never displace
+    real K/V; other rows stay zero. ``true_len`` may be an int or a
+    one-element tensor on the device; every shape is fixed."""
+    B, H, L, hd = kh.shape
+    pos = torch.arange(L, device=kh.device)
+    if true_len is None:
+        n = L
+    elif torch.is_tensor(true_len):
+        n = true_len.reshape(1).to(kh.device)
+    else:
+        n = int(true_len)
+    valid = (pos < n) & (pos >= n - S)
+    slots = torch.where(valid, pos % S, torch.full_like(pos, S))   # S: a row dropped after
+    out = []
+    for t in (kh, vh):
+        ring = torch.zeros(B, H, S + 1, hd, dtype=t.dtype, device=t.device)
+        ring[:, :, slots] = t
+        out.append(ring[:, :, :S])
+    return out[0], out[1]
+
+
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, cache_len: int,
-            true_len=None, write_kv: Optional[Callable] = None):
+            true_len=None, write_kv: Optional[Callable] = None, img_emb=None):
     """Forward over the prompt ``tokens (B, L)``.
 
     Returns ``(last_logits (B, V) float32, cache, cur_len)`` where
-    ``cache[i] = {"k", "v"}`` holds layer ``i``'s K/V ``(B, Hkv, cache_len,
-    hd)`` in bf16, zero past ``L``. With ``true_len`` (the reference's
-    bucketed prefill) ``tokens`` is a prompt padded to a bucket: the logits
-    are those of position ``true_len - 1`` and ``cur_len`` is ``true_len``;
-    the cache rows past it hold the pad tokens' K/V, as the reference's do.
-    ``true_len`` may be an int or a one-element tensor on the tokens'
-    device (a captured admission reads it at run time). With ``write_kv``
-    each layer's K/V ``(B, Hkv, L, hd)`` in bf16 go to ``write_kv(layer,
-    k, v)`` as soon as the layer has run, and ``cache`` is None: only one
-    layer's K/V live at a time, never ``cache_len`` rows of every layer.
+    ``cache[i]`` holds layer ``i``'s bf16 K/V as :func:`init_cache` lays
+    them out for ``cache_len``: an ``attn`` (or ``xattn``) layer's ``(B,
+    Hkv, cache_len, hd)``, zero past ``L``; a ``win`` layer's ring
+    (:func:`ring_from_prefill`); an ``xattn`` layer's ``"xk"``/``"xv"``,
+    the K/V of ``img_emb (B, cross_kv_len, D)``. With ``true_len`` (the
+    reference's bucketed prefill) ``tokens`` is a prompt padded to a
+    bucket: the logits are those of position ``true_len - 1`` and
+    ``cur_len`` is ``true_len``; an ``attn`` layer's rows past it hold the
+    pad tokens' K/V, as the reference's do, and a ring takes only real
+    positions. ``true_len`` may be an int or a one-element tensor on the
+    tokens' device (a captured admission reads it at run time). With
+    ``write_kv`` each layer's cache entry goes to ``write_kv(layer, entry)``
+    as soon as the layer has run -- an ``attn`` layer's K/V unpadded, ``(B,
+    Hkv, L, hd)`` -- and ``cache`` is None: only one layer's K/V live at a
+    time, never ``cache_len`` rows of every layer.
 
-    The attention is causal with ``q_offset`` 0: on CUDA tensors it runs the
-    Hopper kernel K7 (:func:`flash_prefill`) at every prompt length -- the
-    same function, computed by the kernel the reference has for it
+    The self attention is causal with ``q_offset`` 0: on CUDA tensors it
+    runs the Hopper kernel K7 (:func:`flash_prefill`) at every prompt length
+    -- the same function, computed by the kernel the reference has for it
     (``repro/kernels/flash_prefill.py:24``; its q-chunked path,
     ``transformer.py:287-322``, is what the reference's config calls the
     FlashAttention-2 baseline, ``transformer.py:72-74``). On CPU tensors it
@@ -323,25 +448,27 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, cache_len: int,
     """
     check_supported(cfg)
     B, L = tokens.shape
-    if L > cache_len:
+    if L > cache_len and write_kv is None:
         raise ValueError(f"prompt of {L} tokens exceeds cache_len {cache_len}")
     attn = _prefill_attn(cfg, L, tokens.device)
     x = _embed(params, cfg, tokens)
     cache = None if write_kv is not None else []
-    for i, lp in enumerate(params["layers"]):
-        h, (kh, vh) = attn_forward(
-            lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps),
-            n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
-            rope_theta=cfg.rope_theta, attn=attn,
-        )
-        x = _ffn_part(lp, x + h, cfg)
+    for i, (lp, kind) in enumerate(zip(params["layers"], layer_kinds(cfg))):
+        x, (kh, vh), xkv = _attn_full(lp, x, cfg, kind, img_emb, attn)
         kh, vh = kh.to(torch.bfloat16), vh.to(torch.bfloat16)
+        if kind == "win":
+            kh, vh = ring_from_prefill(kh, vh, min(cache_len, cfg.window), true_len)
+        elif write_kv is None:
+            pad = (0, 0, 0, cache_len - L)
+            kh, vh = torch.nn.functional.pad(kh, pad), torch.nn.functional.pad(vh, pad)
+        entry = {"k": kh, "v": vh}
+        if xkv is not None:
+            entry["xk"], entry["xv"] = xkv[0].to(torch.bfloat16), xkv[1].to(torch.bfloat16)
+        x = _ffn_part(lp, x, cfg)
         if write_kv is not None:
-            write_kv(i, kh, vh)
-            continue
-        pad = (0, 0, 0, cache_len - L)
-        cache.append({"k": torch.nn.functional.pad(kh, pad),
-                      "v": torch.nn.functional.pad(vh, pad)})
+            write_kv(i, entry)
+        else:
+            cache.append(entry)
     if torch.is_tensor(true_len):
         n = true_len.reshape(1)
         x_last = x.index_select(1, (n - 1).long())[:, 0]
@@ -360,27 +487,50 @@ def decode_step(
     attn_fn: Optional[Callable] = None,
     ctx_lens: Optional[torch.Tensor] = None,   # (B,) per-slot lengths
     page_tbl: Optional[torch.Tensor] = None,   # (B, pages_per_slot)
+    cur_len=None,
 ):
     """One decode step, updating the cache in place. Returns ``(logits (B,
-    V) float32, cache)``. With ``page_tbl`` the cache holds page pools
-    (:func:`init_paged_cache`) and ``attn_fn`` receives the pools; without
-    it the cache is dense (:func:`init_cache`, the branch of
+    V) float32, cache)``. With ``page_tbl`` the ``attn`` layers' caches are
+    page pools (:func:`init_paged_cache`) and ``attn_fn`` receives the
+    pools; without it they are dense (:func:`init_cache`, the branch of
     ``repro/models/transformer.py:843-857``) and ``attn_fn`` receives the
-    per-slot K/V. Either way ``attn_fn`` also gets the visible lengths."""
+    per-slot K/V. Either way ``attn_fn`` also gets the visible lengths.
+    ``win`` layers write and read their dense rings through the plain
+    oracle, as the reference's engine does (it passes no ``win_attn_fn``);
+    ``xattn`` layers add the gated cross attention's
+    read of their cached image K/V (:func:`cross_attn_decode`). Sinusoidal
+    positions (``rope_theta`` None) are those of ``cur_len`` for every slot
+    -- an int or a one-element device tensor; by default ``max(ctx_lens)``,
+    what the reference's engine passes."""
     check_supported(cfg)
     if ctx_lens is None:
         raise ValueError("decode_step needs the per-slot lengths ctx_lens")
-    x = _embed(params, cfg, tokens)
+    if cur_len is None and cfg.rope_theta is None:
+        cur_len = ctx_lens.max()
+    x = _embed(params, cfg, tokens, offset=cur_len if cur_len is not None else 0)
     kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
-              rope_theta=cfg.rope_theta, ctx_lens=ctx_lens, attn_fn=attn_fn)
-    for lp, lc in zip(params["layers"], cache):
+              rope_theta=cfg.rope_theta, ctx_lens=ctx_lens)
+    writer = None                   # the null-page writes' rows, once for every paged layer
+    for lp, lc, kind in zip(params["layers"], cache, layer_kinds(cfg)):
         xn = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        if page_tbl is not None:
+        if page_tbl is not None and kind == "attn":
+            if writer is None:
+                writer = decode_writer_rows(page_tbl, ctx_lens, lc["k"].shape[2])
             h, lc["k"], lc["v"] = attn_decode_paged(lp["attn"], xn, lc["k"], lc["v"], page_tbl,
-                                                    **kw, **_scale_kw(cfg, lc))
+                                                    attn_fn=attn_fn, writer=writer, **kw,
+                                                    **_scale_kw(cfg, lc))
         else:
-            h, lc["k"], lc["v"] = attn_decode(lp["attn"], xn, lc["k"], lc["v"], **kw)
-        x = _ffn_part(lp, x + h, cfg)
+            win = kind == "win"
+            h, lc["k"], lc["v"] = attn_decode(lp["attn"], xn, lc["k"], lc["v"],
+                                              window=cfg.window if win else None,
+                                              attn_fn=None if win else attn_fn, **kw)
+        x = x + h
+        if kind == "xattn":
+            hx = cross_attn_decode(lp["xattn"], rms_norm(x, lp["ln_x"], cfg.norm_eps),
+                                   lc["xk"], lc["xv"], n_heads=cfg.n_heads,
+                                   head_dim=cfg.head_dim)
+            x = x + torch.tanh(lp["xgate"]) * hx
+        x = _ffn_part(lp, x, cfg)
     x = rms_norm(x[:, -1], params["final_norm"], cfg.norm_eps)
     return _unembed(params, cfg, x), cache
 
@@ -414,12 +564,14 @@ def _chunk_forward(
         )
     check_supported(cfg)
     x = _embed(params, cfg, tokens)
+    pool = cache[0]["k"]
+    writer = chunk_writer_rows(page_tbls, offs, lens, tokens.shape[1], pool.shape[2], pool.device)
     for lp, lc in zip(params["layers"], cache):
         h, lc["k"], lc["v"] = attn_prefill_chunk_paged(
             lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps),
             lc["k"], lc["v"], page_tbls, offs, lens,
             n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
-            rope_theta=cfg.rope_theta, attn_fn=attn_fn, **_scale_kw(cfg, lc),
+            rope_theta=cfg.rope_theta, attn_fn=attn_fn, writer=writer, **_scale_kw(cfg, lc),
         )
         x = _ffn_part(lp, x + h, cfg)
     return x

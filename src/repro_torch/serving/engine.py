@@ -135,8 +135,27 @@ taken, ``nan_output``, ``nan_kv``, ``trie_corrupt``, ``tick_latency`` and
 ``preempt_storm`` once a tick, and a failed radix insert counts
 ``donation_aborts``.
 
-Configurations outside this slice raise ``NotImplementedError`` naming
-their ROADMAP item.
+Architectures. Every configuration whose layers are all attention kinds is
+served (:mod:`repro_torch.models.transformer`): MoE FFNs run in every step
+as any FFN does; on a paged engine only the ``attn`` layers are paged, and
+``win`` (sliding-window) layers keep dense per-slot rings, written at
+admission beside the page scatter, as the reference's
+``_write_slot_paged`` does. A sliding-window layer's decode attention reads
+its ring through the plain PyTorch oracle on every backend and device: the
+reference's engine passes no ``win_attn_fn`` and runs ``mha_decode_ref``
+there (``repro/models/transformer.py:853``), so the plain ring read is the
+counterpart of what the reference runs, not a fallback from a kernel.
+Architectures with windowed layers or sinusoidal positions do not
+chunk-prefill (:func:`~repro_torch.models.transformer.supports_chunked_prefill`):
+they admit by blocking whole-prompt prefill and refuse speculative decode,
+as the reference does. Sinusoidal positions go in at ``max(ctx_lens)`` for
+every slot of a decode step, as the reference's fast step embeds them
+(a known problem of the reference, kept: the port matches its oracle).
+Admission of an ``xattn`` architecture raises ``NotImplementedError``: the
+reference's engine passes no image embeddings and cannot place the cross
+K/V it computes from the prompt (ROADMAP queue 3). Recurrent layer kinds
+and f8/f16/f32 pools raise ``NotImplementedError`` naming their ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -187,11 +206,13 @@ from repro_torch.kernels.ops import (
 )
 from repro_torch.models.layers import dequant_pool
 from repro_torch.models.transformer import (
+    ATTN_KINDS,
     ModelConfig,
     check_supported,
     decode_step,
     init_cache,
     init_paged_cache,
+    layer_kinds,
     prefill,
     prefill_chunks,
     supports_chunked_prefill,
@@ -418,11 +439,23 @@ def _cache_ptrs(cache) -> tuple:
     return tuple(t.data_ptr() for lc in cache for t in lc.values())
 
 
-# EngineConfig parts this slice does not run, with their ROADMAP item
+# architectures and EngineConfig parts this port does not run yet, with
+# their ROADMAP item
 def _unported(cfg: ModelConfig, config: EngineConfig) -> Optional[str]:
+    recurrent = sorted(set(layer_kinds(cfg)) - set(ATTN_KINDS))
+    if recurrent:
+        return (f"recurrent layer kinds {recurrent} (ROADMAP queue 1, item 14: "
+                "models/recurrent.py)")
     if (config.paged.kv_dtype or cfg.kv_cache_dtype) not in ("bf16", "int8"):
         return "f8, f16 and f32 KV pools (ROADMAP queue 1, item 18)"
     return None
+
+
+XATTN_ADMISSION = (
+    "admission of an 'xattn' architecture: the reference's engine passes no image "
+    "embeddings, so its prefill computes the cross-attention K/V over the prompt and "
+    "its slot write cannot place them (repro/serving/engine.py:302-340; ROADMAP queue 3)"
+)
 
 
 class DecodeEngine:
@@ -484,6 +517,7 @@ class DecodeEngine:
         self.cfg = cfg
         self.params = params
         self.max_batch = config.max_batch
+        self.layer_kinds = layer_kinds(cfg)
 
         # observability: the tracer (NULL_TRACER, the disabled one, costs a
         # hook one attribute check), the metrics registry the stats live in,
@@ -545,12 +579,14 @@ class DecodeEngine:
             layout = KVLayout(
                 kv_dtype=cfg.kv_cache_dtype, n_kv_heads=cfg.n_kv_heads,
                 head_dim=cfg.head_dim, page_size=self.tile,
-                n_attn_layers=cfg.n_layers, scale_granularity=cfg.kv_scale_granularity,
+                n_attn_layers=self.layer_kinds.count("attn"),
+                scale_granularity=cfg.kv_scale_granularity,
             )
             self.pool = KVPagePool(num_pages, self.tile, layout=layout)
             self.pool.register_metrics(self.metrics)
             self.page_tbl = np.zeros((self.max_batch, self.pages_per_slot), dtype=np.int32)
-            self.cache = init_paged_cache(cfg, num_pages, self.tile, device=self.device)
+            self.cache = init_paged_cache(cfg, num_pages, self.tile, device=self.device,
+                                          batch=self.max_batch, cache_len=self.cache_len)
         else:
             self.pool = None
             self.page_tbl = None
@@ -696,12 +732,16 @@ class DecodeEngine:
 
     def _admit_step(self, prompt: np.ndarray, slot: int, pages: Optional[List[int]]) -> _Step:
         """Blocking admission as one step: prefill at the bucket length,
-        each layer's K/V written as soon as the layer has run -- into the
-        slot's pages (:meth:`_write_pages`, the reference's
-        ``_write_slot_paged``) or its dense row (:meth:`_write_row`, its
-        ``_write_slot``). Inputs: the padded tokens, the true length, and
-        the pages (as many as the bucket covers, the tail 0) or the slot.
-        Keyed on the layout and the bucket length."""
+        each layer's K/V written as soon as the layer has run -- an ``attn``
+        layer's into the slot's pages (:meth:`_write_pages`, the reference's
+        ``_write_slot_paged``) on a paged engine, every other into the
+        slot's dense row (:meth:`_write_row`, its ``_write_slot``; a ``win``
+        layer's ring of the prompt's last real positions). Inputs: the
+        padded tokens, the true length, the pages (as many as the bucket
+        covers, the tail 0) and the slot. Keyed on the layout and the bucket
+        length."""
+        if "xattn" in self.layer_kinds:
+            raise NotImplementedError(f"not ported yet: {XATTN_ADMISSION}")
         plen = len(prompt)
         L = bucket_length(plen, self.tile, max_len=self.cache_len)
         self._prefill_shapes.add(L)
@@ -713,28 +753,34 @@ class DecodeEngine:
             tbl = np.zeros(-(-L // self.tile), dtype=np.int32)
             tbl[:len(pages)] = pages
             host["pages"] = tbl
-        else:
+        if not self.paged or any(kind != "attn" for kind in self.layer_kinds):
             host["slot"] = np.asarray([slot], dtype=np.int32)
 
         def body(b):
-            if self.paged:
-                write = functools.partial(self._write_pages, b["pages"].long())
-            else:
-                write = functools.partial(self._write_row, b["slot"].long())
-            logits, _, _ = prefill(self.params, self.cfg, b["tokens"], cache_len=L,
+            pages_b = b["pages"].long() if self.paged else None
+            slot_b = b["slot"].long() if "slot" in b else None
+
+            def write(layer, entry):
+                if pages_b is not None and self.layer_kinds[layer] == "attn":
+                    self._write_pages(pages_b, layer, entry["k"], entry["v"])
+                else:
+                    self._write_row(slot_b, layer, entry)
+
+            logits, _, _ = prefill(self.params, self.cfg, b["tokens"], cache_len=self.cache_len,
                                    true_len=b["true_len"], write_kv=write)
             return logits
 
         return _Step((self._layout_key(), "admit", L), host, body, None, kind="admit")
 
-    def _write_row(self, slot: torch.Tensor, layer: int, k: torch.Tensor, v: torch.Tensor):
-        """Dense admission of one layer: its K/V ``(1, H, L, hd)`` padded
-        with zeros to ``cache_len`` and copied into row ``slot`` (a
-        one-element device tensor), in place -- the reference's
-        ``_write_slot`` (``repro/serving/engine.py:246-260``)."""
+    def _write_row(self, slot: torch.Tensor, layer: int, entry: Dict[str, torch.Tensor]):
+        """Dense admission of one layer: each of its cache entries ``(1, H,
+        n, hd)`` -- an ``attn`` layer's K/V of the prompt, a ``win``
+        layer's ring -- padded with zeros to the row's length and copied
+        into row ``slot`` (a one-element device tensor), in place -- the
+        reference's ``_write_slot`` (``repro/serving/engine.py:246-260``)."""
         lc = self.cache[layer]
-        for name, src in (("k", k), ("v", v)):
-            row = torch.nn.functional.pad(src, (0, 0, 0, self.cache_len - src.shape[2]))
+        for name, src in entry.items():
+            row = torch.nn.functional.pad(src, (0, 0, 0, lc[name].shape[2] - src.shape[2]))
             lc[name].index_copy_(0, slot, row.to(lc[name].dtype))
 
     def _write_pages(self, pages: torch.Tensor, layer: int, k: torch.Tensor, v: torch.Tensor):
@@ -871,7 +917,8 @@ class DecodeEngine:
         return matched
 
     def _fill_page(self, page: int, value: float):
-        """Overwrite page ``page`` of every layer's pools with ``value``, in
+        """Overwrite page ``page`` of every ``attn`` layer's pools with
+        ``value`` (the other layers hold dense per-slot rows), in
         place (reference ``_fill_page``, ``repro/serving/engine.py:457-502``):
         NaN-poisoning a victim page under fault injection, and zero-scrubbing
         a poisoned slot's private pages before they return to the free list
@@ -881,7 +928,7 @@ class DecodeEngine:
         NaN page dequantizes to ``0 * NaN = NaN`` and a scrub to exact
         zeros. The pool tensors stay the same objects, so no captured step
         is captured anew."""
-        for lc in self.cache:
+        for lc in self._pool_layers():
             for name, t in lc.items():
                 t[page].fill_(0 if t.dtype == torch.int8 else value)
 
@@ -890,9 +937,14 @@ class DecodeEngine:
         every layer's K and V pools, in place (the reference clones it into
         a donated cache). An int8 page's content and its scales are copied
         verbatim: exact, nothing requantized."""
-        for lc in self.cache:
+        for lc in self._pool_layers():
             for name in lc:
                 lc[name][dst].copy_(lc[name][src])
+
+    def _pool_layers(self) -> List[Dict[str, torch.Tensor]]:
+        """The caches of the layers that hold page pools: the ``attn``
+        layers (a paged engine's others keep dense per-slot rows)."""
+        return [lc for lc, kind in zip(self.cache, self.layer_kinds) if kind == "attn"]
 
     def _cow_tile(self, slot: int, t: int) -> bool:
         """Copy-on-write logical tile ``t`` of ``slot`` before a KV write

@@ -107,9 +107,17 @@ def test_attn_decode_matches_jax(model, form):
     np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), **BF16)
     np.testing.assert_allclose(kc_t.float().numpy(), _f(kc_j), **BF16)
     np.testing.assert_allclose(vc_t.float().numpy(), _f(vc_j), **BF16)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tlayers.attn_decode(pt["layers"][0]["attn"], torch.from_numpy(x), kc, vc, 3, window=8,
-                            **kw)
+    # a 'win' layer's ring: S = 32 rows written at ctx % S (slot 1, at
+    # capacity, wraps to row 0), every row of a full ring visible
+    kr, vr = torch.from_numpy(k_np[0]).bfloat16(), torch.from_numpy(v_np[0]).bfloat16()
+    out_j, kc_j, _ = jlayers.attn_decode(
+        pj0, jnp.asarray(x), jnp.asarray(k_np[0]).astype(jnp.bfloat16),
+        jnp.asarray(v_np[0]).astype(jnp.bfloat16), cur, window=S, **jkw, **kw)
+    out_t, kr_t, _ = tlayers.attn_decode(pt["layers"][0]["attn"], torch.from_numpy(x), kr, vr,
+                                         cur if form == "cur_len" else None, window=S, **tkw,
+                                         **kw)
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), **BF16)
+    np.testing.assert_allclose(kr_t.float().numpy(), _f(kc_j), **BF16)
 
 
 @pytest.mark.parametrize("backend", ["ref", "lean-fused", "lean-two-phase", "fixed"])

@@ -17,8 +17,10 @@ exact zeros) and the int8 engine on the card against the CPU; the fused
 K4 (stream-K pieces merged in the launch, bf16 and int8 pages on the
 tensor cores, float32 and other pages on the CUDA cores) against its plain
 version, launch against launch, and against the two-phase path; K1 and K2
-on the decode ring at every row bucket, page and dtype, with its counters.
-Tolerance 2e-5: kernel and plain version both compute in float32 from the
+on the decode ring at every row bucket, page and dtype, with its counters;
+and every kernel at the geometries of the attention-family architectures
+(gq 1, 6 and 8, head dims 64, 128 and 256, K7's window of 1024 at d 256
+and its non-causal cross attention). Tolerance 2e-5: kernel and plain version both compute in float32 from the
 same inputs (K7's and K8's bf16 output: one bf16 step plus 2e-5, since both
 round a float32 result; the tensor-core kernel keeps P to about 16 bits by
 putting it through PV as two bf16 halves, which holds it to that bound --
@@ -426,6 +428,11 @@ CASCADES = {
     # of 256 (float32 keeps the walk over device memory)
     "g2-two-members-page12": (4, 2, 128, 12, 24, [((0, 1), 0, 3)], [5, 30, 1]),
     "g2-three-members-page100": (4, 2, 64, 100, 40, [((0, 1, 2), 0, 3)], [50, 130, 1]),
+    # the attention-family geometries: g 8 (qwen3-moe, yi), 6 (nemotron),
+    # 1 (qwen2-moe, musicgen) -- g rows padded to their bucket
+    "g8-four-members": (32, 4, 128, 128, 132, [((0, 1, 2, 3), 0, 4)], [300, 129, 17, 1]),
+    "g6-three-members": (48, 8, 128, 128, 132, [((0, 1, 2), 0, 3)], [90, 1, 200]),
+    "g1-three-members": (16, 16, 128, 64, 40, [((0, 1, 2), 0, 2)], [5, 70, 1]),
     "g4-sixteen-members": (8, 2, 128, 128, 132, [(tuple(range(16)), 0, 2)],
                            [7 * i + 1 for i in range(16)]),
     "nemo-page256": (32, 8, 128, 256, 132, [((0, 1, 2, 3), 0, 4)], [700, 300, 129, 1]),
@@ -1145,3 +1152,118 @@ def test_fused_k4_matches_two_phase(cuda, page, C, dtype):
         torch.cuda.synchronize()
         assert (lp.fused_launches, lp.launches) == ((1, 0) if fused else (0, 1))
     assert _bf16_close(outs[True], outs[False])
+
+
+# ------------------------------------------- attention-family geometries
+# (gq, d, tile): musicgen (1, 64), qwen2-moe (1, 128), nemotron (6, 128),
+# qwen3-moe and yi (8, 128), gemma3 (4, 256) on pages of 128 and 16
+ARCH_DECODE = [(1, 64, 128), (1, 128, 128), (6, 128, 128), (8, 128, 128), (4, 256, 128),
+               (4, 256, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("gq,d,tile", ARCH_DECODE)
+def test_decode_kernels_at_arch_geometries(cuda, gq, d, tile, dtype):
+    """K1, K2 and K6 against their plain versions where a segment's rows
+    are padded to their bucket (gq 1 -> 2, 6 -> 8) and at d 256: the pad
+    rows never write (outputs hold exactly gq rows, equal to the plain
+    version's), and the ring or the walk runs as the path rule says."""
+    dt = getattr(torch, dtype)
+    args = _operands(cuda, [1500, 1, 300, 129], gq, 2, d, tile, 132, dt, seed=gq + d)
+    ring = ld.ring_slots(dt, gq, d, tile) > 0
+    before = (ld.fused_ring_launches, ld.partials_ring_launches)
+    o, lse = ld.lean_decode_fused(*args)
+    parts = ld.lean_decode_partials(*args)
+    torch.cuda.synchronize()
+    assert (ld.fused_ring_launches, ld.partials_ring_launches) == (before[0] + ring,
+                                                                  before[1] + ring)
+    assert o.shape[1] == gq
+    o_ref, lse_ref = ld.lean_decode_fused_plain(*args)
+    torch.testing.assert_close(o, o_ref, **TOL)
+    torch.testing.assert_close(lse, lse_ref, **TOL)
+    for a, b in zip(parts, ld.lean_decode_partials_plain(*args)):
+        torch.testing.assert_close(a, b, **TOL)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(gq)
+    lens = [1500, 1, 300, 0]
+    S, s_pad = 2 * len(lens), -(-1500 // tile) * tile
+    q = torch.randn(S, gq, d, generator=gen, device=cuda).to(dt)
+    k = torch.randn(S, s_pad, d, generator=gen, device=cuda).to(dt)
+    v = torch.randn(S, s_pad, d, generator=gen, device=cuda).to(dt)
+    seg = torch.tensor([L for L in lens for _ in range(2)], dtype=torch.int32, device=cuda)
+    k6 = (q, k, v, seg, fixed_split_factor(1500, S, tile, 132), tile, 1.0 / math.sqrt(d))
+    before = fd.ring_launches
+    out = fd.flash_decode_partials(*k6)
+    torch.cuda.synchronize()
+    assert fd.ring_launches == before + (fd.ring_slots(dt, gq, d, tile) > 0)
+    for a, b in zip(out, fd.flash_decode_partials_plain(*k6)):
+        assert a.shape == b.shape and a.shape[2] == gq
+        torch.testing.assert_close(a, b, **TOL)
+
+
+@pytest.mark.cuda
+def test_k5_refuses_the_walk_at_g_8(cuda, monkeypatch):
+    """K5 at g 5-8 runs on the decode ring only: where the ring would not
+    fit, the wrapper refuses, naming the kernel and the shape."""
+    c = _cascade_problem(cuda, "g8-four-members", torch.bfloat16)
+    args = _cascade_args(c, c["tbl"])
+    monkeypatch.setattr(ld, "ring_slots", lambda *a: 0)
+    with pytest.raises(ValueError, match="K5.*g 8"):
+        ld.lean_cascade_fused(*args)
+
+
+@pytest.mark.cuda
+def test_k6_refuses_more_rows_than_its_buckets(cuda):
+    args = _k6_args(cuda, "fixed-factor", fd.MAX_GQ + 1, "bfloat16", 128, 128)
+    with pytest.raises(ValueError, match="K6"):
+        fd.flash_decode_partials(*args)
+
+
+# (Hq, Hkv, d): qwen3-moe, nemotron, qwen2-moe, musicgen, yi
+ARCH_CHUNK = [(32, 4, 128), (48, 8, 128), (16, 16, 128), (32, 32, 64), (64, 8, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Hq,Hkv,d", ARCH_CHUNK)
+def test_chunk_kernels_at_arch_geometries(cuda, Hq, Hkv, d):
+    """The fused K4 (tensor cores) and K8 on a pack of two 256-token chunks
+    at each chunked architecture's heads, against their plain versions."""
+    args, sc, (q, kp, vp, tbl) = _fused_operands(cuda, 128, 256, "bfloat16", Hq=Hq, Hkv=Hkv,
+                                                  d=d)
+    lp.reset_launch_counts()
+    out = lp.lean_prefill_fused(*args)
+    q_off = torch.tensor([300, 37], dtype=torch.int32, device=cuda)
+    o8 = fp.flash_prefill_paged(q, kp, vp, tbl, q_off)
+    torch.cuda.synchronize()
+    assert (lp.fused_launches, lp.fused_tc_launches) == (1, 1)
+    assert _bf16_close(out, lp.lean_prefill_fused_plain(*args))
+    ref = fp.flash_prefill_paged_plain(q, kp, vp, tbl, q_off, 1.0 / math.sqrt(d))
+    for n, L in enumerate([256, 251]):
+        assert _bf16_close(o8[n, :, :L], ref[n, :, :L])
+
+
+# K7 at gemma3's sliding window (d 256: the CUDA cores), llama-3.2-vision's
+# cross attention (non-causal, 1601 image rows) and musicgen's heads
+ARCH_K7 = [(1, 16, 4, 1500, 1500, 256, True, 1024), (1, 16, 4, 700, 700, 256, True, None),
+           (1, 32, 8, 37, 1601, 128, False, None), (1, 32, 32, 300, 300, 64, True, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ARCH_K7)
+def test_k7_at_arch_geometries(cuda, case, dtype):
+    B, Hq, Hkv, Lq, Lk, d, causal, window = case
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(Lq + d)
+    q = torch.randn(B, Hq, Lq, d, generator=gen, device=cuda).to(dt)
+    k = torch.randn(B, Hkv, Lk, d, generator=gen, device=cuda).to(dt)
+    v = torch.randn(B, Hkv, Lk, d, generator=gen, device=cuda).to(dt)
+    out = fp.flash_prefill(q, k, v, causal=causal, window=window)
+    ref = fp.flash_prefill_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    if dtype == "float32":
+        torch.testing.assert_close(out, ref, **TOL)
+    else:
+        assert _bf16_close(out, ref)
