@@ -144,10 +144,11 @@ Phases, in order; any failure exits non-zero and nothing catches it:
      are released: (a) the arch kernel phase -- K2, the fused K4, K8 and K7
      at each architecture's geometry (qwen3-moe gq 8, nemotron gq 6,
      qwen2-moe gq 1, musicgen gq 1 at d 64, gemma3 d 256 with its 1024-key
-     window on the CUDA cores), K6 at qwen3's gq 8 and gemma3's d 256, K5 at
-     qwen3's g 8 (32 stacked rows), against their plain versions; timed
-     beside SDPA with their bounds where a run of that geometry launches
-     them; (b) qwen3-moe-30b-a3b at full width, all 48 layers or as many as
+     window: K7 on the tensor cores, the fused K4 and K8 on the CUDA cores,
+     which no engine path launches at d 256), K6 at qwen3's gq 8 and
+     gemma3's d 256, K5 at qwen3's g 8 (32 stacked rows), against their
+     plain versions; timed beside SDPA with their bounds where a run of that
+     geometry launches them, and the fused K4 and K8 at d 256 too; (b) qwen3-moe-30b-a3b at full width, all 48 layers or as many as
      fit (printed): the lean Scheduler (chunked prefill, every step
      captured), fixed and ref; lean's streams held to fixed's, the
      first-token logits of lean and ref to ``QWEN3_FIRST_LOGIT_GAP``, and
@@ -159,8 +160,8 @@ Phases, in order; any failure exits non-zero and nothing catches it:
      captured steps bit for bit against eager (chunk and decode; admission,
      verify and decode);
      (c) gemma3-4b at full width and depth: prompts of 16000, 3000 and
-     1200 tokens admitted whole (K7 on the CUDA cores at d 256, the window
-     rings wrap), lean (K2 at d 256), fixed (K6) and ref, streams against
+     1200 tokens admitted whole (K7 on the tensor cores at d 256, every
+     launch; the window rings wrap), lean (K2 at d 256), fixed (K6) and ref, streams against
      ref, lean's steps bit for bit against eager; (d) the geometry sweep:
      qwen2-moe-a2.7b, nemotron-4-15b, yi-34b and musicgen-large at full
      width and one stage unit of depth on lean and ref, streams against
@@ -238,8 +239,9 @@ which prints one JSON line of K7's (the 3000-token causal prompt) and K8's
 (the two-chunk pack) median times, bf16 and f32, and the fused K4's on the
 pack (bf16 and int8 pages, at 132, 66 and 16 stream-K workers). Both
 lines carry the card's ``nvidia-smi`` name and power limit. A change to
-the row-block kernels (K4's partials, and K7 and K8 on the CUDA cores and
-on the tensor cores) is held to another checkout bit for bit with
+the row-block kernels (K4's partials, the fused K4, and K7 and K8 on the
+CUDA cores and on the tensor cores) is held to another checkout bit for
+bit with
 
     python3 chip_smoke.py --row-kernel-bits OTHER_CHECKOUT/src
 
@@ -248,13 +250,23 @@ inputs, at pages that fit one tile, and prints one JSON line: outputs
 compared, bit-identical, differing.
 
 bf16 K7 and K8 at d 64 or 128 run on the tensor-core kernel (wgmma + TMA,
-``csrc/attn_tc.cuh``), and so does the fused K4 (``csrc/lean_prefill_tc.cu``,
-bf16 and int8 pages); the build step prints their ``-Xptxas -v`` lines, the
+``csrc/attn_tc.cuh``), K7 also at d 256 (64 rows a CTA, O split by columns
+between the consumer warpgroups, 64-key tiles), and so does the fused K4
+(``csrc/lean_prefill_tc.cu``, bf16 and int8 pages); the build step prints
+their ``-Xptxas -v`` lines (and fails on a spill in the d-256 one), the
 K7 and K8 phases print each case's TFLOP/s beside SDPA's, and the engine,
 Scheduler, prefix-serving and dense-engine phases check that every K7, K8
 and fused K4 launch went through them (``dense_tc_launches ==
 dense_launches``, ``tc_launches == launches``, ``fused_tc_launches ==
-fused_launches``).
+fused_launches``), as the gemma phase does for K7 at d 256.
+
+The int8 prefix-serving comparison of phase 10 at another depth of
+Mistral-NeMo-12B, split by backend, kernel and pages, with every lean
+kernel held to its plain version and every decode and chunk attention call
+to the ``ref`` oracle on the same inputs (checks nothing; one JSON line,
+the rest in ``chiprun_out/prefix_fault_<DEPTH>.json``):
+
+    python3 chip_smoke.py --prefix-step [DEPTH]
 
 Imports ``repro_torch`` only, never JAX or the JAX package ``repro``.
 """
@@ -797,7 +809,8 @@ def tc_ptxas_lines(report: str):
 
     out, lines = [], report.splitlines()
     for i, line in enumerate(lines):
-        m = re.search(r"Compiling entry function '.*row_block_kernelILi(\d+)E.*?((?:Dense|Paged)Walk)", line)
+        m = re.search(r"Compiling entry function '.*row_block_kernelILi(\d+)ELi(\d+)E.*?"
+                      r"((?:Dense|Paged)Walk)", line)
         k4 = re.search(r"Compiling entry function '.*lean_prefill_tc_kernelILi(\d+)ELb([01])E",
                        line)
         if not (m or k4):
@@ -809,7 +822,7 @@ def tc_ptxas_lines(report: str):
             if "registers" in nxt:
                 regs = nxt.split(":", 1)[1].strip()
                 break
-        name = (f"row_block_kernel<{m.group(1)}, {m.group(2)}>" if m else
+        name = (f"row_block_kernel<{m.group(1)}, {m.group(2)}, {m.group(3)}>" if m else
                 f"lean_prefill_tc_kernel<{k4.group(1)}, {('bf16', 'int8')[int(k4.group(2))]}>")
         out.append((name, regs, spill))
     return out
@@ -2122,13 +2135,32 @@ def prefix_waves(vocab, seed=5):
 
 
 def prefix_serving_run(torch, cfg, params, sm_count, new_tokens, waves, prefix, kv_dtype=None,
-                       cascade=None, captured=True):
-    """The waves, one after the other, through ``Scheduler`` on ``lean``,
-    with the radix prefix cache and cascade decode (``prefix``) or without
-    (``cascade`` False: the prefix cache without cascade decode).
-    Records each request's first-token logits (from the chunk step that
-    completed its prompt) and its decode logits rows with their tokens, the
-    decode ticks' wall times, and whether each was a cascade tick."""
+                       cascade=None, captured=True, backend="lean", cascade_fused=True,
+                       fused=True, budget=SCHED_BUDGET, snap=False, fresh_scales=False,
+                       attn_audit=None):
+    """The waves, one after the other, through ``Scheduler`` on ``backend``
+    (``lean``; ``fused`` False: the two-phase plans), with the radix prefix
+    cache and cascade decode (``prefix``; ``cascade_fused`` False: the
+    two-call cascade) or without (``cascade`` False: the prefix cache
+    without cascade decode). Records each request's first-token logits
+    (from the chunk step that completed its prompt) and its decode logits
+    rows with their tokens, the decode ticks' wall times, whether each was a
+    cascade tick, and each request's prefill chunks ``(offset, length)``.
+    ``snap``: also a copy of the pages that hold each request's system
+    prompt (every layer's K and V, with their scales on int8 pools), taken
+    when its prompt completes. ``fresh_scales`` (int8, eager steps only):
+    every page the pool hands out starts from scale 0, where the engine
+    keeps the scale its last owner left (the quantizing write only grows a
+    scale). ``attn_audit`` (a list; eager lean steps without cascade): each
+    paged decode attention call of the engine is followed by the ``ref``
+    step's oracle on the same pools, tables and lengths, and appends
+    ``(decode ticks before it, per-slot largest |lean - oracle|, the lean
+    segments' visible lengths, the model's)``; each chunk attention call
+    likewise ``("chunk", chunk steps before it, per pack row largest gap
+    over its valid rows, offsets, lengths)``."""
+    from repro_torch.core.attention import (mha_chunk_prefill_paged_ref, mha_decode_ref,
+                                            paged_gather_kv_dequant)
+    from repro_torch.models.layers import dequant_pool
     from repro_torch.serving.config import CascadeConfig, EngineConfig, PagedConfig
     from repro_torch.serving.engine import DecodeEngine
     from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
@@ -2137,14 +2169,59 @@ def prefix_serving_run(torch, cfg, params, sm_count, new_tokens, waves, prefix, 
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
             self.first_rows, self.rows, self.tick_s = {}, {}, []
+            self.chunks, self.snaps = {}, {}
 
         def prefill_chunks_tick(self, work, pack_width, chunk_cap):
             toks = super().prefill_chunks_tick(work, pack_width, chunk_cap)
             for i, (slot, chunk, off) in enumerate(work):
                 req = self.slot_req[slot]
+                self.chunks.setdefault(req.uid, []).append((off, len(chunk)))
                 if off + len(chunk) == len(req.prompt):
                     self.first_rows[req.uid] = self.last_prefill_logits[i].float()
+                    if snap:
+                        pages = torch.as_tensor(
+                            self.page_tbl[slot, :SYSTEM_TOKENS // self.tile].astype("int64"),
+                            device=self.device)
+                        self.snaps[req.uid] = [{k: t[pages].clone() for k, t in lc.items()}
+                                               for lc in self.cache]
             return toks
+
+        def _attn_fn(self, sched, ptbl, seg, num_splits, backend, fused):
+            fn = super()._attn_fn(sched, ptbl, seg, num_splits, backend, fused)
+            if attn_audit is None or ptbl is None or backend != "lean":
+                return fn
+            n_kv = self.cfg.n_kv_heads
+
+            def audited(q, k, v, c, k_scales=None, v_scales=None):
+                out = fn(q, k, v, c, k_scales=k_scales, v_scales=v_scales)
+                gather = lambda pool, sc: paged_gather_kv_dequant(pool, sc, ptbl,
+                                                                  dtype=torch.bfloat16)
+                ref = mha_decode_ref(q, gather(k, k_scales), gather(v, v_scales), ctx_lens=c)
+                gap = (out.float() - ref.float()).abs().flatten(1).amax(1)
+                attn_audit.append((self.stats.ticks, gap.cpu().tolist(),
+                                   seg.view(-1, n_kv)[:, 0].cpu().tolist(), c.cpu().tolist()))
+                return out
+
+            return audited
+
+        def _chunk_attn_fn(self, offs, lens, tbls, sched):
+            fn = super()._chunk_attn_fn(offs, lens, tbls, sched)
+            if attn_audit is None or self.attn_backend != "lean":
+                return fn
+
+            def audited(q, k, v, tb, o, k_scales=None, v_scales=None):
+                out = fn(q, k, v, tb, o, k_scales=k_scales, v_scales=v_scales)
+                kd = dequant_pool(k, k_scales) if k_scales is not None else k
+                vd = dequant_pool(v, v_scales) if v_scales is not None else v
+                ref = mha_chunk_prefill_paged_ref(q, kd, vd, tb, o)
+                valid = torch.arange(q.shape[2], device=q.device)[None, :] < lens[:, None]
+                gap = torch.where(valid[:, None, :, None], (out.float() - ref.float()).abs(), 0.0)
+                attn_audit.append(("chunk", len(self.stats.tick_prefill_tokens),
+                                   gap.flatten(1).amax(1).cpu().tolist(), offs.cpu().tolist(),
+                                   lens.cpu().tolist()))
+                return out
+
+            return audited
 
         def decode_tick(self, exclude=None):
             casc = self.stats.cascade_ticks
@@ -2163,13 +2240,27 @@ def prefix_serving_run(torch, cfg, params, sm_count, new_tokens, waves, prefix, 
             return out
 
     eng = Recorder(cfg, params, EngineConfig(
-        max_batch=4, cache_len=4096, attn_backend="lean", num_workers=sm_count,
+        max_batch=4, cache_len=4096, attn_backend=backend, num_workers=sm_count, fused=fused,
         paged=PagedConfig(enabled=True, page_size=128, prefix_cache=prefix, kv_dtype=kv_dtype),
-        cascade=CascadeConfig(enabled=prefix if cascade is None else cascade, stable_ticks=2)),
+        cascade=CascadeConfig(enabled=prefix if cascade is None else cascade,
+                              fused=cascade_fused, stable_ticks=2)),
         device="cuda")
     eng.capture_decode = captured
+    if fresh_scales:
+        alloc = eng.pool.alloc
+
+        def fresh_alloc(seq, n=1):
+            pages = alloc(seq, n)
+            if pages:
+                idx = torch.as_tensor(pages, device=eng.device)
+                for lc in eng.cache:
+                    for name in ("k_scale", "v_scale"):
+                        lc[name][idx] = 0.0
+            return pages
+
+        eng.pool.alloc = fresh_alloc
     sch = Scheduler(eng, SchedulerConfig(chunk_size=SCHED_CHUNK, prefill_pack=SCHED_PACK,
-                                         token_budget=SCHED_BUDGET, chunked=True))
+                                         token_budget=budget, chunked=True))
     reset_launch_counts()
     t0 = time.perf_counter()
     handles, uid = [], 0
@@ -2191,6 +2282,31 @@ def prefix_serving_run(torch, cfg, params, sm_count, new_tokens, waves, prefix, 
     else:
         check(eng.pool.num_allocated == 0, "prefix serving: pages leaked")
     return {"eng": eng, "sch": sch, "handles": handles, "counts": counts, "wall": wall}
+
+
+def prefix_logit_gaps(torch, on, off, atol_frac):
+    """Each request's logits rows in run ``on`` against run ``off`` on the
+    same waves: its first-token row, then its decode rows up to the first
+    one whose tokens differ (later rows follow different tokens). Per row:
+    ``uid``, ``row`` (0 the first token, then decode rows), ``cascade`` (a
+    cascade tick's row), ``finite``, ``delta`` (max |on - off|), ``atol``
+    (``atol_frac`` x the median |off logit|) and ``ok`` (within ``atol`` +
+    ``LOGIT_RTOL`` |off|)."""
+    gaps = []
+    for h in on["handles"]:
+        pairs = [(on["eng"].first_rows[h.uid], off["eng"].first_rows[h.uid], False)]
+        for (a, ta, cascade), (b, tb, _) in zip(on["eng"].rows.get(h.uid, []),
+                                                off["eng"].rows.get(h.uid, [])):
+            pairs.append((a, b, cascade))
+            if ta != tb:
+                break
+        for row, (a, b, cascade) in enumerate(pairs):
+            atol = atol_frac * b.abs().median().item()
+            gaps.append({"uid": h.uid, "row": row, "cascade": cascade,
+                         "finite": bool(torch.isfinite(a).all()),
+                         "delta": (a - b).abs().max().item(), "atol": atol,
+                         "ok": bool(torch.allclose(a, b, rtol=LOGIT_RTOL, atol=atol))})
+    return gaps
 
 
 def prefix_serving_phase(torch, cfg, params, sm_count, new_tokens, kv_dtype=None):
@@ -2226,24 +2342,14 @@ def prefix_serving_phase(torch, cfg, params, sm_count, new_tokens, kv_dtype=None
     check(skipped > 0 and st.prefix_matched_tokens > 0, "prefix serving: nothing was shared")
     # logits against the unshared run on the same waves
     worst, compared, casc_rows, agree = (0.0, 0.0, -1), 0, 0, 0
-    for h in on["handles"]:
-        pairs = [(eng.first_rows[h.uid], off["eng"].first_rows[h.uid])]
-        for (a, ta, cascade), (b, tb, _) in zip(eng.rows.get(h.uid, []),
-                                                off["eng"].rows.get(h.uid, [])):
-            pairs.append((a, b))
-            casc_rows += int(cascade)
-            if ta != tb:
-                break               # later rows follow different tokens
-        for a, b in pairs:
-            check(bool(torch.isfinite(a).all()), "prefix serving: logits not finite")
-            atol = atol_frac * b.abs().median().item()
-            delta = (a - b).abs().max().item()
-            check(torch.allclose(a, b, rtol=LOGIT_RTOL, atol=atol),
-                  f"prefix serving: request {h.uid}'s logits differ from the unshared run by "
-                  f"up to {delta} (allowed {atol} + {LOGIT_RTOL} |ref|)")
-            worst = max(worst, (delta, atol, h.uid))
-            compared += 1
-        agree += int(h.generated == off["handles"][h.uid].generated)
+    for gap in prefix_logit_gaps(torch, on, off, atol_frac):
+        check(gap["finite"], "prefix serving: logits not finite")
+        check(gap["ok"], f"prefix serving: request {gap['uid']}'s logits differ from the "
+              f"unshared run by up to {gap['delta']} (allowed {gap['atol']} + {LOGIT_RTOL} |ref|)")
+        worst = max(worst, (gap["delta"], gap["atol"], gap["uid"]))
+        compared += 1
+        casc_rows += int(gap["cascade"])
+    agree = sum(h.generated == off["handles"][h.uid].generated for h in on["handles"])
     check(casc_rows > 0, "prefix serving: no cascade-tick logits were compared")
     peak = [r["eng"].pool.stats.high_water for r in (off, on)]
     ttft = [(h.first_token_time - h.arrival_time) * 1e3 for h in on["handles"]]
@@ -2276,6 +2382,257 @@ def prefix_serving_phase(torch, cfg, params, sm_count, new_tokens, kv_dtype=None
           f"{LOGIT_RTOL} |ref|); streams equal for {agree}/{len(on['handles'])} requests; pool "
           f"and radix cache clean", flush=True)
     return on["counts"]
+
+
+def page_diffs(torch, a, b):
+    """Two copies of the same request's system-prompt pages (``snaps`` of
+    :func:`prefix_serving_run`), layer by layer: pages whose K or V rows
+    differ, elements that differ, the largest |difference| (int8 steps on
+    int8 pools), scales that differ and their largest relative difference,
+    and the first layer where anything differs."""
+    out = {"pages": 0, "elems": 0, "max_step": 0.0, "scales": 0, "max_scale_rel": 0.0,
+           "first_layer": None}
+    for layer, (la, lb) in enumerate(zip(a, b)):
+        for name in ("k", "v"):
+            diff = (la[name].float() - lb[name].float()).abs()
+            per_page = diff.flatten(1).amax(1)
+            out["pages"] += int((per_page > 0).sum())
+            out["elems"] += int((diff > 0).sum())
+            out["max_step"] = max(out["max_step"], diff.max().item())
+            if name + "_scale" in la:
+                sa, sb = la[name + "_scale"], lb[name + "_scale"]
+                out["scales"] += int((sa != sb).sum())
+                rel = ((sa - sb).abs() / sb.abs().clamp(min=1e-30)).max().item()
+                out["max_scale_rel"] = max(out["max_scale_rel"], rel)
+            if out["first_layer"] is None and (out["elems"] or out["scales"]):
+                out["first_layer"] = layer
+    return out
+
+
+class KernelAudit:
+    """Within the ``with`` block, every lean kernel the engine's plans call
+    through ``repro_torch.kernels.ops`` (K1, K2, K5, K4's partials, the
+    fused K4) is followed by its plain version on the same inputs. Keeps
+    per kernel the call count and the largest |kernel - plain| (float32
+    outputs; the fused K4's in q's dtype, against its plain one's), with the
+    worst call's index and its four worst rows. Eager steps only: a
+    captured step would replay the kernels without the comparison."""
+
+    NAMES = {"lean_decode_fused": "lean_decode_fused_plain",
+             "lean_decode_partials": "lean_decode_partials_plain",
+             "lean_cascade_fused": "lean_cascade_fused_plain",
+             "lean_prefill_chunk_partials": "lean_prefill_partials_plain",
+             "lean_prefill_fused": "lean_prefill_fused_plain"}
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.calls, self.worst = {}, {}
+
+    def _wrap(self, name, kernel, plain):
+        torch = self.torch
+        from repro_torch.kernels import lean_decode as ld
+
+        def audited(*args, **kw):
+            out = kernel(*args, **kw)
+            pkw = dict(kw)
+            if kw.get("k_scales") is not None:
+                k_rows = args[2] if name == "lean_cascade_fused" else args[1]
+                pkw["k_scales"], pkw["v_scales"] = ld.scale_rows(k_rows, kw["k_scales"],
+                                                                 kw["v_scales"])
+            ref = plain(*args, **pkw)
+            outs = out if isinstance(out, tuple) else (out,)
+            refs = ref if isinstance(ref, tuple) else (ref,)
+            err, rows = 0.0, None
+            for a, b in zip(outs, refs):
+                a, b = a.float(), b.float()
+                d = torch.where(a == b, torch.zeros_like(a), (a - b).abs())
+                d = torch.nan_to_num(d, nan=float("inf"))
+                e = d.max().item() if d.numel() else 0.0
+                if e > err:
+                    err, rows = e, d.flatten(1).amax(1) if d.dim() > 1 else d
+            n = self.calls.get(name, 0)
+            self.calls[name] = n + 1
+            if err > self.worst.get(name, (-1.0,))[0]:
+                top = (rows.topk(min(4, rows.numel())) if rows is not None else None)
+                self.worst[name] = (err, n, None if top is None else
+                                    [(int(i), float(v)) for v, i in zip(*top)])
+            return out
+
+        return audited
+
+    def __enter__(self):
+        from repro_torch.kernels import lean_decode as ld
+        from repro_torch.kernels import lean_prefill as lp
+        from repro_torch.kernels import ops
+
+        self._orig = {}
+        for name, plain in self.NAMES.items():
+            self._orig[name] = getattr(ops, name)
+            mod = lp if "prefill" in name else ld
+            setattr(ops, name, self._wrap(name, self._orig[name], getattr(mod, plain)))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+
+        for name, fn in self._orig.items():
+            setattr(ops, name, fn)
+        return False
+
+
+def prefix_fault_phase(torch, sm_count, smi, depth):
+    """The int8 prefix-serving comparison of ``prefix_serving_phase`` on
+    Mistral-NeMo-12B at ``depth`` layers, split three ways: the backend
+    (the same waves on ``ref``, the plain step, against ``ref`` unshared),
+    the kernels (K5-int8 against the two-call cascade, no cascade, the
+    two-phase plans in place of the fused K4-int8 and K2-int8), and the
+    pages (each request's system-prompt pages, int8 bytes and scales,
+    against the unshared run's, against an unshared run whose token budget
+    never shrinks a chunk, so that every system-prompt page is written
+    whole, as the shared run's are, and against an unshared run whose pages
+    start from scale 0 when the pool hands them out, as the shared run's
+    system-prompt pages do: those were fresh when wave 1 wrote them, while
+    the unshared run's wave 2 gets the pages wave 1 freed, scales and all).
+    Checks nothing; prints a line per comparison and the whole as one JSON
+    line."""
+    import gc
+    import types
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    cfg = arch_config(get_config("mistral-nemo-12b"), depth)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = init_params(cfg, gen, device="cuda", dtype=torch.bfloat16)
+    waves = prefix_waves(cfg.vocab_size)
+    aligned = SCHED_BUDGET + 4              # budget - decode batch always fits two chunks
+    variants = {
+        "lean": dict(prefix=True, kv_dtype="int8"),
+        "lean unshared": dict(prefix=False, kv_dtype="int8"),
+        "lean unshared whole pages": dict(prefix=False, kv_dtype="int8", budget=aligned),
+        "two-call cascade": dict(prefix=True, kv_dtype="int8", cascade_fused=False),
+        "no cascade": dict(prefix=True, kv_dtype="int8", cascade=False),
+        "two-phase": dict(prefix=True, kv_dtype="int8", fused=False, cascade_fused=False),
+        "two-phase unshared": dict(prefix=False, kv_dtype="int8", fused=False),
+        "lean unshared fresh scales": dict(prefix=False, kv_dtype="int8", fresh_scales=True,
+                                           captured=False),
+        "ref": dict(prefix=True, kv_dtype="int8", backend="ref", cascade=False),
+        "ref unshared fresh scales": dict(prefix=False, kv_dtype="int8", backend="ref",
+                                          fresh_scales=True, captured=False),
+        "ref unshared": dict(prefix=False, kv_dtype="int8", backend="ref"),
+        "ref unshared whole pages": dict(prefix=False, kv_dtype="int8", backend="ref",
+                                         budget=aligned),
+        "bf16": dict(prefix=True),
+        "bf16 unshared": dict(prefix=False),
+        "lean eager audited": dict(prefix=True, kv_dtype="int8", captured=False),
+        "no cascade eager, attention audited": dict(prefix=True, kv_dtype="int8", cascade=False,
+                                                    captured=False, attn_audit=[]),
+    }
+    runs = {}
+    for name, kw in variants.items():
+        t0 = time.perf_counter()
+        audit = KernelAudit(torch) if name == "lean eager audited" else contextlib.nullcontext()
+        with audit:
+            r = prefix_serving_run(torch, cfg, params, sm_count, 16, waves, snap=True, **kw)
+        e = r["eng"]
+        runs[name] = {"handles": r["handles"], "eng": types.SimpleNamespace(
+            first_rows=e.first_rows, rows=e.rows, snaps=e.snaps, chunks=e.chunks,
+            cascade_ticks=e.stats.cascade_ticks, matched=e.stats.prefix_matched_tokens)}
+        del r, e
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"  [{time.perf_counter() - t0:.1f} s] {name}: cascade ticks "
+              f"{runs[name]['eng'].cascade_ticks}, prefix tokens matched "
+              f"{runs[name]['eng'].matched}", flush=True)
+        if kw.get("attn_audit") is not None:
+            out = {}
+            for kind in ("decode", "chunk"):
+                calls = [r for r in kw["attn_audit"] if (r[0] == "chunk") == (kind == "chunk")]
+                gaps = lambda r: r[2] if kind == "chunk" else r[1]
+                worst = max(calls, key=lambda r: max(gaps(r)), default=None)
+                bad = [r for r in calls if max(gaps(r)) > 0.25]
+                out[kind] = {"calls": len(calls), "worst": worst, "over_0.25": len(bad),
+                             "first_over": bad[:3]}
+                print(f"  {kind} attention against the ref oracle in {name}: {len(calls)} "
+                      f"calls; worst {worst}; calls with a gap over 0.25: {len(bad)}, the "
+                      f"first: {bad[:3]}", flush=True)
+            runs[name]["attn_audit"] = out
+        if isinstance(audit, KernelAudit):
+            runs[name]["audit"] = {k: (audit.calls[k], *w) for k, w in audit.worst.items()}
+            print(f"  kernels against their plain versions in {name} (calls, largest "
+                  f"|kernel - plain|, its call, its four worst rows): "
+                  + "; ".join(f"{k}: {v}" for k, v in runs[name]["audit"].items()), flush=True)
+    result = {"card": smi, "model": f"{cfg.name} at {cfg.n_layers} layers", "gaps": {},
+              "pages": {}, "chunks": {}, "audit": runs["lean eager audited"]["audit"],
+              "attn_audit": runs["no cascade eager, attention audited"]["attn_audit"]}
+    pairs = [("lean", "lean unshared"), ("lean", "lean unshared whole pages"),
+             ("lean unshared whole pages", "lean unshared"),
+             ("lean", "lean unshared fresh scales"), ("ref", "ref unshared fresh scales"),
+             ("two-call cascade", "lean unshared"), ("no cascade", "lean unshared"),
+             ("two-phase", "two-phase unshared"), ("ref", "ref unshared"),
+             ("ref", "ref unshared whole pages"), ("lean unshared", "ref unshared"),
+             ("lean", "ref"), ("bf16", "bf16 unshared"), ("lean eager audited", "lean"),
+             ("lean eager audited", "lean unshared"),
+             ("no cascade eager, attention audited", "no cascade")]
+    for a, b in pairs:
+        frac = LOGIT_ATOL_FRAC if a.startswith("bf16") else INT8_LOGIT_ATOL_FRAC
+        gaps = prefix_logit_gaps(torch, runs[a], runs[b], frac)
+        per_uid = {}
+        for g in gaps:
+            w = per_uid.get(g["uid"])
+            if w is None or g["delta"] > w["delta"]:
+                per_uid[g["uid"]] = g
+        agree = sum(h.generated == runs[b]["handles"][h.uid].generated
+                    for h in runs[a]["handles"])
+        # each request's first token in both runs, and the top-2 margin of
+        # the first-token row it was picked from in each
+        firsts = {}
+        for h in runs[a]["handles"]:
+            hb = runs[b]["handles"][h.uid]
+            margin = lambda r: float((lambda t: t[0] - t[1])(r.float().topk(2).values))
+            firsts[h.uid] = (h.generated[0], hb.generated[0],
+                             margin(runs[a]["eng"].first_rows[h.uid]),
+                             margin(runs[b]["eng"].first_rows[h.uid]))
+        result["gaps"][f"{a} vs {b}"] = {
+            "rows": len(gaps), "failed": sum(not g["ok"] for g in gaps),
+            "streams_equal": agree, "first_tokens": firsts, "worst": {u: (g["delta"], g["atol"], g["row"], g["cascade"])
+                                              for u, g in sorted(per_uid.items())}}
+        print(f"  logits {a} vs {b}: {len(gaps)} rows, {sum(not g['ok'] for g in gaps)} out "
+              f"of tolerance; worst per request (gap, allowed atol, row, cascade): "
+              + "; ".join(f"{u}: {g['delta']:.4f} / {g['atol']:.4f} row {g['row']}"
+                          f"{' cascade' if g['cascade'] else ''}" for u, g in
+                          sorted(per_uid.items())) + f"; streams equal {agree}; first tokens "
+              f"and their rows' top-2 margins (a, b): " + "; ".join(
+                  f"{u}: {t[0]}/{t[1]} {t[2]:.4f}/{t[3]:.4f}" for u, t in sorted(firsts.items())),
+              flush=True)
+    for a, b in [("lean", "lean unshared"), ("lean", "lean unshared whole pages"),
+                 ("lean", "lean unshared fresh scales"), ("ref", "ref unshared fresh scales"),
+                 ("ref", "ref unshared"), ("ref", "ref unshared whole pages"),
+                 ("lean unshared", "ref unshared"), ("bf16", "bf16 unshared")]:
+        per_uid = {}
+        for h in runs[a]["handles"]:
+            per_uid[h.uid] = page_diffs(torch, runs[a]["eng"].snaps[h.uid],
+                                        runs[b]["eng"].snaps[h.uid])
+        result["pages"][f"{a} vs {b}"] = per_uid
+        print(f"  system-prompt pages {a} vs {b}: " + "; ".join(
+            f"{u}: pages differing (layers x K/V) {d['pages']}, elements "
+            f"{d['elems']}, max step {d['max_step']:g}, scales {d['scales']} (max rel "
+            f"{d['max_scale_rel']:.3g}), first layer {d['first_layer']}"
+            for u, d in per_uid.items()), flush=True)
+    for name in ("lean", "lean unshared", "lean unshared whole pages"):
+        chunks = runs[name]["eng"].chunks
+        result["chunks"][name] = {u: c for u, c in sorted(chunks.items())}
+        split = {u: sum((o % 128 != 0 or (o + n) % 128 != 0) and o < SYSTEM_TOKENS
+                        for o, n in c) for u, c in sorted(chunks.items())}
+        print(f"  {name}: chunks per request (offset, length): " + "; ".join(
+            f"{u}: {c}" for u, c in sorted(chunks.items())) + f"; chunks inside the system "
+            f"prompt that split a page: {split}", flush=True)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", f"prefix_fault_{depth}.json"), "w") as f:
+        json.dump(result, f, indent=1, default=str)
+    print(json.dumps({"prefix_fault": result["gaps"]}, default=str), flush=True)
+    return result
 
 
 # ------------------------------------------------------------ int8 engine
@@ -3109,9 +3466,11 @@ ROW_BITS_CASES = ((128, 128), (200, 128), (16, 64), (12, 96))   # (page, d): one
 
 def row_kernel_outputs(torch, src: str, out: str):
     """The row-block kernels of the ``repro_torch`` under ``src`` -- K4's
-    partials, and K8 and K7 on the CUDA cores and on the tensor cores, as
-    the path rule picks -- on seeded inputs at pages that fit one tile
-    (float32 and bf16; K7 with and without a window), saved to ``out``."""
+    partials, the fused K4 (on int8 pages too where it runs on the tensor
+    cores), and K8 and K7 on the CUDA cores and on the tensor cores, as the
+    path rule picks -- on seeded inputs at pages that fit one tile (float32
+    and bf16; K7 with and without a window), saved to ``out``."""
+    from repro_torch.core.attention import quantize_kv_blocks
     from repro_torch.core.leantile import make_chunk_schedule
     from repro_torch.kernels import flash_prefill as fp
     from repro_torch.kernels import lean_prefill as lp
@@ -3141,10 +3500,16 @@ def row_kernel_outputs(torch, src: str, out: str):
             i32 = lambda xs: torch.tensor([x for x in xs for _ in range(Hkv)], dtype=torch.int32,
                                           device=dev)
             key = f"{dtype} page {page} d {d}"
-            res["K4 " + key] = [t.cpu() for t in lp.lean_prefill_chunk_partials(
-                q.reshape(len(offs) * Hkv, (Hq // Hkv) * C, d).contiguous(), k_rows, v_rows,
-                i32(visible), i32(offs), ops.paged_route(sched, tbl, Hkv), sched,
-                1 / math.sqrt(d), C)]
+            cargs = (q.reshape(len(offs) * Hkv, (Hq // Hkv) * C, d).contiguous(), k_rows, v_rows,
+                     i32(visible), i32(offs), ops.paged_route(sched, tbl, Hkv), sched,
+                     1 / math.sqrt(d), C)
+            res["K4 " + key] = [t.cpu() for t in lp.lean_prefill_chunk_partials(*cargs)]
+            res["fused K4 " + key] = lp.lean_prefill_fused(*cargs).cpu()
+            if fp.tensor_core_path(dtype, d, page):
+                (kq, ks), (vq, vs) = quantize_kv_blocks(kp), quantize_kv_blocks(vp)
+                kr8, vr8 = ops._pool_rows(kq, vq)
+                res["fused K4 int8 " + key] = lp.lean_prefill_fused(
+                    cargs[0], kr8, vr8, *cargs[3:], k_scales=ks, v_scales=vs).cpu()
             res["K8 " + key] = fp.flash_prefill_paged(
                 q, kp, vp, tbl, torch.tensor(offs, dtype=torch.int32, device=dev)).cpu()
             qd = torch.randn(1, Hq, 700, d, generator=gen, device=dev).to(dtype)
@@ -4060,7 +4425,7 @@ def arch_kernel_phase(torch, sm_count: int, dev_name: str) -> dict:
                    gpu_ms(lambda: ld.lean_cascade_fused_plain(*args5), reps=3), lib5, nb5, fl5,
                    e5, f"K5 {case}, lens {lens5}, {args5[0].shape[1]} stacked rows, against K2 "
                    f"unshared {e52:.2e}")
-        # K7: whole-prompt prefill (the CUDA cores at d 256)
+        # K7: whole-prompt prefill (the tensor cores, on 64-key tiles at d 256)
         cases = [("causal 3000", 3000, None)] + ([("window 1024", 3000, 1024)]
                                                  if arch == "gemma3-4b" else [])
         for label, L, window in cases:
@@ -4095,9 +4460,12 @@ def arch_kernel_phase(torch, sm_count: int, dev_name: str) -> dict:
             record(key, ms, plain_ms, lib_ms,
                    (qp.numel() + kp.numel() + vp.numel() + out.numel()) * elem, 4 * d * keys,
                    err, f"K7 {label} ({'tensor' if tc else 'CUDA'} cores)")
-        if arch not in ARCH_CHUNKED:
+        off_path = arch not in ARCH_CHUNKED
+        if off_path and d != 256:
             continue
-        # the fused K4 and K8: the chunk pack
+        # the fused K4 and K8: the chunk pack (at d 256 on the CUDA cores and
+        # on no engine path: gemma3 mixes in window layers, so its engine
+        # admits whole prompts by K7)
         C, offs = CHUNK, CHUNK_OFFS
         visible = [o + C for o in offs]
         csched = make_chunk_schedule(visible, Hkv, tile, sm_count, max_len=max(visible) + tile)
@@ -4117,8 +4485,9 @@ def arch_kernel_phase(torch, sm_count: int, dev_name: str) -> dict:
         o8 = fp.flash_prefill_paged(qc, kc, vc, tblc, q_off)
         o8_ref = fp.flash_prefill_paged_plain(qc, kc, vc, tblc, q_off, 1.0 / math.sqrt(d))
         torch.cuda.synchronize()
-        check((lp.fused_tc_launches, fp.tc_launches) == (1, 1),
-              f"fused K4 or K8 at {arch}'s geometry did not run on the tensor cores")
+        tc4 = fp.tensor_core_path(dt, d, tile)
+        check((lp.fused_tc_launches, fp.tc_launches) == (int(tc4), int(tc4)),
+              f"fused K4 or K8 at {arch}'s geometry did not follow the path rule")
         e4 = (o4.float() - o4_ref.float()).abs().max().item()
         e8 = (o8.float() - o8_ref.float()).abs().max().item()
         check(close_bf16(o4, o4_ref) and close_bf16(o8, o8_ref),
@@ -4142,7 +4511,9 @@ def arch_kernel_phase(torch, sm_count: int, dev_name: str) -> dict:
             if name == "flash_prefill_paged" and arch not in ARCH_FIXED:
                 continue                     # no fixed run of this geometry: held, not timed
             record((name, arch), gpu_ms(fn, reps=10), gpu_ms(plain, reps=2), lib_ms, nbytes,
-                   4 * d * keys, err, f"pack of {N} chunks of {C} at {list(offs)}")
+                   4 * d * keys, err, f"pack of {N} chunks of {C} at {list(offs)} "
+                   f"({'tensor' if tc4 else 'CUDA'} cores"
+                   + ("; no engine path launches it)" if off_path else ")"))
     return results
 
 
@@ -4608,8 +4979,8 @@ def qwen3_phase(torch, sm_count, smi: str, depth=None) -> dict:
 def gemma_phase(torch, sm_count, smi: str, depth=None) -> dict:
     """gemma3-4b at full width and depth (34 layers: 28 sliding-window of
     1024 keys, 6 global; d 256; vocab 262144): prompts of 16000, 3000 and
-    1200 tokens admitted by blocking whole-prompt prefill (K7 on the CUDA
-    cores at d 256; the rings wrap), decode on lean (K2 at d 256), fixed
+    1200 tokens admitted by blocking whole-prompt prefill (K7 on the tensor
+    cores at d 256, 64-key tiles; the rings wrap), decode on lean (K2 at d 256), fixed
     (K6) and ref, streams against ref; the lean engine's captured steps bit
     for bit against eager. Returns launches per kernel of the lean run."""
     from repro_torch.configs import get_config
@@ -4634,9 +5005,11 @@ def gemma_phase(torch, sm_count, smi: str, depth=None) -> dict:
                                    ARCH_NEW_TOKENS, False, cache_len)
         streams, eng, counts = runs[backend]
         ticks = len(eng.tick_s)
-        check(counts["K7"] == cfg.n_layers * len(prompts) and fp.dense_tc_launches == 0,
+        check(counts["K7"] == cfg.n_layers * len(prompts)
+              and fp.dense_tc_launches == fp.dense_launches == counts["K7"],
               f"gemma {backend}: K7 launched {counts['K7']} times ({fp.dense_tc_launches} on "
-              f"the tensor cores), expected {cfg.n_layers} x {len(prompts)} on the CUDA cores")
+              f"the tensor cores), expected {cfg.n_layers} x {len(prompts)}, all on the "
+              f"tensor cores")
         decode = {"lean": "K2", "fixed": "K6", "ref": None}[backend]
         if decode:
             check(counts[decode] == n_attn * ticks and ticks > 0,
@@ -4647,8 +5020,8 @@ def gemma_phase(torch, sm_count, smi: str, depth=None) -> dict:
         div = ([] if backend == "ref" else
                arch_streams(f"gemma {backend}", streams, eng, runs["ref"][0], runs["ref"][1]))
         ring = (f", {ld.fused_ring_launches} on the decode ring" if backend == "lean" else "")
-        print(f"  {backend}: admissions {eng.stats.prefills} (K7 {counts['K7']} on the CUDA "
-              f"cores; ms by prompt tokens: "
+        print(f"  {backend}: admissions {eng.stats.prefills} (K7 {counts['K7']}, "
+              f"{fp.dense_tc_launches} on the tensor cores; ms by prompt tokens: "
               + ", ".join(f"{n} {t * 1e3:.1f}" for n, t in eng.admit_s)
               + f"), decode {decode or 'plain oracle'} {counts.get(decode, 0) if decode else ''}"
               f"{ring}; tick p50 {statistics.median(eng.tick_s) * 1e3:.2f} ms; captures "
@@ -4812,6 +5185,18 @@ def main() -> int:
             sweep_phase(torch, sm_count, smi)
         clock("done")
         return 0
+    if sys.argv[1:2] == ["--prefix-step"]:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+        smi = nvidia_smi_line()
+        try:   # the engine's kernels load even where another source failed
+            print(f"device: {smi}; build {build.build():.1f} s", flush=True)
+        except RuntimeError as exc:
+            print(f"device: {smi}; build failed: {str(exc)[:4000]}", flush=True)
+        depth = int(sys.argv[2]) if len(sys.argv) > 2 else 24
+        prefix_fault_phase(torch, sm_count, smi, depth)
+        clock("done")
+        return 0
     alone = {"--captured-step", "--chunk-step", "--spec-step", "--admission-step", "--obs-step",
              "--guards-step"}
     if sys.argv[1:2] and sys.argv[1] in alone:
@@ -4860,9 +5245,12 @@ def main() -> int:
                 print(f"  ptxas {source}: {line.strip()}")
     tc_lines = (tc_ptxas_lines(build.ptxas_report("flash_prefill.cu"))
                 + tc_ptxas_lines(build.ptxas_report("lean_prefill_tc.cu")))
-    check(len(tc_lines) == 8, f"ptxas reported {len(tc_lines)} tensor-core kernels, expected 8")
+    check(len(tc_lines) == 9, f"ptxas reported {len(tc_lines)} tensor-core kernels, expected 9")
     for kernel, regs, spill in tc_lines:
         print(f"  ptxas tensor-core {kernel}: {regs}; {spill}", flush=True)
+        # the d-256 row block's register plan (O split by columns) leaves no spill
+        check(not kernel.startswith("row_block_kernel<256") or
+              " 0 bytes spill stores" in f" {spill}", f"ptxas spills in {kernel}: {spill}")
 
     clock("kernel phases")
     # 3. kernels

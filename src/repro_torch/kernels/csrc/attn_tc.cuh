@@ -7,10 +7,10 @@
 // (batch row, KV head): the folded (g, L) rows of q's own memory. Warpgroup 0
 // is the producer: one thread issues every copy (Q once, then each key tile's
 // K and V) with cp.async.bulk.tensor into 128-byte swizzled shared memory,
-// completing on mbarriers, through a ring of kStages = 2 tiles of kKeys = 128
-// keys; setmaxnreg gives its registers to the consumers. Warpgroups 1 and 2
-// each own 64 of the rows and, per tile:
-//   S = Q . K^T      wgmma m64n128k16, Q and K from shared memory (K-major),
+// completing on mbarriers, through a ring of kStages = 2 tiles of KT keys;
+// setmaxnreg gives its registers to the consumers. Warpgroups 1 and 2 each
+// own 64 of the rows and, per tile:
+//   S = Q . K^T      wgmma m64nKTk16, Q and K from shared memory (K-major),
 //                    float32 accumulators in registers;
 //   mask, softmax    in registers, and the mask only on tiles that cross a
 //                    row's [lo, hi) limits: the online-softmax update of
@@ -23,6 +23,17 @@
 //                    through the tensor cores into the same float32
 //                    accumulator, so p keeps about 16 significant bits where
 //                    one bf16 copy keeps 8 (the reference keeps p in float32).
+// Head dim 256 (col_split): the CTA serves 64 rows, and the two consumer
+// warpgroups split O by columns -- each computes S and P for all 64 rows
+// (the same values: QK^T is done twice) and O += P . V for its 128 of the
+// 256 columns. A thread then holds O in 64 float32 registers, S for a
+// 64-key tile (key_tile) in 32 and P's halves in 32, as at head dim 128:
+// ptxas gives each of the block's 384 threads 168 registers, and O's 256
+// columns a thread (128 float32) beside S and P spilled. Q
+// (32 KB) and two stages of 64-key K and V tiles (4 x 32 KB) take 160
+// KB of shared memory, where 128 rows and 128-key tiles would take 320 KB
+// of a block's 227 KB.
+//
 // Keys no row of the CTA sees (past the causal limit, before the window,
 // slots of a tile that hold no key) have their V rows zeroed in shared
 // memory before P . V, so they add nothing, not even 0 * NaN. The flush
@@ -56,16 +67,34 @@ namespace attn_tc {
 
 constexpr int kRows = 128;          // query rows of a CTA
 constexpr int kWgRows = 64;         // rows of one consumer warpgroup
-constexpr int kKeys = 128;          // keys of a tile
+constexpr int kKeys = 128;          // keys of a tile at head dim 64 and 128
 constexpr int kThreads = 384;       // producer warpgroup + two consumer warpgroups
 constexpr int kStages = 2;          // K/V tiles in flight
 constexpr int kPanelBytes = 128 * 128;   // 128 rows of a 64-column bf16 panel
 constexpr float kNegInf = -1e30f;   // finite start of the running max, as the reference
 
-// Dynamic shared memory of the kernel for head dim d (64 or 128): Q, then
-// the K ring, then the V ring, each d / 64 panels wide, plus alignment.
+// Head dim 256: the consumers split O by columns over 64 rows a CTA.
+template <int D>
+__host__ __device__ constexpr bool col_split() {
+  return D == 256;
+}
+
+// Query rows of a CTA, and keys of a tile, of the row block at head dim D.
+template <int D>
+__host__ __device__ constexpr int cta_rows() {
+  return col_split<D>() ? kWgRows : kRows;
+}
+template <int D>
+__host__ __device__ constexpr int key_tile() {
+  return col_split<D>() ? 64 : kKeys;
+}
+
+// Dynamic shared memory of the kernel for head dim d (64, 128 or 256): Q
+// (cta_rows rows), then the K ring, then the V ring (key_tile rows a tile),
+// each d / 64 panels wide, plus alignment: 160 KB at d 128 and at d 256.
 inline size_t smem_bytes(int d) {
-  return (size_t)(d / 64) * kPanelBytes * (1 + 2 * kStages) + 1024;
+  const int rows = d == 256 ? cta_rows<256>() : kRows, kt = d == 256 ? key_tile<256>() : kKeys;
+  return (size_t)(d / 64) * 128 * (rows + 2 * kStages * kt) + 1024;
 }
 
 // Positions (r % L) of the rows [r0, r0 + n), n > 0: their least and
@@ -173,6 +202,32 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// S (+)= A . B, both from shared memory (K-major): m64n64k16, bf16 -> float32
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// S (+)= Q . K^T over one key tile of KT keys
+template <int KT>
+__device__ __forceinline__ void wgmma_qk(float (&s)[KT / 2], uint64_t da, uint64_t db, int scale_d) {
+  if constexpr (KT == 128) {
+    wgmma_ss_n128(s, da, db, scale_d);
+  } else {
+    wgmma_ss_n64(s, da, db, scale_d);
+  }
+}
+
 // D += A . B, A (bf16 fragments) from registers, B from shared memory (MN-major):
 // m64n128k16, bf16 -> float32
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], uint32_t a0, uint32_t a1, uint32_t a2,
@@ -216,13 +271,16 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], uint32_t a0, uint32
 }
 
 
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint64_t db) {
-  if constexpr (D == 128) {
-    wgmma_rs_n128(o, a0, a1, a2, a3, db);
+// O += P . V for one k-step of 16 keys whose V rows start at vrow, over DO
+// columns (64 or 128); the 64-column panels of a V tile lie vpanel bytes
+// apart.
+template <int DO>
+__device__ __forceinline__ void wgmma_pv(float (&o)[DO / 2], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t vrow, uint32_t vpanel) {
+  if constexpr (DO == 128) {
+    wgmma_rs_n128(o, a0, a1, a2, a3, sw128_desc(vrow, vpanel, 1024));
   } else {
-    wgmma_rs_n64(o, a0, a1, a2, a3, db);
+    wgmma_rs_n64(o, a0, a1, a2, a3, sw128_desc(vrow, vpanel, 1024));
   }
 }
 
@@ -231,11 +289,11 @@ __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
 }
 
 // -------------------------------------------------------------- producer
-template <int D, class Walk>
+template <int D, int KT, class Walk>
 __device__ __forceinline__ void produce(const Walk& w, uint32_t q_s, uint32_t k_s, uint32_t v_s,
                                         uint32_t bar0, const CUtensorMap* qmap,
                                         const CUtensorMap* kmap, const CUtensorMap* vmap) {
-  constexpr uint32_t kTile = (D / 64) * kPanelBytes;
+  constexpr uint32_t kTile = (D / 64) * KT * 128;
   w.load_q(q_s, bar0, qmap);
   for (int t = 0; t < w.ntiles; ++t) {
     const int s = t % kStages;
@@ -246,8 +304,10 @@ __device__ __forceinline__ void produce(const Walk& w, uint32_t q_s, uint32_t k_
 }
 
 // -------------------------------------------------------------- consumer
-// One key tile of a consumer warpgroup's 64 rows: S = Q . K^T, the mask,
-// the online-softmax update of (o, m, l) and O += P . V, for the tile in
+// One key tile (KT keys) of a consumer warpgroup's 64 rows: S = Q . K^T, the mask,
+// the online-softmax update of (o, m, l) and O += P . V over DO of the D
+// columns (D; or, under col_split, consumer c's half: the V panels from
+// c * DO / 64 on, and Q in panels of 64 rows), for the tile in
 // ring stage (kt, vt) whose K and V complete on kbar / vbar at parity par.
 // Slot j < nv of the tile holds key kb + j; this thread's rows rA, rA + 8
 // see the keys [lo[i], hi[i]); every row of the warpgroup sees [wg_lo,
@@ -255,42 +315,48 @@ __device__ __forceinline__ void produce(const Walk& w, uint32_t q_s, uint32_t k_
 // V rows are zeroed. kScaled (int8 K/V converted to bf16 as they are): the
 // scores are multiplied by k_scale before the mask and the base-2 scale,
 // and P by v_scale before its bf16 split; l sums the unscaled p.
-template <int D, bool kScaled>
-__device__ __forceinline__ void tile_update(float (&o)[D / 2], float (&m)[2], float (&l)[2],
+template <int D, bool kScaled, int KT = kKeys, int DO = D>
+__device__ __forceinline__ void tile_update(float (&o)[DO / 2], float (&m)[2], float (&l)[2],
                                             uint32_t q_wg, uint32_t kt, uint32_t vt,
                                             uint32_t kbar, uint32_t vbar, uint32_t par, int kb,
                                             int nv, const int (&lo)[2], const int (&hi)[2],
                                             int wg_lo, int wg_hi, int cta_lo, int cta_hi,
                                             float scale_log2, float k_scale, float v_scale) {
-  constexpr int P = D / 64;
-  constexpr int kO = D / 2;
+  constexpr bool kSplit = DO != D;
+  constexpr int P = DO / 64;                 // V panels this warpgroup reads
+  constexpr int kO = DO / 2;
+  constexpr int kS = KT / 2;                 // S accumulators per thread
+  constexpr int kNb = KT / 8;                // 8-key column blocks of S
+  constexpr uint32_t kVPanel = KT * 128;     // bytes of a 64-column panel of a K/V tile
+  constexpr uint32_t kQPanel = (kSplit ? kWgRows : kRows) * 128;   // of Q
   const int c = threadIdx.x / 128 - 1;
   const int tid = threadIdx.x % 128, lane = tid % 32;
 
   // S = Q . K^T
-  float sc[64];
+  float sc[kS];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+  for (int i = 0; i < kS; ++i) sc[i] = 0.f;
   mbar_wait(kbar, par);
   wg_fence();
   fence_regs(sc);
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t off = (kk / 4) * kPanelBytes + (kk % 4) * 32;
-    wgmma_ss_n128(sc, sw128_desc(q_wg + off, 16, 1024), sw128_desc(kt + off, 16, 1024), kk > 0);
+    const uint32_t col = (kk % 4) * 32;
+    wgmma_qk<KT>(sc, sw128_desc(q_wg + (kk / 4) * kQPanel + col, 16, 1024),
+                 sw128_desc(kt + (kk / 4) * kVPanel + col, 16, 1024), kk > 0);
   }
   wg_commit();
   wg_wait_all();
   fence_regs(sc);
   if constexpr (kScaled) {
 #pragma unroll
-    for (int i = 0; i < 64; ++i) sc[i] *= k_scale;
+    for (int i = 0; i < kS; ++i) sc[i] *= k_scale;
   }
 
   // mask, only on tiles that cross a limit of some row of this warpgroup
-  if (!(nv == kKeys && kb >= wg_lo && kb + kKeys <= wg_hi)) {
+  if (!(nv == KT && kb >= wg_lo && kb + KT <= wg_hi)) {
 #pragma unroll
-    for (int nb = 0; nb < 16; ++nb)
+    for (int nb = 0; nb < kNb; ++nb)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int j = nb * 8 + (lane % 4) * 2 + (e & 1), i = e >> 1;
@@ -305,7 +371,7 @@ __device__ __forceinline__ void tile_update(float (&o)[D / 2], float (&m)[2], fl
   for (int i = 0; i < 2; ++i) {
     float mx = __int_as_float(0xff800000);
 #pragma unroll
-    for (int nb = 0; nb < 16; ++nb) mx = fmaxf(mx, fmaxf(sc[nb * 4 + 2 * i], sc[nb * 4 + 2 * i + 1]));
+    for (int nb = 0; nb < kNb; ++nb) mx = fmaxf(mx, fmaxf(sc[nb * 4 + 2 * i], sc[nb * 4 + 2 * i + 1]));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
     const float m_new = fmaxf(m[i], mx * scale_log2);
@@ -314,10 +380,10 @@ __device__ __forceinline__ void tile_update(float (&o)[D / 2], float (&m)[2], fl
   }
   // P split into bf16 halves, laid out as wgmma A fragments: k-step ks
   // (keys 16 ks .. 16 ks + 15) is registers 4 ks .. 4 ks + 3
-  uint32_t ph[32], pl[32];
+  uint32_t ph[KT / 4], pl[KT / 4];
   float rsum[2] = {0.f, 0.f};
 #pragma unroll
-  for (int nb = 0; nb < 16; ++nb) {
+  for (int nb = 0; nb < kNb; ++nb) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       float p0 = exp2f(fmaf(sc[nb * 4 + 2 * i], scale_log2, -m[i]));
@@ -341,14 +407,15 @@ __device__ __forceinline__ void tile_update(float (&o)[D / 2], float (&m)[2], fl
 
   // V: zero the rows of keys no row of the CTA sees, then O += P . V
   mbar_wait(vbar, par);
+  if constexpr (kSplit) vt += c * P * kVPanel;
   const int jlo = min(max(cta_lo - kb, 0), nv), jhi = min(max(cta_hi - kb, 0), nv);
-  if (jlo > 0 || jhi < kKeys) {
-    const int nz = jlo + (kKeys - jhi);
+  if (jlo > 0 || jhi < KT) {
+    const int nz = jlo + (KT - jhi);
     for (int e = tid; e < nz * P * 8; e += 128) {
       const int chunk = e % 8, rp = e / 8, p = rp % P, zr = rp / P;
       const int row = zr < jlo ? zr : jhi + (zr - jlo);
       asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(
-                       vt + p * kPanelBytes + row * 128 + chunk * 16),
+                       vt + p * kVPanel + row * 128 + chunk * 16),
                    "r"(0), "r"(0), "r"(0), "r"(0)
                    : "memory");
     }
@@ -358,44 +425,48 @@ __device__ __forceinline__ void tile_update(float (&o)[D / 2], float (&m)[2], fl
   wg_fence();
   fence_regs(o);
 #pragma unroll
-  for (int ks = 0; ks < kKeys / 16; ++ks)
-    wgmma_pv<D>(o, ph[4 * ks], ph[4 * ks + 1], ph[4 * ks + 2], ph[4 * ks + 3],
-                sw128_desc(vt + ks * 16 * 128, kPanelBytes, 1024));
+  for (int ks = 0; ks < KT / 16; ++ks)
+    wgmma_pv<DO>(o, ph[4 * ks], ph[4 * ks + 1], ph[4 * ks + 2], ph[4 * ks + 3],
+                 vt + ks * 16 * 128, kVPanel);
 #pragma unroll
-  for (int ks = 0; ks < kKeys / 16; ++ks)
-    wgmma_pv<D>(o, pl[4 * ks], pl[4 * ks + 1], pl[4 * ks + 2], pl[4 * ks + 3],
-                sw128_desc(vt + ks * 16 * 128, kPanelBytes, 1024));
+  for (int ks = 0; ks < KT / 16; ++ks)
+    wgmma_pv<DO>(o, pl[4 * ks], pl[4 * ks + 1], pl[4 * ks + 2], pl[4 * ks + 3],
+                 vt + ks * 16 * 128, kVPanel);
   wg_commit();
   wg_wait_all();
   fence_regs(o);
 }
 
-template <int D, class Walk>
+template <int D, int KT, class Walk>
 __device__ __forceinline__ void consume(const Walk& w, uint32_t q_s, uint32_t k_s, uint32_t v_s,
                                         uint32_t bar0, float scale_log2) {
-  constexpr uint32_t kTile = (D / 64) * kPanelBytes;
-  constexpr int kO = D / 2;                 // output accumulators per thread
+  constexpr uint32_t kTile = (D / 64) * KT * 128;
+  constexpr bool kSplit = col_split<D>();
+  constexpr int DO = kSplit ? D / 2 : D;    // output columns of this warpgroup
+  constexpr int kO = DO / 2;                // output accumulators per thread
   const int c = threadIdx.x / 128 - 1;      // consumer 0 or 1
   const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int wg = kSplit ? 0 : c;            // this warpgroup's 64 rows of the CTA
   // this thread's rows of the CTA: rA and rA + 8 (the wgmma fragment layout)
-  const int rA = c * kWgRows + warp * 16 + lane / 4;
+  const int rA = wg * kWgRows + warp * 16 + lane / 4;
   int lo[2], hi[2];
   w.row_limits(rA, lo[0], hi[0]);
   w.row_limits(rA + 8, lo[1], hi[1]);
   int wg_lo, wg_hi;
-  w.wg_limits(c, wg_lo, wg_hi);
+  w.wg_limits(wg, wg_lo, wg_hi);
   float o[kO];
 #pragma unroll
   for (int i = 0; i < kO; ++i) o[i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};   // m in units of log2
-  const uint32_t q_wg = q_s + c * kWgRows * 128;
+  const uint32_t q_wg = q_s + wg * kWgRows * 128;
   mbar_wait(bar0, 0);
 
   for (int t = 0; t < w.ntiles; ++t) {
     const int s = t % kStages;
-    tile_update<D, false>(o, m, l, q_wg, k_s + s * kTile, v_s + s * kTile, bar0 + 8 * (1 + s),
-                          bar0 + 8 * (3 + s), (t / kStages) & 1, w.kbase(t), w.nvalid(t), lo,
-                          hi, wg_lo, wg_hi, w.cta_lo, w.cta_hi, scale_log2, 1.f, 1.f);
+    tile_update<D, false, KT, DO>(o, m, l, q_wg, k_s + s * kTile, v_s + s * kTile,
+                                  bar0 + 8 * (1 + s), bar0 + 8 * (3 + s), (t / kStages) & 1,
+                                  w.kbase(t), w.nvalid(t), lo, hi, wg_lo, wg_hi, w.cta_lo,
+                                  w.cta_hi, scale_log2, 1.f, 1.f);
     __syncwarp();
     if (lane == 0) mbar_arrive(bar0 + 8 * (5 + s));   // this warp is done with the stage
   }
@@ -411,9 +482,9 @@ __device__ __forceinline__ void consume(const Walk& w, uint32_t q_s, uint32_t k_
   for (int i = 0; i < 2; ++i) {
     const int r = rA + 8 * i;
     if (r < w.nrows) {
-      __nv_bfloat16* dst = w.out + (size_t)r * D + (lane % 4) * 2;
+      __nv_bfloat16* dst = w.out + (size_t)r * D + (kSplit ? c * DO : 0) + (lane % 4) * 2;
 #pragma unroll
-      for (int nb = 0; nb < D / 8; ++nb)
+      for (int nb = 0; nb < DO / 8; ++nb)
         *reinterpret_cast<__nv_bfloat162*>(dst + nb * 8) =
             __floats2bfloat162_rn(o[nb * 4 + 2 * i] / l[i], o[nb * 4 + 2 * i + 1] / l[i]);
     }
@@ -471,18 +542,20 @@ inline int encode_rows(CUtensorMap* map, const void* base, int d, long long n_ro
 }
 
 // ------------------------------------------------------------------ kernel
-template <int D, class Walk>
+template <int D, int KT, class Walk>
 __global__ void __launch_bounds__(kThreads, 1)
     row_block_kernel(const __grid_constant__ CUtensorMap qmap,
                      const __grid_constant__ CUtensorMap kmap,
                      const __grid_constant__ CUtensorMap vmap, const typename Walk::Args a) {
-  static_assert(D == 64 || D == 128, "head dim 64 or 128");
+  static_assert(KT == key_tile<D>() && Walk::kRowsCta == cta_rows<D>() &&
+                    (D == 64 || D == 128 || D == 256),
+                "head dim 64 or 128 with 128 rows and 128-key tiles, 256 with 64 and 64");
   extern __shared__ uint8_t smem_raw[];
   // barriers: Q, K full [2], V full [2], stage empty [2]
   __shared__ __align__(8) uint64_t bars[1 + 3 * kStages];
-  constexpr uint32_t kTile = (D / 64) * kPanelBytes;
+  constexpr uint32_t kTile = (D / 64) * KT * 128;
   const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t k_s = q_s + kTile;
+  const uint32_t k_s = q_s + (D / 64) * cta_rows<D>() * 128;
   const uint32_t v_s = k_s + kStages * kTile;
   const uint32_t bar0 = smem_u32(bars);
   const Walk w(a);
@@ -498,10 +571,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncthreads();
   if (threadIdx.x < 128) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
-    if (threadIdx.x == 0) produce<D>(w, q_s, k_s, v_s, bar0, &qmap, &kmap, &vmap);
+    if (threadIdx.x == 0) produce<D, KT>(w, q_s, k_s, v_s, bar0, &qmap, &kmap, &vmap);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
-    consume<D>(w, q_s, k_s, v_s, bar0, a.scale_log2);
+    consume<D, KT>(w, q_s, k_s, v_s, bar0, a.scale_log2);
   }
 }
 

@@ -28,17 +28,21 @@
 //
 // What bounds them on this card: operations. At the main path's shapes (K7:
 // Hq 32, Hkv 8, d 128, a 3000-token causal prompt, 73.7 GFLOP against 61 MB
-// of bf16 q, k, v and o; K8: a 256-token chunk over a 2048-token prefix) the
-// flops outweigh the bytes by far more than the card's ridge point, so the
-// tensor cores are the resource.
+// of bf16 q, k, v and o, and the same at gemma-3's Hq 16, Hkv 4, d 256;
+// K8: a 256-token chunk over a 2048-token prefix) the flops outweigh the
+// bytes by far more than the card's ridge point, so the tensor cores are
+// the resource.
 //
 // Design. The g query heads of a KV head are folded into one CTA's rows:
 // rows = g * L, flattened (g, L) position-minor -- q's own memory layout --
 // so a K/V tile is read once per row block instead of once per query head.
 // Two kernels per entry point:
-//   * bf16 at d 64 or 128: the tensor-core row-block kernel of attn_tc.cuh.
-//     A CTA of 128 rows, two consumer warpgroups of 64 rows and a producer;
-//     K/V tiles of 128 keys come in through TMA (3-D tensor maps encoded on
+//   * bf16 at d 64 or 128, and K7 also at d 256 (gemma-3's head dim): the
+//     tensor-core row-block kernel of attn_tc.cuh. A CTA of 128 rows, two
+//     consumer warpgroups of 64 rows and a producer (at d 256: 64 rows, the
+//     two warpgroups splitting O by columns, and K/V tiles of 64 keys --
+//     attn_tc.cuh says why); K/V tiles of 128 keys come in through TMA (3-D
+//     tensor maps encoded on
 //     the host for each launch: K7 over k/v (B*Hkv, Lk, d), so rows past Lk
 //     are zero-filled and never the next head's; K8 over the pool rows
 //     (num_pages*Hkv, page, d), one copy per page at row tbl[n, jb]*Hkv + h)
@@ -48,8 +52,9 @@
 //     holds to one bf16 step of the output. CTAs start in reverse row-block
 //     order: the causal blocks at the end of the prompt, which walk the
 //     most tiles, go first.
-//   * float32, bf16 at other d, and K8 on a page that is not a multiple of
-//     8 rows: the CUDA-core kernel, K4's row-block update
+//   * float32, bf16 at other d (K8 at d 256 too: no engine path launches
+//     it there), and K8 on a page that is not a multiple of 8 rows: the
+//     CUDA-core kernel, K4's row-block update
 //     (attn::rows_page_update, 64 rows a CTA, float32 tiles in shared
 //     memory; a tile or page too large for them walked in sub-tiles, any
 //     page size). Tensor cores on float32 would mean TF32, which breaks the
@@ -239,31 +244,37 @@ using attn_tc::kWgRows;
 using attn_tc::encode_rows;
 using attn_tc::pos_range;
 
-// K7: row block (num_rb - 1 - blockIdx.y) of (batch row x KV head) blockIdx.x.
+struct DenseTcArgs {
+  __nv_bfloat16* out;    // (B * n_kv, rows, d)
+  int d, rows, Lq, Lk, causal, window, q_offset, num_rb;
+  float scale_log2;      // scale * log2(e)
+};
+
+// K7 at head dim D: row block (num_rb - 1 - blockIdx.y) of kRowsCta rows of
+// (batch row x KV head) blockIdx.x, over key tiles of KT keys.
+template <int D>
 struct DenseWalk {
-  struct Args {
-    __nv_bfloat16* out;    // (B * n_kv, rows, d)
-    int d, rows, Lq, Lk, causal, window, q_offset, num_rb;
-    float scale_log2;      // scale * log2(e)
-  };
+  using Args = DenseTcArgs;
+  static constexpr int KT = attn_tc::key_tile<D>();
+  static constexpr int kRowsCta = attn_tc::cta_rows<D>();
   const Args a;
   int bh, row0, nrows, t0, ntiles, cta_lo, cta_hi;
   __nv_bfloat16* out;
 
   __device__ DenseWalk(const Args& args) : a(args) {
     bh = blockIdx.x;
-    row0 = (a.num_rb - 1 - (int)blockIdx.y) * kRows;
-    nrows = min(kRows, a.rows - row0);
+    row0 = (a.num_rb - 1 - (int)blockIdx.y) * kRowsCta;
+    nrows = min(kRowsCta, a.rows - row0);
     int pmin, pmax;
     pos_range(row0, nrows, a.Lq, pmin, pmax);
     cta_lo = a.window > 0 ? max(a.q_offset + pmin - a.window + 1, 0) : 0;
     cta_hi = a.causal ? min(max(a.q_offset + pmax + 1, 0), a.Lk) : a.Lk;
-    t0 = cta_lo / kKeys;
-    ntiles = cta_hi > cta_lo ? (cta_hi + kKeys - 1) / kKeys - t0 : 0;
+    t0 = cta_lo / KT;
+    ntiles = cta_hi > cta_lo ? (cta_hi + KT - 1) / KT - t0 : 0;
     out = a.out + ((size_t)bh * a.rows + row0) * a.d;
   }
-  __device__ int kbase(int t) const { return (t0 + t) * kKeys; }
-  __device__ int nvalid(int) const { return kKeys; }
+  __device__ int kbase(int t) const { return (t0 + t) * KT; }
+  __device__ int nvalid(int) const { return KT; }
   __device__ void limits(int qpos, int& lo, int& hi) const {
     hi = a.causal ? min(max(qpos + 1, 0), a.Lk) : a.Lk;
     lo = a.window > 0 ? max(qpos - a.window + 1, 0) : 0;
@@ -285,19 +296,21 @@ struct DenseWalk {
   }
   __device__ void load_q(uint32_t dst, uint32_t bar, const CUtensorMap* qmap) const {
     const int panels = a.d / 64;
-    attn_tc::mbar_expect_tx(bar, panels * kPanelBytes);
+    constexpr uint32_t kQPanel = kRowsCta * 128;   // a 64-column panel of Q
+    attn_tc::mbar_expect_tx(bar, panels * kQPanel);
     for (int p = 0; p < panels; ++p)
-      attn_tc::tma_load_3d(dst + p * kPanelBytes, qmap, bar, p * 64, row0, bh);
+      attn_tc::tma_load_3d(dst + p * kQPanel, qmap, bar, p * 64, row0, bh);
   }
   __device__ void load_tile(int t, uint32_t kdst, uint32_t vdst, uint32_t kbar, uint32_t vbar,
                             const CUtensorMap* kmap, const CUtensorMap* vmap) const {
     const int panels = a.d / 64;
-    attn_tc::mbar_expect_tx(kbar, panels * kPanelBytes);   // rows past Lk arrive as zeros
-    attn_tc::mbar_expect_tx(vbar, panels * kPanelBytes);
+    constexpr uint32_t kPanel = KT * 128;   // a 64-column panel of a tile
+    attn_tc::mbar_expect_tx(kbar, panels * kPanel);   // rows past Lk arrive as zeros
+    attn_tc::mbar_expect_tx(vbar, panels * kPanel);
     for (int p = 0; p < panels; ++p)
-      attn_tc::tma_load_3d(kdst + p * kPanelBytes, kmap, kbar, p * 64, kbase(t), bh);
+      attn_tc::tma_load_3d(kdst + p * kPanel, kmap, kbar, p * 64, kbase(t), bh);
     for (int p = 0; p < panels; ++p)
-      attn_tc::tma_load_3d(vdst + p * kPanelBytes, vmap, vbar, p * 64, kbase(t), bh);
+      attn_tc::tma_load_3d(vdst + p * kPanel, vmap, vbar, p * 64, kbase(t), bh);
   }
 };
 
@@ -305,6 +318,7 @@ struct DenseWalk {
 // A tile holds ppt whole pages (page <= 128) or 128 rows of one page
 // (page > 128, tpp tiles a page).
 struct PagedWalk {
+  static constexpr int kRowsCta = kRows;
   struct Args {
     const int* tbl;        // (N, W)
     const int* q_off;      // (N,)
@@ -397,7 +411,7 @@ struct PagedWalk {
 template <int D, class Walk>
 cudaError_t launch_tc(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
                       const typename Walk::Args& a, dim3 grid, cudaStream_t stream) {
-  auto kernel = attn_tc::row_block_kernel<D, Walk>;
+  auto kernel = attn_tc::row_block_kernel<D, attn_tc::key_tile<D>(), Walk>;
   const size_t smem = attn_tc::smem_bytes(D);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -406,12 +420,23 @@ cudaError_t launch_tc(const CUtensorMap& qm, const CUtensorMap& km, const CUtens
   return cudaGetLastError();
 }
 
-template <class Walk>
-int launch_tc_d(int d, const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
-                const typename Walk::Args& a, dim3 grid, cudaStream_t stream) {
+// K8: d 64 or 128, key tiles of 128
+int launch_paged_tc(int d, const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
+                    const PagedWalk::Args& a, dim3 grid, cudaStream_t stream) {
   switch (d) {
-    case 64: return (int)launch_tc<64, Walk>(qm, km, vm, a, grid, stream);
-    case 128: return (int)launch_tc<128, Walk>(qm, km, vm, a, grid, stream);
+    case 64: return (int)launch_tc<64, PagedWalk>(qm, km, vm, a, grid, stream);
+    case 128: return (int)launch_tc<128, PagedWalk>(qm, km, vm, a, grid, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K7: d 64 or 128 (128 rows a CTA, key tiles of 128), d 256 (64 rows, 64)
+int launch_dense_tc(int d, const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
+                    const DenseTcArgs& a, dim3 grid, cudaStream_t stream) {
+  switch (d) {
+    case 64: return (int)launch_tc<64, DenseWalk<64>>(qm, km, vm, a, grid, stream);
+    case 128: return (int)launch_tc<128, DenseWalk<128>>(qm, km, vm, a, grid, stream);
+    case 256: return (int)launch_tc<256, DenseWalk<256>>(qm, km, vm, a, grid, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -456,21 +481,24 @@ int flash_prefill_paged_launch(int dtype, const void* q, const void* k_rows, con
   }
 }
 
-// K7 on the tensor cores: bf16, d 64 or 128; q, k, v 16-byte aligned.
+// K7 on the tensor cores: bf16, d 64, 128 or 256; q, k, v 16-byte aligned.
 int flash_prefill_tc_launch(const void* q, const void* k, const void* v, void* out, int num_bh,
                             int rows, int Lq, int Lk, int d, int causal, int window, int q_offset,
                             float scale, void* stream) {
   if (num_bh <= 0 || rows <= 0 || Lq <= 0 || Lk <= 0 || rows % Lq) return (int)cudaErrorInvalidValue;
+  if (d != 64 && d != 128 && d != 256) return (int)cudaErrorInvalidValue;
+  const int kt = d == 256 ? attn_tc::key_tile<256>() : kKeys;
+  const int cta = d == 256 ? attn_tc::cta_rows<256>() : kRows;
   CUtensorMap qm, km, vm;
-  int err = encode_rows(&qm, q, d, rows, num_bh, kRows);
-  if (!err) err = encode_rows(&km, k, d, Lk, num_bh, kKeys);
-  if (!err) err = encode_rows(&vm, v, d, Lk, num_bh, kKeys);
+  int err = encode_rows(&qm, q, d, rows, num_bh, cta);
+  if (!err) err = encode_rows(&km, k, d, Lk, num_bh, kt);
+  if (!err) err = encode_rows(&vm, v, d, Lk, num_bh, kt);
   if (err) return err;
-  const int num_rb = (rows + kRows - 1) / kRows;
-  DenseWalk::Args a = {static_cast<__nv_bfloat16*>(out), d, rows, Lq, Lk, causal, window,
-                       q_offset, num_rb, scale * 1.4426950408889634f};
-  return launch_tc_d<DenseWalk>(d, qm, km, vm, a, dim3(num_bh, num_rb),
-                                static_cast<cudaStream_t>(stream));
+  const int num_rb = (rows + cta - 1) / cta;
+  DenseTcArgs a = {static_cast<__nv_bfloat16*>(out), d, rows, Lq, Lk, causal, window, q_offset,
+                   num_rb, scale * 1.4426950408889634f};
+  return launch_dense_tc(d, qm, km, vm, a, dim3(num_bh, num_rb),
+                         static_cast<cudaStream_t>(stream));
 }
 
 // K8 on the tensor cores: bf16, d 64 or 128, page a multiple of 8.
@@ -491,8 +519,8 @@ int flash_prefill_paged_tc_launch(const void* q, const void* k_rows, const void*
   PagedWalk::Args a = {tbl, q_off, static_cast<__nv_bfloat16*>(out), d, n_kv, W, rows,
                        chunk_cap, page, std::max(1, kKeys / page), (page + kKeys - 1) / kKeys, num_rb,
                        scale * 1.4426950408889634f};
-  return launch_tc_d<PagedWalk>(d, qm, km, vm, a, dim3(N * n_kv, num_rb),
-                                static_cast<cudaStream_t>(stream));
+  return launch_paged_tc(d, qm, km, vm, a, dim3(N * n_kv, num_rb),
+                         static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -26,13 +26,15 @@ Path rule (:func:`tensor_core_path`, a plain function of ``(dtype, d,
 page)``). On CUDA tensors each wrapper launches one of two kernels:
 
 * bf16 with ``d`` in {64, 128} (the main path: Mistral-NeMo-12B, d 128),
-  and for K8 a ``page`` that is a multiple of 8 (a page is a whole number
-  of 8-row swizzle atoms): the tensor-core row-block kernel
-  (``csrc/attn_tc.cuh``: wgmma for QK^T and PV, K/V tiles through TMA, 128
-  rows a CTA, P through PV as two bf16 halves). Both need their operands
-  16-byte aligned (TMA) and raise otherwise.
-* float32, bf16 at any other ``d``, and K8 on a page that is not a multiple
-  of 8 (the engine picks such a page itself for a short cache, ``min(
+  for K7 also ``d`` 256 (gemma-3's admission), and for K8 a ``page`` that
+  is a multiple of 8 (a page is a whole number of 8-row swizzle atoms): the
+  tensor-core row-block kernel (``csrc/attn_tc.cuh``: wgmma for QK^T and
+  PV, K/V tiles through TMA -- 128 keys, 64 at d 256 -- 128 rows a CTA, P
+  through PV as two bf16 halves). Both need their operands 16-byte aligned
+  (TMA) and raise otherwise.
+* float32, bf16 at any other ``d`` (K8 and the fused K4 at d 256 too, which
+  no engine path launches), and K8 on a page that is not a multiple of 8
+  (the engine picks such a page itself for a short cache, ``min(
   default_tile_size, max(8, cache_len))``): the CUDA-core kernel (float32
   tiles in shared memory, any page; a page too large for its shared memory
   is walked in sub-tiles). Tensor cores on float32 would mean TF32 and
@@ -59,7 +61,8 @@ from . import build
 from .lean_prefill import check_row_kernel
 
 SOURCE = "flash_prefill.cu"
-TC_HEAD_DIMS = (64, 128)     # head dims of the tensor-core kernel
+TC_HEAD_DIMS = (64, 128)     # head dims of the tensor-core kernels (K7, K8, the fused K4)
+TC_DENSE_HEAD_DIMS = (64, 128, 256)   # and of K7's (key tiles of 64 at d 256)
 TC_ALIGN = 16                # bytes: TMA's global address alignment
 
 # launch counters: +1 per kernel launch, nowhere else
@@ -76,17 +79,22 @@ def reset_launch_counts() -> None:
 
 def tensor_core_path(dtype: torch.dtype, d: int, page: Optional[int] = None) -> bool:
     """Whether the CUDA wrappers launch a tensor-core kernel: bf16 queries
-    with ``d`` in :data:`TC_HEAD_DIMS` and, for K8 and the fused K4
-    (``page`` given; None for K7), a page that is a multiple of 8 rows.
+    with, for K7 (``page`` None), ``d`` in :data:`TC_DENSE_HEAD_DIMS`, and
+    for K8 and the fused K4 (``page`` given), ``d`` in
+    :data:`TC_HEAD_DIMS` and a page that is a multiple of 8 rows.
     Everything else runs on the CUDA cores. The rule reads shapes and
     dtypes only."""
-    return (dtype == torch.bfloat16 and d in TC_HEAD_DIMS
-            and (page is None or page % 8 == 0))
+    if dtype != torch.bfloat16:
+        return False
+    if page is None:
+        return d in TC_DENSE_HEAD_DIMS
+    return d in TC_HEAD_DIMS and page % 8 == 0
 
 
 def check_tc(what: str, **tensors):
     """TMA reads global memory from 16-byte aligned addresses. (The kernel's
-    shared memory, 160 KB at d 128, fits every head dim the path takes.)"""
+    shared memory, 160 KB at d 128 and 192 KB at d 256, fits every head dim
+    the path takes.)"""
     for name, t in tensors.items():
         if t.data_ptr() % TC_ALIGN:
             raise ValueError(f"{what}: {name} must be {TC_ALIGN}-byte aligned for TMA")
@@ -288,8 +296,8 @@ def flash_prefill(
     plain version's); ``block_q`` is the plain version's query block -- the
     CUDA-core kernel takes row blocks of 64 of the ``g * Lq`` rows a KV head
     serves, the tensor-core kernel (:func:`tensor_core_path`) row blocks of
-    128 and key tiles of 128 of its own. Block sizes change which fully
-    masked blocks are skipped, never the result. Operands must be
+    128 and key tiles of 128 (64 at d 256) of its own. Block sizes change
+    which fully masked blocks are skipped, never the result. Operands must be
     contiguous on CUDA."""
     global dense_launches, dense_tc_launches
     B, Hq, Lq, d = q.shape

@@ -684,17 +684,24 @@ def test_k7_rows_that_see_no_key_and_refusals(cuda):
 
 
 # ------------------------------------------------ tensor-core K7 and K8
-# bf16 at d 64 and 128 runs on the tensor-core kernel (fp.tensor_core_path):
-# K7_CASES at both head dims, and (B, Hq, Hkv, Lq, Lk, d, causal, window,
-# q_offset) cases for its edges: rows that see no key (q_offset < 0), row
-# blocks that straddle two query heads (Lq not a multiple of 64), ragged
-# tails (Lk % 128 != 0), a window over several tiles
+# bf16 at d 64 and 128 runs on the tensor-core kernel (fp.tensor_core_path),
+# and so does K7 at d 256 (key tiles of 64): K7_CASES at the three head
+# dims, and (B, Hq, Hkv, Lq, Lk, d, causal, window, q_offset) cases for its
+# edges: rows that see no key (q_offset < 0), row blocks that straddle two
+# query heads (Lq not a multiple of 64), ragged tails (Lk not a multiple of
+# the key tile), a window over several tiles, a window narrower than one
 K7_TC_EDGES = [
     (1, 4, 1, 70, 50, 128, True, None, -20),
     (1, 4, 1, 100, 100, 128, True, None, 0),
     (1, 8, 2, 200, 300, 128, True, None, 100),
     (1, 8, 2, 200, 300, 64, False, None, 0),
     (1, 8, 2, 333, 333, 128, True, 100, 0),
+    (1, 4, 1, 70, 50, 256, True, None, -20),
+    (1, 4, 1, 100, 100, 256, True, None, 0),
+    (1, 8, 2, 200, 300, 256, True, None, 100),
+    (1, 8, 2, 200, 300, 256, False, None, 0),
+    (1, 8, 2, 333, 333, 256, True, 100, 0),
+    (1, 4, 2, 150, 150, 256, True, 40, 0),
 ]
 
 
@@ -716,23 +723,46 @@ def _k7_tc(cuda, B, Hq, Hkv, Lq, Lk, d, causal, window, q_offset, **blocks):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("case", K7_CASES)
 def test_k7_tensor_core_matches_plain(cuda, case, d):
     """The tensor-core K7 against the plain version on the reference's
-    prefill cases at both of its head dims; block sizes change nothing."""
+    prefill cases at its three head dims; block sizes change nothing."""
     B, Hq, Hkv, Lq, Lk, _, causal, window, block_kv = case
     _k7_tc(cuda, B, Hq, Hkv, Lq, Lk, d, causal, window, Lk - Lq if causal else 0,
            block_q=block_kv, block_kv=block_kv)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", K7_TC_EDGES)
+@pytest.mark.parametrize("case", K7_TC_EDGES,
+                         ids=[f"d{c[5]}-{c[3]}x{c[4]}-w{c[7]}-off{c[8]}" for c in K7_TC_EDGES])
 def test_k7_tensor_core_edges(cuda, case):
     out = _k7_tc(cuda, *case)
     q_offset = case[8]
     if q_offset < 0:   # rows before position 0 see no key and write 0
         assert not out[:, :, :-q_offset].float().any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,Lk", [(128, 300), (256, 300), (256, 100)])
+def test_k7_tensor_core_ignores_keys_past_lk(cuda, d, Lk):
+    """k and v the first Lk rows of buffers whose rows past Lk hold NaN:
+    the tile past Lk reads zeros (the tensor map ends at Lk), so the output
+    equals the one from zeros there, bit for bit, and is finite."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(d + Lk)
+    q = torch.randn(1, 4, Lk, d, generator=gen, device=cuda).bfloat16()
+    kb = torch.randn(1, 1, Lk + 128, d, generator=gen, device=cuda).bfloat16()
+    vb = torch.randn(1, 1, Lk + 128, d, generator=gen, device=cuda).bfloat16()
+    zero = fp.flash_prefill(q, kb[:, :, :Lk].clone(), vb[:, :, :Lk].clone())
+    kb[:, :, Lk:] = float("nan")
+    vb[:, :, Lk:] = float("nan")
+    k, v = kb[:, :, :Lk], vb[:, :, :Lk]
+    assert k.is_contiguous() and v.is_contiguous()
+    nan = fp.flash_prefill(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(zero, nan) and bool(torch.isfinite(nan).all())
+    assert _bf16_close(nan, fp.flash_prefill_plain(q, k, v))
 
 
 # (Hq, Hkv, d, page, offs, C): pages of 16, 128, 24 (not a divisor of the
@@ -779,11 +809,14 @@ def test_k8_tensor_core_ignores_rows_past_each_chunk(cuda, case):
 @pytest.mark.cuda
 def test_tensor_core_counters_follow_the_path_rule(cuda):
     """dense_launches / launches count every launch, dense_tc_launches /
-    tc_launches only bf16 at d 64 or 128."""
+    tc_launches only bf16 at d 64 or 128 -- and K7's also bf16 at d 256,
+    where K8 keeps the CUDA cores."""
     gen = torch.Generator(device=cuda)
     gen.manual_seed(0)
-    for dtype, d in ((torch.float32, 128), (torch.bfloat16, 32), (torch.bfloat16, 128)):
-        tc = fp.tensor_core_path(dtype, d, 16)
+    for dtype, d, tc7, tc8 in ((torch.float32, 128, 0, 0), (torch.bfloat16, 32, 0, 0),
+                               (torch.bfloat16, 128, 1, 1), (torch.bfloat16, 256, 1, 0),
+                               (torch.float32, 256, 0, 0)):
+        assert (fp.tensor_core_path(dtype, d), fp.tensor_core_path(dtype, d, 16)) == (tc7, tc8)
         q = torch.randn(1, 4, 40, d, generator=gen, device=cuda).to(dtype)
         k = torch.randn(1, 2, 40, d, generator=gen, device=cuda).to(dtype)
         fp.reset_launch_counts()
@@ -793,7 +826,7 @@ def test_tensor_core_counters_follow_the_path_rule(cuda):
                                                              device=cuda))
         torch.cuda.synchronize()
         assert (fp.dense_launches, fp.launches) == (1, 1)
-        assert (fp.dense_tc_launches, fp.tc_launches) == (int(tc), int(tc))
+        assert (fp.dense_tc_launches, fp.tc_launches) == (tc7, tc8)
 
 
 @pytest.mark.cuda
@@ -808,11 +841,14 @@ def test_tensor_core_refusals(cuda):
     torch.cuda.synchronize()
     assert (fp.launches, fp.tc_launches) == (1, 0)
     fp.reset_launch_counts()
-    k = torch.zeros(1, 2, 16, 128, dtype=torch.bfloat16, device=cuda)
-    flat = torch.zeros(1 + 4 * 16 * 128, dtype=torch.bfloat16, device=cuda)
-    q = flat[1:].view(1, 4, 16, 128)             # contiguous, 2 bytes off alignment
-    with pytest.raises(ValueError, match="aligned"):
-        fp.flash_prefill(q, k, k)
+    for d in (128, 256):
+        k = torch.zeros(1, 2, 16, d, dtype=torch.bfloat16, device=cuda)
+        flat = torch.zeros(1 + 4 * 16 * d, dtype=torch.bfloat16, device=cuda)
+        q = flat[1:].view(1, 4, 16, d)           # contiguous, 2 bytes off alignment
+        with pytest.raises(ValueError, match="aligned"):
+            fp.flash_prefill(q, k, k)
+        with pytest.raises(ValueError, match="aligned"):
+            fp.flash_prefill(k.repeat(1, 2, 1, 1), q[:, :2], q[:, 2:])
     assert (fp.dense_launches, fp.launches) == (0, 0)
 
 
@@ -1243,8 +1279,9 @@ def test_chunk_kernels_at_arch_geometries(cuda, Hq, Hkv, d):
         assert _bf16_close(o8[n, :, :L], ref[n, :, :L])
 
 
-# K7 at gemma3's sliding window (d 256: the CUDA cores), llama-3.2-vision's
-# cross attention (non-causal, 1601 image rows) and musicgen's heads
+# K7 at gemma3's sliding window and global layers (d 256: the tensor cores
+# in bf16, on 64-key tiles), llama-3.2-vision's cross attention (non-causal,
+# 1601 image rows) and musicgen's heads; float32 keeps the CUDA cores
 ARCH_K7 = [(1, 16, 4, 1500, 1500, 256, True, 1024), (1, 16, 4, 700, 700, 256, True, None),
            (1, 32, 8, 37, 1601, 128, False, None), (1, 32, 32, 300, 300, 64, True, None)]
 
@@ -1260,9 +1297,11 @@ def test_k7_at_arch_geometries(cuda, case, dtype):
     q = torch.randn(B, Hq, Lq, d, generator=gen, device=cuda).to(dt)
     k = torch.randn(B, Hkv, Lk, d, generator=gen, device=cuda).to(dt)
     v = torch.randn(B, Hkv, Lk, d, generator=gen, device=cuda).to(dt)
+    fp.reset_launch_counts()
     out = fp.flash_prefill(q, k, v, causal=causal, window=window)
     ref = fp.flash_prefill_plain(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
+    assert (fp.dense_launches, fp.dense_tc_launches) == (1, int(dtype == "bfloat16"))
     if dtype == "float32":
         torch.testing.assert_close(out, ref, **TOL)
     else:

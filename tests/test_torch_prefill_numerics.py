@@ -2,7 +2,8 @@
 emulated on the CPU, and the wrappers' path rule.
 
 The kernel takes bf16 q, k, v; QK^T runs on the tensor cores into float32,
-the online softmax runs in float32 in base 2 over key tiles of 128, and P
+the online softmax runs in float32 in base 2 over key tiles of 128 (64 for
+K7 at head dim 256, ``attn_tc::key_tile``), and P
 goes through PV as two bf16 halves, ``p_hi = bf16(p)`` and ``p_lo = bf16(p -
 p_hi)``, into one float32 accumulator; the output is rounded to bf16 once.
 :func:`emulate` does the same in float32 PyTorch. It is held, over the
@@ -14,10 +15,11 @@ output (2**-7 of |ref|) plus 2e-5.
 
 Measured on these inputs (largest |out - ref| as a share of the bound,
 against the JAX kernel): the split lands at 0.81-0.95 of it on the K7 cases
-and 0.49-0.97 on the K8 packs -- a rounding flip of one bf16 step, which
-stays below 1 by construction (one bf16 step of x is at most 2**-7 |x|).
-A single bf16 copy of P (8 significant bits instead of about 16) lands at
-16-63x the bound on the K7 cases and 28-37x on the K8 packs, so it would
+at d 64 and 128, 0.95-0.98 on those at d 256 (64-key tiles), and 0.49-0.97
+on the K8 packs -- a rounding flip of one bf16 step, which stays below 1 by
+construction (one bf16 step of x is at most 2**-7 |x|). A single bf16 copy
+of P (8 significant bits instead of about 16) lands at 16-63x the bound on
+the K7 cases and 28-37x on the K8 packs, so it would
 fail the unchanged checks; ``test_single_bf16_p_misses_the_bound`` keeps
 that finding true.
 """
@@ -37,8 +39,13 @@ from repro_torch.kernels import flash_prefill as tfp  # noqa: E402
 
 BF16_STEP = 2.0 ** -7
 ATOL = 2e-5
-TILE = 128                  # the kernel's key tile
+TILE = 128                  # the kernel's key tile at d 64 and 128
 LOG2E = 1.4426950408889634
+
+
+def _tile(d):
+    """The key tile of the row block at head dim d (attn_tc::key_tile)."""
+    return 64 if d == 256 else TILE
 
 # the reference's PREFILL_CASES (tests/test_kernels.py:130-136) at the
 # tensor-core head dims, a block straddling two query heads (Lq 100, g 4),
@@ -52,6 +59,14 @@ K7_CASES = [
     (1, 8, 2, 100, 300, 128, True, None, 200),
     (1, 4, 1, 70, 50, 128, True, None, -20),
     (1, 4, 2, 300, 300, 64, True, 160, 0),
+    # d 256 on 64-key tiles (gemma-3's head dim): causal; a window spanning
+    # several tiles; a query offset; GQA g 4 with a row block straddling two
+    # query heads (g Lq = 4 x 70 rows); a window narrower than one tile
+    (1, 2, 1, 130, 130, 256, True, None, 0),
+    (1, 2, 1, 200, 200, 256, True, 100, 0),
+    (1, 2, 1, 60, 190, 256, True, None, 130),
+    (1, 8, 2, 70, 70, 256, True, None, 0),
+    (1, 2, 2, 150, 150, 256, True, 40, 0),
 ]
 # (Hq, Hkv, d, page, offs, lens): pages of 16, 128 and 24 (not a divisor of
 # the tile), chunks at fresh, mid-page and page-aligned offsets
@@ -75,25 +90,25 @@ def _np(x):
         else x.float().numpy()
 
 
-def emulate(q, k, v, visible, scale, split=True):
+def emulate(q, k, v, visible, scale, split=True, tile=TILE):
     """The kernel's arithmetic. ``q (..., R, d)``, ``k/v (..., K, d)`` bf16,
-    ``visible (..., R, K)`` bool. Key tiles of 128 in order; masked scores
-    weigh exactly 0; ``split=False`` puts one bf16 copy of P through PV.
-    Returns ``(..., R, d)`` bf16."""
+    ``visible (..., R, K)`` bool. Key tiles of ``tile`` in order; masked
+    scores weigh exactly 0; ``split=False`` puts one bf16 copy of P through
+    PV. Returns ``(..., R, d)`` bf16."""
     qf, kf, vf = q.float(), k.float(), v.float()
     R, K = visible.shape[-2:]
     acc = torch.zeros(*qf.shape[:-1], vf.shape[-1])
     m = torch.full(qf.shape[:-1], -1e30)
     l = torch.zeros(qf.shape[:-1])
-    for k0 in range(0, K, TILE):
-        ok = visible[..., k0:k0 + TILE]
-        s = (qf @ kf[..., k0:k0 + TILE, :].transpose(-1, -2)) * (scale * LOG2E)
+    for k0 in range(0, K, tile):
+        ok = visible[..., k0:k0 + tile]
+        s = (qf @ kf[..., k0:k0 + tile, :].transpose(-1, -2)) * (scale * LOG2E)
         s = torch.where(ok, s, torch.tensor(-math.inf))
         m_new = torch.maximum(m, s.amax(-1))
         alpha = torch.exp2(m - m_new)
         p = torch.where(ok, torch.exp2(s - m_new[..., None]), 0.0)
         l = alpha * l + p.sum(-1)
-        vt = vf[..., k0:k0 + TILE, :]
+        vt = vf[..., k0:k0 + tile, :]
         hi = p.to(torch.bfloat16).float()
         pv = hi @ vt
         if split:
@@ -121,7 +136,7 @@ def _k7_case(case, seed):
     g = Hq // Hkv
     emu = lambda split: _np(emulate(
         q, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1),
-        _k7_visible(Lq, Lk, causal, window, q_offset), 1.0 / math.sqrt(d), split))
+        _k7_visible(Lq, Lk, causal, window, q_offset), 1.0 / math.sqrt(d), split, _tile(d)))
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     ref_j = _np(jflash_prefill(_j(q), _j(k), _j(v), interpret=True, **kw))
     ref_t = _np(tfp.flash_prefill(q, k, v, **kw))
@@ -196,10 +211,16 @@ def test_path_rule():
     assert tfp.tensor_core_path(bf, 128) and tfp.tensor_core_path(bf, 64)
     assert tfp.tensor_core_path(bf, 128, 128) and tfp.tensor_core_path(bf, 64, 24)
     assert tfp.tensor_core_path(bf, 128, 256)
+    # K7 (no page) at d 256 runs on the tensor cores, on 64-key tiles; K8
+    # and the fused K4 (a page given) at d 256 keep the CUDA cores
+    assert tfp.tensor_core_path(bf, 256)
+    for page in (8, 16, 128, 256):
+        assert not tfp.tensor_core_path(bf, 256, page)
     # float32 keeps the CUDA-core kernel (TF32 would break the 2e-5
     # contract), and so does bf16 at other head dims
     assert not tfp.tensor_core_path(f32, 128) and not tfp.tensor_core_path(f32, 128, 12)
-    for d in (16, 32, 96, 256):
+    assert not tfp.tensor_core_path(f32, 256)
+    for d in (16, 32, 96, 512):
         assert not tfp.tensor_core_path(bf, d) and not tfp.tensor_core_path(bf, d, 12)
     # K8 on a page that is not a multiple of 8 rows takes the CUDA-core
     # kernel, which takes any page (the engine picks 100 for a 100-token cache)
