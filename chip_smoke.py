@@ -46,8 +46,9 @@ Phases, in order; any failure exits non-zero and nothing catches it:
      ``fixed`` (K8 chunks, K6 decode), in turns lean, fixed, fixed, lean:
      steps, launches, TTFT, decode tokens flowing during the long prefill,
      first tokens against the blocking engine's; then the fixed phase
-     under ``torch.profiler``: device busy, kernels, host syncs
-     (``aten::item``) -- the lean one is traced in phase 11;
+     under ``torch.profiler`` at ``TRACED_FIXED_LAYERS`` of depth: device
+     busy, kernels, host syncs (``aten::item``) -- the lean one is traced
+     in phase 11;
   8. prefix-sharing serving phase: a 2048-token system prompt served once,
      then four requests that start with it, through the ``Scheduler`` with
      the radix prefix cache and cascade decode (fused K4 tails, K5 cascade
@@ -70,7 +71,8 @@ Phases, in order; any failure exits non-zero and nothing catches it:
      against lean's; the Scheduler on ``ref`` (no kernel: what the
      quantization alone moves), then on ``lean`` (fused K4-int8, K2-int8) and
      ``fixed`` (K8 on pools widened to bf16, K6 on pages dequantized to
-     float32) in turns, and the fixed phase traced (host syncs); prefix
+     float32) in turns, and the fixed phase traced (host syncs; at
+     ``TRACED_FIXED_LAYERS`` of depth); prefix
      serving with cascade (K5-int8);
  11. chunk step phase: the lean Scheduler with every step eager
      (``capture_decode = False``) and captured, in turns (eager, captured,
@@ -78,9 +80,9 @@ Phases, in order; any failure exits non-zero and nothing catches it:
      prompts three times on one engine (a key first seen in round 1 is
      captured in round 2 and replays from round 3): walls per round, TTFT,
      chunk captures and replays, capture + instantiation ms, the reserved
-     memory the captures grew; then traced (the captured run's last round;
-     with ``--chunk-step`` the eager run too): idle share and host launch
-     calls per chunk step;
+     memory the captures grew; then traced (a fourth round of the second
+     captured run; with ``--chunk-step`` an eager run too): idle share and
+     host launch calls per chunk step;
  12. spec phase: speculative decode (k 4, 41 new tokens) on bf16 and int8
      pages with an oracle proposer replaying the plain run's streams and
      with the n-gram proposer: spec ticks, accept rate, verify captures and
@@ -168,20 +170,35 @@ Phases, in order; any failure exits non-zero and nothing catches it:
      ref, steps bit for bit. A dense model's stream may leave ref only at a
      near tie; a MoE model's divergences from ref are printed with their
      gaps (a router near tie sends a row to other experts);
- 18. the kernel summary (one JSON line: K1-K8, the fused K4 and the int8
+ 18. the recurrent architectures (``--recurrent-step [DEPTH]`` alone): K7
+     at recurrentgemma-9b's window layers (16 query heads over one KV head,
+     d 256, window 2048) on 3000 and 16000 keys against its plain version,
+     beside SDPA and its bound; then recurrentgemma-9b (38 layers: RG-LRU
+     and sliding-window MQA) and xlstm-350m (24 layers: mLSTM and sLSTM) at
+     full width and depth on the paged lean engine: each block's parallel
+     form against its sequential one at full width, prompts admitted at
+     their exact length (K7 on the tensor cores at every admission of
+     recurrentgemma, no decode kernel at all), captured and eager in turns
+     (admission ms per prompt, tick p50), the rows after 1 and 8 decoded
+     tokens against an exact prefill (the state handoff) and a planted
+     fault that comparison must fail, five captured ticks traced, the
+     captured steps bit for bit against eager, and the exact-length
+     admission graphs held to their bound (their memory printed);
+ 19. the kernel summary (one JSON line: K1-K8, the fused K4 and the int8
      forms of K1, K2, K4 (fused and partials) and K5: 14 entries, then K2,
      the fused K4, K8, K7, K6 and K5 at the attention-family geometries,
-     each with its launches from that architecture's run), the fused K4's launches
+     each with its launches from that architecture's run, and K7 at
+     recurrentgemma-9b's), the fused K4's launches
      from verify steps, the guards phase's launches, the ``nvidia-smi``
      line, and last ``{"ok": true, "device": {...}}``.
 
 Each phase starts with a ``[seconds] phase`` line: the time since the
-script started. Phases 11-17 alone, at full width, after the build:
+script started. Phases 11-18 alone, at full width, after the build:
 
     python3 chip_smoke.py --chunk-step | --spec-step | --admission-step | --captured-step
     python3 chip_smoke.py --obs-step | --guards-step
     python3 chip_smoke.py --arch-kernels | --qwen3-step [DEPTH] | --gemma-step [DEPTH]
-    python3 chip_smoke.py --arch-sweep
+    python3 chip_smoke.py --arch-sweep | --recurrent-step [DEPTH]
 
 The kernel phase (3) also holds K3 (the merge kernel) against its plain
 version and ``segment_merge``, drives the two-phase ``merge_impl="pallas"``
@@ -1369,10 +1386,38 @@ def traced_scheduler_phase(torch, cfg, params, backend, sm_count, new_tokens, bl
     most device time. ``captured`` and ``rounds`` as
     :func:`scheduler_phase`'s: the last round is traced. Returns {"syncs",
     "idle", "chunk_calls", "busy_ms"}."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    prof = torch.profiler.profile(activities=acts)
+    prof = scheduler_profiler(torch)
     run = scheduler_phase(torch, cfg, params, backend, sm_count, new_tokens, blocking,
                           kv_dtype, captured=captured, rounds=rounds, profiler=prof)
+    return traced_round(torch, prof, run, backend, kv_dtype, captured, rounds)
+
+
+# the fixed Scheduler phases (bf16, int8) are served at full depth in turns
+# and traced at this depth: a host sync is a per-step property (one made in
+# a layer shows once per layer at any depth), and the full depth's 300k
+# device kernels take a minute to read
+TRACED_FIXED_LAYERS = 5
+
+
+def traced_fixed_phase(torch, cfg, params, sm_count, new_tokens, kv_dtype=None) -> int:
+    """The fixed Scheduler phase traced at ``TRACED_FIXED_LAYERS`` of
+    ``cfg``'s depth, its first tokens held to exact prefill at that depth.
+    Returns its host syncs."""
+    cfg_t = arch_config(cfg, TRACED_FIXED_LAYERS)
+    params_t = dict(params, layers=params["layers"][:cfg_t.n_layers])
+    return traced_scheduler_phase(torch, cfg_t, params_t, "fixed", sm_count, new_tokens,
+                                  exact_prefill_reference(torch, cfg_t, params_t),
+                                  kv_dtype=kv_dtype)["syncs"]
+
+
+def scheduler_profiler(torch):
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    return torch.profiler.profile(activities=acts)
+
+
+def traced_round(torch, prof, run, backend, kv_dtype, captured, rounds):
+    """What :func:`traced_scheduler_phase` reads from ``prof``, the profiler
+    that ran around the last of ``rounds`` rounds of ``run``."""
     kernels, busy_ms, by_name = device_time(prof)
     syncs = sum(1 for e in prof.events()
                 if e.device_type.name == "CPU" and e.name == "aten::item")
@@ -2286,17 +2331,20 @@ def prefix_serving_run(torch, cfg, params, sm_count, new_tokens, waves, prefix, 
 
 def prefix_logit_gaps(torch, on, off, atol_frac):
     """Each request's logits rows in run ``on`` against run ``off`` on the
-    same waves: its first-token row, then its decode rows up to the first
-    one whose tokens differ (later rows follow different tokens). Per row:
-    ``uid``, ``row`` (0 the first token, then decode rows), ``cascade`` (a
-    cascade tick's row), ``finite``, ``delta`` (max |on - off|), ``atol``
-    (``atol_frac`` x the median |off logit|) and ``ok`` (within ``atol`` +
-    ``LOGIT_RTOL`` |off|)."""
+    same waves: its first-token row, then, if both runs took the same first
+    token (each handle's first generated token), its decode rows up to the
+    first one whose tokens differ (later rows follow different tokens; after
+    a first-token flip every decode row does). Per row: ``uid``, ``row`` (0
+    the first token, then decode rows), ``cascade`` (a cascade tick's row),
+    ``finite``, ``delta`` (max |on - off|), ``atol`` (``atol_frac`` x the
+    median |off logit|) and ``ok`` (within ``atol`` + ``LOGIT_RTOL``
+    |off|)."""
     gaps = []
+    first = {h.uid: h.generated[0] for h in off["handles"]}
     for h in on["handles"]:
         pairs = [(on["eng"].first_rows[h.uid], off["eng"].first_rows[h.uid], False)]
-        for (a, ta, cascade), (b, tb, _) in zip(on["eng"].rows.get(h.uid, []),
-                                                off["eng"].rows.get(h.uid, [])):
+        rows = zip(on["eng"].rows.get(h.uid, []), off["eng"].rows.get(h.uid, []))
+        for (a, ta, cascade), (b, tb, _) in rows if h.generated[0] == first[h.uid] else ():
             pairs.append((a, b, cascade))
             if ta != tb:
                 break
@@ -3006,9 +3054,10 @@ def chunk_step_phase(torch, cfg, params, sm_count, new_tokens, blockings, smi: s
     steps, on the lean Scheduler (chunk 256, pack 2, budget 512), on bf16 and
     on int8 pages: the phase wall and TTFT per request in turns (eager,
     captured, captured, eager), chunk captures and replays, and the capture
-    plus instantiation time of a full-width chunk graph; then one phase of
-    each traced (the captured one's last round): the device's idle share and
-    host launch calls per chunk step -- the eager phase only with ``full``
+    plus instantiation time of a full-width chunk graph; then traced -- the
+    second captured run serves a round more under the profiler, and an eager
+    phase -- the device's idle share and host launch calls per chunk step --
+    the eager phase only with ``full``
     (``--chunk-step``: an eager phase's trace takes a minute or two to
     read, and the full run traces the eager steps of other phases).
     ``blockings`` maps the kv dtype to the blocking engine's first tokens
@@ -3020,19 +3069,24 @@ def chunk_step_phase(torch, cfg, params, sm_count, new_tokens, blockings, smi: s
     for kv in (None, "int8"):
         what = f"{kv or 'bf16'} pages"
         clock(f"chunk step phase, {what}")
+        # the second captured run serves one more round, traced: a round as
+        # warm as its last untraced one, on the same engine
+        prof = scheduler_profiler(torch)
         runs = [scheduler_phase(torch, cfg, params, "lean", sm_count, new_tokens, blockings[kv],
                                 kv_dtype=kv, captured=c, quiet=True,
-                                rounds=CHUNK_ROUNDS if c else 1)
-                for c in (False, True, True, False)]
+                                rounds=(CHUNK_ROUNDS + (i == 2)) if c else 1,
+                                profiler=prof if i == 2 else None)
+                for i, c in enumerate((False, True, True, False))]
         caps = [ms for r in runs for kind, ms, _ in r["capture_log"] if kind == "chunk"]
         grew = sum(b for r in runs[1:3] for _, _, b in r["capture_log"]) / 2
         st = [r["stats"] for r in runs[1:3]]
         print(f"chunk step phase ({what}; {smi}): lean Scheduler, runs in turns (eager, "
               f"captured, captured, eager), the captured ones {CHUNK_ROUNDS} rounds of the "
-              f"prompts on one engine; wall s per round: "
-              + " | ".join(", ".join(f"{w:.2f}" for w in r["walls"]) for r in runs)
+              f"prompts on one engine (the second then one traced); wall s per round: "
+              + " | ".join(", ".join(f"{w:.2f}" for w in r["walls"][:CHUNK_ROUNDS]) for r in runs)
               + "; TTFT ms per request (prompts " + str(list(PROMPT_LENS)) + "), last round: "
-              + " | ".join(", ".join(f"{t:.1f}" for t in r["ttft"]) for r in runs)
+              + " | ".join(", ".join(f"{t:.1f}" for t in r["ttfts"][:CHUNK_ROUNDS][-1])
+                           for r in runs)
               + f"; chunk steps a round {runs[1]['chunk_steps']}; captured runs' chunk captures "
               f"/ replays {st[0].chunk_captures} / {st[0].chunk_replays}, {st[1].chunk_captures} "
               f"/ {st[1].chunk_replays}; chunk capture + instantiation ms: median "
@@ -3040,14 +3094,16 @@ def chunk_step_phase(torch, cfg, params, sm_count, new_tokens, blockings, smi: s
               f"memory grown by a run's captures (every step kind) {grew / 2**20:.0f} MiB",
               flush=True)
         clock(f"chunk step phase, {what}, traced")
-        traced = {c: traced_scheduler_phase(torch, cfg, params, "lean", sm_count, new_tokens,
-                                            blockings[kv], kv_dtype=kv, captured=c,
-                                            rounds=CHUNK_ROUNDS if c else 1)
-                  for c in (False, True) if c or full}
+        traced = {}
+        if full:
+            traced[False] = traced_scheduler_phase(torch, cfg, params, "lean", sm_count,
+                                                   new_tokens, blockings[kv], kv_dtype=kv,
+                                                   captured=False)
+        traced[True] = traced_round(torch, prof, runs[2], "lean", kv, True, CHUNK_ROUNDS + 1)
         # the untraced walls of the same rounds: eager runs, and the captured
-        # runs' last round
+        # runs' last untraced round
         untraced = {False: (runs[0]["walls"][0] + runs[3]["walls"][0]) / 2,
-                    True: (runs[1]["walls"][-1] + runs[2]["walls"][-1]) / 2}
+                    True: (runs[1]["walls"][-1] + runs[2]["walls"][CHUNK_ROUNDS - 1]) / 2}
         line = lambda key, fmt: " -> ".join(format(traced[c][key], fmt) for c in traced)
         print(f"chunk step phase ({what}): traced lean Scheduler phase (captured: its last "
               f"round), {' -> '.join('captured' if c else 'eager' for c in traced)}: idle "
@@ -4738,9 +4794,10 @@ def arch_prompts(vocab, lens, seed):
     return [rng.integers(0, vocab, n).astype(np.int32) for n in lens]
 
 
-def arch_bits(torch, cfg, params, sm_count, configs, prompts) -> dict:
+def arch_bits(torch, cfg, params, sm_count, configs, prompts, replayed=()) -> dict:
     """``twin_bits`` on each (label, EngineConfig, drive): eager against
-    captured in lockstep, every step bit for bit. Returns {label: steps}."""
+    captured in lockstep, every step bit for bit, and a replay of each step
+    kind in ``replayed``. Returns {label: steps}."""
     out = {}
     for label, config, drive in configs:
         steps, worst, st, _ = twin_bits(torch, cfg, params, config, drive, prompts=prompts)
@@ -4748,6 +4805,8 @@ def arch_bits(torch, cfg, params, sm_count, configs, prompts) -> dict:
             check(n > 0 and same == n, f"{cfg.name} {label}: {kind} steps bit-identical "
                   f"{same}/{n} (max |logit diff| {worst})")
         check(st.step_captures > 0, f"{cfg.name} {label}: nothing was captured")
+        check(all(getattr(st, f"{kind}_replays") > 0 for kind in replayed),
+              f"{cfg.name} {label}: a step kind of {list(replayed)} replayed no graph")
         out[label] = {k: v[0] for k, v in steps.items()}
     print(f"  {cfg.name}: captured against eager, bit for bit: "
           + "; ".join(f"{label} {steps}" for label, steps in out.items()), flush=True)
@@ -5074,6 +5133,426 @@ def sweep_phase(torch, sm_count, smi: str) -> dict:
     return out
 
 
+# ------------------------------------------------ recurrent architectures
+RECURRENT_PROMPTS = {"recurrentgemma-9b": (16000, 3000, 1200, 17),   # the 2048-slot rings wrap
+                     "xlstm-350m": (3000, 1200, 300, 17)}
+RECURRENT_NEW_TOKENS = 16
+RECURRENT_TURNS = (True, False, True)   # captured, eager, captured: the first feeds the handoff
+RECURRENT_BITS_PROMPTS = (700, 300, 300, 17)   # a length twice: an admission replays
+# more distinct prompt lengths than an engine holds admission graphs for
+RECURRENT_GRAPH_LENS = (17, 40, 70, 130, 260, 300)
+RECURRENT_TRACED_PROMPT = 300   # the traced ticks' prompts cut to this: a tick's cost does not
+                                # depend on the context (states, full 2048-slot rings)
+HANDOFF_K = (1, 8)           # decoded tokens after which a row is held to an exact prefill
+FORMS_T = 256                # tokens of the parallel-against-sequential check
+FORMS_CHUNK = 64             # the mLSTM's chunk there: four chunks, the state carried across
+# recurrentgemma-9b's 'win' layers at admission: (Hq, Hkv, d, window), causal over these keys
+RG_K7 = (16, 1, 256, 2048)
+RG_K7_KEYS = (3000, 16000)
+# the parallel and the sequential forms of a block take their inputs through
+# other roundings (the RG-LRU's prefill conv rounds in bf16, its decode conv
+# keeps float32; the forms' GEMMs have other shapes): float32 states and bf16
+# outputs are held to four bf16 steps of their scale (2**-6 x their largest
+# magnitude); the mLSTM's chunkwise form against its step oracle on the same
+# bf16 q/k/v to one bf16 step (the chunked path rounds its weighted products
+# to bf16; tests/test_torch_recurrent.py holds the same at smoke width)
+FORMS_REL = 2.0 ** -6
+MLSTM_FORMS_REL = 2.0 ** -8
+# The state handoff against an exact prefill of prompt + k tokens: the
+# decode step computes those tokens through the sequential forms, prefill
+# through the parallel ones, so beside the lean-vs-ref drift that
+# LOGIT_ATOL_FRAC allows (window layers: the ring read by the plain oracle,
+# bf16 P, against K7's float32 P) every RG-LRU layer adds a second source of
+# that size (its decode conv in float32 against prefill's bf16, a bf16
+# rounding at every layer, as the forms check shows at full width): the
+# allowance doubles LOGIT_ATOL_FRAC, as INT8_LOGIT_ATOL_FRAC does for
+# int8's second source. On an H100, LOGIT_ATOL_FRAC failed first (0.109);
+# recurrentgemma-9b's rows then sat 0.0905-0.1267 of the median logit from
+# exact prefill, and the planted fault of ``recurrent_handoff`` (one
+# layer's state zeroed) moved them by 3.0-4.3.
+HANDOFF_ATOL_FRAC = 2 * LOGIT_ATOL_FRAC
+# An sLSTM model's rows part from exact prefill further, from the first
+# decoded token on: on an H100, xlstm-350m's rows after one token sat
+# 0.2674-0.9178 of the median logit from it (0.27 on a 17-token prompt),
+# which HANDOFF_ATOL_FRAC failed, while the planted fault moved them by
+# 6.4-7.9. Held after the first token only, at this allowance, between the
+# two; the rows after more tokens are reported.
+SLSTM_HANDOFF_ATOL_FRAC = 2.0
+
+
+def rg_k7_name() -> str:
+    Hq, Hkv, d, _ = RG_K7
+    return f"flash_prefill@recurrentgemma-9b (gq {Hq // Hkv}, d {d}, window {RG_K7[3]})"
+
+
+def recurrent_k7(torch, dev_name: str) -> dict:
+    """K7 at recurrentgemma-9b's window layers (MQA: 16 query heads over one
+    KV head, d 256, window 2048), causal over ``RG_K7_KEYS`` keys, bf16:
+    against its plain version, on the tensor cores, timed beside SDPA (the
+    window as a boolean mask over K/V expanded to the 16 heads) and its
+    bound. Returns {keys: result}."""
+    from repro_torch.kernels import flash_prefill as fp
+
+    Hq, Hkv, d, window = RG_K7
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(26)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out_res = {}
+    for L in RG_K7_KEYS:
+        q = torch.randn(1, Hq, L, d, generator=gen, device=dev).to(torch.bfloat16)
+        k = torch.randn(1, Hkv, L, d, generator=gen, device=dev).to(torch.bfloat16)
+        v = torch.randn(1, Hkv, L, d, generator=gen, device=dev).to(torch.bfloat16)
+        fp.reset_launch_counts()
+        out = fp.flash_prefill(q, k, v, causal=True, window=window)
+        ref = fp.flash_prefill_plain(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        check(fp.dense_tc_launches == fp.dense_launches == 1,
+              f"K7 at recurrentgemma's geometry ({L} keys) did not take the tensor cores")
+        err = (out.float() - ref.float()).abs().max().item()
+        step = torch.finfo(torch.bfloat16).eps * ref.float().abs()
+        check(bool(((out.float() - ref.float()).abs() <= step + BF16_TOL).all()),
+              f"K7 at recurrentgemma's geometry ({L} keys) disagrees with its plain version: "
+              f"max |err| {err}")
+        ms = gpu_ms(lambda: fp.flash_prefill(q, k, v, causal=True, window=window), reps=10)
+        plain_ms = gpu_ms(lambda: fp.flash_prefill_plain(q, k, v, causal=True, window=window),
+                          reps=2, warmup=1)
+        pos = torch.arange(L, device=dev)
+        mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+        ke, ve = k.expand(1, Hq, L, d), v.expand(1, Hq, L, d)
+        lib_ms = gpu_ms(lambda: sdpa(q, ke, ve, attn_mask=mask), reps=10)
+        del mask
+        torch.cuda.empty_cache()
+        keys = visible_keys(L, L, True, window)
+        flops = 4 * Hq * d * keys
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+        b_ms, b_by = bound(dev_name, "bfloat16", nbytes, flops)
+        out_res[L] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+                      "bound_by": b_by, "max_abs_err": err}
+        print(f"  {rg_k7_name()} causal over {L} keys ({keys / 1e6:.2f} M visible pairs a head, "
+              f"{flops / 1e9:.1f} GFLOP): max|err| {err:.3e}; {ms:.4f} ms, "
+              f"{flops / ms / 1e9:.1f} TFLOP/s (bound {b_ms:.4f} ms by {b_by}; plain "
+              f"{plain_ms:.2f} ms; SDPA {lib_ms:.4f} ms)", flush=True)
+    return out_res
+
+
+def recurrent_forms(torch, cfg, params) -> dict:
+    """Each recurrent block of ``cfg`` (its first layer of the kind) at full
+    width on ``FORMS_T`` tokens: the parallel form against the sequential
+    one -- ``rglru_forward`` against a loop of ``rglru_step``,
+    ``mlstm_sequence_chunked`` (chunks of ``FORMS_CHUNK``, the state carried
+    across) against ``mlstm_sequence_ref`` (the block's own q/k/v and
+    gates), ``slstm_forward`` against ``slstm_step`` repeated
+    -- outputs and final states within ``FORMS_REL`` (the mLSTM's
+    ``MLSTM_FORMS_REL``) of their scale. Returns {kind: worst relative
+    gap}."""
+    from repro_torch.models import recurrent as rec
+    from repro_torch.models.transformer import layer_kinds
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(27)
+    x = torch.randn(1, FORMS_T, cfg.d_model, generator=gen, device="cuda")
+    kinds = layer_kinds(cfg)
+    out = {}
+
+    def gap(a, b):
+        return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+    for kind in sorted(set(kinds) - {"win"}):
+        p = params["layers"][kinds.index(kind)]["rec"]
+        if kind == "rglru":
+            o_par, (h_par, _) = rec.rglru_forward(p, x)
+            W = cfg.rnn_width
+            h = torch.zeros(1, W, device="cuda")
+            conv = torch.zeros(1, 3, W, device="cuda")
+            steps = []
+            for t in range(FORMS_T):
+                o, h, conv = rec.rglru_step(p, x[:, t:t + 1], h, conv)
+                steps.append(o)
+            gaps = [gap(o_par, torch.cat(steps, 1)), gap(h_par, h)]
+            rel = FORMS_REL
+        elif kind == "mlstm":
+            up = x.to(torch.bfloat16) @ p["w_up"].to(torch.bfloat16)
+            u = up[..., :up.shape[-1] // 2]
+            q, k, v = rec.mlstm_qkv(p, u, cfg.n_heads, torch.bfloat16)
+            i_pre, logf = rec._mlstm_gates(p, u)
+            h_c, s_c = rec.mlstm_sequence_chunked(q, k, v, i_pre, logf, chunk=FORMS_CHUNK)
+            h_r, s_r = rec.mlstm_sequence_ref(q.float(), k.float(), v.float(), i_pre, logf)
+            gaps = [gap(h_c, h_r), gap(s_c[0], s_r[0]), gap(s_c[1], s_r[1])]
+            rel = MLSTM_FORMS_REL
+        else:
+            o_par, s_par = rec.slstm_forward(p, x, cfg.n_heads)
+            state, steps = None, []
+            for t in range(FORMS_T):
+                o, state = rec.slstm_step(p, x[:, t:t + 1], cfg.n_heads, state)
+                steps.append(o)
+            gaps = [gap(o_par, torch.cat(steps, 1))] + [gap(a, b) for a, b in zip(s_par, state)]
+            rel = FORMS_REL
+        out[kind] = max(gaps)
+        check(all(math.isfinite(g) and g <= rel for g in gaps),
+              f"{cfg.name} {kind}: the parallel form differs from the sequential one by "
+              f"{gaps} of their scale (bound {rel})")
+    print(f"  parallel against sequential forms at full width, {FORMS_T} tokens (largest "
+          f"|difference| over the largest magnitude; bound {FORMS_REL}, mLSTM "
+          f"{MLSTM_FORMS_REL}): " + ", ".join(f"{k} {v:.2e}" for k, v in out.items()),
+          flush=True)
+    return out
+
+
+def recurrent_handoff(torch, cfg, params, prompts, streams, eng, cache_len) -> dict:
+    """The state handoff, for each request, the engine's logits row after
+    decoding k of its tokens (``HANDOFF_K``) against
+
+    - ``steps``: the same functions outside the engine -- each prompt's
+      ``prefill`` (a batch of one) copied into row i of a dense cache of
+      the engine's batch, then k ``decode_step`` calls over the batch with
+      the engine's tokens: what its admission writes, slots and captured
+      steps must not change; held for every model;
+    - ``exact``: an exact prefill of the prompt plus those k tokens, held
+      with ``HANDOFF_ATOL_FRAC`` where every recurrent block is contractive
+      (RG-LRU); for an sLSTM model held after the first k only, with
+      ``SLSTM_HANDOFF_ATOL_FRAC``, and reported after the others: the
+      reference's own decode and prefill forms part further there (the
+      decode step keeps the mLSTM's q/k/v in float32 where the chunked
+      prefill rounds them to bf16, and the sLSTM's recurrence amplifies a
+      rounding: ``tests/test_torch_recurrent.py::
+      test_slstm_reference_init_is_chaotic_at_full_width``);
+    - ``fault``: a planted fault, the ``steps`` rows decoded from the same
+      cache with the first recurrent layer's state zeroed (a state lost at
+      admission), against the exact prefill wherever that is held: the
+      exact comparison must fail it, or its allowance would not tell a
+      wrong handoff from a right one.
+
+    All in the prefix check's tolerance form, ``atol_frac`` x the median
+    |reference logit| + ``LOGIT_RTOL`` |reference logit|: ``steps`` with
+    ``LOGIT_ATOL_FRAC``, ``exact`` and ``fault`` with the exact allowance
+    above. Every gap is printed before any is checked. Returns the
+    worst gap over the median of each comparison (``fault``: the least of
+    its rows' largest, per request)."""
+    import numpy as np
+
+    from repro_torch.models import decode_step, init_cache, layer_kinds, prefill
+
+    kinds = layer_kinds(cfg)
+    slstm = "slstm" in kinds
+    fault_layer = next(i for i, kind in enumerate(kinds) if kind != "win")
+    dev = torch.device("cuda")
+    cache = init_cache(cfg, len(prompts), cache_len, device=dev)
+    for i, prompt in enumerate(prompts):
+        _, one, _ = prefill(params, cfg, torch.as_tensor(prompt[None], device=dev),
+                            cache_len=cache_len)
+        for lc, l1 in zip(cache, one):
+            for name, t in l1.items():
+                lc[name][i:i + 1].copy_(t)
+        del one
+    faulty = [{name: t.clone() for name, t in lc.items()} for lc in cache]
+    for t in faulty[fault_layer].values():
+        t.zero_()
+    steps, fault_steps = [], []
+    for k in range(max(HANDOFF_K)):
+        toks = torch.tensor([[s[k]] for s in streams], dtype=torch.int32, device=dev)
+        ctx = torch.tensor([len(p) + k for p in prompts], dtype=torch.int32, device=dev)
+        logits, cache = decode_step(params, cfg, cache, toks, ctx_lens=ctx)
+        steps.append(logits.float())
+        logits, faulty = decode_step(params, cfg, faulty, toks, ctx_lens=ctx)
+        fault_steps.append(logits.float())
+    del cache, faulty
+    allowed = SLSTM_HANDOFF_ATOL_FRAC if slstm else HANDOFF_ATOL_FRAC
+    gaps = []     # (uid, k, name, gap over the median, within the allowance, held)
+    for uid, (prompt, stream) in enumerate(zip(prompts, streams)):
+        for k in HANDOFF_K:
+            got = eng.rows[uid][k]
+            held = not slstm or k == HANDOFF_K[0]
+            toks = np.concatenate([prompt, np.asarray(stream[:k], np.int32)])[None]
+            exact, _, _ = prefill(params, cfg, torch.as_tensor(toks, device=dev),
+                                  cache_len=toks.shape[1])
+            refs = [("steps", got, steps[k - 1][uid], LOGIT_ATOL_FRAC, True),
+                    ("exact", got, exact[0].float(), allowed, held)]
+            if held:
+                refs.append(("fault", fault_steps[k - 1][uid], exact[0].float(), allowed, True))
+            for name, row, want, frac, hold in refs:
+                med = want.abs().median().item()
+                ok = torch.allclose(row, want, rtol=LOGIT_RTOL, atol=frac * med)
+                gaps.append((uid, k, name, (row - want).abs().max().item() / med, ok, hold))
+    print(f"  {cfg.name}: state handoff gaps over the median |logit| (request: prompt tokens; "
+          f"k decoded: steps / exact / planted fault, layer {fault_layer}'s state zeroed; "
+          "* = reported, not held): " + "; ".join(
+              f"{uid}: {len(prompts[uid])}; " + ", ".join(
+                  f"k {k} " + " / ".join(f"{g:.4f}" + ("" if hold else "*")
+                                         for u, kk, _, g, _, hold in gaps if (u, kk) == (uid, k))
+                  for k in HANDOFF_K) for uid in range(len(prompts))), flush=True)
+    for uid, k, name, g, ok, hold in gaps:
+        frac = LOGIT_ATOL_FRAC if name == "steps" else allowed
+        check(ok or not hold or name == "fault",
+              f"{cfg.name}: request {uid}'s row after {k} decoded tokens differs from "
+              f"{'an exact prefill' if name == 'exact' else 'prefill + decode steps'} by "
+              f"{g} x the median |logit| (allowed {frac} + {LOGIT_RTOL} |ref|)")
+    fault = {uid: max(g for u, _, name, g, _, _ in gaps if u == uid and name == "fault")
+             for uid in {u for u, _, name, *_ in gaps if name == "fault"}}
+    check(any(not ok for *_, name, _, ok, _ in gaps if name == "fault"),
+          f"{cfg.name}: the exact handoff comparison passed a planted fault (layer "
+          f"{fault_layer}'s state zeroed): worst gap {max(fault.values())}")
+    worst = {name: max((g for *_, n, g, _, hold in gaps if n == name and hold), default=0.0)
+             for name in ("steps", "exact")}
+    worst["reported"] = max((g for *_, g, _, hold in gaps if not hold), default=None)
+    worst["fault"] = min(fault.values())
+    worst["fault_layer"] = fault_layer
+    worst["allowed"] = allowed
+    return worst
+
+
+def recurrent_phase(torch, sm_count, smi: str, depth=None) -> dict:
+    """The recurrent architectures at full width (``RECURRENT_PROMPTS``,
+    ``RECURRENT_NEW_TOKENS`` new tokens, paged lean engine, batch 4,
+    ``sm_count`` workers, blocking admission at the exact prompt length):
+    K7 at recurrentgemma's window geometry first (``recurrent_k7``), then
+    recurrentgemma-9b (38 layers: 26 RG-LRU, 12 sliding-window MQA) and
+    xlstm-350m (24 layers: 21 mLSTM, 3 sLSTM), each at ``depth`` layers or
+    all: the parallel against the sequential forms, the engine captured and
+    eager in turns (``RECURRENT_TURNS``; admission ms per prompt, tick p50,
+    K7 on the tensor cores at every admission, no decode kernel), the state
+    handoff with its planted fault (``recurrent_handoff``), five captured
+    ticks traced, the lean engine's captured steps bit for bit against
+    eager, and the bounded admission graphs (``recurrent_admit_graphs``).
+    Returns the K7 results, the
+    launches of each model's first captured run and the bits."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.models import count_params, layer_kinds
+    from repro_torch.serving.engine import DecodeEngine, Request
+
+    dev_name = torch.cuda.get_device_name(0)
+    print(f"recurrent phase ({smi}): K7 at recurrentgemma-9b's window layers", flush=True)
+    k7 = recurrent_k7(torch, dev_name)
+    out = {"k7": k7, "launches": {}, "bits": {}}
+    for seed, arch in enumerate(("recurrentgemma-9b", "xlstm-350m")):
+        clock(f"recurrent phase: {arch}")
+        full = get_config(arch)
+        cfg = arch_config(full, depth or full.n_layers)
+        params, init_s = arch_params(torch, cfg, 50 + seed)
+        kinds = layer_kinds(cfg)
+        n_win = kinds.count("win")
+        print(f"{arch}: full width (d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, "
+              f"d {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), {cfg.n_layers} of "
+              f"{full.n_layers} layers (" + ", ".join(f"{kinds.count(k)} {k}"
+                                                     for k in sorted(set(kinds)))
+              + f"); count_params {count_params(cfg) / 1e9:.3f} B, weights in {init_s:.1f} s, "
+              f"{torch.cuda.memory_allocated() / 1e9:.1f} GB",
+              flush=True)
+        recurrent_forms(torch, cfg, params)
+        prompts = arch_prompts(cfg.vocab_size, RECURRENT_PROMPTS[arch], 51 + seed)
+        cache_len = max(RECURRENT_PROMPTS[arch]) + 128
+        p50s, runs, first = [], [], None
+        for captured in RECURRENT_TURNS:
+            streams, eng, counts = arch_serve(torch, cfg, params, sm_count, "lean", prompts,
+                                              RECURRENT_NEW_TOKENS, False, cache_len,
+                                              captured=captured)
+            check(counts["K7"] == n_win * len(prompts)
+                  and fp.dense_tc_launches == fp.dense_launches == counts["K7"],
+                  f"{arch}: K7 launched {counts['K7']} times ({fp.dense_tc_launches} on the "
+                  f"tensor cores), expected {n_win} x {len(prompts)}, all on the tensor cores")
+            others = {k: n for k, n in counts.items() if n and k != "K7"}
+            check(not others, f"{arch}: decode or chunk kernels ran: {others}")
+            check(eng.stats.prefill_compiles == len(set(RECURRENT_PROMPTS[arch]))
+                  and not eng.bucket_prefill, f"{arch}: admissions not at the exact length")
+            check(not captured or eng.stats.decode_replays > 0,
+                  f"{arch}: no decode tick replayed a captured step")
+            p50s.append(statistics.median(eng.tick_s) * 1e3)
+            runs.append(streams)
+            print(f"  {'captured' if captured else 'eager'}: admission ms by prompt tokens "
+                  + ", ".join(f"{n} {t * 1e3:.1f}" for n, t in eng.admit_s)
+                  + f"; decode tick p50 {p50s[-1]:.2f} ms over {len(eng.tick_s)} ticks; K7 "
+                  f"{counts['K7']} ({fp.dense_tc_launches} on the tensor cores), other kernels "
+                  f"0; prefill_compiles {eng.stats.prefill_compiles}; decode captures "
+                  f"{eng.stats.decode_captures}, replays {eng.stats.decode_replays}", flush=True)
+            if captured and first is None:
+                first = (streams, eng, counts)
+            else:
+                del eng
+        streams, eng, counts = first
+        agree = [sum(a == b for a, b in zip(run, runs[0])) for run in runs[1:]]
+        worst = recurrent_handoff(torch, cfg, params, prompts, streams, eng, cache_len)
+        turns = ", ".join("captured" if c else "eager" for c in RECURRENT_TURNS)
+        reported = ("" if worst["reported"] is None else
+                    f", after {HANDOFF_K[-1]} tokens (reported, not held) "
+                    f"{worst['reported']:.4f}")
+        print(f"  {arch}: tick p50 ms in turns ({turns}) "
+              + ", ".join(f"{t:.2f}" for t in p50s) + f"; streams equal to the first run's "
+              f"{agree} of {len(prompts)}; state handoff, rows after {list(HANDOFF_K)} decoded "
+              f"tokens, worst gap over the median |logit|: against prefill + decode steps "
+              f"{worst['steps']:.4f} (allowed {LOGIT_ATOL_FRAC}), against exact prefill "
+              f"{worst['exact']:.4f} (allowed {worst['allowed']}"
+              + (f", after {HANDOFF_K[0]} token: sLSTM" if "slstm" in kinds else "")
+              + f"){reported}; planted fault (layer "
+              f"{worst['fault_layer']}'s state zeroed) against exact prefill: every request's "
+              f"largest gap at least {worst['fault']:.4f}, failed as it must; + {LOGIT_RTOL} "
+              f"|ref| / median throughout",
+              flush=True)
+        out["launches"][arch] = counts
+        del first, eng
+        eng = DecodeEngine(cfg, params, dataclasses.replace(engine_config("lean", sm_count),
+                                                            cache_len=cache_len), device="cuda")
+        traced_ticks(torch, eng, [Request(uid=i, prompt=p[:RECURRENT_TRACED_PROMPT],
+                                          max_new_tokens=TRACED_TICKS + 6)
+                                  for i, p in enumerate(prompts)],
+                     statistics.mean(t for t, c in zip(p50s, RECURRENT_TURNS) if c) / 1e3,
+                     label=f"{arch} traced captured ticks (prompts cut to "
+                           f"{RECURRENT_TRACED_PROMPT} tokens)")
+        del eng
+        out["bits"][arch] = arch_bits(torch, cfg, params, sm_count,
+                                      [("paged lean", engine_config("lean", sm_count), "engine")],
+                                      arch_prompts(cfg.vocab_size, RECURRENT_BITS_PROMPTS,
+                                                   53 + seed), replayed=("admit", "decode"))
+        recurrent_admit_graphs(torch, cfg, params, sm_count, 54 + seed)
+        del params
+    return out
+
+
+def recurrent_admit_graphs(torch, cfg, params, sm_count, seed):
+    """The captured exact-length admissions, bounded: prompts of
+    ``RECURRENT_GRAPH_LENS`` tokens admitted into slot 0 of a paged lean
+    engine in three rounds (warm-up, capture, replay), each capture timed.
+    The engine must hold ``EXACT_ADMIT_GRAPHS`` of them at the end, the
+    least recently used dropped; prints the captures' ms and the reserved
+    memory each grew, and the reserved memory given back when the held
+    graphs go."""
+    import gc
+
+    from repro_torch.serving.engine import EXACT_ADMIT_GRAPHS, DecodeEngine, Request
+
+    eng = timed(DecodeEngine)(cfg, params, engine_config("lean", sm_count), device="cuda")
+    prompts = arch_prompts(cfg.vocab_size, RECURRENT_GRAPH_LENS, seed)
+    for _ in range(3):
+        for i, p in enumerate(prompts):
+            check(eng.admit_blocking(Request(uid=i, prompt=p, max_new_tokens=1), 0),
+                  f"{cfg.name}: admission refused")
+            eng.release_slot(0)
+    torch.cuda.synchronize()
+    held = [k for k, (_, g) in eng._graphs.items() if g is not None]
+    st = eng.stats
+    check(len(held) == EXACT_ADMIT_GRAPHS and st.admit_captures == len(prompts),
+          f"{cfg.name}: {len(held)} admission graphs held after {st.admit_captures} captures "
+          f"(expected {EXACT_ADMIT_GRAPHS} after {len(prompts)})")
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    eng._graphs.clear()
+    eng._exact_admits.clear()
+    eng._graph_pool = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    freed = reserved - torch.cuda.memory_reserved()
+    print(f"  {cfg.name}: exact-length admission graphs, prompts {list(RECURRENT_GRAPH_LENS)} "
+          f"admitted in three rounds: captures {st.admit_captures}, replays "
+          f"{st.admit_replays}, graphs held {len(held)} (at most {EXACT_ADMIT_GRAPHS}); "
+          "capture + instantiation ms " + ", ".join(f"{c:.1f}" for _, c, _ in eng.capture_log)
+          + "; reserved MiB grown per capture " + ", ".join(
+              f"{b / 2**20:.0f}" for *_, b in eng.capture_log)
+          + f"; reserved MiB given back when the held graphs go {freed / 2**20:.0f}", flush=True)
+    del eng
+
+
 TICK_SOURCES = ("lean_decode.cu", "flash_prefill.cu")
 
 
@@ -5165,7 +5644,8 @@ def main() -> int:
               "checkout of the repository", file=sys.stderr)
         return 2
 
-    arch_alone = {"--arch-kernels", "--qwen3-step", "--gemma-step", "--arch-sweep"}
+    arch_alone = {"--arch-kernels", "--qwen3-step", "--gemma-step", "--arch-sweep",
+                  "--recurrent-step"}
     if sys.argv[1:2] and sys.argv[1] in arch_alone:
         torch.backends.cuda.matmul.allow_tf32 = False
         sm_count = torch.cuda.get_device_properties(0).multi_processor_count
@@ -5181,6 +5661,8 @@ def main() -> int:
             qwen3_phase(torch, sm_count, smi, depth)
         elif sys.argv[1] == "--gemma-step":
             gemma_phase(torch, sm_count, smi, depth)
+        elif sys.argv[1] == "--recurrent-step":
+            recurrent_phase(torch, sm_count, smi, depth)
         else:
             sweep_phase(torch, sm_count, smi)
         clock("done")
@@ -5367,9 +5849,9 @@ def main() -> int:
     print("scheduler phases, wall s in turns (lean, fixed, fixed, lean): "
           + ", ".join(f"{w:.2f}" for w in walls), flush=True)
     # the lean phase is traced in the chunk step phase (11), eager and captured
-    syncs = traced_scheduler_phase(torch, cfg, params, "fixed", sm_count, new_tokens,
-                                   blocking)["syncs"]
-    print(f"scheduler phases: host syncs (aten::item) fixed {syncs}", flush=True)
+    syncs = traced_fixed_phase(torch, cfg, params, sm_count, new_tokens)
+    print(f"scheduler phases: host syncs (aten::item) fixed {syncs} (traced at "
+          f"{TRACED_FIXED_LAYERS} of {cfg.n_layers} layers)", flush=True)
 
     clock("prefix serving")
     # 8. prefix-sharing serving: radix cache, copy-on-write, cascade (K5)
@@ -5396,9 +5878,9 @@ def main() -> int:
         walls.append(run["wall"])
     print("int8 scheduler phases, wall s in turns (lean, fixed, fixed, lean): "
           + ", ".join(f"{w:.2f}" for w in walls), flush=True)
-    syncs = traced_scheduler_phase(torch, cfg, params, "fixed", sm_count, new_tokens,
-                                   i8_blocking, kv_dtype="int8")["syncs"]
-    print(f"int8 scheduler phases: host syncs (aten::item) fixed {syncs}", flush=True)
+    syncs = traced_fixed_phase(torch, cfg, params, sm_count, new_tokens, kv_dtype="int8")
+    print(f"int8 scheduler phases: host syncs (aten::item) fixed {syncs} (traced at "
+          f"{TRACED_FIXED_LAYERS} of {cfg.n_layers} layers)", flush=True)
     i8_prefix = prefix_serving_phase(torch, cfg, params, sm_count, new_tokens, kv_dtype="int8")
 
     clock("chunk step phase")
@@ -5444,9 +5926,13 @@ def main() -> int:
     gemma = gemma_phase(torch, sm_count, smi)
     clock("sweep phase")
     sweep = sweep_phase(torch, sm_count, smi)
+    # 18. the recurrent architectures: K7 at recurrentgemma's window layers,
+    # recurrentgemma-9b and xlstm-350m at full width and depth
+    clock("recurrent phase")
+    recurrent = recurrent_phase(torch, sm_count, smi)
 
     clock("summary")
-    # 18. summary: kernel times in bf16 at the main path's shapes; launches
+    # 19. summary: kernel times in bf16 at the main path's shapes; launches
     # from the run of the path each kernel serves
     k6 = k6res[(DECODE_SHAPES[0], "bfloat16")]
     kres[("flash_decode_partials", "bfloat16")] = k6
@@ -5524,10 +6010,23 @@ def main() -> int:
             "launches": arch_launches[(name, arch)], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    # K7 at recurrentgemma's window layers (3000 keys), launches from its
+    # first captured run; xlstm-350m launches no kernel
+    r = recurrent["k7"][RG_K7_KEYS[0]]
+    source, replaces = where["flash_prefill"]
+    kernels.append({
+        "name": rg_k7_name(), "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}",
+        "replaces": replaces, "launches": recurrent["launches"]["recurrentgemma-9b"]["K7"],
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     print(f"attention-family phases: qwen3-moe at {qwen3['depth']} layers; captured against "
           f"eager bit for bit: qwen3 {qwen3['bits']}, gemma3 {gemma['bits']}; launches "
           f"(lean runs) " + "; ".join(f"{arch_name(n, a)} {v}" for (n, a), v
                                       in arch_launches.items()), flush=True)
+    print("recurrent phase: launches (first captured runs) " + "; ".join(
+        f"{arch} " + (", ".join(f"{k} {v}" for k, v in c.items() if v) or "none")
+        for arch, c in recurrent["launches"].items())
+        + f"; captured against eager bit for bit: {recurrent['bits']}", flush=True)
     print(f"fused K4 launches from the spec phase's verify steps (bf16 pages, oracle): "
           f"{k4_verify}", flush=True)
     print(f"launches in the guards phase's chaos run (bf16 pages; K1 from level-2 passes, K2 "

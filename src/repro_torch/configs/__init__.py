@@ -1,8 +1,7 @@
 """Architecture registry: ``get_config(name)`` / ``get_smoke_config(name)``
-(port of ``repro.configs``). Only the architectures the port runs are
-registered: those whose layers are all attention kinds. The recurrent ones
-(``recurrentgemma-9b``, ``xlstm-350m``) come with ROADMAP queue 1, item 14
-(``models/recurrent.py``)."""
+(port of ``repro.configs``): the attention-family architectures and the
+recurrent ones (``recurrentgemma-9b``: RG-LRU with sliding-window
+attention; ``xlstm-350m``: mLSTM and sLSTM)."""
 from __future__ import annotations
 
 import importlib
@@ -19,6 +18,8 @@ ARCH_IDS: List[str] = [
     "gemma3-4b",
     "mistral-nemo-12b",
     "nemotron-4-15b",
+    "recurrentgemma-9b",
+    "xlstm-350m",
 ]
 
 

@@ -1,9 +1,11 @@
 """Decoder-only transformer for the serving paths (port of
-``repro.models.transformer`` for the architectures whose layers are all
-attention kinds: ``attn`` (global), ``win`` (sliding window) and
-``xattn`` (self attention plus gated cross attention to image
-embeddings), each with a SwiGLU, GeLU or squared-ReLU FFN or a MoE
-(:mod:`.moe`), with rotary or absolute sinusoidal positions).
+``repro.models.transformer``): the attention kinds ``attn`` (global),
+``win`` (sliding window) and ``xattn`` (self attention plus gated cross
+attention to image embeddings), each with a SwiGLU, GeLU or squared-ReLU
+FFN or a MoE (:mod:`.moe`), with rotary or absolute sinusoidal positions;
+and the recurrent kinds (:mod:`.recurrent`) ``rglru`` (Griffin's RG-LRU,
+with the FFN) and ``mlstm`` / ``slstm`` (xLSTM's self-contained blocks,
+no FFN).
 
 Parameters are a plain dict: ``embed``, ``final_norm``, optional
 ``unembed``, and ``layers``, one dict per layer in execution order (the
@@ -23,11 +25,15 @@ slot, ``S`` the cache length or, for a ``win`` layer, its ring of
 ``kv_cache_dtype="int8"`` int8 pools and ``"k_scale"``/``"v_scale"``
 ``(num_pages, Hkv)`` float32 beside them); ``win`` and ``xattn`` layers
 keep their dense per-slot rows in bf16, as the reference's paged cache
-does. :func:`decode_step`, :func:`prefill_chunks` and :func:`verify_step`
-write new K/V into it in place.
+does. A recurrent layer keeps its per-slot float32 state dense in both:
+``rglru`` ``"h"`` ``(batch, d_rnn)`` and ``"conv"`` ``(batch, 3, d_rnn)``;
+``mlstm`` ``"C"`` ``(batch, H, hd, hd)``, ``"n"`` ``(batch, H, hd)``, ``"m"``
+``(batch, H)`` (``hd`` of the projected width); ``slstm`` ``"c"``, ``"n"``,
+``"m"``, ``"h"`` ``(batch, H, d_model / H)``. :func:`decode_step`,
+:func:`prefill_chunks` and :func:`verify_step` write new K/V and states
+into it in place.
 
-Recurrent layer kinds (``rglru``, ``mlstm``, ``slstm``) and f8 caches are
-refused (:func:`check_supported`).
+f8 caches are refused (:func:`check_supported`).
 """
 from __future__ import annotations
 
@@ -54,15 +60,17 @@ from .layers import (
     sinusoidal_pos,
 )
 from .moe import MoEConfig, moe_forward, moe_param_shapes
+from . import recurrent as rec
 
 ATTN_KINDS = ("attn", "win", "xattn")
+RECURRENT_KINDS = ("rglru", "mlstm", "slstm")
 
 
 @dataclass(frozen=True)
 class ModelConfig:
     """Copy of ``repro.models.transformer.ModelConfig``. Fields of what the
-    port does not run (the recurrent kinds' widths, training settings) are
-    kept so configurations read the same."""
+    port does not run (training settings) are kept so configurations read
+    the same."""
 
     name: str
     d_model: int
@@ -79,7 +87,7 @@ class ModelConfig:
     rope_theta: Optional[float] = 10000.0   # None -> sinusoidal absolute
     qk_norm: bool = False
     cross_kv_len: int = 0                   # >0 for 'xattn' archs
-    d_rnn: int = 0
+    d_rnn: int = 0                          # rglru width (0 -> d_model)
     mlstm_proj_factor: float = 2.0
     tie_embeddings: bool = True
     norm_eps: float = 1e-6
@@ -97,6 +105,10 @@ class ModelConfig:
         if n != self.n_layers:
             raise ValueError(f"{self.name}: stages give {n} layers")
 
+    @property
+    def rnn_width(self):
+        return self.d_rnn or self.d_model
+
 
 def layer_kinds(cfg: ModelConfig) -> List[str]:
     """Each layer's kind in execution order: stage by stage, repeat by
@@ -107,12 +119,6 @@ def layer_kinds(cfg: ModelConfig) -> List[str]:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Refuse what this port does not run yet, naming its ROADMAP item."""
-    later = sorted({kind for pattern, _ in cfg.stages for kind in pattern} - set(ATTN_KINDS))
-    if later:
-        raise NotImplementedError(
-            f"{cfg.name}: recurrent layer kinds {later} are not ported yet "
-            "(ROADMAP queue 1, item 14: models/recurrent.py)"
-        )
     if cfg.kv_cache_dtype not in ("bf16", "int8"):
         raise NotImplementedError(
             f"{cfg.name}: kv_cache_dtype {cfg.kv_cache_dtype!r} is not ported yet "
@@ -130,9 +136,11 @@ def init_params(
     """Random weights with the reference's initialisation (normal /
     sqrt(fan_in) -- for a stacked expert weight ``(E, ...)`` the reference
     takes ``E`` as the fan-in, and so does the port --, embeddings 0.02, norm
-    weights and the cross-attention gate 0), drawn from
-    ``generator`` on its device and stored on ``device``: matmul weights in
-    ``dtype``, norm weights in float32. (The numbers differ from the JAX
+    weights and the cross-attention gate 0; the recurrent blocks' own, of
+    :mod:`.recurrent`), drawn from ``generator`` on its device and stored
+    on ``device``: matmul weights in ``dtype``, norm weights and the
+    recurrent leaves the reference reads as float32 (:data:`F32_KEYS`) in
+    float32. (The numbers differ from the JAX
     package's for the same seed; the tests carry weights across with
     :func:`params_from_numpy` instead.)"""
     check_supported(cfg)
@@ -167,12 +175,22 @@ def init_params(
         return {k: tree(v) if isinstance(v, dict) else dense(v) for k, v in shapes.items()}
 
     for kind in layer_kinds(cfg):
-        layer = {"ln1": zeros(D), "attn": attn_params()}
+        layer = {"ln1": zeros(D)}
+        if kind == "rglru":
+            layer["rec"] = rec.rglru_init(generator, D, cfg.rnn_width, dev, dtype)
+        elif kind == "mlstm":
+            layer["rec"] = rec.mlstm_init(generator, D, Hq, cfg.mlstm_proj_factor, dev, dtype)
+        elif kind == "slstm":
+            layer["rec"] = rec.slstm_init(generator, D, Hq, dev, dtype)
+        else:
+            layer["attn"] = attn_params()
         if kind == "xattn":
             layer["ln_x"] = zeros(D)
             layer["xattn"] = attn_params()
             layer["xgate"] = zeros(())
-        if cfg.moe is not None:
+        if kind in ("mlstm", "slstm"):
+            pass                        # self-contained blocks: no FFN
+        elif cfg.moe is not None:
             layer["ln2"], layer["moe"] = zeros(D), tree(moe_param_shapes(D, cfg.moe))
         elif F > 0:
             # drawn in the order the reference's ffn_init lays them out
@@ -184,21 +202,28 @@ def init_params(
     return params
 
 
-_NORM_KEYS = ("ln1", "ln2", "ln_x", "xgate", "q_norm", "k_norm", "final_norm")
+# leaves read as float32: the norms and the gate, and the recurrent
+# blocks' lam (recurrent.py:65), b_if (:133), sLSTM's r (:366) and inner
+# norms (:315, :385 of repro/models/recurrent.py)
+F32_KEYS = ("ln1", "ln2", "ln_x", "xgate", "q_norm", "k_norm", "final_norm",
+            "lam", "b_if", "r", "ln_inner")
+# a recurrent layer's per-slot state leaves, float32 in every cache
+STATE_KEYS = ("h", "conv", "C", "n", "m", "c")
 
 
 def params_from_numpy(tree, cfg: ModelConfig, device: DeviceLike = "cuda") -> Dict:
     """The port's parameters from the JAX parameter tree as numpy
     (``jax.tree.map(np.asarray, params)``): stacked ``stages`` become the
     flat ``layers`` list (:func:`layer_kinds` order), matmul weights -- the
-    MoE router and experts too -- go to bf16 and norms and the gate stay
+    MoE router and experts too -- go to bf16 and the :data:`F32_KEYS`
+    leaves (norms, the gate, the recurrent ``lam``, ``b_if``, ``r``) stay
     float32, so both packages compute the same model."""
     check_supported(cfg)
     dev = resolve_device(device)
 
     def conv(name, a):
         t = torch.from_numpy(np.array(a, dtype=np.float32))
-        return t.to(device=dev, dtype=torch.float32 if name in _NORM_KEYS else torch.bfloat16)
+        return t.to(device=dev, dtype=torch.float32 if name in F32_KEYS else torch.bfloat16)
 
     def walk(name, node):
         if isinstance(node, dict):
@@ -225,8 +250,9 @@ def cache_from_numpy(tree, cfg: ModelConfig, device: DeviceLike = "cuda"
                      ) -> List[Dict[str, torch.Tensor]]:
     """The port's decode cache from the JAX package's cache tree as numpy
     (``jax.tree.map(np.asarray, cache)``): the stacked ``stages`` become one
-    dict per layer; int8 pools stay int8, scales float32, K/V bf16 -- so a
-    JAX engine's pools can be compared with, or handed to, the port's."""
+    dict per layer; int8 pools stay int8, scales and recurrent states
+    float32, K/V bf16 -- so a JAX engine's pools can be compared with, or
+    handed to, the port's."""
     dev = resolve_device(device)
 
     def conv(name, a):
@@ -234,7 +260,8 @@ def cache_from_numpy(tree, cfg: ModelConfig, device: DeviceLike = "cuda"
         if a.dtype == np.int8:
             return torch.from_numpy(a.copy()).to(dev)
         t = torch.from_numpy(np.array(a, dtype=np.float32))
-        return t.to(device=dev, dtype=torch.float32 if name.endswith("_scale") else torch.bfloat16)
+        f32 = name.endswith("_scale") or name in STATE_KEYS
+        return t.to(device=dev, dtype=torch.float32 if f32 else torch.bfloat16)
 
     layers = []
     for (pattern, reps), stage in zip(cfg.stages, tree):
@@ -253,6 +280,16 @@ def _index(node, r):
 # ------------------------------------------------------------------ caches
 def _dense_layer_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int, dev
                        ) -> Dict[str, torch.Tensor]:
+    if kind in RECURRENT_KINDS:
+        H = cfg.n_heads
+        zeros = lambda *shape: torch.zeros((batch,) + shape, dtype=torch.float32, device=dev)
+        if kind == "rglru":
+            return {"h": zeros(cfg.rnn_width), "conv": zeros(3, cfg.rnn_width)}
+        if kind == "mlstm":
+            hd = int(cfg.d_model * cfg.mlstm_proj_factor) // H
+            return {"C": zeros(H, hd, hd), "n": zeros(H, hd), "m": zeros(H)}
+        hd = cfg.d_model // H
+        return {name: zeros(H, hd) for name in ("c", "n", "m", "h")}
     S = min(cache_len, cfg.window) if kind == "win" else cache_len
     shape = (batch, cfg.n_kv_heads, S, cfg.head_dim)
     lc = {"k": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
@@ -271,7 +308,8 @@ def init_cache(
     per layer bf16 K and V rows ``(batch, H_kv, S, head_dim)``, one row per
     slot, zero-filled -- ``S`` is ``cache_len``, or ``min(cache_len,
     window)`` for a ``win`` layer's ring; an ``xattn`` layer adds
-    ``"xk"``/``"xv"`` rows of ``cross_kv_len``."""
+    ``"xk"``/``"xv"`` rows of ``cross_kv_len``; a recurrent layer holds its
+    zero float32 states, one row per slot."""
     check_supported(cfg)
     dev = resolve_device(device)
     return [_dense_layer_cache(cfg, kind, batch, cache_len, dev) for kind in layer_kinds(cfg)]
@@ -289,14 +327,14 @@ def init_paged_cache(
     page (all writes then go through
     :func:`repro_torch.core.attention.paged_scatter_tokens_quant`). One
     allocator's page ids index every layer's pools. Page 0 is the null
-    page. ``win`` and ``xattn`` layers keep the dense per-slot rows of
-    :func:`init_cache` for ``batch`` slots of ``cache_len`` (bf16 even
-    beside int8 pools: only the shared pools quantize)."""
+    page. ``win``, ``xattn`` and recurrent layers keep the dense per-slot
+    rows of :func:`init_cache` for ``batch`` slots of ``cache_len`` (bf16
+    K/V even beside int8 pools: only the shared pools quantize)."""
     check_supported(cfg)
     dev = resolve_device(device)
     kinds = layer_kinds(cfg)
     if any(kind != "attn" for kind in kinds) and (batch < 1 or cache_len < 1):
-        raise ValueError(f"{cfg.name}: its 'win'/'xattn' layers keep dense per-slot caches; "
+        raise ValueError(f"{cfg.name}: its non-'attn' layers keep dense per-slot caches; "
                          "pass batch and cache_len")
     shape = (num_pages, cfg.n_kv_heads, page_size, cfg.head_dim)
     quant = cfg.kv_cache_dtype == "int8"
@@ -445,25 +483,41 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, cache_len: int,
     computes what the reference computes: :func:`mha_prefill_ref`, or the
     q-chunked :func:`mha_prefill_chunked` for prompts longer than
     ``attn_q_chunk`` (:func:`_prefill_attn` picks).
+
+    A recurrent layer (:mod:`.recurrent`) runs its whole-sequence form and
+    its entry is its state after the prompt (``repro/models/transformer.py:
+    541-561``). The reference scans pad tokens into that state, so it
+    refuses ``true_len`` for recurrent kinds, and so does the port
+    (``ValueError``, "bucketed prefill"): their prompts are prefilled at
+    their exact length.
     """
     check_supported(cfg)
     B, L = tokens.shape
+    if true_len is not None:
+        bad = sorted(set(layer_kinds(cfg)) - set(ATTN_KINDS))
+        if bad:
+            raise ValueError(f"bucketed prefill (true_len) unsupported for recurrent stage kinds "
+                             f"{bad}: pad tokens would corrupt the carried state")
     if L > cache_len and write_kv is None:
         raise ValueError(f"prompt of {L} tokens exceeds cache_len {cache_len}")
     attn = _prefill_attn(cfg, L, tokens.device)
     x = _embed(params, cfg, tokens)
     cache = None if write_kv is not None else []
     for i, (lp, kind) in enumerate(zip(params["layers"], layer_kinds(cfg))):
-        x, (kh, vh), xkv = _attn_full(lp, x, cfg, kind, img_emb, attn)
-        kh, vh = kh.to(torch.bfloat16), vh.to(torch.bfloat16)
-        if kind == "win":
-            kh, vh = ring_from_prefill(kh, vh, min(cache_len, cfg.window), true_len)
-        elif write_kv is None:
-            pad = (0, 0, 0, cache_len - L)
-            kh, vh = torch.nn.functional.pad(kh, pad), torch.nn.functional.pad(vh, pad)
-        entry = {"k": kh, "v": vh}
-        if xkv is not None:
-            entry["xk"], entry["xv"] = xkv[0].to(torch.bfloat16), xkv[1].to(torch.bfloat16)
+        if kind in RECURRENT_KINDS:
+            h, entry = _recurrent_prefill(lp, rms_norm(x, lp["ln1"], cfg.norm_eps), kind, cfg)
+            x = x + h
+        else:
+            x, (kh, vh), xkv = _attn_full(lp, x, cfg, kind, img_emb, attn)
+            kh, vh = kh.to(torch.bfloat16), vh.to(torch.bfloat16)
+            if kind == "win":
+                kh, vh = ring_from_prefill(kh, vh, min(cache_len, cfg.window), true_len)
+            elif write_kv is None:
+                pad = (0, 0, 0, cache_len - L)
+                kh, vh = torch.nn.functional.pad(kh, pad), torch.nn.functional.pad(vh, pad)
+            entry = {"k": kh, "v": vh}
+            if xkv is not None:
+                entry["xk"], entry["xv"] = xkv[0].to(torch.bfloat16), xkv[1].to(torch.bfloat16)
         x = _ffn_part(lp, x, cfg)
         if write_kv is not None:
             write_kv(i, entry)
@@ -477,6 +531,41 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, cache_len: int,
         x_last = x[:, n - 1]
     x_last = rms_norm(x_last, params["final_norm"], cfg.norm_eps)
     return _unembed(params, cfg, x_last), cache, n
+
+
+def _recurrent_prefill(p, xn: torch.Tensor, kind: str, cfg: ModelConfig):
+    """A recurrent layer's block over the normed prompt: its output and its
+    state entry after the prompt, float32."""
+    if kind == "rglru":
+        h, (hT, conv) = rec.rglru_forward(p["rec"], xn)
+        return h, {"h": hT, "conv": conv.float()}
+    if kind == "mlstm":
+        h, (C, n, m) = rec.mlstm_block_forward(p["rec"], xn, cfg.n_heads)
+        return h, {"C": C, "n": n, "m": m}
+    h, (c, n, m, hs) = rec.slstm_forward(p["rec"], xn, cfg.n_heads)
+    return h, {"c": c, "n": n, "m": m, "h": hs}
+
+
+def _recurrent_step(p, lc: Dict[str, torch.Tensor], xn: torch.Tensor, kind: str,
+                    cfg: ModelConfig) -> torch.Tensor:
+    """A recurrent layer's decode step over every slot (``repro/models/
+    transformer.py:878-899``): its output, its state advanced *in place*
+    (``copy_`` into the cache's tensors, so a captured step's replay
+    advances the real state)."""
+    if kind == "rglru":
+        h, hn, conv = rec.rglru_step(p["rec"], xn, lc["h"], lc["conv"])
+        new = {"h": hn, "conv": conv}
+    elif kind == "mlstm":
+        h, (C, n, m) = rec.mlstm_block_step(p["rec"], xn, cfg.n_heads,
+                                            (lc["C"], lc["n"], lc["m"]))
+        new = {"C": C, "n": n, "m": m}
+    else:
+        h, (c, n, m, hs) = rec.slstm_step(p["rec"], xn, cfg.n_heads,
+                                          (lc["c"], lc["n"], lc["m"], lc["h"]))
+        new = {"c": c, "n": n, "m": m, "h": hs}
+    for name, t in new.items():
+        lc[name].copy_(t)
+    return h
 
 
 def decode_step(
@@ -501,7 +590,9 @@ def decode_step(
     read of their cached image K/V (:func:`cross_attn_decode`). Sinusoidal
     positions (``rope_theta`` None) are those of ``cur_len`` for every slot
     -- an int or a one-element device tensor; by default ``max(ctx_lens)``,
-    what the reference's engine passes."""
+    what the reference's engine passes. A recurrent layer advances every
+    slot's state, masked and idle slots' too, as the reference's step does
+    (:func:`_recurrent_step`)."""
     check_supported(cfg)
     if ctx_lens is None:
         raise ValueError("decode_step needs the per-slot lengths ctx_lens")
@@ -513,6 +604,9 @@ def decode_step(
     writer = None                   # the null-page writes' rows, once for every paged layer
     for lp, lc, kind in zip(params["layers"], cache, layer_kinds(cfg)):
         xn = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        if kind in RECURRENT_KINDS:
+            x = _ffn_part(lp, x + _recurrent_step(lp, lc, xn, kind, cfg), cfg)
+            continue
         if page_tbl is not None and kind == "attn":
             if writer is None:
                 writer = decode_writer_rows(page_tbl, ctx_lens, lc["k"].shape[2])
@@ -625,3 +719,29 @@ def verify_step(
                        attn_fn)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _unembed(params, cfg, x), cache
+
+
+def count_params(cfg: ModelConfig) -> int:
+    """Analytic parameter count (``repro/models/transformer.py:943-978``)."""
+    D, F, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    Hq, Hkv, hd = cfg.true_n_heads or cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    total = V * D + (0 if cfg.tie_embeddings else D * V)
+    if cfg.moe is not None:
+        E, Fe = cfg.moe.num_experts, cfg.moe.d_ff_expert
+        ffn = D * E + 3 * E * D * Fe + (3 * D * cfg.moe.d_ff_shared if cfg.moe.d_ff_shared else 0)
+    else:
+        ffn = (3 if cfg.ffn_kind == "swiglu" else 2) * D * F
+    for kind in layer_kinds(cfg):
+        if kind in ATTN_KINDS:
+            p = (D * Hq * hd * 2 + D * Hkv * hd * 2) * (2 if kind == "xattn" else 1) + ffn
+        elif kind == "rglru":
+            W = cfg.rnn_width
+            p = 2 * D * W + W * D + 2 * W * W + 5 * W + ffn
+        elif kind == "mlstm":
+            pd = int(D * cfg.mlstm_proj_factor)
+            p = D * 2 * pd + 3 * pd * pd + pd * 2 * cfg.n_heads + pd * D
+        else:
+            hd_s = D // cfg.n_heads
+            p = D * 4 * D + cfg.n_heads * hd_s * 4 * hd_s + D * D
+        total += p
+    return int(total)

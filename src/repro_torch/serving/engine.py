@@ -93,6 +93,10 @@ Blocking prefill runs at the reference's bucket length
 the pad tokens' K/V land in the tail of the last page (on an int8 pool
 they count in its scale) or of the dense row, masked by every read; each
 layer's K/V go into the pages or the row as soon as the layer has run.
+An architecture with recurrent layers (``rglru``, ``mlstm``, ``slstm``)
+is prefilled at the exact prompt length, as the reference's is, and each
+recurrent layer's state goes into the slot's row; its decode step
+advances every slot's state, as the reference's does.
 Observability (:mod:`repro_torch.obs`, ``EngineConfig.obs``) is wired as
 the reference wires it. A :class:`~repro_torch.obs.metrics.MetricsRegistry`
 (always on) holds every :class:`EngineStats` counter as ``engine_<name>``
@@ -207,6 +211,7 @@ from repro_torch.kernels.ops import (
 from repro_torch.models.layers import dequant_pool
 from repro_torch.models.transformer import (
     ATTN_KINDS,
+    RECURRENT_KINDS,
     ModelConfig,
     check_supported,
     decode_step,
@@ -287,6 +292,10 @@ _STAT_COUNTERS = (
 # the steps run through _run_step: the fast-path decode step (the cascade's
 # too), the chunk step, the speculative verify step, blocking admission
 STEP_KINDS = ("decode", "chunk", "verify", "admit")
+# captured admissions held at once by an engine that admits at the exact
+# prompt length (one key per distinct length, which no bucket bounds): the
+# least recently used goes back to its warm-up
+EXACT_ADMIT_GRAPHS = 4
 
 
 class EngineStats:
@@ -442,10 +451,6 @@ def _cache_ptrs(cache) -> tuple:
 # architectures and EngineConfig parts this port does not run yet, with
 # their ROADMAP item
 def _unported(cfg: ModelConfig, config: EngineConfig) -> Optional[str]:
-    recurrent = sorted(set(layer_kinds(cfg)) - set(ATTN_KINDS))
-    if recurrent:
-        return (f"recurrent layer kinds {recurrent} (ROADMAP queue 1, item 14: "
-                "models/recurrent.py)")
     if (config.paged.kv_dtype or cfg.kv_cache_dtype) not in ("bf16", "int8"):
         return "f8, f16 and f32 KV pools (ROADMAP queue 1, item 18)"
     return None
@@ -630,11 +635,17 @@ class DecodeEngine:
                               help="stream-K schedule cache hit rate")
         # the captured steps (decode, chunk, verify, admission): key ->
         # (schedule, graph, or None while the key has only had its eager
-        # warm-up), dropped with their schedule; capture_decode = False runs
-        # every step eagerly
+        # warm-up), dropped with their schedule (exact-length admissions: the
+        # least recently used beyond EXACT_ADMIT_GRAPHS); capture_decode =
+        # False runs every step eagerly
         self.capture_decode = self.device.type == "cuda"
         self._graphs: Dict[tuple, Tuple[object, Optional[_StepGraph]]] = {}
         self._prefill_shapes: set = set()   # distinct admission bucket lengths
+        # bucketed admission needs every layer to be an attention kind:
+        # recurrent layers would scan the pad tokens into their state, so
+        # those architectures are admitted at the exact prompt length
+        self.bucket_prefill = all(kind in ATTN_KINDS for kind in self.layer_kinds)
+        self._exact_admits: Dict[tuple, None] = {}   # captured exact-length admissions, LRU first
         self._graph_pool = None
         self._capture_stream = None
         self.sched_cache.on_evict = _weak_hook(self._drop_graphs)
@@ -736,19 +747,27 @@ class DecodeEngine:
         layer's into the slot's pages (:meth:`_write_pages`, the reference's
         ``_write_slot_paged``) on a paged engine, every other into the
         slot's dense row (:meth:`_write_row`, its ``_write_slot``; a ``win``
-        layer's ring of the prompt's last real positions). Inputs: the
-        padded tokens, the true length, the pages (as many as the bucket
-        covers, the tail 0) and the slot. Keyed on the layout and the bucket
+        layer's ring of the prompt's last real positions; a recurrent
+        layer's state). Inputs: the padded tokens, the true length, the
+        pages (as many as the bucket covers, the tail 0) and the slot. Keyed
+        on the layout and the bucket length. An architecture with recurrent
+        layers is prefilled at the exact prompt length instead, with no true
+        length (pad tokens would enter its state): the reference's
+        ``bucket_prefill`` rule (``repro/serving/engine.py:895-904``,
+        ``:1057-1072``), one key and one ``prefill_compiles`` per distinct
         length."""
         if "xattn" in self.layer_kinds:
             raise NotImplementedError(f"not ported yet: {XATTN_ADMISSION}")
         plen = len(prompt)
-        L = bucket_length(plen, self.tile, max_len=self.cache_len)
+        bucketed = self.bucket_prefill
+        L = bucket_length(plen, self.tile, max_len=self.cache_len) if bucketed else plen
         self._prefill_shapes.add(L)
         self.stats.prefill_compiles = len(self._prefill_shapes)
         toks = np.zeros((1, L), dtype=np.int32)
         toks[0, :plen] = np.asarray(prompt)
-        host = {"tokens": toks, "true_len": np.asarray([plen], dtype=np.int32)}
+        host = {"tokens": toks}
+        if bucketed:
+            host["true_len"] = np.asarray([plen], dtype=np.int32)
         if self.paged:
             tbl = np.zeros(-(-L // self.tile), dtype=np.int32)
             tbl[:len(pages)] = pages
@@ -767,20 +786,24 @@ class DecodeEngine:
                     self._write_row(slot_b, layer, entry)
 
             logits, _, _ = prefill(self.params, self.cfg, b["tokens"], cache_len=self.cache_len,
-                                   true_len=b["true_len"], write_kv=write)
+                                   true_len=b.get("true_len"), write_kv=write)
             return logits
 
         return _Step((self._layout_key(), "admit", L), host, body, None, kind="admit")
 
     def _write_row(self, slot: torch.Tensor, layer: int, entry: Dict[str, torch.Tensor]):
-        """Dense admission of one layer: each of its cache entries ``(1, H,
-        n, hd)`` -- an ``attn`` layer's K/V of the prompt, a ``win``
-        layer's ring -- padded with zeros to the row's length and copied
-        into row ``slot`` (a one-element device tensor), in place -- the
-        reference's ``_write_slot`` (``repro/serving/engine.py:246-260``)."""
+        """Dense admission of one layer into row ``slot`` (a one-element
+        device tensor), in place -- the reference's ``_write_slot``
+        (``repro/serving/engine.py:246-260``): each K/V entry ``(1, H, n,
+        hd)`` (an ``attn`` layer's K/V of the prompt, a ``win`` layer's
+        ring) padded with zeros to the row's length; a recurrent layer's
+        states (``h (1, W)``, ``conv (1, 3, W)``, ``C (1, H, hd, hd)``, ...)
+        whole."""
         lc = self.cache[layer]
+        recurrent = self.layer_kinds[layer] in RECURRENT_KINDS
         for name, src in entry.items():
-            row = torch.nn.functional.pad(src, (0, 0, 0, lc[name].shape[2] - src.shape[2]))
+            row = src if recurrent else torch.nn.functional.pad(
+                src, (0, 0, 0, lc[name].shape[2] - src.shape[2]))
             lc[name].index_copy_(0, slot, row.to(lc[name].dtype))
 
     def _write_pages(self, pages: torch.Tensor, layer: int, k: torch.Tensor, v: torch.Tensor):
@@ -1793,7 +1816,21 @@ class DecodeEngine:
         if rec is None:
             rec = self._capture(step, flat, layout)
             self._graphs[key] = (step.sched, rec)
+        if step.kind == "admit" and not self.bucket_prefill:
+            self._hold_exact_admission(key)
         return self._replay(rec, flat)
+
+    def _hold_exact_admission(self, key: tuple) -> None:
+        """Mark the captured exact-length admission ``key`` most recently
+        used and drop the least recently used beyond ``EXACT_ADMIT_GRAPHS``
+        (its key then warms up again)."""
+        held = self._exact_admits
+        held.pop(key, None)
+        held[key] = None
+        while len(held) > EXACT_ADMIT_GRAPHS:
+            old = next(iter(held))
+            del held[old]
+            self._graphs.pop(old, None)
 
     def _capture(self, step: _Step, flat: np.ndarray, layout: tuple) -> _StepGraph:
         """Capture ``step.body`` on the engine's capture stream into the

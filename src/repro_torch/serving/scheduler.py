@@ -639,7 +639,8 @@ class Scheduler:
             "spec_draft_tokens": es.spec_draft_tokens,
             "spec_accepted_tokens": es.spec_accepted_tokens,
             "spec_accept_rate": es.spec_accepted_tokens / max(1, es.spec_draft_tokens),
-            # the guards' and faults' counters: 0 until ROADMAP queue 1, item 12
+            # the guards' and faults' counters (0 on an engine without guards or
+            # an injector)
             "nan_ticks": es.nan_ticks,
             "degrade_escalations": es.degrade_escalations,
             "degrade_heals": es.degrade_heals,

@@ -10,8 +10,14 @@ and prompts through the same ``EngineConfig`` on both sides.
 - ``musicgen-large`` on the paged engine with ragged prompts: sinusoidal
   positions go in at ``max(ctx_lens)`` for every slot of a decode step, on
   both sides (the reference's own behaviour, kept);
+- ``recurrentgemma-9b`` (RG-LRU and window layers) and ``xlstm-350m``
+  (mLSTM and sLSTM) on the paged and dense engines, admitted at their exact
+  prompt lengths (``prefill_compiles`` as the JAX engine's), through the
+  Scheduler's blocking fallback, preempted and recomputed, and on a
+  degraded pass, whose masked slots' states the reference's step advances
+  too (ROADMAP queue 3);
 - the refusals: ``xattn`` admission, speculative decode without chunked
-  prefill, the recurrent architectures.
+  prefill.
 
 Streams. Greedy streams of random smoke models meet near ties, and the JAX
 engine jits its steps where the port runs them eagerly on the CPU (XLA's
@@ -20,7 +26,6 @@ scheduler.py``). A stream must equal the JAX engine's, or leave it where
 the port's own top-2 logit gap at that token is below ``NEAR_TIE`` = 2**-4
 (the contexts agree up to there, so the gap is the margin the pick had).
 """
-import dataclasses
 
 import numpy as np
 import pytest
@@ -58,11 +63,13 @@ def _model(arch):
 class _Rows(DecodeEngine):
     """The port's engine, recording the logits row each emitted token was
     picked from, per request: admission, the chunk that ends a prompt, then
-    each decode pass."""
+    each decode tick (from the pass the slot decoded in: a tick with a
+    degraded slot runs one pass per level)."""
 
     def __init__(self, *a, **kw):
         super().__init__(*a, **kw)
         self.rows = {}
+        self.pass_rows = {}             # slot -> its row of the pass it decoded in
 
     def _run_prompt_prefill(self, prompt, slot, pages):
         logits = super()._run_prompt_prefill(prompt, slot, pages)
@@ -78,11 +85,15 @@ class _Rows(DecodeEngine):
                     self.last_prefill_logits[i].float().numpy())
         return toks
 
+    def _decode_pass(self, level, slots, active, exclude):
+        logits = super()._decode_pass(level, slots, active, exclude)
+        self.pass_rows.update({s: logits[s].float().numpy() for s in slots})
+        return logits
+
     def _emit_tokens(self, results, guard_on, spec=None):
         for slots, _, _ in results:
             for s in slots:
-                self.rows.setdefault(self.slot_req[s].uid, []).append(
-                    self.last_logits[s].float().numpy())
+                self.rows.setdefault(self.slot_req[s].uid, []).append(self.pass_rows[s])
         return super()._emit_tokens(results, guard_on, spec)
 
 
@@ -287,15 +298,168 @@ def test_spec_refused_without_chunked_prefill(arch):
                                            spec=SpecConfig(enabled=True, k=2)), device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-350m"])
-def test_recurrent_architectures_refused(arch):
-    """The recurrent kinds are the rest of ROADMAP queue 1, item 14: the
-    engine refuses them, naming it."""
-    from repro.configs import get_config as jget
+RECURRENT = ["recurrentgemma-9b", "xlstm-350m"]
+_JAX_RUNS = {}
 
-    cfg_j = jget(arch)
-    base = get_smoke_config("mistral-nemo-12b")
-    cfg = dataclasses.replace(base, name=arch, n_layers=cfg_j.n_layers, stages=cfg_j.stages)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        DecodeEngine(cfg, {}, EngineConfig(paged=PagedConfig(enabled=True, page_size=8),
-                                           max_batch=2, cache_len=32), device="cpu")
+
+def _recurrent_prompts(arch):
+    return _prompts(_model(arch)[1].vocab_size, (21, 13, 5), seed=7)
+
+
+def _jax_streams(arch, paged):
+    """The JAX lean engine's streams and ``prefill_compiles`` on the
+    recurrent prompts (21, 13 and 5 tokens: past recurrentgemma's window of
+    8), memoised: several tests hold the port to them."""
+    if (arch, paged) not in _JAX_RUNS:
+        eng = _engine(arch, "jax", "lean", paged=paged)
+        want = _serve(eng, "jax", _recurrent_prompts(arch), False)
+        _JAX_RUNS[arch, paged] = (want, eng.stats.prefill_compiles)
+    return _JAX_RUNS[arch, paged]
+
+
+@pytest.mark.parametrize("paged", [True, False])
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_engine_matches_jax(arch, paged):
+    """The recurrent architectures on the lean engine, paged (no layer is
+    pooled: ``win`` rings and states stay dense per slot) and dense:
+    streams as the JAX engine's; every prompt admitted at its exact length
+    (no true length, one admission key per length), ``prefill_compiles``
+    equal to the JAX engine's."""
+    want, compiles = _jax_streams(arch, paged)
+    prompts = _recurrent_prompts(arch)
+    eng = _engine(arch, "port", "lean", paged=paged)
+    got = _serve(eng, "port", prompts, False)
+    assert len(_held_to(got, want, eng.rows)) <= 1
+    assert not eng.bucket_prefill and not eng.supports_chunked_prefill()
+    assert eng.stats.prefill_compiles == compiles == len(prompts)
+    assert eng._prefill_shapes == {len(p) for p in prompts}
+    if paged:
+        assert eng.pool.layout.n_attn_layers == 0
+        eng.pool.check()
+        assert eng.pool.num_allocated == 0
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_scheduler_blocking_fallback(arch):
+    """The Scheduler over a recurrent engine (``chunked`` left to the
+    engine) falls back to blocking whole-prompt admission, since the engine
+    reports no chunked prefill, as the reference's does (asking for chunks
+    is its ValueError): no chunk step runs, and the streams are the JAX
+    engine's."""
+    want, _ = _jax_streams(arch, True)
+    eng = _engine(arch, "port", "lean")
+    with pytest.raises(ValueError, match="supports_chunked_prefill"):
+        tsched.Scheduler(eng, tsched.SchedulerConfig(chunked=True, **SCHED))
+    sch = tsched.Scheduler(eng, tsched.SchedulerConfig(**SCHED))
+    assert not sch.chunked
+    hs = [sch.submit(p, NEW, uid=i) for i, p in enumerate(_recurrent_prompts(arch))]
+    sch.run_to_completion(max_steps=400)
+    got = {h.uid: list(h.generated) for h in hs}
+    assert eng.stats.chunk_prefills == 0 and eng.stats.prefills == 3
+    assert len(_held_to(got, want, eng.rows)) <= 1
+    eng.pool.check()
+    assert eng.pool.num_allocated == 0
+
+
+def _preempted_run(arch, side):
+    """The recurrent prompts on the paged lean engine, slot 0 preempted
+    after its third token: it is readmitted with its prompt extended by the
+    tokens it generated, prefilled at that exact length."""
+    eng = _engine(arch, side, "lean")
+    R = JRequest if side == "jax" else Request
+    reqs = [R(uid=i, prompt=p, max_new_tokens=NEW) for i, p in enumerate(_recurrent_prompts(arch))]
+    for r in reqs:
+        eng.submit(r)
+    while len(reqs[0].generated) < 3:
+        eng.tick()
+    eng.preempt_slot(0)
+    eng.run_to_completion(max_ticks=200)
+    return {r.uid: list(r.generated) for r in reqs}, eng
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_preemption_recomputes_at_exact_length(arch):
+    """Preemption and recompute on a recurrent engine: the readmission
+    prefills prompt + generated tokens at their exact length, rebuilding the
+    whole state; streams and ``prefill_compiles`` as the JAX engine's, and
+    the preempted stream as the unpreempted one's."""
+    want, jeng = _preempted_run(arch, "jax")
+    got, eng = _preempted_run(arch, "port")
+    assert len(_held_to(got, want, eng.rows)) <= 1
+    assert eng.stats.preemptions == jeng.stats.preemptions == 1
+    assert eng.stats.prefill_compiles == jeng.stats.prefill_compiles == 4
+    assert len(_recurrent_prompts(arch)[0]) + 3 in eng._prefill_shapes
+    assert len(_held_to(got, _jax_streams(arch, True)[0], eng.rows)) <= 1
+    eng.pool.check()
+
+
+def _degraded_run(arch, side, degrade):
+    """The recurrent prompts on a guarded paged lean engine; with
+    ``degrade`` slot 1 is forced one level down after the first tick, so the
+    next ticks run two passes, each masking the other's slots. Returns the
+    streams, the guard counters, and slot 0's states after the second
+    tick."""
+    from repro.serving import guards as jguards
+    from repro_torch.serving import guards as tguards
+
+    g = jguards if side == "jax" else tguards
+    cfg_j, cfg, pj, pt = _model(arch)
+    common = dict(attn_backend="lean", max_batch=3, cache_len=48, num_workers=4,
+                  guards=g.GuardConfig(heal_after=2))
+    if side == "jax":
+        eng = JEngine(cfg_j, pj, JConfig(paged=JPaged(enabled=True, page_size=8), **common))
+        R = JRequest
+    else:
+        eng = _Rows(cfg, pt, EngineConfig(paged=PagedConfig(enabled=True, page_size=8),
+                                          **common), device="cpu")
+        R = Request
+    reqs = [R(uid=i, prompt=p, max_new_tokens=NEW) for i, p in enumerate(_recurrent_prompts(arch))]
+    for r in reqs:
+        eng.submit(r)
+    eng.tick()
+    if degrade:
+        assert eng.force_degrade(1, cause="watchdog", slots=[1]) == 1
+    eng.tick()
+    state = None
+    if side == "port":
+        state = {(i, k): t[0].clone() for i, lc in enumerate(eng.cache)
+                 if eng.layer_kinds[i] != "win" for k, t in lc.items()}
+    eng.run_to_completion(max_ticks=200)
+    counters = {k: getattr(eng.stats, k) for k in ("degrade_escalations", "degrade_heals",
+                                                   "ticks", "tokens_generated")}
+    return {r.uid: list(r.generated) for r in reqs}, counters, (state, eng)
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_degraded_pass_matches_jax(arch):
+    """A degraded slot decodes in a pass of its own, the others masked (the
+    reference's ``_decode_pass_inner``): masked slots get context 0, but
+    the reference's decode step still advances their recurrent state, so
+    on such a tick every slot's state moves once per pass. The port does
+    the same (a fault of the reference, ROADMAP queue 3): streams and guard
+    counters as the JAX engine's, and healthy slot 0's state after the
+    two-pass tick differs from its state after a one-pass tick."""
+    want, wc, _ = _degraded_run(arch, "jax", True)
+    got, gc, (twice, eng) = _degraded_run(arch, "port", True)
+    assert gc == wc and gc["degrade_escalations"] == 1
+    assert len(_held_to(got, want, eng.rows)) <= 1
+    _, _, (once, _) = _degraded_run(arch, "port", False)
+    assert any(not torch.equal(twice[k], once[k]) for k in once)
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_architectures_refused(arch):
+    """What the reference refuses a recurrent architecture the port refuses
+    too: speculative decode, whose verify step is a chunk step (their states
+    have no chunk-resume plumbing). Everything else is served (the tests
+    above)."""
+    cfg_j, cfg, pj, pt = _model(arch)
+    spec = dict(paged=PagedConfig(enabled=True, page_size=8), max_batch=2, cache_len=32,
+                spec=SpecConfig(enabled=True, k=2))
+    with pytest.raises(ValueError, match="supports_chunked_prefill"):
+        DecodeEngine(cfg, pt, EngineConfig(**spec), device="cpu")
+    from repro.serving.config import SpecConfig as JSpec
+
+    with pytest.raises(ValueError, match="supports_chunked_prefill"):
+        JEngine(cfg_j, pj, JConfig(paged=JPaged(enabled=True, page_size=8), max_batch=2,
+                                   cache_len=32, spec=JSpec(enabled=True, k=2)))

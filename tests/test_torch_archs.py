@@ -113,7 +113,10 @@ def _tokens(cfg, B, L, seed=1):
 
 
 def test_registry_holds_the_attention_family():
-    assert sorted(ARCH_IDS) == sorted(ARCHS + ["mistral-nemo-12b"])
+    from repro.configs import ARCH_IDS as JAX_ARCH_IDS
+
+    assert sorted(ARCH_IDS) == sorted(JAX_ARCH_IDS) == sorted(
+        ARCHS + ["mistral-nemo-12b", "recurrentgemma-9b", "xlstm-350m"])
     for arch in ARCHS:
         kinds = set(layer_kinds(get_smoke_config(arch)))
         assert kinds <= {"attn", "win", "xattn"}, (arch, kinds)
@@ -507,14 +510,19 @@ def test_null_page_writes_keep_the_last_row(quant):
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-350m"])
 def test_recurrent_kinds_refused(arch):
-    """The recurrent architectures are the rest of item 14: refused at the
-    model, naming it (their configs are not registered yet)."""
-    from repro.configs import get_config as jget
-
-    cfg_j = jget(arch)
-    cfg = dataclasses.replace(get_smoke_config("mistral-nemo-12b"), name=arch,
-                              n_layers=cfg_j.n_layers, stages=cfg_j.stages)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        check_supported(cfg)
-    with pytest.raises(KeyError, match="not yet ported"):
-        get_smoke_config(arch)
+    """The recurrent architectures run at the model level
+    (``tests/test_torch_recurrent.py``); what the reference refuses them the
+    port refuses too: chunked prefill (their state has no chunk-resume
+    plumbing), as ``repro/models/transformer.py:647-651`` does; and an f8
+    cache, as for every architecture (item 18)."""
+    cfg_j, cfg, pj, pt = _model(arch)
+    check_supported(cfg)
+    assert not supports_chunked_prefill(cfg)
+    args = (np.zeros((1, 8), np.int32), np.zeros(1, np.int32), np.full(1, 8, np.int32),
+            np.zeros((1, 2), np.int32))
+    with pytest.raises(ValueError, match="chunked prefill requires"):
+        jchunks(pj, cfg_j, None, *(jnp.asarray(a) for a in args))
+    with pytest.raises(ValueError, match="chunked prefill requires"):
+        prefill_chunks(pt, cfg, None, *(torch.from_numpy(a) for a in args))
+    with pytest.raises(NotImplementedError, match="item 18"):
+        check_supported(dataclasses.replace(cfg, kv_cache_dtype="f8"))

@@ -20,7 +20,9 @@ version, launch against launch, and against the two-phase path; K1 and K2
 on the decode ring at every row bucket, page and dtype, with its counters;
 and every kernel at the geometries of the attention-family architectures
 (gq 1, 6 and 8, head dims 64, 128 and 256, K7's window of 1024 at d 256
-and its non-causal cross attention). Tolerance 2e-5: kernel and plain version both compute in float32 from the
+and its non-causal cross attention), and K7 at recurrentgemma-9b's gq 16
+over one KV head at d 256 with windows; and the recurrent smoke models'
+captured admission and decode steps against eager ones. Tolerance 2e-5: kernel and plain version both compute in float32 from the
 same inputs (K7's and K8's bf16 output: one bf16 step plus 2e-5, since both
 round a float32 result; the tensor-core kernel keeps P to about 16 bits by
 putting it through PV as two bf16 halves, which holds it to that bound --
@@ -240,6 +242,95 @@ def test_engine_on_card_matches_cpu(cuda, fused):
         launches = ld.fused_launches if fused else ld.partials_launches
         assert launches == (cfg.n_layers * eng.stats.ticks if dev == "cuda" else 0)
     torch.testing.assert_close(logits["cuda"], logits["cpu"], rtol=2**-5, atol=2**-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-350m"])
+def test_recurrent_steps_captured_equal_eager(cuda, arch):
+    """The recurrent smoke models on the card, an engine whose steps run
+    eagerly against one that captures them, served the same rounds: every
+    prompt length comes twice, so admissions (the exact-length prefill:
+    the RG-LRU scan, the chunked mLSTM with its masks built on the card, the
+    sLSTM's steps) and decode steps replay their graphs; the logits of
+    every tick and the streams are bit for bit the eager engine's."""
+    import numpy as np
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.serving.config import EngineConfig, PagedConfig
+    from repro_torch.serving.engine import DecodeEngine, Request
+
+    cfg = get_smoke_config(arch)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    params = init_params(cfg, gen, device=cuda)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (13, 13, 21, 21)]
+    runs = {}
+    for captured in (False, True):
+        eng = DecodeEngine(cfg, params, EngineConfig(
+            max_batch=2, cache_len=48, num_workers=4, attn_backend="lean",
+            paged=PagedConfig(enabled=True, page_size=8)), device=cuda)
+        eng.capture_decode = captured
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=5) for i, p in enumerate(prompts)]
+        rows = []
+        for pair in (reqs[:2], reqs[2:]):
+            for r in pair:
+                eng.submit(r)
+            while eng.queue or any(eng.slot_req):
+                eng.tick()
+                rows.append(eng.last_logits.clone())
+        runs[captured] = (rows, [r.generated for r in reqs], eng.stats)
+    (eager, s_eager, _), (graph, s_graph, st) = runs[False], runs[True]
+    assert st.admit_replays > 0 and st.decode_replays > 0
+    assert s_graph == s_eager and len(graph) == len(eager)
+    assert all(torch.equal(a, b) for a, b in zip(graph, eager))
+
+
+@pytest.mark.cuda
+def test_exact_admission_graphs_bounded(cuda):
+    """An engine that admits at the exact prompt length captures one
+    admission per distinct length; it holds at most ``EXACT_ADMIT_GRAPHS``
+    of them, dropping the least recently used: six lengths admitted in
+    three rounds are captured in the second, the first two are dropped and
+    warm up again in the third, the last four replay, and every admission's
+    logits equal the eager engine's bit for bit."""
+    import numpy as np
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.serving.config import EngineConfig, PagedConfig
+    from repro_torch.serving.engine import EXACT_ADMIT_GRAPHS, DecodeEngine, Request
+
+    cfg = get_smoke_config("xlstm-350m")
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    params = init_params(cfg, gen, device=cuda)
+    rng = np.random.default_rng(2)
+    lens = range(5, 5 + EXACT_ADMIT_GRAPHS + 2)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
+    class Logged(DecodeEngine):
+        def _run_prompt_prefill(self, prompt, slot, pages):
+            out = super()._run_prompt_prefill(prompt, slot, pages)
+            logits.setdefault(self.capture_decode, []).append(out.clone())
+            return out
+
+    logits = {}
+    for captured in (False, True):
+        eng = Logged(cfg, params, EngineConfig(
+            max_batch=2, cache_len=48, num_workers=4, attn_backend="lean",
+            paged=PagedConfig(enabled=True, page_size=8)), device=cuda)
+        eng.capture_decode = captured
+        for _ in range(3):
+            for i, p in enumerate(prompts):
+                assert eng.admit_blocking(Request(uid=i, prompt=p, max_new_tokens=1), 0)
+                eng.release_slot(0)
+    held = [k for k, (_, g) in eng._graphs.items() if g is not None and k[0][1] == "admit"]
+    assert len(held) == EXACT_ADMIT_GRAPHS
+    assert eng.stats.admit_captures == len(prompts)
+    assert eng.stats.admit_replays == len(prompts) + EXACT_ADMIT_GRAPHS
+    assert len(logits[True]) == len(logits[False]) == 3 * len(prompts)
+    assert all(torch.equal(a, b) for a, b in zip(logits[True], logits[False]))
 
 
 def _chunk_operands(dev, offs, lens, Hq, Hkv, d, tile, dtype, seed=0):
@@ -702,6 +793,12 @@ K7_TC_EDGES = [
     (1, 8, 2, 200, 300, 256, False, None, 0),
     (1, 8, 2, 333, 333, 256, True, 100, 0),
     (1, 4, 2, 150, 150, 256, True, 40, 0),
+    # recurrentgemma-9b's window layers: MQA, 16 query heads over one KV
+    # head (row blocks of one head's rows), windows shorter and longer
+    # than the prompt
+    (1, 16, 1, 333, 333, 256, True, 100, 0),
+    (1, 16, 1, 700, 700, 256, True, 256, 0),
+    (1, 16, 1, 300, 300, 256, True, 2048, 0),
 ]
 
 

@@ -35,7 +35,15 @@ size (every page written whole):
   * the port's first-token logits part between shared and unshared int8
     runs, and not between the shared run and the fresh one, nor between
     shared and unshared bf16 runs.
+
+And the card's comparison itself (``chip_smoke.prefix_logit_gaps``) on
+synthetic rows: it pairs a request's rows only while both runs follow the
+same tokens -- after a first-token flip only the first-token row.
 """
+import sys
+from pathlib import Path
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 
@@ -242,3 +250,44 @@ def test_port_first_token_logits_part_on_int8_only(model, runs):
         assert gap(fresh, shared, uid) == 0.0
         assert gap(bf["shared"], bf["unshared"], uid) == 0.0
     assert max(gap(unshared, shared, uid) for uid in WAVE2) > 0.0
+
+
+def _gap_runs(first_on, first_off, decode_on, decode_off, bump=None):
+    """Two synthetic serving runs of one request (uid 0): first tokens,
+    first-token rows, and decode rows with the tokens they emitted; every
+    row of ``on`` equals ``off``'s except decode row ``bump``, moved by 1."""
+    rows = [torch.linspace(-4.0, 4.0, 16) + i for i in range(len(decode_on) + 1)]
+    run = lambda first, toks, moved: {
+        "handles": [SimpleNamespace(uid=0, generated=[first] + list(toks))],
+        "eng": SimpleNamespace(first_rows={0: rows[0]}, rows={0: [
+            (rows[i + 1] + (1.0 if i == moved else 0.0), t, i == 1) for i, t in enumerate(toks)]})}
+    return run(first_on, decode_on, bump), run(first_off, decode_off, None)
+
+
+@pytest.mark.parametrize("case", ["first-token flip", "decode flip", "no flip"])
+def test_prefix_logit_gaps_pairing(case):
+    """``prefix_logit_gaps`` pairs the first-token row, then decode rows up
+    to and including the first whose tokens differ, and none after a
+    first-token flip (the decode rows then follow different tokens); each
+    paired row keeps its tolerance (``atol_frac`` x the median |off| +
+    ``LOGIT_RTOL`` |off|)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    toks = [3, 4, 5, 6]
+    if case == "first-token flip":
+        on, off = _gap_runs(1, 2, toks, [9, 9, 9, 9])
+        want = [0]
+    elif case == "decode flip":
+        on, off = _gap_runs(1, 1, toks, [3, 4, 7, 6])
+        want = [0, 1, 2, 3]
+    else:
+        on, off = _gap_runs(1, 1, toks, toks, bump=1)
+        want = [0, 1, 2, 3, 4]
+    gaps = chip_smoke.prefix_logit_gaps(torch, on, off, chip_smoke.LOGIT_ATOL_FRAC)
+    assert [g["row"] for g in gaps] == want
+    assert all(g["finite"] for g in gaps)
+    assert [g["cascade"] for g in gaps] == [row == 2 for row in want]
+    # decode row 1 (row 2 of the pairing) moved by 1 against an allowance of
+    # a tenth of the median |logit| plus 2**-6 of each
+    assert [g["ok"] for g in gaps] == [not (case == "no flip" and row == 2) for row in want]
