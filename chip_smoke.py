@@ -48,7 +48,7 @@ Phases, in order; any failure exits non-zero and nothing catches it:
      first tokens against the blocking engine's; then the fixed phase
      under ``torch.profiler`` at ``TRACED_FIXED_LAYERS`` of depth: device
      busy, kernels, host syncs (``aten::item``) -- the lean one is traced
-     in phase 11;
+     in phase 12;
   8. prefix-sharing serving phase: a 2048-token system prompt served once,
      then four requests that start with it, through the ``Scheduler`` with
      the radix prefix cache and cascade decode (fused K4 tails, K5 cascade
@@ -74,7 +74,22 @@ Phases, in order; any failure exits non-zero and nothing catches it:
      float32) in turns, and the fixed phase traced (host syncs; at
      ``TRACED_FIXED_LAYERS`` of depth); prefix
      serving with cascade (K5-int8);
- 11. chunk step phase: the lean Scheduler with every step eager
+ 11. f8 pages (``PagedConfig(kv_dtype="f8")``, e4m3 pools written through
+     the reference's cast): the six f8 forms -- K2, K1, the fused K4, K8,
+     K6 and K5 reading e4m3 K/V, widened in-register -- at the kernel
+     phases' shapes, each bit for bit against its bf16 form on the K/V
+     widened to bf16 and against its plain version, timed beside the bf16
+     form and SDPA on the widened K/V with the bound on the halved bytes;
+     the cast on the card against the CPU's codes; one NaN element in an
+     f8 page reading as in bf16; the engine phase's requests on f8 pools
+     (K7 admissions, K2-f8; launches, tick p50 eager and captured, traced
+     ticks, an eager tick traced with shapes showing no pool widened, page
+     bytes against bf16's, the logit gap and greedy agreement with the
+     bf16 engine), ``fused=False`` (K1-f8), the Scheduler on ``lean``
+     (fused K4-f8, K2-f8) and ``fixed`` (K8-f8, K6-f8 on the gathered e4m3
+     pages), a prefix wave with cascade (K5-f8), and f16 and f32 caches
+     (bf16 pools, as the reference stores them, bit for bit with bf16's);
+ 12. chunk step phase: the lean Scheduler with every step eager
      (``capture_decode = False``) and captured, in turns (eager, captured,
      captured, eager), on bf16 and int8 pages, a captured run serving the
      prompts three times on one engine (a key first seen in round 1 is
@@ -83,20 +98,20 @@ Phases, in order; any failure exits non-zero and nothing catches it:
      memory the captures grew; then traced (a fourth round of the second
      captured run; with ``--chunk-step`` an eager run too): idle share and
      host launch calls per chunk step;
- 12. spec phase: speculative decode (k 4, 41 new tokens) on bf16 and int8
+ 13. spec phase: speculative decode (k 4, 41 new tokens) on bf16 and int8
      pages with an oracle proposer replaying the plain run's streams and
      with the n-gram proposer: spec ticks, accept rate, verify captures and
      replays, the fused K4's launches from verify steps, every stream held
      to the plain run's (a divergence must sit at a top-2 logit gap below
      the largest verify-vs-decode logit difference); tokens/s and tick p50
      against plain decode in turns; five verify ticks traced;
- 13. admission phase: prompts of 17, 60, 100, 1100 and 1500 tokens (buckets
+ 14. admission phase: prompts of 17, 60, 100, 1100 and 1500 tokens (buckets
      128 and 1536) admitted twice each on paged bf16, int8 and dense
      engines, eager and captured in turns: ms per admission,
      ``prefill_compiles``, captures and replays, capture + instantiation
      ms, reserved memory grown, logits equal across the runs; and bucketed
      against exact-length first-token logits;
- 14. captured-step phase: the engine phase's requests on an engine whose
+ 15. captured-step phase: the engine phase's requests on an engine whose
      decode step runs eagerly (``capture_decode = False``) and on one that
      replays it as a CUDA graph, in turns (eager, captured, captured,
      eager) on bf16 and on int8 pages: tick p50, captures and replays per
@@ -111,7 +126,7 @@ Phases, in order; any failure exits non-zero and nothing catches it:
      dense: admission replays; the cascade, K5 and two-call, on the prefix
      waves), logits and pools bit for bit after every step, greedy tokens
      and each step's launch counts equal;
- 15. obs phase: the lean Scheduler (bf16 pages, every step captured) on an
+ 16. obs phase: the lean Scheduler (bf16 pages, every step captured) on an
      engine with every ``ObsConfig`` sink (tracer, metrics registry,
      flight recorder with a dump directory, perf watchdog with one SLO
      class) and on an untraced one, three rounds each, warm rounds in
@@ -123,7 +138,7 @@ Phases, in order; any failure exits non-zero and nothing catches it:
      card's trace and dump; prints traced against untraced warm walls,
      the watchdog's fires, and measured ``decode_kernel`` ms against the
      roofline's prediction on the H100's peaks;
- 16. guards phase (``GuardConfig`` and ``FaultInjector`` on the engine):
+ 17. guards phase (``GuardConfig`` and ``FaultInjector`` on the engine):
      NaN isolation -- ``_fill_page(NaN)`` into one private page of one slot
      at degraded-mode levels 0 (K2), 1 (K2, no cascade), 2 (K1 + merge),
      3 (the ``ref`` step) and 0 under the cascade (K5), eager and
@@ -142,7 +157,7 @@ Phases, in order; any failure exits non-zero and nothing catches it:
      keeps its fault-free stream or diverges at a top-2 gap within
      ``GUARD_NEAR_TIE``; and the watchdog's ``occupancy_collapse`` calling
      ``force_degrade(cause="watchdog")``;
- 17. the attention-family architectures, once Mistral-NeMo-12B's weights
+ 18. the attention-family architectures, once Mistral-NeMo-12B's weights
      are released: (a) the arch kernel phase -- K2, the fused K4, K8 and K7
      at each architecture's geometry (qwen3-moe gq 8, nemotron gq 6,
      qwen2-moe gq 1, musicgen gq 1 at d 64, gemma3 d 256 with its 1024-key
@@ -170,7 +185,7 @@ Phases, in order; any failure exits non-zero and nothing catches it:
      ref, steps bit for bit. A dense model's stream may leave ref only at a
      near tie; a MoE model's divergences from ref are printed with their
      gaps (a router near tie sends a row to other experts);
- 18. the recurrent architectures (``--recurrent-step [DEPTH]`` alone): K7
+ 19. the recurrent architectures (``--recurrent-step [DEPTH]`` alone): K7
      at recurrentgemma-9b's window layers (16 query heads over one KV head,
      d 256, window 2048) on 3000 and 16000 keys against its plain version,
      beside SDPA and its bound; then recurrentgemma-9b (38 layers: RG-LRU
@@ -184,7 +199,7 @@ Phases, in order; any failure exits non-zero and nothing catches it:
      fault that comparison must fail, five captured ticks traced, the
      captured steps bit for bit against eager, and the exact-length
      admission graphs held to their bound (their memory printed);
- 19. the kernel summary (one JSON line: K1-K8, the fused K4 and the int8
+ 20. the kernel summary (one JSON line: K1-K8, the fused K4 and the int8
      forms of K1, K2, K4 (fused and partials) and K5: 14 entries, then K2,
      the fused K4, K8, K7, K6 and K5 at the attention-family geometries,
      each with its launches from that architecture's run, and K7 at
@@ -193,9 +208,10 @@ Phases, in order; any failure exits non-zero and nothing catches it:
      line, and last ``{"ok": true, "device": {...}}``.
 
 Each phase starts with a ``[seconds] phase`` line: the time since the
-script started. Phases 11-18 alone, at full width, after the build:
+script started. Phases 11-19 alone, at full width, after the build:
 
-    python3 chip_smoke.py --chunk-step | --spec-step | --admission-step | --captured-step
+    python3 chip_smoke.py --f8-step | --chunk-step | --spec-step | --admission-step
+    python3 chip_smoke.py --captured-step
     python3 chip_smoke.py --obs-step | --guards-step
     python3 chip_smoke.py --arch-kernels | --qwen3-step [DEPTH] | --gemma-step [DEPTH]
     python3 chip_smoke.py --arch-sweep | --recurrent-step [DEPTH]
@@ -827,8 +843,8 @@ def tc_ptxas_lines(report: str):
     out, lines = [], report.splitlines()
     for i, line in enumerate(lines):
         m = re.search(r"Compiling entry function '.*row_block_kernelILi(\d+)ELi(\d+)E.*?"
-                      r"((?:Dense|Paged)Walk)", line)
-        k4 = re.search(r"Compiling entry function '.*lean_prefill_tc_kernelILi(\d+)ELb([01])E",
+                      r"((?:Dense|Paged)Walk)(?:ILi\d+EE)?ELb([01])E", line)
+        k4 = re.search(r"Compiling entry function '.*lean_prefill_tc_kernelILi(\d+)ELi([012])E",
                        line)
         if not (m or k4):
             continue
@@ -839,8 +855,10 @@ def tc_ptxas_lines(report: str):
             if "registers" in nxt:
                 regs = nxt.split(":", 1)[1].strip()
                 break
-        name = (f"row_block_kernel<{m.group(1)}, {m.group(2)}, {m.group(3)}>" if m else
-                f"lean_prefill_tc_kernel<{k4.group(1)}, {('bf16', 'int8')[int(k4.group(2))]}>")
+        name = (f"row_block_kernel<{m.group(1)}, {m.group(2)}, {m.group(3)}"
+                f"{', e4m3' if m.group(4) == '1' else ''}>" if m else
+                f"lean_prefill_tc_kernel<{k4.group(1)}, "
+                f"{('bf16', 'int8', 'e4m3')[int(k4.group(2))]}>")
         out.append((name, regs, spill))
     return out
 
@@ -1516,7 +1534,7 @@ def scheduler_phase(torch, cfg, params, backend, sm_count, new_tokens, blocking,
     eng = FirstTokenEngine(cfg, params, engine_config(backend, sm_count, kv_dtype=kv_dtype),
                            device="cuda")
     eng.capture_decode = captured
-    what = f"{backend}{' int8' if kv_dtype else ''} scheduler"
+    what = f"{backend}{' ' + kv_dtype if kv_dtype else ''} scheduler"
     sch = Scheduler(eng, SchedulerConfig(chunk_size=SCHED_CHUNK, prefill_pack=SCHED_PACK,
                                          token_budget=SCHED_BUDGET, chunked=True))
     walls, ttfts = [], []
@@ -1560,7 +1578,8 @@ def scheduler_phase(torch, cfg, params, backend, sm_count, new_tokens, blocking,
         tc = path_counts(what)
         ttft = [(h.first_token_time - h.arrival_time) * 1e3 for h in handles]
         agree = sum(h.generated[0] == blocking["first"][h.uid] for h in handles)
-        atol_frac = INT8_LOGIT_ATOL_FRAC if kv_dtype == "int8" else LOGIT_ATOL_FRAC
+        atol_frac = {"int8": INT8_LOGIT_ATOL_FRAC, "f8": F8_LOGIT_ATOL_FRAC}.get(kv_dtype,
+                                                                             LOGIT_ATOL_FRAC)
         worst = None
         for h in handles:
             ref = blocking["rows"][h.uid]
@@ -1582,7 +1601,7 @@ def scheduler_phase(torch, cfg, params, backend, sm_count, new_tokens, blocking,
         walls.append(wall)
         ttfts.append(ttft)
         if not quiet:
-            print(f"scheduler phase ({backend}{', int8 pools' if kv_dtype else ''}, "
+            print(f"scheduler phase ({backend}{f', {kv_dtype} pools' if kv_dtype else ''}, "
                   f"{'captured' if captured else 'eager'} steps"
                   + (f", round {rnd + 1} of {rounds}" if rounds > 1 else "")
                   + f"): chunk {SCHED_CHUNK}, pack {SCHED_PACK}, budget {SCHED_BUDGET}: "
@@ -2773,6 +2792,493 @@ def int8_engine_phase(torch, cfg, params, sm_count, new_tokens, bf16):
     torch.cuda.empty_cache()
     return counts, k1_launches, blocking
 
+# ------------------------------------------------------------ f8 pages
+F8_REPLACES = {
+    # the reference widens an f8 pool before the kernel that reads it
+    # (repro/models/layers.py:192-196, :279-287, :379-385): each f8 form
+    # replaces that kernel, reading the e4m3 pool as it is
+    "lean_decode_fused_f8": ("lean_decode.cu", "src/repro/kernels/lean_decode.py:302"),
+    "lean_decode_partials_f8": ("lean_decode.cu", "src/repro/kernels/lean_decode.py:117"),
+    "lean_prefill_fused_f8": ("lean_prefill_tc.cu", "src/repro/kernels/lean_prefill.py:51"),
+    "flash_decode_partials_f8": ("flash_decode.cu", "src/repro/kernels/flash_decode.py:25"),
+    "flash_prefill_paged_f8": ("flash_prefill.cu", "src/repro/kernels/flash_prefill.py:162"),
+    "lean_cascade_fused_f8": ("lean_cascade.cu", "src/repro/kernels/lean_decode.py:604"),
+}
+F8_LIBRARY = "SDPA on the K/V widened to bf16"   # no one call reads e4m3 K/V
+# The f8 Scheduler's first-token logits against blocking prefill (which
+# reads the prompt's bf16 K/V; the chunk steps read earlier chunks' K/V
+# from e4m3 pages): e4m3 rounds an element to within 2^-4 of its own size,
+# so an element near its page's largest is off by about four times an int8
+# page's half step (amax / 254). The allowance doubles int8's; a wrong
+# attention output still moves logits by 2.5x it.
+F8_LOGIT_ATOL_FRAC = 2 * INT8_LOGIT_ATOL_FRAC
+
+
+def f8_pair(torch, *ts):
+    """e4m3 copies of bf16 tensors through the reference's cast, and the
+    same copies widened back to bf16 (exact): an f8 form's operands and
+    its bf16 form's."""
+    from repro_torch.core.attention import F8, to_kv
+
+    f8 = [to_kv(t, F8) for t in ts]
+    return f8, [t.to(torch.bfloat16) for t in f8]
+
+
+def same_bits(torch, a, b) -> bool:
+    """Equal bit for bit, NaN where NaN (a NaN's payload aside)."""
+    nan = torch.isnan(a)
+    if a.dtype != b.dtype or not torch.equal(nan, torch.isnan(b)):
+        return False
+    bits = torch.int32 if a.element_size() == 4 else torch.int16
+    zero = torch.zeros((), dtype=a.dtype, device=a.device)
+    return torch.equal(torch.where(nan, zero, a).view(bits), torch.where(nan, zero, b).view(bits))
+
+
+def f8_kernel_phase(torch, sm_count: int, dev_name: str):
+    """The six f8 forms (bf16 queries, e4m3 K/V rows, no scales) at the bf16
+    kernel phases' shapes -- K2-f8 and K1-f8 on the decode batch, K6-f8 on
+    the first ``DECODE_SHAPES``, the fused K4-f8 and K8-f8 on the two-chunk
+    pack, K5-f8 on the 2048-token shared prefix -- each against its bf16
+    form on the K/V widened to bf16, bit for bit (e4m3 -> bf16 is exact,
+    and the kernels widen each element in registers or in shared memory),
+    and against its plain version (2e-5; the bf16-output ones one bf16
+    step plus 2e-5). Then the cast on the card against the CPU's codes, and
+    the guards' NaN contract on an f8 page (K2-f8 and the fused K4-f8 with one
+    NaN element give what the bf16 kernels give on the same element). Times
+    with L2 evicted, the plain versions', the bf16 form's on the widened
+    K/V, the bound on the halved bytes, and SDPA on the widened K/V."""
+    from repro_torch.core.attention import F8, paged_gather_kv, to_kv
+    from repro_torch.core.leantile import fixed_split_factor, make_chunk_schedule, make_schedule
+    from repro_torch.kernels import decode_ring as dr
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import lean_decode as ld
+    from repro_torch.kernels import lean_prefill as lp
+    from repro_torch.kernels import ops
+
+    bf, u8 = torch.bfloat16, torch.uint8
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    results = {}
+    Hq, Hkv, d, tile = 32, 8, 128, 128
+    g = Hq // Hkv
+    scale = 1.0 / math.sqrt(d)
+
+    def record(name, ms, bf_ms, plain_ms, lib_ms, nbytes, flops, err):
+        b_ms, b_by = bound(dev_name, "bfloat16", nbytes, flops)
+        results[(name, "bfloat16")] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                                       "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
+        print(f"  {name}: bit for bit with its bf16 form on the widened K/V; max|err| vs plain "
+              f"{err:.3e}; {ms:.4f} ms (bf16 form {bf_ms:.4f} ms; bound {b_ms:.4f} ms by {b_by}, "
+              f"{nbytes / 1e6:.1f} MB; plain {plain_ms:.3f} ms; {F8_LIBRARY} {lib_ms:.4f} ms)",
+              flush=True)
+
+    # the cast on the card: every bf16 bit pattern, and float32 N(0, 1) at
+    # four scales, against the CPU's codes (JAX's: NaN above 464)
+    cpu_gen = torch.Generator().manual_seed(0)
+    pats = torch.arange(-2**15, 2**15, dtype=torch.int32).to(torch.int16).view(bf)
+    f32 = torch.cat([torch.randn(200_000, generator=cpu_gen) * s for s in (1e-3, 1.0, 30.0, 300.0)])
+    for x in (pats, f32):
+        cpu = to_kv(x, F8).view(u8)
+        check(torch.equal(cpu, to_kv(x.to(dev), F8).view(u8).cpu()),
+              f"the f8 cast gives other codes on the card than on the CPU ({x.dtype})")
+    print(f"f8 kernel phase: the cast on the card equals the CPU's on all 65536 bf16 bit "
+          f"patterns and {f32.numel()} float32 values "
+          f"({int((to_kv(f32, F8).view(u8) & 0x7F == 0x7F).sum())} of them NaN: |x| > 464)",
+          flush=True)
+
+    # K2-f8 and K1-f8 on the decode batch
+    lens, width = [4000, 1500, 700, 1], 32
+    B = len(lens)
+    sched = make_schedule(lens, Hkv, tile, sm_count)
+    q, k_pool, v_pool, tbl, _, _ = make_kv_problem(torch, lens, Hq, Hkv, d, tile, width, bf,
+                                                   gen, dev)
+    (kf, vf), (kw, vw) = f8_pair(torch, k_pool, v_pool)
+    seg_ctx = torch.tensor([L for L in lens for _ in range(Hkv)], dtype=torch.int32, device=dev)
+    q_seg = q.reshape(B * Hkv, g, d).contiguous()
+    route = ops.paged_route(sched, tbl, Hkv)
+    args = (q_seg, *ops._pool_rows(kf, vf), seg_ctx, route, sched, scale)
+    wargs = (q_seg, *ops._pool_rows(kw, vw), seg_ctx, route, sched, scale)
+    print(f"  decode batch lens {lens}, Hq {Hq} Hkv {Hkv} d {d} page {tile}, workers "
+          f"{sm_count}", flush=True)
+    ring_before = (ld.fused_ring_launches, ld.partials_ring_launches)
+    o, lse = ld.lean_decode_fused(*args)
+    parts = ld.lean_decode_partials(*args)
+    torch.cuda.synchronize()
+    check((ld.fused_ring_launches, ld.partials_ring_launches)
+          == (ring_before[0] + 1, ring_before[1] + 1),
+          "K2-f8 or K1-f8 did not run on the decode ring")
+    print("  " + ring_line("K1/K2-f8", 1, d, tile, g), flush=True)
+    ow, lsew = ld.lean_decode_fused(*wargs)
+    partsw = ld.lean_decode_partials(*wargs)
+    check(same_bits(torch, o, ow) and same_bits(torch, lse, lsew),
+          "K2-f8 differs from K2 on the widened K/V")
+    check(all(same_bits(torch, a, b) for a, b in zip(parts, partsw)),
+          "K1-f8 differs from K1 on the widened K/V")
+    o_ref, lse_ref = ld.lean_decode_fused_plain(*args)
+    parts_ref = ld.lean_decode_partials_plain(*args)
+    err_k2 = max((o - o_ref).abs().max().item(), (lse - lse_ref).abs().max().item())
+    err_k1 = max((a - b).abs().max().item() for a, b in zip(parts, parts_ref))
+    check(torch.allclose(o, o_ref, atol=BF16_TOL, rtol=BF16_TOL)
+          and torch.allclose(lse, lse_ref, atol=BF16_TOL, rtol=BF16_TOL),
+          f"K2-f8 disagrees with its plain version: max |err| {err_k2}")
+    check(all(torch.allclose(a, b, atol=BF16_TOL, rtol=BF16_TOL)
+              for a, b in zip(parts, parts_ref)),
+          f"K1-f8 partials disagree with the plain version: max |err| {err_k1}")
+    # the NaN contract: one e4m3 NaN (0x7f) in the page column 0 reads
+    nk = args[1].clone()
+    nk.view(u8)[int(route[0]), 5, 9] = 0x7F
+    on, _ = ld.lean_decode_fused(q_seg, nk, args[2], seg_ctx, route, sched, scale)
+    onw, _ = ld.lean_decode_fused(q_seg, nk.to(bf), wargs[2], seg_ctx, route, sched, scale)
+    bad = ~torch.isfinite(on).flatten(1).all(1)
+    check(same_bits(torch, on, onw) and 0 < int(bad.sum()) < bad.numel(),
+          "K2-f8 with a NaN element does not read as K2 on the widened page")
+    tokens = sum(lens) * Hkv
+    small = q_seg.numel() * 2 + 4 * (seg_ctx.numel() + route.numel()
+                                     + ld.schedule_tensors(sched, dev)["desc"].numel())
+    kd, vd = paged_gather_kv(kw, tbl), paged_gather_kv(vw, tbl)
+    lib_ms = library_yardstick(torch, q, kd, vd, lens, g, 2)[LIBRARY_CALL][0]
+    del kd, vd
+    flops = 4 * g * d * tokens
+    record("lean_decode_fused_f8", gpu_ms(lambda: ld.lean_decode_fused(*args)),
+           gpu_ms(lambda: ld.lean_decode_fused(*wargs)),
+           gpu_ms(lambda: ld.lean_decode_fused_plain(*args), reps=5), lib_ms,
+           2 * tokens * d + small + 4 * (o.numel() + lse.numel()), flops, err_k2)
+    record("lean_decode_partials_f8", gpu_ms(lambda: ld.lean_decode_partials(*args)),
+           gpu_ms(lambda: ld.lean_decode_partials(*wargs)),
+           gpu_ms(lambda: ld.lean_decode_partials_plain(*args), reps=5), lib_ms,
+           2 * tokens * d + small + 4 * sum(t.numel() for t in parts), flops, err_k1)
+    print(f"  NaN contract: one NaN element in a page makes {int(bad.sum())} of {bad.numel()} "
+          f"segments' rows non-finite, the rest finite, bit for bit as K2 on the widened page",
+          flush=True)
+    del args, wargs, kf, vf, kw, vw, k_pool, v_pool
+
+    # K6-f8 on the first decode shape (the fixed backend gathers the pages to dense)
+    lens = list(DECODE_SHAPES[0])
+    B, width = len(lens), -(-max(DECODE_SHAPES[0]) // tile)
+    splits = fixed_split_factor(max(lens), B * Hkv, tile, sm_count)
+    q, _, _, _, k_dense, v_dense = make_kv_problem(torch, lens, Hq, Hkv, d, tile, width, bf,
+                                                   gen, dev)
+    (kf, vf), (kw, vw) = f8_pair(torch, k_dense, v_dense)
+    seg_ctx = torch.tensor([L for L in lens for _ in range(Hkv)], dtype=torch.int32, device=dev)
+    q_seg = q.reshape(B * Hkv, g, d).contiguous()
+    rs = lambda t: t.reshape(B * Hkv, width * tile, d)
+    args = (q_seg, rs(kf), rs(vf), seg_ctx, splits, tile, scale)
+    wargs = (q_seg, rs(kw), rs(vw), seg_ctx, splits, tile, scale)
+    ring_before = fd.ring_launches
+    parts = fd.flash_decode_partials(*args)
+    torch.cuda.synchronize()
+    check(fd.ring_launches == ring_before + 1, "K6-f8 did not run on the decode ring")
+    print("  " + ring_line("K6-f8", 1, d, tile, g), flush=True)
+    check(all(same_bits(torch, a, b) for a, b in zip(parts, fd.flash_decode_partials(*wargs))),
+          "K6-f8 differs from K6 on the widened K/V")
+    parts_ref = fd.flash_decode_partials_plain(*args)
+    err = max((a - b).abs().max().item() for a, b in zip(parts, parts_ref))
+    check(all(torch.allclose(a, b, atol=BF16_TOL, rtol=BF16_TOL) for a, b in zip(parts, parts_ref)),
+          f"K6-f8 disagrees with its plain version: max |err| {err}")
+    lib_ms = library_yardstick(torch, q, kw, vw, lens, g, 2)[LIBRARY_CALL][0]
+    tokens = sum(lens) * Hkv
+    record("flash_decode_partials_f8", gpu_ms(lambda: fd.flash_decode_partials(*args)),
+           gpu_ms(lambda: fd.flash_decode_partials(*wargs)),
+           gpu_ms(lambda: fd.flash_decode_partials_plain(*args), reps=3), lib_ms,
+           2 * tokens * d + q_seg.numel() * 2 + 4 * B * Hkv + 4 * sum(t.numel() for t in parts),
+           4 * g * d * tokens, err)
+    del args, wargs, kf, vf, kw, vw, k_dense, v_dense
+
+    # the fused K4-f8 and K8-f8 on the two-chunk pack
+    C, N = CHUNK, len(CHUNK_OFFS)
+    visible = [o_ + C for o_ in CHUNK_OFFS]
+    sched = make_chunk_schedule(visible, Hkv, tile, sm_count, max_len=max(visible) + tile)
+    q, k_pool, v_pool, tbl = chunk_pack(torch, CHUNK_OFFS, C, Hq, Hkv, d, tile, bf, gen, dev)
+    (kf, vf), (kw, vw) = f8_pair(torch, k_pool, v_pool)
+    seg_ctx = torch.tensor([v for v in visible for _ in range(Hkv)], dtype=torch.int32, device=dev)
+    seg_qs = torch.tensor([o_ for o_ in CHUNK_OFFS for _ in range(Hkv)], dtype=torch.int32,
+                          device=dev)
+    route = ops.paged_route(sched, tbl, Hkv)
+    qr = q.reshape(N * Hkv, g * C, d).contiguous()
+    args = (qr, *ops._pool_rows(kf, vf), seg_ctx, seg_qs, route, sched, scale, C)
+    wargs = (qr, *ops._pool_rows(kw, vw), seg_ctx, seg_qs, route, sched, scale, C)
+    q_off = torch.tensor(CHUNK_OFFS, dtype=torch.int32, device=dev)
+    lp.reset_launch_counts()
+    fp.reset_launch_counts()
+    o4 = lp.lean_prefill_fused(*args)
+    o8 = fp.flash_prefill_paged(q, kf, vf, tbl, q_off)
+    torch.cuda.synchronize()
+    check((lp.fused_launches, lp.fused_tc_launches, fp.launches, fp.tc_launches) == (1, 1, 1, 1),
+          "the fused K4-f8 or K8-f8 did not run on the tensor cores")
+    check(same_bits(torch, o4, lp.lean_prefill_fused(*wargs)),
+          "the fused K4-f8 differs from the fused K4 on the widened pool")
+    check(same_bits(torch, o8, fp.flash_prefill_paged(q, kw, vw, tbl, q_off)),
+          "K8-f8 differs from K8 on the widened pool")
+    errs = []
+    for out, ref in ((o4, lp.lean_prefill_fused_plain(*args)),
+                     (o8, fp.flash_prefill_paged_plain(q, kf, vf, tbl, q_off, scale))):
+        # one bf16 step of the output plus 2e-5, as the bf16 forms: both
+        # round a float32 result, and the kernel splits P into two halves
+        delta = (out.float() - ref.float()).abs()
+        step = torch.finfo(bf).eps * ref.float().abs()
+        check(bool((delta <= step + BF16_TOL).all()),
+              f"an f8 chunk kernel disagrees with its plain version: max |err| {delta.max()}")
+        errs.append(delta.max().item())
+    nk = args[1].clone()
+    nk.view(u8)[int(route[0]), 7, 3] = 0x7F
+    on = lp.lean_prefill_fused(qr, nk, *args[2:])
+    onw = lp.lean_prefill_fused(qr, nk.to(bf), *wargs[2:])
+    check(same_bits(torch, on, onw) and bool(torch.isnan(on).any())
+          and bool(torch.isfinite(on).any()),
+          "the fused K4-f8 with a NaN element does not read as the fused K4 on the widened page")
+    kd, vd = paged_gather_kv(kw, tbl), paged_gather_kv(vw, tbl)
+    K = kd.shape[2]
+    qpos = q_off[:, None].long() + torch.arange(g * C, device=dev)[None, :] % C
+    mask = (torch.arange(K, device=dev)[None, None, :] <= qpos[..., None])[:, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qf = q.reshape(N, Hkv, g * C, d)
+    lib_ms = gpu_ms(lambda: sdpa(qf, kd, vd, attn_mask=mask), reps=10)
+    del kd, vd
+    keys_seen = sum(Hq * (C * o_ + C * (C + 1) // 2) for o_ in CHUNK_OFFS)
+    small = 4 * (seg_ctx.numel() * 2 + route.numel()
+                 + ld.schedule_tensors(sched, dev)["desc"].numel())
+    nbytes = q.numel() * 2 * 2 + 2 * sum(visible) * Hkv * d + small
+    record("lean_prefill_fused_f8", gpu_ms(lambda: lp.lean_prefill_fused(*args), reps=10),
+           gpu_ms(lambda: lp.lean_prefill_fused(*wargs), reps=10),
+           gpu_ms(lambda: lp.lean_prefill_fused_plain(*args), reps=3), lib_ms, nbytes,
+           4 * d * keys_seen, errs[0])
+    record("flash_prefill_paged_f8",
+           gpu_ms(lambda: fp.flash_prefill_paged(q, kf, vf, tbl, q_off), reps=10),
+           gpu_ms(lambda: fp.flash_prefill_paged(q, kw, vw, tbl, q_off), reps=10),
+           gpu_ms(lambda: fp.flash_prefill_paged_plain(q, kf, vf, tbl, q_off, scale), reps=3),
+           lib_ms, nbytes, 4 * d * keys_seen, errs[1])
+    del args, wargs, kf, vf, kw, vw, k_pool, v_pool
+
+    # K5-f8 on the 2048-token shared prefix
+    passes, suffixes = CASCADE_CASES[next(iter(CASCADE_CASES))]
+    q, k_pool, v_pool, tbl, dup, lens = cascade_problem(torch, passes, suffixes, Hq, Hkv, d,
+                                                        tile, bf, gen, dev)
+    (kf, vf), (kw, vw) = f8_pair(torch, k_pool, v_pool)
+    args, binding = cascade_operands(torch, q, kf, vf, tbl, lens, passes, sm_count)
+    wargs, _ = cascade_operands(torch, q, kw, vw, tbl, lens, passes, sm_count)
+    ring_before = ld.cascade_ring_launches
+    o, lse = ld.lean_cascade_fused(*args)
+    torch.cuda.synchronize()
+    check(ld.cascade_ring_launches == ring_before + 1, "K5-f8 did not run on the decode ring")
+    print("  " + ring_line("K5-f8", 1, d, tile, dr.row_bucket(args[0].shape[1])), flush=True)
+    ow, lsew = ld.lean_cascade_fused(*wargs)
+    check(same_bits(torch, o, ow) and same_bits(torch, lse, lsew),
+          "K5-f8 differs from K5 on the widened pool")
+    o_ref, lse_ref = ld.lean_cascade_fused_plain(*args)
+    err = max((o - o_ref).abs().max().item(), (lse - lse_ref).abs().max().item())
+    check(torch.allclose(o, o_ref, atol=BF16_TOL, rtol=BF16_TOL)
+          and torch.allclose(lse, lse_ref, atol=BF16_TOL, rtol=BF16_TOL),
+          f"K5-f8 disagrees with its plain version: max |err| {err}")
+    dup_t = torch.as_tensor(dup).to(dev)
+    kd, vd = paged_gather_kv(kw, dup_t), paged_gather_kv(vw, dup_t)
+    lib_ms = library_yardstick(torch, q, kd, vd, lens, g, 2)[LIBRARY_CALL][0]
+    del kd, vd
+    pref_tok = int(binding.prefix_lens[binding.members[:, 0] >= 0].sum())
+    suf_tok = sum(lens) - int(binding.seq_prefix_len.sum())
+    members = (binding.members >= 0).sum(axis=1)
+    flops = 4 * d * (int((binding.prefix_lens * members).sum()) + suf_tok) * g * Hkv
+    record("lean_cascade_fused_f8", gpu_ms(lambda: ld.lean_cascade_fused(*args)),
+           gpu_ms(lambda: ld.lean_cascade_fused(*wargs)),
+           gpu_ms(lambda: ld.lean_cascade_fused_plain(*args), reps=3), lib_ms,
+           2 * (pref_tok + suf_tok) * Hkv * d + q.numel() * 2 + 4 * (o.numel() + lse.numel()),
+           flops, err)
+    return results
+
+
+def f8_conversions(torch, eng, Request, vocab):
+    """Serve a few requests on ``eng`` (drained) with every step eager and
+    trace one decode tick with the operators' input shapes: the largest
+    tensor any dtype conversion (``aten::_to_copy``, ``aten::copy_``) read,
+    in elements, against one layer's pool. Fails where a conversion read a
+    whole pool: the f8 pools reach the kernels as they are."""
+    eng.capture_decode = False
+    for r in make_requests(Request, vocab, 4):
+        eng.submit(r)
+    eng.tick()
+    eng.tick()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
+        eng.tick()
+        torch.cuda.synchronize()
+    while eng.queue or any(eng.slot_req):
+        eng.tick()
+    pool = eng.cache[0]["k"].numel()
+    largest = 0
+    for ev in prof.events():
+        if ev.name in ("aten::_to_copy", "aten::copy_") and ev.input_shapes:
+            shape = ev.input_shapes[0]
+            largest = max(largest, math.prod(shape) if shape else 0)
+    check(largest < pool, f"an f8 decode tick converted {largest} elements: a whole pool "
+          f"({pool}) was widened")
+    return largest, pool
+
+
+def f8_engine_phase(torch, cfg, params, sm_count, new_tokens, bf16):
+    """The engine phase's requests on f8 page pools (``kv_dtype="f8"``): K7
+    admissions written through the reference's cast, K2-f8 decode. Checks
+    the launches (K7 = layers x admissions, K2 = layers x steps, K1 none),
+    the e4m3 pools and their drain, and that no step widens a pool (an
+    eager tick traced with shapes); reports tick p50, tokens/s, traced
+    ticks, page bytes against bf16's, and the logit gap and greedy
+    agreement with the bf16 engine (``bf16``: its streams and logits rows),
+    which are not bounded. Then a ``fused=False`` engine (K1-f8 + merge)
+    for a few ticks, and the f16 and f32 caches: one admission and tick
+    each on bf16 pools, as the reference stores them, bit for bit with the
+    bf16 engine. Returns the launch counts, K1-f8's launches and the
+    blocking first tokens."""
+    from repro_torch.serving.engine import DecodeEngine, Request
+    from repro_torch.serving.kvpool import KVLayout
+
+    L = cfg.n_layers
+    eng = DecodeEngine(cfg, params, engine_config("lean", sm_count, kv_dtype="f8"),
+                       device="cuda")
+    lay = eng.pool.layout
+    bf_bytes = KVLayout(kv_dtype="bf16", n_kv_heads=lay.n_kv_heads, head_dim=lay.head_dim,
+                        page_size=lay.page_size, n_attn_layers=lay.n_attn_layers).page_bytes
+    check({t.dtype for lc in eng.cache for t in lc.values()} == {torch.float8_e4m3fn}
+          and not eng.quant and 2 * lay.page_bytes == bf_bytes,
+          "f8 engine: the pools are not e4m3 at half of bf16's page bytes")
+    reqs = make_requests(Request, cfg.vocab_size, new_tokens)
+    reset_launch_counts()
+    first_s, ticks, rows = drive(torch, eng, reqs)
+    counts = launch_counts()
+    check(counts["K7"] == L * eng.stats.prefills == L * len(reqs),
+          f"f8 engine: K7 launched {counts['K7']} times, expected {L} x {len(reqs)} admissions")
+    check(counts["K2"] == L * eng.stats.ticks and eng.stats.ticks > 0,
+          f"f8 engine: K2-f8 launched {counts['K2']} times, expected {L} x {eng.stats.ticks}")
+    others = {k: n for k, n in counts.items() if k not in ("K2", "K7") and n}
+    check(not others, f"f8 engine: other kernels ran: {others}")
+    path_counts("f8 engine")
+    check(all(len(r.generated) == new_tokens for r in reqs), "f8 engine: a request did not finish")
+    check(eng.stats.decode_replays > 0, "f8 engine: no decode tick replayed a captured step")
+    check(bool(torch.isfinite(rows[0]).all()), "f8 engine: logits not finite")
+    eng.pool.check()
+    check(eng.pool.num_allocated == 0, f"f8 engine: {eng.pool.num_allocated} pages leaked")
+    p50 = statistics.median(dt for dt, _ in ticks)
+    tok_s = sum(n for _, n in ticks) / sum(dt for dt, _ in ticks)
+    streams = [list(r.generated) for r in reqs]
+    gap = (rows[0] - bf16["rows"][0]).abs().max().item()
+    agree = sum(a == b for s1, s2 in zip(streams, bf16["streams"]) for a, b in zip(s1, s2))
+    print(f"f8 engine phase: {cfg.name} full width, e4m3 pages ({lay.page_bytes} B a page "
+          f"across the layers against bf16's {bf_bytes} B: {bf_bytes / lay.page_bytes:.4f}x the "
+          f"pages per GB), {len(reqs)} requests (prompts {list(PROMPT_LENS)}, {new_tokens} new "
+          f"tokens): admission + first decode tick {first_s * 1e3:.1f} ms; decode tick p50 "
+          f"{p50 * 1e3:.2f} ms (captured) over {len(ticks)} ticks, {tok_s:.1f} tokens/s; "
+          f"launches K2-f8 {counts['K2']} = {L} x {eng.stats.ticks} (all on the decode ring), "
+          f"K7 {counts['K7']} = {L} x {len(reqs)}, K1 0; pool clean; against the bf16 engine "
+          f"(not bounded): first decode tick's max |logit gap| {gap:.4f}, greedy tokens "
+          f"agreeing {agree}/{len(reqs) * new_tokens}", flush=True)
+    traced_ticks(torch, eng, make_requests(Request, cfg.vocab_size, TRACED_TICKS + 6), p50,
+                 label="f8 traced ticks (captured)")
+    largest, pool = f8_conversions(torch, eng, Request, cfg.vocab_size)
+    print(f"  f8 eager decode tick traced with shapes: the largest dtype conversion read "
+          f"{largest} elements, one layer's K pool holds {pool}: no pool is widened", flush=True)
+    blocking = {"prompts": [r.prompt.copy() for r in reqs], "first": [s[0] for s in streams],
+                "rows": bf16["prefill_rows"]}
+    del eng
+
+    # eager tick p50 beside the captured one (the engine phase's is captured)
+    eng = DecodeEngine(cfg, params, engine_config("lean", sm_count, kv_dtype="f8"),
+                       device="cuda")
+    eng.capture_decode = False
+    _, ticks_e, _ = drive(torch, eng, make_requests(Request, cfg.vocab_size, 6))
+    eager_p50 = statistics.median(dt for dt, _ in ticks_e)
+    del eng
+
+    eng = DecodeEngine(cfg, params, engine_config("lean", sm_count, fused=False, kv_dtype="f8"),
+                       device="cuda")
+    reset_launch_counts()
+    drive(torch, eng, make_requests(Request, cfg.vocab_size, 4))
+    two = launch_counts()
+    check(two["K1"] == L * eng.stats.ticks and two["K1"] > 0 and two["K2"] == 0,
+          f"f8 two-phase: launches {two}, expected K1-f8 {L} x {eng.stats.ticks} and no K2")
+    path_counts("f8 two-phase")
+    check(bool(torch.isfinite(eng.last_logits).all()), "f8 two-phase logits are not finite")
+    eng.pool.check()
+    k1_launches = two["K1"]
+    print(f"f8 tick p50: eager {eager_p50 * 1e3:.2f} ms, captured {p50 * 1e3:.2f} ms; f8 "
+          f"two-phase: {two['K1']} K1-f8 launches = {L} x {two['K1'] // L} ticks, logits "
+          f"finite, pool clean", flush=True)
+    del eng
+
+    # f16 and f32: the reference stores both as bf16 (its KVLayout counts 2
+    # and 4 bytes): one admission and decode tick each against bf16's
+    r = make_requests(Request, cfg.vocab_size, 2)[2]
+    logits, pages = {}, {}
+    for kv in ("bf16", "f16", "f32"):
+        eng = DecodeEngine(cfg, params, engine_config("lean", sm_count, kv_dtype=kv),
+                           device="cuda")
+        check({t.dtype for lc in eng.cache for t in lc.values()} == {torch.bfloat16},
+              f"{kv} engine: the pools are not bf16")
+        eng.submit(Request(uid=0, prompt=r.prompt.copy(), max_new_tokens=2))
+        eng.tick()
+        eng.tick()
+        logits[kv], pages[kv] = eng.last_logits.clone(), eng.pool.layout.page_bytes
+        del eng
+    check(torch.equal(logits["f16"], logits["bf16"]) and torch.equal(logits["f32"], logits["bf16"]),
+          "f16 or f32 pools serve other logits than bf16 ones")
+    print(f"f16 and f32 caches: bf16 pools, one admission ({len(r.prompt)} tokens) and decode "
+          f"tick with the bf16 engine's logits bit for bit; page bytes as the reference counts "
+          f"them: " + ", ".join(f"{k} {v}" for k, v in pages.items()), flush=True)
+    torch.cuda.empty_cache()
+    return counts, k1_launches, blocking
+
+
+def f8_prefix_wave(torch, cfg, params, sm_count, new_tokens) -> dict:
+    """The prefix waves on f8 pages through the lean Scheduler with the
+    radix cache and cascade decode: K5-f8 on the cascade ticks, the fused
+    K4-f8 on the chunk steps, K2-f8 on the other ticks, one launch a layer;
+    the pool and the radix cache clean. Returns the launch counts."""
+    waves = prefix_waves(cfg.vocab_size)
+    on = prefix_serving_run(torch, cfg, params, sm_count, new_tokens, waves, prefix=True,
+                            kv_dtype="f8")
+    st, c, L = on["eng"].stats, on["counts"], cfg.n_layers
+    chunk_steps = len(st.tick_prefill_tokens)
+    check(st.cascade_fused_ticks > 0 and c["K5"] == L * st.cascade_fused_ticks,
+          f"f8 prefix serving: K5-f8 launched {c['K5']} times, expected {L} x "
+          f"{st.cascade_fused_ticks} cascade ticks (> 0)")
+    check(c["K2"] == L * (st.ticks - st.cascade_ticks) and c["K4f"] == L * chunk_steps,
+          f"f8 prefix serving: launches {c}")
+    path_counts("f8 prefix serving")
+    others = {k: n for k, n in c.items() if k not in ("K2", "K4f", "K5") and n}
+    check(not others, f"f8 prefix serving: other kernels ran: {others}")
+    check(st.prefix_matched_tokens > 0, "f8 prefix serving: nothing was shared")
+    check(all(bool(torch.isfinite(a).all()) for a in on["eng"].first_rows.values()),
+          "f8 prefix serving: logits not finite")
+    print(f"f8 prefix serving: {SYSTEM_TOKENS}-token system prompt, then tails "
+          f"{list(WAVE2_TAILS)}, {new_tokens} new tokens: prefix_matched_tokens "
+          f"{st.prefix_matched_tokens}, cascade_fused_ticks {st.cascade_fused_ticks} of "
+          f"{st.ticks}, cow_copies {st.cow_copies}; launches fused K4-f8 {c['K4f']} = {L} x "
+          f"{chunk_steps}, K5-f8 {c['K5']} = {L} x {st.cascade_fused_ticks}, K2-f8 {c['K2']} = "
+          f"{L} x {st.ticks - st.cascade_ticks}; wall {on['wall']:.2f} s; pool and radix cache "
+          f"clean", flush=True)
+    return c
+
+
+def f8_phase(torch, cfg, params, sm_count, new_tokens, dev_name, bf16):
+    """Phase 11 (``--f8-step`` alone): the f8 kernels, the f8 engine, the
+    Scheduler on lean and fixed, a prefix wave with cascade, and f16/f32.
+    ``bf16``: the bf16 engine's streams, logits rows and blocking prefill
+    rows. Returns the kernels' results and the launches of each f8 form on
+    the path that serves it."""
+    f8res = f8_kernel_phase(torch, sm_count, dev_name)
+    counts, k1, blocking = f8_engine_phase(torch, cfg, params, sm_count, new_tokens, bf16)
+    runs = {b: scheduler_phase(torch, cfg, params, b, sm_count, new_tokens, blocking,
+                               kv_dtype="f8") for b in ("lean", "fixed")}
+    prefix = f8_prefix_wave(torch, cfg, params, sm_count, 8)
+    launches = {"lean_decode_fused_f8": counts["K2"], "lean_decode_partials_f8": k1,
+                "lean_prefill_fused_f8": runs["lean"]["counts"]["K4f"],
+                "flash_prefill_paged_f8": runs["fixed"]["counts"]["K8"],
+                "flash_decode_partials_f8": runs["fixed"]["counts"]["K6"],
+                "lean_cascade_fused_f8": prefix["K5"]}
+    check(all(n > 0 for n in launches.values()), f"an f8 form was not launched: {launches}")
+    print("f8 phase launches: " + ", ".join(f"{k} {v}" for k, v in launches.items()), flush=True)
+    return f8res, launches
+
+
 # ------------------------------------------------------------ captured step
 CAPTURE_NEW_TOKENS = 6     # new tokens per request in the bit check (waves: 8)
 
@@ -2784,6 +3290,7 @@ def capture_configs(sm_count):
     served as the engine phase serves (``"engine"``: blocking admission,
     decode steps); the same requests through the ``Scheduler`` on ``lean``,
     ``fixed`` and ``ref``, bf16 and int8 pages (``"sched"``: chunk steps);
+    f8 pages on ``lean``, decode and chunk steps;
     speculative decode on ``lean`` bf16 and int8 pages and ``fixed`` bf16
     (``"engine"`` with ``SpecConfig(k=4)``, the n-gram proposer: verify
     steps, the fused K4 or K8 on 5-row chunks); ``ADMIT_LENS``
@@ -2810,6 +3317,8 @@ def capture_configs(sm_count):
     out += [(f"dense {name(b, f)}", dense(b, f), "engine") for b, f in kinds]
     out += [(f"chunk steps {kv or 'bf16'} {b}", engine_config(b, sm_count, True, kv), "sched")
             for kv in (None, "int8") for b in ("lean", "fixed", "ref")]
+    out += [("paged f8 lean", engine_config("lean", sm_count, True, "f8"), "engine"),
+            ("chunk steps f8 lean", engine_config("lean", sm_count, True, "f8"), "sched")]
     out += [(f"spec {kv or 'bf16'} {b}", dataclasses.replace(
         engine_config(b, sm_count, True, kv), spec=SpecConfig(enabled=True, k=SPEC_K)),
         "engine") for b, kv in (("lean", None), ("lean", "int8"), ("fixed", None))]
@@ -2844,6 +3353,7 @@ def twin_bits(torch, cfg, params, config, drive, prompts=None):
     prompts."""
     import numpy as np
 
+    from repro_torch.core.attention import kv_bytes
     from repro_torch.kernels import launches
     from repro_torch.serving.engine import DecodeEngine, Request
     from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
@@ -2923,7 +3433,9 @@ def twin_bits(torch, cfg, params, config, drive, prompts=None):
             break
         check(moved[0] == moved[1], f"a step's launches differ: eager {moved[0]}, captured "
               f"{moved[1]}")
-        pools = all(torch.equal(x[first:], y[first:]) for l0, l1 in zip(*(e.cache for e in engines))
+        # (an f8 pool compared by its bytes)
+        pools = all(torch.equal(kv_bytes(x)[first:], kv_bytes(y)[first:])
+                    for l0, l1 in zip(*(e.cache for e in engines))
                     for x, y in zip(l0.values(), l1.values()))
         o0, o1 = (e.outs for e in engines)
         check([k for k, _ in o0] == [k for k, _ in o1], "the engines ran other steps")
@@ -5680,7 +6192,7 @@ def main() -> int:
         clock("done")
         return 0
     alone = {"--captured-step", "--chunk-step", "--spec-step", "--admission-step", "--obs-step",
-             "--guards-step"}
+             "--guards-step", "--f8-step"}
     if sys.argv[1:2] and sys.argv[1] in alone:
         torch.backends.cuda.matmul.allow_tf32 = False
         sm_count = torch.cuda.get_device_properties(0).multi_processor_count
@@ -5701,6 +6213,19 @@ def main() -> int:
             obs_phase(torch, cfg, params, sm_count, 16, smi)
         elif sys.argv[1] == "--guards-step":
             guards_phase(torch, cfg, params, sm_count, 16, smi)
+        elif sys.argv[1] == "--f8-step":
+            # the bf16 engine's streams and rows, and blocking prefill's, first
+            eng = DecodeEngine(cfg, params, engine_config("lean", sm_count), device="cuda")
+            reqs = make_requests(Request, cfg.vocab_size, 16)
+            _, _, rows = drive(torch, eng, reqs)
+            del eng
+            bf16 = {"streams": [list(r.generated) for r in reqs], "rows": rows,
+                    "prefill_rows": exact_prefill_reference(torch, cfg, params)["rows"]}
+            clock("f8 phases")
+            f8res, launches = f8_phase(torch, cfg, params, sm_count, 16,
+                                       torch.cuda.get_device_name(0), bf16)
+            print(json.dumps({"card": smi, "f8": {name: {**r, "launches": launches[name]}
+                                                  for (name, _), r in f8res.items()}}))
         else:
             admission_phase(torch, cfg, params, sm_count, smi)
         clock("done")
@@ -5727,7 +6252,9 @@ def main() -> int:
                 print(f"  ptxas {source}: {line.strip()}")
     tc_lines = (tc_ptxas_lines(build.ptxas_report("flash_prefill.cu"))
                 + tc_ptxas_lines(build.ptxas_report("lean_prefill_tc.cu")))
-    check(len(tc_lines) == 9, f"ptxas reported {len(tc_lines)} tensor-core kernels, expected 9")
+    # K7 at d 64, 128, 256; K8 at 64 and 128 on bf16 and e4m3 pools; the
+    # fused K4 at 64 and 128 on bf16, int8 and e4m3 pages
+    check(len(tc_lines) == 13, f"ptxas reported {len(tc_lines)} tensor-core kernels, expected 13")
     for kernel, regs, spill in tc_lines:
         print(f"  ptxas tensor-core {kernel}: {regs}; {spill}", flush=True)
         # the d-256 row block's register plan (O split by columns) leaves no spill
@@ -5848,7 +6375,7 @@ def main() -> int:
         walls.append(run["wall"])
     print("scheduler phases, wall s in turns (lean, fixed, fixed, lean): "
           + ", ".join(f"{w:.2f}" for w in walls), flush=True)
-    # the lean phase is traced in the chunk step phase (11), eager and captured
+    # the lean phase is traced in the chunk step phase (12), eager and captured
     syncs = traced_fixed_phase(torch, cfg, params, sm_count, new_tokens)
     print(f"scheduler phases: host syncs (aten::item) fixed {syncs} (traced at "
           f"{TRACED_FIXED_LAYERS} of {cfg.n_layers} layers)", flush=True)
@@ -5883,37 +6410,46 @@ def main() -> int:
           f"{TRACED_FIXED_LAYERS} of {cfg.n_layers} layers)", flush=True)
     i8_prefix = prefix_serving_phase(torch, cfg, params, sm_count, new_tokens, kv_dtype="int8")
 
+    clock("f8 phases")
+    # 11. f8 pages: the six f8 forms against their bf16 forms on the widened
+    # K/V and their plain versions, the blocking engine (K2-f8, K1-f8), the
+    # Scheduler on lean (fused K4-f8) and fixed (K8-f8, K6-f8), a prefix
+    # wave with cascade (K5-f8), f16 and f32
+    f8res, f8_launches = f8_phase(
+        torch, cfg, params, sm_count, new_tokens, dev_name,
+        {"streams": paged["streams"], "rows": paged["rows"], "prefill_rows": blocking["rows"]})
+
     clock("chunk step phase")
-    # 11. the captured chunk step against the eager one: the lean Scheduler's
+    # 12. the captured chunk step against the eager one: the lean Scheduler's
     # wall and TTFT in turns, idle share and host launch calls traced
     chunk_step_phase(torch, cfg, params, sm_count, new_tokens,
                      {None: blocking, "int8": i8_blocking}, smi, full=False)
 
     clock("spec phase")
-    # 12. speculative decode, its verify step captured (the fused K4)
+    # 13. speculative decode, its verify step captured (the fused K4)
     k4_verify = spec_phase(torch, cfg, params, sm_count, smi)
 
     clock("admission phase")
-    # 13. blocking admission at the bucket length, captured, against eager
+    # 14. blocking admission at the bucket length, captured, against eager
     admission_phase(torch, cfg, params, sm_count, smi)
 
     clock("captured step phase")
-    # 14. the captured decode step against the eager one: tick p50 in
+    # 15. the captured decode step against the eager one: tick p50 in
     # turns, traced ticks, bits on every configuration and step kind it
     # captures
     captured_step_phase(torch, cfg, params, sm_count, new_tokens, smi)
 
     clock("obs phase")
-    # 15. observability: every ObsConfig sink on the lean Scheduler, traced
+    # 16. observability: every ObsConfig sink on the lean Scheduler, traced
     # against untraced, the CLI on the card's trace and flight dump
     obs_phase(torch, cfg, params, sm_count, new_tokens, smi)
 
     clock("guards phase")
-    # 16. guards and fault injection: NaN isolation on every decode path,
+    # 17. guards and fault injection: NaN isolation on every decode path,
     # the guard's cost, the degraded levels' passes, chaos under the Scheduler
     guard_counts = guards_phase(torch, cfg, params, sm_count, new_tokens, smi)
 
-    # 17. the attention-family architectures, after Mistral-NeMo-12B's
+    # 18. the attention-family architectures, after Mistral-NeMo-12B's
     # weights are released: the kernels at their geometries, qwen3-moe at
     # full width (depth as fits), gemma3 at full width and depth, and the
     # geometry sweep
@@ -5926,13 +6462,13 @@ def main() -> int:
     gemma = gemma_phase(torch, sm_count, smi)
     clock("sweep phase")
     sweep = sweep_phase(torch, sm_count, smi)
-    # 18. the recurrent architectures: K7 at recurrentgemma's window layers,
+    # 19. the recurrent architectures: K7 at recurrentgemma's window layers,
     # recurrentgemma-9b and xlstm-350m at full width and depth
     clock("recurrent phase")
     recurrent = recurrent_phase(torch, sm_count, smi)
 
     clock("summary")
-    # 19. summary: kernel times in bf16 at the main path's shapes; launches
+    # 20. summary: kernel times in bf16 at the main path's shapes; launches
     # from the run of the path each kernel serves
     k6 = k6res[(DECODE_SHAPES[0], "bfloat16")]
     kres[("flash_decode_partials", "bfloat16")] = k6
@@ -5949,8 +6485,9 @@ def main() -> int:
                 "lean_decode_fused_int8": i8_counts["K2"], "lean_decode_partials_int8": i8_k1,
                 "lean_prefill_fused_int8": i8_runs["lean"]["counts"]["K4f"],
                 "lean_prefill_chunk_partials_int8": merge_counts["verify int8"]["K4"],
-                "lean_cascade_fused_int8": i8_prefix["K5"]}
+                "lean_cascade_fused_int8": i8_prefix["K5"], **f8_launches}
     kres.update(i8res)
+    kres.update(f8res)
     where = {
         "lean_decode_fused": ("lean_decode.cu", "src/repro/kernels/lean_decode.py:302"),
         "lean_decode_partials": ("lean_decode.cu", "src/repro/kernels/lean_decode.py:117"),
@@ -5963,6 +6500,7 @@ def main() -> int:
         "lean_cascade_fused": ("lean_cascade.cu", "src/repro/kernels/lean_decode.py:604"),
         "flash_prefill": ("flash_prefill.cu", "src/repro/kernels/flash_prefill.py:24"),
         **INT8_REPLACES,
+        **F8_REPLACES,
     }
     kernels = []
     for name, (source, replaces) in where.items():
@@ -5976,7 +6514,8 @@ def main() -> int:
             # no one PyTorch call computes K1's per-piece partials or K3's
             # merge of them; SDPA computes the attention K2, the fused K4,
             # K4 (+ merge), K5, K6 (+ merge_n), K7 and K8 do (for the int8
-            # forms: on the K/V dequantized to bf16)
+            # forms: on the K/V dequantized to bf16; for the f8 forms: on
+            # the K/V widened to bf16)
             "library_ms": r["library_ms"] if r["library_ms"] is not None
             and not name.startswith("lean_decode_partials") else None,
         })

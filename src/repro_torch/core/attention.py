@@ -7,6 +7,12 @@ dequantizing gather, and the quantizing scatter that is an int8 pool's
 single write point). They are plain tensor code, as in
 the reference; no fused library attention stands in for them.
 
+f8 caches (``kv_cache_dtype="f8"``) store ``torch.float8_e4m3fn``. Every
+write into one goes through :func:`to_kv`, the reference's cast; torch
+has no float8 ``index_copy_``/``masked_fill`` (and its CUDA indexing of
+float8 is not relied on), so copies into and out of one move its bytes
+(:func:`kv_bytes`); a plain read widens it (:func:`widen_kv`, exact).
+
 Numerics follow the reference. ``einsum(..., preferred_element_type=f32)``
 on bf16 operands becomes an einsum of the operands upcast to float32
 (products of bf16 values are exact in float32; TF32 must stay off on the
@@ -41,17 +47,61 @@ def _length_mask(scores: torch.Tensor, ctx_lens: Optional[torch.Tensor]):
     return torch.where(mask, scores, torch.full_like(scores, NEG_INF))
 
 
+# ------------------------------------------------------------ f8 storage
+F8 = torch.float8_e4m3fn
+# |x| above this overflows e4m3: 464 lies halfway between 448 (the largest
+# finite code) and the next step, and rounds to even, down to 448
+F8_OVERFLOW = 464.0
+
+
+def to_kv(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` cast to a KV cache's storage dtype as the reference casts it
+    (``x.astype(dtype)``). For ``float8_e4m3fn`` that is JAX's cast bit for
+    bit: round to nearest even, and every ``|x| > 464``, ``+-inf`` and NaN
+    to the NaN code of x's sign (0x7f / 0xff), where torch's own cast
+    saturates to +-448; in-range values take torch's codes, which equal
+    JAX's from bf16 and float32 sources. Cast from the dtype the reference
+    casts from: float32 -> e4m3 and float32 -> bf16 -> e4m3 can differ.
+    Other dtypes: a plain ``.to``."""
+    if dtype != F8:
+        return x.to(dtype)
+    codes = x.to(F8).view(torch.uint8)
+    # torch saturates an overflow to +-448 (0x7e / 0xfe) and keeps NaN's
+    # sign; the low seven bits set make either the NaN code of that sign
+    return torch.where(x.abs() <= F8_OVERFLOW, codes, codes | 0x7F).view(F8)
+
+
+def widen_kv(t: torch.Tensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """An e4m3 cache, pool or rows widened to ``dtype`` (exact, NaN kept):
+    where the reference reads an f8 cache (``k.astype(compute_dtype)``);
+    any other tensor as it is."""
+    return t.to(dtype) if t.dtype == F8 else t
+
+
+def kv_bytes(t: torch.Tensor) -> torch.Tensor:
+    """An e4m3 tensor's bytes (a ``uint8`` view) for indexing, index
+    assignment and copies; any other tensor as it is."""
+    return t.view(torch.uint8) if t.dtype == F8 else t
+
+
+def kv_write(dst: torch.Tensor, index, vals: torch.Tensor) -> None:
+    """``dst[index] = vals`` cast as the reference casts (:func:`to_kv`),
+    through the bytes of an e4m3 ``dst``."""
+    kv_bytes(dst)[index] = kv_bytes(to_kv(vals, dst.dtype))
+
+
 def paged_gather_kv(pool: torch.Tensor, page_tbl: torch.Tensor) -> torch.Tensor:
     """Dense per-sequence KV view of a paged pool.
 
     ``pool: (num_pages, H_kv, page_size, d)``; ``page_tbl: (B, T)`` maps
     logical tile ``t`` of sequence ``b`` to a physical page (null-page
     entries gather garbage that callers mask by context length). Returns
-    ``(B, H_kv, T * page_size, d)``.
+    ``(B, H_kv, T * page_size, d)`` in the pool's dtype (an e4m3 pool's
+    bytes are gathered).
     """
-    g = pool[page_tbl.long()]                      # (B, T, H, page, d)
+    g = kv_bytes(pool)[page_tbl.long()]            # (B, T, H, page, d)
     B, T, H, ps, d = g.shape
-    return g.movedim(2, 1).reshape(B, H, T * ps, d)
+    return g.movedim(2, 1).reshape(B, H, T * ps, d).view(pool.dtype)
 
 
 def null_page_writer_rows(pages: torch.Tensor) -> torch.Tensor:
@@ -126,7 +176,7 @@ def paged_scatter_tokens(
     N, C, H, d = vals.shape
     pages, offsets, _ = _chunk_targets(page_tbls, offs, lens, C, pool.shape[2], pool.device)
     rows = null_page_last_writer(pages.reshape(-1), vals.reshape(N * C, H, d), writer)
-    pool[pages.reshape(-1), :, offsets.reshape(-1)] = rows.to(pool.dtype)
+    kv_write(pool, (pages.reshape(-1), slice(None), offsets.reshape(-1)), rows)
     return pool
 
 

@@ -25,6 +25,8 @@ from typing import Dict, List
 
 import torch
 
+from repro_torch.core.attention import F8
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("lean_decode.cu", "lean_decode_walk.cu", "lean_prefill.cu", "lean_prefill_tc.cu",
@@ -124,14 +126,21 @@ def ptxas_report(source: str) -> str:
 
 # ------------------------------------------------------------ binding helpers
 # dtype codes of the C entry points: q and K/V share one dtype (0, 1), or
-# bf16 queries read int8 K/V rows with a float32 scale per row (2)
+# bf16 queries read int8 K/V rows with a float32 scale per row (2), or e4m3
+# K/V rows with no scales (3, the f8 pools)
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 INT8_KV_CODE = 2
-INT8_VEC = 16       # bytes: int8 rows are read as 16-byte vectors
+F8_KV_CODE = 3
+INT8_VEC = 16       # bytes: 1-byte (int8, e4m3) rows are read as 16-byte vectors
+BYTE_KV = (torch.int8, F8)
 
 
 def dtype_code(q: torch.Tensor, kv: torch.Tensor) -> int:
-    return INT8_KV_CODE if kv.dtype == torch.int8 else DTYPE_CODE[q.dtype]
+    if kv.dtype == torch.int8:
+        return INT8_KV_CODE
+    if kv.dtype == F8:
+        return F8_KV_CODE
+    return DTYPE_CODE[q.dtype]
 
 
 def ptr(t) -> ctypes.c_void_p:
@@ -158,16 +167,17 @@ def check_contiguous(**tensors):
 
 def check_dtypes(q, *kv):
     """The kernels take float32 or bfloat16 operands of one dtype, or -- the
-    int8 pools -- bf16 queries with int8 K/V whose rows hold a multiple of
-    16 values from a 16-byte aligned base (the kernels read them as
-    16-byte vectors)."""
+    int8 and f8 pools -- bf16 queries with int8 or e4m3 K/V whose rows hold
+    a multiple of 16 values from a 16-byte aligned base (the kernels read
+    them as 16-byte vectors)."""
     dts = [q.dtype] + [t.dtype for t in kv]
-    if all(t.dtype == torch.int8 for t in kv):
+    if kv and kv[0].dtype in BYTE_KV and all(t.dtype == kv[0].dtype for t in kv):
+        name = "int8" if kv[0].dtype == torch.int8 else "e4m3"
         if q.dtype != torch.bfloat16:
-            raise TypeError(f"int8 K/V kernels take bf16 queries, got {q.dtype}")
+            raise TypeError(f"{name} K/V kernels take bf16 queries, got {q.dtype}")
         for t in kv:
             if t.shape[-1] % INT8_VEC or t.data_ptr() % INT8_VEC:
-                raise ValueError(f"int8 K/V rows need a head dim that is a multiple of "
+                raise ValueError(f"{name} K/V rows need a head dim that is a multiple of "
                                  f"{INT8_VEC} and a {INT8_VEC}-byte aligned base, got "
                                  f"d {t.shape[-1]}")
         return

@@ -35,7 +35,7 @@
 //
 // Sizing (the host's rule, kernels/decode_ring.py, which passes ns): a
 // slot holds one tile's K or V rows (32 KB for a bf16 tile of 128 keys at d
-// 128, 64 KB in float32, 16 KB in int8), up to kMaxSlots, in the shared
+// 128, 64 KB in float32, 16 KB in int8 or e4m3), up to kMaxSlots, in the shared
 // memory the CTA's float state leaves; fewer than two slots, or rows whose
 // bytes are not a multiple of 16, keep the device-memory walk.
 // mbarrier waits trap after about 2^24 polls instead of hanging the card.

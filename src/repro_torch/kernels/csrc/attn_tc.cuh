@@ -1,7 +1,10 @@
 // Tensor-core row-block update for Hopper (sm_90a): the FA-2 inner loop of
 // K7 and K8 (flash_prefill.cu) on wgmma and TMA; the fused K4
 // (lean_prefill_tc.cu) runs the same per-tile step (tile_update) on its own
-// stream-K walk, with int8 pages' scales applied to S and P.
+// stream-K walk, with int8 pages' scales applied to S and P. 1-byte K/V
+// (int8, e4m3: the fused K4's int8 and f8 pages, K8's f8 pools) are staged
+// by TMA and converted to the bf16 tile on the producer warpgroup
+// (convert_tile, produce_staged).
 //
 // A CTA of kThreads = 384 threads serves kRows = 128 query rows of one
 // (batch row, KV head): the folded (g, L) rows of q's own memory. Warpgroup 0
@@ -60,6 +63,7 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -72,6 +76,7 @@ constexpr int kThreads = 384;       // producer warpgroup + two consumer warpgro
 constexpr int kStages = 2;          // K/V tiles in flight
 constexpr int kPanelBytes = 128 * 128;   // 128 rows of a 64-column bf16 panel
 constexpr float kNegInf = -1e30f;   // finite start of the running max, as the reference
+constexpr int kStageBar = 4;        // named barrier of the producer warpgroup (1-byte staging)
 
 // Head dim 256: the consumers split O by columns over 64 rows a CTA.
 template <int D>
@@ -288,6 +293,64 @@ __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// ------------------------------------------------------ 1-byte tiles -> bf16
+// int8 and e4m3 K/V pages reach wgmma as bf16: TMA stages the 1-byte tile
+// (row-major, D bytes a row) and the producer warpgroup converts it into
+// the bf16 swizzled tile, exactly (both types' values are bf16 values).
+
+// Two int8 values (bytes k and k + 1 of w) as bf16x2. x + 128 goes into
+// the mantissa of 2^23 (a byte permute), 2^23 + 128 comes off (exact), and
+// since an integer of at most 8 significant bits is exact in bf16, the top
+// halves of the two float32s are the bf16 pair: no conversion instruction.
+__device__ __forceinline__ uint32_t int8x2_to_bf16x2(uint32_t w, int k) {
+  const uint32_t u = w ^ 0x80808080u;   // each byte x + 128
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 | k)) - 8388736.f;
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 | (k + 1))) - 8388736.f;
+  return __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+}
+
+// Two e4m3 values (bytes k and k + 1 of w) as bf16x2: e4m3 -> f16 (the
+// card's paired conversion) -> float32 -> bf16, each step exact (4
+// significant bits, exponents inside both types' ranges); NaN stays NaN.
+__device__ __forceinline__ uint32_t e4m3x2_to_bf16x2(uint32_t w, int k) {
+  const __half2_raw h =
+      __nv_cvt_fp8x2_to_halfraw2((__nv_fp8x2_storage_t)(w >> (8 * k)), __NV_E4M3);
+  const float2 f = __half22float2(__half2(h));
+  return bf16x2_bits(__floats2bfloat162_rn(f.x, f.y));
+}
+
+template <bool kF8>
+__device__ __forceinline__ uint32_t byte2_to_bf16x2(uint32_t w, int k) {
+  if constexpr (kF8)
+    return e4m3x2_to_bf16x2(w, k);
+  else
+    return int8x2_to_bf16x2(w, k);
+}
+
+// Rows [0, nr) of a staged 1-byte tile (row-major, D bytes a row; e4m3
+// with kF8, else int8) into the bf16 swizzled tile at dst, on the 128
+// threads of the producer warpgroup (ptid 0..127): 8 values (one 16-byte
+// chunk of bf16) a step.
+template <int D, bool kF8>
+__device__ __forceinline__ void convert_tile(uint32_t src, uint32_t dst, int nr, int ptid) {
+  constexpr int kChunks = D / 8;   // 16-byte bf16 chunks a row
+#pragma unroll 2
+  for (int e = ptid; e < nr * kChunks; e += 128) {
+    const int r = e / kChunks, c8 = e % kChunks;
+    uint32_t w0, w1;
+    asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n"
+                 : "=r"(w0), "=r"(w1)
+                 : "r"(src + r * D + c8 * 8));
+    const uint32_t h[4] = {byte2_to_bf16x2<kF8>(w0, 0), byte2_to_bf16x2<kF8>(w0, 2),
+                           byte2_to_bf16x2<kF8>(w1, 0), byte2_to_bf16x2<kF8>(w1, 2)};
+    const int chunk = c8 % 8;
+    const uint32_t at = dst + (c8 / 8) * kPanelBytes + r * 128 + ((chunk ^ (r & 7)) << 4);
+    asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(at), "r"(h[0]), "r"(h[1]),
+                 "r"(h[2]), "r"(h[3])
+                 : "memory");
+  }
+}
+
 // -------------------------------------------------------------- producer
 template <int D, int KT, class Walk>
 __device__ __forceinline__ void produce(const Walk& w, uint32_t q_s, uint32_t k_s, uint32_t v_s,
@@ -300,6 +363,52 @@ __device__ __forceinline__ void produce(const Walk& w, uint32_t q_s, uint32_t k_
     if (t >= kStages) mbar_wait(bar0 + 8 * (5 + s), ((t / kStages) - 1) & 1);
     w.load_tile(t, k_s + s * kTile, v_s + s * kTile, bar0 + 8 * (1 + s), bar0 + 8 * (3 + s),
                 kmap, vmap);
+  }
+}
+
+// e4m3 K/V (K8 on the f8 pools): thread 0 issues Q and each tile's 1-byte
+// K and V rows into a 2-stage staging ring, two tiles ahead, through the
+// walk's load_tile_bytes (completing on the staging barriers that follow
+// the stage-empty ones); the whole producer warpgroup converts a landed
+// tile into the bf16 ring stage once the consumers have freed it (exact),
+// then thread 0 marks its K and V full, one arrival each. The consumers
+// run the bf16 tile update unchanged.
+template <int D, int KT, class Walk>
+__device__ __forceinline__ void produce_staged(const Walk& w, uint32_t q_s, uint32_t k_s,
+                                               uint32_t v_s, uint32_t st_s, uint32_t bar0,
+                                               const CUtensorMap* qmap, const CUtensorMap* kmap,
+                                               const CUtensorMap* vmap) {
+  constexpr uint32_t kTile = (D / 64) * KT * 128;
+  constexpr uint32_t kStTile = KT * D;   // one 1-byte tile
+  const uint32_t st_bar = bar0 + 8 * (1 + 3 * kStages);
+  const int ptid = threadIdx.x;
+  int issued = 0;   // thread 0's issue cursor
+  auto issue = [&]() {
+    if (issued >= w.ntiles) return;
+    const uint32_t dst = st_s + (issued % kStages) * 2 * kStTile;
+    w.load_tile_bytes(issued, dst, dst + kStTile, st_bar + 8 * (issued % kStages), kmap, vmap);
+    ++issued;
+  };
+  if (ptid == 0) {
+    w.load_q(q_s, bar0, qmap);
+    issue();
+    issue();
+  }
+  for (int t = 0; t < w.ntiles; ++t) {
+    const int s = t % kStages;
+    mbar_wait(st_bar + 8 * s, (t / kStages) & 1);
+    if (t >= kStages) mbar_wait(bar0 + 8 * (5 + s), ((t / kStages) - 1) & 1);
+    const uint32_t src = st_s + s * 2 * kStTile;
+    const int nr = w.nvalid(t);
+    convert_tile<D, true>(src, k_s + s * kTile, nr, ptid);
+    convert_tile<D, true>(src + kStTile, v_s + s * kTile, nr, ptid);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync %0, 128;\n" ::"n"(kStageBar) : "memory");
+    if (ptid == 0) {
+      mbar_arrive(bar0 + 8 * (1 + s));
+      mbar_arrive(bar0 + 8 * (3 + s));
+      issue();   // staging stage s is free again
+    }
   }
 }
 
@@ -541,8 +650,26 @@ inline int encode_rows(CUtensorMap* map, const void* base, int d, long long n_ro
                    n_rows, n_mats, 64, box_rows);
 }
 
+// 1-byte rows (int8, e4m3) in whole-row boxes, no swizzle: the staging
+// layout convert_tile reads
+inline int encode_bytes(CUtensorMap* map, const void* base, int d, long long n_rows,
+                        long long n_mats, int box_rows) {
+  return encode_3d(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, CU_TENSOR_MAP_SWIZZLE_NONE, base, d,
+                   n_rows, n_mats, d, box_rows);
+}
+
+// Dynamic shared memory of the kernel with e4m3 K/V: smem_bytes plus the
+// staging ring of 1-byte K and V tiles (230,400 bytes at d 128).
+inline size_t smem_bytes_f8(int d) {
+  const int kt = d == 256 ? key_tile<256>() : kKeys;
+  return smem_bytes(d) + (size_t)kStages * 2 * kt * d;
+}
+
 // ------------------------------------------------------------------ kernel
-template <int D, int KT, class Walk>
+// kF8: the K/V maps are over e4m3 rows (encode_bytes), staged and
+// converted by the producer warpgroup (produce_staged; the walk provides
+// load_tile_bytes).
+template <int D, int KT, class Walk, bool kF8 = false>
 __global__ void __launch_bounds__(kThreads, 1)
     row_block_kernel(const __grid_constant__ CUtensorMap qmap,
                      const __grid_constant__ CUtensorMap kmap,
@@ -551,8 +678,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                     (D == 64 || D == 128 || D == 256),
                 "head dim 64 or 128 with 128 rows and 128-key tiles, 256 with 64 and 64");
   extern __shared__ uint8_t smem_raw[];
-  // barriers: Q, K full [2], V full [2], stage empty [2]
-  __shared__ __align__(8) uint64_t bars[1 + 3 * kStages];
+  // barriers: Q, K full [2], V full [2], stage empty [2], and with kF8
+  // staging full [2]
+  __shared__ __align__(8) uint64_t bars[1 + (kF8 ? 4 : 3) * kStages];
   constexpr uint32_t kTile = (D / 64) * KT * 128;
   const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t k_s = q_s + (D / 64) * cta_rows<D>() * 128;
@@ -565,13 +693,17 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_init(bar0 + 8 * (1 + s), 1);
       mbar_init(bar0 + 8 * (3 + s), 1);
       mbar_init(bar0 + 8 * (5 + s), 8);   // one arrival per consumer warp
+      if constexpr (kF8) mbar_init(bar0 + 8 * (7 + s), 1);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
   if (threadIdx.x < 128) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
-    if (threadIdx.x == 0) produce<D, KT>(w, q_s, k_s, v_s, bar0, &qmap, &kmap, &vmap);
+    if constexpr (kF8)
+      produce_staged<D, KT>(w, q_s, k_s, v_s, v_s + kStages * kTile, bar0, &qmap, &kmap, &vmap);
+    else if (threadIdx.x == 0)
+      produce<D, KT>(w, q_s, k_s, v_s, bar0, &qmap, &kmap, &vmap);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
     consume<D, KT>(w, q_s, k_s, v_s, bar0, a.scale_log2);

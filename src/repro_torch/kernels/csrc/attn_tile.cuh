@@ -40,9 +40,17 @@
 // cp.async (every copy of the tile in flight at once), the decode ring with
 // its bulk copies, and the row-block update widens 16 values per load. Rows
 // must hold a multiple of 16 values.
+//
+// e4m3 K/V (the f8 pools): the storage type is __nv_fp8_e4m3 and there are
+// no scales. The rows travel as int8 rows do -- 1-byte staging, 16-byte
+// copies, the same alignment rule -- and an element is widened to float32
+// as it is read (dequant is to_float). e4m3 -> float32 is exact, so a
+// kernel on e4m3 rows gives the bits of its bf16 form on the rows widened
+// to bf16 (also exact), NaN included.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -54,14 +62,23 @@ namespace attn {
 constexpr float kNegInf = -1e30f;  // finite mask value, as the reference
 constexpr int kVec = 16;           // bytes of one int8 vector load
 
+using e4m3 = __nv_fp8_e4m3;
+
 template <typename T>
 constexpr bool is_int8 = std::is_same<T, int8_t>::value;
+template <typename T>
+constexpr bool is_f8 = std::is_same<T, e4m3>::value;
+// 1-byte rows (int8 with scales, e4m3 without): staged and read as 16-byte vectors
+template <typename T>
+constexpr bool is_byte = is_int8<T> || is_f8<T>;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_float(int8_t x) { return (float)x; }
+__device__ __forceinline__ float to_float(e4m3 x) { return static_cast<float>(x); }
 
-// An element of a K/V tile as float32: int8 values times their row's scale.
+// An element of a K/V tile as float32: int8 values times their row's scale
+// (e4m3 values carry none).
 template <typename T>
 __device__ __forceinline__ float dequant(T x, float sc) {
   if constexpr (is_int8<T>)
@@ -199,12 +216,12 @@ inline size_t smem_bytes(int gq, int d, int tile) {
   return sizeof(float) * ((size_t)2 * gq * d + (size_t)gq * tile + 3 * (size_t)gq);
 }
 
-// Bytes of the int8 staging area ahead of the float state: one tile's K and
-// V rows (none for float storage). A multiple of 16, so the floats after it
-// stay aligned.
+// Bytes of the 1-byte (int8, e4m3) staging area ahead of the float state:
+// one tile's K and V rows (none for float storage). A multiple of 16, so
+// the floats after it stay aligned.
 template <typename T>
 __host__ __device__ inline size_t stage_bytes(int d, int tile) {
-  return is_int8<T> ? (size_t)2 * tile * d : 0;
+  return is_byte<T> ? (size_t)2 * tile * d : 0;
 }
 
 // Zero the accumulator and reset the running max and sum of the QB rows
@@ -363,7 +380,7 @@ __device__ void tile_update(const T* __restrict__ k_tile, const T* __restrict__ 
                             float ks = 1.f, float vs = 1.f, int8_t* stage = nullptr) {
   const T* kp = k_tile;
   const T* vp = v_tile;
-  if constexpr (is_int8<T>) {
+  if constexpr (is_byte<T>) {
     const int nvec = vlen * d / kVec;
     for (int i = threadIdx.x; i < nvec; i += kThreads) {
       cp_async16(stage + i * kVec, k_tile + i * kVec);
@@ -371,8 +388,8 @@ __device__ void tile_update(const T* __restrict__ k_tile, const T* __restrict__ 
     }
     cp_async_wait_all();
     __syncthreads();
-    kp = stage;
-    vp = stage + (size_t)tile * d;
+    kp = reinterpret_cast<const T*>(stage);
+    vp = reinterpret_cast<const T*>(stage + (size_t)tile * d);
   }
   decode_scores<T, GQ>(kp, vlen, s, d, tile, scale, ks);
   __syncthreads();
@@ -464,15 +481,15 @@ __device__ void load_rows(const T* __restrict__ q_rows, int nrows, const RowSmem
 }
 
 // n K or V rows (row stride d) into s.kv as float32, times `sc` if int8
-// (16 values a load).
+// (1-byte rows: 16 values a load).
 template <typename T>
 __device__ void load_kv_rows(const T* __restrict__ src, int n, float* dst, int d, float sc) {
   const int ld = d + 1;
-  if constexpr (is_int8<T>) {
+  if constexpr (is_byte<T>) {
     for (int e = threadIdx.x; e < n * d / kVec; e += kRowThreads) {
       const int j = e * kVec / d, c = e * kVec - j * d;
       const int4 raw = *reinterpret_cast<const int4*>(src + (size_t)e * kVec);
-      const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+      const T* b = reinterpret_cast<const T*>(&raw);
 #pragma unroll
       for (int u = 0; u < kVec; ++u) dst[j * ld + c + u] = dequant(b[u], sc);
     }

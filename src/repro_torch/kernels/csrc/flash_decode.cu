@@ -30,6 +30,12 @@
 // whose bytes are not a multiple of 16) the CTA runs attn::tile_update
 // on the tiles in device memory.
 //
+// f8 pools (dtype code 3): bf16 queries and e4m3 K/V rows, 1-byte tiles
+// through the ring, widened to float32 as they are read (exact: the bf16
+// form's bits on the rows widened to bf16). They always take the ring
+// (the host's slot rule gives a 1-byte tile at least two slots), so they
+// have no walk.
+//
 // Plain C interface (loaded with ctypes); returns the launch's cudaError_t.
 
 #include "attn_decode_ring.cuh"
@@ -55,18 +61,19 @@ struct Args {
 // GQ is the row bucket of gq (attn::row_bucket): rows gq..GQ-1 are zero
 // queries whose results are never written, so a bucket equal to gq (the
 // configs' g of 2 and 4) computes what the exact instantiation did.
-template <typename T, int GQ>
+// Q: the queries' type; KV: the K/V rows' (Q, or e4m3 on the ring).
+template <typename Q, typename KV, int GQ>
 __global__ void __launch_bounds__(kThreads) flash_decode_kernel(Args a) {
   extern __shared__ float smem_raw[];
   const Smem s = attn::carve_smem<GQ>(smem_raw, a.d, a.tile);
   const int d = a.d, tile = a.tile, gq = a.gq;
   const int seg = blockIdx.x, split = blockIdx.y, splits = gridDim.y;
-  const T* q = static_cast<const T*>(a.q) + (size_t)seg * gq * d;
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
+  const Q* q = static_cast<const Q*>(a.q) + (size_t)seg * gq * d;
+  const KV* k = static_cast<const KV*>(a.k);
+  const KV* v = static_cast<const KV*>(a.v);
   const size_t row_elems = (size_t)tile * d;
 
-  attn::load_decode_q<T, GQ>(q, gq, s, d);
+  attn::load_decode_q<Q, GQ>(q, gq, s, d);
   attn::reset_decode_rows<GQ>(s, d);
   __syncthreads();
   const int ctx = a.seg_ctx[seg];
@@ -76,8 +83,8 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(Args a) {
     const int vlen = min(max(ctx - tile_idx * tile, 0), tile);
     if (vlen == 0) continue;
     const size_t row = (size_t)seg * a.n_tiles + tile_idx;
-    attn::tile_update<T, GQ>(k + row * row_elems, v + row * row_elems, vlen, s, d, tile,
-                             a.scale);
+    attn::tile_update<KV, GQ>(k + row * row_elems, v + row * row_elems, vlen, s, d, tile,
+                              a.scale);
   }
   const size_t out = (size_t)seg * splits + split;
   attn::flush_rows(s, gq, d, a.o_p + out * gq * d, a.m_p + out * gq, a.l_p + out * gq);
@@ -85,12 +92,12 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(Args a) {
 
 // The same walk on the ring: the producer's lane copies each tile with work
 // (K, then V), the consumers update on the staged rows.
-template <typename T, int GQ>
+template <typename Q, typename KV, int GQ>
 __global__ void __launch_bounds__(ring::kThreads, 1) flash_decode_ring_kernel(Args a, int ns) {
   extern __shared__ __align__(128) unsigned char ring_raw[];
   __shared__ uint64_t full[ring::kMaxSlots], empty[ring::kMaxSlots];
   const int d = a.d, tile = a.tile;
-  const uint32_t slot = (uint32_t)ring::slot_bytes(sizeof(T), d, tile);
+  const uint32_t slot = (uint32_t)ring::slot_bytes(sizeof(KV), d, tile);
   const ring::Ring r{ring_raw, slot, ns, full, empty};
   const Smem s = attn::carve_smem<GQ>(reinterpret_cast<float*>(ring_raw + (size_t)ns * slot), d,
                                       tile);
@@ -102,8 +109,8 @@ __global__ void __launch_bounds__(ring::kThreads, 1) flash_decode_ring_kernel(Ar
 
   if (threadIdx.x >= ring::kConsumers) {  // the producer warp
     if (threadIdx.x != ring::kConsumers) return;
-    const T* k = static_cast<const T*>(a.k);
-    const T* v = static_cast<const T*>(a.v);
+    const KV* k = static_cast<const KV*>(a.k);
+    const KV* v = static_cast<const KV*>(a.v);
     int n = 0;
     for (int t = 0; t < a.tps; ++t) {
       const int tile_idx = split * a.tps + t;
@@ -111,7 +118,7 @@ __global__ void __launch_bounds__(ring::kThreads, 1) flash_decode_ring_kernel(Ar
       const int vlen = min(max(ctx - tile_idx * tile, 0), tile);
       if (vlen == 0) continue;
       const size_t row = (size_t)seg * a.n_tiles + tile_idx;
-      const uint32_t bytes = (uint32_t)(vlen * d * sizeof(T));
+      const uint32_t bytes = (uint32_t)(vlen * d * sizeof(KV));
       ring::acquire(r, n);
       ring::fill(r, n++, k + row * row_elems, bytes);
       ring::acquire(r, n);
@@ -121,7 +128,7 @@ __global__ void __launch_bounds__(ring::kThreads, 1) flash_decode_ring_kernel(Ar
   }
 
   ring::cta_stamp(0);
-  attn::load_decode_q<T, GQ, ring::kConsumers>(static_cast<const T*>(a.q) +
+  attn::load_decode_q<Q, GQ, ring::kConsumers>(static_cast<const Q*>(a.q) +
                                                    (size_t)seg * a.gq * d,
                                                a.gq, s, d);
   attn::reset_decode_rows<GQ, ring::kConsumers>(s, d);
@@ -134,7 +141,7 @@ __global__ void __launch_bounds__(ring::kThreads, 1) flash_decode_ring_kernel(Ar
     if (tile_idx >= a.n_tiles) break;
     const int vlen = min(max(ctx - tile_idx * tile, 0), tile);
     if (vlen == 0) continue;
-    ring::tile_update<T, GQ>(r, n, vlen, s, qs, d, tile, a.scale, 1.f, 1.f);
+    ring::tile_update<KV, GQ>(r, n, vlen, s, qs, d, tile, a.scale, 1.f, 1.f);
     n += 2;
   }
   const size_t out = (size_t)seg * splits + split;
@@ -143,24 +150,28 @@ __global__ void __launch_bounds__(ring::kThreads, 1) flash_decode_ring_kernel(Ar
   ring::cta_stamp(2);
 }
 
-template <typename T, int GQ>
+template <typename Q, typename KV, int GQ>
 cudaError_t launch_typed(const Args& a, int num_segments, int splits, int ns,
                          cudaStream_t stream) {
   const size_t state = attn::smem_bytes(GQ, a.d, a.tile);
-  if (!ring::fits(ns, sizeof(T), a.d, a.tile, state)) return cudaErrorInvalidValue;
+  if (!ring::fits(ns, sizeof(KV), a.d, a.tile, state)) return cudaErrorInvalidValue;
   const dim3 grid(num_segments, splits);
   if (ns == 0) {
-    auto kernel = flash_decode_kernel<T, GQ>;
-    if (state > 48 * 1024) {
-      cudaError_t err =
-          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)state);
-      if (err != cudaSuccess) return err;
+    if constexpr (attn::is_f8<KV>) {
+      return cudaErrorInvalidValue;
+    } else {
+      auto kernel = flash_decode_kernel<Q, KV, GQ>;
+      if (state > 48 * 1024) {
+        cudaError_t err =
+            cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)state);
+        if (err != cudaSuccess) return err;
+      }
+      kernel<<<grid, kThreads, state, stream>>>(a);
+      return cudaGetLastError();
     }
-    kernel<<<grid, kThreads, state, stream>>>(a);
-    return cudaGetLastError();
   }
-  auto kernel = flash_decode_ring_kernel<T, GQ>;
-  const size_t smem = ns * ring::slot_bytes(sizeof(T), a.d, a.tile) + state;
+  auto kernel = flash_decode_ring_kernel<Q, KV, GQ>;
+  const size_t smem = ns * ring::slot_bytes(sizeof(KV), a.d, a.tile) + state;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -169,12 +180,12 @@ cudaError_t launch_typed(const Args& a, int num_segments, int splits, int ns,
 }
 
 // At the row bucket of gq: 2 (gq 1, 2), 4 (3, 4), 8 (5-8).
-template <typename T>
+template <typename Q, typename KV>
 cudaError_t launch_gq(const Args& a, int num_segments, int splits, int ns, cudaStream_t st) {
   switch (attn::row_bucket(a.gq)) {
-    case 2: return launch_typed<T, 2>(a, num_segments, splits, ns, st);
-    case 4: return launch_typed<T, 4>(a, num_segments, splits, ns, st);
-    case 8: return launch_typed<T, 8>(a, num_segments, splits, ns, st);
+    case 2: return launch_typed<Q, KV, 2>(a, num_segments, splits, ns, st);
+    case 4: return launch_typed<Q, KV, 4>(a, num_segments, splits, ns, st);
+    case 8: return launch_typed<Q, KV, 8>(a, num_segments, splits, ns, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -183,7 +194,8 @@ cudaError_t launch_gq(const Args& a, int num_segments, int splits, int ns, cudaS
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k and v share it). ns: slots of the
+// dtype: 0 = float32, 1 = bfloat16 (q, k and v share it), 3 = bf16 q with
+// e4m3 k and v (ring only: ns >= 2, d a multiple of 16). ns: slots of the
 // ring (kernels/decode_ring.py), 0 for the walk over device memory; with
 // ns > 0, k and v must be 16-byte aligned.
 int flash_decode_partials_launch(int dtype, const void* q, const void* k, const void* v,
@@ -196,8 +208,11 @@ int flash_decode_partials_launch(int dtype, const void* q, const void* k, const 
   Args a = {q, k, v, seg_ctx, o_p, m_p, l_p, n_tiles, tps, gq, d, tile, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return (int)launch_gq<float>(a, num_segments, splits, ns, st);
-    case 1: return (int)launch_gq<__nv_bfloat16>(a, num_segments, splits, ns, st);
+    case 0: return (int)launch_gq<float, float>(a, num_segments, splits, ns, st);
+    case 1: return (int)launch_gq<__nv_bfloat16, __nv_bfloat16>(a, num_segments, splits, ns, st);
+    case 3:
+      if (d % attn::kVec) return (int)cudaErrorInvalidValue;
+      return (int)launch_gq<__nv_bfloat16, attn::e4m3>(a, num_segments, splits, ns, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

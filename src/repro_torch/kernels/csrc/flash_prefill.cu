@@ -26,6 +26,13 @@
 //
 // Both normalise with l = max(l, 1e-30) and write in q's dtype.
 //
+// K8 on the f8 pools (dtype code 3): bf16 q, e4m3 pool rows. On the tensor
+// cores the producer warpgroup stages each tile's 1-byte rows and converts
+// them to the bf16 swizzled tile (attn_tc::produce_staged, the fused K4's
+// int8 staging); on the CUDA cores the row-block update widens 16 values a
+// load. e4m3 -> bf16 is exact, so either gives the bf16 kernel's bits on
+// the pool widened to bf16, and no widened pool is ever written.
+//
 // What bounds them on this card: operations. At the main path's shapes (K7:
 // Hq 32, Hkv 8, d 128, a 3000-token causal prompt, 73.7 GFLOP against 61 MB
 // of bf16 q, k, v and o, and the same at gemma-3's Hq 16, Hkv 4, d 256;
@@ -176,7 +183,8 @@ struct Args {
   float scale;
 };
 
-template <typename T>
+// Q: the queries' (and output's) type; KV: the pool rows' (Q, or e4m3).
+template <typename Q, typename KV>
 __global__ void __launch_bounds__(kRowThreads) flash_prefill_paged_kernel(Args a) {
   extern __shared__ float smem_raw[];
   const RowSmem s = attn::carve_row_smem(smem_raw, a.d, a.sub);
@@ -186,11 +194,11 @@ __global__ void __launch_bounds__(kRowThreads) flash_prefill_paged_kernel(Args a
   const int row0 = blockIdx.y * kBlockRows;
   const int nrows = min(kBlockRows, a.rows - row0);
   const size_t row_elems = (size_t)page * d;
-  const T* k_rows = static_cast<const T*>(a.k_rows);
-  const T* v_rows = static_cast<const T*>(a.v_rows);
+  const KV* k_rows = static_cast<const KV*>(a.k_rows);
+  const KV* v_rows = static_cast<const KV*>(a.v_rows);
 
   attn::reset_rows(s, d);
-  attn::load_rows<T>(static_cast<const T*>(a.q) + ((size_t)nh * a.rows + row0) * d, nrows, s, d);
+  attn::load_rows<Q>(static_cast<const Q*>(a.q) + ((size_t)nh * a.rows + row0) * d, nrows, s, d);
   const int q_off = a.q_off[n];
   // the block's rows hold the chunk positions (row0 .. row0 + nrows - 1) % C
   const int first_pos = row0 % C;
@@ -211,21 +219,21 @@ __global__ void __launch_bounds__(kRowThreads) flash_prefill_paged_kernel(Args a
     const int jmax = jmax_s;
     if (jmax > 0) {
       const size_t row = (size_t)a.tbl[(size_t)n * a.W + jb] * a.n_kv + h;
-      attn::rows_page_update<T>(k_rows + row * row_elems, v_rows + row * row_elems, jmax, s, d,
-                                a.sub, a.scale);
+      attn::rows_page_update<KV>(k_rows + row * row_elems, v_rows + row * row_elems, jmax, s, d,
+                                 a.sub, a.scale);
     }
   }
   __syncthreads();
-  T* out = static_cast<T*>(a.out) + ((size_t)nh * a.rows + row0) * d;
+  Q* out = static_cast<Q*>(a.out) + ((size_t)nh * a.rows + row0) * d;
   for (int e = threadIdx.x; e < nrows * d; e += kRowThreads) {
     const int r = e / d, c = e - r * d;
     attn::store(out + (size_t)r * d + c, s.acc[r * ld + c] / fmaxf(s.l[r], 1e-30f));
   }
 }
 
-template <typename T>
+template <typename Q, typename KV>
 cudaError_t launch_typed(const Args& a, int num_rows, cudaStream_t stream) {
-  auto kernel = flash_prefill_paged_kernel<T>;
+  auto kernel = flash_prefill_paged_kernel<Q, KV>;
   const size_t smem = attn::row_smem_bytes(a.d, a.sub);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -406,13 +414,35 @@ struct PagedWalk {
       }
     }
   }
+  // e4m3 pools: tile t's 1-byte K and V rows, row-major (d bytes a row,
+  // slot j at row j, as load_tile lays the bf16 tile), both completing on
+  // bar; kmap and vmap from attn_tc::encode_bytes.
+  __device__ void load_tile_bytes(int t, uint32_t kdst, uint32_t vdst, uint32_t bar,
+                                  const CUtensorMap* kmap, const CUtensorMap* vmap) const {
+    const int* tbl = a.tbl + (size_t)n * a.W;
+    if (a.page <= kKeys) {   // whole pages, one box of `page` rows each
+      const int first = t * a.ppt, count = min(a.ppt, a.W - first);
+      attn_tc::mbar_expect_tx(bar, 2 * count * a.page * a.d);
+      for (int sub = 0; sub < count; ++sub) {
+        const int row = tbl[first + sub] * a.n_kv + h;
+        const uint32_t off = sub * a.page * a.d;
+        attn_tc::tma_load_3d(kdst + off, kmap, bar, 0, 0, row);
+        attn_tc::tma_load_3d(vdst + off, vmap, bar, 0, 0, row);
+      }
+    } else {   // 128 rows of one page; rows past the page arrive as zeros
+      const int row = tbl[t / a.tpp] * a.n_kv + h, r0 = (t % a.tpp) * kKeys;
+      attn_tc::mbar_expect_tx(bar, 2 * kKeys * a.d);
+      attn_tc::tma_load_3d(kdst, kmap, bar, 0, r0, row);
+      attn_tc::tma_load_3d(vdst, vmap, bar, 0, r0, row);
+    }
+  }
 };
 
-template <int D, class Walk>
+template <int D, class Walk, bool kF8 = false>
 cudaError_t launch_tc(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
                       const typename Walk::Args& a, dim3 grid, cudaStream_t stream) {
-  auto kernel = attn_tc::row_block_kernel<D, attn_tc::key_tile<D>(), Walk>;
-  const size_t smem = attn_tc::smem_bytes(D);
+  auto kernel = attn_tc::row_block_kernel<D, attn_tc::key_tile<D>(), Walk, kF8>;
+  const size_t smem = kF8 ? attn_tc::smem_bytes_f8(D) : attn_tc::smem_bytes(D);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -420,12 +450,17 @@ cudaError_t launch_tc(const CUtensorMap& qm, const CUtensorMap& km, const CUtens
   return cudaGetLastError();
 }
 
-// K8: d 64 or 128, key tiles of 128
-int launch_paged_tc(int d, const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
-                    const PagedWalk::Args& a, dim3 grid, cudaStream_t stream) {
+// K8: d 64 or 128, key tiles of 128; e4m3 pools with f8
+int launch_paged_tc(int d, bool f8, const CUtensorMap& qm, const CUtensorMap& km,
+                    const CUtensorMap& vm, const PagedWalk::Args& a, dim3 grid,
+                    cudaStream_t stream) {
   switch (d) {
-    case 64: return (int)launch_tc<64, PagedWalk>(qm, km, vm, a, grid, stream);
-    case 128: return (int)launch_tc<128, PagedWalk>(qm, km, vm, a, grid, stream);
+    case 64:
+      return (int)(f8 ? launch_tc<64, PagedWalk, true>(qm, km, vm, a, grid, stream)
+                      : launch_tc<64, PagedWalk>(qm, km, vm, a, grid, stream));
+    case 128:
+      return (int)(f8 ? launch_tc<128, PagedWalk, true>(qm, km, vm, a, grid, stream)
+                      : launch_tc<128, PagedWalk>(qm, km, vm, a, grid, stream));
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -463,7 +498,8 @@ int flash_prefill_launch(int dtype, const void* q, const void* k, const void* v,
   }
 }
 
-// K8. dtype: 0 = float32, 1 = bfloat16 (q, the pools and the output share it).
+// K8. dtype: 0 = float32, 1 = bfloat16 (q, the pools and the output share
+// it), 3 = bf16 q and output with e4m3 pools (d a multiple of 16).
 int flash_prefill_paged_launch(int dtype, const void* q, const void* k_rows, const void* v_rows,
                                const int* tbl, const int* q_off, void* out, int N, int n_kv,
                                int W, int rows, int chunk_cap, int d, int page, float scale,
@@ -475,8 +511,11 @@ int flash_prefill_paged_launch(int dtype, const void* q, const void* k_rows, con
   Args a = {q, k_rows, v_rows, tbl, q_off, out, n_kv, W, rows, chunk_cap, d, page, sub, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return (int)launch_typed<float>(a, N * n_kv, st);
-    case 1: return (int)launch_typed<__nv_bfloat16>(a, N * n_kv, st);
+    case 0: return (int)launch_typed<float, float>(a, N * n_kv, st);
+    case 1: return (int)launch_typed<__nv_bfloat16, __nv_bfloat16>(a, N * n_kv, st);
+    case 3:
+      if (d % attn::kVec) return (int)cudaErrorInvalidValue;
+      return (int)launch_typed<__nv_bfloat16, attn::e4m3>(a, N * n_kv, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -501,25 +540,30 @@ int flash_prefill_tc_launch(const void* q, const void* k, const void* v, void* o
                          static_cast<cudaStream_t>(stream));
 }
 
-// K8 on the tensor cores: bf16, d 64 or 128, page a multiple of 8.
-int flash_prefill_paged_tc_launch(const void* q, const void* k_rows, const void* v_rows,
-                                  const int* tbl, const int* q_off, void* out, int N, int n_kv,
-                                  int W, int rows, int chunk_cap, int d, int page, int num_pages,
-                                  float scale, void* stream) {
+// K8 on the tensor cores: bf16 q; dtype 1 = bf16 pools, 3 = e4m3 pools;
+// d 64 or 128, page a multiple of 8.
+int flash_prefill_paged_tc_launch(int dtype, const void* q, const void* k_rows,
+                                  const void* v_rows, const int* tbl, const int* q_off, void* out,
+                                  int N, int n_kv, int W, int rows, int chunk_cap, int d,
+                                  int page, int num_pages, float scale, void* stream) {
   if (N <= 0 || n_kv <= 0 || W <= 0 || rows <= 0 || chunk_cap <= 0 || page <= 0 || page % 8 ||
-      num_pages <= 0)
+      num_pages <= 0 || (dtype != 1 && dtype != 3))
     return (int)cudaErrorInvalidValue;
+  const bool f8 = dtype == 3;
   CUtensorMap qm, km, vm;
   const int box = std::min(page, kKeys);
+  const long long mats = (long long)num_pages * n_kv;
   int err = encode_rows(&qm, q, d, rows, (long long)N * n_kv, kRows);
-  if (!err) err = encode_rows(&km, k_rows, d, page, (long long)num_pages * n_kv, box);
-  if (!err) err = encode_rows(&vm, v_rows, d, page, (long long)num_pages * n_kv, box);
+  if (!err) err = f8 ? attn_tc::encode_bytes(&km, k_rows, d, page, mats, box)
+                     : encode_rows(&km, k_rows, d, page, mats, box);
+  if (!err) err = f8 ? attn_tc::encode_bytes(&vm, v_rows, d, page, mats, box)
+                     : encode_rows(&vm, v_rows, d, page, mats, box);
   if (err) return err;
   const int num_rb = (rows + kRows - 1) / kRows;
   PagedWalk::Args a = {tbl, q_off, static_cast<__nv_bfloat16*>(out), d, n_kv, W, rows,
                        chunk_cap, page, std::max(1, kKeys / page), (page + kKeys - 1) / kKeys, num_rb,
                        scale * 1.4426950408889634f};
-  return launch_paged_tc(d, qm, km, vm, a, dim3(N * n_kv, num_rb),
+  return launch_paged_tc(d, f8, qm, km, vm, a, dim3(N * n_kv, num_rb),
                          static_cast<cudaStream_t>(stream));
 }
 

@@ -72,6 +72,10 @@
 // scales are read once and the update dequantizes as K1 and K2 do. The
 // merge reads only f32 partials.
 //
+// f8 pools (dtype code 3): bf16 queries and e4m3 K/V rows, no scales; the
+// rows go through the ring as int8 rows do and are widened as they are
+// read (attn_tile.cuh).
+//
 // This file holds the ring's kernel; the walk over device memory is in
 // lean_cascade_walk.cu, and what both share in lean_cascade.cuh. Plain C
 // interface (loaded with ctypes); the entry point returns the cudaError_t

@@ -139,7 +139,8 @@ cudaError_t launch_g(const Args& a, int num_workers, int ns, cudaStream_t stream
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (queries and K/V rows share it), 2 =
-// bf16 queries with int8 K/V rows and their float32 row scales.
+// bf16 queries with int8 K/V rows and their float32 row scales, 3 = bf16
+// queries with e4m3 K/V rows (no scales).
 template <template <typename, typename, int, int> class Kernel>
 int launch(int dtype, const Args& a, int num_workers, int ns, cudaStream_t stream) {
   if (num_workers <= 0 || a.d <= 0 || a.tile <= 0 || a.qmax < a.g || a.qmax > 64)
@@ -151,6 +152,9 @@ int launch(int dtype, const Args& a, int num_workers, int ns, cudaStream_t strea
       if (a.k_scales == nullptr || a.v_scales == nullptr || a.d % attn::kVec)
         return (int)cudaErrorInvalidValue;
       return (int)launch_g<Kernel, __nv_bfloat16, int8_t>(a, num_workers, ns, stream);
+    case 3:
+      if (a.d % attn::kVec) return (int)cudaErrorInvalidValue;
+      return (int)launch_g<Kernel, __nv_bfloat16, attn::e4m3>(a, num_workers, ns, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -83,7 +83,8 @@ __global__ void __launch_bounds__(kThreads) lean_cascade_kernel(Args a) {
 template <typename Q, typename KV, int GB, int QB>
 struct WalkKernel {
   static cudaError_t launch(const Args& a, int num_workers, int ns, cudaStream_t stream) {
-    if constexpr (QB < GB) {  // the stacked rows are at least one member's g
+    // (e4m3 rows have no walk: their 1-byte tiles always fit the ring)
+    if constexpr (QB < GB || attn::is_f8<KV>) {  // the stacked rows are at least one member's g
       return cudaErrorInvalidValue;
     } else {
       if (ns != 0) return cudaErrorInvalidValue;

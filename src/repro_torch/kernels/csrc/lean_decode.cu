@@ -69,6 +69,11 @@
 // before it enters a product. The queries stay bf16. K2's fix-up reads
 // only the f32 partials, so no scale is read there.
 //
+// f8 pools (dtype code 3): e4m3 K/V rows, no scales, through the ring as
+// int8 rows go (a tile of d 128 is 16 KB), each element widened to float32
+// as it is read -- exact, so K1/K2 on e4m3 rows give their bf16 forms'
+// bits on the rows widened to bf16.
+//
 // Descriptors are the packed (7, G*T) int32 rows of
 // LeanSchedule.packed_descriptors(): SEG, TILE, PIECE, FIRST, LAST, LEN,
 // VALID. Dense KV runs through the same kernels: a dense (S, S_pad, d)

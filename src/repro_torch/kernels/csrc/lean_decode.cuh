@@ -112,7 +112,8 @@ cudaError_t launch_rows(const Args& a, int num_workers, int ns, cudaStream_t str
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k_rows and v_rows share it), 2 =
-// bf16 q with int8 k_rows and v_rows and their float32 row scales.
+// bf16 q with int8 k_rows and v_rows and their float32 row scales, 3 = bf16
+// q with e4m3 k_rows and v_rows (no scales).
 template <template <typename, typename, int, bool, bool> class Kernel, bool FUSED>
 int launch(int dtype, const Args& a, int num_workers, int ns, cudaStream_t st) {
   if (num_workers <= 0 || a.d <= 0 || a.tile <= 0 || a.gq <= 0) return (int)cudaErrorInvalidValue;
@@ -125,6 +126,9 @@ int launch(int dtype, const Args& a, int num_workers, int ns, cudaStream_t st) {
       if (a.k_scales == nullptr || a.v_scales == nullptr || a.d % attn::kVec)
         return (int)cudaErrorInvalidValue;
       return (int)launch_rows<Kernel, __nv_bfloat16, int8_t, FUSED>(a, num_workers, ns, st);
+    case 3:
+      if (a.d % attn::kVec) return (int)cudaErrorInvalidValue;
+      return (int)launch_rows<Kernel, __nv_bfloat16, attn::e4m3, FUSED>(a, num_workers, ns, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

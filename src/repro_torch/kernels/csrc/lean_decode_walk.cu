@@ -64,19 +64,26 @@ __global__ void __launch_bounds__(kThreads) lean_decode_kernel(Args a) {
   }
 }
 
+// e4m3 rows have no walk: a 1-byte tile always leaves the ring two slots
+// (kernels/decode_ring.py), so the host never asks for one.
 template <typename Q, typename KV, int QB, bool EXACT, bool FUSED>
 struct WalkKernel {
   static cudaError_t launch(const Args& a, int num_workers, int ns, cudaStream_t stream) {
-    if (ns != 0) return cudaErrorInvalidValue;
-    auto kernel = lean_decode_kernel<Q, KV, QB, EXACT, FUSED>;
-    const size_t smem = attn::smem_bytes(QB, a.d, a.tile) + attn::stage_bytes<KV>(a.d, a.tile);
-    if (smem > 48 * 1024) {
-      cudaError_t err =
-          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return err;
+    if constexpr (attn::is_f8<KV>) {
+      return cudaErrorInvalidValue;
+    } else {
+      if (ns != 0) return cudaErrorInvalidValue;
+      auto kernel = lean_decode_kernel<Q, KV, QB, EXACT, FUSED>;
+      const size_t smem =
+          attn::smem_bytes(QB, a.d, a.tile) + attn::stage_bytes<KV>(a.d, a.tile);
+      if (smem > 48 * 1024) {
+        cudaError_t err =
+            cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return err;
+      }
+      kernel<<<num_workers, kThreads, smem, stream>>>(a);
+      return cudaGetLastError();
     }
-    kernel<<<num_workers, kThreads, smem, stream>>>(a);
-    return cudaGetLastError();
   }
 };
 

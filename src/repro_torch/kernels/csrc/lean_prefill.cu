@@ -212,6 +212,9 @@ int launch(int dtype, const Args& a, int num_workers, cudaStream_t st) {
       if (a.k_scales == nullptr || a.v_scales == nullptr || a.d % attn::kVec)
         return (int)cudaErrorInvalidValue;
       return (int)launch_typed<__nv_bfloat16, int8_t, FUSED>(a, num_workers, st);
+    case 3:
+      if (a.d % attn::kVec) return (int)cudaErrorInvalidValue;
+      return (int)launch_typed<__nv_bfloat16, attn::e4m3, FUSED>(a, num_workers, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -222,7 +225,7 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k_rows and v_rows share it), 2 =
 // bf16 q with int8 k_rows and v_rows and their float32 row scales (NULL
-// otherwise).
+// otherwise), 3 = bf16 q with e4m3 k_rows and v_rows.
 int lean_prefill_partials_launch(int dtype, const void* q, const void* k_rows, const void* v_rows,
                                  const float* k_scales, const float* v_scales,
                                  const int* desc, int n_cols, int tiles_per_worker,

@@ -1,11 +1,11 @@
-// Stream-K chunked prefill on the tensor cores for Hopper: K4 and K4-int8,
-// the per-piece partials and their merge in one launch.
+// Stream-K chunked prefill on the tensor cores for Hopper: K4, K4-int8 and
+// K4-f8, the per-piece partials and their merge in one launch.
 //
 // Replaces the Pallas TPU kernel of the reference:
 //   K4  repro/kernels/lean_prefill.py:51  _lean_prefill_kernel
 //       (int8 body :102, driven by lean_prefill_chunk_partials :140)
 // together with the decode merge that finishes its partials there
-// (segment_merge), for bf16 queries over bf16 or int8 pages.
+// (segment_merge), for bf16 queries over bf16, int8 or e4m3 pages.
 //
 // The function. A pack of N prompt chunks is a decode workload with taller
 // segments: segment (chunk, kv_head) holds rows = g * C query rows,
@@ -56,6 +56,11 @@
 // l sums the unscaled p. At d 128 that is Q 32 KB + K/V rings 128 KB +
 // staging 64 KB + alignment = 230,400 bytes of the 232,448 a CTA may have.
 //
+// f8 pages (dtype code 3): bf16 q and e4m3 K/V rows, no scales. They take
+// int8's staging ring and producer; the conversion widens e4m3 to bf16
+// (exact), and the consumers run the bf16 tile update unchanged, so the
+// result is the bf16 kernel's bits on the pool widened to bf16.
+//
 // Plain C interface (loaded with ctypes); returns the launch's cudaError_t,
 // or attn_tc::kEncodeError + the CUresult of a failed tensor-map encoding.
 
@@ -78,11 +83,15 @@ enum { DESC_SEG = 0, DESC_TILE, DESC_PIECE, DESC_FIRST, DESC_LAST, DESC_LEN, DES
 enum { OP_PARTIAL = 1 };
 
 // barriers: Q full, K full [2], V full [2], stage empty [2], Q free,
-// int8 staging full [2]
+// 1-byte staging full [2]
 enum { BAR_Q = 0, BAR_K = 1, BAR_V = 3, BAR_EMPTY = 5, BAR_QFREE = 7, BAR_STAGE = 8 };
 constexpr int kNumBars = 10;
 constexpr int kFlushBar = 3;      // named barrier of the 256 consumer threads
 constexpr int kConvertBar = 4;    // named barrier of the 128 producer threads
+
+// K/V storage: bf16 pages go straight into the bf16 ring; int8 (with row
+// scales) and e4m3 pages are staged and converted to it.
+enum { KV_BF16 = 0, KV_INT8 = 1, KV_F8 = 2 };
 
 struct Args {
   const int* desc;          // (7, n_cols)
@@ -183,49 +192,16 @@ __device__ __forceinline__ void produce_bf16(const Args& a, int worker, int row0
   }
 }
 
-// Two int8 values (bytes k and k + 1 of w) as bf16x2. x + 128 goes into
-// the mantissa of 2^23 (a byte permute), 2^23 + 128 comes off (exact), and
-// since an integer of at most 8 significant bits is exact in bf16, the top
-// halves of the two float32s are the bf16 pair: no conversion instruction.
-__device__ __forceinline__ uint32_t int8x2_to_bf16x2(uint32_t w, int k) {
-  const uint32_t u = w ^ 0x80808080u;   // each byte x + 128
-  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 | k)) - 8388736.f;
-  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 | (k + 1))) - 8388736.f;
-  return __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
-}
-
-// int8 rows [0, nr) of a staged tile (row-major, D bytes a row) into the
-// bf16 swizzled tile at dst: 8 values (one 16-byte chunk of bf16) a step.
-template <int D>
-__device__ __forceinline__ void convert_tile(uint32_t src, uint32_t dst, int nr, int ptid) {
-  constexpr int kChunks = D / 8;   // 16-byte bf16 chunks a row
-#pragma unroll 2
-  for (int e = ptid; e < nr * kChunks; e += 128) {
-    const int r = e / kChunks, c8 = e % kChunks;
-    uint32_t w0, w1;
-    asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n"
-                 : "=r"(w0), "=r"(w1)
-                 : "r"(src + r * D + c8 * 8));
-    const uint32_t h[4] = {int8x2_to_bf16x2(w0, 0), int8x2_to_bf16x2(w0, 2),
-                           int8x2_to_bf16x2(w1, 0), int8x2_to_bf16x2(w1, 2)};
-    const int chunk = c8 % 8;
-    const uint32_t at = dst + (c8 / 8) * kPanelBytes + r * 128 + ((chunk ^ (r & 7)) << 4);
-    asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(at), "r"(h[0]), "r"(h[1]),
-                 "r"(h[2]), "r"(h[3])
-                 : "memory");
-  }
-}
-
-// int8 pages: thread 0 issues the copies of the int8 tiles into the staging
-// ring (two tiles ahead) and Q; the whole warpgroup converts each staged
-// tile into the bf16 ring and then marks its K and V full.
-template <int D>
-__device__ __forceinline__ void produce_int8(const Args& a, int worker, int row0, int pmax,
+// int8 and e4m3 pages: thread 0 issues the copies of the 1-byte tiles into
+// the staging ring (two tiles ahead) and Q; the whole warpgroup converts
+// each staged tile into the bf16 ring and then marks its K and V full.
+template <int D, int KV>
+__device__ __forceinline__ void produce_staged(const Args& a, int worker, int row0, int pmax,
                                              uint32_t q_s, uint32_t k_s, uint32_t v_s,
                                              uint32_t st_s, uint32_t bar0, const CUtensorMap* qmap,
                                              const CUtensorMap* kmap, const CUtensorMap* vmap) {
   constexpr uint32_t kTile = (D / 64) * kPanelBytes;
-  constexpr uint32_t kStTile = kKeys * D;   // one int8 tile
+  constexpr uint32_t kStTile = kKeys * D;   // one 1-byte tile
   const int ptid = threadIdx.x;
   const int box = min(a.page, kKeys);
   int at = 0, asub = 0, issued = 0;   // thread 0's issue cursor
@@ -251,8 +227,8 @@ __device__ __forceinline__ void produce_int8(const Args& a, int worker, int row0
     attn_tc::mbar_wait(bar0 + 8 * (BAR_STAGE + s), (it / kStages) & 1);
     if (it >= kStages) attn_tc::mbar_wait(bar0 + 8 * (BAR_EMPTY + s), ((it / kStages) - 1) & 1);
     const uint32_t src = st_s + s * 2 * kStTile;
-    convert_tile<D>(src, k_s + s * kTile, box, ptid);
-    convert_tile<D>(src + kStTile, v_s + s * kTile, box, ptid);
+    attn_tc::convert_tile<D, KV == KV_F8>(src, k_s + s * kTile, box, ptid);
+    attn_tc::convert_tile<D, KV == KV_F8>(src + kStTile, v_s + s * kTile, box, ptid);
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     asm volatile("bar.sync %0, 128;\n" ::"r"(kConvertBar) : "memory");
     if (ptid == 0) {
@@ -395,7 +371,7 @@ __device__ __forceinline__ void flush_piece(const Args& a, const Column& c, int 
   merge_rows<D>(a, c.seg, a.piece_start[c.seg], count, row0, nrows);
 }
 
-template <int D, bool kInt8>
+template <int D, int KV>
 __device__ __forceinline__ void consume_stream(const Args& a, int worker, int row0, int nrows,
                                                int pmax, int rb, uint32_t q_s, uint32_t k_s,
                                                uint32_t v_s, uint32_t bar0, int* merge_here) {
@@ -439,13 +415,13 @@ __device__ __forceinline__ void consume_stream(const Args& a, int worker, int ro
       const int hi[2] = {min(kend, qs + pos[0] + 1), min(kend, qs + pos[1] + 1)};
       const int wg_hi = wg_n > 0 ? min(kend, qs + wg_pmin + 1) : INT_MAX;
       float ks = 1.f, vs = 1.f;
-      if constexpr (kInt8) {
+      if constexpr (KV == KV_INT8) {
         ks = a.k_scales[a.route[i]];
         vs = a.v_scales[a.route[i]];
       }
       for (int sub = 0; sub < col.nsub; ++sub, ++it) {
         const int s = it % kStages;
-        attn_tc::tile_update<D, kInt8>(
+        attn_tc::tile_update<D, KV == KV_INT8>(
             o, m, l, q_wg, k_s + s * kTile, v_s + s * kTile, bar0 + 8 * (BAR_K + s),
             bar0 + 8 * (BAR_V + s), (it / kStages) & 1, col.kv_start + sub * kKeys,
             min(kKeys, a.page - sub * kKeys), lo, hi, 0, wg_hi, col.kv_start,
@@ -459,7 +435,7 @@ __device__ __forceinline__ void consume_stream(const Args& a, int worker, int ro
 }
 
 // ------------------------------------------------------------------ kernel
-template <int D, bool kInt8>
+template <int D, int KV>
 __global__ void __launch_bounds__(attn_tc::kThreads, 1)
     lean_prefill_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                            const __grid_constant__ CUtensorMap kmap,
@@ -472,7 +448,7 @@ __global__ void __launch_bounds__(attn_tc::kThreads, 1)
   const uint32_t q_s = (attn_tc::smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t k_s = q_s + kTile;
   const uint32_t v_s = k_s + kStages * kTile;
-  const uint32_t st_s = v_s + kStages * kTile;   // int8 staging
+  const uint32_t st_s = v_s + kStages * kTile;   // 1-byte staging
   const uint32_t bar0 = attn_tc::smem_u32(bars);
   const int worker = blockIdx.x, rb = blockIdx.y, row0 = rb * kRows;
   const int nrows = min(kRows, a.rows - row0);
@@ -492,28 +468,28 @@ __global__ void __launch_bounds__(attn_tc::kThreads, 1)
   __syncthreads();
   if (threadIdx.x < 128) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
-    if constexpr (kInt8)
-      produce_int8<D>(a, worker, row0, pmax, q_s, k_s, v_s, st_s, bar0, &qmap, &kmap, &vmap);
+    if constexpr (KV != KV_BF16)
+      produce_staged<D, KV>(a, worker, row0, pmax, q_s, k_s, v_s, st_s, bar0, &qmap, &kmap,
+                            &vmap);
     else if (threadIdx.x == 0)
       produce_bf16<D>(a, worker, row0, pmax, q_s, k_s, v_s, bar0, &qmap, &kmap, &vmap);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
-    consume_stream<D, kInt8>(a, worker, row0, nrows, pmax, rb, q_s, k_s, v_s, bar0,
-                             &merge_here);
+    consume_stream<D, KV>(a, worker, row0, nrows, pmax, rb, q_s, k_s, v_s, bar0, &merge_here);
   }
 }
 
-// Dynamic shared memory: Q, the K and V rings, and for int8 the staging
-// ring of int8 K and V tiles, plus alignment.
-size_t smem_bytes(int d, bool int8) {
-  return attn_tc::smem_bytes(d) + (int8 ? (size_t)kStages * 2 * kKeys * d : 0);
+// Dynamic shared memory: Q, the K and V rings, and for 1-byte pages the
+// staging ring of their K and V tiles, plus alignment.
+size_t smem_bytes(int d, bool staged) {
+  return attn_tc::smem_bytes(d) + (staged ? (size_t)kStages * 2 * kKeys * d : 0);
 }
 
-template <int D, bool kInt8>
+template <int D, int KV>
 cudaError_t launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
                    const Args& a, int num_workers, cudaStream_t stream) {
-  auto kernel = lean_prefill_tc_kernel<D, kInt8>;
-  const size_t smem = smem_bytes(D, kInt8);
+  auto kernel = lean_prefill_tc_kernel<D, KV>;
+  const size_t smem = smem_bytes(D, KV != KV_BF16);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -526,7 +502,8 @@ cudaError_t launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorM
 extern "C" {
 
 // dtype: 1 = bf16 q and K/V rows, 2 = bf16 q with int8 K/V rows and their
-// float32 row scales. d 64 or 128, page a multiple of 8; q and the rows
+// float32 row scales, 3 = bf16 q with e4m3 K/V rows. d 64 or 128, page a
+// multiple of 8; q and the rows
 // 16-byte aligned. S segments of `rows` query rows, R pool rows of `page`
 // keys; arrivals (S, ceil(rows / 128)) zero (and left zero).
 int lean_prefill_fused_tc_launch(int dtype, const void* q, const void* k_rows, const void* v_rows,
@@ -538,21 +515,19 @@ int lean_prefill_fused_tc_launch(int dtype, const void* q, const void* k_rows, c
                                  int rows, int chunk_cap, int d, int page, float scale,
                                  void* stream) {
   if (num_workers <= 0 || S <= 0 || R <= 0 || rows <= 0 || chunk_cap <= 0 || page <= 0 ||
-      page % 8 || (d != 64 && d != 128) || (dtype != 1 && dtype != 2))
+      page % 8 || (d != 64 && d != 128) || dtype < 1 || dtype > 3)
     return (int)cudaErrorInvalidValue;
-  const bool int8 = dtype == 2;
-  if (int8 && (k_scales == nullptr || v_scales == nullptr)) return (int)cudaErrorInvalidValue;
+  const int kv = dtype == 2 ? KV_INT8 : dtype == 3 ? KV_F8 : KV_BF16;
+  if (kv == KV_INT8 && (k_scales == nullptr || v_scales == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const bool staged = kv != KV_BF16;
   const int box = std::min(page, kKeys);
   CUtensorMap qm, km, vm;
   int err = attn_tc::encode_rows(&qm, q, d, rows, S, kRows);
-  if (!err && !int8) err = attn_tc::encode_rows(&km, k_rows, d, page, R, box);
-  if (!err && !int8) err = attn_tc::encode_rows(&vm, v_rows, d, page, R, box);
-  if (!err && int8)
-    err = attn_tc::encode_3d(&km, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, CU_TENSOR_MAP_SWIZZLE_NONE,
-                             k_rows, d, page, R, d, box);
-  if (!err && int8)
-    err = attn_tc::encode_3d(&vm, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, CU_TENSOR_MAP_SWIZZLE_NONE,
-                             v_rows, d, page, R, d, box);
+  if (!err && !staged) err = attn_tc::encode_rows(&km, k_rows, d, page, R, box);
+  if (!err && !staged) err = attn_tc::encode_rows(&vm, v_rows, d, page, R, box);
+  if (!err && staged) err = attn_tc::encode_bytes(&km, k_rows, d, page, R, box);
+  if (!err && staged) err = attn_tc::encode_bytes(&vm, v_rows, d, page, R, box);
   if (err) return err;
   const Args a = {desc,     seg_ctx, seg_qstart, route, k_scales, v_scales, piece_start,
                   piece_count, arrivals, o_p, m_p, l_p, static_cast<__nv_bfloat16*>(out),
@@ -560,10 +535,12 @@ int lean_prefill_fused_tc_launch(int dtype, const void* q, const void* k_rows, c
                   scale * 1.4426950408889634f};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d == 64)
-    return (int)(int8 ? launch<64, true>(qm, km, vm, a, num_workers, st)
-                      : launch<64, false>(qm, km, vm, a, num_workers, st));
-  return (int)(int8 ? launch<128, true>(qm, km, vm, a, num_workers, st)
-                    : launch<128, false>(qm, km, vm, a, num_workers, st));
+    return (int)(kv == KV_INT8 ? launch<64, KV_INT8>(qm, km, vm, a, num_workers, st)
+                 : kv == KV_F8 ? launch<64, KV_F8>(qm, km, vm, a, num_workers, st)
+                               : launch<64, KV_BF16>(qm, km, vm, a, num_workers, st));
+  return (int)(kv == KV_INT8 ? launch<128, KV_INT8>(qm, km, vm, a, num_workers, st)
+               : kv == KV_F8 ? launch<128, KV_F8>(qm, km, vm, a, num_workers, st)
+                             : launch<128, KV_BF16>(qm, km, vm, a, num_workers, st));
 }
 
 }  // extern "C"

@@ -28,8 +28,9 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.core.attention import NEG_INF
+from repro_torch.core.attention import NEG_INF, widen_kv
 from . import build, decode_ring
+from .lean_decode import check_f8_ring
 SOURCE = "flash_decode.cu"
 MAX_GQ = 8        # query rows per segment K6 takes: its row buckets 2, 4 and 8
 
@@ -74,7 +75,10 @@ def flash_decode_partials_plain(q_seg, k_seg, v_seg, seg_lens, num_splits: int,
                                 tile: int, scale: float):
     """Plain PyTorch K6: every (segment, split) walks its ``tps`` tiles in
     order, vectorised over segments and splits. Returns float32 ``(o (S,
-    splits, gq, d), m (S, splits, gq), l (S, splits, gq))``."""
+    splits, gq, d), m (S, splits, gq), l (S, splits, gq))``. e4m3 K/V (the
+    f8 pools) are widened to bf16 first: the f8 form's plain version is the
+    bf16 form's on the widened rows."""
+    k_seg, v_seg = widen_kv(k_seg), widen_kv(v_seg)
     S, gq, d = q_seg.shape
     s_pad = k_seg.shape[1]
     n_tiles = s_pad // tile
@@ -117,7 +121,9 @@ def flash_decode_partials(q_seg, k_seg, v_seg, seg_lens, num_splits: int, tile: 
     per-segment KV with ``S_pad`` a multiple of ``tile``; ``seg_lens (S,)``
     int32 runtime lengths. Returns float32 per-(segment, split) partials
     ``(o (S, splits, gq, d), m (S, splits, gq), l (S, splits, gq))``; a split
-    with no visible key has ``m = -1e30, l = 0``."""
+    with no visible key has ``m = -1e30, l = 0``. K/V share q's dtype, or
+    are e4m3 (the f8 pools) beside bf16 queries, read on the decode ring
+    only."""
     global launches, ring_launches
     S, gq, d = q_seg.shape
     if k_seg.dim() != 3 or k_seg.shape[0] != S or k_seg.shape[2] != d or v_seg.shape != k_seg.shape:
@@ -137,6 +143,8 @@ def flash_decode_partials(q_seg, k_seg, v_seg, seg_lens, num_splits: int, tile: 
         return flash_decode_partials_plain(q_seg, k_seg, v_seg, seg_lens, num_splits, tile,
                                            scale)
     build.check_dtypes(q_seg, k_seg, v_seg)
+    if k_seg.dtype == torch.int8:
+        raise TypeError("flash_decode_partials (K6) has no int8 form: dequantize the pages first")
     if seg_lens.dtype != torch.int32:
         raise TypeError("seg_lens must be int32")
     if not 1 <= gq <= MAX_GQ:
@@ -145,15 +153,17 @@ def flash_decode_partials(q_seg, k_seg, v_seg, seg_lens, num_splits: int, tile: 
     build.check_contiguous(q_seg=q_seg, k_seg=k_seg, v_seg=v_seg, seg_lens=seg_lens)
     n_tiles = k_seg.shape[1] // tile
     tps = split_geometry(k_seg.shape[1], num_splits, tile)
-    ns = ring_slots(q_seg.dtype, gq, d, tile)
+    ns = ring_slots(k_seg.dtype, gq, d, tile)
     if ns:
         decode_ring.check_aligned("flash_decode_partials (K6)", k_seg=k_seg, v_seg=v_seg)
+    else:
+        check_f8_ring("flash_decode_partials (K6)", k_seg.dtype, gq, d, tile)
     dev = q_seg.device
     o = torch.empty(S, num_splits, gq, d, dtype=torch.float32, device=dev)
     m = torch.empty(S, num_splits, gq, dtype=torch.float32, device=dev)
     l = torch.empty(S, num_splits, gq, dtype=torch.float32, device=dev)
     err = _library().flash_decode_partials_launch(
-        build.DTYPE_CODE[q_seg.dtype], build.ptr(q_seg), build.ptr(k_seg), build.ptr(v_seg),
+        build.dtype_code(q_seg, k_seg), build.ptr(q_seg), build.ptr(k_seg), build.ptr(v_seg),
         build.ptr(seg_lens), build.ptr(o), build.ptr(m), build.ptr(l),
         S, int(num_splits), tps, n_tiles, gq, d, int(tile), float(scale), ns, build.stream(dev),
     )

@@ -56,7 +56,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.attention import NEG_INF
+from repro_torch.core.attention import NEG_INF, widen_kv
 from . import build
 from .lean_prefill import check_row_kernel
 
@@ -113,7 +113,7 @@ def _library() -> ctypes.CDLL:
         lib.flash_prefill_tc_launch.argtypes = [P, P, P, P, I, I, I, I, I, I, I, I, F, P]
         lib.flash_prefill_tc_launch.restype = I
         lib.flash_prefill_paged_tc_launch.argtypes = [
-            P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, P,
+            I, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, P,
         ]
         lib.flash_prefill_paged_tc_launch.restype = I
         lib._argtypes_set = True
@@ -124,7 +124,10 @@ def flash_prefill_paged_plain(q, k_pool, v_pool, page_tbls, q_offsets, scale: fl
     """Plain PyTorch K8: every query row walks its table row's pages in
     order with the online-softmax update (pages past the row's position
     leave it unchanged, as the kernel's causal skip does), vectorised over
-    pack rows, heads and rows. Returns ``(N, Hq, C, d)`` in q's dtype."""
+    pack rows, heads and rows. Returns ``(N, Hq, C, d)`` in q's dtype.
+    e4m3 pools (the f8 pools) are read widened to bf16: the f8 form's plain
+    version is the bf16 form's on the widened pool."""
+    k_pool, v_pool = widen_kv(k_pool), widen_kv(v_pool)
     N, Hq, C, d = q.shape
     num_pages, Hkv, ps, _ = k_pool.shape
     W = page_tbls.shape[1]
@@ -168,7 +171,9 @@ def flash_prefill_paged(
     C, d)`` in q's dtype; rows of chunk padding hold garbage that callers
     discard. Every id in ``page_tbls`` must index the pools (the kernel
     trusts it; checking would cost a device sync). The kernel follows
-    :func:`tensor_core_path`."""
+    :func:`tensor_core_path`. The pools share q's dtype, or are e4m3 (the
+    f8 pools) beside bf16 q: the kernel stages and widens their tiles, no
+    widened pool is written."""
     global launches, tc_launches
     N, Hq, C, d = q.shape
     num_pages, Hkv, ps, _ = k_pool.shape
@@ -184,6 +189,8 @@ def flash_prefill_paged(
     if q.device.type == "cpu":
         return flash_prefill_paged_plain(q, k_pool, v_pool, page_tbls, q_offsets, scale)
     build.check_dtypes(q, k_pool, v_pool)
+    if k_pool.dtype == torch.int8:
+        raise TypeError("flash_prefill_paged (K8) has no int8 form: dequantize the pools first")
     if page_tbls.dtype != torch.int32 or q_offsets.dtype != torch.int32:
         raise TypeError("page_tbls and q_offsets must be int32")
     build.check_contiguous(q=q, k_pool=k_pool, v_pool=v_pool, page_tbls=page_tbls,
@@ -198,13 +205,13 @@ def flash_prefill_paged(
     out = torch.empty_like(q)
     if tc:
         err = _library().flash_prefill_paged_tc_launch(
-            build.ptr(q), build.ptr(k_pool), build.ptr(v_pool), build.ptr(page_tbls),
-            build.ptr(q_offsets), build.ptr(out), N, Hkv, W, rows, C, d, ps, num_pages,
-            float(scale), build.stream(q.device),
+            build.dtype_code(q, k_pool), build.ptr(q), build.ptr(k_pool), build.ptr(v_pool),
+            build.ptr(page_tbls), build.ptr(q_offsets), build.ptr(out), N, Hkv, W, rows, C, d,
+            ps, num_pages, float(scale), build.stream(q.device),
         )
     else:
         err = _library().flash_prefill_paged_launch(
-            build.DTYPE_CODE[q.dtype], build.ptr(q), build.ptr(k_pool), build.ptr(v_pool),
+            build.dtype_code(q, k_pool), build.ptr(q), build.ptr(k_pool), build.ptr(v_pool),
             build.ptr(page_tbls), build.ptr(q_offsets), build.ptr(out),
             N, Hkv, W, rows, C, d, ps, float(scale), build.stream(q.device),
         )

@@ -75,7 +75,7 @@ from typing import Any, Callable, Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.attention import NEG_INF
+from repro_torch.core.attention import F8, NEG_INF, widen_kv
 from repro_torch.core.leantile import CascadeSchedule, LeanSchedule
 from repro_torch.core.merge import merge_grid
 from . import build, decode_ring
@@ -218,7 +218,17 @@ def _check_cuda(q_seg, k_rows, v_rows, seg_ctx, route, sched: LeanSchedule, what
     ns = ring_slots(k_rows.dtype, gq, d, sched.tile_size)
     if ns:
         decode_ring.check_aligned(what, k_rows=k_rows, v_rows=v_rows)
+    else:
+        check_f8_ring(what, k_rows.dtype, gq, d, sched.tile_size)
     return ns
+
+
+def check_f8_ring(what: str, kv_dtype: torch.dtype, rows: int, d: int, tile: int):
+    """e4m3 rows run on the decode ring only (the walks over device memory
+    have no f8 form): raise where the ring does not fit."""
+    if kv_dtype == F8:
+        raise ValueError(f"{what}: e4m3 K/V rows run on the decode ring only, which does not "
+                         f"fit {rows} query rows at d {d} on tiles of {tile}")
 
 
 def ring_slots(kv_dtype: torch.dtype, rows: int, d: int, tile: int) -> int:
@@ -302,6 +312,8 @@ def lean_decode_partials_plain(q_seg, k_rows, v_rows, seg_ctx, route,
     Returns ``(o_p (P, gq, d), m_p (P, gq), l_p (P, gq))`` in float32.
     ``k_scales``/``v_scales`` (``(R,)`` float32) dequantize int8 rows: each
     tile is widened and multiplied by its row's scale before the products.
+    e4m3 rows (the f8 pools) are widened to bf16 first: an f8 form's plain
+    version is its bf16 form's on the widened rows.
 
     With ``seg_qstart`` it is K4's walk (:mod:`.lean_prefill`): the ``gq``
     rows are ``(g, chunk_cap)`` flattened chunk-minor and row ``r`` of
@@ -311,6 +323,7 @@ def lean_decode_partials_plain(q_seg, k_rows, v_rows, seg_ctx, route,
     dev = q_seg.device
     tile, G, T, P = sched.tile_size, sched.num_workers, sched.tiles_per_worker, sched.num_pieces
     ks, vs = scale_rows(k_rows, k_scales, v_scales)
+    k_rows, v_rows = widen_kv(k_rows), widen_kv(v_rows)
     desc = schedule_tensors(sched, dev)["desc"].long().view(7, G, T)
     rt = route[: G * T].long().view(G, T)
     ctx = seg_ctx.long()
@@ -422,7 +435,8 @@ def lean_decode_partials(q_seg, k_rows, v_rows, seg_ctx, route,
     ``seg_ctx (S,)`` int32 runtime lengths; ``route (>= G*T,)`` int32 pool
     row per descriptor column. Returns float32 ``(o_p (P, gq, d), m_p (P,
     gq), l_p (P, gq))``: per-piece un-scaled partials. int8 rows take
-    ``k_scales``/``v_scales``, one float32 scale per pool row."""
+    ``k_scales``/``v_scales``, one float32 scale per pool row; e4m3 rows
+    (bf16 queries) none, and run on the decode ring only."""
     global partials_launches, partials_ring_launches
     _check_operands(q_seg, k_rows, v_rows, seg_ctx, route, sched)
     ks, vs = scale_rows(k_rows, k_scales, v_scales)
@@ -667,7 +681,9 @@ def lean_cascade_fused(q_pref, q_suf, k_rows, v_rows, ctx_all, route,
     ns = ring_slots(k_rows.dtype, qmax, d, csched.tile_size)
     if ns:
         decode_ring.check_aligned("lean_cascade_fused (K5)", k_rows=k_rows, v_rows=v_rows)
-    elif g > WALK_MAX_G:
+    else:
+        check_f8_ring("lean_cascade_fused (K5)", k_rows.dtype, qmax, d, csched.tile_size)
+    if not ns and g > WALK_MAX_G:
         raise ValueError(f"lean_cascade_fused (K5) at g {g} runs on the decode ring only, which "
                          f"does not fit {qmax} stacked rows at d {d} on pages of "
                          f"{csched.tile_size} ({k_rows.dtype} rows)")

@@ -1,5 +1,5 @@
-"""Stream-K chunked prefill: Hopper kernel K4 (and K4-int8) in two forms,
-and their plain PyTorch versions.
+"""Stream-K chunked prefill: Hopper kernel K4 (and K4-int8, K4-f8) in two
+forms, and their plain PyTorch versions.
 
 K4 replaces the Pallas kernel ``repro/kernels/lean_prefill.py:51``
 ``_lean_prefill_kernel`` (int8 body ``:102``). One pack of N prompt chunks
@@ -29,7 +29,9 @@ runtime visible length ``seg_ctx[seg]``). The stream-K schedule comes from
 With ``k_scales``/``v_scales`` the pool rows are int8 (the reference's
 quantized body): the CUDA-core kernel widens and scales each tile as it is
 loaded; the tensor-core kernel converts the int8 tile to bf16 as it is
-(exact) and applies the scales to the scores and to P.
+(exact) and applies the scales to the scores and to P. e4m3 pool rows (the
+f8 pools, no scales) take the same loads and staging, widened to bf16
+(exact) with nothing to scale: the bf16 kernel's bits on the widened pool.
 
 The wrappers launch a kernel for CUDA tensors and run the plain version for
 CPU tensors -- only because the tensors lie on the CPU; a failed launch

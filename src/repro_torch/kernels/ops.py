@@ -46,6 +46,11 @@ reference's ``repro/kernels/ops.py:467-514``). The reference's fused budget
 differs for int8 (``kv_elem_bytes=1``); here, again, ``fused`` alone
 decides.
 
+f8 pools and caches (``float8_e4m3fn``, no scales) go to every kernel as
+they are: K1, K2, K5 and K6 read e4m3 rows on the decode ring, the fused K4
+and K8 stage them for the tensor cores, widening in-register; the plain
+versions widen to bf16 first.
+
 The schedule is built on the host from host context lengths, as in the
 paper; ``seg_ctx`` carries the true lengths at run time and the kernels mask
 with it, which is what keeps bucketed (cached) schedules exact.
@@ -71,6 +76,7 @@ from repro_torch.core.leantile import (
     make_cascade_schedule,
     make_schedule,
 )
+from repro_torch.core.attention import kv_bytes
 from repro_torch.core.merge import AttnPartial, MergeGrid, finalize, merge_n, segment_merge
 from .flash_decode import flash_decode_partials
 from .lean_prefill import lean_prefill_chunk_partials, lean_prefill_fused
@@ -157,11 +163,12 @@ def _to_segments(q, k, v):
 
 
 def _pad_kv(k_seg, v_seg, tile: int):
-    """Pad the KV axis to a multiple of ``tile`` with zeros."""
+    """Pad the KV axis to a multiple of ``tile`` with zeros (an e4m3
+    cache's bytes: 0 is +0.0)."""
     pad = (-k_seg.shape[1]) % tile
     if pad:
-        k_seg = torch.nn.functional.pad(k_seg, (0, 0, 0, pad))
-        v_seg = torch.nn.functional.pad(v_seg, (0, 0, 0, pad))
+        k_seg, v_seg = (torch.nn.functional.pad(kv_bytes(t), (0, 0, 0, pad)).view(t.dtype)
+                        for t in (k_seg, v_seg))
     return k_seg, v_seg
 
 

@@ -18,6 +18,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.core.attention import (
+    kv_write,
     mha_chunk_prefill_paged_ref,
     mha_decode_ref,
     mha_prefill_ref,
@@ -27,6 +28,7 @@ from repro_torch.core.attention import (
     paged_gather_kv_dequant,
     paged_scatter_tokens,
     paged_scatter_tokens_quant,
+    widen_kv,
 )
 
 COMPUTE_DTYPE = torch.bfloat16
@@ -151,6 +153,10 @@ def attn_decode(
     reference returns updated caches instead and relies on buffer
     donation. ``attn_fn`` receives ``q (B, Hq, hd)``, the caches and the
     visible lengths ``(B,)``; without one the plain reference runs.
+    An f8 cache (``float8_e4m3fn``) takes the token through the
+    reference's cast (:func:`repro_torch.core.attention.to_kv`); ``attn_fn``
+    gets it as it is (the kernels widen in-register) and the plain path
+    widens it to bf16, where the reference widens every read.
     Returns ``(out, k_cache, v_cache)``.
     """
     if ctx_lens is None and cur_len is None:
@@ -172,13 +178,13 @@ def attn_decode(
     q = _maybe_rope(q, pos, rope_theta)
     k = _maybe_rope(k, pos, rope_theta)
     rows = torch.arange(B, device=x.device)
-    k_cache[rows, :, write] = k[:, 0].to(k_cache.dtype)
-    v_cache[rows, :, write] = v[:, 0].to(v_cache.dtype)
+    kv_write(k_cache, (rows, slice(None), write), k[:, 0])
+    kv_write(v_cache, (rows, slice(None), write), v[:, 0])
     qd = q.reshape(B, n_heads, head_dim)
     if attn_fn is not None:
         o = attn_fn(qd, k_cache, v_cache, ctx)
     else:
-        o = mha_decode_ref(qd, k_cache, v_cache, ctx_lens=ctx)
+        o = mha_decode_ref(qd, widen_kv(k_cache), widen_kv(v_cache), ctx_lens=ctx)
     o = o.reshape(B, 1, n_heads * head_dim).to(COMPUTE_DTYPE)
     out = o @ p["wo"].to(COMPUTE_DTYPE)
     return out.to(x.dtype), k_cache, v_cache
@@ -194,7 +200,7 @@ def cross_attn_decode(p, x: torch.Tensor, xk: torch.Tensor, xv: torch.Tensor, *,
     B = x.shape[0]
     xc = x.to(COMPUTE_DTYPE)
     q = (xc @ p["wq"].to(COMPUTE_DTYPE)).reshape(B, n_heads, head_dim)
-    o = mha_decode_ref(q, xk, xv).reshape(B, 1, -1).to(COMPUTE_DTYPE)
+    o = mha_decode_ref(q, widen_kv(xk), widen_kv(xv)).reshape(B, 1, -1).to(COMPUTE_DTYPE)
     return (o @ p["wo"].to(COMPUTE_DTYPE)).to(x.dtype)
 
 
@@ -251,6 +257,12 @@ def attn_decode_paged(
     requantize, in place), ``attn_fn`` receives the int8 pools with
     ``k_scales=``/``v_scales=``, and the plain path gathers through
     :func:`paged_gather_kv_dequant` to bf16.
+
+    f8 pools (``float8_e4m3fn``): the write is the reference's cast
+    (:func:`repro_torch.core.attention.to_kv`), ``attn_fn`` receives the
+    e4m3 pools (the kernels widen in-register), and the plain path widens
+    the gathered rows to bf16 (the reference widens the pool, then
+    gathers: the same values).
     """
     B = x.shape[0]
     ps = k_pool.shape[2]
@@ -269,9 +281,9 @@ def attn_decode_paged(
                                    writer)
     else:
         pages_w = _decode_pages(page_tbl, write_pos, ps)
-        offs = write_pos % ps
-        k_pool[pages_w, :, offs] = null_page_last_writer(pages_w, k[:, 0], writer).to(k_pool.dtype)
-        v_pool[pages_w, :, offs] = null_page_last_writer(pages_w, v[:, 0], writer).to(v_pool.dtype)
+        at = (pages_w, slice(None), write_pos % ps)
+        kv_write(k_pool, at, null_page_last_writer(pages_w, k[:, 0], writer))
+        kv_write(v_pool, at, null_page_last_writer(pages_w, v[:, 0], writer))
     ctx = torch.clamp(ctx_lens + 1, max=capacity).to(torch.int32)
     qd = q.reshape(B, n_heads, head_dim)
     if attn_fn is not None:
@@ -285,8 +297,8 @@ def attn_decode_paged(
         )
     else:
         o = mha_decode_ref(
-            qd, paged_gather_kv(k_pool, page_tbl), paged_gather_kv(v_pool, page_tbl),
-            ctx_lens=ctx,
+            qd, widen_kv(paged_gather_kv(k_pool, page_tbl)),
+            widen_kv(paged_gather_kv(v_pool, page_tbl)), ctx_lens=ctx,
         )
     o = o.reshape(B, 1, n_heads * head_dim).to(COMPUTE_DTYPE)
     out = o @ p["wo"].to(COMPUTE_DTYPE)
@@ -329,7 +341,9 @@ def attn_prefill_chunk_paged(
     ``repro/models/layers.py:318-380``) the writes go through
     :func:`paged_scatter_tokens_quant`, ``attn_fn`` receives the int8 pools
     with ``k_scales=``/``v_scales=``, and the plain path dequantizes the
-    whole pools to bf16 for the oracle.
+    whole pools to bf16 for the oracle. f8 pools: the writes are the
+    reference's cast, ``attn_fn`` receives the e4m3 pools, and the plain
+    path widens them to bf16, as the reference does.
     """
     N, C, _ = x.shape
     q, k, v = _project_qkv(p, x.to(COMPUTE_DTYPE), n_heads, n_kv, head_dim)
@@ -353,7 +367,7 @@ def attn_prefill_chunk_paged(
         o = mha_chunk_prefill_paged_ref(qh, dequant_pool(k_pool, k_scale),
                                         dequant_pool(v_pool, v_scale), page_tbls, offs)
     else:
-        o = mha_chunk_prefill_paged_ref(qh, k_pool, v_pool, page_tbls, offs)
+        o = mha_chunk_prefill_paged_ref(qh, widen_kv(k_pool), widen_kv(v_pool), page_tbls, offs)
     o = o.transpose(1, 2).reshape(N, C, n_heads * head_dim)
     out = o.to(COMPUTE_DTYPE) @ p["wo"].to(COMPUTE_DTYPE)
     return out.to(x.dtype), k_pool, v_pool

@@ -33,7 +33,15 @@ does. A recurrent layer keeps its per-slot float32 state dense in both:
 :func:`prefill_chunks` and :func:`verify_step` write new K/V and states
 into it in place.
 
-f8 caches are refused (:func:`check_supported`).
+``kv_cache_dtype`` picks the storage as the reference does
+(``repro/models/transformer.py:164-167``, ``:245-253``): ``"f8"`` stores
+``torch.float8_e4m3fn`` in every K/V leaf -- pools, ``win`` rings,
+``xattn`` rows -- written through the reference's cast
+(:func:`repro_torch.core.attention.to_kv`); ``"bf16"``, ``"f16"`` and
+``"f32"`` store bf16 (the reference's f16 and f32 caches are bf16 arrays,
+though its ``KVLayout`` counts them 2 and 4 bytes); ``"int8"`` quantizes
+the pools only. Any other value is the reference's ``KVLayout`` refusal
+(:func:`check_supported`).
 """
 from __future__ import annotations
 
@@ -117,13 +125,19 @@ def layer_kinds(cfg: ModelConfig) -> List[str]:
     return [kind for pattern, reps in cfg.stages for _ in range(reps) for kind in pattern]
 
 
+# the KV storage dtypes the reference's KVLayout knows, and the torch dtype
+# each stores its K/V leaves in (an int8 layout's pools are int8, every
+# other leaf bf16)
+KV_STORAGE = {"f32": torch.bfloat16, "bf16": torch.bfloat16, "f16": torch.bfloat16,
+              "f8": torch.float8_e4m3fn, "int8": torch.bfloat16}
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Refuse what this port does not run yet, naming its ROADMAP item."""
-    if cfg.kv_cache_dtype not in ("bf16", "int8"):
-        raise NotImplementedError(
-            f"{cfg.name}: kv_cache_dtype {cfg.kv_cache_dtype!r} is not ported yet "
-            "(ROADMAP queue 1, item 18)"
-        )
+    """Refuse a KV storage dtype the reference does not know, with its
+    ``KVLayout``'s error (``repro/serving/kvpool.py:81-86``)."""
+    if cfg.kv_cache_dtype not in KV_STORAGE:
+        raise ValueError(f"unknown kv_dtype {cfg.kv_cache_dtype!r} "
+                         f"(expected one of {sorted(KV_STORAGE)})")
 
 
 # ------------------------------------------------------------------ params
@@ -252,13 +266,15 @@ def cache_from_numpy(tree, cfg: ModelConfig, device: DeviceLike = "cuda"
     (``jax.tree.map(np.asarray, cache)``): the stacked ``stages`` become one
     dict per layer; int8 pools stay int8, scales and recurrent states
     float32, K/V bf16 -- so a JAX engine's pools can be compared with, or
-    handed to, the port's."""
+    handed to, the port's. f8 leaves stay float8_e4m3fn, byte for byte."""
     dev = resolve_device(device)
 
     def conv(name, a):
         a = np.asarray(a)
         if a.dtype == np.int8:
             return torch.from_numpy(a.copy()).to(dev)
+        if a.dtype.name == "float8_e4m3fn":     # ml_dtypes: its bytes, as e4m3
+            return torch.from_numpy(a.view(np.uint8).copy()).view(torch.float8_e4m3fn).to(dev)
         t = torch.from_numpy(np.array(a, dtype=np.float32))
         f32 = name.endswith("_scale") or name in STATE_KEYS
         return t.to(device=dev, dtype=torch.float32 if f32 else torch.bfloat16)
@@ -292,12 +308,13 @@ def _dense_layer_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int, 
         return {name: zeros(H, hd) for name in ("c", "n", "m", "h")}
     S = min(cache_len, cfg.window) if kind == "win" else cache_len
     shape = (batch, cfg.n_kv_heads, S, cfg.head_dim)
-    lc = {"k": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
-          "v": torch.zeros(shape, dtype=torch.bfloat16, device=dev)}
+    dt = KV_STORAGE[cfg.kv_cache_dtype]
+    lc = {"k": torch.zeros(shape, dtype=dt, device=dev),
+          "v": torch.zeros(shape, dtype=dt, device=dev)}
     if kind == "xattn":
         xshape = (batch, cfg.n_kv_heads, cfg.cross_kv_len, cfg.head_dim)
-        lc["xk"] = torch.zeros(xshape, dtype=torch.bfloat16, device=dev)
-        lc["xv"] = torch.zeros(xshape, dtype=torch.bfloat16, device=dev)
+        lc["xk"] = torch.zeros(xshape, dtype=dt, device=dev)
+        lc["xv"] = torch.zeros(xshape, dtype=dt, device=dev)
     return lc
 
 
@@ -305,7 +322,8 @@ def init_cache(
     cfg: ModelConfig, batch: int, cache_len: int, device: DeviceLike = "cuda"
 ) -> List[Dict[str, torch.Tensor]]:
     """Dense decode state (port of ``repro/models/transformer.py:162-217``):
-    per layer bf16 K and V rows ``(batch, H_kv, S, head_dim)``, one row per
+    per layer K and V rows ``(batch, H_kv, S, head_dim)`` in the storage of
+    ``kv_cache_dtype`` (bf16; e4m3 for ``"f8"``: :data:`KV_STORAGE`), one row per
     slot, zero-filled -- ``S`` is ``cache_len``, or ``min(cache_len,
     window)`` for a ``win`` layer's ring; an ``xattn`` layer adds
     ``"xk"``/``"xv"`` rows of ``cross_kv_len``; a recurrent layer holds its
@@ -329,7 +347,9 @@ def init_paged_cache(
     allocator's page ids index every layer's pools. Page 0 is the null
     page. ``win``, ``xattn`` and recurrent layers keep the dense per-slot
     rows of :func:`init_cache` for ``batch`` slots of ``cache_len`` (bf16
-    K/V even beside int8 pools: only the shared pools quantize)."""
+    K/V even beside int8 pools: only the shared pools quantize). With
+    ``"f8"`` every pool and dense row is ``float8_e4m3fn``; ``"f16"`` and
+    ``"f32"`` are bf16, as in the reference."""
     check_supported(cfg)
     dev = resolve_device(device)
     kinds = layer_kinds(cfg)
@@ -338,7 +358,7 @@ def init_paged_cache(
                          "pass batch and cache_len")
     shape = (num_pages, cfg.n_kv_heads, page_size, cfg.head_dim)
     quant = cfg.kv_cache_dtype == "int8"
-    dtype = torch.int8 if quant else torch.bfloat16
+    dtype = torch.int8 if quant else KV_STORAGE[cfg.kv_cache_dtype]
     cache = []
     for kind in kinds:
         if kind != "attn":

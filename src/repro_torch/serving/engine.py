@@ -59,6 +59,14 @@ reference's K6 widens everything inside), chunks widen the pools to bf16
 for K8; ``ref`` gathers through the dequantizing gather. int8 needs the
 paged pools: on a dense cache it is a ValueError, as in the reference.
 
+With ``kv_dtype="f8"`` the pools (and dense rows and rings) hold
+``float8_e4m3fn``, written through the reference's cast
+(:func:`repro_torch.core.attention.to_kv`) as bytes: admission's page and
+row writes, copy-on-write and ``_fill_page`` move ``uint8``. Every backend
+hands the e4m3 pools to its kernels as they are (``fixed`` gathers e4m3
+pages for K6); ``ref`` widens what it reads. ``"f16"`` and ``"f32"`` are
+bf16 pools, as in the reference.
+
 With ``SpecConfig(enabled=True, k=...)`` (paged engines that chunk-prefill)
 decode is speculative: a proposer
 (:mod:`repro_torch.serving.speculative`) drafts up to ``k`` tokens per
@@ -176,7 +184,14 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.attention import paged_gather_kv, paged_gather_kv_dequant, quantize_kv_blocks
+from repro_torch.core.attention import (
+    F8,
+    kv_bytes,
+    paged_gather_kv,
+    paged_gather_kv_dequant,
+    quantize_kv_blocks,
+    to_kv,
+)
 from repro_torch.core.leantile import (
     CascadeBinding,
     CascadeSchedule,
@@ -448,12 +463,6 @@ def _cache_ptrs(cache) -> tuple:
     return tuple(t.data_ptr() for lc in cache for t in lc.values())
 
 
-# architectures and EngineConfig parts this port does not run yet, with
-# their ROADMAP item
-def _unported(cfg: ModelConfig, config: EngineConfig) -> Optional[str]:
-    if (config.paged.kv_dtype or cfg.kv_cache_dtype) not in ("bf16", "int8"):
-        return "f8, f16 and f32 KV pools (ROADMAP queue 1, item 18)"
-    return None
 
 
 XATTN_ADMISSION = (
@@ -484,9 +493,6 @@ class DecodeEngine:
     ):
         config = config if config is not None else EngineConfig()
         self.device = resolve_device(device)
-        missing = _unported(cfg, config)
-        if missing is not None:
-            raise NotImplementedError(f"not ported yet: {missing}")
         if config.attn_backend not in ("lean", "fixed", "ref"):
             raise ValueError(f"unknown attn_backend {config.attn_backend!r}")
         if config.interpret is not None:
@@ -804,7 +810,9 @@ class DecodeEngine:
         for name, src in entry.items():
             row = src if recurrent else torch.nn.functional.pad(
                 src, (0, 0, 0, lc[name].shape[2] - src.shape[2]))
-            lc[name].index_copy_(0, slot, row.to(lc[name].dtype))
+            # an f8 row: the reference's cast, its bytes copied (torch has
+            # no float8 index_copy_)
+            kv_bytes(lc[name]).index_copy_(0, slot, kv_bytes(to_kv(row, lc[name].dtype)))
 
     def _write_pages(self, pages: torch.Tensor, layer: int, k: torch.Tensor, v: torch.Tensor):
         """Copy-on-admit of one layer: its K/V ``(1, H, L, hd)`` scattered
@@ -832,9 +840,10 @@ class DecodeEngine:
                 scales = lc[f"{name}_scale"]
                 pool[pages] = torch.where(live[:, None, None, None], q, pool[pages])
                 scales[pages] = torch.where(live[:, None], sc, scales[pages])
-            else:
-                pool[pages] = torch.where(live[:, None, None, None], chunks.to(pool.dtype),
-                                          pool[pages])
+            else:   # (an f8 pool's bytes)
+                b = kv_bytes(pool)
+                b[pages] = torch.where(live[:, None, None, None],
+                                       kv_bytes(to_kv(chunks, pool.dtype)), b[pages])
 
     def admit_blocking(self, req: Request, slot: int) -> bool:
         """Whole-prompt prefill into ``slot``, its cache row or pages
@@ -949,11 +958,16 @@ class DecodeEngine:
         garbage is harmless and NaN is not). int8 pools cannot hold NaN: the
         content is filled with 0 and the page's scales with ``value``, so a
         NaN page dequantizes to ``0 * NaN = NaN`` and a scrub to exact
-        zeros. The pool tensors stay the same objects, so no captured step
-        is captured anew."""
+        zeros. An f8 page is filled with ``value``'s e4m3 code (NaN: 0x7f).
+        The pool tensors stay the same objects, so no captured step is
+        captured anew."""
+        code = int(kv_bytes(to_kv(torch.tensor([value]), F8))[0])
         for lc in self._pool_layers():
             for name, t in lc.items():
-                t[page].fill_(0 if t.dtype == torch.int8 else value)
+                if t.dtype == F8:
+                    kv_bytes(t[page]).fill_(code)
+                else:
+                    t[page].fill_(0 if t.dtype == torch.int8 else value)
 
     def _copy_page(self, src: int, dst: int):
         """Copy-on-write's device side: page ``src`` onto page ``dst`` in

@@ -45,6 +45,7 @@ from repro_torch.configs import ARCH_IDS, get_smoke_config  # noqa: E402
 from repro_torch.models import (  # noqa: E402
     cache_from_numpy,
     decode_step,
+    init_cache,
     layer_kinds,
     params_from_numpy,
     prefill,
@@ -513,8 +514,10 @@ def test_recurrent_kinds_refused(arch):
     """The recurrent architectures run at the model level
     (``tests/test_torch_recurrent.py``); what the reference refuses them the
     port refuses too: chunked prefill (their state has no chunk-resume
-    plumbing), as ``repro/models/transformer.py:647-651`` does; and an f8
-    cache, as for every architecture (item 18)."""
+    plumbing), as ``repro/models/transformer.py:647-651`` does; and, as for
+    every architecture, a KV dtype the reference's ``KVLayout`` does not
+    know -- an f8 cache, once refused here, is served (e4m3 attention
+    layers beside float32 states)."""
     cfg_j, cfg, pj, pt = _model(arch)
     check_supported(cfg)
     assert not supports_chunked_prefill(cfg)
@@ -524,5 +527,10 @@ def test_recurrent_kinds_refused(arch):
         jchunks(pj, cfg_j, None, *(jnp.asarray(a) for a in args))
     with pytest.raises(ValueError, match="chunked prefill requires"):
         prefill_chunks(pt, cfg, None, *(torch.from_numpy(a) for a in args))
-    with pytest.raises(NotImplementedError, match="item 18"):
-        check_supported(dataclasses.replace(cfg, kv_cache_dtype="f8"))
+    with pytest.raises(ValueError, match="unknown kv_dtype"):
+        check_supported(dataclasses.replace(cfg, kv_cache_dtype="fp4"))
+    f8 = dataclasses.replace(cfg, kv_cache_dtype="f8")
+    check_supported(f8)
+    kinds = {kind: lc for kind, lc in zip(layer_kinds(f8), init_cache(f8, 1, 8, device="cpu"))}
+    assert all(t.dtype == (torch.float8_e4m3fn if kind in ("attn", "win") else torch.float32)
+               for kind, lc in kinds.items() for t in lc.values())

@@ -173,16 +173,24 @@ def test_unservable_request_is_refused(model):
 # here, are ported: test_observability_sinks_serve. Guards and fault
 # injection, once two cases here, are ported: test_guards_require_paged and
 # test_guards_and_faults_serve (tests/test_torch_chaos.py holds them against
-# the JAX engine)
+# the JAX engine). f8, f16 and f32 pools, once this case, are ported
+# (tests/test_torch_f8_kv.py): what is left is a KV dtype the reference does
+# not know, which both engines refuse with its KVLayout's ValueError.
 @pytest.mark.parametrize("change", [
-    dict(paged=PagedConfig(enabled=True, kv_dtype="f8")),
+    dict(paged=PagedConfig(enabled=True, kv_dtype="fp4")),
 ])
 def test_unported_configurations_raise(model, change):
-    _, cfg, _, pt = model
+    cfg_j, cfg, pj, pt = model
     kw = dict(paged=PagedConfig(enabled=True, page_size=8))
     kw.update(change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="unknown kv_dtype"):
         DecodeEngine(cfg, pt, EngineConfig(**kw), device="cpu")
+    with pytest.raises(ValueError, match="unknown kv_dtype"):
+        JEngine(cfg_j, pj, JConfig(paged=JPaged(enabled=True, page_size=8,
+                                                kv_dtype=change["paged"].kv_dtype)))
+    f8 = DecodeEngine(cfg, pt, EngineConfig(paged=PagedConfig(enabled=True, page_size=8,
+                                                              kv_dtype="f8")), device="cpu")
+    assert f8.cache[0]["k"].dtype == torch.float8_e4m3fn
 
 
 def test_guards_require_paged(model):

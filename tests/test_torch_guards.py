@@ -7,7 +7,7 @@ the same inputs: the taxonomy and the config validations give the same
 answers; the same specs and seed give the same fire sequence, ``choose``
 picks and ``as_dict`` over a few hundred opportunities; ``corrupt_trie_node``
 picks the same victim on identical tries; and a NaN or 0.0 fill of one page
-gives equal pools (NaN positions equal) on bf16 and int8 pages.
+gives equal pools (NaN positions equal) on bf16, int8 and f8 pages.
 """
 import dataclasses
 
@@ -240,7 +240,7 @@ def _as_f32(t: torch.Tensor) -> np.ndarray:
 
 
 @pytest.mark.parametrize("value", [float("nan"), 0.0])
-@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8", "f8"])
 def test_fill_page_matches_reference(model, kv_dtype, value):
     cfg_j, cfg, pt = model
     cfg_j = dataclasses.replace(cfg_j, kv_cache_dtype=kv_dtype)

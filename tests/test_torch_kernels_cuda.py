@@ -13,7 +13,11 @@ chunk holding NaN, their launch counters and refusals; the pages the
 engine can pick that the kernels once refused (12 and 100 rows, and 256
 at d 128, on K8, K4 and K6); and the int8 forms of K1, K2, K4 and K5 (bf16
 queries, int8 rows, a float32 scale per row, a zero-scale page reading
-exact zeros) and the int8 engine on the card against the CPU; the fused
+exact zeros) and the int8 engine on the card against the CPU; the f8 forms of K1,
+K2, K4 (fused and partials), K5, K6 and K8 (bf16 queries, e4m3 rows)
+against their bf16 forms on the widened rows, bit for bit, and their plain
+versions, a NaN element in an f8 page, the f8 cast on the card against the
+CPU's, and the f8 engine on the card against the CPU; the fused
 K4 (stream-K pieces merged in the launch, bf16 and int8 pages on the
 tensor cores, float32 and other pages on the CUDA cores) against its plain
 version, launch against launch, and against the two-phase path; K1 and K2
@@ -1403,3 +1407,244 @@ def test_k7_at_arch_geometries(cuda, case, dtype):
         torch.testing.assert_close(out, ref, **TOL)
     else:
         assert _bf16_close(out, ref)
+
+
+# ------------------------------------------------------------------ f8 K/V
+# The f8 forms (bf16 queries, e4m3 rows, no scales) widen each element in
+# registers; e4m3 -> bf16 is exact, so each must give its bf16 form's bits
+# on the rows widened to bf16, and match its plain version (which widens
+# first) at the bf16 form's tolerance.
+def _to_f8(*ts):
+    from repro_torch.core.attention import F8, to_kv
+
+    return [to_kv(t.bfloat16(), F8) for t in ts]
+
+
+def _wide(*ts):
+    return [t.to(torch.bfloat16) for t in ts]
+
+
+def _same_bits(a, b):
+    """Equal bit for bit, NaN where NaN (a NaN's payload aside)."""
+    nan = torch.isnan(a)
+    if a.dtype != b.dtype or not torch.equal(nan, torch.isnan(b)):
+        return False
+    bits = torch.int32 if a.element_size() == 4 else torch.int16
+    zero = torch.zeros((), dtype=a.dtype, device=a.device)
+    return torch.equal(torch.where(nan, zero, a).view(bits), torch.where(nan, zero, b).view(bits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("page", RING_PAGES)
+@pytest.mark.parametrize("rows", [2, 4, 8, 16, 32, 64])
+def test_f8_k1_k2_equal_bf16_on_widened_rows(cuda, rows, page, d):
+    """K1-f8 and K2-f8 on the ring (every row bucket and page: a 1-byte
+    tile always leaves the ring two slots) equal K1/K2 on the widened rows
+    bit for bit, and their plain versions within 2e-5."""
+    args, _ = _k12_operands(cuda, rows, d, page, "bfloat16", seed=rows + page)
+    args[1], args[2] = _to_f8(args[1], args[2])
+    wide = list(args)
+    wide[1], wide[2] = _wide(args[1], args[2])
+    assert ld.ring_slots(args[1].dtype, rows, d, page) >= 2
+    before = (ld.fused_ring_launches, ld.partials_ring_launches)
+    f8 = ld.lean_decode_fused(*args) + ld.lean_decode_partials(*args)
+    torch.cuda.synchronize()
+    assert (ld.fused_ring_launches, ld.partials_ring_launches) == (before[0] + 1, before[1] + 1)
+    bf = ld.lean_decode_fused(*wide) + ld.lean_decode_partials(*wide)
+    assert all(_same_bits(a, b) for a, b in zip(f8, bf))
+    for a, b in zip(f8, ld.lean_decode_fused_plain(*args) + ld.lean_decode_partials_plain(*args)):
+        torch.testing.assert_close(a, b, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gq", ld.KERNEL_GQ)
+@pytest.mark.parametrize("tile,d", K6_TILES)
+@pytest.mark.parametrize("walk", sorted(K6_WALKS))
+def test_f8_k6_equals_bf16_on_widened_rows(cuda, gq, tile, d, walk):
+    """K6-f8 (the ring only) equals K6 on the widened K/V bit for bit and
+    its plain version within 2e-5."""
+    args = list(_k6_args(cuda, walk, gq, "bfloat16", tile, d))
+    args[1], args[2] = _to_f8(args[1], args[2])
+    wide = list(args)
+    wide[1], wide[2] = _wide(args[1], args[2])
+    before = fd.ring_launches
+    out = fd.flash_decode_partials(*args)
+    torch.cuda.synchronize()
+    assert fd.ring_launches == before + 1
+    assert all(_same_bits(a, b) for a, b in zip(out, fd.flash_decode_partials(*wide)))
+    for a, b in zip(out, fd.flash_decode_partials_plain(*args)):
+        torch.testing.assert_close(a, b, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CASCADES))
+def test_f8_k5_equals_bf16_on_widened_rows(cuda, case):
+    """K5-f8 on the ring equals K5 on the widened rows bit for bit, its
+    plain version within 2e-5, and shared pages equal duplicated ones."""
+    c = _cascade_problem(cuda, case, torch.bfloat16)
+    args = list(_cascade_args(c, c["tbl"]))
+    args[2], args[3] = _to_f8(args[2], args[3])
+    wide = list(args)
+    wide[2], wide[3] = _wide(args[2], args[3])
+    before = ld.cascade_ring_launches
+    o, lse = ld.lean_cascade_fused(*args)
+    torch.cuda.synchronize()
+    assert ld.cascade_ring_launches == before + 1
+    ow, lsew = ld.lean_cascade_fused(*wide)
+    assert _same_bits(o, ow) and _same_bits(lse, lsew)
+    o_ref, lse_ref = ld.lean_cascade_fused_plain(*args)
+    torch.testing.assert_close(o, o_ref, **TOL)
+    torch.testing.assert_close(lse, lse_ref, **TOL)
+    dup = list(_cascade_args(c, c["dup"]))
+    dup[2], dup[3] = _to_f8(dup[2], dup[3])
+    o3, lse3 = ld.lean_cascade_fused(*dup)
+    assert torch.equal(o, o3) and torch.equal(lse, lse3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page,C", FUSED_CASES)
+def test_f8_fused_k4_equals_bf16_on_widened_rows(cuda, page, C):
+    """The fused K4-f8 (tensor cores where the path rule says, staged and
+    widened by the producer warpgroup; CUDA cores elsewhere) equals the
+    fused K4 on the widened rows bit for bit, and its plain version within
+    one bf16 step of the output plus 2e-5."""
+    args, _, _ = _fused_operands(cuda, page, C, "bfloat16")
+    args = list(args)
+    args[1], args[2] = _to_f8(args[1], args[2])
+    wide = list(args)
+    wide[1], wide[2] = _wide(args[1], args[2])
+    tc = fp.tensor_core_path(args[0].dtype, args[0].shape[2], page)
+    lp.reset_launch_counts()
+    out = lp.lean_prefill_fused(*args)
+    torch.cuda.synchronize()
+    assert (lp.fused_launches, lp.fused_tc_launches) == (1, int(tc))
+    assert _same_bits(out, lp.lean_prefill_fused(*wide))
+    assert _bf16_close(out, lp.lean_prefill_fused_plain(*args))
+    parts = lp.lean_prefill_chunk_partials(*args)
+    for a, b in zip(parts, lp.lean_prefill_chunk_partials(*wide)):
+        assert _same_bits(a, b)
+
+
+# K8's cases: the tensor-core ones, and pages of 12 and 100 (the CUDA cores)
+K8_F8_CASES = K8_TC_CASES + [(8, 2, 128, 12, (50, 3), 40), (8, 2, 64, 100, (150, 0), 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K8_F8_CASES)
+def test_f8_k8_equals_bf16_on_widened_pools(cuda, case):
+    """K8-f8 equals K8 on the widened pools bit for bit (rows past each
+    chunk's last position NaN in both: keys no row sees add nothing) and
+    its plain version within one bf16 step plus 2e-5; the counters follow
+    the path rule."""
+    Hq, Hkv, d, page, offs, C = case
+    q, kp, vp, tbl = _chunk_operands(cuda, list(offs), [C] * len(offs), Hq, Hkv, d, page,
+                                     torch.bfloat16, seed=page)
+    q_off = torch.tensor(offs, dtype=torch.int32, device=cuda)
+    kf, vf = _to_f8(kp, vp)
+    tc = fp.tensor_core_path(q.dtype, d, page)
+    before = (fp.launches, fp.tc_launches)
+    out = fp.flash_prefill_paged(q, kf, vf, tbl, q_off)
+    torch.cuda.synchronize()
+    assert (fp.launches, fp.tc_launches) == (before[0] + 1, before[1] + int(tc))
+    assert _same_bits(out, fp.flash_prefill_paged(q, *_wide(kf, vf), tbl, q_off))
+    assert _bf16_close(out, fp.flash_prefill_paged_plain(q, kf, vf, tbl, q_off,
+                                                         1.0 / math.sqrt(d)))
+
+
+@pytest.mark.cuda
+def test_f8_nan_element_reads_as_in_bf16(cuda):
+    """The guards' NaN contract on f8 pages: one NaN element in a page (e4m3
+    code 0x7f) gives K2-f8 and the fused K4-f8 the output the bf16 kernels
+    give with the same element NaN -- the victim's rows NaN, every other
+    row finite and equal."""
+    from repro_torch.core.attention import F8
+
+    args, _ = _k12_operands(cuda, 4, 128, 128, "bfloat16", seed=5)
+    args[1], args[2] = _to_f8(args[1], args[2])
+    row = int(args[4][0])                       # the pool row of column 0
+    args[1].view(torch.uint8)[row, 3, 7] = 0x7F
+    wide = list(args)
+    wide[1], wide[2] = _wide(args[1], args[2])
+    o, lse = ld.lean_decode_fused(*args)
+    ow, lsew = ld.lean_decode_fused(*wide)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(o).any()) and bool(torch.isfinite(o).any())
+    assert _same_bits(o, ow) and _same_bits(lse, lsew)
+    fargs, _, _ = _fused_operands(cuda, 128, 256, "bfloat16", seed=5)
+    fargs = list(fargs)
+    fargs[1], fargs[2] = _to_f8(fargs[1], fargs[2])
+    fargs[2].view(torch.uint8)[int(fargs[5][0]), 5, 3] = 0x7F
+    fwide = list(fargs)
+    fwide[1], fwide[2] = _wide(fargs[1], fargs[2])
+    out = lp.lean_prefill_fused(*fargs)
+    assert bool(torch.isnan(out).any()) and bool(torch.isfinite(out).any())
+    assert _same_bits(out, lp.lean_prefill_fused(*fwide))
+    assert fargs[1].dtype == F8
+
+
+@pytest.mark.cuda
+def test_f8_cast_on_card_gives_cpu_codes(cuda):
+    """``to_kv`` on the card gives the CPU's e4m3 codes (JAX's: NaN above
+    464) from bf16 and float32, on every bf16 bit pattern and a sweep of
+    float32 values."""
+    from repro_torch.core.attention import F8, to_kv
+
+    bf = torch.arange(-2**15, 2**15, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    gen = torch.Generator().manual_seed(0)
+    f32 = torch.cat([torch.randn(200_000, generator=gen) * s for s in (1e-3, 1.0, 30.0, 300.0)])
+    for x in (bf, f32):
+        cpu = to_kv(x, F8).view(torch.uint8)
+        card = to_kv(x.to(cuda), F8).view(torch.uint8).cpu()
+        assert torch.equal(cpu, card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["lean", "fixed"])
+def test_f8_engine_on_card_matches_cpu(cuda, backend):
+    """The smoke-config f8 engine under the Scheduler with chunked prefill
+    on the card (fused K4-f8 / K2-f8 on ``lean``, K8-f8 / K6-f8 on
+    ``fixed``) against the same on the CPU: every request served, each f8
+    kernel launched once per layer and step, the pools' e4m3 codes after
+    the first step within one e4m3 step of the CPU's (bf16 GEMMs round in
+    another order on the card)."""
+    import numpy as np
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.serving.config import EngineConfig, PagedConfig
+    from repro_torch.serving.engine import DecodeEngine
+    from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
+
+    cfg = get_smoke_config("mistral-nemo-12b")
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    first = {}
+    for dev in ("cpu", "cuda"):
+        p = {k: v.to(dev) if torch.is_tensor(v) else v for k, v in params.items()}
+        p["layers"] = [{k: ({kk: vv.to(dev) for kk, vv in v.items()} if isinstance(v, dict)
+                            else v.to(dev)) for k, v in layer.items()}
+                       for layer in params["layers"]]
+        eng = DecodeEngine(cfg, p, EngineConfig(
+            max_batch=2, cache_len=64, num_workers=8, attn_backend=backend,
+            paged=PagedConfig(enabled=True, page_size=16, kv_dtype="f8")), device=dev)
+        assert eng.cache[0]["k"].dtype == torch.float8_e4m3fn
+        sch = Scheduler(eng, SchedulerConfig(chunk_size=8, prefill_pack=2, token_budget=16))
+        rng = np.random.default_rng(0)
+        hs = [sch.submit(rng.integers(0, cfg.vocab_size, 8 + 7 * i), 6, uid=i)
+              for i in range(4)]
+        for m in (ld, lp, fd, fp):
+            m.reset_launch_counts()
+        sch.step()
+        first[dev] = [lc["k"][1:].float().cpu().clone() for lc in eng.cache]
+        sch.run_to_completion(max_steps=400)
+        assert all(h.done and len(h.generated) == 6 for h in hs)
+        eng.pool.check()
+        assert eng.pool.num_allocated == 0
+        if dev == "cuda":
+            chunk_steps, ticks = len(eng.stats.tick_prefill_tokens), eng.stats.ticks
+            chunk_k, decode_k = (lp.fused_launches, ld.fused_launches) if backend == "lean" \
+                else (fp.launches, fd.launches)
+            assert chunk_k == cfg.n_layers * chunk_steps > 0
+            assert decode_k == cfg.n_layers * ticks > 0
+    for a, b in zip(first["cuda"], first["cpu"]):
+        torch.testing.assert_close(a, b, rtol=2**-3, atol=2**-9)

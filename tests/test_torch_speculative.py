@@ -8,7 +8,7 @@ agrees with, so the greedy stream equals plain greedy decode token for
 token. Here the port's speculative streams must also equal the JAX
 speculative engine's, with the same ``spec_draft_tokens`` and
 ``spec_accepted_tokens``, on ``lean``, ``fixed`` and ``ref``, bf16 and int8
-pools, the cascade, a partially accepting ``OracleProposer`` and the
+pools (and f8 on ``lean`` and ``fixed``), the cascade, a partially accepting ``OracleProposer`` and the
 ``NGramProposer``. The prompts keep every top-2 gap of the port's greedy
 oracle above 2**-4 (``test_oracle_margin``), so a backend's rounding cannot
 flip a token; the JAX engine jits its steps and moves logits by up to
@@ -161,7 +161,8 @@ def _spec_pair(model, proposer_of, **kw):
 
 
 @pytest.mark.parametrize("backend,kv", [("lean", None), ("fixed", None), ("ref", None),
-                                        ("lean", "int8"), ("fixed", "int8"), ("ref", "int8")])
+                                        ("lean", "int8"), ("fixed", "int8"), ("ref", "int8"),
+                                        ("lean", "f8"), ("fixed", "f8")])
 def test_spec_streams_and_stats_equal_jax(model, plain, backend, kv):
     """A partially accepting oracle (accept rate 0.6): the port's
     speculative streams equal plain greedy decode and the JAX speculative

@@ -9,7 +9,7 @@ speculative verify step and blocking admission.
 On the CPU (the kernels' plain versions), on the smoke configuration:
 
   * every fast-path decode step of a served run, on paged and dense
-    caches, bf16 and int8 pools, ``lean`` (fused and two-call), ``fixed``,
+    caches, bf16, int8 and f8 pools, ``lean`` (fused and two-call), ``fixed``,
     ``ref`` and the cascade (fused K5, and the two-call path, whose merge
     grid now comes from the host): logits and cache equal bit for bit to
     the same step with every layer building its own operands, the
@@ -57,6 +57,7 @@ from repro.serving.config import EngineConfig as JConfig, PagedConfig as JPaged 
 from repro.serving.config import SpecConfig as JSpec  # noqa: E402
 from repro.serving.engine import DecodeEngine as JEngine, Request as JRequest  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.core.attention import kv_bytes  # noqa: E402
 from repro_torch.core.merge import AttnPartial, merge_grid, segment_merge  # noqa: E402
 from repro_torch.kernels import launches, ops  # noqa: E402
 from repro_torch.kernels import lean_decode as ld  # noqa: E402
@@ -109,6 +110,8 @@ CONFIGS = {
                            "chunked"),
     "int8-fixed": (dict(attn_backend="fixed", paged=dict(kv_dtype="int8")), "blocking"),
     "int8-ref": (dict(attn_backend="ref", paged=dict(kv_dtype="int8")), "blocking"),
+    "f8-lean": (dict(attn_backend="lean", paged=dict(kv_dtype="f8")), "blocking"),
+    "f8-fixed-chunked": (dict(attn_backend="fixed", paged=dict(kv_dtype="f8")), "chunked"),
     "cascade": (dict(attn_backend="lean", cascade=dict(fused=True)), "waves"),
     "cascade-two-call": (dict(attn_backend="lean", cascade=dict(fused=False)), "waves"),
     "cascade-int8": (dict(attn_backend="lean", cascade=dict(fused=True),
@@ -739,7 +742,8 @@ def test_captured_step_equals_eager_on_card(cuda, model, name):
     for t, (p0, p1) in enumerate(zip(e0.pools, e1.pools)):
         for i, (l0, l1) in enumerate(zip(p0, p1)):
             for k in l0:
-                rows = (l0[k] != l1[k]).flatten(1).any(1).nonzero().flatten().tolist()
+                rows = (kv_bytes(l0[k]) != kv_bytes(l1[k])).flatten(1).any(1)  # f8: its bytes
+                rows = rows.nonzero().flatten().tolist()
                 assert not rows, f"tick {t}: layer {i} {k} differs in rows {rows}"
     twice = {k for k in e1.keys if e1.keys.count(k) >= 2}
     assert e1.stats.decode_captures == len(twice) > 0
