@@ -199,7 +199,33 @@ Phases, in order; any failure exits non-zero and nothing catches it:
      fault that comparison must fail, five captured ticks traced, the
      captured steps bit for bit against eager, and the exact-length
      admission graphs held to their bound (their memory printed);
- 20. the kernel summary (one JSON line: K1-K8, the fused K4 and the int8
+ 20. training (``--train-step`` alone): (a) Mistral-NeMo-12B at full
+     width, ``TRAIN_LAYERS`` (8) of its 40 layers -- float32 master weights
+     and AdamW's float32 moments are 16 B a parameter, 56.4 GB at 8 layers
+     -- trained ``TRAIN_STEPS`` steps on the data pipeline's batches of 2 x
+     2048: the loss per step (it must fall), step ms by CUDA events,
+     tokens/s, peak memory and MFU (``model_flops_for`` over the step time
+     and the bf16 peak; beside it the MFU without the input embedding's
+     rows, a gather the formula counts as a matmul), and no kernel launched (training attention is the
+     plain, differentiable one on every device); then the loss's value and
+     gradients and the AdamW update timed apart, and one step under
+     ``torch.profiler`` (device busy, kernels by time); (b) one full-width layer's
+     loss and gradients on the card against the port on the CPU, same
+     float32 weights and batch (loss within 2e-3, each leaf's gradient
+     cosine >= 0.999 and norm within 2%); (c) xlstm-350m at full width and
+     depth, 4 steps straight against 2 + checkpoint + restore into fresh
+     tensors + 2, bit for bit (losses, parameters, moments), in a child
+     process under ``torch.use_deterministic_algorithms`` with
+     ``CUBLAS_WORKSPACE_CONFIG=:4096:8``, the checkpoint written under a
+     temporary directory and removed; (d) (a)'s weights through
+     ``params_for_serving``, served on the paged lean engine (K7
+     admissions, K2 decode, captured steps) against a ``ref`` engine: the
+     first decode tick's logits and the greedy streams (equal or parting at
+     a near tie); (e) one train step of each of the ten configurations at
+     full width, one stage unit deep (llama-3.2-vision with the pipeline's
+     image embeddings): finite loss and gradient norm, parameters moved,
+     step ms and peak memory; one JSON line ``{"train": ...}``;
+ 21. the kernel summary (one JSON line: K1-K8, the fused K4 and the int8
      forms of K1, K2, K4 (fused and partials) and K5: 14 entries, then K2,
      the fused K4, K8, K7, K6 and K5 at the attention-family geometries,
      each with its launches from that architecture's run, and K7 at
@@ -208,13 +234,13 @@ Phases, in order; any failure exits non-zero and nothing catches it:
      line, and last ``{"ok": true, "device": {...}}``.
 
 Each phase starts with a ``[seconds] phase`` line: the time since the
-script started. Phases 11-19 alone, at full width, after the build:
+script started. Phases 11-20 alone, at full width, after the build:
 
     python3 chip_smoke.py --f8-step | --chunk-step | --spec-step | --admission-step
     python3 chip_smoke.py --captured-step
     python3 chip_smoke.py --obs-step | --guards-step
     python3 chip_smoke.py --arch-kernels | --qwen3-step [DEPTH] | --gemma-step [DEPTH]
-    python3 chip_smoke.py --arch-sweep | --recurrent-step [DEPTH]
+    python3 chip_smoke.py --arch-sweep | --recurrent-step [DEPTH] | --train-step
 
 The kernel phase (3) also holds K3 (the merge kernel) against its plain
 version and ``segment_merge``, drives the two-phase ``merge_impl="pallas"``
@@ -6065,6 +6091,397 @@ def recurrent_admit_graphs(torch, cfg, params, sm_count, seed):
     del eng
 
 
+# ------------------------------------------------------------------ training
+# Mistral-NeMo-12B at full width trains with float32 master weights and
+# AdamW's two float32 moments: with the gradient 16 B a parameter. All 40
+# layers are 12.25 B parameters (196 GB); 8 layers and the 131072-row
+# embedding and unembedding are 3.52 B (56.4 GB), which fit the card
+TRAIN_LAYERS = 8
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 8
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+# (b) the card against the CPU port: one layer at full width, batch 1 of
+# TRAIN_CPU_SEQ tokens; loss_chunk 0 (one chunk of the 31 targets: the
+# reference pads a short sequence's targets to a whole 512-row chunk, 16x
+# the unembedding's work, which the CPU side cannot afford in its 30 s)
+TRAIN_CPU_SEQ = 32
+# both sides round the same bf16 products in float32 sums of other orders
+# (cuBLAS against the CPU's GEMMs; TF32 off): a gradient element moves by
+# a bf16 step where a sum crossed a rounding boundary. A missing or wrong
+# term moves a leaf by its own size
+TRAIN_LOSS_REL, TRAIN_GRAD_COS, TRAIN_NORM_RATIO = 2e-3, 0.999, 0.02
+# xlstm-350m's sLSTM gradients explode at full width, in the reference
+# too (ROADMAP queue 3: its recurrent weights' fan-in): about 10**3.5 every
+# 32 tokens, so past about 160 tokens the global norm overflows float32
+# (the clip scale is then 0 and a step is weight decay alone), past about
+# 300 the gradients do (NaN). Its training runs at 128 tokens, where the
+# norm is about 1e17 and Adam's steps are real ones
+XLSTM_TRAIN_SEQ = 128
+# (c) exact resume, in a child process under deterministic algorithms:
+# xlstm-350m at full width and depth (its mLSTM and sLSTM backward)
+RESUME_ARCH, RESUME_BATCH, RESUME_SEQ = "xlstm-350m", 2, XLSTM_TRAIN_SEQ
+RESUME_OPT = dict(lr=3e-4, warmup_steps=1, total_steps=4)
+# (d) the trained weights served on the paged lean engine against ref
+TRAIN_SERVE_PROMPTS = (2000, 700, 130, 17)
+TRAIN_SERVE_TOKENS = 16
+# (e) one train step of every config at full width, one stage unit deep
+UNIT_BATCH, UNIT_SEQ = 2, 512
+
+
+def train_mistral(torch, smi: str):
+    """(a) Mistral-NeMo-12B at full width and TRAIN_LAYERS deep: float32
+    master weights from a seeded generator, TRAIN_STEPS AdamW steps on the
+    data pipeline's batches. Prints the loss per step, step ms (CUDA
+    events), tokens/s, peak memory and MFU; fails unless every loss is
+    finite and the last is below the first."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.models import count_active_params
+    from repro_torch.roofline.analysis import PEAK_FLOPS, model_flops_for
+    from repro_torch.training import (OptConfig, adamw_update, init_train_state, make_loss,
+                                      make_train_step, value_and_grad)
+    from repro_torch.training.tree import flatten
+
+    cfg = arch_config(get_config("mistral-nemo-12b"), TRAIN_LAYERS)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt = init_train_state(cfg, gen, "cuda")
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in flatten(params)[1])
+    print(f"train phase (a) ({smi}): {cfg.name} full width (d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}), {cfg.n_layers} of 40 layers: {n:,} float32 parameters, weights "
+          f"+ moments {torch.cuda.memory_allocated() / 1e9:.1f} GB in "
+          f"{time.perf_counter() - t0:.1f} s; batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+          f"OptConfig({TRAIN_OPT}), TF32 off", flush=True)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    step = make_train_step(cfg, OptConfig(**TRAIN_OPT))
+    reset_launch_counts()
+    out, events = [], []
+    for i in range(TRAIN_STEPS):
+        batch = {k: torch.from_numpy(v).cuda() for k, v in batch_at(dcfg, i).items()}
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, opt, m = step(params, opt, batch)
+        end.record()
+        out.append(m)
+        events.append((start, end))
+    torch.cuda.synchronize()
+    ms = [s.elapsed_time(e) for s, e in events]
+    losses = [float(m["loss"]) for m in out]
+    gnorms = [float(m["grad_norm"]) for m in out]
+    peak = torch.cuda.max_memory_allocated()
+    check(not any(launch_counts().values()), f"training launched kernels: {launch_counts()}")
+    p50 = statistics.median(ms)
+    shape = ShapeSpec("train", "train", TRAIN_SEQ, TRAIN_BATCH)
+    flops = model_flops_for(cfg, shape, count_active_params(cfg))
+    # the input embedding is a gather, yet the formula counts it as a matmul
+    # (6 N a token); the untied model's MFU without its V x D rows beside it
+    gather = 0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model
+    flops_mm = model_flops_for(cfg, shape, count_active_params(cfg) - gather)
+    res = {"layers": cfg.n_layers, "params": n, "losses": losses, "grad_norms": gnorms,
+           "step_ms": ms, "step_ms_p50": p50, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / p50 * 1e3,
+           "peak_gb": peak / 1e9, "model_tflop": flops / 1e12,
+           "mfu": flops / (p50 / 1e3) / PEAK_FLOPS,
+           "model_tflop_no_embed": flops_mm / 1e12,
+           "mfu_no_embed": flops_mm / (p50 / 1e3) / PEAK_FLOPS}
+    print(f"train phase (a) ({smi}): loss per step " + ", ".join(f"{v:.4f}" for v in losses)
+          + "; grad norm " + ", ".join(f"{v:.3f}" for v in gnorms)
+          + "; step ms " + ", ".join(f"{v:.1f}" for v in ms)
+          + f"; p50 {p50:.1f} ms, {res['tokens_per_s']:.0f} tokens/s; peak memory "
+          f"{res['peak_gb']:.2f} GB; model_flops_for {res['model_tflop']:.1f} TFLOP a step, MFU "
+          f"{res['mfu']:.4f} of {PEAK_FLOPS / 1e12:.0f} TFLOP/s (without the input embedding's "
+          f"rows {res['model_tflop_no_embed']:.1f} TFLOP, MFU {res['mfu_no_embed']:.4f}); "
+          "kernels launched 0", flush=True)
+    check(all(math.isfinite(v) for v in losses + gnorms), f"non-finite loss: {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+
+    # where a step's time goes, past the phase's steps: the loss's value and
+    # gradients and the AdamW update timed apart, then one step traced
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch_at(dcfg, TRAIN_STEPS).items()}
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    _, grads = value_and_grad(make_loss(cfg), params, batch)
+    ev[1].record()
+    adamw_update(grads, opt, params, OptConfig(**TRAIN_OPT))
+    ev[2].record()
+    torch.cuda.synchronize()
+    del grads
+    res["grad_ms"], res["adamw_ms"] = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch_at(dcfg, TRAIN_STEPS + 1).items()}
+    with scheduler_profiler(torch) as prof:
+        params, opt, _ = step(params, opt, batch)
+        torch.cuda.synchronize()
+    kernels, busy_ms, by_name = device_time(prof)
+    res["traced_busy_ms"], res["traced_kernels"] = busy_ms, len(kernels)
+    print(f"train phase (a) ({smi}): a step apart: value and gradients {res['grad_ms']:.1f} ms, "
+          f"AdamW update {res['adamw_ms']:.1f} ms; one step traced: device busy {busy_ms:.1f} ms, "
+          f"{len(kernels)} device kernels; by kernel:", flush=True)
+    print_top(by_name, 1, "step", 12)
+    return cfg, params, res
+
+
+def train_card_vs_cpu(torch, smi: str) -> dict:
+    """(b) The loss and every gradient of one full-width layer of
+    Mistral-NeMo-12B on the card against the port on the CPU, the same
+    float32 weights and batch. Fails beyond TRAIN_LOSS_REL, a cosine under
+    TRAIN_GRAD_COS or a norm ratio off by more than TRAIN_NORM_RATIO."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.models import init_params
+    from repro_torch.training import make_loss, value_and_grad
+    from repro_torch.training.tree import flatten, unflatten
+
+    cfg = dataclasses.replace(arch_config(get_config("mistral-nemo-12b"), 1), loss_chunk=0)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    params = init_params(cfg, gen, device="cuda", dtype=torch.float32)
+    cpu = unflatten(params, [p.cpu() for p in flatten(params)[1]])
+    b = batch_at(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_CPU_SEQ, global_batch=1,
+                            seed=2), 0)
+    (lg, _), gg = value_and_grad(make_loss(cfg), params, {k: torch.from_numpy(v).cuda()
+                                                          for k, v in b.items()})
+    t0 = time.perf_counter()
+    (lc, _), gc = value_and_grad(make_loss(cfg), cpu, {k: torch.from_numpy(v)
+                                                       for k, v in b.items()})
+    cpu_s = time.perf_counter() - t0
+    rel = abs(float(lg) - float(lc)) / abs(float(lc))
+    rows = []
+    for path, a, c in zip(*flatten(gg), flatten(gc)[1]):
+        a, c = a.double(), c.cuda().double()
+        na, nc = float(a.norm()), float(c.norm())
+        rows.append((path, float((a * c).sum()) / (na * nc), na / nc))
+    print(f"train phase (b) ({smi}): one layer at full width, batch 1 x {TRAIN_CPU_SEQ}: loss "
+          f"card {float(lg):.6f}, CPU {float(lc):.6f} (relative gap {rel:.2e}, allowed "
+          f"{TRAIN_LOSS_REL}); the CPU's value and gradients in {cpu_s:.1f} s; per leaf "
+          f"(gradient cosine, card/CPU norm): "
+          + "; ".join(f"{p} {cos:.6f}, {r:.5f}" for p, cos, r in rows), flush=True)
+    check(rel <= TRAIN_LOSS_REL, f"card and CPU losses differ by {rel}")
+    for p, cos, r in rows:
+        check(cos >= TRAIN_GRAD_COS and abs(r - 1) <= TRAIN_NORM_RATIO,
+              f"{p}: the card's gradient against the CPU's: cosine {cos}, norm ratio {r}")
+    return {"loss_rel": rel, "min_cos": min(r[1] for r in rows),
+            "max_norm_off": max(abs(r[2] - 1) for r in rows), "cpu_s": cpu_s}
+
+
+def train_resume_child(torch) -> dict:
+    """(c), in a child process with deterministic algorithms: RESUME_ARCH at
+    full width and depth, 4 steps straight against 2 steps, a checkpoint,
+    a restore into fresh tensors and 2 more. Returns the losses, whether
+    every parameter and moment is equal bit for bit, and the checkpoint's
+    size and times."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.training import (OptConfig, init_train_state, make_train_step,
+                                      restore_checkpoint, save_checkpoint,
+                                      train_state_from_numpy, train_state_to_numpy)
+    from repro_torch.training.tree import flatten
+
+    torch.use_deterministic_algorithms(True)
+    cfg = get_config(RESUME_ARCH)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=RESUME_SEQ, global_batch=RESUME_BATCH,
+                      seed=3)
+    step = make_train_step(cfg, OptConfig(**RESUME_OPT))
+
+    def fresh():
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        return init_train_state(cfg, gen, "cuda")
+
+    gnorms = []
+
+    def run(params, opt, start, n):
+        losses = []
+        for i in range(start, start + n):
+            batch = {k: torch.from_numpy(v).cuda() for k, v in batch_at(dcfg, i).items()}
+            params, opt, m = step(params, opt, batch)
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+        return params, opt, losses
+
+    t0 = time.perf_counter()
+    p, o, straight = run(*fresh(), 0, 4)
+    straight_s = time.perf_counter() - t0
+    q, r, resumed = run(*fresh(), 0, 2)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        saved = train_state_to_numpy(q, r, cfg)
+        save_checkpoint(tmp, 2, saved, extra={"data_step": 2})
+        save_s = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in Path(tmp).rglob("*") if f.is_file())
+        del q, r
+        t0 = time.perf_counter()
+        # into fresh tensors: the saved tree gives only the structure
+        state, extra = restore_checkpoint(tmp, saved, device="cuda")
+        del saved
+        q, r = train_state_from_numpy(state, cfg, "cuda")
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    q, r, rest = run(q, r, extra["data_step"], 2)
+    _, a = flatten({"params": p, "m": o["m"], "v": o["v"], "step": o["step"]})
+    _, b = flatten({"params": q, "m": r["m"], "v": r["v"], "step": r["step"]})
+    same = sum(bool(torch.equal(x, y)) for x, y in zip(a, b))
+    return {"arch": cfg.name, "params": sum(x.numel() for x in flatten(p)[1]),
+            "losses_straight": straight, "losses_resumed": resumed + rest,
+            "grad_norms": gnorms[:4],
+            "leaves": len(a), "leaves_equal": same, "checkpoint_bytes": nbytes,
+            "save_s": save_s, "restore_s": restore_s, "four_steps_s": straight_s,
+            "removed": not os.path.exists(tmp)}
+
+
+def train_resume(smi: str) -> dict:
+    """(c) in its child process (``--train-resume-child``), with
+    ``CUBLAS_WORKSPACE_CONFIG=:4096:8``: deterministic algorithms set in
+    this process could move the serving phases' bits. Fails unless the
+    losses and every parameter and moment are equal bit for bit."""
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    out = subprocess.run([sys.executable, os.path.abspath(__file__), "--train-resume-child"],
+                         capture_output=True, text=True, env=env, timeout=900)
+    check(out.returncode == 0, f"the exact-resume child failed ({out.returncode}): "
+          f"{out.stderr[-3000:]}")
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    print(f"train phase (c) ({smi}): {res['arch']} at full width and depth "
+          f"({res['params']:,} parameters), batch {RESUME_BATCH} x {RESUME_SEQ}, deterministic "
+          f"algorithms: losses 4 straight {res['losses_straight']}, 2 + checkpoint + restore + 2 "
+          f"{res['losses_resumed']}; grad norms {res['grad_norms']}; {res['leaves_equal']} of "
+          f"{res['leaves']} leaves (parameters, "
+          f"moments, step) bit for bit; checkpoint {res['checkpoint_bytes'] / 1e9:.2f} GB, save "
+          f"{res['save_s']:.1f} s, restore {res['restore_s']:.1f} s, removed {res['removed']}; 4 "
+          f"steps {res['four_steps_s']:.1f} s", flush=True)
+    check(all(math.isfinite(v) for v in res["grad_norms"]), "exact resume: a gradient norm "
+          f"overflowed ({res['grad_norms']}): its steps would be weight decay alone")
+    check(res["losses_straight"] == res["losses_resumed"], "resumed losses differ")
+    check(res["leaves_equal"] == res["leaves"], "resumed parameters or moments differ")
+    check(res["removed"], "the checkpoint directory was not removed")
+    return res
+
+
+def train_serve(torch, cfg, params, sm_count, smi: str) -> dict:
+    """(d) (a)'s trained weights through ``params_for_serving``, served on
+    the paged lean engine (K7 admission, K2 decode, captured steps) against
+    a ``ref`` engine on the same weights: the first decode tick's logits
+    within the ref cross-check's rule, the greedy streams equal or parting
+    at a near tie (``arch_streams``)."""
+    from repro_torch.models import params_for_serving
+
+    served = params_for_serving(params)
+    prompts = arch_prompts(cfg.vocab_size, TRAIN_SERVE_PROMPTS, seed=11)
+    runs = {}
+    for backend in ("lean", "ref"):
+        runs[backend] = arch_serve(torch, cfg, served, sm_count, backend, prompts,
+                                   TRAIN_SERVE_TOKENS, chunked=False, cache_len=4096)
+    (sl, el, cl), (sr, er, cr) = runs["lean"], runs["ref"]
+    lean = torch.stack([el.rows[u][1] for u in range(len(prompts))])
+    ref = torch.stack([er.rows[u][1] for u in range(len(prompts))])
+    typical = ref.abs().median().item()
+    atol = LOGIT_ATOL_FRAC * typical
+    diff = (lean - ref).abs().max().item()
+    div = arch_streams("train phase (d)", sl, el, sr, er)
+    tc = path_counts("train phase (d)")
+    print(f"train phase (d) ({smi}): the trained {cfg.n_layers} layers (bf16 matmul weights) "
+          f"served, prompts {list(TRAIN_SERVE_PROMPTS)}, {TRAIN_SERVE_TOKENS} new tokens: lean "
+          f"K7 {cl['K7']} launches ({tc['K7']} on the tensor cores), K2 {cl['K2']}; "
+          f"decode captures {el.stats.decode_captures}, replays {el.stats.decode_replays}; first "
+          f"decode tick max |logit lean - ref| {diff:.4f} (allowed {atol:.4f} + {LOGIT_RTOL} "
+          f"|ref|, median |ref logit| {typical:.4f}); streams against ref: "
+          + (", ".join(f"request {u} parts at token {j} (gap {g})" for u, j, g in div)
+             or "equal"), flush=True)
+    check(cl["K7"] == cfg.n_layers * len(prompts), f"K7 launched {cl['K7']} times")
+    check(cl["K2"] == cfg.n_layers * el.stats.ticks and cl["K2"] > 0,
+          f"K2 launched {cl['K2']} times over {el.stats.ticks} decode ticks")
+    check(el.stats.decode_replays > 0, "train phase (d): no decode tick replayed a graph")
+    check(torch.allclose(lean, ref, rtol=LOGIT_RTOL, atol=atol),
+          f"trained weights: lean and ref first-tick logits differ by {diff}")
+    return {"K7": cl["K7"], "K2": cl["K2"], "first_tick_gap": diff, "divergences": div}
+
+
+def train_unit_sweep(torch, smi: str) -> dict:
+    """(e) One train step of every configuration at full width, one stage
+    unit deep (llama-3.2-vision fed the pipeline's stub image embeddings):
+    two steps, the second timed; fails unless the loss and the gradient
+    norm are finite and the parameters move."""
+    import dataclasses
+
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.training import OptConfig, init_train_state, make_train_step
+    from repro_torch.training.tree import flatten
+
+    out = {}
+    for arch in ARCH_IDS:
+        full = get_config(arch)
+        pattern = full.stages[0][0]
+        cfg = dataclasses.replace(full, n_layers=len(pattern), stages=((pattern, 1),))
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(4)
+        torch.cuda.reset_peak_memory_stats()
+        params, opt = init_train_state(cfg, gen, "cuda")
+        n = sum(p.numel() for p in flatten(params)[1])
+        seq = XLSTM_TRAIN_SEQ if arch == "xlstm-350m" else UNIT_SEQ
+        dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=UNIT_BATCH,
+                          img_tokens=cfg.cross_kv_len, d_model=cfg.d_model)
+        step = make_train_step(cfg, OptConfig(**TRAIN_OPT))
+        before = [params["layers"][0]["ln1"].clone(), params["final_norm"].clone()]
+        ms, ms_out = [], []
+        for i in range(2):
+            batch = {k: torch.from_numpy(v).cuda() for k, v in batch_at(dcfg, i).items()}
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            params, opt, m = step(params, opt, batch)
+            end.record()
+            ms_out.append(m)
+            ms.append((start, end))
+        torch.cuda.synchronize()
+        ms = [s.elapsed_time(e) for s, e in ms]
+        losses = [float(m["loss"]) for m in ms_out]
+        gnorms = [float(m["grad_norm"]) for m in ms_out]
+        moved = [int((a != b).sum()) for a, b in zip(before, (params["layers"][0]["ln1"],
+                                                               params["final_norm"]))]
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        out[arch] = {"layers": cfg.n_layers, "params": n, "seq": seq, "losses": losses,
+                     "grad_norms": gnorms, "step_ms": ms[1], "first_ms": ms[0], "peak_gb": peak}
+        print(f"train phase (e) ({smi}): {arch}, one unit ({cfg.n_layers} layers, "
+              f"{n / 1e9:.3f} B parameters), batch {UNIT_BATCH} x {seq}: loss "
+              f"{losses[0]:.4f}, {losses[1]:.4f}; grad norm {gnorms[0]:.4f}, {gnorms[1]:.4f}; "
+              f"step ms {ms[1]:.1f} (first {ms[0]:.1f}); peak {peak:.2f} GB; elements moved "
+              f"(layer 0 ln1, final_norm) {moved}", flush=True)
+        check(all(math.isfinite(v) for v in losses + gnorms), f"{arch}: non-finite training step")
+        check(all(moved), f"{arch}: a step left the parameters where they were")
+        del params, opt, before, ms_out
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_phase(torch, sm_count, smi: str) -> dict:
+    """The training phase: (a) Mistral-NeMo-12B trained at full width,
+    (b) the card's gradients against the CPU port's, (c) exact resume of
+    xlstm-350m, (d) (a)'s weights served through K7 and K2 against ref,
+    (e) one step of every configuration."""
+    cfg, params, a = train_mistral(torch, smi)
+    clock("train phase (b)")
+    b = train_card_vs_cpu(torch, smi)
+    clock("train phase (d)")
+    d = train_serve(torch, cfg, params, sm_count, smi)
+    del params
+    clock("train phase (c)")
+    c = train_resume(smi)
+    clock("train phase (e)")
+    e = train_unit_sweep(torch, smi)
+    res = {"card": smi, "a": a, "b": b, "c": c, "d": d, "e": e}
+    print(json.dumps({"train": res}), flush=True)
+    return res
+
+
 TICK_SOURCES = ("lean_decode.cu", "flash_prefill.cu")
 
 
@@ -6156,8 +6573,13 @@ def main() -> int:
               "checkout of the repository", file=sys.stderr)
         return 2
 
+    if sys.argv[1:2] == ["--train-resume-child"]:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        print(json.dumps(train_resume_child(torch)))
+        return 0
     arch_alone = {"--arch-kernels", "--qwen3-step", "--gemma-step", "--arch-sweep",
-                  "--recurrent-step"}
+                  "--recurrent-step", "--train-step"}
     if sys.argv[1:2] and sys.argv[1] in arch_alone:
         torch.backends.cuda.matmul.allow_tf32 = False
         sm_count = torch.cuda.get_device_properties(0).multi_processor_count
@@ -6175,6 +6597,9 @@ def main() -> int:
             gemma_phase(torch, sm_count, smi, depth)
         elif sys.argv[1] == "--recurrent-step":
             recurrent_phase(torch, sm_count, smi, depth)
+        elif sys.argv[1] == "--train-step":
+            clock("train phase (a)")
+            train_phase(torch, sm_count, smi)
         else:
             sweep_phase(torch, sm_count, smi)
         clock("done")
@@ -6466,9 +6891,14 @@ def main() -> int:
     # recurrentgemma-9b and xlstm-350m at full width and depth
     clock("recurrent phase")
     recurrent = recurrent_phase(torch, sm_count, smi)
+    # 20. training: Mistral-NeMo-12B at full width (8 layers), the card's
+    # gradients against the CPU's, exact resume, the trained weights served,
+    # one step of every configuration
+    clock("train phase (a)")
+    train = train_phase(torch, sm_count, smi)
 
     clock("summary")
-    # 20. summary: kernel times in bf16 at the main path's shapes; launches
+    # 21. summary: kernel times in bf16 at the main path's shapes; launches
     # from the run of the path each kernel serves
     k6 = k6res[(DECODE_SHAPES[0], "bfloat16")]
     kres[("flash_decode_partials", "bfloat16")] = k6
@@ -6566,6 +6996,10 @@ def main() -> int:
         f"{arch} " + (", ".join(f"{k} {v}" for k, v in c.items() if v) or "none")
         for arch, c in recurrent["launches"].items())
         + f"; captured against eager bit for bit: {recurrent['bits']}", flush=True)
+    print(f"train phase ({smi}): Mistral-NeMo-12B at {train['a']['layers']} layers, step p50 "
+          f"{train['a']['step_ms_p50']:.1f} ms, MFU {train['a']['mfu']:.4f}, peak "
+          f"{train['a']['peak_gb']:.2f} GB; trained weights served: K7 {train['d']['K7']}, K2 "
+          f"{train['d']['K2']} launches", flush=True)
     print(f"fused K4 launches from the spec phase's verify steps (bf16 pages, oracle): "
           f"{k4_verify}", flush=True)
     print(f"launches in the guards phase's chaos run (bf16 pages; K1 from level-2 passes, K2 "

@@ -16,6 +16,7 @@ import math
 from typing import Callable, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core.attention import (
     kv_write,
@@ -32,6 +33,17 @@ from repro_torch.core.attention import (
 )
 
 COMPUTE_DTYPE = torch.bfloat16
+
+
+def remat(fn: Callable, *args):
+    """``fn(*args)``, its activations recomputed in the backward pass (the
+    reference's ``jax.checkpoint``) where a gradient is being recorded;
+    plainly otherwise. The model draws no random numbers, so no RNG state
+    is stashed."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                             preserve_rng_state=False)
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -15,9 +15,13 @@ keeps is the pair order, so the port routes exactly the rows the reference
 routes, idle decode slots included.
 
 The expert products are ``torch.einsum`` (batched GEMMs): the reference
-computes them outside any Pallas kernel. Sharding hints and the router's
-auxiliary load-balancing loss (training, ROADMAP queue 1, item 15) are left
-out: serving does not read the loss.
+computes them outside any Pallas kernel. Sharding hints are left out. The
+router's auxiliary load-balancing loss (Switch-style, ``repro/models/
+moe.py:162-169``) is computed only where the caller asks for it
+(``aux_loss=True``: the training path); serving reads only the output, so
+its captured steps compute nothing more. Everything here is
+differentiable: the dispatch and combine are gathers, the loss flows
+through the router's probabilities.
 """
 from __future__ import annotations
 
@@ -77,12 +81,14 @@ def capacity(cfg: MoEConfig, tokens_per_group: int) -> int:
 
 
 def moe_forward(p, x: torch.Tensor, cfg: MoEConfig,
-                compute_dtype: torch.dtype = COMPUTE_DTYPE) -> torch.Tensor:
-    """``x (B, L, D)`` -> the MoE output ``(B, L, D)`` in x's dtype (the
-    reference returns ``(out, aux_loss)``; serving reads only ``out``).
-    Tokens split into :func:`_auto_groups` dispatch groups, as the
-    reference's default. The router's softmax is float32, then top-k, then
-    the renormalisation of the kept weights (``norm_topk_prob``)."""
+                compute_dtype: torch.dtype = COMPUTE_DTYPE, aux_loss: bool = False):
+    """``x (B, L, D)`` -> ``(out, aux)``: the MoE output ``(B, L, D)`` in
+    x's dtype and, with ``aux_loss``, the Switch load-balancing loss
+    ``router_aux_weight * E * sum(mean probs * share of tokens whose first
+    choice is the expert)``, a float32 scalar (else None). Tokens split into
+    :func:`_auto_groups` dispatch groups, as the reference's default. The
+    router's softmax is float32, then top-k, then the renormalisation of
+    the kept weights (``norm_topk_prob``)."""
     B, L, D = x.shape
     E, K = cfg.num_experts, cfg.top_k
     T = B * L
@@ -150,4 +156,9 @@ def moe_forward(p, x: torch.Tensor, cfg: MoEConfig,
         # the sum to the compute dtype where the result is widened after
         shared = ffn_forward(p["shared"], xt, kind="swiglu", compute_dtype=compute_dtype)
         out = (out.to(compute_dtype) + shared).to(x.dtype)
-    return out.reshape(B, L, D)
+    aux = None
+    if aux_loss:
+        me = probs.mean(dim=(0, 1))                                   # (E,)
+        first = torch.nn.functional.one_hot(gate_idx[..., 0], E).float()
+        aux = cfg.router_aux_weight * E * (me * first.mean(dim=(0, 1))).sum()
+    return out.reshape(B, L, D), aux

@@ -7,8 +7,15 @@ Plain functions on tensors and parameter dicts, in the reference's layout
 (weights ``(in, out)``, ``x @ w``). The reference computes these blocks
 outside any Pallas kernel (``lax.associative_scan``, ``lax.scan``,
 einsums), and so does the port: plain PyTorch, on the CPU and on the card.
-The sharding hints, ``jax.checkpoint`` and the flop-count ``unroll`` mode
-of the reference are training and mesh settings and are left out.
+The sharding hints and the flop-count ``unroll`` mode of the reference
+are mesh and lowering settings and are left out. Every form is
+differentiable (nothing is written in place into a tensor that carries a
+gradient), for training: the mLSTM chunk step is rematerialised in the
+backward pass, as the reference's ``jax.checkpoint`` does
+(``repro/models/recurrent.py:280``); the sLSTM step is not (the reference
+checkpoints it too, ``:368``): it keeps a few ``(B, H, 4 hd)`` tensors a
+token, small beside a layer's other activations, and the stage unit
+around it is rematerialised already.
 
 Numerics follow the reference op for op:
 
@@ -39,7 +46,7 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 
-from .layers import COMPUTE_DTYPE, gelu, rms_norm, silu
+from .layers import COMPUTE_DTYPE, gelu, remat, rms_norm, silu
 
 F32 = torch.float32
 
@@ -81,11 +88,12 @@ def associative_scan(fn: Callable, elems: Sequence[torch.Tensor], dim: int = 1
         even = fn(odd, [sl(e, 2, None, 2) for e in elems])
     out = []
     for e, ev, od in zip(elems, even, odd):
-        full = torch.empty(e.shape, dtype=ev.dtype, device=ev.device)
-        full[lead + (slice(0, 1),)] = sl(e, 0, 1)
-        full[lead + (slice(2, None, 2),)] = ev
-        full[lead + (slice(1, None, 2),)] = od
-        out.append(full)
+        # interleave [e_0, ev...] (even positions) with od (odd ones),
+        # out of place so that autograd sees plain ops
+        evens = torch.cat([sl(e, 0, 1).to(ev.dtype), ev], dim=dim)
+        m = od.shape[dim]
+        pairs = torch.stack([sl(evens, 0, m), od], dim=dim + 1).flatten(dim, dim + 1)
+        out.append(torch.cat([pairs, sl(evens, m)], dim=dim) if n % 2 else pairs)
     return out
 
 
@@ -303,7 +311,10 @@ def mlstm_sequence_chunked(q, k, v, i_pre, logf, state=None, chunk: int = 64):
     hs = []
     for c in range(0, T + pad, chunk):
         s = slice(c, c + chunk)
-        state, h = _mlstm_chunk(state, q[:, s], k[:, s], v[:, s], i_pre[:, s], logf[:, s])
+        # rematerialised in a backward pass, as the reference's chunk step
+        # (its (B, L, L, H) weights are recomputed, not kept)
+        state, h = remat(_mlstm_chunk, state, q[:, s], k[:, s], v[:, s], i_pre[:, s],
+                         logf[:, s])
         hs.append(h)
     return torch.cat(hs, dim=1)[:, :T], state
 

@@ -1,4 +1,4 @@
-"""Decoder-only transformer for the serving paths (port of
+"""Decoder-only transformer for the serving and training paths (port of
 ``repro.models.transformer``): the attention kinds ``attn`` (global),
 ``win`` (sliding window) and ``xattn`` (self attention plus gated cross
 attention to image embeddings), each with a SwiGLU, GeLU or squared-ReLU
@@ -11,10 +11,24 @@ Parameters are a plain dict: ``embed``, ``final_norm``, optional
 ``unembed``, and ``layers``, one dict per layer in execution order (the
 reference's stacked ``stages`` flattened in stage order, repeat by repeat,
 each repeat's pattern in order: :func:`layer_kinds` gives each layer's
-kind; ``scan_layers``/``remat`` become a plain loop and sharding hints
-disappear). Matmul weights may be stored in bf16: the reference keeps them
+kind; ``scan_layers`` becomes a plain loop and sharding hints disappear).
+Matmul weights may be stored in bf16 for serving: the reference keeps them
 in float32 but casts them to bf16 at every use, so the values multiplied
-are the same. Norm weights and the cross-attention gate stay float32.
+are the same. Training keeps float32 master weights (``init_params(...,
+dtype=torch.float32)``), as the reference does. Norm weights and the
+cross-attention gate stay float32. :func:`params_from_numpy` and
+:func:`params_to_numpy` carry a tree across in the reference's stacked
+layout, :func:`params_for_serving` casts trained weights to what the
+engine serves.
+
+Training (``repro/models/transformer.py:354-486``): :func:`forward_hidden`
+runs every layer's whole-sequence form, each stage unit checkpointed
+(``torch.utils.checkpoint``) where ``cfg.remat`` is set, as
+``jax.checkpoint(unit_fn)``; :func:`loss_fn` is the next-token cross entropy
+in sequence chunks of ``loss_chunk`` rows, each chunk's logits
+rematerialised, plus the MoE layers' load-balancing loss. Its attention is
+the plain, differentiable one the reference computes on every device
+(:func:`_plain_attn`); ``prefill`` keeps the kernel K7 on CUDA.
 
 A decode cache is a list with one dict per layer. Dense
 (:func:`init_cache`): ``"k"``/``"v"`` rows ``(batch, Hkv, S, hd)`` per
@@ -48,7 +62,7 @@ from __future__ import annotations
 import functools
 import math
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, Hashable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -64,6 +78,7 @@ from .layers import (
     cross_attn_decode,
     decode_writer_rows,
     ffn_forward,
+    remat,
     rms_norm,
     sinusoidal_pos,
 )
@@ -76,9 +91,9 @@ RECURRENT_KINDS = ("rglru", "mlstm", "slstm")
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """Copy of ``repro.models.transformer.ModelConfig``. Fields of what the
-    port does not run (training settings) are kept so configurations read
-    the same."""
+    """Copy of ``repro.models.transformer.ModelConfig``. ``scan_layers``
+    and ``unroll_scans`` (the reference's XLA lowering choices) are kept so
+    configurations read the same; the port's loops are plain."""
 
     name: str
     d_model: int
@@ -116,6 +131,10 @@ class ModelConfig:
     @property
     def rnn_width(self):
         return self.d_rnn or self.d_model
+
+    @property
+    def spec_heads(self):
+        return self.true_n_heads or self.n_heads
 
 
 def layer_kinds(cfg: ModelConfig) -> List[str]:
@@ -225,19 +244,22 @@ F32_KEYS = ("ln1", "ln2", "ln_x", "xgate", "q_norm", "k_norm", "final_norm",
 STATE_KEYS = ("h", "conv", "C", "n", "m", "c")
 
 
-def params_from_numpy(tree, cfg: ModelConfig, device: DeviceLike = "cuda") -> Dict:
+def params_from_numpy(tree, cfg: ModelConfig, device: DeviceLike = "cuda",
+                      dtype: torch.dtype = torch.bfloat16) -> Dict:
     """The port's parameters from the JAX parameter tree as numpy
-    (``jax.tree.map(np.asarray, params)``): stacked ``stages`` become the
-    flat ``layers`` list (:func:`layer_kinds` order), matmul weights -- the
-    MoE router and experts too -- go to bf16 and the :data:`F32_KEYS`
-    leaves (norms, the gate, the recurrent ``lam``, ``b_if``, ``r``) stay
-    float32, so both packages compute the same model."""
+    (``jax.tree.map(np.asarray, params)``, or a restored checkpoint's tree
+    of arrays or tensors): stacked ``stages`` become the flat ``layers``
+    list (:func:`layer_kinds` order), matmul weights -- the MoE router and
+    experts too -- go to ``dtype`` (bf16 for serving, float32 master weights
+    for training) and the :data:`F32_KEYS` leaves (norms, the gate, the
+    recurrent ``lam``, ``b_if``, ``r``) stay float32, so both packages
+    compute the same model. :func:`params_to_numpy` is the inverse."""
     check_supported(cfg)
     dev = resolve_device(device)
 
     def conv(name, a):
-        t = torch.from_numpy(np.array(a, dtype=np.float32))
-        return t.to(device=dev, dtype=torch.float32 if name in F32_KEYS else torch.bfloat16)
+        t = a if torch.is_tensor(a) else torch.from_numpy(np.array(a, dtype=np.float32))
+        return t.to(device=dev, dtype=torch.float32 if name in F32_KEYS else dtype)
 
     def walk(name, node):
         if isinstance(node, dict):
@@ -258,6 +280,66 @@ def params_from_numpy(tree, cfg: ModelConfig, device: DeviceLike = "cuda") -> Di
                     walk("", {k: _index(v, r) for k, v in unit.items()})
                 )
     return params
+
+
+def params_to_numpy(params, cfg: ModelConfig) -> Dict:
+    """The reference's parameter tree from the port's parameters, float32
+    numpy on the host: ``embed``, ``final_norm``, ``unembed`` where untied,
+    and ``stages``, one tuple of unit dicts per stage whose leaves stack the
+    stage's repeats, ``(reps, ...)`` (``repro/models/transformer.py:
+    134-158``). The inverse of :func:`params_from_numpy`; a checkpoint
+    stores this tree, so either package restores the other's."""
+    def host(t):
+        return t.detach().to(device="cpu", dtype=torch.float32).numpy()
+
+    def stack(nodes):
+        if isinstance(nodes[0], dict):
+            return {k: stack([n[k] for n in nodes]) for k in nodes[0]}
+        return np.stack([host(n) for n in nodes])
+
+    tree = {k: host(params[k]) for k in ("embed", "final_norm", "unembed") if k in params}
+    slots = layer_slots(cfg)
+    tree["stages"] = [
+        tuple(stack([layer for layer, s in zip(params["layers"], slots) if s == (si, pi)])
+              for pi in range(len(pattern)))
+        for si, (pattern, _) in enumerate(cfg.stages)
+    ]
+    return tree
+
+
+def layer_slots(cfg: ModelConfig) -> List[Tuple[int, int]]:
+    """Where each entry of the port's ``layers`` list sits in the
+    reference's stacked tree: ``(stage, position in the stage's pattern)``;
+    the stage's repeats of one position stack into one leaf."""
+    return [(si, pi) for si, (pattern, reps) in enumerate(cfg.stages)
+            for _ in range(reps) for pi in range(len(pattern))]
+
+
+def stacked_leaf(path: str, ndim: int, slots: Sequence = ()) -> Tuple[Hashable, int]:
+    """The reference's stacked leaf that the port's leaf at ``path`` (the
+    flattened name, ``layers/<i>/<key>`` under a layer) belongs to, and that
+    leaf's rank. A top-level leaf is its own, at its own rank; a layer's
+    leaf stacks with the same key of every repeat of its stage, one axis
+    more. ``slots`` (:func:`layer_slots`) names a layer's stacked leaf; its
+    rank needs none."""
+    if not path.startswith("layers/"):
+        return path, ndim
+    _, i, rest = path.split("/", 2)
+    return ((slots[int(i)], rest) if slots else None), ndim + 1
+
+
+def params_for_serving(params) -> Dict:
+    """Trained weights as the engine serves them: matmul leaves bf16, the
+    :data:`F32_KEYS` leaves float32 -- equal to :func:`params_from_numpy` of
+    the same tree (both round float32 to bf16 to nearest even)."""
+    def conv(name, t):
+        if isinstance(t, dict):
+            return {k: conv(k, v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [conv("", v) for v in t]
+        return t.detach().to(torch.float32 if name in F32_KEYS else torch.bfloat16, copy=True)
+
+    return {k: conv(k, v) for k, v in params.items()}
 
 
 def cache_from_numpy(tree, cfg: ModelConfig, device: DeviceLike = "cuda"
@@ -408,31 +490,37 @@ def _ffn_part(p, x, cfg: ModelConfig):
     """The layer's FFN on the normed residual, added to it: the MoE where
     the layer has one, the ``ffn_kind`` FFN, or nothing (``d_ff`` 0)."""
     if "moe" in p:
-        return x + moe_forward(p["moe"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg.moe)
+        out, _ = moe_forward(p["moe"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg.moe)
+        return x + out
     if "ffn" in p:
         return x + ffn_forward(p["ffn"], rms_norm(x, p["ln2"], cfg.norm_eps), kind=cfg.ffn_kind)
     return x
 
 
-def _prefill_attn(cfg: ModelConfig, L: int, device: torch.device) -> Callable:
-    """The whole-prompt self-attention: K7 (:func:`flash_prefill`) on CUDA
-    at every length; on the CPU what the reference computes --
-    :func:`mha_prefill_ref`, or the q-chunked :func:`mha_prefill_chunked`
-    above ``attn_q_chunk`` (``repro/models/transformer.py:287-322``)."""
-    if device.type == "cuda":
-        return flash_prefill
+def _plain_attn(cfg: ModelConfig, L: int) -> Callable:
+    """What the reference computes for a whole sequence's self attention
+    (``repro/models/transformer.py:287-322``): :func:`mha_prefill_ref`, or
+    the q-chunked :func:`mha_prefill_chunked` above ``attn_q_chunk``. Plain
+    and differentiable: the training path's attention on every device."""
     if cfg.attn_q_chunk and L > cfg.attn_q_chunk:
         return functools.partial(mha_prefill_chunked, q_chunk=cfg.attn_q_chunk)
     return mha_prefill_ref
 
 
-def _attn_full(p, x, cfg: ModelConfig, kind: str, img_emb, attn: Callable):
+def _prefill_attn(cfg: ModelConfig, L: int, device: torch.device) -> Callable:
+    """The whole-prompt self-attention: K7 (:func:`flash_prefill`) on CUDA
+    at every length; on the CPU :func:`_plain_attn`."""
+    return flash_prefill if device.type == "cuda" else _plain_attn(cfg, L)
+
+
+def _attn_full(p, x, cfg: ModelConfig, kind: str, img_emb, attn: Callable,
+               cross: Optional[Callable] = None):
     """A layer's attention part over the whole prompt
     (``repro/models/transformer.py:287-339``): self attention (``win``:
     sliding-window), and for ``xattn`` the gated cross attention to
-    ``img_emb`` (K7 non-causal on CUDA, the plain oracle on the CPU, as the
-    reference runs ``attn_forward``). Returns ``(x, (k, v), (xk, xv) or
-    None)``."""
+    ``img_emb`` through ``cross`` -- by default K7 non-causal on CUDA and
+    the plain oracle on the CPU (the reference runs ``attn_forward``).
+    Returns ``(x, (k, v), (xk, xv) or None)``."""
     kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim)
     h, kv = attn_forward(p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps), **kw,
                          rope_theta=cfg.rope_theta,
@@ -440,7 +528,8 @@ def _attn_full(p, x, cfg: ModelConfig, kind: str, img_emb, attn: Callable):
     x = x + h
     xkv = None
     if kind == "xattn":
-        cross = flash_prefill if x.device.type == "cuda" else mha_prefill_ref
+        if cross is None:
+            cross = flash_prefill if x.device.type == "cuda" else mha_prefill_ref
         hx, xkv = attn_forward(p["xattn"], rms_norm(x, p["ln_x"], cfg.norm_eps), **kw,
                                rope_theta=None, causal=False, kv_states=img_emb, attn=cross)
         x = x + torch.tanh(p["xgate"]) * hx
@@ -741,10 +830,109 @@ def verify_step(
     return _unembed(params, cfg, x), cache
 
 
+# ------------------------------------------------------------------ training
+def _ffn_train(p, x, cfg: ModelConfig):
+    """:func:`_ffn_part` with the MoE's load-balancing loss (zero for a
+    layer without a MoE): ``(x, aux)``."""
+    if "moe" in p:
+        out, aux = moe_forward(p["moe"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg.moe,
+                               aux_loss=True)
+        return x + out, aux
+    return _ffn_part(p, x, cfg), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _layer_forward(p, x: torch.Tensor, kind: str, cfg: ModelConfig, img_emb,
+                   attn: Callable):
+    """Train-path layer (``repro/models/transformer.py:354-375``): the whole
+    sequence through the layer's block -- self attention by ``attn``, cross
+    attention by the plain non-causal oracle, a recurrent kind's
+    whole-sequence form -- and its FFN. Returns ``(x, aux)``."""
+    if kind in ATTN_KINDS:
+        x, _, _ = _attn_full(p, x, cfg, kind, img_emb, attn, cross=mha_prefill_ref)
+        return _ffn_train(p, x, cfg)
+    xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+    if kind == "rglru":
+        h, _ = rec.rglru_forward(p["rec"], xn)
+        return _ffn_train(p, x + h, cfg)
+    if kind == "mlstm":
+        h, _ = rec.mlstm_block_forward(p["rec"], xn, cfg.n_heads)
+    else:
+        h, _ = rec.slstm_forward(p["rec"], xn, cfg.n_heads)
+    return x + h, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def forward_hidden(params, cfg: ModelConfig, tokens: torch.Tensor, img_emb=None):
+    """Backbone forward (``repro/models/transformer.py:394-425``) -> (hidden
+    ``(B, L, D)`` float32 after the final norm, the summed MoE aux loss).
+    Stage by stage, repeat by repeat: each repeat of a stage's pattern (a
+    unit) is checkpointed where ``cfg.remat`` is set."""
+    x = _embed(params, cfg, tokens)
+    attn = _plain_attn(cfg, tokens.shape[1])
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    i = 0
+    for pattern, reps in cfg.stages:
+        for _ in range(reps):
+            unit = params["layers"][i:i + len(pattern)]
+
+            def unit_fn(x, unit=unit, pattern=pattern):
+                aux = torch.zeros((), dtype=torch.float32, device=x.device)
+                for kind, lp in zip(pattern, unit):
+                    x, a = _layer_forward(lp, x, kind, cfg, img_emb, attn)
+                    aux = aux + a
+                return x, aux
+
+            x, a = remat(unit_fn, x) if cfg.remat else unit_fn(x)
+            aux_total = aux_total + a
+            i += len(pattern)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps), aux_total
+
+
+def forward(params, cfg: ModelConfig, tokens: torch.Tensor, img_emb=None):
+    """Full forward -> (logits ``(B, L, V)`` float32, aux loss)."""
+    x, aux = forward_hidden(params, cfg, tokens, img_emb)
+    return _unembed(params, cfg, x), aux
+
+
+def _chunk_ce(h_c: torch.Tensor, t_c: torch.Tensor, m_c: torch.Tensor, w: torch.Tensor):
+    """Summed cross entropy of one chunk: bf16 logits widened to float32,
+    ``logsumexp - logit of the target``, masked."""
+    lg = (h_c.to(torch.bfloat16) @ w.to(torch.bfloat16)).float()
+    true = lg.gather(-1, t_c.long()[..., None])[..., 0]
+    return ((torch.logsumexp(lg, dim=-1) - true) * m_c[None, :]).sum()
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict):
+    """Next-token cross entropy plus the MoE aux loss (``repro/models/
+    transformer.py:434-486``). ``batch``: ``{"tokens": (B, L) int32}`` and,
+    for ``xattn`` models, ``"img_emb" (B, cross_kv_len, D)``.
+
+    The cross entropy runs over sequence chunks of ``cfg.loss_chunk`` rows
+    (0: one chunk), the last padded and masked; each
+    chunk's logits are rematerialised in the backward pass, so the full
+    ``(B, L, V)`` float32 logits never exist. Returns ``(ce + aux, {"ce",
+    "aux"})``, float32 scalars on the tokens' device."""
+    tokens = batch["tokens"]
+    hidden, aux = forward_hidden(params, cfg, tokens, batch.get("img_emb"))
+    B, L, _ = hidden.shape
+    Lm = L - 1
+    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    K = cfg.loss_chunk if cfg.loss_chunk > 0 else Lm
+    n_chunks = max(1, -(-Lm // K))
+    pad = n_chunks * K - Lm
+    h_in = torch.nn.functional.pad(hidden[:, :Lm], (0, 0, 0, pad))
+    tgt = torch.nn.functional.pad(tokens[:, 1:], (0, pad))
+    mask = (torch.arange(n_chunks * K, device=tokens.device) < Lm).float()
+    ce_sum = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for c in range(0, n_chunks * K, K):
+        ce_sum = ce_sum + remat(_chunk_ce, h_in[:, c:c + K], tgt[:, c:c + K], mask[c:c + K], w)
+    ce = ce_sum / (B * Lm)
+    return ce + aux, {"ce": ce, "aux": aux}
+
+
 def count_params(cfg: ModelConfig) -> int:
     """Analytic parameter count (``repro/models/transformer.py:943-978``)."""
     D, F, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
-    Hq, Hkv, hd = cfg.true_n_heads or cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    Hq, Hkv, hd = cfg.spec_heads, cfg.n_kv_heads, cfg.head_dim
     total = V * D + (0 if cfg.tie_embeddings else D * V)
     if cfg.moe is not None:
         E, Fe = cfg.moe.num_experts, cfg.moe.d_ff_expert
@@ -765,3 +953,12 @@ def count_params(cfg: ModelConfig) -> int:
             p = D * 4 * D + cfg.n_heads * hd_s * 4 * hd_s + D * D
         total += p
     return int(total)
+
+
+def count_active_params(cfg: ModelConfig) -> int:
+    """Parameters active per token (``repro/models/transformer.py:981-991``):
+    a MoE model counts ``top_k`` of its routed experts in every layer."""
+    if cfg.moe is None:
+        return count_params(cfg)
+    routed = 3 * cfg.d_model * cfg.moe.d_ff_expert
+    return int(count_params(cfg) - cfg.n_layers * routed * (cfg.moe.num_experts - cfg.moe.top_k))

@@ -11,10 +11,11 @@ A card set below 700 W (``nvidia-smi --query-gpu=power.limit``) reaches
 less of either, so a prediction from these peaks is a bound, not an
 expectation; :func:`calibrated_cost` carries the measured difference.
 
-The reference's HLO parsers (``analyze``, ``collective_bytes``,
-``Roofline``) and its dry-run readers (``roofline/measure.py``,
-``roofline/report.py``) belong to the distributed port (ROADMAP queue 1,
-item 16); ``model_flops_for`` to training (item 15).
+:func:`model_flops_for` counts a step's useful operations (training's MFU
+divides it by the step time and ``PEAK_FLOPS``). The reference's HLO
+parsers (``analyze``, ``collective_bytes``, ``Roofline``) and its dry-run
+readers (``roofline/measure.py``, ``roofline/report.py``) belong to the
+distributed port (ROADMAP queue 1, item 16).
 """
 from __future__ import annotations
 
@@ -83,3 +84,36 @@ def calibrated_cost(cost: dict, factor: float) -> dict:
     out["pred_compute_ms"] = cost["pred_compute_ms"] * factor
     out["calib_factor"] = float(factor)
     return out
+
+
+def model_flops_for(cfg, shape_spec, n_params_active: int) -> float:
+    """Analytic useful FLOPs of one step (``repro/roofline/analysis.py:
+    221-255``): train ``6 N tokens`` (forward 2N, backward 4N) plus the
+    attention term; prefill ``2 N tokens`` plus attention; decode ``2 N B``
+    plus the KV term. Attention counts ``QK^T + PV = 4 Hq hd`` per (token,
+    visible key) and layer, a window capping the keys, three times over
+    for training."""
+    B, S = shape_spec.global_batch, shape_spec.seq_len
+    attn = 0.0
+    for pattern, reps in cfg.stages:
+        for kind in pattern:
+            if kind not in ("attn", "win", "xattn"):
+                continue
+            w = cfg.window if kind == "win" else None
+            Hq, hd = cfg.spec_heads, cfg.head_dim
+            if shape_spec.kind in ("train", "prefill"):
+                if w is None:
+                    ctx_sum = S * (S + 1) / 2
+                else:
+                    ctx_sum = w * S - w * (w - 1) / 2 if S > w else S * (S + 1) / 2
+                mult = 3 if shape_spec.kind == "train" else 1
+                attn += reps * mult * B * 4 * Hq * hd * ctx_sum
+            else:
+                ctx = min(S, w) if w else S
+                attn += reps * B * 4 * Hq * hd * ctx
+    N = n_params_active
+    if shape_spec.kind == "train":
+        return 6.0 * N * B * S + attn
+    if shape_spec.kind == "prefill":
+        return 2.0 * N * B * S + attn
+    return 2.0 * N * B + attn

@@ -254,7 +254,7 @@ def test_moe_forward_matches(shared, tokens, dtype):
     assert tmoe.capacity(ct, tokens) == int(tokens * 2 / 8)
     x = np.random.default_rng(0).standard_normal((1, tokens, 64)).astype(np.float32)
     want = _jit_moe(cj, getattr(jnp, dtype))(pj, jnp.asarray(x))
-    got = tmoe.moe_forward(pt, torch.from_numpy(x), ct, compute_dtype=getattr(torch, dtype))
+    got, _ = tmoe.moe_forward(pt, torch.from_numpy(x), ct, compute_dtype=getattr(torch, dtype))
     # the drops happen: some expert is asked for more than C rows
     probs = torch.softmax(torch.from_numpy(x).reshape(tokens, 64).bfloat16()
                           @ pt["router"].bfloat16(), -1)
@@ -281,7 +281,7 @@ def test_moe_forward_dispatch_groups():
     assert tmoe._auto_groups(8192) == 2 and tmoe._auto_groups(8191) == 1
     x = np.random.default_rng(2).standard_normal((2, 4096, 64)).astype(np.float32)
     want = np.asarray(_jit_moe(cj, jnp.bfloat16)(pj, jnp.asarray(x)))
-    got = tmoe.moe_forward(pt, torch.from_numpy(x), ct).numpy()
+    got = tmoe.moe_forward(pt, torch.from_numpy(x), ct)[0].numpy()
     assert (got != want).mean() < 1e-3
     np.testing.assert_allclose(got, want, rtol=2**-7, atol=2**-7 * np.abs(want).max())
 
@@ -305,7 +305,7 @@ def test_moe_top_k_ties_take_the_lower_index():
     np.testing.assert_array_equal(idx.numpy(), np.asarray(ji))
     assert ((idx == 1).long().argmax(-1) < (idx == 5).long().argmax(-1)).all()
     want = _jit_moe(cj, jnp.bfloat16)(pj, jnp.asarray(x))
-    got = tmoe.moe_forward(pt, torch.from_numpy(x), ct)
+    got, _ = tmoe.moe_forward(pt, torch.from_numpy(x), ct)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
