@@ -165,8 +165,9 @@ Phases, in order; any failure exits non-zero and nothing catches it:
      which no engine path launches at d 256), K6 at qwen3's gq 8 and
      gemma3's d 256, K5 at qwen3's g 8 (32 stacked rows), against their
      plain versions; timed beside SDPA with their bounds where a run of that
-     geometry launches them, and the fused K4 and K8 at d 256 too; (b) qwen3-moe-30b-a3b at full width, all 48 layers or as many as
-     fit (printed): the lean Scheduler (chunked prefill, every step
+     geometry launches them, and the fused K4 and K8 at d 256 too; (b) qwen3-moe-30b-a3b at full width, 24 of its 48 layers in the full
+     run (``FULL_RUN_DEPTH``; ``--qwen3-step`` alone: all 48 or as many as
+     fit; printed): the lean Scheduler (chunked prefill, every step
      captured), fixed and ref; lean's streams held to fixed's, the
      first-token logits of lean and ref to ``QWEN3_FIRST_LOGIT_GAP``, and
      where lean and ref part, the router witness (the first flipped rows'
@@ -190,7 +191,8 @@ Phases, in order; any failure exits non-zero and nothing catches it:
      d 256, window 2048) on 3000 and 16000 keys against its plain version,
      beside SDPA and its bound; then recurrentgemma-9b (38 layers: RG-LRU
      and sliding-window MQA) and xlstm-350m (24 layers: mLSTM and sLSTM) at
-     full width and depth on the paged lean engine: each block's parallel
+     full width, 16 layers each in the full run (``FULL_RUN_DEPTH``; alone:
+     full depth) on the paged lean engine: each block's parallel
      form against its sequential one at full width, prompts admitted at
      their exact length (K7 on the tensor cores at every admission of
      recurrentgemma, no decode kernel at all), captured and eager in turns
@@ -225,22 +227,46 @@ Phases, in order; any failure exits non-zero and nothing catches it:
      full width, one stage unit deep (llama-3.2-vision with the pipeline's
      image embeddings): finite loss and gradient norm, parameters moved,
      step ms and peak memory; one JSON line ``{"train": ...}``;
- 21. the kernel summary (one JSON line: K1-K8, the fused K4 and the int8
+ 21. sequence-parallel decode (``--sp-step`` alone): K2 in its dense form
+     at gemma3-4b's global layers (Hq 16, Hkv 4, d 256) on 131,072 keys
+     (held against its plain version) and 524,288, timed beside SDPA and
+     the byte bound; then gemma3-4b at full width and depth with long_500k's
+     524,288-position cache, its global layers' K/V and the window rings
+     filled with seeded values to position 400,000, 8 greedy tokens in
+     three runs: (a) world 1, ``mesh=None`` (the plain ``decode_step``);
+     (b) world 1 over NCCL, plan ``seq_all`` (K2 over all 524,288 keys);
+     (c) world 4 on the one card over gloo (CUDA tensors), ``decode_plan``'s
+     ``seq_all`` on a ``(data=2, model=2)`` mesh, one spawned process a
+     rank (K2 over each rank's 131,072 keys, the merge as two all-reduces):
+     the first token's first global layer against a float32 oracle over
+     all 524,288 positions (within ``SP_ULPS`` bf16 ulps), a planted fault
+     (the ranks' offsets reversed) that must fail it, (c)'s logits equal
+     on all ranks bit for bit, (b)'s and (c)'s first-token logits against
+     (a)'s, the streams; step ms, the merge's ms per global layer, K2's
+     launches and peak memory per run and rank; one JSON line
+     ``{"sp": ...}``;
+ 22. the kernel summary (one JSON line: K1-K8, the fused K4 and the int8
      forms of K1, K2, K4 (fused and partials) and K5: 14 entries, then K2,
      the fused K4, K8, K7, K6 and K5 at the attention-family geometries,
      each with its launches from that architecture's run, and K7 at
-     recurrentgemma-9b's), the fused K4's launches
+     recurrentgemma-9b's, and K2 at gemma3-4b's global layers on 131,072 and
+     524,288 keys with its launches from the sp phase), the fused K4's launches
      from verify steps, the guards phase's launches, the ``nvidia-smi``
      line, and last ``{"ok": true, "device": {...}}``.
 
 Each phase starts with a ``[seconds] phase`` line: the time since the
-script started. Phases 11-20 alone, at full width, after the build:
+script started. To stay inside its 1200 s on a slow host the full run cuts
+depths (``FULL_RUN_DEPTH``): phases 13, 14, 16 and 17 serve Mistral-NeMo-12B
+at 20 of its 40 layers, qwen3-moe runs at 24 of 48, the recurrent models at
+8 layers, and train phase (c) resumes xlstm-350m at 8 of 24; run alone, each
+phase keeps its depth. Phases 11-21 alone, at full width, after the build:
 
     python3 chip_smoke.py --f8-step | --chunk-step | --spec-step | --admission-step
     python3 chip_smoke.py --captured-step
     python3 chip_smoke.py --obs-step | --guards-step
     python3 chip_smoke.py --arch-kernels | --qwen3-step [DEPTH] | --gemma-step [DEPTH]
     python3 chip_smoke.py --arch-sweep | --recurrent-step [DEPTH] | --train-step
+    python3 chip_smoke.py --sp-step
 
 The kernel phase (3) also holds K3 (the merge kernel) against its plain
 version and ``segment_merge``, drives the two-phase ``merge_impl="pallas"``
@@ -3494,7 +3520,7 @@ def twin_bits(torch, cfg, params, config, drive, prompts=None):
     return steps, worst, st, cascade_replays
 
 
-CAPTURE_BITS_LAYERS = 20       # of Mistral-NeMo-12B's 40: the full run's time limit
+CAPTURE_BITS_LAYERS = 10       # of Mistral-NeMo-12B's 40: the full run's time limit
 
 
 def captured_step_phase(torch, cfg, params, sm_count, new_tokens, smi: str):
@@ -5407,7 +5433,7 @@ def qwen3_phase(torch, sm_count, smi: str, depth=None) -> dict:
           f"{cfg.n_kv_heads} heads, d {cfg.head_dim}, {cfg.moe.num_experts} experts top-"
           f"{cfg.moe.top_k} of width {cfg.moe.d_ff_expert}, vocab {cfg.vocab_size}), "
           f"{cfg.n_layers} of {full.n_layers} layers"
-          + ("" if n == full.n_layers else " (depth cut: set on the command line)" if depth
+          + ("" if n == full.n_layers else " (depth cut: set by the caller)" if depth
              else " (depth cut: the weights of more do not fit)")
           + f"; bf16 weights in {init_s:.1f} s, {torch.cuda.memory_allocated() / 1e9:.1f} GB",
           flush=True)
@@ -6268,9 +6294,10 @@ def train_card_vs_cpu(torch, smi: str) -> dict:
             "max_norm_off": max(abs(r[2] - 1) for r in rows), "cpu_s": cpu_s}
 
 
-def train_resume_child(torch) -> dict:
+def train_resume_child(torch, layers=None) -> dict:
     """(c), in a child process with deterministic algorithms: RESUME_ARCH at
-    full width and depth, 4 steps straight against 2 steps, a checkpoint,
+    full width, at ``layers`` of depth (None: all), 4 steps straight
+    against 2 steps, a checkpoint,
     a restore into fresh tensors and 2 more. Returns the losses, whether
     every parameter and moment is equal bit for bit, and the checkpoint's
     size and times."""
@@ -6286,7 +6313,7 @@ def train_resume_child(torch) -> dict:
     from repro_torch.training.tree import flatten
 
     torch.use_deterministic_algorithms(True)
-    cfg = get_config(RESUME_ARCH)
+    cfg = arch_config(get_config(RESUME_ARCH), layers or get_config(RESUME_ARCH).n_layers)
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=RESUME_SEQ, global_batch=RESUME_BATCH,
                       seed=3)
     step = make_train_step(cfg, OptConfig(**RESUME_OPT))
@@ -6331,7 +6358,8 @@ def train_resume_child(torch) -> dict:
     _, a = flatten({"params": p, "m": o["m"], "v": o["v"], "step": o["step"]})
     _, b = flatten({"params": q, "m": r["m"], "v": r["v"], "step": r["step"]})
     same = sum(bool(torch.equal(x, y)) for x, y in zip(a, b))
-    return {"arch": cfg.name, "params": sum(x.numel() for x in flatten(p)[1]),
+    return {"arch": cfg.name, "layers": cfg.n_layers,
+            "params": sum(x.numel() for x in flatten(p)[1]),
             "losses_straight": straight, "losses_resumed": resumed + rest,
             "grad_norms": gnorms[:4],
             "leaves": len(a), "leaves_equal": same, "checkpoint_bytes": nbytes,
@@ -6339,18 +6367,19 @@ def train_resume_child(torch) -> dict:
             "removed": not os.path.exists(tmp)}
 
 
-def train_resume(smi: str) -> dict:
+def train_resume(smi: str, layers=None) -> dict:
     """(c) in its child process (``--train-resume-child``), with
     ``CUBLAS_WORKSPACE_CONFIG=:4096:8``: deterministic algorithms set in
     this process could move the serving phases' bits. Fails unless the
     losses and every parameter and moment are equal bit for bit."""
     env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
-    out = subprocess.run([sys.executable, os.path.abspath(__file__), "--train-resume-child"],
+    out = subprocess.run([sys.executable, os.path.abspath(__file__), "--train-resume-child",
+                          *([str(layers)] if layers else [])],
                          capture_output=True, text=True, env=env, timeout=900)
     check(out.returncode == 0, f"the exact-resume child failed ({out.returncode}): "
           f"{out.stderr[-3000:]}")
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    print(f"train phase (c) ({smi}): {res['arch']} at full width and depth "
+    print(f"train phase (c) ({smi}): {res['arch']} at full width, {res['layers']} layers "
           f"({res['params']:,} parameters), batch {RESUME_BATCH} x {RESUME_SEQ}, deterministic "
           f"algorithms: losses 4 straight {res['losses_straight']}, 2 + checkpoint + restore + 2 "
           f"{res['losses_resumed']}; grad norms {res['grad_norms']}; {res['leaves_equal']} of "
@@ -6462,7 +6491,7 @@ def train_unit_sweep(torch, smi: str) -> dict:
     return out
 
 
-def train_phase(torch, sm_count, smi: str) -> dict:
+def train_phase(torch, sm_count, smi: str, resume_layers=None) -> dict:
     """The training phase: (a) Mistral-NeMo-12B trained at full width,
     (b) the card's gradients against the CPU port's, (c) exact resume of
     xlstm-350m, (d) (a)'s weights served through K7 and K2 against ref,
@@ -6474,13 +6503,513 @@ def train_phase(torch, sm_count, smi: str) -> dict:
     d = train_serve(torch, cfg, params, sm_count, smi)
     del params
     clock("train phase (c)")
-    c = train_resume(smi)
+    c = train_resume(smi, resume_layers)
     clock("train phase (e)")
     e = train_unit_sweep(torch, smi)
     res = {"card": smi, "a": a, "b": b, "c": c, "d": d, "e": e}
     print(json.dumps({"train": res}), flush=True)
     return res
 
+
+# ------------------------------------------------- sequence-parallel decode
+SP_ARCH = "gemma3-4b"
+SP_FILL = 400_000        # cur_len: at world 4 ranks 0-2 are full, rank 3 holds 6,784 keys
+SP_NEW_TOKENS = 8
+SP_MESH = (2, 2)         # world 4 on the one card, over gloo
+SP_BLOCK = 16384         # positions of one seeded block of a global layer's cache
+SP_SEED = 29
+SP_TOKEN = 17            # the first decoded token's input
+SP_ULPS = 2              # the attention output against the float32 oracle, in bf16 ulps
+SP_K2_KEYS = (131072, 524288)   # a world-4 rank's shard, and the whole cache
+
+
+def free_port() -> int:
+    """A free TCP port on localhost, for a process group's rendezvous."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def sp_fill(torch, cfg, cache, offset: int):
+    """Seeded bf16 K/V in every layer of ``cache``: a global layer's block
+    ``[offset, offset + t)`` of the 524,288-position cache, by blocks of
+    ``SP_BLOCK`` positions each drawn from its own seed (so any rank draws
+    its block alone), valid below ``SP_FILL`` and zero past it; a window
+    ring whole (``SP_FILL`` is past the window)."""
+    from repro_torch.models import layer_kinds
+
+    g = torch.Generator(device="cuda")
+    for i, (kind, lc) in enumerate(zip(layer_kinds(cfg), cache)):
+        for j, name in enumerate(("k", "v")):
+            t = lc[name]
+            B, H, S, d = t.shape
+            if kind == "win":
+                g.manual_seed(SP_SEED * 1_000_003 + 2 * i + j)
+                t.copy_(torch.randn(t.shape, generator=g, device="cuda"))
+                continue
+            for start in range(offset, offset + S, SP_BLOCK):
+                g.manual_seed(SP_SEED * 1_000_003 + 4096 * (2 * i + j + 1) + start // SP_BLOCK)
+                blk = torch.randn((B, H, SP_BLOCK, d), generator=g, device="cuda")
+                n = min(max(SP_FILL - start, 0), SP_BLOCK)
+                dst = t[:, :, start - offset:start - offset + SP_BLOCK]
+                dst.zero_()
+                dst[:, :, :n].copy_(blk[:, :, :n])
+
+
+class SpProbe:
+    """Wraps the serve step's ``sp_decode_attention`` and the merge it
+    calls: the first call's query and output (the first token's first
+    global layer) are kept, and every merge is timed with CUDA events on
+    the stream (no sync added). ``reverse`` plants the fault: each rank's
+    sequence index reversed, both where the attention reads its offset and
+    where the step writes the token."""
+
+    def __init__(self, torch, reverse: bool = False):
+        import repro_torch.core.distributed as cd
+        import repro_torch.launch.serve_step as ss
+
+        self.torch, self.cd, self.ss, self.first, self.events = torch, cd, ss, None, []
+        self.saved = (ss.sp_decode_attention, cd.lean_merge_collective, cd.axis_index,
+                      ss.axis_index)
+        attn, merge, index = self.saved[:3]
+
+        def sp_attention(q, *args, **kw):
+            out = attn(q, *args, **kw)
+            if self.first is None:
+                self.first = (q.detach().clone(), out.detach().clone())
+            return out
+
+        def timed_merge(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = merge(*args, **kw)
+            end.record()
+            self.events.append((start, end))
+            return out
+
+        def reversed_index(mesh, axes):
+            from repro_torch.launch.mesh import axis_size
+
+            return axis_size(mesh, axes) - 1 - index(mesh, axes)
+
+        ss.sp_decode_attention, cd.lean_merge_collective = sp_attention, timed_merge
+        if reverse:
+            cd.axis_index = ss.axis_index = reversed_index
+
+    def merge_ms(self) -> list:
+        self.torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.events]
+
+    def close(self):
+        (self.ss.sp_decode_attention, self.cd.lean_merge_collective, self.cd.axis_index,
+         self.ss.axis_index) = self.saved
+
+
+def sp_serve(torch, cfg, params, cache, step, steps: int = SP_NEW_TOKENS) -> dict:
+    """Greedy decode of ``steps`` tokens from ``SP_TOKEN`` at position
+    ``SP_FILL``: logits and tokens per step, step ms (synced), K2's
+    launches."""
+    from repro_torch.kernels import lean_decode as ld
+
+    reset_launch_counts()
+    tok = torch.full((1, 1), SP_TOKEN, dtype=torch.int32, device="cuda")
+    logits, tokens, ms = [], [], []
+    for t in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = step(params, cache, tok, SP_FILL + t)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        tokens.append(int(tok[0, 0]))
+        logits.append(lg.float().cpu())
+        tok = lg.argmax(-1)[:, None].to(torch.int32)
+    counts = launch_counts()
+    return {"logits": torch.cat(logits), "tokens": tokens, "ms": ms,
+            "step_ms_p50": statistics.median(ms), "K2": counts["K2"],
+            "K2_ring": ld.fused_ring_launches,
+            "others": {k: v for k, v in counts.items() if k != "K2" and v}}
+
+
+def sp_model(torch, cfg):
+    """gemma3-4b's weights, seeded (bf16 matmul weights, float32 norms:
+    what ``params_for_serving`` gives of float32 masters), on the card."""
+    from repro_torch.models import init_params
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SP_SEED)
+    return init_params(cfg, gen, device="cuda", dtype=torch.bfloat16)
+
+
+def sp_rank(rank: int, world: int, port: int, out_dir: str):
+    """One rank of run (c): gloo over CUDA tensors, a (data, model) mesh on
+    the one card, ``decode_plan``'s plan for batch 1; this rank's blocks of
+    the global layers' caches, the window rings whole; the greedy run, then
+    one step of the planted fault (offsets reversed) on a fresh fill."""
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.distributed.sharding import choose_layout, decode_plan
+    from repro_torch.launch.mesh import axis_index, init_distributed, make_mesh
+    from repro_torch.launch.serve_step import make_serve_step
+    from repro_torch.models import init_cache, layer_kinds
+
+    init_distributed(rank, world, port, "gloo")
+    try:
+        cfg = get_config(SP_ARCH)
+        mesh = make_mesh(SP_MESH, ("data", "model"), "cuda")
+        plan = decode_plan(cfg, mesh, 1, choose_layout(cfg))
+        S = SHAPES["long_500k"].seq_len
+        block = S // world
+        offset = axis_index(mesh, plan["seq_axes"]) * block
+        params = sp_model(torch, cfg)
+        kinds = layer_kinds(cfg)
+        cache = init_cache(cfg, 1, block, device="cuda")     # the rings: the window's length
+        sp_fill(torch, cfg, cache, offset)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step = make_serve_step(cfg, mesh, plan)
+        probe = SpProbe(torch)
+        try:
+            run = sp_serve(torch, cfg, params, cache, step)
+            run["merge_ms"] = probe.merge_ms()
+            run["first"] = [t.cpu() for t in probe.first]
+        finally:
+            probe.close()
+        run["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        first_global = kinds.index("attn")
+        at = SP_FILL - offset
+        if 0 <= at < block:       # the first token's K/V: the oracle needs it
+            lc = cache[first_global]
+            run["row"] = (lc["k"][:, :, at].cpu(), lc["v"][:, :, at].cpu())
+        sp_fill(torch, cfg, cache, offset)
+        probe = SpProbe(torch, reverse=True)
+        try:
+            bad_step = make_serve_step(cfg, mesh, plan)
+            bad = sp_serve(torch, cfg, params, cache, bad_step, steps=1)
+            run["fault"] = {"first": [t.cpu() for t in probe.first], "logits": bad["logits"]}
+        finally:
+            probe.close()
+        run.update(plan=plan, offset=offset, coord=mesh.get_coordinate())
+        torch.save(run, os.path.join(out_dir, f"rank{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def sp_k2(torch, sm_count: int, dev_name: str, smi: str) -> dict:
+    """K2 in its dense form at gemma3-4b's geometry (Hq 16, Hkv 4, d 256,
+    batch 1, tile 128) over ``SP_K2_KEYS``: held against its plain version
+    at 131,072 keys (on the decode ring), timed at both beside its plain
+    version, SDPA on the same K/V (the query heads folded into rows) and
+    the byte bound."""
+    from repro_torch.core.leantile import make_schedule
+    from repro_torch.kernels import lean_decode as ld
+    from repro_torch.kernels import ops
+
+    Hq, Hkv, d, tile = 16, 4, 256, 128
+    g, dt, elem = Hq // Hkv, torch.bfloat16, 2
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SP_SEED)
+    dev = torch.device("cuda")
+    out = {}
+    for S in SP_K2_KEYS:
+        q = torch.randn(1, Hq, d, generator=gen, device=dev).to(dt)
+        k = torch.randn(1, Hkv, S, d, generator=gen, device=dev).to(dt)
+        v = torch.randn(1, Hkv, S, d, generator=gen, device=dev).to(dt)
+        sched = make_schedule([S], Hkv, tile, sm_count)
+        seg_ctx = torch.full((Hkv,), S, dtype=torch.int32, device=dev)
+        route = ops._dense_route(sched, S, dev)
+        args = (q.reshape(Hkv, g, d).contiguous(), k.reshape(Hkv * S // tile, tile, d),
+                v.reshape(Hkv * S // tile, tile, d), seg_ctx, route, sched, 1.0 / math.sqrt(d))
+        ring0 = ld.fused_ring_launches
+        o, lse = ld.lean_decode_fused(*args)
+        torch.cuda.synchronize()
+        check(ld.fused_ring_launches == ring0 + 1, f"K2 at {S} keys did not run on the ring")
+        err = None
+        if S == SP_K2_KEYS[0]:
+            o_ref, lse_ref = ld.lean_decode_fused_plain(*args)
+            err = max((o - o_ref).abs().max().item(), (lse - lse_ref).abs().max().item())
+            check(torch.allclose(o, o_ref, atol=BF16_TOL, rtol=BF16_TOL)
+                  and torch.allclose(lse, lse_ref, atol=BF16_TOL, rtol=BF16_TOL),
+                  f"K2 (d 256, {S} keys) disagrees with its plain version: max |err| {err}")
+            del o_ref, lse_ref
+        ms = gpu_ms(lambda: ld.lean_decode_fused(*args))
+        plain_ms = gpu_ms(lambda: ld.lean_decode_fused_plain(*args), reps=3, warmup=1)
+        qf = q.reshape(1, Hkv, g, d)
+        lib_ms = gpu_ms(lambda: sdpa(qf, k, v))
+        tokens = S * Hkv
+        nbytes = 2 * tokens * d * elem + q.numel() * elem + 4 * (o.numel() + lse.numel())
+        b_ms, b_by = bound(dev_name, "bfloat16", nbytes, 4 * g * d * tokens)
+        out[S] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+                  "bound_by": b_by, "max_abs_err": err, "pieces": sched.num_pieces}
+        print(f"  K2 dense @ {SP_ARCH} (4, 256), {S} keys ({smi}): {ms:.4f} ms (bound "
+              f"{b_ms:.4f} ms by {b_by}; plain {plain_ms:.3f} ms; SDPA {lib_ms:.4f} ms); "
+              + (f"max|err| vs plain {err:.3e}" if err is not None else "timed only")
+              + f"; {sched.num_pieces} pieces on {sm_count} workers", flush=True)
+        del q, k, v, args, o, lse
+    return out
+
+
+SP_TRACED_STEPS = 2
+
+
+def sp_traced_steps(torch, cfg, params, cache, step, smi: str) -> dict:
+    """Where a step of run (b) goes: ``SP_TRACED_STEPS`` more steps (after
+    the run's 8, at the next positions) under ``torch.profiler``: device
+    busy per step, device kernels and host launch calls per step, the
+    device's idle share, the kernels with the most device time."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    tok = torch.full((1, 1), SP_TOKEN, dtype=torch.int32, device="cuda")
+    walls = []
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for t in range(SP_TRACED_STEPS):
+            t0 = time.perf_counter()
+            step(params, cache, tok, SP_FILL + SP_NEW_TOKENS + t)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+    kernels, busy_ms, by_name = device_time(prof)
+    calls = sum(host_launch_calls(prof).values())
+    n = SP_TRACED_STEPS
+    out = {"wall_ms": statistics.median(walls), "busy_ms": busy_ms / n,
+           "kernels": len(kernels) / n, "host_launch_calls": calls / n,
+           "idle_traced": 1 - busy_ms / sum(walls)}
+    print(f"sp (b) traced ({smi}): {n} steps, wall p50 {out['wall_ms']:.2f} ms; device busy "
+          f"{out['busy_ms']:.2f} ms/step; {out['kernels']:.0f} device kernels and "
+          f"{out['host_launch_calls']:.0f} host launch calls a step; device idle share "
+          f"{out['idle_traced']:.3f}", flush=True)
+    print_top(by_name, n, "step", 8)
+    return out
+
+
+def bf16_ulps(torch, got, ref) -> float:
+    """The largest |got - ref| in bf16 ulps of ref, the ulp taken at each
+    element's magnitude floored at 2**-8 of the tensor's root mean square
+    (an element next to 0 is held to the float32 noise of the row's
+    scale, not to its own ulp)."""
+    ref = ref.float()
+    mag = ref.abs().clamp_min(2.0 ** -8 * ref.pow(2).mean().sqrt().item())
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return ((got.float() - ref).abs() / ulp).max().item()
+
+
+def sp_oracle(torch, q, k_full, v_full):
+    """The first global layer's attention over the 524,288-position cache
+    with ``SP_FILL + 1`` valid keys, plain and float32 throughout: one
+    ``chunk_partial`` over every position, finalized."""
+    from repro_torch.core.attention import chunk_partial
+    from repro_torch.core.merge import finalize
+
+    B, Hq, d = q.shape
+    Hkv = k_full.shape[1]
+    qg = q.to("cuda").float().reshape(B, Hkv, Hq // Hkv, d)
+    part = chunk_partial(qg, k_full.float(), v_full.float(), 1.0 / math.sqrt(d),
+                         valid_len=SP_FILL + 1)
+    return finalize(part).reshape(B, Hq, d)
+
+
+def sp_streams(ref, run, what: str) -> list:
+    """Greedy streams equal, or parting only where the reference's top-2
+    logits are an exact tie; returns the parting steps."""
+    parts = []
+    for t, (a, b) in enumerate(zip(ref["tokens"], run["tokens"])):
+        if a != b:
+            top2 = ref["logits"][t - 1].topk(2).values
+            check(t > 0 and top2[0].item() == top2[1].item(),
+                  f"{what}: the greedy stream parts from (a)'s at step {t} (top-2 "
+                  f"{top2.tolist()})")
+            parts.append(t)
+            break
+    return parts
+
+
+def sp_phase(torch, sm_count: int, smi: str) -> dict:
+    """Sequence-parallel decode: gemma3-4b at full width and depth with
+    long_500k's 524,288-position cache, its 6 global layers' K/V filled
+    with seeded values to ``SP_FILL``, the 28 window rings too; 8 greedy
+    tokens in three runs on the same weights and cache contents: (a) world
+    1, ``mesh=None`` (the plain ``decode_step``); (b) world 1 over NCCL,
+    plan ``seq_all`` (K2 over all 524,288 keys, a trivial merge); (c) world
+    4 on the one card over gloo, ``decode_plan``'s ``seq_all`` on a (2, 2)
+    mesh (K2 over each rank's 131,072 keys, the merge as two all-reduces).
+    Four ranks share the card's SMs: (c)'s times say nothing of scaling."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    from repro_torch.launch.serve_step import make_serve_step
+    from repro_torch.models import count_params, init_cache, layer_kinds
+
+    dev_name = torch.cuda.get_device_name(0)
+    print(f"sp phase ({smi}): K2 at {SP_ARCH}'s global layers", flush=True)
+    k2 = sp_k2(torch, sm_count, dev_name, smi)
+    cfg = get_config(SP_ARCH)
+    S = SHAPES["long_500k"].seq_len
+    kinds = layer_kinds(cfg)
+    first_global = kinds.index("attn")
+    n_global = kinds.count("attn")
+    params = sp_model(torch, cfg)
+    cache = init_cache(cfg, 1, S, device="cuda")
+    runs = {}
+
+    def fresh():
+        sp_fill(torch, cfg, cache, 0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+    clock("sp phase (a)")
+    fresh()
+    runs["a"] = sp_serve(torch, cfg, params, cache, make_serve_step(cfg))
+    runs["a"]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    check(runs["a"]["K2"] == 0 and not runs["a"]["others"],
+          f"(a) the plain step launched kernels: {runs['a']}")
+    print(f"sp (a) world 1, mesh=None ({smi}): {count_params(cfg)} parameters, {cfg.n_layers} "
+          f"layers ({n_global} global over {S} positions), step ms "
+          + ", ".join(f"{t:.1f}" for t in runs["a"]["ms"])
+          + f"; p50 {runs['a']['step_ms_p50']:.2f}; peak {runs['a']['peak_gb']:.2f} GB; tokens "
+          f"{runs['a']['tokens']}", flush=True)
+
+    clock("sp phase (b)")
+    fresh()
+    init_distributed(0, 1, free_port(), "nccl")
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        plan = {"mode": "seq_all", "seq_axes": ("data", "model"), "batch_spec": None}
+        probe = SpProbe(torch)
+        step = make_serve_step(cfg, mesh, plan)
+        try:
+            runs["b"] = sp_serve(torch, cfg, params, cache, step)
+            runs["b"]["merge_ms"] = probe.merge_ms()
+            b_first = probe.first
+        finally:
+            probe.close()
+        runs["b"]["traced"] = sp_traced_steps(torch, cfg, params, cache, step, smi)
+    finally:
+        dist.destroy_process_group()
+    runs["b"]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    k_full = cache[first_global]["k"].clone()
+    v_full = cache[first_global]["v"].clone()
+    del params, cache
+    clock("sp phase (b): the oracle")
+    oracle_b = sp_oracle(torch, b_first[0], k_full, v_full)
+    ulps_b = bf16_ulps(torch, b_first[1], oracle_b)
+    b = runs["b"]
+    print(f"sp (b) world 1, NCCL, plan seq_all ({smi}): step ms "
+          + ", ".join(f"{t:.1f}" for t in b["ms"]) + f"; p50 {b['step_ms_p50']:.2f}; K2 "
+          f"{b['K2']} launches ({b['K2_ring']} on the ring); merge per global layer p50 "
+          f"{statistics.median(b['merge_ms']):.3f} ms; peak {b['peak_gb']:.2f} GB; first "
+          f"global layer against the float32 oracle: {ulps_b:.3f} bf16 ulps", flush=True)
+    check(b["K2"] == n_global * SP_NEW_TOKENS == b["K2_ring"] and not b["others"],
+          f"(b): K2 launched {b['K2']} times ({b['K2_ring']} on the ring), expected "
+          f"{n_global} x {SP_NEW_TOKENS}; others {b['others']}")
+
+    clock("sp phase (c)")
+    world = SP_MESH[0] * SP_MESH[1]
+    out_dir = tempfile.mkdtemp(prefix="sp_ranks_")
+    try:
+        t0 = time.perf_counter()
+        mp.spawn(sp_rank, args=(world, free_port(), out_dir), nprocs=world, join=True)
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+                 for r in range(world)]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    owner = next(r for r in ranks if "row" in r)
+    kr, vr = owner["row"]
+    k_full[:, :, SP_FILL] = kr.to("cuda")
+    v_full[:, :, SP_FILL] = vr.to("cuda")
+    q_c = ranks[0]["first"][0]
+    oracle_c = sp_oracle(torch, q_c, k_full, v_full)
+    ulps_c = [bf16_ulps(torch, r["first"][1].cuda(), oracle_c) for r in ranks]
+    fault_ulps = [bf16_ulps(torch, r["fault"]["first"][1].cuda(),
+                            sp_oracle(torch, r["fault"]["first"][0], k_full, v_full))
+                  for r in ranks]
+    del k_full, v_full
+    for r, res in enumerate(ranks):
+        print(f"sp (c) rank {r} at {tuple(res['coord'])}, plan {res['plan']['mode']}, keys "
+              f"[{res['offset']}, {res['offset'] + S // world}) ({smi}): step ms "
+              + ", ".join(f"{t:.1f}" for t in res["ms"]) + f"; p50 {res['step_ms_p50']:.2f}; "
+              f"K2 {res['K2']} launches ({res['K2_ring']} on the ring); merge per global layer "
+              f"p50 {statistics.median(res['merge_ms']):.3f} ms; peak {res['peak_gb']:.2f} GB; "
+              f"first global layer {ulps_c[r]:.3f} bf16 ulps from the oracle; planted fault "
+              f"(offsets reversed) {fault_ulps[r]:.1f} ulps", flush=True)
+    print(f"sp (c): four ranks share the card's SMs and gloo stages every all-reduce through "
+          f"the host: these times say nothing about scaling; spawn + run {spawn_s:.1f} s",
+          flush=True)
+    for r, res in enumerate(ranks):
+        check(res["plan"]["mode"] == "seq_all",
+              f"decode_plan gave {res['plan']} for batch 1 on {SP_MESH}")
+        check(res["K2"] == n_global * SP_NEW_TOKENS == res["K2_ring"] and not res["others"],
+              f"(c) rank {r}: K2 launched {res['K2']} times ({res['K2_ring']} on the ring), "
+              f"others {res['others']}")
+        check(torch.equal(res["logits"], ranks[0]["logits"]) and res["tokens"] ==
+              ranks[0]["tokens"], f"(c): rank {r}'s logits differ from rank 0's")
+    check(all(u <= SP_ULPS for u in [ulps_b] + ulps_c),
+          f"the first global layer's attention: (b) {ulps_b}, (c) {ulps_c} bf16 ulps from the "
+          f"float32 oracle (allowed {SP_ULPS})")
+    check(all(u > SP_ULPS for u in fault_ulps),
+          f"the planted fault (offsets reversed) passed the oracle check: {fault_ulps} ulps")
+
+    a, c = runs["a"], ranks[0]
+    ref0 = a["logits"][0]
+    typical = ref0.abs().median().item()
+    atol = LOGIT_ATOL_FRAC * typical
+    gaps = {}
+    for name, run in (("b", b), ("c", c), ("fault", {"logits": c["fault"]["logits"]})):
+        gaps[name] = (run["logits"][0] - ref0).abs().max().item()
+    print(f"sp first-token logits against (a) (median |logit| {typical:.4f}, allowed "
+          f"{atol:.4f} + {LOGIT_RTOL} |ref|): (b) {gaps['b']:.4f}, (c) {gaps['c']:.4f}; the "
+          f"planted fault {gaps['fault']:.4f}", flush=True)
+    for name, run in (("b", b), ("c", c)):
+        check(torch.allclose(run["logits"][0], ref0, rtol=LOGIT_RTOL, atol=atol),
+              f"({name})'s first-token logits differ from (a)'s by {gaps[name]}")
+    parts = {name: sp_streams(a, run, f"({name})") for name, run in (("b", b), ("c", c))}
+    print(f"sp streams: (a) {a['tokens']}; (b) {b['tokens']}; (c) {c['tokens']}; parting "
+          f"{parts}", flush=True)
+    res = {
+        "card": smi, "arch": SP_ARCH, "positions": S, "cur_len": SP_FILL,
+        "new_tokens": SP_NEW_TOKENS, "world4_mesh": list(SP_MESH),
+        "step_ms_p50": {"a": a["step_ms_p50"], "b": b["step_ms_p50"],
+                        "c": [r["step_ms_p50"] for r in ranks]},
+        "merge_ms_p50": {"b": statistics.median(b["merge_ms"]),
+                         "c": [statistics.median(r["merge_ms"]) for r in ranks]},
+        "peak_gb": {"a": a["peak_gb"], "b": b["peak_gb"], "c": [r["peak_gb"] for r in ranks]},
+        "traced_b": b["traced"],
+        "ulps": {"b": ulps_b, "c": ulps_c, "fault": fault_ulps},
+        "first_token_logit_gap": gaps, "parts": parts,
+        "launches": {"K2_524288": b["K2"], "K2_131072": sum(r["K2"] for r in ranks)},
+        "k2": {str(S_): r for S_, r in k2.items()},
+    }
+    print(json.dumps({"sp": res}), flush=True)
+    return res
+
+
+# Depths the full run cuts to stay inside its 1200 s on a slow host: at the
+# full depths (qwen3-moe's 48 layers, the recurrent models' 38 and 24, the
+# captured-step bit checks at 20 of 40) one full run reached its summary at
+# 889.2 s and another, on a slower host (build 221 s against 136), at 1222.9
+# s; with qwen3 at 24, the recurrent models at 16 and the bit checks at 10,
+# a third slow host (build 197 s) at 1134.4 s. So the full run also takes
+# xlstm-350m's exact resume (train phase (c)) at 8 of its 24 layers and
+# serves Mistral-NeMo-12B's spec, admission, obs and guards phases at 20 of
+# its 40 layers ("mistral_late"). The phases alone (``--qwen3-step``,
+# ``--recurrent-step``, ``--train-step``, ``--spec-step``,
+# ``--admission-step``, ``--obs-step``, ``--guards-step``) keep their
+# depths.
+FULL_RUN_DEPTH = {"qwen3": 24, "recurrent": 8, "resume": 8, "mistral_late": 20}
 
 TICK_SOURCES = ("lean_decode.cu", "flash_prefill.cu")
 
@@ -6576,10 +7105,11 @@ def main() -> int:
     if sys.argv[1:2] == ["--train-resume-child"]:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        print(json.dumps(train_resume_child(torch)))
+        print(json.dumps(train_resume_child(
+            torch, int(sys.argv[2]) if len(sys.argv) > 2 else None)))
         return 0
     arch_alone = {"--arch-kernels", "--qwen3-step", "--gemma-step", "--arch-sweep",
-                  "--recurrent-step", "--train-step"}
+                  "--recurrent-step", "--train-step", "--sp-step"}
     if sys.argv[1:2] and sys.argv[1] in arch_alone:
         torch.backends.cuda.matmul.allow_tf32 = False
         sm_count = torch.cuda.get_device_properties(0).multi_processor_count
@@ -6600,6 +7130,9 @@ def main() -> int:
         elif sys.argv[1] == "--train-step":
             clock("train phase (a)")
             train_phase(torch, sm_count, smi)
+        elif sys.argv[1] == "--sp-step":
+            clock("sp phase")
+            sp_phase(torch, sm_count, smi)
         else:
             sweep_phase(torch, sm_count, smi)
         clock("done")
@@ -6850,13 +7383,20 @@ def main() -> int:
     chunk_step_phase(torch, cfg, params, sm_count, new_tokens,
                      {None: blocking, "int8": i8_blocking}, smi, full=False)
 
+    # the later Mistral-NeMo-12B phases but the captured-step one at
+    # FULL_RUN_DEPTH["mistral_late"] of its layers (the same weights)
+    cfg_l = arch_config(cfg, FULL_RUN_DEPTH["mistral_late"])
+    params_l = dict(params, layers=params["layers"][:cfg_l.n_layers])
+    print(f"full run: the spec, admission, obs and guards phases at {cfg_l.n_layers} of "
+          f"{cfg.n_layers} layers (FULL_RUN_DEPTH)", flush=True)
+
     clock("spec phase")
     # 13. speculative decode, its verify step captured (the fused K4)
-    k4_verify = spec_phase(torch, cfg, params, sm_count, smi)
+    k4_verify = spec_phase(torch, cfg_l, params_l, sm_count, smi)
 
     clock("admission phase")
     # 14. blocking admission at the bucket length, captured, against eager
-    admission_phase(torch, cfg, params, sm_count, smi)
+    admission_phase(torch, cfg_l, params_l, sm_count, smi)
 
     clock("captured step phase")
     # 15. the captured decode step against the eager one: tick p50 in
@@ -6867,13 +7407,14 @@ def main() -> int:
     clock("obs phase")
     # 16. observability: every ObsConfig sink on the lean Scheduler, traced
     # against untraced, the CLI on the card's trace and flight dump
-    obs_phase(torch, cfg, params, sm_count, new_tokens, smi)
+    obs_phase(torch, cfg_l, params_l, sm_count, new_tokens, smi)
 
     clock("guards phase")
     # 17. guards and fault injection: NaN isolation on every decode path,
     # the guard's cost, the degraded levels' passes, chaos under the Scheduler
-    guard_counts = guards_phase(torch, cfg, params, sm_count, new_tokens, smi)
+    guard_counts = guards_phase(torch, cfg_l, params_l, sm_count, new_tokens, smi)
 
+    del params_l
     # 18. the attention-family architectures, after Mistral-NeMo-12B's
     # weights are released: the kernels at their geometries, qwen3-moe at
     # full width (depth as fits), gemma3 at full width and depth, and the
@@ -6882,7 +7423,7 @@ def main() -> int:
     clock("arch kernel phase")
     arch_k = arch_kernel_phase(torch, sm_count, dev_name)
     clock("qwen3 phase")
-    qwen3 = qwen3_phase(torch, sm_count, smi)
+    qwen3 = qwen3_phase(torch, sm_count, smi, depth=FULL_RUN_DEPTH["qwen3"])
     clock("gemma phase")
     gemma = gemma_phase(torch, sm_count, smi)
     clock("sweep phase")
@@ -6890,15 +7431,19 @@ def main() -> int:
     # 19. the recurrent architectures: K7 at recurrentgemma's window layers,
     # recurrentgemma-9b and xlstm-350m at full width and depth
     clock("recurrent phase")
-    recurrent = recurrent_phase(torch, sm_count, smi)
+    recurrent = recurrent_phase(torch, sm_count, smi, depth=FULL_RUN_DEPTH["recurrent"])
     # 20. training: Mistral-NeMo-12B at full width (8 layers), the card's
     # gradients against the CPU's, exact resume, the trained weights served,
     # one step of every configuration
     clock("train phase (a)")
-    train = train_phase(torch, sm_count, smi)
+    train = train_phase(torch, sm_count, smi, resume_layers=FULL_RUN_DEPTH["resume"])
+    # 21. sequence-parallel decode: gemma3-4b at long_500k, world 1 (plain
+    # and over NCCL) and world 4 on the one card (gloo), K2 on each shard
+    clock("sp phase")
+    sp = sp_phase(torch, sm_count, smi)
 
     clock("summary")
-    # 21. summary: kernel times in bf16 at the main path's shapes; launches
+    # 22. summary: kernel times in bf16 at the main path's shapes; launches
     # from the run of the path each kernel serves
     k6 = k6res[(DECODE_SHAPES[0], "bfloat16")]
     kres[("flash_decode_partials", "bfloat16")] = k6
@@ -6941,13 +7486,12 @@ def main() -> int:
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            # no one PyTorch call computes K1's per-piece partials or K3's
-            # merge of them; SDPA computes the attention K2, the fused K4,
-            # K4 (+ merge), K5, K6 (+ merge_n), K7 and K8 do (for the int8
-            # forms: on the K/V dequantized to bf16; for the f8 forms: on
-            # the K/V widened to bf16)
-            "library_ms": r["library_ms"] if r["library_ms"] is not None
-            and not name.startswith("lean_decode_partials") else None,
+            # SDPA computes the attention K1 (+ merge), K2, the fused K4, K4
+            # (+ merge), K5, K6 (+ merge_n), K7 and K8 do, on the same
+            # inputs (the int8 forms': the K/V dequantized to bf16; the f8
+            # forms': widened to bf16); no one PyTorch call computes K3's
+            # merge of partials
+            "library_ms": r["library_ms"],
         })
     # the kernels at the attention-family geometries, launches from the lean
     # run of each architecture's phase (K8 and K6: its fixed run; K5: qwen3's
@@ -6981,6 +7525,17 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     # K7 at recurrentgemma's window layers (3000 keys), launches from its
     # first captured run; xlstm-350m launches no kernel
+    # K2 at gemma3-4b's global layers under sequence-parallel decode: launches
+    # from the sp phase's runs (524,288 keys: (b); 131,072: (c), all four ranks)
+    for keys in SP_K2_KEYS:
+        r = sp["k2"][str(keys)]
+        source, replaces = where["lean_decode_fused"]
+        kernels.append({
+            "name": f"lean_decode_fused@{SP_ARCH} long_500k {keys} keys", "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}", "replaces": replaces,
+            "launches": sp["launches"][f"K2_{keys}"], "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     r = recurrent["k7"][RG_K7_KEYS[0]]
     source, replaces = where["flash_prefill"]
     kernels.append({
@@ -7000,6 +7555,10 @@ def main() -> int:
           f"{train['a']['step_ms_p50']:.1f} ms, MFU {train['a']['mfu']:.4f}, peak "
           f"{train['a']['peak_gb']:.2f} GB; trained weights served: K7 {train['d']['K7']}, K2 "
           f"{train['d']['K2']} launches", flush=True)
+    print(f"sp phase ({smi}): step p50 (a) {sp['step_ms_p50']['a']:.2f} ms, (b) "
+          f"{sp['step_ms_p50']['b']:.2f} ms, (c) " + ", ".join(
+              f"{t:.2f}" for t in sp["step_ms_p50"]["c"]) + f" ms; K2 launches "
+          f"{sp['launches']}", flush=True)
     print(f"fused K4 launches from the spec phase's verify steps (bf16 pages, oracle): "
           f"{k4_verify}", flush=True)
     print(f"launches in the guards phase's chaos run (bf16 pages; K1 from level-2 passes, K2 "

@@ -6,13 +6,16 @@
   long_500k    seq=524,288 global_batch=1     -> a serve step (1 token);
                only for sub-quadratic archs (see ``shape_applicable``)
 
-The reference's ``input_specs`` (``jax.ShapeDtypeStruct`` stand-ins for
-its dry run) belongs to the distributed port and is left out.
+:func:`input_specs` gives every input of a shape's step as ``meta``
+tensors (the reference's ``jax.ShapeDtypeStruct`` stand-ins): shapes and
+dtypes, no memory.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Dict
+
+import torch
 
 
 @dataclass(frozen=True)
@@ -38,3 +41,30 @@ def shape_applicable(arch: str, shape: str) -> bool:
     if shape == "long_500k":
         return arch.split("-smoke")[0] in LONG_CTX_ARCHS
     return True
+
+
+def _has_xattn(cfg) -> bool:
+    return any("xattn" in pat for pat, _ in cfg.stages)
+
+
+def input_specs(cfg, shape: str) -> dict:
+    """Every input of the step ``shape`` lowers, as ``device="meta"``
+    tensors of the reference's shapes and dtypes
+    (``repro/configs/shapes.py:49``): ``tokens`` int32 ``(B, S)`` for a
+    train or prefill step (with ``img_emb`` bf16 ``(B, cross_kv_len,
+    d_model)`` for a cross-attention model); for a decode step ``tokens``
+    ``(B, 1)``, ``cur_len`` a 0-d int32 and ``cache`` of :func:`repro_torch.
+    models.init_cache` for ``S`` tokens (the port's per-layer list)."""
+    from repro_torch.models import init_cache
+
+    spec = SHAPES[shape]
+    B, S = spec.global_batch, spec.seq_len
+    meta = lambda shp, dt: torch.empty(shp, dtype=dt, device="meta")
+    if spec.kind in ("train", "prefill"):
+        out = {"tokens": meta((B, S), torch.int32)}
+    else:
+        out = {"tokens": meta((B, 1), torch.int32), "cur_len": meta((), torch.int32),
+               "cache": init_cache(cfg, B, S, device="meta")}
+    if _has_xattn(cfg):
+        out["img_emb"] = meta((B, cfg.cross_kv_len, cfg.d_model), torch.bfloat16)
+    return out

@@ -29,6 +29,8 @@ from typing import Optional
 
 import torch
 
+from .merge import AttnPartial
+
 NEG_INF = -1e30  # finite mask value: keeps (m, l) stats well-defined
 
 
@@ -312,6 +314,33 @@ def mha_decode_ref(
     s = _length_mask(s, ctx_lens)
     o = _softmax_pv(s, v, "bhgs,bhsd->bhgd")
     return o.reshape(B, Hq, d).to(q.dtype)
+
+
+def chunk_partial(
+    q: torch.Tensor,
+    k_chunk: torch.Tensor,
+    v_chunk: torch.Tensor,
+    scale: float,
+    valid_len=None,
+) -> AttnPartial:
+    """Un-scaled partial attention of ``q`` against one KV chunk (paper
+    §IV-A; ``repro/core/attention.py:273``). ``q (..., g, d)``,
+    ``k_chunk``/``v_chunk (..., t, d)``; ``valid_len`` an int or a tensor
+    broadcastable against the scores ``(..., g, t)``: keys at or past it are
+    masked with :data:`NEG_INF`. Returns float32 ``o (..., g, d)``, ``m, l
+    (..., g)``. A chunk with no valid key gives ``m = NEG_INF``, finite, as
+    in the reference: a merge with any valid chunk scales it to 0."""
+    s = torch.einsum("...gd,...td->...gt", q.float(), k_chunk.float()) * scale
+    if valid_len is not None:
+        pos = torch.arange(s.shape[-1], device=s.device)
+        if torch.is_tensor(valid_len):
+            valid_len = valid_len.to(s.device)
+        s = torch.where(pos < valid_len, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1)
+    a = torch.exp(s - m[..., None])
+    l = a.sum(dim=-1)
+    o = torch.einsum("...gt,...td->...gd", a.to(v_chunk.dtype).float(), v_chunk.float())
+    return AttnPartial(o=o, m=m, l=l)
 
 
 def _prefill_mask(Lq: int, Lk: int, q_offset: int, causal: bool,

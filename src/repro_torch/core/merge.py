@@ -42,6 +42,17 @@ def _guarded_scale(m: torch.Tensor, m_ref: torch.Tensor) -> torch.Tensor:
     return torch.where(_is_neg_inf(m), torch.zeros_like(m), torch.exp(m - safe))
 
 
+def identity_like(o_shape, dtype=torch.float32, device=None) -> AttnPartial:
+    """The merge's identity, ``o = 0, m = -inf, l = 0``:
+    ``merge(identity, x) == x``."""
+    stat_shape = tuple(o_shape)[:-1]
+    return AttnPartial(
+        o=torch.zeros(o_shape, dtype=dtype, device=device),
+        m=torch.full(stat_shape, float("-inf"), dtype=dtype, device=device),
+        l=torch.zeros(stat_shape, dtype=dtype, device=device),
+    )
+
+
 def merge(x: AttnPartial, y: AttnPartial) -> AttnPartial:
     """The paper's softmax re-scaling operator f(x, y)."""
     m_new = torch.maximum(x.m, y.m)
@@ -64,6 +75,25 @@ def merge_n(partials: AttnPartial) -> AttnPartial:
     l_star = (scale * partials.l).sum(dim=0)
     o_star = (scale[..., None] * partials.o).sum(dim=0)
     return AttnPartial(o=o_star, m=m_star, l=l_star)
+
+
+def tree_merge(partials: AttnPartial) -> AttnPartial:
+    """Reduce a stacked AttnPartial (leading axis = chunks) by a binary tree
+    of :func:`merge` (log depth), pairing halves as the reference does
+    (``repro/core/merge.py:98``): the first half with the second, an odd
+    chunk carried to the next level."""
+    n = partials.o.shape[0]
+    p = partials
+    while n > 1:
+        half = n // 2
+        merged = merge(AttnPartial(*(a[:half] for a in p)),
+                       AttnPartial(*(a[half:2 * half] for a in p)))
+        if n % 2:
+            merged = AttnPartial(*(torch.cat([a, b[2 * half:n]], dim=0)
+                                   for a, b in zip(merged, p)))
+        p = merged
+        n = (n + 1) // 2
+    return AttnPartial(*(a[0] for a in p))
 
 
 class MergeGrid(NamedTuple):

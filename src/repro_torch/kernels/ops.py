@@ -223,6 +223,7 @@ class DecodePlan:
     num_splits: Optional[int] = None      # flash only
     tile: Optional[int] = None            # flash only
     spec_rows: int = 0                    # verify only: q rows per sequence
+    out_dtype: Optional[torch.dtype] = None   # the output's dtype; None: the queries'
 
     def __post_init__(self):
         if self.kind not in _PLAN_KINDS:
@@ -341,7 +342,7 @@ def _run(q_seg, k_rows, v_rows, seg_ctx, route, plan: DecodePlan, k_scales=None,
 
 def _finish(o_seg, lse, q, plan: DecodePlan):
     B, Hq, d = q.shape
-    out = o_seg.reshape(B, Hq, d).to(q.dtype)
+    out = o_seg.reshape(B, Hq, d).to(plan.out_dtype or q.dtype)
     if plan.return_lse:
         return out, lse.reshape(B, Hq)
     return out
@@ -437,12 +438,13 @@ def lean_decode_from_schedule(
     fused: bool = True,
     merge_impl: str = "xla",
     return_lse: bool = False,
+    out_dtype: Optional[torch.dtype] = None,
 ):
     """Stream-K decode over dense KV ``(B, Hkv, S, d)`` against a prebuilt
     schedule (whose walk must cover ``seg_ctx``). Thin wrapper over
     :func:`decode` with a ``'dense'`` plan."""
     plan = DecodePlan(kind="dense", sched=sched, fused=fused, merge_impl=merge_impl,
-                      return_lse=return_lse)
+                      return_lse=return_lse, out_dtype=out_dtype)
     return decode(q, (k, v), plan=plan, ctx=seg_ctx)
 
 
@@ -458,12 +460,15 @@ def lean_decode(
     merge_impl: str = "xla",
     schedule_cache: Optional[ScheduleCache] = None,
     return_lse: bool = False,
+    out_dtype: Optional[torch.dtype] = None,
 ):
     """LeanAttention decode: exact attention, stream-K partitioned.
 
     q: (B, Hq, d); k, v: (B, Hkv, S, d); ctx_lens: host ints per batch row.
     ``schedule_cache`` buckets the lengths and memoizes the schedule;
-    without one an exact schedule is built per call.
+    without one an exact schedule is built per call. The output is in
+    ``out_dtype`` (by default the queries'): float32 keeps the kernels'
+    own output for a merge that follows.
     """
     B, Hq, d = q.shape
     _, Hkv, S, _ = k.shape
@@ -482,7 +487,7 @@ def lean_decode(
         np.repeat(np.asarray(ctx_lens), Hkv), dtype=torch.int32
     ).to(q.device)
     return lean_decode_from_schedule(q, k, v, seg_ctx, sched, fused=fused, merge_impl=merge_impl,
-                                     return_lse=return_lse)
+                                     return_lse=return_lse, out_dtype=out_dtype)
 
 
 def lean_decode_paged_from_schedule(

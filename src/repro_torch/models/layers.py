@@ -13,12 +13,13 @@ reference's (:func:`silu`, :func:`gelu`), so both round alike.
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
 
 from repro_torch.core.attention import (
+    kv_bytes,
     kv_write,
     mha_chunk_prefill_paged_ref,
     mha_decode_ref,
@@ -29,6 +30,7 @@ from repro_torch.core.attention import (
     paged_gather_kv_dequant,
     paged_scatter_tokens,
     paged_scatter_tokens_quant,
+    to_kv,
     widen_kv,
 )
 
@@ -135,6 +137,17 @@ def attn_forward(
     return out.to(x.dtype), (kh, vh)
 
 
+def _shard_write(cache: torch.Tensor, rows: torch.Tensor, local: torch.Tensor,
+                 vals: torch.Tensor) -> None:
+    """Write ``vals (B, Hkv, hd)`` at block-local positions ``local (B,)``
+    of a sequence shard, for the rows whose position lies in it; the other
+    rows rewrite their own value at a clamped position (no host sync)."""
+    mine = (local >= 0) & (local < cache.shape[2])
+    at = (rows, slice(None), local.clamp(0, cache.shape[2] - 1))
+    old = kv_bytes(cache)[at]
+    kv_bytes(cache)[at] = torch.where(mine[:, None, None], kv_bytes(to_kv(vals, cache.dtype)), old)
+
+
 def attn_decode(
     p,
     x: torch.Tensor,              # (B, 1, D) current token
@@ -149,6 +162,7 @@ def attn_decode(
     window: Optional[int] = None,
     attn_fn: Optional[Callable] = None,   # f(q, k_cache, v_cache, ctx) -> out
     ctx_lens: Optional[torch.Tensor] = None,   # (B,) per-slot lengths
+    seq_shard: Optional[Tuple[int, int]] = None,   # (offset, full length) of a sequence shard
 ):
     """One decode step of an attention layer against its dense cache
     (port of ``repro/models/layers.py:129-202``).
@@ -169,12 +183,22 @@ def attn_decode(
     reference's cast (:func:`repro_torch.core.attention.to_kv`); ``attn_fn``
     gets it as it is (the kernels widen in-register) and the plain path
     widens it to bf16, where the reference widens every read.
+    With ``seq_shard = (offset, S_full)`` the caches are one rank's block of
+    a cache of ``S_full`` positions split along the sequence, holding
+    positions ``[offset, offset + S)``: positions, clamps and the lengths
+    ``attn_fn`` receives are those of the full cache, and the token's K/V is
+    written only where its position falls in this block (elsewhere the
+    block's row keeps its value; the reference's ``dynamic_update_slice``
+    on the sharded global cache).
     Returns ``(out, k_cache, v_cache)``.
     """
     if ctx_lens is None and cur_len is None:
         raise ValueError("attn_decode needs ctx_lens (per slot) or cur_len")
     B = x.shape[0]
-    S = k_cache.shape[2]
+    offset, S = (0, k_cache.shape[2]) if seq_shard is None else seq_shard
+    if seq_shard is not None and (window is not None or attn_fn is None):
+        raise ValueError("a sequence shard is a global layer's cache, read by an attn_fn "
+                         "that merges across the shards")
     q, k, v = _project_qkv(p, x.to(COMPUTE_DTYPE), n_heads, n_kv, head_dim)
     if ctx_lens is not None:
         ctx_lens = ctx_lens.to(x.device)
@@ -190,8 +214,12 @@ def attn_decode(
     q = _maybe_rope(q, pos, rope_theta)
     k = _maybe_rope(k, pos, rope_theta)
     rows = torch.arange(B, device=x.device)
-    kv_write(k_cache, (rows, slice(None), write), k[:, 0])
-    kv_write(v_cache, (rows, slice(None), write), v[:, 0])
+    if seq_shard is None:
+        kv_write(k_cache, (rows, slice(None), write), k[:, 0])
+        kv_write(v_cache, (rows, slice(None), write), v[:, 0])
+    else:
+        _shard_write(k_cache, rows, write - offset, k[:, 0])
+        _shard_write(v_cache, rows, write - offset, v[:, 0])
     qd = q.reshape(B, n_heads, head_dim)
     if attn_fn is not None:
         o = attn_fn(qd, k_cache, v_cache, ctx)

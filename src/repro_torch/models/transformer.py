@@ -686,6 +686,7 @@ def decode_step(
     ctx_lens: Optional[torch.Tensor] = None,   # (B,) per-slot lengths
     page_tbl: Optional[torch.Tensor] = None,   # (B, pages_per_slot)
     cur_len=None,
+    seq_shard: Optional[Tuple[int, int]] = None,
 ):
     """One decode step, updating the cache in place. Returns ``(logits (B,
     V) float32, cache)``. With ``page_tbl`` the ``attn`` layers' caches are
@@ -701,10 +702,17 @@ def decode_step(
     -- an int or a one-element device tensor; by default ``max(ctx_lens)``,
     what the reference's engine passes. A recurrent layer advances every
     slot's state, masked and idle slots' too, as the reference's step does
-    (:func:`_recurrent_step`)."""
+    (:func:`_recurrent_step`). With ``seq_shard = (offset, S_full)`` the
+    dense caches of the ``attn`` and ``xattn`` layers are this rank's
+    blocks of caches split along the sequence (sequence-parallel decode,
+    :mod:`repro_torch.launch.serve_step`): each token's K/V lands only in
+    the block that holds its position, and ``attn_fn`` merges across the
+    blocks (:func:`attn_decode`); ``win`` rings stay whole."""
     check_supported(cfg)
     if ctx_lens is None:
         raise ValueError("decode_step needs the per-slot lengths ctx_lens")
+    if seq_shard is not None and page_tbl is not None:
+        raise ValueError("sequence shards are blocks of dense caches, not page pools")
     if cur_len is None and cfg.rope_theta is None:
         cur_len = ctx_lens.max()
     x = _embed(params, cfg, tokens, offset=cur_len if cur_len is not None else 0)
@@ -726,7 +734,8 @@ def decode_step(
             win = kind == "win"
             h, lc["k"], lc["v"] = attn_decode(lp["attn"], xn, lc["k"], lc["v"],
                                               window=cfg.window if win else None,
-                                              attn_fn=None if win else attn_fn, **kw)
+                                              attn_fn=None if win else attn_fn,
+                                              seq_shard=None if win else seq_shard, **kw)
         x = x + h
         if kind == "xattn":
             hx = cross_attn_decode(lp["xattn"], rms_norm(x, lp["ln_x"], cfg.norm_eps),
