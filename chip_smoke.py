@@ -6872,7 +6872,7 @@ def sp_phase(torch, sm_count: int, smi: str) -> dict:
 
     clock("sp phase (a)")
     fresh()
-    runs["a"] = sp_serve(torch, cfg, params, cache, make_serve_step(cfg))
+    runs["a"] = sp_serve(torch, cfg, params, cache, plain_step(torch, cfg))
     runs["a"]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     check(runs["a"]["K2"] == 0 and not runs["a"]["others"],
           f"(a) the plain step launched kernels: {runs['a']}")
@@ -6997,6 +6997,455 @@ def sp_phase(torch, sm_count: int, smi: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------- tensor-parallel serving
+TP_ARCH = "mistral-nemo-12b"
+TP_MOE_ARCH = "qwen3-moe-30b-a3b"
+TP_MOE_DEPTH = 16        # of qwen3-moe's 48: at model 2 the four ranks hold the model twice
+TP_BATCH, TP_PROMPT, TP_CACHE, TP_NEW_TOKENS = 4, 1024, 4096, 16
+TP_SEED = 30
+# run -> (architecture, mesh over (data, model)); world 4 on the one card, gloo
+TP_RUNS = {"b": (TP_ARCH, (1, 4)), "c": (TP_ARCH, (2, 2)), "d": (TP_MOE_ARCH, (2, 2))}
+# each rank's first-layer K/V after prefill against its block of the world-1
+# run's, in bf16 ulps (bf16_ulps): the same projections of the same
+# embeddings, a GEMM over a block of the columns
+TP_KV_ULPS = 2
+TP_TIMED_STEPS = 2       # steps after the run with every reduction timed (synced)
+TP_K2_KEYS = TP_PROMPT + TP_NEW_TOKENS
+
+
+def plain_step(torch, cfg):
+    """``decode_step`` with the plain attention (no ``attn_fn``): the oracle
+    runs' serve step, every row at ``cur``."""
+    from repro_torch.models import decode_step
+
+    def step(params, cache, tok, cur):
+        ctx = torch.full((tok.shape[0],), int(cur), dtype=torch.int32, device=tok.device)
+        return decode_step(params, cfg, cache, tok, ctx_lens=ctx, cur_len=int(cur))
+
+    return step
+
+
+def tp_config(arch: str, layers: int):
+    from repro_torch.configs import get_config
+
+    return arch_config(get_config(arch), layers)
+
+
+def tp_prompts(torch, cfg):
+    g = torch.Generator().manual_seed(TP_SEED)
+    return torch.randint(0, cfg.vocab_size, (TP_BATCH, TP_PROMPT), generator=g,
+                         dtype=torch.int32)
+
+
+def tp_params(torch, cfg, shard=None):
+    """Seeded bf16 weights (float32 norms), drawn on the card leaf by leaf;
+    with ``shard`` each rank keeps its block of a leaf as it is drawn."""
+    from repro_torch.models import init_params
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(TP_SEED)
+    return init_params(cfg, gen, device="cuda", dtype=torch.bfloat16, shard=shard)
+
+
+def tp_serve(torch, params, prefill, step, prompts) -> tuple:
+    """Prefill ``prompts`` (synced ms, K7's launches), then
+    ``TP_NEW_TOKENS`` greedy steps (synced ms each, K2's launches); the
+    first logits, each step's logits and tokens, the first layer's K/V over
+    the prompt. Returns ``(run, cache, cur)``."""
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first, cache, cur = prefill(params, prompts)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    pre = launch_counts()
+    kv = [cache[0][n][:, :, :TP_PROMPT].contiguous() for n in ("k", "v")]
+    reset_launch_counts()
+    tok = first.argmax(-1)[:, None].to(torch.int32)
+    logits, tokens, ms = [], [], []
+    for t in range(TP_NEW_TOKENS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = step(params, cache, tok, cur + t)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        tokens.append(tok[:, 0].cpu())
+        logits.append(lg.float().cpu())
+        tok = lg.argmax(-1)[:, None].to(torch.int32)
+    dec = launch_counts()
+    run = {"first": first.float().cpu(), "logits": torch.stack(logits),
+           "tokens": torch.stack(tokens), "prefill_ms": prefill_ms, "ms": ms,
+           "step_ms_p50": statistics.median(ms), "K7": pre["K7"], "K2": dec["K2"],
+           "others": {k: v for k, v in dec.items() if k != "K2" and v},
+           "prefill_others": {k: v for k, v in pre.items() if k != "K7" and v}, "kv": kv}
+    return run, cache, cur
+
+
+def tp_reduce_ms(torch, params, cache, step, cur, tok) -> list:
+    """``TP_TIMED_STEPS`` more steps with every row-parallel reduction
+    timed on the host clock between two syncs: ms per reduction."""
+    from repro_torch.distributed import tensor_parallel as tpm
+
+    saved, times = tpm.TensorParallel.row_sum, []
+
+    def timed(self, x):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = saved(self, x)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return y
+
+    tpm.TensorParallel.row_sum = timed
+    try:
+        for t in range(TP_TIMED_STEPS):
+            step(params, cache, tok, cur + TP_NEW_TOKENS + t)
+    finally:
+        tpm.TensorParallel.row_sum = saved
+    return times
+
+
+def tp_rank(rank: int, world: int, port: int, out_dir: str, arch: str, layers: int, shape):
+    """One rank of a tensor-parallel run: gloo over CUDA tensors, a (data,
+    model) mesh on the one card, ``decode_plan``'s plan (it must be
+    ``heads``); its blocks of the weights (each leaf drawn whole from the
+    shared seed, its block kept, the rest freed, one leaf at a time), its
+    rows of the prompts; the prefill and greedy run, its first-layer K/V
+    against its block of the world-1 run's (``cache_specs`` +
+    ``shard_of``), and the planted fault: the model group's KV-head blocks
+    rotated by one rank."""
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    from repro_torch.core.distributed import shard_of
+    from repro_torch.distributed.sharding import (P, cache_specs, choose_layout, decode_plan,
+                                                  param_specs, spec_paths)
+    from repro_torch.distributed.tensor_parallel import abstract_params
+    from repro_torch.launch.mesh import axis_group, axis_index, init_distributed, make_mesh
+    from repro_torch.launch.serve_step import make_prefill_step, make_serve_step
+
+    init_distributed(rank, world, port, "gloo")
+    try:
+        cfg = tp_config(arch, layers)
+        mesh = make_mesh(shape, ("data", "model"), "cuda")
+        layout = choose_layout(cfg)
+        plan = decode_plan(cfg, mesh, TP_BATCH, layout)
+        if plan["mode"] != "heads":
+            raise RuntimeError(f"decode_plan gave {plan} for {arch} at batch {TP_BATCH} on {shape}")
+        specs = spec_paths(param_specs(abstract_params(cfg), mesh, cfg, layout, mode="serve"))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = tp_params(torch, cfg, shard=lambda path, t: shard_of(t, specs[path], mesh).clone())
+        torch.cuda.synchronize()
+        weights = {"s": time.perf_counter() - t0, "gb": torch.cuda.memory_allocated() / 1e9,
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        rows = shard_of(tp_prompts(torch, cfg), P(plan["batch_spec"], None), mesh).cuda()
+        step = make_serve_step(cfg, mesh, plan, layout)
+        prefill = make_prefill_step(cfg, TP_CACHE, mesh, plan, layout)
+        if cfg.moe is not None and rank == 0:
+            # the prefill's MoE calls (every data rank's rows: the global
+            # batch's routing), for the router witness against world 1
+            done = {}
+            calls = router_calls(torch, cfg, lambda: done.update(
+                zip(("run", "cache", "cur"), tp_serve(torch, params, prefill, step, rows))))
+            run, cache, cur = done["run"], done["cache"], done["cur"]
+            torch.save(tp_router_record(torch, calls, cfg), os.path.join(out_dir, "calls.pt"))
+            del calls
+        else:
+            run, cache, cur = tp_serve(torch, params, prefill, step, rows)
+        tok = run["tokens"][-1][:, None].cuda()
+        run["reduce_ms"] = tp_reduce_ms(torch, params, cache, step, cur, tok)
+        run["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        # the first layer's K/V over the prompt against (a)'s block
+        want = torch.load(os.path.join(out_dir, "a_kv.pt"))
+        spec = cache_specs([{"k": want[0]}], mesh, TP_BATCH, layout, plan,
+                           cache_len=TP_PROMPT)[0]["k"]
+        group = axis_group(mesh, "model")
+        ulps, fault = [], []
+        for got, whole in zip(run.pop("kv"), want):
+            mine = shard_of(whole, spec, mesh).cuda()
+            ulps.append(bf16_ulps(torch, got, mine))
+            blocks = [torch.empty_like(got) for _ in range(mesh.size(1))]
+            dist.all_gather(blocks, got, group=group)
+            m = axis_index(mesh, "model")
+            fault.append(bf16_ulps(torch, blocks[(m + 1) % len(blocks)], mine))
+        run.update(plan=plan, spec=tuple(spec), kv_ulps=max(ulps), fault_ulps=min(fault),
+                   weights=weights, coord=(axis_index(mesh, "data"), axis_index(mesh, "model")),
+                   rows=tuple(rows.shape))
+        torch.save(run, os.path.join(out_dir, f"rank{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_router_record(torch, calls, cfg) -> list:
+    """The prefill's MoE calls of :func:`router_calls` (its first
+    ``n_layers``), on the host, the inputs in bf16."""
+    return [(x.to("cpu", dtype=torch.bfloat16), p.cpu(), i.cpu())
+            for x, p, i in calls[:cfg.n_layers]]
+
+
+def tp_k2_k7(torch, sm_count: int, dev_name: str, smi: str) -> dict:
+    """K2 (dense form) and K7 at a ``(1, 4)`` rank's geometry of
+    Mistral-NeMo-12B (Hq 8, Hkv 2, d 128, batch 4): K2 over ``TP_K2_KEYS``
+    keys of a ``TP_CACHE``-position cache, K7 causal over the 1024-token
+    prompts; each against its plain version, timed beside the plain
+    version, SDPA on the same inputs and the bound."""
+    from repro_torch.core.leantile import make_schedule
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import lean_decode as ld
+    from repro_torch.kernels import ops
+
+    B, Hq, Hkv, d, tile = TP_BATCH, 8, 2, 128, 128
+    g, dt, elem = Hq // Hkv, torch.bfloat16, 2
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(TP_SEED)
+    dev = torch.device("cuda")
+    out = {}
+    # K2: the serve step's decode of one global layer after the 16th token
+    S, n = TP_CACHE, TP_K2_KEYS
+    q = torch.randn(B, Hq, d, generator=gen, device=dev).to(dt)
+    k = torch.randn(B, Hkv, S, d, generator=gen, device=dev).to(dt)
+    v = torch.randn(B, Hkv, S, d, generator=gen, device=dev).to(dt)
+    sched = make_schedule([n] * B, Hkv, tile, sm_count)
+    seg_ctx = torch.full((B * Hkv,), n, dtype=torch.int32, device=dev)
+    route = ops._dense_route(sched, S, dev)
+    args = (q.reshape(B * Hkv, g, d).contiguous(), k.reshape(B * Hkv * S // tile, tile, d),
+            v.reshape(B * Hkv * S // tile, tile, d), seg_ctx, route, sched, 1.0 / math.sqrt(d))
+    o, lse = ld.lean_decode_fused(*args)
+    o_ref, lse_ref = ld.lean_decode_fused_plain(*args)
+    torch.cuda.synchronize()
+    err = max((o - o_ref).abs().max().item(), (lse - lse_ref).abs().max().item())
+    check(torch.allclose(o, o_ref, atol=BF16_TOL, rtol=BF16_TOL)
+          and torch.allclose(lse, lse_ref, atol=BF16_TOL, rtol=BF16_TOL),
+          f"K2 at the tensor-parallel rank geometry disagrees with its plain version: {err}")
+    ms = gpu_ms(lambda: ld.lean_decode_fused(*args))
+    plain_ms = gpu_ms(lambda: ld.lean_decode_fused_plain(*args), reps=3, warmup=1)
+    qf = q.reshape(B, Hkv, g, d)
+    kn, vn = k[:, :, :n], v[:, :, :n]
+    lib_ms = gpu_ms(lambda: sdpa(qf, kn, vn))
+    nbytes = 2 * B * Hkv * n * d * elem + q.numel() * elem + 4 * (o.numel() + lse.numel())
+    b_ms, b_by = bound(dev_name, "bfloat16", nbytes, 4 * g * d * n * B * Hkv)
+    out["K2"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+                 "bound_by": b_by, "max_abs_err": err}
+    print(f"  K2 dense @ {TP_ARCH} (1, 4) rank (B {B}, Hq {Hq}, Hkv {Hkv}, d {d}), {n} of {S} "
+          f"keys ({smi}): {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}; plain {plain_ms:.3f} ms; "
+          f"SDPA {lib_ms:.4f} ms); max|err| vs plain {err:.3e}; {sched.num_pieces} pieces on "
+          f"{sm_count} workers", flush=True)
+    del q, k, v, args, o, lse, o_ref, lse_ref
+    # K7: the rank's causal prefill of the prompts
+    L = TP_PROMPT
+    q = torch.randn(B, Hq, L, d, generator=gen, device=dev).to(dt)
+    k = torch.randn(B, Hkv, L, d, generator=gen, device=dev).to(dt)
+    v = torch.randn(B, Hkv, L, d, generator=gen, device=dev).to(dt)
+    fp.reset_launch_counts()
+    o = fp.flash_prefill(q, k, v, causal=True)
+    o_ref = fp.flash_prefill_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    check(fp.dense_tc_launches == fp.dense_launches == 1,
+          "K7 at the tensor-parallel rank geometry did not take the tensor cores")
+    err = (o.float() - o_ref.float()).abs().max().item()
+    step = torch.finfo(torch.bfloat16).eps * o_ref.float().abs()
+    check(bool(((o.float() - o_ref.float()).abs() <= step + BF16_TOL).all()),
+          f"K7 at the tensor-parallel rank geometry disagrees with its plain version: {err}")
+    ms = gpu_ms(lambda: fp.flash_prefill(q, k, v, causal=True))
+    plain_ms = gpu_ms(lambda: fp.flash_prefill_plain(q, k, v, causal=True), reps=3, warmup=1)
+    lib_ms = gpu_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
+    flops = 4 * B * Hq * d * visible_keys(L, L, True, None)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * elem
+    b_ms, b_by = bound(dev_name, "bfloat16", nbytes, flops)
+    out["K7"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+                 "bound_by": b_by, "max_abs_err": err}
+    print(f"  K7 @ {TP_ARCH} (1, 4) rank (B {B}, Hq {Hq}, Hkv {Hkv}, d {d}), causal {L} "
+          f"({smi}): {ms:.4f} ms, {flops / ms / 1e9:.1f} TFLOP/s (bound {b_ms:.4f} ms by "
+          f"{b_by}; plain {plain_ms:.3f} ms; SDPA {lib_ms:.4f} ms); max|err| vs plain "
+          f"{err:.3e}", flush=True)
+    return out
+
+
+def tp_streams(ref, run, rows, what: str, hold: bool = True) -> list:
+    """``run``'s greedy streams against ``ref``'s rows: equal, or parting
+    first where the logits that chose the token had a top-2 gap within
+    GUARD_NEAR_TIE. Returns ``[(row, step, gap)]`` of the partings."""
+    parts = []
+    want = ref["tokens"][:, rows]
+    for b in range(want.shape[1]):
+        diff = (run["tokens"][:, b] != want[:, b]).nonzero()
+        if not len(diff):
+            continue
+        t = int(diff[0])
+        lg = ref["first"][rows][b] if t == 0 else ref["logits"][t - 1][rows][b]
+        top2 = lg.topk(2).values
+        gap = (top2[0] - top2[1]).item()
+        parts.append((b, t, gap))
+        check(not hold or gap <= GUARD_NEAR_TIE,
+              f"{what}: row {b}'s greedy stream parts from the world-1 run's at step {t}, top-2 "
+              f"gap {gap} (allowed {GUARD_NEAR_TIE})")
+    return parts
+
+
+def tp_world4(torch, arch: str, layers: int, shape, a_kv) -> tuple:
+    """Spawn the four ranks of a run; their results by rank, the wall s and
+    (a MoE model) rank 0's prefill MoE calls."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    out_dir = tempfile.mkdtemp(prefix="tp_ranks_")
+    try:
+        torch.save([t.cpu() for t in a_kv], os.path.join(out_dir, "a_kv.pt"))
+        t0 = time.perf_counter()
+        mp.spawn(tp_rank, args=(4, free_port(), out_dir, arch, layers, shape), nprocs=4,
+                 join=True)
+        wall = time.perf_counter() - t0
+        path = os.path.join(out_dir, "calls.pt")
+        calls = torch.load(path) if os.path.exists(path) else None
+        return [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+                for r in range(4)], wall, calls
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def tp_phase(torch, sm_count: int, smi: str, depths=None) -> dict:
+    """Tensor-parallel serving (plan ``heads``): K2 and K7 at a (1, 4)
+    rank's geometry, then Mistral-NeMo-12B at full width and depth, batch 4,
+    1024-token prompts, a 4096-position cache, 16 greedy tokens: (a) world
+    1, the whole weights, ``make_prefill_step`` + ``decode_step`` with the
+    plain attention (the oracle); (b) world 4 on the one card over gloo,
+    mesh (1, 4); (c) mesh (2, 2), the rows split over data; and
+    qwen3-moe-30b-a3b at full width, ``TP_MOE_DEPTH`` layers: its world-1
+    run, then (d) mesh (2, 2) (EP: 64 experts a rank). Each world-4 run:
+    the first-token logits against its world-1 run's, the streams, the
+    model groups' logits bit for bit, each rank's first-layer K/V against
+    its block of the world-1 run's and the planted head rotation, K2's and
+    K7's launches per rank. Four ranks share the card's SMs and gloo stages
+    through the host: the world-4 times say nothing about scaling.
+    ``depths`` ({architecture: layers}) cuts the models' depths (the full
+    run's ``FULL_RUN_DEPTH``); by default Mistral-NeMo-12B's 40 and
+    qwen3-moe's ``TP_MOE_DEPTH``."""
+    from repro_torch.launch.serve_step import make_prefill_step
+
+    dev_name = torch.cuda.get_device_name(0)
+    print(f"tp phase ({smi}): K2 and K7 at the (1, 4) rank geometry", flush=True)
+    kern = tp_k2_k7(torch, sm_count, dev_name, smi)
+    res = {"card": smi, "kernels": kern, "runs": {}}
+    depths = depths or {TP_ARCH: 40, TP_MOE_ARCH: TP_MOE_DEPTH}
+    for arch in (TP_ARCH, TP_MOE_ARCH):
+        cfg = tp_config(arch, depths[arch])
+        clock(f"tp phase: {arch} world 1")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = tp_params(torch, cfg)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        prompts = tp_prompts(torch, cfg).cuda()
+        done = {}
+        serve = lambda: done.update(zip(("a", "cache"), tp_serve(
+            torch, params, make_prefill_step(cfg, TP_CACHE), plain_step(torch, cfg), prompts)))
+        a_calls = None
+        if cfg.moe is not None:
+            a_calls = tp_router_record(torch, router_calls(torch, cfg, serve), cfg)
+        else:
+            serve()
+        a, cache = done["a"], done["cache"]
+        a["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        a_kv = [t.cpu() for t in a.pop("kv")]
+        del params, cache
+        torch.cuda.empty_cache()
+        name = "a" if arch == TP_ARCH else "a_moe"
+        check(a["K2"] == 0 and not a["others"],
+              f"({name}) the plain decode launched kernels: K2 {a['K2']}, {a['others']}")
+        print(f"tp ({name}) world 1, {arch} at {cfg.n_layers} layers ({smi}): weights {init_s:.1f} "
+              f"s; prefill {a['prefill_ms']:.1f} ms (K7 {a['K7']} launches); step p50 "
+              f"{a['step_ms_p50']:.2f} ms; peak {a['peak_gb']:.2f} GB; tokens "
+              f"{a['tokens'].T.tolist()}", flush=True)
+        ref0 = a["first"]
+        typical = ref0.abs().median().item()
+        atol = LOGIT_ATOL_FRAC * typical
+        res["runs"][name] = {"arch": arch, "layers": cfg.n_layers,
+                             "prefill_ms": a["prefill_ms"], "step_ms_p50": a["step_ms_p50"],
+                             "peak_gb": a["peak_gb"], "K7": a["K7"]}
+        for run_name, (run_arch, shape) in TP_RUNS.items():
+            if run_arch != arch:
+                continue
+            clock(f"tp phase ({run_name})")
+            ranks, wall, calls = tp_world4(torch, arch, cfg.n_layers, shape, a_kv)
+            # each rank's rows of the batch: its data index's block
+            rows_of = [slice(x["coord"][0] * x["rows"][0], (x["coord"][0] + 1) * x["rows"][0])
+                       for x in ranks]
+            gaps = [(x["first"] - ref0[rows]).abs().max().item()
+                    for x, rows in zip(ranks, rows_of)]
+            witness = None
+            if calls is not None and max(gaps) > atol:
+                # a MoE run parting from world 1 past the bound: the first
+                # routing difference must be a router near tie
+                witness = router_witness(torch, cfg, [tuple(t.cuda() for t in c) for c in calls],
+                                         [tuple(t.cuda() for t in c) for c in a_calls],
+                                         f"({run_name}) rank 0 against ({name})", 0)
+            parts = []
+            for r, (x, rows, gap) in enumerate(zip(ranks, rows_of, gaps)):
+                d = x["coord"][0]
+                check(x["plan"]["mode"] == "heads", f"({run_name}) rank {r}: plan {x['plan']}")
+                check(x["K7"] == cfg.n_layers and not x["prefill_others"],
+                      f"({run_name}) rank {r}: K7 launched {x['K7']} times in the prefill, "
+                      f"expected {cfg.n_layers}; others {x['prefill_others']}")
+                check(x["K2"] == cfg.n_layers * TP_NEW_TOKENS and not x["others"],
+                      f"({run_name}) rank {r}: K2 launched {x['K2']} times, expected "
+                      f"{cfg.n_layers} x {TP_NEW_TOKENS}; others {x['others']}")
+                peer = next(y for y in ranks if y["coord"][0] == d)
+                check(all(torch.equal(x[k], peer[k]) for k in ("first", "logits", "tokens")),
+                      f"({run_name}) rank {r}'s logits differ from its model group's")
+                if witness is None:
+                    check(torch.allclose(x["first"], ref0[rows], rtol=LOGIT_RTOL, atol=atol),
+                          f"({run_name}) rank {r}'s first-token logits differ from the world-1 "
+                          f"run's by {gap} (allowed {atol:.4f} + {LOGIT_RTOL} |ref|)")
+                else:      # past a router flip: the MoE phase's bound for lean against ref
+                    check(gap <= QWEN3_FIRST_LOGIT_GAP,
+                          f"({run_name}) rank {r}'s first-token logits differ from the world-1 "
+                          f"run's by {gap} past a router flip (bound {QWEN3_FIRST_LOGIT_GAP})")
+                parts.append(tp_streams(a, x, rows, f"({run_name}) rank {r}",
+                                        hold=witness is None))
+                check(x["kv_ulps"] <= TP_KV_ULPS,
+                      f"({run_name}) rank {r}'s first-layer K/V are {x['kv_ulps']} bf16 ulps "
+                      f"from its block of the world-1 run's (allowed {TP_KV_ULPS})")
+                check(x["fault_ulps"] > TP_KV_ULPS,
+                      f"({run_name}) rank {r}: the rotated head blocks passed the K/V check "
+                      f"({x['fault_ulps']} ulps)")
+                red = statistics.median(x["reduce_ms"])
+                per_step = len(x["reduce_ms"]) / TP_TIMED_STEPS
+                print(f"tp ({run_name}) rank {r} at {tuple(x['coord'])} of {shape}, rows "
+                      f"{rows.start}-{rows.stop - 1} ({smi}): weights {x['weights']['gb']:.2f} GB "
+                      f"in {x['weights']['s']:.1f} s (peak {x['weights']['peak_gb']:.2f} GB); "
+                      f"prefill {x['prefill_ms']:.1f} ms (K7 {x['K7']}); step p50 "
+                      f"{x['step_ms_p50']:.2f} ms (K2 {x['K2']}); reduction p50 {red:.3f} ms, "
+                      f"{per_step:.0f} a step ({red * per_step / cfg.n_layers:.3f} ms a layer); "
+                      f"peak {x['peak_gb']:.2f} GB; first-token gap {gap:.4f}; K/V "
+                      f"{x['kv_ulps']:.3f} ulps, rotated {x['fault_ulps']:.1f}", flush=True)
+            streams = torch.cat([x["tokens"] for x in ranks[::shape[1]]], 1).T.tolist()
+            print(f"tp ({run_name}): four ranks share the card's SMs and gloo stages every "
+                  f"collective through the host: these times say nothing about scaling; spawn + "
+                  f"run {wall:.1f} s; streams {streams}; partings {parts}; first-token logits "
+                  f"allowed {atol:.4f} + {LOGIT_RTOL} |ref|", flush=True)
+            res["runs"][run_name] = {
+                "arch": arch, "mesh": list(shape), "wall_s": wall,
+                "prefill_ms": [x["prefill_ms"] for x in ranks],
+                "step_ms_p50": [x["step_ms_p50"] for x in ranks],
+                "reduce_ms_p50": [statistics.median(x["reduce_ms"]) for x in ranks],
+                "peak_gb": [x["peak_gb"] for x in ranks],
+                "weights_gb": [x["weights"]["gb"] for x in ranks],
+                "K2": [x["K2"] for x in ranks], "K7": [x["K7"] for x in ranks],
+                "first_token_gap": gaps, "kv_ulps": [x["kv_ulps"] for x in ranks],
+                "fault_ulps": [x["fault_ulps"] for x in ranks], "partings": parts,
+                "router_witness": witness}
+    res["launches"] = {"K2": sum(res["runs"]["b"]["K2"]), "K7": sum(res["runs"]["b"]["K7"])}
+    print(json.dumps({"tp": res}), flush=True)
+    return res
+
+
 # Depths the full run cuts to stay inside its 1200 s on a slow host: at the
 # full depths (qwen3-moe's 48 layers, the recurrent models' 38 and 24, the
 # captured-step bit checks at 20 of 40) one full run reached its summary at
@@ -7008,8 +7457,12 @@ def sp_phase(torch, sm_count: int, smi: str) -> dict:
 # its 40 layers ("mistral_late"). The phases alone (``--qwen3-step``,
 # ``--recurrent-step``, ``--train-step``, ``--spec-step``,
 # ``--admission-step``, ``--obs-step``, ``--guards-step``) keep their
-# depths.
-FULL_RUN_DEPTH = {"qwen3": 24, "recurrent": 8, "resume": 8, "mistral_late": 20}
+# depths. With the tensor-parallel phase at its own depths (Mistral-NeMo-12B's
+# 40 layers, qwen3-moe's 16) a full run reached its summary at 970.3 s, so
+# the full run serves that phase at 10 and 8 layers ("tp", "tp_moe");
+# ``--tp-step`` keeps 40 and 16.
+FULL_RUN_DEPTH = {"qwen3": 24, "recurrent": 8, "resume": 8, "mistral_late": 20, "tp": 10,
+                  "tp_moe": 8}
 
 TICK_SOURCES = ("lean_decode.cu", "flash_prefill.cu")
 
@@ -7109,7 +7562,7 @@ def main() -> int:
             torch, int(sys.argv[2]) if len(sys.argv) > 2 else None)))
         return 0
     arch_alone = {"--arch-kernels", "--qwen3-step", "--gemma-step", "--arch-sweep",
-                  "--recurrent-step", "--train-step", "--sp-step"}
+                  "--recurrent-step", "--train-step", "--sp-step", "--tp-step"}
     if sys.argv[1:2] and sys.argv[1] in arch_alone:
         torch.backends.cuda.matmul.allow_tf32 = False
         sm_count = torch.cuda.get_device_properties(0).multi_processor_count
@@ -7133,6 +7586,9 @@ def main() -> int:
         elif sys.argv[1] == "--sp-step":
             clock("sp phase")
             sp_phase(torch, sm_count, smi)
+        elif sys.argv[1] == "--tp-step":
+            clock("tp phase")
+            tp_phase(torch, sm_count, smi)
         else:
             sweep_phase(torch, sm_count, smi)
         clock("done")
@@ -7441,9 +7897,15 @@ def main() -> int:
     # and over NCCL) and world 4 on the one card (gloo), K2 on each shard
     clock("sp phase")
     sp = sp_phase(torch, sm_count, smi)
+    # 22. tensor-parallel serving: K2 and K7 at a (1, 4) rank's geometry,
+    # Mistral-NeMo-12B world 1 and world 4 on (1, 4) and (2, 2), qwen3-moe
+    # at 16 layers on (2, 2)
+    clock("tp phase")
+    tp = tp_phase(torch, sm_count, smi, depths={TP_ARCH: FULL_RUN_DEPTH["tp"],
+                                                TP_MOE_ARCH: FULL_RUN_DEPTH["tp_moe"]})
 
     clock("summary")
-    # 22. summary: kernel times in bf16 at the main path's shapes; launches
+    # 23. summary: kernel times in bf16 at the main path's shapes; launches
     # from the run of the path each kernel serves
     k6 = k6res[(DECODE_SHAPES[0], "bfloat16")]
     kres[("flash_decode_partials", "bfloat16")] = k6
@@ -7536,6 +7998,17 @@ def main() -> int:
             "launches": sp["launches"][f"K2_{keys}"], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    # K2 and K7 at a (1, 4) tensor-parallel rank's geometry, launches from
+    # the tp phase's run (b), all four ranks
+    for kernel, name in (("K2", "lean_decode_fused"), ("K7", "flash_prefill")):
+        r = tp["kernels"][kernel]
+        source, replaces = where[name]
+        kernels.append({
+            "name": f"{name}@{TP_ARCH} tensor-parallel rank (1, 4)", "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}", "replaces": replaces,
+            "launches": tp["launches"][kernel], "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     r = recurrent["k7"][RG_K7_KEYS[0]]
     source, replaces = where["flash_prefill"]
     kernels.append({
@@ -7559,6 +8032,12 @@ def main() -> int:
           f"{sp['step_ms_p50']['b']:.2f} ms, (c) " + ", ".join(
               f"{t:.2f}" for t in sp["step_ms_p50"]["c"]) + f" ms; K2 launches "
           f"{sp['launches']}", flush=True)
+    b, c, d_ = (tp["runs"][k] for k in ("b", "c", "d"))
+    print(f"tp phase ({smi}): step p50 (a) {tp['runs']['a']['step_ms_p50']:.2f} ms, (b) "
+          + ", ".join(f"{t:.2f}" for t in b["step_ms_p50"]) + " ms, (c) "
+          + ", ".join(f"{t:.2f}" for t in c["step_ms_p50"]) + " ms, (d) "
+          + ", ".join(f"{t:.2f}" for t in d_["step_ms_p50"]) + f" ms; launches (b) "
+          f"{tp['launches']}", flush=True)
     print(f"fused K4 launches from the spec phase's verify steps (bf16 pages, oracle): "
           f"{k4_verify}", flush=True)
     print(f"launches in the guards phase's chaos run (bf16 pages; K1 from level-2 passes, K2 "

@@ -21,9 +21,13 @@ reference's tests' ``FakeMesh``). The port's parameters and caches hold
 one entry per layer where the reference stacks a stage's repeats, so a
 layer's spec is the reference's stacked spec without its leading ``None``
 (the repeats axis); the rules are the reference's. The serving path
-(:mod:`repro_torch.launch.serve_step`) executes :func:`decode_plan` and
-:func:`cache_specs`; :func:`param_specs` is the policy alone here (the
-sharded train step is the training half of the distributed port).
+(:mod:`repro_torch.launch.serve_step`) executes :func:`decode_plan`,
+:func:`cache_specs` and, under plan ``heads``, :func:`param_specs` with
+``mode="serve"`` (:mod:`repro_torch.distributed.tensor_parallel`);
+:func:`shard_tree` cuts a rank's blocks of a whole tree, as the
+reference's ``jax.device_put`` with ``NamedSharding`` places it. The
+sharded train step is the training half of the distributed port, still to
+come.
 """
 from __future__ import annotations
 
@@ -284,6 +288,43 @@ def to_named(tree_specs, mesh):
         return tuple(out)
 
     return _map_specs(placements, tree_specs)
+
+
+def spec_paths(specs) -> dict:
+    """``{path: spec}`` of a tree of :class:`P` (the paths of
+    :func:`repro_torch.training.tree.flatten` of the tree it matches)."""
+    out = {}
+
+    def walk(node, prefix):
+        if isinstance(node, P):
+            out["/".join(prefix)] = node
+        elif isinstance(node, dict):
+            for k in node:
+                walk(node[k], prefix + (str(k),))
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, prefix + (str(i),))
+
+    walk(specs, ())
+    return out
+
+
+def shard_tree(tree, specs, mesh):
+    """This rank's block of every leaf of ``tree`` under ``specs`` (a tree
+    of :class:`P` matching it, e.g. :func:`param_specs` or
+    :func:`cache_specs`): :func:`repro_torch.core.distributed.shard_of` of
+    each leaf, copied out of the whole leaf so that the whole can be freed.
+    A dimension split over an axis it does not divide raises
+    (``shard_of``); the policy leaves such a dimension whole."""
+    from repro_torch.core.distributed import shard_of
+
+    if isinstance(specs, P):
+        return shard_of(tree, specs, mesh).clone()
+    if isinstance(tree, dict):
+        return {k: shard_tree(v, specs[k], mesh) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(shard_tree(v, s, mesh) for v, s in zip(tree, specs, strict=True))
+    raise TypeError(f"no spec for a leaf of type {type(tree).__name__}")
 
 
 def _map_specs(fn, tree):

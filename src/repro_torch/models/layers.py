@@ -111,6 +111,7 @@ def attn_forward(
     window: Optional[int] = None,
     kv_states: Optional[torch.Tensor] = None,   # cross attention: (B, Lk, D)
     attn: Callable = mha_prefill_ref,
+    reduce: Optional[Callable] = None,
 ):
     """Self-attention over a whole prompt (prefill), causal and optionally
     sliding-window, or with ``kv_states`` cross attention to them
@@ -121,7 +122,10 @@ def attn_forward(
     :func:`repro_torch.core.attention.mha_prefill_chunked` (same result,
     less memory), or the kernel K7
     (:func:`repro_torch.kernels.flash_prefill.flash_prefill`); the model
-    picks (:func:`repro_torch.models.transformer.prefill`)."""
+    picks (:func:`repro_torch.models.transformer.prefill`). The head counts
+    are those of the weights' blocks (tensor parallel: this rank's heads),
+    and ``reduce`` (tensor parallel: the row-parallel sum over the ranks
+    holding the other heads' blocks of ``wo``) takes the ``wo`` product."""
     B, L, _ = x.shape
     xc = x.to(COMPUTE_DTYPE)
     src = None if kv_states is None else kv_states.to(COMPUTE_DTYPE)
@@ -133,8 +137,14 @@ def attn_forward(
     qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     o = attn(qh, kh, vh, causal=causal and src is None, window=window)
     o = o.transpose(1, 2).reshape(B, L, n_heads * head_dim)
-    out = o.to(COMPUTE_DTYPE) @ p["wo"].to(COMPUTE_DTYPE)
+    out = _reduced(o.to(COMPUTE_DTYPE) @ p["wo"].to(COMPUTE_DTYPE), reduce)
     return out.to(x.dtype), (kh, vh)
+
+
+def _reduced(y: torch.Tensor, reduce: Optional[Callable]) -> torch.Tensor:
+    """A row-parallel product's partial summed over the ranks (``reduce``),
+    or the whole product (None)."""
+    return y if reduce is None else reduce(y)
 
 
 def _shard_write(cache: torch.Tensor, rows: torch.Tensor, local: torch.Tensor,
@@ -163,6 +173,7 @@ def attn_decode(
     attn_fn: Optional[Callable] = None,   # f(q, k_cache, v_cache, ctx) -> out
     ctx_lens: Optional[torch.Tensor] = None,   # (B,) per-slot lengths
     seq_shard: Optional[Tuple[int, int]] = None,   # (offset, full length) of a sequence shard
+    reduce: Optional[Callable] = None,   # tensor parallel: the wo product's sum
 ):
     """One decode step of an attention layer against its dense cache
     (port of ``repro/models/layers.py:129-202``).
@@ -189,7 +200,9 @@ def attn_decode(
     ``attn_fn`` receives are those of the full cache, and the token's K/V is
     written only where its position falls in this block (elsewhere the
     block's row keeps its value; the reference's ``dynamic_update_slice``
-    on the sharded global cache).
+    on the sharded global cache). Under tensor parallelism the weights and
+    caches are this rank's heads' blocks and ``reduce`` sums the ``wo``
+    product over the ranks (:func:`attn_forward`).
     Returns ``(out, k_cache, v_cache)``.
     """
     if ctx_lens is None and cur_len is None:
@@ -226,22 +239,24 @@ def attn_decode(
     else:
         o = mha_decode_ref(qd, widen_kv(k_cache), widen_kv(v_cache), ctx_lens=ctx)
     o = o.reshape(B, 1, n_heads * head_dim).to(COMPUTE_DTYPE)
-    out = o @ p["wo"].to(COMPUTE_DTYPE)
+    out = _reduced(o @ p["wo"].to(COMPUTE_DTYPE), reduce)
     return out.to(x.dtype), k_cache, v_cache
 
 
 def cross_attn_decode(p, x: torch.Tensor, xk: torch.Tensor, xv: torch.Tensor, *,
-                      n_heads: int, head_dim: int) -> torch.Tensor:
+                      n_heads: int, head_dim: int, reduce: Optional[Callable] = None
+                      ) -> torch.Tensor:
     """The gated cross attention's decode read (``repro/models/
     transformer.py:862-875`` without the gate): the token's query ``x (B,
     1, D)`` (no q norm, as the reference) against every row of the cached
     image K/V ``xk``/``xv (B, Hkv, cross_kv_len, hd)``, through the plain
-    oracle as the reference's engine runs it. Returns ``(B, 1, D)``."""
+    oracle as the reference's engine runs it; ``reduce`` as in
+    :func:`attn_decode`. Returns ``(B, 1, D)``."""
     B = x.shape[0]
     xc = x.to(COMPUTE_DTYPE)
     q = (xc @ p["wq"].to(COMPUTE_DTYPE)).reshape(B, n_heads, head_dim)
     o = mha_decode_ref(q, widen_kv(xk), widen_kv(xv)).reshape(B, 1, -1).to(COMPUTE_DTYPE)
-    return (o @ p["wo"].to(COMPUTE_DTYPE)).to(x.dtype)
+    return _reduced(o @ p["wo"].to(COMPUTE_DTYPE), reduce).to(x.dtype)
 
 
 def _decode_pages(page_tbl: torch.Tensor, write_pos: torch.Tensor, page_size: int):
@@ -447,11 +462,15 @@ def gelu(h: torch.Tensor) -> torch.Tensor:
 
 
 def ffn_forward(p, x: torch.Tensor, kind: str = "swiglu",
-                compute_dtype: torch.dtype = COMPUTE_DTYPE) -> torch.Tensor:
+                compute_dtype: torch.dtype = COMPUTE_DTYPE,
+                reduce: Optional[Callable] = None) -> torch.Tensor:
     """The feed-forward kinds of ``repro/models/layers.py:427-439``: SwiGLU
     (``silu(x wg) * (x wu)``), GeLU (``gelu(x wu)``) and squared ReLU
     (``relu(x wu)**2``, Nemotron-4), then ``wd``; the activations in
-    ``compute_dtype``, op for op as XLA rounds them."""
+    ``compute_dtype``, op for op as XLA rounds them. Tensor parallel: the
+    weights are this rank's blocks of the hidden width (column-parallel
+    ``wg``/``wu``, row-parallel ``wd``) and ``reduce`` sums the ``wd``
+    product over the ranks."""
     xc = x.to(compute_dtype)
     if kind == "swiglu":
         h = silu(xc @ p["wg"].to(compute_dtype)) * (xc @ p["wu"].to(compute_dtype))
@@ -462,4 +481,4 @@ def ffn_forward(p, x: torch.Tensor, kind: str = "swiglu",
         h = r * r
     else:
         raise ValueError(kind)
-    return (h @ p["wd"].to(compute_dtype)).to(x.dtype)
+    return _reduced(h @ p["wd"].to(compute_dtype), reduce).to(x.dtype)

@@ -26,6 +26,7 @@ through the router's probabilities.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Callable, Optional
 
 import torch
 
@@ -81,16 +82,29 @@ def capacity(cfg: MoEConfig, tokens_per_group: int) -> int:
 
 
 def moe_forward(p, x: torch.Tensor, cfg: MoEConfig,
-                compute_dtype: torch.dtype = COMPUTE_DTYPE, aux_loss: bool = False):
+                compute_dtype: torch.dtype = COMPUTE_DTYPE, aux_loss: bool = False,
+                expert_offset: int = 0, reduce: Optional[Callable] = None,
+                shared_reduce: Optional[Callable] = None):
     """``x (B, L, D)`` -> ``(out, aux)``: the MoE output ``(B, L, D)`` in
     x's dtype and, with ``aux_loss``, the Switch load-balancing loss
     ``router_aux_weight * E * sum(mean probs * share of tokens whose first
     choice is the expert)``, a float32 scalar (else None). Tokens split into
     :func:`_auto_groups` dispatch groups, as the reference's default. The
     router's softmax is float32, then top-k, then the renormalisation of
-    the kept weights (``norm_topk_prob``)."""
+    the kept weights (``norm_topk_prob``).
+
+    Tensor parallel (plan ``heads``; ``x`` is then the global batch, and the
+    router is whole, so the routing, the capacity and the drops are the
+    global batch's): with expert parallelism the expert weights are this
+    rank's ``E_local = wg.shape[0]`` experts from ``expert_offset``, and
+    the rank fills and runs only their slots of the ``(G, E, C, D)``
+    buffer; with expert-TP they are its block of ``d_ff_expert``. Either
+    way the rank's combine is a partial of the routed output, summed in
+    float32 by ``reduce`` before the one rounding; ``shared_reduce`` sums
+    the shared expert's row-parallel ``wd`` product (:func:`ffn_forward`)."""
     B, L, D = x.shape
     E, K = cfg.num_experts, cfg.top_k
+    El = p["wg"].shape[0]                                    # the experts held here
     T = B * L
     G = _auto_groups(T)
     while T % G:
@@ -119,24 +133,29 @@ def moe_forward(p, x: torch.Tensor, cfg: MoEConfig,
     keep = pos_in_e < C                                      # (G, TK)
     tok_of_pair = order // K
     cols = torch.arange(C, device=dev)[None, None, :]
-    # buf[g, e, c] = token of the pair at sorted position first_of_e + c
-    slot_src = (first_of_e[:, :, None] + cols).reshape(G, E * C)
-    slot_valid = (cols < counts[:, :, None]).reshape(G, E * C)
+    # buf[g, e, c] = token of the pair at sorted position first_of_e + c,
+    # for the held experts [expert_offset, expert_offset + El)
+    held = slice(expert_offset, expert_offset + El)
+    slot_src = (first_of_e[:, held, None] + cols).reshape(G, El * C)
+    slot_valid = (cols < counts[:, held, None]).reshape(G, El * C)
     src_tok = torch.gather(tok_of_pair, 1, torch.clamp(slot_src, 0, TK - 1))
-    buf = torch.gather(xt, 1, src_tok[..., None].expand(G, E * C, D))
+    buf = torch.gather(xt, 1, src_tok[..., None].expand(G, El * C, D))
     buf = torch.where(slot_valid[..., None], buf, torch.zeros((), dtype=buf.dtype, device=dev))
-    buf = buf.reshape(G, E, C, D)
+    buf = buf.reshape(G, El, C, D)
 
     # ---- expert computation ----
     wg = p["wg"].to(compute_dtype)
     wu = p["wu"].to(compute_dtype)
     wd = p["wd"].to(compute_dtype)
     h = silu(torch.einsum("gecd,edf->gecf", buf, wg)) * torch.einsum("gecd,edf->gecf", buf, wu)
-    y = torch.einsum("gecf,efd->gecd", h, wd).to(compute_dtype)          # (G, E, C, D)
+    y = torch.einsum("gecf,efd->gecd", h, wd).to(compute_dtype)          # (G, El, C, D)
 
     # ---- combine (gather back) ----
-    y_flat = y.reshape(G, E * C, D)
-    slot_of_pair = torch.where(keep, sorted_e * C + pos_in_e, torch.zeros_like(pos_in_e))
+    if El != E:                   # the pairs routed to the held experts
+        keep = keep & (sorted_e >= expert_offset) & (sorted_e < expert_offset + El)
+    y_flat = y.reshape(G, El * C, D)
+    slot_of_pair = torch.where(keep, (sorted_e - expert_offset) * C + pos_in_e,
+                               torch.zeros_like(pos_in_e))
     y_sorted = torch.gather(y_flat, 1, slot_of_pair[..., None].expand(G, TK, D))
     y_sorted = torch.where(keep[..., None], y_sorted,
                            torch.zeros((), dtype=y_sorted.dtype, device=dev))
@@ -148,13 +167,16 @@ def moe_forward(p, x: torch.Tensor, cfg: MoEConfig,
     # steps and the model's scanned stages; op by op, eagerly, it rounds
     # each product instead)
     out = (gate_w.to(compute_dtype).float()[..., None] * y_pairs.float()).sum(dim=2)
+    if reduce is not None:
+        out = reduce(out)
     out = out.to(compute_dtype)
 
     out = out.to(x.dtype)
     if cfg.d_ff_shared:
         # added in x's dtype: under jit XLA drops the reference's rounding of
         # the sum to the compute dtype where the result is widened after
-        shared = ffn_forward(p["shared"], xt, kind="swiglu", compute_dtype=compute_dtype)
+        shared = ffn_forward(p["shared"], xt, kind="swiglu", compute_dtype=compute_dtype,
+                             reduce=shared_reduce)
         out = (out.to(compute_dtype) + shared).to(x.dtype)
     aux = None
     if aux_loss:

@@ -53,7 +53,9 @@ F32 = torch.float32
 
 def _dense(generator: torch.Generator, shape, dev, dtype, scale=None) -> torch.Tensor:
     """The reference's ``dense_init``: normal / sqrt(fan_in) (``shape[0]``),
-    or ``scale``."""
+    or ``scale``; on the ``meta`` device the shape alone."""
+    if torch.device(dev).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=dev)
     scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
     w = torch.randn(shape, generator=generator, device=generator.device)
     return w.mul_(scale).to(device=dev, dtype=dtype)

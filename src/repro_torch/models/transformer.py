@@ -165,6 +165,7 @@ def init_params(
     generator: torch.Generator,
     device: DeviceLike = "cuda",
     dtype: torch.dtype = torch.bfloat16,
+    shard: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None,
 ) -> Dict:
     """Random weights with the reference's initialisation (normal /
     sqrt(fan_in) -- for a stacked expert weight ``(E, ...)`` the reference
@@ -175,62 +176,81 @@ def init_params(
     recurrent leaves the reference reads as float32 (:data:`F32_KEYS`) in
     float32. (The numbers differ from the JAX
     package's for the same seed; the tests carry weights across with
-    :func:`params_from_numpy` instead.)"""
+    :func:`params_from_numpy` instead.)
+
+    ``shard(path, leaf)`` (``path`` as :func:`repro_torch.training.tree.
+    flatten` names the leaf) keeps a rank's block of each leaf as soon as
+    it is drawn, so only one whole leaf lives at a time (tensor-parallel
+    serving: every rank draws the same numbers and keeps its own block).
+    On the ``meta`` device nothing is drawn: the leaves' shapes alone (the
+    recurrent blocks draw their small vectors on the generator's device)."""
     check_supported(cfg)
     dev = resolve_device(device)
     D, Hq, Hkv, hd, F = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
+    keep = shard or (lambda path, t: t)
 
-    def dense(shape, scale=None):
+    def dense(path, shape, scale=None):
+        if dev.type == "meta":
+            return torch.empty(shape, dtype=dtype, device=dev)
         scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
         w = torch.randn(shape, generator=generator, device=generator.device)
-        return w.mul_(scale).to(device=dev, dtype=dtype)
+        return keep(path, w.mul_(scale).to(device=dev, dtype=dtype))
 
-    def zeros(n):
-        return torch.zeros(n, dtype=torch.float32, device=dev)
+    def zeros(path, n):
+        return keep(path, torch.zeros(n, dtype=torch.float32, device=dev))
 
     params = {
-        "embed": dense((cfg.vocab_size, D), scale=0.02),
-        "final_norm": zeros(D),
+        "embed": dense("embed", (cfg.vocab_size, D), scale=0.02),
+        "final_norm": zeros("final_norm", D),
         "layers": [],
     }
     if not cfg.tie_embeddings:
-        params["unembed"] = dense((D, cfg.vocab_size))
-    def attn_params():
+        params["unembed"] = dense("unembed", (D, cfg.vocab_size))
+
+    def attn_params(pre):
         attn = {
-            "wq": dense((D, Hq * hd)), "wk": dense((D, Hkv * hd)),
-            "wv": dense((D, Hkv * hd)), "wo": dense((Hq * hd, D)),
+            "wq": dense(f"{pre}/wq", (D, Hq * hd)), "wk": dense(f"{pre}/wk", (D, Hkv * hd)),
+            "wv": dense(f"{pre}/wv", (D, Hkv * hd)), "wo": dense(f"{pre}/wo", (Hq * hd, D)),
         }
         if cfg.qk_norm:
-            attn["q_norm"], attn["k_norm"] = zeros(hd), zeros(hd)
+            attn["q_norm"], attn["k_norm"] = zeros(f"{pre}/q_norm", hd), zeros(f"{pre}/k_norm", hd)
         return attn
 
-    def tree(shapes):
-        return {k: tree(v) if isinstance(v, dict) else dense(v) for k, v in shapes.items()}
+    def tree(pre, shapes):
+        return {k: tree(f"{pre}/{k}", v) if isinstance(v, dict) else dense(f"{pre}/{k}", v)
+                for k, v in shapes.items()}
 
-    for kind in layer_kinds(cfg):
-        layer = {"ln1": zeros(D)}
+    def recurrent(pre, block):
+        return {k: keep(f"{pre}/{k}", v) for k, v in block.items()}
+
+    for i, kind in enumerate(layer_kinds(cfg)):
+        pre = f"layers/{i}"
+        layer = {"ln1": zeros(f"{pre}/ln1", D)}
         if kind == "rglru":
-            layer["rec"] = rec.rglru_init(generator, D, cfg.rnn_width, dev, dtype)
+            layer["rec"] = recurrent(f"{pre}/rec",
+                                     rec.rglru_init(generator, D, cfg.rnn_width, dev, dtype))
         elif kind == "mlstm":
-            layer["rec"] = rec.mlstm_init(generator, D, Hq, cfg.mlstm_proj_factor, dev, dtype)
+            layer["rec"] = recurrent(f"{pre}/rec", rec.mlstm_init(
+                generator, D, Hq, cfg.mlstm_proj_factor, dev, dtype))
         elif kind == "slstm":
-            layer["rec"] = rec.slstm_init(generator, D, Hq, dev, dtype)
+            layer["rec"] = recurrent(f"{pre}/rec", rec.slstm_init(generator, D, Hq, dev, dtype))
         else:
-            layer["attn"] = attn_params()
+            layer["attn"] = attn_params(f"{pre}/attn")
         if kind == "xattn":
-            layer["ln_x"] = zeros(D)
-            layer["xattn"] = attn_params()
-            layer["xgate"] = zeros(())
+            layer["ln_x"] = zeros(f"{pre}/ln_x", D)
+            layer["xattn"] = attn_params(f"{pre}/xattn")
+            layer["xgate"] = zeros(f"{pre}/xgate", ())
         if kind in ("mlstm", "slstm"):
             pass                        # self-contained blocks: no FFN
         elif cfg.moe is not None:
-            layer["ln2"], layer["moe"] = zeros(D), tree(moe_param_shapes(D, cfg.moe))
+            layer["ln2"] = zeros(f"{pre}/ln2", D)
+            layer["moe"] = tree(f"{pre}/moe", moe_param_shapes(D, cfg.moe))
         elif F > 0:
             # drawn in the order the reference's ffn_init lays them out
             names = ("wg", "wu", "wd") if cfg.ffn_kind == "swiglu" else ("wu", "wd")
             shapes = {"wg": (D, F), "wu": (D, F), "wd": (F, D)}
-            layer["ln2"] = zeros(D)
-            layer["ffn"] = {name: dense(shapes[name]) for name in names}
+            layer["ln2"] = zeros(f"{pre}/ln2", D)
+            layer["ffn"] = {name: dense(f"{pre}/ffn/{name}", shapes[name]) for name in names}
         params["layers"].append(layer)
     return params
 
@@ -464,16 +484,57 @@ def _scale_kw(cfg: ModelConfig, lc: Dict[str, torch.Tensor]) -> Dict:
 
 
 # ------------------------------------------------------------------ forward
-def _embed(params, cfg: ModelConfig, tokens: torch.Tensor, offset=0) -> torch.Tensor:
+@dataclass(frozen=True)
+class LayerShards:
+    """What a rank computes of one layer under tensor parallelism (plan
+    ``heads``; :meth:`repro_torch.distributed.tensor_parallel.
+    TensorParallel.layer` reads it from the leaves' specs): the reduction
+    after each row-parallel product -- the self and cross attention's
+    ``wo``, the FFN's ``wd``, the MoE's routed combine (EP or expert-TP) and
+    its shared expert's ``wd`` -- None where the leaf is whole; the first
+    expert held under EP; and ``rows``, the context whose
+    ``gather_rows``/``own_rows`` give the MoE the global batch where the
+    batch splits over the data axes. :data:`WHOLE`: one rank holds it all."""
+
+    attn: Optional[Callable] = None
+    xattn: Optional[Callable] = None
+    ffn: Optional[Callable] = None
+    moe: Optional[Callable] = None
+    expert_offset: int = 0
+    shared: Optional[Callable] = None
+    rows: Optional[object] = None
+
+
+WHOLE = LayerShards()
+
+
+def _shards(tp, i: int, lp) -> LayerShards:
+    return WHOLE if tp is None else tp.layer(i, lp)
+
+
+def _heads(p, cfg: ModelConfig) -> Dict[str, int]:
+    """An attention block's head counts, read from its weights' blocks:
+    the config's, or this rank's under tensor parallelism."""
+    return dict(n_heads=p["wq"].shape[-1] // cfg.head_dim, n_kv=p["wk"].shape[-1] // cfg.head_dim,
+                head_dim=cfg.head_dim)
+
+
+def _embed(params, cfg: ModelConfig, tokens: torch.Tensor, offset=0, tp=None) -> torch.Tensor:
     """Token embedding: the bf16 row times sqrt(d_model) in float32 (the
     reference multiplies by a numpy float64 scalar, which promotes to
     float32), so the residual stream is float32. Without rotary positions
     the float32 sinusoids of positions ``offset + [0, L)`` are added
     (``repro/models/transformer.py:376-383``); ``offset`` is an int or a
     one-element tensor on the tokens' device (a decode step's
-    ``max(ctx_lens)``, read on the device)."""
-    x = params["embed"][tokens.long()].to(torch.bfloat16).float()
-    x = x * float(np.float32(np.sqrt(cfg.d_model)))
+    ``max(ctx_lens)``, read on the device). With ``tp`` and ``embed`` split
+    by vocabulary, the vocabulary-parallel lookup (exact); the positions
+    are whole on every rank."""
+    scale = float(np.float32(np.sqrt(cfg.d_model)))
+    if tp is not None and tp.split("embed", 0):
+        x = tp.embed(params["embed"], tokens, scale)
+    else:
+        x = params["embed"][tokens.long()].to(torch.bfloat16).float()
+        x = x * scale
     if cfg.rope_theta is None:
         pos = torch.arange(tokens.shape[-1], device=x.device)
         pos = pos + (offset.reshape(1).to(x.device) if torch.is_tensor(offset) else int(offset))
@@ -481,19 +542,42 @@ def _embed(params, cfg: ModelConfig, tokens: torch.Tensor, offset=0) -> torch.Te
     return x
 
 
-def _unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def _unembed(params, cfg: ModelConfig, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """The logits, float32: with ``tp`` and the unembedding split by
+    vocabulary (``embed``'s rows when tied), each rank's block of columns,
+    gathered over ``model``."""
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    if tp is not None and (tp.split("embed", 0) if cfg.tie_embeddings
+                           else tp.split("unembed", 1)):
+        return tp.logits(x, w)
     return (x.to(torch.bfloat16) @ w.to(torch.bfloat16)).float()
 
 
-def _ffn_part(p, x, cfg: ModelConfig):
+def moe_part(p, xn: torch.Tensor, cfg: ModelConfig, sh: LayerShards = WHOLE) -> torch.Tensor:
+    """A layer's MoE (``p``: its ``moe`` leaves) on the normed rows ``xn``.
+    Under tensor parallelism (``sh``) with the batch split over the data
+    axes, every data rank's rows are gathered first, so the routing, the
+    capacity and the drops are the global batch's (the reference's
+    ``moe_forward`` sees the global batch), and this rank keeps its rows of
+    the output; the experts are this rank's (EP) or its block of each
+    expert's hidden width (expert-TP), summed by ``sh.moe``."""
+    if sh.rows is not None:
+        xn = sh.rows.gather_rows(xn)
+    out, _ = moe_forward(p, xn, cfg.moe, expert_offset=sh.expert_offset, reduce=sh.moe,
+                         shared_reduce=sh.shared)
+    return out if sh.rows is None else sh.rows.own_rows(out)
+
+
+def _ffn_part(p, x, cfg: ModelConfig, sh: LayerShards = WHOLE):
     """The layer's FFN on the normed residual, added to it: the MoE where
-    the layer has one, the ``ffn_kind`` FFN, or nothing (``d_ff`` 0)."""
+    the layer has one, the ``ffn_kind`` FFN, or nothing (``d_ff`` 0). Under
+    tensor parallelism (``sh``) the row-parallel sums, and the MoE routes
+    the global batch (:func:`moe_part`)."""
     if "moe" in p:
-        out, _ = moe_forward(p["moe"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg.moe)
-        return x + out
+        return x + moe_part(p["moe"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg, sh)
     if "ffn" in p:
-        return x + ffn_forward(p["ffn"], rms_norm(x, p["ln2"], cfg.norm_eps), kind=cfg.ffn_kind)
+        return x + ffn_forward(p["ffn"], rms_norm(x, p["ln2"], cfg.norm_eps), kind=cfg.ffn_kind,
+                               reduce=sh.ffn)
     return x
 
 
@@ -514,24 +598,25 @@ def _prefill_attn(cfg: ModelConfig, L: int, device: torch.device) -> Callable:
 
 
 def _attn_full(p, x, cfg: ModelConfig, kind: str, img_emb, attn: Callable,
-               cross: Optional[Callable] = None):
+               cross: Optional[Callable] = None, sh: LayerShards = WHOLE):
     """A layer's attention part over the whole prompt
     (``repro/models/transformer.py:287-339``): self attention (``win``:
     sliding-window), and for ``xattn`` the gated cross attention to
     ``img_emb`` through ``cross`` -- by default K7 non-causal on CUDA and
     the plain oracle on the CPU (the reference runs ``attn_forward``).
-    Returns ``(x, (k, v), (xk, xv) or None)``."""
-    kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim)
-    h, kv = attn_forward(p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps), **kw,
+    Under tensor parallelism over the rank's heads, ``wo`` summed by
+    ``sh``. Returns ``(x, (k, v), (xk, xv) or None)``."""
+    h, kv = attn_forward(p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps), **_heads(p["attn"], cfg),
                          rope_theta=cfg.rope_theta,
-                         window=cfg.window if kind == "win" else None, attn=attn)
+                         window=cfg.window if kind == "win" else None, attn=attn, reduce=sh.attn)
     x = x + h
     xkv = None
     if kind == "xattn":
         if cross is None:
             cross = flash_prefill if x.device.type == "cuda" else mha_prefill_ref
-        hx, xkv = attn_forward(p["xattn"], rms_norm(x, p["ln_x"], cfg.norm_eps), **kw,
-                               rope_theta=None, causal=False, kv_states=img_emb, attn=cross)
+        hx, xkv = attn_forward(p["xattn"], rms_norm(x, p["ln_x"], cfg.norm_eps),
+                               **_heads(p["xattn"], cfg), rope_theta=None, causal=False,
+                               kv_states=img_emb, attn=cross, reduce=sh.xattn)
         x = x + torch.tanh(p["xgate"]) * hx
     return x, kv, xkv
 
@@ -563,7 +648,7 @@ def ring_from_prefill(kh: torch.Tensor, vh: torch.Tensor, S: int, true_len=None)
 
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, cache_len: int,
-            true_len=None, write_kv: Optional[Callable] = None, img_emb=None):
+            true_len=None, write_kv: Optional[Callable] = None, img_emb=None, tp=None):
     """Forward over the prompt ``tokens (B, L)``.
 
     Returns ``(last_logits (B, V) float32, cache, cur_len)`` where
@@ -599,6 +684,14 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, cache_len: int,
     refuses ``true_len`` for recurrent kinds, and so does the port
     (``ValueError``, "bucketed prefill"): their prompts are prefilled at
     their exact length.
+
+    With ``tp`` (:func:`repro_torch.distributed.tensor_parallel.
+    tensor_parallel`, plan ``heads``) ``params`` are this rank's blocks,
+    ``tokens`` (and ``img_emb``) its rows, and every layer runs over its
+    heads and hidden block with the reductions of :class:`LayerShards`;
+    the cache is this rank's block (its rows, its KV heads) and the logits
+    its rows' whole vocabulary, the same bits on every rank of a ``model``
+    group.
     """
     check_supported(cfg)
     B, L = tokens.shape
@@ -610,14 +703,15 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, cache_len: int,
     if L > cache_len and write_kv is None:
         raise ValueError(f"prompt of {L} tokens exceeds cache_len {cache_len}")
     attn = _prefill_attn(cfg, L, tokens.device)
-    x = _embed(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, tp=tp)
     cache = None if write_kv is not None else []
     for i, (lp, kind) in enumerate(zip(params["layers"], layer_kinds(cfg))):
+        sh = _shards(tp, i, lp)
         if kind in RECURRENT_KINDS:
             h, entry = _recurrent_prefill(lp, rms_norm(x, lp["ln1"], cfg.norm_eps), kind, cfg)
             x = x + h
         else:
-            x, (kh, vh), xkv = _attn_full(lp, x, cfg, kind, img_emb, attn)
+            x, (kh, vh), xkv = _attn_full(lp, x, cfg, kind, img_emb, attn, sh=sh)
             kh, vh = kh.to(torch.bfloat16), vh.to(torch.bfloat16)
             if kind == "win":
                 kh, vh = ring_from_prefill(kh, vh, min(cache_len, cfg.window), true_len)
@@ -627,7 +721,7 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, cache_len: int,
             entry = {"k": kh, "v": vh}
             if xkv is not None:
                 entry["xk"], entry["xv"] = xkv[0].to(torch.bfloat16), xkv[1].to(torch.bfloat16)
-        x = _ffn_part(lp, x, cfg)
+        x = _ffn_part(lp, x, cfg, sh)
         if write_kv is not None:
             write_kv(i, entry)
         else:
@@ -639,7 +733,7 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, cache_len: int,
         n = L if true_len is None else int(true_len)
         x_last = x[:, n - 1]
     x_last = rms_norm(x_last, params["final_norm"], cfg.norm_eps)
-    return _unembed(params, cfg, x_last), cache, n
+    return _unembed(params, cfg, x_last, tp), cache, n
 
 
 def _recurrent_prefill(p, xn: torch.Tensor, kind: str, cfg: ModelConfig):
@@ -687,6 +781,7 @@ def decode_step(
     page_tbl: Optional[torch.Tensor] = None,   # (B, pages_per_slot)
     cur_len=None,
     seq_shard: Optional[Tuple[int, int]] = None,
+    tp=None,
 ):
     """One decode step, updating the cache in place. Returns ``(logits (B,
     V) float32, cache)``. With ``page_tbl`` the ``attn`` layers' caches are
@@ -707,7 +802,10 @@ def decode_step(
     blocks of caches split along the sequence (sequence-parallel decode,
     :mod:`repro_torch.launch.serve_step`): each token's K/V lands only in
     the block that holds its position, and ``attn_fn`` merges across the
-    blocks (:func:`attn_decode`); ``win`` rings stay whole."""
+    blocks (:func:`attn_decode`); ``win`` rings stay whole. With ``tp``
+    (plan ``heads``, dense caches) the parameters, caches and rows are this
+    rank's blocks, as in :func:`prefill`: the ``attn``, ``win`` and
+    ``xattn`` caches hold its KV heads, and it returns its rows' logits."""
     check_supported(cfg)
     if ctx_lens is None:
         raise ValueError("decode_step needs the per-slot lengths ctx_lens")
@@ -715,15 +813,17 @@ def decode_step(
         raise ValueError("sequence shards are blocks of dense caches, not page pools")
     if cur_len is None and cfg.rope_theta is None:
         cur_len = ctx_lens.max()
-    x = _embed(params, cfg, tokens, offset=cur_len if cur_len is not None else 0)
-    kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
-              rope_theta=cfg.rope_theta, ctx_lens=ctx_lens)
+    if tp is not None and page_tbl is not None:
+        raise ValueError("tensor-parallel decode runs on dense caches, not page pools")
+    x = _embed(params, cfg, tokens, offset=cur_len if cur_len is not None else 0, tp=tp)
     writer = None                   # the null-page writes' rows, once for every paged layer
-    for lp, lc, kind in zip(params["layers"], cache, layer_kinds(cfg)):
+    for i, (lp, lc, kind) in enumerate(zip(params["layers"], cache, layer_kinds(cfg))):
+        sh = _shards(tp, i, lp)
         xn = rms_norm(x, lp["ln1"], cfg.norm_eps)
         if kind in RECURRENT_KINDS:
-            x = _ffn_part(lp, x + _recurrent_step(lp, lc, xn, kind, cfg), cfg)
+            x = _ffn_part(lp, x + _recurrent_step(lp, lc, xn, kind, cfg), cfg, sh)
             continue
+        kw = dict(_heads(lp["attn"], cfg), rope_theta=cfg.rope_theta, ctx_lens=ctx_lens)
         if page_tbl is not None and kind == "attn":
             if writer is None:
                 writer = decode_writer_rows(page_tbl, ctx_lens, lc["k"].shape[2])
@@ -735,16 +835,18 @@ def decode_step(
             h, lc["k"], lc["v"] = attn_decode(lp["attn"], xn, lc["k"], lc["v"],
                                               window=cfg.window if win else None,
                                               attn_fn=None if win else attn_fn,
-                                              seq_shard=None if win else seq_shard, **kw)
+                                              seq_shard=None if win else seq_shard,
+                                              reduce=sh.attn, **kw)
         x = x + h
         if kind == "xattn":
             hx = cross_attn_decode(lp["xattn"], rms_norm(x, lp["ln_x"], cfg.norm_eps),
-                                   lc["xk"], lc["xv"], n_heads=cfg.n_heads,
-                                   head_dim=cfg.head_dim)
+                                   lc["xk"], lc["xv"],
+                                   n_heads=_heads(lp["xattn"], cfg)["n_heads"],
+                                   head_dim=cfg.head_dim, reduce=sh.xattn)
             x = x + torch.tanh(lp["xgate"]) * hx
-        x = _ffn_part(lp, x, cfg)
+        x = _ffn_part(lp, x, cfg, sh)
     x = rms_norm(x[:, -1], params["final_norm"], cfg.norm_eps)
-    return _unembed(params, cfg, x), cache
+    return _unembed(params, cfg, x, tp), cache
 
 
 def supports_chunked_prefill(cfg: ModelConfig) -> bool:

@@ -166,8 +166,9 @@ every slot of a decode step, as the reference's fast step embeds them
 Admission of an ``xattn`` architecture raises ``NotImplementedError``: the
 reference's engine passes no image embeddings and cannot place the cross
 K/V it computes from the prompt (ROADMAP queue 3). Recurrent layer kinds
-and f8/f16/f32 pools raise ``NotImplementedError`` naming their ROADMAP
-item.
+keep per-slot float32 states and admit at the exact prompt length; f8
+pools hold e4m3 K/V that the kernels widen in registers, and f16/f32
+pools are bf16, as the reference stores them.
 """
 from __future__ import annotations
 

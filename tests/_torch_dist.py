@@ -1,5 +1,5 @@
 """Shared parts of the port's distributed tests (``test_torch_sp_decode.py``,
-``test_torch_serve_step.py``): the seeded inputs both packages read, the
+``test_torch_serve_step.py``, ``test_torch_tp_*.py``): the seeded inputs both packages read, the
 JAX side run in a subprocess on eight host devices
 (``tests/_torch_dist_ref.py``), and the port's side run by the ranks of one
 spawned ``gloo`` group on the CPU, each rank on its own shards.
@@ -7,6 +7,7 @@ spawned ``gloo`` group on the CPU, each rank on its own shards.
 Numpy only at import: the JAX subprocess imports the inputs from here, and
 the spawned ranks import this module and torch, never JAX.
 """
+import dataclasses
 import os
 import pickle
 import socket
@@ -40,6 +41,57 @@ PROMPT_SEED = 3
 SERVE_CASES = {"seq_all": ((2, 2), 3), "seq_model": ((2, 4), 4)}
 
 
+# tensor-parallel serving (plan ``heads``): case -> (architecture, mesh
+# shape over (data, model), MoE capacity factor or None for the config's).
+# Layout "2d" on the smoke configs (they pick dp_only); batch 8 splits over
+# data, both head counts over model. qwen2's 6 experts over model=4: expert-TP;
+# qwen3's 8 over 2: EP. "qwen3-drops" (TP_MOE_ONLY) is the first layer's MoE
+# alone on seeded inputs, with a capacity that binds
+TP_LAYOUT, TP_BATCH, TP_PROMPT, TP_CACHE, TP_STEPS = "2d", 8, 12, 16, 4
+TP_SEED = 11
+TP_CASES = {
+    "mistral-nemo": ("mistral-nemo-12b", (4, 2), None),
+    "qwen3-moe": ("qwen3-moe-30b-a3b", (4, 2), None),
+    "qwen3-drops": ("qwen3-moe-30b-a3b", (4, 2), 1.0),
+    "gemma3": ("gemma3-4b", (4, 2), None),
+    "llama-vision": ("llama-3.2-vision-11b", (4, 2), None),
+    "qwen2-moe": ("qwen2-moe-a2.7b", (4, 2), None),
+    "musicgen": ("musicgen-large", (4, 2), None),
+    "nemotron": ("nemotron-4-15b", (4, 2), None),
+    "yi": ("yi-34b", (4, 2), None),
+    "musicgen-2x4": ("musicgen-large", (2, 4), None),
+    "qwen2-moe-2x4": ("qwen2-moe-a2.7b", (2, 4), None),
+}
+TP_CASES["qwen2-moe-alone-2x4"] = ("qwen2-moe-a2.7b", (2, 4), None)
+TP_MOE_ONLY = ("qwen3-drops", "qwen2-moe-alone-2x4")
+
+
+def tp_config(name: str, get_smoke_config):
+    """The case's smoke config from either package's registry."""
+    arch, _, cf = TP_CASES[name]
+    cfg = get_smoke_config(arch)
+    if cf is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=cf))
+    return cfg
+
+
+def tp_prompts(cfg):
+    """The case's prompts ``(TP_BATCH, TP_PROMPT)`` and, for a
+    cross-attention model, its image embeddings (else None)."""
+    rng = np.random.default_rng(TP_SEED)
+    toks = rng.integers(0, cfg.vocab_size, (TP_BATCH, TP_PROMPT)).astype(np.int32)
+    img = None
+    if cfg.cross_kv_len:
+        img = rng.standard_normal((TP_BATCH, cfg.cross_kv_len, cfg.d_model)).astype(np.float32)
+    return toks, img
+
+
+def tp_moe_input(cfg):
+    """A MoE-only case's input rows ``(TP_BATCH, TP_PROMPT, d_model)``."""
+    rng = np.random.default_rng(TP_SEED + 1)
+    return rng.standard_normal((TP_BATCH, TP_PROMPT, cfg.d_model)).astype(np.float32)
+
+
 # the serve step's logits: one bf16 step of their scale, as the smoke
 # parity tests hold the single-device step (tests/test_torch_archs.py)
 BF16 = dict(rtol=2**-7, atol=2**-7)
@@ -63,16 +115,16 @@ def block(x, spec, coord, sizes={"data": 4, "model": 2}):
     return x
 
 
-def held_to(got, want, want_logits, what):
+def held_to(got, want, want_logits, what, near_tie=NEAR_TIE):
     """Greedy streams ``(T, B)`` equal, or parting first where the
-    reference's top-2 gap is below NEAR_TIE."""
+    reference's top-2 gap is below ``near_tie``."""
     top2 = np.sort(want_logits, -1)[..., -2:]
     gap = top2[..., 1] - top2[..., 0]                  # (T, B)
     for b in range(want.shape[1]):
         diff = np.nonzero(got[:, b] != want[:, b])[0]
         if diff.size:
             t = diff[0]
-            assert t > 0 and gap[t - 1, b] < NEAR_TIE, (what, b, t, gap[:, b])
+            assert t > 0 and gap[t - 1, b] < near_tie, (what, b, t, gap[:, b])
 
 
 def sp_inputs():
@@ -123,6 +175,34 @@ def run_both(case: str, world: int, tmp: Path):
                             stderr=subprocess.STDOUT, text=True, env=env)
     try:
         ranks = run_ranks(case, world, in_path)
+    finally:
+        log, _ = proc.communicate(timeout=600)
+    assert proc.returncode == 0, log
+    with open(out_path, "rb") as f:
+        return inputs, pickle.load(f), ranks
+
+
+def run_tp(names, tmp: Path):
+    """Both sides of the tensor-parallel cases ``names``: the weights made
+    here (JAX, one device), then the JAX subprocess on eight host devices
+    and the port's eight gloo ranks at the same time. Returns ``(inputs,
+    {case: reference outputs}, each rank's {case: outputs})``."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _torch_dist_ref import tp_inputs
+
+    inputs = tp_inputs(names)
+    in_path, out_path = tmp / "inputs.pkl", tmp / "ref.pkl"
+    with open(in_path, "wb") as f:
+        pickle.dump(inputs, f)
+    env = dict(os.environ)
+    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    env["JAX_PLATFORMS"] = "cpu"
+    env["PYTHONPATH"] = str(ROOT / "src")
+    proc = subprocess.Popen([sys.executable, str(ROOT / "tests" / "_torch_dist_ref.py"), "tp",
+                             str(in_path), str(out_path)], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, env=env)
+    try:
+        ranks = run_ranks("tp", 8, in_path)
     finally:
         log, _ = proc.communicate(timeout=600)
     assert proc.returncode == 0, log
@@ -212,7 +292,6 @@ def _serve_rank(inputs: dict, name: str) -> dict:
     from repro_torch.configs import get_smoke_config
     from repro_torch.distributed.sharding import choose_layout, decode_plan
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.launch.serve_step import make_serve_step
 
     shape, batch = SERVE_CASES[name]
     mesh = make_host_mesh(shape)
@@ -221,11 +300,6 @@ def _serve_rank(inputs: dict, name: str) -> dict:
     plan = decode_plan(cfg, mesh, batch, layout)
     out = {"plan": plan, "sp": serve_run(inputs, mesh, plan, cfg, plan["batch_spec"], layout)}
     out["plain"] = serve_run(inputs, None, None, cfg, None, layout)
-    try:
-        make_serve_step(cfg, mesh, {"mode": "heads", "seq_axes": None, "batch_spec": "data"})
-        out["heads"] = None
-    except NotImplementedError as exc:
-        out["heads"] = str(exc)
     return out
 
 
@@ -300,4 +374,289 @@ def _seq_all_rank(rank: int, inputs: dict) -> dict:
     return out
 
 
-RANK_CASES = {"sp": _sp_rank, "seq_all": _seq_all_rank}
+def router_stats(p, x, cfg):
+    """A MoE call's routing recomputed as :func:`repro_torch.models.moe.
+    moe_forward` does it: the token-expert pairs dropped (each group's
+    pairs past an expert's capacity), and each batch row's smallest router
+    margin (the k-th largest probability less the (k+1)-th: below a
+    rounding's reach, the choice can flip between two computations that
+    round differently)."""
+    import torch
+
+    from repro_torch.models.moe import _auto_groups, capacity, top_k
+
+    B, L, D = x.shape
+    T = B * L
+    G = _auto_groups(T)
+    while T % G:
+        G //= 2
+    xt = x.reshape(G, T // G, D).to(torch.bfloat16)
+    probs = torch.softmax((xt @ p["router"].to(torch.bfloat16)).float(), dim=-1)
+    vals, idx = top_k(probs, cfg.top_k + 1)
+    counts = torch.nn.functional.one_hot(idx[..., :cfg.top_k], cfg.num_experts).sum((1, 2))
+    drops = int((counts - capacity(cfg, T // G)).clamp(min=0).sum())
+    margin = (vals[..., -2] - vals[..., -1]).reshape(B, L).amin(1)
+    return drops, margin.numpy()
+
+
+def tp_serve(cfg, params, inputs, mesh=None, plan=None) -> dict:
+    """A case served from its prompts: ``make_prefill_step`` then
+    ``TP_STEPS`` greedy ``make_serve_step`` steps, on this rank's rows
+    (``mesh``/``plan``) or whole (None); the first logits, the prefill's
+    cache, each step's logits and tokens."""
+    import torch
+
+    from repro_torch.core.distributed import shard_of
+    from repro_torch.distributed.sharding import P
+    from repro_torch.launch.serve_step import make_prefill_step, make_serve_step
+
+    toks = torch.from_numpy(inputs["tokens"])
+    img = None if inputs["img"] is None else torch.from_numpy(inputs["img"])
+    if mesh is not None:
+        rows = plan["batch_spec"]
+        toks = shard_of(toks, P(rows, None), mesh)
+        img = None if img is None else shard_of(img, P(rows, None, None), mesh)
+    first, cache, cur = make_prefill_step(cfg, TP_CACHE, mesh, plan, TP_LAYOUT)(params, toks, img)
+    out = {"first": _np(first), "cache": [{k: _np(t) for k, t in lc.items()} for lc in cache]}
+    step = make_serve_step(cfg, mesh, plan, TP_LAYOUT)
+    tok = first.argmax(-1)[:, None].to(torch.int32)
+    logits, tokens = [], []
+    for t in range(TP_STEPS):
+        lg, cache = step(params, cache, tok, cur + t)
+        tokens.append(tok[:, 0].numpy().copy())
+        logits.append(_np(lg))
+        tok = lg.argmax(-1)[:, None].to(torch.int32)
+    out.update(logits=np.stack(logits), tokens=np.stack(tokens))
+    return out
+
+
+def tp_moe(rank: int, cfg, whole, specs, inp, mesh, plan) -> dict:
+    """A MoE-only case: the first layer's MoE on this rank's rows of the
+    input (its experts, the global batch's routing), the same with each
+    data rank routing only its own rows (the control), and on rank 0 the
+    MoE whole on one device with its drops."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core.distributed import shard_of
+    from repro_torch.distributed.sharding import P, shard_tree
+    from repro_torch.distributed.tensor_parallel import tensor_parallel
+    from repro_torch.models.transformer import moe_part
+
+    tp = tensor_parallel(cfg, mesh, plan, TP_LAYOUT)
+    local = {"moe": shard_tree(whole["layers"][0]["moe"], specs["layers"][0]["moe"], mesh)}
+    sh = tp.layer(0, local)
+    x = torch.from_numpy(inp["x"])
+    rows = shard_of(x, P(plan["batch_spec"], None, None), mesh)
+    out = {"moe": _np(moe_part(local["moe"], rows, cfg, sh)),
+           "local_routing": _np(moe_part(local["moe"], rows, cfg,
+                                         dataclasses.replace(sh, rows=None))),
+           "expert_offset": sh.expert_offset}
+    if rank == 0:
+        p0 = whole["layers"][0]["moe"]
+        out["one"] = {"moe": _np(moe_part(p0, x, cfg)), "drops": router_stats(p0, x, cfg.moe)[0]}
+    return out
+
+
+def tree_cut(tree, cfg, specs, local, mesh) -> dict:
+    """``shard_tree``'s blocks against numpy's: each leaf of the JAX tree
+    (in the port's layout, ``params_from_numpy``) cut by :func:`block` at
+    this rank's coordinates under its spec. The leaves that differ (none
+    expected), and how many leaves the specs split."""
+    from repro_torch.distributed.sharding import spec_paths
+    from repro_torch.launch.mesh import axis_index, mesh_axes
+    from repro_torch.models import params_from_numpy
+    from repro_torch.training.tree import flatten
+
+    sizes = mesh_axes(mesh)
+    coord = {a: axis_index(mesh, a) for a in sizes}
+    paths, leaves = flatten(params_from_numpy(tree, cfg, device="cpu"))
+    got = dict(zip(*flatten(local)))
+    spec = spec_paths(specs)
+    bad = [p for p, leaf in zip(paths, leaves)
+           if not np.array_equal(block(leaf.float().numpy(), spec[p], coord, sizes),
+                                 got[p].float().numpy())]
+    return {"bad": bad, "split": sum(any(a is not None for a in spec[p]) for p in paths),
+            "leaves": len(paths)}
+
+
+def drawn_blocks(cfg, mesh) -> bool:
+    """``init_params`` with a ``shard`` hook (each leaf's block kept as it
+    is drawn) gives ``shard_tree`` of the whole draw, and the specs of
+    ``abstract_params`` (meta shapes) are the whole draw's."""
+    import torch
+
+    from repro_torch.core.distributed import shard_of
+    from repro_torch.distributed.sharding import param_specs, shard_tree, spec_paths
+    from repro_torch.distributed.tensor_parallel import abstract_params
+    from repro_torch.models import init_params
+    from repro_torch.training.tree import flatten
+
+    full = init_params(cfg, torch.Generator().manual_seed(5), device="cpu")
+    specs = param_specs(full, mesh, cfg, TP_LAYOUT, mode="serve")
+    by = spec_paths(specs)
+    if by != spec_paths(param_specs(abstract_params(cfg), mesh, cfg, TP_LAYOUT, mode="serve")):
+        return False
+    drawn = init_params(cfg, torch.Generator().manual_seed(5), device="cpu",
+                        shard=lambda path, t: shard_of(t, by[path], mesh).clone())
+    a, b = flatten(drawn), flatten(shard_tree(full, specs, mesh))
+    return a[0] == b[0] and all(torch.equal(x, y) for x, y in zip(a[1], b[1]))
+
+
+def _tp_rank(rank: int, inputs: dict) -> dict:
+    """Every case on this rank: its blocks of the parameters
+    (``shard_tree`` by ``param_specs(mode="serve")``), its rows, served
+    under ``decode_plan``'s plan; rank 0 also serves each case whole on one
+    device, with each MoE call's drops and per-row router margins."""
+    import repro_torch.models.transformer as tf
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.sharding import decode_plan, param_specs, shard_tree
+    from repro_torch.launch.mesh import axis_index, make_host_mesh
+    from repro_torch.models import params_from_numpy
+
+    meshes, out = {}, {}
+    for name, inp in inputs.items():
+        cfg = tp_config(name, get_smoke_config)
+        shape = TP_CASES[name][1]
+        mesh = meshes.setdefault(shape, make_host_mesh(shape))
+        plan = decode_plan(cfg, mesh, TP_BATCH, TP_LAYOUT)
+        whole = params_from_numpy(inp["params"], cfg, device="cpu")
+        specs = param_specs(whole, mesh, cfg, TP_LAYOUT, mode="serve")
+        if name in TP_MOE_ONLY:
+            res = tp_moe(rank, cfg, whole, specs, inp, mesh, plan)
+        else:
+            local = shard_tree(whole, specs, mesh)
+            res = tp_serve(cfg, local, inp, mesh, plan)
+            res["cut"] = tree_cut(inp["params"], cfg, specs, local, mesh)
+            res["drawn"] = drawn_blocks(cfg, mesh)
+        res.update(plan=plan, coord=(axis_index(mesh, "data"), axis_index(mesh, "model")))
+        if rank == 0 and name not in TP_MOE_ONLY:
+            stats, moe = [], tf.moe_forward
+
+            def counted(p, x, mcfg, **kw):
+                stats.append(router_stats(p, x, mcfg))
+                return moe(p, x, mcfg, **kw)
+
+            tf.moe_forward = counted
+            try:
+                res["one"] = tp_serve(cfg, whole, inp)
+            finally:
+                tf.moe_forward = moe
+            res["one"]["drops"] = [d for d, _ in stats]
+            # (calls, B): the prefill's MoE calls, then each step's
+            res["one"]["router_margins"] = np.stack([m for _, m in stats]) if stats else None
+        out[name] = res
+    return out
+
+
+RANK_CASES = {"sp": _sp_rank, "seq_all": _seq_all_rank, "tp": _tp_rank}
+
+
+# ------------------------------------------------------------ tensor-parallel checks
+# The tensor-parallel logits against JAX's sharded steps and the port's
+# one-device steps: 2**-4 relative plus 2**-4 absolute (eight bf16 steps of
+# their scale). Each rank's wo/wd product is a bf16 partial, so a sharded
+# step rounds where the one-device step does not: on these inputs JAX's own
+# sharded steps part from its one-device steps by up to 4.4 of the smoke
+# parity tests' steps (BF16) on the dense models, and the port's by 4.5.
+TP_TOL = dict(rtol=2**-4, atol=2**-4)
+# a MoE row's logits are held against the one-device step, and its decode
+# steps against any run, only while every routing of it so far (on one
+# device) kept its k-th expert this far above the (k+1)-th: closer, the
+# sharded step's rounding (and K2's against the reference's plain decode)
+# may flip the choice. The smoke routers' probabilities tie exactly in bf16
+# in many rows; flips were seen at margins up to 0.0028
+ROUTER_MARGIN = 2**-7
+# a greedy stream may part from another's where the top-2 gap is below
+# this: the sharded steps' logits move by up to about 0.04 on these inputs
+TP_NEAR_TIE = 2**-4
+
+
+def tp_coord(res, name):
+    """A rank's coordinates, the mesh's sizes and the batch's spec."""
+    shape = TP_CASES[name][1]
+    return (dict(zip(("data", "model"), res["coord"])), {"data": shape[0], "model": shape[1]},
+            res["plan"]["batch_spec"])
+
+
+def tp_held(ranks, name):
+    """Which global rows a case holds at its prefill and at each decode
+    step, ``(1 + TP_STEPS, TP_BATCH)``: every row of a model without a MoE;
+    a MoE row while every routing of it so far kept ROUTER_MARGIN."""
+    m = ranks[0][name]["one"]["router_margins"]
+    if m is None:
+        return np.ones((1 + TP_STEPS, TP_BATCH), bool)
+    per = len(m) // (1 + TP_STEPS)               # MoE calls a forward
+    return np.stack([m[:per * (t + 1)].min(0) >= ROUTER_MARGIN for t in range(1 + TP_STEPS)])
+
+
+def tp_against(res, want, name, held, what, first_all=False):
+    """A rank's first logits and greedy steps against a global run
+    (``want``: ``first``, ``logits``, ``tokens``) where ``held``
+    (:func:`tp_held`; ``first_all``: the first logits on every row): the
+    first logits within TP_TOL, the streams equal or parting at a near tie,
+    each step's logits within TP_TOL while the streams agree. Returns how
+    many (step, row) logits it held."""
+    coord, sizes, bdp = tp_coord(res, name)
+    held = block(held, (None, bdp), coord, sizes)
+    rows = np.ones_like(held[0]) if first_all else held[0]
+    first = block(want["first"], (bdp, None), coord, sizes)
+    np.testing.assert_allclose(res["first"][rows], first[rows], **TP_TOL, err_msg=what)
+    tokens = block(want["tokens"], (None, bdp), coord, sizes)
+    logits = block(want["logits"], (None, bdp, None), coord, sizes)
+    # a stream from its first token (the prefill's argmax) up to the step
+    # its rows stop being held; a row of zeros ahead of the streams puts
+    # each token after the logits it was chosen from
+    n = 0
+    for b in np.nonzero(held[0])[0]:
+        T = int(np.argmin(held[1:, b])) if not held[1:, b].all() else len(tokens)
+        pad = np.zeros((1, 1), tokens.dtype)
+        held_to(np.concatenate([pad, res["tokens"][:T + 1, b:b + 1]]),
+                np.concatenate([pad, tokens[:T + 1, b:b + 1]]),
+                np.concatenate([first[None, b:b + 1], logits[:T, b:b + 1]]), what, TP_NEAR_TIE)
+        agree = int(np.argmin(res["tokens"][:, b] == tokens[:, b])) if (
+            res["tokens"][:, b] != tokens[:, b]).any() else len(tokens)
+        upto = min(T, agree)
+        np.testing.assert_allclose(res["logits"][:upto, b], logits[:upto, b], **TP_TOL,
+                                   err_msg=f"{what} row {b}")
+        n += upto
+    return n
+
+
+def tp_model_groups_equal(ranks, name):
+    """The ranks of each ``model`` group (one data coordinate) hold the same
+    rows and return the same bits: their reductions and gathers end alike."""
+    groups = {}
+    for r, res in enumerate(ranks):
+        groups.setdefault(res[name]["coord"][0], []).append(res[name])
+    for data, group in groups.items():
+        for res in group[1:]:
+            for key in ("first", "logits", "tokens"):
+                assert np.array_equal(res[key], group[0][key]), (name, data, key)
+    return len(groups)
+
+
+def tp_cache_blocks(ref, ranks, name):
+    """Each rank's prefill cache (its rows, its KV heads; window rings and
+    cross K/V too) against its block of JAX's sharded prefill cache under
+    the port's ``cache_specs``: the first layer's within BF16 (its K/V come
+    from the embeddings, before any reduction), the others within TP_TOL."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.sharding import cache_specs, decode_plan, spec_paths
+    from repro_torch.models import cache_from_numpy
+
+    cfg = tp_config(name, get_smoke_config)
+    want = cache_from_numpy(ref[name]["cache"], cfg, device="cpu")
+    for i, r in enumerate(ranks):
+        coord, sizes, bdp = tp_coord(r[name], name)
+        mesh = type("FakeMesh", (), {"shape": sizes})()
+        plan = decode_plan(cfg, mesh, TP_BATCH, TP_LAYOUT)
+        specs = spec_paths(cache_specs(want, mesh, TP_BATCH, TP_LAYOUT, plan, cache_len=TP_CACHE))
+        for layer, (got, lc) in enumerate(zip(r[name]["cache"], want)):
+            for key, t in got.items():
+                spec = specs[f"{layer}/{key}"]
+                assert spec[0] == bdp and spec[1] == "model", (name, layer, key, spec)
+                np.testing.assert_allclose(t, block(lc[key].float().numpy(), spec, coord, sizes),
+                                           **(BF16 if layer == 0 else TP_TOL),
+                                           err_msg=f"{name} rank {i} layer {layer} {key}")

@@ -7,8 +7,10 @@ starts, as ``tests/test_distributed.py`` does).
 
 ``CASE`` is ``sp`` (sequence-parallel attention on the reference's three
 plans, the int8 all-reduce, the smoke gemma3's serve step under
-``seq_model`` on a ``(2, 4)`` mesh) or ``seq_all`` (its serve step under
-``seq_all`` on a ``(2, 2)`` mesh). The attention inputs come from numpy
+``seq_model`` on a ``(2, 4)`` mesh), ``seq_all`` (its serve step under
+``seq_all`` on a ``(2, 2)`` mesh) or ``tp`` (tensor-parallel serving:
+the prefill and serve steps of the smoke configurations in ``INPUTS.pkl``
+under plan ``heads``, :func:`tp_case`). The attention inputs come from numpy
 generators with the seeds of ``tests/_torch_dist.py``; the weights and the
 prefill's cache from ``INPUTS.pkl`` (:func:`serve_inputs`, made by the
 test's own process, which hands the same file to the port's ranks); the
@@ -29,8 +31,18 @@ from _torch_dist import (  # noqa: E402
     PROMPT_SEED,
     SERVE_CASES,
     SP_PLANS,
+    TP_BATCH,
+    TP_CACHE,
+    TP_CASES,
+    TP_LAYOUT,
+    TP_MOE_ONLY,
+    TP_PROMPT,
+    TP_STEPS,
     psum_input,
     sp_inputs,
+    tp_config,
+    tp_moe_input,
+    tp_prompts,
 )
 
 
@@ -70,6 +82,99 @@ def serve_inputs(name: str) -> dict:
     return {"params": np_tree(params), "cache": np_tree(cache), "first": np.asarray(first)}
 
 
+def auto_mesh(shape):
+    """A ``(data, model)`` mesh of the first devices with Auto axes, as the
+    reference's meshes were before JAX made Explicit the default: under
+    Explicit axes the step's reshape of the sharded attention output is
+    refused."""
+    n = int(np.prod(shape))
+    return jax.make_mesh(shape, ("data", "model"), devices=jax.devices()[:n],
+                         axis_types=(jax.sharding.AxisType.Auto,) * 2)
+
+
+def tp_inputs(names) -> dict:
+    """Each tensor-parallel case's weights (``init_params`` of key 0, on
+    the caller's one device), prompts and image embeddings (the vision
+    model's), as numpy."""
+    from repro.configs import get_smoke_config
+    from repro.models import init_params
+
+    out = {}
+    for name in names:
+        cfg = tp_config(name, get_smoke_config)
+        toks, img = tp_prompts(cfg)
+        out[name] = {"params": np_tree(init_params(jax.random.PRNGKey(0), cfg)),
+                     "tokens": toks, "img": img}
+        if name in TP_MOE_ONLY:
+            out[name]["x"] = tp_moe_input(cfg)
+    return out
+
+
+def tp_moe_case(name: str, inputs: dict) -> dict:
+    """A MoE-only case: the first layer's ``moe_forward`` under
+    ``jax.jit``, its leaves placed by ``param_specs(mode="serve")`` and the
+    input rows by the plan's batch spec."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from repro.configs import get_smoke_config
+    from repro.distributed.sharding import decode_plan, param_specs, to_named
+    from repro.models.moe import moe_forward
+
+    cfg = tp_config(name, get_smoke_config)
+    mesh = auto_mesh(TP_CASES[name][1])
+    plan = decode_plan(cfg, mesh, TP_BATCH, TP_LAYOUT)
+    params = jax.tree.map(jnp.asarray, inputs["params"])
+    pspec = param_specs(params, mesh, cfg, TP_LAYOUT, mode="serve")["stages"][0][0]["moe"]
+    p = jax.tree.map(lambda a: a[0], params["stages"][0][0]["moe"])
+    spec = jax.tree.map(lambda s: P(*s[1:]), pspec, is_leaf=lambda s: isinstance(s, P))
+    p = jax.device_put(p, to_named(spec, mesh))
+    x = jax.device_put(jnp.asarray(inputs["x"]), NamedSharding(mesh, P(plan["batch_spec"], None,
+                                                                        None)))
+    out = jax.jit(lambda p, x: moe_forward(p, x, cfg.moe)[0])(p, x)
+    return {"plan": plan, "moe": np.asarray(out)}
+
+
+def tp_case(name: str, inputs: dict) -> dict:
+    """The reference's sharded prefill and serve steps (``repro/launch/
+    dryrun.py:134-169``) for one case: parameters placed by
+    ``param_specs(mode="serve")``, the prompts and image embeddings by the
+    plan's batch spec, the prefill's cache by ``cache_specs``, both steps
+    under ``jax.jit``; greedy for ``TP_STEPS`` tokens from the prefill's
+    logits."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from repro.configs import get_smoke_config
+    from repro.distributed.sharding import cache_specs, decode_plan, param_specs, to_named
+    from repro.launch.serve_step import make_prefill_step, make_serve_step
+
+    cfg = tp_config(name, get_smoke_config)
+    mesh = auto_mesh(TP_CASES[name][1])
+    plan = decode_plan(cfg, mesh, TP_BATCH, TP_LAYOUT)
+    bdp = plan["batch_spec"]
+    params = jax.tree.map(jnp.asarray, inputs["params"])
+    params = jax.device_put(params, to_named(param_specs(params, mesh, cfg, TP_LAYOUT,
+                                                         mode="serve"), mesh))
+    tok = jax.device_put(jnp.asarray(inputs["tokens"], jnp.int32), NamedSharding(mesh, P(bdp, None)))
+    args = [params, tok]
+    if inputs["img"] is not None:
+        args.append(jax.device_put(jnp.asarray(inputs["img"]),
+                                   NamedSharding(mesh, P(bdp, None, None))))
+    first, cache, cur = jax.jit(make_prefill_step(cfg, TP_CACHE))(*args)
+    cache = jax.device_put(cache, to_named(cache_specs(cache, mesh, TP_BATCH, TP_LAYOUT, plan=plan,
+                                                       cache_len=TP_CACHE), mesh))
+    out = {"plan": plan, "first": np.asarray(first), "cache": np_tree(cache)}
+    step = jax.jit(make_serve_step(cfg, mesh, plan))
+    tok = jnp.argmax(first, -1)[:, None].astype(jnp.int32)
+    logits, tokens = [], []
+    for t in range(TP_STEPS):
+        lg, cache = step(params, cache, tok, jnp.asarray(TP_PROMPT + t, jnp.int32))
+        tokens.append(np.asarray(tok)[:, 0])
+        logits.append(np.asarray(lg))
+        tok = jnp.argmax(lg, -1)[:, None].astype(jnp.int32)
+    out.update(logits=np.stack(logits), tokens=np.stack(tokens))
+    return out
+
+
 def serve_case(name: str, inputs: dict) -> dict:
     """``make_serve_step`` under ``decode_plan``'s plan for the case's mesh
     and batch, greedy from the prefill's logits."""
@@ -78,12 +183,7 @@ def serve_case(name: str, inputs: dict) -> dict:
     from repro.launch.serve_step import make_serve_step
 
     shape, batch = SERVE_CASES[name]
-    n = int(np.prod(shape))
-    # Auto axes, as the reference's meshes were before JAX made Explicit
-    # the default: under Explicit axes the step's reshape of the sharded
-    # attention output is refused
-    mesh = jax.make_mesh(shape, ("data", "model"), devices=jax.devices()[:n],
-                         axis_types=(jax.sharding.AxisType.Auto,) * 2)
+    mesh = auto_mesh(shape)
     cfg = get_smoke_config("gemma3-4b")
     params = jax.tree.map(jnp.asarray, inputs["params"])
     plan = decode_plan(cfg, mesh, batch, choose_layout(cfg))
@@ -103,7 +203,11 @@ if __name__ == "__main__":
     case, inputs_path, path = sys.argv[1:4]
     with open(inputs_path, "rb") as f:
         inputs = pickle.load(f)
-    res = sp_case() if case == "sp" else {}
-    res["serve"] = serve_case("seq_model" if case == "sp" else "seq_all", inputs)
+    if case == "tp":
+        res = {name: (tp_moe_case if name in TP_MOE_ONLY else tp_case)(name, inp)
+               for name, inp in inputs.items()}
+    else:
+        res = sp_case() if case == "sp" else {}
+        res["serve"] = serve_case("seq_model" if case == "sp" else "seq_all", inputs)
     with open(path, "wb") as f:
         pickle.dump(res, f)

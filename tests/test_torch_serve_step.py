@@ -92,6 +92,3 @@ def test_no_global_layer_runs_whole(ranks):
     to split, the plain step on every rank."""
     assert all(r["recurrent_whole"] for r in ranks)
 
-
-def test_heads_plan_raises(ranks):
-    assert all("tensor-parallel" in r["heads"] for r in ranks)

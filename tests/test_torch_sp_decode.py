@@ -197,8 +197,3 @@ def test_serve_step_writes_the_owning_block(ref, ranks):
             for name in ("k", "v"):
                 w = block(want[name].float().numpy(), spec, coord, sizes)
                 np.testing.assert_allclose(lc[name], w, **BF16)
-
-
-def test_heads_plan_with_a_mesh_raises(ranks):
-    for res in ranks:
-        assert res["heads"] is not None and "tensor-parallel" in res["heads"]
