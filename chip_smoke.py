@@ -245,7 +245,31 @@ Phases, in order; any failure exits non-zero and nothing catches it:
      (a)'s, the streams; step ms, the merge's ms per global layer, K2's
      launches and peak memory per run and rank; one JSON line
      ``{"sp": ...}``;
- 22. the kernel summary (one JSON line: K1-K8, the fused K4 and the int8
+ 22. tensor-parallel serving (``--tp-step`` alone): K2 and K7 at a ``(1,
+     4)`` rank's geometry, then Mistral-NeMo-12B world 1 and world 4 on
+     ``(1, 4)`` and ``(2, 2)``, qwen3-moe on ``(2, 2)``; one JSON line
+     ``{"tp": ...}``;
+ 23. FSDP x TP training and the pipeline (``--fsdp-step [LAYERS]`` alone,
+     no build: training launches no kernel): (a) Mistral-NeMo-12B at full
+     width, ``FSDP_LAYERS`` (4) of its 40 layers, two steps of the
+     one-device ``make_train_step`` on 4 x 2048 tokens, ``grad_accum`` 2,
+     its gradients and updates recorded at seeded whole-leaf samples; then
+     four spawned ranks over gloo on the one card: (b) the same on
+     ``(data=2, model=2)``, layout "2d", each rank drawing every leaf whole
+     from the shared seed and keeping its train-spec block, its state
+     after step 1 saved by the sharded ``save_checkpoint``; (c) that state
+     restored onto ``(4, 1)`` (each leaf's fingerprint against the saved
+     one, bit for bit) and its step 2; (d) xlstm-350m under "dp_only" on
+     ``(2, 2)``, 4 x 128 tokens, step 1 from the seed and step 2 from its
+     world-1 run's step-1 checkpoint; (e) ``pipeline_forward`` over
+     ``pod`` = 4, a decoder layer a stage, 6 micro-batches of 1 x 512,
+     against the layers in sequence. Each step's loss, ce and grad_norm
+     and each leaf's gradient norm and sampled gradients, moments and
+     parameters against world 1 (``tests/_torch_train.py``'s tolerances),
+     a planted fault (a whole norm's gradient summed over ``model`` too)
+     that must fail, step ms, each category's collectives (ms, GB) and
+     peak GB per rank; one JSON line ``{"fsdp": ...}``;
+ 24. the kernel summary (one JSON line: K1-K8, the fused K4 and the int8
      forms of K1, K2, K4 (fused and partials) and K5: 14 entries, then K2,
      the fused K4, K8, K7, K6 and K5 at the attention-family geometries,
      each with its launches from that architecture's run, and K7 at
@@ -258,15 +282,16 @@ Each phase starts with a ``[seconds] phase`` line: the time since the
 script started. To stay inside its 1200 s on a slow host the full run cuts
 depths (``FULL_RUN_DEPTH``): phases 13, 14, 16 and 17 serve Mistral-NeMo-12B
 at 20 of its 40 layers, qwen3-moe runs at 24 of 48, the recurrent models at
-8 layers, and train phase (c) resumes xlstm-350m at 8 of 24; run alone, each
-phase keeps its depth. Phases 11-21 alone, at full width, after the build:
+8 layers, train phase (c) resumes xlstm-350m at 8 of 24, and the FSDP
+phase trains Mistral-NeMo-12B 1 layer deep; run alone, each phase keeps
+its depth. Phases 11-21 alone, at full width, after the build:
 
     python3 chip_smoke.py --f8-step | --chunk-step | --spec-step | --admission-step
     python3 chip_smoke.py --captured-step
     python3 chip_smoke.py --obs-step | --guards-step
     python3 chip_smoke.py --arch-kernels | --qwen3-step [DEPTH] | --gemma-step [DEPTH]
     python3 chip_smoke.py --arch-sweep | --recurrent-step [DEPTH] | --train-step
-    python3 chip_smoke.py --sp-step
+    python3 chip_smoke.py --sp-step | --tp-step | --fsdp-step [LAYERS]
 
 The kernel phase (3) also holds K3 (the merge kernel) against its plain
 version and ``segment_merge``, drives the two-phase ``merge_impl="pallas"``
@@ -7446,6 +7471,661 @@ def tp_phase(torch, sm_count: int, smi: str, depths=None) -> dict:
     return res
 
 
+# ------------------------------------------------- FSDP x TP training
+FSDP_ARCH = "mistral-nemo-12b"
+# of 40 (2.43 B parameters; four ranks share the card's 80 GB): the
+# embedding's lookup gathers only the rows the tokens hit, and the loss keeps
+# the gathered unembedding in bf16 with one float32 gradient
+FSDP_LAYERS = 4
+# the train phase's data-pipeline batches of 2048 tokens, 4 rows: with
+# grad_accum 2 a micro-batch of 2 rows splits over data=2 in (b); over
+# data=4 in (c) it does not split, so (c) runs every row on every rank and
+# sums no gradient
+FSDP_BATCH, FSDP_SEQ, FSDP_ACCUM, FSDP_STEPS = 4, TRAIN_SEQ, 2, 2
+FSDP_OPT = TRAIN_OPT
+FSDP_SEED = 31
+FSDP_MESHES = {"b": (2, 2), "c": (4, 1), "d": (2, 2)}
+# (d): xlstm-350m under dp_only, 4 rows of 128 tokens in one micro-batch:
+# one row a rank over (data, model). Its world-1 oracle runs the same rows
+# one a micro-batch (grad_accum 4, the same function): sLSTM's recurrence
+# amplifies a GEMM's rounding, and a 4-row product rounds otherwise than a
+# rank's 1-row one (world 1 at grad_accum 1 parts by 2e-3 in the loss)
+FSDP_XLSTM, FSDP_XLSTM_BATCH = "xlstm-350m", 4
+FSDP_SAMPLES = 16        # elements a leaf, whole-leaf coordinates, seeded
+FSDP_PLANTED = "layers/0/ln1"
+# tests/_torch_train.py's tolerances
+FSDP_LOSS_RTOL, FSDP_GNORM_RTOL, FSDP_GRAD_NORM, FSDP_GRAD_ELEM = 2e-4, 5e-3, 0.02, 2.0 ** -4
+FSDP_PARAM_ATOL, FSDP_FIRM_M = 1e-6, 1e-5
+# (e): pipeline_forward over pod=4, one decoder layer a stage
+PIPE_M, PIPE_MB, PIPE_SEQ = 6, 1, 512
+PIPE_TOL = 2.0 ** -8     # of the largest |output|: one rounding of a bf16 product's size
+
+
+def _sync(torch, dev: str):
+    if dev == "cuda":
+        torch.cuda.synchronize()
+
+
+def fsdp_samples(shape, seed: int):
+    """FSDP_SAMPLES whole-leaf coordinates of a leaf of ``shape``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.integers(0, n, FSDP_SAMPLES) for n in shape], 1) if shape else \
+        np.zeros((1, 0), dtype=np.int64)
+
+
+class FsdpRecorder:
+    """Wraps ``train_loop.adamw_update`` to record, per step and leaf, the
+    gradient's sum of squares (float64, over the blocks this rank owns)
+    and largest |element| (over its blocks), and its sampled elements this
+    rank holds; after the update the sampled parameters and moments and
+    the first moment's largest |element|. With ``fs`` (the rank's FSDP
+    context) the leaves are its blocks, else whole. ``planted`` also
+    records the planted leaf's gradient summed over ``model`` (the fault)."""
+
+    def __init__(self, torch, like, fs=None, planted=None):
+        import numpy as np
+
+        from repro_torch.launch.mesh import axis_index, axis_size
+        from repro_torch.training.tree import flatten
+
+        self.torch, self.fs, self.planted, self.steps = torch, fs, planted, []
+        self.where = {}
+        for k, (path, leaf) in enumerate(zip(*flatten(like))):
+            idx = fsdp_samples(tuple(leaf.shape), 1000 + k)
+            local, held = idx.copy(), np.ones(len(idx), bool)
+            if fs is not None:
+                for d, axes in enumerate(fs.train[path]):
+                    if axes is None:
+                        continue
+                    b = leaf.shape[d] // axis_size(fs.mesh, axes)
+                    held &= idx[:, d] // b == axis_index(fs.mesh, axes)
+                    local[:, d] = idx[:, d] % b
+            self.where[path] = (np.nonzero(held)[0], local[held])
+
+    def _take(self, t, path):
+        rows, local = self.where[path]
+        if not len(rows):
+            return rows, []
+        return rows, t[tuple(self.torch.from_numpy(local.T.copy()).to(t.device))].double().cpu() \
+            .tolist()
+
+    def wrap(self, update):
+        from repro_torch.training.tree import flatten
+
+        torch = self.torch
+
+        def recorded(grads, opt, params, cfg, shards=None):
+            rec = {"g": {}}
+            for path, g in zip(*flatten(grads)):
+                own = self.fs is None or self.fs.owns(path)
+                rec["g"][path] = {"sq": float(g.double().square().sum()) if own else 0.0,
+                                  "amax": float(g.abs().max()), "at": self._take(g, path)}
+                if self.planted and path == self.planted and self.fs.model_group is not None:
+                    bad = g.clone()
+                    torch.distributed.all_reduce(bad, group=self.fs.model_group)
+                    rec["planted"] = {"sq": float(bad.double().square().sum()) if own else 0.0,
+                                      "at": self._take(bad, path)}
+            params, opt, m = update(grads, opt, params, cfg, shards)
+            rec["p"] = {p: self._take(t, p) for p, t in zip(*flatten(params))}
+            rec["m"] = {p: self._take(t, p) + (float(t.abs().max()),)
+                        for p, t in zip(*flatten(opt["m"]))}
+            rec["v"] = {p: self._take(t, p) + (float(t.abs().max()),)
+                        for p, t in zip(*flatten(opt["v"]))}
+            rec["lr"] = float(m["lr"])
+            self.steps.append(rec)
+            return params, opt, m
+
+        return recorded
+
+
+@contextlib.contextmanager
+def recording(rec):
+    from repro_torch.training import train_loop
+
+    saved = train_loop.adamw_update
+    train_loop.adamw_update = rec.wrap(saved)
+    try:
+        yield rec
+    finally:
+        train_loop.adamw_update = saved
+
+
+def fsdp_batches(cfg, batch: int, seq: int, n: int, dev: str):
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig, batch_at
+
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch, seed=7)
+    return [{k: torch.from_numpy(v).to(dev) for k, v in batch_at(dc, i).items()} for i in range(n)]
+
+
+def fsdp_run(torch, cfg, params, opt, step, batches, rec, dev: str, stats_from: int = 99) -> dict:
+    """``len(batches)`` steps; each one's metrics and synced ms, and
+    (from step ``stats_from``) the collectives' breakdown."""
+    from repro_torch.distributed import tensor_parallel as tpm
+
+    out = {"metrics": [], "ms": [], "collectives": []}
+    with recording(rec):
+        for i, batch in enumerate(batches):
+            tpm.collective_stats = {} if i >= stats_from else None
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            _sync(torch, dev)
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            out["metrics"].append({k: float(v) for k, v in m.items()})
+            out["collectives"].append(tpm.collective_stats)
+            tpm.collective_stats = None
+    out["steps"] = rec.steps
+    return out, params, opt
+
+
+def fsdp_world1(torch, cfg, batches, accum: int, seed: int, dev: str, ckpt=None) -> dict:
+    """The oracle: ``make_train_step`` on one device (the train phase's), its
+    gradients and updates recorded; with ``ckpt`` its state after step 1
+    saved there (a one-device save)."""
+    from repro_torch.training import (OptConfig, init_train_state, make_train_step,
+                                      save_checkpoint, train_state_to_numpy)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    params, opt = init_train_state(cfg, gen, dev)
+    rec = FsdpRecorder(torch, params)
+    step = make_train_step(cfg, OptConfig(**FSDP_OPT), grad_accum=accum)
+    out, params, opt = fsdp_run(torch, cfg, params, opt, step, batches[:1], rec, dev)
+    if ckpt is not None:
+        save_checkpoint(ckpt, 1, train_state_to_numpy(params, opt, cfg), extra={"data_step": 1})
+    rest, params, opt = fsdp_run(torch, cfg, params, opt, step, batches[1:], rec, dev)
+    for k in ("metrics", "ms", "collectives"):
+        out[k] += rest[k]
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 if dev == "cuda" else 0.0
+    del params, opt
+    return out
+
+
+def leaf_fingerprint(torch, x, offsets, whole_shape) -> int:
+    """Sum of every element's bits times a hash of its whole-leaf flat
+    index, mod 2**64: the blocks of a tiling add up to the whole leaf's,
+    whatever the tiling."""
+    strides = [1] * len(whole_shape)
+    for d in range(len(whole_shape) - 2, -1, -1):
+        strides[d] = strides[d + 1] * whole_shape[d + 1]
+    dev = x.device
+    if x.ndim == 0:
+        x, offsets, strides = x.reshape(1, 1), (0, 0), (1, 1)
+    elif x.ndim == 1:
+        x, offsets, strides = x.reshape(-1, 1), (offsets[0], 0), (strides[0], 1)
+    inner = torch.zeros((), dtype=torch.int64, device=dev)
+    for d in range(1, x.ndim):
+        ar = (torch.arange(x.shape[d], device=dev) + offsets[d]) * strides[d]
+        inner = (inner.unsqueeze(-1) + ar)
+    inner = inner.reshape(-1)
+    flat = x.reshape(x.shape[0], -1)
+    total = torch.zeros((), dtype=torch.int64, device=dev)
+    chunk = max(1, (1 << 24) // max(1, flat.shape[1]))
+    for r0 in range(0, flat.shape[0], chunk):
+        rows = torch.arange(r0, min(r0 + chunk, flat.shape[0]), device=dev)
+        idx = (rows + offsets[0])[:, None] * strides[0] + inner[None, :] + 1
+        h = idx * -7046029254386353131
+        h = h ^ (h >> 31)
+        total += (flat[r0:r0 + len(rows)].contiguous().view(torch.int32).to(torch.int64) * h).sum()
+    return int(total) % (1 << 64)
+
+
+def state_fingerprints(torch, fs, params, opt) -> dict:
+    """Each leaf's fingerprint over the blocks this rank owns (its first
+    replica), for the parameters and both moments."""
+    from repro_torch.launch.mesh import axis_index, axis_size
+    from repro_torch.training.tree import flatten
+
+    out = {}
+    for name, tree in (("params", params), ("m", opt["m"]), ("v", opt["v"])):
+        for path, t in zip(*flatten(tree)):
+            if not fs.owns(path):
+                continue
+            spec = fs.train[path]
+            whole = [n * (axis_size(fs.mesh, a) if a else 1) for n, a in zip(t.shape, spec)]
+            offs = [(axis_index(fs.mesh, a) * n if a else 0) for n, a in zip(t.shape, spec)]
+            out[f"{name}/{path}"] = leaf_fingerprint(torch, t, offs, whole)
+    return out
+
+
+def fsdp_config(arch: str, layers, smoke: bool):
+    from repro_torch.configs import get_config, get_smoke_config
+
+    if smoke:
+        return get_smoke_config(arch)
+    return arch_config(get_config(arch), layers) if layers else get_config(arch)
+
+
+def pipe_config(smoke: bool):
+    """(e)'s model: the architecture's first four layers (attention)."""
+    import dataclasses
+
+    base = fsdp_config(FSDP_ARCH, None, smoke)
+    return dataclasses.replace(base, n_layers=4, stages=(((base.stages[0][0][0],), 4),))
+
+
+def _stage_layer(stage: int):
+    """The shard hook that keeps layer ``stage``'s leaves (and no other)."""
+    prefix = f"layers/{stage}/"
+    return lambda path, t: t if path.startswith(prefix) else t.new_empty(0)
+
+
+def pipe_stage_fn(cfg):
+    """A stage of (e): one decoder layer's whole-sequence forward (the
+    plain attention, bf16 weights), no gradient."""
+    import torch
+
+    from repro_torch.models.transformer import _layer_forward, _plain_attn
+
+    attn = _plain_attn(cfg, PIPE_SEQ)
+
+    def fn(lp, x, stage):
+        with torch.no_grad():
+            return _layer_forward(lp, x, "attn", cfg, None, attn)[0]
+
+    return fn
+
+
+def pipe_input(torch, cfg, dev):
+    g = torch.Generator(device=dev)
+    g.manual_seed(FSDP_SEED + 2)
+    return torch.randn(PIPE_M, PIPE_MB, PIPE_SEQ, cfg.d_model, generator=g, device=dev)
+
+
+def pipe_params(torch, cfg, dev, shard=None):
+    from repro_torch.models import init_params
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(FSDP_SEED + 1)
+    return init_params(cfg, g, device=dev, dtype=torch.bfloat16, shard=shard)
+
+
+def fsdp_rank(rank: int, world: int, port: int, out_dir: str, layers: int, dev: str,
+              smoke: bool, b_steps: int = FSDP_STEPS, xlstm_layers=None):
+    """One rank of the FSDP phase: (b) FSDP x TP on (2, 2), its state
+    after step 1 saved; (c) restored onto (4, 1) and its step 2; (d)
+    xlstm-350m under dp_only on (2, 2); (e) pipeline_forward over pod=4."""
+    import torch
+    import torch.distributed as dist
+
+    if dev == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.set_device(0)
+    else:
+        torch.set_num_threads(1)
+    from repro_torch.distributed.fsdp import FSDP
+    from repro_torch.distributed.pipeline import bubble_fraction, pipeline_forward
+    from repro_torch.distributed.tensor_parallel import abstract_params
+    from repro_torch.launch.mesh import axis_index, init_distributed, make_mesh
+    from repro_torch.training import (OptConfig, init_train_state, make_train_step,
+                                      restore_checkpoint, save_checkpoint,
+                                      train_state_from_numpy, train_state_shardings)
+
+    init_distributed(rank, world, port, "gloo")
+    try:
+        res = {}
+        cfg = fsdp_config(FSDP_ARCH, layers, smoke)
+        batches = fsdp_batches(cfg, FSDP_BATCH, FSDP_SEQ, FSDP_STEPS, dev)
+        like = abstract_params(cfg)
+        opt_cfg = OptConfig(**FSDP_OPT)
+        # (b) FSDP x TP on (data=2, model=2)
+        mesh = make_mesh(FSDP_MESHES["b"], ("data", "model"), dev)
+        fs = FSDP(cfg, mesh, "2d")
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(FSDP_SEED)
+        t0 = time.perf_counter()
+        params, opt = init_train_state(cfg, gen, dev, shard=fs.block)
+        _sync(torch, dev)
+        init_s = time.perf_counter() - t0
+        state_gb = torch.cuda.memory_allocated() / 1e9 if dev == "cuda" else 0.0
+        rec = FsdpRecorder(torch, like, fs, planted=FSDP_PLANTED)
+        step = make_train_step(cfg, opt_cfg, grad_accum=FSDP_ACCUM, mesh=mesh, layout="2d")
+        b, params, opt = fsdp_run(torch, cfg, params, opt, step, batches[:1], rec, dev,
+                                  stats_from=0 if b_steps == 1 else 1)
+        fp_saved = state_fingerprints(torch, fs, params, opt)
+        ckpt = os.path.join(out_dir, "ckpt")
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        state, shardings = train_state_shardings(params, opt, cfg, fs.train_specs)
+        save_checkpoint(ckpt, 1, state, shardings=shardings, mesh=mesh, extra={"data_step": 1})
+        save_s = time.perf_counter() - t0
+        del state
+        b2, params, opt = fsdp_run(torch, cfg, params, opt, step, batches[1:b_steps], rec, dev,
+                                   stats_from=0)
+        for k in ("metrics", "ms", "collectives"):
+            b[k] += b2[k]
+        b.update(steps=rec.steps, init_s=init_s, state_gb=state_gb, save_s=save_s,
+                 peak_gb=torch.cuda.max_memory_allocated() / 1e9 if dev == "cuda" else 0.0,
+                 coord=(axis_index(mesh, "data"), axis_index(mesh, "model")))
+        res["b"] = b
+        del params, opt, step, rec
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        # (c) restored onto (data=4, model=1): pure FSDP, its step 2
+        mesh_c = make_mesh(FSDP_MESHES["c"], ("data", "model"), dev)
+        fc = FSDP(cfg, mesh_c, "2d")
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        meta = {"m": like, "v": like, "step": torch.zeros((), dtype=torch.int32, device="meta")}
+        like_state, specs_c = train_state_shardings(like, meta, cfg, fc.train_specs)
+        t0 = time.perf_counter()
+        restored, extra = restore_checkpoint(ckpt, like_state, device=dev, shardings=specs_c,
+                                             mesh=mesh_c)
+        params, opt = train_state_from_numpy(restored, cfg, dev)
+        _sync(torch, dev)
+        restore_s = time.perf_counter() - t0
+        del restored
+        fp_restored = state_fingerprints(torch, fc, params, opt)
+        rec = FsdpRecorder(torch, like, fc)
+        step = make_train_step(cfg, opt_cfg, grad_accum=FSDP_ACCUM, mesh=mesh_c, layout="2d")
+        c, params, opt = fsdp_run(torch, cfg, params, opt, step,
+                                  batches[extra["data_step"]:extra["data_step"] + 1], rec, dev,
+                                  stats_from=0)
+        c.update(restore_s=restore_s, step_count=1, fp_saved=fp_saved, fp_restored=fp_restored,
+                 peak_gb=torch.cuda.max_memory_allocated() / 1e9 if dev == "cuda" else 0.0,
+                 coord=(axis_index(mesh_c, "data"), axis_index(mesh_c, "model")))
+        res["c"] = c
+        del params, opt, step, rec
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        dist.barrier()
+        if rank == 0:
+            import shutil
+
+            shutil.rmtree(ckpt, ignore_errors=True)
+        # (d) xlstm-350m under dp_only on (2, 2)
+        cfg_d = fsdp_config(FSDP_XLSTM, xlstm_layers, smoke)
+        fd = FSDP(cfg_d, mesh, "dp_only")
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(FSDP_SEED)
+        params, opt = init_train_state(cfg_d, gen, dev, shard=fd.block)
+        like_d = abstract_params(cfg_d)
+        rec = FsdpRecorder(torch, like_d, fd)
+        step = make_train_step(cfg_d, opt_cfg, grad_accum=1, mesh=mesh, layout="dp_only")
+        batches_d = fsdp_batches(cfg_d, FSDP_XLSTM_BATCH, XLSTM_TRAIN_SEQ, FSDP_STEPS, dev)
+        d, params, opt = fsdp_run(torch, cfg_d, params, opt, step, batches_d[:1], rec, dev)
+        # step 2 from world 1's state after its step 1 (its one-device
+        # checkpoint, restored onto this mesh): one step from one state
+        # on both sides (sLSTM's recurrence amplifies any difference)
+        del params, opt
+        meta = {"m": like_d, "v": like_d, "step": torch.zeros((), dtype=torch.int32,
+                                                              device="meta")}
+        like_state, specs_d = train_state_shardings(like_d, meta, cfg_d, fd.train_specs)
+        restored, _ = restore_checkpoint(os.path.join(out_dir, "d_ckpt"), like_state,
+                                         device=dev, shardings=specs_d, mesh=mesh)
+        params, opt = train_state_from_numpy(restored, cfg_d, dev)
+        del restored
+        d2, params, opt = fsdp_run(torch, cfg_d, params, opt, step, batches_d[1:], rec, dev,
+                                   stats_from=0)
+        for k in ("metrics", "ms", "collectives"):
+            d[k] += d2[k]
+        d.update(steps=rec.steps,
+                 peak_gb=torch.cuda.max_memory_allocated() / 1e9 if dev == "cuda" else 0.0)
+        res["d"] = d
+        del params, opt, step, rec
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        # (e) pipeline_forward over pod=4, one decoder layer a stage
+        cfg_e = pipe_config(smoke)
+        mesh_e = make_mesh((4,), ("pod",), dev)
+        stage = axis_index(mesh_e, "pod")
+        lp = pipe_params(torch, cfg_e, dev, shard=_stage_layer(stage))["layers"][stage]
+        x = pipe_input(torch, cfg_e, dev)
+        fn = pipe_stage_fn(cfg_e)
+        _sync(torch, dev)
+        dist.barrier()
+        t0 = time.perf_counter()
+        out = pipeline_forward(fn, lp, x, mesh_e, axis="pod")
+        _sync(torch, dev)
+        res["e"] = {"ms": (time.perf_counter() - t0) * 1e3, "stage": stage,
+                    "out": out.cpu() if rank == 0 else None, "bubble": bubble_fraction(4, PIPE_M)}
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def fsdp_worst(steps, ref, lrs, start: int = 0, grads_only: bool = False) -> dict:
+    """A sharded run's recorded steps (every rank's records) against the
+    oracle's, each check's worst ratio to its tolerance (above 1 fails):
+    per leaf the gradient's norm within FSDP_GRAD_NORM and each sampled
+    element within FSDP_GRAD_ELEM of the leaf's largest; the sampled first
+    and second moments within FSDP_GRAD_ELEM (twice for the second) of their
+    leaves' largest; the sampled parameters by Adam's first-step rule at
+    step 1 (firm elements within FSDP_PARAM_ATOL, all within 2 lr) and
+    within 2 lr a step since the first after. ``steps[r][i]``: rank r's
+    record of the oracle's step ``start + i``; ``ref``, ``lrs``: the
+    oracle's steps and learning rates; ``grads_only``: the gradients'
+    checks alone."""
+    worst = {"g_norm": 0.0, "g_elem": 0.0}
+    if not grads_only:
+        worst.update(m_elem=0.0, v_elem=0.0, p_firm=0.0, p_bound=0.0)
+    for i in range(len(steps[0])):
+        want, t = ref[start + i], start + i
+        move = 2 * sum(lrs[:t + 1]) * (1 + 1e-3) + FSDP_PARAM_ATOL
+        for path in steps[0][i]["g"]:
+            g = want["g"][path]
+            sq = sum(r[i]["g"][path]["sq"] for r in steps)
+            na, nb = math.sqrt(g["sq"]), math.sqrt(sq)
+            if na > 0:
+                worst["g_norm"] = max(worst["g_norm"], abs(nb / na - 1) / FSDP_GRAD_NORM)
+            vals = dict(zip(*g["at"]))
+            for r in steps:
+                for k, x in zip(*r[i]["g"][path]["at"]):
+                    worst["g_elem"] = max(worst["g_elem"], abs(x - vals[int(k)]) /
+                                          (FSDP_GRAD_ELEM * g["amax"] or 1.0))
+            if grads_only:
+                continue
+            m_rows, m_vals, m_amax = want["m"][path]
+            v_rows, v_vals, v_amax = want["v"][path]
+            p_vals = dict(zip(*want["p"][path]))
+            m_at, v_at = dict(zip(m_rows, m_vals)), dict(zip(v_rows, v_vals))
+            for r in steps:
+                for k, x in zip(*r[i]["m"][path][:2]):
+                    worst["m_elem"] = max(worst["m_elem"], abs(x - m_at[int(k)]) /
+                                          (FSDP_GRAD_ELEM * m_amax or 1.0))
+                for k, x in zip(*r[i]["v"][path][:2]):
+                    worst["v_elem"] = max(worst["v_elem"], abs(x - v_at[int(k)]) /
+                                          (2 * FSDP_GRAD_ELEM * v_amax or 1.0))
+                for k, x in zip(*r[i]["p"][path]):
+                    gap = abs(x - p_vals[int(k)])
+                    worst["p_bound"] = max(worst["p_bound"], gap / move)
+                    if t == 0 and abs(m_at[int(k)]) > max(FSDP_GRAD_ELEM * m_amax, FSDP_FIRM_M):
+                        worst["p_firm"] = max(worst["p_firm"], gap / FSDP_PARAM_ATOL)
+    return worst
+
+
+def fsdp_metrics(runs, ref, what, start: int = 0) -> list:
+    """Each step's loss, ce and grad_norm (the same on every rank) against
+    the oracle's: the relative gaps."""
+    gaps = []
+    for i, got in enumerate(runs[0]["metrics"]):
+        want = ref["metrics"][start + i]
+        check(all(r["metrics"][i] == got for r in runs), f"{what}: ranks' metrics differ")
+        gap = {k: abs(got[k] - want[k]) / abs(want[k]) for k in ("loss", "ce", "grad_norm")}
+        check(gap["loss"] <= FSDP_LOSS_RTOL and gap["ce"] <= FSDP_LOSS_RTOL,
+              f"{what} step {start + i + 1}: loss {got['loss']} against {want['loss']}")
+        check(gap["grad_norm"] <= FSDP_GNORM_RTOL, f"{what} step {start + i + 1}: grad_norm "
+              f"{got['grad_norm']} against {want['grad_norm']}")
+        gaps.append({"step": start + i + 1, "loss": got["loss"], "want_loss": want["loss"],
+                     "grad_norm": got["grad_norm"], "want_grad_norm": want["grad_norm"], **{
+                         f"{k}_gap": v for k, v in gap.items()}})
+    return gaps
+
+
+def fsdp_collectives(run, step: int) -> dict:
+    """A step's collectives: ms and GB per category."""
+    st = run["collectives"][step] or {}
+    return {k: {"calls": v[0], "gb": v[1] / 1e9, "ms": v[2] * 1e3} for k, v in st.items()}
+
+
+def fsdp_phase(torch, smi: str, layers: int = FSDP_LAYERS, dev: str = "cuda",
+               smoke: bool = False, b_steps: int = FSDP_STEPS, xlstm_layers=None) -> dict:
+    """FSDP x TP training and the pipeline (item 16.1, 16.2), four ranks
+    over gloo on the one card: (a) the world-1 oracle, Mistral-NeMo-12B at
+    full width and ``layers`` deep, two steps of the one-device
+    make_train_step;
+    (b) the same on (data=2, model=2), layout "2d"; (c) (b)'s state after
+    step 1 saved and restored onto (4, 1), its step 2; (d) xlstm-350m under
+    dp_only on (2, 2) against its world-1 run; (e) pipeline_forward over
+    pod=4, a decoder layer a stage, against the layers in sequence. Four
+    ranks share the card's SMs and gloo stages every collective through the
+    host: the times say nothing of scaling across cards. ``b_steps`` 1 (the
+    full run) runs (b)'s first step alone; ``xlstm_layers`` cuts (d)'s
+    depth (None: all 24)."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.models import count_params
+
+    t_phase = time.perf_counter()
+    cfg = fsdp_config(FSDP_ARCH, layers, smoke)
+    clock("fsdp phase (a)")
+    a = fsdp_world1(torch, cfg, fsdp_batches(cfg, FSDP_BATCH, FSDP_SEQ, FSDP_STEPS, dev),
+                    FSDP_ACCUM, FSDP_SEED, dev)
+    n = count_params(cfg)
+    tokens = FSDP_BATCH * FSDP_SEQ
+    print(f"fsdp (a) world 1 ({smi}): {cfg.name} full width, {cfg.n_layers} of "
+          f"{fsdp_config(FSDP_ARCH, None, smoke).n_layers} layers ({n:,} parameters), batch "
+          f"{FSDP_BATCH} x {FSDP_SEQ}, grad_accum {FSDP_ACCUM}, OptConfig({FSDP_OPT}): loss "
+          + ", ".join(f"{m['loss']:.6f}" for m in a["metrics"]) + "; grad norm "
+          + ", ".join(f"{m['grad_norm']:.5f}" for m in a["metrics"]) + "; step ms "
+          + ", ".join(f"{t:.1f}" for t in a["ms"]) + f"; peak {a['peak_gb']:.2f} GB", flush=True)
+    cfg_d = fsdp_config(FSDP_XLSTM, xlstm_layers, smoke)
+    clock("fsdp phase (d) world 1")
+    out_dir = tempfile.mkdtemp(prefix="fsdp_ranks_")
+    a_d = fsdp_world1(torch, cfg_d, fsdp_batches(cfg_d, FSDP_XLSTM_BATCH, XLSTM_TRAIN_SEQ,
+                                                 FSDP_STEPS, dev), FSDP_XLSTM_BATCH, FSDP_SEED,
+                      dev, ckpt=os.path.join(out_dir, "d_ckpt"))
+    cfg_e = pipe_config(smoke)
+    params = pipe_params(torch, cfg_e, dev)
+    fn, x = pipe_stage_fn(cfg_e), pipe_input(torch, cfg_e, dev)
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    seq = torch.stack([fn(params["layers"][3], fn(params["layers"][2], fn(
+        params["layers"][1], fn(params["layers"][0], x[m], 0), 1), 2), 3) for m in range(PIPE_M)])
+    _sync(torch, dev)
+    seq_ms = (time.perf_counter() - t0) * 1e3
+    seq = seq.cpu()
+    del params, x
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    clock("fsdp phase (b)-(e): four ranks")
+    if dev == "cuda":
+        print(f"fsdp phase: this process holds {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+              f"({torch.cuda.memory_reserved() / 1e9:.2f} reserved) as the ranks start", flush=True)
+    # the ranks' allocators grow segments in place: four processes share the card
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        t0 = time.perf_counter()
+        mp.spawn(fsdp_rank, args=(4, free_port(), out_dir, layers, dev, smoke, b_steps,
+                                  xlstm_layers), nprocs=4, join=True)
+        wall = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+                 for r in range(4)]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    res = {"card": smi, "layers": cfg.n_layers, "params": n, "batch": [FSDP_BATCH, FSDP_SEQ],
+           "grad_accum": FSDP_ACCUM, "wall_s": wall,
+           "a": {"metrics": a["metrics"], "ms": a["ms"], "peak_gb": a["peak_gb"]}}
+    lrs = [s["lr"] for s in a["steps"]]
+    for name in ("b", "c", "d"):
+        runs = [r[name] for r in ranks]
+        ref = a_d if name == "d" else a
+        gaps = fsdp_metrics(runs, ref, f"fsdp ({name})", start=int(name == "c"))
+        worst = fsdp_worst([r["steps"] for r in runs], ref["steps"],
+                           [s["lr"] for s in ref["steps"]], start=int(name == "c"))
+        step_ms = [statistics.median(r["ms"]) for r in runs]
+        tok = (FSDP_XLSTM_BATCH * XLSTM_TRAIN_SEQ) if name == "d" else tokens
+        last = len(runs[0]["ms"]) - 1
+        coll = [fsdp_collectives(r, last) for r in runs]
+        res[name] = {"mesh": list(FSDP_MESHES[name]), "metric_gaps": gaps, "worst": worst,
+                     "step_ms": [r["ms"] for r in runs], "step_ms_p50": step_ms,
+                     "tokens_per_s": [tok / (t / 1e3) for t in step_ms],
+                     "collectives_last_step": coll, "peak_gb": [r["peak_gb"] for r in runs]}
+        for i, (r, c) in enumerate(zip(runs, coll)):
+            print(f"fsdp ({name}) rank {i} on {tuple(FSDP_MESHES[name])} ({smi}): step ms "
+                  + ", ".join(f"{t:.1f}" for t in r["ms"]) + f" (p50 {step_ms[i]:.1f}, "
+                  f"{tok / (step_ms[i] / 1e3):.0f} tokens/s); the last step's collectives (each "
+                  f"between two syncs): " + "; ".join(
+                      f"{k} {v['calls']} calls, {v['gb']:.3f} GB, {v['ms']:.1f} ms"
+                      for k, v in sorted(c.items())) + f"; peak {r['peak_gb']:.2f} GB",
+                  flush=True)
+        print(f"fsdp ({name}) against its world-1 run: " + "; ".join(
+            f"step {g['step']}: loss {g['loss']:.6f} / {g['want_loss']:.6f} (gap {g['loss_gap']:.2e}, "
+            f"allowed {FSDP_LOSS_RTOL}), grad_norm {g['grad_norm']:.5f} / "
+            f"{g['want_grad_norm']:.5f} (gap {g['grad_norm_gap']:.2e}, allowed "
+            f"{FSDP_GNORM_RTOL})" for g in gaps) + "; worst sample ratios to "
+            "their tolerances " + ", ".join(f"{k} {v:.3f}" for k, v in worst.items()),
+            flush=True)
+        for k, v in worst.items():
+            check(v <= 1.0, f"fsdp ({name}): {k} at {v:.3f} of its tolerance")
+    b = [r["b"] for r in ranks]
+    res["b"].update(init_s=[r["init_s"] for r in b], state_gb=[r["state_gb"] for r in b],
+                    save_s=b[0]["save_s"])
+    # the planted fault: the whole norm's gradient summed over model too
+    planted = [[{"g": {FSDP_PLANTED: s["planted"]}} for s in r["steps"][:1]] for r in b]
+    fault = fsdp_worst(planted, a["steps"], lrs, grads_only=True)
+    check(max(fault.values()) > 1.0, f"fsdp: the planted wrong-axis gradient sum passed the "
+          f"check: {fault}")
+    res["planted"] = fault
+    # (c)'s restored blocks against (b)'s saved state, leaf by leaf, bit for bit
+    saved, restored = {}, {}
+    for r in ranks:
+        for k, v in r["c"]["fp_saved"].items():
+            saved[k] = (saved.get(k, 0) + v) % (1 << 64)
+        for k, v in r["c"]["fp_restored"].items():
+            restored[k] = (restored.get(k, 0) + v) % (1 << 64)
+    same = sum(saved[k] == restored.get(k) for k in saved)
+    check(same == len(saved) == len(restored),
+          f"fsdp (c): {len(saved) - same} of {len(saved)} restored leaves differ from the saved")
+    res["c"].update(leaves_equal=same, leaves=len(saved), restore_s=ranks[0]["c"]["restore_s"])
+    # (e)
+    e = ranks[0]["e"]
+    err = (e["out"] - seq).abs().max().item()
+    scale = seq.abs().max().item()
+    check(err <= PIPE_TOL * scale, f"fsdp (e): the pipeline's output is {err} from the "
+          f"sequential layers' (allowed {PIPE_TOL} x {scale})")
+    res["e"] = {"max_abs_err": err, "scale": scale, "ms": [r["e"]["ms"] for r in ranks],
+                "sequential_ms": seq_ms, "bubble_fraction": e["bubble"]}
+    print(f"fsdp (b) ({smi}): {cfg.name} weights drawn and cut in "
+          + ", ".join(f"{t:.1f}" for t in res["b"]["init_s"]) + " s a rank, state "
+          + ", ".join(f"{t:.2f}" for t in res["b"]["state_gb"]) + " GB a rank; planted fault ("
+          f"{FSDP_PLANTED}'s gradient also summed over model) fails: worst ratios to the "
+          "tolerances " + ", ".join(f"{k} {v:.2f}" for k, v in fault.items()), flush=True)
+    print(f"fsdp (c) ({smi}): sharded save of step 1's state {res['b']['save_s']:.1f} s, restore "
+          f"onto (4, 1) {res['c']['restore_s']:.1f} s; {same} of {len(saved)} leaves (parameters "
+          f"and moments) bit for bit", flush=True)
+    print(f"fsdp (e) ({smi}): pipeline_forward over pod=4, {PIPE_M} micro-batches of {PIPE_MB} x "
+          f"{PIPE_SEQ}, one {cfg.name} layer a stage: max |pipeline - sequential| {err:.3e} "
+          f"(allowed {PIPE_TOL} x {scale:.3f}); ms by rank " + ", ".join(
+              f"{t:.1f}" for t in res["e"]["ms"]) + f", sequential {seq_ms:.1f}; bubble_fraction"
+          f"(4, {PIPE_M}) = {e['bubble']:.4f}", flush=True)
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"fsdp phase: {res['phase_s']:.1f} s (four ranks {wall:.1f} s); four ranks share the "
+          "card's SMs and gloo stages every collective through the host: these times say "
+          "nothing of scaling across cards", flush=True)
+    print(json.dumps({"fsdp": res}), flush=True)
+    return res
+
+
 # Depths the full run cuts to stay inside its 1200 s on a slow host: at the
 # full depths (qwen3-moe's 48 layers, the recurrent models' 38 and 24, the
 # captured-step bit checks at 20 of 40) one full run reached its summary at
@@ -7460,9 +8140,14 @@ def tp_phase(torch, sm_count: int, smi: str, depths=None) -> dict:
 # depths. With the tensor-parallel phase at its own depths (Mistral-NeMo-12B's
 # 40 layers, qwen3-moe's 16) a full run reached its summary at 970.3 s, so
 # the full run serves that phase at 10 and 8 layers ("tp", "tp_moe");
-# ``--tp-step`` keeps 40 and 16.
+# ``--tp-step`` keeps 40 and 16. The FSDP phase took 288.4 s alone (2 layers,
+# (b) two steps, xlstm-350m at 24 layers) and 183.4 s at 1 layer with (b)'s
+# first step alone, before its lookup gathered only the rows its tokens hit
+# and its loss gathered the unembedding as bf16; the full run takes it at 1
+# layer, (b)'s first step, and (d)'s xlstm-350m at 8 of 24 layers (one whole
+# unit of its 7 mLSTM and 1 sLSTM layers).
 FULL_RUN_DEPTH = {"qwen3": 24, "recurrent": 8, "resume": 8, "mistral_late": 20, "tp": 10,
-                  "tp_moe": 8}
+                  "tp_moe": 8, "fsdp": 1, "fsdp_xlstm": 8}
 
 TICK_SOURCES = ("lean_decode.cu", "flash_prefill.cu")
 
@@ -7563,6 +8248,15 @@ def main() -> int:
         return 0
     arch_alone = {"--arch-kernels", "--qwen3-step", "--gemma-step", "--arch-sweep",
                   "--recurrent-step", "--train-step", "--sp-step", "--tp-step"}
+    if sys.argv[1:2] == ["--fsdp-step"]:
+        # training launches no kernel: nothing to build
+        torch.backends.cuda.matmul.allow_tf32 = False
+        smi = nvidia_smi_line()
+        print(f"device: {smi}; the FSDP phase launches no kernel (no build)", flush=True)
+        clock("fsdp phase")
+        fsdp_phase(torch, smi, int(sys.argv[2]) if len(sys.argv) > 2 else FSDP_LAYERS)
+        clock("done")
+        return 0
     if sys.argv[1:2] and sys.argv[1] in arch_alone:
         torch.backends.cuda.matmul.allow_tf32 = False
         sm_count = torch.cuda.get_device_properties(0).multi_processor_count
@@ -7903,9 +8597,15 @@ def main() -> int:
     clock("tp phase")
     tp = tp_phase(torch, sm_count, smi, depths={TP_ARCH: FULL_RUN_DEPTH["tp"],
                                                 TP_MOE_ARCH: FULL_RUN_DEPTH["tp_moe"]})
+    # 23. FSDP x TP training and the pipeline: Mistral-NeMo-12B at full width,
+    # world 1 against (data=2, model=2), its state restored onto (4, 1),
+    # xlstm-350m under dp_only, pipeline_forward over pod=4
+    clock("fsdp phase")
+    fsdp = fsdp_phase(torch, smi, FULL_RUN_DEPTH["fsdp"], b_steps=1,
+                      xlstm_layers=FULL_RUN_DEPTH["fsdp_xlstm"])
 
     clock("summary")
-    # 23. summary: kernel times in bf16 at the main path's shapes; launches
+    # 24. summary: kernel times in bf16 at the main path's shapes; launches
     # from the run of the path each kernel serves
     k6 = k6res[(DECODE_SHAPES[0], "bfloat16")]
     kres[("flash_decode_partials", "bfloat16")] = k6
@@ -8038,6 +8738,11 @@ def main() -> int:
           + ", ".join(f"{t:.2f}" for t in c["step_ms_p50"]) + " ms, (d) "
           + ", ".join(f"{t:.2f}" for t in d_["step_ms_p50"]) + f" ms; launches (b) "
           f"{tp['launches']}", flush=True)
+    print(f"fsdp phase ({smi}): {fsdp['phase_s']:.1f} s; step p50 (a) "
+          + ", ".join(f"{t:.1f}" for t in fsdp["a"]["ms"]) + " ms, (b) " + ", ".join(
+              f"{t:.1f}" for t in fsdp["b"]["step_ms_p50"]) + " ms, (c) " + ", ".join(
+              f"{t:.1f}" for t in fsdp["c"]["step_ms_p50"]) + " ms; kernels launched: none "
+          "(training runs the plain attention)", flush=True)
     print(f"fused K4 launches from the spec phase's verify steps (bf16 pages, oracle): "
           f"{k4_verify}", flush=True)
     print(f"launches in the guards phase's chaos run (bf16 pages; K1 from level-2 passes, K2 "

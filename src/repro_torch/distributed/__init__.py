@@ -1,2 +1,3 @@
 """The distributed layer of the port (``repro.distributed``): the
-sharding policy and the collectives the serving path runs."""
+sharding policy, the collectives the serving path runs, FSDP x TP training
+(``fsdp``), activation hints (``hints``) and the pipeline (``pipeline``)."""

@@ -26,8 +26,9 @@ layer's spec is the reference's stacked spec without its leading ``None``
 ``mode="serve"`` (:mod:`repro_torch.distributed.tensor_parallel`);
 :func:`shard_tree` cuts a rank's blocks of a whole tree, as the
 reference's ``jax.device_put`` with ``NamedSharding`` places it. The
-sharded train step is the training half of the distributed port, still to
-come.
+sharded train step (:mod:`repro_torch.distributed.fsdp`) executes
+:func:`param_specs` with ``mode="train"`` and the batch's split of
+:func:`best_dp_spec`.
 """
 from __future__ import annotations
 

@@ -24,6 +24,32 @@ What a rank computes is read from the spec of each leaf
 (:meth:`TensorParallel.layer`): a leaf that the policy leaves whole (its
 dimension does not divide ``model``) is computed whole and not reduced.
 With no mesh the model takes ``tp=None`` and none of these runs.
+
+Training (:mod:`repro_torch.distributed.fsdp`) differentiates through the
+same collectives, so each is a ``torch.autograd.Function`` with the
+backward rule of the function it computes. Every rank of a ``model`` group
+holds the same replicated loss and starts its backward from it; a rule that
+summed the cotangent over ``model`` again (as ``torch.distributed.nn.
+functional.all_reduce``'s backward does) would count every tensor-parallel
+gradient ``model`` times. The rules:
+
+* :meth:`TensorParallel.row_sum` -- forward the sum, backward the identity
+  (each partial's cotangent is the sum's);
+* :meth:`TensorParallel.enter` -- a replicated activation entering
+  column-parallel weights: forward the identity, backward the sum over
+  ``model`` of the ranks' partial cotangents;
+* :meth:`TensorParallel.embed` -- forward the sum, backward the identity,
+  so each rank's lookup sends its rows' gradient;
+* :meth:`TensorParallel.logits` -- forward the gather of the column
+  blocks, backward the rank's own block (its input enters by
+  :meth:`TensorParallel.enter`);
+* :meth:`TensorParallel.gather_rows` -- forward the gather over the batch's
+  axes, backward the reduce-scatter sum;
+* :meth:`TensorParallel.own_rows` -- forward a slice, backward zero-padded
+  (``narrow``'s own rule).
+
+Serving runs them forward only: their forwards are the serving
+collectives, bit for bit.
 """
 from __future__ import annotations
 
@@ -36,6 +62,116 @@ from repro_torch.distributed.sharding import param_specs, spec_paths
 from repro_torch.launch.mesh import axis_group, axis_index, axis_size, mesh_axes
 from repro_torch.models import LayerShards, ModelConfig, init_params
 from repro_torch.training.tree import flatten
+
+
+# Instrumentation of the training collectives: None (off), or a dict that
+# :func:`timed` fills with ``{category: [calls, bytes, seconds]}`` -- each
+# collective between two device syncs on the host clock, its bytes those
+# of the tensor it was handed (an all-gather's output, a reduce-scatter's
+# input, an all-reduce's tensor).
+collective_stats: Optional[dict] = None
+
+
+def timed(category: str, nbytes: int, fn: Callable, *args, **kw):
+    """``fn(*args, **kw)``, counted under ``category`` in
+    :data:`collective_stats` where it is set."""
+    if collective_stats is None:
+        return fn(*args, **kw)
+    import time
+
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    sync()
+    entry = collective_stats.setdefault(category, [0, 0, 0.0])
+    entry[0] += 1
+    entry[1] += int(nbytes)
+    entry[2] += time.perf_counter() - t0
+    return out
+
+
+def _all_reduce(x: torch.Tensor, group) -> None:
+    timed("tp", x.numel() * x.element_size(), dist.all_reduce, x, op=dist.ReduceOp.SUM,
+          group=group)
+
+
+class _Sum(torch.autograd.Function):
+    """Forward: ``x`` widened to float32 (a copy) and summed over ``group``
+    by one ``all_reduce``. Backward: the identity."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.dtype = x.dtype
+        y = x.to(torch.float32, copy=True)
+        _all_reduce(y, group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype), None
+
+
+class _Enter(torch.autograd.Function):
+    """Forward: the identity. Backward: the cotangent summed over
+    ``group`` (float32, one ``all_reduce``)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        _all_reduce(g, ctx.group)
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    """Forward: the ranks' blocks of ``x`` along ``dim`` gathered over
+    ``group`` in rank order (``all_gather``). Backward: this rank's block of
+    the cotangent along ``dim``, summed over the group first where ``sum``
+    is set (``reduce_scatter``), else sliced."""
+
+    @staticmethod
+    def forward(ctx, x, group, n, index, dim, sum_):
+        ctx.group, ctx.n, ctx.index, ctx.dim, ctx.sum = group, n, index, dim, sum_
+        return timed("tp", x.numel() * x.element_size() * n, all_gather, x, group, n, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.sum:
+            g = timed("tp", g.numel() * g.element_size(), reduce_scatter, g, ctx.group, ctx.n,
+                      ctx.dim)
+        else:
+            g = g.narrow(ctx.dim, ctx.index * (g.shape[ctx.dim] // ctx.n),
+                         g.shape[ctx.dim] // ctx.n)
+        return g, None, None, None, None, None
+
+
+def all_gather(x: torch.Tensor, group, n: int, dim: int = 0) -> torch.Tensor:
+    """The ``n`` ranks' blocks of ``x`` over ``group``, concatenated along
+    ``dim`` in rank order: gathered into one buffer, which along the first
+    dimension is the result itself."""
+    x = x.contiguous()
+    out = torch.empty((n,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+    dist.all_gather(list(out.unbind(0)), x, group=group)
+    if dim % x.ndim == 0:
+        return out.flatten(0, 1)
+    return torch.cat(out.unbind(0), dim=dim)
+
+
+def reduce_scatter(x: torch.Tensor, group, n: int, dim: int = 0) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum of ``x`` over ``group``
+    (``n`` ranks): one ``reduce_scatter_tensor`` on the dimension moved to
+    the front."""
+    if dim != 0:
+        x = x.movedim(dim, 0)
+    x = x.contiguous()
+    out = torch.empty((x.shape[0] // n,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+    dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM, group=group)
+    return out.movedim(0, dim) if dim != 0 else out
 
 
 def _axes(entry) -> tuple:
@@ -88,7 +224,8 @@ class TensorParallel:
         kw = dict(attn=self._sum_if(f"{pre}/attn/wo", 0), xattn=self._sum_if(f"{pre}/xattn/wo", 0),
                   ffn=self._sum_if(f"{pre}/ffn/wd", 0),
                   shared=self._sum_if(f"{pre}/moe/shared/wd", 0),
-                  rows=self if self.n_rows > 1 else None)
+                  rows=self if self.n_rows > 1 else None,
+                  enter=self.enter if self.n_model > 1 else None)
         if "moe" in p:
             ep = self.split(f"{pre}/moe/wg", 0)
             if ep or self.split(f"{pre}/moe/wg", 2):
@@ -116,48 +253,58 @@ class TensorParallel:
         products, or the MoE's float32 combine) are widened to float32,
         summed in float32 by one ``all_reduce`` over the ``model`` group,
         and rounded once to ``x``'s dtype. Every rank of the group gets the
-        same bits."""
-        y = x.to(torch.float32, copy=True)
-        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=self.model_group)
-        return y.to(x.dtype)
+        same bits. Backward: the identity."""
+        return _Sum.apply(x, self.model_group).to(x.dtype)
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """A replicated tensor entering this rank's column-parallel block
+        (the normed residual before ``wq``/``wk``/``wv`` or an FFN's
+        ``wg``/``wu``, the MoE's expert input and routing weights, the
+        hidden state before the vocabulary-parallel logits, a whole
+        ``q_norm`` applied to this rank's heads): ``x`` itself; its
+        gradient, each rank's partial, summed over ``model``."""
+        return _Enter.apply(x, self.model_group)
 
     def embed(self, w: torch.Tensor, tokens: torch.Tensor, scale: float) -> torch.Tensor:
         """The vocabulary-parallel lookup times ``scale``, float32: this
         rank gathers the rows of ``w`` (its block of the vocabulary) that
         the tokens hit and writes zero for the others, then one
         ``all_reduce(SUM)`` over ``model``. Each element's sum has one
-        non-zero term, so it is exact."""
+        non-zero term, so it is exact. Backward: each rank's rows get the
+        whole cotangent of their tokens."""
         start = self.model_index * w.shape[0]
         local = tokens.long() - start
         mine = (local >= 0) & (local < w.shape[0])
         x = w[local.clamp(0, w.shape[0] - 1)].to(torch.bfloat16).float() * scale
         x = torch.where(mine[..., None], x, torch.zeros((), device=x.device))
-        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.model_group)
-        return x
+        return _Sum.apply(x, self.model_group)
 
     def logits(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """The vocabulary-parallel logits: ``x @ w`` over this rank's block
         of columns in bf16, widened to float32, then the blocks gathered
         over ``model`` in rank order (``all_gather``) into the whole
-        vocabulary."""
-        part = (x.to(torch.bfloat16) @ w.to(torch.bfloat16)).float().contiguous()
-        blocks = [torch.empty_like(part) for _ in range(self.n_model)]
-        dist.all_gather(blocks, part, group=self.model_group)
-        return torch.cat(blocks, dim=-1)
+        vocabulary. Backward: this rank's columns of the cotangent, and
+        ``x``'s partial summed over ``model`` (:meth:`enter`)."""
+        part = (self.enter(x).to(torch.bfloat16) @ w.to(torch.bfloat16)).float()
+        return _Gather.apply(part, self.model_group, self.n_model, self.model_index, -1, False)
+
+    def looks_up(self) -> bool:
+        """Whether :meth:`embed` does the token lookup (the embedding
+        split by vocabulary), rather than indexing a whole table."""
+        return self.split("embed", 0)
 
     def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
         """Every data rank's rows of ``x`` in the global batch's order
         (``all_gather`` over the batch's axes): the MoE routes, drops and
         fills its capacity over the global batch, as the reference's
-        ``moe_forward`` sees it."""
-        x = x.contiguous()
-        blocks = [torch.empty_like(x) for _ in range(self.n_rows)]
-        dist.all_gather(blocks, x, group=self.row_group)
-        return torch.cat(blocks, dim=0)
+        ``moe_forward`` sees it. Backward: the cotangents of the global
+        rows summed over the batch's ranks, each rank keeping its rows'
+        (``reduce_scatter``)."""
+        return _Gather.apply(x, self.row_group, self.n_rows, self.row_index, 0, True)
 
     def own_rows(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's rows of a global-batch tensor (the inverse of
-        :meth:`gather_rows`)."""
+        :meth:`gather_rows`); its backward pads the cotangent with zeros."""
         n = x.shape[0] // self.n_rows
         return x.narrow(0, self.row_index * n, n)
 

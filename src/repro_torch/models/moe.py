@@ -84,7 +84,7 @@ def capacity(cfg: MoEConfig, tokens_per_group: int) -> int:
 def moe_forward(p, x: torch.Tensor, cfg: MoEConfig,
                 compute_dtype: torch.dtype = COMPUTE_DTYPE, aux_loss: bool = False,
                 expert_offset: int = 0, reduce: Optional[Callable] = None,
-                shared_reduce: Optional[Callable] = None):
+                shared_reduce: Optional[Callable] = None, enter: Optional[Callable] = None):
     """``x (B, L, D)`` -> ``(out, aux)``: the MoE output ``(B, L, D)`` in
     x's dtype and, with ``aux_loss``, the Switch load-balancing loss
     ``router_aux_weight * E * sum(mean probs * share of tokens whose first
@@ -101,7 +101,13 @@ def moe_forward(p, x: torch.Tensor, cfg: MoEConfig,
     buffer; with expert-TP they are its block of ``d_ff_expert``. Either
     way the rank's combine is a partial of the routed output, summed in
     float32 by ``reduce`` before the one rounding; ``shared_reduce`` sums
-    the shared expert's row-parallel ``wd`` product (:func:`ffn_forward`)."""
+    the shared expert's row-parallel ``wd`` product (:func:`ffn_forward`).
+    ``enter`` (training under tensor parallelism: identity forward, the
+    cotangent summed over ``model`` backward) takes what each rank uses
+    only in part -- the float32 input of the experts (and of a split shared
+    expert) and the routing weights of the partial combine -- while the
+    router runs on ``x`` itself, whole on every rank, so its gradient and
+    the aux loss's are whole too."""
     B, L, D = x.shape
     E, K = cfg.num_experts, cfg.top_k
     El = p["wg"].shape[0]                                    # the experts held here
@@ -112,6 +118,9 @@ def moe_forward(p, x: torch.Tensor, cfg: MoEConfig,
     Tg = T // G
     dev = x.device
     xt = x.reshape(G, Tg, D).to(compute_dtype)
+    xe = xt                                   # the experts' input
+    if enter is not None and reduce is not None:
+        xe = enter(x).reshape(G, Tg, D).to(compute_dtype)
 
     logits = (xt @ p["router"].to(compute_dtype)).float()
     probs = torch.softmax(logits, dim=-1)                    # (G, Tg, E)
@@ -139,7 +148,7 @@ def moe_forward(p, x: torch.Tensor, cfg: MoEConfig,
     slot_src = (first_of_e[:, held, None] + cols).reshape(G, El * C)
     slot_valid = (cols < counts[:, held, None]).reshape(G, El * C)
     src_tok = torch.gather(tok_of_pair, 1, torch.clamp(slot_src, 0, TK - 1))
-    buf = torch.gather(xt, 1, src_tok[..., None].expand(G, El * C, D))
+    buf = torch.gather(xe, 1, src_tok[..., None].expand(G, El * C, D))
     buf = torch.where(slot_valid[..., None], buf, torch.zeros((), dtype=buf.dtype, device=dev))
     buf = buf.reshape(G, El, C, D)
 
@@ -166,6 +175,8 @@ def moe_forward(p, x: torch.Tensor, cfg: MoEConfig,
     # ``sum(gate_w.astype(cd) * y_pairs)`` computes under jit (the engine's
     # steps and the model's scanned stages; op by op, eagerly, it rounds
     # each product instead)
+    if enter is not None and reduce is not None:
+        gate_w = enter(gate_w)
     out = (gate_w.to(compute_dtype).float()[..., None] * y_pairs.float()).sum(dim=2)
     if reduce is not None:
         out = reduce(out)
@@ -175,8 +186,8 @@ def moe_forward(p, x: torch.Tensor, cfg: MoEConfig,
     if cfg.d_ff_shared:
         # added in x's dtype: under jit XLA drops the reference's rounding of
         # the sum to the compute dtype where the result is widened after
-        shared = ffn_forward(p["shared"], xt, kind="swiglu", compute_dtype=compute_dtype,
-                             reduce=shared_reduce)
+        shared = ffn_forward(p["shared"], xt if shared_reduce is None else xe, kind="swiglu",
+                             compute_dtype=compute_dtype, reduce=shared_reduce)
         out = (out.to(compute_dtype) + shared).to(x.dtype)
     aux = None
     if aux_loss:

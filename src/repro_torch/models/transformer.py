@@ -83,6 +83,7 @@ from .layers import (
     sinusoidal_pos,
 )
 from .moe import MoEConfig, moe_forward, moe_param_shapes
+from repro_torch.distributed.hints import hint
 from . import recurrent as rec
 
 ATTN_KINDS = ("attn", "win", "xattn")
@@ -312,15 +313,24 @@ def params_to_numpy(params, cfg: ModelConfig) -> Dict:
     def host(t):
         return t.detach().to(device="cpu", dtype=torch.float32).numpy()
 
-    def stack(nodes):
-        if isinstance(nodes[0], dict):
-            return {k: stack([n[k] for n in nodes]) for k in nodes[0]}
-        return np.stack([host(n) for n in nodes])
+    return stacked_tree(params, cfg, lambda nodes: np.stack([host(n) for n in nodes]), host)
 
-    tree = {k: host(params[k]) for k in ("embed", "final_norm", "unembed") if k in params}
+
+def stacked_tree(params, cfg: ModelConfig, stack: Callable, single: Callable) -> Dict:
+    """The reference's stacked layout of a tree in the port's layout
+    (parameters, a moment, or their specs): each top-level leaf through
+    ``single``, each stacked leaf ``stack(the leaves of its layers)``, in
+    the stage's repeat order."""
     slots = layer_slots(cfg)
+
+    def walk(nodes):
+        if isinstance(nodes[0], dict):
+            return {k: walk([n[k] for n in nodes]) for k in nodes[0]}
+        return stack(nodes)
+
+    tree = {k: single(params[k]) for k in ("embed", "final_norm", "unembed") if k in params}
     tree["stages"] = [
-        tuple(stack([layer for layer, s in zip(params["layers"], slots) if s == (si, pi)])
+        tuple(walk([layer for layer, s in zip(params["layers"], slots) if s == (si, pi)])
               for pi in range(len(pattern)))
         for si, (pattern, _) in enumerate(cfg.stages)
     ]
@@ -492,9 +502,13 @@ class LayerShards:
     after each row-parallel product -- the self and cross attention's
     ``wo``, the FFN's ``wd``, the MoE's routed combine (EP or expert-TP) and
     its shared expert's ``wd`` -- None where the leaf is whole; the first
-    expert held under EP; and ``rows``, the context whose
+    expert held under EP; ``rows``, the context whose
     ``gather_rows``/``own_rows`` give the MoE the global batch where the
-    batch splits over the data axes. :data:`WHOLE`: one rank holds it all."""
+    batch splits over the data axes; and ``enter``, the column-parallel
+    input op (identity forward, the cotangent summed over ``model``
+    backward), applied wherever a replicated tensor meets a split block --
+    where the block's reduction is set. :data:`WHOLE`: one rank holds it
+    all."""
 
     attn: Optional[Callable] = None
     xattn: Optional[Callable] = None
@@ -503,6 +517,7 @@ class LayerShards:
     expert_offset: int = 0
     shared: Optional[Callable] = None
     rows: Optional[object] = None
+    enter: Optional[Callable] = None
 
 
 WHOLE = LayerShards()
@@ -510,6 +525,12 @@ WHOLE = LayerShards()
 
 def _shards(tp, i: int, lp) -> LayerShards:
     return WHOLE if tp is None else tp.layer(i, lp)
+
+
+def _entered(x: torch.Tensor, reduce: Optional[Callable], sh: LayerShards) -> torch.Tensor:
+    """``x`` through ``sh.enter`` where the block it feeds is split (its
+    reduction ``reduce`` is set), else ``x``."""
+    return x if reduce is None or sh.enter is None else sh.enter(x)
 
 
 def _heads(p, cfg: ModelConfig) -> Dict[str, int]:
@@ -526,11 +547,12 @@ def _embed(params, cfg: ModelConfig, tokens: torch.Tensor, offset=0, tp=None) ->
     the float32 sinusoids of positions ``offset + [0, L)`` are added
     (``repro/models/transformer.py:376-383``); ``offset`` is an int or a
     one-element tensor on the tokens' device (a decode step's
-    ``max(ctx_lens)``, read on the device). With ``tp`` and ``embed`` split
-    by vocabulary, the vocabulary-parallel lookup (exact); the positions
-    are whole on every rank."""
+    ``max(ctx_lens)``, read on the device). With ``tp`` doing the lookup
+    (``tp.looks_up()``: ``embed`` split by vocabulary, or the training
+    context's blocks), ``tp.embed`` (exact); the positions are whole on
+    every rank."""
     scale = float(np.float32(np.sqrt(cfg.d_model)))
-    if tp is not None and tp.split("embed", 0):
+    if tp is not None and tp.looks_up():
         x = tp.embed(params["embed"], tokens, scale)
     else:
         x = params["embed"][tokens.long()].to(torch.bfloat16).float()
@@ -564,7 +586,7 @@ def moe_part(p, xn: torch.Tensor, cfg: ModelConfig, sh: LayerShards = WHOLE) -> 
     if sh.rows is not None:
         xn = sh.rows.gather_rows(xn)
     out, _ = moe_forward(p, xn, cfg.moe, expert_offset=sh.expert_offset, reduce=sh.moe,
-                         shared_reduce=sh.shared)
+                         shared_reduce=sh.shared, enter=sh.enter)
     return out if sh.rows is None else sh.rows.own_rows(out)
 
 
@@ -576,8 +598,8 @@ def _ffn_part(p, x, cfg: ModelConfig, sh: LayerShards = WHOLE):
     if "moe" in p:
         return x + moe_part(p["moe"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg, sh)
     if "ffn" in p:
-        return x + ffn_forward(p["ffn"], rms_norm(x, p["ln2"], cfg.norm_eps), kind=cfg.ffn_kind,
-                               reduce=sh.ffn)
+        xn = _entered(rms_norm(x, p["ln2"], cfg.norm_eps), sh.ffn, sh)
+        return x + ffn_forward(p["ffn"], xn, kind=cfg.ffn_kind, reduce=sh.ffn)
     return x
 
 
@@ -606,7 +628,8 @@ def _attn_full(p, x, cfg: ModelConfig, kind: str, img_emb, attn: Callable,
     the plain oracle on the CPU (the reference runs ``attn_forward``).
     Under tensor parallelism over the rank's heads, ``wo`` summed by
     ``sh``. Returns ``(x, (k, v), (xk, xv) or None)``."""
-    h, kv = attn_forward(p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps), **_heads(p["attn"], cfg),
+    xn = _entered(rms_norm(x, p["ln1"], cfg.norm_eps), sh.attn, sh)
+    h, kv = attn_forward(p["attn"], xn, **_heads(p["attn"], cfg),
                          rope_theta=cfg.rope_theta,
                          window=cfg.window if kind == "win" else None, attn=attn, reduce=sh.attn)
     x = x + h
@@ -614,7 +637,8 @@ def _attn_full(p, x, cfg: ModelConfig, kind: str, img_emb, attn: Callable,
     if kind == "xattn":
         if cross is None:
             cross = flash_prefill if x.device.type == "cuda" else mha_prefill_ref
-        hx, xkv = attn_forward(p["xattn"], rms_norm(x, p["ln_x"], cfg.norm_eps),
+        hx, xkv = attn_forward(p["xattn"], _entered(rms_norm(x, p["ln_x"], cfg.norm_eps),
+                                                     sh.xattn, sh),
                                **_heads(p["xattn"], cfg), rope_theta=None, causal=False,
                                kv_states=img_emb, attn=cross, reduce=sh.xattn)
         x = x + torch.tanh(p["xgate"]) * hx
@@ -942,29 +966,37 @@ def verify_step(
 
 
 # ------------------------------------------------------------------ training
-def _ffn_train(p, x, cfg: ModelConfig):
+def _ffn_train(p, x, cfg: ModelConfig, sh: LayerShards = WHOLE):
     """:func:`_ffn_part` with the MoE's load-balancing loss (zero for a
-    layer without a MoE): ``(x, aux)``."""
+    layer without a MoE): ``(x, aux)``. Under tensor parallelism with the
+    batch split (``sh.rows``) the MoE routes the global batch, so every
+    rank of the batch's group computes the same aux loss of the global
+    routing."""
     if "moe" in p:
-        out, aux = moe_forward(p["moe"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg.moe,
-                               aux_loss=True)
-        return x + out, aux
-    return _ffn_part(p, x, cfg), torch.zeros((), dtype=torch.float32, device=x.device)
+        xn = rms_norm(x, p["ln2"], cfg.norm_eps)
+        if sh.rows is not None:
+            xn = sh.rows.gather_rows(xn)
+        out, aux = moe_forward(p["moe"], xn, cfg.moe, aux_loss=True,
+                               expert_offset=sh.expert_offset, reduce=sh.moe,
+                               shared_reduce=sh.shared, enter=sh.enter)
+        return x + (out if sh.rows is None else sh.rows.own_rows(out)), aux
+    return _ffn_part(p, x, cfg, sh), torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def _layer_forward(p, x: torch.Tensor, kind: str, cfg: ModelConfig, img_emb,
-                   attn: Callable):
+                   attn: Callable, sh: LayerShards = WHOLE):
     """Train-path layer (``repro/models/transformer.py:354-375``): the whole
     sequence through the layer's block -- self attention by ``attn``, cross
     attention by the plain non-causal oracle, a recurrent kind's
-    whole-sequence form -- and its FFN. Returns ``(x, aux)``."""
+    whole-sequence form -- and its FFN, over this rank's heads and hidden
+    block under tensor parallelism (``sh``). Returns ``(x, aux)``."""
     if kind in ATTN_KINDS:
-        x, _, _ = _attn_full(p, x, cfg, kind, img_emb, attn, cross=mha_prefill_ref)
-        return _ffn_train(p, x, cfg)
+        x, _, _ = _attn_full(p, x, cfg, kind, img_emb, attn, cross=mha_prefill_ref, sh=sh)
+        return _ffn_train(p, x, cfg, sh)
     xn = rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind == "rglru":
         h, _ = rec.rglru_forward(p["rec"], xn)
-        return _ffn_train(p, x + h, cfg)
+        return _ffn_train(p, x + h, cfg, sh)
     if kind == "mlstm":
         h, _ = rec.mlstm_block_forward(p["rec"], xn, cfg.n_heads)
     else:
@@ -972,12 +1004,22 @@ def _layer_forward(p, x: torch.Tensor, kind: str, cfg: ModelConfig, img_emb,
     return x + h, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def forward_hidden(params, cfg: ModelConfig, tokens: torch.Tensor, img_emb=None):
+def forward_hidden(params, cfg: ModelConfig, tokens: torch.Tensor, img_emb=None, tp=None):
     """Backbone forward (``repro/models/transformer.py:394-425``) -> (hidden
     ``(B, L, D)`` float32 after the final norm, the summed MoE aux loss).
     Stage by stage, repeat by repeat: each repeat of a stage's pattern (a
-    unit) is checkpointed where ``cfg.remat`` is set."""
-    x = _embed(params, cfg, tokens)
+    unit) is checkpointed where ``cfg.remat`` is set, as
+    ``jax.checkpoint(unit_fn)``.
+
+    With ``tp``, the training context (:class:`repro_torch.distributed.
+    fsdp.FSDP`), ``params`` are this rank's float32 blocks under the train
+    specs and ``tokens`` (and ``img_emb``) its rows: each unit gathers its
+    layers' serve-layout blocks (``tp.use_layer``) inside its checkpoint, so
+    the gathered weights live only while the unit runs and are gathered
+    again when its backward recomputes it, and every layer runs over this
+    rank's heads and hidden block with the collectives of
+    :class:`LayerShards`."""
+    x = _embed(params, cfg, tokens, tp=tp)
     attn = _plain_attn(cfg, tokens.shape[1])
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     i = 0
@@ -985,17 +1027,23 @@ def forward_hidden(params, cfg: ModelConfig, tokens: torch.Tensor, img_emb=None)
         for _ in range(reps):
             unit = params["layers"][i:i + len(pattern)]
 
-            def unit_fn(x, unit=unit, pattern=pattern):
+            def unit_fn(x, unit=unit, pattern=pattern, first=i):
                 aux = torch.zeros((), dtype=torch.float32, device=x.device)
-                for kind, lp in zip(pattern, unit):
-                    x, a = _layer_forward(lp, x, kind, cfg, img_emb, attn)
+                for j, (kind, lp) in enumerate(zip(pattern, unit)):
+                    x = hint(x, "dp", None, None)
+                    if tp is not None:
+                        lp = tp.use_layer(first + j, lp)
+                    x, a = _layer_forward(lp, x, kind, cfg, img_emb, attn,
+                                          _shards(tp, first + j, lp))
                     aux = aux + a
-                return x, aux
+                return hint(x, "dp", None, None), aux
 
             x, a = remat(unit_fn, x) if cfg.remat else unit_fn(x)
             aux_total = aux_total + a
             i += len(pattern)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps), aux_total
+    final = params["final_norm"] if tp is None else \
+        tp.use_top(params, ("final_norm",))["final_norm"]
+    return rms_norm(x, final, cfg.norm_eps), aux_total
 
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor, img_emb=None):
@@ -1004,15 +1052,64 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, img_emb=None):
     return _unembed(params, cfg, x), aux
 
 
-def _chunk_ce(h_c: torch.Tensor, t_c: torch.Tensor, m_c: torch.Tensor, w: torch.Tensor):
-    """Summed cross entropy of one chunk: bf16 logits widened to float32,
+def _chunk_ce(h_c: torch.Tensor, t_c: torch.Tensor, m_c: torch.Tensor, w: torch.Tensor,
+              logits: Optional[Callable] = None):
+    """Summed cross entropy of one chunk: bf16 logits widened to float32
+    (``logits(h_c, w)`` where given: the vocabulary-parallel ones),
     ``logsumexp - logit of the target``, masked."""
-    lg = (h_c.to(torch.bfloat16) @ w.to(torch.bfloat16)).float()
+    if logits is None:
+        lg = (h_c.to(torch.bfloat16) @ w.to(torch.bfloat16)).float()
+    else:
+        lg = logits(h_c, w)
     true = lg.gather(-1, t_c.long()[..., None])[..., 0]
     return ((torch.logsumexp(lg, dim=-1) - true) * m_c[None, :]).sum()
 
 
-def loss_fn(params, cfg: ModelConfig, batch: Dict):
+class _SplitCE(torch.autograd.Function):
+    """The chunked cross entropy under the training context ``tp``: the
+    sum of :func:`_chunk_ce` over the chunks of ``K`` positions, with the
+    unembedding (``embed``'s rows, transposed, where ``tied``) gathered from
+    this rank's float32 block ``block`` once, as bf16 -- every chunk casts it
+    to bf16, and a cast before the gather gives the same bits -- and
+    ``logits`` the vocabulary-parallel ones where it is split. Backward: each
+    chunk recomputed in turn, the last first, its bf16 gradient of the
+    gathered leaf added in place to one float32 sum (the sum autograd forms
+    over the chunks' casts, in its order), which ``tp.grad_bucket`` returns
+    to the block. So one bf16 copy of the leaf and one float32 gradient live
+    through the loss's backward, where remat over a float32 gather keeps the
+    float32 copy, a bf16 cast and two float32 gradients."""
+
+    @staticmethod
+    def forward(ctx, tp, name, tied, logits, K, h_in, tgt, mask, block):
+        w = tp.gather_bucket([name], [block], dtype=torch.bfloat16)[0]
+        ctx.tp, ctx.name, ctx.tied, ctx.logits, ctx.K = tp, name, tied, logits, K
+        ctx.save_for_backward(h_in, tgt, mask, w)
+        ce_sum = torch.zeros((), dtype=torch.float32, device=h_in.device)
+        for c in range(0, h_in.shape[1], K):
+            ce_sum = ce_sum + _chunk_ce(h_in[:, c:c + K], tgt[:, c:c + K], mask[c:c + K],
+                                        w.T if tied else w, logits)
+        return ce_sum
+
+    @staticmethod
+    def backward(ctx, g):
+        h_in, tgt, mask, w = ctx.saved_tensors
+        K = ctx.K
+        dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+        dh = torch.empty_like(h_in)
+        for c in reversed(range(0, h_in.shape[1], K)):
+            with torch.enable_grad():
+                hc, wc = h_in[:, c:c + K].detach().requires_grad_(), w.detach().requires_grad_()
+                ce = _chunk_ce(hc, tgt[:, c:c + K], mask[c:c + K], wc.T if ctx.tied else wc,
+                               ctx.logits)
+                gh, gw = torch.autograd.grad(ce, (hc, wc), g)
+            dh[:, c:c + K] = gh
+            dw.add_(gw)
+            del gh, gw
+        dblock = ctx.tp.grad_bucket([ctx.name], [dw])[0]
+        return None, None, None, None, None, dh, None, None, dblock
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict, tp=None):
     """Next-token cross entropy plus the MoE aux loss (``repro/models/
     transformer.py:434-486``). ``batch``: ``{"tokens": (B, L) int32}`` and,
     for ``xattn`` models, ``"img_emb" (B, cross_kv_len, D)``.
@@ -1021,22 +1118,41 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict):
     (0: one chunk), the last padded and masked; each
     chunk's logits are rematerialised in the backward pass, so the full
     ``(B, L, V)`` float32 logits never exist. Returns ``(ce + aux, {"ce",
-    "aux"})``, float32 scalars on the tokens' device."""
+    "aux"})``, float32 scalars on the tokens' device.
+
+    With ``tp`` (the training context, :func:`forward_hidden`) ``batch``
+    holds this rank's rows, and the values are this rank's shares of the
+    global ones, so that their sum over the batch's ranks is the global
+    loss and each gradient is counted once: the cross entropy of its rows
+    over the global ``B * (L - 1)`` targets (the logits vocabulary-parallel
+    where the unembedding splits), and the aux loss of the global routing
+    (the same on every rank of the batch's group) over the group's size."""
     tokens = batch["tokens"]
-    hidden, aux = forward_hidden(params, cfg, tokens, batch.get("img_emb"))
+    hidden, aux = forward_hidden(params, cfg, tokens, batch.get("img_emb"), tp=tp)
     B, L, _ = hidden.shape
     Lm = L - 1
-    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
     K = cfg.loss_chunk if cfg.loss_chunk > 0 else Lm
     n_chunks = max(1, -(-Lm // K))
     pad = n_chunks * K - Lm
     h_in = torch.nn.functional.pad(hidden[:, :Lm], (0, 0, 0, pad))
     tgt = torch.nn.functional.pad(tokens[:, 1:], (0, pad))
     mask = (torch.arange(n_chunks * K, device=tokens.device) < Lm).float()
-    ce_sum = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    for c in range(0, n_chunks * K, K):
-        ce_sum = ce_sum + remat(_chunk_ce, h_in[:, c:c + K], tgt[:, c:c + K], mask[c:c + K], w)
-    ce = ce_sum / (B * Lm)
+    rows = 1
+    if tp is None:
+        w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+        ce_sum = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        for c in range(0, n_chunks * K, K):
+            ce_sum = ce_sum + remat(_chunk_ce, h_in[:, c:c + K], tgt[:, c:c + K], mask[c:c + K],
+                                    w)
+    else:
+        name = "embed" if cfg.tie_embeddings else "unembed"
+        split = tp.split("embed", 0) if cfg.tie_embeddings else tp.split("unembed", 1)
+        ce_sum = _SplitCE.apply(tp, name, cfg.tie_embeddings, tp.logits if split else None, K,
+                                h_in, tgt, mask, params[name])
+        rows = tp.n_rows
+    ce = ce_sum / (B * rows * Lm)
+    if rows > 1:
+        aux = aux / rows
     return ce + aux, {"ce": ce, "aux": aux}
 
 

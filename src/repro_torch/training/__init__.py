@@ -18,6 +18,7 @@ from .train_loop import (
     make_train_step,
     quantize_grads_int8,
     train_state_from_numpy,
+    train_state_shardings,
     train_state_to_numpy,
     value_and_grad,
 )
@@ -26,5 +27,6 @@ __all__ = [
     "OptConfig", "adamw_init", "adamw_update", "dequantize_grads", "global_norm",
     "init_train_state", "latest_step", "lr_at", "make_loss", "make_train_step",
     "opt_state_from_numpy", "opt_state_to_numpy", "quantize_grads_int8", "restore_checkpoint",
-    "save_checkpoint", "train_state_from_numpy", "train_state_to_numpy", "value_and_grad",
+    "save_checkpoint", "train_state_from_numpy", "train_state_shardings", "train_state_to_numpy",
+    "value_and_grad",
 ]

@@ -78,23 +78,41 @@ def lr_at(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * (0.1 + 0.9 * cos)
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, shards=None) -> torch.Tensor:
     """``sqrt(sum of every element squared)`` over the tree, float32, the
-    leaves' sums added in flatten order."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in flatten(tree)[1]))
+    leaves' sums added in flatten order.
+
+    With ``shards`` (the training context, :class:`repro_torch.distributed.
+    fsdp.FSDP`) the leaves are this rank's blocks: each rank sums the
+    squares of the blocks it owns (``shards.owns(path)``: an element that
+    several ranks hold -- a whole norm, a dimension that does not split --
+    counts once, on the first of its replicas), then one ``all_reduce``
+    over every rank (``shards.sum_world``) gives the global norm, the same
+    on every rank."""
+    if shards is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in flatten(tree)[1]))
+    paths, leaves = flatten(tree)
+    total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    for path, x in zip(paths, leaves):
+        if shards.owns(path):
+            total = total + torch.sum(torch.square(x.float()))
+    return torch.sqrt(shards.sum_world(total))
 
 
 @torch.no_grad()
-def adamw_update(grads, opt_state: Dict, params, cfg: OptConfig):
+def adamw_update(grads, opt_state: Dict, params, cfg: OptConfig, shards=None):
     """One AdamW step (``repro/training/optimizer.py:53-77``): the gradients
     clipped to ``clip_norm`` by their global norm, the moments advanced,
     the bias-corrected update plus ``weight_decay * p`` on the leaves whose
     stacked rank is at least 2, times the step's learning rate. Updates
     ``params`` and ``opt_state`` in place and returns ``(params, opt_state,
-    {"lr", "grad_norm"})``. The parameters are float32 master weights."""
+    {"lr", "grad_norm"})``. The parameters are float32 master weights.
+    With ``shards`` (the training context) every tree holds this rank's
+    blocks: the update is elementwise, so it runs on them unchanged, and
+    the clip reads the global norm (:func:`global_norm`)."""
     step = opt_state["step"] + 1
     lr = lr_at(cfg, step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, shards)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     b1, b2 = cfg.b1, cfg.b2
     c1 = 1.0 - torch.pow(b1, step.to(torch.float32))

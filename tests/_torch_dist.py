@@ -210,6 +210,53 @@ def run_tp(names, tmp: Path):
         return inputs, pickle.load(f), ranks
 
 
+def _jax_ref(case: str, in_path: Path, out_path: Path, threads: int = 0) -> subprocess.Popen:
+    """The JAX side of ``case`` started in a subprocess on eight host
+    devices (with ``threads`` 1: XLA's host computations on one thread, so
+    that several such subprocesses and the ranks share the cores)."""
+    env = dict(os.environ)
+    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8" + (
+        " --xla_cpu_multi_thread_eigen=false" if threads == 1
+        else "")
+    env["JAX_PLATFORMS"] = "cpu"
+    env["PYTHONPATH"] = str(ROOT / "src")
+    return subprocess.Popen([sys.executable, str(ROOT / "tests" / "_torch_dist_ref.py"), case,
+                             str(in_path), str(out_path)], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, env=env)
+
+
+def run_train(names, tmp: Path, jax_procs: int = 3):
+    """Both sides of the sharded-training cases ``names``: the weights made
+    here (the port's draw, as numpy), then ``jax_procs`` JAX subprocesses (the cases
+    dealt out among them) and the port's eight gloo ranks at the same time;
+    the JAX side of a MoE case waits for the routes the ranks record first.
+    Returns ``(inputs, {case: reference outputs}, each rank's outputs)``."""
+    from _torch_fsdp import train_inputs
+
+    inputs = train_inputs(names, str(tmp / "ckpt"))
+    in_path = tmp / "inputs.pkl"
+    with open(in_path, "wb") as f:
+        pickle.dump(inputs, f)
+    groups = [list(names)[i::jax_procs] for i in range(jax_procs)]
+    groups = [g for g in groups if g]
+    procs = [(_jax_ref("train:" + ",".join(g), in_path, tmp / f"ref{i}.pkl", threads=1),
+              tmp / f"ref{i}.pkl") for i, g in enumerate(groups)]
+    try:
+        ranks = run_ranks("train", 8, in_path)
+    except BaseException:
+        for p, _ in procs:             # nothing left waiting for the ranks' routes
+            p.kill()
+        raise
+    finally:
+        logs = [(p.communicate(timeout=900)[0], p.returncode) for p, _ in procs]
+    ref = {}
+    for (log, rc), (_, path) in zip(logs, procs):
+        assert rc == 0, log
+        with open(path, "rb") as f:
+            ref.update(pickle.load(f))
+    return inputs, ref, ranks
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("localhost", 0))
@@ -550,7 +597,20 @@ def _tp_rank(rank: int, inputs: dict) -> dict:
     return out
 
 
-RANK_CASES = {"sp": _sp_rank, "seq_all": _seq_all_rank, "tp": _tp_rank}
+def _train_rank(rank: int, inputs: dict) -> dict:
+    from _torch_fsdp import train_rank
+
+    return train_rank(rank, inputs)
+
+
+def _pipe_rank(rank: int, inputs: dict) -> dict:
+    from _torch_fsdp import pipe_rank
+
+    return pipe_rank(rank, inputs)
+
+
+RANK_CASES = {"sp": _sp_rank, "seq_all": _seq_all_rank, "tp": _tp_rank, "train": _train_rank,
+              "pipe": _pipe_rank}
 
 
 # ------------------------------------------------------------ tensor-parallel checks
